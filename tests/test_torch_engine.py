@@ -2,10 +2,12 @@
 
 Both engines serve float32 tiny-qwen3 with the same parameters (the JAX
 tree handed over as numpy), the same CacheConfig and the same scheduler
-settings with chunked prefill off; greedy token streams, texts and finish
-reasons must be equal.  The rest checks the port's own engine: fused
-windows against single steps, prefix-cache reuse, preemption, abort, the
-block manager draining, and the options this slice refuses.
+settings (chunked prefill off on the JAX side; these prompts never chunk
+by length); greedy token streams, texts and finish reasons must be equal.
+tests/test_torch_chunked_mixed.py holds the chunked and mixed paths.  The
+rest checks the port's own engine: fused windows against single steps,
+prefix-cache reuse, preemption, abort, the block manager draining, and the
+options this slice refuses.
 """
 
 import dataclasses
@@ -172,12 +174,15 @@ def test_unported_engine_options_raise(model, kw):
 
 
 def test_unported_mesh_and_mixed_batching_raise(model):
+    """A mesh still raises; mixed batching is ported and builds an engine
+    whose scheduler packs at the ragged block."""
     _, _, cfg, params = model
     with pytest.raises(NotImplementedError, match="A10"):
         Engine(EngineConfig(model="tiny-qwen3"), params=params, model_cfg=cfg,
                mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ragged"):
-        _port(model, sched=dict(SCHED, mixed_batching=True))
+    eng = _port(model, sched=dict(SCHED, mixed_batching=True))
+    assert eng.scheduler.cfg.mixed_batching
+    assert eng.scheduler.ragged_align == eng._ragged_blk == 8
 
 
 @pytest.mark.parametrize("kw", [dict(top_k=5), dict(top_p=0.9), dict(min_p=0.1),

@@ -189,3 +189,109 @@ def test_int8_cache_decode_matches_jax(fp32_tiny_qwen3):
     tt, _ = transformer.decode_multi(p.params, p.cfg, *map(torch.from_numpy, args),
                                      torch.zeros(B), p.cache, steps=3)
     np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+
+
+# ---- chunked prefill and mixed ragged steps -------------------------------
+
+def test_prefill_chunk_matches_jax(pair):
+    """Two 8-token chunks of prompts of 16 and 11 tokens: logits of every
+    chunk and the cache after both agree with the JAX prefill_chunk."""
+    rng = np.random.default_rng(7)
+    lens = np.array([16, 11], np.int32)
+    prompt = rng.integers(0, pair.cfg.vocab_size, (2, 16)).astype(np.int32)
+    C = 8
+    for start in (0, 8):
+        chunk = np.clip(lens - start, 0, C).astype(np.int32)
+        ctx = np.full((2,), start, np.int32)
+        tokens = np.zeros((2, C), np.int32)
+        slot_ids = np.full((2, C), PAD_SLOT, np.int32)
+        for b, n in enumerate(chunk):
+            tokens[b, :n] = prompt[b, start:start + n]
+            slot_ids[b, :n] = pair.slots(b, start, n)
+        args = (tokens, ctx, chunk, slot_ids, pair.bt)
+        jl, pair.jcache = jax_tf.prefill_chunk(pair.jparams, pair.jcfg,
+                                               *map(jnp.asarray, args), pair.jcache)
+        tl, _ = transformer.prefill_chunk(pair.params, pair.cfg,
+                                          *map(torch.from_numpy, args), pair.cache,
+                                          attn_impl="reference")
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL, rtol=0)
+    for li in range(pair.cfg.num_layers):
+        for key in ("k", "v"):
+            np.testing.assert_allclose(pair.cache[li][key].numpy(),
+                                       np.asarray(pair.jcache[li][key]),
+                                       atol=ATOL, rtol=0)
+
+
+def _ragged_layout(bts, dec, chunks, blk=8, B=4):
+    """The engine's mixed layout for decode rows ``dec`` ((seq, token,
+    position) each) and prefill chunks ``chunks`` ((seq, tokens, ctx) each):
+    decode rows first, blk-aligned chunks, descriptors for B sequences."""
+    n_dec = len(dec)
+    cursor = -(-n_dec // blk) * blk
+    starts = []
+    for _, toks, _ in chunks:
+        starts.append(cursor)
+        cursor += -(-len(toks) // blk) * blk
+    T = max(1 << (max(cursor, 1) - 1).bit_length(), blk)
+    bs = BS
+
+    def slot(b, pos):
+        return bts[b, pos // bs] * bs + pos % bs
+
+    a = dict(tokens=np.zeros(T, np.int32), positions=np.zeros(T, np.int32),
+             slot_ids=np.full(T, PAD_SLOT, np.int32), row_seq=np.zeros(T, np.int32),
+             block_tables=np.zeros((B, MB), np.int32), kv_lens=np.zeros(B, np.int32),
+             q_starts=np.full(B, T, np.int32), q_lens=np.zeros(B, np.int32),
+             meta=np.asarray([n_dec, -(-n_dec // blk)], np.int32),
+             blk_seq=np.full(T // blk, -1, np.int32), last_rows=np.zeros(B, np.int32))
+    for i, (b, tok, pos) in enumerate(dec):
+        a["tokens"][i], a["positions"][i], a["slot_ids"][i] = tok, pos, slot(b, pos)
+        a["row_seq"][i], a["kv_lens"][i], a["q_starts"][i] = i, pos + 1, i
+        a["q_lens"][i], a["last_rows"][i] = 1, i
+        a["block_tables"][i] = bts[b]
+    for si, ((b, toks, ctx), st) in enumerate(zip(chunks, starts), start=n_dec):
+        n = len(toks)
+        rows = slice(st, st + n)
+        a["tokens"][rows] = toks
+        a["positions"][rows] = ctx + np.arange(n)
+        a["slot_ids"][rows] = [slot(b, ctx + i) for i in range(n)]
+        a["row_seq"][rows] = si
+        a["kv_lens"][si], a["q_starts"][si], a["q_lens"][si] = ctx + n, st, n
+        a["last_rows"][si] = st + n - 1
+        a["block_tables"][si] = bts[b]
+        a["blk_seq"][st // blk:(st + -(-n // blk) * blk) // blk] = si
+    return a
+
+
+_RAGGED_ARGS = ("tokens", "positions", "slot_ids", "row_seq", "block_tables", "kv_lens",
+                "q_starts", "q_lens", "meta", "blk_seq", "last_rows")
+
+
+def test_forward_ragged_matches_jax(pair):
+    """Two mixed steps after a prefill of two prompts: both decode rows plus
+    a third prompt's 13 tokens in chunks of 8 and 5 (the second on top of
+    its cached first chunk).  Logits of the decode rows and of the chunks'
+    last rows agree with the JAX forward_ragged; the kernel wrapper's
+    plain version (descriptors only, attn_impl="cuda" on CPU tensors)
+    agrees with the reference path."""
+    lens, jl, _ = _prefill(pair)
+    bts = np.arange(3 * MB, dtype=np.int32).reshape(3, MB)
+    rng = np.random.default_rng(8)
+    third = rng.integers(0, pair.cfg.vocab_size, 13).astype(np.int32)
+    toks = jl.argmax(-1).astype(np.int32)
+    for step, (ctx, n) in enumerate(((0, 8), (8, 5))):
+        dec = [(b, int(toks[b]), int(lens[b]) + step) for b in range(2)]
+        a = _ragged_layout(bts, dec, [(2, third[ctx:ctx + n], ctx)])
+        args = [a[k] for k in _RAGGED_ARGS]
+        jlog, pair.jcache = jax_tf.forward_ragged(
+            pair.jparams, pair.jcfg, *map(jnp.asarray, args), pair.jcache, ragged_blk=8)
+        tlog = {}
+        for impl in ("reference", "cuda"):
+            tlog[impl], _ = transformer.forward_ragged(
+                pair.params, pair.cfg, *map(torch.from_numpy, args), pair.cache,
+                ragged_blk=8, attn_impl=impl)
+        np.testing.assert_allclose(tlog["reference"].numpy()[:3], np.asarray(jlog)[:3],
+                                   atol=ATOL, rtol=0)
+        np.testing.assert_allclose(tlog["cuda"].numpy()[:3], tlog["reference"].numpy()[:3],
+                                   atol=ATOL, rtol=0)
+        toks = np.asarray(jlog)[:2].argmax(-1).astype(np.int32)

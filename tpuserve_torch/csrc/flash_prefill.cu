@@ -35,15 +35,12 @@
 //   tolerance, so QK^T and PV run on the CUDA cores from shared memory,
 //   32 query rows and 32 keys a step (54 KB at D=128, 103 KB at D=256).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <mma.h>
-#include <stdint.h>
+
+#include "attn_common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 128;
 
 struct Args {
@@ -65,18 +62,6 @@ __device__ __forceinline__ bool key_ok(int col, int row, int plen, int window) {
 __device__ __forceinline__ float score(float s, const Args& a) {
   s *= a.scale;
   return a.softcap > 0.f ? a.softcap * tanhf(s / a.softcap) : s;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off /= 2) x = fmaxf(x, __shfl_xor_sync(kFull, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off /= 2) x += __shfl_xor_sync(kFull, x, off);
-  return x;
 }
 
 // first key tile any of rows [q0, ...) may attend

@@ -1,6 +1,7 @@
 """Decoder-only transformer for the dense Qwen3/Qwen2/Llama/Phi-3/OPT/Gemma
 family — the port of the serving entries of ``tpuserve/models/transformer.py``
-(``prefill``, ``decode_step``, ``decode_multi``).
+(``prefill``, ``prefill_chunk``, ``decode_step``, ``decode_multi``,
+``forward_ragged``).
 
 Parameters are the plain tree of ``models/weights.py``.  The functions run
 eagerly on the tensors' device.  Unlike the JAX functions, which return a
@@ -9,8 +10,9 @@ is ever made) and return it for symmetry.
 
 ``attn_impl``: "reference" runs the plain attention in ``ops/attention.py``;
 "cuda" runs the kernel wrappers (``ops/flash_prefill.py``,
-``ops/paged_decode.py``), which launch the CUDA kernels on CUDA tensors and
-use the same plain versions on CPU tensors.
+``ops/paged_decode.py``, ``ops/paged_window.py``, ``ops/ragged_paged.py``),
+which launch the CUDA kernels on CUDA tensors and use the same plain
+versions on CPU tensors.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ from tpuserve_torch.ops import rope as rope_ops
 from tpuserve_torch.ops import sampling as sampling_ops
 from tpuserve_torch.ops.flash_prefill import flash_prefill_attention
 from tpuserve_torch.ops.paged_decode import paged_decode_attention
+from tpuserve_torch.ops.paged_window import paged_window_attention
+from tpuserve_torch.ops.ragged_paged import ragged_paged_attention
 
 ATTN_IMPLS = ("reference", "cuda")
 
@@ -196,6 +200,57 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
+# Chunked prefill: one bounded chunk of a prompt against the cache
+# --------------------------------------------------------------------------
+
+def _chunk_trunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                 ctx_lens: torch.Tensor, chunk_lens: torch.Tensor,
+                 slot_ids: torch.Tensor, block_tables: torch.Tensor,
+                 kv_cache: list, attn_impl: str) -> torch.Tensor:
+    """Layer loop for cache-relative windows: write the window's KV, then
+    attend the cached context plus causally within the window.  Returns
+    the final hidden states (B, C, H)."""
+    B, C = tokens.shape
+    positions = ctx_lens.long()[:, None] + torch.arange(C, device=tokens.device)[None, :]
+    rows = attn_ops.keep_rows(slot_ids.reshape(-1), _num_slots(kv_cache))
+    h = _embed(params, cfg, tokens, positions)
+    scale = cfg.attn_scale
+    attend = (paged_window_attention if attn_impl == "cuda"
+              else attn_ops.chunked_prefill_attention)
+    for li, lp in enumerate(params["layers"]):
+        hn = _norm(h, lp["attn_norm"], cfg)
+        q, k, v = _qkv(hn, lp, cfg, positions, li)
+        entry = attn_ops.write_kv_entry(kv_cache[li], k, v, slot_ids, rows)
+        out = attend(q.contiguous(), entry["k"], entry["v"], block_tables,
+                     ctx_lens, chunk_lens, scale, k_scale=entry.get("ks"),
+                     v_scale=entry.get("vs"), sliding_window=cfg.layer_window(li),
+                     logit_softcap=cfg.attn_logit_softcapping)
+        h = h + _attn_residual(out.reshape(B, C, cfg.q_size), lp, cfg)
+        h = h + _mlp_residual(h, lp, cfg)
+    return h
+
+
+@torch.no_grad()
+def prefill_chunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                  ctx_lens: torch.Tensor, chunk_lens: torch.Tensor,
+                  slot_ids: torch.Tensor, block_tables: torch.Tensor,
+                  kv_cache: list, *, attn_impl: str = "reference"):
+    """One chunk of each prompt against the paged cache.  tokens: (B, C)
+    right-padded chunk tokens; ctx_lens: (B,) int32 tokens already cached
+    before the chunk; chunk_lens: (B,) int32 valid chunk tokens; slot_ids:
+    (B, C) flat slots (``PAD_SLOT`` on padding); block_tables: (B,
+    max_blocks) int32.  Returns (logits (B, V) float32 at each sequence's
+    last valid chunk row — meaningful on a prompt's last chunk — and
+    kv_cache)."""
+    _check(cfg, attn_impl)
+    h = _chunk_trunk(params, cfg, tokens, ctx_lens, chunk_lens, slot_ids,
+                     block_tables, kv_cache, attn_impl)
+    last = torch.clamp(chunk_lens.long() - 1, min=0)
+    h_last = h[torch.arange(h.shape[0], device=h.device), last]
+    return _unembed(params, cfg, h_last), kv_cache
+
+
+# --------------------------------------------------------------------------
 # Decode: one token per sequence against the paged cache
 # --------------------------------------------------------------------------
 
@@ -288,3 +343,54 @@ def decode_multi(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         outs.append(nxt)
         toks, pos, lens = nxt, pos + 1, lens + 1
     return torch.stack(outs, dim=1), kv_cache
+
+
+# --------------------------------------------------------------------------
+# Mixed prefill + decode: one flat token stream, no phase split
+# --------------------------------------------------------------------------
+
+@torch.no_grad()
+def forward_ragged(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                   positions: torch.Tensor, slot_ids: torch.Tensor,
+                   row_seq: torch.Tensor, block_tables: torch.Tensor,
+                   kv_lens: torch.Tensor, q_starts: torch.Tensor,
+                   q_lens: torch.Tensor, meta: torch.Tensor,
+                   blk_seq: torch.Tensor, last_rows: torch.Tensor,
+                   kv_cache: list, *, ragged_blk: int = 8,
+                   attn_impl: str = "reference"):
+    """One mixed step over a flat stream of decode rows and prefill-chunk
+    rows (the layout of ``ops/ragged_paged.py``).
+
+    tokens/positions/slot_ids/row_seq: (T,) int32 token, cache position,
+    flat slot (``PAD_SLOT`` on padding) and sequence of each row;
+    block_tables (B, max_blocks) / kv_lens / q_starts / q_lens: (B,) int32
+    per sequence (kv_lens counts this step's rows); meta (2,) and blk_seq
+    (T // ragged_blk,) describe the block layout; last_rows: (B,) the flat
+    row of each sequence's last token, where its logits are taken.  Each
+    row's KV is written first, then the row attends its own sequence's
+    keys at positions <= its own.  Returns (logits (B, V) float32,
+    kv_cache)."""
+    _check(cfg, attn_impl)
+    T = tokens.shape[0]
+    rows = attn_ops.keep_rows(slot_ids, _num_slots(kv_cache))
+    h = _embed(params, cfg, tokens, positions)                 # (T, H)
+    scale = cfg.attn_scale
+    row_lens = positions + 1
+    for li, lp in enumerate(params["layers"]):
+        hn = _norm(h, lp["attn_norm"], cfg)
+        q, k, v = _qkv(hn, lp, cfg, positions, li)             # (T, H*, D)
+        entry = attn_ops.write_kv_entry(kv_cache[li], k, v, slot_ids, rows)
+        kw = dict(k_scale=entry.get("ks"), v_scale=entry.get("vs"),
+                  sliding_window=cfg.layer_window(li),
+                  logit_softcap=cfg.attn_logit_softcapping)
+        if attn_impl == "cuda":
+            out = ragged_paged_attention(
+                q.contiguous(), entry["k"], entry["v"], block_tables, kv_lens,
+                q_starts, q_lens, meta, blk_seq, scale, ragged_blk, **kw)
+        else:
+            out = attn_ops.ragged_reference_attention(
+                q, entry["k"], entry["v"], block_tables, row_seq, row_lens,
+                blk_seq, meta, ragged_blk, scale, **kw)
+        h = h + _attn_residual(out.reshape(T, cfg.q_size), lp, cfg)
+        h = h + _mlp_residual(h, lp, cfg)
+    return _unembed(params, cfg, h[last_rows.long()]), kv_cache

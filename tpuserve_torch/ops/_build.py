@@ -2,9 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
 into its own shared library, loaded with ``ctypes`` (no PyTorch headers, so
-a build takes seconds).  Libraries land in ``build/tpuserve_torch/`` at the
-repository root, named by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one loads the library already built.
+a build takes seconds).  Device code shared between kernels lives in
+``csrc/*.cuh`` headers.  Libraries land in ``build/tpuserve_torch/`` at the
+repository root, named by a hash of the source, the headers and the flags,
+so an edited source or header rebuilds and an unchanged one loads the
+library already built.
 
 Nothing here runs at import time: the CPU tests import every module, and
 this machine may have no ``nvcc``.
@@ -22,7 +24,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpuserve_torch"
-KERNELS = ("flash_prefill", "paged_decode")
+KERNELS = ("flash_prefill", "paged_decode", "paged_window", "ragged_paged")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -39,6 +41,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -2,11 +2,12 @@
 ops in ``tpuserve/ops/attention.py``.
 
 These are the semantics the CUDA kernels (``ops/flash_prefill.py``,
-``ops/paged_decode.py``) are held to on the card, and the path every op
-takes for tensors on the CPU.  Two deliberate differences from the JAX
-reference, both matching the kernels:
+``ops/paged_decode.py``, ``ops/paged_window.py``, ``ops/ragged_paged.py``)
+are held to on the card, and the path every op takes for tensors on the
+CPU.  Two deliberate differences from the JAX reference, both matching the
+kernels:
 
-- V rows outside a row's valid key range are zeroed before P·V.  Cache
+- V rows outside every row's valid key range are zeroed before P·V.  Cache
   pages made with ``torch.empty`` may hold NaN, and 0 * NaN would poison
   the output even though those probabilities are exactly 0.
 - Paged-decode rows with ``seq_len == 0`` (batch padding) return zeros.
@@ -131,6 +132,253 @@ def paged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     # a seq_len == 0 row has every V row zeroed, so it returns zeros
     out = torch.einsum("bhk,bkhd->bhd", probs.to(v.dtype), v)
     return out.to(q.dtype)
+
+
+def _gather_pages(k_cache, v_cache, block_tables, k_scale, v_scale, dtype):
+    """Gather each row of ``block_tables``' pages: (N, S, Hkv, D) K and V,
+    int8 pages dequantized into ``dtype``."""
+    N = block_tables.shape[0]
+    _, bs, Hkv, D = k_cache.shape
+    S = block_tables.shape[1] * bs
+    bt = block_tables.long()
+    k = k_cache[bt].reshape(N, S, Hkv, D)
+    v = v_cache[bt].reshape(N, S, Hkv, D)
+    if k_scale is not None:
+        k = dequantize_kv(k, k_scale[bt].reshape(N, S, Hkv), dtype)
+        v = dequantize_kv(v, v_scale[bt].reshape(N, S, Hkv), dtype)
+    return k, v
+
+
+def _no_slices(scale_slices) -> None:
+    if scale_slices is not None:
+        raise NotImplementedError(
+            "per-slice int8 scales (MLA) are not ported yet (ROADMAP.md A8, "
+            "model breadth)")
+
+
+def chunked_prefill_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                              v_cache: torch.Tensor, block_tables: torch.Tensor,
+                              ctx_lens: torch.Tensor, chunk_lens: torch.Tensor,
+                              scale: float, *, seg_size: int = 512,
+                              k_scale: torch.Tensor | None = None,
+                              v_scale: torch.Tensor | None = None,
+                              sliding_window: int | None = None,
+                              logit_softcap: float | None = None,
+                              scale_slices=None) -> torch.Tensor:
+    """Attention for one prefill chunk (or any query window) against the
+    paged cache.
+
+    The chunk's K/V must already be written (keys at positions
+    ``ctx_lens .. ctx_lens + chunk_lens``).  Query row ``i`` sits at
+    position ``ctx_lens + i`` and attends every cached key at or before
+    it.  Keys stream in ``seg_size`` segments with an online softmax, so
+    the transient is (B, Hq, C, seg).  q: (B, C, Hq, D); block_tables:
+    (B, max_blocks); ctx_lens/chunk_lens: (B,).  Returns (B, C, Hq, D);
+    rows past ``chunk_lens`` return zeros.
+    """
+    _no_slices(scale_slices)
+    B, C, Hq, D = q.shape
+    Hkv = k_cache.shape[2]
+    G = Hq // Hkv
+    k, v = _gather_pages(k_cache, v_cache, block_tables, k_scale, v_scale, q.dtype)
+    S = k.shape[1]
+    ctx = ctx_lens.to(q.device).long()[:, None, None]            # (B, 1, 1)
+    n = chunk_lens.to(q.device).long()[:, None, None]
+    j = torch.arange(S, device=q.device)
+    v_ok = j[None, :] < (ctx + n)[:, 0]                           # (B, S)
+    if sliding_window is not None:
+        v_ok = v_ok & (j[None, :] > ctx[:, 0] - sliding_window)
+    v = torch.where(v_ok[:, :, None, None], v, torch.zeros_like(v))
+    q_r = (q.float() * scale).reshape(B, C, Hkv, G, D)
+    qi = torch.arange(C, device=q.device)[None, :, None]          # (1, C, 1)
+    q_valid = qi < n
+    o = torch.zeros(B, Hq, C, D, dtype=torch.float32, device=q.device)
+    m = torch.full((B, Hq, C), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros(B, Hq, C, dtype=torch.float32, device=q.device)
+    seg = min(seg_size, S)
+    for s0 in range(0, S, seg):
+        ks, vs = k[:, s0:s0 + seg].float(), v[:, s0:s0 + seg].float()
+        w = ks.shape[1]
+        scores = torch.einsum("bqhgd,bkhd->bhgqk", q_r, ks).reshape(B, Hq, C, w)
+        scores = _softcap(scores, logit_softcap)
+        jj = s0 + torch.arange(w, device=q.device)[None, None, :]
+        mask = (jj <= ctx + qi) & q_valid
+        if sliding_window is not None:
+            mask = mask & (jj > ctx + qi - sliding_window)
+        mask = mask[:, None]                                      # (B, 1, C, w)
+        scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+        m_new = torch.maximum(m, scores.amax(dim=-1))
+        p = torch.where(mask, torch.exp(scores - m_new[..., None]),
+                        torch.zeros_like(scores))
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        pv = torch.einsum("bhgqk,bkhd->bhgqd", p.reshape(B, Hkv, G, C, w), vs)
+        o = o * alpha[..., None] + pv.reshape(B, Hq, C, D)
+        m = m_new
+    out = o / torch.where(l == 0.0, torch.ones_like(l), l)[..., None]
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def ragged_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, row_block_tables: torch.Tensor,
+                     row_lens: torch.Tensor, scale: float, *,
+                     seg_size: int = 512,
+                     k_scale: torch.Tensor | None = None,
+                     v_scale: torch.Tensor | None = None,
+                     sliding_window: int | None = None,
+                     logit_softcap: float | None = None,
+                     scale_slices=None) -> torch.Tensor:
+    """Flat-token ragged attention: row ``t`` of q (T, Hq, D) attends the
+    keys at positions ``< row_lens[t]`` of its own sequence, whose block
+    table is ``row_block_tables[t]`` (T, max_blocks).  Keys stream in
+    ``seg_size`` segments with an online softmax.  For a decode row this
+    is :func:`paged_decode_attention`'s math, for a chunk row
+    :func:`chunked_prefill_attention`'s.  Returns (T, Hq, D)."""
+    _no_slices(scale_slices)
+    T, Hq, D = q.shape
+    _, bs, Hkv, _ = k_cache.shape
+    G = Hq // Hkv
+    mb = row_block_tables.shape[1]
+    pg = max(1, seg_size // bs)                   # pages per segment
+    lens = row_lens.to(q.device).long()[:, None]
+    q_r = (q.float() * scale).reshape(T, Hkv, G, D)
+    o = torch.zeros(T, Hq, D, dtype=torch.float32, device=q.device)
+    m = torch.full((T, Hq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros(T, Hq, dtype=torch.float32, device=q.device)
+    for c0 in range(0, mb, pg):
+        k, v = _gather_pages(k_cache, v_cache, row_block_tables[:, c0:c0 + pg],
+                             k_scale, v_scale, q.dtype)
+        R = k.shape[1]
+        j = c0 * bs + torch.arange(R, device=q.device)[None, :]   # (1, R)
+        mask = j < lens
+        if sliding_window is not None:
+            mask = mask & (j >= lens - sliding_window)
+        v = torch.where(mask[:, :, None, None], v, torch.zeros_like(v))
+        scores = torch.einsum("thgd,tkhd->thgk", q_r, k.float()).reshape(T, Hq, R)
+        scores = _softcap(scores, logit_softcap)
+        scores = torch.where(mask[:, None, :], scores, torch.full_like(scores, NEG_INF))
+        m_new = torch.maximum(m, scores.amax(dim=-1))
+        p = torch.where(mask[:, None, :], torch.exp(scores - m_new[..., None]),
+                        torch.zeros_like(scores))
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        pv = torch.einsum("thgk,tkhd->thgd", p.reshape(T, Hkv, G, R), v.float())
+        o = o * alpha[..., None] + pv.reshape(T, Hq, D)
+        m = m_new
+    out = o / torch.where(l == 0.0, torch.ones_like(l), l)[..., None]
+    return out.to(q.dtype)
+
+
+def ragged_blocked_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, blk_bt: torch.Tensor,
+                             row_lens: torch.Tensor, blk: int, scale: float, *,
+                             k_scale: torch.Tensor | None = None,
+                             v_scale: torch.Tensor | None = None,
+                             sliding_window: int | None = None,
+                             logit_softcap: float | None = None,
+                             scale_slices=None) -> torch.Tensor:
+    """Block-gather ragged attention, valid only for rows whose ``blk``-row
+    block belongs to one sequence (the mixed layout's prefill blocks): the
+    pages are gathered once per block (``blk_bt``: (T // blk, max_blocks),
+    each block's sequence's table row).  Same per-row semantics as
+    :func:`ragged_attention`; rows of blocks with no single sequence are
+    unspecified.  Returns (T, Hq, D)."""
+    _no_slices(scale_slices)
+    T, Hq, D = q.shape
+    Hkv = k_cache.shape[2]
+    G = Hq // Hkv
+    nblk = T // blk
+    k, v = _gather_pages(k_cache, v_cache, blk_bt, k_scale, v_scale, q.dtype)
+    S = k.shape[1]
+    lens = row_lens.to(q.device).long().reshape(nblk, blk)
+    j = torch.arange(S, device=q.device)
+    v_ok = j[None, :] < lens.amax(dim=1)[:, None]                 # (nblk, S)
+    if sliding_window is not None:
+        first = torch.where(lens > 0, lens, torch.full_like(lens, S)).amin(dim=1)
+        v_ok = v_ok & (j[None, :] >= first[:, None] - sliding_window)
+    v = torch.where(v_ok[:, :, None, None], v, torch.zeros_like(v))
+    q_r = q.reshape(nblk, blk, Hkv, G, D)
+    scores = torch.einsum("nbhgd,nkhd->nhgbk", q_r.float(), k.float()) * scale
+    scores = _softcap(scores, logit_softcap)
+    mask = j[None, None, :] < lens[:, :, None]                    # (nblk, blk, S)
+    if sliding_window is not None:
+        mask = mask & (j[None, None, :] >= lens[:, :, None] - sliding_window)
+    scores = torch.where(mask[:, None, None], scores, torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("nhgbk,nkhd->nbhgd", probs.to(v.dtype), v)
+    return out.reshape(T, Hq, D).to(q.dtype)
+
+
+def ragged_reference_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                               v_cache: torch.Tensor, block_tables: torch.Tensor,
+                               row_seq: torch.Tensor, row_lens: torch.Tensor,
+                               blk_seq: torch.Tensor, meta: torch.Tensor,
+                               blk: int, scale: float, *,
+                               k_scale: torch.Tensor | None = None,
+                               v_scale: torch.Tensor | None = None,
+                               sliding_window: int | None = None,
+                               logit_softcap: float | None = None) -> torch.Tensor:
+    """One mixed layer's plain ragged attention, as the JAX package's
+    ``_ragged_reference_attn``: prefill blocks take the block-gather path,
+    and the first ``meta[0]`` rows (decode rows, row r = sequence r) are
+    overlaid with :func:`paged_decode_attention`, the phase-split decode
+    math.  row_seq/row_lens: (T,) each row's sequence and position + 1."""
+    T = q.shape[0]
+    kw = dict(k_scale=k_scale, v_scale=v_scale, sliding_window=sliding_window,
+              logit_softcap=logit_softcap)
+    out = ragged_blocked_attention(
+        q, k_cache, v_cache, block_tables[blk_seq.clamp(min=0).long()],
+        row_lens, blk, scale, **kw)
+    Bc = min(block_tables.shape[0], T)
+    head = paged_decode_attention(
+        q[:Bc], k_cache, v_cache, block_tables[row_seq[:Bc].long()],
+        row_lens[:Bc], scale, **kw)
+    is_dec = torch.arange(Bc, device=q.device) < meta[0].to(q.device)
+    out[:Bc] = torch.where(is_dec[:, None, None], head, out[:Bc])
+    return out
+
+
+def ragged_rows(kv_lens: torch.Tensor, q_starts: torch.Tensor,
+                q_lens: torch.Tensor, meta: torch.Tensor, blk_seq: torch.Tensor,
+                blk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each flat row's (sequence, position + 1) from the mixed layout's
+    descriptors, on their device (no host read).  Rows that serve no query
+    (decode-region padding, padding blocks, rows past a chunk's ``q_lens``)
+    get length 0."""
+    B = kv_lens.shape[0]
+    T = blk_seq.shape[0] * blk
+    t = torch.arange(T, device=kv_lens.device)
+    seq = torch.where(t < meta[0], t, blk_seq.long().repeat_interleave(blk))
+    s = seq.clamp(0, B - 1)
+    i = t - q_starts.long()[s]
+    n = q_lens.long()[s]
+    valid = (seq >= 0) & (i >= 0) & (i < n)
+    lens = torch.where(valid, kv_lens.long()[s] - n + i + 1, torch.zeros_like(i))
+    return s.int(), lens.int()
+
+
+def ragged_paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, block_tables: torch.Tensor,
+                           kv_lens: torch.Tensor, q_starts: torch.Tensor,
+                           q_lens: torch.Tensor, meta: torch.Tensor,
+                           blk_seq: torch.Tensor, scale: float, blk: int, *,
+                           k_scale: torch.Tensor | None = None,
+                           v_scale: torch.Tensor | None = None,
+                           sliding_window: int | None = None,
+                           logit_softcap: float | None = None) -> torch.Tensor:
+    """The plain version of the ragged kernel's contract
+    (``ops/ragged_paged.py``): one flat (T, Hq, D) stream, decode rows
+    first (row r = sequence r, ``meta[0]`` of them), then ``blk``-aligned
+    prefill chunks; ``blk_seq`` (T // blk,) names each prefill block's
+    sequence (-1 elsewhere).  kv_lens/q_starts/q_lens: (B,) per sequence,
+    kv_lens counting this step's rows.  Rows that serve no query return
+    zeros, as the kernel writes them."""
+    row_seq, row_lens = ragged_rows(kv_lens, q_starts, q_lens, meta, blk_seq, blk)
+    out = ragged_reference_attention(
+        q, k_cache, v_cache, block_tables, row_seq, row_lens, blk_seq, meta,
+        blk, scale, k_scale=k_scale, v_scale=v_scale,
+        sliding_window=sliding_window, logit_softcap=logit_softcap)
+    return torch.where((row_lens > 0)[:, None, None], out, torch.zeros_like(out))
 
 
 def keep_rows(slots: torch.Tensor, num_slots: int) -> torch.Tensor:

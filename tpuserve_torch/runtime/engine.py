@@ -1,11 +1,20 @@
 """The serving engine: continuous batching over a paged KV cache, in
-PyTorch — the phase-split slice of ``tpuserve/runtime/engine.py``.
+PyTorch — the port of ``tpuserve/runtime/engine.py``'s phase-split,
+chunked-prefill and mixed ragged paths.
 
-Each ``step`` is one batched prefill (``transformer.prefill``: the flash
-prefill kernel on the card) or one decode dispatch: a fused window of
-``multi_step`` tokens (``transformer.decode_multi``: the paged decode
-kernel on every token, one host read per window), or a single step when
-``multi_step`` is 1 or the window's cache slots cannot be reserved.
+Each ``step`` is one of:
+- a batched prefill (``transformer.prefill``: the flash prefill kernel on
+  the card);
+- one chunk of a long or prefix-hit prompt (``transformer.prefill_chunk``:
+  the paged window kernel), starting at the prefix cache's cached offset;
+  the request re-queues between chunks;
+- a mixed step (``mixed_batching=True``): every running stream's decode row
+  plus prefill-chunk rows in one flat stream (``transformer.forward_ragged``:
+  the ragged paged kernel);
+- a decode dispatch: a fused window of ``multi_step`` tokens
+  (``transformer.decode_multi``: the paged decode kernel on every token,
+  one host read per window), or a single step when ``multi_step`` is 1 or
+  the window's cache slots cannot be reserved.
 Sampling is greedy or temperature; stop strings, stop ids, ``ignore_eos``
 and ``max_tokens`` are host logic, as in the JAX engine.
 
@@ -31,6 +40,7 @@ from tpuserve_torch.models.tokenizer import IncrementalDetokenizer, load_tokeniz
 from tpuserve_torch.models.weights import init_params, param_nbytes
 from tpuserve_torch.ops import sampling as sampling_ops
 from tpuserve_torch.ops.attention import PAD_SLOT
+from tpuserve_torch.ops.ragged_paged import ragged_block, ragged_layout
 from tpuserve_torch.runtime.block_manager import BlockManager
 from tpuserve_torch.runtime.clock import MONOTONIC
 from tpuserve_torch.runtime.kv_cache import (
@@ -86,7 +96,8 @@ class EngineConfig:
 
 @dataclasses.dataclass
 class EngineStats:
-    num_prefill_steps: int = 0
+    num_prefill_steps: int = 0       # batched prefills, chunks and mixed steps with chunks
+    num_chunk_steps: int = 0         # prefill_chunk dispatches
     num_decode_steps: int = 0        # decode tokens computed per row (S per window)
     num_decode_windows: int = 0      # fused windows dispatched
     prompt_tokens: int = 0
@@ -95,6 +106,11 @@ class EngineStats:
     requests_finished: int = 0
     # fused windows: tokens computed past a request's stop point, dropped
     window_overrun_tokens: int = 0
+    num_mixed_steps: int = 0
+    # rows computed vs rows dispatched (padding included) by the prefill,
+    # chunk and mixed paths
+    actual_tokens_total: int = 0
+    padded_tokens_total: int = 0
     ttft_sum: float = 0.0
     ttft_count: int = 0
     last_step_time: float = 0.0
@@ -120,10 +136,6 @@ class Engine:
         for field, item in _UNPORTED_CONFIG:
             if getattr(config, field) is not None:
                 raise NotImplementedError(f"EngineConfig.{field}: {item}")
-        if config.scheduler.mixed_batching:
-            raise NotImplementedError(
-                "mixed batching is not ported yet (ROADMAP.md A7, engine "
-                "slice 3: ragged_paged_attention)")
         self.clock = MONOTONIC
         self.model_cfg = model_cfg or get_model_config(config.model)
         self.attn_impl = config.resolve_attn_impl(self.device)
@@ -146,13 +158,29 @@ class Engine:
         self.block_manager = BlockManager(
             self.cache_cfg.num_blocks, self.cache_cfg.block_size,
             enable_prefix_caching=config.enable_prefix_caching)
-        # Chunked prefill needs paged_window_attention (the next slice):
-        # with the flag off every scheduler chunk route is closed, so every
-        # prompt — prefix-cache hits included — takes the batched route.
-        sched_cfg = dataclasses.replace(config.scheduler,
-                                        allow_chunked_prefill=False)
+        # Mixed batching: the flat-row block is the ragged kernel's grid
+        # block AND the host packing's alignment (one source,
+        # ragged_paged.ragged_block); the descriptor width is fixed so the
+        # flat-token bucket is the only shape that varies.
+        sched_cfg = config.scheduler
+        self._ragged_blk = ragged_block(device=self.device)
+        self._ragged_seqs = next_power_of_2(sched_cfg.max_num_seqs)
+        if sched_cfg.mixed_batching:
+            # the row budget must cover the full decode region plus one
+            # aligned chunk, or a full decode batch would starve admissions
+            blk = self._ragged_blk
+            floor = -(-sched_cfg.max_num_seqs // blk) * blk + blk
+            if sched_cfg.mixed_token_budget < floor:
+                logger.warning(
+                    "mixed_token_budget %d cannot cover max_num_seqs %d "
+                    "decode rows plus one %d-row chunk; raising to %d",
+                    sched_cfg.mixed_token_budget, sched_cfg.max_num_seqs,
+                    blk, floor)
+                sched_cfg = dataclasses.replace(sched_cfg,
+                                                mixed_token_budget=floor)
         self.scheduler = Scheduler(sched_cfg, self.block_manager,
-                                   max_model_len=self.cache_cfg.max_model_len)
+                                   max_model_len=self.cache_cfg.max_model_len,
+                                   ragged_align=self._ragged_blk)
         self.scheduler.clock = self.clock
         self.stats = EngineStats()
         self.requests: dict[str, Request] = {}   # live + finished-unclaimed
@@ -266,9 +294,14 @@ class Engine:
                 return False
             self.block_manager.free(request_id, cache_blocks=False)
         else:
-            # prompts are written whole (no chunked prefill), so a held
-            # block's KV is complete and may stay in the prefix cache
-            self.block_manager.free(request_id)
+            # a request mid-way through a chunked prefill (holding blocks
+            # but not RUNNING) has blocks whose KV was never written:
+            # parking them in the prefix cache would serve garbage to the
+            # next identical prefix.  Once RUNNING, every prompt block is
+            # written.
+            partial = (req.state != RequestState.RUNNING
+                       and req.num_prefilled > 0)
+            self.block_manager.free(request_id, cache_blocks=not partial)
         req.state = RequestState.FINISHED
         req.finish_reason = FinishReason.ABORT
         self._release(request_id)
@@ -286,14 +319,19 @@ class Engine:
     # ------------------------------------------------------------------
 
     def step(self) -> list[RequestOutput]:
-        """Run one engine iteration: one prefill batch or one decode
-        dispatch (a fused window or a single step)."""
+        """Run one engine iteration: one prefill batch, one prefill chunk,
+        one mixed step, or one decode dispatch (a fused window or a single
+        step)."""
         batch = self.scheduler.schedule()
         if batch is None:
             return []
         t0 = self.clock.monotonic()
         if batch.kind == "prefill":
             outputs = self._run_prefill(batch)
+        elif batch.kind == "prefill_chunk":
+            outputs = self._run_prefill_chunk(batch)
+        elif batch.kind == "mixed":
+            outputs = self._run_mixed(batch)
         elif batch.kind == "decode":
             outputs = None
             if self._multi_step > 1:
@@ -301,8 +339,7 @@ class Engine:
             if outputs is None:
                 outputs = self._run_decode(batch)
         else:
-            raise RuntimeError(f"unexpected batch kind {batch.kind!r} "
-                               "(chunked and mixed routes are closed)")
+            raise RuntimeError(f"unexpected batch kind {batch.kind!r}")
         self.stats.last_step_time = self.clock.monotonic() - t0
         return outputs
 
@@ -317,34 +354,193 @@ class Engine:
         slot_ids = np.full((B, L), PAD_SLOT, np.int32)
         prompt_lens = np.ones((B,), np.int32)
         for i, req in enumerate(reqs):
-            ids = req.prompt_token_ids + req.output_token_ids
+            ids = self._prefill_tokens(req)
             shared, _cached = self.block_manager.lookup_prefix(ids)
             self.block_manager.allocate(req.request_id, ids, shared_blocks=shared)
             tokens[i, :len(ids)] = ids
             prompt_lens[i] = len(ids)
-            slot_ids[i, :len(ids)] = self._token_slots(req.request_id, len(ids))
+            slot_ids[i, :len(ids)] = self._token_slots(req.request_id, 0, len(ids))
         logits, self.kv_cache = transformer.prefill(
             self.params, self.model_cfg, self._tensor(tokens),
             self._tensor(prompt_lens), self._tensor(slot_ids), self.kv_cache,
             attn_impl=self.attn_impl)
         self.scheduler.mark_running(reqs)
         self.stats.num_prefill_steps += 1
+        self._note_step_tokens(int(prompt_lens[:len(reqs)].sum()), B * L)
         new_tokens = self._sample(logits, reqs, B)
-        now = self.clock.monotonic()
-        for req in reqs:
-            if req.first_token_time is None:      # not a re-prefill
-                req.first_token_time = now
-                self.stats.ttft_sum += now - req.arrival_time
-                self.stats.ttft_count += 1
+        self._first_token(reqs)
         return [self._emit_one(r, int(t), from_prefill=True)
                 for r, t in zip(reqs, new_tokens)]
 
-    def _token_slots(self, request_id: str, n: int) -> np.ndarray:
-        """Flat cache slots of token indices [0, n)."""
+    @staticmethod
+    def _prefill_tokens(req: Request) -> list[int]:
+        """Tokens to prefill: the prompt plus, after a preemption,
+        everything generated so far (the cache was dropped)."""
+        return req.prompt_token_ids + req.output_token_ids
+
+    def _token_slots(self, request_id: str, start: int, n: int,
+                     block_table=None) -> np.ndarray:
+        """Flat cache slots of token indices [start, start + n); pass
+        ``block_table`` when the caller already fetched it."""
         bs = self.cache_cfg.block_size
-        bt = np.asarray(self.block_manager.block_table(request_id), np.int64)
-        t = np.arange(n)
+        if block_table is None:
+            block_table = self.block_manager.block_table(request_id)
+        bt = np.asarray(block_table, np.int64)
+        t = np.arange(start, start + n)
         return (bt[t // bs] * bs + t % bs).astype(np.int32)
+
+    def _note_step_tokens(self, actual: int, padded: int) -> None:
+        self.stats.actual_tokens_total += actual
+        self.stats.padded_tokens_total += padded
+
+    def _first_token(self, reqs: list[Request]) -> None:
+        """Record TTFT for requests sampling their first token (not a
+        re-prefill after preemption)."""
+        now = self.clock.monotonic()
+        for req in reqs:
+            if req.first_token_time is None:
+                req.first_token_time = now
+                self.stats.ttft_sum += now - req.arrival_time
+                self.stats.ttft_count += 1
+
+    def _run_prefill_chunk(self, batch: ScheduledBatch) -> list[RequestOutput]:
+        """One fixed-size chunk of a long or prefix-hit prompt against the
+        cache.  The first chunk allocates and starts at the prefix cache's
+        cached offset (the shared blocks already hold that KV, so it is not
+        recomputed).  The request re-enters the head of the waiting queue
+        until its last chunk, which samples the first token."""
+        req = batch.requests[0]
+        C = batch.padded_len
+        ids = self._prefill_tokens(req)
+        if req.num_prefilled == 0:
+            shared, cached = self.block_manager.lookup_prefix(ids)
+            self.block_manager.allocate(req.request_id, ids, shared_blocks=shared)
+            req.num_prefilled = cached
+        done = req.num_prefilled
+        n = len(ids[done:done + C])
+        tokens = np.zeros((1, C), np.int32)
+        tokens[0, :n] = ids[done:done + n]
+        slot_ids = np.full((1, C), PAD_SLOT, np.int32)
+        bt = self.block_manager.block_table(req.request_id)
+        slot_ids[0, :n] = self._token_slots(req.request_id, done, n, block_table=bt)
+        block_tables = np.zeros((1, self.cache_cfg.max_blocks_per_seq), np.int32)
+        block_tables[0, :len(bt)] = bt
+        logits, self.kv_cache = transformer.prefill_chunk(
+            self.params, self.model_cfg, self._tensor(tokens),
+            self._tensor(np.asarray([done], np.int32)),
+            self._tensor(np.asarray([n], np.int32)), self._tensor(slot_ids),
+            self._tensor(block_tables), self.kv_cache, attn_impl=self.attn_impl)
+        req.num_prefilled = done + n
+        self.stats.num_prefill_steps += 1
+        self.stats.num_chunk_steps += 1
+        self._note_step_tokens(n, C)
+        if req.num_prefilled < len(ids):
+            self.scheduler.waiting.appendleft(req)      # more chunks to go
+            return []
+        self.scheduler.mark_running([req])
+        new_tokens = self._sample(logits, [req], 1)
+        self._first_token([req])
+        return [self._emit_one(req, int(new_tokens[0]), from_prefill=True)]
+
+    def _run_mixed(self, batch: ScheduledBatch) -> list[RequestOutput]:
+        """One mixed step: every running stream's decode row plus the
+        scheduled prefill-chunk rows as ONE flat stream through
+        ``transformer.forward_ragged``, so decode streams get a token on
+        every cycle while prompts are admitted.
+
+        Layout (the ragged kernel's contract, ops/ragged_paged.py): decode
+        rows first (flat row = sequence index), the decode region padded
+        to the ragged block, each prefill chunk starting block-aligned;
+        sequences ordered decode, completing chunks, continuing chunks, so
+        the rows that sample a token this step form a prefix."""
+        decode_reqs, slots = self._charge_decode_rows(
+            [r for r in batch.requests if not r.finished])
+        bm = self.block_manager
+        # prefill chunks: a first chunk allocates (with the prefix-cache
+        # compute skip); one whose blocks no longer fit goes back to the head
+        chunks = []                       # (req, ids, done, take)
+        for req, n in batch.prefill_chunks:
+            ids = self._prefill_tokens(req)
+            if req.num_prefilled == 0:
+                try:
+                    shared, cached = bm.lookup_prefix(ids)
+                    bm.allocate(req.request_id, ids, shared_blocks=shared)
+                except MemoryError:
+                    self.scheduler.waiting.appendleft(req)
+                    continue
+                req.num_prefilled = cached
+            done = req.num_prefilled
+            chunks.append((req, ids, done, min(n, len(ids) - done)))
+        if not decode_reqs and not chunks:
+            return []
+        comp = [c for c in chunks if c[2] + c[3] == len(c[1])]
+        cont = [c for c in chunks if c[2] + c[3] < len(c[1])]
+        blk = self._ragged_blk
+        n_dec = len(decode_reqs)
+        starts, T, meta, blk_seq = ragged_layout(
+            n_dec, [c[3] for c in comp + cont], blk)
+        B = self._ragged_seqs
+        mb = self.cache_cfg.max_blocks_per_seq
+        tokens = np.zeros((T,), np.int32)
+        positions = np.zeros((T,), np.int32)
+        slot_ids = np.full((T,), PAD_SLOT, np.int32)
+        row_seq = np.zeros((T,), np.int32)
+        kv_lens = np.zeros((B,), np.int32)
+        q_starts = np.full((B,), T, np.int32)
+        q_lens = np.zeros((B,), np.int32)
+        last_rows = np.zeros((B,), np.int32)
+        block_tables = np.zeros((B, mb), np.int32)
+        for i, r in enumerate(decode_reqs):
+            nt = r.num_tokens
+            tokens[i] = r.output_token_ids[-1]
+            positions[i] = nt - 1
+            slot_ids[i] = slots[i]
+            row_seq[i] = i
+            kv_lens[i] = nt
+            q_starts[i] = i
+            q_lens[i] = 1
+            last_rows[i] = i
+        bm.fill_block_tables([r.request_id for r in decode_reqs], block_tables)
+        for si, ((req, ids, done, take), start) in enumerate(
+                zip(comp + cont, starts), start=n_dec):
+            rows = slice(start, start + take)
+            tokens[rows] = ids[done:done + take]
+            positions[rows] = done + np.arange(take)
+            bt = bm.block_table(req.request_id)
+            slot_ids[rows] = self._token_slots(req.request_id, done, take, block_table=bt)
+            row_seq[rows] = si
+            kv_lens[si] = done + take
+            q_starts[si] = start
+            q_lens[si] = take
+            last_rows[si] = start + take - 1
+            block_tables[si, :len(bt)] = bt
+        logits, self.kv_cache = transformer.forward_ragged(
+            self.params, self.model_cfg, *map(self._tensor, (
+                tokens, positions, slot_ids, row_seq, block_tables, kv_lens,
+                q_starts, q_lens, meta, blk_seq, last_rows)),
+            self.kv_cache, ragged_blk=blk, attn_impl=self.attn_impl)
+        self.stats.num_mixed_steps += 1
+        if decode_reqs:
+            self.stats.num_decode_steps += 1
+        if chunks:
+            self.stats.num_prefill_steps += 1
+        self._note_step_tokens(n_dec + sum(c[3] for c in chunks), T)
+        # chunk progress, continuations back to the head, completions to
+        # running, all before emit (a finish removes from running)
+        for req, _, done, take in chunks:
+            req.num_prefilled = done + take
+        for req, _, _, _ in reversed(cont):
+            self.scheduler.waiting.appendleft(req)
+        comp_reqs = [c[0] for c in comp]
+        self.scheduler.mark_running(comp_reqs)
+        emit = decode_reqs + comp_reqs
+        if not emit:
+            return []
+        new_tokens = self._sample(logits, emit, B)
+        self._first_token(comp_reqs)
+        return ([self._emit_one(r, int(t)) for r, t in zip(decode_reqs, new_tokens)]
+                + [self._emit_one(r, int(t), from_prefill=True)
+                   for r, t in zip(comp_reqs, new_tokens[n_dec:])])
 
     def _sampling_inputs(self, reqs: list[Request], B: int):
         """(mode, temperature (B,) on the device, generators (B,) with None
@@ -367,29 +563,36 @@ class Engine:
                                           gumbel=noise)
         return toks.cpu().numpy()[:len(reqs)]
 
-    def _run_decode(self, batch: ScheduledBatch) -> list[RequestOutput]:
-        outputs: list[RequestOutput] = []
-        reqs = [r for r in batch.requests if not r.finished]
+    def _charge_decode_rows(self, reqs: list[Request]):
+        """Append one KV slot per decoding request, preempting the most
+        recent admissions until the appends fit.  Returns the requests
+        left and their slots."""
         bm = self.block_manager
-        ids = [r.request_id for r in reqs]
-        while bm.decode_shortfall(ids) > 0:
+        while bm.decode_shortfall([r.request_id for r in reqs]) > 0:
             victim = self.scheduler.preempt_last()
             self.stats.preemptions += 1
             if victim is None:
                 raise MemoryError("KV cache exhausted with a single sequence")
             reqs = [r for r in reqs if r is not victim]
-            ids = [r.request_id for r in reqs]
-            if not reqs:
-                return outputs
+        slots = np.empty((len(reqs),), np.int32)
+        if bm.charge_decode([r.request_id for r in reqs], slots):
+            raise MemoryError("out of KV blocks on append")
+        return reqs, slots
+
+    def _run_decode(self, batch: ScheduledBatch) -> list[RequestOutput]:
+        reqs, slots = self._charge_decode_rows(
+            [r for r in batch.requests if not r.finished])
+        if not reqs:
+            return []
+        ids = [r.request_id for r in reqs]
         B = self.scheduler.decode_bucket(len(reqs))
         tokens = np.zeros((B,), np.int32)
         positions = np.zeros((B,), np.int32)
         slot_arr = np.full((B,), PAD_SLOT, np.int32)
+        slot_arr[:len(reqs)] = slots
         seq_lens = np.ones((B,), np.int32)
         block_tables = np.zeros((B, self.cache_cfg.max_blocks_per_seq), np.int32)
-        if bm.charge_decode(ids, slot_arr):
-            raise MemoryError("out of KV blocks on append")
-        bm.fill_block_tables(ids, block_tables)
+        self.block_manager.fill_block_tables(ids, block_tables)
         for i, req in enumerate(reqs):
             tokens[i] = req.output_token_ids[-1]
             positions[i] = req.num_tokens - 1
@@ -401,8 +604,7 @@ class Engine:
             attn_impl=self.attn_impl)
         self.stats.num_decode_steps += 1
         new_tokens = self._sample(logits, reqs, B)
-        return outputs + [self._emit_one(r, int(t))
-                          for r, t in zip(reqs, new_tokens)]
+        return [self._emit_one(r, int(t)) for r, t in zip(reqs, new_tokens)]
 
     def _run_decode_multi(self, batch: ScheduledBatch
                           ) -> Optional[list[RequestOutput]]:
