@@ -7,7 +7,9 @@ Phases, run in order, each printing one JSON line; any failure exits
 non-zero:
 
 1. build     compile the four CUDA kernels from ``tpuserve_torch/csrc``, one
-             nvcc each, all started together.
+             nvcc each, all started together; count each library's wgmma
+             (HGMMA) instructions, which the bf16 attention tile must
+             contain, and read its kernels' registers and stack.
 2. kernels   hold each kernel against its plain PyTorch version at the
              shapes its path gives it (flash prefill: the main path's B=8 x
              1024 batch of 128-1024-token prompts; paged decode: B=8,
@@ -18,9 +20,9 @@ non-zero:
              shapes, and in sliding-window/softcap and NaN-slot cases, with
              times: the kernel, the plain version, the least time the card
              could take (``bound_ms``) and, where one PyTorch call computes
-             the same function, that call as a yardstick only.  The window
-             and ragged headlines also carry a planted fault (a K/V tile's
-             V zeroed) that the comparison must reject.
+             the same function, that call as a yardstick only.  The flash,
+             window and ragged headlines also carry a planted fault (a K/V
+             tile's V zeroed) that the comparison must reject.
 3. identity  Qwen3-0.6B at full width, 2 layers, float32, no TF32: engines
              on the CUDA kernels and on the plain attention give the same
              greedy tokens on the main path, on the chunked path (prompts
@@ -52,7 +54,8 @@ non-zero:
              it): one prefill and one decode window of the main path, one
              chunk step, one mixed step.
 
-Then the kernel report, the card's name and power limit, and as the last
+Then the kernel report (with each headline's TFLOP/s and its bound's share
+of its time), the card's name and power limit, and as the last
 line ``{"ok": true, "device": {...}}``.  Needs one CUDA card; exits non-zero
 with no result without one, or without the ``tpuserve_torch`` package.
 """
@@ -143,6 +146,16 @@ def poison(kc, vc, bt_row, positions, page: int) -> None:
         fill_slots(vc, bt_row, positions, page, float("nan"))
 
 
+def zeroed_slots(cache, bt_row, page: int):
+    """A function (lo, hi) -> a copy of ``cache`` with one sequence's slots
+    lo .. hi - 1 zeroed."""
+    def zeroed(lo, hi):
+        bad = cache.clone()
+        fill_slots(bad, bt_row, range(lo, hi), page, 0.0)
+        return bad
+    return zeroed
+
+
 def paged_cache(g, nb: int, page: int, Hkv: int, D: int, dtype: str, int8: bool):
     """Random K/V pages on the card in ``dtype``, or int8 with scales."""
     import torch
@@ -183,13 +196,12 @@ def compare(out, ref, tol: dict) -> tuple[float, bool]:
     return err, ok
 
 
-def planted_fault(run, cache, bt_row, end: int, page: int, rows, ref, tol) -> dict:
-    """The check must reject a wrong tile: ``run(cache)`` with V zeroed over
-    the last 64-key tile below ``end`` (as if the kernel skipped that tile's
-    P.V) must come out not ok on ``rows`` against ``ref``."""
-    bad = cache.clone()
-    fill_slots(bad, bt_row, range((end - 1) // 64 * 64, end), page, 0.0)
-    err, ok = compare(run(bad)[rows], ref, tol)
+def planted_fault(run, zeroed, end: int, rows, ref, tol) -> dict:
+    """The check must reject a wrong tile: ``run(zeroed(lo, end))``, V with
+    key positions lo .. end - 1 zeroed, the last 64-key tile below ``end``
+    (as if the kernel skipped that tile's P.V), must come out not ok on
+    ``rows`` against ``ref``."""
+    err, ok = compare(run(zeroed((end - 1) // 64 * 64, end))[rows], ref, tol)
     return {"fault": f"V zeroed over key positions {(end - 1) // 64 * 64}..{end - 1}",
             "max_abs_err": err, "caught": not ok}
 
@@ -199,7 +211,9 @@ def planted_fault(run, cache, bt_row, end: int, page: int, rows, ref, tol) -> di
 # --------------------------------------------------------------------------
 
 def flash_case(dtype: str, B: int, T: int, Hq: int, Hkv: int, D: int, lens,
-               window=None, softcap=None, timed=True) -> dict:
+               window=None, softcap=None, timed=True, plant=False) -> dict:
+    """``plant``: also hold a planted fault in the longest prompt's last K/V
+    tile."""
     import torch
     import torch.nn.functional as F
     from tpuserve_torch.ops import attention, flash_prefill
@@ -229,6 +243,17 @@ def flash_case(dtype: str, B: int, T: int, Hq: int, Hkv: int, D: int, lens,
     res = {"case": f"flash_prefill {dtype} B={B} T={T} Hq={Hq} Hkv={Hkv} D={D} "
                    f"lens={list(lens)} window={window} softcap={softcap}",
            "max_abs_err": max(errs), "tol": tol, "ok": all(oks)}
+    if plant:
+        b = int(np.argmax(lens))
+
+        def zeroed(lo, hi):
+            bad = v.clone()
+            bad[b, lo:hi] = 0.0
+            return bad
+        res["planted"] = planted_fault(
+            lambda bad: flash_prefill.flash_prefill_attention(q, k, bad, plens, scale, **kw)[b],
+            zeroed, lens[b], slice(0, lens[b]), ref[b, :lens[b]], tol)
+        res["ok"] = res["ok"] and res["planted"]["caught"]
     if timed:
         res["ms"] = cuda_ms(lambda: flash_prefill.flash_prefill_attention(
             q, k, v, plens, scale, **kw))
@@ -236,8 +261,8 @@ def flash_case(dtype: str, B: int, T: int, Hq: int, Hkv: int, D: int, lens,
             q, k, v, plens, scale, **kw), iters=3, warmup=1)
         # the bytes this data needs: each prompt's q, k, v and out rows once
         rows = sum(lens) * (2 * Hq + 2 * Hkv) * D * q.element_size()
-        res["bound_ms"], res["bound_by"] = bound(
-            2 * 2 * Hq * D * pairs, rows + nbytes(plens), dtype)
+        res["flops"] = 2 * 2 * Hq * D * pairs
+        res["bound_ms"], res["bound_by"] = bound(res["flops"], rows + nbytes(plens), dtype)
         # yardstick only: one dense causal SDPA call over the padded batch
         qd, kd, vd = (x.transpose(1, 2) for x in (q, k.nan_to_num(), v.nan_to_num()))
         kd = kd.repeat_interleave(Hq // Hkv, dim=1)
@@ -292,9 +317,9 @@ def paged_case(dtype: str, B: int, Hq: int, Hkv: int, D: int, page: int,
             q, kc, vc, bt, sl, scale, **kw), iters=5, warmup=1, cold=True)
         attended = sum(n if window is None else min(n, window) for n in lens)
         row = Hkv * D * kc.element_size() + (Hkv * 4 if int8 else 0)
+        res["flops"] = 2 * 2 * Hq * D * attended
         res["bound_ms"], res["bound_by"] = bound(
-            2 * 2 * Hq * D * attended,
-            2 * attended * row + nbytes(q, out, bt, sl), dtype)
+            res["flops"], 2 * attended * row + nbytes(q, out, bt, sl), dtype)
         res["library_ms"] = None
     return res
 
@@ -338,7 +363,7 @@ def window_case(dtype: str, B: int, C: int, Hq: int, Hkv: int, D: int, page: int
     if plant:
         res["planted"] = planted_fault(
             lambda bad: paged_window.paged_window_attention(q, kc, bad, *args[3:], **kw)[0],
-            vc, bt[0], ctx[0] + n[0], page, slice(0, n[0]), ref[0, :n[0]], tol)
+            zeroed_slots(vc, bt[0], page), ctx[0] + n[0], slice(0, n[0]), ref[0, :n[0]], tol)
         res["ok"] = res["ok"] and res["planted"]["caught"]
     if timed:                      # L2 flushed before each call, as a step finds it
         res["ms"] = cuda_ms(lambda: paged_window.paged_window_attention(*args, **kw),
@@ -351,8 +376,9 @@ def window_case(dtype: str, B: int, C: int, Hq: int, Hkv: int, D: int, page: int
             pairs, keys = pairs + p_, keys + k_
         row = Hkv * D * kc.element_size() + (Hkv * 4 if int8 else 0)
         io = 2 * sum(n) * Hq * D * q.element_size()
+        res["flops"] = 4 * Hq * D * pairs
         res["bound_ms"], res["bound_by"] = bound(
-            4 * Hq * D * pairs, io + 2 * keys * row + nbytes(bt, ctx_t, n_t), dtype)
+            res["flops"], io + 2 * keys * row + nbytes(bt, ctx_t, n_t), dtype)
         # yardstick only: one SDPA call over K/V gathered to a dense tensor
         # beforehand (not timed), with the offset-causal boolean mask
         S = max(c + k for c, k in zip(ctx, n))
@@ -417,7 +443,7 @@ def ragged_case(dtype: str, dec_lens, chunks, blk: int, Hq=16, Hkv=8, D=128, pag
         s, rows = n_dec, slice(q_starts[n_dec], q_starts[n_dec] + q_lens[n_dec])
         res["planted"] = planted_fault(
             lambda bad: ragged_paged.ragged_paged_attention(q, kc, bad, *args[3:], **kw),
-            vc, bt[s], kv[s], page, rows, ref[rows], tol)
+            zeroed_slots(vc, bt[s], page), kv[s], rows, ref[rows], tol)
         res["ok"] = res["ok"] and res["planted"]["caught"]
     if timed:                      # L2 flushed before each call, as a step finds it
         res["ms"] = cuda_ms(lambda: ragged_paged.ragged_paged_attention(*args, **kw),
@@ -430,10 +456,41 @@ def ragged_case(dtype: str, dec_lens, chunks, blk: int, Hq=16, Hkv=8, D=128, pag
             pairs, keys = pairs + p_, keys + k_
         row = Hkv * D * kc.element_size() + (Hkv * 4 if int8 else 0)
         io = 2 * sum(q_lens) * Hq * D * q.element_size()
+        res["flops"] = 4 * Hq * D * pairs
         res["bound_ms"], res["bound_by"] = bound(
-            4 * Hq * D * pairs, io + 2 * keys * row + nbytes(bt, *desc), dtype)
+            res["flops"], io + 2 * keys * row + nbytes(bt, *desc), dtype)
         res["library_ms"] = None          # no one PyTorch call computes it
     return res
+
+
+def phase_build(_build) -> dict:
+    """Build the four libraries, then read what was compiled: the wgmma
+    (HGMMA) instructions in each library's SASS, which the bf16 tile must
+    contain, and registers and stack (spills) of the tile's kernels."""
+    import re
+    import shutil
+    build_s = _build.build()
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    hgmma, usage = {}, {}
+    for name in KERNELS:
+        lib = str(_build._lib_path(name))
+        sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True).stdout
+        hgmma[name] = sass.count("HGMMA")
+        res = subprocess.run([tool, "-res-usage", lib], capture_output=True, text=True).stdout
+        for fn, reg, stack in re.findall(r"Function (\S+):\s*REG:(\d+) STACK:(\d+)", res):
+            if "bf16" in fn or "ragged" in fn:
+                usage[demangle(fn)] = {"regs": int(reg), "stack": int(stack)}
+    ok = all(hgmma[n] > 0 for n in ("flash_prefill", "paged_window", "ragged_paged"))
+    return {"ok": ok, "build_s": build_s, "hgmma": hgmma, "tile_kernels": usage}
+
+
+def demangle(name: str) -> str:
+    import shutil
+    tool = shutil.which("c++filt")
+    if tool is None:
+        return name
+    out = subprocess.run([tool, name], capture_output=True, text=True).stdout.strip()
+    return out.replace("(anonymous namespace)::", "").replace("__nv_bfloat16", "bf16")
 
 
 def phase_kernels() -> dict:
@@ -445,7 +502,7 @@ def phase_kernels() -> dict:
     # the first case of each kernel is its headline in the report
     cases = {
         "flash_prefill": [
-            flash_case("bfloat16", 8, 1024, 16, 8, 128, MAIN_LENGTHS),
+            flash_case("bfloat16", 8, 1024, 16, 8, 128, MAIN_LENGTHS, plant=True),
             flash_case("bfloat16", 4, 1024, 16, 8, 128, lens_p),
             flash_case("float32", 4, 1024, 16, 8, 128, lens_p),
             flash_case("float32", 2, 256, 8, 4, 64, [256, 200], window=64,
@@ -1067,7 +1124,7 @@ def main() -> int:
     for phase in PHASES:
         t = time.perf_counter()
         if phase == "build":
-            res = {"ok": True, "build_s": _build.build()}
+            res = phase_build(_build)
         elif phase == "kernels":
             res = phase_kernels()
         elif phase == "identity":
@@ -1096,7 +1153,9 @@ def main() -> int:
                        "launches": results[LAUNCH_PHASE[name]]["launches"][name],
                        "max_abs_err": h["max_abs_err"], "ms": h["ms"],
                        "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
-                       "bound_by": h["bound_by"], "library_ms": h["library_ms"]})
+                       "bound_by": h["bound_by"], "library_ms": h["library_ms"],
+                       "tflops": h["flops"] / (h["ms"] * 1e9),
+                       "bound_share": h["bound_ms"] / h["ms"]})
     emit({"kernels": report})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

@@ -15,6 +15,7 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+import torch
 
 from tpuserve import runtime as jax_rt
 from tpuserve.models import weights as jax_weights
@@ -23,6 +24,18 @@ from tpuserve_torch.models.config import get_model_config
 from tpuserve_torch.models.weights import params_from_numpy
 from tpuserve_torch.runtime import Engine, SamplingParams
 from tpuserve_torch.runtime.request import Request, RequestState
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """Two torch intra-op threads while this file runs: under pytest-xdist
+    several files run at once on the same cores, and torch would otherwise
+    start one thread a core in each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
 
 CACHE = dict(block_size=4, num_blocks=128, max_blocks_per_seq=24, dtype="float32")
 GREEDY = dict(max_tokens=8, temperature=0.0, ignore_eos=True)

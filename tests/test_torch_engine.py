@@ -24,6 +24,18 @@ from tpuserve_torch.models.weights import params_from_numpy
 from tpuserve_torch.runtime import (CacheConfig, Engine, EngineConfig,
                                     FinishReason, SamplingParams, SchedulerConfig)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """Two torch intra-op threads while this file runs: under pytest-xdist
+    several files run at once on the same cores, and torch would otherwise
+    start one thread a core in each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 PROMPTS = ["Hello world", "The quick brown fox jumps", "a",
            "paged attention on a card", "zzz zzz zzz zzz zzz zzz zzz"]
 CACHE = dict(block_size=4, num_blocks=64, max_blocks_per_seq=16, dtype="float32")

@@ -13,6 +13,18 @@ from pathlib import Path
 import pytest
 import torch
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """Two torch intra-op threads while this file runs: under pytest-xdist
+    several files run at once on the same cores, and torch would otherwise
+    start one thread a core in each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = Path(__file__).resolve().parent.parent
 # the card-only kernel tests run where there is no JAX, so they stand alone too
 PORT_FILES = sorted((ROOT / "tpuserve_torch").rglob("*.py")) + [

@@ -23,6 +23,18 @@ from tpuserve_torch.ops.ragged_paged import ragged_layout
 
 pytestmark = pytest.mark.cuda
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """Two torch intra-op threads while this file runs: under pytest-xdist
+    several files run at once on the same cores, and torch would otherwise
+    start one thread a core in each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = {torch.float32: dict(atol=1e-4, rtol=0.0),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
 
@@ -282,3 +294,134 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError, match="blk_seq"):
         ragged_paged.ragged_paged_attention(flat[:32], cache.bfloat16(), cache.bfloat16(),
                                             bt, lens, lens, lens, meta, meta, 1.0, 8)
+
+
+# The bf16 kernels share one Hopper tile (csrc/attn_tile.cuh): these cases
+# walk its edges, held at the bf16 tolerance chip_smoke.py uses (atol a
+# tenth of the reference's standard deviation, at most 2e-2; rtol 2e-2).
+
+def _tile_tol(ref):
+    return dict(atol=min(2e-2, 0.1 * ref.float().std().item()), rtol=2e-2)
+
+
+def _nan_cache(rng, nb, page, Hkv, D, int8, card):
+    """A cache whose every slot holds NaN (int8: 0 with NaN scales) until
+    ``_write_slots`` fills the written ones."""
+    if int8:
+        kc = torch.zeros(nb, page, Hkv, D, dtype=torch.int8)
+        ks = torch.full((nb, page, Hkv), float("nan"))
+        return [kc, kc.clone(), ks, ks.clone()]
+    kc = torch.full((nb, page, Hkv, D), float("nan"), dtype=torch.bfloat16)
+    return [kc, kc.clone(), None, None]
+
+
+def _write_slots(rng, cache, bt_row, n, page):
+    """Random values into slots [0, n) of one sequence."""
+    kc, vc, ks, vs = cache
+    Hkv, D = kc.shape[2], kc.shape[3]
+    for t in range(n):
+        blk, off = int(bt_row[t // page]), t % page
+        for c, s in ((kc, ks), (vc, vs)):
+            x = torch.from_numpy(rng.standard_normal((Hkv, D), np.float32))
+            if s is None:
+                c[blk, off] = x.to(c.dtype)
+            else:
+                c[blk, off], s[blk, off] = attention.quantize_kv(x)
+
+
+# B, C, Hq, Hkv, D, page, mp, ctx_lens, chunk_lens: groups 1 to 8, head
+# dims 64 to 256, row counts off the 64/128-row tile (and a 1-row chunk),
+# contexts starting mid-page or at 0, empty chunks, window + softcap, int8,
+# pages of 1 and 2 keys (a 128-key tile then spans 128 or 64 pages)
+TILE_WINDOW_CASES = [
+    dict(B=2, C=130, Hq=4, Hkv=4, D=64, page=16, mp=12, ctx=[7, 0], n=[130, 1]),
+    dict(B=3, C=200, Hq=16, Hkv=8, D=128, page=32, mp=16, ctx=[45, 300, 0], n=[200, 0, 129]),
+    dict(B=2, C=70, Hq=8, Hkv=2, D=256, page=16, mp=8, ctx=[33, 5], n=[70, 65]),
+    dict(B=2, C=17, Hq=8, Hkv=1, D=128, page=8, mp=16, ctx=[100, 64], n=[17, 1]),
+    dict(B=2, C=150, Hq=16, Hkv=8, D=128, page=16, mp=48, ctx=[500, 20], n=[150, 140],
+         window=100, softcap=30.0),
+    dict(B=2, C=100, Hq=16, Hkv=8, D=128, page=32, mp=8, ctx=[70, 0], n=[100, 33], int8=True),
+    dict(B=1, C=64, Hq=8, Hkv=2, D=64, page=4, mp=64, ctx=[130], n=[64], window=50,
+         softcap=20.0, int8=True),
+    dict(B=1, C=40, Hq=16, Hkv=2, D=256, page=16, mp=4, ctx=[10], n=[40], int8=True),
+    dict(B=1, C=1, Hq=16, Hkv=8, D=64, page=32, mp=33, ctx=[1000], n=[1]),
+    dict(B=1, C=100, Hq=16, Hkv=8, D=128, page=1, mp=260, ctx=[150], n=[100]),
+    dict(B=2, C=90, Hq=16, Hkv=8, D=128, page=2, mp=150, ctx=[200, 3], n=[90, 60]),
+]
+
+
+@pytest.mark.parametrize("c", TILE_WINDOW_CASES)
+def test_paged_window_tile_edges(card, c):
+    rng = np.random.default_rng(c["C"] * 7 + c["D"])
+    B, C, page, mp = c["B"], c["C"], c["page"], c["mp"]
+    nb = B * mp + 3
+    cache = _nan_cache(rng, nb, page, c["Hkv"], c["D"], c.get("int8"), card)
+    bt = rng.permutation(nb)[:B * mp].reshape(B, mp).astype(np.int32)
+    for b in range(B):                     # only the written slots hold numbers
+        _write_slots(rng, cache, bt[b], c["ctx"][b] + c["n"][b], page)
+    kc, vc, ks, vs = (x if x is None else x.to(card) for x in cache)
+    q = torch.from_numpy(rng.standard_normal((B, C, c["Hq"], c["D"]), np.float32))
+    ctx = torch.tensor(c["ctx"], dtype=torch.int32, device=card)
+    n = torch.tensor(c["n"], dtype=torch.int32, device=card)
+    args = (q.to(card, torch.bfloat16), kc, vc, torch.from_numpy(bt).to(card), ctx, n,
+            c["D"] ** -0.5)
+    kw = dict(k_scale=ks, v_scale=vs, sliding_window=c.get("window"),
+              logit_softcap=c.get("softcap"))
+    out = paged_window.paged_window_attention(*args, **kw)
+    ref = attention.chunked_prefill_attention(*args, **kw)
+    rows = [ref[b, :c["n"][b]] for b in range(B)]
+    tol = _tile_tol(torch.cat([r.flatten() for r in rows]))
+    for b in range(B):
+        nb_ = c["n"][b]
+        torch.testing.assert_close(out[b, :nb_].float(), rows[b].float(), **tol)
+        assert torch.count_nonzero(out[b, nb_:]) == 0
+
+
+# (G, D, window, softcap) over prompt lengths 1, 63, 64, 65 and T, NaN
+# past each prompt
+TILE_FLASH_CASES = [(1, 64, None, None), (2, 128, None, None), (4, 256, None, None),
+                    (8, 128, None, None), (2, 64, 40, 30.0), (2, 256, 70, None)]
+
+
+@pytest.mark.parametrize("G,D,window,softcap", TILE_FLASH_CASES)
+def test_flash_prefill_tile_edges(card, G, D, window, softcap):
+    rng = np.random.default_rng(G * D)
+    T, Hkv = 130, 2
+    lens = np.asarray([1, 63, 64, 65, T], np.int32)
+    B = len(lens)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, T, h, D), np.float32))
+               for h in (G * Hkv, Hkv, Hkv))
+    for b, n in enumerate(lens):
+        k[b, n:] = float("nan")
+        v[b, n:] = float("nan")
+    q, k, v = (x.to(card, torch.bfloat16) for x in (q, k, v))
+    plens = torch.from_numpy(lens).to(card)
+    kw = dict(sliding_window=window, logit_softcap=softcap)
+    out = flash_prefill.flash_prefill_attention(q, k, v, plens, D ** -0.5, **kw)
+    ref = attention.prefill_attention(q, k, v, plens, D ** -0.5, **kw)
+    tol = _tile_tol(torch.cat([ref[b, :n].flatten() for b, n in enumerate(lens)]))
+    for b, n in enumerate(lens):
+        torch.testing.assert_close(out[b, :n].float(), ref[b, :n].float(), **tol)
+
+
+# ragged prefill blocks on the tile: groups 4 and 8 at D=256 and 64, a
+# 1-row chunk, int8 with a window
+TILE_RAGGED_CASES = [
+    dict(n_dec=3, chunks=[(1, 1), (77, 140)], blk=16, Hq=8, Hkv=2, D=256),
+    dict(n_dec=2, chunks=[(50, 50), (1, 300)], blk=32, Hq=16, Hkv=2, D=64),
+    dict(n_dec=4, chunks=[(90, 200)], blk=64, int8=True, window=60, softcap=30.0),
+]
+
+
+@pytest.mark.parametrize("c", TILE_RAGGED_CASES)
+def test_ragged_paged_tile_edges(card, c):
+    rng = np.random.default_rng(c["blk"] + 11 * c["n_dec"])
+    shape = {k: c[k] for k in ("Hq", "Hkv", "D") if k in c}
+    args, kw, valid = _ragged(rng, card, torch.bfloat16, c["n_dec"], c["chunks"], c["blk"],
+                              int8=c.get("int8", False), mp=24, **shape)
+    kw.update(sliding_window=c.get("window"), logit_softcap=c.get("softcap"))
+    scale = args[0].shape[-1] ** -0.5
+    out = ragged_paged.ragged_paged_attention(*args, scale, c["blk"], **kw)
+    ref = attention.ragged_paged_attention(*args, scale, c["blk"], **kw)
+    torch.testing.assert_close(out[valid].float(), ref[valid].float(), **_tile_tol(ref[valid]))
+    assert torch.count_nonzero(out[~valid]) == 0

@@ -25,6 +25,18 @@ from tpuserve_torch.models.config import get_model_config
 from tpuserve_torch.ops.attention import PAD_SLOT
 from tpuserve_torch.runtime import kv_cache
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """Two torch intra-op threads while this file runs: under pytest-xdist
+    several files run at once on the same cores, and torch would otherwise
+    start one thread a core in each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 ATOL = 1e-4
 BS, NB, MB = 4, 32, 8          # block size, blocks, blocks per sequence
 

@@ -22,6 +22,18 @@ from tpuserve.ops.pallas_paged_attention import paged_decode_attention as pallas
 from tpuserve_torch.models import transformer
 from tpuserve_torch.ops import attention, flash_prefill, paged_decode, rope, sampling
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """Two torch intra-op threads while this file runs: under pytest-xdist
+    several files run at once on the same cores, and torch would otherwise
+    start one thread a core in each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 ATOL = 5e-5
 # one compile per shape instead of one per eager op
 _STATIC = ("scale", "sliding_window", "logit_softcap")

@@ -23,6 +23,18 @@ from tpuserve.ops.pallas_chunked_prefill import paged_window_attention as pallas
 from tpuserve.ops.pallas_ragged_attention import ragged_paged_attention as pallas_ragged
 from tpuserve_torch.ops import attention, paged_window, ragged_paged
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """Two torch intra-op threads while this file runs: under pytest-xdist
+    several files run at once on the same cores, and torch would otherwise
+    start one thread a core in each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 ATOL = 1e-4
 _STATIC = ("scale", "sliding_window", "logit_softcap")
 jax_chunked = jax.jit(jax_attn.chunked_prefill_attention,

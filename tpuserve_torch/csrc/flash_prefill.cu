@@ -14,30 +14,32 @@
 // prompts and operations long ones, and either way only the tensor cores
 // come near the bound.
 //
-// Design (simple first kernels, not yet fast):
-// - Both kernels: a block owns a tile of query rows of one head and walks
-//   K/V tiles itself (the TPU kernel's sequential grid axis becomes a loop),
-//   skipping whole tiles past the causal limit, past prompt_len, or before
-//   the earliest row's window; a block wholly past prompt_len reads no key
-//   and writes zeros.  V rows at or past prompt_len are stored as
-//   0 (a fresh cache may hold NaN, and 0 * NaN would poison the sum); masked
-//   keys contribute exactly 0, and a row with no key writes 0.  The running
-//   max, sum and output accumulator are float32.
-// - bfloat16 (the serving path): 4 warps x 16 query rows, 64-key tiles.
-//   QK^T and PV run on the tensor cores as 16x16x16 WMMA products from
-//   shared memory with float32 sums.  Each warp keeps its own rows' scores,
-//   probabilities (rounded to bf16 for PV, as the plain version does) and
-//   output in shared memory, so only the K/V tile loads need the whole
-//   block to synchronise.  111 KB of shared memory at D=128 (two blocks an
-//   SM), 191 KB at D=256.  wgmma, TMA and double buffering are the next
-//   steps.
+// Design:
+// - bfloat16 (the serving path): grid (Hkv, B, ceil(T / bq)), the query
+//   tiles with the most keys dispatched first; a block serves
+//   bq = 128 / G positions (64 / G at D=256) of one sequence times the G
+//   query heads of KV head blockIdx.x, the row mapping of the window
+//   kernel.  It runs at::attn_tile (attn_tile.cuh), the Hopper core it
+//   shares with paged_window.cu and ragged_paged.cu: two consumer
+//   warpgroups, 128-key K/V tiles in a 2-stage cp.async ring on
+//   mbarriers, S = QK^T and O += PV on wgmma, softmax and O in registers,
+//   masks only on tiles that cross the diagonal, prompt_len or the window
+//   edge; 161 KB of shared memory and 255 registers a thread at D=128, one
+//   block an SM.  The keys are the sequence's contiguous rows; keys at or
+//   past prompt_len are never read (zero-filled, masked), so NaN padding
+//   stays harmless.  A block wholly past prompt_len reads no key and
+//   writes zeros.  Against the WMMA kernel it replaces: (1) no S, P or O
+//   in shared memory; (2) asynchronous K/V loads under the math; (3)
+//   wgmma instead of 16x16x16 WMMA; (4) 128-row tiles; (5) each K/V tile
+//   is loaded once per KV head, not once per query head (G times less
+//   K/V traffic).
 // - float32: the tensor cores' bf16 or TF32 products would miss the float32
 //   tolerance, so QK^T and PV run on the CUDA cores from shared memory,
-//   32 query rows and 32 keys a step (54 KB at D=128, 103 KB at D=256).
+//   32 query rows of one head and 32 keys a step, the running max, sum and
+//   output in float32 (54 KB at D=128, 103 KB at D=256).  V rows at or past
+//   prompt_len are stored as 0; a row with no key writes 0.
 
-#include <mma.h>
-
-#include "attn_common.cuh"
+#include "attn_tile.cuh"
 
 namespace {
 
@@ -70,202 +72,51 @@ __device__ __forceinline__ int first_tile(int q0, int window, int bk) {
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores (WMMA)
+// bfloat16: the Hopper attention tile (attn_tile.cuh)
 // ---------------------------------------------------------------------------
 
-namespace tc {
-
-using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
-
-constexpr int kBq = 64;   // query rows per block: 4 warps x 16
-constexpr int kBk = 64;   // keys per tile
-constexpr int kWm = 16;   // WMMA tile edge
-
-// Shared-memory layout; every offset and row stride keeps the 32-byte
-// alignment WMMA loads and stores need, and the +8 / +4 padding staggers
-// rows across banks.
-template <int D>
-struct Smem {
-  static constexpr int ldh = D + 8;       // bf16 stride of Q, K, V
-  static constexpr int lds = kBk + 4;     // float stride of S
-  static constexpr int ldp = kBk + 8;     // bf16 stride of P
-  static constexpr int ldo = D + 4;       // float stride of O
-  static constexpr int q = 0;
-  static constexpr int k = q + kBq * ldh * 2;
-  static constexpr int v = k + kBk * ldh * 2;
-  static constexpr int s = v + kBk * ldh * 2;
-  static constexpr int p = s + kBq * lds * 4;
-  static constexpr int o = p + kBq * ldp * 2;
-  static constexpr int stats = o + kBq * ldo * 4;
-  static constexpr int bytes = stats + 3 * kBq * 4;
-};
+namespace tile {
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_prefill_bf16(Args a) {
-  using L = Smem<D>;
-  constexpr int kVecs = D / 8;             // 16-byte vectors per row
-  extern __shared__ __align__(128) unsigned char tc_smem[];
-  bf16* qs = reinterpret_cast<bf16*>(tc_smem + L::q);
-  bf16* ks = reinterpret_cast<bf16*>(tc_smem + L::k);
-  bf16* vs = reinterpret_cast<bf16*>(tc_smem + L::v);
-  float* ss = reinterpret_cast<float*>(tc_smem + L::s);
-  bf16* ps = reinterpret_cast<bf16*>(tc_smem + L::p);
-  float* os = reinterpret_cast<float*>(tc_smem + L::o);
-  float* row_m = reinterpret_cast<float*>(tc_smem + L::stats);
-  float* row_l = row_m + kBq;
-  float* row_alpha = row_l + kBq;
-
-  const bf16* q = static_cast<const bf16*>(a.q);
-  const bf16* k = static_cast<const bf16*>(a.k);
-  const bf16* v = static_cast<const bf16*>(a.v);
-  bf16* out = static_cast<bf16*>(a.out);
-
-  const int q0 = blockIdx.x * kBq;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (a.Hq / a.Hkv);
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int wr = (tid / 32) * kWm;         // this warp's first row in the tile
-  const int r0 = q0 + wr;                  // ... and in the sequence
+__global__ void __launch_bounds__(at::warpgroups<D>() * 128, 1) flash_prefill_bf16(Args a) {
+  constexpr int nwg = at::warpgroups<D>();
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int G = a.Hq / a.Hkv;
+  const int bq = 64 * nwg / G;             // positions a block serves
+  // grid (Hkv, B, query tiles), the last tiles (the most keys) first
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * bq;
+  const int kvh = blockIdx.x;
+  const int b = blockIdx.y;
   const int plen = min(a.prompt_lens[b], a.T);
-
-  for (int idx = tid; idx < kBq * kVecs; idx += kThreads) {
-    const int r = idx / kVecs, c = (idx % kVecs) * 8;
-    const int row = q0 + r;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row < a.T)
-      val = *reinterpret_cast<const uint4*>(
-          q + ((static_cast<size_t>(b) * a.T + row) * a.Hq + h) * D + c);
-    *reinterpret_cast<uint4*>(qs + r * L::ldh + c) = val;
-  }
-  for (int idx = tid; idx < kBq * D; idx += kThreads) os[(idx / D) * L::ldo + idx % D] = 0.f;
-  if (tid < kBq) {
-    row_m[tid] = kNegInf;
-    row_l[tid] = 0.f;
-  }
-
-  // this warp has work only for rows inside the prompt, and a block wholly
-  // past it reads no key at all (its rows are unspecified: they get 0)
-  const bool warp_live = r0 < plen;
-  const int kv_end = q0 < plen ? min(q0 + kBq, plen) : 0;
-  for (int k0 = first_tile(q0, a.window, kBk); k0 < kv_end; k0 += kBk) {
-    __syncthreads();   // the previous tile's K / V are consumed
-    for (int idx = tid; idx < kBk * kVecs; idx += kThreads) {
-      const int r = idx / kVecs, c = (idx % kVecs) * 8;
-      const int key = k0 + r;
-      const size_t off = ((static_cast<size_t>(b) * a.T + key) * a.Hkv + hk) * D + c;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (key < a.T) kv = *reinterpret_cast<const uint4*>(k + off);
-      if (key < plen) vv = *reinterpret_cast<const uint4*>(v + off);
-      *reinterpret_cast<uint4*>(ks + r * L::ldh + c) = kv;
-      *reinterpret_cast<uint4*>(vs + r * L::ldh + c) = vv;
-    }
-    __syncthreads();
-    // skip a tile wholly after this warp's rows or before their window
-    if (!warp_live || k0 > r0 + kWm - 1) continue;
-    if (a.window > 0 && k0 + kBk - 1 <= r0 - a.window) continue;
-
-    // S = Q K^T over this warp's 16 rows
-    wmma::fragment<wmma::accumulator, kWm, kWm, kWm, float> sacc[kBk / kWm];
-#pragma unroll
-    for (int j = 0; j < kBk / kWm; ++j) wmma::fill_fragment(sacc[j], 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D; kk += kWm) {
-      wmma::fragment<wmma::matrix_a, kWm, kWm, kWm, bf16, wmma::row_major> qf;
-      wmma::load_matrix_sync(qf, qs + wr * L::ldh + kk, L::ldh);
-#pragma unroll
-      for (int j = 0; j < kBk / kWm; ++j) {
-        wmma::fragment<wmma::matrix_b, kWm, kWm, kWm, bf16, wmma::col_major> kf;
-        wmma::load_matrix_sync(kf, ks + j * kWm * L::ldh + kk, L::ldh);
-        wmma::mma_sync(sacc[j], qf, kf, sacc[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kBk / kWm; ++j)
-      wmma::store_matrix_sync(ss + wr * L::lds + j * kWm, sacc[j], L::lds,
-                              wmma::mem_row_major);
-    __syncwarp();
-
-    // online softmax, one row at a time: lane = key columns lane, lane + 32
-    for (int r = wr; r < wr + kWm; ++r) {
-      const int row = q0 + r;
-      float x[2];
-      bool ok[2];
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int col = lane + 32 * c;
-        ok[c] = key_ok(k0 + col, row, plen, a.window);
-        x[c] = ok[c] ? score(ss[r * L::lds + col], a) : kNegInf;
-      }
-      const float m_old = row_m[r];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(x[0], x[1])));
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const float p = ok[c] ? expf(x[c] - m_new) : 0.f;
-        ps[r * L::ldp + lane + 32 * c] = __float2bfloat16(p);
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        row_alpha[r] = alpha;
-        row_l[r] = row_l[r] * alpha + sum;
-        row_m[r] = m_new;
-      }
-    }
-    __syncwarp();
-
-    // O = O * alpha + P V over this warp's rows
-    for (int idx = lane; idx < kWm * D; idx += 32) {
-      const int r = wr + idx / D;
-      os[r * L::ldo + idx % D] *= row_alpha[r];
-    }
-    __syncwarp();
-    wmma::fragment<wmma::matrix_a, kWm, kWm, kWm, bf16, wmma::row_major> pf[kBk / kWm];
-#pragma unroll
-    for (int j = 0; j < kBk / kWm; ++j)
-      wmma::load_matrix_sync(pf[j], ps + wr * L::ldp + j * kWm, L::ldp);
-#pragma unroll 2
-    for (int n = 0; n < D; n += kWm) {
-      wmma::fragment<wmma::accumulator, kWm, kWm, kWm, float> of;
-      wmma::load_matrix_sync(of, os + wr * L::ldo + n, L::ldo, wmma::mem_row_major);
-#pragma unroll
-      for (int j = 0; j < kBk / kWm; ++j) {
-        wmma::fragment<wmma::matrix_b, kWm, kWm, kWm, bf16, wmma::row_major> vf;
-        wmma::load_matrix_sync(vf, vs + j * kWm * L::ldh + n, L::ldh);
-        wmma::mma_sync(of, pf[j], vf, of);
-      }
-      wmma::store_matrix_sync(os + wr * L::ldo + n, of, L::ldo, wmma::mem_row_major);
-    }
-  }
-  __syncthreads();
-
-  for (int idx = lane; idx < kWm * D; idx += 32) {
-    const int r = wr + idx / D, d = idx % D;
-    const int row = q0 + r;
-    if (row >= a.T) break;
-    const float l = row_l[r];
-    out[((static_cast<size_t>(b) * a.T + row) * a.Hq + h) * D + d] =
-        __float2bfloat16(l > 0.f ? os[r * L::ldo + d] / l : 0.f);
-  }
+  Tile t;
+  t.kvh = kvh;
+  t.pos0 = q0;
+  t.total = plen;
+  t.n_write = min(bq, a.T - q0);
+  t.n_valid = q0 < plen ? t.n_write : 0;   // a block wholly past the prompt writes 0
+  const size_t off = (static_cast<size_t>(b) * a.T + q0) * a.Hq * D;
+  t.q = static_cast<const __nv_bfloat16*>(a.q) + off;
+  t.out = static_cast<__nv_bfloat16*>(a.out) + off;
+  t.bt = nullptr;
+  const WindowArgs w{a.k, a.v, nullptr, nullptr, a.Hq, a.Hkv, 0, a.scale, a.window, a.softcap};
+  const at::DenseSrc src{static_cast<size_t>(b) * a.T * a.Hkv + kvh, a.Hkv};
+  at::attn_tile<__nv_bfloat16, D, nwg>(w, t, src, smem);
 }
 
 template <int D>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  constexpr int bytes = Smem<D>::bytes;
+  constexpr int nwg = at::warpgroups<D>();
+  constexpr int bytes = at::Smem<__nv_bfloat16, D, nwg>::bytes;
   const cudaError_t err = cudaFuncSetAttribute(
       flash_prefill_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.T + kBq - 1) / kBq, a.Hq, a.B);
-  flash_prefill_bf16<D><<<grid, kThreads, bytes, stream>>>(a);
+  const int bq = 64 * nwg / (a.Hq / a.Hkv);
+  const dim3 grid(a.Hkv, a.B, (a.T + bq - 1) / bq);
+  flash_prefill_bf16<D><<<grid, 128 * nwg, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
-}  // namespace tc
+}  // namespace tile
 
 // ---------------------------------------------------------------------------
 // float32: CUDA cores
@@ -321,7 +172,8 @@ flash_prefill_f32(Args a) {
 #pragma unroll
   for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
 
-  const int kv_end = q0 < plen ? min(q0 + kBq, plen) : 0;   // as in tc::
+  // a block wholly past the prompt reads no key (its rows get 0)
+  const int kv_end = q0 < plen ? min(q0 + kBq, plen) : 0;
   for (int k0 = first_tile(q0, a.window, kBk); k0 < kv_end; k0 += kBk) {
     __syncthreads();   // previous tile's ps / vs fully consumed
     for (int idx = tid; idx < kBk * D; idx += kThreads) {
@@ -411,7 +263,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 template <int D>
 cudaError_t by_dtype(const Args& a, int dtype, cudaStream_t stream) {
   if (dtype == 0) return f32::launch<D>(a, stream);
-  if (dtype == 1) return tc::launch<D>(a, stream);
+  if (dtype == 1) return tile::launch<D>(a, stream);
   return cudaErrorInvalidValue;
 }
 

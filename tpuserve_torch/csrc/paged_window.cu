@@ -14,17 +14,32 @@
 // it does 4 * Hq * D * (n * ctx + n^2 / 2) FLOPs for about
 // 2 * Hkv * D * (ctx + n) cached values read; at the chunked path's
 // 2,048-row chunks that is hundreds of FLOPs per byte, so operations bound
-// it and only the tensor cores come near the bound.
+// it and only the tensor cores through wgmma come near the bound.
 //
-// Design (a simple first kernel, not yet fast): grid (ceil(C / bq), Hkv,
-// B), bq = 64 / G query positions (32 / G in float32), one block per
-// (sequence, query tile, KV head) so the G query heads sharing a KV head
-// share every K/V tile it loads.  The block reads its own block-table row,
-// ctx_lens[b] and chunk_lens[b], and runs window_tile (window_tile.cuh):
-// K/V tiles from the window start of its first row to the causal limit of
-// its last, only written keys ever read, online softmax in float32, WMMA
-// for bf16.  Unlike the TPU kernel it does no page-group DMA pipeline;
-// cp.async / TMA double buffering and wgmma are the next steps.
+// Design: one block per (sequence, query tile, KV head), so the G query
+// heads sharing a KV head share every K/V tile it loads; grid (Hkv, B,
+// query tiles), the last tiles (the most keys) dispatched first.  The
+// block reads its own block-table row, ctx_lens[b] and chunk_lens[b].
+// bf16: at::attn_tile (attn_tile.cuh): two consumer warpgroups, 128 rows
+// (bq = 128 / G positions; one warpgroup, 64 rows, at D=256), 128-key K/V
+// tiles (64 for int8 or D=256) in a 2-stage cp.async ring on mbarriers,
+// S = QK^T and O += PV on wgmma with S, P and O in registers; at D=128
+// 161 KB of shared memory and 255 registers a thread, one block an SM.
+// What it does about the WMMA tile it replaces:
+// 1. scores, probabilities and output stay in registers; the softmax works
+//    on the accumulator fragment with quad shuffles, not row by row
+//    through shared memory;
+// 2. K/V loads are asynchronous and run under the math, one block barrier
+//    a tile; each warp reads a tile's block-table entries once;
+// 3. wgmma (m64n128k16 for S, m64n128k16 with P from registers for PV)
+//    replaces 16x16x16 WMMA;
+// 4. a tile holds 128 rows, not 64, so each pass over a 4,096-6,000-key
+//    context serves twice the queries; 128-key tiles halve the per-tile
+//    waits;
+// 5. (flash prefill's K/V reuse; here each K/V tile already served all G
+//    heads.)
+// Only written keys are read.  float32 queries: wf32::window_tile
+// (window_tile.cuh) on the CUDA cores.
 
 #include "window_tile.cuh"
 
@@ -40,16 +55,18 @@ struct Args {
   WindowArgs w;
 };
 
+// grid (Hkv, B, query tiles), the last query tiles (the most keys) first
 template <int kRows>
 __device__ __forceinline__ Tile make_tile(const Args& a, int D, int elem_size) {
   const int G = a.w.Hq / a.w.Hkv;
   const int bq = kRows / G;
-  const int b = blockIdx.z;
-  const int i0 = blockIdx.x * bq;
+  const int kvh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int i0 = (gridDim.z - 1 - blockIdx.z) * bq;
   const int ctx = a.ctx_lens[b];
   const int n = a.chunk_lens[b];
   Tile t;
-  t.kvh = blockIdx.y;
+  t.kvh = kvh;
   t.pos0 = ctx + i0;
   t.total = ctx + n;
   t.n_write = min(bq, a.C - i0);
@@ -62,10 +79,12 @@ __device__ __forceinline__ Tile make_tile(const Args& a, int D, int elem_size) {
 }
 
 template <typename KVT, int D>
-__global__ void __launch_bounds__(wtc::kThreads) paged_window_bf16(Args a) {
+__global__ void __launch_bounds__(at::warpgroups<D>() * 128, 1) paged_window_bf16(Args a) {
+  constexpr int nwg = at::warpgroups<D>();
   extern __shared__ __align__(128) unsigned char smem[];
-  const Tile t = make_tile<wtc::kRows>(a, D, 2);
-  wtc::window_tile<KVT, D>(a.w, t, smem);
+  const Tile t = make_tile<64 * nwg>(a, D, 2);
+  const at::PagedSrc src{t.bt, a.w.page_size, a.w.Hkv, t.kvh};
+  at::attn_tile<KVT, D, nwg>(a.w, t, src, smem);
 }
 
 template <typename KVT, int D>
@@ -82,19 +101,19 @@ cudaError_t launch(Kernel kernel, int bytes, int rows, const Args& a, int B,
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const int bq = rows / (a.w.Hq / a.w.Hkv);
-  const dim3 grid((a.C + bq - 1) / bq, a.w.Hkv, B);
-  kernel<<<grid, threads, bytes, stream>>>(a);
+  kernel<<<dim3(a.w.Hkv, B, (a.C + bq - 1) / bq), threads, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t by_dtype(const Args& a, int B, int q_dtype, int kv_dtype, cudaStream_t s) {
+  constexpr int nwg = at::warpgroups<D>();
   if (q_dtype == 1 && kv_dtype == 1)
-    return launch(paged_window_bf16<__nv_bfloat16, D>, wtc::Smem<D>::bytes, wtc::kRows, a,
-                  B, wtc::kThreads, s);
+    return launch(paged_window_bf16<__nv_bfloat16, D>, at::Smem<__nv_bfloat16, D, nwg>::bytes,
+                  64 * nwg, a, B, 128 * nwg, s);
   if (q_dtype == 1 && kv_dtype == 2)
-    return launch(paged_window_bf16<int8_t, D>, wtc::Smem<D>::bytes, wtc::kRows, a, B,
-                  wtc::kThreads, s);
+    return launch(paged_window_bf16<int8_t, D>, at::Smem<int8_t, D, nwg>::bytes, 64 * nwg, a,
+                  B, 128 * nwg, s);
   if (q_dtype == 0 && kv_dtype == 0)
     return launch(paged_window_f32<float, D>, wf32::smem_bytes<D>(), wf32::kRows, a, B,
                   wf32::kThreads, s);

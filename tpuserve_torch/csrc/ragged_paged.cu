@@ -26,10 +26,13 @@
 //   the per-row math of the phase-split decode kernel; rows past meta[0]
 //   write 0.
 // - prefill block (blk_seq[p] >= 0): its blk rows x G heads are split into
-//   window tiles of bq = 64 / G positions (32 / G in float32); block
-//   (p, kvh, z) runs tile z with window_tile (window_tile.cuh), the code of
-//   paged_window.cu, at the chunk's cache positions.  Blocks with z past
-//   the last tile exit at once.
+//   tiles of bq = 64 / G positions (32 / G in float32); block (p, kvh, z)
+//   runs tile z at the chunk's cache positions.  bf16: at::attn_tile
+//   (attn_tile.cuh), the Hopper core paged_window.cu and flash_prefill.cu
+//   run, with one consumer warpgroup (64 rows: blk 32 x Qwen3's G = 2), so
+//   its wgmma products, register softmax and asynchronous K/V ring serve
+//   these blocks too; float32: wf32::window_tile (window_tile.cuh).  Blocks
+//   with z past the last tile exit at once.
 // - padding block: block (p, kvh, 0) writes zeros; the rest exit.
 // Right for any blk (a power of two from 8 to 128 is what the engine
 // packs); blocks that exit at once cost a few microseconds of launch.
@@ -40,7 +43,7 @@
 namespace {
 
 constexpr int kThreads = 128;   // both parts run 4 warps
-static_assert(wtc::kThreads == kThreads && wf32::kThreads == kThreads, "one block shape");
+static_assert(wf32::kThreads == kThreads, "one block shape: one warpgroup");
 
 struct Args {
   const void* q;
@@ -59,7 +62,7 @@ template <typename QT, typename KVT, int D, int MAXG>
 __global__ void __launch_bounds__(kThreads) ragged_paged_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr bool kTc = sizeof(QT) == 2;
-  constexpr int kRows = kTc ? wtc::kRows : wf32::kRows;
+  constexpr int kRows = kTc ? 64 : wf32::kRows;
   const int p = blockIdx.x;
   const int kvh = blockIdx.y;
   const int z = blockIdx.z;
@@ -103,14 +106,14 @@ __global__ void __launch_bounds__(kThreads) ragged_paged_kernel(Args a) {
   t.out = out + off;
   t.bt = a.block_tables + static_cast<size_t>(s) * a.max_pages;
   if constexpr (kTc)
-    wtc::window_tile<KVT, D>(a.w, t, smem);
+    at::attn_tile<KVT, D, 1>(a.w, t, at::PagedSrc{t.bt, a.w.page_size, a.w.Hkv, kvh}, smem);
   else
     wf32::window_tile<KVT, D>(a.w, t, smem);
 }
 
 template <typename QT, typename KVT, int D, int MAXG>
 cudaError_t launch(const Args& a, int T, cudaStream_t stream) {
-  constexpr int tile = sizeof(QT) == 2 ? wtc::Smem<D>::bytes : wf32::smem_bytes<D>();
+  constexpr int tile = sizeof(QT) == 2 ? at::Smem<KVT, D, 1>::bytes : wf32::smem_bytes<D>();
   constexpr int dec = 4 * decode_smem_floats<D, MAXG, kThreads / 32>();
   constexpr int bytes = tile > dec ? tile : dec;
   auto kernel = ragged_paged_kernel<QT, KVT, D, MAXG>;
