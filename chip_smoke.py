@@ -9,20 +9,25 @@ non-zero:
 1. build     compile the four CUDA kernels from ``tpuserve_torch/csrc``, one
              nvcc each, all started together; count each library's wgmma
              (HGMMA) instructions, which the bf16 attention tile must
-             contain, and read its kernels' registers and stack.
+             contain, and read the tile's and the split-K decode kernels'
+             registers and stack, and the decode kernels' shared memory.
 2. kernels   hold each kernel against its plain PyTorch version at the
              shapes its path gives it (flash prefill: the main path's B=8 x
              1024 batch of 128-1024-token prompts; paged decode: B=8,
-             32-token pages, 64 pages a sequence; paged window: the chunked
-             phase's last chunk of a 6,000-token prompt, 1,904 rows over
-             4,096 cached tokens; ragged paged: the mixed phase's 512-row
-             stream of 8 decode rows and a 480-row chunk), at further
-             shapes, and in sliding-window/softcap and NaN-slot cases, with
-             times: the kernel, the plain version, the least time the card
-             could take (``bound_ms``) and, where one PyTorch call computes
-             the same function, that call as a yardstick only.  The flash,
-             window and ragged headlines also carry a planted fault (a K/V
-             tile's V zeroed) that the comparison must reject.
+             32-token pages, 64 pages a sequence, then the main path's own
+             lengths, one 2,048-token sequence alone and lengths at a
+             split-K partition's edges; paged window: the chunked phase's
+             last chunk of a 6,000-token prompt, 1,904 rows over 4,096
+             cached tokens; ragged paged: the mixed phase's 512-row stream
+             of 8 decode rows and a 480-row chunk, then each half alone),
+             at further shapes, and in sliding-window/softcap and NaN-slot
+             cases, with times: the kernel, the plain version, the least
+             time the card could take (``bound_ms``) and, where one PyTorch
+             call computes the same function, that call as a yardstick only
+             (SDPA over K/V gathered beforehand for paged decode and
+             window).  The flash, window and ragged headlines also carry a
+             planted fault (a K/V tile's V zeroed) that the comparison must
+             reject.
 3. identity  Qwen3-0.6B at full width, 2 layers, float32, no TF32: engines
              on the CUDA kernels and on the plain attention give the same
              greedy tokens on the main path, on the chunked path (prompts
@@ -87,16 +92,27 @@ MAIN_LENGTHS = [128, 256, 384, 512, 640, 768, 896, 1024]
 # 0.0625 on an H100, where |logit| reaches 3.34 (four bf16 steps of
 # 0.0156 at 2-4); the gate is twice that.
 LOGIT_DIFF_MAX = 0.125
+# GPU clock cycles the card spins before each cold-timed call (~0.5 ms)
+COLD_SPIN_CYCLES = 1_000_000
 
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, iters: int = 10, warmup: int = 2, cold: bool = False) -> float:
-    """Mean ms of one ``fn()`` on the card.  ``cold``: overwrite a buffer
-    larger than the 50 MB L2 before each call and time each call alone, as
-    a decode step finds each layer's cache pages."""
+def cuda_ms(fn, iters: int = 10, warmup: int = 2, cold: bool = False,
+            stats: dict | None = None) -> float:
+    """Ms of one ``fn()`` on the card: the mean over ``iters`` calls back to
+    back.  ``cold``: overwrite a buffer larger than the 50 MB L2 before each
+    call, as a decode step finds each layer's cache pages, time each call
+    alone and take the median (a few calls in fifty read 2-8x the rest, on
+    an H100 80GB HBM3, which moved a mean of fifty by up to 40%); ``stats``
+    then also gets the mean, the measure before the median.  Between the
+    overwrite and the start event the card spins (COLD_SPIN_CYCLES, ~0.5
+    ms), which touches no memory: the host enqueues ``fn``'s launch
+    meanwhile, so a wrapper slower on the host than the overwrite on the
+    card does not add its enqueue time to the kernel's."""
+    import statistics
     import torch
     for _ in range(warmup):
         fn()
@@ -107,6 +123,7 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2, cold: bool = False) -> float:
     if cold:
         for start, end in events:
             flush.zero_()
+            torch.cuda._sleep(COLD_SPIN_CYCLES)
             start.record()
             fn()
             end.record()
@@ -116,7 +133,12 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2, cold: bool = False) -> float:
             fn()
         events[0][1].record()
     torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in events) / iters
+    times = [s.elapsed_time(e) for s, e in events]
+    if not cold:
+        return times[0] / iters
+    if stats is not None:
+        stats["mean"] = sum(times) / iters
+    return statistics.median(times)
 
 
 def bound(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
@@ -276,6 +298,7 @@ def paged_case(dtype: str, B: int, Hq: int, Hkv: int, D: int, page: int,
                max_pages: int, lens, int8=False, window=None, softcap=None,
                timed=True) -> dict:
     import torch
+    import torch.nn.functional as F
     from tpuserve_torch.ops import attention, paged_decode
     tdt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -311,8 +334,10 @@ def paged_case(dtype: str, B: int, Hq: int, Hkv: int, D: int, page: int,
                    f"window={window} softcap={softcap}",
            "max_abs_err": err, "tol": tol, "ok": ok}
     if timed:
+        st = {}
         res["ms"] = cuda_ms(lambda: paged_decode.paged_decode_attention(
-            q, kc, vc, bt, sl, scale, **kw), iters=50, warmup=5, cold=True)
+            q, kc, vc, bt, sl, scale, **kw), iters=50, warmup=5, cold=True, stats=st)
+        res["ms_mean"] = st["mean"]
         res["plain_ms"] = cuda_ms(lambda: attention.paged_decode_attention(
             q, kc, vc, bt, sl, scale, **kw), iters=5, warmup=1, cold=True)
         attended = sum(n if window is None else min(n, window) for n in lens)
@@ -320,7 +345,21 @@ def paged_case(dtype: str, B: int, Hq: int, Hkv: int, D: int, page: int,
         res["flops"] = 2 * 2 * Hq * D * attended
         res["bound_ms"], res["bound_by"] = bound(
             res["flops"], 2 * attended * row + nbytes(q, out, bt, sl), dtype)
-        res["library_ms"] = None
+        # yardstick only: one SDPA call over K/V gathered to a dense
+        # (B, Hq, S, D) tensor beforehand (not timed), with a boolean mask of
+        # each row's valid keys
+        S = max(lens)
+        kd, vd = attention._gather_pages(kc, vc, bt, ks, vs, tdt)
+        kd, vd = (x[:, :S].nan_to_num().repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2)
+                  .contiguous() for x in (kd, vd))
+        j = torch.arange(S, device="cuda")[None, :]
+        mask = j < sl.long()[:, None]
+        if window is not None:
+            mask &= j >= sl.long()[:, None] - window
+        qd = q[:, :, None, :]
+        res["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qd, kd, vd, attn_mask=mask[:, None, None], scale=scale), iters=50, warmup=5,
+            cold=True)
     return res
 
 
@@ -366,8 +405,10 @@ def window_case(dtype: str, B: int, C: int, Hq: int, Hkv: int, D: int, page: int
             zeroed_slots(vc, bt[0], page), ctx[0] + n[0], slice(0, n[0]), ref[0, :n[0]], tol)
         res["ok"] = res["ok"] and res["planted"]["caught"]
     if timed:                      # L2 flushed before each call, as a step finds it
+        st = {}
         res["ms"] = cuda_ms(lambda: paged_window.paged_window_attention(*args, **kw),
-                            cold=True)
+                            cold=True, stats=st)
+        res["ms_mean"] = st["mean"]
         res["plain_ms"] = cuda_ms(lambda: attention.chunked_prefill_attention(*args, **kw),
                                   iters=3, warmup=1, cold=True)
         pairs = keys = 0
@@ -397,10 +438,13 @@ def window_case(dtype: str, B: int, C: int, Hq: int, Hkv: int, D: int, page: int
 
 
 def ragged_case(dtype: str, dec_lens, chunks, blk: int, Hq=16, Hkv=8, D=128, page=32,
-                int8=False, window=None, softcap=None, timed=True, plant=False) -> dict:
+                int8=False, window=None, softcap=None, timed=True, plant=False,
+                max_pages=None) -> dict:
     """A mixed stream packed as the engine packs it: decode rows with cache
     lengths ``dec_lens``, then prefill chunks ((q_len, kv_len) each).
-    ``plant``: also hold a planted fault in the first chunk's last K/V tile."""
+    ``plant``: also hold a planted fault in the first chunk's last K/V tile.
+    ``max_pages``: the block tables' width (default: the longest sequence's
+    pages and one more)."""
     import torch
     from tpuserve_torch.ops import attention, ragged_paged
     from tpuserve_torch.ops.ragged_paged import ragged_layout
@@ -409,7 +453,7 @@ def ragged_case(dtype: str, dec_lens, chunks, blk: int, Hq=16, Hkv=8, D=128, pag
     n_dec = len(dec_lens)
     kv = list(dec_lens) + [kl for _, kl in chunks]
     B = len(kv)
-    max_pages = -(-max(kv) // page) + 1
+    max_pages = max_pages or -(-max(kv) // page) + 1
     nb = B * max_pages + 7
     kc, vc, ks, vs = paged_cache(g, nb, page, Hkv, D, dtype, int8)
     perm = torch.randperm(nb, generator=g, device="cuda")[:B * max_pages]
@@ -435,7 +479,7 @@ def ragged_case(dtype: str, dec_lens, chunks, blk: int, Hq=16, Hkv=8, D=128, pag
     ok = ok and int(torch.count_nonzero(out[~valid])) == 0
     kv_name = "int8" if int8 else dtype
     res = {"case": f"ragged_paged q={dtype} kv={kv_name} T={T} blk={blk} Hq={Hq} Hkv={Hkv} "
-                   f"D={D} page={page} decode_rows={n_dec} max_decode_len="
+                   f"D={D} page={page} max_pages={max_pages} decode_rows={n_dec} max_decode_len="
                    f"{max(dec_lens, default=0)} chunks(q_len,kv_len)={list(chunks)} "
                    f"window={window} softcap={softcap}",
            "max_abs_err": err, "tol": tol, "ok": ok}
@@ -446,8 +490,10 @@ def ragged_case(dtype: str, dec_lens, chunks, blk: int, Hq=16, Hkv=8, D=128, pag
             zeroed_slots(vc, bt[s], page), kv[s], rows, ref[rows], tol)
         res["ok"] = res["ok"] and res["planted"]["caught"]
     if timed:                      # L2 flushed before each call, as a step finds it
+        st = {}
         res["ms"] = cuda_ms(lambda: ragged_paged.ragged_paged_attention(*args, **kw),
-                            cold=True)
+                            iters=50, warmup=5, cold=True, stats=st)
+        res["ms_mean"] = st["mean"]
         res["plain_ms"] = cuda_ms(lambda: attention.ragged_paged_attention(*args, **kw),
                                   iters=3, warmup=1, cold=True)
         pairs = keys = 0
@@ -466,9 +512,14 @@ def ragged_case(dtype: str, dec_lens, chunks, blk: int, Hq=16, Hkv=8, D=128, pag
 def phase_build(_build) -> dict:
     """Build the four libraries, then read what was compiled: the wgmma
     (HGMMA) instructions in each library's SASS, which the bf16 tile must
-    contain, and registers and stack (spills) of the tile's kernels."""
+    contain, registers and stack (spills) of the tile's and the split-K
+    decode kernels, and the decode kernels' dynamic shared memory a block
+    at the main path's shapes (bf16 and int8 K/V, D=128; the decode
+    headline's pages a partition, the engine's 64 pages a row for ragged)."""
     import re
     import shutil
+    import torch
+    from tpuserve_torch.ops.paged_decode import decode_splits, num_sms
     build_s = _build.build()
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     hgmma, usage = {}, {}
@@ -477,11 +528,22 @@ def phase_build(_build) -> dict:
         sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True).stdout
         hgmma[name] = sass.count("HGMMA")
         res = subprocess.run([tool, "-res-usage", lib], capture_output=True, text=True).stdout
-        for fn, reg, stack in re.findall(r"Function (\S+):\s*REG:(\d+) STACK:(\d+)", res):
-            if "bf16" in fn or "ragged" in fn:
-                usage[demangle(fn)] = {"regs": int(reg), "stack": int(stack)}
+        for fn, reg, stack, shared in re.findall(
+                r"Function (\S+):\s*REG:(\d+) STACK:(\d+)(?: SHARED:(\d+))?", res):
+            if "bf16" in fn or "ragged" in fn or "decode" in fn:
+                usage[demangle(fn)] = {"regs": int(reg), "stack": int(stack),
+                                       "static_shared": int(shared or 0)}
+    _, pages = decode_splits(64, 32, 8, 8, num_sms(torch.device("cuda", 0)))
+    dec, rag = _build.load("paged_decode"), _build.load("ragged_paged")
+    smem = {f"paged_decode kv={kv} D=128, {pages} pages a partition":
+            dec.paged_decode_smem_bytes(code, 128, pages)
+            for kv, code in (("bf16", 1), ("int8", 2))}
+    smem.update({f"ragged_paged q=bf16 kv={kv} D=128, 64 pages a row":
+                 rag.ragged_paged_smem_bytes(1, code, 128, 64)
+                 for kv, code in (("bf16", 1), ("int8", 2))})
     ok = all(hgmma[n] > 0 for n in ("flash_prefill", "paged_window", "ragged_paged"))
-    return {"ok": ok, "build_s": build_s, "hgmma": hgmma, "tile_kernels": usage}
+    return {"ok": ok, "build_s": build_s, "hgmma": hgmma, "tile_kernels": usage,
+            "decode_dynamic_smem_bytes": smem}
 
 
 def demangle(name: str) -> str:
@@ -494,7 +556,11 @@ def demangle(name: str) -> str:
 
 
 def phase_kernels() -> dict:
+    import torch
+    from tpuserve_torch.ops.paged_decode import decode_splits, num_sms
     rng = np.random.default_rng(SEED)
+    # keys a split-K partition holds at the decode headline's shape
+    part = 32 * decode_splits(64, 32, 8, 8, num_sms(torch.device("cuda", 0)))[1]
     lens_p = [1024, 777, 512, 129]
     lens_d = sorted(rng.integers(1, 2049, 7).tolist()) + [2048]
     # the mixed phase's decode rows: 256-token prompts some way into decode
@@ -513,6 +579,14 @@ def phase_kernels() -> dict:
         ],
         "paged_decode": [
             paged_case("bfloat16", 8, 16, 8, 128, 32, 64, lens_d),
+            # the main path's decode shape: its prompts 32 tokens into decode
+            paged_case("bfloat16", 8, 16, 8, 128, 32, 64, [n + 32 for n in MAIN_LENGTHS]),
+            # one sequence that has to fill the card alone
+            paged_case("bfloat16", 1, 16, 8, 128, 32, 64, [2048]),
+            # lengths at a partition's edges
+            paged_case("bfloat16", 8, 16, 8, 128, 32, 64,
+                       [part - 1, part, part + 1, 2 * part - 1, 2 * part, 2 * part + 1,
+                        2047, 2048]),
             paged_case("float32", 8, 16, 8, 128, 32, 64, lens_d),
             paged_case("bfloat16", 8, 16, 8, 128, 32, 64, lens_d, int8=True),
             paged_case("float32", 4, 8, 2, 64, 16, 16, [256, 200, 17, 0],
@@ -539,6 +613,10 @@ def phase_kernels() -> dict:
         "ragged_paged": [
             # the mixed phase's stream: 8 decode rows and a 480-row chunk
             ragged_case("bfloat16", dec, [(480, 960)], 32, plant=True),
+            # the headline's two halves alone: its 8 decode rows (at the
+            # headline's table width), then its 480-row chunk
+            ragged_case("bfloat16", dec, [], 32, max_pages=-(-960 // 32) + 1),
+            ragged_case("bfloat16", [], [(480, 960)], 32),
             ragged_case("bfloat16", dec, [(448, 896)], 64),
             ragged_case("float32", dec, [(480, 960)], 32),
             ragged_case("bfloat16", dec, [(480, 960)], 32, int8=True),

@@ -1,6 +1,7 @@
 """The CUDA sources on the CPU: the bf16 attention kernels run one Hopper
 tile (``csrc/attn_tile.cuh``) on wgmma, and nothing of the WMMA tiles it
-replaced is left.  What the compiled code runs (HGMMA in the SASS) is
+replaced is left; the decode kernels run one split-K body
+(``csrc/paged_decode.cuh``) fed by an asynchronous K/V ring.  What the compiled code runs (HGMMA in the SASS) is
 checked on the card by ``chip_smoke.py``'s build phase."""
 
 import re
@@ -48,8 +49,22 @@ def test_the_tile_runs_wgmma_from_registers_and_shared_memory():
     assert "cp.async.mbarrier.arrive.noinc" in src
 
 
-@pytest.mark.parametrize("name", ["flash_prefill.cu", "paged_window.cu", "ragged_paged.cu"])
+@pytest.mark.parametrize("name", ["flash_prefill.cu", "paged_decode.cu", "paged_window.cu",
+                                  "ragged_paged.cu"])
 def test_each_source_note_names_the_tpu_kernel_it_replaces(name):
     note = _src(name).split("#include")[0]
     assert "Replaces the TPU kernel" in note and "tpuserve/ops/pallas_" in note
     assert "What bounds it on this card" in note
+
+
+@pytest.mark.parametrize("name", ["paged_decode.cu", "ragged_paged.cu"])
+def test_decode_rows_run_the_split_k_body(name):
+    assert "split_decode<" in _src(name)
+
+
+def test_the_split_k_body_streams_kv_through_an_async_ring():
+    src = _src("paged_decode.cuh")
+    assert "at::cp_async16" in src and "at::cp_async_arrive" in src and "at::mbar_wait" in src
+    assert "atomicAdd(sk.counters" in src        # the last block merges, in the same launch
+    note = _src("paged_decode.cu").split("#include")[0]
+    assert "Known limit" not in note and "split" in note.lower()

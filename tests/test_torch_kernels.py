@@ -425,3 +425,76 @@ def test_ragged_paged_tile_edges(card, c):
     ref = attention.ragged_paged_attention(*args, scale, c["blk"], **kw)
     torch.testing.assert_close(out[valid].float(), ref[valid].float(), **_tile_tol(ref[valid]))
     assert torch.count_nonzero(out[~valid]) == 0
+
+
+# Split-K paged decode (csrc/paged_decode.cuh): each sequence's keys are cut
+# into partitions of whole pages, sized from the shapes and the card's SM
+# count (paged_decode.decode_splits), so lengths are given as functions of
+# the partition's keys `p` and the table's `full` width.  Every unwritten
+# slot holds NaN (int8: NaN scales); each case runs twice in a row, which
+# only agrees if the merge counters went back to 0.
+SPLIT_CASES = [
+    # lengths at partition - 1, partition, partition + 1 (the decode headline)
+    dict(B=8, Hq=16, Hkv=8, D=128, page=32, mp=64,
+         lens=lambda p, full: [p - 1, p, p + 1, 2 * p - 1, 2 * p, 2 * p + 1, full - 1, 0]),
+    # one sequence at the table's full width beside an empty one
+    dict(B=2, Hq=16, Hkv=8, D=128, page=16, mp=32, lens=lambda p, full: [full, 0]),
+    # a sliding window that starts in a later partition
+    dict(B=4, Hq=16, Hkv=8, D=128, page=16, mp=64, window=100,
+         lens=lambda p, full: [full, full - 37, 3 * p + 5, 0]),
+    # G = 8 at D = 256
+    dict(B=3, Hq=16, Hkv=2, D=256, page=16, mp=32, lens=lambda p, full: [full, p + 1, 1]),
+    # int8 pages with a window
+    dict(B=4, Hq=16, Hkv=8, D=128, page=32, mp=64, int8=True, window=300,
+         lens=lambda p, full: [full, 2 * p + 3, p - 1, 0]),
+    # float32, window and softcap, small pages
+    dict(B=4, Hq=8, Hkv=2, D=64, page=8, mp=64, window=50, softcap=30.0,
+         dtype=torch.float32, lens=lambda p, full: [full, p, p + 1, 0]),
+]
+
+
+@pytest.mark.parametrize("c", SPLIT_CASES)
+def test_paged_decode_split_edges(card, c):
+    B, page, mp, Hkv = c["B"], c["page"], c["mp"], c["Hkv"]
+    dtype = c.get("dtype", torch.bfloat16)
+    _, part_pages = paged_decode.decode_splits(mp, page, B, Hkv,
+                                                 paged_decode.num_sms(card))
+    lens = c["lens"](part_pages * page, mp * page)
+    rng = np.random.default_rng(B * c["D"] + mp)
+    nb = B * mp + 3
+    cache = _nan_cache(rng, nb, page, Hkv, c["D"], c.get("int8"), card)
+    if dtype == torch.float32 and not c.get("int8"):
+        cache[0], cache[1] = cache[0].float(), cache[1].float()
+    bt = rng.permutation(nb)[:B * mp].reshape(B, mp).astype(np.int32)
+    for b in range(B):                     # only the written slots hold numbers
+        _write_slots(rng, cache, bt[b], lens[b], page)
+    kc, vc, ks, vs = (x if x is None else x.to(card) for x in cache)
+    q = torch.from_numpy(rng.standard_normal((B, c["Hq"], c["D"]), np.float32))
+    args = (q.to(card, dtype), kc, vc, torch.from_numpy(bt).to(card),
+            torch.tensor(lens, dtype=torch.int32, device=card), c["D"] ** -0.5)
+    kw = dict(k_scale=ks, v_scale=vs, sliding_window=c.get("window"),
+              logit_softcap=c.get("softcap"))
+    n0 = paged_decode.LAUNCHES
+    out = paged_decode.paged_decode_attention(*args, **kw)
+    again = paged_decode.paged_decode_attention(*args, **kw)
+    ref = attention.paged_decode_attention(*args, **kw)
+    assert paged_decode.LAUNCHES == n0 + 2
+    assert torch.equal(out, again)
+    tol = TOL[dtype] if dtype == torch.float32 else _tile_tol(ref)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    for b, n in enumerate(lens):
+        if n == 0:
+            assert torch.count_nonzero(out[b]) == 0
+
+
+def test_ragged_decode_rows_twice_in_a_row(card):
+    """The ragged kernel's decode rows run the split-K body with its merge
+    counters: two calls in a row agree, and agree with the plain version."""
+    rng = np.random.default_rng(9)
+    args, kw, valid = _ragged(rng, card, torch.bfloat16, 3, [(60, 200)], 32, mp=64)
+    scale = 128 ** -0.5
+    out = ragged_paged.ragged_paged_attention(*args, scale, 32, **kw)
+    again = ragged_paged.ragged_paged_attention(*args, scale, 32, **kw)
+    ref = attention.ragged_paged_attention(*args, scale, 32, **kw)
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out[valid].float(), ref[valid].float(), **_tile_tol(ref[valid]))

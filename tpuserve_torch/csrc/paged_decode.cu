@@ -1,4 +1,4 @@
-// Paged single-token decode attention for Hopper (sm_90a).
+// Paged single-token decode attention for Hopper (sm_90a), split-K.
 //
 // Replaces the TPU kernel `paged_decode_attention` / `_paged_decode_kernel`
 // in tpuserve/ops/pallas_paged_attention.py.  Same contract as the plain
@@ -8,30 +8,41 @@
 // grouped-query heads, optional int8 pages with one f32 scale per
 // (block, position, kv head), optional sliding window and softcap.
 //
+// What the TPU kernel did: one program took `seqs_pp` sequences and walked
+// each one's pages in order, double-buffering page DMAs into VMEM, with the
+// grid running in order on one core.  That does not carry over: the card
+// runs blocks in parallel on 132 SMs and hides memory latency only with
+// many bytes in flight, so one block a (sequence, KV head) walking pages in
+// order leaves most SMs idle at small batch and waits one memory round
+// trip a step (the first port's design: 64 blocks at batch 8, 7% of the
+// bound on an H100).
+//
 // What bounds it on this card: bytes.  Every cached K and V row of the
 // attended range is read once per step and used for `group` dot products
 // (2 for Qwen3-0.6B), about one FLOP per byte against the H100's ~295 for
-// bf16 tensor cores, so the kernel can at best run at HBM bandwidth.
+// bf16 tensor cores, so the kernel can at best run at HBM bandwidth: the
+// design aims at enough blocks and enough bytes in flight to reach it.
 //
-// Design (the per-row body is paged_decode_row in paged_decode.cuh, which
+// Design (the body is split_decode in paged_decode.cuh, which
 // ragged_paged.cu's decode rows share):
-// - Grid (B, Hkv): one block serves the `group = Hq / Hkv` query heads that
-//   share a KV head, so each K/V row is read from memory once for all of
-//   them.  The block reads its own block-table row and seq_len.
-// - Each warp strides over the sequence's tokens; a K/V row is split over
-//   the lanes in 16-byte loads (8 bf16, 4 f32 or 16 int8 values a lane), so
-//   a warp covers one to four rows per step with every load fully used.
-// - Each lane group keeps a float32 online softmax (running max, sum and
-//   its slice of the output); groups merge inside the warp by shuffles,
-//   then the warps merge through shared memory.
-// - int8 rows are multiplied by their scale after loading and rounded to
-//   the query's type, as the TPU kernel dequantizes into q's dtype.
-// - Only tokens in [win_start, seq_len) are read, so pages wholly before
-//   the window are never touched and V outside the range (possibly NaN in
-//   a fresh cache) never reaches the sum.  seq_len == 0 writes zeros.
-// Known limit, the first thing to fix: B * Hkv blocks (64 at batch 8 for
-// Qwen3-0.6B) leave most of the 132 SMs idle at small batch; splitting the
-// sequence over several blocks (split-K) and merging after is the cure.
+// - Grid (S, Hkv, B): each sequence's keys are cut into S partitions of
+//   whole pages, S chosen by the wrapper from max_pages x page, B, Hkv and
+//   the SM count alone (ops/paged_decode.py decode_splits: about eight
+//   blocks an SM, no partition under 128 keys), so nothing is read back to
+//   the host.  A block whose partition lies past seq_len or before the
+//   window exits at once.
+// - Each block streams its partition's K/V through a 3-stage cp.async ring
+//   on mbarriers (8 KB of K and 8 KB of V a stage, up to 48 KB in flight;
+//   four blocks an SM), its block-table entries read once a page into
+//   shared memory.
+// - The math stays on the CUDA cores: a float32 online softmax per lane
+//   group, merged by shuffles and through shared memory.
+// - Partials (acc, m, l) go to float32 scratch the wrapper owns; the last
+//   block of a (sequence, KV head) to finish, found by an int32 counter it
+//   then sets back to 0, merges them with log-sum-exp weights in the same
+//   launch.  A sequence inside one partition is written directly.
+// What bounds the design: the longest partition's walk (one block streams
+// it alone), the merge's dependent reads of the partials, and launch cost.
 
 #include "paged_decode.cuh"
 
@@ -39,23 +50,28 @@ namespace {
 
 struct Args {
   DecodeArgs d;
+  SplitK k;
   const int* seq_lens;
   int B;
 };
 
-template <typename QT, typename KVT, int D, int MAXG, int NWARPS>
-__global__ void __launch_bounds__(NWARPS * 32)
-paged_decode_kernel(Args a) {
-  __shared__ float smem[decode_smem_floats<D, MAXG, NWARPS>()];
-  const int b = blockIdx.x;
-  paged_decode_row<QT, KVT, D, MAXG, NWARPS>(a.d, b, blockIdx.y, a.seq_lens[b], smem);
+template <typename QT, typename KVT, int D, int MAXG>
+__global__ void __launch_bounds__(kDecThreads) paged_decode_kernel(Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int b = blockIdx.z;
+  split_decode<QT, KVT, D, MAXG>(a.d, a.k, b, blockIdx.y, blockIdx.x, a.seq_lens[b], smem);
 }
 
 template <typename QT, typename KVT, int D, int MAXG>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  constexpr int kWarps = MAXG <= 2 ? 8 : 4;
-  paged_decode_kernel<QT, KVT, D, MAXG, kWarps>
-      <<<dim3(a.B, a.d.Hkv), kWarps * 32, 0, stream>>>(a);
+  using L = DecSmem<KVT, D>;
+  if (a.k.splits * (a.d.Hq / a.d.Hkv) > L::kWeights) return cudaErrorInvalidValue;
+  const int bytes = L::bytes(a.k.part_pages);
+  auto kernel = paged_decode_kernel<QT, KVT, D, MAXG>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(a.k.splits, a.d.Hkv, a.B), kDecThreads, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -76,16 +92,21 @@ cudaError_t by_shape(const Args& a, int D, cudaStream_t stream) {
 
 // q_dtype: 0 float32, 1 bfloat16.  kv_dtype: 0 float32, 1 bfloat16, 2 int8
 // (then k_scale / v_scale are required).  The output has q's type.
-// Returns the launch's cudaError_t (0 on success).
+// `part` holds B x Hkv x splits records of split_stride(G, D) floats and
+// `counters` B x Hkv int32 zeros (left zero); both are used only when
+// splits > 1.  Returns the launch's cudaError_t (0 on success).
 extern "C" int paged_decode(const void* q, const void* k_cache, const void* v_cache,
                             const float* k_scale, const float* v_scale,
                             const int* block_tables, const int* seq_lens, void* out,
-                            int B, int Hq, int Hkv, int D, int page_size, int max_pages,
+                            float* part, int* counters, int B, int Hq, int Hkv, int D,
+                            int page_size, int max_pages, int splits, int part_pages,
                             float scale, int window, float softcap, int q_dtype,
                             int kv_dtype, void* stream) {
   if (B == 0) return 0;
+  if (splits < 1 || part_pages < 1 || splits > 65535) return cudaErrorInvalidValue;
   Args a{{q, k_cache, v_cache, k_scale, v_scale, block_tables, out, Hq, Hkv, page_size,
           max_pages, scale, window, softcap},
+         {part, counters, splits, part_pages},
          seq_lens, B};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0 && kv_dtype == 0) return by_shape<float, float>(a, D, s);
@@ -93,4 +114,20 @@ extern "C" int paged_decode(const void* q, const void* k_cache, const void* v_ca
   if (q_dtype == 0 && kv_dtype == 2) return by_shape<float, int8_t>(a, D, s);
   if (q_dtype == 1 && kv_dtype == 2) return by_shape<__nv_bfloat16, int8_t>(a, D, s);
   return cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of one block (kv_dtype as above), for reports.
+extern "C" int paged_decode_smem_bytes(int kv_dtype, int D, int part_pages) {
+  switch (kv_dtype * 1000 + D) {
+    case 64: return DecSmem<float, 64>::bytes(part_pages);
+    case 128: return DecSmem<float, 128>::bytes(part_pages);
+    case 256: return DecSmem<float, 256>::bytes(part_pages);
+    case 1064: return DecSmem<__nv_bfloat16, 64>::bytes(part_pages);
+    case 1128: return DecSmem<__nv_bfloat16, 128>::bytes(part_pages);
+    case 1256: return DecSmem<__nv_bfloat16, 256>::bytes(part_pages);
+    case 2064: return DecSmem<int8_t, 64>::bytes(part_pages);
+    case 2128: return DecSmem<int8_t, 128>::bytes(part_pages);
+    case 2256: return DecSmem<int8_t, 256>::bytes(part_pages);
+    default: return -1;
+  }
 }

@@ -5,11 +5,20 @@ On CPU tensors it runs the plain version
 (``attention.paged_decode_attention``); on CUDA tensors it launches the
 kernel or raises — there is no fallback.  ``LAUNCHES`` counts kernel
 launches.
+
+The kernel is split-K: each sequence's keys are cut into partitions of
+whole pages (``decode_splits``, chosen from shapes alone so nothing is read
+back from the card), one block a (sequence, KV head, partition), whose
+float32 partials the last block to finish merges in the same launch.  The
+partials and the merge counters live in a workspace this module keeps per
+device and stream (``workspace``); ``ragged_paged.py`` shares it for its
+decode rows.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -18,8 +27,69 @@ from tpuserve_torch.ops import _build, attention
 LAUNCHES = 0
 HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 8
+# decode_splits aims at WAVES blocks an SM, with partitions of at least
+# MIN_KEYS keys (the kernels' kDecWaves and kDecMinKeys).
+WAVES = 8
+MIN_KEYS = 128
 _Q_DTYPES = (torch.float32, torch.bfloat16)
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# (device index, stream) -> (float32 partials, int32 counters), grown as needed
+_WORKSPACES: dict = {}
+
+
+def decode_splits(max_pages: int, page: int, rows: int, Hkv: int,
+                  num_sms: int) -> tuple[int, int]:
+    """(splits, part_pages): the partitions of a row's ``max_pages x page``
+    keys, each ``part_pages`` whole pages, so that ``rows x Hkv x splits``
+    blocks give about ``WAVES`` blocks to each of ``num_sms`` SMs, with no
+    partition under ``MIN_KEYS`` keys unless the table is shorter (a
+    shorter one costs more in fixed work and merging than it saves).  The
+    kernels apply the same rule (``decode_splits`` in
+    ``csrc/paged_decode.cuh``)."""
+    mp = max(max_pages, 1)
+    pairs = max(rows * Hkv, 1)
+    by_blocks = -(-WAVES * num_sms // pairs)
+    by_keys = mp * page // MIN_KEYS
+    want = min(max(min(by_blocks, by_keys), 1), mp)
+    part_pages = -(-mp // want)
+    return -(-mp // part_pages), part_pages
+
+
+@functools.lru_cache(maxsize=64)
+def ragged_decode_blocks(rows: int, Hkv: int, max_pages: int, page: int,
+                         num_sms: int) -> int:
+    """The ragged kernel's decode part, sized without knowing the decode-row
+    count n: the most ``n x Hkv x splits`` items (splits =
+    ``decode_splits(max_pages, page, n, Hkv, num_sms)[0]``) over every
+    ``n <= rows``, so blocks beyond what some n needs are never launched."""
+    return max(n * Hkv * decode_splits(max_pages, page, n, Hkv, num_sms)[0]
+               for n in range(rows + 1))
+
+
+def split_stride(G: int, D: int) -> int:
+    """float32 values of one partial record: acc (G x D), m and l (G each),
+    padded to 16 bytes (``split_stride`` in ``csrc/paged_decode.cuh``)."""
+    return G * D + -(-2 * G // 4) * 4
+
+
+@functools.lru_cache(maxsize=None)
+def num_sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def workspace(device: torch.device, stream: int, n_floats: int, n_counters: int):
+    """Scratch for the split-K partials (float32, ``n_floats``) and the
+    merge counters (int32 zeros, ``n_counters``; each launch leaves them 0),
+    kept per device and CUDA stream (``stream``, its handle): launches on
+    one stream run in order, so they can share it."""
+    key = (device.index, stream)
+    part, counters = _WORKSPACES.get(key, (None, None))
+    if part is None or part.numel() < n_floats:
+        part = torch.empty(max(n_floats, 4), dtype=torch.float32, device=device)
+    if counters is None or counters.numel() < n_counters:
+        counters = torch.zeros(max(n_counters, 1), dtype=torch.int32, device=device)
+    _WORKSPACES[key] = (part, counters)
+    return part, counters
 
 
 def paged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -42,11 +112,16 @@ def paged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                        block_tables, B, [("seq_lens", seq_lens)])
     Hq, D = q.shape[1:]
     _, page, Hkv, _ = k_cache.shape
+    max_pages = block_tables.shape[1]
+    splits, part_pages = decode_splits(max_pages, page, B, Hkv, num_sms(q.device))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    part, counters = workspace(q.device, stream,
+                               B * Hkv * splits * split_stride(Hq // Hkv, D), B * Hkv)
     quantized = k_scale is not None
     out = torch.empty_like(q)
     lib = _build.load("paged_decode")
     fn = lib.paged_decode
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -54,10 +129,10 @@ def paged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             k_scale.data_ptr() if quantized else None,
             v_scale.data_ptr() if quantized else None,
             block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-            B, Hq, Hkv, D, page, block_tables.shape[1], float(scale),
+            part.data_ptr(), counters.data_ptr(),
+            B, Hq, Hkv, D, page, max_pages, splits, part_pages, float(scale),
             int(sliding_window or 0), float(logit_softcap or 0.0),
-            kv_dtype_code(q.dtype), kv_dtype_code(k_cache.dtype),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            kv_dtype_code(q.dtype), kv_dtype_code(k_cache.dtype), stream)
     if rc != 0:
         raise RuntimeError(f"paged_decode launch failed: cudaError {rc}")
     global LAUNCHES

@@ -17,7 +17,8 @@ import numpy as np
 import torch
 
 from tpuserve_torch.ops import _build, attention
-from tpuserve_torch.ops.paged_decode import check_paged_inputs, kv_dtype_code
+from tpuserve_torch.ops.paged_decode import (check_paged_inputs, kv_dtype_code, num_sms,
+                                             ragged_decode_blocks, split_stride, workspace)
 from tpuserve_torch.utils import next_power_of_2
 
 LAUNCHES = 0
@@ -97,24 +98,32 @@ def ragged_paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
         _check(t.dtype == torch.int32 and t.shape == (n,), f"{name} must be int32 ({n},)")
         _check(t.device == q.device and t.is_contiguous(),
                f"{name} must be contiguous on {q.device}")
+    _, page, Hkv, _ = k_cache.shape
+    max_pages = block_tables.shape[1]
+    sms = num_sms(q.device)
+    # decode rows are the first meta[0] <= min(B, T) rows; the kernel picks
+    # their partitions from meta[0] on the card
+    dec_blocks = ragged_decode_blocks(min(B, T), Hkv, max_pages, page, sms)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    part, counters = workspace(q.device, stream, dec_blocks * split_stride(Hq // Hkv, D),
+                               B * Hkv)
     out = torch.empty_like(q)
     lib = _build.load("ragged_paged")
     fn = lib.ragged_paged
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 9 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     quantized = k_scale is not None
-    _, page, Hkv, _ = k_cache.shape
     rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             k_scale.data_ptr() if quantized else None,
             v_scale.data_ptr() if quantized else None,
             block_tables.data_ptr(), kv_lens.data_ptr(), q_starts.data_ptr(),
             q_lens.data_ptr(), meta.data_ptr(), blk_seq.data_ptr(), out.data_ptr(),
-            T, Hq, Hkv, D, page, block_tables.shape[1], blk, float(scale),
+            part.data_ptr(), counters.data_ptr(),
+            T, Hq, Hkv, D, page, max_pages, blk, sms, dec_blocks, float(scale),
             int(sliding_window or 0), float(logit_softcap or 0.0),
-            kv_dtype_code(q.dtype), kv_dtype_code(k_cache.dtype),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            kv_dtype_code(q.dtype), kv_dtype_code(k_cache.dtype), stream)
     if rc != 0:
         raise RuntimeError(f"ragged_paged launch failed: cudaError {rc}")
     global LAUNCHES
