@@ -29,35 +29,59 @@ non-zero:
              planted fault (a K/V tile's V zeroed) that the comparison must
              reject.
 3. identity  Qwen3-0.6B at full width, 2 layers, float32, no TF32: engines
-             on the CUDA kernels and on the plain attention give the same
-             greedy tokens on the main path, on the chunked path (prompts
-             of 37, 2,500 and 5,000 tokens and a prefix hit on the
-             5,000-token prompt, also against an engine with chunking off)
-             and on the mixed path (8 streams decoding while 8 prompts of
-             200-1,500 tokens arrive, also against the phase-split engine).
+             on the CUDA kernels and on the plain attention, decoding
+             synchronously, give the same greedy tokens on the main path
+             (and so does the default engine, with captured decode graphs
+             and pipelined windows), on the chunked path (prompts of 37,
+             2,500 and 5,000 tokens and a prefix hit on the 5,000-token
+             prompt, also against an engine with chunking off) and on the
+             mixed path (8 streams decoding while 8 prompts of 200-1,500
+             tokens arrive, also against the phase-split engine).
 4. main      the main path: a default engine (Qwen3-0.6B, 28 layers, bf16,
-             random weights from the seed) serves 8 prompts of 128-1024
-             tokens through ``add_request``/``step``, then one sampled
-             request repeating the first prompt (a prefix-cache hit, which
-             the chunk route serves); each kernel's launch count must match
-             the layers times its dispatches, and the first step's bf16
-             logits must agree with the plain attention path's (max |diff|
-             at most LOGIT_DIFF_MAX, top-1 agreement at least 0.75).
-5. chunked   the chunked path, full depth, bf16: 4 short streams, a
+             random weights from the seed; decode on captured CUDA graphs,
+             one a batch bucket and sampling mode, made by
+             ``Engine.warmup``, with pipelined windows) serves 8 prompts of
+             128-1024 tokens through ``add_request``/``step``, then one
+             sampled request repeating the first prompt (a prefix-cache
+             hit, which the chunk route serves); each kernel's launch count
+             must match the layers times its dispatches (the graphs' replays
+             add their captured launches), and the first step's bf16 logits
+             must agree with the plain attention path's (max |diff| at most
+             LOGIT_DIFF_MAX, top-1 agreement at least 0.75).  Then an engine
+             that runs the same decode eagerly and synchronously serves the
+             same requests: the same tokens, and its decode tok/s beside
+             the default engine's.
+5. graphs    the decode executables at full width, bf16, on 8 prefilled
+             sequences of the main path's lengths: one decode step replayed
+             from its graph against the same step run eagerly (logits
+             bit-equal, or within the main phase's logits gate with the
+             difference reported), a 32-token greedy window and a seeded
+             temperature window replayed against eager (identical tokens);
+             the main path's greedy streams with pipelining off, and with
+             pipelined single steps (``multi_step=1``), against the default
+             engine's (identical).
+6. chunked   the chunked path, full depth, bf16: 4 short streams, a
              6,000-token prompt served in chunks, then a prompt sharing its
              first 4,096 tokens, served from the prefix cache; each
              kernel's launches must be the layers times its steps (batched
              prefills, decode token steps, chunk steps), the prefix hit's
              first chunk must start at its cached offset, and chunk logits
              must agree with the plain path's.
-6. mixed     the mixed path, full depth, bf16, ``mixed_batching=True``: 8
+7. mixed     the mixed path, full depth, bf16, ``mixed_batching=True``: 8
              streams decoding, then 8 prompts of 512-1,500 tokens; each
              kernel's launches must be the layers times its steps, the
              ragged kernel's the layers times the mixed steps.
-7. profile   where the time goes, under torch.profiler, after every
+8. profile   where the time goes, under torch.profiler, after every
              counted run (a profiler run slows the launches that follow
              it): one prefill and one decode window of the main path, one
-             chunk step, one mixed step.
+             steady pipelined window alone (the paged decode kernel must
+             appear in the trace from the replays, at most layers x window
+             times; the host's CUDA launch calls counted), one chunk step,
+             one mixed step.
+
+The chunked and mixed engines, like the main one, are warmed
+(``Engine.warmup``) before their launch counts are reset, so each count
+holds exactly the launches of the path driven.
 
 Then the kernel report (with each headline's TFLOP/s and its bound's share
 of its time), the card's name and power limit, and as the last
@@ -75,7 +99,7 @@ import time
 
 import numpy as np
 
-PHASES = ("build", "kernels", "identity", "main", "chunked", "mixed", "profile")
+PHASES = ("build", "kernels", "identity", "main", "graphs", "chunked", "mixed", "profile")
 # Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA's data
 # sheet): bf16 tensor cores, float32 CUDA cores, HBM.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -659,19 +683,21 @@ def phase_identity() -> dict:
     ps = prompts(np.random.default_rng(SEED + 2), [37, 64, 100, 150], cfg.vocab_size)
     sp = SamplingParams(max_tokens=32, temperature=0.0, ignore_eos=True)
     streams = {}
-    for impl in ("cuda", "reference"):
-        eng = Engine(EngineConfig(attn_impl=impl, multi_step=8,
+    # synchronous decode on the kernels and on the plain attention, then
+    # the default engine: captured graphs, pipelined windows
+    for name, impl, pipelined in (("cuda", "cuda", False), ("reference", "reference", False),
+                                  ("cuda_pipelined", "cuda", None)):
+        eng = Engine(EngineConfig(attn_impl=impl, multi_step=8, pipeline_decode=pipelined,
                                   cache=CacheConfig(num_blocks=256, dtype="float32")),
                      params=params, model_cfg=cfg, device="cuda")
-        streams[impl] = [r.output_token_ids for r in eng.generate(ps, sp)]
+        streams[name] = [r.output_token_ids for r in eng.generate(ps, sp)]
         del eng
-    ok = (streams["cuda"] == streams["reference"]
-          and all(len(s) == 32 for s in streams["cuda"]))
+    same = streams["cuda"] == streams["reference"] == streams["cuda_pipelined"]
+    ok = same and all(len(s) == 32 for s in streams["cuda"])
     chunked = identity_chunked(cfg, params)
     mixed = identity_mixed(cfg, params)
     return {"ok": ok and chunked["ok"] and mixed["ok"], "prompts": len(ps),
-            "tokens_each": 32, "identical": streams["cuda"] == streams["reference"],
-            "chunked": chunked, "mixed": mixed}
+            "tokens_each": 32, "identical": same, "chunked": chunked, "mixed": mixed}
 
 
 def identity_run(engine, early, late, start_late) -> tuple[list, dict]:
@@ -707,6 +733,7 @@ def identity_chunked(cfg, params) -> dict:
                                  ("chunked_reference", "reference", True),
                                  ("unchunked_cuda", "cuda", False)):
         eng = Engine(EngineConfig(attn_impl=impl, multi_step=8, cache=cache,
+                                  pipeline_decode=False,
                                   scheduler=SchedulerConfig(allow_chunked_prefill=chunking)),
                      params=params, model_cfg=cfg, device="cuda")
         runs[name], stats[name] = identity_run(
@@ -738,7 +765,7 @@ def identity_mixed(cfg, params) -> dict:
     for name, impl, mixed in (("mixed_cuda", "cuda", True),
                               ("mixed_reference", "reference", True),
                               ("phase_split_cuda", "cuda", False)):
-        eng = Engine(EngineConfig(attn_impl=impl, multi_step=8,
+        eng = Engine(EngineConfig(attn_impl=impl, multi_step=8, pipeline_decode=False,
                                   cache=CacheConfig(num_blocks=1024, dtype="float32"),
                                   scheduler=SchedulerConfig(mixed_batching=mixed)),
                      params=params, model_cfg=cfg, device="cuda")
@@ -752,24 +779,12 @@ def identity_mixed(cfg, params) -> dict:
     return {"ok": ok, "identical": same, "stats": stats}
 
 
-def phase_main() -> dict:
-    import torch
-    from tpuserve_torch.models import transformer
-    from tpuserve_torch.ops.attention import PAD_SLOT
-    from tpuserve_torch.runtime import Engine, EngineConfig, SamplingParams
-    from tpuserve_torch.runtime.kv_cache import create_kv_cache
-
-    t0 = time.perf_counter()
-    eng = Engine(EngineConfig(seed=SEED))            # Qwen/Qwen3-0.6B, cuda
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    cfg = eng.model_cfg
-    lengths = MAIN_LENGTHS
-    ps = prompts(np.random.default_rng(SEED + 3), lengths, cfg.vocab_size)
-    greedy = SamplingParams(max_tokens=64, temperature=0.0, ignore_eos=True)
-    sampled = SamplingParams(max_tokens=64, temperature=0.8, seed=1, ignore_eos=True)
-
-    reset_launches()
+def serve_main(eng, ps, greedy, sampled):
+    """The main path on ``eng``: the prompts ``ps`` (``greedy``), then one
+    ``sampled`` request repeating the first.  Returns the greedy requests,
+    the sampled one and timings: prefill and decode seconds (host clock
+    around each step; a step ends in the host read of the decode dispatch
+    it flushes, so their sum holds the card's work), decode tokens, TTFT."""
     rids = [eng.add_request(prompt_token_ids=p, params=greedy) for p in ps]
     t_prefill = t_decode = 0.0
     decode_tokens = 0
@@ -777,27 +792,76 @@ def phase_main() -> dict:
         n_prefill = eng.stats.num_prefill_steps
         t = time.perf_counter()
         outs = eng.step()
-        dt = time.perf_counter() - t                 # every step ends in a host read
+        dt = time.perf_counter() - t
         if eng.stats.num_prefill_steps > n_prefill:
             t_prefill += dt
         else:
             t_decode += dt
             decode_tokens += sum(len(o.new_token_ids) for o in outs)
     reqs = [eng.requests.pop(r) for r in rids]
-    ttft_ms = 1e3 * eng.stats.ttft_sum / eng.stats.ttft_count
-    sampled_req = eng.generate([ps[0]], sampled)[0]
+    timing = {"prefill_s": t_prefill, "decode_s": t_decode, "decode_tokens": decode_tokens,
+              "decode_tok_per_s": decode_tokens / t_decode if t_decode else None,
+              "mean_ttft_ms": 1e3 * eng.stats.ttft_sum / eng.stats.ttft_count}
+    return reqs, eng.generate([ps[0]], sampled)[0], timing
+
+
+def phase_main() -> dict:
+    import torch
+    from tpuserve_torch.models import transformer
+    from tpuserve_torch.ops.attention import PAD_SLOT
+    from tpuserve_torch.runtime import Engine, EngineConfig, SamplingParams
+    from tpuserve_torch.runtime.graphs import pool_bytes_bound
+    from tpuserve_torch.runtime.kv_cache import create_kv_cache
+
+    t0 = time.perf_counter()
+    eng = Engine(EngineConfig(seed=SEED))            # Qwen/Qwen3-0.6B, cuda
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = eng.model_cfg
+    # the decode executables, captured before serving as the server's
+    # startup warms them: every bucket of the ladder, both modes
+    t0 = time.perf_counter()
+    eng.warmup()
+    warmup_s = time.perf_counter() - t0
+    ladder = eng._decode_ladder()
+    capture = {"warmup_s": warmup_s, "capture_s": eng.graphs.capture_s,
+               "executables": sorted(eng.graphs.executables),
+               "pool_bytes": eng.graphs.pool_bytes(),
+               "pool_bytes_bound": pool_bytes_bound(cfg, ladder),
+               "replay_launches": {f"{b}/{m}": exe.launches["paged_decode"]
+                                   for (b, m), exe in eng.graphs.executables.items()}}
+    lengths = MAIN_LENGTHS
+    ps = prompts(np.random.default_rng(SEED + 3), lengths, cfg.vocab_size)
+    greedy = SamplingParams(max_tokens=64, temperature=0.0, ignore_eos=True)
+    sampled = SamplingParams(max_tokens=64, temperature=0.8, seed=1, ignore_eos=True)
+
+    reset_launches()
+    replays0 = eng.graphs.replays
+    reqs, sampled_req, timing = serve_main(eng, ps, greedy, sampled)
     launches = read_launches()
     L = cfg.num_layers
     # the sampled request repeats a prompt: a prefix-cache hit, served by
     # the chunk route from its cached offset, as the JAX engine does
     steps = {"prefill_steps": eng.stats.num_prefill_steps - eng.stats.num_chunk_steps,
              "chunk_steps": eng.stats.num_chunk_steps,
-             "decode_steps": eng.stats.num_decode_steps}
+             "decode_steps": eng.stats.num_decode_steps,
+             "decode_windows": eng.stats.num_decode_windows,
+             "graph_replays": eng.graphs.replays - replays0}
     want = {"flash_prefill": L * steps["prefill_steps"],
             "paged_decode": L * steps["decode_steps"],
             "paged_window": L * steps["chunk_steps"], "ragged_paged": 0}
     finished = all(r.finished and len(r.output_token_ids) == 64
                    for r in reqs + [sampled_req])
+
+    # the same requests on an engine that decodes eagerly and synchronously
+    eager = Engine(EngineConfig(seed=SEED, cuda_graphs=False, pipeline_decode=False),
+                   params=eng.params)
+    ereqs, esampled, etiming = serve_main(eager, ps, greedy, sampled)
+    del eager
+    torch.cuda.empty_cache()
+    streams = [r.output_token_ids for r in reqs]
+    same_as_eager = (streams == [r.output_token_ids for r in ereqs]
+                     and sampled_req.output_token_ids == esampled.output_token_ids)
 
     # first step against the reference path: prefill logits, both impls
     B, T = 8, 1024
@@ -821,20 +885,107 @@ def phase_main() -> dict:
     # bf16 argmax on random weights is path-sensitive: most rows, not all
     ok = (finished and finite and diff <= LOGIT_DIFF_MAX and top1 >= 0.75
           and launches == want and launches["flash_prefill"] > 0
-          and launches["paged_decode"] > 0)
-    return {"ok": ok, "engine": eng, "params": eng.params, "model": cfg.name, "layers": L,
-            "dtype": cfg.dtype,
-            "requests": len(reqs) + 1, "finished_with_tokens": finished,
-            "engine_init_s": init_s, "prefill_s": t_prefill,
-            "decode_s": t_decode, "decode_tokens": decode_tokens,
-            "decode_tok_per_s": decode_tokens / t_decode if t_decode else None,
-            "mean_ttft_ms": ttft_ms, "multi_step": eng._multi_step, **steps,
+          and launches["paged_decode"] > 0 and same_as_eager
+          and steps["graph_replays"] == steps["decode_steps"]
+          and capture["pool_bytes"] <= capture["pool_bytes_bound"])
+    return {"ok": ok, "engine": eng, "params": eng.params, "streams": streams,
+            "sampled_stream": sampled_req.output_token_ids, "model": cfg.name, "layers": L,
+            "dtype": cfg.dtype, "requests": len(reqs) + 1, "finished_with_tokens": finished,
+            "engine_init_s": init_s, "graphs": capture, **timing,
+            "multi_step": eng._multi_step, "pipeline_decode": eng._pipeline_decode, **steps,
+            "eager_engine": {**etiming, "same_tokens": same_as_eager},
             "launches": launches, "launches_expected": want,
             "first_step_max_logit_diff": diff,
             "first_step_logit_diff_max_allowed": LOGIT_DIFF_MAX,
             "first_step_max_abs_logit": max_logit,
             "first_step_top1_agreement": top1,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def phase_graphs(results) -> dict:
+    """The decode executables at full width, bf16, on 8 sequences of the
+    main path's lengths prefilled into a cache of their own: one step, a
+    32-token greedy window and a seeded temperature window replayed from
+    captured graphs against the same runs eager; then the main path's
+    greedy streams with pipelining off against the default engine's."""
+    import torch
+    from tpuserve_torch.models import transformer
+    from tpuserve_torch.ops.attention import PAD_SLOT
+    from tpuserve_torch.runtime import Engine, EngineConfig, SamplingParams
+    from tpuserve_torch.runtime.graphs import DecodeGraphs
+    from tpuserve_torch.runtime.kv_cache import CacheConfig, create_kv_cache
+    main = results["main"]
+    params, cfg = main["params"], main["engine"].model_cfg
+    B, pages, page, S = len(MAIN_LENGTHS), 64, 32, 32
+    ps = prompts(np.random.default_rng(SEED + 10), MAIN_LENGTHS, cfg.vocab_size)
+    bt = torch.arange(B * pages, dtype=torch.int32, device="cuda").reshape(B, pages)
+    tokens = torch.zeros(B, 1024, dtype=torch.int32, device="cuda")
+    slots = torch.full((B, 1024), PAD_SLOT, dtype=torch.int32, device="cuda")
+    for i, p in enumerate(ps):
+        tokens[i, :len(p)] = torch.tensor(p, dtype=torch.int32)
+        slots[i, :len(p)] = i * pages * page + torch.arange(len(p), dtype=torch.int32)
+    cache0 = create_kv_cache(cfg, CacheConfig(num_blocks=B * pages, max_blocks_per_seq=pages),
+                             "cuda")
+    logits0, _ = transformer.prefill(params, cfg, tokens,
+                                     torch.tensor(MAIN_LENGTHS, dtype=torch.int32,
+                                                  device="cuda"),
+                                     slots, cache0, attn_impl="cuda")
+    first = logits0.argmax(-1).tolist()
+    out = {}
+    for mode in ("greedy", "temperature"):
+        runs = {}
+        for name, capture in (("graph", True), ("eager", False)):
+            cache = [{k: t.clone() for k, t in e.items()} for e in cache0]
+            graphs = DecodeGraphs(params, cfg, cache, device=torch.device("cuda"),
+                                  attn_impl="cuda", max_blocks=pages, steps=S, max_batch=B,
+                                  capture=capture)
+            exe = graphs.get(B, mode)
+            st = exe.stage()
+            for i, n in enumerate(MAIN_LENGTHS):
+                st.tokens[i], st.positions[i], st.seq_lens[i] = first[i], n, n + 1
+                st.active[i], st.salt[i], st.step[i] = 1, 100 + i, 1
+                st.temperature[i] = 0.8 if mode == "temperature" else 0.0
+            st.block_tables[:] = bt.cpu().numpy()
+            exe.load(st)
+            exe.run(1)
+            step_logits = exe.logits.clone()
+            exe.run(S - 1)
+            torch.cuda.synchronize()
+            runs[name] = (step_logits, exe.state.out.clone())
+            del graphs, exe, cache
+            torch.cuda.empty_cache()
+        (lg, tg), (le, te) = runs["graph"], runs["eager"]
+        bit_equal = torch.equal(lg, le)
+        diff = (lg - le).abs().max().item()
+        top1 = (lg.argmax(-1) == le.argmax(-1)).float().mean().item()
+        out[mode] = {"step_logits_bit_equal": bit_equal, "step_max_logit_diff": diff,
+                     "step_top1_agreement": top1,
+                     "window_tokens_identical": torch.equal(tg, te),
+                     "ok": (bit_equal or (diff <= LOGIT_DIFF_MAX and top1 >= 0.75))
+                     and torch.equal(tg, te) and int(tg.min()) >= 0}
+    del cache0
+    torch.cuda.empty_cache()
+    # the main path's requests with pipelining off: the default engine's tokens
+    eng = Engine(EngineConfig(seed=SEED, pipeline_decode=False), params=params)
+    eng.warmup()
+    greedy = SamplingParams(max_tokens=64, temperature=0.0, ignore_eos=True)
+    sampled = SamplingParams(max_tokens=64, temperature=0.8, seed=1, ignore_eos=True)
+    main_ps = prompts(np.random.default_rng(SEED + 3), MAIN_LENGTHS, cfg.vocab_size)
+    reqs, sreq, timing = serve_main(eng, main_ps, greedy, sampled)
+    del eng
+    same = ([r.output_token_ids for r in reqs] == main["streams"]
+            and sreq.output_token_ids == main["sampled_stream"])
+    # single pipelined steps (multi_step 1) replay the same executable
+    # once a step: the windows' first 16 tokens
+    eng = Engine(EngineConfig(seed=SEED, multi_step=1), params=params)
+    single = eng.generate(main_ps, SamplingParams(max_tokens=16, temperature=0.0,
+                                                  ignore_eos=True))
+    del eng
+    torch.cuda.empty_cache()
+    same_single = [r.output_token_ids for r in single] == [t[:16] for t in main["streams"]]
+    return {"ok": all(v["ok"] for v in out.values()) and same and same_single,
+            "window": S, "batch": B, **out, "pipelining_off_same_tokens": same,
+            "pipelining_off": timing, "single_steps_same_tokens": same_single}
 
 
 def phase_profile(results) -> dict:
@@ -852,6 +1003,8 @@ def phase_profile(results) -> dict:
     params = SamplingParams(max_tokens=1 + eng._multi_step, temperature=0.0,
                             ignore_eos=True)
     out = {"main_prefill_and_window": device_profile(lambda: eng.generate(ps, params))}
+    out["decode_window"] = profile_window(eng, prompts(rng, MAIN_LENGTHS,
+                                                      eng.model_cfg.vocab_size))
     del eng
     eng = results["chunked"].pop("engine")
     out["chunk_step"] = profile_step(eng, prompts(rng, [6000], eng.model_cfg.vocab_size)[0],
@@ -868,14 +1021,50 @@ def phase_profile(results) -> dict:
     out["mixed_step"] = profile_step(eng, prompts(rng, [1000], V)[0], SamplingParams, skip=0)
     del eng
     torch.cuda.empty_cache()
-    out["ok"] = all(v.get("request_finished", True) for v in out.values())
+    out["ok"] = (all(v.get("request_finished", True) for v in out.values())
+                 and out["decode_window"]["ok"])
     return out
+
+
+def profile_window(eng, ps) -> dict:
+    """One steady pipelined decode window of the main path under
+    torch.profiler: serve ``ps`` until two windows are dispatched, let the
+    card finish, then profile the step that dispatches the third (and
+    flushes the second).  Its kernels are one window's, all from graph
+    replays: the paged decode kernel's must show in the trace, at most
+    layers x window of them (the profiler may drop a few records of a
+    window's ~80,000 kernels; their share is reported)."""
+    import torch
+    from tpuserve_torch.runtime import SamplingParams
+    S = eng._multi_step
+    rids = [eng.add_request(prompt_token_ids=p, params=SamplingParams(
+        max_tokens=1 + 4 * S, temperature=0.0, ignore_eos=True)) for p in ps]
+    windows = eng.stats.num_decode_windows
+    while eng.stats.num_decode_windows < windows + 2:
+        eng.step()
+    torch.cuda.synchronize()
+    res = device_profile(eng.step)
+    while eng.has_work():
+        eng.step()
+    L = eng.model_cfg.num_layers
+    res["paged_decode_kernels_launched"] = L * S
+    res["request_finished"] = all(eng.requests.pop(r).finished for r in rids)
+    traced = res.get("paged_decode_kernels", 0)
+    res["paged_decode_traced_share"] = traced / (L * S)
+    res["ok"] = 0 < traced <= L * S
+    return res
+
+
+# CUDA API calls (runtime `cuda*`, low-level `cu*`) that put work on the card
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaGraphLaunch", "cuGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
 
 
 def device_profile(run) -> dict:
     """``run()`` under torch.profiler.  Device busy time is the sum of
     kernel self times; the rest of the wall time the card sits idle
-    waiting for the host."""
+    waiting for the host.  ``host_launch_calls`` counts the host's calls
+    that put work on the card (a graph replay is one), by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -895,7 +1084,11 @@ def device_profile(run) -> dict:
         return sum(ms for k, ms, _ in kernels if pred(k.lower())) / busy
 
     kernels.sort(key=lambda x: -x[1])
+    calls = {e.key: e.count for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CPU and e.key in LAUNCH_CALLS}
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "host_launch_calls": sum(calls.values()), "host_launch_calls_by_name": calls,
+            "paged_decode_kernels": sum(c for k, _, c in kernels if "paged_decode" in k.lower()),
             "device_idle_share": 1 - busy / wall_ms,
             **{f"share_{name}": share(lambda k, n=name: n in k) for name in KERNELS},
             "share_gemm": share(lambda k: any(w in k for w in (
@@ -992,6 +1185,7 @@ def phase_chunked(params) -> dict:
     sp_short = SamplingParams(max_tokens=64, temperature=0.0, ignore_eos=True)
     sp_long = SamplingParams(max_tokens=16, temperature=0.0, ignore_eos=True)
 
+    eng.warmup()
     reset_launches()
     short_ids = [eng.add_request(prompt_token_ids=p, params=sp_short) for p in short]
     long_id = eng.add_request(prompt_token_ids=long, params=sp_long)
@@ -1080,11 +1274,14 @@ def chunk_logits(params, cfg, first) -> dict:
 def profile_step(eng, prompt, SamplingParams, skip: int) -> dict:
     """Where the time goes in one step: add ``prompt`` (one output token),
     run ``skip`` steps, profile the next one, drain."""
+    import torch
     rid = eng.add_request(prompt_token_ids=prompt,
                           params=SamplingParams(max_tokens=1, temperature=0.0,
                                                 ignore_eos=True))
     for _ in range(skip):
         eng.step()
+    # a decode window in flight finishes first: the trace holds this step
+    torch.cuda.synchronize()
     res = device_profile(eng.step)
     while eng.has_work():
         eng.step()
@@ -1111,6 +1308,7 @@ def phase_mixed(params) -> dict:
     sp_early = SamplingParams(max_tokens=128, temperature=0.0, ignore_eos=True)
     sp_late = SamplingParams(max_tokens=32, temperature=0.0, ignore_eos=True)
 
+    eng.warmup()
     reset_launches()
     early_ids = [eng.add_request(prompt_token_ids=p, params=sp_early) for p in early]
     late_ids = []
@@ -1209,6 +1407,8 @@ def main() -> int:
             res = phase_identity()
         elif phase == "main":
             res = phase_main()
+        elif phase == "graphs":
+            res = phase_graphs(results)
         elif phase == "chunked":
             res = phase_chunked(results["main"]["params"])
         elif phase == "mixed":
@@ -1219,8 +1419,8 @@ def main() -> int:
             raise SystemExit(f"unknown phase {phase!r}")
         res["seconds"] = time.perf_counter() - t
         results[phase] = res
-        emit({"phase": phase, **{k: v for k, v in res.items()
-                                 if k not in ("headline", "params", "engine")}})
+        emit({"phase": phase, **{k: v for k, v in res.items() if k not in (
+            "headline", "params", "engine", "streams", "sampled_stream")}})
         if not res["ok"]:
             print(f"chip_smoke: phase {phase} failed", file=sys.stderr)
             return 1

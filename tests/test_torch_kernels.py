@@ -498,3 +498,93 @@ def test_ragged_decode_rows_twice_in_a_row(card):
     ref = attention.ragged_paged_attention(*args, scale, 32, **kw)
     assert torch.equal(out, again)
     torch.testing.assert_close(out[valid].float(), ref[valid].float(), **_tile_tol(ref[valid]))
+
+
+# ---- captured decode graphs ---------------------------------------------------
+
+def _narrow_engine_parts(card, dtype):
+    """A narrow Qwen3-family model (2 layers, head_dim 64) with random
+    weights and a random cache on the card."""
+    import dataclasses
+    from tpuserve_torch.models.config import get_model_config
+    from tpuserve_torch.models.weights import init_params
+    from tpuserve_torch.runtime import kv_cache
+    cfg = dataclasses.replace(get_model_config("tiny-qwen3"), head_dim=64,
+                              dtype="bfloat16" if dtype == torch.bfloat16 else "float32")
+    params = init_params(cfg, 0, card)
+    cc = kv_cache.CacheConfig(block_size=16, num_blocks=40, max_blocks_per_seq=8,
+                              dtype=cfg.dtype)
+    g = torch.Generator(device=card).manual_seed(3)
+    cache = kv_cache.create_kv_cache(cfg, cc, card)
+    for e in cache:
+        for t in e.values():
+            t.copy_(torch.randn(t.shape, generator=g, device=card))
+    return cfg, params, cache
+
+
+def _stage(exe, rows):
+    st = exe.stage()
+    for i, (tok, pos) in enumerate(rows):
+        st.tokens[i], st.positions[i], st.seq_lens[i] = tok, pos, pos + 1
+        st.active[i] = 1
+        st.salt[i], st.step[i], st.temperature[i] = 1000 + i, pos, 0.8 if i % 2 else 0.0
+        st.block_tables[i] = np.arange(8 * i, 8 * i + 8) % 40
+    return st
+
+
+@pytest.mark.parametrize("mode", ["greedy", "temperature"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_graph_replay_is_bit_equal_to_eager(card, mode, dtype):
+    """One decode iteration captured and replayed gives the bits of the
+    same iteration run eagerly on the same inputs (the same kernels in
+    the same order): logits, tokens and the cache, over a 6-step window;
+    the paged decode kernel's launches count through the replays."""
+    from tpuserve_torch.runtime.graphs import DecodeGraphs
+    cfg, params, cache = _narrow_engine_parts(card, dtype)
+    eager_cache = [{k: t.clone() for k, t in e.items()} for e in cache]
+    rows = [(5, 17), (9, 40), (33, 3)]           # 3 real rows in a bucket of 4
+    runs = {}
+    for name, kv, capture in (("graph", cache, True), ("eager", eager_cache, False)):
+        graphs = DecodeGraphs(params, cfg, kv, device=card, attn_impl="cuda",
+                              max_blocks=8, steps=6, max_batch=8, capture=capture)
+        exe = graphs.get(4, mode)
+        n0 = paged_decode.LAUNCHES
+        exe.load(_stage(exe, rows))
+        exe.run(6)
+        torch.cuda.synchronize()
+        runs[name] = (exe.state.out.clone(), exe.logits.clone(), paged_decode.LAUNCHES - n0)
+    assert torch.equal(runs["graph"][0], runs["eager"][0])
+    assert torch.equal(runs["graph"][1], runs["eager"][1])
+    assert runs["graph"][2] == runs["eager"][2] == 6 * cfg.num_layers
+    for a, b in zip(cache, eager_cache):
+        for k in a:
+            assert torch.equal(a[k], b[k])
+
+
+def test_paged_decode_replayed_matches_plain(card):
+    """The paged decode kernel captured once and replayed on new inputs
+    copied into its static tensors matches its plain version on each; a
+    replay does not call the wrapper, so it counts nothing itself."""
+    rng = np.random.default_rng(21)
+    B, Hq, Hkv, D, page, nb, mp = 4, 16, 8, 128, 32, 64, 16
+    kc, vc = (torch.from_numpy(rng.standard_normal((nb, page, Hkv, D), np.float32))
+              .to(card, torch.bfloat16) for _ in "kv")
+    q = torch.zeros(B, Hq, D, device=card, dtype=torch.bfloat16)
+    bt = torch.from_numpy(rng.permutation(nb)[:B * mp].reshape(B, mp).astype(np.int32)).to(card)
+    sl = torch.ones(B, dtype=torch.int32, device=card)
+    stream = torch.cuda.Stream(card)
+    stream.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(stream):              # the workspace exists before capture
+        paged_decode.paged_decode_attention(q, kc, vc, bt, sl, D ** -0.5)
+    torch.cuda.current_stream(card).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = paged_decode.paged_decode_attention(q, kc, vc, bt, sl, D ** -0.5)
+    n0 = paged_decode.LAUNCHES
+    for trial in range(3):
+        q.copy_(torch.from_numpy(rng.standard_normal((B, Hq, D), np.float32)))
+        sl.copy_(torch.from_numpy(rng.integers(1, page * mp + 1, B).astype(np.int32)))
+        graph.replay()
+        ref = attention.paged_decode_attention(q, kc, vc, bt, sl, D ** -0.5)
+        torch.testing.assert_close(out.float(), ref.float(), **TOL[torch.bfloat16])
+    assert paged_decode.LAUNCHES == n0

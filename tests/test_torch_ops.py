@@ -301,10 +301,14 @@ def test_sample_temperature_matches_jax_with_same_noise():
 
 
 def test_gumbel_noise_per_row_generators():
-    gens = [torch.Generator().manual_seed(7), None, torch.Generator().manual_seed(7)]
-    noise = sampling.gumbel_noise(gens, 50, "cpu")
-    assert noise.shape == (3, 50)
-    assert torch.equal(noise[0], noise[2]) and torch.count_nonzero(noise[1]) == 0
+    """Each row's noise comes from its own (salt, step) key, not from a
+    generator object: rows with one key are equal, other keys differ."""
+    salt = torch.tensor([7, 8, 7, 7], dtype=torch.int32)
+    step = torch.tensor([3, 3, 3, 4], dtype=torch.int32)
+    noise = sampling.keyed_gumbel(salt, step, 50)
+    assert noise.shape == (4, 50)
+    assert torch.equal(noise[0], noise[2])
+    assert not torch.equal(noise[0], noise[1]) and not torch.equal(noise[0], noise[3])
     assert torch.isfinite(noise).all()
 
 

@@ -17,6 +17,8 @@ versions on CPU tensors.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 import torch.nn.functional as F
 
@@ -257,8 +259,10 @@ def prefill_chunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 def window_slot(block_tables: torch.Tensor, pos: torch.Tensor,
                 active: torch.Tensor, block_size: int) -> torch.Tensor:
     """Cache slot of each row's token at ``pos``, computed on the device;
-    inactive (padding) rows get ``PAD_SLOT``."""
-    page = torch.gather(block_tables, 1, (pos // block_size).long()[:, None])[:, 0]
+    inactive (padding) rows get ``PAD_SLOT``.  A page index past the table
+    is clamped, as the JAX gather clamps it (only padding rows reach one)."""
+    page_idx = (pos // block_size).long().clamp(0, block_tables.shape[1] - 1)
+    page = torch.gather(block_tables, 1, page_idx[:, None])[:, 0]
     slot = page * block_size + pos % block_size
     return torch.where(active, slot, torch.full_like(slot, attn_ops.PAD_SLOT))
 
@@ -266,10 +270,14 @@ def window_slot(block_tables: torch.Tensor, pos: torch.Tensor,
 def _decode_body(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                  positions: torch.Tensor, slot_ids: torch.Tensor,
                  block_tables: torch.Tensor, seq_lens: torch.Tensor,
-                 kv_cache: list, attn_impl: str, rows: torch.Tensor) -> torch.Tensor:
+                 kv_cache: list, attn_impl: str) -> torch.Tensor:
     """Single-token decode trunk: write each row's KV, then attend (so
-    ``seq_lens`` includes the token).  Returns logits (B, V) float32."""
+    ``seq_lens`` includes the token).  Every row is written, padding rows
+    dropped on the device (``attention.pad_drop``), so the trunk reads
+    nothing back to the host and a CUDA graph can capture it.  Returns
+    logits (B, V) float32."""
     B = tokens.shape[0]
+    drop = attn_ops.pad_drop(slot_ids, _num_slots(kv_cache))
     h = _embed(params, cfg, tokens, positions)                 # (B, H)
     scale = cfg.attn_scale
     attend = (paged_decode_attention if attn_impl == "cuda"
@@ -277,7 +285,7 @@ def _decode_body(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     for li, lp in enumerate(params["layers"]):
         hn = _norm(h, lp["attn_norm"], cfg)
         q, k, v = _qkv(hn, lp, cfg, positions, li)             # (B, H*, D)
-        entry = attn_ops.write_kv_entry(kv_cache[li], k, v, slot_ids, rows)
+        entry = attn_ops.write_kv_entry(kv_cache[li], k, v, slot_ids, drop=drop)
         out = attend(q.contiguous(), entry["k"], entry["v"], block_tables,
                      seq_lens, scale, k_scale=entry.get("ks"),
                      v_scale=entry.get("vs"), sliding_window=cfg.layer_window(li),
@@ -295,10 +303,76 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     """One decode step.  tokens/positions/slot_ids/seq_lens: (B,) int32;
     block_tables: (B, max_blocks) int32.  Returns (logits (B, V), kv_cache)."""
     _check(cfg, attn_impl)
-    rows = attn_ops.keep_rows(slot_ids, _num_slots(kv_cache))
     logits = _decode_body(params, cfg, tokens, positions, slot_ids,
-                          block_tables, seq_lens, kv_cache, attn_impl, rows)
+                          block_tables, seq_lens, kv_cache, attn_impl)
     return logits, kv_cache
+
+
+DECODE_MODES = ("greedy", "temperature")
+
+
+@dataclasses.dataclass
+class DecodeState:
+    """The buffers one decode iteration reads and advances in place
+    (:func:`decode_state_step`): the carry of the JAX ``decode_multi``
+    scan, kept in tensors of fixed address so that a CUDA graph captured
+    over them serves every dispatch of its batch bucket.
+
+    tokens/positions/seq_lens: (B,) int32 input token, its position, and
+    the cached tokens including it; active: (B,) int32, nonzero on real
+    rows (padding rows never write KV); salt/step: (B,) int32 sampling key
+    (uint32 bit patterns; step advances by one each iteration, as the JAX
+    ``window_sample`` folds ``+s``); temperature: (B,) float32;
+    block_tables: (B, max_blocks) int32, reserved for every position the
+    dispatch reaches; out: (B, S) int32 sampled tokens, one column an
+    iteration; col: (1,) int32 the next column of ``out``."""
+    tokens: torch.Tensor
+    positions: torch.Tensor
+    seq_lens: torch.Tensor
+    active: torch.Tensor
+    salt: torch.Tensor
+    step: torch.Tensor
+    temperature: torch.Tensor
+    block_tables: torch.Tensor
+    out: torch.Tensor
+    col: torch.Tensor
+
+
+@torch.no_grad()
+def decode_state_step(params: dict, cfg: ModelConfig, state: DecodeState,
+                      kv_cache: list, *, mode: str = "greedy",
+                      attn_impl: str = "reference") -> torch.Tensor:
+    """One fused decode + sample iteration over ``state``, in place: write
+    the token's KV at the slot ``window_slot`` gives its position, attend,
+    sample (``mode``: "greedy", or "temperature" with each row's keyed
+    noise), write the token into column ``col`` of ``out``, and advance
+    token, position, length, key step and column.  Nothing is read back to
+    the host.  Returns the iteration's logits (B, V) float32."""
+    active = state.active != 0
+    slot = window_slot(state.block_tables, state.positions, active,
+                       kv_cache[0]["k"].shape[1])
+    logits = _decode_body(params, cfg, state.tokens, state.positions, slot,
+                          state.block_tables, state.seq_lens, kv_cache, attn_impl)
+    if mode == "greedy":
+        nxt = sampling_ops.sample_tokens(logits, mode="greedy")
+    else:
+        noise = sampling_ops.keyed_gumbel(state.salt, state.step, logits.shape[-1])
+        nxt = sampling_ops.sample_tokens(logits, state.temperature,
+                                         mode="temperature", gumbel=noise)
+    state.out.index_copy_(1, state.col.long(), nxt[:, None])
+    state.tokens.copy_(nxt)
+    state.positions.add_(1)
+    state.seq_lens.add_(1)
+    state.step.add_(1)
+    state.col.add_(1)
+    return logits
+
+
+def check_decode_mode(mode: str) -> None:
+    if mode not in DECODE_MODES:
+        raise NotImplementedError(
+            f"decode mode {mode!r} is not ported yet (ROADMAP.md A6, the "
+            "full sampler)")
 
 
 @torch.no_grad()
@@ -306,43 +380,41 @@ def decode_multi(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                  positions: torch.Tensor, block_tables: torch.Tensor,
                  seq_lens: torch.Tensor, active: torch.Tensor,
                  temperature: torch.Tensor, kv_cache: list, *, steps: int,
-                 mode: str = "greedy", generators=None,
+                 mode: str = "greedy", keys: torch.Tensor | None = None,
                  attn_impl: str = "reference"):
-    """``steps`` fused decode+sample iterations; each sampled token feeds
-    the next iteration on the device, and nothing is read back to the host
-    inside the window (the JAX ``lax.scan`` becomes this loop).
+    """``steps`` fused decode+sample iterations: :func:`decode_state_step`
+    run ``steps`` times over a state made from the arguments (the JAX
+    ``lax.scan``; the engine's captured graphs replay the same step).  Each
+    sampled token feeds the next iteration on the device, and nothing is
+    read back to the host.
 
     tokens/positions/seq_lens: (B,) int32 first-iteration state as in
     :func:`decode_step`; active: (B,) bool real rows (padding rows never
-    write KV); temperature: (B,) float32.  ``mode``: "greedy" or
-    "temperature"; the latter draws row ``i``'s noise from
-    ``generators[i]`` (None for greedy and padding rows).  Cache slots for
-    the whole window must be reserved.  Returns (tokens (B, steps) int32,
-    kv_cache)."""
+    write KV); temperature: (B,) float32; keys: (B, 2) per-row sampling
+    keys (salt, step) holding uint32 values, the step word advancing by
+    one each iteration (zeros if None).  ``mode``: "greedy" or
+    "temperature".  Cache slots for the whole window must be reserved.
+    Returns (tokens (B, steps) int32, kv_cache)."""
     _check(cfg, attn_impl)
-    if mode not in ("greedy", "temperature"):
-        raise NotImplementedError(
-            f"decode_multi mode {mode!r} is not ported yet (ROADMAP.md A6, "
-            "the full sampler)")
-    block_size = kv_cache[0]["k"].shape[1]
-    # the active rows are fixed for the window: find them once (one read)
-    rows = torch.nonzero(active).flatten()
-    outs = []
-    toks, pos, lens = tokens, positions, seq_lens
+    check_decode_mode(mode)
+    B = tokens.shape[0]
+    dev = tokens.device
+    if keys is None:
+        keys = torch.zeros((B, 2), dtype=torch.int64, device=dev)
+    keys = keys.to(dev).long()
+    i32 = lambda t: t.to(device=dev, dtype=torch.int32).clone()   # noqa: E731
+    state = DecodeState(
+        tokens=i32(tokens), positions=i32(positions), seq_lens=i32(seq_lens),
+        active=i32(active), salt=i32(keys[:, 0] & 0xFFFFFFFF),
+        step=i32(keys[:, 1] & 0xFFFFFFFF),
+        temperature=temperature.to(device=dev, dtype=torch.float32).clone(),
+        block_tables=i32(block_tables),
+        out=torch.zeros((B, steps), dtype=torch.int32, device=dev),
+        col=torch.zeros((1,), dtype=torch.int32, device=dev))
     for _ in range(steps):
-        slot = window_slot(block_tables, pos, active, block_size)
-        logits = _decode_body(params, cfg, toks, pos, slot, block_tables, lens,
-                              kv_cache, attn_impl, rows)
-        if mode == "greedy":
-            nxt = sampling_ops.sample_tokens(logits, mode="greedy")
-        else:
-            noise = sampling_ops.gumbel_noise(generators, logits.shape[-1],
-                                              logits.device)
-            nxt = sampling_ops.sample_tokens(logits, temperature,
-                                             mode="temperature", gumbel=noise)
-        outs.append(nxt)
-        toks, pos, lens = nxt, pos + 1, lens + 1
-    return torch.stack(outs, dim=1), kv_cache
+        decode_state_step(params, cfg, state, kv_cache, mode=mode,
+                          attn_impl=attn_impl)
+    return state.out, kv_cache
 
 
 # --------------------------------------------------------------------------

@@ -18,6 +18,8 @@ arrays); slots equal to ``PAD_SLOT`` are dropped.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 NEG_INF = -1e30
@@ -383,61 +385,101 @@ def ragged_paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 def keep_rows(slots: torch.Tensor, num_slots: int) -> torch.Tensor:
     """Indices of the non-padding entries of flat ``slots``.  Reads the
-    mask back to the host once (a sync on the card); callers that know the
-    real rows in advance pass them as ``rows`` instead."""
+    mask back to the host once (a sync on the card); the eager callers
+    (prefill, chunk, mixed) pass them to the writes as ``rows``."""
     keep = (slots >= 0) & (slots < num_slots)
     return torch.nonzero(keep).flatten()
 
 
+class PadDrop(NamedTuple):
+    """Where a write of fixed shape sends each row, found on the device:
+    real rows to their slots; padding rows (``PAD_SLOT``, or any slot out
+    of range) to the first real row's slot, written with that row's value,
+    so the duplicate write changes nothing; with no real row, every row to
+    slot 0 with slot 0's own value.  Every shape is fixed and nothing is
+    read back to the host, so a CUDA graph can capture the write: the
+    counterpart of the JAX ``flat.at[slots].set(new, mode="drop")``."""
+    index: torch.Tensor     # (N,) int64 slot each row writes
+    keep: torch.Tensor      # (N,) bool real rows
+    first: torch.Tensor     # (1,) int64 first real row (0 if none)
+    any: torch.Tensor       # (1,) bool some row is real
+
+
+def pad_drop(slots: torch.Tensor, num_slots: int) -> PadDrop:
+    """The :class:`PadDrop` of flat ``slots`` in a cache of ``num_slots``;
+    one per step serves every layer's writes.  (``first`` has shape (1,):
+    indexing with a 0-d tensor would read it back to the host.)"""
+    slots = slots.reshape(-1)
+    keep = (slots >= 0) & (slots < num_slots)
+    first = torch.argmax(keep.to(torch.uint8)).view(1)
+    real = keep[first]
+    fill = torch.where(real, slots[first], torch.zeros_like(slots[first]))
+    return PadDrop(torch.where(keep, slots, fill).long(), keep, first, real)
+
+
+def _write_rows(flat: torch.Tensor, new: torch.Tensor, slots: torch.Tensor,
+                rows: torch.Tensor | None, drop: PadDrop | None) -> None:
+    """``new`` (N, ...) into the flat cache ``flat`` (slots, ...): the rows
+    ``rows`` names, or every row placed by ``drop`` (made here when both
+    are None)."""
+    new = new.to(flat.dtype)
+    if rows is not None:
+        flat.index_copy_(0, slots[rows].long(), new[rows])
+        return
+    if drop is None:
+        drop = pad_drop(slots, flat.shape[0])
+    fill = torch.where(drop.any, new[drop.first], flat[0])
+    keep = drop.keep.view(-1, *([1] * (new.dim() - 1)))
+    flat.index_copy_(0, drop.index, torch.where(keep, new, fill))
+
+
 def write_kv_cache(cache: torch.Tensor, new: torch.Tensor, slots: torch.Tensor,
-                   rows: torch.Tensor | None = None) -> None:
+                   rows: torch.Tensor | None = None,
+                   drop: PadDrop | None = None) -> None:
     """Scatter new K or V vectors into the paged cache, in place.
 
     cache: (num_blocks, block_size, Hkv, D); new: (N, Hkv, D) or
     (B, T, Hkv, D); slots: flat slot ids (block*block_size + offset) with
     the leading shape of ``new``.  ``PAD_SLOT`` entries are dropped:
-    ``rows`` (indices into the flattened ``slots``) names the entries to
-    write, or None to find them here.
+    ``rows`` (indices into the flattened ``slots``, from
+    :func:`keep_rows`) names the entries to write; without it every row is
+    written as ``drop`` places it (:func:`pad_drop`, made here if None),
+    which reads nothing back to the host.
     """
     num_blocks, block_size, Hkv, D = cache.shape
-    flat = cache.view(num_blocks * block_size, Hkv, D)
-    slots = slots.reshape(-1)
-    new = new.reshape(-1, Hkv, D)
-    if rows is None:
-        rows = keep_rows(slots, flat.shape[0])
-    flat.index_copy_(0, slots[rows].long(), new[rows].to(cache.dtype))
+    _write_rows(cache.view(num_blocks * block_size, Hkv, D),
+                new.reshape(-1, Hkv, D), slots.reshape(-1), rows, drop)
 
 
 def write_kv_scales(scale_cache: torch.Tensor, scales: torch.Tensor,
-                    slots: torch.Tensor, rows: torch.Tensor | None = None) -> None:
+                    slots: torch.Tensor, rows: torch.Tensor | None = None,
+                    drop: PadDrop | None = None) -> None:
     """Scatter per-token scales into the paged (num_blocks, block_size, Hkv)
-    scale array, in place; same ``PAD_SLOT`` / ``rows`` rules as
-    :func:`write_kv_cache`."""
+    scale array, in place; same ``PAD_SLOT`` / ``rows`` / ``drop`` rules
+    as :func:`write_kv_cache`."""
     nb, bs, Hkv = scale_cache.shape
-    flat = scale_cache.view(nb * bs, Hkv)
-    slots = slots.reshape(-1)
-    scales = scales.reshape(-1, Hkv)
-    if rows is None:
-        rows = keep_rows(slots, flat.shape[0])
-    flat.index_copy_(0, slots[rows].long(), scales[rows].to(scale_cache.dtype))
+    _write_rows(scale_cache.view(nb * bs, Hkv), scales.reshape(-1, Hkv),
+                slots.reshape(-1), rows, drop)
 
 
 def write_kv_entry(entry: dict, k: torch.Tensor, v: torch.Tensor,
-                   slots: torch.Tensor, rows: torch.Tensor | None = None) -> dict:
+                   slots: torch.Tensor, rows: torch.Tensor | None = None,
+                   drop: PadDrop | None = None) -> dict:
     """Write one layer's new K/V into its cache entry, in place, and return
     the entry.  An entry carrying ``ks``/``vs`` stores int8: values are
-    quantized on write and the scales scattered alongside."""
-    if rows is None:
-        rows = keep_rows(slots.reshape(-1),
-                          entry["k"].shape[0] * entry["k"].shape[1])
+    quantized on write and the scales scattered alongside.  ``rows`` /
+    ``drop`` as :func:`write_kv_cache`; the drop plan is made once for
+    all four writes."""
+    if rows is None and drop is None:
+        drop = pad_drop(slots, entry["k"].shape[0] * entry["k"].shape[1])
     if "ks" in entry:
         qk, sk = quantize_kv(k)
         qv, sv = quantize_kv(v)
-        write_kv_cache(entry["k"], qk, slots, rows)
-        write_kv_cache(entry["v"], qv, slots, rows)
-        write_kv_scales(entry["ks"], sk, slots, rows)
-        write_kv_scales(entry["vs"], sv, slots, rows)
+        write_kv_cache(entry["k"], qk, slots, rows, drop)
+        write_kv_cache(entry["v"], qv, slots, rows, drop)
+        write_kv_scales(entry["ks"], sk, slots, rows, drop)
+        write_kv_scales(entry["vs"], sv, slots, rows, drop)
     else:
-        write_kv_cache(entry["k"], k, slots, rows)
-        write_kv_cache(entry["v"], v, slots, rows)
+        write_kv_cache(entry["k"], k, slots, rows, drop)
+        write_kv_cache(entry["v"], v, slots, rows, drop)
     return entry

@@ -12,7 +12,11 @@ back from the card), one block a (sequence, KV head, partition), whose
 float32 partials the last block to finish merges in the same launch.  The
 partials and the merge counters live in a workspace this module keeps per
 device and stream (``workspace``); ``ragged_paged.py`` shares it for its
-decode rows.
+decode rows.  A CUDA graph bakes the workspace's address into its
+launches, so ``runtime/graphs.py`` makes the capture stream's workspace
+for its largest bucket before any capture (``decode_workspace_size``) and
+holds it as long as the graphs live; under capture a workspace never
+grows (it raises instead).
 """
 
 from __future__ import annotations
@@ -77,13 +81,31 @@ def num_sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def decode_workspace_size(B: int, Hq: int, Hkv: int, D: int, page: int,
+                          max_pages: int, sms: int) -> tuple[int, int]:
+    """(float32 partials, int32 counters) one paged-decode launch of batch
+    ``B`` needs: its partition count depends on shapes alone, so a captured
+    launch always needs the same."""
+    splits, _ = decode_splits(max_pages, page, B, Hkv, sms)
+    return B * Hkv * splits * split_stride(Hq // Hkv, D), B * Hkv
+
+
 def workspace(device: torch.device, stream: int, n_floats: int, n_counters: int):
     """Scratch for the split-K partials (float32, ``n_floats``) and the
     merge counters (int32 zeros, ``n_counters``; each launch leaves them 0),
     kept per device and CUDA stream (``stream``, its handle): launches on
-    one stream run in order, so they can share it."""
+    one stream run in order, so they can share it.  While the stream is
+    capturing a graph it must already be large enough: a buffer made
+    there would come from the graph's pool, and a later, larger one would
+    free it under the graph."""
     key = (device.index, stream)
     part, counters = _WORKSPACES.get(key, (None, None))
+    grow = ((part is None or part.numel() < n_floats)
+            or (counters is None or counters.numel() < n_counters))
+    if grow and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "paged_decode: the decode workspace must be made before the "
+            f"capture ({n_floats} floats, {n_counters} counters needed)")
     if part is None or part.numel() < n_floats:
         part = torch.empty(max(n_floats, 4), dtype=torch.float32, device=device)
     if counters is None or counters.numel() < n_counters:
@@ -113,10 +135,11 @@ def paged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     Hq, D = q.shape[1:]
     _, page, Hkv, _ = k_cache.shape
     max_pages = block_tables.shape[1]
-    splits, part_pages = decode_splits(max_pages, page, B, Hkv, num_sms(q.device))
+    sms = num_sms(q.device)
+    splits, part_pages = decode_splits(max_pages, page, B, Hkv, sms)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    part, counters = workspace(q.device, stream,
-                               B * Hkv * splits * split_stride(Hq // Hkv, D), B * Hkv)
+    part, counters = workspace(q.device, stream, *decode_workspace_size(
+        B, Hq, Hkv, D, page, max_pages, sms))
     quantized = k_scale is not None
     out = torch.empty_like(q)
     lib = _build.load("paged_decode")

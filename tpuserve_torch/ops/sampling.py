@@ -1,31 +1,48 @@
 """Token sampling — the ``greedy`` and ``temperature`` modes of
 ``tpuserve/ops/sampling.py``.
 
-The JAX sampler draws its Gumbel noise from per-row ``jax.random`` keys,
-which torch cannot reproduce.  Here the noise comes from one
-``torch.Generator`` per row (one per request, owned by the engine), or is
-passed in whole as ``gumbel`` so a test can feed both sides the same
-numbers.
+The JAX sampler draws each row's Gumbel noise from a ``(salt, step)``
+``jax.random`` key, so a seeded stream does not depend on the batch it
+lands in, its place there, or the window size.  ``jax.random``'s bits
+cannot be reproduced in torch; :func:`keyed_gumbel` keeps the contract
+with a counter-based integer hash of (salt, step, vocabulary index) in
+plain torch integer ops: no generator object, so a captured CUDA graph
+serves any request.  ``sample_tokens`` also takes the noise whole
+(``gumbel``), so a test can feed both sides the same numbers.
 """
 
 from __future__ import annotations
 
 import torch
 
+_U32 = 0xFFFFFFFF
+# xorshift-multiply rounds with odd multipliers below 2**31, so the
+# products of 32-bit values stay inside int64
+_MUL = (0x7FEB352D, 0x5BD1E995)
+_IDX_SALT = 0x9E3779B9
 
-def gumbel_noise(generators, vocab_size: int,
-                 device: torch.device | str) -> torch.Tensor:
-    """(B, V) float32 Gumbel noise, row ``i`` drawn from ``generators[i]``;
-    rows whose generator is None get zeros (greedy rows, batch padding).
-    Uniforms lie in [1e-7, 1), as in the JAX sampler."""
-    rows = []
-    for g in generators:
-        if g is None:
-            rows.append(torch.zeros(vocab_size, device=device))
-            continue
-        u = torch.rand(vocab_size, generator=g, device=device)
-        rows.append(-torch.log(-torch.log(u * (1.0 - 1e-7) + 1e-7)))
-    return torch.stack(rows)
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit avalanche hash of int64 ``x`` holding uint32 values."""
+    x = x ^ (x >> 16)
+    x = (x * _MUL[0]) & _U32
+    x = x ^ (x >> 15)
+    x = (x * _MUL[1]) & _U32
+    return x ^ (x >> 16)
+
+
+def keyed_gumbel(salt: torch.Tensor, step: torch.Tensor,
+                 vocab_size: int) -> torch.Tensor:
+    """(B, V) float32 Gumbel noise on the keys' device: row ``i`` is a
+    function of ``(salt[i], step[i])`` alone (int32 or int64 tensors of
+    (B,) holding uint32 bit patterns).  Uniforms lie in [1e-7, 1), as in
+    the JAX sampler."""
+    row = _mix32(_mix32(salt.long() & _U32) ^ (step.long() & _U32))
+    idx = torch.arange(vocab_size, dtype=torch.int64, device=salt.device)
+    col = _mix32((idx + _IDX_SALT) & _U32)
+    h = _mix32(row[:, None] ^ col[None, :])
+    u = (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
+    return -torch.log(-torch.log(u * (1.0 - 1e-7) + 1e-7))
 
 
 def sample_tokens(logits: torch.Tensor, temperature: torch.Tensor | None = None,

@@ -11,12 +11,18 @@ Each ``step`` is one of:
 - a mixed step (``mixed_batching=True``): every running stream's decode row
   plus prefill-chunk rows in one flat stream (``transformer.forward_ragged``:
   the ragged paged kernel);
-- a decode dispatch: a fused window of ``multi_step`` tokens
-  (``transformer.decode_multi``: the paged decode kernel on every token,
-  one host read per window), or a single step when ``multi_step`` is 1 or
-  the window's cache slots cannot be reserved.
-Sampling is greedy or temperature; stop strings, stop ids, ``ignore_eos``
-and ``max_tokens`` are host logic, as in the JAX engine.
+- a decode dispatch: a fused window of ``multi_step`` tokens, or a single
+  step when ``multi_step`` is 1 or the window's cache slots cannot be
+  reserved.  Both run a decode executable of ``runtime/graphs.py`` (one a
+  padded batch and sampling mode; on the card a captured CUDA graph of one
+  decode iteration, the paged decode kernel in it, replayed once a token
+  step).  With ``pipeline_decode`` (on with a card) a dispatch stays in
+  flight while the next is dispatched from its last tokens on the device
+  (``PendingDecode`` / ``PendingWindow``), and the host reads it back only
+  then, as the JAX engine pipelines its decode.
+Sampling is greedy or temperature, with each row's noise keyed by (salt,
+step) (``ops/sampling.py``); stop strings, stop ids, ``ignore_eos`` and
+``max_tokens`` are host logic, as in the JAX engine.
 
 The engine runs on ``device="cuda"`` unless the caller passes
 ``device="cpu"`` (the tests do); it never falls back to the CPU on its own.
@@ -42,6 +48,7 @@ from tpuserve_torch.ops import sampling as sampling_ops
 from tpuserve_torch.ops.attention import PAD_SLOT
 from tpuserve_torch.ops.ragged_paged import ragged_block, ragged_layout
 from tpuserve_torch.runtime.block_manager import BlockManager
+from tpuserve_torch.runtime.graphs import DecodeExecutable, DecodeGraphs, pool_bytes_bound
 from tpuserve_torch.runtime.clock import MONOTONIC
 from tpuserve_torch.runtime.kv_cache import (
     CacheConfig, create_kv_cache, num_blocks_for_budget)
@@ -77,6 +84,14 @@ class EngineConfig:
     # measured on this card), 1 on the CPU where tests expect per-token
     # steps.
     multi_step: Optional[int] = None
+    # Keep a decode dispatch in flight while the next is dispatched from its
+    # last tokens on the device, reading it back only then.  None = on with
+    # a card, off on the CPU (the JAX engine's rule, keyed on the device).
+    pipeline_decode: Optional[bool] = None
+    # Replay captured CUDA graphs for decode (None = on with a card; the
+    # CPU has none).  False runs the same decode executables eagerly, for
+    # comparison.
+    cuda_graphs: Optional[bool] = None
     # JAX engine options not ported yet: any value but None raises
     quantization: Optional[str] = None
     lora_dir: Optional[str] = None
@@ -92,6 +107,18 @@ class EngineConfig:
         if self.multi_step is not None:
             return max(1, self.multi_step)
         return 32 if device.type == "cuda" else 1
+
+    def resolve_pipeline_decode(self, device: torch.device) -> bool:
+        if self.pipeline_decode is not None:
+            return self.pipeline_decode
+        return device.type == "cuda"
+
+    def resolve_cuda_graphs(self, device: torch.device) -> bool:
+        if self.cuda_graphs is None:
+            return device.type == "cuda"
+        if self.cuda_graphs and device.type != "cuda":
+            raise ValueError("cuda_graphs=True needs device='cuda'")
+        return self.cuda_graphs
 
 
 @dataclasses.dataclass
@@ -114,6 +141,38 @@ class EngineStats:
     ttft_sum: float = 0.0
     ttft_count: int = 0
     last_step_time: float = 0.0
+
+
+@dataclasses.dataclass
+class PendingDecode:
+    """An in-flight single decode step: its (B, 1) tokens are on their way
+    to ``toks`` (host memory, complete once ``event`` has fired); append,
+    detokenize, stop checks and emission wait for the next engine step."""
+    reqs: list
+    exe: DecodeExecutable            # whose output holds the tokens on the card
+    toks: torch.Tensor
+    event: Optional[torch.cuda.Event]
+    steps: int = 1
+
+
+@dataclasses.dataclass
+class PendingWindow:
+    """An in-flight fused window (pipelined): the NEXT window is dispatched
+    from its last column on the device, so the host read that ends every
+    window overlaps the next window's device time."""
+    reqs: list
+    exe: DecodeExecutable
+    toks: torch.Tensor               # (B, steps) int32 on the host
+    event: Optional[torch.cuda.Event]
+    steps: int
+
+
+def _read(p) -> np.ndarray:
+    """A pending dispatch's tokens on the host: the one read that waits on
+    the card."""
+    if p.event is not None:
+        p.event.synchronize()
+    return p.toks.numpy()
 
 
 class Engine:
@@ -185,8 +244,16 @@ class Engine:
         self.stats = EngineStats()
         self.requests: dict[str, Request] = {}   # live + finished-unclaimed
         self._detok: dict[str, IncrementalDetokenizer] = {}
-        self._generators: dict[str, torch.Generator] = {}
+        self._salts: dict[str, int] = {}      # sampling-key salt a request
         self._multi_step = config.resolve_multi_step(self.device)
+        self._pipeline_decode = config.resolve_pipeline_decode(self.device)
+        self._pending: Optional[PendingDecode] = None
+        self._pending_window: Optional[PendingWindow] = None
+        self.graphs = DecodeGraphs(
+            self.params, self.model_cfg, self.kv_cache, device=self.device,
+            attn_impl=self.attn_impl, max_blocks=self.cache_cfg.max_blocks_per_seq,
+            steps=self._multi_step, max_batch=self._ragged_seqs,
+            capture=config.resolve_cuda_graphs(self.device))
         self._req_counter = itertools.count()
         self._seed_counter = itertools.count()
         self._eos_ids = set(self.tokenizer.eos_token_ids)
@@ -199,12 +266,25 @@ class Engine:
             self.model_cfg.max_position_embeddings,
             (self.cache_cfg.num_blocks - 1) * self.cache_cfg.block_size)
 
+    def _decode_ladder(self) -> list[int]:
+        """Every padded batch a decode dispatch can take
+        (``Scheduler.decode_bucket`` of 1 .. ``max_num_seqs``)."""
+        sched = self.config.scheduler
+        top = next_power_of_2(sched.max_num_seqs)
+        return sorted({min(max(next_power_of_2(n), sched.min_decode_bucket), top)
+                       for n in range(1, sched.max_num_seqs + 1)})
+
     def _auto_num_blocks(self) -> int:
         """Size the cache to the memory the weights left free (the vLLM
         ``gpu_memory_utilization`` analog): ``torch.cuda.mem_get_info`` on
-        the card; a 1 GiB budget less the weights on the CPU."""
+        the card, less the most the decode graphs of every bucket and mode
+        can reserve (``graphs.pool_bytes_bound``: the cache is made
+        before them, since they write into it); a 1 GiB budget less the
+        weights on the CPU."""
         if self.device.type == "cuda":
             free, _total = torch.cuda.mem_get_info(self.device)
+            if self.config.resolve_cuda_graphs(self.device):
+                free -= pool_bytes_bound(self.model_cfg, self._decode_ladder())
         else:
             free = (1 << 30) - param_nbytes(self.params)
         blocks = num_blocks_for_budget(self.model_cfg, self.cache_cfg, free)
@@ -275,13 +355,14 @@ class Engine:
         self._detok[request_id] = IncrementalDetokenizer(self.tokenizer)
         self.requests[request_id] = req
         if not params.greedy:
-            # one generator per request: its stream depends on its seed
-            # alone, not on the batches or windows it lands in
+            # the salt of the request's sampling keys (salt, step): its
+            # stream depends on its seed alone, not on the batches, batch
+            # positions or windows it lands in.  Unseeded requests take the
+            # engine seed and a counter (the JAX engine hashes the request
+            # id, which Python salts anew in each process).
             seed = (params.seed if params.seed is not None
                     else self.config.seed * 1_000_003 + next(self._seed_counter))
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(seed & 0xFFFFFFFFFFFF)
-            self._generators[request_id] = gen
+            self._salts[request_id] = seed & 0xFFFFFFFF
         self.stats.prompt_tokens += len(prompt_token_ids)
         return request_id
 
@@ -309,10 +390,12 @@ class Engine:
 
     def _release(self, request_id: str) -> None:
         self._detok.pop(request_id, None)
-        self._generators.pop(request_id, None)
+        self._salts.pop(request_id, None)
 
     def has_work(self) -> bool:
-        return self.scheduler.has_work()
+        # a dispatch still in flight is work: its tokens are not emitted yet
+        return (self.scheduler.has_work() or self._pending is not None
+                or self._pending_window is not None)
 
     # ------------------------------------------------------------------
     # Step
@@ -324,7 +407,8 @@ class Engine:
         step)."""
         batch = self.scheduler.schedule()
         if batch is None:
-            return []
+            # nothing schedulable, but a decode result may be in flight
+            return self._flush_pending() + self._flush_window()
         t0 = self.clock.monotonic()
         if batch.kind == "prefill":
             outputs = self._run_prefill(batch)
@@ -333,10 +417,9 @@ class Engine:
         elif batch.kind == "mixed":
             outputs = self._run_mixed(batch)
         elif batch.kind == "decode":
-            outputs = None
             if self._multi_step > 1:
-                outputs = self._run_decode_multi(batch)   # None = no room
-            if outputs is None:
+                outputs = self._run_decode_multi(batch)
+            else:
                 outputs = self._run_decode(batch)
         else:
             raise RuntimeError(f"unexpected batch kind {batch.kind!r}")
@@ -452,8 +535,11 @@ class Engine:
         rows first (flat row = sequence index), the decode region padded
         to the ragged block, each prefill chunk starting block-aligned;
         sequences ordered decode, completing chunks, continuing chunks, so
-        the rows that sample a token this step form a prefix."""
-        decode_reqs, slots = self._charge_decode_rows(
+        the rows that sample a token this step form a prefix.  Both
+        pipelined dispatches are flushed first: the step reads every
+        decode row's last token on the host."""
+        outputs = self._flush_pending() + self._flush_window()
+        decode_reqs, slots, _ = self._charge_decode_rows(
             [r for r in batch.requests if not r.finished])
         bm = self.block_manager
         # prefill chunks: a first chunk allocates (with the prefix-cache
@@ -472,7 +558,7 @@ class Engine:
             done = req.num_prefilled
             chunks.append((req, ids, done, min(n, len(ids) - done)))
         if not decode_reqs and not chunks:
-            return []
+            return outputs
         comp = [c for c in chunks if c[2] + c[3] == len(c[1])]
         cont = [c for c in chunks if c[2] + c[3] < len(c[1])]
         blk = self._ragged_blk
@@ -535,40 +621,51 @@ class Engine:
         self.scheduler.mark_running(comp_reqs)
         emit = decode_reqs + comp_reqs
         if not emit:
-            return []
+            return outputs
         new_tokens = self._sample(logits, emit, B)
         self._first_token(comp_reqs)
-        return ([self._emit_one(r, int(t)) for r, t in zip(decode_reqs, new_tokens)]
+        return (outputs
+                + [self._emit_one(r, int(t)) for r, t in zip(decode_reqs, new_tokens)]
                 + [self._emit_one(r, int(t), from_prefill=True)
                    for r, t in zip(comp_reqs, new_tokens[n_dec:])])
 
-    def _sampling_inputs(self, reqs: list[Request], B: int):
-        """(mode, temperature (B,) on the device, generators (B,) with None
-        for greedy and padding rows)."""
-        if all(r.params.greedy for r in reqs):
-            return "greedy", None, None
-        temperature = np.zeros((B,), np.float32)
-        gens = [None] * B
-        for i, r in enumerate(reqs):
-            temperature[i] = r.params.temperature
-            gens[i] = self._generators.get(r.request_id)
-        return "temperature", self._tensor(temperature), gens
+    def _salt(self, req: Request) -> int:
+        return self._salts.get(req.request_id, 0)
 
     def _sample(self, logits: torch.Tensor, reqs: list[Request],
                 B: int) -> np.ndarray:
-        mode, temperature, gens = self._sampling_inputs(reqs, B)
-        noise = (None if mode == "greedy" else
-                 sampling_ops.gumbel_noise(gens, logits.shape[-1], self.device))
-        toks = sampling_ops.sample_tokens(logits, temperature, mode=mode,
-                                          gumbel=noise)
+        """The synchronous sampler of the prefill, chunk and mixed steps:
+        each row's key is (salt, tokens it has sampled so far), as the
+        decode executables step it."""
+        if all(r.params.greedy for r in reqs):
+            toks = sampling_ops.sample_tokens(logits, mode="greedy")
+        else:
+            temperature = np.zeros((B,), np.float32)
+            salt = np.zeros((B,), np.int64)
+            step = np.zeros((B,), np.int64)
+            for i, r in enumerate(reqs):
+                temperature[i] = r.params.temperature
+                salt[i] = self._salt(r)
+                step[i] = len(r.output_token_ids)
+            noise = sampling_ops.keyed_gumbel(self._tensor(salt), self._tensor(step),
+                                              logits.shape[-1])
+            toks = sampling_ops.sample_tokens(logits, self._tensor(temperature),
+                                              mode="temperature", gumbel=noise)
         return toks.cpu().numpy()[:len(reqs)]
 
     def _charge_decode_rows(self, reqs: list[Request]):
         """Append one KV slot per decoding request, preempting the most
-        recent admissions until the appends fit.  Returns the requests
-        left and their slots."""
+        recent admissions until the appends fit; an in-flight single step
+        is flushed before anyone is evicted (some rows may have finished
+        in it).  Returns the requests left, their slots and the flushed
+        step's outputs."""
         bm = self.block_manager
+        outputs = []
         while bm.decode_shortfall([r.request_id for r in reqs]) > 0:
+            if self._pending is not None:
+                outputs += self._flush_pending()
+                reqs = [r for r in reqs if not r.finished]
+                continue
             victim = self.scheduler.preempt_last()
             self.stats.preemptions += 1
             if victim is None:
@@ -577,87 +674,174 @@ class Engine:
         slots = np.empty((len(reqs),), np.int32)
         if bm.charge_decode([r.request_id for r in reqs], slots):
             raise MemoryError("out of KV blocks on append")
-        return reqs, slots
+        return reqs, slots, outputs
+
+    # ---- decode -------------------------------------------------------
+
+    def _dispatch(self, reqs: list[Request], steps: int, extra: int,
+                  chain_idx: dict, pending) -> tuple[DecodeExecutable, torch.Tensor,
+                                                      Optional[torch.cuda.Event]]:
+        """Run ``steps`` decode iterations for ``reqs`` on the executable
+        of their bucket and mode, and start their copy to the host.  Rows
+        in ``chain_idx`` (request id -> row of ``pending``) continue the
+        in-flight dispatch ``pending``, ``extra`` tokens ahead of the host:
+        their input token is that dispatch's last, selected on the card."""
+        B = self.scheduler.decode_bucket(len(reqs))
+        mode = "greedy" if all(r.params.greedy for r in reqs) else "temperature"
+        exe = self.graphs.get(B, mode)
+        st = exe.stage()
+        for i, r in enumerate(reqs):
+            pi = chain_idx.get(r.request_id)
+            ahead = 0 if pi is None else extra
+            nt = r.num_tokens + ahead
+            if pi is None:
+                st.tokens[i] = r.output_token_ids[-1]
+            else:
+                st.use_host[i] = 0
+                st.gather[i] = pi
+            st.positions[i] = nt - 1
+            st.seq_lens[i] = nt
+            st.active[i] = 1
+            st.salt[i] = self._salt(r)
+            st.step[i] = len(r.output_token_ids) + ahead
+            st.temperature[i] = r.params.temperature
+        self.block_manager.fill_block_tables([r.request_id for r in reqs],
+                                             st.block_tables)
+        exe.load(st, chain=(pending.exe, pending.steps) if chain_idx else None)
+        exe.run(steps)
+        toks, event = exe.fetch(steps)
+        self.stats.num_decode_steps += steps
+        return exe, toks, event
 
     def _run_decode(self, batch: ScheduledBatch) -> list[RequestOutput]:
-        reqs, slots = self._charge_decode_rows(
-            [r for r in batch.requests if not r.finished])
-        if not reqs:
-            return []
-        ids = [r.request_id for r in reqs]
-        B = self.scheduler.decode_bucket(len(reqs))
-        tokens = np.zeros((B,), np.int32)
-        positions = np.zeros((B,), np.int32)
-        slot_arr = np.full((B,), PAD_SLOT, np.int32)
-        slot_arr[:len(reqs)] = slots
-        seq_lens = np.ones((B,), np.int32)
-        block_tables = np.zeros((B, self.cache_cfg.max_blocks_per_seq), np.int32)
-        self.block_manager.fill_block_tables(ids, block_tables)
-        for i, req in enumerate(reqs):
-            tokens[i] = req.output_token_ids[-1]
-            positions[i] = req.num_tokens - 1
-            seq_lens[i] = req.num_tokens
-        logits, self.kv_cache = transformer.decode_step(
-            self.params, self.model_cfg, self._tensor(tokens),
-            self._tensor(positions), self._tensor(slot_arr),
-            self._tensor(block_tables), self._tensor(seq_lens), self.kv_cache,
-            attn_impl=self.attn_impl)
-        self.stats.num_decode_steps += 1
-        new_tokens = self._sample(logits, reqs, B)
-        return [self._emit_one(r, int(t)) for r, t in zip(reqs, new_tokens)]
-
-    def _run_decode_multi(self, batch: ScheduledBatch
-                          ) -> Optional[list[RequestOutput]]:
-        """A ``multi_step``-token decode window in one dispatch: sampled
-        tokens feed the next iteration on the device and the host reads the
-        (B, S) window once.  Tokens past a request's stop point (EOS,
-        max_tokens, stop string mid-window) are dropped at emit.  Returns
-        None, before any side effect, when the cache cannot reserve the
-        window (the caller then runs a single step, which may preempt)."""
-        S = self._multi_step
+        """One decode token step.  Resolves any in-flight window first
+        (this path appends slots and may preempt, which must see its
+        finishes); with ``pipeline_decode`` the step stays in flight and
+        the previous one is flushed after it is dispatched."""
+        outputs = self._flush_window()
         reqs = [r for r in batch.requests if not r.finished]
+        pending = self._pending
+        pend_idx: dict[str, int] = {}
+        if pending is not None:
+            pend_idx = {r.request_id: i for i, r in enumerate(pending.reqs)}
+            # host-known length rules: a request whose in-flight token
+            # completes max_tokens / max_seq_len runs no further step
+            reqs = [r for r in reqs
+                    if r.request_id not in pend_idx
+                    or (len(r.output_token_ids) + 1 < r.params.max_tokens
+                        and r.num_tokens + 1 < self.max_seq_len)]
+        if not reqs:
+            return outputs + self._flush_pending()
+        # the executable writes each row's KV at the slot charged here:
+        # the block table's entry for its position
+        reqs, _, flushed = self._charge_decode_rows(reqs)
+        outputs += flushed
+        if not reqs:
+            return outputs + self._flush_pending()
+        chain = ({r.request_id: pend_idx[r.request_id] for r in reqs
+                  if r.request_id in pend_idx} if self._pending is not None else {})
+        exe, toks, event = self._dispatch(reqs, 1, 1, chain, pending)
+        step = PendingDecode(reqs=list(reqs), exe=exe, toks=toks, event=event)
+        if self._pipeline_decode:
+            # resolve the PREVIOUS step while this one runs on the card
+            outputs += self._flush_pending()
+            self._pending = step
+            return outputs
+        self._pending = step
+        return outputs + self._flush_pending()
+
+    def _try_reserve_window(self, reqs: list[Request], window: int) -> bool:
+        """Reserve ``window`` KV slots past each request's written tokens.
+        On failure the over-reserved blocks of earlier requests stay
+        attached; they are used as the sequence grows or freed with it."""
         cap = self.cache_cfg.max_blocks_per_seq * self.cache_cfg.block_size
-        if any(r.num_tokens - 1 + S > cap for r in reqs):
-            return None
-        ids = [r.request_id for r in reqs]
-        if not self.block_manager.reserve_batch(
-                ids, [r.num_tokens - 1 + S for r in reqs]):
-            return None
-        B = self.scheduler.decode_bucket(len(reqs))
-        tokens = np.zeros((B,), np.int32)
-        positions = np.zeros((B,), np.int32)
-        seq_lens = np.ones((B,), np.int32)
-        active = np.zeros((B,), bool)
-        block_tables = np.zeros((B, self.cache_cfg.max_blocks_per_seq), np.int32)
-        for i, r in enumerate(reqs):
-            tokens[i] = r.output_token_ids[-1]
-            positions[i] = r.num_tokens - 1
-            seq_lens[i] = r.num_tokens
-            active[i] = True
-        self.block_manager.fill_block_tables(ids, block_tables)
-        mode, temperature, gens = self._sampling_inputs(reqs, B)
-        if temperature is None:
-            temperature = self._tensor(np.zeros((B,), np.float32))
-        toks, self.kv_cache = transformer.decode_multi(
-            self.params, self.model_cfg, self._tensor(tokens),
-            self._tensor(positions), self._tensor(block_tables),
-            self._tensor(seq_lens), self._tensor(active), temperature,
-            self.kv_cache, steps=S, mode=mode, generators=gens,
-            attn_impl=self.attn_impl)
-        toks_h = toks.cpu().numpy()              # the window's one host read
-        self.stats.num_decode_steps += S
+        if any(r.num_tokens - 1 + window > cap for r in reqs):
+            return False
+        return self.block_manager.reserve_batch(
+            [r.request_id for r in reqs], [r.num_tokens - 1 + window for r in reqs])
+
+    def _run_decode_multi(self, batch: ScheduledBatch) -> list[RequestOutput]:
+        """A ``multi_step``-token decode window in one dispatch: sampled
+        tokens feed the next iteration on the card; the host reads the
+        (B, S) window once.  Tokens past a request's stop point (EOS,
+        max_tokens, stop string mid-window) are dropped at the flush.
+        With ``pipeline_decode`` the window stays in flight and the
+        previous one is flushed after this one is dispatched.  Falls back
+        to a single step when the cache cannot reserve the window."""
+        S = self._multi_step
+        outputs = self._flush_pending()
+        p = self._pending_window
+        reqs = [r for r in batch.requests if not r.finished]
+        pend_idx: dict[str, int] = {}
+        if p is not None:
+            pend_idx = {r.request_id: i for i, r in enumerate(p.reqs)}
+            # a request whose in-flight window reaches max_tokens /
+            # max_seq_len gets no further window: it finishes at the flush
+            reqs = [r for r in reqs
+                    if r.request_id not in pend_idx
+                    or (len(r.output_token_ids) + p.steps < r.params.max_tokens
+                        and r.num_tokens + p.steps < self.max_seq_len)]
+        if not reqs:
+            return outputs + self._flush_window()
+        # rows continuing the in-flight window need its steps too: its KV
+        # commit has not run yet
+        if not self._try_reserve_window(reqs, S + (p.steps if p is not None else 0)):
+            # _run_decode flushes the in-flight window before preempting
+            return outputs + self._run_decode(batch)
+        chain = {r.request_id: pend_idx[r.request_id] for r in reqs
+                 if r.request_id in pend_idx}
+        exe, toks, event = self._dispatch(reqs, S, p.steps if p is not None else 0,
+                                          chain, p)
         self.stats.num_decode_windows += 1
-        # commit the written KV before emitting (a finish frees blocks)
-        self.block_manager.advance_batch(ids, S)
+        window = PendingWindow(reqs=list(reqs), exe=exe, toks=toks, event=event, steps=S)
+        if self._pipeline_decode:
+            # resolve the PREVIOUS window while this one runs on the card.
+            # A request that finished inside it is already in this dispatch:
+            # its rows write into blocks freed at that flush, which is safe
+            # because the card runs dispatches in order, so a later owner of
+            # those blocks overwrites them; its tokens drop at the next flush.
+            outputs += self._flush_window()
+            self._pending_window = window
+            return outputs
+        self._pending_window = window
+        return outputs + self._flush_window()
+
+    def _flush_window(self) -> list[RequestOutput]:
+        """Read the in-flight window's tokens and run the deferred host
+        bookkeeping: commit the written KV, then append, detokenize, check
+        stops and emit.  Rows whose request finished while the window was
+        in flight (a stop in the previous window, an abort) drop whole."""
+        p, self._pending_window = self._pending_window, None
+        if p is None:
+            return []
+        toks_h = _read(p)
+        # commit the written KV before emitting (a finish frees blocks);
+        # rows that finished in flight were freed already
+        self.block_manager.advance_batch(
+            [r.request_id for r in p.reqs if not r.finished], p.steps)
         outputs = []
-        for i, r in enumerate(reqs):
-            for s in range(S):
+        for i, r in enumerate(p.reqs):
+            if r.finished:
+                self.stats.window_overrun_tokens += p.steps
+                continue
+            for s in range(p.steps):
                 out = self._emit_one(r, int(toks_h[i, s]))
                 outputs.append(out)
                 if out.finished:
-                    self.stats.window_overrun_tokens += S - 1 - s
+                    self.stats.window_overrun_tokens += p.steps - 1 - s
                     break
         return outputs
+
+    def _flush_pending(self) -> list[RequestOutput]:
+        """Read the in-flight single step's tokens and run the host
+        bookkeeping (append, detokenize, stop checks, emission); rows
+        aborted in flight drop."""
+        p, self._pending = self._pending, None
+        if p is None:
+            return []
+        toks_h = _read(p)
+        return [self._emit_one(r, int(toks_h[i, 0]))
+                for i, r in enumerate(p.reqs) if not r.finished]
 
     # ---- bookkeeping --------------------------------------------------
 
@@ -742,6 +926,44 @@ class Engine:
         req.stop_held = text[len(text) - held:] if held else ""
         req.output_text += emit
         return emit, False
+
+    # ------------------------------------------------------------------
+    # Warmup
+    # ------------------------------------------------------------------
+
+    def warmup(self, decode_buckets: Optional[Sequence[int]] = None,
+               prefill_buckets: Sequence = (), chunk_buckets: Sequence[int] = (),
+               mixed_buckets: Sequence[int] = ()) -> None:
+        """Make the decode executables before serving, as the JAX engine's
+        ``warmup`` compiles its executables: every bucket of
+        ``decode_buckets`` (default: the ladder from ``min_decode_bucket``
+        to the bucket ``max_num_seqs`` pads to) in both sampling modes,
+        largest first; on the card each one is a captured CUDA graph.
+        Prefill, chunk and mixed steps have no graph yet: each bucket given
+        (a prefill length L or a (batch, L) pair, a chunk length, a flat
+        mixed-step length) gets one eager dispatch of padding rows, which
+        write nothing.  A decode bucket not warmed is made on first use."""
+        self.graphs.warmup(self._decode_ladder() if decode_buckets is None
+                           else decode_buckets)
+        cfg, mb = self.model_cfg, self.cache_cfg.max_blocks_per_seq
+        zeros = lambda *shape: self._tensor(np.zeros(shape, np.int32))    # noqa: E731
+        pad = lambda *shape: self._tensor(np.full(shape, PAD_SLOT, np.int32))  # noqa: E731
+        for bucket in prefill_buckets:
+            B, L = bucket if isinstance(bucket, tuple) else (1, bucket)
+            transformer.prefill(self.params, cfg, zeros(B, L), zeros(B) + 1, pad(B, L),
+                                self.kv_cache, attn_impl=self.attn_impl)
+        for C in chunk_buckets:
+            transformer.prefill_chunk(self.params, cfg, zeros(1, C), zeros(1), zeros(1),
+                                      pad(1, C), zeros(1, mb), self.kv_cache,
+                                      attn_impl=self.attn_impl)
+        blk, B = self._ragged_blk, self._ragged_seqs
+        for T in mixed_buckets:
+            transformer.forward_ragged(
+                self.params, cfg, zeros(T), zeros(T), pad(T), zeros(T), zeros(B, mb),
+                zeros(B), zeros(B) + T, zeros(B), zeros(2), zeros(T // blk) - 1, zeros(B),
+                self.kv_cache, ragged_blk=blk, attn_impl=self.attn_impl)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def generate(self, prompts: Sequence[str] | Sequence[Sequence[int]],
                  params: SamplingParams | Sequence[SamplingParams] | None = None,
