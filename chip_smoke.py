@@ -38,49 +38,64 @@ non-zero:
              mixed path (8 streams decoding while 8 prompts of 200-1,500
              tokens arrive, also against the phase-split engine).
 4. main      the main path: a default engine (Qwen3-0.6B, 28 layers, bf16,
-             random weights from the seed; decode on captured CUDA graphs,
-             one a batch bucket and sampling mode, made by
-             ``Engine.warmup``, with pipelined windows) serves 8 prompts of
-             128-1024 tokens through ``add_request``/``step``, then one
-             sampled request repeating the first prompt (a prefix-cache
-             hit, which the chunk route serves); each kernel's launch count
-             must match the layers times its dispatches (the graphs' replays
-             add their captured launches), and the first step's bf16 logits
-             must agree with the plain attention path's (max |diff| at most
-             LOGIT_DIFF_MAX, top-1 agreement at least 0.75).  Then an engine
-             that runs the same decode eagerly and synchronously serves the
-             same requests: the same tokens, and its decode tok/s beside
-             the default engine's.
+             random weights from the seed; every step a replayed CUDA
+             graph, one a step kind and padded shape, decode windows
+             pipelined) is warmed by ``Engine.warmup`` (its defaults),
+             then every other executable it can make is captured, and the
+             graph pool's bytes are held against ``pool_bytes_bound``; it
+             serves 8 prompts of 128-1024 tokens through
+             ``add_request``/``step``, then one sampled request repeating
+             the first prompt (a prefix-cache hit, which the chunk route
+             serves); each kernel's launch count must match the layers
+             times its dispatches (the graphs' replays add their captured
+             launches; each replay is counted by kind), and the first
+             step's bf16 logits must agree with the plain attention path's
+             (max |diff| at most LOGIT_DIFF_MAX, top-1 agreement at least
+             0.75).  Then an engine that runs every step eagerly and
+             decodes synchronously serves the same requests: the same
+             tokens; both engines' TTFT, step times and decode tok/s.
 5. graphs    the decode executables at full width, bf16, on 8 prefilled
              sequences of the main path's lengths: one decode step replayed
              from its graph against the same step run eagerly (logits
              bit-equal, or within the main phase's logits gate with the
              difference reported), a 32-token greedy window and a seeded
              temperature window replayed against eager (identical tokens);
-             the main path's greedy streams with pipelining off, and with
-             pipelined single steps (``multi_step=1``), against the default
-             engine's (identical).
+             one prefill step (the main path's (8, 1024) batch), one chunk
+             step (1,904 rows over 4,096 cached, in the 2,048 bucket) and
+             one mixed step (8 decode rows and a 480-row chunk in 512
+             rows) replayed against the same step run eagerly (logits and
+             cache bit-equal); the main path's greedy streams with
+             pipelining off on an engine not warmed (every executable
+             captured on first use; launch counts still its steps'), and
+             with pipelined single steps (``multi_step=1``), against the
+             default engine's (identical).
 6. chunked   the chunked path, full depth, bf16: 4 short streams, a
              6,000-token prompt served in chunks, then a prompt sharing its
              first 4,096 tokens, served from the prefix cache; each
              kernel's launches must be the layers times its steps (batched
              prefills, decode token steps, chunk steps), the prefix hit's
              first chunk must start at its cached offset, and chunk logits
-             must agree with the plain path's.
+             must agree with the plain path's.  The default engine, then
+             the eager engine: the same tokens, both engines' TTFTs, step
+             times and decode tok/s.
 7. mixed     the mixed path, full depth, bf16, ``mixed_batching=True``: 8
              streams decoding, then 8 prompts of 512-1,500 tokens; each
              kernel's launches must be the layers times its steps, the
-             ragged kernel's the layers times the mixed steps.
+             ragged kernel's the layers times the mixed steps.  The default
+             engine, then the eager engine, as in the chunked phase.
 8. profile   where the time goes, under torch.profiler, after every
              counted run (a profiler run slows the launches that follow
              it): one prefill and one decode window of the main path, one
              steady pipelined window alone (the paged decode kernel must
              appear in the trace from the replays, at most layers x window
-             times; the host's CUDA launch calls counted), one chunk step,
-             one mixed step.
+             times); then on the default and the eager engine of each
+             path, one prefill step alone, one chunk step and one mixed
+             step.  Each: wall and device-busy ms, the idle share and the
+             host's calls that put work on the card.
 
-The chunked and mixed engines, like the main one, are warmed
-(``Engine.warmup``) before their launch counts are reset, so each count
+The engines of the main, chunked and mixed phases are warmed
+(``Engine.warmup``, and the buckets their requests hit, as a bench warms
+its run's buckets) before their launch counts are reset, so each count
 holds exactly the launches of the path driven.
 
 Then the kernel report (with each headline's TFLOP/s and its bound's share
@@ -784,10 +799,12 @@ def serve_main(eng, ps, greedy, sampled):
     ``sampled`` request repeating the first.  Returns the greedy requests,
     the sampled one and timings: prefill and decode seconds (host clock
     around each step; a step ends in the host read of the decode dispatch
-    it flushes, so their sum holds the card's work), decode tokens, TTFT."""
+    it flushes, so their sum holds the card's work), decode tokens, TTFT,
+    and each step's kind and ms."""
     rids = [eng.add_request(prompt_token_ids=p, params=greedy) for p in ps]
     t_prefill = t_decode = 0.0
     decode_tokens = 0
+    log = []
     while eng.has_work():
         n_prefill = eng.stats.num_prefill_steps
         t = time.perf_counter()
@@ -795,13 +812,16 @@ def serve_main(eng, ps, greedy, sampled):
         dt = time.perf_counter() - t
         if eng.stats.num_prefill_steps > n_prefill:
             t_prefill += dt
+            log.append(["prefill", round(dt * 1e3, 2)])
         else:
             t_decode += dt
             decode_tokens += sum(len(o.new_token_ids) for o in outs)
+            log.append(["decode", round(dt * 1e3, 2)])
     reqs = [eng.requests.pop(r) for r in rids]
     timing = {"prefill_s": t_prefill, "decode_s": t_decode, "decode_tokens": decode_tokens,
               "decode_tok_per_s": decode_tokens / t_decode if t_decode else None,
-              "mean_ttft_ms": 1e3 * eng.stats.ttft_sum / eng.stats.ttft_count}
+              "mean_ttft_ms": 1e3 * eng.stats.ttft_sum / eng.stats.ttft_count,
+              "step_ms": log}
     return reqs, eng.generate([ps[0]], sampled)[0], timing
 
 
@@ -818,25 +838,38 @@ def phase_main() -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     cfg = eng.model_cfg
-    # the decode executables, captured before serving as the server's
-    # startup warms them: every bucket of the ladder, both modes
+    # the executables, captured before serving as the server's startup
+    # warms them (``Engine.warmup``'s defaults: the decode ladder in both
+    # modes, the smallest prefill bucket), then every other executable
+    # the engine can make (each (batch, length) prefill bucket and chunk
+    # length), as a bench warms the buckets its run will hit: the graph
+    # pool then holds all of them, against the bound the cache sizing uses
     t0 = time.perf_counter()
     eng.warmup()
     warmup_s = time.perf_counter() - t0
-    ladder = eng._decode_ladder()
-    capture = {"warmup_s": warmup_s, "capture_s": eng.graphs.capture_s,
-               "executables": sorted(eng.graphs.executables),
+    default_keys = sorted(eng.graphs.executables)
+    keys = eng._step_keys(eng.scheduler.cfg, eng.max_seq_len)
+    t0 = time.perf_counter()
+    eng.graphs.warmup(keys)
+    torch.cuda.synchronize()
+    capture = {"default_warmup_s": warmup_s, "default_executables": default_keys,
+               "full_warmup_s": time.perf_counter() - t0,
+               "capture_s": eng.graphs.capture_s,
+               "executables": len(eng.graphs.executables),
+               "executables_by_kind": {k: sum(1 for e in eng.graphs.executables if e[0] == k)
+                                       for k in ("prefill", "chunk", "mixed", "decode")},
                "pool_bytes": eng.graphs.pool_bytes(),
-               "pool_bytes_bound": pool_bytes_bound(cfg, ladder),
-               "replay_launches": {f"{b}/{m}": exe.launches["paged_decode"]
-                                   for (b, m), exe in eng.graphs.executables.items()}}
+               "pool_bytes_bound": pool_bytes_bound(cfg, keys, eng._ragged_seqs),
+               "replay_launches": {"/".join(map(str, k)): exe.launches
+                                   for k, exe in eng.graphs.executables.items()
+                                   if k in (("prefill", 8, 1024), ("decode", 8, "greedy"))}}
     lengths = MAIN_LENGTHS
     ps = prompts(np.random.default_rng(SEED + 3), lengths, cfg.vocab_size)
     greedy = SamplingParams(max_tokens=64, temperature=0.0, ignore_eos=True)
     sampled = SamplingParams(max_tokens=64, temperature=0.8, seed=1, ignore_eos=True)
 
     reset_launches()
-    replays0 = eng.graphs.replays
+    replays0 = dict(eng.graphs.replays)
     reqs, sampled_req, timing = serve_main(eng, ps, greedy, sampled)
     launches = read_launches()
     L = cfg.num_layers
@@ -846,19 +879,20 @@ def phase_main() -> dict:
              "chunk_steps": eng.stats.num_chunk_steps,
              "decode_steps": eng.stats.num_decode_steps,
              "decode_windows": eng.stats.num_decode_windows,
-             "graph_replays": eng.graphs.replays - replays0}
+             "graph_replays": {k: eng.graphs.replays[k] - replays0.get(k, 0)
+                               for k in ("prefill", "chunk", "mixed", "decode")}}
     want = {"flash_prefill": L * steps["prefill_steps"],
             "paged_decode": L * steps["decode_steps"],
             "paged_window": L * steps["chunk_steps"], "ragged_paged": 0}
     finished = all(r.finished and len(r.output_token_ids) == 64
                    for r in reqs + [sampled_req])
 
-    # the same requests on an engine that decodes eagerly and synchronously
+    # the same requests on an engine that runs every step eagerly and
+    # decodes synchronously (kept for the profile phase)
     eager = Engine(EngineConfig(seed=SEED, cuda_graphs=False, pipeline_decode=False),
                    params=eng.params)
+    eager.warmup()
     ereqs, esampled, etiming = serve_main(eager, ps, greedy, sampled)
-    del eager
-    torch.cuda.empty_cache()
     streams = [r.output_token_ids for r in reqs]
     same_as_eager = (streams == [r.output_token_ids for r in ereqs]
                      and sampled_req.output_token_ids == esampled.output_token_ids)
@@ -886,14 +920,17 @@ def phase_main() -> dict:
     ok = (finished and finite and diff <= LOGIT_DIFF_MAX and top1 >= 0.75
           and launches == want and launches["flash_prefill"] > 0
           and launches["paged_decode"] > 0 and same_as_eager
-          and steps["graph_replays"] == steps["decode_steps"]
+          and steps["graph_replays"] == {"prefill": steps["prefill_steps"],
+                                         "chunk": steps["chunk_steps"], "mixed": 0,
+                                         "decode": steps["decode_steps"]}
           and capture["pool_bytes"] <= capture["pool_bytes_bound"])
-    return {"ok": ok, "engine": eng, "params": eng.params, "streams": streams,
+    return {"ok": ok, "engine": eng, "eager_engine": eager, "params": eng.params,
+            "streams": streams,
             "sampled_stream": sampled_req.output_token_ids, "model": cfg.name, "layers": L,
             "dtype": cfg.dtype, "requests": len(reqs) + 1, "finished_with_tokens": finished,
             "engine_init_s": init_s, "graphs": capture, **timing,
             "multi_step": eng._multi_step, "pipeline_decode": eng._pipeline_decode, **steps,
-            "eager_engine": {**etiming, "same_tokens": same_as_eager},
+            "eager": {**etiming, "same_tokens": same_as_eager},
             "launches": launches, "launches_expected": want,
             "first_step_max_logit_diff": diff,
             "first_step_logit_diff_max_allowed": LOGIT_DIFF_MAX,
@@ -912,7 +949,7 @@ def phase_graphs(results) -> dict:
     from tpuserve_torch.models import transformer
     from tpuserve_torch.ops.attention import PAD_SLOT
     from tpuserve_torch.runtime import Engine, EngineConfig, SamplingParams
-    from tpuserve_torch.runtime.graphs import DecodeGraphs
+    from tpuserve_torch.runtime.graphs import StepGraphs
     from tpuserve_torch.runtime.kv_cache import CacheConfig, create_kv_cache
     main = results["main"]
     params, cfg = main["params"], main["engine"].model_cfg
@@ -936,10 +973,10 @@ def phase_graphs(results) -> dict:
         runs = {}
         for name, capture in (("graph", True), ("eager", False)):
             cache = [{k: t.clone() for k, t in e.items()} for e in cache0]
-            graphs = DecodeGraphs(params, cfg, cache, device=torch.device("cuda"),
-                                  attn_impl="cuda", max_blocks=pages, steps=S, max_batch=B,
-                                  capture=capture)
-            exe = graphs.get(B, mode)
+            graphs = StepGraphs(params, cfg, cache, device=torch.device("cuda"),
+                                attn_impl="cuda", max_blocks=pages, steps=S, max_batch=B,
+                                capture=capture)
+            exe = graphs.get("decode", B, mode)
             st = exe.stage()
             for i, n in enumerate(MAIN_LENGTHS):
                 st.tokens[i], st.positions[i], st.seq_lens[i] = first[i], n, n + 1
@@ -965,13 +1002,23 @@ def phase_graphs(results) -> dict:
                      and torch.equal(tg, te) and int(tg.min()) >= 0}
     del cache0
     torch.cuda.empty_cache()
-    # the main path's requests with pipelining off: the default engine's tokens
+    out["steps"] = step_graphs_bit_equal(params, cfg)
+    # the main path's requests with pipelining off: the default engine's
+    # tokens.  Not warmed: every executable is captured on first use,
+    # inside the counted run, and the launch counts still hold its steps
     eng = Engine(EngineConfig(seed=SEED, pipeline_decode=False), params=params)
-    eng.warmup()
     greedy = SamplingParams(max_tokens=64, temperature=0.0, ignore_eos=True)
     sampled = SamplingParams(max_tokens=64, temperature=0.8, seed=1, ignore_eos=True)
     main_ps = prompts(np.random.default_rng(SEED + 3), MAIN_LENGTHS, cfg.vocab_size)
+    reset_launches()
     reqs, sreq, timing = serve_main(eng, main_ps, greedy, sampled)
+    launches = read_launches()
+    st, L = eng.stats, cfg.num_layers
+    first_use = {"flash_prefill": L * (st.num_prefill_steps - st.num_chunk_steps),
+                 "paged_decode": L * st.num_decode_steps,
+                 "paged_window": L * st.num_chunk_steps, "ragged_paged": 0}
+    timing["captured_in_run"] = sorted("/".join(map(str, k)) for k in eng.graphs.executables)
+    timing["capture_s"] = eng.graphs.capture_s
     del eng
     same = ([r.output_token_ids for r in reqs] == main["streams"]
             and sreq.output_token_ids == main["sampled_stream"])
@@ -983,34 +1030,196 @@ def phase_graphs(results) -> dict:
     del eng
     torch.cuda.empty_cache()
     same_single = [r.output_token_ids for r in single] == [t[:16] for t in main["streams"]]
-    return {"ok": all(v["ok"] for v in out.values()) and same and same_single,
+    return {"ok": (all(v["ok"] for v in out.values()) and same and same_single
+                   and launches == first_use),
             "window": S, "batch": B, **out, "pipelining_off_same_tokens": same,
-            "pipelining_off": timing, "single_steps_same_tokens": same_single}
+            "pipelining_off": timing, "pipelining_off_launches": launches,
+            "pipelining_off_launches_expected": first_use,
+            "single_steps_same_tokens": same_single}
+
+
+def step_graphs_bit_equal(params, cfg) -> dict:
+    """One prefill, one chunk and one mixed step, each replayed from its
+    captured graph and run eagerly by an executable on the same inputs
+    and a copy of the same cache, at full width and depth, bf16: the
+    logits and the cache must be bit-equal (the same kernels in the same
+    order).  Shapes of the main, chunked and mixed phases: the main
+    path's (8, 1024) prefill batch of 128-1,024-token prompts; a 2,048-row
+    chunk bucket carrying 1,904 rows over 4,096 cached tokens; a 512-row
+    mixed stream of 8 decode rows over 256 cached tokens each and a
+    480-row chunk over 480 cached, descriptors for 64 sequences.  The
+    cached pages hold random values."""
+    import torch
+    from tpuserve_torch.ops.ragged_paged import ragged_block, ragged_layout
+    from tpuserve_torch.runtime.graphs import StepGraphs
+    from tpuserve_torch.runtime.kv_cache import CacheConfig, create_kv_cache
+    rng = np.random.default_rng(SEED + 11)
+    V, page, seqs = cfg.vocab_size, 32, 64
+    blk = ragged_block("cuda")
+
+    def tok(n):
+        return rng.integers(0, V, n)
+
+    def slots(bt_row, start, n):
+        t = np.arange(start, start + n)
+        return bt_row[t // page] * page + t % page
+
+    cases = {}
+    # prefill: 8 prompts of the main lengths, sequence i on pages i*32 ..
+    pages = 32
+    bt = np.arange(8 * pages, dtype=np.int32).reshape(8, pages)
+    fill = {"tokens": np.zeros((8, 1024), np.int32), "prompt_lens": np.array(MAIN_LENGTHS),
+            "slot_ids": np.full((8, 1024), 2**30, np.int32)}
+    for i, n in enumerate(MAIN_LENGTHS):
+        fill["tokens"][i, :n], fill["slot_ids"][i, :n] = tok(n), slots(bt[i], 0, n)
+    cases["prefill"] = (("prefill", 8, 1024), pages, 8 * pages, fill)
+    # chunk: rows 4,096 .. 5,999 of one sequence, in the 2,048 bucket
+    pages = 192
+    bt = np.arange(pages, dtype=np.int32)
+    n = 1904
+    fill = {"tokens": np.zeros((1, 2048), np.int32), "ctx_lens": [4096], "chunk_lens": [n],
+            "slot_ids": np.full((1, 2048), 2**30, np.int32), "block_tables": bt[None]}
+    fill["tokens"][0, :n], fill["slot_ids"][0, :n] = tok(n), slots(bt, 4096, n)
+    cases["chunk"] = (("chunk", 2048), pages, pages, fill)
+    # mixed: sequences 0-7 decode at position 256, sequence 8 a chunk
+    pages = 64
+    bt = np.arange(9 * pages, dtype=np.int32).reshape(9, pages)
+    starts, T, meta, blk_seq = ragged_layout(8, [480], blk)
+    fill = {k: np.zeros(n, np.int32) for k, n in (
+        ("tokens", T), ("positions", T), ("row_seq", T), ("kv_lens", seqs),
+        ("q_lens", seqs), ("last_rows", seqs))}
+    fill.update(slot_ids=np.full(T, 2**30, np.int32), q_starts=np.full(seqs, T, np.int32),
+                block_tables=np.zeros((seqs, pages), np.int32), meta=meta, blk_seq=blk_seq)
+    for i in range(8):
+        fill["tokens"][i], fill["positions"][i] = tok(1)[0], 256
+        fill["slot_ids"][i] = slots(bt[i], 256, 1)[0]
+        fill["row_seq"][i] = fill["q_starts"][i] = fill["last_rows"][i] = i
+        fill["kv_lens"][i], fill["q_lens"][i], fill["block_tables"][i] = 257, 1, bt[i]
+    st, n = starts[0], 480
+    rows = slice(st, st + n)
+    fill["tokens"][rows], fill["positions"][rows] = tok(n), 480 + np.arange(n)
+    fill["slot_ids"][rows], fill["row_seq"][rows] = slots(bt[8], 480, n), 8
+    fill["kv_lens"][8], fill["q_starts"][8], fill["q_lens"][8] = 960, st, n
+    fill["last_rows"][8], fill["block_tables"][8] = st + n - 1, bt[8]
+    cases["mixed"] = (("mixed", T), pages, 9 * pages, fill)
+
+    out = {}
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    for kind, (key, pages, nb, fill) in cases.items():
+        cache0 = create_kv_cache(cfg, CacheConfig(num_blocks=nb, max_blocks_per_seq=pages),
+                                 "cuda")
+        for e in cache0:
+            for t in e.values():
+                t.copy_(torch.randn(t.shape, generator=g, device="cuda"))
+        runs = {}
+        for name, capture in (("graph", True), ("eager", False)):
+            cache = [{k: t.clone() for k, t in e.items()} for e in cache0]
+            graphs = StepGraphs(params, cfg, cache, device=torch.device("cuda"),
+                                attn_impl="cuda", max_blocks=pages, steps=1, max_batch=seqs,
+                                ragged_blk=blk, capture=capture)
+            exe = graphs.get(*key)
+            st = exe.stage()
+            for field, arr in fill.items():
+                getattr(st, field)[...] = arr
+            exe.load(st)
+            exe.run()
+            torch.cuda.synchronize()
+            runs[name] = (exe.logits.clone(), cache)
+            del graphs, exe
+        (lg, cg), (le, ce) = runs["graph"], runs["eager"]
+        logits_equal = torch.equal(lg, le)
+        cache_equal = all(torch.equal(a[k], b[k]) for a, b in zip(cg, ce) for k in a)
+        out[kind] = {"key": list(key), "logits_bit_equal": logits_equal,
+                     "cache_bit_equal": cache_equal,
+                     "max_logit_diff": (lg - le).abs().max().item(),
+                     "finite": bool(torch.isfinite(lg).all()),
+                     "ok": logits_equal and cache_equal and bool(torch.isfinite(lg).all())}
+        del runs, cache0, lg, le, cg, ce
+        torch.cuda.empty_cache()
+    out["ok"] = all(v["ok"] for v in out.values())
+    return out
 
 
 def phase_profile(results) -> dict:
     """Where the time goes, after every counted run, on the phases'
     engines: the main path's 8 prompt lengths as fresh prompts (one
     prefill and one 32-token window; the served prompts are prefix-cache
-    hits now), the third chunk of a fresh 6,000-token prompt (1,904 rows
-    on 4,096 cached), and one mixed step of 8 decoding streams and a
-    1,000-token arrival."""
+    hits now), one steady window alone; then, on the default engine (every
+    step a replayed graph) and on the eager engine of the same phase, one
+    prefill step alone (8 fresh prompts of the main lengths), the third
+    chunk of a fresh 6,000-token prompt (1,904 rows on 4,096 cached), and
+    one mixed step of 8 decoding streams and a 1,000-token arrival."""
     import torch
     from tpuserve_torch.runtime import SamplingParams
     rng = np.random.default_rng(SEED + 9)
-    eng = results["main"].pop("engine")
+    eng = results["main"]["engine"]
     ps = prompts(rng, MAIN_LENGTHS, eng.model_cfg.vocab_size)
     params = SamplingParams(max_tokens=1 + eng._multi_step, temperature=0.0,
                             ignore_eos=True)
     out = {"main_prefill_and_window": device_profile(lambda: eng.generate(ps, params))}
     out["decode_window"] = profile_window(eng, prompts(rng, MAIN_LENGTHS,
                                                       eng.model_cfg.vocab_size))
-    del eng
-    eng = results["chunked"].pop("engine")
-    out["chunk_step"] = profile_step(eng, prompts(rng, [6000], eng.model_cfg.vocab_size)[0],
-                                     SamplingParams, skip=2)
-    del eng
-    eng = results["mixed"].pop("engine")
+    for name, phase, profile in (("prefill_step", "main", profile_prefill),
+                                 ("chunk_step", "chunked", profile_chunk),
+                                 ("mixed_step", "mixed", profile_mixed)):
+        out[name] = {}
+        for engine in ("engine", "eager_engine"):
+            eng = results[phase].pop(engine)
+            out[name]["graphs" if engine == "engine" else "eager"] = profile(eng, rng)
+            del eng
+        torch.cuda.empty_cache()
+    out["pad_drop_write"] = pad_drop_write(results["main"]["params"])
+    out["ok"] = (all(v.get("request_finished", True) for k in ("prefill_step", "chunk_step",
+                                                                "mixed_step")
+                     for v in out[k].values())
+                 and out["decode_window"]["ok"])
+    return out
+
+
+def pad_drop_write(params) -> dict:
+    """What writing every row of a bucket costs over writing its real rows
+    alone: one layer's KV write (``attention.write_kv_entry``, bf16 and
+    int8 pages) of a prefix hit's 300-row suffix padded to a 2,048-row
+    chunk bucket, every padding row rewriting the first real row's slot
+    (``pad_drop``, one plan a step), against the write of the 300 rows
+    alone; CUDA events, mean of 50 back-to-back calls.  The model's layers
+    times the difference is the padding's cost a step."""
+    import torch
+    from tpuserve_torch.ops import attention
+    cfg_layers = len(params["layers"])
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    nb, page, Hkv, D, rows, real = 4096, 32, 8, 128, 2048, 300
+    k = torch.randn(rows, Hkv, D, generator=g, device="cuda").to(torch.bfloat16)
+    v = torch.randn(rows, Hkv, D, generator=g, device="cuda").to(torch.bfloat16)
+    slots = torch.full((rows,), 2**30, dtype=torch.int32, device="cuda")
+    slots[:real] = 1000 * page + torch.arange(real, dtype=torch.int32, device="cuda")
+    out = {"layers": cfg_layers, "bucket_rows": rows, "real_rows": real}
+    for name, int8 in (("bf16", False), ("int8", True)):
+        kc, vc, ks, vs = paged_cache(g, nb, page, Hkv, D, "bfloat16", int8)
+        entry = {"k": kc, "v": vc, **({"ks": ks, "vs": vs} if int8 else {})}
+        drop = attention.pad_drop(slots, nb * page)
+        drop_real = attention.pad_drop(slots[:real], nb * page)
+        bucket = cuda_ms(lambda: attention.write_kv_entry(entry, k, v, slots, drop=drop), 50)
+        alone = cuda_ms(lambda: attention.write_kv_entry(entry, k[:real], v[:real],
+                                                         slots[:real], drop=drop_real), 50)
+        out[name] = {"bucket_ms": bucket, "real_rows_alone_ms": alone,
+                     "padding_ms_a_step": cfg_layers * (bucket - alone)}
+    return out
+
+
+def profile_prefill(eng, rng) -> dict:
+    """One batched prefill alone: 8 fresh prompts of the main lengths."""
+    return profile_step(eng, prompts(rng, MAIN_LENGTHS, eng.model_cfg.vocab_size), skip=0)
+
+
+def profile_chunk(eng, rng) -> dict:
+    """The third chunk of a fresh 6,000-token prompt."""
+    return profile_step(eng, prompts(rng, [6000], eng.model_cfg.vocab_size), skip=2)
+
+
+def profile_mixed(eng, rng) -> dict:
+    """One mixed step: 8 streams decoding, then a 1,000-token arrival."""
+    from tpuserve_torch.runtime import SamplingParams
     V = eng.model_cfg.vocab_size
     for p in prompts(rng, [64] * 8, V):
         eng.add_request(prompt_token_ids=p, params=SamplingParams(
@@ -1018,12 +1227,7 @@ def phase_profile(results) -> dict:
     windows = eng.stats.num_decode_windows
     while eng.stats.num_decode_windows == windows:     # the 8 streams decode
         eng.step()
-    out["mixed_step"] = profile_step(eng, prompts(rng, [1000], V)[0], SamplingParams, skip=0)
-    del eng
-    torch.cuda.empty_cache()
-    out["ok"] = (all(v.get("request_finished", True) for v in out.values())
-                 and out["decode_window"]["ok"])
-    return out
+    return profile_step(eng, prompts(rng, [1000], V), skip=0)
 
 
 def profile_window(eng, ps) -> dict:
@@ -1167,25 +1371,48 @@ def ttft_ms(req) -> float:
 def phase_chunked(params) -> dict:
     """The chunked path at full depth, bf16: 4 short streams, a 6,000-token
     prompt in chunks of 2,048, then (once it has its first token) a prompt
-    sharing its first 4,096 tokens, which the prefix cache serves."""
+    sharing its first 4,096 tokens, which the prefix cache serves.  The
+    default engine (every step a replayed graph), then the eager engine
+    (``cuda_graphs=False, pipeline_decode=False``) on the same requests:
+    the same tokens, each one's step times, TTFTs and decode tok/s."""
     import torch
-    from tpuserve_torch.runtime import CacheConfig, Engine, EngineConfig, SamplingParams
+    from tpuserve_torch.runtime import CacheConfig, Engine, EngineConfig
     torch.cuda.empty_cache()
     # the default engine, with room for the long prompts: the default 64
     # blocks a sequence hold 2,048 tokens, one chunk
-    eng = Engine(EngineConfig(seed=SEED, cache=CacheConfig(max_blocks_per_seq=256,
-                                                           num_blocks=4096)),
-                 params=params)
+    cache = CacheConfig(max_blocks_per_seq=256, num_blocks=4096)
+    eng = Engine(EngineConfig(seed=SEED, cache=cache), params=params)
     cfg = eng.model_cfg
     L, V = cfg.num_layers, cfg.vocab_size
     rng = np.random.default_rng(SEED + 6)
     short = prompts(rng, [512] * 4, V)
     long = prompts(rng, [6000], V)[0]
     hit = long[:4096] + prompts(rng, [300], V)[0]
+    res = serve_chunked(eng, short, long, hit)
+    eager = Engine(EngineConfig(seed=SEED, cache=cache, cuda_graphs=False,
+                                pipeline_decode=False), params=params)
+    eres = serve_chunked(eager, short, long, hit)
+    same = res.pop("tokens") == eres.pop("tokens")
+    logit_check = chunk_logits(params, cfg, long)
+    ok = (res.pop("ok") and eres.pop("ok") and same and logit_check["ok"])
+    return {"ok": ok, "engine": eng, "eager_engine": eager, "model": cfg.name, "layers": L,
+            "dtype": cfg.dtype, **res, "eager": {**eres, "same_tokens": same},
+            "logits": logit_check}
+
+
+def serve_chunked(eng, short, long, hit) -> dict:
+    """The chunked phase's requests on ``eng``, warmed for the buckets they
+    hit (the defaults, which hold the 2,048 chunk, plus the short
+    prompts' (4, 512) prefill, as a bench warms its run's buckets; the
+    hit, longer than a chunk, runs its 300-token suffix in the 2,048
+    bucket); each kernel's launches must be the layers times its steps,
+    and the hit's one chunk must start at its cached offset."""
+    from tpuserve_torch.runtime import SamplingParams
+    L = eng.model_cfg.num_layers
     sp_short = SamplingParams(max_tokens=64, temperature=0.0, ignore_eos=True)
     sp_long = SamplingParams(max_tokens=16, temperature=0.0, ignore_eos=True)
-
     eng.warmup()
+    eng.warmup(decode_buckets=[], prefill_buckets=[(4, 512)])
     reset_launches()
     short_ids = [eng.add_request(prompt_token_ids=p, params=sp_short) for p in short]
     long_id = eng.add_request(prompt_token_ids=long, params=sp_long)
@@ -1209,19 +1436,16 @@ def phase_chunked(params) -> dict:
     finished = all(r.finished for r in reqs) and [len(r.output_token_ids) for r in reqs] == (
         [64] * 4 + [16, 16])
     chunk_steps = eng.stats.num_chunk_steps
-    eng_windows = eng.stats.num_decode_windows
     want = expected_launches(L, steps)
     chunk_ms = [s["ms"] for s in steps if s["kind"] == "chunk"]
     dec = [s for s in steps if s["kind"] == "decode"]
     short_tokens = sum(n for s in dec for r, n in s["decode_tokens"].items() if r in short_ids)
     dec_s = sum(s["ms"] for s in dec) / 1e3
-    logit_check = chunk_logits(eng.params, cfg, long)
     # the path runs batched prefill (the short prompts), decode windows and chunks
     ran = all(launches[k] > 0 for k in ("flash_prefill", "paged_decode", "paged_window"))
     ok = (finished and launches == want and ran and chunk_steps >= 4
-          and hit_start == state["cached"] == 4096 and len(hit_chunks) == 1
-          and logit_check["ok"])
-    return {"ok": ok, "engine": eng, "model": cfg.name, "layers": L, "dtype": cfg.dtype,
+          and hit_start == state["cached"] == 4096 and len(hit_chunks) == 1)
+    return {"ok": ok, "tokens": [r.output_token_ids for r in reqs],
             "requests": len(reqs), "finished_with_tokens": finished,
             "chunk_steps": chunk_steps, "launches": launches, "launches_expected": want,
             "hit_cached_tokens": state["cached"], "hit_first_chunk_start": hit_start,
@@ -1229,8 +1453,8 @@ def phase_chunked(params) -> dict:
             "chunk_step_ms": chunk_ms, "mean_chunk_step_ms": sum(chunk_ms) / len(chunk_ms),
             "short_decode_tokens": short_tokens, "decode_s": dec_s,
             "short_decode_tok_per_s": short_tokens / dec_s if dec_s else None,
-            "decode_windows": eng_windows, "step_kinds": step_summary(steps),
-            "logits": logit_check}
+            "decode_windows": eng.stats.num_decode_windows,
+            "graph_replays": dict(eng.graphs.replays), "step_kinds": step_summary(steps)}
 
 
 def chunk_logits(params, cfg, first) -> dict:
@@ -1271,13 +1495,13 @@ def chunk_logits(params, cfg, first) -> dict:
             "max_abs_logit": logits["reference"].abs().max().item(), "top1_agreement": top1}
 
 
-def profile_step(eng, prompt, SamplingParams, skip: int) -> dict:
-    """Where the time goes in one step: add ``prompt`` (one output token),
-    run ``skip`` steps, profile the next one, drain."""
+def profile_step(eng, ps, skip: int) -> dict:
+    """Where the time goes in one step: add the prompts ``ps`` (one output
+    token each), run ``skip`` steps, profile the next one, drain."""
     import torch
-    rid = eng.add_request(prompt_token_ids=prompt,
-                          params=SamplingParams(max_tokens=1, temperature=0.0,
-                                                ignore_eos=True))
+    from tpuserve_torch.runtime import SamplingParams
+    sp = SamplingParams(max_tokens=1, temperature=0.0, ignore_eos=True)
+    rids = [eng.add_request(prompt_token_ids=p, params=sp) for p in ps]
     for _ in range(skip):
         eng.step()
     # a decode window in flight finishes first: the trace holds this step
@@ -1285,29 +1509,48 @@ def profile_step(eng, prompt, SamplingParams, skip: int) -> dict:
     res = device_profile(eng.step)
     while eng.has_work():
         eng.step()
-    res["request_finished"] = eng.requests[rid].finished
+    res["request_finished"] = all(eng.requests[r].finished for r in rids)
     return res
 
 
 def phase_mixed(params) -> dict:
     """The mixed path at full depth, bf16, ``mixed_batching=True``: 8
     streams of 256-token prompts decoding, then, after their first fused
-    window, 8 prompts of 512-1,500 tokens."""
+    window, 8 prompts of 512-1,500 tokens.  The default engine (every step
+    a replayed graph), then the eager engine on the same requests: the
+    same tokens, each one's step times, TTFTs and decode tok/s."""
     import torch
     from tpuserve_torch.ops import ragged_paged
-    from tpuserve_torch.runtime import Engine, EngineConfig, SamplingParams, SchedulerConfig
+    from tpuserve_torch.runtime import Engine, EngineConfig, SchedulerConfig
     torch.cuda.empty_cache()
-    eng = Engine(EngineConfig(seed=SEED, scheduler=SchedulerConfig(mixed_batching=True)),
-                 params=params)
+    sched = SchedulerConfig(mixed_batching=True)
+    eng = Engine(EngineConfig(seed=SEED, scheduler=sched), params=params)
     cfg = eng.model_cfg
-    L, V = cfg.num_layers, cfg.vocab_size
     rng = np.random.default_rng(SEED + 8)
-    early = prompts(rng, [256] * 8, V)
+    early = prompts(rng, [256] * 8, cfg.vocab_size)
     late_lens = rng.integers(512, 1501, 8).tolist()
-    late = prompts(rng, late_lens, V)
+    late = prompts(rng, late_lens, cfg.vocab_size)
+    res = serve_mixed(eng, early, late)
+    eager = Engine(EngineConfig(seed=SEED, scheduler=sched, cuda_graphs=False,
+                                pipeline_decode=False), params=params)
+    eres = serve_mixed(eager, early, late)
+    same = res.pop("tokens") == eres.pop("tokens")
+    return {"ok": res.pop("ok") and eres.pop("ok") and same, "engine": eng,
+            "eager_engine": eager, "model": cfg.name, "layers": cfg.num_layers,
+            "dtype": cfg.dtype, "late_prompt_lens": late_lens,
+            "ragged_block": ragged_paged.ragged_block(device="cuda"), **res,
+            "eager": {**eres, "same_tokens": same}}
+
+
+def serve_mixed(eng, early, late) -> dict:
+    """The mixed phase's requests on ``eng``, warmed by ``Engine.warmup``'s
+    defaults (the flat-token ladder and the decode ladder); each kernel's
+    launches must be the layers times its steps, the ragged kernel's the
+    layers times the mixed steps."""
+    from tpuserve_torch.runtime import SamplingParams
+    L = eng.model_cfg.num_layers
     sp_early = SamplingParams(max_tokens=128, temperature=0.0, ignore_eos=True)
     sp_late = SamplingParams(max_tokens=32, temperature=0.0, ignore_eos=True)
-
     eng.warmup()
     reset_launches()
     early_ids = [eng.add_request(prompt_token_ids=p, params=sp_early) for p in early]
@@ -1333,17 +1576,16 @@ def phase_mixed(params) -> dict:
     # the path runs mixed steps and the decode windows between them
     ok = (finished and launches == want and mixed_steps >= 3
           and launches["ragged_paged"] == L * mixed_steps and launches["paged_decode"] > 0)
-    return {"ok": ok, "engine": eng, "model": cfg.name, "layers": L, "dtype": cfg.dtype,
+    return {"ok": ok, "tokens": [r.output_token_ids for r in reqs],
             "requests": len(reqs), "finished_with_tokens": finished,
-            "late_prompt_lens": late_lens, "ragged_block": ragged_paged.ragged_block(
-                device="cuda"),
             "mixed_steps": mixed_steps, "decode_windows": windows,
             "launches": launches, "launches_expected": want,
             "late_mean_ttft_ms": sum(ttft_ms(r) for r in reqs[8:]) / 8,
             "decode_tokens": dec_tokens, "decode_s": dec_s,
             "decode_tok_per_s": dec_tokens / dec_s if dec_s else None,
             "mixed_step_ms": mixed_ms, "mean_mixed_step_ms": sum(mixed_ms) / len(mixed_ms),
-            "padded_row_share": padded_share, "step_kinds": step_summary(steps)}
+            "padded_row_share": padded_share, "graph_replays": dict(eng.graphs.replays),
+            "step_kinds": step_summary(steps)}
 
 
 # --------------------------------------------------------------------------
@@ -1420,7 +1662,7 @@ def main() -> int:
         res["seconds"] = time.perf_counter() - t
         results[phase] = res
         emit({"phase": phase, **{k: v for k, v in res.items() if k not in (
-            "headline", "params", "engine", "streams", "sampled_stream")}})
+            "headline", "params", "engine", "eager_engine", "streams", "sampled_stream")}})
         if not res["ok"]:
             print(f"chip_smoke: phase {phase} failed", file=sys.stderr)
             return 1

@@ -539,15 +539,15 @@ def test_decode_graph_replay_is_bit_equal_to_eager(card, mode, dtype):
     same iteration run eagerly on the same inputs (the same kernels in
     the same order): logits, tokens and the cache, over a 6-step window;
     the paged decode kernel's launches count through the replays."""
-    from tpuserve_torch.runtime.graphs import DecodeGraphs
+    from tpuserve_torch.runtime.graphs import StepGraphs
     cfg, params, cache = _narrow_engine_parts(card, dtype)
     eager_cache = [{k: t.clone() for k, t in e.items()} for e in cache]
     rows = [(5, 17), (9, 40), (33, 3)]           # 3 real rows in a bucket of 4
     runs = {}
     for name, kv, capture in (("graph", cache, True), ("eager", eager_cache, False)):
-        graphs = DecodeGraphs(params, cfg, kv, device=card, attn_impl="cuda",
-                              max_blocks=8, steps=6, max_batch=8, capture=capture)
-        exe = graphs.get(4, mode)
+        graphs = StepGraphs(params, cfg, kv, device=card, attn_impl="cuda",
+                            max_blocks=8, steps=6, max_batch=8, capture=capture)
+        exe = graphs.get("decode", 4, mode)
         n0 = paged_decode.LAUNCHES
         exe.load(_stage(exe, rows))
         exe.run(6)
@@ -588,3 +588,77 @@ def test_paged_decode_replayed_matches_plain(card):
         ref = attention.paged_decode_attention(q, kc, vc, bt, sl, D ** -0.5)
         torch.testing.assert_close(out.float(), ref.float(), **TOL[torch.bfloat16])
     assert paged_decode.LAUNCHES == n0
+
+
+def _step_inputs(kind):
+    """A prefill of 20 and 7 tokens in a (2, 32) batch; a 25-row chunk at
+    cached offset 40 in a 32-row bucket; two decode rows and a 20-row
+    chunk at offset 30 in a 64-row mixed stream (block 32, 4 sequences)."""
+    page, mb = 16, 8
+
+    def slots(seq, start, n):
+        t = np.arange(start, start + n)
+        return seq * mb * page + t
+
+    if kind == "prefill":
+        a = {"tokens": np.zeros((2, 32), np.int32), "prompt_lens": [20, 7],
+             "slot_ids": np.full((2, 32), attention.PAD_SLOT, np.int32)}
+        for i, n in enumerate((20, 7)):
+            a["tokens"][i, :n], a["slot_ids"][i, :n] = np.arange(n) + 3 * i, slots(i, 0, n)
+        return ("prefill", 2, 32), a
+    if kind == "chunk":
+        a = {"tokens": np.zeros((1, 32), np.int32), "ctx_lens": [40], "chunk_lens": [25],
+             "slot_ids": np.full((1, 32), attention.PAD_SLOT, np.int32),
+             "block_tables": np.arange(16, 24, dtype=np.int32)[None]}
+        a["tokens"][0, :25], a["slot_ids"][0, :25] = np.arange(25) + 5, slots(2, 40, 25)
+        return ("chunk", 32), a
+    starts, T, meta, blk_seq = ragged_layout(2, [20], 32)
+    a = {"tokens": np.zeros(T, np.int32), "positions": np.zeros(T, np.int32),
+         "slot_ids": np.full(T, attention.PAD_SLOT, np.int32), "row_seq": np.zeros(T, np.int32),
+         "block_tables": np.zeros((4, mb), np.int32), "kv_lens": np.zeros(4, np.int32),
+         "q_starts": np.full(4, T, np.int32), "q_lens": np.zeros(4, np.int32), "meta": meta,
+         "blk_seq": blk_seq, "last_rows": np.zeros(4, np.int32)}
+    for i, pos in enumerate((50, 60)):
+        a["tokens"][i], a["positions"][i], a["slot_ids"][i] = 7 + i, pos, slots(i, pos, 1)[0]
+        a["row_seq"][i] = a["q_starts"][i] = a["last_rows"][i] = i
+        a["kv_lens"][i], a["q_lens"][i] = pos + 1, 1
+        a["block_tables"][i] = np.arange(i * mb, i * mb + mb)
+    st = starts[0]
+    a["tokens"][st:st + 20], a["positions"][st:st + 20] = np.arange(20) + 9, 30 + np.arange(20)
+    a["slot_ids"][st:st + 20], a["row_seq"][st:st + 20] = slots(2, 30, 20), 2
+    a["kv_lens"][2], a["q_starts"][2], a["q_lens"][2], a["last_rows"][2] = 50, st, 20, st + 19
+    a["block_tables"][2] = np.arange(2 * mb, 3 * mb)
+    return ("mixed", T), a
+
+
+@pytest.mark.parametrize("kind", ["prefill", "chunk", "mixed"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_step_graph_replay_is_bit_equal_to_eager(card, kind, dtype):
+    """A prefill, chunk or mixed step captured and replayed gives the bits
+    of the same step run eagerly on the same inputs: logits and cache,
+    padding rows included; its kernel's launches count through the
+    replay, once a layer."""
+    from tpuserve_torch.runtime.graphs import StepGraphs
+    cfg, params, cache = _narrow_engine_parts(card, dtype)
+    eager_cache = [{k: t.clone() for k, t in e.items()} for e in cache]
+    key, inputs = _step_inputs(kind)
+    mod = {"prefill": flash_prefill, "chunk": paged_window, "mixed": ragged_paged}[kind]
+    runs = {}
+    for name, kv, capture in (("graph", cache, True), ("eager", eager_cache, False)):
+        graphs = StepGraphs(params, cfg, kv, device=card, attn_impl="cuda", max_blocks=8,
+                            steps=1, max_batch=4, ragged_blk=32, capture=capture)
+        exe = graphs.get(*key)
+        st = exe.stage()
+        for field, arr in inputs.items():
+            getattr(st, field)[...] = arr
+        n0 = mod.LAUNCHES
+        exe.load(st)
+        exe.run()
+        torch.cuda.synchronize()
+        runs[name] = (exe.logits.clone(), mod.LAUNCHES - n0)
+    assert torch.equal(runs["graph"][0], runs["eager"][0])
+    assert runs["graph"][1] == runs["eager"][1] == cfg.num_layers
+    assert torch.isfinite(runs["graph"][0]).all()
+    for a, b in zip(cache, eager_cache):
+        for k in a:
+            assert torch.equal(a[k], b[k])

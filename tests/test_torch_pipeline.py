@@ -33,7 +33,7 @@ from tpuserve_torch.models.weights import params_from_numpy
 from tpuserve_torch.ops import attention, sampling
 from tpuserve_torch.ops.attention import PAD_SLOT
 from tpuserve_torch.runtime import Engine, FinishReason, SamplingParams, kv_cache
-from tpuserve_torch.runtime.graphs import DecodeGraphs
+from tpuserve_torch.runtime.graphs import StepGraphs
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -269,7 +269,7 @@ def test_the_decode_executables_hold_the_requests_keys(model):
                           params=SamplingParams(max_tokens=20, temperature=0.5, seed=77))
     eng.step()
     eng.step()
-    exe = eng.graphs.executables[(2, "temperature")]
+    exe = eng.graphs.executables[("decode", 2, "temperature")]
     st = exe.state
     n = eng.requests[rid].num_tokens
     assert st.positions.tolist() == [n - 1, 4]            # advanced by the window
@@ -482,13 +482,16 @@ def test_different_seeds_give_different_streams(model):
 
 def test_warmup_makes_the_decode_ladder_and_leaves_the_cache(model):
     """The default ladder is min_decode_bucket .. the bucket max_num_seqs
-    pads to, in both modes; the prefill, chunk and mixed dispatches of
-    padding write nothing, and serving afterwards is unchanged."""
+    pads to, in both modes, beside the prefill, chunk and mixed buckets
+    given; their dispatches of padding write nothing, and serving
+    afterwards is unchanged."""
     eng = _port(model, multi_step=4, sched=dict(SCHED, max_num_seqs=6))
     before = [{k: t.clone() for k, t in e.items()} for e in eng.kv_cache]
     eng.warmup(prefill_buckets=[8, (2, 16)], chunk_buckets=[8], mixed_buckets=[16, 32])
-    assert sorted(eng.graphs.executables) == [
-        (B, m) for B in (2, 4, 8) for m in ("greedy", "temperature")]
+    assert sorted(eng.graphs.executables) == sorted(
+        [("decode", B, m) for B in (2, 4, 8) for m in ("greedy", "temperature")]
+        + [("prefill", 1, 8), ("prefill", 2, 16), ("chunk", 8), ("mixed", 16),
+           ("mixed", 32)])
     for e, b in zip(eng.kv_cache, before):
         for k in e:
             assert torch.equal(e[k], b[k])
@@ -503,7 +506,7 @@ def test_a_bucket_is_made_on_first_use(model):
     eng = _port(model, multi_step=4)
     assert not eng.graphs.executables
     eng.generate(_prompts(lens=(5, 6, 7)), SamplingParams(**GREEDY))
-    assert list(eng.graphs.executables) == [(4, "greedy")]
+    assert list(eng.graphs.executables) == [("prefill", 4, 8), ("decode", 4, "greedy")]
 
 
 def test_graphs_need_a_card(model):
@@ -511,7 +514,7 @@ def test_graphs_need_a_card(model):
         _port(model, cuda_graphs=True)
     _, _, cfg, params = model
     with pytest.raises(ValueError, match="CUDA device"):
-        DecodeGraphs(params, cfg, [], device=torch.device("cpu"), attn_impl="reference",
+        StepGraphs(params, cfg, [], device=torch.device("cpu"), attn_impl="reference",
                      max_blocks=4, steps=1, max_batch=2, capture=True)
 
 
@@ -551,9 +554,9 @@ def test_the_decode_step_reads_nothing_back(model, mode, cache_dtype):
     cc = kv_cache.CacheConfig(block_size=BS, num_blocks=NB, max_blocks_per_seq=MB,
                               dtype=cache_dtype)
     cache = kv_cache.create_kv_cache(cfg, cc, "cpu")
-    graphs = DecodeGraphs(params, cfg, cache, device=torch.device("cpu"), attn_impl="cuda",
-                          max_blocks=MB, steps=3, max_batch=4, capture=False)
-    exe = graphs.get(4, mode)
+    graphs = StepGraphs(params, cfg, cache, device=torch.device("cpu"), attn_impl="cuda",
+                        max_blocks=MB, steps=3, max_batch=4, capture=False)
+    exe = graphs.get("decode", 4, mode)
     st = exe.stage()
     st.tokens[:2], st.positions[:2], st.seq_lens[:2], st.active[:2] = [5, 6], [0, 3], [1, 4], 1
     st.temperature[:2] = [0.0, 0.9]
@@ -575,7 +578,7 @@ def test_an_engine_frees_its_executables_without_the_garbage_collector(model):
     eng = _port(model, multi_step=4)
     eng.warmup()
     eng.generate(_prompts(lens=(5, 6)), SamplingParams(**GREEDY))
-    graphs, exe = weakref.ref(eng.graphs), weakref.ref(eng.graphs.get(2, "greedy"))
+    graphs, exe = weakref.ref(eng.graphs), weakref.ref(eng.graphs.get("decode", 2, "greedy"))
     enabled = gc.isenabled()
     gc.disable()
     try:

@@ -176,7 +176,7 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     _check(cfg, attn_impl)
     B, T = tokens.shape
     positions = torch.arange(T, device=tokens.device)[None, :].expand(B, T)
-    rows = attn_ops.keep_rows(slot_ids.reshape(-1), _num_slots(kv_cache))
+    drop = attn_ops.pad_drop(slot_ids, _num_slots(kv_cache))
     h = _embed(params, cfg, tokens, positions)
     scale = cfg.attn_scale
     for li, lp in enumerate(params["layers"]):
@@ -185,7 +185,7 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         q, k, v = _qkv(hn, lp, cfg, positions, li)
         # prefill attends over the FRESH k/v (full precision even when the
         # cache stores int8 — only cache reads see quantization)
-        attn_ops.write_kv_entry(kv_cache[li], k, v, slot_ids, rows)
+        attn_ops.write_kv_entry(kv_cache[li], k, v, slot_ids, drop=drop)
         if attn_impl == "cuda":
             out = flash_prefill_attention(
                 q.contiguous(), k.contiguous(), v.contiguous(), prompt_lens,
@@ -214,7 +214,7 @@ def _chunk_trunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     the final hidden states (B, C, H)."""
     B, C = tokens.shape
     positions = ctx_lens.long()[:, None] + torch.arange(C, device=tokens.device)[None, :]
-    rows = attn_ops.keep_rows(slot_ids.reshape(-1), _num_slots(kv_cache))
+    drop = attn_ops.pad_drop(slot_ids, _num_slots(kv_cache))
     h = _embed(params, cfg, tokens, positions)
     scale = cfg.attn_scale
     attend = (paged_window_attention if attn_impl == "cuda"
@@ -222,7 +222,7 @@ def _chunk_trunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     for li, lp in enumerate(params["layers"]):
         hn = _norm(h, lp["attn_norm"], cfg)
         q, k, v = _qkv(hn, lp, cfg, positions, li)
-        entry = attn_ops.write_kv_entry(kv_cache[li], k, v, slot_ids, rows)
+        entry = attn_ops.write_kv_entry(kv_cache[li], k, v, slot_ids, drop=drop)
         out = attend(q.contiguous(), entry["k"], entry["v"], block_tables,
                      ctx_lens, chunk_lens, scale, k_scale=entry.get("ks"),
                      v_scale=entry.get("vs"), sliding_window=cfg.layer_window(li),
@@ -444,14 +444,14 @@ def forward_ragged(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     kv_cache)."""
     _check(cfg, attn_impl)
     T = tokens.shape[0]
-    rows = attn_ops.keep_rows(slot_ids, _num_slots(kv_cache))
+    drop = attn_ops.pad_drop(slot_ids, _num_slots(kv_cache))
     h = _embed(params, cfg, tokens, positions)                 # (T, H)
     scale = cfg.attn_scale
     row_lens = positions + 1
     for li, lp in enumerate(params["layers"]):
         hn = _norm(h, lp["attn_norm"], cfg)
         q, k, v = _qkv(hn, lp, cfg, positions, li)             # (T, H*, D)
-        entry = attn_ops.write_kv_entry(kv_cache[li], k, v, slot_ids, rows)
+        entry = attn_ops.write_kv_entry(kv_cache[li], k, v, slot_ids, drop=drop)
         kw = dict(k_scale=entry.get("ks"), v_scale=entry.get("vs"),
                   sliding_window=cfg.layer_window(li),
                   logit_softcap=cfg.attn_logit_softcapping)

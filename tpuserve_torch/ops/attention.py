@@ -383,14 +383,6 @@ def ragged_paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return torch.where((row_lens > 0)[:, None, None], out, torch.zeros_like(out))
 
 
-def keep_rows(slots: torch.Tensor, num_slots: int) -> torch.Tensor:
-    """Indices of the non-padding entries of flat ``slots``.  Reads the
-    mask back to the host once (a sync on the card); the eager callers
-    (prefill, chunk, mixed) pass them to the writes as ``rows``."""
-    keep = (slots >= 0) & (slots < num_slots)
-    return torch.nonzero(keep).flatten()
-
-
 class PadDrop(NamedTuple):
     """Where a write of fixed shape sends each row, found on the device:
     real rows to their slots; padding rows (``PAD_SLOT``, or any slot out
@@ -418,14 +410,10 @@ def pad_drop(slots: torch.Tensor, num_slots: int) -> PadDrop:
 
 
 def _write_rows(flat: torch.Tensor, new: torch.Tensor, slots: torch.Tensor,
-                rows: torch.Tensor | None, drop: PadDrop | None) -> None:
-    """``new`` (N, ...) into the flat cache ``flat`` (slots, ...): the rows
-    ``rows`` names, or every row placed by ``drop`` (made here when both
-    are None)."""
+                drop: PadDrop | None) -> None:
+    """``new`` (N, ...) into the flat cache ``flat`` (slots, ...), every row
+    placed by ``drop`` (made here when None)."""
     new = new.to(flat.dtype)
-    if rows is not None:
-        flat.index_copy_(0, slots[rows].long(), new[rows])
-        return
     if drop is None:
         drop = pad_drop(slots, flat.shape[0])
     fill = torch.where(drop.any, new[drop.first], flat[0])
@@ -434,52 +422,47 @@ def _write_rows(flat: torch.Tensor, new: torch.Tensor, slots: torch.Tensor,
 
 
 def write_kv_cache(cache: torch.Tensor, new: torch.Tensor, slots: torch.Tensor,
-                   rows: torch.Tensor | None = None,
                    drop: PadDrop | None = None) -> None:
     """Scatter new K or V vectors into the paged cache, in place.
 
     cache: (num_blocks, block_size, Hkv, D); new: (N, Hkv, D) or
     (B, T, Hkv, D); slots: flat slot ids (block*block_size + offset) with
-    the leading shape of ``new``.  ``PAD_SLOT`` entries are dropped:
-    ``rows`` (indices into the flattened ``slots``, from
-    :func:`keep_rows`) names the entries to write; without it every row is
-    written as ``drop`` places it (:func:`pad_drop`, made here if None),
-    which reads nothing back to the host.
+    the leading shape of ``new``.  ``PAD_SLOT`` entries are dropped: every
+    row is written as ``drop`` places it (:func:`pad_drop`, made here if
+    None), which reads nothing back to the host.
     """
     num_blocks, block_size, Hkv, D = cache.shape
     _write_rows(cache.view(num_blocks * block_size, Hkv, D),
-                new.reshape(-1, Hkv, D), slots.reshape(-1), rows, drop)
+                new.reshape(-1, Hkv, D), slots.reshape(-1), drop)
 
 
 def write_kv_scales(scale_cache: torch.Tensor, scales: torch.Tensor,
-                    slots: torch.Tensor, rows: torch.Tensor | None = None,
-                    drop: PadDrop | None = None) -> None:
+                    slots: torch.Tensor, drop: PadDrop | None = None) -> None:
     """Scatter per-token scales into the paged (num_blocks, block_size, Hkv)
-    scale array, in place; same ``PAD_SLOT`` / ``rows`` / ``drop`` rules
-    as :func:`write_kv_cache`."""
+    scale array, in place; same ``PAD_SLOT`` / ``drop`` rules as
+    :func:`write_kv_cache`."""
     nb, bs, Hkv = scale_cache.shape
     _write_rows(scale_cache.view(nb * bs, Hkv), scales.reshape(-1, Hkv),
-                slots.reshape(-1), rows, drop)
+                slots.reshape(-1), drop)
 
 
 def write_kv_entry(entry: dict, k: torch.Tensor, v: torch.Tensor,
-                   slots: torch.Tensor, rows: torch.Tensor | None = None,
-                   drop: PadDrop | None = None) -> dict:
+                   slots: torch.Tensor, drop: PadDrop | None = None) -> dict:
     """Write one layer's new K/V into its cache entry, in place, and return
     the entry.  An entry carrying ``ks``/``vs`` stores int8: values are
-    quantized on write and the scales scattered alongside.  ``rows`` /
-    ``drop`` as :func:`write_kv_cache`; the drop plan is made once for
-    all four writes."""
-    if rows is None and drop is None:
+    quantized on write and the scales scattered alongside.  ``drop`` as
+    :func:`write_kv_cache`; the drop plan is made once for all four
+    writes."""
+    if drop is None:
         drop = pad_drop(slots, entry["k"].shape[0] * entry["k"].shape[1])
     if "ks" in entry:
         qk, sk = quantize_kv(k)
         qv, sv = quantize_kv(v)
-        write_kv_cache(entry["k"], qk, slots, rows, drop)
-        write_kv_cache(entry["v"], qv, slots, rows, drop)
-        write_kv_scales(entry["ks"], sk, slots, rows, drop)
-        write_kv_scales(entry["vs"], sv, slots, rows, drop)
+        write_kv_cache(entry["k"], qk, slots, drop)
+        write_kv_cache(entry["v"], qv, slots, drop)
+        write_kv_scales(entry["ks"], sk, slots, drop)
+        write_kv_scales(entry["vs"], sv, slots, drop)
     else:
-        write_kv_cache(entry["k"], k, slots, rows, drop)
-        write_kv_cache(entry["v"], v, slots, rows, drop)
+        write_kv_cache(entry["k"], k, slots, drop)
+        write_kv_cache(entry["v"], v, slots, drop)
     return entry

@@ -11,15 +11,19 @@ Each ``step`` is one of:
 - a mixed step (``mixed_batching=True``): every running stream's decode row
   plus prefill-chunk rows in one flat stream (``transformer.forward_ragged``:
   the ragged paged kernel);
-- a decode dispatch: a fused window of ``multi_step`` tokens, or a single
+- a decode dispatch: a fused window of ``multi_step`` tokens (fewer while
+  arrivals land in a busy engine: ``adaptive_multi_step``), or a single
   step when ``multi_step`` is 1 or the window's cache slots cannot be
-  reserved.  Both run a decode executable of ``runtime/graphs.py`` (one a
-  padded batch and sampling mode; on the card a captured CUDA graph of one
-  decode iteration, the paged decode kernel in it, replayed once a token
-  step).  With ``pipeline_decode`` (on with a card) a dispatch stays in
+  reserved.  With ``pipeline_decode`` (on with a card) a dispatch stays in
   flight while the next is dispatched from its last tokens on the device
   (``PendingDecode`` / ``PendingWindow``), and the host reads it back only
   then, as the JAX engine pipelines its decode.
+Every kind runs an executable of ``runtime/graphs.py``, one a kind and
+padded shape, as the JAX engine runs one compiled executable a bucket: on
+the card a captured CUDA graph (for decode, of one iteration, replayed once
+a token step), filled by one pinned copy a dispatch.  The prefill, chunk
+and mixed steps then sample synchronously: the sampled tokens' copy to the
+host is the step's one host read.
 Sampling is greedy or temperature, with each row's noise keyed by (salt,
 step) (``ops/sampling.py``); stop strings, stop ids, ``ignore_eos`` and
 ``max_tokens`` are host logic, as in the JAX engine.
@@ -45,10 +49,9 @@ from tpuserve_torch.models.config import ModelConfig, get_model_config
 from tpuserve_torch.models.tokenizer import IncrementalDetokenizer, load_tokenizer
 from tpuserve_torch.models.weights import init_params, param_nbytes
 from tpuserve_torch.ops import sampling as sampling_ops
-from tpuserve_torch.ops.attention import PAD_SLOT
 from tpuserve_torch.ops.ragged_paged import ragged_block, ragged_layout
 from tpuserve_torch.runtime.block_manager import BlockManager
-from tpuserve_torch.runtime.graphs import DecodeExecutable, DecodeGraphs, pool_bytes_bound
+from tpuserve_torch.runtime.graphs import DecodeExecutable, StepGraphs, pool_bytes_bound
 from tpuserve_torch.runtime.clock import MONOTONIC
 from tpuserve_torch.runtime.kv_cache import (
     CacheConfig, create_kv_cache, num_blocks_for_budget)
@@ -84,14 +87,26 @@ class EngineConfig:
     # measured on this card), 1 on the CPU where tests expect per-token
     # steps.
     multi_step: Optional[int] = None
+    # Adaptive window sizing, as the JAX engine's: when a request arrives
+    # while decode is busy, the following windows shrink to
+    # ``min_multi_step`` tokens for ``adaptive_window_hold_s`` seconds, so
+    # an arrival waits out one short window, not a full one; arrivals into
+    # an idle engine and arrival-free steady state keep the full window.
+    # On only when multi_step > min_multi_step.
+    adaptive_multi_step: bool = True
+    min_multi_step: int = 4
+    adaptive_window_hold_s: float = 0.5
     # Keep a decode dispatch in flight while the next is dispatched from its
     # last tokens on the device, reading it back only then.  None = on with
     # a card, off on the CPU (the JAX engine's rule, keyed on the device).
     pipeline_decode: Optional[bool] = None
-    # Replay captured CUDA graphs for decode (None = on with a card; the
-    # CPU has none).  False runs the same decode executables eagerly, for
-    # comparison.
+    # Replay captured CUDA graphs for every step kind: prefill, chunk,
+    # mixed and decode (None = on with a card; the CPU has none).  False
+    # runs the same executables eagerly, for comparison.
     cuda_graphs: Optional[bool] = None
+    # Injectable monotonic-time source (runtime/clock.py): None = the
+    # shared real clock; tests pass a VirtualClock.
+    clock: Optional[object] = None
     # JAX engine options not ported yet: any value but None raises
     quantization: Optional[str] = None
     lora_dir: Optional[str] = None
@@ -195,7 +210,7 @@ class Engine:
         for field, item in _UNPORTED_CONFIG:
             if getattr(config, field) is not None:
                 raise NotImplementedError(f"EngineConfig.{field}: {item}")
-        self.clock = MONOTONIC
+        self.clock = config.clock or MONOTONIC
         self.model_cfg = model_cfg or get_model_config(config.model)
         self.attn_impl = config.resolve_attn_impl(self.device)
         if self.attn_impl not in transformer.ATTN_IMPLS:
@@ -206,17 +221,6 @@ class Engine:
         if params is None:
             params = init_params(self.model_cfg, config.seed, self.device)
         self.params = params
-        self.cache_cfg = config.cache
-        if self.cache_cfg.num_blocks == 0:
-            self.cache_cfg = dataclasses.replace(
-                self.cache_cfg, num_blocks=self._auto_num_blocks())
-            logger.info("auto-sized KV cache: %d blocks of %d tokens",
-                        self.cache_cfg.num_blocks, self.cache_cfg.block_size)
-        self.kv_cache = create_kv_cache(self.model_cfg, self.cache_cfg,
-                                        self.device)
-        self.block_manager = BlockManager(
-            self.cache_cfg.num_blocks, self.cache_cfg.block_size,
-            enable_prefix_caching=config.enable_prefix_caching)
         # Mixed batching: the flat-row block is the ragged kernel's grid
         # block AND the host packing's alignment (one source,
         # ragged_paged.ragged_block); the descriptor width is fixed so the
@@ -237,6 +241,18 @@ class Engine:
                     blk, floor)
                 sched_cfg = dataclasses.replace(sched_cfg,
                                                 mixed_token_budget=floor)
+        self._multi_step = config.resolve_multi_step(self.device)
+        self.cache_cfg = config.cache
+        if self.cache_cfg.num_blocks == 0:
+            self.cache_cfg = dataclasses.replace(
+                self.cache_cfg, num_blocks=self._auto_num_blocks(sched_cfg))
+            logger.info("auto-sized KV cache: %d blocks of %d tokens",
+                        self.cache_cfg.num_blocks, self.cache_cfg.block_size)
+        self.kv_cache = create_kv_cache(self.model_cfg, self.cache_cfg,
+                                        self.device)
+        self.block_manager = BlockManager(
+            self.cache_cfg.num_blocks, self.cache_cfg.block_size,
+            enable_prefix_caching=config.enable_prefix_caching)
         self.scheduler = Scheduler(sched_cfg, self.block_manager,
                                    max_model_len=self.cache_cfg.max_model_len,
                                    ragged_align=self._ragged_blk)
@@ -245,15 +261,18 @@ class Engine:
         self.requests: dict[str, Request] = {}   # live + finished-unclaimed
         self._detok: dict[str, IncrementalDetokenizer] = {}
         self._salts: dict[str, int] = {}      # sampling-key salt a request
-        self._multi_step = config.resolve_multi_step(self.device)
+        self._min_multi_step = min(max(1, config.min_multi_step), self._multi_step)
+        self._adaptive_window = (config.adaptive_multi_step
+                                 and self._multi_step > self._min_multi_step)
+        self._last_busy_arrival = float("-inf")
         self._pipeline_decode = config.resolve_pipeline_decode(self.device)
         self._pending: Optional[PendingDecode] = None
         self._pending_window: Optional[PendingWindow] = None
-        self.graphs = DecodeGraphs(
+        self.graphs = StepGraphs(
             self.params, self.model_cfg, self.kv_cache, device=self.device,
             attn_impl=self.attn_impl, max_blocks=self.cache_cfg.max_blocks_per_seq,
             steps=self._multi_step, max_batch=self._ragged_seqs,
-            capture=config.resolve_cuda_graphs(self.device))
+            ragged_blk=self._ragged_blk, capture=config.resolve_cuda_graphs(self.device))
         self._req_counter = itertools.count()
         self._seed_counter = itertools.count()
         self._eos_ids = set(self.tokenizer.eos_token_ids)
@@ -274,22 +293,54 @@ class Engine:
         return sorted({min(max(next_power_of_2(n), sched.min_decode_bucket), top)
                        for n in range(1, sched.max_num_seqs + 1)})
 
-    def _auto_num_blocks(self) -> int:
+    def _step_keys(self, sched: SchedulerConfig, max_len: int) -> list[tuple]:
+        """Every executable key (``runtime/graphs.py``) a dispatch can take
+        under ``sched`` with sequences of at most ``max_len`` tokens: the
+        decode ladder in both modes; with mixed batching the flat-token
+        ladder (``ragged_block`` doubling up to the budget's power of
+        two); else every (batch, length) pair a batched prefill pads to
+        and every chunk length.  The scheduler's prefill admission charges
+        each picked prompt at the batch's bucket, so a batch of n prompts
+        at length L, padded to B = next_power_of_2(n), has n * L within
+        the token budget (or n = 1)."""
+        keys = [("decode", B, m) for B in self._decode_ladder()
+                for m in transformer.DECODE_MODES]
+        if sched.mixed_batching:
+            T = self._ragged_blk
+            while T <= next_power_of_2(sched.mixed_token_budget):
+                keys.append(("mixed", T))
+                T *= 2
+            return keys
+        lo, chunk = sched.min_prefill_bucket, sched.prefill_chunk_size
+        top = chunk if sched.allow_chunked_prefill else max_len
+        lengths = {max(next_power_of_2(n), lo) for n in range(1, top + 1)}
+        seqs = next_power_of_2(min(sched.max_prefill_seqs, sched.max_num_seqs))
+        keys += [("prefill", B, L) for L in sorted(lengths)
+                 for B in (1 << i for i in range(seqs.bit_length()))
+                 if B == 1 or (B // 2 + 1) * L <= sched.max_prefill_tokens]
+        if sched.allow_chunked_prefill:
+            keys += [("chunk", C) for C in sorted(
+                {min(chunk, max(next_power_of_2(n), lo)) for n in range(1, max_len + 1)})]
+        return keys
+
+    def _auto_num_blocks(self, sched: SchedulerConfig) -> int:
         """Size the cache to the memory the weights left free (the vLLM
         ``gpu_memory_utilization`` analog): ``torch.cuda.mem_get_info`` on
-        the card, less the most the decode graphs of every bucket and mode
-        can reserve (``graphs.pool_bytes_bound``: the cache is made
-        before them, since they write into it); a 1 GiB budget less the
-        weights on the CPU."""
+        the card, less the most the graphs of every step the engine can
+        dispatch can reserve (``graphs.pool_bytes_bound``: the cache is
+        made before them, since they write into it); a 1 GiB budget less
+        the weights on the CPU."""
         if self.device.type == "cuda":
             free, _total = torch.cuda.mem_get_info(self.device)
             if self.config.resolve_cuda_graphs(self.device):
-                free -= pool_bytes_bound(self.model_cfg, self._decode_ladder())
+                max_len = min(self.cache_cfg.max_model_len,
+                              self.model_cfg.max_position_embeddings)
+                free -= pool_bytes_bound(self.model_cfg, self._step_keys(sched, max_len),
+                                         self._ragged_seqs)
         else:
             free = (1 << 30) - param_nbytes(self.params)
         blocks = num_blocks_for_budget(self.model_cfg, self.cache_cfg, free)
         # past what the scheduler can ever address, memory is waste
-        sched = self.config.scheduler
         addressable = sched.max_num_seqs * (self.cache_cfg.max_blocks_per_seq + 1)
         return min(blocks, addressable, 1 << 17)
 
@@ -363,6 +414,13 @@ class Engine:
             seed = (params.seed if params.seed is not None
                     else self.config.seed * 1_000_003 + next(self._seed_counter))
             self._salts[request_id] = seed & 0xFFFFFFFF
+        if self._adaptive_window and (self.scheduler.running
+                                      or self._pending_window is not None):
+            # an arrival into a BUSY engine predicts more: the next windows
+            # shrink so arrivals stop waiting out a full one.  Stamped only
+            # once the scheduler accepted the request: a flood rejected by
+            # a full queue must not pin the streams at min_multi_step.
+            self._last_busy_arrival = self.clock.monotonic()
         self.stats.prompt_tokens += len(prompt_token_ids)
         return request_id
 
@@ -433,24 +491,21 @@ class Engine:
         reqs = batch.requests
         L = batch.padded_len
         B = next_power_of_2(len(reqs))
-        tokens = np.zeros((B, L), np.int32)
-        slot_ids = np.full((B, L), PAD_SLOT, np.int32)
-        prompt_lens = np.ones((B,), np.int32)
+        exe = self.graphs.get("prefill", B, L)
+        st = exe.stage()
         for i, req in enumerate(reqs):
             ids = self._prefill_tokens(req)
             shared, _cached = self.block_manager.lookup_prefix(ids)
             self.block_manager.allocate(req.request_id, ids, shared_blocks=shared)
-            tokens[i, :len(ids)] = ids
-            prompt_lens[i] = len(ids)
-            slot_ids[i, :len(ids)] = self._token_slots(req.request_id, 0, len(ids))
-        logits, self.kv_cache = transformer.prefill(
-            self.params, self.model_cfg, self._tensor(tokens),
-            self._tensor(prompt_lens), self._tensor(slot_ids), self.kv_cache,
-            attn_impl=self.attn_impl)
+            st.tokens[i, :len(ids)] = ids
+            st.prompt_lens[i] = len(ids)
+            st.slot_ids[i, :len(ids)] = self._token_slots(req.request_id, 0, len(ids))
+        exe.load(st)
+        exe.run()
         self.scheduler.mark_running(reqs)
         self.stats.num_prefill_steps += 1
-        self._note_step_tokens(int(prompt_lens[:len(reqs)].sum()), B * L)
-        new_tokens = self._sample(logits, reqs, B)
+        self._note_step_tokens(int(st.prompt_lens[:len(reqs)].sum()), B * L)
+        new_tokens = self._sample(exe.logits, reqs, B)
         self._first_token(reqs)
         return [self._emit_one(r, int(t), from_prefill=True)
                 for r, t in zip(reqs, new_tokens)]
@@ -501,18 +556,15 @@ class Engine:
             req.num_prefilled = cached
         done = req.num_prefilled
         n = len(ids[done:done + C])
-        tokens = np.zeros((1, C), np.int32)
-        tokens[0, :n] = ids[done:done + n]
-        slot_ids = np.full((1, C), PAD_SLOT, np.int32)
+        exe = self.graphs.get("chunk", C)
+        st = exe.stage()
+        st.tokens[0, :n] = ids[done:done + n]
         bt = self.block_manager.block_table(req.request_id)
-        slot_ids[0, :n] = self._token_slots(req.request_id, done, n, block_table=bt)
-        block_tables = np.zeros((1, self.cache_cfg.max_blocks_per_seq), np.int32)
-        block_tables[0, :len(bt)] = bt
-        logits, self.kv_cache = transformer.prefill_chunk(
-            self.params, self.model_cfg, self._tensor(tokens),
-            self._tensor(np.asarray([done], np.int32)),
-            self._tensor(np.asarray([n], np.int32)), self._tensor(slot_ids),
-            self._tensor(block_tables), self.kv_cache, attn_impl=self.attn_impl)
+        st.slot_ids[0, :n] = self._token_slots(req.request_id, done, n, block_table=bt)
+        st.block_tables[0, :len(bt)] = bt
+        st.ctx_lens[0], st.chunk_lens[0] = done, n
+        exe.load(st)
+        exe.run()
         req.num_prefilled = done + n
         self.stats.num_prefill_steps += 1
         self.stats.num_chunk_steps += 1
@@ -521,7 +573,7 @@ class Engine:
             self.scheduler.waiting.appendleft(req)      # more chunks to go
             return []
         self.scheduler.mark_running([req])
-        new_tokens = self._sample(logits, [req], 1)
+        new_tokens = self._sample(exe.logits, [req], 1)
         self._first_token([req])
         return [self._emit_one(req, int(new_tokens[0]), from_prefill=True)]
 
@@ -566,45 +618,33 @@ class Engine:
         starts, T, meta, blk_seq = ragged_layout(
             n_dec, [c[3] for c in comp + cont], blk)
         B = self._ragged_seqs
-        mb = self.cache_cfg.max_blocks_per_seq
-        tokens = np.zeros((T,), np.int32)
-        positions = np.zeros((T,), np.int32)
-        slot_ids = np.full((T,), PAD_SLOT, np.int32)
-        row_seq = np.zeros((T,), np.int32)
-        kv_lens = np.zeros((B,), np.int32)
-        q_starts = np.full((B,), T, np.int32)
-        q_lens = np.zeros((B,), np.int32)
-        last_rows = np.zeros((B,), np.int32)
-        block_tables = np.zeros((B, mb), np.int32)
+        exe = self.graphs.get("mixed", T)
+        st = exe.stage()
+        dec = np.arange(n_dec)
         for i, r in enumerate(decode_reqs):
-            nt = r.num_tokens
-            tokens[i] = r.output_token_ids[-1]
-            positions[i] = nt - 1
-            slot_ids[i] = slots[i]
-            row_seq[i] = i
-            kv_lens[i] = nt
-            q_starts[i] = i
-            q_lens[i] = 1
-            last_rows[i] = i
-        bm.fill_block_tables([r.request_id for r in decode_reqs], block_tables)
+            st.tokens[i] = r.output_token_ids[-1]
+            st.kv_lens[i] = r.num_tokens
+        st.positions[:n_dec] = st.kv_lens[:n_dec] - 1
+        st.slot_ids[:n_dec] = slots
+        st.row_seq[:n_dec] = st.q_starts[:n_dec] = st.last_rows[:n_dec] = dec
+        st.q_lens[:n_dec] = 1
+        bm.fill_block_tables([r.request_id for r in decode_reqs], st.block_tables)
         for si, ((req, ids, done, take), start) in enumerate(
                 zip(comp + cont, starts), start=n_dec):
             rows = slice(start, start + take)
-            tokens[rows] = ids[done:done + take]
-            positions[rows] = done + np.arange(take)
+            st.tokens[rows] = ids[done:done + take]
+            st.positions[rows] = done + np.arange(take)
             bt = bm.block_table(req.request_id)
-            slot_ids[rows] = self._token_slots(req.request_id, done, take, block_table=bt)
-            row_seq[rows] = si
-            kv_lens[si] = done + take
-            q_starts[si] = start
-            q_lens[si] = take
-            last_rows[si] = start + take - 1
-            block_tables[si, :len(bt)] = bt
-        logits, self.kv_cache = transformer.forward_ragged(
-            self.params, self.model_cfg, *map(self._tensor, (
-                tokens, positions, slot_ids, row_seq, block_tables, kv_lens,
-                q_starts, q_lens, meta, blk_seq, last_rows)),
-            self.kv_cache, ragged_blk=blk, attn_impl=self.attn_impl)
+            st.slot_ids[rows] = self._token_slots(req.request_id, done, take, block_table=bt)
+            st.row_seq[rows] = si
+            st.kv_lens[si] = done + take
+            st.q_starts[si] = start
+            st.q_lens[si] = take
+            st.last_rows[si] = start + take - 1
+            st.block_tables[si, :len(bt)] = bt
+        st.meta[:], st.blk_seq[:] = meta, blk_seq
+        exe.load(st)
+        exe.run()
         self.stats.num_mixed_steps += 1
         if decode_reqs:
             self.stats.num_decode_steps += 1
@@ -622,7 +662,7 @@ class Engine:
         emit = decode_reqs + comp_reqs
         if not emit:
             return outputs
-        new_tokens = self._sample(logits, emit, B)
+        new_tokens = self._sample(exe.logits, emit, B)
         self._first_token(comp_reqs)
         return (outputs
                 + [self._emit_one(r, int(t)) for r, t in zip(decode_reqs, new_tokens)]
@@ -688,7 +728,7 @@ class Engine:
         their input token is that dispatch's last, selected on the card."""
         B = self.scheduler.decode_bucket(len(reqs))
         mode = "greedy" if all(r.params.greedy for r in reqs) else "temperature"
-        exe = self.graphs.get(B, mode)
+        exe = self.graphs.get("decode", B, mode)
         st = exe.stage()
         for i, r in enumerate(reqs):
             pi = chain_idx.get(r.request_id)
@@ -760,15 +800,27 @@ class Engine:
         return self.block_manager.reserve_batch(
             [r.request_id for r in reqs], [r.num_tokens - 1 + window for r in reqs])
 
+    def _window_steps(self) -> int:
+        """The next window's size: ``multi_step`` in steady state,
+        ``min_multi_step`` while arrivals land in a busy engine
+        (``EngineConfig.adaptive_multi_step``), so a new request waits out
+        one short window.  The decode executable replays one iteration a
+        token, so a short window needs no executable of its own."""
+        if self._adaptive_window and (
+                self.clock.monotonic() - self._last_busy_arrival
+                < self.config.adaptive_window_hold_s):
+            return self._min_multi_step
+        return self._multi_step
+
     def _run_decode_multi(self, batch: ScheduledBatch) -> list[RequestOutput]:
-        """A ``multi_step``-token decode window in one dispatch: sampled
-        tokens feed the next iteration on the card; the host reads the
-        (B, S) window once.  Tokens past a request's stop point (EOS,
+        """A decode window of ``_window_steps()`` tokens in one dispatch:
+        sampled tokens feed the next iteration on the card; the host reads
+        the (B, S) window once.  Tokens past a request's stop point (EOS,
         max_tokens, stop string mid-window) are dropped at the flush.
         With ``pipeline_decode`` the window stays in flight and the
         previous one is flushed after this one is dispatched.  Falls back
         to a single step when the cache cannot reserve the window."""
-        S = self._multi_step
+        S = self._window_steps()
         outputs = self._flush_pending()
         p = self._pending_window
         reqs = [r for r in batch.requests if not r.finished]
@@ -932,36 +984,49 @@ class Engine:
     # ------------------------------------------------------------------
 
     def warmup(self, decode_buckets: Optional[Sequence[int]] = None,
-               prefill_buckets: Sequence = (), chunk_buckets: Sequence[int] = (),
-               mixed_buckets: Sequence[int] = ()) -> None:
-        """Make the decode executables before serving, as the JAX engine's
-        ``warmup`` compiles its executables: every bucket of
-        ``decode_buckets`` (default: the ladder from ``min_decode_bucket``
-        to the bucket ``max_num_seqs`` pads to) in both sampling modes,
-        largest first; on the card each one is a captured CUDA graph.
-        Prefill, chunk and mixed steps have no graph yet: each bucket given
-        (a prefill length L or a (batch, L) pair, a chunk length, a flat
-        mixed-step length) gets one eager dispatch of padding rows, which
-        write nothing.  A decode bucket not warmed is made on first use."""
-        self.graphs.warmup(self._decode_ladder() if decode_buckets is None
-                           else decode_buckets)
-        cfg, mb = self.model_cfg, self.cache_cfg.max_blocks_per_seq
-        zeros = lambda *shape: self._tensor(np.zeros(shape, np.int32))    # noqa: E731
-        pad = lambda *shape: self._tensor(np.full(shape, PAD_SLOT, np.int32))  # noqa: E731
-        for bucket in prefill_buckets:
-            B, L = bucket if isinstance(bucket, tuple) else (1, bucket)
-            transformer.prefill(self.params, cfg, zeros(B, L), zeros(B) + 1, pad(B, L),
-                                self.kv_cache, attn_impl=self.attn_impl)
-        for C in chunk_buckets:
-            transformer.prefill_chunk(self.params, cfg, zeros(1, C), zeros(1), zeros(1),
-                                      pad(1, C), zeros(1, mb), self.kv_cache,
-                                      attn_impl=self.attn_impl)
-        blk, B = self._ragged_blk, self._ragged_seqs
-        for T in mixed_buckets:
-            transformer.forward_ragged(
-                self.params, cfg, zeros(T), zeros(T), pad(T), zeros(T), zeros(B, mb),
-                zeros(B), zeros(B) + T, zeros(B), zeros(2), zeros(T // blk) - 1, zeros(B),
-                self.kv_cache, ragged_blk=blk, attn_impl=self.attn_impl)
+               prefill_buckets: Optional[Sequence] = None,
+               chunk_buckets: Optional[Sequence[int]] = None,
+               mixed_buckets: Optional[Sequence[int]] = None) -> None:
+        """Make the executables before serving, with the JAX engine's
+        ``warmup`` defaults; on the card each one is a captured CUDA graph,
+        largest transient first.  ``None`` derives a kind's buckets; an
+        empty list warms none of it.
+
+        - decode: ``decode_buckets`` in both sampling modes, by default
+          the whole ladder (``min_decode_bucket`` to the bucket
+          ``max_num_seqs`` pads to; the JAX engine warms only
+          ``min_decode_bucket`` unless mixed batching is on);
+        - prefill: each entry a padded length L (at batch 1) or a (batch,
+          L) pair, by default ``min_prefill_bucket`` at batch 1;
+        - chunk: ``chunk_buckets``, plus the full ``prefill_chunk_size``
+          when a sequence can outgrow it; none when chunked prefill is off;
+        - mixed batching: ``mixed_buckets`` rounded up to the ragged
+          block, by default the flat-token ladder (the block, doubling up
+          to the budget's power of two); prefill and chunk steps never run
+          then, so none is warmed.
+
+        Without capture each executable runs once on padding rows, which
+        write nothing.  An executable not warmed is made on first use."""
+        sched = self.scheduler.cfg
+        prefill = ([sched.min_prefill_bucket] if prefill_buckets is None
+                   else list(prefill_buckets))
+        chunks = set(chunk_buckets or ()) if sched.allow_chunked_prefill else set()
+        if (sched.allow_chunked_prefill and not sched.mixed_batching
+                and self.max_seq_len > sched.prefill_chunk_size):
+            chunks.add(sched.prefill_chunk_size)
+        blk = self._ragged_blk
+        if sched.mixed_batching:
+            if mixed_buckets is None:
+                mixed_buckets = [k[1] for k in self._step_keys(sched, self.max_seq_len)
+                                 if k[0] == "mixed"]
+            prefill, chunks = [], set()
+        keys = [("decode", B, m)
+                for B in (self._decode_ladder() if decode_buckets is None else decode_buckets)
+                for m in transformer.DECODE_MODES]
+        keys += [("prefill", *(b if isinstance(b, tuple) else (1, b))) for b in prefill]
+        keys += [("chunk", C) for C in chunks]
+        keys += [("mixed", -(-T // blk) * blk) for T in mixed_buckets or ()]
+        self.graphs.warmup(keys)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 

@@ -1,27 +1,44 @@
-"""Decode executables: the port of the JAX engine's per-bucket decode
-executables and the decode rungs of its warmup ladder
-(``tpuserve/runtime/engine.py``, ``_warmup``).
+"""Step executables: the port of the JAX engine's per-bucket executables
+and its warmup ladder (``tpuserve/runtime/engine.py``: ``_exec_prefill``,
+``_exec_prefill_chunk``, ``_exec_forward_ragged``, the decode executables
+and ``_warmup``).
 
-The JAX engine compiles ``decode_multi`` once per (padded batch, sampling
-mode, steps) and runs that executable for every dispatch of its shape.  On
-the card the counterpart is a captured CUDA graph.  A
-:class:`DecodeExecutable` owns the static buffers of one (padded batch B,
-mode) and a graph of ONE decode iteration (``transformer.decode_state_step``)
-over them; a fused window replays it S times, a single step once.  A
+The JAX engine compiles each kind of step once per shape and runs that
+executable for every dispatch of the shape.  On the card the counterpart
+is a captured CUDA graph.  An :class:`Executable` owns the static buffers
+of one key (its step's integer inputs packed in one int32 tensor) and a
+graph of the step over them:
+
+- ``("prefill", B, L)``: ``transformer.prefill`` of a padded (B, L) batch;
+- ``("chunk", C)``: ``transformer.prefill_chunk`` of one sequence's
+  C-row chunk against the cache;
+- ``("mixed", T)``: ``transformer.forward_ragged`` of a T-row flat stream,
+  descriptors for the engine's fixed number of sequences;
+- ``("decode", B, mode)``: ONE decode iteration
+  (``transformer.decode_state_step``, a :class:`DecodeExecutable`); a fused
+  window replays it S times, a single step once.
+
+Every KV write in them drops padding on the device
+(``attention.pad_drop``), so no step reads anything back to the host.  A
 dispatch fills the buffers with one host-to-device copy from pinned
-staging and, for rows that continue an in-flight dispatch, one select of
-that dispatch's last tokens on the device (the JAX ``_select_tokens``);
-its (B, S) tokens come back with one device-to-host copy into pinned
-memory behind an event, read when the engine flushes the dispatch.
+staging (:class:`Staging`); the step's (B, V) logits are the graph's
+output, overwritten by the executable's next replay, so the engine samples
+from them before it dispatches the executable again.  A decode dispatch
+also selects, for rows that continue an in-flight dispatch, that
+dispatch's last tokens on the device (the JAX ``_select_tokens``), and its
+(B, S) tokens come back with one device-to-host copy into pinned memory
+behind an event, read when the engine flushes the dispatch.
 
 An engine's graphs share one memory pool and one capture stream, largest
-bucket first.  Before a capture the step runs once on the capture stream,
-so the cuBLAS handles, the kernel libraries and the split-K decode
-workspace (made for the largest bucket, outside any capture, and held here
-as long as the graphs) all exist first.  A replay never calls the kernel
-wrappers, so each executable records the launches its capture made and
-adds them to the wrappers' ``LAUNCHES`` counts on every replay.  A capture
-that fails raises: the engine never runs a bucket eagerly in its place.
+transient first at warmup.  Before a capture the step runs once on the
+capture stream on padding rows, which write nothing, so the cuBLAS
+handles, the kernel libraries and the split-K workspace (made once, before
+the first capture, for the largest need of every decode and mixed bucket,
+and held here as long as the graphs) all exist first.  A replay never
+calls the kernel wrappers, so each executable records the launches its
+capture made and adds them to the wrappers' ``LAUNCHES`` counts on every
+replay; the padding run and the capture count nothing.  A capture that
+fails raises: the engine never runs a bucket eagerly in its place.
 
 On the CPU, and on the card with ``capture=False``, there is no graph: the
 same object runs the step eagerly on the same buffers.
@@ -29,7 +46,9 @@ same object runs the step eagerly on the same buffers.
 
 from __future__ import annotations
 
+import collections
 import gc
+import math
 import time
 import weakref
 
@@ -38,28 +57,14 @@ import torch
 
 from tpuserve_torch.models import transformer
 from tpuserve_torch.ops import flash_prefill, paged_decode, paged_window, ragged_paged
+from tpuserve_torch.ops.attention import PAD_SLOT
 
 KERNEL_MODULES = (flash_prefill, paged_decode, paged_window, ragged_paged)
-# per-row int32 fields of the packed state, after the block tables
-_FIELDS = ("tokens", "positions", "seq_lens", "active", "salt", "step",
-           "temperature", "use_host", "gather")
+KINDS = ("prefill", "chunk", "mixed", "decode")
 
 
 def _name(mod) -> str:
     return mod.__name__.rsplit(".", 1)[-1]
-
-
-def pool_bytes_bound(cfg, buckets) -> int:
-    """The most device memory the decode graphs of one engine can reserve,
-    from shapes: each executable of ``buckets`` in both modes keeps its
-    (B, V) float32 logits; one step's transients stay under eight (B, V)
-    int64 tensors of the largest bucket (the keyed noise's); and 256 MiB
-    for the layer activations, the capture stream's cuBLAS workspace and
-    the allocator's rounding.  The engine leaves this much free when it
-    sizes its cache to the card."""
-    V = cfg.vocab_size
-    return (len(transformer.DECODE_MODES) * sum(buckets) * V * 4
-            + 8 * max(buckets) * V * 8 + (256 << 20))
 
 
 def _launch_counts() -> dict:
@@ -67,68 +72,194 @@ def _launch_counts() -> dict:
     return {_name(m): m.LAUNCHES for m in KERNEL_MODULES}
 
 
+def layout(key, max_blocks: int, seqs: int, blk: int) -> tuple:
+    """The packed inputs of ``key``'s step: (name, shape, padding value[,
+    host dtype]) a field, in buffer order.  The padding values make a step
+    that computes nothing and writes nothing; ``seqs`` is the mixed
+    descriptors' width and ``blk`` the ragged block."""
+    kind, *shape = key
+    MB = max_blocks
+    if kind == "prefill":
+        B, L = shape
+        return (("tokens", (B, L), 0), ("slot_ids", (B, L), PAD_SLOT),
+                ("prompt_lens", (B,), 1))
+    if kind == "chunk":
+        (C,) = shape
+        return (("tokens", (1, C), 0), ("slot_ids", (1, C), PAD_SLOT),
+                ("ctx_lens", (1,), 0), ("chunk_lens", (1,), 0),
+                ("block_tables", (1, MB), 0))
+    if kind == "mixed":
+        (T,), B = shape, seqs
+        return (("tokens", (T,), 0), ("positions", (T,), 0), ("slot_ids", (T,), PAD_SLOT),
+                ("row_seq", (T,), 0), ("block_tables", (B, MB), 0), ("kv_lens", (B,), 0),
+                ("q_starts", (B,), T), ("q_lens", (B,), 0), ("meta", (2,), 0),
+                ("blk_seq", (T // blk,), -1), ("last_rows", (B,), 0))
+    if kind == "decode":
+        B = shape[0]
+        # salt and step hold uint32 bit patterns; padding rows: length 1,
+        # inactive, greedy, token from the host
+        return (("block_tables", (B, MB), 0), ("tokens", (B,), 0), ("positions", (B,), 0),
+                ("seq_lens", (B,), 1), ("active", (B,), 0), ("salt", (B,), 0, np.uint32),
+                ("step", (B,), 0, np.uint32), ("temperature", (B,), 0, np.float32),
+                ("use_host", (B,), 1), ("gather", (B,), 0), ("col", (1,), 0))
+    raise ValueError(f"unknown step kind {kind!r} (not in {KINDS})")
+
+
+def _rows(key) -> int:
+    """Token rows one step of ``key`` computes."""
+    kind, *shape = key
+    return shape[0] * shape[1] if kind == "prefill" else shape[0]
+
+
+def _out_rows(key, seqs: int) -> int:
+    """Rows of the step's (rows, V) logits."""
+    return {"prefill": key[1], "chunk": 1, "mixed": seqs}.get(key[0], key[1])
+
+
+def transient_bytes(cfg, key, seqs: int) -> int:
+    """An upper estimate of the memory one step of ``key`` holds beyond its
+    output, from shapes: per token row, the layer's activations with
+    float32 norm, qk-norm and RoPE temporaries (three copies of the
+    hidden, q/k/v and MLP widths, four bytes each); per output row, the
+    unembedding's bf16 and float32 logits; for decode, eight (B, V) int64
+    tensors (the keyed noise)."""
+    V = cfg.vocab_size
+    if key[0] == "decode":
+        return 8 * key[1] * V * 8
+    width = cfg.hidden_size + cfg.q_size + 2 * cfg.kv_size + cfg.intermediate_size
+    return _rows(key) * 3 * 4 * width + _out_rows(key, seqs) * V * 6
+
+
+def pool_bytes_bound(cfg, keys, seqs: int) -> int:
+    """The most device memory one engine's graphs can reserve, from
+    shapes: every executable of ``keys`` keeps its (rows, V) float32
+    logits; the largest step's transients (:func:`transient_bytes`) are
+    reused by every later capture in the pool, counted twice for the
+    allocator's splitting of them; and 256 MiB for the capture stream's
+    cuBLAS workspace and the allocator's rounding.  The engine leaves
+    this much free when it sizes its cache to the card."""
+    keys = list(keys)
+    if not keys:
+        return 0
+    V = cfg.vocab_size
+    logits = sum(_out_rows(k, seqs) for k in keys) * V * 4
+    return logits + 2 * max(transient_bytes(cfg, k, seqs) for k in keys) + (256 << 20)
+
+
 class Staging:
-    """One dispatch's packed inputs on the host, as numpy views of one
-    int32 tensor (pinned on the card, so its copy to the card is
-    asynchronous; the caching host allocator reuses it only after that
-    copy ran).  ``block_tables`` (B, max_blocks) first, then the per-row
-    fields of :data:`_FIELDS` (``temperature`` as float32, ``salt`` and
-    ``step`` as uint32), then ``col``.  Padding rows: length 1, inactive,
-    greedy, token from the host."""
+    """One dispatch's packed inputs on the host: a numpy view of one int32
+    tensor a field, by name, holding the padding values (pinned on the
+    card, so its copy to the card is asynchronous; the caching host
+    allocator reuses it only after that copy ran)."""
 
-    def __init__(self, B: int, max_blocks: int, pinned: bool):
-        n = B * max_blocks + len(_FIELDS) * B + 1
-        self.tensor = torch.zeros(n, dtype=torch.int32, pin_memory=pinned)
+    def __init__(self, fields: tuple, pinned: bool):
+        n = sum(math.prod(f[1]) for f in fields)
+        self.tensor = torch.empty(n, dtype=torch.int32, pin_memory=pinned)
         a = self.tensor.numpy()
-        self.block_tables = a[:B * max_blocks].reshape(B, max_blocks)
-        off = B * max_blocks
-        for name in _FIELDS:
-            setattr(self, name, a[off:off + B])
-            off += B
-        self.temperature = self.temperature.view(np.float32)
-        self.salt = self.salt.view(np.uint32)
-        self.step = self.step.view(np.uint32)
-        self.seq_lens[:] = 1
-        self.use_host[:] = 1
+        off = 0
+        for name, shape, fill, *dtype in fields:
+            size = math.prod(shape)
+            view = a[off:off + size]
+            view[:] = fill
+            setattr(self, name, view.view(*dtype).reshape(shape) if dtype
+                    else view.reshape(shape))
+            off += size
 
 
-class DecodeExecutable:
+def _prefill(o, v):
+    return transformer.prefill(o.params, o.cfg, v["tokens"], v["prompt_lens"], v["slot_ids"],
+                               o.kv_cache, attn_impl=o.attn_impl)[0]
+
+
+def _chunk(o, v):
+    return transformer.prefill_chunk(o.params, o.cfg, v["tokens"], v["ctx_lens"],
+                                     v["chunk_lens"], v["slot_ids"], v["block_tables"],
+                                     o.kv_cache, attn_impl=o.attn_impl)[0]
+
+
+def _mixed(o, v):
+    return transformer.forward_ragged(
+        o.params, o.cfg, v["tokens"], v["positions"], v["slot_ids"], v["row_seq"],
+        v["block_tables"], v["kv_lens"], v["q_starts"], v["q_lens"], v["meta"],
+        v["blk_seq"], v["last_rows"], o.kv_cache, ragged_blk=o.ragged_blk,
+        attn_impl=o.attn_impl)[0]
+
+
+_BODIES = {"prefill": _prefill, "chunk": _chunk, "mixed": _mixed}
+
+
+class Executable:
     """The static buffers and (on the card) the captured graph of one
-    (padded batch ``B``, ``mode``) decode iteration."""
+    prefill, chunk or mixed step (``key``); ``views`` names each field's
+    tensor in ``buf``."""
 
-    def __init__(self, owner: "DecodeGraphs", B: int, mode: str):
+    def __init__(self, owner: "StepGraphs", key: tuple):
         # a weak reference: the owner holds its executables, and a cycle
         # would outlive the engine until a garbage collection, which could
         # then destroy these graphs inside a later capture and invalidate it
         self.owner = weakref.proxy(owner)
-        self.B, self.mode = B, mode
-        dev, MB = owner.device, owner.max_blocks
-        self.buf = torch.zeros(B * MB + len(_FIELDS) * B + 1, dtype=torch.int32,
-                               device=dev)
-        field = {}
-        off = B * MB
-        for name in _FIELDS:
-            field[name] = self.buf[off:off + B]
-            off += B
-        self.use_host, self.gather = field["use_host"], field["gather"]
-        self.state = transformer.DecodeState(
-            tokens=field["tokens"], positions=field["positions"],
-            seq_lens=field["seq_lens"], active=field["active"], salt=field["salt"],
-            step=field["step"], temperature=field["temperature"].view(torch.float32),
-            block_tables=self.buf[:B * MB].view(B, MB),
-            out=torch.zeros((B, owner.steps), dtype=torch.int32, device=dev),
-            col=self.buf[off:off + 1])
+        self.key = key
+        self.fields = layout(key, owner.max_blocks, owner.max_batch, owner.ragged_blk)
+        self.buf = torch.zeros(sum(math.prod(f[1]) for f in self.fields), dtype=torch.int32,
+                               device=owner.device)
+        self.views, off = {}, 0
+        for name, shape, _fill, *dtype in self.fields:
+            size = math.prod(shape)
+            view = self.buf[off:off + size].view(shape)
+            self.views[name] = view.view(torch.float32) if dtype == [np.float32] else view
+            off += size
         self.graph = None
-        self.logits = None           # the last iteration's (B, V) logits
+        self.logits = None           # the last run's (rows, V) float32 logits
         self.launches: dict = {}     # kernel launches one replay makes
+
+    def step(self) -> torch.Tensor:
+        return _BODIES[self.key[0]](self.owner, self.views)
+
+    def stage(self) -> Staging:
+        return Staging(self.fields, self.owner.device.type == "cuda")
+
+    def load(self, staging: Staging) -> None:
+        self.buf.copy_(staging.tensor, non_blocking=True)
+
+    def pad_run(self) -> None:
+        """One step on padding rows, which compute and write nothing."""
+        self.load(self.stage())
+        self.step()
+
+    def run(self, steps: int = 1) -> None:
+        """``steps`` steps: graph replays on the card, else eager."""
+        if self.graph is None:
+            for _ in range(steps):
+                self.logits = self.step()
+            return
+        for _ in range(steps):
+            self.graph.replay()
+        for mod in KERNEL_MODULES:
+            mod.LAUNCHES += self.launches[_name(mod)] * steps
+        self.owner.replays[self.key[0]] += steps
+
+
+class DecodeExecutable(Executable):
+    """One (padded batch ``B``, ``mode``) decode iteration over a
+    :class:`transformer.DecodeState` made of the buffers, with a (B,
+    steps) output written one column an iteration."""
+
+    def __init__(self, owner: "StepGraphs", key: tuple):
+        super().__init__(owner, key)
+        _, self.B, self.mode = key
+        v = self.views
+        self.use_host, self.gather = v["use_host"], v["gather"]
+        self.state = transformer.DecodeState(
+            tokens=v["tokens"], positions=v["positions"], seq_lens=v["seq_lens"],
+            active=v["active"], salt=v["salt"], step=v["step"],
+            temperature=v["temperature"], block_tables=v["block_tables"],
+            out=torch.zeros((self.B, owner.steps), dtype=torch.int32, device=owner.device),
+            col=v["col"])
 
     def step(self) -> torch.Tensor:
         o = self.owner
         return transformer.decode_state_step(o.params, o.cfg, self.state, o.kv_cache,
                                              mode=self.mode, attn_impl=o.attn_impl)
-
-    def stage(self) -> Staging:
-        return Staging(self.B, self.owner.max_blocks, self.owner.device.type == "cuda")
 
     def load(self, staging: Staging, chain=None) -> None:
         """Copy ``staging`` into the buffers; ``chain`` = (executable,
@@ -139,18 +270,6 @@ class DecodeExecutable:
             prev, steps = chain
             last = prev.state.out[:, steps - 1][self.gather.long()]
             self.state.tokens.copy_(torch.where(self.use_host != 0, self.state.tokens, last))
-
-    def run(self, steps: int) -> None:
-        """``steps`` iterations: graph replays on the card, else eager."""
-        if self.graph is None:
-            for _ in range(steps):
-                self.logits = self.step()
-            return
-        for _ in range(steps):
-            self.graph.replay()
-        for mod in KERNEL_MODULES:
-            mod.LAUNCHES += self.launches[_name(mod)] * steps
-        self.owner.replays += steps
 
     def fetch(self, steps: int):
         """The first ``steps`` columns of the output, copied to the host
@@ -165,37 +284,43 @@ class DecodeExecutable:
         return host, event
 
 
-class DecodeGraphs:
-    """One engine's decode executables, keyed by (padded batch, mode), made
-    (and on the card captured) on first use or by :meth:`warmup`.
-    ``steps``: the widest dispatch (the engine's ``multi_step``);
-    ``max_batch``: the largest bucket, for which the decode workspace is
-    made."""
+class StepGraphs:
+    """One engine's executables of every step kind, keyed as the module
+    docstring says, made (and on the card captured) on first use or by
+    :meth:`warmup`.  ``steps``: the widest decode dispatch (the engine's
+    ``multi_step``); ``max_batch``: the largest decode bucket and the
+    mixed descriptors' width; ``ragged_blk``: the mixed layout's block."""
 
     def __init__(self, params: dict, cfg, kv_cache: list, *, device: torch.device,
                  attn_impl: str, max_blocks: int, steps: int, max_batch: int,
-                 capture: bool):
+                 capture: bool, ragged_blk: int | None = None):
         if capture and device.type != "cuda":
             raise ValueError("CUDA graphs need a CUDA device")
         self.params, self.cfg, self.kv_cache = params, cfg, kv_cache
         self.device, self.attn_impl = device, attn_impl
         self.max_blocks, self.steps, self.max_batch = max_blocks, steps, max_batch
+        self.ragged_blk = ragged_blk or ragged_paged.ragged_block(device)
         self.capture = capture
         self.executables: dict = {}
         self.pool = torch.cuda.graph_pool_handle() if capture else None
         self.stream = torch.cuda.Stream(device) if capture else None
         self.workspace = None        # held as long as the graphs
         self.capture_s = 0.0         # wall seconds spent capturing
-        self.replays = 0
+        self.replays = collections.Counter()      # by step kind
 
-    def get(self, B: int, mode: str) -> DecodeExecutable:
-        exe = self.executables.get((B, mode))
+    def get(self, *key) -> Executable:
+        exe = self.executables.get(key)
         if exe is None:
-            transformer.check_decode_mode(mode)
-            exe = DecodeExecutable(self, B, mode)
+            if key[0] == "decode":
+                transformer.check_decode_mode(key[2])
+                exe = DecodeExecutable(self, key)
+            elif key[0] in _BODIES:
+                exe = Executable(self, key)
+            else:
+                raise ValueError(f"unknown step kind {key[0]!r} (not in {KINDS})")
             if self.capture:
                 self._capture(exe)
-            self.executables[(B, mode)] = exe
+            self.executables[key] = exe
         return exe
 
     def pool_bytes(self) -> int:
@@ -206,44 +331,51 @@ class DecodeGraphs:
         return sum(seg["total_size"]
                    for seg in torch.cuda.memory_snapshot(mempool_id=self.pool))
 
-    def warmup(self, buckets, modes=transformer.DECODE_MODES) -> None:
-        """Make every (bucket, mode) executable, largest bucket first."""
-        for B in sorted(set(buckets), reverse=True):
-            for mode in modes:
-                self.get(B, mode)
+    def warmup(self, keys) -> None:
+        """Make every executable of ``keys``, the largest transient first,
+        so later captures reuse its memory in the pool.  Without capture
+        each runs once on padding rows, as a capture's first run does."""
+        for key in sorted(set(keys), key=lambda k: transient_bytes(self.cfg, k,
+                                                                  self.max_batch),
+                          reverse=True):
+            exe = self.get(*key)
+            if exe.graph is None:
+                exe.pad_run()
 
-    def _decode_workspace(self, B: int):
-        """The capture stream's split-K workspace, made once for the
-        largest bucket; checks that it holds bucket ``B``'s partitions,
-        which depend on the bucket and the cache's shape alone."""
+    def _workspace_key(self):
         k = self.kv_cache[0]["k"]
-        _, page, Hkv, D = k.shape
-        sms = paged_decode.num_sms(k.device)
+        return k.device, self.stream.cuda_stream
 
-        def size(n):
-            return paged_decode.decode_workspace_size(n, self.cfg.num_heads, Hkv, D, page,
-                                                      self.max_blocks, sms)
-        if self.workspace is None:
-            # keyed as the wrapper keys it: the cache's device (with its
-            # index) and the capture stream
-            self.workspace = paged_decode.workspace(k.device, self.stream.cuda_stream,
-                                                    *size(max(self.max_batch, B)))
-        need = size(B)
-        if self.workspace[0].numel() < need[0] or self.workspace[1].numel() < need[1]:
-            raise RuntimeError(f"decode workspace too small for bucket {B}: {need}")
+    def _make_workspace(self) -> None:
+        """The capture stream's split-K workspace, made once before the
+        first capture for the most any decode bucket (at most
+        ``max_batch``) or mixed step (``max_batch`` descriptors) can
+        need: ``ragged_decode_blocks`` is that most, over every decode-row
+        count up to its argument.  Graphs bake its address in, so it must
+        never grow afterwards."""
+        if self.workspace is not None:
+            return
+        _, page, Hkv, D = self.kv_cache[0]["k"].shape
+        blocks = paged_decode.ragged_decode_blocks(
+            self.max_batch, Hkv, self.max_blocks, page, paged_decode.num_sms(self.device))
+        self.workspace = paged_decode.workspace(
+            *self._workspace_key(), blocks * paged_decode.split_stride(self.cfg.num_heads // Hkv, D),
+            self.max_batch * Hkv)
 
-    def _capture(self, exe: DecodeExecutable) -> None:
+    def _capture(self, exe: Executable) -> None:
         t0 = time.perf_counter()
         if self.attn_impl == "cuda":
-            self._decode_workspace(exe.B)
+            self._make_workspace()
+        before = _launch_counts()
         main = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(main)
         with torch.cuda.stream(self.stream):
-            # every row padding: the KV writes leave the cache as it was
-            exe.buf.zero_()
-            exe.step()
+            exe.pad_run()
         main.wait_stream(self.stream)
-        before = _launch_counts()
+        if self.workspace is not None and paged_decode.workspace(
+                *self._workspace_key(), 0, 0)[0] is not self.workspace[0]:
+            raise RuntimeError(f"{exe.key}: the split-K workspace grew past its size")
+        mid = _launch_counts()
         graph = torch.cuda.CUDAGraph()
         # no garbage collection inside the capture: a finalizer that frees
         # CUDA objects (another engine's graphs, pinned memory) there would
@@ -257,9 +389,10 @@ class DecodeGraphs:
             if collect:
                 gc.enable()
         after = _launch_counts()
-        # the capture recorded these launches; the replays make them
-        exe.launches = {name: after[name] - before[name] for name in after}
+        # the capture recorded these launches; the replays make them.  The
+        # padding run and the capture serve no request: they count nothing
+        exe.launches = {name: after[name] - mid[name] for name in after}
         for mod in KERNEL_MODULES:
-            mod.LAUNCHES -= exe.launches[_name(mod)]
+            mod.LAUNCHES -= after[_name(mod)] - before[_name(mod)]
         exe.graph, exe.logits = graph, logits
         self.capture_s += time.perf_counter() - t0
