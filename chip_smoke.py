@@ -25,7 +25,8 @@ non-zero:
              time the card could take (``bound_ms``) and, where one PyTorch
              call computes the same function, that call as a yardstick only
              (SDPA over K/V gathered beforehand for paged decode and
-             window).  The flash, window and ragged headlines also carry a
+             window, and over the flat stream's K/V for ragged paged).  The
+             flash, window and ragged headlines also carry a
              planted fault (a K/V tile's V zeroed) that the comparison must
              reject.
 3. identity  Qwen3-0.6B at full width, 2 layers, float32, no TF32: engines
@@ -83,7 +84,28 @@ non-zero:
              kernel's launches must be the layers times its steps, the
              ragged kernel's the layers times the mixed steps.  The default
              engine, then the eager engine, as in the chunked phase.
-8. profile   where the time goes, under torch.profiler, after every
+8. server    the top of the main path, full depth, bf16: the main phase's
+             seed-0 weights written as an HF checkpoint (two bf16 shards,
+             an index, no lm_head) and loaded back with
+             ``load_hf_checkpoint``, bit-equal, with its GB/s; then
+             ``OpenAIServer`` over ``Engine(checkpoint_dir=...)`` (the
+             CLI's cache defaults), warmed, on a free port: (a) four greedy
+             completions of 128-1,024-token prompts one at a time, two
+             plain and two streamed, each equal token for token to a twin
+             engine's ``generate`` of it alone (the same EngineConfig, the
+             loaded weights); (b) a prefix hit of (a)'s 1,024-token prompt
+             (the chunk route), then eight concurrent streams and a chat
+             request: every stream complete and well formed, client-side
+             TTFT and decode tok/s beside the twin's for the same prompts,
+             and the share of streams equal to the twin's (a reading:
+             concurrent arrivals batch differently); (c) a top_p request's
+             400 naming A6, /v1/models, and /metrics counting the tokens
+             served; (d) the kernels' launches, reset before (a), against
+             the engine's steps.  Then ``python -m tpuserve_torch.server``
+             on the checkpoint as a subprocess: one streamed completion
+             equal to (a)'s, then SIGTERM, which must end it with code 0
+             within its drain timeout.
+9. profile   where the time goes, under torch.profiler, after every
              counted run (a profiler run slows the launches that follow
              it): one prefill and one decode window of the main path, one
              steady pipelined window alone (the paged decode kernel must
@@ -114,7 +136,8 @@ import time
 
 import numpy as np
 
-PHASES = ("build", "kernels", "identity", "main", "graphs", "chunked", "mixed", "profile")
+PHASES = ("build", "kernels", "identity", "main", "graphs", "chunked", "mixed", "server",
+          "profile")
 # Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA's data
 # sheet): bf16 tensor cores, float32 CUDA cores, HBM.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -544,7 +567,32 @@ def ragged_case(dtype: str, dec_lens, chunks, blk: int, Hq=16, Hkv=8, D=128, pag
         res["flops"] = 4 * Hq * D * pairs
         res["bound_ms"], res["bound_by"] = bound(
             res["flops"], io + 2 * keys * row + nbytes(bt, *desc), dtype)
-        res["library_ms"] = None          # no one PyTorch call computes it
+        # yardstick only: one SDPA call over the K/V of every sequence in
+        # the stream, gathered into one flat key range beforehand (not
+        # timed), with a boolean (T x keys) mask: each row sees its own
+        # sequence's keys up to its position (padding rows: key 0 alone)
+        import torch.nn.functional as F
+        kd, vd = attention._gather_pages(kc, vc, bt, ks, vs, tdt)
+        kd, vd = (torch.cat([x[s_, :kv[s_]] for s_ in range(B)]).nan_to_num()
+                  .repeat_interleave(Hq // Hkv, dim=1).transpose(0, 1)[None].contiguous()
+                  for x in (kd, vd))
+        key_seq = torch.cat([torch.full((kv[s_],), s_) for s_ in range(B)]).cuda()
+        key_pos = torch.cat([torch.arange(kv[s_]) for s_ in range(B)]).cuda()
+        row_seq = torch.full((T,), -1, dtype=torch.long)
+        row_pos = torch.zeros(T, dtype=torch.long)
+        for s_ in range(B):
+            rows = slice(q_starts[s_], q_starts[s_] + q_lens[s_])
+            row_seq[rows] = s_
+            row_pos[rows] = kv[s_] - q_lens[s_] + torch.arange(q_lens[s_])
+        row_seq, row_pos = row_seq.cuda(), row_pos.cuda()
+        mask = (row_seq[:, None] == key_seq[None]) & (key_pos[None] <= row_pos[:, None])
+        if window is not None:
+            mask &= key_pos[None] > row_pos[:, None] - window
+        mask[row_seq < 0, 0] = True
+        qd = q.transpose(0, 1)[None]
+        res["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qd, kd, vd, attn_mask=mask[None, None], scale=scale), iters=50, warmup=5,
+            cold=True)
     return res
 
 
@@ -1589,6 +1637,426 @@ def serve_mixed(eng, early, late) -> dict:
 
 
 # --------------------------------------------------------------------------
+# server phase
+
+# the CLI's cache defaults (python -m tpuserve_torch.server), given to the
+# in-process server, its twin and the CLI alike: split-K decode's
+# partitions follow the block-table width, so bf16 tokens match only
+# under one cache config
+SERVER_CACHE = dict(block_size=32, num_blocks=2048, max_blocks_per_seq=64)
+# (a): one request at a time; the last is the prefix (b) repeats
+SERVER_ONE_LENGTHS = [128, 384, 640, 1024]
+SERVER_TOKENS = 64
+
+
+def hf_tensors(params, cfg):
+    """The parameter tree as HF-named tensors of the Llama family: kernels
+    back to (out, in), no ``lm_head`` when the embeddings are tied."""
+    yield "model.embed_tokens.weight", params["embed"]["weight"]
+    for i, lp in enumerate(params["layers"]):
+        pre = f"model.layers.{i}."
+        yield pre + "input_layernorm.weight", lp["attn_norm"]["scale"]
+        yield pre + "post_attention_layernorm.weight", lp["mlp_norm"]["scale"]
+        for proj, hf in (("q_proj", "self_attn.q_proj"), ("k_proj", "self_attn.k_proj"),
+                         ("v_proj", "self_attn.v_proj"), ("o_proj", "self_attn.o_proj"),
+                         ("gate_proj", "mlp.gate_proj"), ("up_proj", "mlp.up_proj"),
+                         ("down_proj", "mlp.down_proj")):
+            yield pre + hf + ".weight", lp[proj]["kernel"].T
+            if "bias" in lp[proj]:
+                yield pre + hf + ".bias", lp[proj]["bias"]
+        if cfg.qk_norm:
+            yield pre + "self_attn.q_norm.weight", lp["q_norm"]["scale"]
+            yield pre + "self_attn.k_norm.weight", lp["k_norm"]["scale"]
+    yield "model.norm.weight", params["final_norm"]["scale"]
+    if not cfg.tie_word_embeddings:
+        yield "lm_head.weight", params["lm_head"]["kernel"].T
+
+
+def write_hf_checkpoint(params, cfg, out_dir, shards: int = 2) -> int:
+    """``params`` as a bf16 HF safetensors checkpoint of ``shards`` files
+    and a ``model.safetensors.index.json``, written leaf by leaf.  Returns
+    the bytes of tensor data written."""
+    import struct
+    import torch
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for old in out_dir.glob("*.safetensors"):
+        old.unlink()
+    names = [(n, tuple(t.shape)) for n, t in hf_tensors(params, cfg)]
+    sizes = [2 * int(np.prod(s)) for _, s in names]
+    total, cut, acc = sum(sizes), [], 0
+    for i, sz in enumerate(sizes):               # shard boundaries by bytes
+        acc += sz
+        if len(cut) < shards - 1 and acc >= total * (len(cut) + 1) / shards:
+            cut.append(i + 1)
+    bounds = [0] + cut + [len(names)]
+    files = [f"model-{k + 1:05d}-of-{shards:05d}.safetensors" for k in range(shards)]
+    weight_map = {}
+    tensors = hf_tensors(params, cfg)
+    for k, fname in enumerate(files):
+        header, off = {}, 0
+        for (name, shape), sz in zip(names[bounds[k]:bounds[k + 1]],
+                                     sizes[bounds[k]:bounds[k + 1]]):
+            header[name] = {"dtype": "BF16", "shape": list(shape),
+                            "data_offsets": [off, off + sz]}
+            off += sz
+            weight_map[name] = fname
+        head = json.dumps(header).encode()
+        head += b" " * (-len(head) % 8)
+        with open(out_dir / fname, "wb") as f:
+            f.write(struct.pack("<Q", len(head)) + head)
+            for _ in range(bounds[k + 1] - bounds[k]):
+                _, t = next(tensors)
+                f.write(t.to(torch.bfloat16).contiguous().cpu().view(torch.int16)
+                        .numpy().tobytes())
+    (out_dir / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": total}, "weight_map": weight_map}))
+    return total
+
+
+def http(url: str, body: dict | None = None, timeout: float = 600):
+    """(status, parsed JSON body or text) of a GET or JSON POST."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url, data=None if body is None else json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            data = r.read().decode()
+            return r.status, json.loads(data) if "json" in r.headers["Content-Type"] else data
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read().decode() or "null")
+
+
+def sse(url: str, body: dict, timeout: float = 600) -> dict:
+    """One streamed request, read event by event: status, chunks, whether
+    it ended in ``[DONE]``, and the host clock at the send, the first
+    chunk carrying tokens and the last."""
+    import http.client
+    from urllib.parse import urlparse
+    u = urlparse(url)
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=timeout)
+    out = {"chunks": [], "done": False, "t_first": None, "t_last": None}
+    try:
+        out["t_send"] = time.perf_counter()
+        conn.request("POST", u.path, body=json.dumps(dict(body, stream=True)),
+                     headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        out["status"] = r.status
+        if r.status != 200:
+            out["error"] = r.read().decode()
+            return out
+        for line in r:
+            line = line.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            if line == "data: [DONE]":
+                out["done"] = True
+                continue
+            chunk = json.loads(line[len("data: "):])
+            now = time.perf_counter()
+            if any(ch.get("token_ids") or ch.get("delta", {}).get("content")
+                   for ch in chunk["choices"]):
+                out["t_first"] = out["t_first"] or now
+                out["t_last"] = now
+            out["chunks"].append(chunk)
+    finally:
+        conn.close()
+    return out
+
+
+def stream_ids(res) -> list:
+    return [t for c in res["chunks"] for ch in c["choices"] for t in ch.get("token_ids", [])]
+
+
+def stream_ok(res, url: str, prompt_len: int) -> bool:
+    """A complete, well-formed stream: SERVER_TOKENS tokens, finish_reason
+    ``length``, ``[DONE]``, text equal to its ids detokenised, and usage."""
+    if res.get("status") != 200 or not res["done"]:
+        return False
+    ids = stream_ids(res)
+    finishes = [ch["finish_reason"] for c in res["chunks"] for ch in c["choices"]
+                if ch.get("finish_reason")]
+    text = "".join(ch.get("text", "") for c in res["chunks"] for ch in c["choices"])
+    usage = res["chunks"][-1].get("usage") or {}
+    _, detok = http(url + "/detokenize", {"tokens": ids})
+    # the streaming detokenizer holds back a trailing partial UTF-8 rune,
+    # as the JAX engine's does: at most that tail may be missing
+    tail = detok["prompt"][len(text):]
+    return (len(ids) == SERVER_TOKENS and finishes == ["length"]
+            and detok["prompt"].startswith(text) and set(tail) <= {"\ufffd"}
+            and usage == {"prompt_tokens": prompt_len, "completion_tokens": SERVER_TOKENS,
+                          "total_tokens": prompt_len + SERVER_TOKENS})
+
+
+def stream_rates(results) -> dict:
+    """Client-side TTFT of each stream and decode tok/s across them (tokens
+    after each stream's first, over the time from the earliest first token
+    to the latest last)."""
+    ttft = [1e3 * (r["t_first"] - r["t_send"]) for r in results]
+    after = sum(len(stream_ids(r)) - 1 for r in results)
+    span = max(r["t_last"] for r in results) - min(r["t_first"] for r in results)
+    return {"mean_ttft_ms": sum(ttft) / len(ttft), "ttft_ms": ttft,
+            "decode_tok_per_s": after / span if span > 0 else None}
+
+
+def serve_steps(eng, ps, params) -> tuple[list, dict]:
+    """``ps`` through ``eng``'s ``add_request``/``step``: the requests;
+    decode tok/s over the steps that emit decode tokens (host clock around
+    each) and, as ``stream_rates`` counts a client's, over the time from
+    the earliest first token to the latest last; mean TTFT."""
+    rids = [eng.add_request(prompt_token_ids=p, params=params) for p in ps]
+    t_decode, tokens = 0.0, 0
+    first, last = {}, {}
+    while eng.has_work():
+        n_prefill = eng.stats.num_prefill_steps
+        t = time.perf_counter()
+        outs = eng.step()
+        now = time.perf_counter()
+        if eng.stats.num_prefill_steps == n_prefill:
+            t_decode += now - t
+            tokens += sum(len(o.new_token_ids) for o in outs)
+        for o in outs:
+            first.setdefault(o.request_id, now)
+            last[o.request_id] = now
+    reqs = [eng.requests.pop(r) for r in rids]
+    after = sum(len(r.output_token_ids) - 1 for r in reqs)
+    span = max(last.values()) - min(first.values())
+    return reqs, {"decode_tok_per_s": tokens / t_decode if t_decode else None,
+                  "span_tok_per_s": after / span if span > 0 else None,
+                  "mean_ttft_ms": sum(ttft_ms(r) for r in reqs) / len(reqs)}
+
+
+def phase_server(results) -> dict:
+    """The top of the main path: the main phase's seed-0 weights written as
+    a two-shard bf16 HF checkpoint and loaded back (bit-equal), then served
+    by an in-process ``OpenAIServer`` over ``Engine(checkpoint_dir=...)``:
+    (a) four greedy completions one at a time (two plain, two streamed),
+    each equal to a twin engine's ``generate`` of it alone; (b) eight
+    concurrent streams, a chat request and a prefix hit of a served
+    1,024-token prompt (the chunk route); (c) an unported option's 400,
+    /v1/models, /metrics; (d) the three kernels' launches against the
+    steps.  Then ``python -m tpuserve_torch.server`` as a subprocess: one
+    streamed completion equal to (a)'s, and a drain on SIGTERM."""
+    import gc
+    import threading
+    from pathlib import Path
+    import torch
+    from tpuserve_torch.models.weights import load_hf_checkpoint
+    from tpuserve_torch.runtime import CacheConfig, Engine, EngineConfig, SamplingParams
+    from tpuserve_torch.server import OpenAIServer, ServerConfig
+
+    root = Path(__file__).resolve().parent
+    ckpt = root / "build" / "server_ckpt"
+    model = "Qwen/Qwen3-0.6B"
+    params = results["main"]["params"]
+    cfg = results["main"]["engine"].model_cfg
+    L = cfg.num_layers
+    out = {"free_gb_at_start": torch.cuda.mem_get_info()[0] / 1e9}
+    t0 = time.perf_counter()
+    nbytes_ = write_hf_checkpoint(params, cfg, ckpt)
+    out["checkpoint"] = {"bytes": nbytes_, "files": sorted(p.name for p in ckpt.iterdir()),
+                         "write_s": time.perf_counter() - t0}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loaded = load_hf_checkpoint(cfg, str(ckpt), "cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in leaves(tree[k])]
+        if isinstance(tree, list):
+            return [x for v in tree for x in leaves(v)]
+        return [tree]
+    pairs = list(zip(leaves(loaded), leaves(params)))
+    bit_equal = (len(leaves(loaded)) == len(leaves(params))
+                 and all(a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs))
+    out["checkpoint"].update(load_s=load_s, load_gb_per_s=nbytes_ / load_s / 1e9,
+                             bit_equal=bit_equal)
+    del loaded, pairs
+
+    ecfg = EngineConfig(model=model, checkpoint_dir=str(ckpt),
+                        cache=CacheConfig(**SERVER_CACHE))
+    eng = Engine(ecfg)
+    srv = OpenAIServer(eng, ServerConfig(host="127.0.0.1", port=0))
+    t0 = time.perf_counter()
+    url = f"http://127.0.0.1:{srv.start(warmup=True)}"
+    out["start_s"] = time.perf_counter() - t0
+    out["tokenizer"] = type(eng.tokenizer).__name__
+    # a tap on the runner's routing: the token ids of non-streamed requests,
+    # which the HTTP response does not carry
+    served: dict[str, list] = {}
+    route = srv.runner._route_outputs
+
+    def tap(outputs):
+        for o in outputs:
+            served.setdefault(o.request_id, []).extend(o.new_token_ids)
+        route(outputs)
+    srv.runner._route_outputs = tap
+    rng = np.random.default_rng(SEED + 11)
+    V = cfg.vocab_size
+    one = prompts(rng, SERVER_ONE_LENGTHS, V)
+    conc = prompts(rng, MAIN_LENGTHS, V)
+    hit = one[-1] + prompts(rng, [64], V)[0]
+    base = {"model": model, "max_tokens": SERVER_TOKENS, "temperature": 0,
+            "ignore_eos": True}
+    st = eng.stats
+    before = (st.num_prefill_steps, st.num_chunk_steps, st.num_decode_steps)
+    reset_launches()
+    try:
+        # (a) one at a time
+        http_tokens, a_ok = [], True
+        for i, p in enumerate(one):
+            if i < 2:
+                known = set(served)
+                status, body = http(url + "/v1/completions", dict(base, prompt=p))
+                new = [r for r in served if r not in known]
+                ids = served[new[0]] if len(new) == 1 else []
+                a_ok &= (status == 200 and body["usage"]["completion_tokens"] == SERVER_TOKENS
+                         and body["choices"][0]["finish_reason"] == "length")
+            else:
+                res = sse(url + "/v1/completions", dict(base, prompt=p, return_token_ids=True,
+                                                        stream_options={"include_usage": True}))
+                ids = stream_ids(res)
+                a_ok &= stream_ok(res, url, len(p))
+            http_tokens.append(ids)
+        # (b) eight concurrent streams, a chat request and a prefix hit
+        chunks0 = st.num_chunk_steps
+        conc_res: dict = {}
+        opts = dict(base, return_token_ids=True, stream_options={"include_usage": True})
+
+        def run(key, fn):
+            conc_res[key] = fn()
+        jobs = [(i, lambda p=p: sse(url + "/v1/completions", dict(opts, prompt=p)))
+                for i, p in enumerate(conc)]
+        jobs.append(("chat", lambda: http(url + "/v1/chat/completions", dict(
+            base, messages=[{"role": "user", "content": "Say something long."}]))))
+        # the prefix hit first: the scheduler routes a hit to the chunk
+        # path only from the head of the queue; the rest arrive while its
+        # chunk runs or it decodes
+        threads = [threading.Thread(target=run, args=("hit", lambda: sse(
+            url + "/v1/completions", dict(opts, prompt=hit))))]
+        threads[0].start()
+        t_wait = time.perf_counter() + 60
+        while st.num_chunk_steps == chunks0 and time.perf_counter() < t_wait:
+            time.sleep(0.001)
+        threads += [threading.Thread(target=run, args=j) for j in jobs]
+        for t in threads[1:]:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        streams = [conc_res[i] for i in range(len(conc))]
+        chat_status, chat = conc_res["chat"]
+        b_ok = (all(stream_ok(r, url, len(p)) for r, p in zip(streams, conc))
+                and stream_ok(conc_res["hit"], url, len(hit))
+                and chat_status == 200 and chat["choices"][0]["finish_reason"] == "length"
+                and chat["usage"]["completion_tokens"] == SERVER_TOKENS
+                and st.num_chunk_steps > chunks0)
+        rates = stream_rates(streams)
+        # (c) an unported option, /v1/models and /metrics
+        bad = [http(url + "/v1/completions", dict(base, prompt=one[0], top_p=0.9)),
+               (lambda r: (r["status"], json.loads(r.get("error") or "null")))(
+                   sse(url + "/v1/completions", dict(base, prompt=one[0], top_p=0.9)))]
+        _, models = http(url + "/v1/models")
+        _, metrics = http(url + "/metrics")
+        gen_line = [ln for ln in metrics.splitlines()
+                    if ln.startswith("vllm_generation_tokens_total{")]
+        gen = float(gen_line[0].split()[-1]) if gen_line else None
+        served_tokens = SERVER_TOKENS * (len(one) + len(conc) + 2)
+        c_ok = (all(s == 400 and "ROADMAP.md A6" in e["error"]["message"] for s, e in bad)
+                and [m["id"] for m in models["data"]] == [model] and gen == served_tokens)
+    finally:
+        srv.shutdown()
+    # (d) the kernels' launches against the engine's steps
+    launches = read_launches()
+    steps = {"prefill_steps": (st.num_prefill_steps - before[0])
+             - (st.num_chunk_steps - before[1]),
+             "chunk_steps": st.num_chunk_steps - before[1],
+             "decode_steps": st.num_decode_steps - before[2]}
+    want = {"flash_prefill": L * steps["prefill_steps"],
+            "paged_decode": L * steps["decode_steps"],
+            "paged_window": L * steps["chunk_steps"], "ragged_paged": 0}
+    d_ok = (launches == want and all(launches[k] > 0 for k in
+                                     ("flash_prefill", "paged_decode", "paged_window")))
+
+    # the twin: the same EngineConfig and the loaded parameters
+    twin = Engine(ecfg, params=eng.params)
+    twin.warmup()
+    greedy = SamplingParams(max_tokens=SERVER_TOKENS, temperature=0.0, ignore_eos=True)
+    twin_one = [twin.generate([p], greedy)[0].output_token_ids for p in one]
+    twin_conc, twin_rates = serve_steps(twin, conc, greedy)
+    same_one = twin_one == http_tokens
+    same_conc = [stream_ids(r) == t.output_token_ids for r, t in zip(streams, twin_conc)]
+    del srv, eng, twin, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the CLI, as a user starts it
+    cli = cli_serve(root, ckpt, model, one[0])
+    cli_ok = cli.pop("ok") and cli["tokens"] == http_tokens[0]
+    ok = bit_equal and a_ok and same_one and b_ok and c_ok and d_ok and cli_ok
+    return {"ok": ok, **out, "model": model, "layers": L, "cache": SERVER_CACHE,
+            "one_at_a_time": {"prompt_lens": SERVER_ONE_LENGTHS, "well_formed": a_ok,
+                              "same_as_twin": same_one},
+            "concurrent": {"prompt_lens": MAIN_LENGTHS, "hit_prompt_len": len(hit),
+                           "well_formed": b_ok, "http": rates, "twin": twin_rates,
+                           "same_as_twin_share": sum(same_conc) / len(same_conc)},
+            "unported_400": [s for s, _ in bad], "metrics_generation_tokens": gen,
+            "served_tokens": served_tokens, "launches": launches, "launches_expected": want,
+            **steps, "cli": {**cli, "same_as_in_process": cli_ok}}
+
+
+def cli_serve(root, ckpt, model: str, prompt) -> dict:
+    """``python -m tpuserve_torch.server`` on the checkpoint, with the
+    in-process server's cache flags: its bound port from its output, then
+    /readyz, one streamed greedy completion of ``prompt``, and SIGTERM,
+    after which it must exit 0 within its drain timeout."""
+    import queue as queue_mod
+    import signal
+    import threading
+    drain_timeout = 25.0
+    cmd = [sys.executable, "-m", "tpuserve_torch.server", "--model", model,
+           "--checkpoint-dir", str(ckpt), "--host", "127.0.0.1", "--port", "0",
+           "--drain-timeout", str(drain_timeout)]
+    for flag, key in (("--block-size", "block_size"), ("--num-blocks", "num_blocks"),
+                      ("--max-blocks-per-seq", "max_blocks_per_seq")):
+        cmd += [flag, str(SERVER_CACHE[key])]
+    log = root / "build" / "server_cli.log"
+    out = {"ok": False, "log": str(log.relative_to(root))}
+    t0 = time.perf_counter()
+    with open(log, "w") as err:
+        proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE, stderr=err, text=True)
+        try:
+            lines: "queue_mod.Queue[str]" = queue_mod.Queue()
+            threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
+                             daemon=True).start()
+            line = lines.get(timeout=300)
+            if " listening on " not in line:
+                out["stdout"] = line
+                return out
+            url = "http://127.0.0.1:" + line.strip().rsplit(":", 1)[1]
+            out["listening_s"] = time.perf_counter() - t0
+            ready = http(url + "/readyz")[0]
+            res = sse(url + "/v1/completions", {
+                "model": model, "prompt": prompt, "max_tokens": SERVER_TOKENS,
+                "temperature": 0, "ignore_eos": True, "return_token_ids": True})
+            out["tokens"] = stream_ids(res)
+            t_term = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=drain_timeout)
+            out.update(readyz=ready, stream_status=res.get("status"), rc=rc,
+                       drain_s=time.perf_counter() - t_term,
+                       ok=ready == 200 and res.get("done") and rc == 0)
+        except (queue_mod.Empty, subprocess.TimeoutExpired) as e:
+            out["error"] = repr(e)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+# --------------------------------------------------------------------------
 
 KERNELS = {
     "flash_prefill": dict(source="tpuserve_torch/csrc/flash_prefill.cu",
@@ -1655,6 +2123,8 @@ def main() -> int:
             res = phase_chunked(results["main"]["params"])
         elif phase == "mixed":
             res = phase_mixed(results["main"]["params"])
+        elif phase == "server":
+            res = phase_server(results)
         elif phase == "profile":
             res = phase_profile(results)
         else:

@@ -178,8 +178,7 @@ def test_block_manager_drains_to_zero(model):
 
 @pytest.mark.parametrize("kw", [dict(quantization="int8"), dict(lora_dir="/x"),
                                 dict(lora_modules={"a": "/x"}),
-                                dict(speculative=object()),
-                                dict(checkpoint_dir="/x")])
+                                dict(speculative=object())])
 def test_unported_engine_options_raise(model, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _port(model, **kw)

@@ -66,6 +66,18 @@ def test_importing_the_engine_loads_no_jax():
     assert res.stdout.strip() == "clean"
 
 
+def test_importing_the_server_loads_no_jax_and_no_optional_packages():
+    """The card's machine has no prometheus_client, jinja2 or transformers:
+    the server imports none of them (jinja2 only for --chat-template)."""
+    res = _run("import sys, tpuserve_torch.server.openai_api, tpuserve_torch.server.__main__\n"
+               "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
+               "'tpuserve', 'prometheus_client', 'jinja2', 'transformers', 'safetensors')]\n"
+               "assert not bad, bad\n"
+               "print('clean')")
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "clean"
+
+
 def test_engine_without_device_raises_when_there_is_no_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")

@@ -1,0 +1,473 @@
+"""The port's HTTP server on the CPU, against the JAX package's server.
+
+A port ``OpenAIServer`` over ``Engine(..., device="cpu")`` and a JAX
+``OpenAIServer`` over the JAX engine serve float32 tiny-qwen3 with the same
+weights (the JAX tree handed over as numpy), each on a free port.  For the
+same requests they must give the same greedy tokens (text and usage when
+not streamed, token ids when streamed), the same ``n`` choices, the same
+chat text, the same statuses for malformed bodies, and the same 503s under
+backpressure and while draining.  Port-only: options the port does not
+carry give a 400 naming their ROADMAP.md item before any SSE header, a
+mixed-batching engine serves concurrent streams, a failing step fails its
+requests, ``/metrics`` has the JAX server's vllm_* families, and
+``python -m tpuserve_torch.server`` starts, serves and drains on SIGTERM.
+
+Sampled tokens cannot match across the two packages (their noise differs:
+ROADMAP.md C), so the ``n``-choice comparison runs at a temperature of
+1e-4, where the noise cannot move an argmax of these logits; the port's
+seeded choices are checked against single seeded requests on their own.
+"""
+
+import dataclasses
+import json
+import os
+import random
+import signal
+import subprocess
+import sys
+import threading
+import time
+import urllib.error
+import urllib.request
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from tpuserve import runtime as jax_rt
+from tpuserve.models import weights as jax_weights
+from tpuserve.models.config import get_model_config as jax_get_model_config
+from tpuserve.server.openai_api import OpenAIServer as JaxServer
+from tpuserve.server.openai_api import ServerConfig as JaxServerConfig
+from tpuserve_torch.models.config import get_model_config
+from tpuserve_torch.models.weights import params_from_numpy
+from tpuserve_torch.runtime import (CacheConfig, Engine, EngineConfig, SamplingParams,
+                                    SchedulerConfig)
+from tpuserve_torch.server import OpenAIServer, ServerConfig
+from tpuserve_torch.server.openai_api import main
+
+ROOT = Path(__file__).resolve().parent.parent
+CACHE = dict(block_size=4, num_blocks=128, max_blocks_per_seq=16, dtype="float32")
+SCHED = dict(max_num_seqs=8, min_prefill_bucket=8, min_decode_bucket=2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """Two torch intra-op threads while this file runs: under pytest-xdist
+    several files run at once on the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def weights():
+    jcfg = dataclasses.replace(jax_get_model_config("tiny-qwen3"), dtype="float32")
+    jparams = jax_weights.init_params(jcfg, seed=0)
+    cfg = dataclasses.replace(get_model_config("tiny-qwen3"), dtype="float32")
+    return jcfg, jparams, cfg, params_from_numpy(jax.tree.map(np.asarray, jparams), cfg, "cpu")
+
+
+def _port_engine(weights, **sched):
+    _, _, cfg, params = weights
+    return Engine(EngineConfig(model="tiny-qwen3", cache=CacheConfig(**CACHE),
+                               scheduler=SchedulerConfig(**dict(SCHED, **sched))),
+                  params=params, model_cfg=cfg, device="cpu")
+
+
+def _jax_engine(weights):
+    jcfg, jparams, _, _ = weights
+    return jax_rt.Engine(jax_rt.EngineConfig(
+        model="tiny-qwen3", cache=jax_rt.CacheConfig(**CACHE),
+        scheduler=jax_rt.SchedulerConfig(**SCHED), attn_impl="reference", multi_step=1,
+        kv_tiers=False, slo_classes=False), params=jparams, model_cfg=jcfg)
+
+
+def _jax_server(engine):
+    return JaxServer(engine, JaxServerConfig(host="127.0.0.1", port=0, tpu_metrics=False,
+                                             slo_burn=False))
+
+
+@pytest.fixture(scope="module")
+def servers(weights):
+    """{"port": url, "jax": url} and the two server objects."""
+    port = OpenAIServer(_port_engine(weights), ServerConfig(host="127.0.0.1", port=0))
+    jsrv = _jax_server(_jax_engine(weights))
+    urls = {"port": f"http://127.0.0.1:{port.start()}",
+            "jax": f"http://127.0.0.1:{jsrv.start()}"}
+    yield urls, {"port": port, "jax": jsrv}
+    port.shutdown()
+    jsrv.shutdown()
+
+
+def _request(url, payload=None, raw=False, timeout=120, headers=None):
+    """(status, parsed body or raw text, headers); never raises on 4xx/5xx."""
+    data = None if payload is None else json.dumps(payload, allow_nan=True).encode()
+    req = urllib.request.Request(url, data=data, method="GET" if data is None else "POST",
+                                 headers={"Content-Type": "application/json",
+                                          **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            body = r.read().decode()
+            if raw or "json" not in r.headers.get("Content-Type", ""):
+                return r.status, body, dict(r.headers)
+            return r.status, json.loads(body), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        body = e.read().decode()
+        return e.code, json.loads(body) if body else None, dict(e.headers)
+
+
+def _sse(url, payload):
+    """A streamed request: (status, chunks, saw [DONE])."""
+    status, raw, _ = _request(url, dict(payload, stream=True), raw=True)
+    if status != 200:
+        return status, raw, False
+    events = [ln[len("data: "):] for ln in raw.splitlines() if ln.startswith("data: ")]
+    done = events[-1] == "[DONE]"
+    return status, [json.loads(e) for e in events[:-1] if e != "[DONE]"], done
+
+
+def _both(servers, path, payload, stream=False):
+    urls, _ = servers
+    fn = _sse if stream else (lambda u, p: _request(u, p)[:2])
+    return {k: fn(urls[k] + path, payload) for k in ("port", "jax")}
+
+
+PROMPTS = ["Hello world", [5, 6, 7, 8, 9], "paged attention on a card", [300, 301, 302]]
+
+
+@pytest.mark.parametrize("prompt", PROMPTS, ids=lambda p: "ids" if isinstance(p, list) else p)
+def test_greedy_completions_match_the_jax_server(servers, prompt):
+    body = {"prompt": prompt, "max_tokens": 8, "temperature": 0, "ignore_eos": True}
+    full = _both(servers, "/v1/completions", body)
+    streamed = _both(servers, "/v1/completions",
+                     dict(body, return_token_ids=True, stream_options={"include_usage": True}),
+                     stream=True)
+    (ps, pb), (js, jb) = full["port"], full["jax"]
+    assert ps == js == 200
+    assert pb["choices"] == jb["choices"] and pb["usage"] == jb["usage"]
+    ids = {}
+    for k, (status, chunks, done) in streamed.items():
+        assert status == 200 and done
+        ids[k] = [t for c in chunks for ch in c["choices"] for t in ch.get("token_ids", [])]
+        assert chunks[-1]["usage"] == pb["usage"]
+        assert chunks[-2]["choices"][0]["finish_reason"] == "length"
+        assert "".join(ch["text"] for c in chunks for ch in c["choices"]) == \
+            pb["choices"][0]["text"]
+    assert ids["port"] == ids["jax"] and len(ids["port"]) == 8
+
+
+def test_n_choices_match_the_jax_server(servers):
+    body = {"prompt": "choices", "max_tokens": 6, "n": 3, "temperature": 1e-4, "seed": 7,
+            "ignore_eos": True}
+    res = _both(servers, "/v1/completions", body)
+    (ps, pb), (js, jb) = res["port"], res["jax"]
+    assert ps == js == 200
+    assert [c["index"] for c in pb["choices"]] == [0, 1, 2]
+    assert pb["choices"] == jb["choices"] and pb["usage"] == jb["usage"]
+    streamed = _both(servers, "/v1/completions", dict(body, return_token_ids=True),
+                     stream=True)
+    per_choice = {}
+    for k, (status, chunks, done) in streamed.items():
+        assert status == 200 and done
+        got = {}
+        for c in chunks:
+            for ch in c["choices"]:
+                got.setdefault(ch["index"], []).extend(ch["token_ids"])
+        per_choice[k] = got
+    assert per_choice["port"] == per_choice["jax"] and sorted(per_choice["port"]) == [0, 1, 2]
+
+
+def test_seeded_choice_i_samples_with_seed_plus_i(servers):
+    """Port only: choice i of a seeded request is the request seeded seed + i."""
+    urls, _ = servers
+    body = {"prompt": [7, 8, 9], "max_tokens": 6, "temperature": 0.9, "ignore_eos": True,
+            "return_token_ids": True}
+    _, chunks, _ = _sse(urls["port"] + "/v1/completions", dict(body, n=2, seed=11))
+    got = {}
+    for c in chunks:
+        for ch in c["choices"]:
+            got.setdefault(ch["index"], []).extend(ch["token_ids"])
+    for i in range(2):
+        _, alone, _ = _sse(urls["port"] + "/v1/completions", dict(body, seed=11 + i))
+        assert got[i] == [t for c in alone for ch in c["choices"] for t in ch["token_ids"]]
+    assert got[0] != got[1]
+
+
+def test_chat_matches_the_jax_server(servers):
+    body = {"messages": [{"role": "system", "content": "Be nice."},
+                         {"role": "user", "content": [{"type": "text", "text": "hi"}]}],
+            "max_tokens": 5, "temperature": 0, "ignore_eos": True}
+    res = _both(servers, "/v1/chat/completions", body)
+    (ps, pb), (js, jb) = res["port"], res["jax"]
+    assert ps == js == 200 and pb["object"] == jb["object"] == "chat.completion"
+    assert pb["choices"] == jb["choices"] and pb["usage"] == jb["usage"]
+    streamed = _both(servers, "/v1/chat/completions", body, stream=True)
+    texts = {k: "".join(ch["delta"].get("content", "") for c in chunks for ch in c["choices"])
+             for k, (_, chunks, _) in streamed.items()}
+    assert texts["port"] == texts["jax"] == pb["choices"][0]["message"]["content"]
+
+
+MALFORMED = [
+    ("/v1/completions", {}), ("/v1/completions", {"prompt": ""}),
+    ("/v1/completions", {"prompt": ["a", "b"]}), ("/v1/chat/completions", {"messages": []}),
+    ("/v1/completions", {"prompt": "x" * 5000, "max_tokens": 2}),
+    ("/v1/completions", {"prompt": "x", "max_tokens": "lots"}),
+    ("/v1/completions", {"prompt": "x", "temperature": "hot"}),
+    ("/v1/completions", {"prompt": "x", "stop": [1, 2]}),
+    ("/v1/completions", {"prompt": "x", "temperature": None, "max_tokens": 2,
+                         "top_p": None, "ignore_eos": True}),
+    ("/v1/completions", {"prompt": "x", "n": 0}),
+    ("/v1/completions", {"prompt": "x", "suffix": "y"}),
+    ("/v1/completions", {"prompt": "x", "max_tokens": 0}),
+    ("/v1/completions", {"prompt": "x", "stream_options": 3}),
+    ("/v1/chat/completions", {"messages": [{"content": "no role"}]}),
+    ("/tokenize", {"prompt": 3}), ("/detokenize", {"tokens": [-1]}),
+    ("/v2/whatever", {"prompt": "x"}),
+]
+
+
+@pytest.mark.parametrize("path,body", MALFORMED, ids=[f"{i}" for i in range(len(MALFORMED))])
+def test_malformed_bodies_get_the_jax_servers_status(servers, path, body):
+    res = _both(servers, path, body)
+    assert res["port"][0] == res["jax"][0], (res["port"], res["jax"])
+    if res["jax"][0] == 400:
+        assert res["port"][1]["error"]["type"] == "invalid_request_error"
+
+
+def test_get_routes_get_the_jax_servers_status(servers):
+    urls, _ = servers
+    for path in ("/v1/models", "/v1/models/tiny-qwen3", "/v1/models/nope", "/healthz",
+                 "/readyz", "/v2/whatever"):
+        assert _request(urls["port"] + path)[0] == _request(urls["jax"] + path)[0], path
+    _, models, _ = _request(urls["port"] + "/v1/models")
+    assert models["data"][0]["id"] == "tiny-qwen3" and models["data"][0]["max_model_len"] > 0
+
+
+def test_fuzzed_bodies_never_5xx_and_keep_the_jax_servers_4xx(servers):
+    """The JAX fuzz's keys and junk values (tests/test_server.py): the port
+    answers every single-key body below 500; on a seeded sample both servers
+    are asked, and where the JAX server refuses, so does the port."""
+    urls, _ = servers
+    junk = [None, True, False, -1, 0, 1.5, 2**40, -2**40, "x", "", [], ["a"], [None], {},
+            {"a": None}, float("inf"), float("-inf"), "NaN", [2**40], [-5], {"k": []}]
+    keys = ["model", "prompt", "messages", "input", "tokens", "encoding_format", "dimensions",
+            "max_tokens", "min_tokens", "temperature", "top_k", "top_p", "min_p", "seed",
+            "stop", "stop_token_ids", "logit_bias", "logprobs", "top_logprobs", "n",
+            "best_of", "echo", "stream", "stream_options", "response_format", "guided_regex",
+            "guided_choice", "prompt_logprobs", "truncate_prompt_tokens", "priority",
+            "presence_penalty", "frequency_penalty", "repetition_penalty", "ignore_eos",
+            "tools", "tool_choice"]
+    rng = random.Random(11)
+    probes = []
+    for path in ("/v1/completions", "/v1/chat/completions", "/v1/embeddings", "/tokenize",
+                 "/detokenize"):
+        base = {"prompt": "x", "input": "x", "tokens": [1], "max_tokens": 1}
+        if "chat" in path:
+            base["messages"] = [{"role": "user", "content": "x"}]
+        probes += [(path, dict(base, **{k: v})) for k in keys for v in junk]
+    for path, body in probes:
+        status = _request(urls["port"] + path, body)[0]
+        assert status < 500, (path, body, status)
+    for path, body in rng.sample(probes, 30):
+        p, j = _request(urls["port"] + path, body)[0], _request(urls["jax"] + path, body)[0]
+        assert p < 500 and (j < 400 or 400 <= p < 500), (path, body, p, j)
+
+
+def test_backpressure_gets_the_jax_servers_503(servers, monkeypatch):
+    urls, srvs = servers
+
+    def full(*a, **kw):
+        raise MemoryError("waiting queue full (test)")
+    for k in ("port", "jax"):
+        monkeypatch.setattr(srvs[k].engine, "add_request", full)
+    body = {"prompt": "x", "max_tokens": 4, "ignore_eos": True}
+    for stream in (False, True):
+        got = {k: _request(urls[k] + "/v1/completions", dict(body, stream=stream))
+               for k in ("port", "jax")}
+        for status, err, headers in got.values():
+            assert status == 503 and headers.get("Retry-After") == "1"
+            assert "waiting queue full" in err["error"]["message"]
+
+
+def test_draining_gets_the_jax_servers_503(weights):
+    """drain() with a handler still in flight: readyz and new requests get
+    503 with Retry-After on both servers; drain returns once it leaves."""
+    results = {}
+    for name, srv in (("port", OpenAIServer(_port_engine(weights),
+                                            ServerConfig(host="127.0.0.1", port=0))),
+                      ("jax", _jax_server(_jax_engine(weights)))):
+        url = f"http://127.0.0.1:{srv.start()}"
+        srv._handler_enter()                      # a request still being delivered
+        drained = {}
+        t = threading.Thread(target=lambda s=srv: drained.setdefault("ok", s.drain(30)))
+        t.start()
+        deadline = time.monotonic() + 10
+        while not srv.draining and time.monotonic() < deadline:
+            time.sleep(0.01)
+        post = _request(url + "/v1/completions", {"prompt": "x", "max_tokens": 2})
+        ready = _request(url + "/readyz")
+        srv._handler_exit()
+        t.join(timeout=30)
+        assert not t.is_alive()
+        results[name] = (post[0], post[2].get("Retry-After"), ready[0], drained.get("ok"))
+    assert results["port"] == results["jax"] == (503, "1", 503, True)
+
+
+UNPORTED = [
+    ({"top_p": 0.9}, "A6"), ({"top_k": 5}, "A6"), ({"min_p": 0.1}, "A6"),
+    ({"presence_penalty": 0.5}, "A6"), ({"repetition_penalty": 1.2}, "A6"),
+    ({"logprobs": 2}, "A6"), ({"logit_bias": {"5": 10}}, "A6"), ({"min_tokens": 2}, "A6"),
+    ({"response_format": {"type": "json_object"}}, "A6"), ({"guided_regex": "a+"}, "A6"),
+    ({"guided_choice": ["a", "b"]}, "A6"), ({"best_of": 2, "temperature": 0.8}, "A6"),
+    ({"prompt_logprobs": 1}, "A7"),
+    ({"tools": [{"type": "function", "function": {"name": "f"}}]}, "A5b"),
+]
+
+
+@pytest.mark.parametrize("extra,item", UNPORTED, ids=["/".join(e) for e, _ in UNPORTED])
+@pytest.mark.parametrize("stream", [False, True], ids=["full", "sse"])
+def test_unported_options_get_a_400_naming_their_item(servers, extra, item, stream):
+    urls, _ = servers
+    path = "/v1/chat/completions" if "tools" in extra else "/v1/completions"
+    body = {"prompt": "x", "messages": [{"role": "user", "content": "x"}], "max_tokens": 2,
+            "stream": stream, **extra}
+    status, err, headers = _request(urls["port"] + path, body)
+    assert status == 400, (status, err)
+    assert "text/event-stream" not in headers.get("Content-Type", "")
+    assert f"ROADMAP.md {item}" in err["error"]["message"]
+
+
+def test_prompt_scoring_gets_a_400_naming_a7(servers):
+    """max_tokens=0 with echo and logprobs is prompt scoring (score_prompt)."""
+    urls, _ = servers
+    status, err, _ = _request(urls["port"] + "/v1/completions",
+                              {"prompt": "x", "max_tokens": 0, "echo": True, "logprobs": 1})
+    assert status == 400 and "ROADMAP.md A7" in err["error"]["message"]
+
+
+def test_embeddings_get_a_400_naming_a7(servers):
+    urls, _ = servers
+    status, err, _ = _request(urls["port"] + "/v1/embeddings", {"input": "x"})
+    assert status == 400 and "ROADMAP.md A7" in err["error"]["message"]
+
+
+def test_metrics_have_the_jax_servers_vllm_families(servers):
+    urls, _ = servers
+    _request(urls["port"] + "/v1/completions", {"prompt": "m", "max_tokens": 2})
+
+    def families(url):
+        _, text, _ = _request(url + "/metrics", raw=True)
+        # prometheus_client adds a _created gauge per family (its creation
+        # time); the port renders no timestamps
+        return {ln.split()[2]: ln.split()[3] for ln in text.splitlines()
+                if ln.startswith("# TYPE vllm_") and not ln.split()[2].endswith("_created")}
+    ours, ref = families(urls["port"]), families(urls["jax"])
+    assert ours == ref and len(ours) == 12
+    _, text, _ = _request(urls["port"] + "/metrics", raw=True)
+    assert 'vllm_time_to_first_token_seconds_bucket{le="0.01",model_name="tiny-qwen3"}' in text
+    assert 'vllm_request_duration_seconds_bucket{le="+Inf",model_name="tiny-qwen3"}' in text
+
+
+def test_mixed_batching_serves_concurrent_streams(servers, weights):
+    """Four concurrent streams through a mixed-batching port engine give the
+    JAX server's greedy tokens for the same prompts."""
+    urls, _ = servers
+    srv = OpenAIServer(_port_engine(weights, mixed_batching=True, mixed_token_budget=16),
+                       ServerConfig(host="127.0.0.1", port=0))
+    url = f"http://127.0.0.1:{srv.start(warmup=True)}"
+    prompts = [[11, 12, 13], list(range(20, 40)), [50, 51], list(range(60, 73))]
+    body = {"max_tokens": 10, "temperature": 0, "ignore_eos": True, "return_token_ids": True}
+    got = {}
+
+    def run(i):
+        got[i] = _sse(url + "/v1/completions", dict(body, prompt=prompts[i]))
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    try:
+        assert srv.engine.stats.num_mixed_steps > 0
+        for i, p in enumerate(prompts):
+            status, chunks, done = got[i]
+            assert status == 200 and done
+            ids = [t for c in chunks for ch in c["choices"] for t in ch["token_ids"]]
+            _, ref, _ = _sse(urls["jax"] + "/v1/completions", dict(body, prompt=p))
+            assert ids == [t for c in ref for ch in c["choices"] for t in ch["token_ids"]]
+    finally:
+        srv.shutdown()
+
+
+def test_a_failing_step_fails_its_requests_and_the_server_goes_on(weights):
+    srv = OpenAIServer(_port_engine(weights), ServerConfig(host="127.0.0.1", port=0))
+    url = f"http://127.0.0.1:{srv.start()}"
+    real = srv.engine.step
+    calls = {"n": 0}
+
+    def boom():
+        calls["n"] += 1
+        if calls["n"] == 1:
+            raise RuntimeError("device fault (test)")
+        return real()
+    srv.engine.step = boom
+    try:
+        body = {"prompt": [5, 6], "max_tokens": 3, "ignore_eos": True, "temperature": 0}
+        status, err, _ = _request(url + "/v1/completions", body)
+        assert status == 500 and "device fault (test)" in err["error"]["message"]
+        assert srv.runner.steps_failed == 1
+        status, ok, _ = _request(url + "/v1/completions", body)
+        assert status == 200 and ok["usage"]["completion_tokens"] == 3
+        outs, _ = srv.runner.generate_sync(
+            prompt_token_ids=[5, 6], params=SamplingParams(max_tokens=3, temperature=0.0,
+                                                           ignore_eos=True))
+        assert [o.num_output_tokens for o in outs] == [1, 2, 3] and outs[-1].finished
+        assert srv.engine.block_manager.num_seqs() == 0
+    finally:
+        srv.shutdown()
+
+
+def test_cli_rejects_unported_flags_naming_their_item(capsys):
+    for argv, item in ((["--tp", "2"], "A10"), (["--quantization", "int8"], "A8"),
+                       (["--speculative-k", "4"], "A7"), (["--faults", "x"], "A9"),
+                       (["--tool-call-parser", "hermes"], "A5b")):
+        with pytest.raises(SystemExit) as ei:
+            main(argv)
+        assert ei.value.code == 2
+        assert f"ROADMAP.md {item}" in capsys.readouterr().err
+
+
+def test_cli_without_a_card_exits_with_the_engines_error():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    with pytest.raises(SystemExit) as ei:
+        main(["--model", "tiny-qwen3", "--no-kv-tiers", "--no-devprof"])
+    assert "device='cpu'" in str(ei.value.code)
+
+
+def test_cli_serves_and_drains_on_sigterm():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tpuserve_torch.server", "--device", "cpu", "--model",
+         "tiny-qwen3", "--host", "127.0.0.1", "--port", "0", "--block-size", "4",
+         "--num-blocks", "64", "--max-blocks-per-seq", "16", "--no-slo-burn"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert "listening on 127.0.0.1:" in line, line
+        url = "http://127.0.0.1:" + line.strip().rsplit(":", 1)[1]
+        assert _request(url + "/readyz")[0] == 200
+        status, chunks, done = _sse(url + "/v1/completions",
+                                    {"prompt": [5, 6, 7], "max_tokens": 4, "temperature": 0,
+                                     "ignore_eos": True, "return_token_ids": True})
+        assert status == 200 and done
+        assert sum(len(ch["token_ids"]) for c in chunks for ch in c["choices"]) == 4
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()

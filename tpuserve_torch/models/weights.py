@@ -12,16 +12,27 @@ leaf for leaf.  Two ways to fill it:
   float32-then-cast rounding), so a run on the card gets the JAX engine's
   exact random weights without importing JAX.
 
-Loading a HuggingFace checkpoint is not ported yet (ROADMAP.md, checkpoint
-loading).
+- :func:`load_hf_checkpoint` reads a local HuggingFace safetensors
+  directory (one file or index-sharded) with the port's own parser
+  (:func:`read_safetensors`) and maps its names as the JAX loader does,
+  leaf by leaf onto the device.
 """
 
 from __future__ import annotations
+
+import glob
+import json
+import logging
+import mmap
+import os
+import struct
 
 import numpy as np
 import torch
 
 from tpuserve_torch.models.config import ModelConfig
+
+logger = logging.getLogger("tpuserve_torch.weights")
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -138,3 +149,238 @@ def param_nbytes(params) -> int:
     if isinstance(params, (list, tuple)):
         return sum(param_nbytes(v) for v in params)
     return params.numel() * params.element_size()
+
+
+# --------------------------------------------------------------------------
+# HF checkpoint loading
+# --------------------------------------------------------------------------
+
+_ST_DTYPES = {"BF16": torch.bfloat16, "F16": torch.float16, "F32": torch.float32,
+              "F64": torch.float64, "I64": torch.int64, "I32": torch.int32,
+              "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8,
+              "BOOL": torch.bool}
+
+
+class SafetensorsDir:
+    """Every tensor of a directory's ``*.safetensors`` files, read through
+    ``mmap`` without the ``safetensors`` package.
+
+    A file is an 8-byte little-endian header length, a JSON header (name ->
+    dtype, shape, ``data_offsets`` counted from the end of the header; the
+    ``__metadata__`` entry is skipped), then the data.  ``self[name]`` is a
+    tensor that shares the mapped file's memory: copy it before the
+    ``with`` block ends, which closes the mappings.  A name found in two
+    files is an error."""
+
+    def __init__(self, ckpt_dir: str):
+        self.files = sorted(glob.glob(os.path.join(ckpt_dir, "*.safetensors")))
+        if not self.files:
+            raise FileNotFoundError(f"no .safetensors files in {ckpt_dir}")
+        self._maps: list[mmap.mmap] = []
+        self._index: dict[str, tuple] = {}     # name -> (map, dtype, shape, start, end)
+        try:
+            for path in self.files:
+                self._open(path)
+        except BaseException:
+            self.close()
+            raise
+
+    def _open(self, path: str) -> None:
+        with open(path, "rb") as f:
+            # a private copy-on-write map: writable, so torch.frombuffer
+            # shares it without a warning; nothing writes to it
+            mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY)
+        self._maps.append(mm)
+        if len(mm) < 8:
+            raise ValueError(f"{path}: not a safetensors file")
+        (n,) = struct.unpack("<Q", mm[:8])
+        if 8 + n > len(mm):
+            raise ValueError(f"{path}: header length {n} past the end of the file")
+        header = json.loads(mm[8:8 + n])
+        base = 8 + n
+        for name, info in header.items():
+            if name == "__metadata__":
+                continue
+            if name in self._index:
+                raise ValueError(f"tensor {name!r} is in more than one file "
+                                 f"of the checkpoint (again in {path})")
+            dtype = _ST_DTYPES.get(info["dtype"])
+            if dtype is None:
+                raise NotImplementedError(f"{path}: {name} has safetensors dtype "
+                                          f"{info['dtype']}, not one of {sorted(_ST_DTYPES)}")
+            shape = tuple(info["shape"])
+            start, end = info["data_offsets"]
+            itemsize = torch.empty((), dtype=dtype).element_size()
+            if end - start != int(np.prod(shape, dtype=np.int64)) * itemsize \
+                    or base + end > len(mm):
+                raise ValueError(f"{path}: {name}'s data_offsets {start}-{end} do not "
+                                 f"hold a {info['dtype']} tensor of shape {list(shape)}")
+            self._index[name] = (mm, dtype, shape, base + start, base + end)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._index
+
+    def __iter__(self):
+        return iter(self._index)
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        mm, dtype, shape, start, end = self._index[name]
+        if start == end:
+            return torch.empty(shape, dtype=dtype)
+        count = (end - start) // torch.empty((), dtype=dtype).element_size()
+        return torch.frombuffer(mm, dtype=dtype, count=count, offset=start).view(shape)
+
+    def close(self) -> None:
+        for mm in self._maps:
+            try:
+                mm.close()
+            except BufferError:
+                # a tensor still shares it (an error unwinding past a view):
+                # the map closes when that tensor is freed
+                pass
+        self._maps.clear()
+        self._index.clear()
+
+    def __enter__(self) -> "SafetensorsDir":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def read_safetensors(ckpt_dir: str) -> SafetensorsDir:
+    """All tensors of a single-file or index-sharded safetensors checkpoint
+    (every ``*.safetensors`` file in the directory, as the JAX loader
+    reads them); use as a context manager."""
+    return SafetensorsDir(ckpt_dir)
+
+
+def load_hf_checkpoint(cfg: ModelConfig, ckpt_dir: str, device="cuda") -> dict:
+    """An HF checkpoint directory as the transformer's parameter tree, the
+    JAX loader's names and layouts (``tpuserve/models/weights.py``):
+    linear kernels ``(out, in)`` -> ``(in, out)``, Phi-3's fused
+    ``qkv_proj`` and ``gate_up_proj`` split, Qwen3's q/k norms, Gemma2's
+    sandwich norms, no ``lm_head`` with tied embeddings, OPT's learned
+    positions and layernorm biases.  Each leaf is copied to ``device`` in
+    the model's dtype before the next is read, so the host never holds the
+    model twice."""
+    _check_family(cfg)
+    dtype = param_dtype(cfg)
+    device = torch.device(device)
+    with read_safetensors(ckpt_dir) as raw:
+        if cfg.pos == "learned":
+            return _load_opt(cfg, raw, dtype, device)
+        return _load_llama_family(cfg, raw, dtype, device)
+
+
+def _put(w: torch.Tensor, dtype, device, t: bool = False) -> torch.Tensor:
+    """One leaf on the device in ``dtype`` (transposed from HF's (out, in)
+    to (in, out) when ``t``), never a view of the mapped file."""
+    w = w.to(device=device, dtype=dtype, copy=True)
+    return w.T.contiguous() if t else w
+
+
+def _load_llama_family(cfg: ModelConfig, raw: SafetensorsDir, dtype, device) -> dict:
+    def dense(name, bias_name=None):
+        p = {"kernel": _put(raw[name], dtype, device, t=True)}
+        if bias_name and bias_name in raw:
+            p["bias"] = _put(raw[bias_name], dtype, device)
+        return p
+
+    def norm_scale(name):
+        return {"scale": _put(raw[name], dtype, device)}
+
+    def split(name, sizes):
+        # a fused (out, in) projection: its row blocks, each as (in, out)
+        return [{"kernel": _put(w, dtype, device, t=True)}
+                for w in torch.split(raw[name], sizes, dim=0)]
+
+    layers = []
+    for i in range(cfg.num_layers):
+        pre = f"model.layers.{i}."
+        lp = {"attn_norm": norm_scale(pre + "input_layernorm.weight"),
+              "o_proj": dense(pre + "self_attn.o_proj.weight")}
+        if cfg.sandwich_norms:
+            # Gemma2: post_attention_layernorm wraps the attention output;
+            # the MLP pre-norm is pre_feedforward_layernorm
+            lp["post_attn_norm"] = norm_scale(pre + "post_attention_layernorm.weight")
+            lp["mlp_norm"] = norm_scale(pre + "pre_feedforward_layernorm.weight")
+            lp["post_mlp_norm"] = norm_scale(pre + "post_feedforward_layernorm.weight")
+        else:
+            lp["mlp_norm"] = norm_scale(pre + "post_attention_layernorm.weight")
+        if pre + "self_attn.qkv_proj.weight" in raw:            # Phi-3 fused qkv
+            lp["q_proj"], lp["k_proj"], lp["v_proj"] = split(
+                pre + "self_attn.qkv_proj.weight", [cfg.q_size, cfg.kv_size, cfg.kv_size])
+        else:
+            for proj in ("q", "k", "v"):
+                lp[f"{proj}_proj"] = dense(pre + f"self_attn.{proj}_proj.weight",
+                                           pre + f"self_attn.{proj}_proj.bias")
+        if cfg.qk_norm:
+            lp["q_norm"] = norm_scale(pre + "self_attn.q_norm.weight")
+            lp["k_norm"] = norm_scale(pre + "self_attn.k_norm.weight")
+        if pre + "mlp.gate_up_proj.weight" in raw:              # Phi-3 fused mlp
+            lp["gate_proj"], lp["up_proj"] = split(
+                pre + "mlp.gate_up_proj.weight", [cfg.intermediate_size] * 2)
+        else:
+            lp["gate_proj"] = dense(pre + "mlp.gate_proj.weight")
+            lp["up_proj"] = dense(pre + "mlp.up_proj.weight")
+        lp["down_proj"] = dense(pre + "mlp.down_proj.weight")
+        layers.append(lp)
+    params = {"embed": {"weight": _put(raw["model.embed_tokens.weight"], dtype, device)},
+              "layers": layers,
+              "final_norm": norm_scale("model.norm.weight")}
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = dense("lm_head.weight")
+    return params
+
+
+def _load_opt(cfg: ModelConfig, raw: SafetensorsDir, dtype, device) -> dict:
+    def get(name):
+        # OPT checkpoints may or may not carry the "model." prefix
+        for cand in (name, "model." + name):
+            if cand in raw:
+                return raw[cand]
+        raise KeyError(name)
+
+    def dense(name):
+        p = {"kernel": _put(get(name + ".weight"), dtype, device, t=True)}
+        try:
+            p["bias"] = _put(get(name + ".bias"), dtype, device)
+        except KeyError:
+            pass
+        return p
+
+    def norm(name):
+        return {"scale": _put(get(name + ".weight"), dtype, device),
+                "bias": _put(get(name + ".bias"), dtype, device)}
+
+    layers = []
+    for i in range(cfg.num_layers):
+        pre = f"decoder.layers.{i}."
+        layers.append({
+            "attn_norm": norm(pre + "self_attn_layer_norm"),
+            "q_proj": dense(pre + "self_attn.q_proj"),
+            "k_proj": dense(pre + "self_attn.k_proj"),
+            "v_proj": dense(pre + "self_attn.v_proj"),
+            "o_proj": dense(pre + "self_attn.out_proj"),
+            "mlp_norm": norm(pre + "final_layer_norm"),
+            "fc1": dense(pre + "fc1"),
+            "fc2": dense(pre + "fc2"),
+        })
+    return {"embed": {"weight": _put(get("decoder.embed_tokens.weight"), dtype, device)},
+            "pos_embed": {"weight": _put(get("decoder.embed_positions.weight"),
+                                         dtype, device)},
+            "layers": layers,
+            "final_norm": norm("decoder.final_layer_norm")}
+
+
+def load_or_init(cfg: ModelConfig, ckpt_dir: str | None, seed: int = 0,
+                 device="cuda") -> dict:
+    """The checkpoint in ``ckpt_dir`` when it holds ``*.safetensors``, else
+    random init from ``seed`` (the JAX package's rule), which is logged."""
+    if ckpt_dir and glob.glob(os.path.join(ckpt_dir, "*.safetensors")):
+        logger.info("loading checkpoint %s", ckpt_dir)
+        return load_hf_checkpoint(cfg, ckpt_dir, device)
+    logger.info("no *.safetensors in %s: random init of %s from seed %d",
+                ckpt_dir, cfg.name, seed)
+    return init_params(cfg, seed, device)

@@ -47,7 +47,7 @@ import torch
 from tpuserve_torch.models import transformer
 from tpuserve_torch.models.config import ModelConfig, get_model_config
 from tpuserve_torch.models.tokenizer import IncrementalDetokenizer, load_tokenizer
-from tpuserve_torch.models.weights import init_params, param_nbytes
+from tpuserve_torch.models.weights import load_or_init, param_nbytes
 from tpuserve_torch.ops import sampling as sampling_ops
 from tpuserve_torch.ops.ragged_paged import ragged_block, ragged_layout
 from tpuserve_torch.runtime.block_manager import BlockManager
@@ -69,14 +69,13 @@ _UNPORTED_CONFIG = (
     ("lora_dir", "LoRA (ROADMAP.md A8, model breadth)"),
     ("lora_modules", "multi-LoRA (ROADMAP.md A8, model breadth)"),
     ("speculative", "speculative decoding (ROADMAP.md A7, engine slice 3)"),
-    ("checkpoint_dir", "checkpoint loading (ROADMAP.md A2)"),
 )
 
 
 @dataclasses.dataclass
 class EngineConfig:
     model: str = "Qwen/Qwen3-0.6B"
-    checkpoint_dir: Optional[str] = None      # None = random init
+    checkpoint_dir: Optional[str] = None      # HF safetensors dir; None = random init
     cache: CacheConfig = dataclasses.field(default_factory=CacheConfig)
     scheduler: SchedulerConfig = dataclasses.field(default_factory=SchedulerConfig)
     attn_impl: str = "auto"                   # "auto" | "reference" | "cuda"
@@ -216,10 +215,13 @@ class Engine:
         if self.attn_impl not in transformer.ATTN_IMPLS:
             raise ValueError(f"attn_impl {self.attn_impl!r} not in "
                              f"{transformer.ATTN_IMPLS} (or 'auto')")
-        self.tokenizer = load_tokenizer(config.model,
+        # a checkpoint's own tokenizer files first, as the JAX engine
+        self.tokenizer = load_tokenizer(config.checkpoint_dir or config.model,
                                         vocab_size=self.model_cfg.vocab_size)
+        logger.info("tokenizer: %s", type(self.tokenizer).__name__)
         if params is None:
-            params = init_params(self.model_cfg, config.seed, self.device)
+            params = load_or_init(self.model_cfg, config.checkpoint_dir,
+                                  config.seed, self.device)
         self.params = params
         # Mixed batching: the flat-row block is the ragged kernel's grid
         # block AND the host packing's alignment (one source,
@@ -258,6 +260,10 @@ class Engine:
                                    ragged_align=self._ragged_blk)
         self.scheduler.clock = self.clock
         self.stats = EngineStats()
+        # terminal errors for QUEUED requests decided engine-side (deadline
+        # expiry): (rid, exc) pairs the server's runner drains and routes
+        # to the waiting clients (drain_request_errors)
+        self._error_outbox: list = []
         self.requests: dict[str, Request] = {}   # live + finished-unclaimed
         self._detok: dict[str, IncrementalDetokenizer] = {}
         self._salts: dict[str, int] = {}      # sampling-key salt a request
@@ -349,7 +355,9 @@ class Engine:
     # ------------------------------------------------------------------
 
     @staticmethod
-    def _reject_unported(params: SamplingParams) -> None:
+    def reject_unported(params: SamplingParams) -> None:
+        """Raise NotImplementedError naming the ROADMAP.md item of the first
+        sampling option this port does not carry yet."""
         checks = (
             (params.guided is not None,
              "guided decoding (ROADMAP.md A6, apply_token_mask)"),
@@ -368,9 +376,13 @@ class Engine:
     def add_request(self, prompt: str | None = None,
                     prompt_token_ids: Optional[Sequence[int]] = None,
                     params: Optional[SamplingParams] = None,
-                    request_id: Optional[str] = None) -> str:
+                    request_id: Optional[str] = None,
+                    deadline: Optional[float] = None) -> str:
+        """Queue a request.  ``deadline`` (the engine clock's seconds): a
+        request still queued past it is aborted before any prefill is spent
+        on it (``_expire_queued_deadlines``)."""
         params = params or SamplingParams()
-        self._reject_unported(params)
+        self.reject_unported(params)
         class_rank(params.slo_class)              # junk class: ValueError
         request_id = request_id or f"req-{next(self._req_counter)}"
         if request_id in self.requests:
@@ -400,7 +412,7 @@ class Engine:
                 f"{self.cache_cfg.max_model_len} and model position range "
                 f"{self.model_cfg.max_position_embeddings})")
         req = Request(request_id=request_id, prompt_token_ids=prompt_token_ids,
-                      params=params, prompt=prompt,
+                      params=params, prompt=prompt, deadline=deadline,
                       arrival_time=self.clock.monotonic())
         self.scheduler.add(req)                   # MemoryError: queue full
         self._detok[request_id] = IncrementalDetokenizer(self.tokenizer)
@@ -446,6 +458,31 @@ class Engine:
         self._release(request_id)
         return True
 
+    def _expire_queued_deadlines(self) -> None:
+        """Abort WAITING requests whose admission deadline has passed, as
+        the JAX engine does: their client's timeout fails them anyway.
+        Only requests with no progress expire: a preempted stream with
+        delivered tokens or a prompt mid-chunk is work already paid for."""
+        sched = self.scheduler
+        if not sched.waiting:
+            return
+        now = self.clock.monotonic()
+        expired = [r for r in sched.waiting
+                   if r.deadline is not None and now > r.deadline
+                   and r.state == RequestState.WAITING
+                   and r.num_prefilled == 0 and not r.output_token_ids]
+        for r in expired:
+            self.abort_request(r.request_id)
+            self._error_outbox.append((r.request_id, TimeoutError(
+                "request deadline expired before admission (engine "
+                "overloaded); aborted queue-side")))
+
+    def drain_request_errors(self) -> list:
+        """(rid, exception) pairs for queued requests the engine ended
+        itself (deadline expiry); the runner fails their clients."""
+        out, self._error_outbox = self._error_outbox, []
+        return out
+
     def _release(self, request_id: str) -> None:
         self._detok.pop(request_id, None)
         self._salts.pop(request_id, None)
@@ -462,7 +499,8 @@ class Engine:
     def step(self) -> list[RequestOutput]:
         """Run one engine iteration: one prefill batch, one prefill chunk,
         one mixed step, or one decode dispatch (a fused window or a single
-        step)."""
+        step).  Queued requests past their deadline leave first."""
+        self._expire_queued_deadlines()
         batch = self.scheduler.schedule()
         if batch is None:
             # nothing schedulable, but a decode result may be in flight

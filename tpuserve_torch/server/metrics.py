@@ -1,0 +1,164 @@
+"""Prometheus serving metrics with the vLLM-compatible families of
+``tpuserve/server/metrics.py``: the same names, label (``model_name``),
+types and histogram bucket edges, so the reference's scrape config and
+queries read the port unchanged.
+
+The card's machine has no ``prometheus_client``, so the port renders the
+text exposition format itself (``_Family``).  The ``tpuserve_*`` families
+of the SLO controller, tenants, device profiler, KV tiers and the model
+pool wait for those modules (ROADMAP.md A9).
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+
+_TTFT_BUCKETS = (0.01, 0.025, 0.05, 0.075, 0.1, 0.15, 0.25, 0.5, 1.0, 2.5,
+                 5.0, 10.0)
+_ITL_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0)
+_DURATION_BUCKETS = (0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 120.0)
+
+
+def _fmt(v: float) -> str:
+    if v == math.inf:
+        return "+Inf"
+    return repr(float(v))
+
+
+class _Child:
+    """One labelled series of a family: a value, or a histogram's bucket
+    counts and sum.  Updates hold the family's lock, so the runner thread
+    and the handler threads may both feed it."""
+
+    def __init__(self, family: "_Family"):
+        self._f = family
+        self.value = 0.0
+        if family.kind == "histogram":
+            self.buckets = [0] * len(family.edges)
+            self.count = 0
+
+    def inc(self, n: float = 1.0) -> None:
+        if n < 0:
+            raise ValueError("a counter only goes up")
+        with self._f.lock:
+            self.value += n
+
+    def set(self, v: float) -> None:
+        with self._f.lock:
+            self.value = float(v)
+
+    def observe(self, v: float) -> None:
+        with self._f.lock:
+            self.value += v
+            self.count += 1
+            for i, edge in enumerate(self._f.edges):
+                if v <= edge:
+                    self.buckets[i] += 1
+
+
+class _Family:
+    """A metric family: ``kind`` is counter, gauge or histogram."""
+
+    def __init__(self, name: str, doc: str, kind: str, labelnames: tuple,
+                 edges: tuple = ()):
+        self.name, self.doc, self.kind = name, doc, kind
+        self.labelnames = labelnames
+        self.edges = tuple(edges) + (math.inf,) if kind == "histogram" else ()
+        self.lock = threading.Lock()
+        self.children: dict[tuple, _Child] = {}
+
+    def labels(self, **kw) -> _Child:
+        key = tuple(str(kw[n]) for n in self.labelnames)
+        with self.lock:
+            child = self.children.get(key)
+            if child is None:
+                child = self.children[key] = _Child(self)
+        return child
+
+    def render(self) -> list[str]:
+        # a counter's samples end in _total, and so do its HELP and TYPE
+        # lines, as the reference's prometheus_client writes them
+        name = (self.name if self.kind != "counter" or self.name.endswith("_total")
+                else self.name + "_total")
+        out = [f"# HELP {name} {self.doc}", f"# TYPE {name} {self.kind}"]
+        with self.lock:
+            series = sorted(self.children.items())
+            for key, c in series:
+                labels = dict(zip(self.labelnames, key))
+                if self.kind != "histogram":
+                    out.append(f"{name}{_labels(labels)} {_fmt(c.value)}")
+                    continue
+                for edge, n in zip(self.edges, c.buckets):
+                    out.append(f"{name}_bucket{_labels(dict(labels, le=_fmt(edge)))} "
+                               f"{_fmt(n)}")
+                out.append(f"{name}_count{_labels(labels)} {_fmt(c.count)}")
+                out.append(f"{name}_sum{_labels(labels)} {_fmt(c.value)}")
+        return out
+
+
+def _labels(labels: dict) -> str:
+    if not labels:
+        return ""
+    body = ",".join(f'{k}="{_escape(v)}"' for k, v in sorted(labels.items()))
+    return "{" + body + "}"
+
+
+def _escape(v: str) -> str:
+    return v.replace("\\", "\\\\").replace("\n", "\\n").replace('"', '\\"')
+
+
+class ServerMetrics:
+    """One server's metric families (one object a server, so tests can run
+    many servers in a process)."""
+
+    def __init__(self, model_name: str):
+        self.model_name = model_name
+        self._families: list[_Family] = []
+        label = {"model_name": model_name}
+
+        def family(name, doc, kind, labelnames=("model_name",), edges=()):
+            f = _Family(name, doc, kind, labelnames, edges)
+            self._families.append(f)
+            return f
+
+        def counter(name, doc):
+            return family(name, doc, "counter").labels(**label)
+
+        def gauge(name, doc):
+            return family(name, doc, "gauge").labels(**label)
+
+        def histogram(name, doc, buckets):
+            return family(name, doc, "histogram", edges=buckets).labels(**label)
+
+        # the families the reference's verification queries look for
+        self.request_total = counter("vllm_request_total", "Total requests received")
+        self.active_requests = gauge("vllm_active_requests",
+                                     "Requests currently running or queued")
+        self.request_duration = histogram("vllm_request_duration_seconds",
+                                          "End-to-end request latency", _DURATION_BUCKETS)
+        # standard vLLM serving families
+        self.request_success = family("vllm_request_success", "Finished requests by reason",
+                                      "counter", ("model_name", "finished_reason"))
+        self.prompt_tokens = counter("vllm_prompt_tokens", "Prefill tokens processed")
+        self.generation_tokens = counter("vllm_generation_tokens", "Tokens generated")
+        self.ttft = histogram("vllm_time_to_first_token_seconds", "Time to first token",
+                              _TTFT_BUCKETS)
+        self.itl = histogram("vllm_time_per_output_token_seconds", "Inter-token latency",
+                             _ITL_BUCKETS)
+        self.kv_usage = gauge("vllm_kv_cache_usage_perc", "Fraction of KV blocks in use")
+        self.preemptions = counter("vllm_num_preemptions",
+                                   "Sequences preempted and re-prefilled")
+        self.running = gauge("vllm_num_requests_running", "Requests in the decode batch")
+        self.waiting = gauge("vllm_num_requests_waiting", "Requests queued for prefill")
+
+    def observe_finish(self, reason: str, duration_s: float) -> None:
+        self.request_success.labels(model_name=self.model_name,
+                                    finished_reason=reason).inc()
+        self.request_duration.observe(duration_s)
+
+    def render(self) -> bytes:
+        lines = []
+        for f in self._families:
+            lines += f.render()
+        return ("\n".join(lines) + "\n").encode()

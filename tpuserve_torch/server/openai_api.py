@@ -1,0 +1,918 @@
+"""OpenAI-compatible HTTP server over the port's engine: the port of
+``tpuserve/server/openai_api.py`` (stdlib HTTP, no web framework).
+
+Serves ``GET /v1/models``, ``/v1/models/{id}``, ``/metrics``, ``/healthz``
+and ``/readyz``; ``POST /v1/completions`` and ``/v1/chat/completions``,
+streamed (SSE) or not, and ``/tokenize`` / ``/detokenize``.
+
+Options whose engine parts are not ported yet are answered with a 400 that
+names the ROADMAP.md item bringing them, checked before the request is
+submitted, so a streaming request gets the status line and not a broken
+event stream: guided decoding, top_k/top_p/min_p, penalties, logprobs,
+``logit_bias`` and ``min_tokens`` (A6, ``Engine.reject_unported``),
+``best_of`` (A6), tool calls (A5b), prompt scoring and ``/v1/embeddings``
+(A7).
+
+Handler threads make no CUDA call: they tokenize, queue and write JSON.
+Every step, graph capture and device copy runs on the runner's loop thread
+(``server/runner.py``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import math
+import queue
+import sys
+import threading
+import time
+import uuid
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
+from urllib.parse import unquote
+
+from tpuserve_torch.models.tokenizer import default_chat_template
+from tpuserve_torch.runtime.engine import Engine
+from tpuserve_torch.runtime.request import SamplingParams
+from tpuserve_torch.runtime.slo import SLO_CLASSES
+from tpuserve_torch.server.metrics import ServerMetrics
+from tpuserve_torch.server.runner import AsyncEngineRunner
+from tpuserve_torch.server.tool_calls import normalize_messages
+
+logger = logging.getLogger("tpuserve_torch.server")
+
+
+class _HTTPServer(ThreadingHTTPServer):
+    # socketserver's default accept backlog is 5: a burst of simultaneous
+    # connects (batch arrivals) would be reset before a handler runs
+    request_queue_size = 128
+
+
+@dataclasses.dataclass
+class ServerConfig:
+    host: str = "0.0.0.0"
+    port: int = 8000
+    served_model_name: Optional[str] = None     # defaults to the engine's model
+    max_tokens_cap: int = 4096
+    request_timeout_s: float = 600.0
+    # Jinja chat-template text overriding the tokenizer's
+    chat_template: Optional[str] = None
+    # Retry-After seconds on the drain-time 503
+    drain_retry_after_s: int = 1
+
+
+def _num(body: dict, key: str, default, cast):
+    """A numeric field; null falls back to the default; junk -> ValueError."""
+    val = body.get(key)
+    if val is None:
+        return default
+    try:
+        return cast(val)
+    except (TypeError, ValueError, OverflowError):
+        # OverflowError: int(float('inf')); json.loads accepts Infinity
+        raise ValueError(f"'{key}' must be a number, got {val!r}") from None
+
+
+def _sampling_from_request(body: dict, cap: int) -> SamplingParams:
+    """The request's SamplingParams, validated as the JAX server validates
+    them (the same 400s).  Guided modes are recognised but not compiled:
+    the engine does not carry them yet (``Engine.reject_unported``)."""
+    stop = body.get("stop") or ()
+    if isinstance(stop, str):
+        stop = (stop,)
+    if not isinstance(stop, (list, tuple)) or not all(isinstance(s, str) for s in stop):
+        raise ValueError("'stop' must be a string or list of strings")
+    n_logprobs = body.get("logprobs")
+    if isinstance(n_logprobs, bool):            # chat API sends a bool
+        n_logprobs = _num(body, "top_logprobs", 5, int) if n_logprobs else None
+    elif n_logprobs is not None:
+        n_logprobs = _num(body, "logprobs", None, int)
+    seed = body.get("seed")
+    if seed is not None:
+        seed = _num(body, "seed", None, int)
+    bias = body.get("logit_bias")
+    if bias is not None:
+        if not isinstance(bias, dict) or len(bias) > 300:
+            raise ValueError("'logit_bias' must be a {token_id: bias} object with at "
+                             "most 300 entries")
+        try:
+            bias = {int(k): float(v) for k, v in bias.items()}
+        except (TypeError, ValueError):
+            raise ValueError("'logit_bias' keys must be token ids and values "
+                             "numbers") from None
+        if any(k < 0 or k >= 2**31 for k in bias):
+            raise ValueError("'logit_bias' token ids must be in [0, 2**31)")
+        if any(math.isnan(v) or math.isinf(v) for v in bias.values()):
+            raise ValueError("'logit_bias' values must be finite")
+        bias = {k: max(-100.0, min(100.0, v)) for k, v in bias.items()}
+    stop_ids = body.get("stop_token_ids") or ()
+    if stop_ids:
+        if (not isinstance(stop_ids, (list, tuple)) or len(stop_ids) > 64
+                or not all(isinstance(t, int) and not isinstance(t, bool)
+                           and 0 <= t < 2**31 for t in stop_ids)):
+            raise ValueError("'stop_token_ids' must be a list of at most 64 token ids "
+                             "in [0, 2**31)")
+    min_p = _num(body, "min_p", 0.0, float)
+    if not 0.0 <= min_p <= 1.0:                 # NaN fails both comparisons too
+        raise ValueError("'min_p' must be in [0, 1]")
+    temperature = _num(body, "temperature", 1.0, float)
+    if not 0.0 <= temperature <= 100.0:
+        raise ValueError("'temperature' must be in [0, 100]")
+    top_k = _num(body, "top_k", 0, int)
+    if not -(2**31) <= top_k < 2**31:
+        raise ValueError("'top_k' must be a 32-bit integer (<=0 disables)")
+    top_p = _num(body, "top_p", 1.0, float)
+    if not 0.0 <= top_p <= 1.0:
+        raise ValueError("'top_p' must be in [0, 1]")
+    penalties = {}
+    for pen, default in (("presence_penalty", 0.0), ("frequency_penalty", 0.0),
+                         ("repetition_penalty", 1.0)):
+        v = _num(body, pen, default, float)
+        if not -1e6 <= v <= 1e6:
+            raise ValueError(f"'{pen}' must be a finite number")
+        penalties[pen] = v
+    if n_logprobs is not None and not 0 <= n_logprobs <= 2**31 - 1:
+        raise ValueError("'logprobs' must be a non-negative 32-bit integer")
+    priority = _num(body, "priority", 0, int)
+    if not -(2**31) <= priority < 2**31:
+        raise ValueError("'priority' must be a 32-bit integer")
+    slo_class = body.get("slo_class")
+    if slo_class is not None and slo_class not in SLO_CLASSES:
+        raise ValueError(f"'slo_class' must be one of {'/'.join(SLO_CLASSES)}, "
+                         f"got {slo_class!r}")
+    guided = None
+    rf = body.get("response_format")
+    if rf is not None:
+        if not isinstance(rf, dict) or not isinstance(rf.get("type"), str):
+            raise ValueError("'response_format' must be an object with a 'type'")
+        if rf["type"] == "json_object":
+            guided = "json"
+        elif rf["type"] == "json_schema":
+            js = rf.get("json_schema")
+            if not isinstance(js, dict) or not isinstance(js.get("schema"), dict):
+                raise ValueError("response_format json_schema needs a 'json_schema' "
+                                 "object with a 'schema'")
+            guided = "json_schema"
+        elif rf["type"] != "text":
+            raise ValueError(f"unknown response_format type {rf['type']!r}")
+    if body.get("guided_regex") is not None:
+        if guided is not None:
+            raise ValueError("'guided_regex' cannot be combined with response_format "
+                             "json modes")
+        if not isinstance(body["guided_regex"], str):
+            raise ValueError("'guided_regex' must be a string pattern")
+        guided = "regex"
+    if body.get("guided_choice") is not None:
+        if guided is not None:
+            raise ValueError("'guided_choice' cannot be combined with other guided modes")
+        guided = "choice"
+    tpt = _num(body, "truncate_prompt_tokens", None, int)
+    if tpt is not None and tpt < 1:
+        raise ValueError("'truncate_prompt_tokens' must be >= 1")
+    plp = _num(body, "prompt_logprobs", None, int)
+    if plp is not None and plp < 0:
+        raise ValueError("'prompt_logprobs' must be >= 0")
+    max_tokens = min(_num(body, "max_tokens", 16, int), cap)
+    if max_tokens < 0:
+        raise ValueError("'max_tokens' must be >= 0 (0 only for prompt scoring: "
+                         "completions with echo + logprobs)")
+    return SamplingParams(
+        max_tokens=max_tokens,
+        min_tokens=max(0, min(_num(body, "min_tokens", 0, int), max_tokens)),
+        temperature=temperature, top_k=top_k, top_p=top_p, min_p=min_p,
+        presence_penalty=penalties["presence_penalty"],
+        frequency_penalty=penalties["frequency_penalty"],
+        repetition_penalty=penalties["repetition_penalty"],
+        stop=tuple(stop), ignore_eos=bool(body.get("ignore_eos", False)),
+        include_stop_str_in_output=bool(body.get("include_stop_str_in_output", False)),
+        seed=seed, logprobs=n_logprobs, logit_bias=bias,
+        stop_token_ids=tuple(stop_ids), guided=guided, priority=priority,
+        slo_class=slo_class or "standard", truncate_prompt_tokens=tpt)
+
+
+def _reject_unported_request(body: dict, params: SamplingParams) -> None:
+    """NotImplementedError (a 400 naming its ROADMAP.md item) for a request
+    that needs a part this port does not carry yet; called before submit."""
+    if body.get("tools") is not None or body.get("tool_choice") not in ("auto", "none", None):
+        raise NotImplementedError("not ported yet: tool calls (ROADMAP.md A5b)")
+    Engine.reject_unported(params)
+    if body.get("prompt_logprobs") is not None:
+        raise NotImplementedError("not ported yet: prompt_logprobs (score_prompt: "
+                                  "ROADMAP.md A7)")
+
+
+class OpenAIServer:
+    """HTTP front end over an AsyncEngineRunner."""
+
+    MAX_CHOICES = 8
+
+    def __init__(self, engine, config: ServerConfig | None = None,
+                 metrics: ServerMetrics | None = None):
+        self.config = config or ServerConfig()
+        self.model_name = self.config.served_model_name or engine.config.model
+        self.metrics = metrics or ServerMetrics(self.model_name)
+        self.runner = AsyncEngineRunner(engine, self.metrics)
+        self.engine = engine
+        self.ready = threading.Event()
+        self.draining = False          # drain(): reject new work, finish old
+        # live POST handlers: drain() waits for delivery, not only for the
+        # engine to queue the last token
+        self._inflight = 0
+        self._inflight_lock = threading.Lock()
+        self._httpd: Optional[ThreadingHTTPServer] = None
+        self._serve_thread: Optional[threading.Thread] = None
+        self._chat_template = None
+        if self.config.chat_template:
+            import jinja2
+            self._chat_template = jinja2.Template(self.config.chat_template)
+
+    # ---- lifecycle -----------------------------------------------------
+
+    def start(self, warmup: bool = False) -> int:
+        """Start the engine loop, warm the engine's executables (on this
+        thread, before any request can arrive) and open the listener;
+        returns the bound port."""
+        self.runner.start()
+        if warmup:
+            self.engine.warmup()
+        server = self
+
+        class Handler(_Handler):
+            ctx = server
+
+        self._httpd = _HTTPServer((self.config.host, self.config.port), Handler)
+        self._serve_thread = threading.Thread(target=self._httpd.serve_forever,
+                                              daemon=True, name="tpuserve-torch-http")
+        self._serve_thread.start()
+        self.ready.set()
+        port = self._httpd.server_address[1]
+        logger.info("serving %s on %s:%d", self.model_name, self.config.host, port)
+        return port
+
+    def _handler_enter(self) -> None:
+        with self._inflight_lock:
+            self._inflight += 1
+
+    def _handler_exit(self) -> None:
+        with self._inflight_lock:
+            self._inflight -= 1
+
+    def drain(self, timeout_s: float = 25.0) -> bool:
+        """Graceful shutdown: /readyz turns 503, new requests get a
+        retryable 503, in-flight ones finish, then everything stops.
+        Returns True when all drained inside the timeout."""
+        self.draining = True
+        self.ready.clear()
+        deadline = time.monotonic() + timeout_s
+        drained = False
+        while time.monotonic() < deadline:
+            if self.runner.idle() and self._inflight == 0:
+                drained = True
+                break
+            time.sleep(0.05)
+        if not drained:
+            logger.warning("drain timed out with work in flight")
+        self.shutdown()
+        return drained
+
+    def shutdown(self) -> None:
+        self.ready.clear()
+        if self._httpd:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+        self.runner.shutdown()
+
+    # ---- request parsing (handler threads) -----------------------------
+
+    def parse_n(self, body: dict) -> int:
+        n = body.get("n", 1)
+        if not isinstance(n, int) or not 1 <= n <= self.MAX_CHOICES:
+            raise ValueError(f"'n' must be an integer in 1..{self.MAX_CHOICES}")
+        return n
+
+    def parse_best_of(self, body: dict, n: int, chat: bool) -> None:
+        """OpenAI completions ``best_of``, validated as the JAX server does;
+        ``best_of > n`` ranks candidates by their logprobs, which the port
+        does not compute yet."""
+        best_of = body.get("best_of")
+        if best_of is None:
+            return
+        if chat:
+            raise ValueError("'best_of' is a completions parameter (not supported on chat)")
+        if not isinstance(best_of, int) or not n <= best_of <= self.MAX_CHOICES:
+            raise ValueError(f"'best_of' must be an integer in n..{self.MAX_CHOICES}")
+        if best_of > n:
+            raise NotImplementedError("not ported yet: best_of > n (ranks candidates by "
+                                      "logprobs: ROADMAP.md A6)")
+
+    def handle_completion(self, body: dict, chat: bool):
+        """(prompt text or token ids, SamplingParams)."""
+        if chat:
+            messages = body.get("messages")
+            if not isinstance(messages, list) or not messages:
+                raise ValueError("'messages' must be a non-empty list")
+            messages = normalize_messages(messages)
+            tok = self.engine.tokenizer
+            if self._chat_template is not None:
+                prompt = self._chat_template.render(messages=messages,
+                                                    add_generation_prompt=True)
+            elif hasattr(tok, "apply_chat_template"):
+                prompt = tok.apply_chat_template(messages)
+            else:
+                prompt = default_chat_template(messages)
+        else:
+            prompt = body.get("prompt")
+            if isinstance(prompt, list):
+                if prompt and isinstance(prompt[0], int):
+                    return prompt, _sampling_from_request(body, self.config.max_tokens_cap)
+                if len(prompt) != 1:
+                    raise ValueError("batched prompt lists are not supported; send one "
+                                     "request per prompt")
+                prompt = prompt[0]
+            if not isinstance(prompt, str) or not prompt:
+                raise ValueError("'prompt' must be a non-empty string")
+        return prompt, _sampling_from_request(body, self.config.max_tokens_cap)
+
+
+def _status_of(exc: Exception) -> tuple[int, str, Optional[dict]]:
+    """HTTP status, error type and headers of a request's failure."""
+    if isinstance(exc, (ValueError, NotImplementedError)):
+        return 400, "invalid_request_error", None
+    if isinstance(exc, MemoryError):
+        # admission backpressure (a full waiting queue): retryable
+        return 503, "server_error", {"Retry-After": "1"}
+    if isinstance(exc, TimeoutError):
+        return 504, "server_error", None
+    return 500, "server_error", None
+
+
+class _Handler(BaseHTTPRequestHandler):
+    # per-token SSE events are small writes: no Nagle delay
+    disable_nagle_algorithm = True
+    ctx: OpenAIServer
+    protocol_version = "HTTP/1.1"
+
+    def log_message(self, fmt, *args):
+        logger.debug("%s " + fmt, self.address_string(), *args)
+
+    # ---- helpers -------------------------------------------------------
+
+    def _json(self, code: int, payload: dict, headers: Optional[dict] = None) -> None:
+        data = json.dumps(payload).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(data)))
+        for k, v in (headers or {}).items():
+            self.send_header(k, v)
+        self.end_headers()
+        self.wfile.write(data)
+
+    def _error(self, code: int, message: str, etype: str = "invalid_request_error",
+               headers: Optional[dict] = None) -> None:
+        self._json(code, {"error": {"message": message, "type": etype}}, headers=headers)
+
+    def _fail(self, exc: Exception) -> None:
+        code, etype, headers = _status_of(exc)
+        self._error(code, str(exc), etype, headers=headers)
+
+    def _read_body(self) -> dict:
+        length = int(self.headers.get("Content-Length") or 0)
+        if length <= 0:
+            raise ValueError("missing request body")
+        if length > 10 * 1024 * 1024:
+            # the unread body would be parsed as the next request line
+            self.close_connection = True
+            raise ValueError("request body too large")
+        body = json.loads(self.rfile.read(length))
+        if not isinstance(body, dict):
+            raise ValueError("request body must be a JSON object")
+        return body
+
+    # ---- routes --------------------------------------------------------
+
+    def do_GET(self):
+        ctx = self.ctx
+        eng = ctx.engine
+        if self.path == "/v1/models":
+            self._json(200, {"object": "list", "data": [{
+                "id": ctx.model_name, "object": "model", "created": int(time.time()),
+                "owned_by": "tpuserve", "max_model_len": eng.max_seq_len,
+                "quantization": eng.config.quantization,
+                "kv_cache_dtype": eng.cache_cfg.dtype}]})
+        elif self.path.startswith("/v1/models/"):
+            # ids may contain '/', e.g. Qwen/Qwen3-0.6B: match the raw suffix
+            wanted = unquote(self.path[len("/v1/models/"):])
+            if wanted == ctx.model_name:
+                self._json(200, {"id": wanted, "object": "model",
+                                 "created": int(time.time()), "owned_by": "tpuserve"})
+            else:
+                self._error(404, f"model {wanted!r} not found")
+        elif self.path == "/metrics":
+            data = ctx.metrics.render()
+            self.send_response(200)
+            self.send_header("Content-Type", "text/plain; version=0.0.4")
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+        elif self.path == "/healthz":
+            self._json(200, {"status": "ok"})
+        elif self.path == "/readyz":
+            if ctx.ready.is_set():
+                self._json(200, {"status": "ready"})
+            else:
+                self._error(503, "not ready", "server_error")
+        else:
+            self._error(404, f"no route {self.path}")
+
+    def do_POST(self):
+        # enter BEFORE the draining check, or a thread descheduled between
+        # the two could submit into an engine loop drain() already stopped
+        self.ctx._handler_enter()
+        try:
+            if self.ctx.draining:
+                self._error(503, "server is draining; retry another replica",
+                            "server_error", headers={
+                                "Retry-After": str(self.ctx.config.drain_retry_after_s)})
+                return
+            self._do_post_inner()
+        finally:
+            self.ctx._handler_exit()
+
+    def _do_post_inner(self):
+        if self.path in ("/tokenize", "/detokenize"):
+            self._handle_tokenize(self.path == "/tokenize")
+            return
+        if self.path == "/v1/embeddings":
+            self._error(400, "not ported yet: /v1/embeddings (embed_forward: "
+                             "ROADMAP.md A7)")
+            return
+        chat = self.path == "/v1/chat/completions"
+        if self.path not in ("/v1/completions", "/v1/chat/completions"):
+            self._error(404, f"no route {self.path}")
+            return
+        ctx = self.ctx
+        try:
+            body = self._read_body()
+            if not chat and body.get("suffix") is not None:
+                raise ValueError("'suffix' is not supported")
+            prompt, params = ctx.handle_completion(body, chat)
+            n = ctx.parse_n(body)
+            ctx.parse_best_of(body, n, chat)
+            stream = bool(body.get("stream", False))
+            if "stream_options" in body and not isinstance(body.get("stream_options"),
+                                                           dict):
+                raise ValueError("'stream_options' must be an object")
+            if body.get("slo_class") is None and self.headers.get("X-SLO-Class"):
+                cls = self.headers["X-SLO-Class"]
+                if cls not in SLO_CLASSES:
+                    raise ValueError(f"X-SLO-Class must be one of {'/'.join(SLO_CLASSES)}, "
+                                     f"got {cls!r}")
+                params = dataclasses.replace(params, slo_class=cls)
+            if params.max_tokens == 0:
+                if (chat or stream or not body.get("echo") or params.logprobs is None
+                        or n != 1 or body.get("prompt_logprobs") is not None):
+                    raise ValueError("max_tokens=0 is prompt scoring: requires completions "
+                                     "with echo=true and logprobs, non-streaming, n=1 (and "
+                                     "not combined with prompt_logprobs — it would be "
+                                     "redundant)")
+                raise NotImplementedError("not ported yet: prompt scoring (score_prompt: "
+                                          "ROADMAP.md A7)")
+            _reject_unported_request(body, params)
+        except (ValueError, NotImplementedError, json.JSONDecodeError) as e:
+            self._error(400, str(e))
+            return
+        kwargs = ({"prompt_token_ids": prompt} if isinstance(prompt, list)
+                  else {"prompt": prompt})
+        try:
+            if stream:
+                # _stream_response owns its errors: once SSE headers are
+                # out, a second status line would corrupt the stream
+                self._stream_response(body, params, chat, kwargs, n)
+            else:
+                self._full_response(body, params, chat, kwargs, n)
+        except BrokenPipeError:
+            pass
+        except Exception as e:               # engine-side failure, pre-headers
+            logger.exception("request failed")
+            if not stream:
+                try:
+                    self._error(500, str(e), "server_error")
+                except OSError:
+                    pass
+
+    def _handle_tokenize(self, encode: bool):
+        """vLLM's /tokenize and /detokenize against the server's tokenizer."""
+        eng = self.ctx.engine
+        try:
+            body = self._read_body()
+            if encode:
+                prompt = body.get("prompt")
+                if not isinstance(prompt, str):
+                    raise ValueError("'prompt' must be a string")
+                ids = eng.tokenizer.encode(prompt)
+                self._json(200, {"tokens": ids, "count": len(ids),
+                                 "max_model_len": eng.max_seq_len})
+            else:
+                tokens = body.get("tokens")
+                vocab = eng.model_cfg.vocab_size
+                if (not isinstance(tokens, list)
+                        or not all(isinstance(t, int) and not isinstance(t, bool)
+                                   and 0 <= t < vocab for t in tokens)):
+                    raise ValueError("'tokens' must be a list of token ids "
+                                     f"in [0, {vocab})")
+                self._json(200, {"prompt": eng.tokenizer.decode(tokens)})
+        except (ValueError, json.JSONDecodeError) as e:
+            self._error(400, str(e))
+
+    # ---- response shapes ------------------------------------------------
+
+    @staticmethod
+    def _choice_params(params, i: int, n: int):
+        """Choice i of a seeded n > 1 request samples with seed + i;
+        unseeded choices already differ by their salts."""
+        if n == 1 or params.seed is None:
+            return params
+        return dataclasses.replace(params, seed=params.seed + i)
+
+    def _submit_choices(self, params, kwargs, n):
+        """Submit the n per-choice requests; if one is refused, abort those
+        already accepted so they do not generate to max_tokens."""
+        ctx = self.ctx
+        submits = []
+        # a request this handler would time out anyway is aborted by the
+        # engine while still queued (Engine._expire_queued_deadlines)
+        deadline = ctx.runner._clock.monotonic() + ctx.config.request_timeout_s
+        try:
+            for i in range(n):
+                submits.append(ctx.runner.submit(params=self._choice_params(params, i, n),
+                                                 deadline=deadline, **kwargs))
+        except Exception:
+            for rid, _ in submits:
+                ctx.runner.abort(rid)
+                ctx.engine.requests.pop(rid, None)
+            raise
+        return submits
+
+    def _echo_text(self, body, chat, kwargs, params):
+        """OpenAI completions ``echo``: the prompt text to prepend (the
+        truncated prompt under truncate_prompt_tokens), or None."""
+        if chat or not body.get("echo"):
+            return None
+        tok = self.ctx.engine.tokenizer
+        if params.truncate_prompt_tokens:
+            ids = (list(kwargs["prompt_token_ids"]) if "prompt_token_ids" in kwargs
+                   else tok.encode(kwargs["prompt"]))
+            return tok.decode(ids[-params.truncate_prompt_tokens:])
+        if "prompt" in kwargs:
+            return kwargs["prompt"]
+        return tok.decode(kwargs["prompt_token_ids"])
+
+    def _full_response(self, body, params, chat, kwargs, n=1):
+        ctx = self.ctx
+        submits = self._submit_choices(params, kwargs, n)
+        deadline = time.monotonic() + ctx.config.request_timeout_s
+
+        def fail(exc):
+            for rid, _ in submits:
+                ctx.runner.abort(rid)
+                ctx.engine.requests.pop(rid, None)
+            self._fail(exc)
+
+        choices = []
+        prompt_tokens = completion_tokens = 0
+        echo_text = self._echo_text(body, chat, kwargs, params)
+        for idx, (rid, q) in enumerate(submits):
+            text_parts, n_tokens, finish_reason = [], 0, "stop"
+            while True:
+                try:
+                    item = q.get(timeout=max(deadline - time.monotonic(), 0.001))
+                except queue.Empty:
+                    fail(TimeoutError("request timed out"))
+                    return
+                if item is None:
+                    break
+                if isinstance(item, Exception):
+                    fail(item)
+                    return
+                text_parts.append(item.new_text)
+                n_tokens += len(item.new_token_ids)
+                if item.finish_reason is not None:
+                    finish_reason = item.finish_reason.value
+            req = ctx.engine.requests.pop(rid, None)
+            if req is not None:
+                prompt_tokens = req.num_prompt_tokens
+            completion_tokens += n_tokens
+            text = "".join(text_parts)
+            if echo_text is not None:
+                text = echo_text + text
+            if chat:
+                choices.append({"index": idx,
+                                "message": {"role": "assistant", "content": text},
+                                "finish_reason": finish_reason})
+            else:
+                choices.append({"index": idx, "text": text, "finish_reason": finish_reason})
+        self._json(200, {
+            "id": f"cmpl-{uuid.uuid4().hex[:24]}",
+            "object": "chat.completion" if chat else "text_completion",
+            "created": int(time.time()), "model": ctx.model_name, "choices": choices,
+            "usage": {"prompt_tokens": prompt_tokens,
+                      "completion_tokens": completion_tokens,
+                      "total_tokens": prompt_tokens + completion_tokens}})
+
+    def _stream_response(self, body, params, chat, kwargs, n=1):
+        ctx = self.ctx
+        served = ctx.model_name
+        # vLLM extension: each chunk's token ids, so clients count tokens
+        # exactly (a fused decode window emits several chunks at once)
+        ret_ids = bool(body.get("return_token_ids"))
+        try:
+            submits = self._submit_choices(params, kwargs, n)
+        except Exception as e:
+            self._fail(e)
+            return
+        oid = f"cmpl-{uuid.uuid4().hex[:24]}"
+
+        def abort_all():
+            for rid, _ in submits:
+                ctx.runner.abort(rid)
+
+        # HOLD the 200 until every choice produced its first item: an
+        # intake rejection (400, 503 backpressure) must be a real status
+        # line, not an SSE chunk inside a 200
+        deadline = time.monotonic() + ctx.config.request_timeout_s
+        firsts, err = [], None
+        for rid, q in submits:
+            try:
+                item = q.get(timeout=max(deadline - time.monotonic(), 0.001))
+            except queue.Empty:
+                err = TimeoutError("request timed out")
+                break
+            firsts.append(item)
+            if isinstance(item, Exception):
+                err = item
+                break
+        if err is not None:
+            abort_all()
+            for rid, _ in submits:
+                ctx.engine.requests.pop(rid, None)
+            self._fail(err)
+            return
+        self.send_response(200)
+        self.send_header("Content-Type", "text/event-stream")
+        self.send_header("Cache-Control", "no-cache")
+        self.send_header("Transfer-Encoding", "chunked")
+        self.end_headers()
+
+        # chunks gather in ``buf`` and leave in one write a drained batch
+        # (a window's outputs arrive together); the buffer is flushed
+        # before any wait on the queue, so nothing ready is held back
+        buf = bytearray()
+
+        def send_chunk(payload: dict):
+            data = b"data: " + json.dumps(payload).encode() + b"\n\n"
+            buf.extend(hex(len(data))[2:].encode() + b"\r\n" + data + b"\r\n")
+
+        def flush_chunks():
+            if buf:
+                self.wfile.write(bytes(buf))
+                buf.clear()
+                self.wfile.flush()
+
+        # n > 1: the choices' queues merge into one, tagged with the choice
+        # index; the first items read above re-enter ahead of the rest
+        if n == 1:
+            merged = None
+        else:
+            merged = queue.Queue()
+            for i, item in enumerate(firsts):
+                merged.put((i, item))
+
+            def pump(idx, q):
+                while True:
+                    item = q.get()
+                    merged.put((idx, item))
+                    if item is None or isinstance(item, Exception):
+                        return
+            for i, (_, q) in enumerate(submits):
+                threading.Thread(target=pump, args=(i, q), daemon=True).start()
+        prompt_toks = completion_toks = 0
+        try:
+            # OpenAI sends "usage": null on every chunk but the last
+            include_usage = bool((body.get("stream_options") or {}).get("include_usage"))
+            obj = "chat.completion.chunk" if chat else "text_completion"
+            if chat:
+                for i in range(n):
+                    chunk = {"id": oid, "object": obj, "model": served,
+                             "choices": [{"index": i, "delta": {"role": "assistant"},
+                                          "finish_reason": None}]}
+                    if include_usage:
+                        chunk["usage"] = None
+                    send_chunk(chunk)
+            echo_text = self._echo_text(body, chat, kwargs, params)
+            if echo_text is not None:
+                for i in range(n):
+                    choice = {"index": i, "text": echo_text, "finish_reason": None}
+                    if ret_ids:
+                        choice["token_ids"] = []
+                    chunk = {"id": oid, "object": obj, "created": int(time.time()),
+                             "model": served, "choices": [choice]}
+                    if include_usage:
+                        chunk["usage"] = None
+                    send_chunk(chunk)
+            errored = False
+            live = n
+            # a sentinel, not None: a first item of None (the finish marker
+            # of an instant abort) must still be delivered
+            consumed = object()
+            held = firsts[0] if merged is None else consumed
+            while live:
+                try:
+                    if held is not consumed:
+                        idx, item, held = 0, held, consumed
+                    else:
+                        src = submits[0][1] if merged is None else merged
+                        try:
+                            got = src.get_nowait()
+                        except queue.Empty:
+                            flush_chunks()
+                            got = src.get(timeout=max(deadline - time.monotonic(), 0.001))
+                        idx, item = (0, got) if merged is None else got
+                except queue.Empty:
+                    abort_all()
+                    send_chunk({"error": {"message": "request timed out"}})
+                    errored = True
+                    break
+                if item is None:
+                    live -= 1
+                    continue
+                if isinstance(item, Exception):
+                    send_chunk({"error": {"message": str(item)}})
+                    errored = True
+                    live -= 1
+                    continue
+                finish = item.finish_reason.value if item.finish_reason else None
+                if chat:
+                    delta = {"content": item.new_text} if item.new_text else {}
+                    choice = {"index": idx, "delta": delta, "finish_reason": finish}
+                else:
+                    choice = {"index": idx, "text": item.new_text, "finish_reason": finish}
+                if ret_ids:
+                    choice["token_ids"] = list(item.new_token_ids)
+                completion_toks += len(item.new_token_ids)
+                # the prompt is shared across the n choices: counted once
+                prompt_toks = item.num_prompt_tokens
+                chunk = {"id": oid, "object": obj, "created": int(time.time()),
+                         "model": served, "choices": [choice]}
+                if include_usage:
+                    chunk["usage"] = None
+                send_chunk(chunk)
+            if include_usage and not errored:
+                send_chunk({"id": oid, "object": obj, "created": int(time.time()),
+                            "model": served, "choices": [],
+                            "usage": {"prompt_tokens": prompt_toks,
+                                      "completion_tokens": completion_toks,
+                                      "total_tokens": prompt_toks + completion_toks}})
+            flush_chunks()
+            done = b"data: [DONE]\n\n"
+            self.wfile.write(hex(len(done))[2:].encode() + b"\r\n" + done + b"\r\n")
+            self.wfile.write(b"0\r\n\r\n")
+            self.wfile.flush()
+        except (BrokenPipeError, ConnectionResetError):
+            abort_all()                 # the client went away mid-stream
+        except Exception:
+            logger.exception("streaming failed")
+            abort_all()
+        finally:
+            for rid, _ in submits:
+                ctx.engine.requests.pop(rid, None)
+
+
+# flags of the JAX server's CLI whose parts are not ported: (flag, its
+# argparse keywords, ROADMAP.md item); any value but the default exits
+# naming the item
+_UNPORTED_FLAGS = (
+    ("--tp", dict(type=int, default=0), "A10, multi-GPU"),
+    ("--pp", dict(type=int, default=0), "A10, multi-GPU"),
+    ("--disagg", dict(action="store_true"), "A10, multi-GPU"),
+    ("--role", dict(default=None, choices=["prefill", "decode"]), "A10, multi-GPU"),
+    ("--decode-url", dict(default=None), "A10, multi-GPU"),
+    ("--multihost", dict(action="store_true"), "A10, multi-GPU"),
+    ("--lora", dict(default=None), "A8, model breadth"),
+    ("--lora-modules", dict(default=None, nargs="+"), "A8, model breadth"),
+    ("--quantization", dict(default=None, choices=["int8"]), "A8, model breadth"),
+    ("--speculative-k", dict(type=int, default=0), "A7, speculation"),
+    ("--speculative-draft-model", dict(default=None), "A7, speculation"),
+    ("--speculative-draft-dir", dict(default=None), "A7, speculation"),
+    ("--warmup-embed", dict(default=None), "A7, embeddings"),
+    ("--model-catalog", dict(default=None), "A9, the model pool"),
+    ("--swap-policy", dict(default="swap", choices=["swap", "reject"]), "A9, the model pool"),
+    ("--max-resident-models", dict(type=int, default=1), "A9, the model pool"),
+    ("--weight-host-bytes", dict(type=int, default=0), "A9, the model pool"),
+    ("--weight-spill-dir", dict(default=None), "A9, the model pool"),
+    ("--faults", dict(default=None), "A9, fault injection"),
+    ("--tenant-config", dict(default=None), "A9, tenants"),
+    ("--slo-objectives", dict(default=None), "A9, SLO burn rates"),
+    ("--kv-host-bytes", dict(type=int, default=0), "A6, the KV-tier data plane"),
+    ("--kv-spill-dir", dict(default=None), "A6, the KV-tier data plane"),
+    ("--tool-call-parser", dict(default=None, choices=["hermes", "mistral", "llama3_json"]),
+     "A5b, tool calls"),
+    ("--step-watchdog-s", dict(type=float, default=0.0),
+     "A5b, crash-only salvage and the watchdog"),
+)
+
+
+def build_parser():
+    """The JAX server's CLI (``tpuserve/server/openai_api.py`` ``main``),
+    plus ``--device``."""
+    import argparse
+    ap = argparse.ArgumentParser("tpuserve_torch.server")
+    ap.add_argument("--model", default="Qwen/Qwen3-0.6B")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="HF safetensors directory (random init when it holds none)")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="the engine's device; the CPU runs the kernels' plain versions")
+    ap.add_argument("--host", default="0.0.0.0")
+    ap.add_argument("--port", type=int, default=8000, help="0 binds a free port")
+    ap.add_argument("--block-size", type=int, default=32)
+    ap.add_argument("--num-blocks", type=int, default=2048,
+                    help="KV cache blocks; 0 sizes the cache to the memory left free")
+    ap.add_argument("--max-blocks-per-seq", type=int, default=64)
+    ap.add_argument("--max-num-seqs", type=int, default=64)
+    ap.add_argument("--max-waiting", type=int, default=0,
+                    help="reject (HTTP 503) requests beyond this many waiting "
+                         "(0 = 4x max-num-seqs; -1 disables)")
+    ap.add_argument("--mixed-batching", action="store_true",
+                    help="decode rows and prefill chunks in one flat-token step")
+    ap.add_argument("--mixed-token-budget", type=int, default=512)
+    ap.add_argument("--interleave-batched-prefill", action="store_true")
+    ap.add_argument("--attn-impl", default="auto")
+    ap.add_argument("--multi-step", type=int, default=None,
+                    help="fused decode window size (default: 32 on the card, 1 on the CPU)")
+    ap.add_argument("--no-adaptive-window", action="store_true")
+    ap.add_argument("--min-multi-step", type=int, default=4)
+    ap.add_argument("--kv-cache-dtype", default="bfloat16",
+                    choices=["bfloat16", "float32", "int8"])
+    ap.add_argument("--pipeline", dest="pipeline", action="store_true", default=None,
+                    help="force pipelined decode (default: on with a card)")
+    ap.add_argument("--no-pipeline", dest="pipeline", action="store_false")
+    ap.add_argument("--chat-template", default=None,
+                    help="path to a Jinja chat template overriding the tokenizer's")
+    ap.add_argument("--no-warmup", action="store_true")
+    ap.add_argument("--drain-timeout", type=float, default=25.0,
+                    help="graceful-drain budget on SIGTERM, seconds")
+    # parts the port lacks: switching them off is what the port does already
+    for flag in ("--no-kv-tiers", "--no-slo-classes", "--no-slo-burn", "--no-devprof"):
+        ap.add_argument(flag, action="store_true", help="accepted; no effect in the port")
+    for flag, kw, _item in _UNPORTED_FLAGS:
+        ap.add_argument(flag, help="not ported yet", **kw)
+    return ap
+
+
+def main(argv=None):
+    """``python -m tpuserve_torch.server``: build the engine, warm it,
+    serve until SIGTERM, then drain."""
+    from tpuserve_torch.runtime import CacheConfig, Engine, EngineConfig, SchedulerConfig
+
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    for flag, kw, item in _UNPORTED_FLAGS:
+        if getattr(args, flag[2:].replace("-", "_")) != kw.get("default", False):
+            ap.error(f"{flag} is not ported yet (ROADMAP.md {item})")
+    logging.basicConfig(level=logging.INFO)
+    chat_template = None
+    if args.chat_template:
+        with open(args.chat_template) as f:
+            chat_template = f.read()
+    ecfg = EngineConfig(
+        model=args.model, checkpoint_dir=args.checkpoint_dir,
+        cache=CacheConfig(block_size=args.block_size, num_blocks=args.num_blocks,
+                          max_blocks_per_seq=args.max_blocks_per_seq,
+                          dtype=args.kv_cache_dtype),
+        scheduler=SchedulerConfig(
+            max_num_seqs=args.max_num_seqs, max_waiting=args.max_waiting,
+            mixed_batching=args.mixed_batching,
+            mixed_token_budget=args.mixed_token_budget,
+            interleave_batched_prefill=args.interleave_batched_prefill),
+        attn_impl=args.attn_impl, multi_step=args.multi_step,
+        pipeline_decode=args.pipeline, adaptive_multi_step=not args.no_adaptive_window,
+        min_multi_step=args.min_multi_step)
+    try:
+        engine = Engine(ecfg, device=args.device)
+    except RuntimeError as e:                    # no card, and no --device cpu
+        sys.exit(f"tpuserve_torch.server: {e}")
+    server = OpenAIServer(engine, ServerConfig(host=args.host, port=args.port,
+                                               chat_template=chat_template))
+    port = server.start(warmup=not args.no_warmup)
+    print(f"tpuserve_torch listening on {args.host}:{port}", flush=True)
+    # SIGTERM drains (readyz 503, new work 503, in-flight work finishes)
+    import signal
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    try:
+        stop.wait()
+        logger.info("SIGTERM: draining")
+    except KeyboardInterrupt:
+        pass
+    server.drain(timeout_s=args.drain_timeout)
