@@ -70,7 +70,26 @@ non-zero:
              captured on first use; launch counts still its steps'), and
              with pipelined single steps (``multi_step=1``), against the
              default engine's (identical).
-6. chunked   the chunked path, full depth, bf16: 4 short streams, a
+6. sampler   the full sampler on the main path's two engines (the default
+             one, every decode dispatch a replayed graph; the eager one),
+             prefix caching off for the phase: the main path's 8 prompts,
+             64 tokens, in each sampling variant (greedy, temperature 0.8,
+             full with top_p 0.9 and top_k 50, repetition_penalty 1.2,
+             logprobs 5, top_k 1, min_p 1.0, logit_bias {eos: +100} with
+             min_tokens 16).  Gates: the same tokens on both engines;
+             top_k 1 gives the greedy streams and min_p 1.0 a token at its
+             step's largest logprob every step (it samples among tokens
+             tied there; whether it equals greedy is a reading); the floor gives
+             16 tokens, then EOS; every logprobs entry within the logits
+             gate of a fresh eager log_softmax of its step's logits, its
+             top 5 sorted; launches equal to the layers times the steps;
+             the graph pool under its bound.  Readings: decode tok/s of
+             each variant on both engines, one profiled window each of the
+             temperature and full modes and of logprobs, the decode
+             executables and their capture seconds, and the KV blocks the
+             cache sizing gives at the CLI's defaults with and without the
+             sampler's decode executables (full mode and extras) bound.
+7. chunked   the chunked path, full depth, bf16: 4 short streams, a
              6,000-token prompt served in chunks, then a prompt sharing its
              first 4,096 tokens, served from the prefix cache; each
              kernel's launches must be the layers times its steps (batched
@@ -79,12 +98,12 @@ non-zero:
              must agree with the plain path's.  The default engine, then
              the eager engine: the same tokens, both engines' TTFTs, step
              times and decode tok/s.
-7. mixed     the mixed path, full depth, bf16, ``mixed_batching=True``: 8
+8. mixed     the mixed path, full depth, bf16, ``mixed_batching=True``: 8
              streams decoding, then 8 prompts of 512-1,500 tokens; each
              kernel's launches must be the layers times its steps, the
              ragged kernel's the layers times the mixed steps.  The default
              engine, then the eager engine, as in the chunked phase.
-8. server    the top of the main path, full depth, bf16: the main phase's
+9. server    the top of the main path, full depth, bf16: the main phase's
              seed-0 weights written as an HF checkpoint (two bf16 shards,
              an index, no lm_head) and loaded back with
              ``load_hf_checkpoint``, bit-equal, with its GB/s; then
@@ -99,13 +118,16 @@ non-zero:
              TTFT and decode tok/s beside the twin's for the same prompts,
              and the share of streams equal to the twin's (a reading:
              concurrent arrivals batch differently); (c) a top_p request's
-             400 naming A6, /v1/models, and /metrics counting the tokens
-             served; (d) the kernels' launches, reset before (a), against
-             the engine's steps.  Then ``python -m tpuserve_torch.server``
-             on the checkpoint as a subprocess: one streamed completion
+             200, a streamed chat with logprobs (every token's entry with
+             its top 5), best_of 3 (one choice, three candidates billed),
+             a guided_regex request's 400 naming A6, /v1/models, and
+             /metrics counting the tokens served; (d) the kernels'
+             launches, reset before (a), against the engine's steps.
+             Then ``python -m tpuserve_torch.server`` on the checkpoint
+             as a subprocess: one streamed completion
              equal to (a)'s, then SIGTERM, which must end it with code 0
              within its drain timeout.
-9. profile   where the time goes, under torch.profiler, after every
+10. profile  where the time goes, under torch.profiler, after every
              counted run (a profiler run slows the launches that follow
              it): one prefill and one decode window of the main path, one
              steady pipelined window alone (the paged decode kernel must
@@ -136,8 +158,8 @@ import time
 
 import numpy as np
 
-PHASES = ("build", "kernels", "identity", "main", "graphs", "chunked", "mixed", "server",
-          "profile")
+PHASES = ("build", "kernels", "identity", "main", "graphs", "sampler", "chunked", "mixed",
+          "server", "profile")
 # Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA's data
 # sheet): bf16 tensor cores, float32 CUDA cores, HBM.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -1086,6 +1108,204 @@ def phase_graphs(results) -> dict:
             "single_steps_same_tokens": same_single}
 
 
+# phase sampler: each sampling variant of the main path's 8 streams, as
+# SamplingParams fields (64 tokens, ignore_eos; seeded ones seed 100 + row)
+SAMPLER_VARIANTS = {
+    "greedy": dict(temperature=0.0),
+    "temperature": dict(temperature=0.8),
+    "full": dict(temperature=0.8, top_p=0.9, top_k=50),
+    "penalties": dict(temperature=0.0, repetition_penalty=1.2),
+    "logprobs": dict(temperature=0.0, logprobs=5),
+    "top_k_1": dict(temperature=0.8, top_k=1),
+    # min_p 1.0 keeps every token tied at the top probability (bf16 logits
+    # tie often) and samples among them: its logprobs show each token at
+    # its step's maximum
+    "min_p_1": dict(temperature=0.8, min_p=1.0, logprobs=1),
+    "bias_floor": dict(temperature=0.0, min_tokens=16),   # + logit_bias {eos: 100}
+}
+SAMPLER_FLOOR = 16
+
+
+def sampler_params(name: str, eos: int) -> list:
+    from tpuserve_torch.runtime import SamplingParams
+    kw = dict(SAMPLER_VARIANTS[name])
+    if name == "bias_floor":
+        return [SamplingParams(max_tokens=64, logit_bias={eos: 100.0}, **kw)] * 8
+    return [SamplingParams(max_tokens=64, ignore_eos=True,
+                           seed=None if kw["temperature"] == 0 else 100 + i, **kw)
+            for i in range(8)]
+
+
+def fresh_logprobs(params, cfg, ids: list, n_out: int):
+    """log_softmax of the logits at the last ``n_out`` positions of ``ids``
+    (each position's logits predict the next token), from one eager
+    forward of the whole sequence over a fresh cache on the plain
+    attention: the reference of a served request's logprobs."""
+    import torch
+    from tpuserve_torch.models import transformer
+    from tpuserve_torch.runtime.kv_cache import CacheConfig, create_kv_cache
+    T, page = len(ids), 32
+    nb = -(-T // page)
+    dev = params["embed"]["weight"].device
+    cache = create_kv_cache(cfg, CacheConfig(block_size=page, num_blocks=nb,
+                                             max_blocks_per_seq=nb), dev)
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)   # noqa: E731
+    h = transformer._chunk_trunk(params, cfg, i32([ids]), i32([0]), i32([T]),
+                                 i32([list(range(T))]), i32([list(range(nb))]), cache,
+                                 "reference")
+    return torch.log_softmax(transformer._unembed(params, cfg, h[0, T - n_out:]), dim=-1)
+
+
+def phase_sampler(results) -> dict:
+    """The full sampler on the main path's engines (the default one, every
+    dispatch a replayed graph, pipelined; the eager, synchronous one), full
+    width and depth, bf16, the main path's 8 prompts (prefix caching off
+    for the phase, so every variant prefills them fresh), 64 tokens.  Each
+    variant of ``SAMPLER_VARIANTS`` on the default engine, launches
+    counted, then on the eager engine.  Gates: each variant's tokens equal
+    on both engines; top_k 1 at temperature 0.8 gives the greedy streams,
+    min_p 1.0 a token at its step's largest logprob (ties at the top are
+    kept and sampled among); logit_bias {eos: +100} with min_tokens 16 gives 16
+    tokens, then EOS; each logprobs entry's value within the logits gate of
+    a fresh eager log_softmax of its step's logits, its top 5 sorted
+    descending; the launches equal the layers times the steps.
+    Readings: decode tok/s of each variant on both engines (the default
+    engine's five headline variants twice), device-busy ms of one window
+    in the temperature and full modes and with logprobs, the decode
+    executables and their capture seconds, the pool against its bound, and
+    the KV blocks the cache sizing gives at the CLI's defaults with every
+    executable bound and without the full mode's and the extras' decode
+    executables."""
+    import torch
+    from tpuserve_torch.runtime import SchedulerConfig
+    from tpuserve_torch.runtime.graphs import keeps_logits, pool_bytes_bound
+    from tpuserve_torch.runtime.kv_cache import CacheConfig, num_blocks_for_budget
+    main = results["main"]
+    eng, eager = main["engine"], main["eager_engine"]
+    cfg, L = eng.model_cfg, eng.model_cfg.num_layers
+    ps = prompts(np.random.default_rng(SEED + 3), MAIN_LENGTHS, cfg.vocab_size)
+    eos = min(eng._eos_ids)
+    for e in (eng, eager):
+        e.block_manager.enable_prefix_caching = False
+    out, streams = {"variants": {}}, {}
+    try:
+        st = eng.stats
+        before = (st.num_prefill_steps, st.num_chunk_steps, st.num_decode_steps)
+        t0 = time.perf_counter()
+        reset_launches()
+        for name in SAMPLER_VARIANTS:
+            reqs, rates = serve_steps(eng, ps, sampler_params(name, eos))
+            streams[name] = reqs
+            out["variants"][name] = {"decode_tok_per_s": [rates["decode_tok_per_s"]],
+                                     "mean_ttft_ms": rates["mean_ttft_ms"]}
+        launches = read_launches()
+        steps = {"prefill_steps": (st.num_prefill_steps - before[0])
+                 - (st.num_chunk_steps - before[1]),
+                 "chunk_steps": st.num_chunk_steps - before[1],
+                 "decode_steps": st.num_decode_steps - before[2]}
+        # a second round of the five headline variants, after the counted
+        # run: one round's two windows a variant vary by ~10% on the host
+        # clock
+        for name in ("greedy", "temperature", "full", "penalties", "logprobs"):
+            out["variants"][name]["decode_tok_per_s"].append(
+                serve_steps(eng, ps, sampler_params(name, eos))[1]["decode_tok_per_s"])
+        out["default_s"] = time.perf_counter() - t0
+        want = {"flash_prefill": L * steps["prefill_steps"],
+                "paged_decode": L * steps["decode_steps"],
+                "paged_window": L * steps["chunk_steps"], "ragged_paged": 0}
+        same = {}
+        t0 = time.perf_counter()
+        for name in SAMPLER_VARIANTS:
+            ereqs, erates = serve_steps(eager, ps, sampler_params(name, eos))
+            out["variants"][name]["eager_decode_tok_per_s"] = erates["decode_tok_per_s"]
+            same[name] = ([r.output_token_ids for r in ereqs]
+                          == [r.output_token_ids for r in streams[name]])
+        out["eager_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        toks = {k: [r.output_token_ids for r in v] for k, v in streams.items()}
+        floor_rows = streams["bias_floor"]
+        floor_ok = all(len(r.output_token_ids) == SAMPLER_FLOOR + 1
+                       and r.output_token_ids[-1] == eos
+                       and not set(r.output_token_ids[:-1]) & eng._eos_ids
+                       and r.finish_reason.value == "stop" for r in floor_rows)
+        # logprobs against a fresh eager forward of each stream
+        lp_diff, lp_sorted, lp_count = 0.0, True, 0
+        for p, r in zip(ps, streams["logprobs"]):
+            out_ids = r.output_token_ids
+            ref = fresh_logprobs(eng.params, cfg, p + out_ids[:-1], len(out_ids))
+            ref_chosen = ref.gather(1, torch.tensor(out_ids, device=ref.device)[:, None])[:, 0]
+            got = torch.tensor([e["logprob"] for e in r.logprobs], device=ref.device)
+            lp_diff = max(lp_diff, (got - ref_chosen).abs().max().item())
+            lp_sorted &= all([lp for _, lp in e["top"]] == sorted(
+                (lp for _, lp in e["top"]), reverse=True) and len(e["top"]) == 5
+                for e in r.logprobs)
+            lp_count += len(r.logprobs)
+            lp_sorted &= [e["token_id"] for e in r.logprobs] == out_ids
+            del ref
+        out["logprobs_check_s"] = time.perf_counter() - t0
+        gates = {
+            "same_tokens_default_and_eager": same,
+            "top_k_1_is_greedy": toks["top_k_1"] == toks["greedy"],
+            "min_p_1_at_the_max": all(e["logprob"] == e["top"][0][1]
+                                      for r in streams["min_p_1"] for e in r.logprobs)
+            and sum(len(r.logprobs) for r in streams["min_p_1"]) == 8 * 64,
+            "min_p_1_is_greedy": toks["min_p_1"] == toks["greedy"],
+            "bias_floor_16_then_eos": floor_ok,
+            "logprobs_max_abs_diff": lp_diff,
+            "logprobs_entries": lp_count,
+            "logprobs_sorted_and_aligned": lp_sorted,
+            "launches_are_steps": launches == want and launches["paged_decode"] > 0,
+        }
+        out["ok"] = (all(same.values()) and gates["top_k_1_is_greedy"]
+                     and gates["min_p_1_at_the_max"] and floor_ok and lp_sorted
+                     and lp_count == 8 * 64 and lp_diff <= LOGIT_DIFF_MAX
+                     and gates["launches_are_steps"]
+                     and toks["temperature"] != toks["greedy"]
+                     and toks["full"] != toks["temperature"])
+        out.update(gates=gates, launches=launches, launches_expected=want, **steps,
+                   logprobs_gate=LOGIT_DIFF_MAX, eos=eos)
+        # one steady window of the temperature and full modes and of
+        # greedy with logprobs, profiled (phase profile has a greedy one)
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(SEED + 13)
+        out["window_profiles"] = {}
+        for name, kw in (("temperature", dict(temperature=0.8, seed=3)),
+                         ("full", dict(temperature=0.8, top_p=0.9, top_k=50, seed=3)),
+                         ("logprobs", dict(logprobs=5))):
+            prof = profile_window(eng, prompts(rng, MAIN_LENGTHS, cfg.vocab_size), **kw)
+            out["window_profiles"][name] = {
+                k: prof.get(k) for k in ("wall_ms", "device_busy_ms", "device_idle_share",
+                                         "host_launch_calls", "kernel_launches")}
+            out["ok"] &= prof["ok"]
+        out["profiles_s"] = time.perf_counter() - t0
+    finally:
+        for e in (eng, eager):
+            e.block_manager.enable_prefix_caching = True
+    exes = eng.graphs.executables
+    dec = [k for k in exes if k[0] == "decode"]
+    out["decode_executables"] = len(dec)
+    out["decode_capture_s"] = sum(exes[k].capture_s for k in dec)
+    out["decode_executables_keeping_logits"] = sum(1 for k in dec if keeps_logits(k))
+    out["pool_bytes"] = eng.graphs.pool_bytes()
+    keys = eng._step_keys(eng.scheduler.cfg, eng.max_seq_len)
+    out["pool_bytes_bound"] = pool_bytes_bound(cfg, keys, eng._ragged_seqs)
+    out["ok"] &= out["pool_bytes"] <= out["pool_bytes_bound"]
+    # the cache sizing at the CLI's defaults (--num-blocks 0), from the
+    # card's free memory now: bounding every executable, and bounding only
+    # greedy and temperature decode without extras beside the other kinds
+    cli_cache, cli_sched = CacheConfig(block_size=32, max_blocks_per_seq=64), SchedulerConfig()
+    free = torch.cuda.mem_get_info()[0]
+    old = [k for k in keys if k[0] != "decode" or (len(k) == 3 and k[2] != "full")]
+    kv = {"free_bytes": free, "addressable_blocks": cli_sched.max_num_seqs * 65}
+    for label, ks in (("without_sampler_graphs", old), ("every_graph", keys)):
+        bound = pool_bytes_bound(cfg, ks, eng._ragged_seqs)
+        blocks = num_blocks_for_budget(cfg, cli_cache, free - bound)
+        kv[label] = {"pool_bytes_bound": bound, "budget_blocks": blocks,
+                     "blocks": min(blocks, kv["addressable_blocks"], 1 << 17)}
+    out["kv_blocks_cli_defaults"] = kv
+    return out
+
+
 def step_graphs_bit_equal(params, cfg) -> dict:
     """One prefill, one chunk and one mixed step, each replayed from its
     captured graph and run eagerly by an executable on the same inputs
@@ -1278,19 +1498,20 @@ def profile_mixed(eng, rng) -> dict:
     return profile_step(eng, prompts(rng, [1000], V), skip=0)
 
 
-def profile_window(eng, ps) -> dict:
+def profile_window(eng, ps, **sampling) -> dict:
     """One steady pipelined decode window of the main path under
-    torch.profiler: serve ``ps`` until two windows are dispatched, let the
-    card finish, then profile the step that dispatches the third (and
-    flushes the second).  Its kernels are one window's, all from graph
+    torch.profiler: serve ``ps`` (greedy, or with the SamplingParams
+    fields ``sampling``) until two windows are dispatched, let the card
+    finish, then profile the step that dispatches the third (and flushes
+    the second).  Its kernels are one window's, all from graph
     replays: the paged decode kernel's must show in the trace, at most
     layers x window of them (the profiler may drop a few records of a
     window's ~80,000 kernels; their share is reported)."""
     import torch
     from tpuserve_torch.runtime import SamplingParams
     S = eng._multi_step
-    rids = [eng.add_request(prompt_token_ids=p, params=SamplingParams(
-        max_tokens=1 + 4 * S, temperature=0.0, ignore_eos=True)) for p in ps]
+    sp = dict(dict(max_tokens=1 + 4 * S, temperature=0.0, ignore_eos=True), **sampling)
+    rids = [eng.add_request(prompt_token_ids=p, params=SamplingParams(**sp)) for p in ps]
     windows = eng.stats.num_decode_windows
     while eng.stats.num_decode_windows < windows + 2:
         eng.step()
@@ -1800,11 +2021,13 @@ def stream_rates(results) -> dict:
 
 
 def serve_steps(eng, ps, params) -> tuple[list, dict]:
-    """``ps`` through ``eng``'s ``add_request``/``step``: the requests;
+    """``ps`` through ``eng``'s ``add_request``/``step`` (``params`` one
+    SamplingParams for all, or a list of one a prompt): the requests;
     decode tok/s over the steps that emit decode tokens (host clock around
     each) and, as ``stream_rates`` counts a client's, over the time from
     the earliest first token to the latest last; mean TTFT."""
-    rids = [eng.add_request(prompt_token_ids=p, params=params) for p in ps]
+    plist = params if isinstance(params, list) else [params] * len(ps)
+    rids = [eng.add_request(prompt_token_ids=p, params=sp) for p, sp in zip(ps, plist)]
     t_decode, tokens = 0.0, 0
     first, last = {}, {}
     while eng.has_work():
@@ -1833,8 +2056,9 @@ def phase_server(results) -> dict:
     (a) four greedy completions one at a time (two plain, two streamed),
     each equal to a twin engine's ``generate`` of it alone; (b) eight
     concurrent streams, a chat request and a prefix hit of a served
-    1,024-token prompt (the chunk route); (c) an unported option's 400,
-    /v1/models, /metrics; (d) the three kernels' launches against the
+    1,024-token prompt (the chunk route); (c) a top_p request's 200, a
+    streamed chat with logprobs, best_of 3, guided decoding's 400 naming
+    A6, /v1/models, /metrics; (d) the three kernels' launches against the
     steps.  Then ``python -m tpuserve_torch.server`` as a subprocess: one
     streamed completion equal to (a)'s, and a drain on SIGTERM."""
     import gc
@@ -1953,18 +2177,41 @@ def phase_server(results) -> dict:
                 and chat["usage"]["completion_tokens"] == SERVER_TOKENS
                 and st.num_chunk_steps > chunks0)
         rates = stream_rates(streams)
-        # (c) an unported option, /v1/models and /metrics
-        bad = [http(url + "/v1/completions", dict(base, prompt=one[0], top_p=0.9)),
+        # (c) the sampler's options: top_p, a streamed chat with
+        # logprobs, best_of 3; guided decoding's 400; /v1/models, /metrics
+        sampled = dict(base, prompt=one[0], temperature=0.8, seed=5)
+        top_p = http(url + "/v1/completions", dict(sampled, top_p=0.9))
+        chat_lp = sse(url + "/v1/chat/completions", dict(
+            base, messages=[{"role": "user", "content": "Say something long."}],
+            logprobs=True, top_logprobs=5))
+        best_of = http(url + "/v1/completions", dict(sampled, best_of=3))
+        bad = [http(url + "/v1/completions", dict(base, prompt=one[0], guided_regex="a+")),
                (lambda r: (r["status"], json.loads(r.get("error") or "null")))(
-                   sse(url + "/v1/completions", dict(base, prompt=one[0], top_p=0.9)))]
+                   sse(url + "/v1/completions", dict(base, prompt=one[0],
+                                                     guided_regex="a+")))]
         _, models = http(url + "/v1/models")
         _, metrics = http(url + "/metrics")
         gen_line = [ln for ln in metrics.splitlines()
                     if ln.startswith("vllm_generation_tokens_total{")]
         gen = float(gen_line[0].split()[-1]) if gen_line else None
-        served_tokens = SERVER_TOKENS * (len(one) + len(conc) + 2)
-        c_ok = (all(s == 400 and "ROADMAP.md A6" in e["error"]["message"] for s, e in bad)
-                and [m["id"] for m in models["data"]] == [model] and gen == served_tokens)
+        # one at a time, concurrent, the hit, the chat; top_p, the
+        # logprobs chat and best_of's three candidates
+        served_tokens = SERVER_TOKENS * (len(one) + len(conc) + 2 + 2 + 3)
+        lp_entries = [e for c in chat_lp["chunks"] for ch in c["choices"]
+                      if "logprobs" in ch for e in ch["logprobs"]["content"]]
+        sampler_ok = {
+            "top_p_200": top_p[0] == 200
+            and top_p[1]["usage"]["completion_tokens"] == SERVER_TOKENS,
+            "chat_logprobs": chat_lp.get("status") == 200 and chat_lp["done"]
+            and len(lp_entries) == SERVER_TOKENS
+            and all(len(e["top_logprobs"]) == 5 and e["logprob"] <= 0 for e in lp_entries),
+            "best_of_3": best_of[0] == 200 and len(best_of[1]["choices"]) == 1
+            and best_of[1]["usage"]["completion_tokens"] == 3 * SERVER_TOKENS
+            and "logprobs" not in best_of[1]["choices"][0],
+            "guided_400_a6": all(s == 400 and "ROADMAP.md A6" in e["error"]["message"]
+                                 for s, e in bad)}
+        c_ok = (all(sampler_ok.values()) and [m["id"] for m in models["data"]] == [model]
+                and gen == served_tokens)
     finally:
         srv.shutdown()
     # (d) the kernels' launches against the engine's steps
@@ -2001,7 +2248,7 @@ def phase_server(results) -> dict:
             "concurrent": {"prompt_lens": MAIN_LENGTHS, "hit_prompt_len": len(hit),
                            "well_formed": b_ok, "http": rates, "twin": twin_rates,
                            "same_as_twin_share": sum(same_conc) / len(same_conc)},
-            "unported_400": [s for s, _ in bad], "metrics_generation_tokens": gen,
+            "sampler_options": sampler_ok, "metrics_generation_tokens": gen,
             "served_tokens": served_tokens, "launches": launches, "launches_expected": want,
             **steps, "cli": {**cli, "same_as_in_process": cli_ok}}
 
@@ -2119,6 +2366,8 @@ def main() -> int:
             res = phase_main()
         elif phase == "graphs":
             res = phase_graphs(results)
+        elif phase == "sampler":
+            res = phase_sampler(results)
         elif phase == "chunked":
             res = phase_chunked(results["main"]["params"])
         elif phase == "mixed":

@@ -6,8 +6,9 @@ settings (chunked prefill off on the JAX side; these prompts never chunk
 by length); greedy token streams, texts and finish reasons must be equal.
 tests/test_torch_chunked_mixed.py holds the chunked and mixed paths.  The
 rest checks the port's own engine: fused windows against single steps,
-prefix-cache reuse, preemption, abort, the block manager draining, and the
-options this slice refuses.
+prefix-cache reuse, preemption, abort, the block manager draining, the
+sampling options (greedy ones against the JAX engine) and the options this
+slice refuses.
 """
 
 import dataclasses
@@ -196,16 +197,48 @@ def test_unported_mesh_and_mixed_batching_raise(model):
     assert eng.scheduler.ragged_align == eng._ragged_blk == 8
 
 
-@pytest.mark.parametrize("kw", [dict(top_k=5), dict(top_p=0.9), dict(min_p=0.1),
-                                dict(presence_penalty=0.5),
-                                dict(repetition_penalty=1.2), dict(logprobs=2),
-                                dict(logit_bias={3: 1.0}), dict(min_tokens=2),
-                                dict(guided="json")])
-def test_unported_sampling_options_raise(model, kw):
+def test_unported_sampling_options_raise(model):
+    """Guided decoding is the one sampling option still refused (A6)."""
     eng = _port(model)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.add_request(prompt="x", params=SamplingParams(**kw))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
+        eng.add_request(prompt="x", params=SamplingParams(guided="json"))
     assert not eng.has_work() and not eng.requests
+
+
+SAMPLING_OPTIONS = [dict(top_k=5), dict(top_p=0.9), dict(min_p=0.1),
+                    dict(presence_penalty=0.5), dict(repetition_penalty=1.2),
+                    dict(logprobs=2), dict(logit_bias={3: 1.0}), dict(min_tokens=2)]
+
+
+@pytest.mark.parametrize("kw", SAMPLING_OPTIONS,
+                         ids=["/".join(k) for k in SAMPLING_OPTIONS])
+def test_sampling_options_are_accepted_and_match_jax(model, kw):
+    """Each option set the port once refused is served.  Greedy (the
+    penalties, logprobs, bias and floor at temperature 0): the JAX
+    engine's streams, texts, finish reasons and logprobs (atol 1e-4).
+    Truncated sampling: seeded streams the same in windows and single
+    steps, with tokens in the vocabulary."""
+    prompts = PROMPTS[:3]
+    if any(k in kw for k in ("top_k", "top_p", "min_p")):
+        plist = [dict(max_tokens=8, temperature=0.9, seed=i, **kw) for i in range(3)]
+        single = _port(model).generate(prompts, [SamplingParams(**p) for p in plist])
+        windows = _port(model, multi_step=4, pipeline_decode=True).generate(
+            prompts, [SamplingParams(**p) for p in plist])
+        assert [r.output_token_ids for r in single] == [r.output_token_ids for r in windows]
+        assert all(0 <= t < model[2].vocab_size for r in single for t in r.output_token_ids)
+        return
+    plist = [dict(max_tokens=8, temperature=0.0, **kw)] * 3
+    ref = _jax_run(model, prompts, plist)
+    ours = _port(model, multi_step=4).generate(prompts, [SamplingParams(**p) for p in plist])
+    assert _summary(ours) == _summary(ref)
+    for o, r in zip(ours, ref):
+        assert [e["token_id"] for e in o.logprobs] == [e["token_id"] for e in r.logprobs]
+        np.testing.assert_allclose([e["logprob"] for e in o.logprobs],
+                                   [e["logprob"] for e in r.logprobs], atol=1e-4, rtol=0)
+        assert [[t for t, _ in e["top"]] for e in o.logprobs] == [
+            [t for t, _ in e["top"]] for e in r.logprobs]
+    if "logprobs" in kw:
+        assert all(len(r.logprobs) == len(r.output_token_ids) for r in ours)
 
 
 def test_intake_validation(model):

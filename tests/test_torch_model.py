@@ -178,12 +178,18 @@ def test_decode_multi_greedy_tokens_match_jax(pair):
 
 
 def test_decode_multi_unported_mode_raises(fp32_tiny_qwen3):
+    """A mode neither package has raises; "full" (top-k/top-p/min-p) runs,
+    and with top_k 1 gives the greedy token."""
     p = _Pair(fp32_tiny_qwen3)
     one = torch.zeros(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="full sampler"):
-        transformer.decode_multi(p.params, p.cfg, one, one, torch.zeros(1, MB, dtype=torch.int32),
-                                 one + 1, torch.ones(1, dtype=torch.bool), torch.ones(1),
-                                 p.cache, steps=1, mode="full")
+    args = (p.params, p.cfg, one, one, torch.zeros(1, MB, dtype=torch.int32), one + 1,
+            torch.ones(1, dtype=torch.bool), torch.ones(1), p.cache)
+    with pytest.raises(ValueError, match="decode mode"):
+        transformer.decode_multi(*args, steps=1, mode="beam")
+    full, _ = transformer.decode_multi(*args, steps=1, mode="full",
+                                       top_k=torch.ones(1, dtype=torch.int32))
+    greedy, _ = transformer.decode_multi(*args, steps=1, mode="greedy")
+    assert torch.equal(full, greedy)
 
 
 def test_int8_cache_decode_matches_jax(fp32_tiny_qwen3):

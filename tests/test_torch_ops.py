@@ -312,11 +312,6 @@ def test_gumbel_noise_per_row_generators():
     assert torch.isfinite(noise).all()
 
 
-def test_full_sampler_modes_raise():
-    with pytest.raises(NotImplementedError, match="full sampler"):
-        sampling.sample_tokens(torch.zeros(1, 4), torch.ones(1), mode="full")
-
-
 # ---- the CUDA wrappers ----------------------------------------------------
 
 def test_wrappers_use_plain_version_on_cpu_without_launching():

@@ -482,14 +482,16 @@ def test_different_seeds_give_different_streams(model):
 
 def test_warmup_makes_the_decode_ladder_and_leaves_the_cache(model):
     """The default ladder is min_decode_bucket .. the bucket max_num_seqs
-    pads to, in both modes, beside the prefill, chunk and mixed buckets
+    pads to, in the JAX warmup's variants (every sampling mode, each
+    without extras, with logprobs and with penalties), beside the prefill, chunk and mixed buckets
     given; their dispatches of padding write nothing, and serving
     afterwards is unchanged."""
     eng = _port(model, multi_step=4, sched=dict(SCHED, max_num_seqs=6))
     before = [{k: t.clone() for k, t in e.items()} for e in eng.kv_cache]
     eng.warmup(prefill_buckets=[8, (2, 16)], chunk_buckets=[8], mixed_buckets=[16, 32])
     assert sorted(eng.graphs.executables) == sorted(
-        [("decode", B, m) for B in (2, 4, 8) for m in ("greedy", "temperature")]
+        [("decode", B, m) + x for B in (2, 4, 8) for m in ("greedy", "temperature", "full")
+         for x in ((), ("logprobs",), ("penalties",))]
         + [("prefill", 1, 8), ("prefill", 2, 16), ("chunk", 8), ("mixed", 16),
            ("mixed", 32)])
     for e, b in zip(eng.kv_cache, before):

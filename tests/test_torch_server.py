@@ -6,8 +6,10 @@ weights (the JAX tree handed over as numpy), each on a free port.  For the
 same requests they must give the same greedy tokens (text and usage when
 not streamed, token ids when streamed), the same ``n`` choices, the same
 chat text, the same statuses for malformed bodies, and the same 503s under
-backpressure and while draining.  Port-only: options the port does not
-carry give a 400 naming their ROADMAP.md item before any SSE header, a
+backpressure and while draining, the sampling options (greedy ones token
+for token, logprobs within atol 1e-4) and the logprobs shapes.  Port-only:
+options the port does not carry give a 400 naming their ROADMAP.md item
+before any SSE header, ``best_of`` returns its best candidate, a
 mixed-batching engine serves concurrent streams, a failing step fails its
 requests, ``/metrics`` has the JAX server's vllm_* families, and
 ``python -m tpuserve_torch.server`` starts, serves and drains on SIGTERM.
@@ -318,12 +320,9 @@ def test_draining_gets_the_jax_servers_503(weights):
 
 
 UNPORTED = [
-    ({"top_p": 0.9}, "A6"), ({"top_k": 5}, "A6"), ({"min_p": 0.1}, "A6"),
-    ({"presence_penalty": 0.5}, "A6"), ({"repetition_penalty": 1.2}, "A6"),
-    ({"logprobs": 2}, "A6"), ({"logit_bias": {"5": 10}}, "A6"), ({"min_tokens": 2}, "A6"),
     ({"response_format": {"type": "json_object"}}, "A6"), ({"guided_regex": "a+"}, "A6"),
-    ({"guided_choice": ["a", "b"]}, "A6"), ({"best_of": 2, "temperature": 0.8}, "A6"),
-    ({"prompt_logprobs": 1}, "A7"),
+    ({"guided_choice": ["a", "b"]}, "A6"), ({"prompt_logprobs": 1}, "A7"),
+    ({"echo": True, "logprobs": 2}, "A7"),
     ({"tools": [{"type": "function", "function": {"name": "f"}}]}, "A5b"),
 ]
 
@@ -339,6 +338,120 @@ def test_unported_options_get_a_400_naming_their_item(servers, extra, item, stre
     assert status == 400, (status, err)
     assert "text/event-stream" not in headers.get("Content-Type", "")
     assert f"ROADMAP.md {item}" in err["error"]["message"]
+
+
+# the sampling options the JAX server serves: greedy ones compared token
+# for token (and logprob for logprob, atol 1e-4) with it, sampled ones
+# held to a well-formed answer (the two packages' noise differs)
+SERVED = [
+    ({"top_p": 0.9}, False), ({"top_k": 5}, False), ({"min_p": 0.1}, False),
+    ({"presence_penalty": 0.5, "temperature": 0}, True),
+    ({"repetition_penalty": 1.2, "temperature": 0}, True),
+    ({"logprobs": 2, "temperature": 0}, True),
+    ({"logit_bias": {"5": 10}, "temperature": 0}, True),
+    ({"min_tokens": 2, "temperature": 0}, True),
+    ({"best_of": 2, "temperature": 0.8}, False),
+]
+
+
+def _same_logprobs(a, b):
+    """Two completions logprobs objects: the same tokens and top ids, the
+    values within atol 1e-4."""
+    assert a["tokens"] == b["tokens"]
+    np.testing.assert_allclose(a["token_logprobs"], b["token_logprobs"], atol=1e-4, rtol=0)
+    for x, y in zip(a["top_logprobs"], b["top_logprobs"]):
+        assert list(x) == list(y)
+        np.testing.assert_allclose(list(x.values()), list(y.values()), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("extra,greedy", SERVED, ids=["/".join(e) for e, _ in SERVED])
+@pytest.mark.parametrize("stream", [False, True], ids=["full", "sse"])
+def test_sampling_options_are_served_like_the_jax_server(servers, extra, greedy, stream):
+    """A 200 with a well-formed body or event stream, as the JAX server
+    answers (``best_of > n`` cannot stream: both give 400); greedy ones
+    give its tokens, text and logprobs."""
+    body = {"prompt": "x", "max_tokens": 6, "ignore_eos": True, "return_token_ids": True,
+            **extra}
+    res = _both(servers, "/v1/completions", body, stream=stream)
+    (ps, pb, *_), (js, jb, *_) = res["port"], res["jax"]
+    assert ps == js, (res["port"], res["jax"])
+    if "best_of" in extra and stream:
+        assert ps == 400
+        return
+    assert ps == 200
+    if not stream:
+        (choice,), (jchoice,) = pb["choices"], jb["choices"]
+        assert isinstance(choice["text"], str) and choice["finish_reason"] == "length"
+        assert pb["usage"] == jb["usage"]
+        if "best_of" in extra:
+            # both candidates billed; the ranking's logprobs stripped
+            assert pb["usage"]["completion_tokens"] == 12 and "logprobs" not in choice
+        assert ("logprobs" in choice) == ("logprobs" in extra) == ("logprobs" in jchoice)
+        if greedy:
+            assert choice["text"] == jchoice["text"]
+            if "logprobs" in extra:
+                _same_logprobs(choice["logprobs"], jchoice["logprobs"])
+                assert all(len(t) == 2 for t in choice["logprobs"]["top_logprobs"])
+        return
+    ids, lps = {}, {}
+    for k, (status, chunks, done) in res.items():
+        assert status == 200 and done
+        ids[k] = [t for c in chunks for ch in c["choices"] for t in ch["token_ids"]]
+        lps[k] = [ch["logprobs"] for c in chunks for ch in c["choices"] if "logprobs" in ch]
+        assert chunks[-1]["choices"][0]["finish_reason"] == "length"
+    assert len(ids["port"]) == 6
+    if "logprobs" in extra:
+        merged = {k: {f: [x for lp in v for x in lp[f]] for f in
+                      ("tokens", "token_logprobs", "top_logprobs")} for k, v in lps.items()}
+        assert merged["port"]["tokens"] == ids["port"]
+        _same_logprobs(merged["port"], merged["jax"])
+    if greedy:
+        assert ids["port"] == ids["jax"]
+
+
+def test_chat_logprobs_match_the_jax_server(servers):
+    """Chat ``logprobs``/``top_logprobs``: the per-token content entries
+    (vocabulary token strings, top alternatives), full and streamed, as
+    the JAX server's, values within atol 1e-4."""
+    body = {"messages": [{"role": "user", "content": "hi"}], "max_tokens": 5,
+            "temperature": 0, "ignore_eos": True, "logprobs": True, "top_logprobs": 3}
+    res = _both(servers, "/v1/chat/completions", body)
+    (ps, pb), (js, jb) = res["port"], res["jax"]
+    assert ps == js == 200
+    got, want = pb["choices"][0]["logprobs"]["content"], jb["choices"][0]["logprobs"]["content"]
+    streamed = _both(servers, "/v1/chat/completions", body, stream=True)
+    chunks = streamed["port"][1]
+    got_sse = [e for c in chunks for ch in c["choices"] if "logprobs" in ch
+               for e in ch["logprobs"]["content"]]
+    for entries in (got, got_sse):
+        assert [e["token"] for e in entries] == [e["token"] for e in want]
+        np.testing.assert_allclose([e["logprob"] for e in entries],
+                                   [e["logprob"] for e in want], atol=1e-4, rtol=0)
+        assert [[t["token"] for t in e["top_logprobs"]] for e in entries] == [
+            [t["token"] for t in e["top_logprobs"]] for e in want]
+    assert len(got) == 5 and all(len(e["top_logprobs"]) == 3 for e in got)
+
+
+def test_best_of_ranks_candidates_by_cumulative_logprob(servers):
+    """``best_of`` 3, n 1: the returned text is the candidate of highest
+    cumulative logprob among the three the server sampled (seeds seed,
+    seed + 1, seed + 2, each checked alone with logprobs)."""
+    urls, _ = servers
+    body = {"prompt": [7, 8, 9], "max_tokens": 6, "temperature": 1.5, "seed": 3,
+            "ignore_eos": True}
+    status, best, _ = _request(urls["port"] + "/v1/completions", dict(body, best_of=3))
+    assert status == 200 and len(best["choices"]) == 1
+    cands = []
+    for i in range(3):
+        _, alone, _ = _request(urls["port"] + "/v1/completions",
+                               dict(body, seed=3 + i, logprobs=0))
+        ch = alone["choices"][0]
+        cands.append((sum(ch["logprobs"]["token_logprobs"]), ch["text"]))
+    assert best["choices"][0]["text"] == max(cands, key=lambda c: c[0])[1]
+    assert best["usage"]["completion_tokens"] == 18
+    status, err, _ = _request(urls["port"] + "/v1/completions",
+                              dict(body, best_of=2, temperature=0))
+    assert status == 400 and "sampling" in err["error"]["message"]
 
 
 def test_prompt_scoring_gets_a_400_naming_a7(servers):

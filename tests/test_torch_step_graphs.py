@@ -303,7 +303,8 @@ def test_default_warmup_makes_the_jax_engines_step_shapes(model, mixed):
     assert seen == ({("mixed", 8), ("mixed", 16), ("mixed", 32)} if mixed
                     else {("prefill", 1, 8), ("chunk", 16)})
     assert {k for k in made if k[0] == "decode"} == {
-        ("decode", B, m) for B in (2, 4) for m in ("greedy", "temperature")}
+        ("decode", B, m) + x for B in (2, 4) for m in ("greedy", "temperature", "full")
+        for x in ((), ("logprobs",), ("penalties",))}
     eng.warmup(prefill_buckets=[], chunk_buckets=[], mixed_buckets=[], decode_buckets=[])
     assert set(eng.graphs.executables) == made
 

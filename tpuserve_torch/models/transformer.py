@@ -308,7 +308,7 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     return logits, kv_cache
 
 
-DECODE_MODES = ("greedy", "temperature")
+DECODE_MODES = ("greedy", "temperature", "full")
 
 
 @dataclasses.dataclass
@@ -325,7 +325,18 @@ class DecodeState:
     ``window_sample`` folds ``+s``); temperature: (B,) float32;
     block_tables: (B, max_blocks) int32, reserved for every position the
     dispatch reaches; out: (B, S) int32 sampled tokens, one column an
-    iteration; col: (1,) int32 the next column of ``out``."""
+    iteration; col: (1,) int32 the next column of ``out`` (the JAX scan's
+    ``s``).
+
+    The full mode reads top_k (B,) int32 and top_p/min_p (B,) float32.
+    The in-window extras, present together or not at all (``counts`` None):
+    counts (B, V) float32 each row's output-token counts, advanced by each
+    sampled token; presence/frequency/repetition (B,) float32 penalties;
+    bias (B, V) float32 the dense ``logit_bias``; floor_bias (B, V) float32
+    the ``min_tokens`` mask, added while ``col < floor_remaining`` (B,)
+    int32.  In-window logprobs (``lp_chosen`` None without): lp_chosen (B,
+    S) float32, lp_ids (B, S, N) int32 and lp_vals (B, S, N) float32, one
+    column an iteration as ``out``."""
     tokens: torch.Tensor
     positions: torch.Tensor
     seq_lens: torch.Tensor
@@ -336,30 +347,86 @@ class DecodeState:
     block_tables: torch.Tensor
     out: torch.Tensor
     col: torch.Tensor
+    top_k: torch.Tensor | None = None
+    top_p: torch.Tensor | None = None
+    min_p: torch.Tensor | None = None
+    counts: torch.Tensor | None = None
+    presence: torch.Tensor | None = None
+    frequency: torch.Tensor | None = None
+    repetition: torch.Tensor | None = None
+    bias: torch.Tensor | None = None
+    floor_bias: torch.Tensor | None = None
+    floor_remaining: torch.Tensor | None = None
+    lp_chosen: torch.Tensor | None = None
+    lp_ids: torch.Tensor | None = None
+    lp_vals: torch.Tensor | None = None
+
+
+def window_extras(logits: torch.Tensor, s: torch.Tensor, state: DecodeState) -> torch.Tensor:
+    """One iteration's extras, as the JAX ``window_extras``: penalties from
+    the count carry, the dense bias, and the ``min_tokens`` mask while the
+    iteration ``s`` (a (1,) tensor, read on the device) is below the row's
+    remaining floor.  No-op without the extras."""
+    if state.counts is None:
+        return logits
+    logits = sampling_ops.penalize_from_counts(logits, state.counts, state.presence,
+                                               state.frequency, state.repetition)
+    logits = logits + state.bias
+    return logits + torch.where((s < state.floor_remaining)[:, None], state.floor_bias, 0.0)
+
+
+def window_count_update(state: DecodeState, nxt: torch.Tensor) -> None:
+    """Fold the iteration's sampled tokens into the count carry, in place."""
+    if state.counts is not None:
+        state.counts.scatter_add_(1, nxt.long()[:, None],
+                                  torch.ones((nxt.shape[0], 1), dtype=torch.float32,
+                                             device=nxt.device))
+
+
+def window_sample(logits: torch.Tensor, state: DecodeState, mode: str) -> torch.Tensor:
+    """One iteration's sampling (the JAX ``window_sample``): greedy,
+    temperature, or full with each row's truncation; the sampled modes'
+    noise keyed by (salt, step)."""
+    if mode == "greedy":
+        return sampling_ops.sample_tokens(logits, mode="greedy")
+    V = logits.shape[-1]
+    return sampling_ops.sample_tokens(
+        logits, state.temperature, mode=mode,
+        gumbel=lambda: sampling_ops.keyed_gumbel(state.salt, state.step, V),
+        top_k=state.top_k, top_p=state.top_p, min_p=state.min_p)
 
 
 @torch.no_grad()
 def decode_state_step(params: dict, cfg: ModelConfig, state: DecodeState,
                       kv_cache: list, *, mode: str = "greedy",
                       attn_impl: str = "reference") -> torch.Tensor:
-    """One fused decode + sample iteration over ``state``, in place: write
-    the token's KV at the slot ``window_slot`` gives its position, attend,
-    sample (``mode``: "greedy", or "temperature" with each row's keyed
-    noise), write the token into column ``col`` of ``out``, and advance
-    token, position, length, key step and column.  Nothing is read back to
-    the host.  Returns the iteration's logits (B, V) float32."""
+    """One fused decode + sample iteration over ``state``, in place, in
+    the JAX order: write the token's KV at the slot ``window_slot`` gives
+    its position and attend; apply the extras (penalties from the count
+    carry, bias, the floor while ``col`` is below it); sample (``mode``:
+    "greedy", "temperature" or "full", with each row's keyed noise); write
+    the token into column ``col`` of ``out``; fold it into the counts;
+    take its logprobs and the top ``lp_ids.shape[-1]`` from the logits the
+    row sampled from (before temperature); advance token, position,
+    length, key step and column.  Nothing is read back to the host.
+    Returns the iteration's logits (B, V) float32, extras applied."""
+    if mode not in DECODE_MODES:
+        raise ValueError(f"decode mode {mode!r} not in {DECODE_MODES}")
     active = state.active != 0
     slot = window_slot(state.block_tables, state.positions, active,
                        kv_cache[0]["k"].shape[1])
     logits = _decode_body(params, cfg, state.tokens, state.positions, slot,
                           state.block_tables, state.seq_lens, kv_cache, attn_impl)
-    if mode == "greedy":
-        nxt = sampling_ops.sample_tokens(logits, mode="greedy")
-    else:
-        noise = sampling_ops.keyed_gumbel(state.salt, state.step, logits.shape[-1])
-        nxt = sampling_ops.sample_tokens(logits, state.temperature,
-                                         mode="temperature", gumbel=noise)
-    state.out.index_copy_(1, state.col.long(), nxt[:, None])
+    logits = window_extras(logits, state.col, state)
+    nxt = window_sample(logits, state, mode)
+    col = state.col.long()
+    state.out.index_copy_(1, col, nxt[:, None])
+    window_count_update(state, nxt)
+    if state.lp_chosen is not None:
+        chosen, ids, vals = sampling_ops.compute_logprobs(logits, nxt, state.lp_ids.shape[-1])
+        state.lp_chosen.index_copy_(1, col, chosen[:, None])
+        state.lp_ids.index_copy_(1, col, ids[:, None])
+        state.lp_vals.index_copy_(1, col, vals[:, None])
     state.tokens.copy_(nxt)
     state.positions.add_(1)
     state.seq_lens.add_(1)
@@ -368,19 +435,21 @@ def decode_state_step(params: dict, cfg: ModelConfig, state: DecodeState,
     return logits
 
 
-def check_decode_mode(mode: str) -> None:
-    if mode not in DECODE_MODES:
-        raise NotImplementedError(
-            f"decode mode {mode!r} is not ported yet (ROADMAP.md A6, the "
-            "full sampler)")
-
-
 @torch.no_grad()
 def decode_multi(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                  positions: torch.Tensor, block_tables: torch.Tensor,
                  seq_lens: torch.Tensor, active: torch.Tensor,
                  temperature: torch.Tensor, kv_cache: list, *, steps: int,
                  mode: str = "greedy", keys: torch.Tensor | None = None,
+                 top_k: torch.Tensor | None = None, top_p: torch.Tensor | None = None,
+                 min_p: torch.Tensor | None = None, logprobs_n: int = 0,
+                 counts: torch.Tensor | None = None,
+                 presence: torch.Tensor | None = None,
+                 frequency: torch.Tensor | None = None,
+                 repetition: torch.Tensor | None = None,
+                 bias: torch.Tensor | None = None,
+                 floor_bias: torch.Tensor | None = None,
+                 floor_remaining: torch.Tensor | None = None,
                  attn_impl: str = "reference"):
     """``steps`` fused decode+sample iterations: :func:`decode_state_step`
     run ``steps`` times over a state made from the arguments (the JAX
@@ -392,17 +461,29 @@ def decode_multi(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     :func:`decode_step`; active: (B,) bool real rows (padding rows never
     write KV); temperature: (B,) float32; keys: (B, 2) per-row sampling
     keys (salt, step) holding uint32 values, the step word advancing by
-    one each iteration (zeros if None).  ``mode``: "greedy" or
-    "temperature".  Cache slots for the whole window must be reserved.
-    Returns (tokens (B, steps) int32, kv_cache)."""
+    one each iteration (zeros if None).  ``mode``: "greedy",
+    "temperature" or "full" (``top_k``/``top_p``/``min_p`` (B,) per row;
+    disabled where None).  The extras travel together, as in the JAX
+    window: ``counts`` (B, V) output-token counts with the (B,)
+    ``presence``/``frequency``/``repetition`` penalties, ``bias`` (B, V),
+    and ``floor_bias`` (B, V) applied while the iteration is below
+    ``floor_remaining`` (B,); those not given are neutral.
+    ``logprobs_n``: the chosen token's logprob and the top N a step.
+    Cache slots for the whole window must be reserved.  Returns (tokens (B,
+    steps) int32, kv_cache[, (chosen (B, steps), ids (B, steps, N), lps
+    (B, steps, N))]), laid out as the JAX ``window_unpack_lp``."""
     _check(cfg, attn_impl)
-    check_decode_mode(mode)
+    if mode not in DECODE_MODES:
+        raise ValueError(f"decode mode {mode!r} not in {DECODE_MODES}")
     B = tokens.shape[0]
+    V = cfg.vocab_size
     dev = tokens.device
     if keys is None:
         keys = torch.zeros((B, 2), dtype=torch.int64, device=dev)
     keys = keys.to(dev).long()
     i32 = lambda t: t.to(device=dev, dtype=torch.int32).clone()   # noqa: E731
+    f32 = lambda t, fill: (torch.full((B,), fill, dtype=torch.float32, device=dev)  # noqa: E731
+                           if t is None else t.to(device=dev, dtype=torch.float32).clone())
     state = DecodeState(
         tokens=i32(tokens), positions=i32(positions), seq_lens=i32(seq_lens),
         active=i32(active), salt=i32(keys[:, 0] & 0xFFFFFFFF),
@@ -410,10 +491,25 @@ def decode_multi(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         temperature=temperature.to(device=dev, dtype=torch.float32).clone(),
         block_tables=i32(block_tables),
         out=torch.zeros((B, steps), dtype=torch.int32, device=dev),
-        col=torch.zeros((1,), dtype=torch.int32, device=dev))
+        col=torch.zeros((1,), dtype=torch.int32, device=dev),
+        top_k=torch.zeros(B, dtype=torch.int32, device=dev) if top_k is None else i32(top_k),
+        top_p=f32(top_p, 1.0), min_p=f32(min_p, 0.0))
+    if counts is not None:
+        zeros = lambda t: (torch.zeros((B, V), dtype=torch.float32, device=dev)  # noqa: E731
+                           if t is None else t.to(device=dev, dtype=torch.float32).clone())
+        state.counts, state.bias, state.floor_bias = zeros(counts), zeros(bias), zeros(floor_bias)
+        state.presence, state.frequency = f32(presence, 0.0), f32(frequency, 0.0)
+        state.repetition = f32(repetition, 1.0)
+        state.floor_remaining = (torch.zeros(B, dtype=torch.int32, device=dev)
+                                 if floor_remaining is None else i32(floor_remaining))
+    if logprobs_n:
+        state.lp_chosen = torch.zeros((B, steps), dtype=torch.float32, device=dev)
+        state.lp_ids = torch.zeros((B, steps, logprobs_n), dtype=torch.int32, device=dev)
+        state.lp_vals = torch.zeros((B, steps, logprobs_n), dtype=torch.float32, device=dev)
     for _ in range(steps):
-        decode_state_step(params, cfg, state, kv_cache, mode=mode,
-                          attn_impl=attn_impl)
+        decode_state_step(params, cfg, state, kv_cache, mode=mode, attn_impl=attn_impl)
+    if logprobs_n:
+        return state.out, kv_cache, (state.lp_chosen, state.lp_ids, state.lp_vals)
     return state.out, kv_cache
 
 

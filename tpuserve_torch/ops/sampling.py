@@ -1,5 +1,7 @@
-"""Token sampling — the ``greedy`` and ``temperature`` modes of
-``tpuserve/ops/sampling.py``.
+"""Token sampling — the port of ``tpuserve/ops/sampling.py``: greedy,
+temperature and "full" (top-k / top-p / min-p truncation) sampling, the
+presence / frequency / repetition penalties, ``logit_bias`` and logprobs,
+each a plain function on tensors.
 
 The JAX sampler draws each row's Gumbel noise from a ``(salt, step)``
 ``jax.random`` key, so a seeded stream does not depend on the batch it
@@ -8,7 +10,9 @@ cannot be reproduced in torch; :func:`keyed_gumbel` keeps the contract
 with a counter-based integer hash of (salt, step, vocabulary index) in
 plain torch integer ops: no generator object, so a captured CUDA graph
 serves any request.  ``sample_tokens`` also takes the noise whole
-(``gumbel``), so a test can feed both sides the same numbers.
+(``gumbel``), so a test can feed both sides the same numbers.  In the full
+mode noise column j goes to the j-th most likely token (the argmax runs in
+sorted order), as in the JAX sampler.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ _U32 = 0xFFFFFFFF
 # products of 32-bit values stay inside int64
 _MUL = (0x7FEB352D, 0x5BD1E995)
 _IDX_SALT = 0x9E3779B9
+NEG_INF = -1e30
 
 
 def _mix32(x: torch.Tensor) -> torch.Tensor:
@@ -45,26 +50,140 @@ def keyed_gumbel(salt: torch.Tensor, step: torch.Tensor,
     return -torch.log(-torch.log(u * (1.0 - 1e-7) + 1e-7))
 
 
+
+
 def sample_tokens(logits: torch.Tensor, temperature: torch.Tensor | None = None,
-                  *, mode: str = "greedy",
-                  gumbel: torch.Tensor | None = None) -> torch.Tensor:
+                  *, mode: str = "greedy", gumbel=None,
+                  top_k: torch.Tensor | None = None, top_p: torch.Tensor | None = None,
+                  min_p: torch.Tensor | None = None) -> torch.Tensor:
     """Sample next tokens.
 
     logits: (B, V); temperature: (B,) per-row, ``<= 0`` means greedy for
-    that row; gumbel: (B, V) noise for ``mode="temperature"``.
-      - "greedy": argmax (temperature and noise ignored).
+    that row; gumbel: the (B, V) noise of the sampled modes, or a function
+    of no argument that makes it (called after the full mode's sort, so
+    the noise's and the sort's temporaries never coexist);
+    top_k/top_p/min_p: (B,) per-row truncation of the full mode (``top_k
+    <= 0``, ``top_p >= 1`` and ``min_p <= 0`` disable theirs).
+      - "greedy": argmax (everything else ignored).
       - "temperature": argmax(logits / temperature + gumbel).
+      - "full": the truncated scaled logits in descending order, argmax
+        of them plus the noise, mapped back through the sort.
     Returns (B,) int32 on the logits' device.
     """
     logits = logits.float()
     greedy_tok = torch.argmax(logits, dim=-1).to(torch.int32)
     if mode == "greedy":
         return greedy_tok
-    if mode != "temperature":
-        raise NotImplementedError(
-            f"sampling mode {mode!r} is not ported yet (ROADMAP.md A6, "
-            "the full sampler)")
+    if mode not in ("temperature", "full"):
+        raise ValueError(f"unknown sampling mode {mode!r}")
     temperature = temperature.to(logits.device)
     scaled = logits / torch.clamp(temperature, min=1e-6)[:, None]
-    sampled = torch.argmax(scaled + gumbel, dim=-1).to(torch.int32)
+    if mode == "temperature":
+        noise = gumbel() if callable(gumbel) else gumbel
+        sampled = torch.argmax(scaled + noise, dim=-1).to(torch.int32)
+    else:
+        masked_sorted, sort_idx = truncated_sorted_logits(scaled, top_k, top_p, min_p)
+        del scaled
+        noise = gumbel() if callable(gumbel) else gumbel
+        choice = torch.argmax(masked_sorted + noise, dim=-1)          # sorted index
+        sampled = torch.gather(sort_idx, 1, choice[:, None])[:, 0].to(torch.int32)
     return torch.where(temperature <= 0.0, greedy_tok, sampled)
+
+
+def truncated_sorted_logits(scaled: torch.Tensor, top_k: torch.Tensor,
+                            top_p: torch.Tensor, min_p: torch.Tensor | None = None):
+    """Top-k / top-p (/ min-p) truncation of temperature-scaled logits
+    (B, V).  Returns (the logits in descending order with dropped tokens at
+    ``NEG_INF``, the (B, V) int64 vocabulary id of each sorted position).
+    Ties sort in index order (a stable sort of the negated logits, as the
+    JAX ``argsort(-x)``).  A token is kept while the probability before it
+    is below ``top_p``, so the most likely one always is; min-p keeps
+    tokens of at least ``min_p`` times the largest probability, with
+    ``min_p`` NaN-zeroed and clamped to [0, 1] so that one always
+    survives."""
+    V = scaled.shape[-1]
+    sort_idx = torch.sort(-scaled, dim=-1, stable=True)[1]
+    sorted_logits = torch.gather(scaled, 1, sort_idx)
+    rank = torch.arange(V, device=scaled.device)
+    k = torch.where(top_k <= 0, V, top_k.long())[:, None]
+    probs = torch.softmax(sorted_logits, dim=-1)
+    keep = (rank < k) & ((torch.cumsum(probs, dim=-1) - probs) < top_p[:, None])
+    if min_p is not None:
+        mp = torch.clamp(torch.nan_to_num(min_p, nan=0.0), 0.0, 1.0)
+        keep &= probs >= mp[:, None] * probs[:, :1]
+    return torch.where(keep, sorted_logits, NEG_INF), sort_idx
+
+
+def truncated_scaled_logits(scaled: torch.Tensor, top_k: torch.Tensor,
+                            top_p: torch.Tensor,
+                            min_p: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`truncated_sorted_logits` in vocabulary order, for consumers
+    that index by token id (speculative acceptance)."""
+    masked_sorted, sort_idx = truncated_sorted_logits(scaled, top_k, top_p, min_p)
+    return torch.empty_like(masked_sorted).scatter_(1, sort_idx, masked_sorted)
+
+
+def scatter_add_rows(out: torch.Tensor, ids: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """Add ``vals`` (B, K) into ``out`` (B, V) float32 at ``ids`` (B, K),
+    in place; ids outside [0, V) are dropped, as the JAX scatter's
+    ``mode="drop"`` (they add 0.0 to column 0 instead)."""
+    V = out.shape[1]
+    ids = ids.long()
+    keep = (ids >= 0) & (ids < V)
+    return out.scatter_add_(1, torch.where(keep, ids, 0),
+                            torch.where(keep, vals.float(), 0.0))
+
+
+def token_counts(output_tokens: torch.Tensor, output_mask: torch.Tensor,
+                 vocab_size: int) -> torch.Tensor:
+    """(B, T) token history and its validity mask -> (B, V) float32
+    counts; ids past the vocabulary are dropped."""
+    ids = torch.where(output_mask, output_tokens.long(), vocab_size)
+    out = torch.zeros((ids.shape[0], vocab_size), dtype=torch.float32, device=ids.device)
+    return scatter_add_rows(out, ids, torch.ones(ids.shape, dtype=torch.float32,
+                                                 device=ids.device))
+
+
+def penalize_from_counts(logits: torch.Tensor, counts: torch.Tensor,
+                         presence_penalty: torch.Tensor,
+                         frequency_penalty: torch.Tensor,
+                         repetition_penalty: torch.Tensor) -> torch.Tensor:
+    """OpenAI presence/frequency and HF repetition penalties from (B, V)
+    counts, in the JAX order: presence, frequency, then repetition (divide
+    a positive logit, multiply the others) on the tokens seen."""
+    logits = logits.float()
+    seen = counts > 0
+    logits = logits - presence_penalty[:, None] * seen
+    logits = logits - frequency_penalty[:, None] * counts
+    rep = repetition_penalty[:, None]
+    rep_logits = torch.where(logits > 0, logits / rep, logits * rep)
+    return torch.where(seen, rep_logits, logits)
+
+
+def apply_logit_penalties(logits: torch.Tensor, output_tokens: torch.Tensor,
+                          output_mask: torch.Tensor, presence_penalty: torch.Tensor,
+                          frequency_penalty: torch.Tensor,
+                          repetition_penalty: torch.Tensor) -> torch.Tensor:
+    """The penalties straight from the (B, T) token history."""
+    counts = token_counts(output_tokens, output_mask, logits.shape[1])
+    return penalize_from_counts(logits, counts, presence_penalty, frequency_penalty,
+                                repetition_penalty)
+
+
+def apply_logit_bias(logits: torch.Tensor, bias_ids: torch.Tensor,
+                     bias_vals: torch.Tensor) -> torch.Tensor:
+    """OpenAI ``logit_bias``: (B, K) ids (ids >= V are padding, dropped)
+    and float values added to the (B, V) logits."""
+    dense = torch.zeros(logits.shape, dtype=torch.float32, device=logits.device)
+    return logits.float() + scatter_add_rows(dense, bias_ids, bias_vals)
+
+
+def compute_logprobs(logits: torch.Tensor, chosen: torch.Tensor, top_n: int):
+    """Log-probabilities of the chosen tokens and the top ``top_n``: from
+    (B, V) logits and (B,) chosen ids, (chosen_lp (B,) float32, top_ids
+    (B, top_n) int32, top_lps (B, top_n) float32), top ids by descending
+    log-probability."""
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    chosen_lp = torch.gather(lp, 1, chosen.long()[:, None])[:, 0]
+    top_lps, top_ids = torch.topk(lp, top_n, dim=-1)
+    return chosen_lp, top_ids.to(torch.int32), top_lps

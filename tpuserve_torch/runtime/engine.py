@@ -24,9 +24,15 @@ the card a captured CUDA graph (for decode, of one iteration, replayed once
 a token step), filled by one pinned copy a dispatch.  The prefill, chunk
 and mixed steps then sample synchronously: the sampled tokens' copy to the
 host is the step's one host read.
-Sampling is greedy or temperature, with each row's noise keyed by (salt,
-step) (``ops/sampling.py``); stop strings, stop ids, ``ignore_eos`` and
-``max_tokens`` are host logic, as in the JAX engine.
+Sampling (``ops/sampling.py``) is greedy, temperature or full (top-k /
+top-p / min-p), each row's noise keyed by (salt, step), with the
+presence / frequency / repetition penalties, ``logit_bias``, the
+``min_tokens`` floor and logprobs: inside the decode executables for
+windows and single steps (an executable a sampling mode and extras), and
+in the synchronous sampler of the prefill, chunk and mixed steps, in the
+JAX order (penalties, bias, floor, sample, logprobs).  Stop strings, stop
+ids, ``ignore_eos`` and ``max_tokens`` are host logic, as in the JAX
+engine.
 
 The engine runs on ``device="cuda"`` unless the caller passes
 ``device="cpu"`` (the tests do); it never falls back to the CPU on its own.
@@ -51,7 +57,8 @@ from tpuserve_torch.models.weights import load_or_init, param_nbytes
 from tpuserve_torch.ops import sampling as sampling_ops
 from tpuserve_torch.ops.ragged_paged import ragged_block, ragged_layout
 from tpuserve_torch.runtime.block_manager import BlockManager
-from tpuserve_torch.runtime.graphs import DecodeExecutable, StepGraphs, pool_bytes_bound
+from tpuserve_torch.runtime.graphs import (
+    DECODE_EXTRAS, MAX_LOGPROBS, DecodeExecutable, StepGraphs, pool_bytes_bound)
 from tpuserve_torch.runtime.clock import MONOTONIC
 from tpuserve_torch.runtime.kv_cache import (
     CacheConfig, create_kv_cache, num_blocks_for_budget)
@@ -70,6 +77,9 @@ _UNPORTED_CONFIG = (
     ("lora_modules", "multi-LoRA (ROADMAP.md A8, model breadth)"),
     ("speculative", "speculative decoding (ROADMAP.md A7, engine slice 3)"),
 )
+# Engine.warmup's sample_modes default: the JAX engine's
+SAMPLE_MODES = ("greedy", "temperature", "full", "logprobs", "penalties", "bias",
+                "min_tokens")
 
 
 @dataclasses.dataclass
@@ -167,6 +177,7 @@ class PendingDecode:
     toks: torch.Tensor
     event: Optional[torch.cuda.Event]
     steps: int = 1
+    lp: Optional[tuple] = None       # host (chosen, ids, values) with logprobs
 
 
 @dataclasses.dataclass
@@ -179,14 +190,19 @@ class PendingWindow:
     toks: torch.Tensor               # (B, steps) int32 on the host
     event: Optional[torch.cuda.Event]
     steps: int
+    lp: Optional[tuple] = None       # host (chosen, ids, values) with logprobs
 
 
-def _read(p) -> np.ndarray:
-    """A pending dispatch's tokens on the host: the one read that waits on
-    the card."""
+def _read(p) -> tuple:
+    """A pending dispatch's tokens on the host, and its logprobs (None
+    without): the one read that waits on the card."""
     if p.event is not None:
         p.event.synchronize()
-    return p.toks.numpy()
+    return p.toks.numpy(), (None if p.lp is None else tuple(t.numpy() for t in p.lp))
+
+
+def _decode_key(B: int, mode: str, extras: str = "") -> tuple:
+    return ("decode", B, mode) + ((extras,) if extras else ())
 
 
 class Engine:
@@ -302,15 +318,15 @@ class Engine:
     def _step_keys(self, sched: SchedulerConfig, max_len: int) -> list[tuple]:
         """Every executable key (``runtime/graphs.py``) a dispatch can take
         under ``sched`` with sequences of at most ``max_len`` tokens: the
-        decode ladder in both modes; with mixed batching the flat-token
-        ladder (``ragged_block`` doubling up to the budget's power of
-        two); else every (batch, length) pair a batched prefill pads to
+        decode ladder in every sampling mode and extras; with mixed
+        batching the flat-token ladder (``ragged_block`` doubling up to the
+        budget's power of two); else every (batch, length) pair a batched prefill pads to
         and every chunk length.  The scheduler's prefill admission charges
         each picked prompt at the batch's bucket, so a batch of n prompts
         at length L, padded to B = next_power_of_2(n), has n * L within
         the token budget (or n = 1)."""
-        keys = [("decode", B, m) for B in self._decode_ladder()
-                for m in transformer.DECODE_MODES]
+        keys = [_decode_key(B, m, x) for B in self._decode_ladder()
+                for m in transformer.DECODE_MODES for x in ("",) + DECODE_EXTRAS]
         if sched.mixed_batching:
             T = self._ragged_blk
             while T <= next_power_of_2(sched.mixed_token_budget):
@@ -356,22 +372,11 @@ class Engine:
 
     @staticmethod
     def reject_unported(params: SamplingParams) -> None:
-        """Raise NotImplementedError naming the ROADMAP.md item of the first
-        sampling option this port does not carry yet."""
-        checks = (
-            (params.guided is not None,
-             "guided decoding (ROADMAP.md A6, apply_token_mask)"),
-            (params.needs_truncation,
-             "top_k/top_p/min_p (ROADMAP.md A6, the full sampler)"),
-            (params.needs_penalties,
-             "presence/frequency/repetition penalties (ROADMAP.md A6)"),
-            (params.logprobs is not None, "logprobs (ROADMAP.md A6)"),
-            (params.needs_logit_bias, "logit_bias (ROADMAP.md A6)"),
-            (params.min_tokens > 0, "min_tokens (ROADMAP.md A6)"),
-        )
-        for used, item in checks:
-            if used:
-                raise NotImplementedError(f"not ported yet: {item}")
+        """Raise NotImplementedError naming the ROADMAP.md item of a
+        sampling option this port does not carry yet: guided decoding."""
+        if params.guided is not None:
+            raise NotImplementedError(
+                "not ported yet: guided decoding (ROADMAP.md A6, apply_token_mask)")
 
     def add_request(self, prompt: str | None = None,
                     prompt_token_ids: Optional[Sequence[int]] = None,
@@ -710,12 +715,33 @@ class Engine:
     def _salt(self, req: Request) -> int:
         return self._salts.get(req.request_id, 0)
 
+    # ---- sampling -----------------------------------------------------
+
+    MAX_LOGPROBS = MAX_LOGPROBS
+
     def _sample(self, logits: torch.Tensor, reqs: list[Request],
                 B: int) -> np.ndarray:
-        """The synchronous sampler of the prefill, chunk and mixed steps:
-        each row's key is (salt, tokens it has sampled so far), as the
-        decode executables step it."""
-        if all(r.params.greedy for r in reqs):
+        """The synchronous sampler of the prefill, chunk and mixed steps, as
+        the JAX ``_sample``: penalties from each row's history, bias, the
+        ``min_tokens`` floor, then the cheapest mode covering the rows,
+        with each row's key (salt, tokens it has sampled so far), as the
+        decode executables step it; logprobs of the logits sampled from
+        (before temperature) are recorded for the rows that asked."""
+        n = len(reqs)
+        V = logits.shape[1]
+        t = self._tensor
+        if any(r.params.needs_penalties for r in reqs):
+            out_tokens, mask, presence, frequency, repetition = self._penalty_arrays(reqs, B)
+            logits = sampling_ops.apply_logit_penalties(
+                logits, t(out_tokens), t(mask), t(presence), t(frequency), t(repetition))
+        if any(r.params.needs_logit_bias for r in reqs):
+            ids, vals = self._logit_bias_arrays(reqs, B, V)
+            logits = sampling_ops.apply_logit_bias(logits, t(ids), t(vals))
+        if any(self._floor_active(r) for r in reqs):
+            ids, vals, _ = self._min_tokens_arrays(reqs, B, V)
+            logits = sampling_ops.apply_logit_bias(logits, t(ids), t(vals))
+        mode = self._sample_mode(reqs)
+        if mode == "greedy":
             toks = sampling_ops.sample_tokens(logits, mode="greedy")
         else:
             temperature = np.zeros((B,), np.float32)
@@ -725,11 +751,111 @@ class Engine:
                 temperature[i] = r.params.temperature
                 salt[i] = self._salt(r)
                 step[i] = len(r.output_token_ids)
-            noise = sampling_ops.keyed_gumbel(self._tensor(salt), self._tensor(step),
-                                              logits.shape[-1])
-            toks = sampling_ops.sample_tokens(logits, self._tensor(temperature),
-                                              mode="temperature", gumbel=noise)
-        return toks.cpu().numpy()[:len(reqs)]
+            top_k, top_p, min_p = self._truncation_arrays(reqs, B)
+            toks = sampling_ops.sample_tokens(
+                logits, t(temperature), mode=mode,
+                gumbel=lambda: sampling_ops.keyed_gumbel(t(salt), t(step), V),
+                top_k=t(top_k), top_p=t(top_p), min_p=t(min_p))
+        if not any(r.params.logprobs is not None for r in reqs):
+            return toks.cpu().numpy()[:n]
+        top_n = min(max(r.params.logprobs or 0 for r in reqs) or 1, self.MAX_LOGPROBS)
+        chosen, ids, lps = (x.cpu().numpy() for x in
+                            sampling_ops.compute_logprobs(logits, toks, top_n))
+        toks_np = toks.cpu().numpy()[:n]
+        for i, r in enumerate(reqs):
+            if r.params.logprobs is not None:
+                self._append_logprob_entry(r, int(toks_np[i]), chosen[i], ids[i], lps[i])
+        return toks_np
+
+    @staticmethod
+    def _sample_mode(reqs: list[Request]) -> str:
+        """The cheapest sampler covering ``reqs``: greedy if every row is,
+        else temperature unless a row truncates, else full."""
+        if all(r.params.greedy for r in reqs):
+            return "greedy"
+        return "full" if any(r.params.needs_truncation for r in reqs) else "temperature"
+
+    @staticmethod
+    def _floor_active(r: Request) -> bool:
+        """Whether the row's ``min_tokens`` mask is still in force."""
+        return r.params.needs_min_tokens and r.params.min_tokens_active(
+            len(r.output_token_ids))
+
+    def _truncation_arrays(self, reqs: list[Request], B: int):
+        """Per-row top_k/top_p/min_p of the full sampler, one home for the
+        decode executables and the synchronous sampler; top_k is clamped to
+        the vocabulary (and to -1 below), so any value fits int32."""
+        top_k = np.zeros((B,), np.int32)
+        top_p = np.ones((B,), np.float32)
+        min_p = np.zeros((B,), np.float32)
+        for i, r in enumerate(reqs):
+            top_k[i] = max(min(r.params.top_k, self.model_cfg.vocab_size), -1)
+            top_p[i] = r.params.top_p
+            min_p[i] = r.params.min_p
+        return top_k, top_p, min_p
+
+    @staticmethod
+    def _penalty_arrays(reqs: list[Request], B: int):
+        """Per-row token history (padded to a power of two, at least 8) with
+        its mask, and the penalty coefficients."""
+        T = max(next_power_of_2(max(len(r.output_token_ids) for r in reqs)), 8)
+        out_tokens = np.zeros((B, T), np.int32)
+        mask = np.zeros((B, T), bool)
+        presence = np.zeros((B,), np.float32)
+        frequency = np.zeros((B,), np.float32)
+        repetition = np.ones((B,), np.float32)
+        for i, r in enumerate(reqs):
+            ids = r.output_token_ids[-T:]
+            out_tokens[i, :len(ids)] = ids
+            mask[i, :len(ids)] = True
+            presence[i] = r.params.presence_penalty
+            frequency[i] = r.params.frequency_penalty
+            repetition[i] = r.params.repetition_penalty
+        return out_tokens, mask, presence, frequency, repetition
+
+    @staticmethod
+    def _logit_bias_arrays(reqs: list[Request], B: int, V: int):
+        """Per-row (ids, values) of ``logit_bias``, padded with id V (dropped)
+        to a power-of-two width."""
+        K = next_power_of_2(max(len(r.params.logit_bias or {}) for r in reqs) or 1)
+        ids = np.full((B, K), V, np.int32)
+        vals = np.zeros((B, K), np.float32)
+        for i, r in enumerate(reqs):
+            for j, (tid, b) in enumerate(r.params.logit_bias_items()):
+                ids[i, j] = int(tid)
+                vals[i, j] = float(b)
+        return ids, vals
+
+    def _min_tokens_arrays(self, reqs: list[Request], B: int, V: int):
+        """The ``min_tokens`` mask's (ids, values) and each row's remaining
+        floor: every EOS id (unless ``ignore_eos``) and stop id of a row
+        still below its floor at -1e9 (not -inf: a row masked whole must
+        not turn NaN under softmax); the width is taken over masked rows
+        only."""
+        eos = sorted(self._eos_ids)
+        rows = {}
+        remaining = np.zeros((B,), np.int32)
+        for i, r in enumerate(reqs):
+            if self._floor_active(r):
+                rows[i] = ([] if r.params.ignore_eos else eos) + list(r.params.stop_token_ids)
+                remaining[i] = r.params.min_tokens - len(r.output_token_ids)
+        K = next_power_of_2(max((len(v) for v in rows.values()), default=1) or 1)
+        ids = np.full((B, K), V, np.int32)
+        vals = np.zeros((B, K), np.float32)
+        for i, row in rows.items():
+            ids[i, :len(row)] = row
+            vals[i, :len(row)] = -1e9
+        return ids, vals, remaining
+
+    @staticmethod
+    def _append_logprob_entry(r: Request, tok: int, chosen_lp, top_ids, top_lps) -> None:
+        """One token's logprob record, the JAX engine's shape: its id, its
+        logprob and the request's top ``logprobs`` (id, logprob) pairs, cut
+        from the wider ``top_ids``/``top_lps``."""
+        k = min(r.params.logprobs, len(top_ids))
+        r.logprobs.append({"token_id": tok, "logprob": float(chosen_lp),
+                           "top": [(int(t), float(lp))
+                                   for t, lp in zip(top_ids[:k], top_lps[:k])]})
 
     def _charge_decode_rows(self, reqs: list[Request]):
         """Append one KV slot per decoding request, preempting the most
@@ -756,17 +882,26 @@ class Engine:
 
     # ---- decode -------------------------------------------------------
 
-    def _dispatch(self, reqs: list[Request], steps: int, extra: int,
-                  chain_idx: dict, pending) -> tuple[DecodeExecutable, torch.Tensor,
-                                                      Optional[torch.cuda.Event]]:
+    def _dispatch(self, reqs: list[Request], steps: int, extra: int, chain_idx: dict,
+                  pending) -> tuple[DecodeExecutable, torch.Tensor, Optional[tuple],
+                                    Optional[torch.cuda.Event]]:
         """Run ``steps`` decode iterations for ``reqs`` on the executable
-        of their bucket and mode, and start their copy to the host.  Rows
-        in ``chain_idx`` (request id -> row of ``pending``) continue the
-        in-flight dispatch ``pending``, ``extra`` tokens ahead of the host:
-        their input token is that dispatch's last, selected on the card."""
+        of their bucket, sampling mode and extras, and start their copy to
+        the host.  Rows in ``chain_idx`` (request id -> row of ``pending``)
+        continue the in-flight dispatch ``pending``, ``extra`` tokens ahead
+        of the host: their input token is that dispatch's last, selected on
+        the card.  Extras, as the JAX window's: logprobs if a row asked for
+        them; penalties (with the bias and the floor, neutral where unused)
+        if a row has penalties, a bias or a floor in force, their (B, V)
+        buffers built on the card from the host history before the
+        replay."""
         B = self.scheduler.decode_bucket(len(reqs))
-        mode = "greedy" if all(r.params.greedy for r in reqs) else "temperature"
-        exe = self.graphs.get("decode", B, mode)
+        V = self.model_cfg.vocab_size
+        lp = any(r.params.logprobs is not None for r in reqs)
+        pen = any(r.params.needs_penalties or r.params.needs_logit_bias
+                  or self._floor_active(r) for r in reqs)
+        extras = "+".join(x for x, on in (("logprobs", lp), ("penalties", pen)) if on)
+        exe = self.graphs.get(*_decode_key(B, self._sample_mode(reqs), extras))
         st = exe.stage()
         for i, r in enumerate(reqs):
             pi = chain_idx.get(r.request_id)
@@ -783,13 +918,21 @@ class Engine:
             st.salt[i] = self._salt(r)
             st.step[i] = len(r.output_token_ids) + ahead
             st.temperature[i] = r.params.temperature
+        st.top_k[:], st.top_p[:], st.min_p[:] = self._truncation_arrays(reqs, B)
+        if pen:
+            out_tokens, mask, st.presence[:], st.frequency[:], st.repetition[:] = \
+                self._penalty_arrays(reqs, B)
+            f_ids, f_vals, st.floor_remaining[:] = self._min_tokens_arrays(reqs, B, V)
         self.block_manager.fill_block_tables([r.request_id for r in reqs],
                                              st.block_tables)
         exe.load(st, chain=(pending.exe, pending.steps) if chain_idx else None)
+        if pen:
+            exe.load_extras(np.where(mask, out_tokens, V),
+                            *self._logit_bias_arrays(reqs, B, V), f_ids, f_vals)
         exe.run(steps)
-        toks, event = exe.fetch(steps)
+        toks, lps, event = exe.fetch(steps)
         self.stats.num_decode_steps += steps
-        return exe, toks, event
+        return exe, toks, lps, event
 
     def _run_decode(self, batch: ScheduledBatch) -> list[RequestOutput]:
         """One decode token step.  Resolves any in-flight window first
@@ -798,6 +941,17 @@ class Engine:
         the previous one is flushed after it is dispatched."""
         outputs = self._flush_window()
         reqs = [r for r in batch.requests if not r.finished]
+        # penalties, logprobs and a floor read the host's history and
+        # length, one step stale under the pipeline: such batches run
+        # synchronously (a bias is static, so it stays pipelined)
+        pipeline_ok = self._pipeline_decode and not any(
+            r.params.needs_penalties or r.params.logprobs is not None
+            or (r.params.needs_min_tokens
+                and r.params.min_tokens_active(len(r.output_token_ids), slack=1))
+            for r in reqs)
+        if self._pending is not None and not pipeline_ok:
+            outputs += self._flush_pending()
+            reqs = [r for r in reqs if not r.finished]
         pending = self._pending
         pend_idx: dict[str, int] = {}
         if pending is not None:
@@ -818,9 +972,9 @@ class Engine:
             return outputs + self._flush_pending()
         chain = ({r.request_id: pend_idx[r.request_id] for r in reqs
                   if r.request_id in pend_idx} if self._pending is not None else {})
-        exe, toks, event = self._dispatch(reqs, 1, 1, chain, pending)
-        step = PendingDecode(reqs=list(reqs), exe=exe, toks=toks, event=event)
-        if self._pipeline_decode:
+        exe, toks, lps, event = self._dispatch(reqs, 1, 1, chain, pending)
+        step = PendingDecode(reqs=list(reqs), exe=exe, toks=toks, event=event, lp=lps)
+        if pipeline_ok:
             # resolve the PREVIOUS step while this one runs on the card
             outputs += self._flush_pending()
             self._pending = step
@@ -860,6 +1014,15 @@ class Engine:
         to a single step when the cache cannot reserve the window."""
         S = self._window_steps()
         outputs = self._flush_pending()
+        if self._pending_window is not None and any(
+                r.params.needs_penalties
+                or (r.params.needs_min_tokens and r.params.min_tokens_active(
+                    len(r.output_token_ids), slack=self._pending_window.steps))
+                for r in batch.requests):
+            # the counts and the floor come from the host's history and
+            # length, which lag the in-flight window: resolve it first (a
+            # bias is static, so it may chain)
+            outputs += self._flush_window()
         p = self._pending_window
         reqs = [r for r in batch.requests if not r.finished]
         pend_idx: dict[str, int] = {}
@@ -880,10 +1043,11 @@ class Engine:
             return outputs + self._run_decode(batch)
         chain = {r.request_id: pend_idx[r.request_id] for r in reqs
                  if r.request_id in pend_idx}
-        exe, toks, event = self._dispatch(reqs, S, p.steps if p is not None else 0,
-                                          chain, p)
+        exe, toks, lps, event = self._dispatch(reqs, S, p.steps if p is not None else 0,
+                                               chain, p)
         self.stats.num_decode_windows += 1
-        window = PendingWindow(reqs=list(reqs), exe=exe, toks=toks, event=event, steps=S)
+        window = PendingWindow(reqs=list(reqs), exe=exe, toks=toks, event=event, steps=S,
+                               lp=lps)
         if self._pipeline_decode:
             # resolve the PREVIOUS window while this one runs on the card.
             # A request that finished inside it is already in this dispatch:
@@ -904,7 +1068,7 @@ class Engine:
         p, self._pending_window = self._pending_window, None
         if p is None:
             return []
-        toks_h = _read(p)
+        toks_h, lp_h = _read(p)
         # commit the written KV before emitting (a finish frees blocks);
         # rows that finished in flight were freed already
         self.block_manager.advance_batch(
@@ -915,6 +1079,10 @@ class Engine:
                 self.stats.window_overrun_tokens += p.steps
                 continue
             for s in range(p.steps):
+                if lp_h is not None and r.params.logprobs is not None:
+                    # before the emit, and only for consumed tokens
+                    self._append_logprob_entry(r, int(toks_h[i, s]), lp_h[0][i, s],
+                                               lp_h[1][i, s], lp_h[2][i, s])
                 out = self._emit_one(r, int(toks_h[i, s]))
                 outputs.append(out)
                 if out.finished:
@@ -929,9 +1097,16 @@ class Engine:
         p, self._pending = self._pending, None
         if p is None:
             return []
-        toks_h = _read(p)
-        return [self._emit_one(r, int(toks_h[i, 0]))
-                for i, r in enumerate(p.reqs) if not r.finished]
+        toks_h, lp_h = _read(p)
+        outputs = []
+        for i, r in enumerate(p.reqs):
+            if r.finished:
+                continue
+            if lp_h is not None and r.params.logprobs is not None:
+                self._append_logprob_entry(r, int(toks_h[i, 0]), lp_h[0][i, 0],
+                                           lp_h[1][i, 0], lp_h[2][i, 0])
+            outputs.append(self._emit_one(r, int(toks_h[i, 0])))
+        return outputs
 
     # ---- bookkeeping --------------------------------------------------
 
@@ -941,7 +1116,9 @@ class Engine:
         self.stats.generated_tokens += 1
         delta = self._detok[req.request_id].add(tok)
         reason = None
-        if req.params.stop:
+        if req.params.stop and not req.params.min_tokens_active(len(req.output_token_ids)):
+            # below the min_tokens floor stop strings are not matched (the
+            # text still streams), as vLLM
             delta, stopped = self._match_stop(req, delta)  # mutates output_text
             if stopped:
                 reason = FinishReason.STOP
@@ -1024,16 +1201,21 @@ class Engine:
     def warmup(self, decode_buckets: Optional[Sequence[int]] = None,
                prefill_buckets: Optional[Sequence] = None,
                chunk_buckets: Optional[Sequence[int]] = None,
-               mixed_buckets: Optional[Sequence[int]] = None) -> None:
+               mixed_buckets: Optional[Sequence[int]] = None,
+               sample_modes: Sequence[str] = SAMPLE_MODES) -> None:
         """Make the executables before serving, with the JAX engine's
         ``warmup`` defaults; on the card each one is a captured CUDA graph,
         largest transient first.  ``None`` derives a kind's buckets; an
         empty list warms none of it.
 
-        - decode: ``decode_buckets`` in both sampling modes, by default
-          the whole ladder (``min_decode_bucket`` to the bucket
-          ``max_num_seqs`` pads to; the JAX engine warms only
-          ``min_decode_bucket`` unless mixed batching is on);
+        - decode: ``decode_buckets``, by default the whole ladder
+          (``min_decode_bucket`` to the bucket ``max_num_seqs`` pads to;
+          the JAX engine warms only ``min_decode_bucket`` unless mixed
+          batching is on), in the variants ``sample_modes`` names, as the
+          JAX warmup: greedy always, "temperature" and "full" by name;
+          each without extras, with logprobs ("logprobs") and with
+          penalties (any of "penalties", "bias", "min_tokens"); logprobs
+          and penalties together are made on first use;
         - prefill: each entry a padded length L (at batch 1) or a (batch,
           L) pair, by default ``min_prefill_bucket`` at batch 1;
         - chunk: ``chunk_buckets``, plus the full ``prefill_chunk_size``
@@ -1058,9 +1240,12 @@ class Engine:
                 mixed_buckets = [k[1] for k in self._step_keys(sched, self.max_seq_len)
                                  if k[0] == "mixed"]
             prefill, chunks = [], set()
-        keys = [("decode", B, m)
+        modes = [m for m in transformer.DECODE_MODES if m == "greedy" or m in sample_modes]
+        extras = [""] + [x for x in ("logprobs", "penalties") if x in sample_modes
+                         or (x == "penalties" and {"bias", "min_tokens"} & set(sample_modes))]
+        keys = [_decode_key(B, m, x)
                 for B in (self._decode_ladder() if decode_buckets is None else decode_buckets)
-                for m in transformer.DECODE_MODES]
+                for m in modes for x in extras]
         keys += [("prefill", *(b if isinstance(b, tuple) else (1, b))) for b in prefill]
         keys += [("chunk", C) for C in chunks]
         keys += [("mixed", -(-T // blk) * blk) for T in mixed_buckets or ()]

@@ -14,9 +14,13 @@ graph of the step over them:
   C-row chunk against the cache;
 - ``("mixed", T)``: ``transformer.forward_ragged`` of a T-row flat stream,
   descriptors for the engine's fixed number of sequences;
-- ``("decode", B, mode)``: ONE decode iteration
-  (``transformer.decode_state_step``, a :class:`DecodeExecutable`); a fused
-  window replays it S times, a single step once.
+- ``("decode", B, mode[, extras])``: ONE decode iteration
+  (``transformer.decode_state_step``, a :class:`DecodeExecutable`) in
+  sampling ``mode`` ("greedy", "temperature" or "full"), with ``extras``
+  "logprobs" (the chosen token's and the top ``MAX_LOGPROBS``
+  logprobs), "penalties" (penalties, ``logit_bias`` and the
+  ``min_tokens`` floor) or "logprobs+penalties"; a fused window replays it
+  S times, a single step once.
 
 Every KV write in them drops padding on the device
 (``attention.pad_drop``), so no step reads anything back to the host.  A
@@ -27,7 +31,15 @@ from them before it dispatches the executable again.  A decode dispatch
 also selects, for rows that continue an in-flight dispatch, that
 dispatch's last tokens on the device (the JAX ``_select_tokens``), and its
 (B, S) tokens come back with one device-to-host copy into pinned memory
-behind an event, read when the engine flushes the dispatch.
+behind an event, read when the engine flushes the dispatch, and so do its
+logprobs.  A "penalties" executable reads three (B, V) float32 buffers
+that do not ride the staging (at B = 64 on a 151,936-token vocabulary
+they are 117 MB): the engine builds them on the card before the replay,
+from each row's token history and its bias and floor ids, which come in
+one pinned copy (:meth:`DecodeExecutable.load_extras`).  One set at the
+largest bucket serves every executable, each reading its first B rows:
+the card runs the engine's work in order, so a build never overtakes the
+replay before it.
 
 An engine's graphs share one memory pool and one capture stream, largest
 transient first at warmup.  Before a capture the step runs once on the
@@ -57,10 +69,16 @@ import torch
 
 from tpuserve_torch.models import transformer
 from tpuserve_torch.ops import flash_prefill, paged_decode, paged_window, ragged_paged
+from tpuserve_torch.ops import sampling as sampling_ops
 from tpuserve_torch.ops.attention import PAD_SLOT
 
 KERNEL_MODULES = (flash_prefill, paged_decode, paged_window, ragged_paged)
 KINDS = ("prefill", "chunk", "mixed", "decode")
+# a decode executable's extras, beside none
+DECODE_EXTRAS = ("logprobs", "penalties", "logprobs+penalties")
+# the top logprobs a logprobs executable keeps a step (the JAX engine's
+# MAX_LOGPROBS: one width, so no request makes a new executable)
+MAX_LOGPROBS = 20
 
 
 def _name(mod) -> str:
@@ -97,12 +115,30 @@ def layout(key, max_blocks: int, seqs: int, blk: int) -> tuple:
     if kind == "decode":
         B = shape[0]
         # salt and step hold uint32 bit patterns; padding rows: length 1,
-        # inactive, greedy, token from the host
+        # inactive, greedy, no truncation, neutral penalties, no floor,
+        # token from the host
         return (("block_tables", (B, MB), 0), ("tokens", (B,), 0), ("positions", (B,), 0),
                 ("seq_lens", (B,), 1), ("active", (B,), 0), ("salt", (B,), 0, np.uint32),
                 ("step", (B,), 0, np.uint32), ("temperature", (B,), 0, np.float32),
-                ("use_host", (B,), 1), ("gather", (B,), 0), ("col", (1,), 0))
+                ("top_k", (B,), 0), ("top_p", (B,), 1.0, np.float32),
+                ("min_p", (B,), 0, np.float32), ("presence", (B,), 0, np.float32),
+                ("frequency", (B,), 0, np.float32), ("repetition", (B,), 1.0, np.float32),
+                ("floor_remaining", (B,), 0), ("use_host", (B,), 1), ("gather", (B,), 0),
+                ("col", (1,), 0))
     raise ValueError(f"unknown step kind {kind!r} (not in {KINDS})")
+
+
+def decode_extras(key) -> str:
+    """A decode key's extras ("" for none)."""
+    return key[3] if len(key) > 3 else ""
+
+
+def keeps_logits(key) -> bool:
+    """Whether ``key``'s executable keeps its last logits: every kind but
+    decode with extras, whose logits no one reads (the engine samples and
+    takes logprobs inside the step), so their memory returns to the pool
+    for the captures after it."""
+    return key[0] != "decode" or not decode_extras(key)
 
 
 def _rows(key) -> int:
@@ -121,28 +157,37 @@ def transient_bytes(cfg, key, seqs: int) -> int:
     output, from shapes: per token row, the layer's activations with
     float32 norm, qk-norm and RoPE temporaries (three copies of the
     hidden, q/k/v and MLP widths, four bytes each); per output row, the
-    unembedding's bf16 and float32 logits; for decode, eight (B, V) int64
-    tensors (the keyed noise)."""
+    unembedding's bf16 and float32 logits.  For decode, per (B, V)
+    element: 64 bytes, eight int64 tensors of the keyed noise; in the full
+    mode 24 more, the sorted logits and their int64 indices held through
+    the noise (the sort itself, its keep mask and its softmax and cumsum
+    are freed before the noise is drawn); with logprobs 16 more, the
+    log-softmax and the top-k's buffers; with penalties 24 more, the
+    penalized, biased and floored logits' temporaries."""
     V = cfg.vocab_size
     if key[0] == "decode":
-        return 8 * key[1] * V * 8
+        extras = decode_extras(key)
+        per = (64 + 24 * (key[2] == "full") + 16 * ("logprobs" in extras)
+               + 24 * ("penalties" in extras))
+        return key[1] * V * per
     width = cfg.hidden_size + cfg.q_size + 2 * cfg.kv_size + cfg.intermediate_size
     return _rows(key) * 3 * 4 * width + _out_rows(key, seqs) * V * 6
 
 
 def pool_bytes_bound(cfg, keys, seqs: int) -> int:
     """The most device memory one engine's graphs can reserve, from
-    shapes: every executable of ``keys`` keeps its (rows, V) float32
-    logits; the largest step's transients (:func:`transient_bytes`) are
-    reused by every later capture in the pool, counted twice for the
-    allocator's splitting of them; and 256 MiB for the capture stream's
-    cuBLAS workspace and the allocator's rounding.  The engine leaves
-    this much free when it sizes its cache to the card."""
+    shapes: every executable of ``keys`` that keeps its logits
+    (:func:`keeps_logits`) holds its (rows, V) float32 logits; the
+    largest step's transients (:func:`transient_bytes`) are reused by
+    every later capture in the pool, counted twice for the allocator's
+    splitting of them; and 256 MiB for the capture stream's cuBLAS
+    workspace and the allocator's rounding.  The engine leaves this much
+    free when it sizes its cache to the card."""
     keys = list(keys)
     if not keys:
         return 0
     V = cfg.vocab_size
-    logits = sum(_out_rows(k, seqs) for k in keys) * V * 4
+    logits = sum(_out_rows(k, seqs) for k in keys if keeps_logits(k)) * V * 4
     return logits + 2 * max(transient_bytes(cfg, k, seqs) for k in keys) + (256 << 20)
 
 
@@ -160,9 +205,10 @@ class Staging:
         for name, shape, fill, *dtype in fields:
             size = math.prod(shape)
             view = a[off:off + size]
+            if dtype:
+                view = view.view(*dtype)
             view[:] = fill
-            setattr(self, name, view.view(*dtype).reshape(shape) if dtype
-                    else view.reshape(shape))
+            setattr(self, name, view.reshape(shape))
             off += size
 
 
@@ -211,6 +257,7 @@ class Executable:
         self.graph = None
         self.logits = None           # the last run's (rows, V) float32 logits
         self.launches: dict = {}     # kernel launches one replay makes
+        self.capture_s = 0.0         # wall seconds its capture took
 
     def step(self) -> torch.Tensor:
         return _BODIES[self.key[0]](self.owner, self.views)
@@ -240,21 +287,38 @@ class Executable:
 
 
 class DecodeExecutable(Executable):
-    """One (padded batch ``B``, ``mode``) decode iteration over a
-    :class:`transformer.DecodeState` made of the buffers, with a (B,
-    steps) output written one column an iteration."""
+    """One (padded batch ``B``, ``mode``, ``extras``) decode iteration over
+    a :class:`transformer.DecodeState` made of the buffers, with a (B,
+    steps) output written one column an iteration (and, with logprobs,
+    (B, steps[, MAX_LOGPROBS]) logprob outputs)."""
 
     def __init__(self, owner: "StepGraphs", key: tuple):
         super().__init__(owner, key)
-        _, self.B, self.mode = key
-        v = self.views
+        self.B, self.mode, self.extras = key[1], key[2], decode_extras(key)
+        if self.mode not in transformer.DECODE_MODES:
+            raise ValueError(f"decode mode {self.mode!r} not in {transformer.DECODE_MODES}")
+        if self.extras and self.extras not in DECODE_EXTRAS:
+            raise ValueError(f"decode extras {self.extras!r} not in {DECODE_EXTRAS}")
+        v, B, S, dev = self.views, self.B, owner.steps, owner.device
         self.use_host, self.gather = v["use_host"], v["gather"]
         self.state = transformer.DecodeState(
             tokens=v["tokens"], positions=v["positions"], seq_lens=v["seq_lens"],
             active=v["active"], salt=v["salt"], step=v["step"],
             temperature=v["temperature"], block_tables=v["block_tables"],
-            out=torch.zeros((self.B, owner.steps), dtype=torch.int32, device=owner.device),
-            col=v["col"])
+            out=torch.zeros((B, S), dtype=torch.int32, device=dev), col=v["col"],
+            top_k=v["top_k"], top_p=v["top_p"], min_p=v["min_p"])
+        if "penalties" in self.extras:
+            counts, bias, floor_bias = owner.sampling_buffers()
+            st = self.state
+            st.counts, st.bias, st.floor_bias = counts[:B], bias[:B], floor_bias[:B]
+            st.presence, st.frequency = v["presence"], v["frequency"]
+            st.repetition, st.floor_remaining = v["repetition"], v["floor_remaining"]
+        if "logprobs" in self.extras:
+            self.state.lp_chosen = torch.zeros((B, S), dtype=torch.float32, device=dev)
+            self.state.lp_ids = torch.zeros((B, S, MAX_LOGPROBS), dtype=torch.int32,
+                                            device=dev)
+            self.state.lp_vals = torch.zeros((B, S, MAX_LOGPROBS), dtype=torch.float32,
+                                             device=dev)
 
     def step(self) -> torch.Tensor:
         o = self.owner
@@ -271,17 +335,49 @@ class DecodeExecutable(Executable):
             last = prev.state.out[:, steps - 1][self.gather.long()]
             self.state.tokens.copy_(torch.where(self.use_host != 0, self.state.tokens, last))
 
+    def load_extras(self, history: np.ndarray, bias_ids: np.ndarray, bias_vals: np.ndarray,
+                    floor_ids: np.ndarray, floor_vals: np.ndarray) -> None:
+        """Build the penalties' (B, V) buffers on the device, in the work
+        enqueued before the replay: the counts of each row's (B, T) token
+        history (ids past the vocabulary are padding), the dense bias of
+        (B, K) ids and values, and the floor mask of (B, K') ids and
+        values.  The five arrays come in one pinned copy."""
+        parts = [history.astype(np.int32), bias_ids.astype(np.int32),
+                 bias_vals.astype(np.float32).view(np.int32), floor_ids.astype(np.int32),
+                 floor_vals.astype(np.float32).view(np.int32)]
+        sizes = [p.size for p in parts]
+        host = torch.empty(sum(sizes), dtype=torch.int32,
+                           pin_memory=self.owner.device.type == "cuda")
+        host.numpy()[:] = np.concatenate([p.ravel() for p in parts])
+        dev = host.to(self.owner.device, non_blocking=True)
+        hist, b_ids, b_vals, f_ids, f_vals = (
+            t.view(p.shape) for t, p in zip(torch.split(dev, sizes), parts))
+        st = self.state
+        sampling_ops.scatter_add_rows(st.counts.zero_(), hist,
+                                      torch.ones(hist.shape, dtype=torch.float32,
+                                                 device=hist.device))
+        sampling_ops.scatter_add_rows(st.bias.zero_(), b_ids, b_vals.view(torch.float32))
+        sampling_ops.scatter_add_rows(st.floor_bias.zero_(), f_ids,
+                                      f_vals.view(torch.float32))
+
     def fetch(self, steps: int):
-        """The first ``steps`` columns of the output, copied to the host
-        behind the work enqueued so far: (host tensor, event or None)."""
-        out = self.state.out[:, :steps]
+        """The first ``steps`` columns of the output, and with logprobs
+        the (chosen, ids, values) of those steps, copied to the host behind
+        the work enqueued so far: (host tokens, host logprobs or None,
+        event or None)."""
+        st = self.state
+        outs = [st.out[:, :steps]]
+        if st.lp_chosen is not None:
+            outs += [st.lp_chosen[:, :steps], st.lp_ids[:, :steps], st.lp_vals[:, :steps]]
         if self.owner.device.type != "cuda":
-            return out.clone(), None
-        host = torch.empty(out.shape, dtype=torch.int32, pin_memory=True)
-        host.copy_(out, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        return host, event
+            host, event = [t.clone() for t in outs], None
+        else:
+            host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in outs]
+            for h, t in zip(host, outs):
+                h.copy_(t, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        return host[0], (tuple(host[1:]) if len(host) > 1 else None), event
 
 
 class StepGraphs:
@@ -307,12 +403,22 @@ class StepGraphs:
         self.workspace = None        # held as long as the graphs
         self.capture_s = 0.0         # wall seconds spent capturing
         self.replays = collections.Counter()      # by step kind
+        self._sampling_buffers = None
+
+    def sampling_buffers(self) -> tuple:
+        """The penalties executables' (max_batch, V) float32 counts, bias
+        and floor mask, made on first use (outside any capture) and
+        shared: each executable reads its first B rows."""
+        if self._sampling_buffers is None:
+            shape = (self.max_batch, self.cfg.vocab_size)
+            self._sampling_buffers = tuple(
+                torch.zeros(shape, dtype=torch.float32, device=self.device) for _ in range(3))
+        return self._sampling_buffers
 
     def get(self, *key) -> Executable:
         exe = self.executables.get(key)
         if exe is None:
             if key[0] == "decode":
-                transformer.check_decode_mode(key[2])
                 exe = DecodeExecutable(self, key)
             elif key[0] in _BODIES:
                 exe = Executable(self, key)
@@ -394,5 +500,6 @@ class StepGraphs:
         exe.launches = {name: after[name] - mid[name] for name in after}
         for mod in KERNEL_MODULES:
             mod.LAUNCHES -= after[_name(mod)] - before[_name(mod)]
-        exe.graph, exe.logits = graph, logits
-        self.capture_s += time.perf_counter() - t0
+        exe.graph, exe.logits = graph, (logits if keeps_logits(exe.key) else None)
+        exe.capture_s = time.perf_counter() - t0
+        self.capture_s += exe.capture_s

@@ -5,13 +5,16 @@ Serves ``GET /v1/models``, ``/v1/models/{id}``, ``/metrics``, ``/healthz``
 and ``/readyz``; ``POST /v1/completions`` and ``/v1/chat/completions``,
 streamed (SSE) or not, and ``/tokenize`` / ``/detokenize``.
 
-Options whose engine parts are not ported yet are answered with a 400 that
-names the ROADMAP.md item bringing them, checked before the request is
-submitted, so a streaming request gets the status line and not a broken
-event stream: guided decoding, top_k/top_p/min_p, penalties, logprobs,
-``logit_bias`` and ``min_tokens`` (A6, ``Engine.reject_unported``),
-``best_of`` (A6), tool calls (A5b), prompt scoring and ``/v1/embeddings``
-(A7).
+Every sampling option of the JAX server is served: top_k/top_p/min_p, the
+penalties, ``logit_bias``, ``min_tokens``, ``logprobs``/``top_logprobs``
+(in the completions and chat shapes, full or streamed) and ``best_of > n``
+(candidates ranked by cumulative logprob).  Options whose engine parts are
+not ported yet are answered with a 400 that names the ROADMAP.md item
+bringing them, checked before the request is submitted, so a streaming
+request gets the status line and not a broken event stream: guided
+decoding (A6, ``Engine.reject_unported``), tool calls (A5b), prompt
+scoring (``prompt_logprobs``, ``echo`` with ``logprobs``) and
+``/v1/embeddings`` (A7).
 
 Handler threads make no CUDA call: they tokenize, queue and write JSON.
 Every step, graph capture and device copy runs on the runner's loop thread
@@ -192,7 +195,7 @@ def _sampling_from_request(body: dict, cap: int) -> SamplingParams:
         slo_class=slo_class or "standard", truncate_prompt_tokens=tpt)
 
 
-def _reject_unported_request(body: dict, params: SamplingParams) -> None:
+def _reject_unported_request(body: dict, params: SamplingParams, chat: bool) -> None:
     """NotImplementedError (a 400 naming its ROADMAP.md item) for a request
     that needs a part this port does not carry yet; called before submit."""
     if body.get("tools") is not None or body.get("tool_choice") not in ("auto", "none", None):
@@ -201,6 +204,9 @@ def _reject_unported_request(body: dict, params: SamplingParams) -> None:
     if body.get("prompt_logprobs") is not None:
         raise NotImplementedError("not ported yet: prompt_logprobs (score_prompt: "
                                   "ROADMAP.md A7)")
+    if not chat and body.get("echo") and params.logprobs is not None:
+        raise NotImplementedError("not ported yet: echo with logprobs, the prompt's "
+                                  "logprobs (score_prompt: ROADMAP.md A7)")
 
 
 class OpenAIServer:
@@ -292,20 +298,29 @@ class OpenAIServer:
             raise ValueError(f"'n' must be an integer in 1..{self.MAX_CHOICES}")
         return n
 
-    def parse_best_of(self, body: dict, n: int, chat: bool) -> None:
-        """OpenAI completions ``best_of``, validated as the JAX server does;
-        ``best_of > n`` ranks candidates by their logprobs, which the port
-        does not compute yet."""
+    def parse_best_of(self, body: dict, n: int, chat: bool, params) -> int:
+        """OpenAI completions ``best_of``, validated as the JAX server does:
+        ``best_of`` candidates are sampled and the top n by cumulative
+        logprob of their tokens are returned (the vLLM ranking); greedy
+        candidates would be identical, so that is refused."""
         best_of = body.get("best_of")
         if best_of is None:
-            return
+            return n
         if chat:
             raise ValueError("'best_of' is a completions parameter (not supported on chat)")
         if not isinstance(best_of, int) or not n <= best_of <= self.MAX_CHOICES:
             raise ValueError(f"'best_of' must be an integer in n..{self.MAX_CHOICES}")
         if best_of > n:
-            raise NotImplementedError("not ported yet: best_of > n (ranks candidates by "
-                                      "logprobs: ROADMAP.md A6)")
+            if body.get("stream"):
+                raise ValueError("cannot stream with best_of > n: ranking needs every "
+                                 "candidate finished")
+            if params.greedy:
+                raise ValueError("best_of > n requires sampling (temperature > 0); greedy "
+                                 "candidates would be identical")
+            if params.guided is not None:
+                raise ValueError("best_of > n cannot be combined with response_format "
+                                 "(ranking records logprobs, which guided decoding forbids)")
+        return best_of
 
     def handle_completion(self, body: dict, chat: bool):
         """(prompt text or token ids, SamplingParams)."""
@@ -459,7 +474,7 @@ class _Handler(BaseHTTPRequestHandler):
                 raise ValueError("'suffix' is not supported")
             prompt, params = ctx.handle_completion(body, chat)
             n = ctx.parse_n(body)
-            ctx.parse_best_of(body, n, chat)
+            best_of = ctx.parse_best_of(body, n, chat, params)
             stream = bool(body.get("stream", False))
             if "stream_options" in body and not isinstance(body.get("stream_options"),
                                                            dict):
@@ -479,7 +494,7 @@ class _Handler(BaseHTTPRequestHandler):
                                      "redundant)")
                 raise NotImplementedError("not ported yet: prompt scoring (score_prompt: "
                                           "ROADMAP.md A7)")
-            _reject_unported_request(body, params)
+            _reject_unported_request(body, params, chat)
         except (ValueError, NotImplementedError, json.JSONDecodeError) as e:
             self._error(400, str(e))
             return
@@ -491,7 +506,7 @@ class _Handler(BaseHTTPRequestHandler):
                 # out, a second status line would corrupt the stream
                 self._stream_response(body, params, chat, kwargs, n)
             else:
-                self._full_response(body, params, chat, kwargs, n)
+                self._full_response(body, params, chat, kwargs, n, best_of)
         except BrokenPipeError:
             pass
         except Exception as e:               # engine-side failure, pre-headers
@@ -555,6 +570,23 @@ class _Handler(BaseHTTPRequestHandler):
             raise
         return submits
 
+    @staticmethod
+    def _completions_logprobs(entries) -> dict:
+        """OpenAI completions logprobs shape (parallel lists)."""
+        return {"token_logprobs": [e["logprob"] for e in entries],
+                "tokens": [e["token_id"] for e in entries],
+                "top_logprobs": [dict(e["top"]) for e in entries]}
+
+    def _chat_logprobs(self, entries) -> dict:
+        """OpenAI chat logprobs shape: per-token content entries with
+        vocabulary-level token strings (``id_to_token`` keeps the special
+        tokens and markers plain decoding strips) and top alternatives."""
+        tok = self.ctx.engine.tokenizer.id_to_token
+        return {"content": [
+            {"token": tok(e["token_id"]), "logprob": e["logprob"],
+             "top_logprobs": [{"token": tok(t), "logprob": lp} for t, lp in e["top"]]}
+            for e in entries]}
+
     def _echo_text(self, body, chat, kwargs, params):
         """OpenAI completions ``echo``: the prompt text to prepend (the
         truncated prompt under truncate_prompt_tokens), or None."""
@@ -569,9 +601,18 @@ class _Handler(BaseHTTPRequestHandler):
             return kwargs["prompt"]
         return tok.decode(kwargs["prompt_token_ids"])
 
-    def _full_response(self, body, params, chat, kwargs, n=1):
+    def _full_response(self, body, params, chat, kwargs, n=1, best_of=None):
+        """The whole answer in one body.  ``best_of > n``: ``best_of``
+        candidates are sampled and the n of highest cumulative logprob
+        kept (a stable sort: ties keep submission order); without
+        ``logprobs`` the ranking records chosen-token logprobs
+        (``logprobs=0``), stripped from the response."""
         ctx = self.ctx
-        submits = self._submit_choices(params, kwargs, n)
+        best_of = best_of or n
+        rank_params, internal_logprobs = params, False
+        if best_of > n and params.logprobs is None:
+            rank_params, internal_logprobs = dataclasses.replace(params, logprobs=0), True
+        submits = self._submit_choices(rank_params, kwargs, best_of)
         deadline = time.monotonic() + ctx.config.request_timeout_s
 
         def fail(exc):
@@ -580,10 +621,10 @@ class _Handler(BaseHTTPRequestHandler):
                 ctx.engine.requests.pop(rid, None)
             self._fail(exc)
 
-        choices = []
+        cands = []
         prompt_tokens = completion_tokens = 0
         echo_text = self._echo_text(body, chat, kwargs, params)
-        for idx, (rid, q) in enumerate(submits):
+        for rid, q in submits:
             text_parts, n_tokens, finish_reason = [], 0, "stop"
             while True:
                 try:
@@ -601,18 +642,33 @@ class _Handler(BaseHTTPRequestHandler):
                 if item.finish_reason is not None:
                     finish_reason = item.finish_reason.value
             req = ctx.engine.requests.pop(rid, None)
+            entries = []
             if req is not None:
                 prompt_tokens = req.num_prompt_tokens
-            completion_tokens += n_tokens
+                if rank_params.logprobs is not None:
+                    entries = req.logprobs
+            completion_tokens += n_tokens            # usage bills every candidate
             text = "".join(text_parts)
             if echo_text is not None:
                 text = echo_text + text
+            cands.append((text, entries, finish_reason))
+        if best_of > n:
+            cands.sort(key=lambda c: -sum(e["logprob"] for e in c[1]))
+            cands = cands[:n]
+        choices = []
+        for idx, (text, entries, finish_reason) in enumerate(cands):
+            if internal_logprobs:
+                entries = []
             if chat:
-                choices.append({"index": idx,
-                                "message": {"role": "assistant", "content": text},
-                                "finish_reason": finish_reason})
+                choice = {"index": idx, "message": {"role": "assistant", "content": text},
+                          "finish_reason": finish_reason}
+                if entries:
+                    choice["logprobs"] = self._chat_logprobs(entries)
             else:
-                choices.append({"index": idx, "text": text, "finish_reason": finish_reason})
+                choice = {"index": idx, "text": text, "finish_reason": finish_reason}
+                if entries:
+                    choice["logprobs"] = self._completions_logprobs(entries)
+            choices.append(choice)
         self._json(200, {
             "id": f"cmpl-{uuid.uuid4().hex[:24]}",
             "object": "chat.completion" if chat else "text_completion",
@@ -722,6 +778,7 @@ class _Handler(BaseHTTPRequestHandler):
                         chunk["usage"] = None
                     send_chunk(chunk)
             errored = False
+            lp_cursor = [0] * n        # each choice's logprob entries sent so far
             live = n
             # a sentinel, not None: a first item of None (the finish marker
             # of an instant abort) must still be delivered
@@ -758,6 +815,17 @@ class _Handler(BaseHTTPRequestHandler):
                     choice = {"index": idx, "delta": delta, "finish_reason": finish}
                 else:
                     choice = {"index": idx, "text": item.new_text, "finish_reason": finish}
+                if params.logprobs is not None and item.new_token_ids:
+                    # this chunk's slice of the request's entries (appended
+                    # before its tokens are emitted, and only appended to)
+                    req = ctx.engine.requests.get(submits[idx][0])
+                    if req is not None:
+                        lo = lp_cursor[idx]
+                        entries = req.logprobs[lo:lo + len(item.new_token_ids)]
+                        lp_cursor[idx] = lo + len(entries)
+                        if entries:
+                            choice["logprobs"] = (self._chat_logprobs(entries) if chat
+                                                  else self._completions_logprobs(entries))
                 if ret_ids:
                     choice["token_ids"] = list(item.new_token_ids)
                 completion_toks += len(item.new_token_ids)
