@@ -89,7 +89,27 @@ non-zero:
              executables and their capture seconds, and the KV blocks the
              cache sizing gives at the CLI's defaults with and without the
              sampler's decode executables (full mode and extras) bound.
-7. chunked   the chunked path, full depth, bf16: 4 short streams, a
+7. guided    guided decoding on the main path's two engines, prefix
+             caching off: the 8 prompts, up to 64 tokens, in each spec
+             family (json_object; a json_schema of a string, a boolean and
+             an enum; one with an integer field, whose digit prefixes pass
+             the FSM compile's state budget, so it runs the substitution
+             path; a regex; a choice of three words), greedy and at
+             temperature 0.8; 4 guided rows beside 4 unguided; two
+             grammars in one batch (single steps); json_object with
+             ``guided_fsm`` off (the substitution path).  Gates: every
+             output a legal prefix of its spec and every stopped one a
+             whole document; the same tokens on both engines; the FSM
+             families' greedy tokens the same with single steps; guided
+             windows dispatched; launches equal to the layers times the
+             steps; the pool under its bound; the json_object requests with
+             the mask disabled (a planted fault) fail the validity gate.
+             Readings: the token-text table's and each spec's compile
+             seconds, the guided executables' first-use capture seconds,
+             decode tok/s of each family and of 129-token guided streams
+             beside greedy ones, and one profiled guided window beside a
+             greedy one.
+8. chunked   the chunked path, full depth, bf16: 4 short streams, a
              6,000-token prompt served in chunks, then a prompt sharing its
              first 4,096 tokens, served from the prefix cache; each
              kernel's launches must be the layers times its steps (batched
@@ -98,12 +118,12 @@ non-zero:
              must agree with the plain path's.  The default engine, then
              the eager engine: the same tokens, both engines' TTFTs, step
              times and decode tok/s.
-8. mixed     the mixed path, full depth, bf16, ``mixed_batching=True``: 8
+9. mixed     the mixed path, full depth, bf16, ``mixed_batching=True``: 8
              streams decoding, then 8 prompts of 512-1,500 tokens; each
              kernel's launches must be the layers times its steps, the
              ragged kernel's the layers times the mixed steps.  The default
              engine, then the eager engine, as in the chunked phase.
-9. server    the top of the main path, full depth, bf16: the main phase's
+10. server   the top of the main path, full depth, bf16: the main phase's
              seed-0 weights written as an HF checkpoint (two bf16 shards,
              an index, no lm_head) and loaded back with
              ``load_hf_checkpoint``, bit-equal, with its GB/s; then
@@ -120,14 +140,16 @@ non-zero:
              concurrent arrivals batch differently); (c) a top_p request's
              200, a streamed chat with logprobs (every token's entry with
              its top 5), best_of 3 (one choice, three candidates billed),
-             a guided_regex request's 400 naming A6, /v1/models, and
-             /metrics counting the tokens served; (d) the kernels'
+             a bad json_schema's 400, /v1/models, and /metrics counting
+             the tokens served, then a response_format json_schema and a
+             guided_choice request, each full and streamed, a document of
+             its spec, and /metrics' three guided counters; (d) the kernels'
              launches, reset before (a), against the engine's steps.
              Then ``python -m tpuserve_torch.server`` on the checkpoint
              as a subprocess: one streamed completion
              equal to (a)'s, then SIGTERM, which must end it with code 0
              within its drain timeout.
-10. profile  where the time goes, under torch.profiler, after every
+11. profile  where the time goes, under torch.profiler, after every
              counted run (a profiler run slows the launches that follow
              it): one prefill and one decode window of the main path, one
              steady pipelined window alone (the paged decode kernel must
@@ -158,8 +180,8 @@ import time
 
 import numpy as np
 
-PHASES = ("build", "kernels", "identity", "main", "graphs", "sampler", "chunked", "mixed",
-          "server", "profile")
+PHASES = ("build", "kernels", "identity", "main", "graphs", "sampler", "guided", "chunked",
+          "mixed", "server", "profile")
 # Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA's data
 # sheet): bf16 tensor cores, float32 CUDA cores, HBM.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -1306,6 +1328,288 @@ def phase_sampler(results) -> dict:
     return out
 
 
+# phase guided: the spec families (mode, spec) of the main path's 8
+# streams, greedy and at temperature 0.8 (seed 200 + row), up to 64 tokens
+GUIDED_SCHEMA = {"type": "object",
+                 "properties": {"name": {"type": "string"}, "ok": {"type": "boolean"},
+                                "mood": {"enum": ["up", "down", "flat"]}},
+                 "required": ["name", "ok", "mood"], "additionalProperties": False}
+# an integer field's digit prefixes pass the FSM compile's state budget (in
+# the JAX package too): this schema runs the substitution path
+GUIDED_INT_SCHEMA = {"type": "object",
+                     "properties": {"name": {"type": "string"}, "n": {"type": "integer"},
+                                    "mood": {"enum": ["up", "down", "flat"]}},
+                     "required": ["name", "n", "mood"], "additionalProperties": False}
+GUIDED_FAMILIES = {
+    "json_object": ("json", None),
+    "json_schema": ("json_schema", json.dumps(GUIDED_SCHEMA)),
+    "json_schema_int": ("json_schema", json.dumps(GUIDED_INT_SCHEMA)),
+    "regex": ("regex", "[0-9]{3}-[0-9]{4}"),
+    "choice": ("choice", json.dumps(["alpha", "beta", "gamma"])),
+}
+# a grammar that never completes inside 129 tokens: long guided streams
+# for the decode rate and the profiled window
+GUIDED_LONG = ("regex", "[a-z0-9 ]+")
+GUIDED_TOKENS = 64
+
+
+def guided_params(mode: str, spec, temperature: float, n: int = 8, **kw) -> list:
+    from tpuserve_torch.runtime import SamplingParams
+    return [SamplingParams(max_tokens=GUIDED_TOKENS, temperature=temperature, guided=mode,
+                           guided_schema=spec, seed=None if temperature == 0 else 200 + i,
+                           **kw) for i in range(n)]
+
+
+def guided_valid(mode: str, spec, text: str, stopped: bool) -> bool:
+    """Whether ``text`` is legal under its spec: a prefix its character
+    acceptor takes, and, when the request stopped, a whole document: JSON
+    (an object; with a schema, exactly its fields with their types and enum
+    values), a full match of the pattern, or one of the choices."""
+    import re
+    from tpuserve_torch.runtime import guided, guided_choice, guided_regex
+    if mode == "json":
+        m = guided.JsonStateMachine()
+    elif mode == "json_schema":
+        m = guided.SchemaJsonStateMachine(guided.compile_schema(json.loads(spec)))
+    elif mode == "regex":
+        m = guided_regex.RegexStateMachine(guided_regex.compile_regex(spec))
+    else:
+        m = guided_choice.ChoiceStateMachine(guided_choice.compile_choices(json.loads(spec)))
+    try:
+        m.feed(text)
+    except ValueError:
+        return False
+    if not stopped:
+        return True
+    if mode == "regex":
+        return re.fullmatch(spec, text) is not None
+    if mode == "choice":
+        return text in json.loads(spec)
+    try:
+        doc = json.loads(text)
+    except ValueError:
+        return False
+    if not isinstance(doc, dict):
+        return False
+    if mode == "json":
+        return True
+    schema = json.loads(spec)
+    types = {"string": str, "boolean": bool, "integer": int}
+    return set(doc) == set(schema["required"]) and all(
+        (v["type"] != "integer" or not isinstance(doc[k], bool))
+        and isinstance(doc[k], types[v["type"]]) if "type" in v else doc[k] in v["enum"]
+        for k, v in schema["properties"].items())
+
+
+def guided_check(eng, reqs, plist, fsm_served: bool = True) -> dict:
+    """Validity of each served request against its own spec, unguided rows
+    aside: its text by ``guided_valid``, and, for a spec that compiles to
+    an FSM (``eng``'s memo), every token a transition of the FSM from its
+    start (the byte tokenizer's ids past 258 have no text, so a text check
+    alone would pass a row that sampled them unmasked), unless the rows
+    ran the substitution path (``fsm_served`` False).  Returns (all valid,
+    stopped count, finish reasons)."""
+    valid, stopped = True, 0
+    for r, p in zip(reqs, plist):
+        if p.guided is None:
+            continue
+        stop = r.finish_reason.value == "stop"
+        stopped += stop
+        valid &= guided_valid(p.guided, p.guided_schema, r.output_text, stop)
+        fsm = eng._fsm_for(p) if fsm_served else None
+        state = None if fsm is None else fsm.start
+        for tok in r.output_token_ids if fsm is not None else ():
+            state = fsm.advance(state, tok)
+            if state < 0:
+                valid = False
+                break
+    return {"valid": bool(valid), "stopped": stopped,
+            "finish": [r.finish_reason.value for r in reqs]}
+
+
+def phase_guided(results) -> dict:
+    """Guided decoding on the main path's engines (the default one, every
+    decode dispatch a replayed graph, pipelined; the eager, synchronous
+    one), full width and depth, bf16, the main path's 8 prompts (prefix
+    caching off for the phase), up to 64 tokens.  Each spec family of
+    ``GUIDED_FAMILIES`` greedy and at temperature 0.8 (json_schema_int
+    runs the substitution path: its integer field does not compile), a
+    batch of 4 guided and 4 unguided rows, a batch of two grammars (single
+    steps), and json_object on the substitution path (``guided_fsm`` off),
+    on the default engine with launches counted, then on the eager engine.
+    Gates: every output a legal prefix of its spec and every stopped one a
+    whole document; the same tokens on both engines; the FSM families'
+    greedy tokens the same on an engine of single steps
+    (``multi_step=1``); FSM-guided windows dispatched; the launches the
+    layers times the steps; the graph pool under its bound; and the same
+    json_object requests with the mask disabled (a planted fault) must
+    fail the validity gate.  Readings: the token-text table's and each
+    spec's compile seconds, the guided executables' first-use capture
+    seconds, decode tok/s of each family and of long guided streams beside
+    greedy's, and one profiled 32-token guided window beside a greedy one."""
+    import torch
+    from tpuserve_torch.runtime import Engine, EngineConfig, SamplingParams, grammar
+    from tpuserve_torch.runtime.graphs import is_guided, pool_bytes_bound
+    main = results["main"]
+    eng, eager = main["engine"], main["eager_engine"]
+    cfg, L, V = eng.model_cfg, eng.model_cfg.num_layers, eng.model_cfg.vocab_size
+    ps = prompts(np.random.default_rng(SEED + 3), MAIN_LENGTHS, V)
+    out = {"families": {}}
+    # host work a spec costs once: the token-text table (once an engine),
+    # then each spec's compile
+    t0 = time.perf_counter()
+    texts = grammar.token_text_table(eng.tokenizer, V)
+    out["token_text_table_s"] = time.perf_counter() - t0
+    out["token_text_table_tokens"] = len(texts)
+    out["compile_s"], out["fsm_states"] = {}, {}
+    for name, (mode, spec) in list(GUIDED_FAMILIES.items()) + [("long", GUIDED_LONG)]:
+        t0 = time.perf_counter()
+        try:
+            fsm = grammar.fsm_for_spec(mode, spec, eng.tokenizer, V, eng._eos_ids, texts=texts)
+            out["fsm_states"][name] = [fsm.num_states, fsm.num_classes]
+        except ValueError as e:
+            out["fsm_states"][name] = f"not compiled: {str(e)[:60]}"
+        out["compile_s"][name] = time.perf_counter() - t0
+    runs = {}
+    for name, (mode, spec) in GUIDED_FAMILIES.items():
+        for temp in (0.0, 0.8):
+            runs[f"{name}/{'greedy' if temp == 0 else 'temperature'}"] = guided_params(
+                mode, spec, temp)
+    plain = SamplingParams(max_tokens=GUIDED_TOKENS, temperature=0.0, ignore_eos=True)
+    runs["mixed_batch"] = [guided_params("json", None, 0.0, 1)[0], plain] * 4
+    runs["two_grammars"] = (guided_params("json", None, 0.0, 4)
+                            + guided_params(*GUIDED_FAMILIES["regex"], 0.0, 4))
+    runs["no_fsm"] = guided_params("json", None, 0.0)          # guided_fsm off
+    fsm_greedy = [f"{n}/greedy" for n in ("json_object", "json_schema", "regex", "choice")]
+    for e in (eng, eager):
+        e.block_manager.enable_prefix_caching = False
+
+    def serve_all(e):
+        got = {}
+        for name, plist in runs.items():
+            e.config.guided_fsm = name != "no_fsm"
+            try:
+                reqs, rates = serve_steps(e, ps, plist)
+            finally:
+                e.config.guided_fsm = True
+            got[name] = (reqs, rates)
+        return got
+
+    try:
+        st = eng.stats
+        before = (st.num_prefill_steps, st.num_chunk_steps, st.num_decode_steps,
+                  st.guided_fsm_windows, st.guided_fsm_requests, st.guided_fallbacks,
+                  st.guided_plans, st.num_decode_windows)
+        t0 = time.perf_counter()
+        reset_launches()
+        served = serve_all(eng)
+        launches = read_launches()
+        steps = {"prefill_steps": (st.num_prefill_steps - before[0])
+                 - (st.num_chunk_steps - before[1]),
+                 "chunk_steps": st.num_chunk_steps - before[1],
+                 "decode_steps": st.num_decode_steps - before[2],
+                 "decode_windows": st.num_decode_windows - before[7],
+                 "guided_fsm_windows": st.guided_fsm_windows - before[3],
+                 "guided_fsm_requests": st.guided_fsm_requests - before[4],
+                 "guided_fallbacks": st.guided_fallbacks - before[5],
+                 "guided_plans": st.guided_plans - before[6]}
+        out["default_s"] = time.perf_counter() - t0
+        want = {"flash_prefill": L * steps["prefill_steps"],
+                "paged_decode": L * steps["decode_steps"],
+                "paged_window": L * steps["chunk_steps"], "ragged_paged": 0}
+        t0 = time.perf_counter()
+        eager_served = serve_all(eager)
+        out["eager_s"] = time.perf_counter() - t0
+        same, valid = {}, {}
+        for name, (reqs, rates) in served.items():
+            toks = [r.output_token_ids for r in reqs]
+            same[name] = toks == [r.output_token_ids for r in eager_served[name][0]]
+            e_chk = guided_check(eager, eager_served[name][0], runs[name], name != "no_fsm")
+            chk = guided_check(eng, reqs, runs[name], name != "no_fsm")
+            valid[name] = chk["valid"] and e_chk["valid"]
+            out["families"][name] = {
+                "decode_tok_per_s": rates["decode_tok_per_s"],
+                "eager_decode_tok_per_s": eager_served[name][1]["decode_tok_per_s"],
+                "tokens": sum(len(t) for t in toks), "stopped": chk["stopped"],
+                "finish": chk["finish"], "text_0": reqs[0].output_text[:80]}
+        # the FSM families' greedy streams on single steps
+        t0 = time.perf_counter()
+        single = Engine(EngineConfig(seed=SEED, multi_step=1, enable_prefix_caching=False),
+                        params=eng.params)
+        same_single = {}
+        for name in fsm_greedy:
+            reqs, _ = serve_steps(single, ps, runs[name])
+            same_single[name] = ([r.output_token_ids for r in reqs]
+                                 == [r.output_token_ids for r in served[name][0]])
+        out["single_steps_s"] = time.perf_counter() - t0
+        out["single_steps_guided_fsm_windows"] = single.stats.guided_fsm_windows
+        del single
+        torch.cuda.empty_cache()
+        # the planted fault: the json_object requests with the mask off
+        eng.guided_mask_enabled = False
+        try:
+            fault_reqs, _ = serve_steps(eng, ps, runs["json_object/greedy"])
+        finally:
+            eng.guided_mask_enabled = True
+        fault = guided_check(eng, fault_reqs, runs["json_object/greedy"])
+        # long guided streams (129 tokens) beside greedy ones, same run
+        t0 = time.perf_counter()
+        long_p = [SamplingParams(max_tokens=1 + 4 * eng._multi_step, temperature=0.0,
+                                 ignore_eos=True, guided=GUIDED_LONG[0],
+                                 guided_schema=GUIDED_LONG[1])] * 8
+        greedy_p = [SamplingParams(max_tokens=1 + 4 * eng._multi_step, temperature=0.0,
+                                   ignore_eos=True)] * 8
+        rates = {"greedy": [], "guided_long": []}
+        for _ in range(2):
+            for name, plist in (("greedy", greedy_p), ("guided_long", long_p)):
+                reqs, r = serve_steps(eng, ps, plist)
+                rates[name].append(r["decode_tok_per_s"])
+                if name == "guided_long":
+                    valid["guided_long"] = guided_check(eng, reqs, plist)["valid"]
+        out["long_streams_decode_tok_per_s"] = rates
+        out["long_streams_s"] = time.perf_counter() - t0
+        # one steady 32-token window each, profiled
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(SEED + 17)
+        out["window_profiles"] = {}
+        for name, kw in (("greedy", {}), ("guided", dict(guided=GUIDED_LONG[0],
+                                                          guided_schema=GUIDED_LONG[1]))):
+            prof = profile_window(eng, prompts(rng, MAIN_LENGTHS, V), **kw)
+            out["window_profiles"][name] = {
+                k: prof.get(k) for k in ("wall_ms", "device_busy_ms", "device_idle_share",
+                                         "host_launch_calls", "kernel_launches", "top")}
+            out["window_profiles"][name]["ok"] = prof["ok"]
+        busy = [out["window_profiles"][k]["device_busy_ms"] for k in ("greedy", "guided")]
+        if all(isinstance(b, float) for b in busy):
+            out["guided_window_busy_over_greedy"] = busy[1] / busy[0] - 1
+        out["profiles_s"] = time.perf_counter() - t0
+    finally:
+        for e in (eng, eager):
+            e.block_manager.enable_prefix_caching = True
+    exes = eng.graphs.executables
+    guided_keys = [k for k in exes if is_guided(k)]
+    out["guided_executables"] = ["/".join(map(str, k)) for k in guided_keys]
+    out["guided_capture_s"] = {"/".join(map(str, k)): exes[k].capture_s for k in guided_keys}
+    out["pool_bytes"] = eng.graphs.pool_bytes()
+    keys = eng._step_keys(eng.scheduler.cfg, eng.max_seq_len, guided=True)
+    out["pool_bytes_bound"] = pool_bytes_bound(cfg, keys, eng._ragged_seqs)
+    gates = {
+        "valid": valid,
+        "same_tokens_default_and_eager": same,
+        "same_tokens_windows_and_single_steps": same_single,
+        "guided_fsm_windows": steps["guided_fsm_windows"] > 0,
+        "planted_fault_fails_validity": not fault["valid"],
+        "launches_are_steps": launches == want and launches["paged_decode"] > 0,
+        "pool_under_bound": out["pool_bytes"] <= out["pool_bytes_bound"],
+        "profiles_ok": all(v["ok"] for v in out["window_profiles"].values()),
+    }
+    out["ok"] = (all(valid.values()) and all(same.values()) and all(same_single.values())
+                 and all(v for k, v in gates.items() if isinstance(v, bool)))
+    out.update(gates=gates, launches=launches, launches_expected=want, **steps,
+               planted_fault=fault, tokens_max=GUIDED_TOKENS)
+    return out
+
+
 def step_graphs_bit_equal(params, cfg) -> dict:
     """One prefill, one chunk and one mixed step, each replayed from its
     captured graph and run eagerly by an executable on the same inputs
@@ -2057,9 +2361,11 @@ def phase_server(results) -> dict:
     each equal to a twin engine's ``generate`` of it alone; (b) eight
     concurrent streams, a chat request and a prefix hit of a served
     1,024-token prompt (the chunk route); (c) a top_p request's 200, a
-    streamed chat with logprobs, best_of 3, guided decoding's 400 naming
-    A6, /v1/models, /metrics; (d) the three kernels' launches against the
-    steps.  Then ``python -m tpuserve_torch.server`` as a subprocess: one
+    streamed chat with logprobs, best_of 3, a bad schema's 400,
+    /v1/models, /metrics, then a response_format json_schema and a
+    guided_choice request, each full and streamed (the same text, a
+    document of its spec), and /metrics' three guided counters; (d) the
+    three kernels' launches against the steps.  Then ``python -m tpuserve_torch.server`` as a subprocess: one
     streamed completion equal to (a)'s, and a drain on SIGTERM."""
     import gc
     import threading
@@ -2178,17 +2484,20 @@ def phase_server(results) -> dict:
                 and st.num_chunk_steps > chunks0)
         rates = stream_rates(streams)
         # (c) the sampler's options: top_p, a streamed chat with
-        # logprobs, best_of 3; guided decoding's 400; /v1/models, /metrics
+        # logprobs, best_of 3; a bad schema's 400; /v1/models, /metrics;
+        # then guided requests and the guided counters
         sampled = dict(base, prompt=one[0], temperature=0.8, seed=5)
         top_p = http(url + "/v1/completions", dict(sampled, top_p=0.9))
         chat_lp = sse(url + "/v1/chat/completions", dict(
             base, messages=[{"role": "user", "content": "Say something long."}],
             logprobs=True, top_logprobs=5))
         best_of = http(url + "/v1/completions", dict(sampled, best_of=3))
-        bad = [http(url + "/v1/completions", dict(base, prompt=one[0], guided_regex="a+")),
+        bad_rf = {"type": "json_schema", "json_schema": {"name": "x", "schema": {
+            "type": "object", "patternProperties": {}}}}
+        bad = [http(url + "/v1/completions", dict(base, prompt=one[0], response_format=bad_rf)),
                (lambda r: (r["status"], json.loads(r.get("error") or "null")))(
                    sse(url + "/v1/completions", dict(base, prompt=one[0],
-                                                     guided_regex="a+")))]
+                                                     response_format=bad_rf)))]
         _, models = http(url + "/v1/models")
         _, metrics = http(url + "/metrics")
         gen_line = [ln for ln in metrics.splitlines()
@@ -2208,10 +2517,37 @@ def phase_server(results) -> dict:
             "best_of_3": best_of[0] == 200 and len(best_of[1]["choices"]) == 1
             and best_of[1]["usage"]["completion_tokens"] == 3 * SERVER_TOKENS
             and "logprobs" not in best_of[1]["choices"][0],
-            "guided_400_a6": all(s == 400 and "ROADMAP.md A6" in e["error"]["message"]
-                                 for s, e in bad)}
+            "bad_schema_400": all(s == 400 and e["error"]["message"].startswith(
+                "unsupported json_schema") for s, e in bad)}
+        # guided: a response_format json_schema and a guided_choice request,
+        # each full and streamed, every one a document of its spec
+        guided = {}
+        rf = {"type": "json_schema", "json_schema": {"name": "pet", "schema": GUIDED_SCHEMA}}
+        choices = ["alpha", "beta", "gamma"]
+        for name, extra, mode, spec in (
+                ("json_schema", {"response_format": rf}, "json_schema",
+                 json.dumps(GUIDED_SCHEMA)),
+                ("guided_choice", {"guided_choice": choices}, "choice", json.dumps(choices))):
+            body = dict(base, prompt=one[1], ignore_eos=False, **extra)
+            status, full = http(url + "/v1/completions", body)
+            text, reason = full["choices"][0]["text"], full["choices"][0]["finish_reason"]
+            streamed = sse(url + "/v1/completions", body)
+            s_text = "".join(ch["text"] for c in streamed["chunks"] for ch in c["choices"])
+            s_reason = streamed["chunks"][-1]["choices"][0]["finish_reason"]
+            guided[name] = {
+                "text": text, "finish_reason": reason,
+                "ok": status == 200 and streamed.get("status") == 200 and streamed["done"]
+                and (s_text, s_reason) == (text, reason)
+                and guided_valid(mode, spec, text, reason == "stop")}
+        _, metrics2 = http(url + "/metrics")
+        guided["counters"] = {ln.split("{")[0]: float(ln.split()[-1])
+                              for ln in metrics2.splitlines()
+                              if ln.startswith("tpuserve_guided_")}
+        guided_ok = (all(v["ok"] for k, v in guided.items() if k != "counters")
+                     and len(guided["counters"]) == 3
+                     and guided["counters"].get("tpuserve_guided_fsm_requests_total", 0) >= 4)
         c_ok = (all(sampler_ok.values()) and [m["id"] for m in models["data"]] == [model]
-                and gen == served_tokens)
+                and gen == served_tokens and guided_ok)
     finally:
         srv.shutdown()
     # (d) the kernels' launches against the engine's steps
@@ -2248,7 +2584,8 @@ def phase_server(results) -> dict:
             "concurrent": {"prompt_lens": MAIN_LENGTHS, "hit_prompt_len": len(hit),
                            "well_formed": b_ok, "http": rates, "twin": twin_rates,
                            "same_as_twin_share": sum(same_conc) / len(same_conc)},
-            "sampler_options": sampler_ok, "metrics_generation_tokens": gen,
+            "sampler_options": sampler_ok, "guided": guided,
+            "metrics_generation_tokens": gen,
             "served_tokens": served_tokens, "launches": launches, "launches_expected": want,
             **steps, "cli": {**cli, "same_as_in_process": cli_ok}}
 
@@ -2368,6 +2705,8 @@ def main() -> int:
             res = phase_graphs(results)
         elif phase == "sampler":
             res = phase_sampler(results)
+        elif phase == "guided":
+            res = phase_guided(results)
         elif phase == "chunked":
             res = phase_chunked(results["main"]["params"])
         elif phase == "mixed":

@@ -12,6 +12,8 @@ slice refuses.
 """
 
 import dataclasses
+import json
+import re
 
 import jax
 import numpy as np
@@ -197,12 +199,22 @@ def test_unported_mesh_and_mixed_batching_raise(model):
     assert eng.scheduler.ragged_align == eng._ragged_blk == 8
 
 
-def test_unported_sampling_options_raise(model):
-    """Guided decoding is the one sampling option still refused (A6)."""
+def test_guided_requests_are_served(model):
+    """Every guided mode is served (none is refused naming a ROADMAP.md
+    item): greedy json, regex and choice requests finish with a document
+    of their spec, their grammar state released."""
     eng = _port(model)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
-        eng.add_request(prompt="x", params=SamplingParams(guided="json"))
-    assert not eng.has_work() and not eng.requests
+    outs = eng.generate(["x", "y", "z"], [
+        SamplingParams(max_tokens=24, temperature=0.0, guided="json"),
+        SamplingParams(max_tokens=24, temperature=0.0, guided="regex",
+                       guided_schema="[ab]{2}c"),
+        SamplingParams(max_tokens=24, temperature=0.0, guided="choice",
+                       guided_schema='["red", "green"]')])
+    assert [r.finish_reason.value for r in outs] == ["stop"] * 3
+    assert isinstance(json.loads(outs[0].output_text), dict)
+    assert re.fullmatch("[ab]{2}c", outs[1].output_text)
+    assert outs[2].output_text in ("red", "green")
+    assert eng.stats.guided_fsm_requests == 3 and not eng._guided_fsm
 
 
 SAMPLING_OPTIONS = [dict(top_k=5), dict(top_p=0.9), dict(min_p=0.1),

@@ -9,8 +9,9 @@ its own tests run it on the CPU.  Greedy token streams, texts and finish
 reasons must be equal; float32 logits agree to atol 1e-4 (the same math
 summed in another order).  On the CPU the decode executables run their
 step eagerly on the same static buffers the graphs replay on the card
-(``runtime/graphs.py``); the card's own checks are in
-tests/test_torch_kernels.py and chip_smoke.py.
+(``runtime/graphs.py``), and a guided executable's step, grammar load
+and state chaining read nothing back to the host either; the card's own
+checks are in tests/test_torch_kernels.py and chip_smoke.py.
 """
 
 import dataclasses
@@ -29,10 +30,11 @@ from tpuserve.runtime import kv_cache as jax_kv
 from tpuserve_torch import runtime as port_rt
 from tpuserve_torch.models import transformer
 from tpuserve_torch.models.config import get_model_config
+from tpuserve_torch.models.tokenizer import load_tokenizer
 from tpuserve_torch.models.weights import params_from_numpy
 from tpuserve_torch.ops import attention, sampling
 from tpuserve_torch.ops.attention import PAD_SLOT
-from tpuserve_torch.runtime import Engine, FinishReason, SamplingParams, kv_cache
+from tpuserve_torch.runtime import Engine, FinishReason, SamplingParams, grammar, kv_cache
 from tpuserve_torch.runtime.graphs import StepGraphs
 
 
@@ -569,6 +571,47 @@ def test_the_decode_step_reads_nothing_back(model, mode, cache_dtype):
         exe.load(st, chain=(exe, 3))
         exe.run(1)
     assert exe.state.col.tolist() == [1] and exe.state.tokens.tolist()[:2] != [5, 6]
+
+
+def test_the_guided_step_reads_nothing_back_and_chains_its_states(model):
+    """The guided decode executable's step, its grammar load and the load
+    that chains a dispatch's FSM states to the one in flight run without a
+    host read (the kernel wrappers' path runs their plain versions here);
+    chained rows take the in-flight states, fresh rows the staged ones, and
+    a grammar already loaded in the bucket is not copied again."""
+    _, _, cfg, params = model
+    fsm = grammar.fsm_for_spec("json", None, load_tokenizer("tiny-qwen3", cfg.vocab_size),
+                               cfg.vocab_size, {1, 2})
+    cache = kv_cache.create_kv_cache(cfg, kv_cache.CacheConfig(
+        block_size=BS, num_blocks=NB, max_blocks_per_seq=MB, dtype="float32"), "cpu")
+    graphs = StepGraphs(params, cfg, cache, device=torch.device("cpu"), attn_impl="cuda",
+                        max_blocks=MB, steps=3, max_batch=4, capture=False)
+    N, C = 1 << (fsm.num_states - 1).bit_length(), 1 << (fsm.num_classes - 1).bit_length()
+    exe = graphs.get("decode", 4, "greedy", "guided", N, C)
+    masks = np.zeros((N, fsm.masks.shape[1]), np.int32)
+    masks[:fsm.num_states] = fsm.masks.view(np.int32)
+    nxt = np.full((N, C), -1, np.int32)
+    nxt[:fsm.num_states, :fsm.num_classes] = fsm.class_next
+    tables = (torch.from_numpy(masks), torch.from_numpy(fsm.tok_class), torch.from_numpy(nxt))
+    st = exe.stage()
+    st.tokens[:2], st.positions[:2], st.seq_lens[:2], st.active[:2] = [5, 6], [0, 3], [1, 4], 1
+    st.block_tables[:2] = np.arange(2 * MB).reshape(2, MB)
+    st.gstate[:2] = [fsm.start, -1]
+    with _NoHostReads():
+        assert graphs.load_grammar((N, C), fsm, *tables)
+        exe.load(st)
+        exe.run(3)
+        after = exe.state.gstate.clone()
+        st.use_host[:2], st.gather[:2] = [0, 1], [0, 0]
+        st.gstate[:3] = [fsm.start, fsm.start, fsm.start]
+        exe.load(st, chain=(exe, 3))
+        assert not graphs.load_grammar((N, C), fsm, *tables)
+    s = fsm.start
+    for t in exe.state.out[0, :3].tolist():
+        s = fsm.advance(s, t)
+    assert after[0].item() == s and after[1].item() == -1
+    # row 0 chained, row 1 fresh from the host
+    assert exe.state.gstate[:3].tolist() == [s, fsm.start, fsm.start]
 
 
 def test_an_engine_frees_its_executables_without_the_garbage_collector(model):

@@ -8,8 +8,10 @@ not streamed, token ids when streamed), the same ``n`` choices, the same
 chat text, the same statuses for malformed bodies, and the same 503s under
 backpressure and while draining, the sampling options (greedy ones token
 for token, logprobs within atol 1e-4) and the logprobs shapes.  Port-only:
-options the port does not carry give a 400 naming their ROADMAP.md item
-before any SSE header, ``best_of`` returns its best candidate, a
+guided requests (``response_format``, ``guided_regex``, ``guided_choice``)
+give its text and finish reason, full and streamed, and a bad spec its
+400 and message; options the port does not carry give a 400 naming their
+ROADMAP.md item before any SSE header, ``best_of`` returns its best candidate, a
 mixed-batching engine serves concurrent streams, a failing step fails its
 requests, ``/metrics`` has the JAX server's vllm_* families, and
 ``python -m tpuserve_torch.server`` starts, serves and drains on SIGTERM.
@@ -24,6 +26,7 @@ import dataclasses
 import json
 import os
 import random
+import re
 import signal
 import subprocess
 import sys
@@ -320,8 +323,7 @@ def test_draining_gets_the_jax_servers_503(weights):
 
 
 UNPORTED = [
-    ({"response_format": {"type": "json_object"}}, "A6"), ({"guided_regex": "a+"}, "A6"),
-    ({"guided_choice": ["a", "b"]}, "A6"), ({"prompt_logprobs": 1}, "A7"),
+    ({"prompt_logprobs": 1}, "A7"),
     ({"echo": True, "logprobs": 2}, "A7"),
     ({"tools": [{"type": "function", "function": {"name": "f"}}]}, "A5b"),
 ]
@@ -338,6 +340,88 @@ def test_unported_options_get_a_400_naming_their_item(servers, extra, item, stre
     assert status == 400, (status, err)
     assert "text/event-stream" not in headers.get("Content-Type", "")
     assert f"ROADMAP.md {item}" in err["error"]["message"]
+
+
+# guided decoding's request shapes, each greedy: the port's text and
+# finish reason must be the JAX server's
+GUIDED = {
+    "json_object": {"response_format": {"type": "json_object"}},
+    "json_schema": {"response_format": {"type": "json_schema", "json_schema": {
+        "name": "pet", "schema": {"type": "object", "properties": {
+            "name": {"type": "string"}, "ok": {"type": "boolean"}},
+            "required": ["name", "ok"], "additionalProperties": False}}}},
+    "guided_regex": {"guided_regex": "[0-9]{3}-[0-9]{4}"},
+    "guided_choice": {"guided_choice": ["yes", "no", "maybe"]},
+}
+
+
+@pytest.mark.parametrize("name", list(GUIDED))
+@pytest.mark.parametrize("stream", [False, True], ids=["full", "sse"])
+def test_guided_requests_are_served_like_the_jax_server(servers, name, stream):
+    """A guided completion gives the JAX server's text and finish reason,
+    full or streamed, and a document of its spec when it stopped."""
+    body = {"prompt": "x", "max_tokens": 32, "temperature": 0, **GUIDED[name]}
+    res = _both(servers, "/v1/completions", body, stream=stream)
+    out = {}
+    for k, (status, payload, *rest) in res.items():
+        assert status == 200, (k, payload)
+        if stream:
+            assert rest[0]
+            out[k] = ("".join(ch["text"] for c in payload for ch in c["choices"]),
+                      payload[-1]["choices"][0]["finish_reason"])
+        else:
+            out[k] = (payload["choices"][0]["text"], payload["choices"][0]["finish_reason"])
+    assert out["port"] == out["jax"]
+    text, reason = out["port"]
+    if reason == "stop":
+        if name.startswith("json"):
+            assert isinstance(json.loads(text), dict)
+        elif name == "guided_regex":
+            assert re.fullmatch("[0-9]{3}-[0-9]{4}", text)
+        else:
+            assert text in ("yes", "no", "maybe")
+
+
+BAD_GUIDED = [
+    {"response_format": {"type": "json_schema", "json_schema": {"schema": {
+        "type": "object", "patternProperties": {}}}}},
+    {"guided_regex": "a(?=b)"},
+    {"guided_choice": []},
+    {"guided_choice": ["a"], "logprobs": 2},
+]
+
+
+@pytest.mark.parametrize("extra", BAD_GUIDED, ids=["schema", "regex", "choice", "logprobs"])
+def test_bad_guided_specs_get_the_jax_servers_400(servers, extra):
+    """An unsupported schema, pattern or choice list, or logprobs with a
+    guided mode: a 400 with the JAX server's message."""
+    body = {"prompt": "x", "max_tokens": 4, **extra}
+    res = _both(servers, "/v1/completions", body)
+    assert res["port"][0] == res["jax"][0] == 400
+    assert res["port"][1]["error"]["message"] == res["jax"][1]["error"]["message"]
+
+
+def test_metrics_count_guided_requests(servers):
+    """/metrics carries the JAX server's three guided counters, fed from
+    the engine's stats."""
+    urls, srvs = servers
+    _request(urls["port"] + "/v1/completions", {"prompt": "g", "max_tokens": 8,
+                                                "guided_choice": ["ab", "cd"]})
+    stats = srvs["port"].engine.stats
+    deadline = time.monotonic() + 10
+    while time.monotonic() < deadline:
+        _, text, _ = _request(urls["port"] + "/metrics", raw=True)
+        lines = {ln.split("{")[0]: float(ln.split()[-1]) for ln in text.splitlines()
+                 if ln.startswith("tpuserve_guided_")}
+        if lines.get("tpuserve_guided_fsm_requests_total") == stats.guided_fsm_requests:
+            break
+        time.sleep(0.05)
+    assert set(lines) == {"tpuserve_guided_fallbacks_total",
+                          "tpuserve_guided_fsm_requests_total",
+                          "tpuserve_guided_fsm_windows_total"}
+    assert lines["tpuserve_guided_fsm_requests_total"] == stats.guided_fsm_requests >= 1
+    _, jtext, _ = _request(urls["jax"] + "/metrics", raw=True)
+    assert all(f"# TYPE {name} counter" in jtext for name in lines)
 
 
 # the sampling options the JAX server serves: greedy ones compared token

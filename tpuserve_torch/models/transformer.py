@@ -336,7 +336,12 @@ class DecodeState:
     the ``min_tokens`` mask, added while ``col < floor_remaining`` (B,)
     int32.  In-window logprobs (``lp_chosen`` None without): lp_chosen (B,
     S) float32, lp_ids (B, S, N) int32 and lp_vals (B, S, N) float32, one
-    column an iteration as ``out``."""
+    column an iteration as ``out``.  The grammar-FSM carry (``gstate``
+    None without): gstate (B,) int32 each row's FSM state, -1 on unguided
+    rows, advanced in place by each sampled token; gmasks (N, ceil(V/32))
+    int32 the grammar's packed allow bits a state, gclass (V,) int32 token
+    -> class and gnext (N, C) int32 the class transitions
+    (``runtime/grammar/fsm.py``)."""
     tokens: torch.Tensor
     positions: torch.Tensor
     seq_lens: torch.Tensor
@@ -360,6 +365,10 @@ class DecodeState:
     lp_chosen: torch.Tensor | None = None
     lp_ids: torch.Tensor | None = None
     lp_vals: torch.Tensor | None = None
+    gstate: torch.Tensor | None = None
+    gmasks: torch.Tensor | None = None
+    gclass: torch.Tensor | None = None
+    gnext: torch.Tensor | None = None
 
 
 def window_extras(logits: torch.Tensor, s: torch.Tensor, state: DecodeState) -> torch.Tensor:
@@ -383,6 +392,27 @@ def window_count_update(state: DecodeState, nxt: torch.Tensor) -> None:
                                              device=nxt.device))
 
 
+def window_guided_mask(logits: torch.Tensor, gstate: torch.Tensor,
+                       gmasks: torch.Tensor) -> torch.Tensor:
+    """One iteration's grammar-FSM mask, as the JAX ``window_guided_mask``:
+    each guided row's packed allow bits, gathered by its current state,
+    drop the tokens they forbid to ``NEG_INF``; rows at -1 pass through.
+    Applied after the extras and before sampling, as the per-step path."""
+    rows = gmasks.index_select(0, gstate.clamp(0, gmasks.shape[0] - 1).long())
+    return sampling_ops.apply_token_mask(logits, rows, gstate >= 0)
+
+
+def window_guided_advance(gstate: torch.Tensor, nxt: torch.Tensor, gclass: torch.Tensor,
+                          gnext: torch.Tensor) -> torch.Tensor:
+    """Each guided row's next FSM state for its sampled token, through the
+    class table (``gnext[state, gclass[token]]``), as the JAX
+    ``window_guided_advance``; unguided rows stay -1.  The host replays
+    the same table when it emits the token."""
+    cls = gclass.index_select(0, nxt.long())
+    ns = gnext[gstate.clamp(0, gnext.shape[0] - 1).long(), cls.long()]
+    return torch.where(gstate >= 0, ns, gstate)
+
+
 def window_sample(logits: torch.Tensor, state: DecodeState, mode: str) -> torch.Tensor:
     """One iteration's sampling (the JAX ``window_sample``): greedy,
     temperature, or full with each row's truncation; the sampled modes'
@@ -403,9 +433,11 @@ def decode_state_step(params: dict, cfg: ModelConfig, state: DecodeState,
     """One fused decode + sample iteration over ``state``, in place, in
     the JAX order: write the token's KV at the slot ``window_slot`` gives
     its position and attend; apply the extras (penalties from the count
-    carry, bias, the floor while ``col`` is below it); sample (``mode``:
+    carry, bias, the floor while ``col`` is below it); mask each guided
+    row to its grammar state's legal tokens; sample (``mode``:
     "greedy", "temperature" or "full", with each row's keyed noise); write
-    the token into column ``col`` of ``out``; fold it into the counts;
+    the token into column ``col`` of ``out``; advance the FSM states and
+    fold the token into the counts;
     take its logprobs and the top ``lp_ids.shape[-1]`` from the logits the
     row sampled from (before temperature); advance token, position,
     length, key step and column.  Nothing is read back to the host.
@@ -418,9 +450,14 @@ def decode_state_step(params: dict, cfg: ModelConfig, state: DecodeState,
     logits = _decode_body(params, cfg, state.tokens, state.positions, slot,
                           state.block_tables, state.seq_lens, kv_cache, attn_impl)
     logits = window_extras(logits, state.col, state)
+    if state.gstate is not None:
+        logits = window_guided_mask(logits, state.gstate, state.gmasks)
     nxt = window_sample(logits, state, mode)
     col = state.col.long()
     state.out.index_copy_(1, col, nxt[:, None])
+    if state.gstate is not None:
+        state.gstate.copy_(window_guided_advance(state.gstate, nxt, state.gclass,
+                                                 state.gnext))
     window_count_update(state, nxt)
     if state.lp_chosen is not None:
         chosen, ids, vals = sampling_ops.compute_logprobs(logits, nxt, state.lp_ids.shape[-1])
@@ -450,6 +487,10 @@ def decode_multi(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                  bias: torch.Tensor | None = None,
                  floor_bias: torch.Tensor | None = None,
                  floor_remaining: torch.Tensor | None = None,
+                 gstate: torch.Tensor | None = None,
+                 gmasks: torch.Tensor | None = None,
+                 gclass: torch.Tensor | None = None,
+                 gnext: torch.Tensor | None = None,
                  attn_impl: str = "reference"):
     """``steps`` fused decode+sample iterations: :func:`decode_state_step`
     run ``steps`` times over a state made from the arguments (the JAX
@@ -469,9 +510,15 @@ def decode_multi(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     and ``floor_bias`` (B, V) applied while the iteration is below
     ``floor_remaining`` (B,); those not given are neutral.
     ``logprobs_n``: the chosen token's logprob and the top N a step.
-    Cache slots for the whole window must be reserved.  Returns (tokens (B,
-    steps) int32, kv_cache[, (chosen (B, steps), ids (B, steps, N), lps
-    (B, steps, N))]), laid out as the JAX ``window_unpack_lp``."""
+    Guided decoding, as the JAX window: ``gstate`` (B,) int32 each row's
+    FSM state (-1 unguided) with the grammar's ``gmasks`` (N, ceil(V/32))
+    packed allow bits (int32 or uint32), ``gclass`` (V,) and ``gnext`` (N,
+    C) int32; each iteration masks by the current state, then advances it
+    by the sampled token.  Cache slots for the whole window must be
+    reserved.  Returns (tokens (B, steps) int32, kv_cache[, (chosen (B,
+    steps), ids (B, steps, N), lps (B, steps, N))][, gstate (B,)]), the
+    logprobs laid out as the JAX ``window_unpack_lp``, the final FSM
+    states when ``gstate`` was given."""
     _check(cfg, attn_impl)
     if mode not in DECODE_MODES:
         raise ValueError(f"decode mode {mode!r} not in {DECODE_MODES}")
@@ -506,11 +553,17 @@ def decode_multi(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         state.lp_chosen = torch.zeros((B, steps), dtype=torch.float32, device=dev)
         state.lp_ids = torch.zeros((B, steps, logprobs_n), dtype=torch.int32, device=dev)
         state.lp_vals = torch.zeros((B, steps, logprobs_n), dtype=torch.float32, device=dev)
+    if gstate is not None:
+        state.gstate = i32(gstate)
+        state.gmasks, state.gclass, state.gnext = i32(gmasks), i32(gclass), i32(gnext)
     for _ in range(steps):
         decode_state_step(params, cfg, state, kv_cache, mode=mode, attn_impl=attn_impl)
+    res = (state.out, kv_cache)
     if logprobs_n:
-        return state.out, kv_cache, (state.lp_chosen, state.lp_ids, state.lp_vals)
-    return state.out, kv_cache
+        res += ((state.lp_chosen, state.lp_ids, state.lp_vals),)
+    if gstate is not None:
+        res += (state.gstate,)
+    return res
 
 
 # --------------------------------------------------------------------------

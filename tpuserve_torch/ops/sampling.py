@@ -123,6 +123,27 @@ def truncated_scaled_logits(scaled: torch.Tensor, top_k: torch.Tensor,
     return torch.empty_like(masked_sorted).scatter_(1, sort_idx, masked_sorted)
 
 
+def apply_token_mask(logits: torch.Tensor, packed: torch.Tensor,
+                     enabled: torch.Tensor) -> torch.Tensor:
+    """Grammar-FSM logit masking, as the JAX ``apply_token_mask``: every
+    token a row's mask forbids drops to ``NEG_INF`` before any truncation,
+    so sampling renormalises over exactly the legal set.
+
+    logits: (B, V); packed: (B, ceil(V/32)) int32 or uint32 allow bits
+    (bit t%32 of word t//32 = token t, ``runtime/grammar/fsm.py``'s
+    layout); enabled: (B,) bool, False rows pass through.  The bit test
+    is an AND with the token's one-bit word on int32, where bit 31 is the
+    sign bit: no unsigned shift is needed.  Returns (B, V) float32."""
+    V = logits.shape[-1]
+    ids = torch.arange(V, dtype=torch.int64, device=logits.device)
+    words = packed.to(torch.int32).index_select(1, ids // 32)            # (B, V)
+    bit = torch.bitwise_left_shift(torch.ones_like(ids, dtype=torch.int32),
+                                   (ids % 32).to(torch.int32))
+    allow = (words & bit) != 0
+    allow |= ~enabled.to(torch.bool)[:, None]
+    return torch.where(allow, logits.float(), NEG_INF)
+
+
 def scatter_add_rows(out: torch.Tensor, ids: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     """Add ``vals`` (B, K) into ``out`` (B, V) float32 at ``ids`` (B, K),
     in place; ids outside [0, V) are dropped, as the JAX scatter's

@@ -30,9 +30,19 @@ presence / frequency / repetition penalties, ``logit_bias``, the
 ``min_tokens`` floor and logprobs: inside the decode executables for
 windows and single steps (an executable a sampling mode and extras), and
 in the synchronous sampler of the prefill, chunk and mixed steps, in the
-JAX order (penalties, bias, floor, sample, logprobs).  Stop strings, stop
-ids, ``ignore_eos`` and ``max_tokens`` are host logic, as in the JAX
-engine.
+JAX order (penalties, bias, floor, grammar mask, sample, logprobs).
+Stop strings, stop ids, ``ignore_eos`` and ``max_tokens`` are host logic,
+as in the JAX engine.
+
+Guided decoding (``response_format``, ``guided_regex``,
+``guided_choice``), as the JAX engine's: a spec that compiles to a
+token-level FSM (``runtime/grammar/``) is served by true logit masking,
+its state carried on the card inside the fused windows (one grammar a
+window; the tables in the executables' static buffers) and mirrored on
+the host at emission; a spec that does not (or every spec, with
+``guided_fsm=False``) runs per step through the substitution path, which
+checks each sampled token's text against a character-level acceptor and
+substitutes the best legal candidate.
 
 The engine runs on ``device="cuda"`` unless the caller passes
 ``device="cpu"`` (the tests do); it never falls back to the CPU on its own.
@@ -44,7 +54,9 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import json
 import logging
+import string
 from typing import Optional, Sequence
 
 import numpy as np
@@ -56,9 +68,14 @@ from tpuserve_torch.models.tokenizer import IncrementalDetokenizer, load_tokeniz
 from tpuserve_torch.models.weights import load_or_init, param_nbytes
 from tpuserve_torch.ops import sampling as sampling_ops
 from tpuserve_torch.ops.ragged_paged import ragged_block, ragged_layout
+from tpuserve_torch.runtime import grammar
 from tpuserve_torch.runtime.block_manager import BlockManager
 from tpuserve_torch.runtime.graphs import (
     DECODE_EXTRAS, MAX_LOGPROBS, DecodeExecutable, StepGraphs, pool_bytes_bound)
+from tpuserve_torch.runtime.guided import (
+    JsonStateMachine, SchemaJsonStateMachine, compile_schema)
+from tpuserve_torch.runtime.guided_choice import ChoiceStateMachine, compile_choices
+from tpuserve_torch.runtime.guided_regex import RegexStateMachine, compile_regex
 from tpuserve_torch.runtime.clock import MONOTONIC
 from tpuserve_torch.runtime.kv_cache import (
     CacheConfig, create_kv_cache, num_blocks_for_budget)
@@ -116,6 +133,11 @@ class EngineConfig:
     # Injectable monotonic-time source (runtime/clock.py): None = the
     # shared real clock; tests pass a VirtualClock.
     clock: Optional[object] = None
+    # Grammar-FSM guided decoding (runtime/grammar/): compile guided specs
+    # to token-level FSMs whose masks ride the fused decode windows; specs
+    # the compiler cannot bound, and every spec when False, run per step
+    # through candidate substitution.
+    guided_fsm: bool = True
     # JAX engine options not ported yet: any value but None raises
     quantization: Optional[str] = None
     lora_dir: Optional[str] = None
@@ -165,6 +187,10 @@ class EngineStats:
     ttft_sum: float = 0.0
     ttft_count: int = 0
     last_step_time: float = 0.0
+    guided_fallbacks: int = 0        # substitution steps that left the top-K
+    guided_plans: int = 0            # committed canonical-suffix completions
+    guided_fsm_requests: int = 0     # requests served by grammar-FSM masks
+    guided_fsm_windows: int = 0      # fused windows that carried FSM masks
 
 
 @dataclasses.dataclass
@@ -201,8 +227,10 @@ def _read(p) -> tuple:
     return p.toks.numpy(), (None if p.lp is None else tuple(t.numpy() for t in p.lp))
 
 
-def _decode_key(B: int, mode: str, extras: str = "") -> tuple:
-    return ("decode", B, mode) + ((extras,) if extras else ())
+def _decode_key(B: int, mode: str, extras: str = "", bucket: tuple = ()) -> tuple:
+    """A decode executable's key; ``bucket``: a guided one's grammar
+    (states, classes) bucket."""
+    return ("decode", B, mode) + ((extras,) if extras else ()) + tuple(bucket)
 
 
 class Engine:
@@ -283,6 +311,25 @@ class Engine:
         self.requests: dict[str, Request] = {}   # live + finished-unclaimed
         self._detok: dict[str, IncrementalDetokenizer] = {}
         self._salts: dict[str, int] = {}      # sampling-key salt a request
+        # guided decoding, as the JAX engine's: rid -> [TokenFSM, host state]
+        # for requests served by FSM masks; rid -> character acceptor for
+        # the substitution path, and its committed canonical suffixes
+        self._guided_fsm: dict[str, list] = {}
+        self._guided: dict[str, object] = {}
+        self._guided_plan: dict[str, list[int]] = {}
+        self._guided_fallback_ids: Optional[list[int]] = None
+        # compiled FSMs by (mode, spec), None for a spec that does not
+        # compile (FIFO, MAX_FSM_CACHE); their device tables by id; the
+        # token-text table and the tokenizer fingerprint, made once
+        self._fsm_cache: dict[tuple, object] = {}
+        self._fsm_stats = {"hits": 0, "misses": 0, "disk_hits": 0}
+        self._fsm_device: dict[int, tuple] = {}
+        self._fsm_texts: Optional[dict] = None
+        self._fsm_tok_fp: Optional[str] = None
+        # False only to plant a fault in a check: FSM rows then sample
+        # unmasked (their host state still advances, and drops on the
+        # first illegal token)
+        self.guided_mask_enabled = True
         self._min_multi_step = min(max(1, config.min_multi_step), self._multi_step)
         self._adaptive_window = (config.adaptive_multi_step
                                  and self._multi_step > self._min_multi_step)
@@ -315,18 +362,23 @@ class Engine:
         return sorted({min(max(next_power_of_2(n), sched.min_decode_bucket), top)
                        for n in range(1, sched.max_num_seqs + 1)})
 
-    def _step_keys(self, sched: SchedulerConfig, max_len: int) -> list[tuple]:
+    def _step_keys(self, sched: SchedulerConfig, max_len: int,
+                   guided: bool = False) -> list[tuple]:
         """Every executable key (``runtime/graphs.py``) a dispatch can take
         under ``sched`` with sequences of at most ``max_len`` tokens: the
-        decode ladder in every sampling mode and extras; with mixed
+        decode ladder in every sampling mode and extras (the guided extras
+        only with ``guided``, at a (1, 1) grammar bucket: a guided key's
+        bucket follows its grammar, and its memory in the graph pool does
+        not depend on it, so these stand for every bucket); with mixed
         batching the flat-token ladder (``ragged_block`` doubling up to the
         budget's power of two); else every (batch, length) pair a batched prefill pads to
         and every chunk length.  The scheduler's prefill admission charges
         each picked prompt at the batch's bucket, so a batch of n prompts
         at length L, padded to B = next_power_of_2(n), has n * L within
         the token budget (or n = 1)."""
-        keys = [_decode_key(B, m, x) for B in self._decode_ladder()
-                for m in transformer.DECODE_MODES for x in ("",) + DECODE_EXTRAS]
+        keys = [_decode_key(B, m, x, (1, 1) if "guided" in x else ())
+                for B in self._decode_ladder() for m in transformer.DECODE_MODES
+                for x in ("",) + DECODE_EXTRAS if guided or "guided" not in x]
         if sched.mixed_batching:
             T = self._ragged_blk
             while T <= next_power_of_2(sched.mixed_token_budget):
@@ -357,7 +409,8 @@ class Engine:
             if self.config.resolve_cuda_graphs(self.device):
                 max_len = min(self.cache_cfg.max_model_len,
                               self.model_cfg.max_position_embeddings)
-                free -= pool_bytes_bound(self.model_cfg, self._step_keys(sched, max_len),
+                free -= pool_bytes_bound(self.model_cfg,
+                                         self._step_keys(sched, max_len, guided=True),
                                          self._ragged_seqs)
         else:
             free = (1 << 30) - param_nbytes(self.params)
@@ -370,14 +423,6 @@ class Engine:
     # Request intake
     # ------------------------------------------------------------------
 
-    @staticmethod
-    def reject_unported(params: SamplingParams) -> None:
-        """Raise NotImplementedError naming the ROADMAP.md item of a
-        sampling option this port does not carry yet: guided decoding."""
-        if params.guided is not None:
-            raise NotImplementedError(
-                "not ported yet: guided decoding (ROADMAP.md A6, apply_token_mask)")
-
     def add_request(self, prompt: str | None = None,
                     prompt_token_ids: Optional[Sequence[int]] = None,
                     params: Optional[SamplingParams] = None,
@@ -387,7 +432,6 @@ class Engine:
         request still queued past it is aborted before any prefill is spent
         on it (``_expire_queued_deadlines``)."""
         params = params or SamplingParams()
-        self.reject_unported(params)
         class_rank(params.slo_class)              # junk class: ValueError
         request_id = request_id or f"req-{next(self._req_counter)}"
         if request_id in self.requests:
@@ -416,10 +460,29 @@ class Engine:
                 f"length {self.max_seq_len} (min of cache capacity "
                 f"{self.cache_cfg.max_model_len} and model position range "
                 f"{self.model_cfg.max_position_embeddings})")
+        acceptor = fsm = None
+        if params.guided is not None:
+            if params.guided not in ("json", "json_schema", "regex", "choice"):
+                raise ValueError(f"unsupported guided mode {params.guided!r}"
+                                 " (only 'json' / 'json_schema' / 'regex' / 'choice')")
+            if params.logprobs is not None:
+                # the substitution path replaces tokens after the logprobs
+                # were taken: they would not match the emitted ones
+                raise ValueError("logprobs cannot be combined with response_format")
+            # the character acceptor first, so that a bad schema, pattern
+            # or choice list raises its ValueError whether or not the FSM
+            # then compiles
+            acceptor = self._make_guided(params)
+            fsm = self._fsm_for(params)
         req = Request(request_id=request_id, prompt_token_ids=prompt_token_ids,
                       params=params, prompt=prompt, deadline=deadline,
                       arrival_time=self.clock.monotonic())
         self.scheduler.add(req)                   # MemoryError: queue full
+        if fsm is not None:
+            self._guided_fsm[request_id] = [fsm, fsm.start]
+            self.stats.guided_fsm_requests += 1
+        elif acceptor is not None:
+            self._guided[request_id] = acceptor
         self._detok[request_id] = IncrementalDetokenizer(self.tokenizer)
         self.requests[request_id] = req
         if not params.greedy:
@@ -489,8 +552,13 @@ class Engine:
         return out
 
     def _release(self, request_id: str) -> None:
+        """Drop a finished or aborted request's host state (a preempted one
+        keeps it: its re-prefill continues the same stream)."""
         self._detok.pop(request_id, None)
         self._salts.pop(request_id, None)
+        self._guided.pop(request_id, None)
+        self._guided_fsm.pop(request_id, None)
+        self._guided_plan.pop(request_id, None)
 
     def has_work(self) -> bool:
         # a dispatch still in flight is work: its tokens are not emitted yet
@@ -723,10 +791,12 @@ class Engine:
                 B: int) -> np.ndarray:
         """The synchronous sampler of the prefill, chunk and mixed steps, as
         the JAX ``_sample``: penalties from each row's history, bias, the
-        ``min_tokens`` floor, then the cheapest mode covering the rows,
-        with each row's key (salt, tokens it has sampled so far), as the
-        decode executables step it; logprobs of the logits sampled from
-        (before temperature) are recorded for the rows that asked."""
+        ``min_tokens`` floor, each FSM row's grammar mask, then the
+        cheapest mode covering the rows, with each row's key (salt, tokens
+        it has sampled so far), as the decode executables step it; logprobs
+        of the logits sampled from (before temperature) are recorded for
+        the rows that asked; substitution-path rows get their token
+        checked and, where illegal, replaced on the host."""
         n = len(reqs)
         V = logits.shape[1]
         t = self._tensor
@@ -740,6 +810,8 @@ class Engine:
         if any(self._floor_active(r) for r in reqs):
             ids, vals, _ = self._min_tokens_arrays(reqs, B, V)
             logits = sampling_ops.apply_logit_bias(logits, t(ids), t(vals))
+        if any(r.request_id in self._guided_fsm for r in reqs):
+            logits = self._apply_fsm_mask(logits, reqs, B)
         mode = self._sample_mode(reqs)
         if mode == "greedy":
             toks = sampling_ops.sample_tokens(logits, mode="greedy")
@@ -756,16 +828,235 @@ class Engine:
                 logits, t(temperature), mode=mode,
                 gumbel=lambda: sampling_ops.keyed_gumbel(t(salt), t(step), V),
                 top_k=t(top_k), top_p=t(top_p), min_p=t(min_p))
-        if not any(r.params.logprobs is not None for r in reqs):
-            return toks.cpu().numpy()[:n]
-        top_n = min(max(r.params.logprobs or 0 for r in reqs) or 1, self.MAX_LOGPROBS)
-        chosen, ids, lps = (x.cpu().numpy() for x in
-                            sampling_ops.compute_logprobs(logits, toks, top_n))
-        toks_np = toks.cpu().numpy()[:n]
-        for i, r in enumerate(reqs):
-            if r.params.logprobs is not None:
-                self._append_logprob_entry(r, int(toks_np[i]), chosen[i], ids[i], lps[i])
+        toks_np = toks.cpu().numpy()[:n].copy()
+        if any(r.params.logprobs is not None for r in reqs):
+            top_n = min(max(r.params.logprobs or 0 for r in reqs) or 1, self.MAX_LOGPROBS)
+            chosen, ids, lps = (x.cpu().numpy() for x in
+                                sampling_ops.compute_logprobs(logits, toks, top_n))
+            for i, r in enumerate(reqs):
+                if r.params.logprobs is not None:
+                    self._append_logprob_entry(r, int(toks_np[i]), chosen[i], ids[i], lps[i])
+        if any(r.request_id in self._guided for r in reqs):
+            self._apply_guided(logits, toks_np, reqs)
         return toks_np
+
+    # ---- guided decoding ------------------------------------------------
+
+    GUIDED_TOP_K = 32
+    MAX_FSM_CACHE = 64
+
+    @staticmethod
+    def _make_guided(params: SamplingParams):
+        """The character-level acceptor of the request's spec: JSON,
+        schema-constrained JSON (the compiled schema travels as JSON text
+        in ``guided_schema``), a regex or a choice list."""
+        if params.guided == "json_schema":
+            return SchemaJsonStateMachine(compile_schema(json.loads(params.guided_schema)))
+        if params.guided == "regex":
+            return RegexStateMachine(compile_regex(params.guided_schema))
+        if params.guided == "choice":
+            return ChoiceStateMachine(compile_choices(json.loads(params.guided_schema)))
+        return JsonStateMachine()
+
+    def _fsm_for(self, params: SamplingParams):
+        """The token-level FSM of the request's spec, compiled once per
+        (mode, spec) and memoised, or None when ``guided_fsm`` is off or
+        the spec cannot be bounded (the request then runs the substitution
+        path; failures are memoised too).  With a cache directory
+        (``TPUSERVE_FSM_CACHE_DIR``, else beside the checkpoint) a
+        compiled FSM is loaded from or saved to disk, keyed by the spec
+        and the tokenizer's fingerprint, as the JAX engine's."""
+        if not self.config.guided_fsm:
+            return None
+        key = (params.guided, params.guided_schema)
+        if key in self._fsm_cache:
+            self._fsm_stats["hits"] += 1
+            return self._fsm_cache[key]
+        self._fsm_stats["misses"] += 1
+        disk_dir = grammar.resolve_cache_dir(self.config.checkpoint_dir)
+        if disk_dir is not None:
+            if self._fsm_tok_fp is None:
+                self._fsm_tok_fp = grammar.tokenizer_fingerprint(
+                    self.tokenizer, self.model_cfg.vocab_size, self._eos_ids)
+            fsm = grammar.load_fsm(disk_dir, params.guided, params.guided_schema,
+                                   self._fsm_tok_fp)
+            if fsm is not None:
+                self._fsm_stats["disk_hits"] += 1
+                self._memoise_fsm(key, fsm)
+                return fsm
+        if self._fsm_texts is None:
+            # token id -> standalone text depends on the tokenizer alone
+            self._fsm_texts = grammar.token_text_table(self.tokenizer,
+                                                       self.model_cfg.vocab_size)
+        try:
+            fsm = grammar.fsm_for_spec(params.guided, params.guided_schema, self.tokenizer,
+                                       self.model_cfg.vocab_size, self._eos_ids,
+                                       texts=self._fsm_texts)
+        except (grammar.FsmCompileError, ValueError) as e:
+            logger.info("guided spec not FSM-compilable (%s); using the per-step "
+                        "substitution path", e)
+            fsm = None
+        if fsm is not None and disk_dir is not None:
+            # failures are not persisted: they depend on budgets a
+            # deployment may raise
+            grammar.save_fsm(disk_dir, params.guided, params.guided_schema,
+                             self._fsm_tok_fp, fsm)
+        self._memoise_fsm(key, fsm)
+        return fsm
+
+    def _memoise_fsm(self, key: tuple, fsm) -> None:
+        """The FIFO memo of compiled FSMs, evicting one entry (and its
+        device tables) at a time."""
+        if len(self._fsm_cache) >= self.MAX_FSM_CACHE:
+            old = self._fsm_cache.pop(next(iter(self._fsm_cache)))
+            if old is not None:
+                self._fsm_device.pop(id(old), None)
+        self._fsm_cache[key] = fsm
+
+    def _fsm_device_tables(self, fsm) -> tuple:
+        """``fsm``'s (masks, tok_class, class_next) on the engine's device,
+        int32, padded to a power-of-two (states, classes) bucket (masks
+        with zero rows, transitions with -1), uploaded once per grammar
+        (FIFO, MAX_FSM_CACHE).  Each entry holds the fsm, so its id cannot
+        be reused while the entry lives."""
+        ent = self._fsm_device.get(id(fsm))
+        if ent is None:
+            n, vw = fsm.masks.shape
+            c = fsm.class_next.shape[1]
+            np_, cp = next_power_of_2(n), next_power_of_2(c)
+            masks = np.zeros((np_, vw), np.int32)
+            masks[:n] = fsm.masks.view(np.int32)
+            nxt = np.full((np_, cp), -1, np.int32)
+            nxt[:n, :c] = fsm.class_next
+            if len(self._fsm_device) >= self.MAX_FSM_CACHE:
+                self._fsm_device.pop(next(iter(self._fsm_device)))
+            ent = (fsm, self._tensor(masks),
+                   self._tensor(fsm.tok_class.astype(np.int32)), self._tensor(nxt))
+            self._fsm_device[id(fsm)] = ent
+        return ent[1:]
+
+    def _fsm_rows(self, reqs: list[Request], B: int) -> tuple[np.ndarray, np.ndarray]:
+        """Each FSM row's packed mask at its host state, (B, ceil(V/32))
+        int32, and (B,) whether the row is masked."""
+        vw = (self.model_cfg.vocab_size + 31) // 32
+        packed = np.zeros((B, vw), np.int32)
+        enabled = np.zeros((B,), bool)
+        for i, r in enumerate(reqs):
+            ent = self._guided_fsm.get(r.request_id)
+            if ent is not None and self.guided_mask_enabled:
+                packed[i] = ent[0].mask_row(ent[1]).view(np.int32)
+                enabled[i] = True
+        return packed, enabled
+
+    def _apply_fsm_mask(self, logits: torch.Tensor, reqs: list[Request],
+                        B: int) -> torch.Tensor:
+        """The synchronous sampler's grammar mask: each FSM row's allow
+        bits at its host state, after the penalties, bias and floor, as the
+        JAX ``_apply_fsm_mask``."""
+        packed, enabled = self._fsm_rows(reqs, B)
+        return sampling_ops.apply_token_mask(logits, self._tensor(packed),
+                                             self._tensor(enabled))
+
+    def _apply_guided(self, logits: torch.Tensor, toks_np: np.ndarray,
+                      reqs: list[Request]) -> None:
+        """The substitution path, in place on ``toks_np``: keep a row's
+        sampled token when its text keeps the document valid, else take
+        the most likely legal one of the top ``GUIDED_TOP_K``, then of a
+        fallback set (``_guided_pick``).  Synchronous by design: the next
+        step's input token comes from the host."""
+        k = min(self.GUIDED_TOP_K, logits.shape[-1])
+        # ties in index order, as the JAX top_k
+        ids_h = torch.sort(-logits.float(), dim=-1, stable=True)[1][:, :k].cpu().numpy()
+        for i, r in enumerate(reqs):
+            st = self._guided.get(r.request_id)
+            if st is not None:
+                toks_np[i] = self._guided_pick(r, st, int(toks_np[i]),
+                                               [int(t) for t in ids_h[i]])
+
+    @staticmethod
+    def _guided_text_of(tokenizer, ctx: list, base: str, tok: int) -> str:
+        """Text a candidate token would add after ``ctx`` (whose decoding
+        is ``base``), by decoding the two and taking the difference; a
+        trailing U+FFFD (a rune still incomplete) is not text yet."""
+        full = tokenizer.decode(ctx + [tok])
+        d = full[len(base):] if full.startswith(base) else tokenizer.decode([tok])
+        return d.rstrip("\ufffd")
+
+    def _guided_pick(self, r: Request, st, sampled: int, candidates: list[int]) -> int:
+        """One substitution-path token, as the JAX ``_guided_pick``: the
+        next token of a committed plan; else the sampled token or the first
+        of ``candidates`` that the acceptor allows (EOS only where it can
+        finish; a token with no text yet only inside a string); else one of
+        the fallback set; else, for acceptors that enumerate their legal
+        continuations, the first token of the tokenizer's own encoding of
+        one, the rest committed as a plan; else the sampled token."""
+        plan = self._guided_plan.get(r.request_id)
+        if plan:
+            tok = plan.pop(0)
+            if not plan:
+                self._guided_plan.pop(r.request_id, None)
+            return tok
+        ctx = (r.prompt_token_ids + r.output_token_ids)[-8:]
+        base = self.tokenizer.decode(ctx)
+        for tok in [sampled] + candidates:
+            if tok in self._eos_ids:
+                if st.can_finish:
+                    return tok
+                continue
+            txt = self._guided_text_of(self.tokenizer, ctx, base, tok)
+            if txt:
+                if st.allows(txt):
+                    return tok
+            elif st.in_string:
+                return tok
+        for tok in self._guided_fallback():
+            txt = self._guided_text_of(self.tokenizer, ctx, base, tok)
+            if txt and st.allows(txt):
+                self.stats.guided_fallbacks += 1
+                return tok
+        suffixes = getattr(st, "viable_suffixes", None)
+        if suffixes is not None:
+            anchor = None
+            for suffix in suffixes():
+                def in_context(ids, suffix=suffix):
+                    # the plan's tokens follow ctx: check what they decode
+                    # to there
+                    return ids and self.tokenizer.decode(ctx + ids) == base + suffix
+
+                ids = self.tokenizer.encode(suffix)
+                if not in_context(ids):
+                    # a tokenizer that marks the start of a sequence: take
+                    # the mid-text encoding of the suffix
+                    if anchor is None:
+                        anchor = self.tokenizer.encode("x")
+                    mid = self.tokenizer.encode("x" + suffix)
+                    ids = (mid[len(anchor):] if anchor and mid[:len(anchor)] == anchor
+                           else [])
+                    if not in_context(ids):
+                        continue
+                if len(ids) > 1:
+                    self._guided_plan[r.request_id] = ids[1:]
+                self.stats.guided_plans += 1
+                return ids[0]
+        # nothing legal exists: give up on the constraint for this step
+        self.stats.guided_fallbacks += 1
+        return sampled
+
+    def _guided_fallback(self) -> list[int]:
+        """Single-token encodings of JSON's structural strings, then of
+        every printable ASCII character: the substitution path's candidates
+        when the whole top-K is illegal."""
+        if self._guided_fallback_ids is None:
+            ids, seen = [], set()
+            tier1 = ('"', "}", "]", ":", ",", "{", "[", " ", "0", "1", "2", "7", "a", "k",
+                     "true", "false", "null", "-", ".", "e")
+            for text in tier1 + tuple(string.printable):
+                enc = self.tokenizer.encode(text)
+                if len(enc) == 1 and enc[0] not in seen:
+                    seen.add(enc[0])
+                    ids.append(enc[0])
+            self._guided_fallback_ids = ids
+        return self._guided_fallback_ids
 
     @staticmethod
     def _sample_mode(reqs: list[Request]) -> str:
@@ -883,8 +1174,7 @@ class Engine:
     # ---- decode -------------------------------------------------------
 
     def _dispatch(self, reqs: list[Request], steps: int, extra: int, chain_idx: dict,
-                  pending) -> tuple[DecodeExecutable, torch.Tensor, Optional[tuple],
-                                    Optional[torch.cuda.Event]]:
+                  pending, window: bool = False, need_logits: bool = False):
         """Run ``steps`` decode iterations for ``reqs`` on the executable
         of their bucket, sampling mode and extras, and start their copy to
         the host.  Rows in ``chain_idx`` (request id -> row of ``pending``)
@@ -894,14 +1184,31 @@ class Engine:
         them; penalties (with the bias and the floor, neutral where unused)
         if a row has penalties, a bias or a floor in force, their (B, V)
         buffers built on the card from the host history before the
-        replay."""
+        replay; guided if a row is served by an FSM.  A guided ``window``
+        reads its one grammar's tables (loaded into its bucket's buffers
+        unless already there) and each row's state, the host mirror or,
+        for a chained row, the in-flight dispatch's on the card; a guided
+        single step reads per-row tables, each row's mask at its host
+        state.  ``need_logits``: run the iteration eagerly and return its
+        logits too (the substitution path reads them).  Returns (the
+        executable, host tokens, host logprobs or None, event or None,
+        logits or None)."""
         B = self.scheduler.decode_bucket(len(reqs))
         V = self.model_cfg.vocab_size
         lp = any(r.params.logprobs is not None for r in reqs)
         pen = any(r.params.needs_penalties or r.params.needs_logit_bias
                   or self._floor_active(r) for r in reqs)
-        extras = "+".join(x for x, on in (("logprobs", lp), ("penalties", pen)) if on)
-        exe = self.graphs.get(*_decode_key(B, self._sample_mode(reqs), extras))
+        fsms = [self._guided_fsm[r.request_id] for r in reqs
+                if r.request_id in self._guided_fsm]
+        extras = "+".join(x for x, on in (("logprobs", lp), ("penalties", pen),
+                                          ("guided", bool(fsms))) if on)
+        tables = bucket = ()
+        if fsms and window:
+            tables = self._fsm_device_tables(fsms[0][0])
+            bucket = (tables[0].shape[0], tables[2].shape[1])
+        elif fsms:
+            bucket = (B, 1)
+        exe = self.graphs.get(*_decode_key(B, self._sample_mode(reqs), extras, bucket))
         st = exe.stage()
         for i, r in enumerate(reqs):
             pi = chain_idx.get(r.request_id)
@@ -918,6 +1225,10 @@ class Engine:
             st.salt[i] = self._salt(r)
             st.step[i] = len(r.output_token_ids) + ahead
             st.temperature[i] = r.params.temperature
+            ent = self._guided_fsm.get(r.request_id)
+            if ent is not None and self.guided_mask_enabled:
+                # a chained row's state comes from the card (load)
+                st.gstate[i] = ent[1] if window else i
         st.top_k[:], st.top_p[:], st.min_p[:] = self._truncation_arrays(reqs, B)
         if pen:
             out_tokens, mask, st.presence[:], st.frequency[:], st.repetition[:] = \
@@ -929,10 +1240,20 @@ class Engine:
         if pen:
             exe.load_extras(np.where(mask, out_tokens, V),
                             *self._logit_bias_arrays(reqs, B, V), f_ids, f_vals)
-        exe.run(steps)
+        if tables:
+            self.graphs.load_grammar(bucket, fsms[0][0], *tables)
+        elif fsms:
+            self.graphs.load_grammar(bucket, None, self._tensor(self._fsm_rows(reqs, B)[0]))
+        logits = None
+        if need_logits:
+            # the iteration run eagerly on the buffers, captured or not:
+            # its (B, V) logits, extras and mask applied
+            logits = exe.step()
+        else:
+            exe.run(steps)
         toks, lps, event = exe.fetch(steps)
         self.stats.num_decode_steps += steps
-        return exe, toks, lps, event
+        return exe, toks, lps, event, logits
 
     def _run_decode(self, batch: ScheduledBatch) -> list[RequestOutput]:
         """One decode token step.  Resolves any in-flight window first
@@ -941,11 +1262,14 @@ class Engine:
         the previous one is flushed after it is dispatched."""
         outputs = self._flush_window()
         reqs = [r for r in batch.requests if not r.finished]
-        # penalties, logprobs and a floor read the host's history and
-        # length, one step stale under the pipeline: such batches run
-        # synchronously (a bias is static, so it stays pipelined)
+        # penalties, logprobs, a floor and guided rows read the host's
+        # history, length or grammar state, one step stale under the
+        # pipeline (and the substitution path replaces tokens on the host):
+        # such batches run synchronously (a bias is static, so it stays
+        # pipelined)
         pipeline_ok = self._pipeline_decode and not any(
             r.params.needs_penalties or r.params.logprobs is not None
+            or r.params.guided is not None
             or (r.params.needs_min_tokens
                 and r.params.min_tokens_active(len(r.output_token_ids), slack=1))
             for r in reqs)
@@ -972,7 +1296,13 @@ class Engine:
             return outputs + self._flush_pending()
         chain = ({r.request_id: pend_idx[r.request_id] for r in reqs
                   if r.request_id in pend_idx} if self._pending is not None else {})
-        exe, toks, lps, event = self._dispatch(reqs, 1, 1, chain, pending)
+        sub = any(r.request_id in self._guided for r in reqs)
+        exe, toks, lps, event, logits = self._dispatch(reqs, 1, 1, chain, pending,
+                                                       need_logits=sub)
+        if sub:
+            if event is not None:
+                event.synchronize()
+            self._apply_guided(logits, toks.numpy()[:, 0], reqs)
         step = PendingDecode(reqs=list(reqs), exe=exe, toks=toks, event=event, lp=lps)
         if pipeline_ok:
             # resolve the PREVIOUS step while this one runs on the card
@@ -1011,9 +1341,22 @@ class Engine:
         max_tokens, stop string mid-window) are dropped at the flush.
         With ``pipeline_decode`` the window stays in flight and the
         previous one is flushed after this one is dispatched.  Falls back
-        to a single step when the cache cannot reserve the window."""
+        to a single step when the cache cannot reserve the window, and
+        runs single steps for a batch with a substitution-path guided row
+        or with more than one grammar (a window carries one grammar's
+        tables), as the JAX engine."""
+        if any(r.request_id in self._guided for r in batch.requests) or len(
+                {id(self._guided_fsm[r.request_id][0]) for r in batch.requests
+                 if r.request_id in self._guided_fsm}) > 1:
+            return self._run_decode(batch)
         S = self._window_steps()
         outputs = self._flush_pending()
+        pw = self._pending_window
+        if (pw is not None and pw.exe.state.gstate is None
+                and any(r.request_id in self._guided_fsm for r in pw.reqs)):
+            # a guided row in flight in a window that carried no FSM
+            # states: resolve it, so this dispatch reads its host state
+            outputs += self._flush_window()
         if self._pending_window is not None and any(
                 r.params.needs_penalties
                 or (r.params.needs_min_tokens and r.params.min_tokens_active(
@@ -1043,9 +1386,11 @@ class Engine:
             return outputs + self._run_decode(batch)
         chain = {r.request_id: pend_idx[r.request_id] for r in reqs
                  if r.request_id in pend_idx}
-        exe, toks, lps, event = self._dispatch(reqs, S, p.steps if p is not None else 0,
-                                               chain, p)
+        exe, toks, lps, event, _ = self._dispatch(reqs, S, p.steps if p is not None else 0,
+                                                  chain, p, window=True)
         self.stats.num_decode_windows += 1
+        if exe.state.gstate is not None:
+            self.stats.guided_fsm_windows += 1
         window = PendingWindow(reqs=list(reqs), exe=exe, toks=toks, event=event, steps=S,
                                lp=lps)
         if self._pipeline_decode:
@@ -1114,7 +1459,7 @@ class Engine:
                   from_prefill: bool = False) -> RequestOutput:
         req.output_token_ids.append(tok)
         self.stats.generated_tokens += 1
-        delta = self._detok[req.request_id].add(tok)
+        raw_delta = delta = self._detok[req.request_id].add(tok)
         reason = None
         if req.params.stop and not req.params.min_tokens_active(len(req.output_token_ids)):
             # below the min_tokens floor stop strings are not matched (the
@@ -1124,6 +1469,8 @@ class Engine:
                 reason = FinishReason.STOP
         else:
             req.output_text += delta
+        if req.params.guided is not None:
+            reason = self._guided_advance(req, tok, raw_delta, reason)
         if reason is None:
             reason = check_stop(req, self._eos_ids, self.max_seq_len)
         finished = reason is not None
@@ -1144,6 +1491,42 @@ class Engine:
             num_prompt_tokens=req.num_prompt_tokens,
             num_output_tokens=len(req.output_token_ids),
             from_prefill=from_prefill)
+
+    def _guided_advance(self, req: Request, tok: int, raw_delta: str,
+                        reason: Optional[FinishReason]) -> Optional[FinishReason]:
+        """A guided request's host state after emitting ``tok``, in the
+        JAX engine's order: an FSM row advances its mirror by the token
+        through the table the card used (an off-grammar token drops the
+        constraint), and a substitution-path row feeds its acceptor the
+        raw text (a rejected feed drops it); either reaching a complete
+        state (the JSON root closed, an inextensible match) stops the
+        request, unless it already stopped or the token is EOS (which
+        ``check_stop`` finishes)."""
+        rid = req.request_id
+        ent = self._guided_fsm.get(rid)
+        if ent is not None:
+            fsm, state = ent
+            ns = fsm.advance(state, tok)
+            if ns < 0:
+                self._guided_fsm.pop(rid, None)
+            else:
+                ent[1] = ns
+                if fsm.complete[ns] and reason is None and tok not in self._eos_ids:
+                    reason = FinishReason.STOP
+        st = self._guided.get(rid)
+        if st is not None:
+            if raw_delta:
+                try:
+                    # the raw text: the acceptor tracks what was sampled,
+                    # not what a stop-string hold-back emitted
+                    st.feed(raw_delta)
+                except ValueError:
+                    self._guided.pop(rid, None)
+                    self._guided_plan.pop(rid, None)
+                    st = None
+            if st is not None and st.complete and reason is None:
+                reason = FinishReason.STOP
+        return reason
 
     def _match_stop(self, req: Request, delta: str) -> tuple[str, bool]:
         """Stop-string search with prefix hold-back, as the JAX engine's

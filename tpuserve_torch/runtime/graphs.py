@@ -20,7 +20,12 @@ graph of the step over them:
   "logprobs" (the chosen token's and the top ``MAX_LOGPROBS``
   logprobs), "penalties" (penalties, ``logit_bias`` and the
   ``min_tokens`` floor) or "logprobs+penalties"; a fused window replays it
-  S times, a single step once.
+  S times, a single step once;
+- ``("decode", B, mode, "guided"|"penalties+guided", N, C)``: the same
+  iteration with the grammar-FSM mask and state carry, reading the
+  grammar tables from the static buffers of its (N states, C classes)
+  bucket (:meth:`StepGraphs.grammar_tables`).  Logprobs and guided
+  decoding never meet (the engine refuses the pair).
 
 Every KV write in them drops padding on the device
 (``attention.pad_drop``), so no step reads anything back to the host.  A
@@ -39,7 +44,15 @@ from each row's token history and its bias and floor ids, which come in
 one pinned copy (:meth:`DecodeExecutable.load_extras`).  One set at the
 largest bucket serves every executable, each reading its first B rows:
 the card runs the engine's work in order, so a build never overtakes the
-replay before it.
+replay before it.  A guided executable reads its grammar's tables, padded
+to a power-of-two (states, classes) bucket, from one set of buffers a
+bucket shared by every executable of it; the engine refills them before a
+replay only when its dispatch's grammar is not the one last loaded there,
+with copies queued in order behind the replays that read the old one.  Its
+FSM states are a carry of its own beside the packed buffer: a dispatch
+stages each row's state, and a row continuing an in-flight guided
+dispatch takes that dispatch's final state on the card, through the same
+select as its input token.
 
 An engine's graphs share one memory pool and one capture stream, largest
 transient first at warmup.  Before a capture the step runs once on the
@@ -75,7 +88,8 @@ from tpuserve_torch.ops.attention import PAD_SLOT
 KERNEL_MODULES = (flash_prefill, paged_decode, paged_window, ragged_paged)
 KINDS = ("prefill", "chunk", "mixed", "decode")
 # a decode executable's extras, beside none
-DECODE_EXTRAS = ("logprobs", "penalties", "logprobs+penalties")
+DECODE_EXTRAS = ("logprobs", "penalties", "logprobs+penalties", "guided",
+                 "penalties+guided")
 # the top logprobs a logprobs executable keeps a step (the JAX engine's
 # MAX_LOGPROBS: one width, so no request makes a new executable)
 MAX_LOGPROBS = 20
@@ -124,13 +138,19 @@ def layout(key, max_blocks: int, seqs: int, blk: int) -> tuple:
                 ("min_p", (B,), 0, np.float32), ("presence", (B,), 0, np.float32),
                 ("frequency", (B,), 0, np.float32), ("repetition", (B,), 1.0, np.float32),
                 ("floor_remaining", (B,), 0), ("use_host", (B,), 1), ("gather", (B,), 0),
-                ("col", (1,), 0))
+                ("col", (1,), 0)) + ((("gstate", (B,), -1),) if is_guided(key) else ())
     raise ValueError(f"unknown step kind {kind!r} (not in {KINDS})")
 
 
 def decode_extras(key) -> str:
     """A decode key's extras ("" for none)."""
     return key[3] if len(key) > 3 else ""
+
+
+def is_guided(key) -> bool:
+    """Whether ``key`` is a guided decode executable (its grammar bucket
+    (N, C) follows the extras)."""
+    return key[0] == "decode" and "guided" in decode_extras(key)
 
 
 def keeps_logits(key) -> bool:
@@ -163,12 +183,13 @@ def transient_bytes(cfg, key, seqs: int) -> int:
     the noise (the sort itself, its keep mask and its softmax and cumsum
     are freed before the noise is drawn); with logprobs 16 more, the
     log-softmax and the top-k's buffers; with penalties 24 more, the
-    penalized, biased and floored logits' temporaries."""
+    penalized, biased and floored logits' temporaries; guided 16 more, the
+    gathered mask words, their bit test and the masked logits."""
     V = cfg.vocab_size
     if key[0] == "decode":
         extras = decode_extras(key)
         per = (64 + 24 * (key[2] == "full") + 16 * ("logprobs" in extras)
-               + 24 * ("penalties" in extras))
+               + 24 * ("penalties" in extras) + 16 * ("guided" in extras))
         return key[1] * V * per
     width = cfg.hidden_size + cfg.q_size + 2 * cfg.kv_size + cfg.intermediate_size
     return _rows(key) * 3 * 4 * width + _out_rows(key, seqs) * V * 6
@@ -313,6 +334,10 @@ class DecodeExecutable(Executable):
             st.counts, st.bias, st.floor_bias = counts[:B], bias[:B], floor_bias[:B]
             st.presence, st.frequency = v["presence"], v["frequency"]
             st.repetition, st.floor_remaining = v["repetition"], v["floor_remaining"]
+        if is_guided(key):
+            st = self.state
+            st.gstate = torch.full((B,), -1, dtype=torch.int32, device=dev)
+            st.gmasks, st.gclass, st.gnext = owner.grammar_tables(*key[4:6])
         if "logprobs" in self.extras:
             self.state.lp_chosen = torch.zeros((B, S), dtype=torch.float32, device=dev)
             self.state.lp_ids = torch.zeros((B, S, MAX_LOGPROBS), dtype=torch.int32,
@@ -327,13 +352,20 @@ class DecodeExecutable(Executable):
 
     def load(self, staging: Staging, chain=None) -> None:
         """Copy ``staging`` into the buffers; ``chain`` = (executable,
-        steps) of the in-flight dispatch whose last tokens feed the rows
-        with ``use_host`` 0 (row ``gather`` of its output)."""
+        steps) of the in-flight dispatch whose last tokens (and, when it
+        carried them, final FSM states) feed the rows with ``use_host`` 0
+        (row ``gather`` of its output)."""
         self.buf.copy_(staging.tensor, non_blocking=True)
-        if chain is not None:
-            prev, steps = chain
-            last = prev.state.out[:, steps - 1][self.gather.long()]
+        prev = None if chain is None else chain[0]
+        if prev is not None:
+            last = prev.state.out[:, chain[1] - 1][self.gather.long()]
             self.state.tokens.copy_(torch.where(self.use_host != 0, self.state.tokens, last))
+        if self.state.gstate is not None:
+            gstate = self.views["gstate"]
+            if prev is not None and prev.state.gstate is not None:
+                gstate = torch.where(self.use_host != 0, gstate,
+                                     prev.state.gstate[self.gather.long()])
+            self.state.gstate.copy_(gstate)
 
     def load_extras(self, history: np.ndarray, bias_ids: np.ndarray, bias_vals: np.ndarray,
                     floor_ids: np.ndarray, floor_vals: np.ndarray) -> None:
@@ -404,6 +436,8 @@ class StepGraphs:
         self.capture_s = 0.0         # wall seconds spent capturing
         self.replays = collections.Counter()      # by step kind
         self._sampling_buffers = None
+        # (N, C) grammar bucket -> [masks, tok_class, class_next, loaded tag]
+        self._grammar: dict = {}
 
     def sampling_buffers(self) -> tuple:
         """The penalties executables' (max_batch, V) float32 counts, bias
@@ -414,6 +448,45 @@ class StepGraphs:
             self._sampling_buffers = tuple(
                 torch.zeros(shape, dtype=torch.float32, device=self.device) for _ in range(3))
         return self._sampling_buffers
+
+    def grammar_tables(self, N: int, C: int) -> tuple:
+        """The guided executables' static grammar buffers of the (``N``
+        states, ``C`` classes) bucket, made on first use (outside any
+        capture) and shared by every executable of the bucket: (N,
+        ceil(V/32)) int32 packed masks, (V,) int32 token classes and (N,
+        C) int32 transitions, zeros until a grammar is loaded (every index
+        they give stays in range)."""
+        ent = self._grammar.get((N, C))
+        if ent is None:
+            V, dev = self.cfg.vocab_size, self.device
+            ent = self._grammar[(N, C)] = [
+                torch.zeros((N, (V + 31) // 32), dtype=torch.int32, device=dev),
+                torch.zeros((V,), dtype=torch.int32, device=dev),
+                torch.zeros((N, C), dtype=torch.int32, device=dev), None]
+        return tuple(ent[:3])
+
+    def load_grammar(self, bucket: tuple, tag, masks: torch.Tensor,
+                     tok_class: torch.Tensor | None = None,
+                     class_next: torch.Tensor | None = None) -> bool:
+        """Fill ``bucket``'s grammar buffers before a replay, unless
+        ``tag`` (a grammar, held here so that its identity is not reused)
+        is the one loaded there last; ``tag`` None always loads.  Without
+        ``tok_class`` / ``class_next`` every token is class 0 and every
+        transition leads to state 0 (per-row tables whose states the host
+        advances).  The copies are queued in order behind the replays
+        that read the buffers' previous contents.  Returns whether it
+        loaded."""
+        ent = self._grammar[bucket]
+        if tag is not None and ent[3] is tag:
+            return False
+        ent[0].copy_(masks, non_blocking=True)
+        for buf, src in ((ent[1], tok_class), (ent[2], class_next)):
+            if src is None:
+                buf.zero_()
+            else:
+                buf.copy_(src, non_blocking=True)
+        ent[3] = tag
+        return True
 
     def get(self, *key) -> Executable:
         exe = self.executables.get(key)

@@ -4,9 +4,10 @@ types and histogram bucket edges, so the reference's scrape config and
 queries read the port unchanged.
 
 The card's machine has no ``prometheus_client``, so the port renders the
-text exposition format itself (``_Family``).  The ``tpuserve_*`` families
-of the SLO controller, tenants, device profiler, KV tiers and the model
-pool wait for those modules (ROADMAP.md A9).
+text exposition format itself (``_Family``).  Of the ``tpuserve_*``
+families, guided decoding's three are served; those of the SLO
+controller, tenants, device profiler, KV tiers and the model pool wait
+for those modules (ROADMAP.md A9).
 """
 
 from __future__ import annotations
@@ -151,6 +152,21 @@ class ServerMetrics:
                                    "Sequences preempted and re-prefilled")
         self.running = gauge("vllm_num_requests_running", "Requests in the decode batch")
         self.waiting = gauge("vllm_num_requests_waiting", "Requests queued for prefill")
+        # guided decoding's counters, as the JAX server's
+        self.guided_fallbacks = counter(
+            "tpuserve_guided_fallbacks",
+            "Guided-decoding steps where the whole top-K was grammatically invalid "
+            "and a structural fallback token was substituted (runtime/engine.py "
+            "_guided_pick)")
+        self.guided_fsm_requests = counter(
+            "tpuserve_guided_fsm_requests",
+            "Guided requests served by compiled grammar-FSM logit masks "
+            "(runtime/grammar/); guided traffic not counted here ran the per-step "
+            "substitution path")
+        self.guided_fsm_windows = counter(
+            "tpuserve_guided_fsm_windows",
+            "Fused multi-step windows that carried grammar-FSM masks; zero under "
+            "guided load means constraints are pinning decode to per-step dispatches")
 
     def observe_finish(self, reason: str, duration_s: float) -> None:
         self.request_success.labels(model_name=self.model_name,

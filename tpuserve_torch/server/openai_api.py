@@ -7,14 +7,16 @@ streamed (SSE) or not, and ``/tokenize`` / ``/detokenize``.
 
 Every sampling option of the JAX server is served: top_k/top_p/min_p, the
 penalties, ``logit_bias``, ``min_tokens``, ``logprobs``/``top_logprobs``
-(in the completions and chat shapes, full or streamed) and ``best_of > n``
-(candidates ranked by cumulative logprob).  Options whose engine parts are
-not ported yet are answered with a 400 that names the ROADMAP.md item
-bringing them, checked before the request is submitted, so a streaming
-request gets the status line and not a broken event stream: guided
-decoding (A6, ``Engine.reject_unported``), tool calls (A5b), prompt
-scoring (``prompt_logprobs``, ``echo`` with ``logprobs``) and
-``/v1/embeddings`` (A7).
+(in the completions and chat shapes, full or streamed), ``best_of > n``
+(candidates ranked by cumulative logprob) and guided decoding
+(``response_format`` json_object / json_schema, ``guided_regex``,
+``guided_choice``; a bad schema, pattern or choice list is a 400 with the
+JAX server's message).  Options whose engine parts are not ported yet are
+answered with a 400 that names the ROADMAP.md item bringing them, checked
+before the request is submitted, so a streaming request gets the status
+line and not a broken event stream: tool calls (A5b), prompt scoring
+(``prompt_logprobs``, ``echo`` with ``logprobs``) and ``/v1/embeddings``
+(A7).
 
 Handler threads make no CUDA call: they tokenize, queue and write JSON.
 Every step, graph capture and device copy runs on the runner's loop thread
@@ -37,7 +39,6 @@ from typing import Optional
 from urllib.parse import unquote
 
 from tpuserve_torch.models.tokenizer import default_chat_template
-from tpuserve_torch.runtime.engine import Engine
 from tpuserve_torch.runtime.request import SamplingParams
 from tpuserve_torch.runtime.slo import SLO_CLASSES
 from tpuserve_torch.server.metrics import ServerMetrics
@@ -80,8 +81,9 @@ def _num(body: dict, key: str, default, cast):
 
 def _sampling_from_request(body: dict, cap: int) -> SamplingParams:
     """The request's SamplingParams, validated as the JAX server validates
-    them (the same 400s).  Guided modes are recognised but not compiled:
-    the engine does not carry them yet (``Engine.reject_unported``)."""
+    them (the same 400s): a guided spec is compiled here once (its
+    schema, pattern or choice list), so that an unsupported one is a 400
+    before any work is queued."""
     stop = body.get("stop") or ()
     if isinstance(stop, str):
         stop = (stop,)
@@ -145,7 +147,7 @@ def _sampling_from_request(body: dict, cap: int) -> SamplingParams:
     if slo_class is not None and slo_class not in SLO_CLASSES:
         raise ValueError(f"'slo_class' must be one of {'/'.join(SLO_CLASSES)}, "
                          f"got {slo_class!r}")
-    guided = None
+    guided = guided_schema = None
     rf = body.get("response_format")
     if rf is not None:
         if not isinstance(rf, dict) or not isinstance(rf.get("type"), str):
@@ -157,7 +159,13 @@ def _sampling_from_request(body: dict, cap: int) -> SamplingParams:
             if not isinstance(js, dict) or not isinstance(js.get("schema"), dict):
                 raise ValueError("response_format json_schema needs a 'json_schema' "
                                  "object with a 'schema'")
+            from tpuserve_torch.runtime.guided import SchemaError, compile_schema
+            try:
+                compile_schema(js["schema"])          # 400 on unsupported keywords
+            except SchemaError as e:
+                raise ValueError(f"unsupported json_schema: {e}") from None
             guided = "json_schema"
+            guided_schema = json.dumps(js["schema"])
         elif rf["type"] != "text":
             raise ValueError(f"unknown response_format type {rf['type']!r}")
     if body.get("guided_regex") is not None:
@@ -166,11 +174,21 @@ def _sampling_from_request(body: dict, cap: int) -> SamplingParams:
                              "json modes")
         if not isinstance(body["guided_regex"], str):
             raise ValueError("'guided_regex' must be a string pattern")
-        guided = "regex"
+        from tpuserve_torch.runtime.guided_regex import RegexError, compile_regex
+        try:
+            compile_regex(body["guided_regex"])       # 400 on unsupported syntax
+        except RegexError as e:
+            raise ValueError(f"unsupported guided_regex: {e}") from None
+        guided, guided_schema = "regex", body["guided_regex"]
     if body.get("guided_choice") is not None:
         if guided is not None:
             raise ValueError("'guided_choice' cannot be combined with other guided modes")
-        guided = "choice"
+        from tpuserve_torch.runtime.guided_choice import ChoiceError, compile_choices
+        try:
+            choices = compile_choices(body["guided_choice"])     # 400 on bad lists
+        except ChoiceError as e:
+            raise ValueError(f"unsupported guided_choice: {e}") from None
+        guided, guided_schema = "choice", json.dumps(list(choices))
     tpt = _num(body, "truncate_prompt_tokens", None, int)
     if tpt is not None and tpt < 1:
         raise ValueError("'truncate_prompt_tokens' must be >= 1")
@@ -191,7 +209,8 @@ def _sampling_from_request(body: dict, cap: int) -> SamplingParams:
         stop=tuple(stop), ignore_eos=bool(body.get("ignore_eos", False)),
         include_stop_str_in_output=bool(body.get("include_stop_str_in_output", False)),
         seed=seed, logprobs=n_logprobs, logit_bias=bias,
-        stop_token_ids=tuple(stop_ids), guided=guided, priority=priority,
+        stop_token_ids=tuple(stop_ids), guided=guided, guided_schema=guided_schema,
+        priority=priority,
         slo_class=slo_class or "standard", truncate_prompt_tokens=tpt)
 
 
@@ -200,7 +219,6 @@ def _reject_unported_request(body: dict, params: SamplingParams, chat: bool) -> 
     that needs a part this port does not carry yet; called before submit."""
     if body.get("tools") is not None or body.get("tool_choice") not in ("auto", "none", None):
         raise NotImplementedError("not ported yet: tool calls (ROADMAP.md A5b)")
-    Engine.reject_unported(params)
     if body.get("prompt_logprobs") is not None:
         raise NotImplementedError("not ported yet: prompt_logprobs (score_prompt: "
                                   "ROADMAP.md A7)")

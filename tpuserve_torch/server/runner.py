@@ -261,7 +261,12 @@ class AsyncEngineRunner:
         m.active_requests.set(running + waiting)
         bm = self.engine.block_manager
         m.kv_usage.set((bm.num_blocks - bm.num_free_blocks) / max(bm.num_blocks, 1))
-        _advance_counter(m.preemptions, self.engine.stats.preemptions)
+        stats = self.engine.stats
+        for metric, value in ((m.preemptions, stats.preemptions),
+                              (m.guided_fallbacks, stats.guided_fallbacks),
+                              (m.guided_fsm_requests, stats.guided_fsm_requests),
+                              (m.guided_fsm_windows, stats.guided_fsm_windows)):
+            _advance_counter(metric, value)
 
     def _loop(self) -> None:
         logger.info("engine loop started")
