@@ -149,7 +149,29 @@ non-zero:
              as a subprocess: one streamed completion
              equal to (a)'s, then SIGTERM, which must end it with code 0
              within its drain timeout.
-11. profile  where the time goes, under torch.profiler, after every
+11. tiers    the tiered KV cache at full depth, bf16, the main weights,
+             greedy, ``TPUSERVE_STRICT_BLOCKS=1`` (the block and tier
+             accounting checked every engine cycle): two requests over a
+             3,072-token prefix (96 blocks) on a 384-block engine, its
+             pages read with ``gather_block_pages``; 2,048-token churn
+             prompts until every block of it is evicted (demoted: the
+             store must hold the chain); then the prefix plus 128 new
+             tokens, 32 greedy tokens.  With the 1 GiB host tier, then with
+             a 64 MiB host budget and a spill directory under ``build/``.
+             Gates: the restored blocks' pages bit-equal to the first read,
+             through the engine's own cache, and a restore with one page
+             zeroed failing that; the hit's tokens equal to a twin's that
+             keeps the prefix on the card (1,024 blocks, the same chunk
+             route); its launches against its steps; nothing left
+             restoring; no tensor on the spill writer; then an in-process
+             server on the host engine: churn over HTTP, the hit streamed
+             (the twin's tokens), ``/healthz`` host blocks and a digest,
+             ``/metrics`` demotes and restores.  Readings: the hit's TTFT
+             host / spill / HBM / cold recompute (a ``kv_tiers=False``
+             engine after the same churn), each demote's stall and GB/s,
+             the restore's host time, the copies alone (GB/s each way),
+             blocks demoted, spilled, dropped and restored, host bytes.
+12. profile  where the time goes, under torch.profiler, after every
              counted run (a profiler run slows the launches that follow
              it): one prefill and one decode window of the main path, one
              steady pipelined window alone (the paged decode kernel must
@@ -181,7 +203,7 @@ import time
 import numpy as np
 
 PHASES = ("build", "kernels", "identity", "main", "graphs", "sampler", "guided", "chunked",
-          "mixed", "server", "profile")
+          "mixed", "server", "tiers", "profile")
 # Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA's data
 # sheet): bf16 tensor cores, float32 CUDA cores, HBM.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -2162,6 +2184,298 @@ def serve_mixed(eng, early, late) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase tiers: the tiered KV cache on the main weights
+
+# a 3,072-token shared prefix (96 blocks of 32), 2,048-token churn prompts,
+# a hit of the prefix plus 128 new tokens; 384 blocks hold the prefix and
+# about four churn prompts, so six or so evict it
+TIER_PREFIX, TIER_SUFFIX, TIER_CHURN, TIER_BLOCKS = 3072, 128, 2048, 384
+TIER_HIT_TOKENS = 32
+TIER_SPILL_HOST_BYTES = 64 << 20           # 18 blocks of 3.5 MiB
+
+
+def tier_engine(params, num_blocks: int = TIER_BLOCKS, **kw):
+    """A default engine (captured graphs, pipelined windows) of the tiers
+    phase, warmed for the buckets its requests hit: the churn's (1, 2,048)
+    prefill, the 2,048 / 64 / 128 chunks of the shared prompts and the hit,
+    greedy windows of one or two rows."""
+    from tpuserve_torch.runtime import CacheConfig, Engine, EngineConfig
+    eng = Engine(EngineConfig(seed=SEED, cache=CacheConfig(num_blocks=num_blocks,
+                                                           max_blocks_per_seq=128), **kw),
+                 params=params)
+    eng.warmup(decode_buckets=[eng.scheduler.decode_bucket(1)],
+               prefill_buckets=[(1, TIER_CHURN)], chunk_buckets=[64, TIER_SUFFIX],
+               sample_modes=("greedy",))
+    return eng
+
+
+def timed_calls(eng, method: str, stat: str) -> list:
+    """Wrap ``eng.<method>`` to record, for each call that moved blocks by
+    ``stat``: (blocks, wall s, s of that spent first waiting for the card
+    to finish the work already queued).  The wait is taken apart with a
+    synchronise before the call, which the call would otherwise spend in
+    its own host wait."""
+    import torch
+    calls, orig = [], getattr(eng, method)
+
+    def timed():
+        n0, t = getattr(eng.stats, stat), time.perf_counter()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        orig()
+        n = getattr(eng.stats, stat) - n0
+        if n:
+            calls.append((n, time.perf_counter() - t, t1 - t))
+    setattr(eng, method, timed)
+    return calls
+
+
+def prefix_blocks(eng, prefix: list) -> list | None:
+    blocks, n = eng.block_manager.lookup_prefix(prefix + [0], count_stats=False)
+    return blocks if n == len(prefix) else None
+
+
+def pages_equal(a, b) -> bool:
+    """Bit equality of two blocks' page lists (``gather_block_pages``)."""
+    return all(x.keys() == y.keys() and all(
+        torch_equal_bits(x[k], y[k]) for k in x) for pa, pb in zip(a, b)
+        for x, y in zip(pa, pb)) and len(a) == len(b)
+
+
+def torch_equal_bits(x, y) -> bool:
+    import torch
+    return torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+
+
+def churn_out(eng, chain: list, rng, V: int, limit: int = 16) -> int:
+    """Serve unrelated 2,048-token prompts one at a time until no hash of
+    ``chain`` resolves on the card; returns how many it took."""
+    from tpuserve_torch.runtime import SamplingParams
+    sp = SamplingParams(max_tokens=4, temperature=0.0, ignore_eos=True)
+    n = 0
+    while any(eng.block_manager.prefix_resolvable(h) for h in chain):
+        if n == limit:
+            raise RuntimeError(f"the prefix survived {limit} churn prompts")
+        eng.generate([prompts(rng, [TIER_CHURN], V)[0]], sp)
+        n += 1
+    return n
+
+
+def serve_hit(eng, hit: list) -> dict:
+    """The hit alone on ``eng``, launches counted from 0 and read just
+    after: tokens, TTFT, its steps and launches against them."""
+    from tpuserve_torch.runtime import SamplingParams
+    sp = SamplingParams(max_tokens=TIER_HIT_TOKENS, temperature=0.0, ignore_eos=True)
+    reset_launches()
+    rid = eng.add_request(prompt_token_ids=hit, params=sp)
+    steps = drive(eng)
+    launches = read_launches()
+    req = eng.requests.pop(rid)
+    want = expected_launches(eng.model_cfg.num_layers, steps)
+    chunks = [s for s in steps if s["kind"] == "chunk"]
+    return {"tokens": req.output_token_ids, "ttft_ms": ttft_ms(req),
+            "launches": launches, "launches_ok": launches == want,
+            "chunk_steps": len(chunks), "computed_first_chunk": chunks[0]["computed"] if chunks else None,
+            "step_kinds": step_summary(steps)["log"]}
+
+
+def tier_run(eng, prefix, shared, hit, rng, planted: bool) -> dict:
+    """Shared prefix, snapshot, churn, hit on a tiered engine, with the
+    gates: the chain demoted and in the store, the restored blocks' pages
+    bit-equal to the snapshot read through the engine's own cache (and,
+    ``planted``, a restore with one page zeroed failing that), strict
+    integrity every cycle (the engine raises), nothing left restoring and
+    no tensor on the spill writer."""
+    import torch
+    from tpuserve_torch.runtime import SamplingParams
+    from tpuserve_torch.runtime.kv_cache import gather_block_pages, scatter_block_pages
+    V = eng.model_cfg.vocab_size
+    store, bm, staging = eng._kv_tiers, eng.block_manager, eng._staging()
+    t_phase = time.perf_counter()
+    eng.generate(shared, SamplingParams(max_tokens=8, temperature=0.0, ignore_eos=True))
+    chain = bm.prefix_chain(prefix + [0])
+    blocks = prefix_blocks(eng, prefix)
+    snapshot = gather_block_pages(eng.kv_cache, blocks, staging)
+    demotes = timed_calls(eng, "_demote_evicted", "kv_demoted_blocks")
+    restores = timed_calls(eng, "_begin_tier_restores", "kv_restored_blocks")
+    churned = churn_out(eng, chain, rng, V)
+    demoted = eng.stats.kv_demoted_blocks
+    where = {}
+    for h in chain:
+        w = store.where(h)
+        where[w] = where.get(w, 0) + 1
+    in_store = all(store.has(h) for h in chain)
+    host_bytes_after_churn = store.host_bytes_used
+    res = serve_hit(eng, hit)
+    restored = prefix_blocks(eng, prefix)
+    pages_ok = restored is not None and pages_equal(
+        gather_block_pages(eng.kv_cache, restored, staging), snapshot)
+    out = {"churn_prompts": churned, "chain_blocks": len(chain),
+           "demoted_after_churn": demoted, "chain_where": where, "chain_in_store": in_store,
+           "host_bytes_after_churn": host_bytes_after_churn, "pages_bit_equal": pages_ok,
+           "record_bytes": staging.record_bytes, **{"hit_" + k: v for k, v in res.items()}}
+    if planted and restored is not None:
+        fault = gather_block_pages(eng.kv_cache, restored, staging)
+        fault[len(fault) // 2][eng.model_cfg.num_layers // 2]["k"].zero_()
+        scatter_block_pages(eng.kv_cache, restored, fault, staging)
+        out["planted_fault_caught"] = not pages_equal(
+            gather_block_pages(eng.kv_cache, restored, staging), snapshot)
+        # the copies alone, each way, on the restored blocks: the scatter
+        # writes the snapshot back
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        scatter_block_pages(eng.kv_cache, restored, snapshot, staging)
+        torch.cuda.synchronize()
+        scatter_s = time.perf_counter() - t
+        t = time.perf_counter()
+        back = gather_block_pages(eng.kv_cache, restored, staging)
+        gather_s = time.perf_counter() - t
+        out["pages_after_fault_repair"] = pages_equal(back, snapshot)
+        nbytes = len(restored) * staging.record_bytes
+        out["copy_alone"] = {"blocks": len(restored), "bytes": nbytes,
+                             "scatter_ms": scatter_s * 1e3, "scatter_GBps": nbytes / scatter_s / 1e9,
+                             "gather_ms": gather_s * 1e3, "gather_GBps": nbytes / gather_s / 1e9}
+    s = eng.stats
+    store.flush()
+    out.update({
+        # [blocks, stall ms, of it ms waiting for queued work, GB/s after it]
+        "demote_calls": [[n, dt * 1e3, w * 1e3, n * staging.record_bytes / (dt - w) / 1e9]
+                         for n, dt, w in demotes],
+        "restore_begin_calls": [[n, dt * 1e3, w * 1e3] for n, dt, w in restores],
+        "kv_demoted_blocks": s.kv_demoted_blocks, "kv_spilled_blocks": s.kv_spilled_blocks,
+        "kv_tier_dropped_blocks": s.kv_tier_dropped_blocks,
+        "kv_restored_blocks": s.kv_restored_blocks, "kv_restores": s.kv_restores,
+        "host_bytes_used": store.host_bytes_used, "host_blocks": store.host_count,
+        "spill_blocks": store.spill_count, "restoring_left": bm.num_restoring_blocks,
+        "writer_tensor_pages": store.writer_tensor_pages,
+        "seconds": time.perf_counter() - t_phase})
+    del eng._demote_evicted, eng._begin_tier_restores      # the class's again
+    out["ok"] = bool(
+        in_store and demoted >= len(chain) == TIER_PREFIX // 32 and pages_ok
+        and out.get("planted_fault_caught", True) and out.get("pages_after_fault_repair", True)
+        and s.kv_restores >= 1 and s.kv_restored_blocks >= len(chain)
+        and res["launches_ok"] and res["computed_first_chunk"] == len(hit) - TIER_PREFIX
+        and bm.num_restoring_blocks == 0 and store.writer_tensor_pages == 0)
+    return out
+
+
+def tier_server(eng, prefix, hit, rng, twin_tokens) -> dict:
+    """An in-process server on the tiered engine: churn over HTTP until the
+    prefix is demoted, then the hit, streamed: the twin's tokens;
+    ``/healthz`` shows host blocks and a digest, ``/metrics`` demotes and
+    restores."""
+    from tpuserve_torch.server import OpenAIServer, ServerConfig
+    chain = eng.block_manager.prefix_chain(prefix + [0])
+    V = eng.model_cfg.vocab_size
+    d0, r0 = eng.stats.kv_demoted_blocks, eng.stats.kv_restored_blocks
+    srv = OpenAIServer(eng, ServerConfig(host="127.0.0.1", port=0))
+    url = f"http://127.0.0.1:{srv.start()}"
+    base = dict(temperature=0, ignore_eos=True)
+    try:
+        churned = 0
+        while any(eng.block_manager.prefix_resolvable(h) for h in chain) and churned < 16:
+            status, _ = http(url + "/v1/completions",
+                             dict(base, prompt=prompts(rng, [TIER_CHURN], V)[0], max_tokens=4))
+            churned += 1
+        res = sse(url + "/v1/completions", dict(base, prompt=hit, max_tokens=TIER_HIT_TOKENS,
+                                                return_token_ids=True))
+        _, health = http(url + "/healthz")
+        _, metrics = http(url + "/metrics")
+    finally:
+        srv.shutdown()
+    samples = {}
+    for ln in metrics.splitlines():
+        if ln.startswith("tpuserve_kv_blocks_"):
+            samples[ln.split("{")[0]] = float(ln.rsplit(" ", 1)[1])
+    tokens = stream_ids(res)
+    tiers = health.get("kv_tier_blocks", {})
+    ok = (tokens == twin_tokens and res["status"] == 200
+          and tiers.get("host", 0) > 0 and int(health.get("kv_digest", "0") or "0", 16) != 0
+          and samples.get("tpuserve_kv_blocks_demoted_total", 0) > 0
+          and samples.get("tpuserve_kv_blocks_restored_total", 0) > 0
+          and eng.stats.kv_demoted_blocks > d0 and eng.stats.kv_restored_blocks > r0)
+    return {"ok": ok, "churn_prompts": churned, "same_tokens_as_twin": tokens == twin_tokens,
+            "healthz_kv_tier_blocks": tiers, "healthz_digest_bits": health.get("kv_digest_bits"),
+            "metrics": samples}
+
+
+def phase_tiers(results) -> dict:
+    """The tiered KV cache at full width and depth, bf16, the main
+    weights, greedy, under ``TPUSERVE_STRICT_BLOCKS=1``: a 3,072-token
+    shared prefix served twice, then churned out of a 384-block cache, then
+    a hit of the prefix plus 128 tokens.  Host tier (1 GiB default), then
+    spill tier (64 MiB host budget, a spill directory under build/).  The
+    hit's tokens equal a twin's that serves it from HBM (1,024 blocks, no
+    eviction, the same chunk route); a cold ``kv_tiers=False`` engine after
+    the same churn recomputes it.  Then an in-process server on the host
+    engine.  TTFT of the hit four ways, demote stalls, copy rates."""
+    import os
+    import shutil
+
+    import torch
+    t_all = time.perf_counter()
+    params = results["main"]["params"]
+    prev = os.environ.get("TPUSERVE_STRICT_BLOCKS")
+    os.environ["TPUSERVE_STRICT_BLOCKS"] = "1"
+    spill_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "tier_spill")
+    shutil.rmtree(spill_dir, ignore_errors=True)
+    try:
+        torch.cuda.empty_cache()
+        # the twin: the prefix stays on the card
+        from tpuserve_torch.runtime import SamplingParams
+        twin = tier_engine(params, num_blocks=1024)
+        V = twin.model_cfg.vocab_size
+        rng = np.random.default_rng(SEED + 10)
+        prefix = prompts(rng, [TIER_PREFIX], V)[0]
+        shared = [prefix + p for p in prompts(rng, [64, 64], V)]
+        hit = prefix + prompts(rng, [TIER_SUFFIX], V)[0]
+        twin.generate(shared, SamplingParams(max_tokens=8, temperature=0.0, ignore_eos=True))
+        twin_hit = serve_hit(twin, hit)
+        twin_ok = (twin.stats.kv_demoted_blocks == 0 and twin_hit["launches_ok"]
+                   and twin_hit["computed_first_chunk"] == TIER_SUFFIX)
+        del twin
+        # cold: no tiers, the same churn
+        cold = tier_engine(params, kv_tiers=False)
+        cold.generate(shared, SamplingParams(max_tokens=8, temperature=0.0, ignore_eos=True))
+        cold_churn = churn_out(cold, cold.block_manager.prefix_chain(prefix + [0]),
+                               np.random.default_rng(SEED + 11), V)
+        cold_hit = serve_hit(cold, hit)
+        del cold
+        host_eng = tier_engine(params)
+        host = tier_run(host_eng, prefix, shared, hit, np.random.default_rng(SEED + 11), True)
+        server = tier_server(host_eng, prefix, hit, np.random.default_rng(SEED + 12),
+                             twin_hit["tokens"])
+        del host_eng
+        torch.cuda.empty_cache()
+        spill_eng = tier_engine(params, kv_host_bytes=TIER_SPILL_HOST_BYTES,
+                                kv_spill_dir=spill_dir)
+        spill = tier_run(spill_eng, prefix, shared, hit, np.random.default_rng(SEED + 11), False)
+        del spill_eng
+    finally:
+        if prev is None:
+            os.environ.pop("TPUSERVE_STRICT_BLOCKS", None)
+        else:
+            os.environ["TPUSERVE_STRICT_BLOCKS"] = prev
+        shutil.rmtree(spill_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+    same = {"host": host["hit_tokens"] == twin_hit["tokens"],
+            "spill": spill["hit_tokens"] == twin_hit["tokens"],
+            "cold": cold_hit["tokens"] == twin_hit["tokens"]}
+    for r in (host, spill):
+        r.pop("hit_tokens")
+    ok = (twin_ok and host["ok"] and spill["ok"] and server["ok"] and same["host"]
+          and same["spill"] and spill["kv_spilled_blocks"] > 0 and spill["chain_where"].get("spill", 0) > 0)
+    return {"ok": ok, "model": "Qwen/Qwen3-0.6B", "twin_ok": twin_ok,
+            "same_tokens_as_twin": same,
+            "ttft_ms": {"host_hit": host["hit_ttft_ms"], "spill_hit": spill["hit_ttft_ms"],
+                        "hbm_hit": twin_hit["ttft_ms"], "cold_recompute": cold_hit["ttft_ms"]},
+            "cold_churn_prompts": cold_churn, "cold_chunk_steps": cold_hit["chunk_steps"],
+            "twin_steps": twin_hit["step_kinds"], "cold_steps": cold_hit["step_kinds"],
+            "host": host, "spill": spill, "server": server,
+            "wall_s": time.perf_counter() - t_all}
+
+
+# --------------------------------------------------------------------------
 # server phase
 
 # the CLI's cache defaults (python -m tpuserve_torch.server), given to the
@@ -2713,6 +3027,8 @@ def main() -> int:
             res = phase_mixed(results["main"]["params"])
         elif phase == "server":
             res = phase_server(results)
+        elif phase == "tiers":
+            res = phase_tiers(results)
         elif phase == "profile":
             res = phase_profile(results)
         else:

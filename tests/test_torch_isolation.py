@@ -78,6 +78,23 @@ def test_importing_the_server_loads_no_jax_and_no_optional_packages():
     assert res.stdout.strip() == "clean"
 
 
+def test_tier_modules_load_no_jax_and_no_ml_dtypes():
+    """The tier store and the prefix digest stand alone: the card's machine
+    has neither JAX nor ml_dtypes (bf16 spill pages are read back through
+    torch's own bfloat16)."""
+    res = _run("import sys, tpuserve_torch.runtime.kv_tiers, tpuserve_torch.server.kv_digest\n"
+               "bad = [m for m in sys.modules if m.split('.')[0] in "
+               "('jax', 'jaxlib', 'tpuserve', 'ml_dtypes')]\n"
+               "assert not bad, bad\n"
+               "print('clean')")
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "clean"
+    for rel in ("runtime/kv_tiers.py", "server/kv_digest.py", "runtime/kv_cache.py"):
+        path = ROOT / "tpuserve_torch" / rel
+        assert path in PORT_FILES
+        assert "ml_dtypes" not in {m.split(".")[0] for m in _imported_modules(path)}
+
+
 def test_engine_without_device_raises_when_there_is_no_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")

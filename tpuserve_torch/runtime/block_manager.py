@@ -3,10 +3,10 @@
 Python implementation of the block-table bookkeeping that vLLM does inside
 the container the reference deploys (the reference delegates the whole
 engine: kubernetes-single-node.yaml:14, llm-d-deploy.yaml:140-193).
-The port's own copy of the JAX package's Python block manager, without
-what the port does not run yet: the C++ drop-in replacement (ROADMAP.md,
-"native block manager"), the KV-tier eviction log and restores, and the
-sliding-window rolling buffer.
+The port's own copy of the JAX package's Python block manager, with the
+tiered KV cache's eviction log and restores, and without what the port
+does not run yet: the C++ drop-in replacement (ROADMAP.md, "native block
+manager") and the sliding-window rolling buffer.
 
 Design: physical blocks of ``block_size`` token slots; per-sequence block
 tables map logical block index -> physical block id.  Full prompt blocks are
@@ -47,6 +47,18 @@ class BlockManager:
         self._block_hash: dict[int, int] = {}   # physical block -> chain-hash
         self.prefix_hits = 0
         self.prefix_queries = 0
+        # Tiered KV cache (runtime/kv_tiers.py): with recording on, an
+        # eviction that kills a live prefix entry is LOGGED; the engine
+        # drains the log before its next dispatch and demotes the block's
+        # still-intact pages to the host tier.  Off by default: without a
+        # tier store the log would only grow.
+        self.record_evictions = False
+        self._evicted: list[tuple[int, int]] = []   # (block, chain-hash)
+        # restore-in-flight blocks (block -> chain-hash): popped from the
+        # pool, being filled by an async host-to-card copy; in NO other
+        # pool until commit_restore parks them in the cached pool, so they
+        # can neither be evicted nor double-charged mid-copy.
+        self._restoring: dict[int, int] = {}
 
     # ---- capacity -------------------------------------------------------
 
@@ -61,10 +73,25 @@ class BlockManager:
     def _pop_free_block(self) -> int:
         if self._free:
             return self._free.pop()
-        # evict the LRU cached block: its prefix entry dies with it
+        # evict the LRU cached block: its prefix entry dies with it, or,
+        # with eviction recording on, is demoted to a lower tier by the
+        # engine (which drains the log before the dispatch that would
+        # overwrite the block's pages)
         block, _ = self._cached.popitem(last=False)
+        if self.record_evictions:
+            h = self._block_hash.get(block)
+            if h is not None and self._prefix.get(h) == block:
+                self._evicted.append((block, h))
         self._drop_hash(block)
         return block
+
+    def take_evictions(self) -> list[tuple[int, int]]:
+        """Drain the (block, chain-hash) eviction log.  The blocks' pages
+        are still intact (nothing writes KV outside a dispatch, and the
+        engine drains this before dispatching), so they can be copied to
+        the host and the hash stays resolvable in a lower tier."""
+        ev, self._evicted = self._evicted, []
+        return ev
 
     def _drop_hash(self, block: int) -> None:
         h = self._block_hash.pop(block, None)
@@ -104,6 +131,81 @@ class BlockManager:
         if blocks and count_stats:
             self.prefix_hits += 1
         return blocks, len(blocks) * self.block_size
+
+    def prefix_chain(self, token_ids: list[int]) -> list[int]:
+        """Chain hashes of EVERY full prompt block (lookup_prefix's bound:
+        at least one token uncached), whether resident or not: the keys the
+        tier store files demoted blocks under, so the engine can probe the
+        lower tiers past the card's hit."""
+        if not self.enable_prefix_caching:
+            return []
+        hashes: list[int] = []
+        h = 0
+        for i in range((len(token_ids) - 1) // self.block_size):
+            chunk = tuple(token_ids[i * self.block_size:(i + 1) * self.block_size])
+            h = self._chain_hash(h, chunk)
+            hashes.append(h)
+        return hashes
+
+    def prefix_resolvable(self, h: int) -> bool:
+        """Whether a chain hash resolves on the card now.  The demote drain
+        filters on it: a block evicted early in a cycle whose hash a later
+        allocation of the SAME cycle re-registered (two requests sharing
+        the prefix in one batch) must not be demoted, or the hash would be
+        in two tiers."""
+        return h in self._prefix
+
+    # ---- tier restore (host/spill -> card) ------------------------------
+
+    def begin_restore(self, hashes: list[int]) -> Optional[list[int]]:
+        """Claim one block per hash for an in-flight restore.  The blocks
+        leave every pool (not free, not cached, owned by no sequence)
+        until ``commit_restore``, so allocation can neither evict nor
+        double-charge them mid-copy.  None, with nothing changed, when the
+        pool cannot cover it."""
+        if len(hashes) > self.num_free_blocks:
+            return None
+        blocks = [self._pop_free_block() for _ in hashes]
+        for b, h in zip(blocks, hashes):
+            self._restoring[b] = h
+        return blocks
+
+    def commit_restore(self, hashes: list[int], blocks: list[int]) -> int:
+        """Publish restored blocks: each becomes a cached-pool prefix entry
+        (most recent), as if its sequence had just freed it, so the next
+        lookup_prefix resolves the hash on the card again.  A hash
+        re-registered meanwhile (an identical prompt recomputed it) sends
+        its redundant block back to the free list.  Returns the number of
+        entries published."""
+        published = 0
+        for h, b in zip(hashes, blocks):
+            self._restoring.pop(b, None)
+            if h in self._prefix or b in self._block_hash:
+                self._free.append(b)    # raced with a fresh registration
+                continue
+            self._prefix[h] = b
+            self._block_hash[b] = h
+            self._cached[b] = None
+            self._cached.move_to_end(b)
+            published += 1
+        return published
+
+    def abort_restore(self, blocks: list[int]) -> None:
+        """Return claimed restore blocks to the free pool (the tier entry
+        vanished); their pages were never published."""
+        for b in blocks:
+            self._restoring.pop(b, None)
+            self._free.append(b)
+
+    @property
+    def num_restoring_blocks(self) -> int:
+        return len(self._restoring)
+
+    @property
+    def num_cached_blocks(self) -> int:
+        """Freed-but-hashed blocks parked in the card's cached pool (the
+        occupancy of the tier gauges' "hbm" tier)."""
+        return len(self._cached)
 
     def _register_prefix_blocks(self, seq_id: str, token_ids: list[int]) -> None:
         """Hash and publish this sequence's fully-written prompt blocks."""
@@ -305,16 +407,22 @@ class BlockManager:
             bucket = cand
         return picked, bucket
 
-    def check_integrity(self, expected_seq_ids=None) -> None:
-        """Verify the block accounting invariants the engine relies on,
-        raising RuntimeError with every violation found: double-free,
-        refcount drift, orphaned sequences, leaked blocks.
+    def check_integrity(self, expected_seq_ids=None, tier_hashes=None) -> None:
+        """Verify the block accounting invariants the engine relies on
+        (``TPUSERVE_STRICT_BLOCKS`` runs it every cycle), raising
+        RuntimeError with every violation found: double-free, refcount
+        drift, orphaned sequences, leaked blocks.
 
         ``expected_seq_ids``: when given, the exact set of sequence ids
         that should currently hold allocations (the engine passes its
         live running + mid-chunk requests) — a sequence holding blocks
         with no live request is a leak; a live request without blocks is
         corruption.
+
+        ``tier_hashes``: when given (the engine passes its tier store's
+        resolvable hashes), the exactly-one-tier invariant too: a chain
+        hash resolvable on the card must not also be in a lower tier, and
+        a restore-in-flight hash must already have LEFT the store.
         """
         problems: list[str] = []
         owned: dict[int, int] = {}
@@ -343,17 +451,46 @@ class BlockManager:
             if b not in owned:
                 problems.append(
                     f"block {b} has refcount {rc} but no owning sequence")
-        accounted = free_set | cached_set | set(owned)
+        restoring_set = set(self._restoring)
+        for b in sorted(restoring_set):
+            # restore-in-flight blocks live in NO pool until commit: an
+            # overlap means the async copy races an eviction or a write
+            if b in free_set:
+                problems.append(f"restore-in-flight block {b} also free")
+            if b in cached_set:
+                problems.append(f"restore-in-flight block {b} also cached")
+            if b in owned:
+                problems.append(
+                    f"restore-in-flight block {b} also owned by a live "
+                    "sequence (double-charged)")
+            if b in self._refcount:
+                problems.append(
+                    f"restore-in-flight block {b} carries a refcount")
+        accounted = free_set | cached_set | set(owned) | restoring_set
         if len(accounted) != self.num_blocks:
             lost = self.num_blocks - len(accounted)
             problems.append(
                 f"{lost} block(s) leaked: in neither the free list, the "
-                "cached pool, nor any sequence table")
+                "cached pool, the restore-in-flight set, nor any sequence "
+                "table")
         for h, b in self._prefix.items():
             if self._block_hash.get(b) != h:
                 problems.append(
                     f"prefix hash {h} maps to block {b} but the reverse "
                     "mapping disagrees")
+        if tier_hashes is not None:
+            tiered = set(tier_hashes)
+            both = tiered & set(self._prefix)
+            if both:
+                problems.append(
+                    f"{len(both)} chain hash(es) resolvable in BOTH HBM "
+                    f"and a lower tier (exactly-one-tier violated): "
+                    f"{sorted(both)[:4]}")
+            stuck = tiered & set(self._restoring.values())
+            if stuck:
+                problems.append(
+                    f"restore-in-flight hash(es) still resolvable in a "
+                    f"lower tier: {sorted(stuck)[:4]}")
         if expected_seq_ids is not None:
             extra = set(self._seqs) - set(expected_seq_ids)
             missing = set(expected_seq_ids) - set(self._seqs)
@@ -367,6 +504,6 @@ class BlockManager:
                     f"(corruption): {sorted(missing)}")
         if problems:
             raise RuntimeError(
-                "KV block integrity violated: "
+                "KV block integrity violated (TPUSERVE_STRICT_BLOCKS): "
                 + "; ".join(problems))
 

@@ -44,6 +44,15 @@ the host at emission; a spec that does not (or every spec, with
 checks each sampled token's text against a character-level acceptor and
 substitutes the best legal candidate.
 
+The tiered KV cache, as the JAX engine's (on whenever prefix caching is,
+unless ``kv_tiers=False`` or ``TPUSERVE_KV_TIERS=0``): a cached prefix
+block evicted from the card is demoted to a host-DRAM tier and from there
+to a spill directory (``runtime/kv_tiers.py``); its pages are copied out
+right before the next dispatch that writes KV, and a waiting prompt whose
+prefix resolves in a lower tier has its blocks copied back in place
+(``kv_cache.scatter_block_pages``) ahead of its admission, overlapping the
+step dispatched meanwhile, then prefills only the suffix.
+
 The engine runs on ``device="cuda"`` unless the caller passes
 ``device="cpu"`` (the tests do); it never falls back to the CPU on its own.
 Options of the JAX engine that this slice does not carry raise
@@ -56,6 +65,7 @@ import dataclasses
 import itertools
 import json
 import logging
+import os
 import string
 from typing import Optional, Sequence
 
@@ -78,12 +88,14 @@ from tpuserve_torch.runtime.guided_choice import ChoiceStateMachine, compile_cho
 from tpuserve_torch.runtime.guided_regex import RegexStateMachine, compile_regex
 from tpuserve_torch.runtime.clock import MONOTONIC
 from tpuserve_torch.runtime.kv_cache import (
-    CacheConfig, create_kv_cache, num_blocks_for_budget)
+    CacheConfig, PageStaging, create_kv_cache, gather_block_pages, num_blocks_for_budget,
+    scatter_block_pages)
+from tpuserve_torch.runtime.kv_tiers import TieredPageStore
 from tpuserve_torch.runtime.request import (
     FinishReason, Request, RequestOutput, RequestState, SamplingParams, check_stop)
 from tpuserve_torch.runtime.scheduler import ScheduledBatch, Scheduler, SchedulerConfig
 from tpuserve_torch.runtime.slo import class_rank
-from tpuserve_torch.utils import next_power_of_2
+from tpuserve_torch.utils import env_flag, next_power_of_2
 
 logger = logging.getLogger("tpuserve_torch.engine")
 
@@ -94,6 +106,11 @@ _UNPORTED_CONFIG = (
     ("lora_modules", "multi-LoRA (ROADMAP.md A8, model breadth)"),
     ("speculative", "speculative decoding (ROADMAP.md A7, engine slice 3)"),
 )
+# blocks a round of the tier page copies moves (PageStaging's rows)
+PAGE_STAGING_BLOCKS = 32
+# host-tier records warmup pins ahead (up to the tier's budget); past it
+# a demote pins its records as it makes them
+PIN_RECORDS_MAX_BYTES = 2 << 30
 # Engine.warmup's sample_modes default: the JAX engine's
 SAMPLE_MODES = ("greedy", "temperature", "full", "logprobs", "penalties", "bias",
                 "min_tokens")
@@ -138,6 +155,18 @@ class EngineConfig:
     # the compiler cannot bound, and every spec when False, run per step
     # through candidate substitution.
     guided_fsm: bool = True
+    # Tiered KV cache (runtime/kv_tiers.py), as the JAX engine's: an
+    # evicted cached prefix block is demoted to a host-DRAM tier (a byte
+    # budget) and from there to a spill directory instead of lost; a later
+    # prompt whose prefix resolves in a lower tier is restored ahead of
+    # admission and prefills only the uncached suffix.  None = on whenever
+    # prefix caching is on, unless TPUSERVE_KV_TIERS is 0.
+    kv_tiers: Optional[bool] = None
+    # host-DRAM tier byte budget; 0 = TPUSERVE_KV_HOST_BYTES or 1 GiB
+    kv_host_bytes: int = 0
+    # spill directory (third tier); None = TPUSERVE_KV_SPILL_DIR (unset: no
+    # spill tier, the host budget's overflow is dropped)
+    kv_spill_dir: Optional[str] = None
     # JAX engine options not ported yet: any value but None raises
     quantization: Optional[str] = None
     lora_dir: Optional[str] = None
@@ -191,6 +220,17 @@ class EngineStats:
     guided_plans: int = 0            # committed canonical-suffix completions
     guided_fsm_requests: int = 0     # requests served by grammar-FSM masks
     guided_fsm_windows: int = 0      # fused windows that carried FSM masks
+    # tiered KV cache: blocks demoted from the card into the host tier;
+    # host -> spill moves; blocks dropped off the last tier (KV lost);
+    # blocks restored to the card; restores begun.  restore_latencies:
+    # begin -> commit seconds of recent restores (the server's runner
+    # drains them into tpuserve_kv_restore_latency_seconds; bounded)
+    kv_demoted_blocks: int = 0
+    kv_spilled_blocks: int = 0
+    kv_tier_dropped_blocks: int = 0
+    kv_restored_blocks: int = 0
+    kv_restores: int = 0
+    restore_latencies: list = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
@@ -299,6 +339,23 @@ class Engine:
         self.block_manager = BlockManager(
             self.cache_cfg.num_blocks, self.cache_cfg.block_size,
             enable_prefix_caching=config.enable_prefix_caching)
+        # Tiered KV cache (runtime/kv_tiers.py): demote evicted prefix
+        # blocks to host DRAM / a spill directory instead of losing the KV;
+        # restore them ahead of admission
+        self._kv_tiers: Optional[TieredPageStore] = None
+        self._restores: dict[str, tuple] = {}   # rid -> (hashes, blocks, t0)
+        self._page_staging: Optional[PageStaging] = None
+        tiers_on = config.kv_tiers
+        if tiers_on is None:
+            tiers_on = env_flag("TPUSERVE_KV_TIERS")
+        if tiers_on and config.enable_prefix_caching:
+            host_bytes = config.kv_host_bytes or int(
+                os.environ.get("TPUSERVE_KV_HOST_BYTES", 0) or (1 << 30))
+            spill = config.kv_spill_dir or os.environ.get("TPUSERVE_KV_SPILL_DIR") or None
+            self._kv_tiers = TieredPageStore(host_bytes, spill_dir=spill)
+            self.block_manager.record_evictions = True
+        # debug strict mode: block and tier accounting checked every cycle
+        self._strict_blocks = bool(os.environ.get("TPUSERVE_STRICT_BLOCKS"))
         self.scheduler = Scheduler(sched_cfg, self.block_manager,
                                    max_model_len=self.cache_cfg.max_model_len,
                                    ragged_align=self._ragged_blk)
@@ -561,9 +618,11 @@ class Engine:
         self._guided_plan.pop(request_id, None)
 
     def has_work(self) -> bool:
-        # a dispatch still in flight is work: its tokens are not emitted yet
+        # a dispatch still in flight is work: its tokens are not emitted
+        # yet; so is a tier restore, which must reach its commit even if
+        # every request was aborted, or its blocks would stay claimed
         return (self.scheduler.has_work() or self._pending is not None
-                or self._pending_window is not None)
+                or self._pending_window is not None or bool(self._restores))
 
     # ------------------------------------------------------------------
     # Step
@@ -572,8 +631,32 @@ class Engine:
     def step(self) -> list[RequestOutput]:
         """Run one engine iteration: one prefill batch, one prefill chunk,
         one mixed step, or one decode dispatch (a fused window or a single
-        step).  Queued requests past their deadline leave first."""
+        step).  Queued requests past their deadline leave first; with the
+        tiers on, last cycle's restores commit and new ones begin before
+        scheduling.  Under ``TPUSERVE_STRICT_BLOCKS`` every cycle then
+        cross-checks the block and tier accounting."""
+        outputs = self._step_inner()
+        if self._strict_blocks:
+            self._check_block_integrity()
+        return outputs
+
+    def _check_block_integrity(self) -> None:
+        holders = {r.request_id for r in self.scheduler.running}
+        holders |= {r.request_id for r in self.scheduler.waiting if r.num_prefilled > 0}
+        tier_hashes = (list(self._kv_tiers.hashes())
+                       if self._kv_tiers is not None else None)
+        self.block_manager.check_integrity(expected_seq_ids=holders,
+                                           tier_hashes=tier_hashes)
+
+    def _step_inner(self) -> list[RequestOutput]:
         self._expire_queued_deadlines()
+        if self._kv_tiers is not None:
+            # commit FIRST: last cycle's restored prefixes become the card's
+            # prefix entries, so their requests admit THIS cycle with the
+            # restored span as shared blocks; then start new restores,
+            # whose copies overlap the step dispatched below
+            self._commit_tier_restores()
+            self._begin_tier_restores()
         batch = self.scheduler.schedule()
         if batch is None:
             # nothing schedulable, but a decode result may be in flight
@@ -608,9 +691,11 @@ class Engine:
             ids = self._prefill_tokens(req)
             shared, _cached = self.block_manager.lookup_prefix(ids)
             self.block_manager.allocate(req.request_id, ids, shared_blocks=shared)
+            self._drop_superseded_tier_entries(ids)
             st.tokens[i, :len(ids)] = ids
             st.prompt_lens[i] = len(ids)
             st.slot_ids[i, :len(ids)] = self._token_slots(req.request_id, 0, len(ids))
+        self._demote_evicted()
         exe.load(st)
         exe.run()
         self.scheduler.mark_running(reqs)
@@ -664,6 +749,7 @@ class Engine:
         if req.num_prefilled == 0:
             shared, cached = self.block_manager.lookup_prefix(ids)
             self.block_manager.allocate(req.request_id, ids, shared_blocks=shared)
+            self._drop_superseded_tier_entries(ids)
             req.num_prefilled = cached
         done = req.num_prefilled
         n = len(ids[done:done + C])
@@ -674,6 +760,7 @@ class Engine:
         st.slot_ids[0, :n] = self._token_slots(req.request_id, done, n, block_table=bt)
         st.block_tables[0, :len(bt)] = bt
         st.ctx_lens[0], st.chunk_lens[0] = done, n
+        self._demote_evicted()
         exe.load(st)
         exe.run()
         req.num_prefilled = done + n
@@ -717,6 +804,7 @@ class Engine:
                 except MemoryError:
                     self.scheduler.waiting.appendleft(req)
                     continue
+                self._drop_superseded_tier_entries(ids)
                 req.num_prefilled = cached
             done = req.num_prefilled
             chunks.append((req, ids, done, min(n, len(ids) - done)))
@@ -754,6 +842,7 @@ class Engine:
             st.last_rows[si] = start + take - 1
             st.block_tables[si, :len(bt)] = bt
         st.meta[:], st.blk_seq[:] = meta, blk_seq
+        self._demote_evicted()
         exe.load(st)
         exe.run()
         self.stats.num_mixed_steps += 1
@@ -1236,6 +1325,7 @@ class Engine:
             f_ids, f_vals, st.floor_remaining[:] = self._min_tokens_arrays(reqs, B, V)
         self.block_manager.fill_block_tables([r.request_id for r in reqs],
                                              st.block_tables)
+        self._demote_evicted()
         exe.load(st, chain=(pending.exe, pending.steps) if chain_idx else None)
         if pen:
             exe.load_extras(np.where(mask, out_tokens, V),
@@ -1453,6 +1543,142 @@ class Engine:
             outputs.append(self._emit_one(r, int(toks_h[i, 0])))
         return outputs
 
+    # ---- tiered KV cache (runtime/kv_tiers.py) ------------------------
+    # card -> host DRAM -> spill: evictions demote instead of destroying
+    # KV, lower-tier hits restore ahead of admission.  kv_tiers=False (or
+    # TPUSERVE_KV_TIERS=0) removes all of it: _kv_tiers is None and no path
+    # below runs.
+
+    def kv_tier_blocks(self) -> dict:
+        """Prefix-cache blocks resident by tier: "hbm" the card's cached
+        pool, "host" and "spill" the store's (the three partition every
+        resolvable chain hash).  Counts only, safe from any thread."""
+        store = self._kv_tiers
+        return {"hbm": self.block_manager.num_cached_blocks,
+                "host": store.host_count if store is not None else 0,
+                "spill": store.spill_count if store is not None else 0}
+
+    def _staging(self) -> PageStaging:
+        """The page copies' staging buffer, made once (warmup makes it)."""
+        if self._page_staging is None:
+            self._page_staging = PageStaging(
+                self.kv_cache, min(PAGE_STAGING_BLOCKS, self.cache_cfg.num_blocks))
+        return self._page_staging
+
+    def _demote_evicted(self) -> None:
+        """Drain the block manager's eviction log and demote the evicted
+        blocks' pages into the tier store.  MUST run before any dispatch
+        that could overwrite them (every step kind calls it right before
+        its executable's load, restores before their scatter): until then
+        the pages still hold the evicted prefix's KV, so one batched
+        gather and one host wait move the whole cycle's evictions.  The
+        wait also waits out a pipelined window still in flight."""
+        store = self._kv_tiers
+        if store is None:
+            return
+        bm = self.block_manager
+        # a hash re-registered since its eviction (a later allocation of
+        # the same cycle recomputed the prefix) resolves on the card
+        # again: demoting the stale block would put it in two tiers
+        ev = [(b, h) for b, h in bm.take_evictions() if not bm.prefix_resolvable(h)]
+        if not ev:
+            return
+        pages = gather_block_pages(self.kv_cache, [b for b, _ in ev], self._staging())
+        for (_b, h), p in zip(ev, pages):
+            store.put(h, p)
+        self.stats.kv_demoted_blocks += len(ev)
+        self.stats.kv_spilled_blocks = store.spilled_blocks
+        self.stats.kv_tier_dropped_blocks = store.dropped_blocks
+
+    def _drop_superseded_tier_entries(self, ids: list[int]) -> None:
+        """Called right after a first allocate: the request's prefill is
+        about to (re)compute and register every full block of ``ids`` that
+        the card did not serve, so store copies of those hashes are now
+        superseded and must leave, or the hash is in two tiers once the
+        recompute registers it (and the copies squat on the budget).
+        Registration hashes len // block_size full blocks, one more than
+        ``prefix_chain``'s lookup bound when the length is a block
+        multiple: the appended token raises the bound to the registered
+        chain without changing any hash."""
+        store = self._kv_tiers
+        if store is None or len(store) == 0:
+            return
+        for h in self.block_manager.prefix_chain(list(ids) + [0]):
+            store.drop(h)
+
+    def _begin_tier_restores(self) -> None:
+        """Restore lower-tier prefix hits of the requests at the head of
+        the queue: claim blocks (restore-in-flight: in no pool,
+        unevictable), take the pages out of the store, and queue the
+        host-to-card copy WITHOUT waiting on it; it overlaps whatever this
+        cycle dispatches, and the request, held RESTORING for the cycle,
+        admits next cycle with the restored span as a prefix-cache hit."""
+        store = self._kv_tiers
+        if not store or len(store) == 0 or not self.scheduler.waiting:
+            return
+        bm = self.block_manager
+        seats = self.config.scheduler.max_prefill_seqs
+        for req in list(self.scheduler.waiting)[:seats]:
+            if req.state == RequestState.RESTORING or req.num_prefilled > 0:
+                continue
+            ids = self._prefill_tokens(req)
+            hashes = bm.prefix_chain(ids)
+            if not hashes:
+                continue
+            shared, _ = bm.lookup_prefix(ids, count_stats=False)
+            k = len(shared)
+            span: list[int] = []
+            while k + len(span) < len(hashes) and store.has(hashes[k + len(span)]):
+                span.append(hashes[k + len(span)])
+            if not span:
+                continue
+            # the request's fresh-block demand does not depend on how much
+            # is restored (restored blocks are revived as shared): all past
+            # the card's hit plus decode headroom must fit, or the restore
+            # would only thrash the cached pool
+            if bm.blocks_needed(len(ids)) - k + 1 > bm.num_free_blocks:
+                continue
+            blocks = bm.begin_restore(span)
+            if blocks is None:
+                continue
+            pages = []
+            for h in span:
+                p = store.take(h)
+                if p is None:       # unreadable spill entry mid-chain:
+                    break           # restore only the intact prefix
+                pages.append(p)
+            if len(pages) < len(span):
+                bm.abort_restore(blocks[len(pages):])
+                blocks, span = blocks[:len(pages)], span[:len(pages)]
+                self.stats.kv_tier_dropped_blocks = store.dropped_blocks
+            if not blocks:
+                continue
+            # claiming restore blocks can itself evict cold cached blocks:
+            # demote THEM before the scatter overwrites their pages
+            self._demote_evicted()
+            scatter_block_pages(self.kv_cache, blocks, pages, self._staging())
+            req.state = RequestState.RESTORING
+            self._restores[req.request_id] = (span, blocks, self.clock.monotonic())
+            self.stats.kv_restores += 1
+            self.stats.kv_restored_blocks += len(blocks)
+
+    def _commit_tier_restores(self) -> None:
+        """Publish last cycle's restored blocks as the card's prefix entries
+        and send their requests back to WAITING.  No wait is needed: any
+        step that reads the restored pages is dispatched after the copies,
+        on the same stream."""
+        if not self._restores:
+            return
+        now = self.clock.monotonic()
+        for rid, (span, blocks, t0) in self._restores.items():
+            self.block_manager.commit_restore(span, blocks)
+            req = self.requests.get(rid)
+            if req is not None and req.state == RequestState.RESTORING:
+                req.state = RequestState.WAITING
+            if len(self.stats.restore_latencies) < 512:
+                self.stats.restore_latencies.append(now - t0)
+        self._restores.clear()
+
     # ---- bookkeeping --------------------------------------------------
 
     def _emit_one(self, req: Request, tok: int,
@@ -1608,6 +1834,10 @@ class Engine:
           to the budget's power of two); prefill and chunk steps never run
           then, so none is warmed.
 
+        With the tiers on, the page copies' staging buffer is made too (a
+        round trip of block 0 onto itself), and host records for the host
+        tier's budget (at most ``PIN_RECORDS_MAX_BYTES``) are pinned.
+
         Without capture each executable runs once on padding rows, which
         write nothing.  An executable not warmed is made on first use."""
         sched = self.scheduler.cfg
@@ -1633,6 +1863,16 @@ class Engine:
         keys += [("chunk", C) for C in chunks]
         keys += [("mixed", -(-T // blk) * blk) for T in mixed_buckets or ()]
         self.graphs.warmup(keys)
+        if self._kv_tiers is not None:
+            # the tier page copies' staging, and a round's host records
+            # (a round trip of block 0 onto itself), so that the first
+            # eviction burst allocates no staging
+            st = self._staging()
+            blocks = [0] * st.rows
+            scatter_block_pages(self.kv_cache, blocks,
+                                gather_block_pages(self.kv_cache, blocks, st), st)
+            st.pin_records(min(self._kv_tiers.host_budget_bytes, PIN_RECORDS_MAX_BYTES)
+                           // st.record_bytes)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 

@@ -5,8 +5,8 @@ queries read the port unchanged.
 
 The card's machine has no ``prometheus_client``, so the port renders the
 text exposition format itself (``_Family``).  Of the ``tpuserve_*``
-families, guided decoding's three are served; those of the SLO
-controller, tenants, device profiler, KV tiers and the model pool wait
+families, guided decoding's and the tiered KV cache's are served; those
+of the SLO controller, tenants, device profiler and the model pool wait
 for those modules (ROADMAP.md A9).
 """
 
@@ -167,6 +167,39 @@ class ServerMetrics:
             "tpuserve_guided_fsm_windows",
             "Fused multi-step windows that carried grammar-FSM masks; zero under "
             "guided load means constraints are pinning decode to per-step dispatches")
+        # the tiered KV cache (runtime/kv_tiers.py), as the JAX server's:
+        # residency by tier ("hbm": freed-but-hashed blocks in the card's
+        # cached pool; "host": pages in host DRAM under the byte budget;
+        # "spill": files in the spill directory) and the demote / spill /
+        # drop / restore flow
+        self.kv_tier_blocks = family(
+            "tpuserve_kv_tier_blocks",
+            "Prefix-cache KV blocks resident per tier (exactly-one-tier invariant: a "
+            "chain hash resolves in hbm, host, OR spill)", "gauge",
+            ("model_name", "tier"))
+        self.kv_demoted = counter(
+            "tpuserve_kv_blocks_demoted",
+            "Prefix blocks demoted out of HBM into the host-DRAM tier instead of "
+            "destroyed on eviction (tiered KV cache; TPUSERVE_KV_TIERS=0 restores "
+            "destroy-on-evict)")
+        self.kv_spilled = counter(
+            "tpuserve_kv_blocks_spilled",
+            "Host-tier blocks cascaded to the PVC spill tier under host-byte-budget "
+            "pressure")
+        self.kv_tier_dropped = counter(
+            "tpuserve_kv_blocks_tier_dropped",
+            "Blocks that fell off the LAST tier (KV lost; the next reuse pays full "
+            "prefill) — rising fast means the spill tier is undersized for the reuse "
+            "window")
+        self.kv_restored = counter(
+            "tpuserve_kv_blocks_restored",
+            "Prefix blocks copied back host->HBM ahead of admission (each one is a "
+            "block of prefill compute a request skipped)")
+        self.kv_restore_latency = histogram(
+            "tpuserve_kv_restore_latency_seconds",
+            "Tier-restore begin->commit wall time (the async copy overlaps the current "
+            "dispatch; this is the admission hold, one engine cycle + copy tail)",
+            _ITL_BUCKETS)
 
     def observe_finish(self, reason: str, duration_s: float) -> None:
         self.request_success.labels(model_name=self.model_name,

@@ -2,8 +2,10 @@
 ``tpuserve/server/openai_api.py`` (stdlib HTTP, no web framework).
 
 Serves ``GET /v1/models``, ``/v1/models/{id}``, ``/metrics``, ``/healthz``
-and ``/readyz``; ``POST /v1/completions`` and ``/v1/chat/completions``,
-streamed (SSE) or not, and ``/tokenize`` / ``/detokenize``.
+(liveness, with the JAX server's cache-affinity fields: KV blocks by tier
+and the prefix digest, ``server/kv_digest.py``) and ``/readyz``; ``POST
+/v1/completions`` and ``/v1/chat/completions``, streamed (SSE) or not,
+and ``/tokenize`` / ``/detokenize``.
 
 Every sampling option of the JAX server is served: top_k/top_p/min_p, the
 penalties, ``logit_bias``, ``min_tokens``, ``logprobs``/``top_logprobs``
@@ -41,6 +43,8 @@ from urllib.parse import unquote
 from tpuserve_torch.models.tokenizer import default_chat_template
 from tpuserve_torch.runtime.request import SamplingParams
 from tpuserve_torch.runtime.slo import SLO_CLASSES
+from tpuserve_torch.server.kv_digest import (
+    AFFINITY_PREFIX_CHARS, PrefixDigestTracker, affinity_key)
 from tpuserve_torch.server.metrics import ServerMetrics
 from tpuserve_torch.server.runner import AsyncEngineRunner
 from tpuserve_torch.server.tool_calls import normalize_messages
@@ -239,6 +243,8 @@ class OpenAIServer:
         self.metrics = metrics or ServerMetrics(self.model_name)
         self.runner = AsyncEngineRunner(engine, self.metrics)
         self.engine = engine
+        # affinity keys of the prompts served, advertised on /healthz
+        self.kv_digest = PrefixDigestTracker()
         self.ready = threading.Event()
         self.draining = False          # drain(): reject new work, finish old
         # live POST handlers: drain() waits for delivery, not only for the
@@ -307,6 +313,29 @@ class OpenAIServer:
             self._httpd.shutdown()
             self._httpd.server_close()
         self.runner.shutdown()
+
+    def healthz_payload(self) -> dict:
+        """Liveness plus the cache-affinity advertisement, the JAX
+        ``_healthz_payload``'s fields: KV blocks by tier and the prefix
+        digest, whose window grows with the replica's cache reach across
+        the tiers.  Reads counts only (no block state the loop owns) and
+        never fails liveness on them."""
+        out: dict = {"status": "ok"}
+        try:
+            tiers = self.engine.kv_tier_blocks()
+            out["kv_tier_blocks"] = tiers
+            # reach is in blocks; a tracked key is a whole prompt prefix
+            # (several blocks), so the window approximates conversations
+            reach = self.engine.block_manager.num_blocks + tiers["host"] + tiers["spill"]
+            self.kv_digest.resize(max(4096, reach // 4))
+            out["kv_digest"] = self.kv_digest.digest_hex()
+            out["kv_digest_bits"] = self.kv_digest.bits
+            # the prefix length the keys were hashed with: a gateway probes
+            # membership with this server's value
+            out["kv_digest_chars"] = AFFINITY_PREFIX_CHARS
+        except Exception:
+            logger.exception("healthz telemetry")
+        return out
 
     # ---- request parsing (handler threads) -----------------------------
 
@@ -450,7 +479,7 @@ class _Handler(BaseHTTPRequestHandler):
             self.end_headers()
             self.wfile.write(data)
         elif self.path == "/healthz":
-            self._json(200, {"status": "ok"})
+            self._json(200, ctx.healthz_payload())
         elif self.path == "/readyz":
             if ctx.ready.is_set():
                 self._json(200, {"status": "ready"})
@@ -516,6 +545,9 @@ class _Handler(BaseHTTPRequestHandler):
         except (ValueError, NotImplementedError, json.JSONDecodeError) as e:
             self._error(400, str(e))
             return
+        # the affinity key is noted only once every validation passed: a
+        # 400 caches no KV and must not steer a gateway here
+        ctx.kv_digest.note(affinity_key(body))
         kwargs = ({"prompt_token_ids": prompt} if isinstance(prompt, list)
                   else {"prompt": prompt})
         try:
@@ -900,8 +932,6 @@ _UNPORTED_FLAGS = (
     ("--faults", dict(default=None), "A9, fault injection"),
     ("--tenant-config", dict(default=None), "A9, tenants"),
     ("--slo-objectives", dict(default=None), "A9, SLO burn rates"),
-    ("--kv-host-bytes", dict(type=int, default=0), "A6, the KV-tier data plane"),
-    ("--kv-spill-dir", dict(default=None), "A6, the KV-tier data plane"),
     ("--tool-call-parser", dict(default=None, choices=["hermes", "mistral", "llama3_json"]),
      "A5b, tool calls"),
     ("--step-watchdog-s", dict(type=float, default=0.0),
@@ -940,6 +970,16 @@ def build_parser():
     ap.add_argument("--min-multi-step", type=int, default=4)
     ap.add_argument("--kv-cache-dtype", default="bfloat16",
                     choices=["bfloat16", "float32", "int8"])
+    ap.add_argument("--no-kv-tiers", action="store_true",
+                    help="disable the tiered KV cache (HBM -> host-DRAM -> spill prefix "
+                         "offload; runtime/kv_tiers.py): evicted prefix blocks are "
+                         "destroyed instead of demoted (TPUSERVE_KV_TIERS=0 is the env twin)")
+    ap.add_argument("--kv-host-bytes", type=int, default=0,
+                    help="host-DRAM KV tier byte budget (0 = TPUSERVE_KV_HOST_BYTES or 1 GiB)")
+    ap.add_argument("--kv-spill-dir", default=None, metavar="DIR",
+                    help="spill directory for the third KV tier (default: "
+                         "TPUSERVE_KV_SPILL_DIR; unset = no spill tier, host overflow "
+                         "is dropped)")
     ap.add_argument("--pipeline", dest="pipeline", action="store_true", default=None,
                     help="force pipelined decode (default: on with a card)")
     ap.add_argument("--no-pipeline", dest="pipeline", action="store_false")
@@ -949,29 +989,19 @@ def build_parser():
     ap.add_argument("--drain-timeout", type=float, default=25.0,
                     help="graceful-drain budget on SIGTERM, seconds")
     # parts the port lacks: switching them off is what the port does already
-    for flag in ("--no-kv-tiers", "--no-slo-classes", "--no-slo-burn", "--no-devprof"):
+    for flag in ("--no-slo-classes", "--no-slo-burn", "--no-devprof"):
         ap.add_argument(flag, action="store_true", help="accepted; no effect in the port")
     for flag, kw, _item in _UNPORTED_FLAGS:
         ap.add_argument(flag, help="not ported yet", **kw)
     return ap
 
 
-def main(argv=None):
-    """``python -m tpuserve_torch.server``: build the engine, warm it,
-    serve until SIGTERM, then drain."""
-    from tpuserve_torch.runtime import CacheConfig, Engine, EngineConfig, SchedulerConfig
+def engine_config(args):
+    """The EngineConfig of parsed CLI ``args``, as the JAX server's
+    ``main`` builds it."""
+    from tpuserve_torch.runtime import CacheConfig, EngineConfig, SchedulerConfig
 
-    ap = build_parser()
-    args = ap.parse_args(argv)
-    for flag, kw, item in _UNPORTED_FLAGS:
-        if getattr(args, flag[2:].replace("-", "_")) != kw.get("default", False):
-            ap.error(f"{flag} is not ported yet (ROADMAP.md {item})")
-    logging.basicConfig(level=logging.INFO)
-    chat_template = None
-    if args.chat_template:
-        with open(args.chat_template) as f:
-            chat_template = f.read()
-    ecfg = EngineConfig(
+    return EngineConfig(
         model=args.model, checkpoint_dir=args.checkpoint_dir,
         cache=CacheConfig(block_size=args.block_size, num_blocks=args.num_blocks,
                           max_blocks_per_seq=args.max_blocks_per_seq,
@@ -983,7 +1013,27 @@ def main(argv=None):
             interleave_batched_prefill=args.interleave_batched_prefill),
         attn_impl=args.attn_impl, multi_step=args.multi_step,
         pipeline_decode=args.pipeline, adaptive_multi_step=not args.no_adaptive_window,
-        min_multi_step=args.min_multi_step)
+        min_multi_step=args.min_multi_step,
+        kv_tiers=False if args.no_kv_tiers else None,
+        kv_host_bytes=args.kv_host_bytes, kv_spill_dir=args.kv_spill_dir)
+
+
+def main(argv=None):
+    """``python -m tpuserve_torch.server``: build the engine, warm it,
+    serve until SIGTERM, then drain."""
+    from tpuserve_torch.runtime import Engine
+
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    for flag, kw, item in _UNPORTED_FLAGS:
+        if getattr(args, flag[2:].replace("-", "_")) != kw.get("default", False):
+            ap.error(f"{flag} is not ported yet (ROADMAP.md {item})")
+    logging.basicConfig(level=logging.INFO)
+    chat_template = None
+    if args.chat_template:
+        with open(args.chat_template) as f:
+            chat_template = f.read()
+    ecfg = engine_config(args)
     try:
         engine = Engine(ecfg, device=args.device)
     except RuntimeError as e:                    # no card, and no --device cpu

@@ -265,8 +265,19 @@ class AsyncEngineRunner:
         for metric, value in ((m.preemptions, stats.preemptions),
                               (m.guided_fallbacks, stats.guided_fallbacks),
                               (m.guided_fsm_requests, stats.guided_fsm_requests),
-                              (m.guided_fsm_windows, stats.guided_fsm_windows)):
+                              (m.guided_fsm_windows, stats.guided_fsm_windows),
+                              (m.kv_demoted, stats.kv_demoted_blocks),
+                              (m.kv_spilled, stats.kv_spilled_blocks),
+                              (m.kv_tier_dropped, stats.kv_tier_dropped_blocks),
+                              (m.kv_restored, stats.kv_restored_blocks)):
             _advance_counter(metric, value)
+        # the tier restores' begin -> commit times, drained on the loop
+        # thread that appended them
+        for v in stats.restore_latencies:
+            m.kv_restore_latency.observe(v)
+        stats.restore_latencies.clear()
+        for tier, n in self.engine.kv_tier_blocks().items():
+            m.kv_tier_blocks.labels(model_name=m.model_name, tier=tier).set(n)
 
     def _loop(self) -> None:
         logger.info("engine loop started")
