@@ -171,7 +171,53 @@ non-zero:
              engine after the same churn), each demote's stall and GB/s,
              the restore's host time, the copies alone (GB/s each way),
              blocks demoted, spilled, dropped and restored, host bytes.
-12. profile  where the time goes, under torch.profiler, after every
+12. slo      SLO classes and the brownout ladder, full width and depth,
+             greedy, ``TPUSERVE_STRICT_BLOCKS=1``: (a) a 256-token batch
+             stream on a max_num_seqs=1 engine, an interactive request
+             arriving once it holds 40 tokens: the interactive one finishes
+             first (a class preemption), the batch stream resumes by
+             re-prefill, launches equal to the layers times the steps; in
+             float32 (the main weights' seed drawn in float32, TF32 off)
+             its tokens equal an uninterrupted twin's, in bf16 up to the
+             preemption (after it, where a bf16 re-prefill rounds unlike
+             decode, the agreement is a reading); (b) an in-process server
+             (max_num_seqs 8, max_waiting 64, bf16) takes a burst of 96
+             streams of 512-token prompts and 128 tokens (64 batch, 24
+             standard, 8 interactive, in that order, 10 ms apart) while
+             /metrics is polled; after the drain one interactive request
+             at a time keeps the engine ticking.  Gates: every request
+             complete or 429 with Retry-After; no interactive 429; the
+             level above 0 in the burst and back at 0 within hold_s x 4 +
+             10 s of the drain; /healthz's brownout_level; 429s = the shed
+             counter = the engine's; the kernels' launches = the layers
+             times the steps; no block held.  Readings: TTFT p50/p99 and
+             429s per class, preemptions, seconds at each level.
+13. salvage  crash-only recovery on the CLI's engine (``--step-watchdog-s
+             2``; captured graphs, pipelined 32-token windows; prefix
+             caching off so runs repeat), full width and depth, greedy,
+             ``TPUSERVE_STRICT_BLOCKS=1``, in float32 and in bf16: (a) the
+             main path's 8 prompts, 128 tokens, and a request whose id holds
+             "poison" through the runner under
+             ``decode_dispatch:raise:1.0:match=poison``: the poison alone
+             fails, isolated by bisection; (b) a one-shot fault with a
+             pipelined window in flight, among the rows a guided
+             json_object row and a repetition_penalty row, at
+             ``decode_dispatch`` and at ``window_flush``: the guided output
+             legal, the dropped window's rows as planned; in bf16 the
+             re-prefill's next-token logits on the kernels within
+             LOGIT_DIFF_MAX of the plain attention's and of the twin's
+             decode step's; (c) through the runner, a clean run with no
+             watchdog trip, buckets met for the first time past the
+             watchdog's warmup (a guided row beside logprobs and penalty
+             rows: captured in the steps, no trip, no salvage), then a
+             one-shot ``decode_dispatch:hang:1.0:count=1``: one trip, the
+             hang released into salvage, no request failed.  Streams equal
+             the fault-free twin's in float32; in bf16 whole, and the
+             twin's up to the fault (after it a reading).  Readings:
+             recovery time (the fault to each survivor's next token),
+             tokens re-prefilled, salvaged, poisoned and trips, first-use
+             capture seconds.
+14. profile  where the time goes, under torch.profiler, after every
              counted run (a profiler run slows the launches that follow
              it): one prefill and one decode window of the main path, one
              steady pipelined window alone (the paged decode kernel must
@@ -203,7 +249,7 @@ import time
 import numpy as np
 
 PHASES = ("build", "kernels", "identity", "main", "graphs", "sampler", "guided", "chunked",
-          "mixed", "server", "tiers", "profile")
+          "mixed", "server", "tiers", "slo", "salvage", "profile")
 # Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA's data
 # sheet): bf16 tensor cores, float32 CUDA cores, HBM.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -2955,6 +3001,686 @@ def cli_serve(root, ckpt, model: str, prompt) -> dict:
 
 
 # --------------------------------------------------------------------------
+# slo and salvage phases
+
+# the overload burst: (class, requests), sent in this order
+SLO_BURST = (("batch", 64), ("standard", 24), ("interactive", 8))
+SLO_PROMPT, SLO_TOKENS = 512, 128
+SLO_GAP_S = 0.010                 # between the burst's sends
+# (a): the batch stream's and the interactive request's prompts, the batch
+# stream's tokens, and the tokens it holds when the interactive one arrives
+SLO_PREEMPT_LENGTHS, SLO_PREEMPT_TOKENS, SLO_PREEMPT_AT = [512, 256], 256, 40
+SALVAGE_TOKENS, SALVAGE_POISON_LENGTH = 128, 256
+# the salvage phase's caches: 9 streams of up to 1,152 tokens need 324
+SALVAGE_BLOCKS = 512
+
+
+def fp32_main():
+    """The main weights' seed drawn in float32 at full width and depth,
+    with TF32 off: the dtype in which a re-prefill reproduces decode's
+    tokens on the card (bf16 prefill and decode round differently, so a
+    re-prefilled bf16 stream drifts from its uninterrupted twin after some
+    tokens).  (params, config)."""
+    import torch
+    from tpuserve_torch.models.config import get_model_config
+    from tpuserve_torch.models.weights import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_model_config("Qwen/Qwen3-0.6B"), dtype="float32")
+    return init_params(cfg, SEED, "cuda"), cfg
+
+
+def first_diff(a: list, b: list):
+    """The first index where two token streams differ, None if equal."""
+    i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    return i if i is not None or len(a) == len(b) else min(len(a), len(b))
+
+
+def stat_marks(eng) -> tuple:
+    st = eng.stats
+    return (st.num_prefill_steps, st.num_chunk_steps, st.num_decode_steps, st.num_mixed_steps)
+
+
+def launches_since(eng, before: tuple) -> dict:
+    """Each kernel's launches the steps since ``before`` (``stat_marks``)
+    must have made: one a layer a batched prefill, decode token step,
+    chunk step and mixed step."""
+    d = [a - b for a, b in zip(stat_marks(eng), before)]
+    L = eng.model_cfg.num_layers
+    return {"flash_prefill": L * (d[0] - d[1] - d[3]), "paged_decode": L * d[2],
+            "paged_window": L * d[1], "ragged_paged": L * d[3]}
+
+
+def percentile(xs: list, q: float):
+    return float(np.percentile(xs, q)) if xs else None
+
+
+def slo_engine(params, cfg, num_blocks: int = 2048, **sched):
+    from tpuserve_torch.runtime import CacheConfig, Engine, EngineConfig, SchedulerConfig
+    dtype = cfg.dtype if cfg is not None else "bfloat16"
+    return Engine(EngineConfig(seed=SEED, cache=CacheConfig(num_blocks=num_blocks, dtype=dtype),
+                               scheduler=SchedulerConfig(**sched)),
+                  params=params, model_cfg=cfg)
+
+
+def slo_preempt(params, cfg, ps) -> dict:
+    """A batch stream of 256 tokens on a max_num_seqs=1 engine, an
+    interactive request arriving once it has 40: the interactive one must
+    finish first (a class preemption), and the batch stream resumes by
+    re-prefill; its tokens against a twin's uninterrupted run."""
+    from tpuserve_torch.runtime import SamplingParams
+    batch = SamplingParams(max_tokens=SLO_PREEMPT_TOKENS, temperature=0.0, ignore_eos=True,
+                           slo_class="batch")
+    vip = SamplingParams(max_tokens=32, temperature=0.0, ignore_eos=True,
+                         slo_class="interactive")
+    twin = slo_engine(params, cfg, num_blocks=256, max_num_seqs=1)
+    ref = twin.generate([ps[0]], batch)[0].output_token_ids
+    del twin
+    eng = slo_engine(params, cfg, num_blocks=256, max_num_seqs=1)
+    reset_launches()
+    marks = stat_marks(eng)
+    rb = eng.add_request(prompt_token_ids=ps[0], params=batch, request_id="batch-0")
+    while len(eng.requests[rb].output_token_ids) < SLO_PREEMPT_AT:
+        eng.step()
+    at = len(eng.requests[rb].output_token_ids)
+    ri = eng.add_request(prompt_token_ids=ps[1], params=vip, request_id="interactive-0")
+    order = []
+    t = time.perf_counter()
+    while eng.has_work():
+        order += [o.request_id for o in eng.step() if o.finished]
+    wall = time.perf_counter() - t
+    launches, want = read_launches(), launches_since(eng, marks)
+    got = eng.requests[rb].output_token_ids
+    fd = first_diff(got, ref)
+    out = {"dtype": eng.model_cfg.dtype, "preempted_at_tokens": at, "finish_order": order,
+           "slo_preemptions": eng.stats.slo_preemptions, "equal_to_twin": got == ref,
+           "first_diff": fd, "agree_share": sum(a == b for a, b in zip(got, ref)) / len(ref),
+           "vip_ms": 1e3 * (eng.requests[ri].finish_time - eng.requests[ri].arrival_time),
+           "wall_s": wall, "launches": launches, "launches_ok": launches == want,
+           "chunk_steps": eng.stats.num_chunk_steps}
+    out["ok"] = bool(order == [ri, rb] and eng.stats.slo_preemptions >= 1
+                     and len(got) == SLO_PREEMPT_TOKENS and launches == want
+                     and (got == ref if cfg is not None else fd is None or fd >= at)
+                     and eng.block_manager.num_seqs() == 0)
+    del eng
+    return out
+
+
+def slo_request(url: str, prompt: list, cls: str, tokens: int, out: list) -> None:
+    """One streamed completion of class ``cls``: its status, Retry-After,
+    TTFT on the host clock, tokens, and whether it ended in [DONE]."""
+    import http.client
+    from urllib.parse import urlparse
+    u = urlparse(url)
+    res = {"class": cls, "t_send": time.perf_counter(), "tokens": 0, "done": False,
+           "error_chunks": 0, "t_first": None}
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=600)
+    try:
+        conn.request("POST", "/v1/completions", body=json.dumps({
+            "prompt": prompt, "max_tokens": tokens, "temperature": 0, "ignore_eos": True,
+            "stream": True, "return_token_ids": True, "slo_class": cls}),
+            headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        res["status"], res["retry_after"] = r.status, r.getheader("Retry-After")
+        if r.status != 200:
+            body = r.read().decode()
+            res["error_type"] = (json.loads(body or "{}").get("error") or {}).get("type")
+        else:
+            for line in r:
+                line = line.decode().strip()
+                if line == "data: [DONE]":
+                    res["done"] = True
+                elif line.startswith("data: "):
+                    chunk = json.loads(line[len("data: "):])
+                    if "error" in chunk:
+                        res["error_chunks"] += 1
+                        continue
+                    n = sum(len(ch.get("token_ids", [])) for ch in chunk["choices"])
+                    if n and res["t_first"] is None:
+                        res["t_first"] = time.perf_counter()
+                    res["tokens"] += n
+    except Exception as e:                       # a client error is a failed request
+        res["exception"] = repr(e)
+    finally:
+        conn.close()
+    out.append(res)
+
+
+def brownout_level(url: str) -> int:
+    _, metrics = http(url + "/metrics")
+    for ln in metrics.splitlines():
+        if ln.startswith("tpuserve_brownout_level"):
+            return int(float(ln.rsplit(" ", 1)[1]))
+    raise RuntimeError("no tpuserve_brownout_level on /metrics")
+
+
+def metric_sum(metrics: str, name: str) -> float:
+    return sum(float(ln.rsplit(" ", 1)[1]) for ln in metrics.splitlines()
+               if ln.startswith(name + "{") or ln.startswith(name + " "))
+
+
+def slo_overload(params, V: int) -> dict:
+    """An in-process server (max_num_seqs 8, max_waiting 64) takes a burst
+    of 96 streams of 512-token prompts and 128 tokens, batch first, then
+    standard, then interactive, ``SLO_GAP_S`` apart, while a poller reads
+    the brownout level off /metrics; after the drain, one interactive
+    request at a time keeps the engine ticking until the level is back at
+    0 (ticks run only while the engine steps, as in the JAX engine)."""
+    import threading
+    from tpuserve_torch.runtime.slo import SloConfig
+    from tpuserve_torch.server import OpenAIServer, ServerConfig
+    eng = slo_engine(params, None, max_num_seqs=8, max_waiting=64)
+    eng.warmup(sample_modes=("greedy",), prefill_buckets=[(b, SLO_PROMPT) for b in (1, 2, 4, 8)])
+    srv = OpenAIServer(eng, ServerConfig(host="127.0.0.1", port=0))
+    url = f"http://127.0.0.1:{srv.start()}"
+    rng = np.random.default_rng(SEED + 20)
+    burst = [(cls, p) for cls, n in SLO_BURST for p in prompts(rng, [SLO_PROMPT] * n, V)]
+    levels, stop = [], threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            levels.append((time.perf_counter(), brownout_level(url)))
+            stop.wait(0.05)
+
+    results: list = []
+    hold = SloConfig().hold_s
+    try:
+        poller = threading.Thread(target=poll, daemon=True)
+        reset_launches()
+        marks = stat_marks(eng)
+        t0 = time.perf_counter()
+        poller.start()
+        threads = []
+        for cls, p in burst:
+            th = threading.Thread(target=slo_request, args=(url, p, cls, SLO_TOKENS, results),
+                                  daemon=True)
+            th.start()
+            threads.append(th)
+            time.sleep(SLO_GAP_S)
+        _, health = http(url + "/healthz")
+        for th in threads:
+            th.join(timeout=600)
+        t_drained = time.perf_counter()
+        launches, want = read_launches(), launches_since(eng, marks)
+        time.sleep(0.2)               # the idle loop's gauge update
+        _, metrics = http(url + "/metrics")
+        level_at_drain = brownout_level(url)
+        # the trickle: one interactive request at a time until level 0
+        trickle, back_s = [], None
+        deadline = t_drained + hold * 4 + 10
+        while time.perf_counter() < deadline:
+            if brownout_level(url) == 0:
+                back_s = time.perf_counter() - t_drained
+                break
+            slo_request(url, prompts(rng, [64], V)[0], "interactive", 16, trickle)
+        stop.set()
+        poller.join(timeout=10)
+    finally:
+        srv.shutdown()
+    t_end = time.perf_counter()
+    by_class: dict = {}
+    ok_terminal = True
+    for r in results:
+        c = by_class.setdefault(r["class"], {"sent": 0, "complete": 0, "shed_429": 0,
+                                             "other": 0, "ttft_ms": []})
+        c["sent"] += 1
+        if (r.get("status") == 200 and r["done"] and r["tokens"] == SLO_TOKENS
+                and not r["error_chunks"]):
+            c["complete"] += 1
+            c["ttft_ms"].append(1e3 * (r["t_first"] - r["t_send"]))
+        elif r.get("status") == 429 and r.get("retry_after") and r.get("error_type") == "overloaded":
+            c["shed_429"] += 1
+        else:
+            c["other"] += 1
+            ok_terminal = False
+    for c in by_class.values():
+        ttft = c.pop("ttft_ms")
+        c["ttft_p50_ms"], c["ttft_p99_ms"] = percentile(ttft, 50), percentile(ttft, 99)
+    n429 = sum(c["shed_429"] for c in by_class.values())
+    shed_metric = metric_sum(metrics, "tpuserve_requests_shed_total")
+    # seconds at each level: the poller's samples, each held to the next
+    at_level: dict = {}
+    for (t, lv), (t2, _) in zip(levels, levels[1:]):
+        at_level[lv] = at_level.get(lv, 0.0) + (t2 - t)
+    during = [lv for t, lv in levels if t <= t_drained]
+    trickle_ok = all(r.get("status") == 200 and r["done"] for r in trickle)
+    out = {"requests": len(results), "by_class": by_class, "shed_429": n429,
+           "shed_metric": shed_metric, "preempted_metric": metric_sum(
+               metrics, "tpuserve_requests_preempted_total"),
+           "slo_preemptions": eng.stats.slo_preemptions, "preemptions": eng.stats.preemptions,
+           "max_level": max(during, default=0), "level_at_drain": level_at_drain,
+           "seconds_at_level": {str(k): v for k, v in sorted(at_level.items())},
+           "back_to_0_s_after_drain": back_s, "back_to_0_limit_s": hold * 4 + 10,
+           "trickle_requests": len(trickle), "trickle_ok": trickle_ok,
+           "healthz_brownout_level": health.get("brownout_level"),
+           "burst_s": t_drained - t0, "phase_s": t_end - t0,
+           "launches": launches, "launches_ok": launches == want,
+           "blocks_left": eng.block_manager.num_seqs()}
+    out["ok"] = bool(
+        ok_terminal and len(results) == sum(n for _, n in SLO_BURST)
+        and by_class.get("interactive", {}).get("shed_429", 1) == 0
+        and by_class["interactive"]["complete"] == dict(SLO_BURST)["interactive"]
+        and out["max_level"] > 0 and back_s is not None and trickle_ok
+        and isinstance(health.get("brownout_level"), int)
+        and n429 == shed_metric == eng.stats.requests_shed
+        and launches == want and launches["flash_prefill"] > 0 and launches["paged_decode"] > 0
+        and eng.block_manager.num_seqs() == 0)
+    del srv, eng
+    return out
+
+
+def phase_slo(results) -> dict:
+    """SLO classes and the brownout ladder (the repair of ROADMAP F3) at
+    full width and depth, greedy, ``TPUSERVE_STRICT_BLOCKS=1``: (a) a
+    class preemption on a max_num_seqs=1 engine, in float32 (tokens equal
+    to the twin's: gated) and on the bf16 main weights (the twin's tokens
+    up to the preemption: gated; after it a reading); (b) the bf16 overload
+    burst through an in-process server."""
+    import gc
+    import os
+    import torch
+    params = results["main"]["params"]
+    V = results["main"]["engine"].model_cfg.vocab_size
+    ps = prompts(np.random.default_rng(SEED + 21), SLO_PREEMPT_LENGTHS, V)
+    prev = os.environ.get("TPUSERVE_STRICT_BLOCKS")
+    os.environ["TPUSERVE_STRICT_BLOCKS"] = "1"
+    try:
+        torch.cuda.empty_cache()
+        fp32_params, fp32_cfg = fp32_main()
+        pre32 = slo_preempt(fp32_params, fp32_cfg, ps)
+        del fp32_params
+        gc.collect()
+        torch.cuda.empty_cache()
+        pre16 = slo_preempt(params, None, ps)
+        overload = slo_overload(params, V)
+    finally:
+        if prev is None:
+            os.environ.pop("TPUSERVE_STRICT_BLOCKS", None)
+        else:
+            os.environ["TPUSERVE_STRICT_BLOCKS"] = prev
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"ok": pre32["ok"] and pre16["ok"] and overload["ok"],
+            "preempt_fp32": pre32, "preempt_bf16": pre16, "overload": overload,
+            "launches": overload["launches"]}
+
+
+def salvage_engine(params, cfg):
+    """The salvage phase's engine: the CLI's defaults (captured graphs,
+    32-token windows, pipelined), ``--step-watchdog-s 2``, prefix caching
+    off so a run repeats a twin's numerics exactly, warmed for the
+    buckets its streams and their re-prefills hit."""
+    from tpuserve_torch.runtime import Engine
+    from tpuserve_torch.server.openai_api import build_parser, engine_config
+    ecfg = engine_config(build_parser().parse_args(
+        ["--num-blocks", str(SALVAGE_BLOCKS), "--step-watchdog-s", "2",
+         "--kv-cache-dtype", cfg.dtype if cfg is not None else "bfloat16"]))
+    ecfg = dataclasses.replace(ecfg, seed=SEED, enable_prefix_caching=False)
+    eng = Engine(ecfg, params=params, model_cfg=cfg)
+    eng.warmup(sample_modes=("greedy", "penalties"),
+               prefill_buckets=[(b, L) for b in (1, 2, 4, 8) for L in (1024, 2048)
+                                if b == 1 or (b // 2 + 1) * L <= eng.scheduler.cfg.max_prefill_tokens])
+    return eng
+
+
+def timed_streams(runner, subs) -> dict:
+    """Read every submit's queue on its own thread: {rid: (tokens, token
+    arrival times, error or None)}."""
+    import threading
+    got: dict = {}
+
+    def read(rid, q):
+        toks, times, err = [], [], None
+        while (item := q.get(timeout=600)) is not None:
+            if isinstance(item, Exception):
+                err = item
+                continue
+            toks += item.new_token_ids
+            times += [time.perf_counter()] * len(item.new_token_ids)
+        got[rid] = (toks, times, err)
+        runner.engine.requests.pop(rid, None)
+
+    threads = [threading.Thread(target=read, args=s, daemon=True) for s in subs]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    return got
+
+
+def salvage_watch(eng) -> dict:
+    """Record each rule's fire (its time and every request's tokens then)
+    and the tokens each salvage re-queues for re-prefill (on the loop
+    thread)."""
+    rec = {"fires": [], "reprefill_tokens": 0, "salvages": 0}
+    eng.faults.on_fire = lambda site, mode, rids: rec["fires"].append((time.perf_counter(), {
+        rid: len(r.output_token_ids) for rid, r in list(eng.requests.items())}))
+    orig = eng.salvage_requeue
+
+    def salvage():
+        rids = orig()
+        rec["salvages"] += 1
+        rec["reprefill_tokens"] += sum(eng.requests[r].num_tokens for r in rids)
+        return rids
+    eng.salvage_requeue = salvage
+    return rec
+
+
+def recovery_s(got: dict, rids, fire: tuple) -> list:
+    """Seconds from a fire (``salvage_watch``) to each stream's next token
+    (the first past the tokens it held then, as its reader received it)."""
+    t, held = fire
+    return [got[r][1][held.get(r, 0)] - t for r in rids if len(got[r][1]) > held.get(r, 0)]
+
+
+def token_gate(exact: bool, toks: list, ref: list, before: int) -> bool:
+    """float32: the twin's tokens; bf16: the twin's up to ``before`` (the
+    tokens emitted before the fault), the whole stream delivered."""
+    return toks == ref if exact else (len(toks) == len(ref) and toks[:before] == ref[:before])
+
+
+def reprefill_logits(eng, seqs: list, follow: list) -> dict:
+    """The bf16 witness of a re-prefill on the main path's kernels: each
+    row of ``seqs`` is a prompt plus the tokens it held at a fault (what
+    the re-prefill runs), and its next-token logits come three ways at
+    the engine's weights: the re-prefill on the kernels (flash prefill
+    over the whole row in the engine's padded bucket), the same on the
+    plain attention, and the twin's decode step on the kernels (a prefill
+    of all but the last token, then a paged decode step of it).  The
+    kernel re-prefill is held to both at ``LOGIT_DIFF_MAX``; top-1
+    agreement, and whether it picks ``follow`` (the token the twin went
+    on with, where a greedy row's argmax is the token; else None), are
+    read."""
+    import torch
+    from tpuserve_torch.models import transformer
+    from tpuserve_torch.ops.attention import PAD_SLOT
+    from tpuserve_torch.runtime.kv_cache import CacheConfig, create_kv_cache
+    params, cfg = eng.params, eng.model_cfg
+    B, page = len(seqs), CacheConfig.block_size
+    lens = [len(q) for q in seqs]
+    T = 1 << (max(lens) - 1).bit_length()
+    pages = T // page
+    bt = torch.arange(B * pages, dtype=torch.int32, device="cuda").reshape(B, pages)
+    dev = lambda v: torch.tensor(v, dtype=torch.int32, device="cuda")
+
+    def prefill(n: list, impl: str):
+        cache = create_kv_cache(cfg, CacheConfig(num_blocks=B * pages, max_blocks_per_seq=pages),
+                                "cuda")
+        tokens = torch.zeros(B, T, dtype=torch.int32, device="cuda")
+        slots = torch.full((B, T), PAD_SLOT, dtype=torch.int32, device="cuda")
+        for i, (q, k) in enumerate(zip(seqs, n)):
+            tokens[i, :k] = dev(q[:k])
+            pos = torch.arange(k, device="cuda")
+            slots[i, :k] = (bt[i, pos // page] * page + pos % page).to(torch.int32)
+        lg, _ = transformer.prefill(params, cfg, tokens, dev(n), slots, cache, attn_impl=impl)
+        return lg, cache
+
+    logits = {impl: prefill(lens, impl)[0] for impl in ("cuda", "reference")}
+    _, cache = prefill([k - 1 for k in lens], "cuda")
+    pos = dev([k - 1 for k in lens]).long()
+    slot = (bt[torch.arange(B, device="cuda"), pos // page] * page + pos % page).to(torch.int32)
+    logits["decode"], _ = transformer.decode_step(
+        params, cfg, dev([q[k - 1] for q, k in zip(seqs, lens)]), pos.to(torch.int32), slot,
+        bt, dev(lens), cache, attn_impl="cuda")
+    del cache
+    kern, top = logits["cuda"], logits["cuda"].argmax(-1)
+    out = {"rows": B, "lengths": lens, "bucket": T}
+    for other in ("reference", "decode"):
+        out[f"max_logit_diff_{other}"] = (kern - logits[other]).abs().max().item()
+        out[f"top1_agreement_{other}"] = (top == logits[other].argmax(-1)).float().mean().item()
+    out["next_token_equal"] = [None if f is None else int(t) == f
+                               for t, f in zip(top.tolist(), follow)]
+    out["logit_diff_max_allowed"] = LOGIT_DIFF_MAX
+    out["ok"] = bool(torch.isfinite(kern).all()
+                     and out["max_logit_diff_reference"] <= LOGIT_DIFF_MAX
+                     and out["max_logit_diff_decode"] <= LOGIT_DIFF_MAX)
+    return out
+
+
+def salvage_poison(eng, exact: bool, ps, poison) -> dict:
+    """(a) Eight greedy streams of the main path and one request whose id
+    holds "poison", through the runner, under
+    ``decode_dispatch:raise:1.0:match=poison``: the poison alone fails,
+    isolated by bisection; the eight against the twin's tokens."""
+    from tpuserve_torch.runtime import SamplingParams
+    from tpuserve_torch.runtime.faults import FaultInjector
+    from tpuserve_torch.server.runner import AsyncEngineRunner
+    sp = SamplingParams(max_tokens=SALVAGE_TOKENS, temperature=0.0, ignore_eos=True)
+    twin = [r.output_token_ids for r in eng.generate(ps, sp)]
+    eng.faults = FaultInjector.from_spec("decode_dispatch:raise:1.0:match=poison")
+    rec = salvage_watch(eng)
+    s0 = dataclasses.replace(eng.stats)
+    runner = AsyncEngineRunner(eng)
+    runner.step_watchdog_s = 0.0               # (c) times the watchdog
+    runner.start()
+    try:
+        subs = [runner.submit(prompt_token_ids=p, params=sp, request_id=f"stream-{i}")
+                for i, p in enumerate(ps)]
+        subs.append(runner.submit(prompt_token_ids=poison, params=sp, request_id="poison-0"))
+        got = timed_streams(runner, subs)
+    finally:
+        runner.shutdown()
+        del eng.salvage_requeue
+        eng.faults = FaultInjector.from_spec(None)
+    rids = [s[0] for s in subs[:-1]]
+    err = got["poison-0"][2]
+    streams = [got[r][0] for r in rids]
+    st = eng.stats
+    rec_s = recovery_s(got, rids, rec["fires"][0]) if rec["fires"] else []
+    out = {"faults": len(rec["fires"]), "salvages": rec["salvages"],
+           "reprefill_tokens": rec["reprefill_tokens"],
+           "salvaged": st.requests_salvaged - s0.requests_salvaged,
+           "poisoned": st.requests_poisoned - s0.requests_poisoned,
+           "poison_error": str(err)[:120] if err else None,
+           "survivor_errors": sum(got[r][2] is not None for r in rids),
+           "equal_to_twin": streams == twin,
+           "first_diff": [first_diff(s, t) for s, t in zip(streams, twin)],
+           "recovery_s_min": min(rec_s, default=None), "recovery_s_max": max(rec_s, default=None)}
+    out["ok"] = bool(err is not None and "poison" in str(err) and out["survivor_errors"] == 0
+                     and out["poisoned"] == 1 and out["salvaged"] > 0
+                     # bf16: the twin prefills 8 prompts, this run 9 (another
+                     # batch shape), so only whole streams are gated there
+                     and all(token_gate(exact, s, t, 0) for s, t in zip(streams, twin))
+                     and eng.block_manager.num_seqs() == 0)
+    return out
+
+
+def salvage_in_flight(eng, exact: bool, ps, site: str) -> dict:
+    """(b) A one-shot fault while a pipelined window is in flight, driven
+    step by step, among eight rows a guided json_object row and a
+    repetition-penalty row.  A live penalty row makes each dispatch read
+    the window first, so at ``decode_dispatch`` the fault is armed once
+    it finished (a quarter of the tokens) and meets an unread window; at
+    ``window_flush`` it lands on the window holding both rows, armed once
+    every row holds an eighth of its tokens.  Every row
+    against the twin's tokens; the guided output legal."""
+    from tpuserve_torch.runtime import SamplingParams
+    from tpuserve_torch.runtime.faults import FaultInjector, InjectedFault
+    pen_tokens = SALVAGE_TOKENS // 4 if site == "decode_dispatch" else SALVAGE_TOKENS
+    base = dict(temperature=0.0, ignore_eos=True)
+    plist = ([SamplingParams(max_tokens=SALVAGE_TOKENS, **base)] * 6
+             + [SamplingParams(max_tokens=SALVAGE_TOKENS, guided="json", **base),
+                SamplingParams(max_tokens=pen_tokens, repetition_penalty=1.3, **base)])
+
+    def run(inject: bool):
+        rids = [eng.add_request(prompt_token_ids=p, params=sp) for p, sp in zip(ps, plist)]
+        reqs = [eng.requests[r] for r in rids]
+        rec = salvage_watch(eng) if inject else None
+        armed, faults, at, in_window = False, 0, None, None
+        t_fault = t_next = None
+        while eng.has_work():
+            pw = eng._pending_window
+            if (inject and not armed and pw is not None
+                    and (reqs[7].finished if site == "decode_dispatch"
+                         else min(len(r.output_token_ids) for r in reqs) >= pen_tokens // 8)):
+                eng.faults = FaultInjector.from_spec(f"{site}:raise:1.0:count=1")
+                armed, at = True, [len(r.output_token_ids) for r in reqs]
+                in_window = [i for i, r in enumerate(reqs) if r in pw.reqs and not r.finished]
+            try:
+                outs = eng.step()
+                if t_fault is not None and t_next is None and outs:
+                    t_next = time.perf_counter()
+            except InjectedFault:
+                faults += 1
+                t_fault = time.perf_counter()
+                eng.salvage_requeue()
+        if inject:
+            del eng.salvage_requeue
+            eng.faults = FaultInjector.from_spec(None)
+        res = [eng.requests.pop(r) for r in rids]
+        extra = {"faults": faults, "tokens_at_fault": at, "rows_in_dropped_window": in_window,
+                 "reprefill_tokens": rec["reprefill_tokens"] if rec else None,
+                 "recovery_s": (t_next - t_fault) if t_next and t_fault else None} if inject else {}
+        return res, extra
+
+    twin, _ = run(False)
+    got, extra = run(True)
+    gtext, greason = got[6].output_text, got[6].finish_reason.value
+    legal = guided_valid("json", None, gtext, greason == "stop")
+    streams, ref = [r.output_token_ids for r in got], [r.output_token_ids for r in twin]
+    at = extra["tokens_at_fault"]
+    out = {"site": site, **extra, "equal_to_twin": streams == ref,
+           "first_diff": [first_diff(s, t) for s, t in zip(streams, ref)],
+           "guided_legal": legal, "guided_finish": greason,
+           "guided_fsm_windows": eng.stats.guided_fsm_windows}
+    rows = extra["rows_in_dropped_window"] or []
+    if not exact:
+        # the twin's tokens up to the fault (gated equal), and the one the
+        # twin went on with where the row is plain greedy (rows 0-5)
+        out["reprefill_witness"] = reprefill_logits(
+            eng, [list(p) + t[:a] for p, t, a in zip(ps, ref, at)],
+            [t[a] if i < 6 and a < len(t) else None for i, (t, a) in enumerate(zip(ref, at))])
+    # the guided row always rides the dropped window; the penalty row only
+    # at window_flush (at decode_dispatch it finished before the fault)
+    out["ok"] = bool(extra["faults"] == 1 and legal and eng.block_manager.num_seqs() == 0
+                     and 6 in rows and (7 in rows) == (site == "window_flush")
+                     and all(token_gate(exact, s, t, a) for s, t, a in zip(streams, ref, at))
+                     and eng._pending_window is None
+                     and out.get("reprefill_witness", {"ok": True})["ok"])
+    return out
+
+
+def salvage_hang(eng, exact: bool, ps) -> dict:
+    """(c) Through the runner with the engine's ``--step-watchdog-s 2``:
+    a clean run of the eight streams (no trip; enough steps to leave the
+    watchdog's warmup); then, past the warmup, buckets the engine meets
+    for the first time (a guided choice row beside rows with logprobs and
+    a repetition penalty, whose graphs are captured inside the steps: no
+    trip and no salvage, the capture seconds read); then the eight
+    streams under a one-shot ``decode_dispatch:hang:1.0:count=1``: one
+    trip, the hang released into salvage, every stream against the clean
+    run's tokens."""
+    import json
+    from tpuserve_torch.runtime import SamplingParams
+    from tpuserve_torch.runtime.faults import FaultInjector
+    from tpuserve_torch.server.runner import AsyncEngineRunner
+    sp = SamplingParams(max_tokens=SALVAGE_TOKENS, temperature=0.0, ignore_eos=True)
+    runner = AsyncEngineRunner(eng)
+    runner.start()
+    try:
+        clean = {}
+        while runner._steps_done < runner.WATCHDOG_WARMUP_STEPS or not clean:
+            subs = [runner.submit(prompt_token_ids=p, params=sp) for p in ps]
+            got = timed_streams(runner, subs)
+            clean = {i: got[s[0]][0] for i, s in enumerate(subs)}
+        trips_clean = eng.stats.watchdog_trips
+        graphs = eng.graphs
+        known, c0, sv0 = set(graphs.executables), graphs.capture_s, eng.stats.requests_salvaged
+        fresh = [SamplingParams(max_tokens=16, temperature=0.0, guided="choice",
+                                guided_schema=json.dumps(["alpha", "beta", "gamma"]))]
+        fresh += [SamplingParams(max_tokens=16, temperature=0.0, ignore_eos=True, logprobs=5,
+                                 repetition_penalty=1.3)] * (len(ps) - 1)
+        first = timed_streams(runner, [runner.submit(prompt_token_ids=p, params=f)
+                                       for p, f in zip(ps, fresh)])
+        new = [k for k in graphs.executables if k not in known]
+        first_use = {"steps_before": runner.WATCHDOG_WARMUP_STEPS, "new_graphs": len(new),
+                     "capture_s": graphs.capture_s - c0,
+                     "capture_s_max": max((graphs.executables[k].capture_s for k in new),
+                                          default=None),
+                     "errors": sum(v[2] is not None for v in first.values()),
+                     "salvaged": eng.stats.requests_salvaged - sv0,
+                     "trips": eng.stats.watchdog_trips - trips_clean}
+        trips0 = eng.stats.watchdog_trips
+        eng.faults = FaultInjector.from_spec("decode_dispatch:hang:1.0:count=1")
+        rec = salvage_watch(eng)
+        subs = [runner.submit(prompt_token_ids=p, params=sp) for p in ps]
+        t0 = time.perf_counter()
+        got = timed_streams(runner, subs)
+        wall = time.perf_counter() - t0
+    finally:
+        runner.shutdown()
+        eng.__dict__.pop("salvage_requeue", None)
+        eng.faults = FaultInjector.from_spec(None)
+    streams = [got[s[0]][0] for s in subs]
+    ref = [clean[i] for i in range(len(ps))]
+    errors = sum(got[s[0]][2] is not None for s in subs)
+    rec_s = recovery_s(got, [s[0] for s in subs], rec["fires"][0]) if rec["fires"] else []
+    out = {"watchdog_s": runner.step_watchdog_s, "clean_trips": trips_clean,
+           "first_use": first_use,
+           "trips": eng.stats.watchdog_trips - trips0, "errors": errors,
+           "salvages": rec["salvages"], "reprefill_tokens": rec["reprefill_tokens"],
+           "equal_to_clean": streams == ref,
+           "first_diff": [first_diff(s, t) for s, t in zip(streams, ref)],
+           "hang_to_next_token_s_min": min(rec_s, default=None),
+           "hang_to_next_token_s_max": max(rec_s, default=None), "wall_s": wall}
+    out["ok"] = bool(trips0 == 0 and out["trips"] == 1 and errors == 0 and rec["salvages"] >= 1
+                     and first_use["new_graphs"] > 0 and first_use["errors"] == 0
+                     and first_use["salvaged"] == 0
+                     and all(token_gate(exact, s, t, 1) for s, t in zip(streams, ref))
+                     and eng.block_manager.num_seqs() == 0)
+    return out
+
+
+def phase_salvage(results) -> dict:
+    """Crash-only salvage at full width and depth, greedy, on the CLI's
+    engine (``--step-watchdog-s 2``; pipelined 32-token windows, captured
+    graphs; prefix caching off so runs repeat), under
+    ``TPUSERVE_STRICT_BLOCKS=1``: (a) poison, (b) a fault with a window in
+    flight at ``decode_dispatch`` and at ``window_flush``, (c) a released
+    hang.  Each on the float32 draw of the main weights (tokens equal to
+    the twin's: gated) and on the bf16 main weights (delivered tokens and
+    terminal states gated; agreement after the fault a reading)."""
+    import gc
+    import os
+    import torch
+    params = results["main"]["params"]
+    V = results["main"]["engine"].model_cfg.vocab_size
+    rng = np.random.default_rng(SEED + 3)
+    ps = prompts(rng, MAIN_LENGTHS, V)
+    poison = prompts(np.random.default_rng(SEED + 22), [SALVAGE_POISON_LENGTH], V)[0]
+    prev = os.environ.get("TPUSERVE_STRICT_BLOCKS")
+    os.environ["TPUSERVE_STRICT_BLOCKS"] = "1"
+    out = {}
+    try:
+        for name in ("fp32", "bf16"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            if name == "fp32":
+                p, cfg = fp32_main()
+            else:
+                p, cfg = params, None
+            t = time.perf_counter()
+            eng = salvage_engine(p, cfg)
+            res = {"warmup_s": time.perf_counter() - t}
+            exact = name == "fp32"
+            res["poison"] = salvage_poison(eng, exact, ps, poison)
+            for site in ("decode_dispatch", "window_flush"):
+                res[f"in_flight_{site}"] = salvage_in_flight(eng, exact, ps, site)
+            res["hang"] = salvage_hang(eng, exact, ps)
+            res["ok"] = all(v["ok"] for v in res.values() if isinstance(v, dict))
+            out[name] = res
+            del eng, p
+    finally:
+        if prev is None:
+            os.environ.pop("TPUSERVE_STRICT_BLOCKS", None)
+        else:
+            os.environ["TPUSERVE_STRICT_BLOCKS"] = prev
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"ok": out["fp32"]["ok"] and out["bf16"]["ok"], **out}
+
+
+# --------------------------------------------------------------------------
 
 KERNELS = {
     "flash_prefill": dict(source="tpuserve_torch/csrc/flash_prefill.cu",
@@ -3029,6 +3755,10 @@ def main() -> int:
             res = phase_server(results)
         elif phase == "tiers":
             res = phase_tiers(results)
+        elif phase == "slo":
+            res = phase_slo(results)
+        elif phase == "salvage":
+            res = phase_salvage(results)
         elif phase == "profile":
             res = phase_profile(results)
         else:

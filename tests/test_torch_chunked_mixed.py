@@ -115,7 +115,9 @@ def test_long_prompts_chunk_and_match_jax_engine(model, prefix):
 
 
 def test_chunk_scheduling_counts(model):
-    """20 tokens at chunk 8: three chunk steps, the first token on the last."""
+    """20 tokens at chunk 8: three chunk steps, the first token on the last;
+    the chunks count 20 real of 24 padded tokens, and the decode step that
+    follows its one row of its bucket's."""
     eng = _port(model, prefill_chunk_size=8)
     eng.add_request(prompt_token_ids=list(range(1, 21)),
                     params=SamplingParams(max_tokens=2, temperature=0.0, ignore_eos=True))
@@ -124,10 +126,13 @@ def test_chunk_scheduling_counts(model):
     outs = eng.step()
     assert len(outs) == 1 and outs[0].new_token_ids and outs[0].from_prefill
     assert eng.stats.ttft_count == 1
+    assert eng.stats.actual_tokens_total == 20 and eng.stats.padded_tokens_total == 24
     while eng.has_work():
         eng.step()
     assert eng.block_manager.num_seqs() == 0
-    assert eng.stats.actual_tokens_total == 20 and eng.stats.padded_tokens_total == 24
+    B = eng.scheduler.decode_bucket(1)
+    assert eng.stats.actual_tokens_total == 21 and eng.stats.padded_tokens_total == 24 + B
+    assert (eng.stats.step_actual_tokens, eng.stats.step_padded_tokens) == (1, B)
 
 
 def test_prefix_cache_compute_skip_matches_jax(model):

@@ -358,6 +358,10 @@ SCENARIOS = {
                           guided_schema=json.dumps(["是", "否"])),
                      dict(max_tokens=40, temperature=0.0, guided="json_schema",
                           guided_schema=json.dumps(INT_SCHEMA)), _guided("choice")],
+    # a guided row beside rows with logprobs and penalties: one window
+    # carries the mask, the logprobs and the penalties
+    "logprobs_beside": [_guided("json"), dict(PLAIN, logprobs=3),
+                        dict(PLAIN, logprobs=2, repetition_penalty=1.3)],
     # every spec on the substitution path
     "no_fsm": [_guided("json", max_tokens=16), _guided("regex", max_tokens=16), PLAIN],
 }
@@ -426,11 +430,17 @@ def test_greedy_guided_streams_match_jax_engine(model, jax_runs, name, path):
     for o, r in zip(ours, ref):
         assert (o.output_token_ids, o.output_text, o.finish_reason.value) == (
             r.output_token_ids, r.output_text, r.finish_reason.value)
+        assert len(o.logprobs) == len(r.logprobs)
+        for a, b in zip(o.logprobs, r.logprobs):
+            assert a["token_id"] == b["token_id"] and abs(a["logprob"] - b["logprob"]) <= 1e-4
+            assert [t for t, _ in a["top"]] == [t for t, _ in b["top"]]
     _check_valid(name, ours)
     st = eng.stats
-    fsm_rows = {"uncompilable": 1, "no_fsm": 0, "mixed_batch": 2, "two_grammars": 2}.get(name, 3)
+    fsm_rows = {"uncompilable": 1, "no_fsm": 0, "mixed_batch": 2, "two_grammars": 2,
+                "logprobs_beside": 1}.get(name, 3)
     assert st.guided_fsm_requests == fsm_rows
-    if path == "windows" and name in ("json", "json_schema", "regex", "choice", "mixed_batch"):
+    if path == "windows" and name in ("json", "json_schema", "regex", "choice", "mixed_batch",
+                                      "logprobs_beside"):
         assert st.guided_fsm_windows > 0            # guided rows rode windows
     if path == "single" or name in ("no_fsm",):
         assert st.guided_fsm_windows == 0

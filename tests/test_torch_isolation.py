@@ -95,6 +95,22 @@ def test_tier_modules_load_no_jax_and_no_ml_dtypes():
         assert "ml_dtypes" not in {m.split(".")[0] for m in _imported_modules(path)}
 
 
+def test_slo_fault_and_runner_modules_load_no_jax():
+    """The SLO controller, the fault injector and the runner (salvage,
+    bisection, watchdog) are the port's own copies: importing them loads
+    no jax and no tpuserve module."""
+    res = _run("import sys, tpuserve_torch.runtime.slo, tpuserve_torch.runtime.faults, "
+               "tpuserve_torch.server.runner\n"
+               "bad = [m for m in sys.modules if m.split('.')[0] in "
+               "('jax', 'jaxlib', 'tpuserve')]\n"
+               "assert not bad, bad\n"
+               "print('clean')")
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "clean"
+    for rel in ("runtime/slo.py", "runtime/faults.py", "server/runner.py"):
+        assert ROOT / "tpuserve_torch" / rel in PORT_FILES
+
+
 def test_engine_without_device_raises_when_there_is_no_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")

@@ -87,8 +87,8 @@ def _jax_engine(weights):
     jcfg, jparams, _, _ = weights
     return jax_rt.Engine(jax_rt.EngineConfig(
         model="tiny-qwen3", cache=jax_rt.CacheConfig(**CACHE),
-        scheduler=jax_rt.SchedulerConfig(**SCHED), attn_impl="reference", multi_step=1,
-        kv_tiers=False, slo_classes=False), params=jparams, model_cfg=jcfg)
+        scheduler=jax_rt.SchedulerConfig(**SCHED), attn_impl="reference", multi_step=1),
+        params=jparams, model_cfg=jcfg)
 
 
 def _jax_server(engine):
@@ -600,7 +600,11 @@ def test_mixed_batching_serves_concurrent_streams(servers, weights):
 
 
 def test_a_failing_step_fails_its_requests_and_the_server_goes_on(weights):
+    """With a salvage budget of 0 (``max_salvages``), the first faulted step
+    fails the requests it carried, as the JAX runner does once salvage
+    gives up (tests/test_torch_salvage.py holds the salvage itself)."""
     srv = OpenAIServer(_port_engine(weights), ServerConfig(host="127.0.0.1", port=0))
+    srv.runner.max_salvages = 0
     url = f"http://127.0.0.1:{srv.start()}"
     real = srv.engine.step
     calls = {"n": 0}
@@ -629,7 +633,7 @@ def test_a_failing_step_fails_its_requests_and_the_server_goes_on(weights):
 
 def test_cli_rejects_unported_flags_naming_their_item(capsys):
     for argv, item in ((["--tp", "2"], "A10"), (["--quantization", "int8"], "A8"),
-                       (["--speculative-k", "4"], "A7"), (["--faults", "x"], "A9"),
+                       (["--speculative-k", "4"], "A7"), (["--tenant-config", "x"], "A9"),
                        (["--tool-call-parser", "hermes"], "A5b")):
         with pytest.raises(SystemExit) as ei:
             main(argv)

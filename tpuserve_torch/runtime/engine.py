@@ -87,6 +87,7 @@ from tpuserve_torch.runtime.guided import (
 from tpuserve_torch.runtime.guided_choice import ChoiceStateMachine, compile_choices
 from tpuserve_torch.runtime.guided_regex import RegexStateMachine, compile_regex
 from tpuserve_torch.runtime.clock import MONOTONIC
+from tpuserve_torch.runtime.faults import FaultInjector
 from tpuserve_torch.runtime.kv_cache import (
     CacheConfig, PageStaging, create_kv_cache, gather_block_pages, num_blocks_for_budget,
     scatter_block_pages)
@@ -94,7 +95,7 @@ from tpuserve_torch.runtime.kv_tiers import TieredPageStore
 from tpuserve_torch.runtime.request import (
     FinishReason, Request, RequestOutput, RequestState, SamplingParams, check_stop)
 from tpuserve_torch.runtime.scheduler import ScheduledBatch, Scheduler, SchedulerConfig
-from tpuserve_torch.runtime.slo import class_rank
+from tpuserve_torch.runtime.slo import ShedError, SloConfig, SloController, class_rank
 from tpuserve_torch.utils import env_flag, next_power_of_2
 
 logger = logging.getLogger("tpuserve_torch.engine")
@@ -167,6 +168,24 @@ class EngineConfig:
     # spill directory (third tier); None = TPUSERVE_KV_SPILL_DIR (unset: no
     # spill tier, the host budget's overflow is dropped)
     kv_spill_dir: Optional[str] = None
+    # SLO class scheduling and overload robustness (runtime/slo.py), as the
+    # JAX engine's: classes (interactive/standard/batch) order admission,
+    # reserve prefill/mixed budget for strict classes, preempt batch rows
+    # for interactive arrivals (a token-identical re-prefill), and walk a
+    # hysteretic brownout ladder (batch max_tokens cap, then shed with 429)
+    # under sustained overload.  None = TPUSERVE_SLO_CLASSES (default on;
+    # 0 restores classless FIFO).
+    slo_classes: Optional[bool] = None
+    # the ladder's and the estimator's knobs; None = SloConfig() defaults
+    slo: Optional[SloConfig] = None
+    # Deterministic fault injection (runtime/faults.py): a spec such as
+    # "decode_dispatch:raise:0.02" arms the injection sites before each
+    # dispatch.  None = TPUSERVE_FAULTS; empty or unset = disabled.
+    faults: Optional[str] = None
+    # Hang watchdog (server/runner.py): a step that blocks longer than this
+    # is declared stuck and salvaged as a step that raised (scaled up for
+    # the first steps).  0 disables.
+    step_watchdog_s: float = 0.0
     # JAX engine options not ported yet: any value but None raises
     quantization: Optional[str] = None
     lora_dir: Optional[str] = None
@@ -231,6 +250,24 @@ class EngineStats:
     kv_restored_blocks: int = 0
     kv_restores: int = 0
     restore_latencies: list = dataclasses.field(default_factory=list)
+    # the last dispatch's real and padded token counts (a replayed decode
+    # bucket's padded tokens are its rows times the window's steps)
+    step_actual_tokens: int = 0
+    step_padded_tokens: int = 0
+    # crash-only recovery (server/runner.py): requests re-queued through
+    # the re-prefill path after a faulted or stuck step; requests isolated
+    # as poison (or out of salvage budget) and failed alone; watchdog
+    # trips; whole-engine fail-all fallbacks
+    requests_salvaged: int = 0
+    requests_poisoned: int = 0
+    watchdog_trips: int = 0
+    engine_restarts: int = 0
+    # overload (runtime/slo.py): requests shed at intake or evicted from a
+    # full queue (429 + Retry-After); batch rows preempted for stricter
+    # arrivals (also in ``preemptions``); the brownout level now
+    requests_shed: int = 0
+    slo_preemptions: int = 0
+    brownout_level: int = 0
 
 
 @dataclasses.dataclass
@@ -360,11 +397,31 @@ class Engine:
                                    max_model_len=self.cache_cfg.max_model_len,
                                    ragged_align=self._ragged_blk)
         self.scheduler.clock = self.clock
+        # SLO classes and the brownout ladder (runtime/slo.py): consulted at
+        # intake (shed, max_tokens cap), by the scheduler (class-ordered
+        # queue, budget reserve, class-aware victims) and once a cycle
+        # (tick).  Off, the controller is None and every consumer runs
+        # classless FIFO.
+        slo_on = config.slo_classes
+        if slo_on is None:
+            slo_on = env_flag("TPUSERVE_SLO_CLASSES")
+        self._slo = (SloController(config.slo or SloConfig(),
+                                   sched_cfg.resolve_max_waiting(), clock=self.clock)
+                     if slo_on else None)
+        self.scheduler.slo = self._slo
         self.stats = EngineStats()
         # terminal errors for QUEUED requests decided engine-side (deadline
-        # expiry): (rid, exc) pairs the server's runner drains and routes
-        # to the waiting clients (drain_request_errors)
+        # expiry, queue-full class eviction): (rid, exc) pairs the server's
+        # runner drains and routes to the waiting clients
+        # (drain_request_errors)
         self._error_outbox: list = []
+        # fault injection (runtime/faults.py): every dispatch site runs
+        # self.faults.check(site, rids); _dispatch_rids names the requests
+        # of the dispatch being built, which the runner's salvage charges
+        spec = config.faults if config.faults is not None else os.environ.get(
+            "TPUSERVE_FAULTS")
+        self.faults = FaultInjector.from_spec(spec, seed=config.seed)
+        self._dispatch_rids: tuple = ()
         self.requests: dict[str, Request] = {}   # live + finished-unclaimed
         self._detok: dict[str, IncrementalDetokenizer] = {}
         self._salts: dict[str, int] = {}      # sampling-key salt a request
@@ -489,10 +546,27 @@ class Engine:
         request still queued past it is aborted before any prefill is spent
         on it (``_expire_queued_deadlines``)."""
         params = params or SamplingParams()
-        class_rank(params.slo_class)              # junk class: ValueError
+        rank = class_rank(params.slo_class)       # junk class: ValueError
         request_id = request_id or f"req-{next(self._req_counter)}"
         if request_id in self.requests:
             raise ValueError(f"request {request_id} already exists")
+        if self._slo is not None:
+            # SLO intake policy, before tokenization so a shed costs
+            # nothing: shed the classes the ladder turns away (retryable),
+            # clamp batch max_tokens at level 2+; the gate reads the live
+            # queue depth, not the last tick's
+            self._slo._waiting = self.scheduler.num_waiting
+            retry_after = self._slo.shed_retry_after(rank)
+            if retry_after is not None:
+                self.stats.requests_shed += 1
+                self._slo.shed_total += 1
+                raise ShedError(
+                    f"overloaded (brownout level {self._slo.level}): "
+                    f"{params.slo_class} work is shed; retry in "
+                    f"{retry_after:.0f}s", retry_after_s=retry_after)
+            cap = self._slo.max_tokens_cap(rank)
+            if cap is not None and params.max_tokens > cap:
+                params = dataclasses.replace(params, max_tokens=cap)
         caller_ids = prompt_token_ids is not None
         if prompt_token_ids is None:
             if prompt is None:
@@ -534,7 +608,15 @@ class Engine:
         req = Request(request_id=request_id, prompt_token_ids=prompt_token_ids,
                       params=params, prompt=prompt, deadline=deadline,
                       arrival_time=self.clock.monotonic())
-        self.scheduler.add(req)                   # MemoryError: queue full
+        try:
+            self.scheduler.add(req)
+        except MemoryError:
+            # queue full: evict the loosest-class waiting request (a 429 to
+            # ITS client) to seat a stricter arrival; with no such victim
+            # the MemoryError (503) stands
+            if not self._shed_queue_victim(rank):
+                raise
+            self.scheduler.add(req)
         if fsm is not None:
             self._guided_fsm[request_id] = [fsm, fsm.start]
             self.stats.guided_fsm_requests += 1
@@ -604,9 +686,126 @@ class Engine:
 
     def drain_request_errors(self) -> list:
         """(rid, exception) pairs for queued requests the engine ended
-        itself (deadline expiry); the runner fails their clients."""
+        itself (deadline expiry, queue-full eviction); the runner fails
+        their clients."""
         out, self._error_outbox = self._error_outbox, []
         return out
+
+    # ---- overload (runtime/slo.py) ------------------------------------
+
+    def _shed_queue_victim(self, rank: int) -> bool:
+        """Queue-full class eviction: abort the tail-most waiting request
+        of a class strictly looser than ``rank`` that has no prefill
+        progress and no output (that work is paid for), and answer its
+        client with a retryable ShedError through the error outbox."""
+        if self._slo is None:
+            return False
+        for victim in reversed(self.scheduler.waiting):
+            if (class_rank(victim.params.slo_class) > rank
+                    and victim.num_prefilled == 0
+                    and not victim.output_token_ids
+                    and victim.state == RequestState.WAITING):
+                self.abort_request(victim.request_id)
+                self.stats.requests_shed += 1
+                self._slo.shed_total += 1
+                ra = self._slo.cfg.shed_retry_after_s
+                self._error_outbox.append((victim.request_id, ShedError(
+                    "shed from a full queue for higher-priority "
+                    f"admission; retry in {ra:.0f}s", retry_after_s=ra)))
+                return True
+        return False
+
+    def _slo_preempt_for_admission(self) -> list[RequestOutput]:
+        """Priority preemption, as the JAX engine's: when the waiting head
+        is of a stricter class than running rows and cannot be admitted for
+        seats or blocks, preempt the loosest-class most recent running rows
+        (bounded a cycle and by each victim's budget) through the
+        token-identical re-prefill path.  Both in-flight dispatches are
+        flushed first: a victim with tokens in flight would append them
+        twice at its replay."""
+        slo, sched = self._slo, self.scheduler
+        if slo is None or not sched.waiting or not sched.running:
+            return []
+        head = sched.waiting[0]
+        if head.state == RequestState.RESTORING:
+            return []
+        rank = class_rank(head.params.slo_class)
+        budget = slo.cfg.preempt_budget
+
+        def victims():
+            # loosest class first, the most recent admission breaking ties
+            return [r for _, _, r in sorted(
+                (class_rank(r.params.slo_class), i, r)
+                for i, r in enumerate(sched.running)
+                if class_rank(r.params.slo_class) > rank
+                and r.num_preemptions < budget)]
+
+        def shortfall() -> bool:
+            # the head's own admission arithmetic: preempting when it would
+            # be admitted anyway burns a re-prefill for nothing; only the
+            # mixed path charges a slot a decode row against the free pool
+            seats = len(sched.running) >= sched.cfg.max_num_seqs
+            need = self.block_manager.blocks_needed(head.num_tokens) + 1
+            headroom = len(sched.running) if sched.cfg.mixed_batching else 0
+            return seats or need > self.block_manager.num_free_blocks - headroom
+
+        if not victims() or not shortfall():
+            return []
+        outputs = self._flush_pending() + self._flush_window()
+        for _ in range(slo.cfg.max_preempt_per_cycle):
+            cand = victims()
+            if not cand or not shortfall():
+                break
+            sched.preempt_for_class(cand[-1])       # most recent loosest row
+            self.stats.preemptions += 1
+            self.stats.slo_preemptions += 1
+        return outputs
+
+    # ---- crash-only salvage (server/runner.py) ------------------------
+
+    def salvage_requeue(self) -> list[str]:
+        """Crash-only salvage after a faulted or stuck step, as the JAX
+        engine's: drop both in-flight dispatches and re-queue every live
+        request through the preemption re-prefill path.  A request keeps
+        its prompt and its emitted tokens, so greedy and seeded replays
+        continue token-identically (a row's sampling key is its salt and
+        the count of tokens it has sampled; a guided row's host state
+        mirrors the tokens it emitted; penalty buffers are rebuilt from
+        the history before every replay).  Freed blocks are NOT parked in
+        the prefix cache (``cache_blocks=False``): a faulted dispatch
+        leaves their contents suspect.
+
+        A dropped window may still run on the card: its KV writes land in
+        blocks freed here, before any later dispatch that reuses them
+        (one stream, in order), and its pinned host output buffers return
+        to the caching host allocator only once its copy has run.  Tier
+        restores in flight stay (``has_work`` counts them; their requests
+        wait in the queue, RESTORING, and are not re-queued again).
+
+        Also rescues the requests a fault orphaned: a prefill batch or a
+        chunk is popped from the waiting queue before its dispatch and
+        marked running only after it.  Returns the re-queued request ids,
+        queue head first."""
+        self._pending = None
+        self._pending_window = None
+        cohort = list(self.scheduler.running)
+        self.scheduler.running.clear()
+        seen = ({r.request_id for r in cohort}
+                | {r.request_id for r in self.scheduler.waiting})
+        cohort += [r for r in self.requests.values()
+                   if not r.finished and r.request_id not in seen]
+        for r in cohort:
+            self.block_manager.free(r.request_id, cache_blocks=False)
+            r.state = RequestState.PREEMPTED
+            r.num_prefilled = 0
+        for r in self.scheduler.waiting:
+            if r.num_prefilled > 0:
+                # a prompt mid-chunk holds blocks whose KV is suspect too
+                self.block_manager.free(r.request_id, cache_blocks=False)
+                r.num_prefilled = 0
+        for r in reversed(cohort):
+            self.scheduler.waiting.appendleft(r)
+        return [r.request_id for r in cohort]
 
     def _release(self, request_id: str) -> None:
         """Drop a finished or aborted request's host state (a preempted one
@@ -636,6 +835,11 @@ class Engine:
         scheduling.  Under ``TPUSERVE_STRICT_BLOCKS`` every cycle then
         cross-checks the block and tier accounting."""
         outputs = self._step_inner()
+        if self._slo is not None:
+            # the estimator's tick once a successful cycle drives the
+            # ladder; the level is mirrored into stats for the gauge
+            self._slo.tick(self.scheduler.num_waiting)
+            self.stats.brownout_level = self._slo.level
         if self._strict_blocks:
             self._check_block_integrity()
         return outputs
@@ -649,7 +853,11 @@ class Engine:
                                            tier_hashes=tier_hashes)
 
     def _step_inner(self) -> list[RequestOutput]:
+        self._dispatch_rids = ()
+        # before scheduling: deadline-expired queued requests leave, and a
+        # stricter-class waiting head may preempt running batch rows
         self._expire_queued_deadlines()
+        pre = self._slo_preempt_for_admission()
         if self._kv_tiers is not None:
             # commit FIRST: last cycle's restored prefixes become the card's
             # prefix entries, so their requests admit THIS cycle with the
@@ -660,7 +868,7 @@ class Engine:
         batch = self.scheduler.schedule()
         if batch is None:
             # nothing schedulable, but a decode result may be in flight
-            return self._flush_pending() + self._flush_window()
+            return pre + self._flush_pending() + self._flush_window()
         t0 = self.clock.monotonic()
         if batch.kind == "prefill":
             outputs = self._run_prefill(batch)
@@ -676,19 +884,21 @@ class Engine:
         else:
             raise RuntimeError(f"unexpected batch kind {batch.kind!r}")
         self.stats.last_step_time = self.clock.monotonic() - t0
-        return outputs
+        return pre + outputs
 
     def _tensor(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(arr).to(self.device)
 
     def _run_prefill(self, batch: ScheduledBatch) -> list[RequestOutput]:
         reqs = batch.requests
+        self._dispatch_rids = tuple(r.request_id for r in reqs)
         L = batch.padded_len
         B = next_power_of_2(len(reqs))
         exe = self.graphs.get("prefill", B, L)
         st = exe.stage()
         for i, req in enumerate(reqs):
             ids = self._prefill_tokens(req)
+            self.faults.check("kv_alloc", (req.request_id,))
             shared, _cached = self.block_manager.lookup_prefix(ids)
             self.block_manager.allocate(req.request_id, ids, shared_blocks=shared)
             self._drop_superseded_tier_entries(ids)
@@ -696,6 +906,7 @@ class Engine:
             st.prompt_lens[i] = len(ids)
             st.slot_ids[i, :len(ids)] = self._token_slots(req.request_id, 0, len(ids))
         self._demote_evicted()
+        self.faults.check("prefill_dispatch", self._dispatch_rids)
         exe.load(st)
         exe.run()
         self.scheduler.mark_running(reqs)
@@ -724,8 +935,14 @@ class Engine:
         return (bt[t // bs] * bs + t % bs).astype(np.int32)
 
     def _note_step_tokens(self, actual: int, padded: int) -> None:
+        """One dispatch's real and padded token counts, one home for every
+        dispatch kind; the padding waste feeds the overload estimator."""
+        self.stats.step_actual_tokens = actual
+        self.stats.step_padded_tokens = padded
         self.stats.actual_tokens_total += actual
         self.stats.padded_tokens_total += padded
+        if self._slo is not None:
+            self._slo.note_step(actual, padded)
 
     def _first_token(self, reqs: list[Request]) -> None:
         """Record TTFT for requests sampling their first token (not a
@@ -744,9 +961,11 @@ class Engine:
         recomputed).  The request re-enters the head of the waiting queue
         until its last chunk, which samples the first token."""
         req = batch.requests[0]
+        self._dispatch_rids = (req.request_id,)
         C = batch.padded_len
         ids = self._prefill_tokens(req)
         if req.num_prefilled == 0:
+            self.faults.check("kv_alloc", (req.request_id,))
             shared, cached = self.block_manager.lookup_prefix(ids)
             self.block_manager.allocate(req.request_id, ids, shared_blocks=shared)
             self._drop_superseded_tier_entries(ids)
@@ -761,6 +980,7 @@ class Engine:
         st.block_tables[0, :len(bt)] = bt
         st.ctx_lens[0], st.chunk_lens[0] = done, n
         self._demote_evicted()
+        self.faults.check("prefill_dispatch", self._dispatch_rids)
         exe.load(st)
         exe.run()
         req.num_prefilled = done + n
@@ -798,6 +1018,7 @@ class Engine:
         for req, n in batch.prefill_chunks:
             ids = self._prefill_tokens(req)
             if req.num_prefilled == 0:
+                self.faults.check("kv_alloc", (req.request_id,))
                 try:
                     shared, cached = bm.lookup_prefix(ids)
                     bm.allocate(req.request_id, ids, shared_blocks=shared)
@@ -810,6 +1031,8 @@ class Engine:
             chunks.append((req, ids, done, min(n, len(ids) - done)))
         if not decode_reqs and not chunks:
             return outputs
+        self._dispatch_rids = tuple([r.request_id for r in decode_reqs]
+                                    + [c[0].request_id for c in chunks])
         comp = [c for c in chunks if c[2] + c[3] == len(c[1])]
         cont = [c for c in chunks if c[2] + c[3] < len(c[1])]
         blk = self._ragged_blk
@@ -843,6 +1066,7 @@ class Engine:
             st.block_tables[si, :len(bt)] = bt
         st.meta[:], st.blk_seq[:] = meta, blk_seq
         self._demote_evicted()
+        self.faults.check("mixed_dispatch", self._dispatch_rids)
         exe.load(st)
         exe.run()
         self.stats.num_mixed_steps += 1
@@ -1255,6 +1479,8 @@ class Engine:
             if victim is None:
                 raise MemoryError("KV cache exhausted with a single sequence")
             reqs = [r for r in reqs if r is not victim]
+        self._dispatch_rids = tuple(r.request_id for r in reqs)
+        self.faults.check("kv_alloc", self._dispatch_rids)
         slots = np.empty((len(reqs),), np.int32)
         if bm.charge_decode([r.request_id for r in reqs], slots):
             raise MemoryError("out of KV blocks on append")
@@ -1284,6 +1510,7 @@ class Engine:
         logits or None)."""
         B = self.scheduler.decode_bucket(len(reqs))
         V = self.model_cfg.vocab_size
+        self._dispatch_rids = tuple(r.request_id for r in reqs)
         lp = any(r.params.logprobs is not None for r in reqs)
         pen = any(r.params.needs_penalties or r.params.needs_logit_bias
                   or self._floor_active(r) for r in reqs)
@@ -1326,6 +1553,7 @@ class Engine:
         self.block_manager.fill_block_tables([r.request_id for r in reqs],
                                              st.block_tables)
         self._demote_evicted()
+        self.faults.check("decode_dispatch", self._dispatch_rids)
         exe.load(st, chain=(pending.exe, pending.steps) if chain_idx else None)
         if pen:
             exe.load_extras(np.where(mask, out_tokens, V),
@@ -1343,6 +1571,7 @@ class Engine:
             exe.run(steps)
         toks, lps, event = exe.fetch(steps)
         self.stats.num_decode_steps += steps
+        self._note_step_tokens(len(reqs) * steps, B * steps)
         return exe, toks, lps, event, logits
 
     def _run_decode(self, batch: ScheduledBatch) -> list[RequestOutput]:
@@ -1469,6 +1698,8 @@ class Engine:
                         and r.num_tokens + p.steps < self.max_seq_len)]
         if not reqs:
             return outputs + self._flush_window()
+        self._dispatch_rids = tuple(r.request_id for r in reqs)
+        self.faults.check("kv_alloc", self._dispatch_rids)
         # rows continuing the in-flight window need its steps too: its KV
         # commit has not run yet
         if not self._try_reserve_window(reqs, S + (p.steps if p is not None else 0)):
@@ -1503,6 +1734,9 @@ class Engine:
         p, self._pending_window = self._pending_window, None
         if p is None:
             return []
+        # a fault site of its own (the wait for the card's output): the
+        # window is detached already, so a fault drops it for salvage
+        self.faults.check("window_flush", tuple(r.request_id for r in p.reqs))
         toks_h, lp_h = _read(p)
         # commit the written KV before emitting (a finish frees blocks);
         # rows that finished in flight were freed already
@@ -1684,6 +1918,9 @@ class Engine:
     def _emit_one(self, req: Request, tok: int,
                   from_prefill: bool = False) -> RequestOutput:
         req.output_token_ids.append(tok)
+        # progress resets the salvage budget: it bounds consecutive faulted
+        # attempts, not the faults a long stream lives through
+        req.num_salvages = 0
         self.stats.generated_tokens += 1
         raw_delta = delta = self._detok[req.request_id].add(tok)
         reason = None
@@ -1862,7 +2099,8 @@ class Engine:
         keys += [("prefill", *(b if isinstance(b, tuple) else (1, b))) for b in prefill]
         keys += [("chunk", C) for C in chunks]
         keys += [("mixed", -(-T // blk) * blk) for T in mixed_buckets or ()]
-        self.graphs.warmup(keys)
+        with self.faults.suspended():
+            self.graphs.warmup(keys)
         if self._kv_tiers is not None:
             # the tier page copies' staging, and a round's host records
             # (a round trip of block 0 onto itself), so that the first

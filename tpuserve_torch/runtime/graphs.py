@@ -21,11 +21,12 @@ graph of the step over them:
   logprobs), "penalties" (penalties, ``logit_bias`` and the
   ``min_tokens`` floor) or "logprobs+penalties"; a fused window replays it
   S times, a single step once;
-- ``("decode", B, mode, "guided"|"penalties+guided", N, C)``: the same
-  iteration with the grammar-FSM mask and state carry, reading the
-  grammar tables from the static buffers of its (N states, C classes)
-  bucket (:meth:`StepGraphs.grammar_tables`).  Logprobs and guided
-  decoding never meet (the engine refuses the pair).
+- ``("decode", B, mode, extras + "guided", N, C)``: the same iteration
+  with the grammar-FSM mask and state carry, reading the grammar tables
+  from the static buffers of its (N states, C classes) bucket
+  (:meth:`StepGraphs.grammar_tables`).  The engine refuses a request
+  that asks for both logprobs and guided decoding, but a batch may hold
+  a guided row beside rows with logprobs.
 
 Every KV write in them drops padding on the device
 (``attention.pad_drop``), so no step reads anything back to the host.  A
@@ -89,7 +90,7 @@ KERNEL_MODULES = (flash_prefill, paged_decode, paged_window, ragged_paged)
 KINDS = ("prefill", "chunk", "mixed", "decode")
 # a decode executable's extras, beside none
 DECODE_EXTRAS = ("logprobs", "penalties", "logprobs+penalties", "guided",
-                 "penalties+guided")
+                 "penalties+guided", "logprobs+guided", "logprobs+penalties+guided")
 # the top logprobs a logprobs executable keeps a step (the JAX engine's
 # MAX_LOGPROBS: one width, so no request makes a new executable)
 MAX_LOGPROBS = 20
@@ -434,6 +435,9 @@ class StepGraphs:
         self.stream = torch.cuda.Stream(device) if capture else None
         self.workspace = None        # held as long as the graphs
         self.capture_s = 0.0         # wall seconds spent capturing
+        # time.monotonic() at the start of the capture running now, else
+        # None: the runner's watchdog discounts a step's capture time
+        self.capturing_since: float | None = None
         self.replays = collections.Counter()      # by step kind
         self._sampling_buffers = None
         # (N, C) grammar bucket -> [masks, tok_class, class_next, loaded tag]
@@ -498,7 +502,11 @@ class StepGraphs:
             else:
                 raise ValueError(f"unknown step kind {key[0]!r} (not in {KINDS})")
             if self.capture:
-                self._capture(exe)
+                self.capturing_since = time.monotonic()
+                try:
+                    self._capture(exe)       # adds to capture_s, then ...
+                finally:
+                    self.capturing_since = None   # ... the stamp goes
             self.executables[key] = exe
         return exe
 

@@ -5,9 +5,12 @@ queries read the port unchanged.
 
 The card's machine has no ``prometheus_client``, so the port renders the
 text exposition format itself (``_Family``).  Of the ``tpuserve_*``
-families, guided decoding's and the tiered KV cache's are served; those
-of the SLO controller, tenants, device profiler and the model pool wait
-for those modules (ROADMAP.md A9).
+families, guided decoding's, the tiered KV cache's, the SLO controller's
+(sheds, class preemptions, the brownout level, the per-class queue-delay
+histogram and the client TTFT / ITL twins) and crash-only
+recovery's (salvaged, poisoned, watchdog trips, engine restarts) are
+served; those of tenants, the device profiler, the flight recorder and
+the model pool wait for those modules (ROADMAP.md A5b, A9).
 """
 
 from __future__ import annotations
@@ -19,6 +22,9 @@ _TTFT_BUCKETS = (0.01, 0.025, 0.05, 0.075, 0.1, 0.15, 0.25, 0.5, 1.0, 2.5,
                  5.0, 10.0)
 _ITL_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0)
 _DURATION_BUCKETS = (0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 120.0)
+# the per-SLO-class queue-delay edges, as the JAX server's
+_SLI_E2E_BUCKETS = (0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
+                    120.0)
 
 
 def _fmt(v: float) -> str:
@@ -132,6 +138,10 @@ class ServerMetrics:
         def histogram(name, doc, buckets):
             return family(name, doc, "histogram", edges=buckets).labels(**label)
 
+        def class_histogram(name, doc, buckets):
+            # one series a (model_name, slo_class): callers pick .labels()
+            return family(name, doc, "histogram", ("model_name", "slo_class"), buckets)
+
         # the families the reference's verification queries look for
         self.request_total = counter("vllm_request_total", "Total requests received")
         self.active_requests = gauge("vllm_active_requests",
@@ -200,6 +210,53 @@ class ServerMetrics:
             "Tier-restore begin->commit wall time (the async copy overlaps the current "
             "dispatch; this is the admission hold, one engine cycle + copy tail)",
             _ITL_BUCKETS)
+        # overload robustness (runtime/slo.py), as the JAX server's
+        self.requests_shed = counter(
+            "tpuserve_requests_shed",
+            "Requests rejected at intake by the brownout ladder or evicted from a "
+            "full queue for a stricter-class arrival (HTTP 429 + Retry-After; no "
+            "prefill was spent)")
+        self.requests_preempted = counter(
+            "tpuserve_requests_preempted",
+            "Running batch-class rows preempted to seat a stricter-class arrival "
+            "(token-identical re-prefill replay; bounded per request by the "
+            "preemption budget).  A subset of vllm_num_preemptions")
+        self.brownout_level = gauge(
+            "tpuserve_brownout_level",
+            "Current graceful-degradation rung (0 normal, 1 spec off for batch, 2 "
+            "batch max_tokens capped, 3 batch shed, 4 standard shed too) - entered "
+            "on pressure immediately, exited hysteretically (runtime/slo.py)")
+        self.queue_delay = class_histogram(
+            "tpuserve_queue_delay_seconds",
+            "Admission queue delay per SLO class: arrival to first prefill "
+            "scheduling, fresh admissions only - the per-class SLI the overload "
+            "estimator steers the brownout ladder by", _SLI_E2E_BUCKETS)
+        self.ttft_class = class_histogram(
+            "tpuserve_ttft_seconds",
+            "Client-observable time to first token per SLO class", _TTFT_BUCKETS)
+        self.itl_class = class_histogram(
+            "tpuserve_itl_seconds",
+            "Client-observable inter-token latency per SLO class (re-prefill replay "
+            "gaps excluded like vllm_time_per_output_token_seconds)", _ITL_BUCKETS)
+        # crash-only recovery (server/runner.py), as the JAX server's
+        self.requests_salvaged = counter(
+            "tpuserve_requests_salvaged_total",
+            "Requests re-queued through the preemption re-prefill path after a "
+            "faulted/stuck engine step and replayed token-identically (crash-only "
+            "salvage, server/runner.py)")
+        self.requests_poisoned = counter(
+            "tpuserve_requests_poisoned_total",
+            "Requests isolated as poison by fault bisection (or out of salvage "
+            "budget) and failed with a per-request error while the rest of their "
+            "batch resumed")
+        self.watchdog_trips = counter(
+            "tpuserve_engine_watchdog_trips",
+            "Engine dispatches declared stuck by the hang watchdog (past "
+            "step_watchdog_s), where the device call blocks instead of raising")
+        self.engine_restarts = counter(
+            "tpuserve_engine_restarts",
+            "Whole-engine fail-all fallbacks: fault storms past the salvage window "
+            "or unrecoverable hangs - each count failed every in-flight stream")
 
     def observe_finish(self, reason: str, duration_s: float) -> None:
         self.request_success.labels(model_name=self.model_name,

@@ -2,8 +2,9 @@
 ``tpuserve/server/openai_api.py`` (stdlib HTTP, no web framework).
 
 Serves ``GET /v1/models``, ``/v1/models/{id}``, ``/metrics``, ``/healthz``
-(liveness, with the JAX server's cache-affinity fields: KV blocks by tier
-and the prefix digest, ``server/kv_digest.py``) and ``/readyz``; ``POST
+(liveness, with the brownout level and the JAX server's cache-affinity
+fields: KV blocks by tier and the prefix digest, ``server/kv_digest.py``)
+and ``/readyz``; ``POST
 /v1/completions`` and ``/v1/chat/completions``, streamed (SSE) or not,
 and ``/tokenize`` / ``/detokenize``.
 
@@ -19,6 +20,11 @@ before the request is submitted, so a streaming request gets the status
 line and not a broken event stream: tool calls (A5b), prompt scoring
 (``prompt_logprobs``, ``echo`` with ``logprobs``) and ``/v1/embeddings``
 (A7).
+
+SLO classes (``slo_class`` in the body or the ``X-SLO-Class`` header) reach
+the engine's controller (``runtime/slo.py``): a request the brownout
+ladder sheds, or one evicted from a full queue for a stricter arrival, is
+answered 429 with ``Retry-After`` (type ``overloaded``), streamed or not.
 
 Handler threads make no CUDA call: they tokenize, queue and write JSON.
 Every step, graph capture and device copy runs on the runner's loop thread
@@ -42,7 +48,7 @@ from urllib.parse import unquote
 
 from tpuserve_torch.models.tokenizer import default_chat_template
 from tpuserve_torch.runtime.request import SamplingParams
-from tpuserve_torch.runtime.slo import SLO_CLASSES
+from tpuserve_torch.runtime.slo import SLO_CLASSES, ShedError
 from tpuserve_torch.server.kv_digest import (
     AFFINITY_PREFIX_CHARS, PrefixDigestTracker, affinity_key)
 from tpuserve_torch.server.metrics import ServerMetrics
@@ -322,6 +328,7 @@ class OpenAIServer:
         never fails liveness on them."""
         out: dict = {"status": "ok"}
         try:
+            out["brownout_level"] = self.engine.stats.brownout_level
             tiers = self.engine.kv_tier_blocks()
             out["kv_tier_blocks"] = tiers
             # reach is in blocks; a tracked key is a whole prompt prefix
@@ -402,6 +409,10 @@ def _status_of(exc: Exception) -> tuple[int, str, Optional[dict]]:
     """HTTP status, error type and headers of a request's failure."""
     if isinstance(exc, (ValueError, NotImplementedError)):
         return 400, "invalid_request_error", None
+    if isinstance(exc, ShedError):
+        # a brownout shed or a queue-full class eviction: retryable, with
+        # the ladder's own backoff
+        return 429, "overloaded", {"Retry-After": str(int(exc.retry_after_s) + 1)}
     if isinstance(exc, MemoryError):
         # admission backpressure (a full waiting queue): retryable
         return 503, "server_error", {"Retry-After": "1"}
@@ -929,13 +940,10 @@ _UNPORTED_FLAGS = (
     ("--max-resident-models", dict(type=int, default=1), "A9, the model pool"),
     ("--weight-host-bytes", dict(type=int, default=0), "A9, the model pool"),
     ("--weight-spill-dir", dict(default=None), "A9, the model pool"),
-    ("--faults", dict(default=None), "A9, fault injection"),
     ("--tenant-config", dict(default=None), "A9, tenants"),
     ("--slo-objectives", dict(default=None), "A9, SLO burn rates"),
     ("--tool-call-parser", dict(default=None, choices=["hermes", "mistral", "llama3_json"]),
      "A5b, tool calls"),
-    ("--step-watchdog-s", dict(type=float, default=0.0),
-     "A5b, crash-only salvage and the watchdog"),
 )
 
 
@@ -988,8 +996,19 @@ def build_parser():
     ap.add_argument("--no-warmup", action="store_true")
     ap.add_argument("--drain-timeout", type=float, default=25.0,
                     help="graceful-drain budget on SIGTERM, seconds")
+    ap.add_argument("--no-slo-classes", action="store_true",
+                    help="disable SLO class scheduling and the brownout ladder "
+                         "(runtime/slo.py): classless FIFO, no class-aware admission, "
+                         "preemption or shedding (TPUSERVE_SLO_CLASSES=0 is the env twin)")
+    ap.add_argument("--faults", default=None, metavar="SPEC",
+                    help="deterministic fault injection (runtime/faults.py), e.g. "
+                         "'decode_dispatch:raise:0.02'; TPUSERVE_FAULTS is the env twin")
+    ap.add_argument("--step-watchdog-s", type=float, default=0.0,
+                    help="hang watchdog: a step blocking longer than this is declared "
+                         "stuck and its requests salvaged as if it had raised (0 "
+                         "disables; scaled up for the first steps)")
     # parts the port lacks: switching them off is what the port does already
-    for flag in ("--no-slo-classes", "--no-slo-burn", "--no-devprof"):
+    for flag in ("--no-slo-burn", "--no-devprof"):
         ap.add_argument(flag, action="store_true", help="accepted; no effect in the port")
     for flag, kw, _item in _UNPORTED_FLAGS:
         ap.add_argument(flag, help="not ported yet", **kw)
@@ -1015,7 +1034,9 @@ def engine_config(args):
         pipeline_decode=args.pipeline, adaptive_multi_step=not args.no_adaptive_window,
         min_multi_step=args.min_multi_step,
         kv_tiers=False if args.no_kv_tiers else None,
-        kv_host_bytes=args.kv_host_bytes, kv_spill_dir=args.kv_spill_dir)
+        kv_host_bytes=args.kv_host_bytes, kv_spill_dir=args.kv_spill_dir,
+        slo_classes=False if args.no_slo_classes else None,
+        faults=args.faults, step_watchdog_s=args.step_watchdog_s)
 
 
 def main(argv=None):

@@ -8,10 +8,19 @@ it only through the intake queue and per-request output queues, and make
 no CUDA call, so a graph the loop captures on first use (in the global
 capture mode) never meets another thread's CUDA work.
 
-Not ported: crash-only salvage, the hang watchdog, SLO evaluation, fault
-injection and the model pool (ROADMAP.md A5b and A9).  A step that raises
-fails every in-flight request with the error (``_fail_all``), as the JAX
-runner does once salvage gives up.
+Crash-only recovery, as the JAX runner's: a step that raises is salvaged
+(``Engine.salvage_requeue`` re-queues every live request through the
+token-identical re-prefill path); a cohort that faults again is bisected
+until the poison request is isolated and failed alone; a fault storm
+(more than ``MAX_FAULTS_PER_WINDOW`` faults in ``FAULT_WINDOW_S``) falls
+back to failing everything.  With ``EngineConfig.step_watchdog_s`` a
+watchdog thread declares a step stuck past the threshold, releases an
+injected hang into the salvage path, and fails the clients of a step still
+stuck at twice the threshold.  A real sticky device error re-faults every
+probe and ends in that fault-storm fail-all, never in a loop.
+
+Not ported: SLO burn-rate evaluation, the model pool and the flight
+recorder's post-mortems (ROADMAP.md A5b, A9).
 """
 
 from __future__ import annotations
@@ -21,10 +30,11 @@ import logging
 import queue
 import threading
 import time
+from collections import deque
 from typing import Optional, Sequence
 
 from tpuserve_torch.runtime.clock import MONOTONIC
-from tpuserve_torch.runtime.request import RequestOutput, SamplingParams
+from tpuserve_torch.runtime.request import RequestOutput, RequestState, SamplingParams
 
 logger = logging.getLogger("tpuserve_torch.server")
 
@@ -56,14 +66,42 @@ class _Abort:
     request_id: str
 
 
+@dataclasses.dataclass
+class _SalvageState:
+    """Poison bisection in progress: suspect groups of requests are
+    replayed alone (the scheduler's admission filter) until the dispatch
+    that faults shrinks to one request, the poison, which is failed with a
+    per-request error while everyone else resumes."""
+    groups: deque                 # deque[set[str]] groups still to probe
+    cleared: set                  # rids that survived a probe (run freely)
+    active: Optional[set] = None  # the group being probed
+    ok_steps: int = 0             # successful steps since the probe began
+
+
 class AsyncEngineRunner:
     """Runs ``engine.step()`` on a dedicated thread; routes outputs to
     callers."""
 
+    # crash-only tuning (instance attributes so tests can adjust them)
+    MAX_SALVAGES = 12            # consecutive faulted attempts a request;
+    #                              above ~2+log2(batch), so an innocent
+    #                              sharing bisection rounds with a poison
+    #                              request never runs out first
+    PROBE_OK_STEPS = 3           # fault-free steps before a group is cleared
+    POISON_CONFIRM = 3           # consecutive SINGLETON-probe faults before
+    #                              a request is declared poison
+    MAX_FAULTS_PER_WINDOW = 20   # whole-engine faults inside FAULT_WINDOW_S
+    FAULT_WINDOW_S = 30.0        # before falling back to fail-all
+    WATCHDOG_WARMUP_STEPS = 10   # early steps may build kernels or capture
+    WATCHDOG_WARMUP_SCALE = 20.0  # graphs: scale the threshold up for them,
+    #                               and count a later step's graph capture
+    #                               (a bucket's first use) at 1/scale
+
     def __init__(self, engine, metrics=None):
         self.engine = engine
         self.metrics = metrics
-        # request SLI stamps run on the engine's clock (runtime/clock.py)
+        # request SLI stamps run on the engine's clock (runtime/clock.py);
+        # the watchdog and the fault-storm window run on the real clock
         self._clock = getattr(engine, "clock", MONOTONIC)
         self._intake: "queue.Queue[_Submit | _Abort]" = queue.Queue()
         self._out_queues: dict[str, queue.Queue] = {}
@@ -75,6 +113,23 @@ class AsyncEngineRunner:
                                         name="tpuserve-torch-engine-loop")
         self._started = False
         self.steps_failed = 0
+        # crash-only recovery state (salvage, bisection, watchdog); the
+        # lower-case copies of the tuning mirror the JAX runner's, which
+        # its tests (and these) set per instance
+        self.max_salvages = self.MAX_SALVAGES
+        self.probe_ok_steps = self.PROBE_OK_STEPS
+        self.poison_confirm = self.POISON_CONFIRM
+        self._singleton_faults: dict[str, int] = {}
+        self.step_watchdog_s = float(getattr(
+            getattr(engine, "config", None), "step_watchdog_s", 0.0) or 0.0)
+        self._fault_times: list[float] = []
+        self._salvage: Optional[_SalvageState] = None
+        self._steps_done = 0
+        self._step_seq = 0
+        self._step_started: Optional[tuple[int, float, float]] = None
+        self._hard_trip_seq: Optional[int] = None
+        self._fail_lock = threading.Lock()
+        self._watchdog_thread: Optional[threading.Thread] = None
 
     # ---- lifecycle -----------------------------------------------------
 
@@ -82,6 +137,11 @@ class AsyncEngineRunner:
         if not self._started:
             self._started = True
             self._thread.start()
+            if self.step_watchdog_s > 0:
+                self._watchdog_thread = threading.Thread(
+                    target=self._watchdog_loop, daemon=True,
+                    name="tpuserve-torch-engine-watchdog")
+                self._watchdog_thread.start()
 
     def idle(self) -> bool:
         """No engine work and no undelivered outputs: safe to stop.  Polled
@@ -94,6 +154,8 @@ class AsyncEngineRunner:
         self._wake.set()
         if self._started:
             self._thread.join(timeout=30)
+            if self._watchdog_thread is not None:
+                self._watchdog_thread.join(timeout=5)
 
     # ---- client API (any thread) ---------------------------------------
 
@@ -161,7 +223,7 @@ class AsyncEngineRunner:
                     prompt=msg.prompt, prompt_token_ids=msg.prompt_token_ids,
                     params=msg.params, request_id=msg.request_id,
                     deadline=msg.deadline)
-            except Exception as e:           # invalid request: report, don't die
+            except Exception as e:           # invalid or shed: report, don't die
                 msg.assigned_id = msg.request_id or "rejected"
                 msg.rid_event.set()
                 msg.out_queue.put(e)
@@ -178,6 +240,10 @@ class AsyncEngineRunner:
                     self.metrics.prompt_tokens.inc(req.num_prompt_tokens)
             msg.rid_event.set()
 
+    def _slo_class_of(self, rid: str) -> str:
+        req = self.engine.requests.get(rid)
+        return req.params.slo_class if req is not None else "standard"
+
     def _route_outputs(self, outputs: list[RequestOutput]) -> None:
         now = self._clock.monotonic()
         m = self.metrics
@@ -186,14 +252,19 @@ class AsyncEngineRunner:
             if m:
                 m.generation_tokens.inc(len(out.new_token_ids))
                 last = self._last_token_time.get(out.request_id)
+                label = dict(model_name=m.model_name,
+                             slo_class=self._slo_class_of(out.request_id))
                 if last is not None:
                     if out.num_output_tokens == 1:
-                        m.ttft.observe(now - self._req_started.get(out.request_id, now))
+                        ttft = now - self._req_started.get(out.request_id, now)
+                        m.ttft.observe(ttft)
+                        m.ttft_class.labels(**label).observe(ttft)
                     elif not out.from_prefill:
                         # a from_prefill emission past the first token is a
-                        # re-prefill after preemption: its gap is queue and
-                        # recompute time, not inter-token latency
+                        # re-prefill after a preemption or salvage: its gap
+                        # is queue and recompute time, not inter-token latency
                         m.itl.observe(now - last)
+                        m.itl_class.labels(**label).observe(now - last)
                 self._last_token_time[out.request_id] = now
             if q is not None:
                 q.put(out)
@@ -209,25 +280,40 @@ class AsyncEngineRunner:
                     self._out_queues.pop(out.request_id, None)
                     q.put(None)
 
-    def _fail_all(self, message: str) -> None:
-        """Fail every in-flight stream and abort it in the engine, so
-        nothing re-raises in a tight loop (loop thread only)."""
-        for rid, q in list(self._out_queues.items()):
-            try:
-                self.engine.abort_request(rid)
-            except Exception:
-                logger.exception("abort of %s after a failed step", rid)
-            self.engine.requests.pop(rid, None)
-            q.put(RuntimeError(message))
-            q.put(None)
-        self._out_queues.clear()
-        self._req_started.clear()
-        self._last_token_time.clear()
+    # ---- crash-only recovery: salvage, bisection, watchdog --------------
 
-    def _fail_request(self, rid: str, message: str,
+    def _bump_stat(self, name: str, n: int = 1) -> None:
+        """Count a recovery event on the engine's stats (exported by
+        ``_update_gauges``)."""
+        stats = self.engine.stats
+        setattr(stats, name, getattr(stats, name) + n)
+
+    def _fail_all(self, message: str, engine_side: bool = True) -> None:
+        """Fail every in-flight stream and abort it in the engine, so
+        nothing re-raises in a tight loop.  ``engine_side=False`` is the
+        watchdog thread's variant: only the client queues are touched, as
+        the loop thread may still be inside the stuck step
+        (``_consume_hard_trip`` reconciles the engine on the loop thread)."""
+        with self._fail_lock:
+            for rid, q in list(self._out_queues.items()):
+                if engine_side:
+                    try:
+                        self.engine.abort_request(rid)
+                    except Exception:
+                        logger.exception("abort of %s after a failed step", rid)
+                    self.engine.requests.pop(rid, None)
+                q.put(RuntimeError(message))
+                q.put(None)
+            self._out_queues.clear()
+            self._req_started.clear()
+            self._last_token_time.clear()
+            self._singleton_faults.clear()
+
+    def _fail_request(self, rid: str, message: str, poisoned: bool = False,
                       exc: Optional[Exception] = None) -> None:
-        """Fail one stream with a typed error (TimeoutError -> 504) or a
-        RuntimeError carrying ``message``."""
+        """Fail ONE stream with a per-request error: a typed ``exc``
+        (ShedError -> 429, TimeoutError -> 504) or a RuntimeError carrying
+        ``message``.  ``poisoned`` counts it as isolated by salvage."""
         try:
             self.engine.abort_request(rid)
         except Exception:
@@ -239,18 +325,210 @@ class AsyncEngineRunner:
         if q is not None:
             q.put(exc if exc is not None else RuntimeError(message))
             q.put(None)
+        if poisoned:
+            self._bump_stat("requests_poisoned")
         logger.warning("request %s failed: %s", rid, message)
 
     def _drain_engine_errors(self) -> None:
         """Terminal errors the engine decided for QUEUED requests (deadline
-        expiry): route each to its client with the typed exception so the
-        HTTP layer keeps the right status code."""
+        expiry, queue-full class eviction): route each to its client with
+        the typed exception so the HTTP layer keeps the right status."""
         for rid, exc in self.engine.drain_request_errors():
             self._fail_request(rid, str(exc), exc=exc)
 
+    def _handle_step_fault(self, exc: Exception) -> None:
+        """Salvage instead of failing everyone: re-queue every in-flight
+        request through the engine's re-prefill path and replay; a cohort
+        that faults AGAIN is bisected until the poison request is isolated
+        and failed alone.  Past ``MAX_FAULTS_PER_WINDOW`` faults inside
+        ``FAULT_WINDOW_S`` it fails everything (an engine restart)."""
+        now = time.monotonic()
+        self._fault_times = [t for t in self._fault_times
+                             if now - t < self.FAULT_WINDOW_S]
+        self._fault_times.append(now)
+        eng = self.engine
+        if len(self._fault_times) > self.MAX_FAULTS_PER_WINDOW:
+            self._bump_stat("engine_restarts")
+            self._salvage = None
+            eng.scheduler.set_admission_filter(None)
+            self._fail_all(f"engine failure: {exc}")
+            return
+        eng.salvage_requeue()
+        # charge the fault to the requests in the faulted dispatch; a fault
+        # outside any dispatch (a flush at an idle step) charges everyone
+        dispatched = set(eng._dispatch_rids or ())
+        cohort = []
+        for rid in list(self._out_queues):
+            req = eng.requests.get(rid)
+            if req is None or req.finished:
+                continue
+            if dispatched and rid not in dispatched:
+                continue
+            req.num_salvages += 1
+            if req.num_salvages > self.max_salvages:
+                self._fail_request(
+                    rid, f"request failed {req.num_salvages} consecutive "
+                         f"faulted engine steps (salvage budget "
+                         f"{self.max_salvages} exhausted): {exc}",
+                    poisoned=True)
+            else:
+                cohort.append(rid)
+                self._bump_stat("requests_salvaged")
+        if not cohort:
+            self._salvage = None
+            eng.scheduler.set_admission_filter(None)
+            return
+        if self._salvage is None:
+            # first fault: replay the whole cohort as one probe group; a
+            # transient fault salvages everyone with no bisection at all
+            self._salvage = _SalvageState(groups=deque([set(cohort)]), cleared=set())
+        else:
+            st = self._salvage
+            suspect = set(st.active if st.active else cohort) & set(cohort)
+            st.active = None
+            st.ok_steps = 0
+            if len(suspect) <= 1:
+                for rid in suspect:
+                    n = self._singleton_faults.get(rid, 0) + 1
+                    self._singleton_faults[rid] = n
+                    if n >= self.poison_confirm:
+                        self._singleton_faults.pop(rid, None)
+                        self._fail_request(
+                            rid, "poison request isolated by fault bisection "
+                                 f"({n} consecutive solo faults): {exc}",
+                            poisoned=True)
+                    else:
+                        # transient chaos may have landed on a solo probe:
+                        # probe it again before condemning it
+                        st.groups.appendleft({rid})
+            else:
+                # the probed group faulted again: bisect and probe halves
+                ordered = sorted(suspect)
+                half = len(ordered) // 2
+                st.groups.appendleft(set(ordered[half:]))
+                st.groups.appendleft(set(ordered[:half]))
+        self._advance_salvage()
+
+    def _advance_salvage(self) -> None:
+        """Arm the next probe group (admission filter = cleared + active);
+        lift the filter when nothing is left to probe."""
+        st = self._salvage
+        sched = self.engine.scheduler
+        if st is None:
+            sched.set_admission_filter(None)
+            return
+        while st.active is None and st.groups:
+            group = {rid for rid in st.groups.popleft() if rid in self._out_queues}
+            if group:
+                st.active = group
+                st.ok_steps = 0
+        if st.active is None:
+            self._salvage = None
+            sched.set_admission_filter(None)
+            return
+        sched.set_admission_filter(st.cleared | st.active)
+
+    def _note_salvage_progress(self) -> None:
+        """After every successful step while a probe is armed: a group that
+        ran ``PROBE_OK_STEPS`` fault-free steps (or finished) is cleared,
+        and the next suspect group probes."""
+        st = self._salvage
+        if st is None or st.active is None:
+            return
+        live = {rid for rid in st.active if rid in self._out_queues}
+        if live:
+            requests = self.engine.requests
+            if not all(getattr(requests.get(rid), "state", None) == RequestState.RUNNING
+                       for rid in live):
+                return          # the probe group is not (re-)admitted yet
+            st.ok_steps += 1
+            if st.ok_steps < self.probe_ok_steps:
+                return
+        for rid in st.active:
+            # a clean solo probe exonerates: reset its poison evidence
+            self._singleton_faults.pop(rid, None)
+        st.cleared |= st.active
+        st.active = None
+        self._advance_salvage()
+
+    def _capture_s(self) -> float:
+        """Seconds the engine's graphs have spent capturing, the capture
+        running now included (read from the watchdog thread: the stamp
+        before the total, which ``StepGraphs.get`` sets in the other order,
+        so a capture ending meanwhile counts twice, never zero times)."""
+        graphs = getattr(self.engine, "graphs", None)
+        if graphs is None:
+            return 0.0
+        since = graphs.capturing_since
+        return graphs.capture_s + (time.monotonic() - since if since is not None else 0.0)
+
+    def _watchdog_threshold(self) -> float:
+        if self._steps_done < self.WATCHDOG_WARMUP_STEPS:
+            # early steps may build a kernel or capture a graph
+            return self.step_watchdog_s * self.WATCHDOG_WARMUP_SCALE
+        return self.step_watchdog_s
+
+    def _watchdog_loop(self) -> None:
+        """Monitor thread: the loop stamps each ``engine.step()`` entry; a
+        step past the threshold is stuck.  Stage 1 (trip): count it and
+        release injected hangs, which then raise into the salvage path.
+        Stage 2 (still stuck past twice the threshold: a real hang): fail
+        the waiting clients from here, since the loop thread may never
+        come back."""
+        poll = max(0.005, min(0.05, self.step_watchdog_s / 5))
+        tripped_seq = None
+        while not self._stop.wait(poll):
+            cur = self._step_started
+            if cur is None:
+                continue
+            seq, t0, c0 = cur
+            threshold = self._watchdog_threshold()
+            # a bucket's first use captures its graph (and may build a
+            # kernel) inside the step: that part counts at 1/scale
+            captured = self._capture_s() - c0
+            running_s = (time.monotonic() - t0
+                         - captured * (1.0 - 1.0 / self.WATCHDOG_WARMUP_SCALE))
+            if running_s < threshold:
+                continue
+            if self._step_started != cur:
+                continue        # the step finished meanwhile: slow, not hung
+            if tripped_seq != seq:
+                tripped_seq = seq
+                self._bump_stat("watchdog_trips")
+                logger.warning("engine step stuck for %.2fs (watchdog %.2fs): "
+                               "releasing injected hangs, failing the dispatch",
+                               running_s, threshold)
+                self.engine.faults.release_hangs()
+            elif running_s > 2 * threshold and self._hard_trip_seq != seq:
+                self._hard_trip_seq = seq
+                self._bump_stat("engine_restarts")
+                logger.error("engine step still stuck after %.2fs: failing all "
+                             "in-flight clients (crash-only restart)", running_s)
+                self._fail_all("engine step stuck (watchdog)", engine_side=False)
+
+    def _consume_hard_trip(self, seq: int) -> bool:
+        """Loop-side reconciliation after a stage-2 watchdog trip: the
+        clients are failed already, so drop the step's outcome and reset
+        the engine's request state."""
+        if self._hard_trip_seq != seq:
+            return False
+        self._hard_trip_seq = None
+        eng = self.engine
+        for rid in list(eng.requests):
+            try:
+                eng.abort_request(rid)
+            except Exception:
+                logger.exception("abort of %s after a watchdog trip", rid)
+            eng.requests.pop(rid, None)
+        self._salvage = None
+        eng.scheduler.set_admission_filter(None)
+        return True
+
+    # ---- gauges ---------------------------------------------------------
+
     def _update_gauges(self) -> None:
-        """The vllm_* gauges and counters from host state only (queue
-        lengths, free blocks, engine stats): no CUDA call."""
+        """The vllm_* and tpuserve_* gauges and counters from host state
+        only (queue lengths, free blocks, engine stats): no CUDA call."""
         m = self.metrics
         if not m:
             return
@@ -269,8 +547,19 @@ class AsyncEngineRunner:
                               (m.kv_demoted, stats.kv_demoted_blocks),
                               (m.kv_spilled, stats.kv_spilled_blocks),
                               (m.kv_tier_dropped, stats.kv_tier_dropped_blocks),
-                              (m.kv_restored, stats.kv_restored_blocks)):
+                              (m.kv_restored, stats.kv_restored_blocks),
+                              (m.requests_shed, stats.requests_shed),
+                              (m.requests_preempted, stats.slo_preemptions),
+                              (m.requests_salvaged, stats.requests_salvaged),
+                              (m.requests_poisoned, stats.requests_poisoned),
+                              (m.watchdog_trips, stats.watchdog_trips),
+                              (m.engine_restarts, stats.engine_restarts)):
             _advance_counter(metric, value)
+        m.brownout_level.set(stats.brownout_level)
+        ctl = getattr(self.engine, "_slo", None)
+        if ctl is not None:
+            for cls, delay in ctl.drain_delay_obs():
+                m.queue_delay.labels(model_name=m.model_name, slo_class=cls).observe(delay)
         # the tier restores' begin -> commit times, drained on the loop
         # thread that appended them
         for v in stats.restore_latencies:
@@ -288,14 +577,25 @@ class AsyncEngineRunner:
                 self._wake.wait(timeout=0.05)
                 self._wake.clear()
                 continue
+            self._step_seq += 1
+            seq = self._step_seq
+            self._step_started = (seq, time.monotonic(), self._capture_s())
             try:
                 outputs = self.engine.step()
             except Exception as e:
+                self._step_started = None
                 logger.exception("engine step failed")
                 self.steps_failed += 1
-                self._fail_all(f"engine failure: {e}")
+                if self._consume_hard_trip(seq):
+                    continue
+                self._handle_step_fault(e)
                 time.sleep(0.05)
                 continue
+            self._step_started = None
+            self._steps_done += 1
+            if self._consume_hard_trip(seq):
+                continue
+            self._note_salvage_progress()
             self._drain_engine_errors()
             self._route_outputs(outputs)
             self._update_gauges()
