@@ -216,8 +216,33 @@ non-zero:
              twin's up to the fault (after it a reading).  Readings:
              recovery time (the fault to each survivor's next token),
              tokens re-prefilled, salvaged, poisoned and trips, first-use
-             capture seconds.
-14. profile  where the time goes, under torch.profiler, after every
+             capture seconds.  The flight recorder writes into a
+             directory of each dtype's own: one ``flight-poison-*.json``
+             naming the poison request, a ``flight-watchdog_trip-*.json``,
+             and ``tpuserve_flight_postmortems_total`` equal to the files.
+14. flight   the flight recorder and the host-phase profiler, on by
+             default in every engine above: (a) the main path's 8
+             prompts, 64 greedy tokens, on two default engines (prefix
+             caching off), the recorder on and ``flight=False``,
+             interleaved over 3 rounds after an untimed one: the same
+             tokens, launches against the steps; decode tok/s, TTFT and
+             the recorder's cost are readings; (b) the recording engine's
+             step records: each kind one the engine runs, each record's
+             phases within its wall (+0.5 ms), no ring entry but host
+             values; the median ms of each phase by step kind; (c) the
+             CLI's engine on the server phase's checkpoint in an
+             in-process server, the recorder writing into a temporary
+             ``TPUSERVE_FLIGHT_DIR``: 8 concurrent streams (their step
+             records split the same way: the HTTP engine beside (b)), a
+             prefix hit, chat requests with ``tools`` under
+             ``tool_choice`` auto, required and a named function, full and
+             streamed (200s; stop, length or tool_calls; no forced marker
+             in a streamed delta); every request's
+             ``/debug/requests/{id}`` timeline in order (the hit on the
+             chunk route), ``/debug/engine`` (phased steps, SLIs,
+             ``cold_start_s``), ``/healthz``, ``/debug/engine/dump``
+             (schema 2, ring markers), launches against the steps.
+15. profile  where the time goes, under torch.profiler, after every
              counted run (a profiler run slows the launches that follow
              it): one prefill and one decode window of the main path, one
              steady pipelined window alone (the paged decode kernel must
@@ -249,7 +274,7 @@ import time
 import numpy as np
 
 PHASES = ("build", "kernels", "identity", "main", "graphs", "sampler", "guided", "chunked",
-          "mixed", "server", "tiers", "slo", "salvage", "profile")
+          "mixed", "server", "tiers", "slo", "salvage", "flight", "profile")
 # Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA's data
 # sheet): bf16 tensor cores, float32 CUDA cores, HBM.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -3353,8 +3378,14 @@ def salvage_watch(eng) -> dict:
     and the tokens each salvage re-queues for re-prefill (on the loop
     thread)."""
     rec = {"fires": [], "reprefill_tokens": 0, "salvages": 0}
-    eng.faults.on_fire = lambda site, mode, rids: rec["fires"].append((time.perf_counter(), {
-        rid: len(r.output_token_ids) for rid, r in list(eng.requests.items())}))
+    hook = eng.flight.fault_hook if eng.flight.enabled else None
+
+    def fired(site, mode, rids):
+        rec["fires"].append((time.perf_counter(), {
+            rid: len(r.output_token_ids) for rid, r in list(eng.requests.items())}))
+        if hook is not None:                  # the FAULT in the flight timelines
+            hook(site, mode, rids)
+    eng.faults.on_fire = fired
     orig = eng.salvage_requeue
 
     def salvage():
@@ -3437,7 +3468,7 @@ def reprefill_logits(eng, seqs: list, follow: list) -> dict:
     return out
 
 
-def salvage_poison(eng, exact: bool, ps, poison) -> dict:
+def salvage_poison(eng, exact: bool, ps, poison, metrics=None) -> dict:
     """(a) Eight greedy streams of the main path and one request whose id
     holds "poison", through the runner, under
     ``decode_dispatch:raise:1.0:match=poison``: the poison alone fails,
@@ -3450,7 +3481,7 @@ def salvage_poison(eng, exact: bool, ps, poison) -> dict:
     eng.faults = FaultInjector.from_spec("decode_dispatch:raise:1.0:match=poison")
     rec = salvage_watch(eng)
     s0 = dataclasses.replace(eng.stats)
-    runner = AsyncEngineRunner(eng)
+    runner = AsyncEngineRunner(eng, metrics)
     runner.step_watchdog_s = 0.0               # (c) times the watchdog
     runner.start()
     try:
@@ -3460,6 +3491,7 @@ def salvage_poison(eng, exact: bool, ps, poison) -> dict:
         got = timed_streams(runner, subs)
     finally:
         runner.shutdown()
+        runner._update_gauges()
         del eng.salvage_requeue
         eng.faults = FaultInjector.from_spec(None)
     rids = [s[0] for s in subs[:-1]]
@@ -3560,7 +3592,7 @@ def salvage_in_flight(eng, exact: bool, ps, site: str) -> dict:
     return out
 
 
-def salvage_hang(eng, exact: bool, ps) -> dict:
+def salvage_hang(eng, exact: bool, ps, metrics=None) -> dict:
     """(c) Through the runner with the engine's ``--step-watchdog-s 2``:
     a clean run of the eight streams (no trip; enough steps to leave the
     watchdog's warmup); then, past the warmup, buckets the engine meets
@@ -3575,7 +3607,7 @@ def salvage_hang(eng, exact: bool, ps) -> dict:
     from tpuserve_torch.runtime.faults import FaultInjector
     from tpuserve_torch.server.runner import AsyncEngineRunner
     sp = SamplingParams(max_tokens=SALVAGE_TOKENS, temperature=0.0, ignore_eos=True)
-    runner = AsyncEngineRunner(eng)
+    runner = AsyncEngineRunner(eng, metrics)
     runner.start()
     try:
         clean = {}
@@ -3609,6 +3641,7 @@ def salvage_hang(eng, exact: bool, ps) -> dict:
         wall = time.perf_counter() - t0
     finally:
         runner.shutdown()
+        runner._update_gauges()
         eng.__dict__.pop("salvage_requeue", None)
         eng.faults = FaultInjector.from_spec(None)
     streams = [got[s[0]][0] for s in subs]
@@ -3639,16 +3672,23 @@ def phase_salvage(results) -> dict:
     flight at ``decode_dispatch`` and at ``window_flush``, (c) a released
     hang.  Each on the float32 draw of the main weights (tokens equal to
     the twin's: gated) and on the bf16 main weights (delivered tokens and
-    terminal states gated; agreement after the fault a reading)."""
+    terminal states gated; agreement after the fault a reading).  The
+    engine's flight recorder writes into a directory of each dtype's own
+    (``TPUSERVE_FLIGHT_DIR``): the poison run must leave a
+    ``flight-poison-*.json`` naming the poison request, the released hang
+    a ``flight-watchdog_trip-*.json``, and the runners'
+    ``tpuserve_flight_postmortems_total`` must equal the files."""
     import gc
     import os
+    import tempfile
     import torch
+    from tpuserve_torch.server.metrics import ServerMetrics
     params = results["main"]["params"]
     V = results["main"]["engine"].model_cfg.vocab_size
     rng = np.random.default_rng(SEED + 3)
     ps = prompts(rng, MAIN_LENGTHS, V)
     poison = prompts(np.random.default_rng(SEED + 22), [SALVAGE_POISON_LENGTH], V)[0]
-    prev = os.environ.get("TPUSERVE_STRICT_BLOCKS")
+    prev = {k: os.environ.get(k) for k in ("TPUSERVE_STRICT_BLOCKS", "TPUSERVE_FLIGHT_DIR")}
     os.environ["TPUSERVE_STRICT_BLOCKS"] = "1"
     out = {}
     try:
@@ -3659,25 +3699,386 @@ def phase_salvage(results) -> dict:
                 p, cfg = fp32_main()
             else:
                 p, cfg = params, None
+            flight_dir = tempfile.mkdtemp(prefix=f"flight-{name}-")
+            os.environ["TPUSERVE_FLIGHT_DIR"] = flight_dir    # read by the recorder
             t = time.perf_counter()
             eng = salvage_engine(p, cfg)
             res = {"warmup_s": time.perf_counter() - t}
             exact = name == "fp32"
-            res["poison"] = salvage_poison(eng, exact, ps, poison)
+            metrics = ServerMetrics("Qwen/Qwen3-0.6B")
+            res["poison"] = salvage_poison(eng, exact, ps, poison, metrics)
             for site in ("decode_dispatch", "window_flush"):
                 res[f"in_flight_{site}"] = salvage_in_flight(eng, exact, ps, site)
-            res["hang"] = salvage_hang(eng, exact, ps)
+            res["hang"] = salvage_hang(eng, exact, ps, metrics)
+            res["postmortems"] = salvage_postmortems(flight_dir, metrics)
             res["ok"] = all(v["ok"] for v in res.values() if isinstance(v, dict))
             out[name] = res
             del eng, p
     finally:
-        if prev is None:
-            os.environ.pop("TPUSERVE_STRICT_BLOCKS", None)
-        else:
-            os.environ["TPUSERVE_STRICT_BLOCKS"] = prev
+        for k, v in prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
         gc.collect()
         torch.cuda.empty_cache()
     return {"ok": out["fp32"]["ok"] and out["bf16"]["ok"], **out}
+
+
+def salvage_postmortems(flight_dir: str, metrics) -> dict:
+    """The salvage runs' post-mortem bundles in ``flight_dir``: a poison
+    one naming the poison request with its whole timeline, a watchdog
+    trip's, each of schema 2 with its ring markers; the counter equal to
+    the files."""
+    import glob
+    import os
+    files = {r: sorted(glob.glob(os.path.join(flight_dir, f"flight-{r}-*.json")))
+             for r in ("poison", "watchdog_trip", "fault_storm")}
+    total = len(glob.glob(os.path.join(flight_dir, "flight-*.json")))
+    counter = metric_sum(metrics.render().decode(), "tpuserve_flight_postmortems_total")
+    bundles = {r: [json.load(open(f)) for f in fs] for r, fs in files.items()}
+    poison = bundles["poison"][0] if bundles["poison"] else {}
+    tl = [e["event"] for e in poison.get("requests", {}).get("poison-0", [])]
+    out = {"dir": flight_dir, "files": {r: [os.path.basename(f) for f in fs]
+                                        for r, fs in files.items()},
+           "counter": counter, "poison_timeline": tl,
+           "watchdog_steps": [len(b["steps"]) for b in bundles["watchdog_trip"]]}
+    out["ok"] = bool(
+        len(files["poison"]) == 1 and len(files["watchdog_trip"]) >= 1
+        and not files["fault_storm"] and counter == total
+        and tl[:1] == ["QUEUED"] and tl[-1:] == ["FINISHED"] and "SALVAGED" in tl
+        and all(b["schema"] == 2 and set(b["rings"]) == {"events", "steps"}
+                for bs in bundles.values() for b in bs))
+    return out
+
+
+# --------------------------------------------------------------------------
+# the flight phase
+
+FLIGHT_REPEATS = 3                # timed A/B rounds, after one untimed first use
+FLIGHT_TOKENS = 64
+# every step kind the engine's records can carry
+FLIGHT_KINDS = ("idle", "prefill", "prefill_chunk", "mixed", "window", "decode")
+FLIGHT_PHASE_SLACK_MS = 0.5       # a record's phases may exceed its wall by this
+FLIGHT_TOOLS = [{"type": "function", "function": {
+    "name": "get_weather", "description": "current weather of a city",
+    "parameters": {"type": "object", "properties": {"city": {"type": "string"}},
+                   "required": ["city"]}}}]
+
+
+def host_values(x) -> bool:
+    """A ring entry holds str, int, float, bool, None, tuples and dicts of
+    those only (no tensor: a value read from the card would be a wait)."""
+    if x is None or isinstance(x, (str, int, float, bool)):
+        return True
+    if isinstance(x, tuple):
+        return all(host_values(v) for v in x)
+    if isinstance(x, dict):
+        return all(isinstance(k, str) and host_values(v) for k, v in x.items())
+    return False
+
+
+def step_split(runs: list) -> dict:
+    """Step records of one or more runs (a list of record lists) by kind:
+    the count, the median wall ms and the median ms of each host phase (0
+    where a record has none); each decode dispatch's tokens a row and each
+    prefill's rows; and the time between steps within a run (a record's
+    start less the previous record's end: the loop's own time outside
+    ``Engine.step``), as a median and a share of the runs' spans."""
+    from tpuserve_torch.runtime.hostprof import HostPhaseProfiler
+    med = lambda xs: float(np.median(xs)) if xs else None        # noqa: E731
+    steps = [s for run in runs for s in run]
+    out = {"kinds": {}}
+    for kind in sorted({s["kind"] for s in steps}):
+        recs = [s for s in steps if s["kind"] == kind]
+        out["kinds"][kind] = {"n": len(recs), "ms": med([r["ms"] for r in recs]),
+                              **{ph: med([r.get("phase_ms", {}).get(ph, 0.0) for r in recs])
+                                 for ph in HostPhaseProfiler.PHASES}}
+    # a decode dispatch's tokens a row (the window's size), by count
+    sizes = [s["actual_tokens"] // s["rows"] for s in steps
+             if s["kind"] in ("window", "decode") and s["rows"]]
+    out["decode_steps_a_dispatch"] = {str(k): sizes.count(k) for k in sorted(set(sizes))}
+    out["prefill_rows"] = [s["rows"] for s in steps if s["kind"] == "prefill"]
+    gaps = [1e3 * (b["t"] - a["t"]) - b["ms"] for run in runs for a, b in zip(run, run[1:])]
+    span = sum(1e3 * (run[-1]["t"] - run[0]["t"]) + run[0]["ms"] for run in runs if run)
+    out["between_steps_ms_median"] = med(gaps)
+    out["between_steps_share"] = sum(gaps) / span if span > 0 else None
+    out["steps"] = len(steps)
+    return out
+
+
+def steps_gate(steps: list) -> dict:
+    """Every record's kind is one the engine runs and its phases sum to at
+    most its wall (+ FLIGHT_PHASE_SLACK_MS)."""
+    over = [s for s in steps if sum((s.get("phase_ms") or {}).values())
+            > s["ms"] + FLIGHT_PHASE_SLACK_MS]
+    kinds = {s["kind"] for s in steps}
+    return {"records": len(steps), "over_wall": len(over),
+            "worst_over_ms": max((sum(s["phase_ms"].values()) - s["ms"] for s in over),
+                                 default=0.0),
+            "with_phases": sum(1 for s in steps if s.get("phase_ms")),
+            "kinds_known": kinds <= set(FLIGHT_KINDS),
+            "ok": bool(steps) and not over and kinds <= set(FLIGHT_KINDS)
+            and all(s.get("phase_ms") for s in steps if s["kind"] != "idle")}
+
+
+def flight_ab(params, ps) -> dict:
+    """(a) The main path's 8 prompts, 64 greedy tokens, on two default
+    engines (prefix caching off, so every run repeats the first): the
+    recorder on and ``flight=False``, interleaved (on/off, off/on, on/off)
+    after one untimed run of each.  The process has one host-phase
+    profiler: it is on while the recorder's engine runs and off while the
+    other one does, as each would be in a process of its own.  Tokens must
+    be identical; decode tok/s and TTFT of each and the recorder's cost
+    are readings.  (b) The recording engine's step records (its first
+    left out: its phases are those since the recorder was made, every
+    other engine of the process included): the gates of ``steps_gate``,
+    no ring entry other than host values, and the phase split."""
+    import torch
+    from tpuserve_torch.runtime import Engine, EngineConfig, SamplingParams
+    from tpuserve_torch.runtime.hostprof import PROF
+    greedy = SamplingParams(max_tokens=FLIGHT_TOKENS, temperature=0.0, ignore_eos=True)
+    engines = {}
+    for k in ("on", "off"):
+        eng = Engine(EngineConfig(seed=SEED, flight=k == "on", enable_prefix_caching=False),
+                     params=params)
+        eng.warmup(decode_buckets=[8], sample_modes=("greedy",), prefill_buckets=[(8, 1024)])
+        engines[k] = eng
+    tokens = {k: [] for k in engines}
+    timings = {k: [] for k in engines}
+    order = [("on", "off")] + [("on", "off") if i % 2 == 0 else ("off", "on")
+                               for i in range(FLIGHT_REPEATS)]
+    marks = {k: stat_marks(e) for k, e in engines.items()}
+    on = engines["on"]
+    runs = []                          # the recording engine's timed runs' records
+    try:
+        for rnd, pair in enumerate(order):
+            if rnd == 1:
+                reset_launches()
+                marks = {k: stat_marks(e) for k, e in engines.items()}
+            for k in pair:
+                PROF.enabled = k == "on"
+                idx = on.flight._steps.idx
+                reqs, timing = serve_steps(engines[k], ps, greedy)
+                tokens[k].append([r.output_token_ids for r in reqs])
+                if rnd:
+                    timings[k].append(timing)
+                    if k == "on":
+                        runs.append(on.flight.steps_snapshot(limit=on.flight._steps.idx - idx))
+    finally:
+        PROF.enabled = True
+    launches = read_launches()
+    want = {}
+    for k, e in engines.items():
+        for name, n in launches_since(e, marks[k]).items():
+            want[name] = want.get(name, 0) + n
+    med = {k: {m: float(np.median([t[m] for t in timings[k]]))
+               for m in ("decode_tok_per_s", "mean_ttft_ms")} for k in engines}
+    steps = on.flight.steps_snapshot(limit=10 ** 6)[1:]
+    gate = steps_gate(steps)
+    ring_host = (all(host_values(e) for e in on.flight._events.snapshot())
+                 and all(host_values(s) for s in on.flight._steps.snapshot()))
+    same = all(t == tokens["on"][0] for k in engines for t in tokens[k])
+    out = {"repeats": FLIGHT_REPEATS, "order": order[1:], "same_tokens": same,
+           "decode_tok_per_s": {k: [t["decode_tok_per_s"] for t in timings[k]] for k in engines},
+           "mean_ttft_ms": {k: [t["mean_ttft_ms"] for t in timings[k]] for k in engines},
+           "median": med,
+           "recorder_cost_decode_share": 1 - med["on"]["decode_tok_per_s"]
+           / med["off"]["decode_tok_per_s"],
+           "recorder_cost_ttft_share": med["on"]["mean_ttft_ms"] / med["off"]["mean_ttft_ms"] - 1,
+           "events_recorded": on.flight._events.idx, "off_events": engines["off"].flight._events.idx,
+           "steps_gate": gate, "ring_host_values_only": ring_host,
+           "split": step_split(runs), "launches": launches, "launches_expected": want}
+    out["ok"] = bool(same and gate["ok"] and ring_host and out["off_events"] == 0
+                     and launches == want and launches["flash_prefill"] > 0
+                     and launches["paged_decode"] > 0)
+    del engines, on
+    torch.cuda.empty_cache()
+    return out
+
+
+def timeline_ok(events: list, chunked: bool) -> bool:
+    """QUEUED, ADMITTED, PREFILL (PREFILL_CHUNK on the chunk route, any
+    number), WINDOW... (none when the prefill's token ended it), FINISHED,
+    in time order."""
+    names = [e["event"] for e in events]
+    runs = [n for i, n in enumerate(names) if i == 0 or n != names[i - 1]]
+    return (runs[:2] == ["QUEUED", "ADMITTED"] and len(runs) in (4, 5)
+            and runs[2] == ("PREFILL_CHUNK" if chunked else runs[2])
+            and runs[2] in ("PREFILL", "PREFILL_CHUNK")
+            and runs[3:] in (["WINDOW", "FINISHED"], ["FINISHED"])
+            and [e["t"] for e in events] == sorted(e["t"] for e in events))
+
+
+def flight_server(results) -> dict:
+    """(c) The CLI's engine on the server phase's checkpoint, the recorder
+    writing into a temporary ``TPUSERVE_FLIGHT_DIR``, in an in-process
+    server: 8 concurrent streams of the main path's lengths (their step
+    records give the HTTP engine's phase split), a prefix hit of one (the
+    chunk route), then chat requests with ``tools`` under ``tool_choice``
+    auto, required and a named function, each full and streamed.  Gates:
+    every tools request 200 with a finish reason of stop, length or
+    tool_calls and no streamed content carrying the forced marker; every
+    request's ``/debug/requests/{id}`` timeline as ``timeline_ok`` (the hit
+    on the chunk route); ``/debug/engine`` with phased steps, SLIs of the
+    class and ``cold_start_s`` > 0; ``/healthz`` with ``cold_start_s``;
+    ``/debug/engine/dump`` of schema 2 with its ring markers; the HTTP
+    engine's records under ``steps_gate``; launches against the steps."""
+    import os
+    import tempfile
+    import threading
+    from pathlib import Path
+    import torch
+    from tpuserve_torch.runtime import Engine
+    from tpuserve_torch.server import OpenAIServer, ServerConfig
+    from tpuserve_torch.server.openai_api import build_parser, engine_config
+    ckpt = Path(__file__).resolve().parent / "build" / "server_ckpt"
+    prev = os.environ.get("TPUSERVE_FLIGHT_DIR")
+    fdir = tempfile.mkdtemp(prefix="flight-server-")
+    os.environ["TPUSERVE_FLIGHT_DIR"] = fdir
+    try:
+        eng = Engine(engine_config(build_parser().parse_args(
+            ["--checkpoint-dir", str(ckpt)])))
+    finally:
+        if prev is None:
+            os.environ.pop("TPUSERVE_FLIGHT_DIR", None)
+        else:
+            os.environ["TPUSERVE_FLIGHT_DIR"] = prev
+    srv = OpenAIServer(eng, ServerConfig(host="127.0.0.1", port=0))
+    url = f"http://127.0.0.1:{srv.start(warmup=True)}"
+    rng = np.random.default_rng(SEED + 31)
+    V = eng.model_cfg.vocab_size
+    rounds = {"cold": prompts(rng, MAIN_LENGTHS, V), "warm": prompts(rng, MAIN_LENGTHS, V)}
+    hit = rounds["warm"][-1] + prompts(rng, [64], V)[0]
+    base = {"max_tokens": SERVER_TOKENS, "temperature": 0, "ignore_eos": True,
+            "return_token_ids": True, "stream_options": {"include_usage": True}}
+    out = {"rounds": {}}
+    try:
+        # 8 concurrent streams, twice with new prompts: the first round
+        # meets buckets the server's warmup did not capture, the second
+        # meets them captured.  Their step records are the HTTP engine's
+        # split; the engine's first record (phases since its recorder was
+        # made, the whole process's) is reported without its phases.
+        marks = stat_marks(eng)
+        reset_launches()
+        first = None
+        for name, conc in rounds.items():
+            st0 = eng.flight._steps.idx
+            res: dict = {}
+            threads = [threading.Thread(target=lambda i=i, p=p: res.__setitem__(
+                i, sse(url + "/v1/completions", dict(base, prompt=p))))
+                for i, p in enumerate(conc)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            recs = eng.flight.steps_snapshot(limit=eng.flight._steps.idx - st0)
+            if st0 == 0:
+                first = {k: v for k, v in recs[0].items() if k != "phase_ms"}
+                recs = recs[1:]
+            streams = [res[i] for i in range(len(conc))]
+            out["rounds"][name] = {
+                "streams_ok": all(stream_ok(r, url, len(p)) for r, p in zip(streams, conc)),
+                "rates": stream_rates(streams), "steps_gate": steps_gate(recs),
+                "split": step_split([recs])}
+        out["first_record"] = first
+        # the prefix hit, then the tools requests
+        hit_res = sse(url + "/v1/completions", dict(base, prompt=hit))
+        out["hit_ok"] = stream_ok(hit_res, url, len(hit))
+        tools = {}
+        for name, choice in (("auto", "auto"), ("required", "required"),
+                             ("named", {"type": "function",
+                                        "function": {"name": "get_weather"}})):
+            body = {"messages": [{"role": "user", "content": "What is the weather in Paris?"}],
+                    "tools": FLIGHT_TOOLS, "tool_choice": choice, "max_tokens": 32,
+                    "temperature": 0}
+            status, full = http(url + "/v1/chat/completions", body)
+            streamed = sse(url + "/v1/chat/completions", body)
+            deltas = [ch["delta"].get("content", "") for c in streamed["chunks"]
+                      for ch in c["choices"]]
+            finishes = [ch["finish_reason"] for c in streamed["chunks"] for ch in c["choices"]
+                        if ch.get("finish_reason")]
+            msg = full["choices"][0]["message"] if status == 200 else {}
+            tools[name] = {
+                "status": [status, streamed.get("status")],
+                "finish": [full["choices"][0]["finish_reason"] if status == 200 else None,
+                           finishes[-1] if finishes else None],
+                "tool_calls": [len(msg.get("tool_calls") or []),
+                               sum(len(ch["delta"].get("tool_calls", []))
+                                   for c in streamed["chunks"] for ch in c["choices"])],
+                "content_chars": len(msg.get("content") or ""),
+                "marker_in_stream": any("<tool_call>" in d for d in deltas)}
+            tools[name]["ok"] = (tools[name]["status"] == [200, 200] and streamed["done"]
+                                 and all(f in ("stop", "length", "tool_calls")
+                                         for f in tools[name]["finish"])
+                                 and not tools[name]["marker_in_stream"])
+        out["tools"] = tools
+        launches = read_launches()
+        want = launches_since(eng, marks)
+        # the debug routes
+        s_eng, snap = http(url + "/debug/engine")
+        rids = snap["requests"]
+        tls = {r: http(url + f"/debug/requests/{r}") for r in rids}
+        hit_rids = [r for r, (_, tl) in tls.items()
+                    if tl["events"][0].get("detail", {}).get("prompt_tokens") == len(hit)]
+        bad = [r for r, (s, tl) in tls.items()
+               if s != 200 or not timeline_ok(tl["events"], r in hit_rids)]
+        s_h, health = http(url + "/healthz")
+        s_d, dump = http(url + "/debug/engine/dump")
+        s_404, _ = http(url + "/debug/requests/no-such-request")
+        rings = dump.get("rings", {}) if s_d == 200 else {}
+        sli = snap.get("sli", {}).get("standard", {})
+        out.update({
+            "requests_recorded": len(rids), "hit_requests": len(hit_rids),
+            "timelines_not_ok": bad, "example_timeline": [e["event"] for e in
+                                                         tls[hit_rids[0]][1]["events"]]
+            if hit_rids else None,
+            "debug_engine": {"status": s_eng, "steps": len(snap.get("steps", [])),
+                             "steps_with_phases": sum(1 for s in snap.get("steps", [])
+                                                      if s.get("phase_ms")),
+                             "sli_kinds": sorted(sli), "cold_start_s": snap.get("cold_start_s"),
+                             "compile_caches": snap.get("compile_caches")},
+            "healthz_cold_start_s": health.get("cold_start_s"),
+            "dump": {"status": s_d, "schema": dump.get("schema"),
+                     "rings": rings, "requests": len(dump.get("requests", {}))},
+            "unknown_id_status": s_404, "postmortems_in_clean_run": len(os.listdir(fdir)),
+            "launches": launches, "launches_expected": want})
+        out["ok"] = bool(
+            all(r["streams_ok"] and r["steps_gate"]["ok"] for r in out["rounds"].values())
+            and out["hit_ok"] and all(t["ok"] for t in tools.values())
+            and len(rids) == 2 * len(MAIN_LENGTHS) + 1 + 2 * len(tools)
+            and len(hit_rids) == 1 and not bad
+            and s_eng == 200 and out["debug_engine"]["steps_with_phases"] > 0
+            and {"ttft", "itl", "e2e"} <= set(sli) and (snap.get("cold_start_s") or 0) > 0
+            and s_h == 200 and (health.get("cold_start_s") or 0) > 0
+            and s_d == 200 and dump.get("schema") == 2
+            and all(set(rings.get(k, {})) == {"cursor", "capacity", "dropped", "torn"}
+                    for k in ("events", "steps"))
+            and s_404 == 404 and launches == want and launches["paged_window"] > 0)
+    finally:
+        srv.shutdown()
+        del srv, eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_flight(results) -> dict:
+    """The flight recorder and the host-phase profiler on the main path:
+    (a) the recorder's A/B and (b) its step records (``flight_ab``), (c) the
+    HTTP server's debug routes, request timelines, tools and step records
+    (``flight_server``)."""
+    import gc
+    import torch
+    params = results["main"]["params"]
+    V = results["main"]["engine"].model_cfg.vocab_size
+    ps = prompts(np.random.default_rng(SEED + 3), MAIN_LENGTHS, V)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ab = flight_ab(params, ps)
+    server = flight_server(results)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ok": ab["ok"] and server["ok"], "ab": ab, "server": server}
 
 
 # --------------------------------------------------------------------------
@@ -3759,6 +4160,8 @@ def main() -> int:
             res = phase_slo(results)
         elif phase == "salvage":
             res = phase_salvage(results)
+        elif phase == "flight":
+            res = phase_flight(results)
         elif phase == "profile":
             res = phase_profile(results)
         else:

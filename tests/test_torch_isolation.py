@@ -96,18 +96,24 @@ def test_tier_modules_load_no_jax_and_no_ml_dtypes():
 
 
 def test_slo_fault_and_runner_modules_load_no_jax():
-    """The SLO controller, the fault injector and the runner (salvage,
-    bisection, watchdog) are the port's own copies: importing them loads
-    no jax and no tpuserve module."""
+    """The SLO controller, the fault injector, the runner (salvage,
+    bisection, watchdog), the flight recorder, the host-phase profiler, the
+    tracer and tool calls are the port's own copies: importing them loads
+    no jax and no tpuserve module (and no opentelemetry: the tracer imports
+    it only when an exporter is configured)."""
     res = _run("import sys, tpuserve_torch.runtime.slo, tpuserve_torch.runtime.faults, "
-               "tpuserve_torch.server.runner\n"
+               "tpuserve_torch.server.runner, tpuserve_torch.runtime.flight, "
+               "tpuserve_torch.runtime.hostprof, tpuserve_torch.server.tracing, "
+               "tpuserve_torch.server.tool_calls\n"
+               "assert 'opentelemetry' not in sys.modules\n"
                "bad = [m for m in sys.modules if m.split('.')[0] in "
                "('jax', 'jaxlib', 'tpuserve')]\n"
                "assert not bad, bad\n"
                "print('clean')")
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "clean"
-    for rel in ("runtime/slo.py", "runtime/faults.py", "server/runner.py"):
+    for rel in ("runtime/slo.py", "runtime/faults.py", "server/runner.py", "runtime/flight.py",
+                "runtime/hostprof.py", "server/tracing.py", "server/tool_calls.py"):
         assert ROOT / "tpuserve_torch" / rel in PORT_FILES
 
 

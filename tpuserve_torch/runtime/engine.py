@@ -53,6 +53,12 @@ prefix resolves in a lower tier has its blocks copied back in place
 (``kv_cache.scatter_block_pages``) ahead of its admission, overlapping the
 step dispatched meanwhile, then prefills only the suffix.
 
+The flight recorder (``runtime/flight.py``), on by default as in the JAX
+engine: every request's lifecycle events and every cycle's step record,
+with the cycle's host phases (``runtime/hostprof.py``: schedule, block,
+dispatch, flush, detokenize), all stamped in host code around the
+replays, from host-known values; ``flight=False`` removes it.
+
 The engine runs on ``device="cuda"`` unless the caller passes
 ``device="cpu"`` (the tests do); it never falls back to the CPU on its own.
 Options of the JAX engine that this slice does not carry raise
@@ -88,6 +94,8 @@ from tpuserve_torch.runtime.guided_choice import ChoiceStateMachine, compile_cho
 from tpuserve_torch.runtime.guided_regex import RegexStateMachine, compile_regex
 from tpuserve_torch.runtime.clock import MONOTONIC
 from tpuserve_torch.runtime.faults import FaultInjector
+from tpuserve_torch.runtime.flight import FlightRecorder
+from tpuserve_torch.runtime.hostprof import PROF
 from tpuserve_torch.runtime.kv_cache import (
     CacheConfig, PageStaging, create_kv_cache, gather_block_pages, num_blocks_for_budget,
     scatter_block_pages)
@@ -186,6 +194,13 @@ class EngineConfig:
     # is declared stuck and salvaged as a step that raised (scaled up for
     # the first steps).  0 disables.
     step_watchdog_s: float = 0.0
+    # Flight recorder (runtime/flight.py), as the JAX engine's: a ring of
+    # request lifecycle events and one of per-cycle step records (with
+    # the host phases of runtime/hostprof.py, which it switches on), read
+    # at /debug/requests/{id} and /debug/engine, exported as OTLP child
+    # spans and written as post-mortem bundles.  None = TPUSERVE_FLIGHT
+    # (default on; 0 removes the recorder and the profiler).
+    flight: Optional[bool] = None
     # JAX engine options not ported yet: any value but None raises
     quantization: Optional[str] = None
     lora_dir: Optional[str] = None
@@ -268,6 +283,8 @@ class EngineStats:
     requests_shed: int = 0
     slo_preemptions: int = 0
     brownout_level: int = 0
+    # flight recorder post-mortem bundles written (server/runner.py)
+    flight_postmortems: int = 0
 
 
 @dataclasses.dataclass
@@ -422,6 +439,27 @@ class Engine:
             "TPUSERVE_FAULTS")
         self.faults = FaultInjector.from_spec(spec, seed=config.seed)
         self._dispatch_rids: tuple = ()
+        # flight recorder (runtime/flight.py): written on this engine's loop
+        # thread, snapshot-read by serving threads; the hot sites test the
+        # cached bool, so TPUSERVE_FLIGHT=0 costs an attribute load a site
+        self.flight = FlightRecorder(enabled=config.flight, clock=self.clock)
+        self._flight_on = self.flight.enabled
+        self._step_kind = "idle"
+        # engine facts ride every bundle, so a replay sizes a comparable engine
+        self.flight.note_engine_facts(
+            model=config.model, max_num_seqs=sched_cfg.max_num_seqs,
+            num_blocks=self.cache_cfg.num_blocks, block_size=self.cache_cfg.block_size,
+            max_model_len=self.cache_cfg.max_model_len,
+            mixed_batching=sched_cfg.mixed_batching, multi_step=self._multi_step,
+            slo_classes=self._slo is not None)
+        self.scheduler.flight = self.flight if self._flight_on else None
+        if self._slo is not None:
+            self._slo.flight = self.flight if self._flight_on else None
+        if self._flight_on:
+            # every step record carries its host phases (two perf_counter
+            # reads a phase); a firing fault rule lands in the timelines
+            PROF.enabled = True
+            self.faults.on_fire = self.flight.fault_hook
         self.requests: dict[str, Request] = {}   # live + finished-unclaimed
         self._detok: dict[str, IncrementalDetokenizer] = {}
         self._salts: dict[str, int] = {}      # sampling-key salt a request
@@ -546,8 +584,10 @@ class Engine:
         request still queued past it is aborted before any prefill is spent
         on it (``_expire_queued_deadlines``)."""
         params = params or SamplingParams()
-        rank = class_rank(params.slo_class)       # junk class: ValueError
+        # the id first, so that intake events (SHED, BROWNOUT_CLAMPED) are
+        # recorded under the id the caller looks up
         request_id = request_id or f"req-{next(self._req_counter)}"
+        rank = class_rank(params.slo_class)       # junk class: ValueError
         if request_id in self.requests:
             raise ValueError(f"request {request_id} already exists")
         if self._slo is not None:
@@ -560,6 +600,8 @@ class Engine:
             if retry_after is not None:
                 self.stats.requests_shed += 1
                 self._slo.shed_total += 1
+                self.flight.req_event(request_id, "SHED", slo_class=params.slo_class,
+                                      level=self._slo.level, retry_after_s=retry_after)
                 raise ShedError(
                     f"overloaded (brownout level {self._slo.level}): "
                     f"{params.slo_class} work is shed; retry in "
@@ -567,6 +609,8 @@ class Engine:
             cap = self._slo.max_tokens_cap(rank)
             if cap is not None and params.max_tokens > cap:
                 params = dataclasses.replace(params, max_tokens=cap)
+                self.flight.req_event(request_id, "BROWNOUT_CLAMPED", max_tokens=cap,
+                                      level=self._slo.level)
         caller_ids = prompt_token_ids is not None
         if prompt_token_ids is None:
             if prompt is None:
@@ -624,6 +668,11 @@ class Engine:
             self._guided[request_id] = acceptor
         self._detok[request_id] = IncrementalDetokenizer(self.tokenizer)
         self.requests[request_id] = req
+        # max_tokens, so that a replay rebuilds the budget of requests the
+        # recording never finished
+        self.flight.req_event(request_id, "QUEUED", slo_class=params.slo_class,
+                              prompt_tokens=len(prompt_token_ids),
+                              max_tokens=params.max_tokens)
         if not params.greedy:
             # the salt of the request's sampling keys (salt, step): its
             # stream depends on its seed alone, not on the batches, batch
@@ -663,6 +712,7 @@ class Engine:
         req.state = RequestState.FINISHED
         req.finish_reason = FinishReason.ABORT
         self._release(request_id)
+        self.flight.req_event(request_id, "FINISHED", cause="abort")
         return True
 
     def _expire_queued_deadlines(self) -> None:
@@ -705,6 +755,8 @@ class Engine:
                     and victim.num_prefilled == 0
                     and not victim.output_token_ids
                     and victim.state == RequestState.WAITING):
+                self.flight.req_event(victim.request_id, "SHED",
+                                      cause="queue_full_eviction")
                 self.abort_request(victim.request_id)
                 self.stats.requests_shed += 1
                 self._slo.shed_total += 1
@@ -798,6 +850,8 @@ class Engine:
             self.block_manager.free(r.request_id, cache_blocks=False)
             r.state = RequestState.PREEMPTED
             r.num_prefilled = 0
+            self.flight.req_event(r.request_id, "SALVAGED",
+                                  output_tokens=len(r.output_token_ids))
         for r in self.scheduler.waiting:
             if r.num_prefilled > 0:
                 # a prompt mid-chunk holds blocks whose KV is suspect too
@@ -833,13 +887,31 @@ class Engine:
         step).  Queued requests past their deadline leave first; with the
         tiers on, last cycle's restores commit and new ones begin before
         scheduling.  Under ``TPUSERVE_STRICT_BLOCKS`` every cycle then
-        cross-checks the block and tier accounting."""
+        cross-checks the block and tier accounting.  With the flight
+        recorder on, each successful cycle leaves a step record and the
+        control scalars."""
+        t_cycle = self.clock.monotonic()
         outputs = self._step_inner()
+        if self._flight_on:
+            dispatched = bool(self._dispatch_rids)
+            self.flight.note_step(
+                self._step_kind, len(self._dispatch_rids),
+                self.stats.step_actual_tokens if dispatched else 0,
+                self.stats.step_padded_tokens if dispatched else 0,
+                self.clock.monotonic() - t_cycle)
         if self._slo is not None:
             # the estimator's tick once a successful cycle drives the
             # ladder; the level is mirrored into stats for the gauge
             self._slo.tick(self.scheduler.num_waiting)
             self.stats.brownout_level = self._slo.level
+        if self._flight_on:
+            # the level and per-class delay EWMAs as plain numbers, and the
+            # queue depths even with the classes off
+            self.flight.note_control(
+                **(self._slo.snapshot() if self._slo is not None
+                   else {"brownout_level": 0}),
+                waiting=self.scheduler.num_waiting,
+                running=len(self.scheduler.running))
         if self._strict_blocks:
             self._check_block_integrity()
         return outputs
@@ -854,6 +926,8 @@ class Engine:
 
     def _step_inner(self) -> list[RequestOutput]:
         self._dispatch_rids = ()
+        self._step_kind = "idle"
+        PROF.bump_cycle()
         # before scheduling: deadline-expired queued requests leave, and a
         # stricter-class waiting head may preempt running batch rows
         self._expire_queued_deadlines()
@@ -865,7 +939,8 @@ class Engine:
             # whose copies overlap the step dispatched below
             self._commit_tier_restores()
             self._begin_tier_restores()
-        batch = self.scheduler.schedule()
+        with PROF.phase("schedule"):
+            batch = self.scheduler.schedule()
         if batch is None:
             # nothing schedulable, but a decode result may be in flight
             return pre + self._flush_pending() + self._flush_window()
@@ -892,6 +967,7 @@ class Engine:
     def _run_prefill(self, batch: ScheduledBatch) -> list[RequestOutput]:
         reqs = batch.requests
         self._dispatch_rids = tuple(r.request_id for r in reqs)
+        self._step_kind = "prefill"
         L = batch.padded_len
         B = next_power_of_2(len(reqs))
         exe = self.graphs.get("prefill", B, L)
@@ -905,17 +981,22 @@ class Engine:
             st.tokens[i, :len(ids)] = ids
             st.prompt_lens[i] = len(ids)
             st.slot_ids[i, :len(ids)] = self._token_slots(req.request_id, 0, len(ids))
+            if self._flight_on:
+                self.flight.req_event(req.request_id, "PREFILL", tokens=len(ids),
+                                      replay=bool(req.output_token_ids))
         self._demote_evicted()
         self.faults.check("prefill_dispatch", self._dispatch_rids)
-        exe.load(st)
-        exe.run()
+        with PROF.phase("dispatch"):
+            exe.load(st)
+            exe.run()
         self.scheduler.mark_running(reqs)
         self.stats.num_prefill_steps += 1
         self._note_step_tokens(int(st.prompt_lens[:len(reqs)].sum()), B * L)
         new_tokens = self._sample(exe.logits, reqs, B)
         self._first_token(reqs)
-        return [self._emit_one(r, int(t), from_prefill=True)
-                for r, t in zip(reqs, new_tokens)]
+        with PROF.phase("detokenize"):
+            return [self._emit_one(r, int(t), from_prefill=True)
+                    for r, t in zip(reqs, new_tokens)]
 
     @staticmethod
     def _prefill_tokens(req: Request) -> list[int]:
@@ -962,6 +1043,7 @@ class Engine:
         until its last chunk, which samples the first token."""
         req = batch.requests[0]
         self._dispatch_rids = (req.request_id,)
+        self._step_kind = "prefill_chunk"
         C = batch.padded_len
         ids = self._prefill_tokens(req)
         if req.num_prefilled == 0:
@@ -972,6 +1054,9 @@ class Engine:
             req.num_prefilled = cached
         done = req.num_prefilled
         n = len(ids[done:done + C])
+        if self._flight_on:
+            self.flight.req_event(req.request_id, "PREFILL_CHUNK", done=done, tokens=n,
+                                  total=len(ids))
         exe = self.graphs.get("chunk", C)
         st = exe.stage()
         st.tokens[0, :n] = ids[done:done + n]
@@ -981,8 +1066,9 @@ class Engine:
         st.ctx_lens[0], st.chunk_lens[0] = done, n
         self._demote_evicted()
         self.faults.check("prefill_dispatch", self._dispatch_rids)
-        exe.load(st)
-        exe.run()
+        with PROF.phase("dispatch"):
+            exe.load(st)
+            exe.run()
         req.num_prefilled = done + n
         self.stats.num_prefill_steps += 1
         self.stats.num_chunk_steps += 1
@@ -993,7 +1079,8 @@ class Engine:
         self.scheduler.mark_running([req])
         new_tokens = self._sample(exe.logits, [req], 1)
         self._first_token([req])
-        return [self._emit_one(req, int(new_tokens[0]), from_prefill=True)]
+        with PROF.phase("detokenize"):
+            return [self._emit_one(req, int(new_tokens[0]), from_prefill=True)]
 
     def _run_mixed(self, batch: ScheduledBatch) -> list[RequestOutput]:
         """One mixed step: every running stream's decode row plus the
@@ -1009,6 +1096,7 @@ class Engine:
         pipelined dispatches are flushed first: the step reads every
         decode row's last token on the host."""
         outputs = self._flush_pending() + self._flush_window()
+        self._step_kind = "mixed"
         decode_reqs, slots, _ = self._charge_decode_rows(
             [r for r in batch.requests if not r.finished])
         bm = self.block_manager
@@ -1028,7 +1116,11 @@ class Engine:
                 self._drop_superseded_tier_entries(ids)
                 req.num_prefilled = cached
             done = req.num_prefilled
-            chunks.append((req, ids, done, min(n, len(ids) - done)))
+            take = min(n, len(ids) - done)
+            chunks.append((req, ids, done, take))
+            if self._flight_on:
+                self.flight.req_event(req.request_id, "PREFILL_CHUNK", done=done, tokens=take,
+                                      total=len(ids), mixed=True)
         if not decode_reqs and not chunks:
             return outputs
         self._dispatch_rids = tuple([r.request_id for r in decode_reqs]
@@ -1050,7 +1142,11 @@ class Engine:
         st.slot_ids[:n_dec] = slots
         st.row_seq[:n_dec] = st.q_starts[:n_dec] = st.last_rows[:n_dec] = dec
         st.q_lens[:n_dec] = 1
-        bm.fill_block_tables([r.request_id for r in decode_reqs], st.block_tables)
+        if self._flight_on and decode_reqs:
+            self.flight.req_event_many(tuple(r.request_id for r in decode_reqs), "WINDOW",
+                                       steps=1, mixed=True)
+        with PROF.phase("block"):
+            bm.fill_block_tables([r.request_id for r in decode_reqs], st.block_tables)
         for si, ((req, ids, done, take), start) in enumerate(
                 zip(comp + cont, starts), start=n_dec):
             rows = slice(start, start + take)
@@ -1067,8 +1163,9 @@ class Engine:
         st.meta[:], st.blk_seq[:] = meta, blk_seq
         self._demote_evicted()
         self.faults.check("mixed_dispatch", self._dispatch_rids)
-        exe.load(st)
-        exe.run()
+        with PROF.phase("dispatch"):
+            exe.load(st)
+            exe.run()
         self.stats.num_mixed_steps += 1
         if decode_reqs:
             self.stats.num_decode_steps += 1
@@ -1088,10 +1185,11 @@ class Engine:
             return outputs
         new_tokens = self._sample(exe.logits, emit, B)
         self._first_token(comp_reqs)
-        return (outputs
-                + [self._emit_one(r, int(t)) for r, t in zip(decode_reqs, new_tokens)]
-                + [self._emit_one(r, int(t), from_prefill=True)
-                   for r, t in zip(comp_reqs, new_tokens[n_dec:])])
+        with PROF.phase("detokenize"):
+            return (outputs
+                    + [self._emit_one(r, int(t)) for r, t in zip(decode_reqs, new_tokens)]
+                    + [self._emit_one(r, int(t), from_prefill=True)
+                       for r, t in zip(comp_reqs, new_tokens[n_dec:])])
 
     def _salt(self, req: Request) -> int:
         return self._salts.get(req.request_id, 0)
@@ -1141,7 +1239,9 @@ class Engine:
                 logits, t(temperature), mode=mode,
                 gumbel=lambda: sampling_ops.keyed_gumbel(t(salt), t(step), V),
                 top_k=t(top_k), top_p=t(top_p), min_p=t(min_p))
-        toks_np = toks.cpu().numpy()[:n].copy()
+        with PROF.phase("flush"):
+            # the synchronous sampler's one wait on the card
+            toks_np = toks.cpu().numpy()[:n].copy()
         if any(r.params.logprobs is not None for r in reqs):
             top_n = min(max(r.params.logprobs or 0 for r in reqs) or 1, self.MAX_LOGPROBS)
             chosen, ids, lps = (x.cpu().numpy() for x in
@@ -1216,6 +1316,20 @@ class Engine:
                              self._fsm_tok_fp, fsm)
         self._memoise_fsm(key, fsm)
         return fsm
+
+    def compile_cache_stats(self) -> dict:
+        """Hits, misses and size of the engine's two compile caches, the
+        grammar-FSM memo and the executable ladder (``runtime/graphs.py``:
+        a miss makes an executable, on the card a captured graph), in the
+        JAX engine's shape; /debug/engine reports them."""
+        g = self.graphs
+        return {
+            "fsm": {"hits": self._fsm_stats["hits"], "misses": self._fsm_stats["misses"],
+                    "disk_hits": self._fsm_stats["disk_hits"], "size": len(self._fsm_cache)},
+            "ladder": {"hits": g.hits, "misses": len(g.executables),
+                       "size": len(g.executables),
+                       "compile_ms": round(g.capture_s * 1000.0, 3), "tracked": True},
+        }
 
     def _memoise_fsm(self, key: tuple, fsm) -> None:
         """The FIFO memo of compiled FSMs, evicting one entry (and its
@@ -1469,7 +1583,7 @@ class Engine:
         step's outputs."""
         bm = self.block_manager
         outputs = []
-        while bm.decode_shortfall([r.request_id for r in reqs]) > 0:
+        while self._decode_shortfall(reqs) > 0:
             if self._pending is not None:
                 outputs += self._flush_pending()
                 reqs = [r for r in reqs if not r.finished]
@@ -1482,9 +1596,14 @@ class Engine:
         self._dispatch_rids = tuple(r.request_id for r in reqs)
         self.faults.check("kv_alloc", self._dispatch_rids)
         slots = np.empty((len(reqs),), np.int32)
-        if bm.charge_decode([r.request_id for r in reqs], slots):
-            raise MemoryError("out of KV blocks on append")
+        with PROF.phase("block"):
+            if bm.charge_decode([r.request_id for r in reqs], slots):
+                raise MemoryError("out of KV blocks on append")
         return reqs, slots, outputs
+
+    def _decode_shortfall(self, reqs: list[Request]) -> int:
+        with PROF.phase("block"):
+            return self.block_manager.decode_shortfall([r.request_id for r in reqs])
 
     # ---- decode -------------------------------------------------------
 
@@ -1550,26 +1669,29 @@ class Engine:
             out_tokens, mask, st.presence[:], st.frequency[:], st.repetition[:] = \
                 self._penalty_arrays(reqs, B)
             f_ids, f_vals, st.floor_remaining[:] = self._min_tokens_arrays(reqs, B, V)
-        self.block_manager.fill_block_tables([r.request_id for r in reqs],
-                                             st.block_tables)
+        with PROF.phase("block"):
+            self.block_manager.fill_block_tables([r.request_id for r in reqs],
+                                                 st.block_tables)
         self._demote_evicted()
         self.faults.check("decode_dispatch", self._dispatch_rids)
-        exe.load(st, chain=(pending.exe, pending.steps) if chain_idx else None)
-        if pen:
-            exe.load_extras(np.where(mask, out_tokens, V),
-                            *self._logit_bias_arrays(reqs, B, V), f_ids, f_vals)
-        if tables:
-            self.graphs.load_grammar(bucket, fsms[0][0], *tables)
-        elif fsms:
-            self.graphs.load_grammar(bucket, None, self._tensor(self._fsm_rows(reqs, B)[0]))
-        logits = None
-        if need_logits:
-            # the iteration run eagerly on the buffers, captured or not:
-            # its (B, V) logits, extras and mask applied
-            logits = exe.step()
-        else:
-            exe.run(steps)
-        toks, lps, event = exe.fetch(steps)
+        with PROF.phase("dispatch"):
+            exe.load(st, chain=(pending.exe, pending.steps) if chain_idx else None)
+            if pen:
+                exe.load_extras(np.where(mask, out_tokens, V),
+                                *self._logit_bias_arrays(reqs, B, V), f_ids, f_vals)
+            if tables:
+                self.graphs.load_grammar(bucket, fsms[0][0], *tables)
+            elif fsms:
+                self.graphs.load_grammar(bucket, None,
+                                         self._tensor(self._fsm_rows(reqs, B)[0]))
+            logits = None
+            if need_logits:
+                # the iteration run eagerly on the buffers, captured or
+                # not: its (B, V) logits, extras and mask applied
+                logits = exe.step()
+            else:
+                exe.run(steps)
+            toks, lps, event = exe.fetch(steps)
         self.stats.num_decode_steps += steps
         self._note_step_tokens(len(reqs) * steps, B * steps)
         return exe, toks, lps, event, logits
@@ -1613,8 +1735,11 @@ class Engine:
         outputs += flushed
         if not reqs:
             return outputs + self._flush_pending()
+        self._step_kind = "decode"
         chain = ({r.request_id: pend_idx[r.request_id] for r in reqs
                   if r.request_id in pend_idx} if self._pending is not None else {})
+        if self._flight_on:
+            self.flight.req_event_many(self._dispatch_rids, "WINDOW", steps=1)
         sub = any(r.request_id in self._guided for r in reqs)
         exe, toks, lps, event, logits = self._dispatch(reqs, 1, 1, chain, pending,
                                                        need_logits=sub)
@@ -1638,8 +1763,9 @@ class Engine:
         cap = self.cache_cfg.max_blocks_per_seq * self.cache_cfg.block_size
         if any(r.num_tokens - 1 + window > cap for r in reqs):
             return False
-        return self.block_manager.reserve_batch(
-            [r.request_id for r in reqs], [r.num_tokens - 1 + window for r in reqs])
+        with PROF.phase("block"):
+            return self.block_manager.reserve_batch(
+                [r.request_id for r in reqs], [r.num_tokens - 1 + window for r in reqs])
 
     def _window_steps(self) -> int:
         """The next window's size: ``multi_step`` in steady state,
@@ -1699,6 +1825,7 @@ class Engine:
         if not reqs:
             return outputs + self._flush_window()
         self._dispatch_rids = tuple(r.request_id for r in reqs)
+        self._step_kind = "window"
         self.faults.check("kv_alloc", self._dispatch_rids)
         # rows continuing the in-flight window need its steps too: its KV
         # commit has not run yet
@@ -1707,6 +1834,10 @@ class Engine:
             return outputs + self._run_decode(batch)
         chain = {r.request_id: pend_idx[r.request_id] for r in reqs
                  if r.request_id in pend_idx}
+        if self._flight_on:
+            # at the dispatch, as the JAX engine: a fault at the flush still
+            # shows the window in the timeline; one entry for the batch
+            self.flight.req_event_many(self._dispatch_rids, "WINDOW", steps=S)
         exe, toks, lps, event, _ = self._dispatch(reqs, S, p.steps if p is not None else 0,
                                                   chain, p, window=True)
         self.stats.num_decode_windows += 1
@@ -1737,26 +1868,29 @@ class Engine:
         # a fault site of its own (the wait for the card's output): the
         # window is detached already, so a fault drops it for salvage
         self.faults.check("window_flush", tuple(r.request_id for r in p.reqs))
-        toks_h, lp_h = _read(p)
+        with PROF.phase("flush"):
+            toks_h, lp_h = _read(p)
         # commit the written KV before emitting (a finish frees blocks);
         # rows that finished in flight were freed already
-        self.block_manager.advance_batch(
-            [r.request_id for r in p.reqs if not r.finished], p.steps)
+        with PROF.phase("block"):
+            self.block_manager.advance_batch(
+                [r.request_id for r in p.reqs if not r.finished], p.steps)
         outputs = []
-        for i, r in enumerate(p.reqs):
-            if r.finished:
-                self.stats.window_overrun_tokens += p.steps
-                continue
-            for s in range(p.steps):
-                if lp_h is not None and r.params.logprobs is not None:
-                    # before the emit, and only for consumed tokens
-                    self._append_logprob_entry(r, int(toks_h[i, s]), lp_h[0][i, s],
-                                               lp_h[1][i, s], lp_h[2][i, s])
-                out = self._emit_one(r, int(toks_h[i, s]))
-                outputs.append(out)
-                if out.finished:
-                    self.stats.window_overrun_tokens += p.steps - 1 - s
-                    break
+        with PROF.phase("detokenize"):
+            for i, r in enumerate(p.reqs):
+                if r.finished:
+                    self.stats.window_overrun_tokens += p.steps
+                    continue
+                for s in range(p.steps):
+                    if lp_h is not None and r.params.logprobs is not None:
+                        # before the emit, and only for consumed tokens
+                        self._append_logprob_entry(r, int(toks_h[i, s]), lp_h[0][i, s],
+                                                   lp_h[1][i, s], lp_h[2][i, s])
+                    out = self._emit_one(r, int(toks_h[i, s]))
+                    outputs.append(out)
+                    if out.finished:
+                        self.stats.window_overrun_tokens += p.steps - 1 - s
+                        break
         return outputs
 
     def _flush_pending(self) -> list[RequestOutput]:
@@ -1766,15 +1900,17 @@ class Engine:
         p, self._pending = self._pending, None
         if p is None:
             return []
-        toks_h, lp_h = _read(p)
+        with PROF.phase("flush"):
+            toks_h, lp_h = _read(p)
         outputs = []
-        for i, r in enumerate(p.reqs):
-            if r.finished:
-                continue
-            if lp_h is not None and r.params.logprobs is not None:
-                self._append_logprob_entry(r, int(toks_h[i, 0]), lp_h[0][i, 0],
-                                           lp_h[1][i, 0], lp_h[2][i, 0])
-            outputs.append(self._emit_one(r, int(toks_h[i, 0])))
+        with PROF.phase("detokenize"):
+            for i, r in enumerate(p.reqs):
+                if r.finished:
+                    continue
+                if lp_h is not None and r.params.logprobs is not None:
+                    self._append_logprob_entry(r, int(toks_h[i, 0]), lp_h[0][i, 0],
+                                               lp_h[1][i, 0], lp_h[2][i, 0])
+                outputs.append(self._emit_one(r, int(toks_h[i, 0])))
         return outputs
 
     # ---- tiered KV cache (runtime/kv_tiers.py) ------------------------
@@ -1892,6 +2028,7 @@ class Engine:
             self._demote_evicted()
             scatter_block_pages(self.kv_cache, blocks, pages, self._staging())
             req.state = RequestState.RESTORING
+            self.flight.req_event(req.request_id, "RESTORING", blocks=len(blocks))
             self._restores[req.request_id] = (span, blocks, self.clock.monotonic())
             self.stats.kv_restores += 1
             self.stats.kv_restored_blocks += len(blocks)
@@ -1947,6 +2084,8 @@ class Engine:
             req.finish_time = self.clock.monotonic()
             self.scheduler.finish(req)
             self.stats.requests_finished += 1
+            self.flight.req_event(req.request_id, "FINISHED", cause=reason.value,
+                                  output_tokens=len(req.output_token_ids))
             self._release(req.request_id)
         return RequestOutput(
             request_id=req.request_id, new_token_ids=[tok], new_text=delta,

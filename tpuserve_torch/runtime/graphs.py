@@ -439,6 +439,7 @@ class StepGraphs:
         # None: the runner's watchdog discounts a step's capture time
         self.capturing_since: float | None = None
         self.replays = collections.Counter()      # by step kind
+        self.hits = 0                # get() calls that found their executable
         self._sampling_buffers = None
         # (N, C) grammar bucket -> [masks, tok_class, class_next, loaded tag]
         self._grammar: dict = {}
@@ -494,7 +495,9 @@ class StepGraphs:
 
     def get(self, *key) -> Executable:
         exe = self.executables.get(key)
-        if exe is None:
+        if exe is not None:
+            self.hits += 1
+        else:
             if key[0] == "decode":
                 exe = DecodeExecutable(self, key)
             elif key[0] in _BODIES:

@@ -32,8 +32,9 @@ runs classless FIFO.
 
 Level 1's consumer is speculative decoding, which the port does not carry
 yet (ROADMAP.md A7): ``spec_paused_for`` is ported and tested, and nothing
-calls it.  ``flight`` stays None until the flight recorder is ported
-(ROADMAP.md A5b); transitions are then logged without its client SLIs.
+calls it.  ``flight`` is the engine's flight recorder (``runtime/flight.py``,
+None with it off): each level transition's log line quotes its client SLI
+percentiles.
 """
 
 from __future__ import annotations
@@ -127,7 +128,8 @@ class SloController:
         # (drained by server/runner.py on the loop thread)
         self.delay_obs: list[tuple[str, float]] = []
         self.shed_total = 0
-        # the flight recorder (ROADMAP.md A5b): None until it is ported
+        # the engine's flight recorder (runtime/flight.py), set by the
+        # engine; None with the recorder off
         self.flight = None
 
     # ---- estimator inputs ------------------------------------------------

@@ -7,10 +7,11 @@ The card's machine has no ``prometheus_client``, so the port renders the
 text exposition format itself (``_Family``).  Of the ``tpuserve_*``
 families, guided decoding's, the tiered KV cache's, the SLO controller's
 (sheds, class preemptions, the brownout level, the per-class queue-delay
-histogram and the client TTFT / ITL twins) and crash-only
-recovery's (salvaged, poisoned, watchdog trips, engine restarts) are
-served; those of tenants, the device profiler, the flight recorder and
-the model pool wait for those modules (ROADMAP.md A5b, A9).
+histogram and the client TTFT / ITL / end-to-end twins), crash-only
+recovery's (salvaged, poisoned, watchdog trips, engine restarts) and the
+flight recorder's (post-mortem bundles, on-demand dumps) are served;
+those of tenants, the device profiler and the model pool wait for those
+modules (ROADMAP.md A9).
 """
 
 from __future__ import annotations
@@ -238,6 +239,11 @@ class ServerMetrics:
             "tpuserve_itl_seconds",
             "Client-observable inter-token latency per SLO class (re-prefill replay "
             "gaps excluded like vllm_time_per_output_token_seconds)", _ITL_BUCKETS)
+        self.e2e_class = class_histogram(
+            "tpuserve_e2e_seconds",
+            "Client-observable end-to-end request latency per SLO class (slo_class= "
+            "label; submit to finish).  Buckets include sub-100ms edges (SLI_BUCKETS) "
+            "so burn-rate math resolves fast classes", _SLI_E2E_BUCKETS)
         # crash-only recovery (server/runner.py), as the JAX server's
         self.requests_salvaged = counter(
             "tpuserve_requests_salvaged_total",
@@ -257,6 +263,19 @@ class ServerMetrics:
             "tpuserve_engine_restarts",
             "Whole-engine fail-all fallbacks: fault storms past the salvage window "
             "or unrecoverable hangs - each count failed every in-flight stream")
+        # the flight recorder (runtime/flight.py), as the JAX server's
+        self.flight_postmortems = counter(
+            "tpuserve_flight_postmortems",
+            "Post-mortem bundles written by the engine flight recorder (watchdog "
+            "trip, fault-storm fail-all, poison isolation) — each count is a JSON "
+            "file of the last N engine cycles + affected request timelines under "
+            "TPUSERVE_FLIGHT_DIR (/debug/engine reports the newest path)")
+        self.replay_dumps = counter(
+            "tpuserve_replay_dumps",
+            "Replay-ready flight bundles exported on demand via GET "
+            "/debug/engine/dump (tools/replay.py dump) — unlike post-mortems these "
+            "capture a HEALTHY engine's recent timelines for trace-driven replay "
+            "(tpuserve/replay/)")
 
     def observe_finish(self, reason: str, duration_s: float) -> None:
         self.request_success.labels(model_name=self.model_name,

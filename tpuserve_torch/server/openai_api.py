@@ -2,11 +2,15 @@
 ``tpuserve/server/openai_api.py`` (stdlib HTTP, no web framework).
 
 Serves ``GET /v1/models``, ``/v1/models/{id}``, ``/metrics``, ``/healthz``
-(liveness, with the brownout level and the JAX server's cache-affinity
-fields: KV blocks by tier and the prefix digest, ``server/kv_digest.py``)
-and ``/readyz``; ``POST
+(liveness, with the brownout level, ``cold_start_s`` and the JAX server's
+cache-affinity fields: KV blocks by tier and the prefix digest,
+``server/kv_digest.py``), ``/readyz`` and the flight recorder's
+``/debug/engine``, ``/debug/engine/dump`` and ``/debug/requests/{id}``
+(``runtime/flight.py``; 404 with the recorder off); ``POST
 /v1/completions`` and ``/v1/chat/completions``, streamed (SSE) or not,
-and ``/tokenize`` / ``/detokenize``.
+and ``/tokenize`` / ``/detokenize``.  Each API request is one span
+(``server/tracing.py``: OTLP when an exporter is configured), its parent
+the incoming ``traceparent``, its engine timeline the child spans.
 
 Every sampling option of the JAX server is served: top_k/top_p/min_p, the
 penalties, ``logit_bias``, ``min_tokens``, ``logprobs``/``top_logprobs``
@@ -14,12 +18,13 @@ penalties, ``logit_bias``, ``min_tokens``, ``logprobs``/``top_logprobs``
 (candidates ranked by cumulative logprob) and guided decoding
 (``response_format`` json_object / json_schema, ``guided_regex``,
 ``guided_choice``; a bad schema, pattern or choice list is a 400 with the
-JAX server's message).  Options whose engine parts are not ported yet are
-answered with a 400 that names the ROADMAP.md item bringing them, checked
-before the request is submitted, so a streaming request gets the status
-line and not a broken event stream: tool calls (A5b), prompt scoring
-(``prompt_logprobs``, ``echo`` with ``logprobs``) and ``/v1/embeddings``
-(A7).
+JAX server's message) and tool calls (``tools`` / ``tool_choice`` on the
+chat route, full and streamed: ``server/tool_calls.py``).  Options whose
+engine parts are not ported yet are answered with a 400 that names the
+ROADMAP.md item bringing them, checked before the request is submitted, so
+a streaming request gets the status line and not a broken event stream:
+prompt scoring (``prompt_logprobs``, ``echo`` with ``logprobs``) and
+``/v1/embeddings`` (A7).
 
 SLO classes (``slo_class`` in the body or the ``X-SLO-Class`` header) reach
 the engine's controller (``runtime/slo.py``): a request the brownout
@@ -53,7 +58,8 @@ from tpuserve_torch.server.kv_digest import (
     AFFINITY_PREFIX_CHARS, PrefixDigestTracker, affinity_key)
 from tpuserve_torch.server.metrics import ServerMetrics
 from tpuserve_torch.server.runner import AsyncEngineRunner
-from tpuserve_torch.server.tool_calls import normalize_messages
+from tpuserve_torch.server.tool_calls import ToolContext, normalize_messages
+from tpuserve_torch.server.tracing import emit_timeline_spans, extract_context, get_tracer
 
 logger = logging.getLogger("tpuserve_torch.server")
 
@@ -75,6 +81,9 @@ class ServerConfig:
     chat_template: Optional[str] = None
     # Retry-After seconds on the drain-time 503
     drain_retry_after_s: int = 1
+    # tool-call parser ("hermes", "mistral", "llama3_json"); None infers it
+    # from the model family (server/tool_calls.py)
+    tool_call_parser: Optional[str] = None
 
 
 def _num(body: dict, key: str, default, cast):
@@ -227,8 +236,6 @@ def _sampling_from_request(body: dict, cap: int) -> SamplingParams:
 def _reject_unported_request(body: dict, params: SamplingParams, chat: bool) -> None:
     """NotImplementedError (a 400 naming its ROADMAP.md item) for a request
     that needs a part this port does not carry yet; called before submit."""
-    if body.get("tools") is not None or body.get("tool_choice") not in ("auto", "none", None):
-        raise NotImplementedError("not ported yet: tool calls (ROADMAP.md A5b)")
     if body.get("prompt_logprobs") is not None:
         raise NotImplementedError("not ported yet: prompt_logprobs (score_prompt: "
                                   "ROADMAP.md A7)")
@@ -329,6 +336,7 @@ class OpenAIServer:
         out: dict = {"status": "ok"}
         try:
             out["brownout_level"] = self.engine.stats.brownout_level
+            out["cold_start_s"] = self.runner.cold_start_s
             tiers = self.engine.kv_tier_blocks()
             out["kv_tier_blocks"] = tiers
             # reach is in blocks; a tracked key is a whole prompt prefix
@@ -377,32 +385,72 @@ class OpenAIServer:
         return best_of
 
     def handle_completion(self, body: dict, chat: bool):
-        """(prompt text or token ids, SamplingParams)."""
+        """(prompt text or token ids, SamplingParams, ToolContext or None).
+        A chat request's tools ride its template; a forced call
+        (``tool_choice`` required or named) appends the parser's prefix to
+        the prompt, and the same prefix is put back before the output is
+        parsed."""
+        toolctx = None
         if chat:
             messages = body.get("messages")
             if not isinstance(messages, list) or not messages:
                 raise ValueError("'messages' must be a non-empty list")
             messages = normalize_messages(messages)
+            toolctx = ToolContext.from_body(body, self.model_name,
+                                            self.config.tool_call_parser)
+            tools = toolctx.raw_tools if toolctx else None
             tok = self.engine.tokenizer
             if self._chat_template is not None:
                 prompt = self._chat_template.render(messages=messages,
-                                                    add_generation_prompt=True)
+                                                    add_generation_prompt=True, tools=tools)
             elif hasattr(tok, "apply_chat_template"):
-                prompt = tok.apply_chat_template(messages)
+                prompt = tok.apply_chat_template(messages, tools=tools)
             else:
-                prompt = default_chat_template(messages)
+                instr = (toolctx.parser.prompt_instruction(json.dumps(tools))
+                         if toolctx else None)
+                prompt = default_chat_template(messages, tools=tools, tool_instruction=instr)
+            if toolctx is not None and toolctx.forced:
+                prompt += toolctx.forced
         else:
             prompt = body.get("prompt")
             if isinstance(prompt, list):
                 if prompt and isinstance(prompt[0], int):
-                    return prompt, _sampling_from_request(body, self.config.max_tokens_cap)
+                    return (prompt, _sampling_from_request(body, self.config.max_tokens_cap),
+                            None)
                 if len(prompt) != 1:
                     raise ValueError("batched prompt lists are not supported; send one "
                                      "request per prompt")
                 prompt = prompt[0]
             if not isinstance(prompt, str) or not prompt:
                 raise ValueError("'prompt' must be a non-empty string")
-        return prompt, _sampling_from_request(body, self.config.max_tokens_cap)
+        return prompt, _sampling_from_request(body, self.config.max_tokens_cap), toolctx
+
+    # ---- the flight recorder's views (handler threads: snapshots only) --
+
+    def debug_engine_payload(self) -> dict:
+        """/debug/engine: the recorder's snapshot (recent step records with
+        their host phases, recent request ids, client SLIs, control
+        scalars, post-mortem pointers), ``cold_start_s`` and the compile
+        caches; ``{"enabled": False}`` with the recorder off."""
+        flights = self.runner._flights()
+        if not flights:
+            return {"enabled": False}
+        out = flights[0].engine_snapshot()
+        out["cold_start_s"] = self.runner.cold_start_s
+        out["compile_caches"] = self.engine.compile_cache_stats()
+        return out
+
+    def emit_engine_spans(self, rids) -> None:
+        """Each request's flight timeline as child spans of the current
+        request span; a no-op unless an OTLP exporter is configured."""
+        tracer = get_tracer()
+        if not tracer.active:
+            return
+        for fl in self.runner._flights():
+            for rid in rids:
+                timeline = fl.request_timeline(rid)
+                if timeline:
+                    emit_timeline_spans(tracer, timeline, fl.wall_of)
 
 
 def _status_of(exc: Exception) -> tuple[int, str, Optional[dict]]:
@@ -496,6 +544,29 @@ class _Handler(BaseHTTPRequestHandler):
                 self._json(200, {"status": "ready"})
             else:
                 self._error(503, "not ready", "server_error")
+        elif self.path == "/debug/engine":
+            self._json(200, ctx.debug_engine_payload())
+        elif self.path == "/debug/engine/dump":
+            # a replay-ready bundle on demand, in the post-mortems' format;
+            # snapshot reads only, the engine keeps serving
+            flights = ctx.runner._flights()
+            if not flights:
+                self._error(404, "flight recorder disabled (TPUSERVE_FLIGHT=0): nothing to dump")
+            else:
+                bundle = flights[0].dump_bundle("on_demand")
+                ctx.metrics.replay_dumps.inc()
+                self._json(200, bundle)
+        elif self.path.startswith("/debug/requests/"):
+            rid = unquote(self.path[len("/debug/requests/"):])
+            flights = ctx.runner._flights()
+            timeline = flights[0].request_timeline(rid) if flights else []
+            if timeline:
+                self._json(200, {"request_id": rid, "events": timeline})
+            elif not flights:
+                self._error(404, "flight recorder disabled (TPUSERVE_FLIGHT=0)")
+            else:
+                self._error(404, f"no recorded events for {rid!r} (the ring holds the "
+                                 "most recent TPUSERVE_FLIGHT_EVENTS events)")
         else:
             self._error(404, f"no route {self.path}")
 
@@ -530,7 +601,7 @@ class _Handler(BaseHTTPRequestHandler):
             body = self._read_body()
             if not chat and body.get("suffix") is not None:
                 raise ValueError("'suffix' is not supported")
-            prompt, params = ctx.handle_completion(body, chat)
+            prompt, params, toolctx = ctx.handle_completion(body, chat)
             n = ctx.parse_n(body)
             best_of = ctx.parse_best_of(body, n, chat, params)
             stream = bool(body.get("stream", False))
@@ -562,12 +633,18 @@ class _Handler(BaseHTTPRequestHandler):
         kwargs = ({"prompt_token_ids": prompt} if isinstance(prompt, list)
                   else {"prompt": prompt})
         try:
-            if stream:
-                # _stream_response owns its errors: once SSE headers are
-                # out, a second status line would corrupt the stream
-                self._stream_response(body, params, chat, kwargs, n)
-            else:
-                self._full_response(body, params, chat, kwargs, n, best_of)
+            # one span a request, its parent the incoming W3C traceparent
+            with get_tracer().request_span(
+                    self.path, context=extract_context(self.headers),
+                    **{"gen_ai.request.model": ctx.model_name,
+                       "gen_ai.request.max_tokens": params.max_tokens,
+                       "tpuserve.stream": stream}):
+                if stream:
+                    # _stream_response owns its errors: once SSE headers are
+                    # out, a second status line would corrupt the stream
+                    self._stream_response(body, params, chat, kwargs, n, toolctx)
+                else:
+                    self._full_response(body, params, chat, kwargs, n, best_of, toolctx)
         except BrokenPipeError:
             pass
         except Exception as e:               # engine-side failure, pre-headers
@@ -662,12 +739,14 @@ class _Handler(BaseHTTPRequestHandler):
             return kwargs["prompt"]
         return tok.decode(kwargs["prompt_token_ids"])
 
-    def _full_response(self, body, params, chat, kwargs, n=1, best_of=None):
+    def _full_response(self, body, params, chat, kwargs, n=1, best_of=None, toolctx=None):
         """The whole answer in one body.  ``best_of > n``: ``best_of``
         candidates are sampled and the n of highest cumulative logprob
         kept (a stable sort: ties keep submission order); without
         ``logprobs`` the ranking records chosen-token logprobs
-        (``logprobs=0``), stripped from the response."""
+        (``logprobs=0``), stripped from the response.  With tools, a
+        parsed call is the message's ``tool_calls`` and a ``stop`` finish
+        becomes ``tool_calls``."""
         ctx = self.ctx
         best_of = best_of or n
         rank_params, internal_logprobs = params, False
@@ -721,8 +800,15 @@ class _Handler(BaseHTTPRequestHandler):
             if internal_logprobs:
                 entries = []
             if chat:
-                choice = {"index": idx, "message": {"role": "assistant", "content": text},
-                          "finish_reason": finish_reason}
+                message = {"role": "assistant", "content": text}
+                if toolctx is not None:
+                    content, tool_calls = toolctx.postprocess(text)
+                    if tool_calls:
+                        message = {"role": "assistant", "content": content,
+                                   "tool_calls": tool_calls}
+                        if finish_reason == "stop":
+                            finish_reason = "tool_calls"
+                choice = {"index": idx, "message": message, "finish_reason": finish_reason}
                 if entries:
                     choice["logprobs"] = self._chat_logprobs(entries)
             else:
@@ -730,6 +816,7 @@ class _Handler(BaseHTTPRequestHandler):
                 if entries:
                     choice["logprobs"] = self._completions_logprobs(entries)
             choices.append(choice)
+        ctx.emit_engine_spans([rid for rid, _ in submits])
         self._json(200, {
             "id": f"cmpl-{uuid.uuid4().hex[:24]}",
             "object": "chat.completion" if chat else "text_completion",
@@ -738,7 +825,7 @@ class _Handler(BaseHTTPRequestHandler):
                       "completion_tokens": completion_tokens,
                       "total_tokens": prompt_tokens + completion_tokens}})
 
-    def _stream_response(self, body, params, chat, kwargs, n=1):
+    def _stream_response(self, body, params, chat, kwargs, n=1, toolctx=None):
         ctx = self.ctx
         served = ctx.model_name
         # vLLM extension: each chunk's token ids, so clients count tokens
@@ -840,6 +927,10 @@ class _Handler(BaseHTTPRequestHandler):
                     send_chunk(chunk)
             errored = False
             lp_cursor = [0] * n        # each choice's logprob entries sent so far
+            # tools: marker text is held out of each choice's content
+            # deltas; the parsed calls leave as a trailing tool_calls delta
+            filters = ([toolctx.stream_filter() for _ in range(n)]
+                       if chat and toolctx is not None else None)
             live = n
             # a sentinel, not None: a first item of None (the finish marker
             # of an instant abort) must still be delivered
@@ -871,9 +962,22 @@ class _Handler(BaseHTTPRequestHandler):
                     live -= 1
                     continue
                 finish = item.finish_reason.value if item.finish_reason else None
+                tc_deltas = None
                 if chat:
-                    delta = {"content": item.new_text} if item.new_text else {}
-                    choice = {"index": idx, "delta": delta, "finish_reason": finish}
+                    text_out = item.new_text
+                    if filters is not None:
+                        text_out = filters[idx].feed(item.new_text)
+                        if finish is not None:
+                            tail, calls = filters[idx].finish()
+                            text_out += tail
+                            if calls:
+                                tc_deltas = [dict(c.as_openai(), index=ci)
+                                             for ci, c in enumerate(calls)]
+                                if finish == "stop":
+                                    finish = "tool_calls"
+                    delta = {"content": text_out} if text_out else {}
+                    choice = {"index": idx, "delta": delta,
+                              "finish_reason": None if tc_deltas else finish}
                 else:
                     choice = {"index": idx, "text": item.new_text, "finish_reason": finish}
                 if params.logprobs is not None and item.new_token_ids:
@@ -897,6 +1001,16 @@ class _Handler(BaseHTTPRequestHandler):
                 if include_usage:
                     chunk["usage"] = None
                 send_chunk(chunk)
+                if tc_deltas:
+                    # the parsed calls and the real finish reason (the content
+                    # chunk above sent None)
+                    tchunk = {"id": oid, "object": obj, "created": int(time.time()),
+                              "model": served,
+                              "choices": [{"index": idx, "delta": {"tool_calls": tc_deltas},
+                                           "finish_reason": finish}]}
+                    if include_usage:
+                        tchunk["usage"] = None
+                    send_chunk(tchunk)
             if include_usage and not errored:
                 send_chunk({"id": oid, "object": obj, "created": int(time.time()),
                             "model": served, "choices": [],
@@ -914,6 +1028,9 @@ class _Handler(BaseHTTPRequestHandler):
             logger.exception("streaming failed")
             abort_all()
         finally:
+            # still inside the request span: the engine's child spans
+            # attach under it, on the client-gone paths too
+            ctx.emit_engine_spans([rid for rid, _ in submits])
             for rid, _ in submits:
                 ctx.engine.requests.pop(rid, None)
 
@@ -942,8 +1059,6 @@ _UNPORTED_FLAGS = (
     ("--weight-spill-dir", dict(default=None), "A9, the model pool"),
     ("--tenant-config", dict(default=None), "A9, tenants"),
     ("--slo-objectives", dict(default=None), "A9, SLO burn rates"),
-    ("--tool-call-parser", dict(default=None, choices=["hermes", "mistral", "llama3_json"]),
-     "A5b, tool calls"),
 )
 
 
@@ -993,6 +1108,9 @@ def build_parser():
     ap.add_argument("--no-pipeline", dest="pipeline", action="store_false")
     ap.add_argument("--chat-template", default=None,
                     help="path to a Jinja chat template overriding the tokenizer's")
+    ap.add_argument("--tool-call-parser", default=None,
+                    choices=["hermes", "mistral", "llama3_json"],
+                    help="tool-call output format (default: inferred from the model family)")
     ap.add_argument("--no-warmup", action="store_true")
     ap.add_argument("--drain-timeout", type=float, default=25.0,
                     help="graceful-drain budget on SIGTERM, seconds")
@@ -1060,7 +1178,8 @@ def main(argv=None):
     except RuntimeError as e:                    # no card, and no --device cpu
         sys.exit(f"tpuserve_torch.server: {e}")
     server = OpenAIServer(engine, ServerConfig(host=args.host, port=args.port,
-                                               chat_template=chat_template))
+                                               chat_template=chat_template,
+                                               tool_call_parser=args.tool_call_parser))
     port = server.start(warmup=not args.no_warmup)
     print(f"tpuserve_torch listening on {args.host}:{port}", flush=True)
     # SIGTERM drains (readyz 503, new work 503, in-flight work finishes)

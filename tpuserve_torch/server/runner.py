@@ -19,8 +19,14 @@ injected hang into the salvage path, and fails the clients of a step still
 stuck at twice the threshold.  A real sticky device error re-faults every
 probe and ends in that fault-storm fail-all, never in a loop.
 
-Not ported: SLO burn-rate evaluation, the model pool and the flight
-recorder's post-mortems (ROADMAP.md A5b, A9).
+With the engine's flight recorder on (``runtime/flight.py``), a poison
+isolation, a fault storm's fail-all and a watchdog trip each write a
+post-mortem bundle (counted in ``EngineStats.flight_postmortems``), and
+every client TTFT, inter-token gap and end-to-end time is also a sample of
+the recorder's per-class SLI reservoirs.  ``cold_start_s`` is the first
+token any request received, in seconds since this module was imported.
+
+Not ported: SLO burn-rate evaluation and the model pool (ROADMAP.md A9).
 """
 
 from __future__ import annotations
@@ -37,6 +43,12 @@ from tpuserve_torch.runtime.clock import MONOTONIC
 from tpuserve_torch.runtime.request import RequestOutput, RequestState, SamplingParams
 
 logger = logging.getLogger("tpuserve_torch.server")
+
+# the cold-start anchor: `python -m tpuserve_torch.server` imports this
+# module before the weights load and the graphs are captured, so the
+# first token's time since it is the process's cold start (real seconds:
+# a process boots on the real clock)
+_BOOT_MONOTONIC = time.monotonic()
 
 
 def _advance_counter(ctr, cumulative) -> None:
@@ -130,6 +142,9 @@ class AsyncEngineRunner:
         self._hard_trip_seq: Optional[int] = None
         self._fail_lock = threading.Lock()
         self._watchdog_thread: Optional[threading.Thread] = None
+        # boot -> the first token served, seconds (None until then);
+        # /healthz and /debug/engine report it
+        self.cold_start_s: Optional[float] = None
 
     # ---- lifecycle -----------------------------------------------------
 
@@ -247,24 +262,36 @@ class AsyncEngineRunner:
     def _route_outputs(self, outputs: list[RequestOutput]) -> None:
         now = self._clock.monotonic()
         m = self.metrics
+        flights = self._flights()
         for out in outputs:
+            if self.cold_start_s is None and out.new_token_ids:
+                self.cold_start_s = round(time.monotonic() - _BOOT_MONOTONIC, 6)
+                logger.info("cold start: first token %.3fs after boot", self.cold_start_s)
             q = self._out_queues.get(out.request_id)
-            if m:
-                m.generation_tokens.inc(len(out.new_token_ids))
+            cls = label = None
+            if m or flights:
+                cls = self._slo_class_of(out.request_id)
+                if m:
+                    m.generation_tokens.inc(len(out.new_token_ids))
                 last = self._last_token_time.get(out.request_id)
-                label = dict(model_name=m.model_name,
-                             slo_class=self._slo_class_of(out.request_id))
+                label = dict(model_name=m.model_name, slo_class=cls) if m else None
                 if last is not None:
                     if out.num_output_tokens == 1:
                         ttft = now - self._req_started.get(out.request_id, now)
-                        m.ttft.observe(ttft)
-                        m.ttft_class.labels(**label).observe(ttft)
+                        if m:
+                            m.ttft.observe(ttft)
+                            m.ttft_class.labels(**label).observe(ttft)
+                        for fl in flights:
+                            fl.note_sli(cls, "ttft", ttft)
                     elif not out.from_prefill:
                         # a from_prefill emission past the first token is a
                         # re-prefill after a preemption or salvage: its gap
                         # is queue and recompute time, not inter-token latency
-                        m.itl.observe(now - last)
-                        m.itl_class.labels(**label).observe(now - last)
+                        if m:
+                            m.itl.observe(now - last)
+                            m.itl_class.labels(**label).observe(now - last)
+                        for fl in flights:
+                            fl.note_sli(cls, "itl", now - last)
                 self._last_token_time[out.request_id] = now
             if q is not None:
                 q.put(out)
@@ -273,6 +300,9 @@ class AsyncEngineRunner:
                 if m:
                     reason = out.finish_reason.value if out.finish_reason else "stop"
                     m.observe_finish(reason, now - started)
+                    m.e2e_class.labels(**label).observe(now - started)
+                for fl in flights:
+                    fl.note_sli(cls, "e2e", now - started)
                 self._last_token_time.pop(out.request_id, None)
                 # the request record stays in engine.requests: the caller
                 # that submitted claims (pops) it for usage
@@ -327,6 +357,8 @@ class AsyncEngineRunner:
             q.put(None)
         if poisoned:
             self._bump_stat("requests_poisoned")
+            # the isolated request's whole lifecycle, faults included
+            self._dump_postmortem("poison", (rid,))
         logger.warning("request %s failed: %s", rid, message)
 
     def _drain_engine_errors(self) -> None:
@@ -349,6 +381,8 @@ class AsyncEngineRunner:
         eng = self.engine
         if len(self._fault_times) > self.MAX_FAULTS_PER_WINDOW:
             self._bump_stat("engine_restarts")
+            # the incident's record, before the fail-all clears the clients
+            self._dump_postmortem("fault_storm")
             self._salvage = None
             eng.scheduler.set_admission_filter(None)
             self._fail_all(f"engine failure: {exc}")
@@ -462,6 +496,21 @@ class AsyncEngineRunner:
         since = graphs.capturing_since
         return graphs.capture_s + (time.monotonic() - since if since is not None else 0.0)
 
+    def _flights(self) -> list:
+        """The engine's flight recorder when it is on (runtime/flight.py)."""
+        fl = getattr(self.engine, "flight", None)
+        return [fl] if fl is not None and fl.enabled else []
+
+    def _dump_postmortem(self, reason: str, rids=()) -> None:
+        """Write a post-mortem bundle (the last cycles and the affected
+        timelines) and count it.  Called on the loop thread at a fault
+        storm and a poison isolation, and on the watchdog thread at a trip:
+        the recorder's snapshot reads make that safe while the loop thread
+        is stuck in the step."""
+        for fl in self._flights():
+            if fl.postmortem(reason, rids) is not None:
+                self._bump_stat("flight_postmortems")
+
     def _watchdog_threshold(self) -> float:
         if self._steps_done < self.WATCHDOG_WARMUP_STEPS:
             # early steps may build a kernel or capture a graph
@@ -498,6 +547,9 @@ class AsyncEngineRunner:
                 logger.warning("engine step stuck for %.2fs (watchdog %.2fs): "
                                "releasing injected hangs, failing the dispatch",
                                running_s, threshold)
+                # the stuck step's record, written from this thread: the
+                # loop thread may never come back to write it
+                self._dump_postmortem("watchdog_trip")
                 self.engine.faults.release_hangs()
             elif running_s > 2 * threshold and self._hard_trip_seq != seq:
                 self._hard_trip_seq = seq
@@ -553,7 +605,8 @@ class AsyncEngineRunner:
                               (m.requests_salvaged, stats.requests_salvaged),
                               (m.requests_poisoned, stats.requests_poisoned),
                               (m.watchdog_trips, stats.watchdog_trips),
-                              (m.engine_restarts, stats.engine_restarts)):
+                              (m.engine_restarts, stats.engine_restarts),
+                              (m.flight_postmortems, stats.flight_postmortems)):
             _advance_counter(metric, value)
         m.brownout_level.set(stats.brownout_level)
         ctl = getattr(self.engine, "_slo", None)
