@@ -20,7 +20,8 @@ non-zero:
              last chunk of a 6,000-token prompt, 1,904 rows over 4,096
              cached tokens; ragged paged: the mixed phase's 512-row stream
              of 8 decode rows and a 480-row chunk, then each half alone),
-             at further shapes, and in sliding-window/softcap and NaN-slot
+             at further shapes (the speculative verify window, 8 x 5 rows
+             over 1,024 cached tokens; the draft's 8 x 68 prefill), and in sliding-window/softcap and NaN-slot
              cases, with times: the kernel, the plain version, the least
              time the card could take (``bound_ms``) and, where one PyTorch
              call computes the same function, that call as a yardstick only
@@ -242,7 +243,49 @@ non-zero:
              chunk route), ``/debug/engine`` (phased steps, SLIs,
              ``cold_start_s``), ``/healthz``, ``/debug/engine/dump``
              (schema 2, ring markers), launches against the steps.
-15. profile  where the time goes, under torch.profiler, after every
+15. spec     speculative decoding at full width and depth: (a) a verify
+             window (B=8, K=5, contexts 128-2,048, 1-5 valid rows) after a
+             kernel prefill, through the paged window kernel and through
+             the plain attention on a copy of the same cache: the valid
+             rows' logits within LOGIT_DIFF_MAX, 28 launches, argmax
+             agreement a reading; (b) ``draft_propose`` (k=4 over (8, 68)
+             windows) on the flash kernel against the plain attention, in
+             bf16 and in float32 (TF32 off): each pass's logits within the
+             logit gate (1e-3 in float32), the proposals equal wherever
+             the plain top-2 gap (and every earlier pass's) exceeds twice
+             it (in float32 some such positions required), 4 x 28
+             launches; (c) three default engines, plain, n-gram (k=4) and
+             an identity draft (the target as its draft, adaptive off),
+             on 8 prompts of 64-192 tokens, 48 greedy tokens: in float32
+             (TF32 off) token-identical with the draft's acceptance 100%,
+             in bf16 each one's first divergence, acceptance and spec
+             steps; launches against the steps (verify and draft replays
+             counted); (d) sampled speculation (temperature 0.7, top_p
+             0.9, seeded) twice on one engine: the same tokens; and
+             ``spec_accept_sampled`` on the card: the first emitted token
+             follows p̃ (the CPU marginal test's gates); (e) decode tok/s
+             of the default engine with and without n-gram speculation,
+             8 streams of 256 tokens, on an extractive workload (a
+             512-token span repeated three times) and a free one (random
+             1,536-token prompts): acceptance, spec steps, governor pauses,
+             the spec executables' capture seconds, and the pool's bytes
+             against ``pool_bytes_bound`` of every executable made (gated).
+16. embed    the cache-less trunks at full width and depth: (a)
+             ``Engine.embed`` (mean and last pooling) and
+             ``Engine.score_prompts`` of 8 inputs of 128-1,024 tokens on a
+             kernel engine and a plain-attention engine: cosines at least
+             0.999, chosen logprobs within LOGIT_DIFF_MAX, each rank inside
+             the band the plain log-softmax allows when every logprob may
+             move by that much (one rank where the gaps allow only one),
+             28 flash launches a trunk batch;
+             (b) ``/v1/embeddings`` (base64), prompt scoring and a streamed
+             echo with logprobs through an in-process server: equal to the
+             engine's own calls; (c) in float32, embeddings posted in a
+             loop while 8 streams decode on a server engine not warmed
+             (its decode bucket captured on first use amid the traffic):
+             every request 200, no failed step, the streams' tokens equal
+             a twin engine's without the traffic.
+17. profile  where the time goes, under torch.profiler, after every
              counted run (a profiler run slows the launches that follow
              it): one prefill and one decode window of the main path, one
              steady pipelined window alone (the paged decode kernel must
@@ -274,7 +317,7 @@ import time
 import numpy as np
 
 PHASES = ("build", "kernels", "identity", "main", "graphs", "sampler", "guided", "chunked",
-          "mixed", "server", "tiers", "slo", "salvage", "flight", "profile")
+          "mixed", "server", "tiers", "slo", "salvage", "flight", "spec", "embed", "profile")
 # Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA's data
 # sheet): bf16 tensor cores, float32 CUDA cores, HBM.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -800,6 +843,8 @@ def phase_kernels() -> dict:
             flash_case("bfloat16", 2, 96, 4, 1, 256, [96, 50], timed=False),
             flash_case("bfloat16", 2, 200, 8, 2, 64, [200, 150], window=70,
                        softcap=30.0, timed=False),
+            # the spec phase's draft pass: 8 windows of 1-64 tokens + 4
+            flash_case("bfloat16", 8, 68, 16, 8, 128, [64, 64, 40, 64, 17, 64, 33, 1]),
         ],
         "paged_decode": [
             paged_case("bfloat16", 8, 16, 8, 128, 32, 64, lens_d),
@@ -833,6 +878,8 @@ def phase_kernels() -> dict:
                         timed=False),
             window_case("float32", 3, 32, 16, 8, 128, 32, [33, 0, 500], [32, 7, 1],
                         timed=False),
+            # the speculative verify window: 8 sequences of 5 rows over 1,024
+            window_case("bfloat16", 8, 5, 16, 8, 128, 32, [1024] * 8, [5] * 8),
         ],
         "ragged_paged": [
             # the mixed phase's stream: 8 decode rows and a 480-row chunk
@@ -4082,6 +4129,621 @@ def phase_flight(results) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phases spec and embed: speculative decoding and the cache-less trunks
+# --------------------------------------------------------------------------
+
+SPEC_K = 4
+# the verify window's contexts and valid rows (1 + each row's drafts)
+SPEC_CTX = [128, 384, 640, 896, 1152, 1408, 1664, 2048]
+SPEC_ROWS = [5, 5, 4, 3, 5, 2, 1, 5]
+# the identity runs: 8 prompts of 64-192 tokens (half a repeated span)
+SPEC_TOKENS = 48
+SPEC_DRAFT_WINDOW = 256           # the identity draft sees every token
+SPEC_RATE_TOKENS = 256            # the tok/s workloads
+# float32 (TF32 off) logits, kernel path against plain path, over 28
+# layers: the draft check's gate there
+FP32_LOGIT_GATE = 1e-3
+
+
+def spec_marks(eng) -> tuple:
+    return stat_marks(eng) + (eng.stats.spec_steps, eng.graphs.replays["verify"],
+                              eng.graphs.replays["draft"])
+
+
+def spec_launches(eng, before: tuple) -> dict:
+    """Each kernel's launches the steps since ``before`` (``spec_marks``)
+    must have made on a captured engine: flash prefill one a layer a
+    batched prefill and k a layer a draft replay; paged decode one a layer
+    a decode token step that was not a verify pass; paged window one a
+    layer a chunk step or verify replay."""
+    d = [a - b for a, b in zip(spec_marks(eng), before)]
+    L = eng.model_cfg.num_layers
+    k = eng._spec.num_draft_tokens if eng._spec is not None else 0
+    return {"flash_prefill": L * (d[0] - d[1] - d[3]) + L * k * d[6],
+            "paged_decode": L * (d[2] - d[4]), "paged_window": L * (d[1] + d[5]),
+            "ragged_paged": L * d[3]}
+
+
+def spec_engine(params, cfg, spec=None, identity=False, **kw):
+    """A default engine (captured graphs, 32-token pipelined windows) on
+    the main weights (``cfg`` None: the registered bf16 config) with
+    ``spec``; ``identity``: the draft model is the target itself."""
+    from tpuserve_torch.models.config import get_model_config
+    from tpuserve_torch.runtime import CacheConfig, Engine, EngineConfig
+    dtype = cfg.dtype if cfg is not None else "bfloat16"
+    extra = {}
+    if identity:
+        extra = dict(draft_params=params,
+                     draft_model_cfg=cfg or get_model_config("Qwen/Qwen3-0.6B"))
+    return Engine(EngineConfig(seed=SEED, cache=CacheConfig(dtype=dtype), speculative=spec,
+                               **kw), params=params, model_cfg=cfg, **extra)
+
+
+def spec_configs() -> dict:
+    from tpuserve_torch.runtime.spec import SpecConfig
+    return {"plain": (None, False),
+            "ngram": (SpecConfig(num_draft_tokens=SPEC_K), False),
+            "draft": (SpecConfig(num_draft_tokens=SPEC_K, draft_model="Qwen/Qwen3-0.6B",
+                                 draft_window=SPEC_DRAFT_WINDOW, adaptive=False), True)}
+
+
+def spec_verify(params, cfg) -> dict:
+    """One verify window (B=8, K=5, contexts 128-2,048, 1-5 valid rows)
+    through the paged window kernel and through the plain attention on the
+    same cache (a copy taken before), after a kernel prefill of the
+    contexts: the logits of the valid rows within LOGIT_DIFF_MAX, the
+    kernel's launches 28 (one a layer), argmax agreement and both passes'
+    ms."""
+    import torch
+    from tpuserve_torch.models import transformer
+    from tpuserve_torch.ops.attention import PAD_SLOT
+    from tpuserve_torch.runtime.kv_cache import CacheConfig, create_kv_cache
+    page, B, K = 32, len(SPEC_CTX), SPEC_K + 1
+    V = cfg.vocab_size
+    mb = -(-(max(SPEC_CTX) + K) // page)
+    cache = create_kv_cache(cfg, CacheConfig(block_size=page, num_blocks=B * mb,
+                                             max_blocks_per_seq=mb), "cuda")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    bt = torch.randperm(B * mb, generator=g, device="cuda").to(torch.int32).reshape(B, mb)
+    rng = np.random.default_rng(SEED + 41)
+    T = max(SPEC_CTX)
+    toks = np.zeros((B, T), np.int32)
+    slots = np.full((B, T), PAD_SLOT, np.int32)
+    bt_h = bt.cpu().numpy()
+
+    def slot_of(b, pos):
+        pos = np.asarray(pos)
+        return (bt_h[b, pos // page] * page + pos % page).astype(np.int32)
+    for b, n in enumerate(SPEC_CTX):
+        toks[b, :n] = rng.integers(0, V, n)
+        slots[b, :n] = slot_of(b, np.arange(n))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+    transformer.prefill(params, cfg, t(toks), t(np.array(SPEC_CTX, np.int32)), t(slots),
+                        cache, attn_impl="cuda")
+    vt = rng.integers(0, V, (B, K)).astype(np.int32)
+    vs = np.stack([slot_of(b, np.arange(c, c + K)) for b, c in enumerate(SPEC_CTX)])
+    for b, n in enumerate(SPEC_ROWS):
+        vt[b, n:] = 0
+    args = (t(vt), t(np.array(SPEC_CTX, np.int32)), t(np.array(SPEC_ROWS, np.int32)),
+            t(vs), bt)
+    snap = [{k: v.clone() for k, v in e.items()} for e in cache]
+    torch.cuda.synchronize()
+    reset_launches()
+    lk = transformer.verify_logits(params, cfg, *args, cache, attn_impl="cuda")
+    torch.cuda.synchronize()
+    launches = read_launches()
+    lr = transformer.verify_logits(params, cfg, *args, snap, attn_impl="reference")
+    rows = [(b, j) for b in range(B) for j in range(SPEC_ROWS[b])]
+    bi = torch.tensor([r[0] for r in rows], device="cuda")
+    ji = torch.tensor([r[1] for r in rows], device="cuda")
+    a, r = lk[bi, ji], lr[bi, ji]
+    diff = (a - r).abs().max().item()
+    agree = (a.argmax(-1) == r.argmax(-1)).float().mean().item()
+    # the pass on each path, over copies of the same cache (the writes are
+    # the same rows each call)
+    ms_k = cuda_ms(lambda: transformer.verify_logits(params, cfg, *args, cache,
+                                                     attn_impl="cuda"), iters=5)
+    ms_r = cuda_ms(lambda: transformer.verify_logits(params, cfg, *args, snap,
+                                                     attn_impl="reference"), iters=3)
+    del cache, snap
+    out = {"rows": len(rows), "max_abs_diff": diff, "argmax_agree": agree,
+           "launches": launches, "finite": bool(torch.isfinite(a).all()),
+           "pass_ms": ms_k, "plain_pass_ms": ms_r}
+    out["ok"] = bool(diff <= LOGIT_DIFF_MAX and out["finite"]
+                     and launches["paged_window"] == cfg.num_layers
+                     and sum(launches.values()) == cfg.num_layers)
+    return out
+
+
+def spec_draft(params, cfg, gate: float) -> dict:
+    """``draft_propose`` (k=4 passes over (8, 64 + 4) windows of 1-64
+    tokens) on the flash kernel against the plain attention: each pass's
+    last-position logits, along the plain path's own proposals, within
+    ``gate`` of the plain path's; the proposals equal at every position
+    whose plain top-2 gap, and every earlier one's, exceeds twice
+    ``gate``; the kernel's launches k a layer a call.  In float32 (TF32
+    off) some positions must be that clear; in bf16 random weights'
+    top-2 gaps mostly sit under the gate, so there it is a reading."""
+    import torch
+    from tpuserve_torch.models import transformer
+    B, W, k = 8, 64, SPEC_K
+    rng = np.random.default_rng(SEED + 43)
+    lens = np.array([64, 64, 40, 64, 17, 64, 33, 1], np.int32)
+    toks = np.zeros((B, W + k), np.int32)
+    for b, n in enumerate(lens):
+        toks[b, :n] = rng.integers(0, cfg.vocab_size, n)
+    tt, lt = torch.from_numpy(toks).cuda(), torch.from_numpy(lens).cuda()
+    reset_launches()
+    pk = transformer.draft_propose(params, cfg, tt, lt, k=k, attn_impl="cuda")
+    torch.cuda.synchronize()
+    launches = read_launches()
+    pr = transformer.draft_propose(params, cfg, tt, lt, k=k, attn_impl="reference")
+    # each pass's logits on both paths, along the plain path's proposals
+    rows = torch.arange(B, device="cuda")
+    cur, cols = lt.clone(), torch.arange(W + k, device="cuda")[None, :]
+    ctx, gaps, diff = tt.clone(), [], 0.0
+    with torch.no_grad():
+        for j in range(k):
+            last = {}
+            for impl in ("cuda", "reference"):
+                h = transformer._cacheless_trunk(params, cfg, ctx, cur, impl)
+                last[impl] = transformer._unembed(params, cfg, h[rows, cur.long() - 1])
+            diff = max(diff, (last["cuda"] - last["reference"]).abs().max().item())
+            top2 = last["reference"].topk(2).values
+            gaps.append(top2[:, 0] - top2[:, 1])
+            ctx = torch.where(cols == cur[:, None], pr[:, j:j + 1], ctx)
+            cur = cur + 1
+    clear = (torch.stack(gaps, 1) > 2 * gate).int().cumprod(1).bool()
+    checked = int(clear.sum())
+    mismatched = int(((pk != pr) & clear).sum())
+    ms_k = cuda_ms(lambda: transformer.draft_propose(params, cfg, tt, lt, k=k,
+                                                     attn_impl="cuda"), iters=5)
+    out = {"dtype": cfg.dtype, "gate": gate, "proposals": B * k, "max_abs_diff": diff,
+           "checked": checked, "mismatched_where_clear": mismatched,
+           "equal_share": (pk == pr).float().mean().item(), "launches": launches,
+           "eager_call_ms": ms_k}
+    out["ok"] = bool(mismatched == 0 and diff <= gate
+                     and (cfg.dtype != "float32" or checked > 0)
+                     and launches["flash_prefill"] == cfg.num_layers * k
+                     and sum(launches.values()) == cfg.num_layers * k)
+    return out
+
+
+def spec_prompts(V: int) -> list:
+    rng = np.random.default_rng(SEED + 45)
+    out = []
+    for i, n in enumerate([64, 96, 128, 160, 192, 80, 112, 144]):
+        if i % 2:
+            out.append(rng.integers(0, V, n).tolist())
+        else:                                # a 32-token span, repeated
+            span = rng.integers(0, V, 32).tolist()
+            out.append((span * (n // 32 + 1))[:n])
+    return out
+
+
+def spec_identity(params, cfg, ps) -> dict:
+    """The main path's greedy streams on three default engines, plain,
+    n-gram (k=4) and identity-draft speculation (the target as its own
+    draft, ``adaptive=False``): in float32 (``cfg`` given, TF32 off) the
+    three token-identical and the draft's acceptance 100%; in bf16 each
+    one's first divergence from the plain stream.  Launches against the
+    steps on each engine."""
+    import torch
+    from tpuserve_torch.runtime import SamplingParams
+    sp = SamplingParams(max_tokens=SPEC_TOKENS, temperature=0.0, ignore_eos=True)
+    out, streams = {}, {}
+    for name, (spec, identity) in spec_configs().items():
+        eng = spec_engine(params, cfg, spec, identity)
+        reset_launches()
+        marks = spec_marks(eng)
+        t = time.perf_counter()
+        streams[name] = [r.output_token_ids for r in eng.generate(ps, sp)]
+        torch.cuda.synchronize()
+        st = eng.stats
+        launches, want = read_launches(), spec_launches(eng, marks)
+        out[name] = {"wall_s": time.perf_counter() - t, "spec_steps": st.spec_steps,
+                     "proposed": st.spec_proposed, "accepted": st.spec_accepted,
+                     "acceptance": st.spec_accepted / st.spec_proposed if st.spec_proposed
+                     else None, "pauses": st.spec_pauses, "launches": launches,
+                     "launches_ok": launches == want, "capture_s": eng.graphs.capture_s,
+                     "first_diff": [first_diff(a, b) for a, b in
+                                    zip(streams[name], streams.get("plain", streams[name]))]}
+        out[name]["ok"] = launches == want and eng.block_manager.num_seqs() == 0
+        del eng
+        torch.cuda.empty_cache()
+    exact = cfg is not None
+    d = out["draft"]
+    out["equal"] = streams["ngram"] == streams["plain"] == streams["draft"]
+    out["ok"] = bool(all(v["ok"] for v in out.values() if isinstance(v, dict))
+                     and d["spec_steps"] > 0
+                     and (not exact or (out["equal"] and d["accepted"] == d["proposed"])))
+    return out
+
+
+def spec_marginal() -> dict:
+    """``spec_accept_sampled`` on the card, on its keyed noise: 4,000 rows
+    of one 8-token distribution and a fixed draft token; the acceptance
+    rate within 0.03 of p(draft) and the first emitted token's frequencies
+    within 0.03 of p (the CPU test's gates)."""
+    import torch
+    from tpuserve_torch.ops import sampling
+    rng = np.random.default_rng(0)
+    V, N = 8, 4000
+    row = rng.normal(size=(V,)).astype(np.float32) * 1.5
+    logits = torch.from_numpy(np.tile(row, (N, 2, 1))).cuda()
+    accept, pred = sampling.spec_accept_sampled(
+        logits, torch.full((N, 1), 3, dtype=torch.int32, device="cuda"),
+        torch.full((N,), 2, dtype=torch.int32, device="cuda"),
+        torch.arange(N, device="cuda"), torch.full((N,), 7, device="cuda"),
+        torch.ones(N, device="cuda"), torch.zeros(N, dtype=torch.int32, device="cuda"),
+        torch.ones(N, device="cuda"))
+    acc = accept.cpu().numpy()[:, 0]
+    emitted = np.where(acc, 3, pred.cpu().numpy()[:, 0])
+    p = np.exp(row) / np.exp(row).sum()
+    freq_err = float(np.abs(np.bincount(emitted, minlength=V) / N - p).max())
+    acc_err = abs(float(acc.mean()) - float(p[3]))
+    return {"accept_rate": float(acc.mean()), "p_draft": float(p[3]),
+            "max_freq_err": freq_err, "ok": acc_err < 0.03 and freq_err < 0.03}
+
+
+def spec_sampled(params, ps) -> dict:
+    """Sampled speculation (temperature 0.7, top_p 0.9, seeded) with the
+    identity draft in bf16, prefix caching off: two runs give the same
+    tokens; the sampled verify executables ran."""
+    from tpuserve_torch.runtime import SamplingParams
+    spec, _ = spec_configs()["draft"]
+    eng = spec_engine(params, None, spec, identity=True, enable_prefix_caching=False)
+    plist = [SamplingParams(max_tokens=SPEC_TOKENS, temperature=0.7, top_p=0.9, seed=100 + i,
+                            ignore_eos=True) for i in range(len(ps))]
+    runs = [[r.output_token_ids for r in eng.generate(ps, plist)] for _ in range(2)]
+    st = eng.stats
+    sampled_keys = sorted(k for k in eng.graphs.executables if k[0] == "verify"
+                          and k[3] == "sampled")
+    out = {"equal": runs[0] == runs[1], "spec_steps": st.spec_steps,
+           "acceptance": st.spec_accepted / max(st.spec_proposed, 1),
+           "sampled_verify_keys": [list(k) for k in sampled_keys],
+           "marginal": spec_marginal()}
+    out["ok"] = bool(out["equal"] and st.spec_steps > 0 and sampled_keys
+                     and out["marginal"]["ok"])
+    del eng
+    return out
+
+
+def spec_rates(params, V: int) -> dict:
+    """Decode tok/s with and without n-gram speculation on the default
+    engine, 8 streams of 256 greedy tokens: an extractive workload (each
+    prompt a 512-token span repeated three times) and a free one (random
+    1,536-token prompts).  The spec engine's verify executables are
+    captured first (``_spec_keys``); its pool's bytes against
+    ``pool_bytes_bound`` of every executable it made.  Acceptance, spec
+    steps, governor pauses and capture seconds are readings; launches
+    against the steps are gated."""
+    import torch
+    from tpuserve_torch.runtime import SamplingParams
+    from tpuserve_torch.runtime.graphs import VERIFY_MODES, pool_bytes_bound
+    rng = np.random.default_rng(SEED + 47)
+    work = {"extractive": [(lambda s: s * 3)(rng.integers(0, V, 512).tolist())
+                           for _ in range(8)],
+            "free": [rng.integers(0, V, 1536).tolist() for _ in range(8)]}
+    sp = SamplingParams(max_tokens=SPEC_RATE_TOKENS, temperature=0.0, ignore_eos=True)
+    out = {}
+    for name, (spec, _) in (("plain", spec_configs()["plain"]),
+                            ("ngram", spec_configs()["ngram"])):
+        eng = spec_engine(params, None, spec, enable_prefix_caching=False)
+        t0 = time.perf_counter()
+        eng.graphs.warmup(eng._spec_keys(VERIFY_MODES))
+        res = {"spec_capture_s": time.perf_counter() - t0}
+        for wname, ps in work.items():
+            before = (eng.stats.spec_steps, eng.stats.spec_proposed, eng.stats.spec_accepted,
+                      eng.stats.spec_pauses)
+            reset_launches()
+            marks = spec_marks(eng)
+            rids = [eng.add_request(prompt_token_ids=p, params=sp) for p in ps]
+            t_first = None
+            while eng.has_work():
+                eng.step()
+                if t_first is None and all(eng.requests[r].output_token_ids for r in rids):
+                    torch.cuda.synchronize()
+                    t_first = time.perf_counter()
+            torch.cuda.synchronize()
+            span = time.perf_counter() - t_first
+            toks = sum(len(eng.requests.pop(r).output_token_ids) - 1 for r in rids)
+            st = eng.stats
+            d = [st.spec_steps - before[0], st.spec_proposed - before[1],
+                 st.spec_accepted - before[2], st.spec_pauses - before[3]]
+            launches, want = read_launches(), spec_launches(eng, marks)
+            res[wname] = {"decode_tok_per_s": toks / span, "decode_s": span,
+                          "spec_steps": d[0], "acceptance": d[2] / d[1] if d[1] else None,
+                          "pauses": d[3], "launches_ok": launches == want}
+        keys = list(eng.graphs.executables)
+        res.update(capture_s=eng.graphs.capture_s, executables=len(keys),
+                   spec_executables=sorted("/".join(map(str, k)) for k in keys
+                                           if k[0] in ("verify", "draft")),
+                   pool_bytes=eng.graphs.pool_bytes(),
+                   pool_bytes_bound=pool_bytes_bound(eng.model_cfg, keys, eng._ragged_seqs,
+                                                     eng._draft_cfg))
+        res["ok"] = (all(res[w]["launches_ok"] for w in work)
+                     and res["pool_bytes"] <= res["pool_bytes_bound"])
+        out[name] = res
+        del eng
+        torch.cuda.empty_cache()
+    for w in work:
+        out[f"{w}_speedup"] = (out["ngram"][w]["decode_tok_per_s"]
+                               / out["plain"][w]["decode_tok_per_s"])
+    out["ok"] = out["plain"]["ok"] and out["ngram"]["ok"]
+    return out
+
+
+def phase_spec(results) -> dict:
+    """Speculative decoding at full width and depth: the verify window on
+    the paged window kernel (``spec_verify``), the draft on the flash
+    kernel (``spec_draft``), the three engines' streams in float32 and
+    bf16 (``spec_identity``), sampled speculation and the acceptance's
+    marginal on the card (``spec_sampled``), and decode tok/s with and
+    without it (``spec_rates``)."""
+    import gc
+    import torch
+    params = results["main"]["params"]
+    cfg = results["main"]["engine"].model_cfg
+    verify = spec_verify(params, cfg)
+    draft = spec_draft(params, cfg, LOGIT_DIFF_MAX)
+    ps = spec_prompts(cfg.vocab_size)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fp32_params, fp32_cfg = fp32_main()
+    draft32 = spec_draft(fp32_params, fp32_cfg, FP32_LOGIT_GATE)
+    ident32 = spec_identity(fp32_params, fp32_cfg, ps)
+    del fp32_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    ident16 = spec_identity(params, None, ps)
+    sampled = spec_sampled(params, ps)
+    rates = spec_rates(params, cfg.vocab_size)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {"paged_window": verify["launches"]["paged_window"],
+                "flash_prefill": draft["launches"]["flash_prefill"]}
+    return {"ok": all(r["ok"] for r in (verify, draft, draft32, ident32, ident16, sampled,
+                                        rates)),
+            "verify": verify, "draft": draft, "draft_fp32": draft32, "identity_fp32": ident32,
+            "identity_bf16": ident16, "sampled": sampled, "rates": rates,
+            "launches": launches}
+
+
+EMBED_LENGTHS = MAIN_LENGTHS         # batch 8 x T 128-1,024
+EMBED_STREAMS = 8
+EMBED_STREAM_TOKENS = 64
+
+
+def cosines(a, b) -> np.ndarray:
+    return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+
+
+def embed_paths(params, cfg) -> dict:
+    """``Engine.embed`` (mean and last pooling) and ``Engine.score_prompts``
+    (top 5) of 8 inputs of 128-1,024 tokens on a kernel engine and on a
+    plain-attention engine: embeddings' cosines at least 0.999; chosen
+    logprobs within LOGIT_DIFF_MAX; every kernel rank inside the band the
+    plain logprobs allow when each may move by LOGIT_DIFF_MAX
+    (``rank_bands``: one rank wherever the gap allows only one); the
+    flash kernel's launches one a layer a trunk batch; ms of each call
+    on each engine."""
+    from tpuserve_torch.runtime import CacheConfig, Engine, EngineConfig
+    kern = Engine(EngineConfig(seed=SEED, cache=CacheConfig(num_blocks=64)), params=params,
+                  model_cfg=cfg)
+    plain = Engine(EngineConfig(seed=SEED, attn_impl="reference", cuda_graphs=False,
+                                cache=CacheConfig(num_blocks=64)), params=params, model_cfg=cfg)
+    rng = np.random.default_rng(SEED + 51)
+    inputs = prompts(rng, EMBED_LENGTHS, cfg.vocab_size)
+    L = cfg.num_layers
+    out = {"launches": {}}
+    ok = True
+    for pooling in ("mean", "last"):
+        reset_launches()
+        vk, counts = kern.embed(inputs, pooling)
+        out["launches"][f"embed_{pooling}"] = read_launches()
+        vp, _ = plain.embed(inputs, pooling)
+        cos = cosines(vk, vp)
+        out[f"embed_{pooling}"] = {"min_cosine": float(cos.min()), "shape": list(vk.shape),
+                                   "ms": 1e3 * timed_host(lambda: kern.embed(inputs, pooling)),
+                                   "plain_ms": 1e3 * timed_host(
+                                       lambda: plain.embed(inputs, pooling))}
+        ok &= bool(cos.min() >= 0.999 and np.isfinite(vk).all()
+                   and out["launches"][f"embed_{pooling}"]["flash_prefill"] == L)
+    reset_launches()
+    sk = kern.score_prompts(inputs, top_n=5)
+    out["launches"]["score"] = read_launches()
+    sr = plain.score_prompts(inputs, top_n=5)
+    bands = rank_bands(params, cfg, inputs, LOGIT_DIFF_MAX)
+    diffs, rank_eq, pinned, outside = [], 0, 0, 0
+    for ek, er, (lo, hi) in zip(sk, sr, bands):
+        for a, b, l_, h_ in zip(ek[1:], er[1:], lo, hi):
+            diffs.append(abs(a["logprob"] - b["logprob"]))
+            rank_eq += a["rank"] == b["rank"]
+            pinned += l_ == h_
+            outside += not l_ <= a["rank"] <= h_
+    out["score"] = {"tokens": len(diffs), "max_abs_diff": max(diffs),
+                    "rank_equal_share": rank_eq / len(diffs),
+                    "ranks_pinned_by_the_gap": pinned,
+                    "ranks_outside_their_band": outside,
+                    "ms": 1e3 * timed_host(lambda: kern.score_prompts(inputs, top_n=5)),
+                    "plain_ms": 1e3 * timed_host(lambda: plain.score_prompts(inputs, top_n=5))}
+    ok &= bool(max(diffs) <= LOGIT_DIFF_MAX and outside == 0
+               and out["launches"]["score"]["flash_prefill"] == L)
+    out["ok"] = ok
+    out["engine"] = kern
+    del plain
+    return out
+
+
+def rank_bands(params, cfg, inputs: list, gate: float) -> list:
+    """For each input, the (lo, hi) full-vocabulary ranks its token p can
+    take at position p - 1 when every logprob may move by ``gate``: 1 +
+    the tokens more than 2 ``gate`` above its plain logprob, 1 + those
+    above it less 2 ``gate``, from the plain attention's full
+    log-softmax (128 positions at a time).  lo == hi where the gap
+    allows one rank only."""
+    import torch
+    from tpuserve_torch.models import transformer
+    T = max(len(x) for x in inputs)
+    toks = np.zeros((len(inputs), T), np.int32)
+    for b, x in enumerate(inputs):
+        toks[b, :len(x)] = x
+    lens = torch.tensor([len(x) for x in inputs], dtype=torch.int32, device="cuda")
+    out = []
+    with torch.no_grad():
+        h = transformer._cacheless_trunk(params, cfg, torch.from_numpy(toks).cuda(), lens,
+                                         "reference")
+        for b, x in enumerate(inputs):
+            nxt = torch.tensor(x[1:], device="cuda")
+            lo, hi = [], []
+            for c in range(0, len(x) - 1, 128):
+                lps = torch.log_softmax(transformer._unembed(params, cfg, h[b, c:c + 128]), -1)
+                n = min(128, len(x) - 1 - c)
+                ch = lps[torch.arange(n, device="cuda"), nxt[c:c + n]][:, None]
+                lo.append((lps[:n] > ch + 2 * gate).sum(-1) + 1)
+                hi.append((lps[:n] > ch - 2 * gate).sum(-1) + 1)
+            out.append((torch.cat(lo).tolist(), torch.cat(hi).tolist()))
+    return out
+
+
+def timed_host(fn) -> float:
+    """Seconds of one ``fn()`` on the host clock, the card synchronised."""
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t
+
+
+def embed_server(eng) -> dict:
+    """``/v1/embeddings``, prompt scoring and a streamed echo with logprobs
+    through an in-process server over the kernel engine: the embeddings
+    equal ``Engine.embed``'s, the scored logprobs ``score_prompts``', and
+    the echo chunk's arrays the scoring's, its stream complete."""
+    import base64
+    from tpuserve_torch.server import OpenAIServer, ServerConfig
+    srv = OpenAIServer(eng, ServerConfig(host="127.0.0.1", port=0))
+    url = f"http://127.0.0.1:{srv.start()}"
+    rng = np.random.default_rng(SEED + 53)
+    ids = prompts(rng, [200, 77, 513], eng.model_cfg.vocab_size)
+    try:
+        s1, emb = http(url + "/v1/embeddings", {"input": ids, "encoding_format": "base64"})
+        want, _ = eng.embed(ids)
+        got = np.stack([np.frombuffer(base64.b64decode(d["embedding"]), "<f4")
+                        for d in emb["data"]]) if s1 == 200 else None
+        s2, sc = http(url + "/v1/completions", {"prompt": ids[0], "max_tokens": 0,
+                                                "echo": True, "logprobs": 2})
+        entries = eng.score_prompts([ids[0]], top_n=2)[0]
+        lp_ok = s2 == 200 and all(
+            (x is None and e["logprob"] is None) or abs(x - e["logprob"]) <= 1e-6
+            for x, e in zip(sc["choices"][0]["logprobs"]["token_logprobs"], entries))
+        st = sse(url + "/v1/completions", {"prompt": ids[1], "max_tokens": 16, "echo": True,
+                                           "logprobs": 2, "temperature": 0, "ignore_eos": True,
+                                           "return_token_ids": True})
+        first = st["chunks"][0]["choices"][0] if st.get("chunks") else {}
+        echo_lp = (first.get("logprobs") or {}).get("token_logprobs", [])
+        e1 = eng.score_prompts([ids[1]], top_n=2)[0]
+        out = {"embeddings_status": s1, "embeddings_max_diff": (
+                   float(np.abs(got - want).max()) if got is not None else None),
+               "scoring_status": s2, "scoring_equal": bool(lp_ok),
+               "stream_status": st.get("status"), "stream_done": st.get("done"),
+               "stream_tokens": len(stream_ids(st)) if st.get("chunks") else 0,
+               "echo_entries": len(echo_lp)}
+        out["ok"] = bool(s1 == 200 and out["embeddings_max_diff"] <= 1e-6 and lp_ok
+                         and st.get("status") == 200 and st.get("done")
+                         and out["stream_tokens"] == 16 and len(echo_lp) == len(e1)
+                         and echo_lp[0] is None
+                         and all(abs(x - e["logprob"]) <= 1e-6
+                                 for x, e in zip(echo_lp[1:], e1[1:])))
+    finally:
+        srv.shutdown()
+    return out
+
+
+def embed_concurrent(params, cfg) -> dict:
+    """Embeddings posted while 8 streams decode, in float32 (TF32 off) on a
+    server engine that is not warmed, so its decode bucket is captured on
+    first use amid the traffic: no request fails, a decode executable was
+    captured during it, and the streams' tokens equal a twin engine's run
+    with no embedding traffic."""
+    import threading
+    from tpuserve_torch.runtime import CacheConfig, Engine, EngineConfig, SamplingParams
+    from tpuserve_torch.server import OpenAIServer, ServerConfig
+    conf = EngineConfig(seed=SEED, cache=CacheConfig(num_blocks=512, dtype="float32"))
+    rng = np.random.default_rng(SEED + 55)
+    ps = prompts(rng, [100, 150, 200, 250, 300, 350, 400, 128], cfg.vocab_size)
+    emb_in = prompts(rng, [256] * 8, cfg.vocab_size)
+    twin = Engine(conf, params=params, model_cfg=cfg)
+    want = [r.output_token_ids for r in twin.generate(
+        ps, SamplingParams(max_tokens=EMBED_STREAM_TOKENS, temperature=0.0, ignore_eos=True))]
+    del twin
+    eng = Engine(conf, params=params, model_cfg=cfg)
+    srv = OpenAIServer(eng, ServerConfig(host="127.0.0.1", port=0))
+    url = f"http://127.0.0.1:{srv.start()}"
+    decode_before = sum(1 for k in eng.graphs.executables if k[0] == "decode")
+    streams, posts, stop = {}, [], threading.Event()
+
+    def stream(i):
+        streams[i] = sse(url + "/v1/completions", {
+            "prompt": ps[i], "max_tokens": EMBED_STREAM_TOKENS, "temperature": 0,
+            "ignore_eos": True, "return_token_ids": True})
+
+    def embed_loop():
+        while not stop.is_set():
+            posts.append(http(url + "/v1/embeddings", {"input": emb_in})[0])
+    try:
+        poster = threading.Thread(target=embed_loop)
+        poster.start()
+        threads = [threading.Thread(target=stream, args=(i,)) for i in range(EMBED_STREAMS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        stop.set()
+        poster.join()
+    finally:
+        srv.shutdown()
+    got = [stream_ids(streams[i]) if streams[i].get("status") == 200 else None
+           for i in range(EMBED_STREAMS)]
+    decode_made = sum(1 for k in eng.graphs.executables if k[0] == "decode") - decode_before
+    out = {"embed_posts": len(posts), "embed_statuses": sorted(set(posts)),
+           "stream_statuses": [streams[i].get("status") for i in range(EMBED_STREAMS)],
+           "equal_to_twin": got == want,
+           "first_diff": [first_diff(g, w) if g is not None else 0 for g, w in zip(got, want)],
+           "decode_executables_captured": decode_made, "capture_s": eng.graphs.capture_s,
+           "steps_failed": srv.runner.steps_failed}
+    out["ok"] = bool(posts and set(posts) == {200} and got == want and decode_made > 0
+                     and srv.runner.steps_failed == 0)
+    del eng, srv
+    return out
+
+
+def phase_embed(results) -> dict:
+    """The cache-less trunks at full width and depth: the kernel path
+    against the plain path (``embed_paths``), the HTTP surfaces
+    (``embed_server``) and embeddings amid decoding streams and a
+    first-use capture (``embed_concurrent``)."""
+    import gc
+    import torch
+    params = results["main"]["params"]
+    cfg = results["main"]["engine"].model_cfg
+    paths = embed_paths(params, cfg)
+    server = embed_server(paths.pop("engine"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    fp32_params, fp32_cfg = fp32_main()
+    conc = embed_concurrent(fp32_params, fp32_cfg)
+    del fp32_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ok": paths["ok"] and server["ok"] and conc["ok"], "paths": paths,
+            "server": server, "concurrent": conc,
+            "launches": {"flash_prefill": paths["launches"]["embed_mean"]["flash_prefill"]}}
+
+
+# --------------------------------------------------------------------------
 
 KERNELS = {
     "flash_prefill": dict(source="tpuserve_torch/csrc/flash_prefill.cu",
@@ -4111,9 +4773,11 @@ def read_launches() -> dict:
     return {name: mod.LAUNCHES for name, mod in kernel_modules().items()}
 
 
-# the phase whose run counts each kernel's launches
+# the phase whose run counts each kernel's launches, and the later paths'
+# phases that count them too
 LAUNCH_PHASE = {"flash_prefill": "main", "paged_decode": "main",
                 "paged_window": "chunked", "ragged_paged": "mixed"}
+PATH_PHASES = {"flash_prefill": ("spec", "embed"), "paged_window": ("spec",)}
 
 
 def main() -> int:
@@ -4162,6 +4826,10 @@ def main() -> int:
             res = phase_salvage(results)
         elif phase == "flight":
             res = phase_flight(results)
+        elif phase == "spec":
+            res = phase_spec(results)
+        elif phase == "embed":
+            res = phase_embed(results)
         elif phase == "profile":
             res = phase_profile(results)
         else:
@@ -4182,7 +4850,9 @@ def main() -> int:
                        "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
                        "bound_by": h["bound_by"], "library_ms": h["library_ms"],
                        "tflops": h["flops"] / (h["ms"] * 1e9),
-                       "bound_share": h["bound_ms"] / h["ms"]})
+                       "bound_share": h["bound_ms"] / h["ms"],
+                       "path_launches": {ph: results[ph]["launches"][name]
+                                         for ph in PATH_PHASES.get(name, ())}})
     emit({"kernels": report})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

@@ -180,11 +180,23 @@ def test_block_manager_drains_to_zero(model):
 
 
 @pytest.mark.parametrize("kw", [dict(quantization="int8"), dict(lora_dir="/x"),
-                                dict(lora_modules={"a": "/x"}),
-                                dict(speculative=object())])
+                                dict(lora_modules={"a": "/x"})])
 def test_unported_engine_options_raise(model, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _port(model, **kw)
+
+
+def test_speculative_engine_option_builds_and_serves(model):
+    """``speculative`` is ported: the engine builds and its greedy stream
+    is the plain engine's (tests/test_torch_spec.py holds it against the
+    JAX engine)."""
+    from tpuserve_torch.runtime.spec import SpecConfig
+    prompts = [[1, 2, 3, 4] * 5]
+    sp = SamplingParams(max_tokens=10, temperature=0.0, ignore_eos=True)
+    eng = _port(model, speculative=SpecConfig(num_draft_tokens=4))
+    toks = eng.generate(prompts, sp)[0].output_token_ids
+    assert eng.stats.spec_steps > 0
+    assert toks == _port(model).generate(prompts, sp)[0].output_token_ids
 
 
 def test_unported_mesh_and_mixed_batching_raise(model):

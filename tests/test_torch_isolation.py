@@ -117,6 +117,26 @@ def test_slo_fault_and_runner_modules_load_no_jax():
         assert ROOT / "tpuserve_torch" / rel in PORT_FILES
 
 
+def test_spec_and_download_modules_load_no_jax_and_no_hub():
+    """Speculation's host side and the checkpoint downloader are the port's
+    own copies: importing them loads no jax, no tpuserve module and no
+    huggingface_hub (the downloader imports it only when it fetches)."""
+    res = _run("import sys, tpuserve_torch.runtime.spec, tpuserve_torch.models.download\n"
+               "bad = [m for m in sys.modules if m.split('.')[0] in "
+               "('jax', 'jaxlib', 'tpuserve', 'huggingface_hub')]\n"
+               "assert not bad, bad\n"
+               "print('clean')")
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "clean"
+    for rel in ("runtime/spec.py", "models/download.py"):
+        path = ROOT / "tpuserve_torch" / rel
+        assert path in PORT_FILES
+        top = ast.parse(path.read_text()).body          # module-level imports only
+        mods = {a.name for n in top if isinstance(n, ast.Import) for a in n.names}
+        mods |= {n.module for n in top if isinstance(n, ast.ImportFrom) and n.module}
+        assert "huggingface_hub" not in {m.split(".")[0] for m in mods}
+
+
 def test_engine_without_device_raises_when_there_is_no_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")

@@ -10,8 +10,8 @@ backpressure and while draining, the sampling options (greedy ones token
 for token, logprobs within atol 1e-4) and the logprobs shapes.  Port-only:
 guided requests (``response_format``, ``guided_regex``, ``guided_choice``)
 give its text and finish reason, full and streamed, and a bad spec its
-400 and message; options the port does not carry give a 400 naming their
-ROADMAP.md item before any SSE header, ``best_of`` returns its best candidate, a
+400 and message; CLI flags the port does not carry exit naming their
+ROADMAP.md item, ``best_of`` returns its best candidate, a
 mixed-batching engine serves concurrent streams, a failing step fails its
 requests, ``/metrics`` has the JAX server's vllm_* families, and
 ``python -m tpuserve_torch.server`` starts, serves and drains on SIGTERM.
@@ -322,23 +322,6 @@ def test_draining_gets_the_jax_servers_503(weights):
     assert results["port"] == results["jax"] == (503, "1", 503, True)
 
 
-UNPORTED = [
-    ({"prompt_logprobs": 1}, "A7"),
-    ({"echo": True, "logprobs": 2}, "A7"),
-]
-
-
-@pytest.mark.parametrize("extra,item", UNPORTED, ids=["/".join(e) for e, _ in UNPORTED])
-@pytest.mark.parametrize("stream", [False, True], ids=["full", "sse"])
-def test_unported_options_get_a_400_naming_their_item(servers, extra, item, stream):
-    urls, _ = servers
-    body = {"prompt": "x", "max_tokens": 2, "stream": stream, **extra}
-    status, err, headers = _request(urls["port"] + "/v1/completions", body)
-    assert status == 400, (status, err)
-    assert "text/event-stream" not in headers.get("Content-Type", "")
-    assert f"ROADMAP.md {item}" in err["error"]["message"]
-
-
 # guided decoding's request shapes, each greedy: the port's text and
 # finish reason must be the JAX server's
 GUIDED = {
@@ -535,20 +518,6 @@ def test_best_of_ranks_candidates_by_cumulative_logprob(servers):
     assert status == 400 and "sampling" in err["error"]["message"]
 
 
-def test_prompt_scoring_gets_a_400_naming_a7(servers):
-    """max_tokens=0 with echo and logprobs is prompt scoring (score_prompt)."""
-    urls, _ = servers
-    status, err, _ = _request(urls["port"] + "/v1/completions",
-                              {"prompt": "x", "max_tokens": 0, "echo": True, "logprobs": 1})
-    assert status == 400 and "ROADMAP.md A7" in err["error"]["message"]
-
-
-def test_embeddings_get_a_400_naming_a7(servers):
-    urls, _ = servers
-    status, err, _ = _request(urls["port"] + "/v1/embeddings", {"input": "x"})
-    assert status == 400 and "ROADMAP.md A7" in err["error"]["message"]
-
-
 def test_metrics_have_the_jax_servers_vllm_families(servers):
     urls, _ = servers
     _request(urls["port"] + "/v1/completions", {"prompt": "m", "max_tokens": 2})
@@ -630,7 +599,7 @@ def test_a_failing_step_fails_its_requests_and_the_server_goes_on(weights):
 
 def test_cli_rejects_unported_flags_naming_their_item(capsys):
     for argv, item in ((["--tp", "2"], "A10"), (["--quantization", "int8"], "A8"),
-                       (["--speculative-k", "4"], "A7"), (["--tenant-config", "x"], "A9")):
+                       (["--lora", "x"], "A8"), (["--tenant-config", "x"], "A9")):
         with pytest.raises(SystemExit) as ei:
             main(argv)
         assert ei.value.code == 2

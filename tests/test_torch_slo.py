@@ -194,7 +194,8 @@ def test_brownout_policy_by_level():
 
 
 def test_spec_pause_is_ported_with_no_consumer_yet():
-    """Level 1's speculation pause: ported, with no caller until A7."""
+    """Level 1's speculation pause (its consumer, the engine's spec gate,
+    is held in tests/test_torch_spec.py)."""
     ctl = SloController(SloConfig(), max_waiting=10)
     ctl._waiting, ctl.level = 10, 1
     batch, std = _reqs(port_req, ["batch", "standard"])

@@ -25,6 +25,7 @@ import dataclasses
 import json
 import queue
 import sys
+import time
 import urllib.error
 import urllib.request
 
@@ -509,6 +510,12 @@ def test_request_and_engine_spans_are_the_jax_servers(servers, monkeypatch):
                               {"prompt": [5, 6, 7], "max_tokens": 3, "temperature": 0,
                                "ignore_eos": True, "stream": stream})
             assert status == 200
+        # both servers end a request's span (and emit its engine children)
+        # after the response's last byte: wait for the second one's end
+        deadline = time.monotonic() + 10
+        while (tracer._tracer.log.count(("request_end", "/v1/completions")) < 2
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
         spans[k] = [e for e in tracer._tracer.log if e[0] in ("request", "child",
                                                                "request_end")]
     assert spans["port"] == spans["jax"]

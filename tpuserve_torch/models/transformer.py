@@ -1,7 +1,10 @@
 """Decoder-only transformer for the dense Qwen3/Qwen2/Llama/Phi-3/OPT/Gemma
 family — the port of the serving entries of ``tpuserve/models/transformer.py``
 (``prefill``, ``prefill_chunk``, ``decode_step``, ``decode_multi``,
-``forward_ragged``).
+``forward_ragged``), speculative decoding's verify pass
+(``decode_verify``, ``decode_verify_sampled``) and its stateless draft
+(``draft_propose``), and the cache-less trunks behind embeddings and
+prompt scoring (``embed_forward``, ``score_prompt``).
 
 Parameters are the plain tree of ``models/weights.py``.  The functions run
 eagerly on the tensors' device.  Unlike the JAX functions, which return a
@@ -12,7 +15,9 @@ is ever made) and return it for symmetry.
 "cuda" runs the kernel wrappers (``ops/flash_prefill.py``,
 ``ops/paged_decode.py``, ``ops/paged_window.py``, ``ops/ragged_paged.py``),
 which launch the CUDA kernels on CUDA tensors and use the same plain
-versions on CPU tensors.
+versions on CPU tensors.  The verify pass runs the paged window kernel and
+the cache-less trunks the flash prefill kernel; the JAX engine keeps all
+of them on its plain attention, which the "reference" path reproduces.
 """
 
 from __future__ import annotations
@@ -250,6 +255,195 @@ def prefill_chunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     last = torch.clamp(chunk_lens.long() - 1, min=0)
     h_last = h[torch.arange(h.shape[0], device=h.device), last]
     return _unembed(params, cfg, h_last), kv_cache
+
+
+# --------------------------------------------------------------------------
+# Speculative verify: score a draft window against the cache
+# --------------------------------------------------------------------------
+
+@torch.no_grad()
+def verify_logits(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                  ctx_lens: torch.Tensor, chunk_lens: torch.Tensor,
+                  slot_ids: torch.Tensor, block_tables: torch.Tensor,
+                  kv_cache: list, *, attn_impl: str = "reference") -> torch.Tensor:
+    """The verify pass's (B, K, V) float32 logits: :func:`_chunk_trunk` over
+    a draft window (the paged window kernel with ``attn_impl="cuda"``),
+    unembedded at every row.  Arguments as :func:`decode_verify`."""
+    _check(cfg, attn_impl)
+    h = _chunk_trunk(params, cfg, tokens, ctx_lens, chunk_lens, slot_ids,
+                     block_tables, kv_cache, attn_impl)
+    return _unembed(params, cfg, h)
+
+
+@torch.no_grad()
+def decode_verify(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                  ctx_lens: torch.Tensor, chunk_lens: torch.Tensor,
+                  slot_ids: torch.Tensor, block_tables: torch.Tensor,
+                  kv_cache: list, *, attn_impl: str = "reference"):
+    """Verify a speculative draft window in one pass: the chunk trunk, then
+    the greedy argmax at EVERY row, ``pred[:, j]`` the model's next token
+    after consuming row j (all that greedy acceptance needs).
+
+    tokens: (B, K) = [last sampled, draft_0, ..] (right-padded); ctx_lens:
+    (B,) int32 tokens cached before the window; chunk_lens: (B,) int32
+    valid rows; slot_ids: (B, K) cache slots (``PAD_SLOT`` on padding);
+    block_tables: (B, max_blocks).  Returns (pred (B, K) int32,
+    kv_cache)."""
+    logits = verify_logits(params, cfg, tokens, ctx_lens, chunk_lens, slot_ids,
+                           block_tables, kv_cache, attn_impl=attn_impl)
+    return torch.argmax(logits, dim=-1).to(torch.int32), kv_cache
+
+
+@torch.no_grad()
+def decode_verify_sampled(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                          ctx_lens: torch.Tensor, chunk_lens: torch.Tensor,
+                          slot_ids: torch.Tensor, block_tables: torch.Tensor,
+                          kv_cache: list, keys: torch.Tensor, temperature: torch.Tensor,
+                          top_k: torch.Tensor, top_p: torch.Tensor,
+                          min_p: torch.Tensor | None = None, *,
+                          attn_impl: str = "reference", noise=None):
+    """Verify a draft window under sampling: the trunk of
+    :func:`decode_verify`, then rejection-sampling acceptance on the
+    device (``sampling.spec_accept_sampled``) of the draft tokens, the
+    verify input rows shifted by one.  keys: (B, 2) each row's (salt,
+    step) as uint32 values, position j keyed at step + j; ``noise``: the
+    acceptance's (u, gumbel), for tests.  ``temperature <= 0`` rows reduce
+    to exact greedy acceptance.  Returns (accept (B, K-1) bool, pred (B,
+    K) int32, kv_cache)."""
+    logits = verify_logits(params, cfg, tokens, ctx_lens, chunk_lens, slot_ids,
+                           block_tables, kv_cache, attn_impl=attn_impl)
+    keys = keys.to(logits.device).long()
+    accept, pred = sampling_ops.spec_accept_sampled(
+        logits, tokens[:, 1:], chunk_lens, keys[:, 0] & 0xFFFFFFFF,
+        keys[:, 1] & 0xFFFFFFFF, temperature, top_k, top_p, min_p, noise=noise)
+    return accept, pred, kv_cache
+
+
+# --------------------------------------------------------------------------
+# Cache-less trunks: embeddings, prompt scoring, draft proposals
+# --------------------------------------------------------------------------
+
+def _cacheless_trunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                     lens: torch.Tensor, attn_impl: str) -> torch.Tensor:
+    """The layer loop over right-padded (B, T) sequences with causal
+    attention among their own tokens and no KV cache (the flash prefill
+    kernel with ``attn_impl="cuda"``); ``lens``: (B,) int32 valid lengths.
+    Returns the final hidden states (B, T, H), before the final norm."""
+    B, T = tokens.shape
+    positions = torch.arange(T, device=tokens.device)[None, :].expand(B, T)
+    lens = lens.to(torch.int32)
+    h = _embed(params, cfg, tokens, positions)
+    scale = cfg.attn_scale
+    for li, lp in enumerate(params["layers"]):
+        sw = cfg.layer_window(li)
+        hn = _norm(h, lp["attn_norm"], cfg)
+        q, k, v = _qkv(hn, lp, cfg, positions, li)
+        if attn_impl == "cuda":
+            out = flash_prefill_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(), lens, scale,
+                sliding_window=sw, logit_softcap=cfg.attn_logit_softcapping)
+        else:
+            out = attn_ops.prefill_attention(q, k, v, lens, scale, sliding_window=sw,
+                                             logit_softcap=cfg.attn_logit_softcapping)
+        h = h + _attn_residual(out.reshape(B, T, cfg.q_size), lp, cfg)
+        h = h + _mlp_residual(h, lp, cfg)
+    return h
+
+
+POOLINGS = ("mean", "last")
+
+
+@torch.no_grad()
+def embed_forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                  prompt_lens: torch.Tensor, *, pooling: str = "mean",
+                  attn_impl: str = "reference") -> torch.Tensor:
+    """Pooled sentence embeddings for /v1/embeddings: the cache-less trunk
+    (no KV cache is written, so embedding traffic never touches the
+    serving pool), the final norm, pooling over each row's valid positions
+    ("mean" or "last"), L2-normalised.  tokens: (B, T) right-padded;
+    prompt_lens: (B,).  Returns (B, H) float32."""
+    _check(cfg, attn_impl)
+    if pooling not in POOLINGS:
+        raise ValueError(f"pooling {pooling!r} not in {POOLINGS}")
+    B, T = tokens.shape
+    h = _cacheless_trunk(params, cfg, tokens, prompt_lens, attn_impl)
+    if cfg.final_layernorm:
+        h = _norm(h, params["final_norm"], cfg)
+    h = h.float()
+    lens = prompt_lens.long().to(h.device)
+    if pooling == "last":
+        pooled = h[torch.arange(B, device=h.device), torch.clamp(lens - 1, min=0)]
+    else:
+        mask = (torch.arange(T, device=h.device)[None, :] < lens[:, None])[..., None]
+        pooled = (h * mask).sum(dim=1) / torch.clamp(lens[:, None], min=1).float()
+    norm = torch.linalg.vector_norm(pooled, dim=-1, keepdim=True)
+    return pooled / torch.clamp(norm, min=1e-12)
+
+
+@torch.no_grad()
+def score_prompt(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                 prompt_lens: torch.Tensor, *, top_n: int = 0, chunk: int = 16,
+                 attn_impl: str = "reference"):
+    """Per-position prompt logprobs (OpenAI ``echo`` + ``logprobs``, vLLM
+    ``prompt_logprobs``): the cache-less trunk, then the unembedding in
+    (B, ``chunk``, V) slices, so the (B, T, V) float32 logits of a page of
+    text never exist at once.  tokens: (B, T) right-padded, T a multiple
+    of ``chunk``; prompt_lens: (B,).  Returns (chosen (B, T) float32,
+    ranks (B, T) int32, top_ids (B, T, top_n) int32, top_lps (B, T, top_n)
+    float32): ``chosen[:, i]`` is log p(token i+1 | tokens <= i) and
+    ``ranks[:, i]`` its 1-based rank over the whole vocabulary; callers
+    shift by one (the first prompt token has no conditional)."""
+    _check(cfg, attn_impl)
+    B, T = tokens.shape
+    if T % chunk:
+        raise ValueError(f"T={T} is not a multiple of chunk={chunk}")
+    h = _cacheless_trunk(params, cfg, tokens, prompt_lens, attn_impl)
+    # next-token targets: position i scores tokens[i + 1]
+    nxt = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1).long()
+    k_eff = min(top_n, cfg.vocab_size) if top_n else 0
+    chosen, ranks, top_ids, top_lps = [], [], [], []
+    for c in range(0, T, chunk):
+        lps = torch.log_softmax(_unembed(params, cfg, h[:, c:c + chunk]), dim=-1)
+        ch = torch.gather(lps, -1, nxt[:, c:c + chunk, None])[..., 0]
+        chosen.append(ch)
+        ranks.append((lps > ch[..., None]).sum(dim=-1).to(torch.int32) + 1)
+        if k_eff:
+            tl, ti = torch.topk(lps, k_eff, dim=-1)
+        else:
+            ti = torch.zeros(ch.shape + (0,), dtype=torch.int64, device=ch.device)
+            tl = torch.zeros(ch.shape + (0,), dtype=torch.float32, device=ch.device)
+        top_ids.append(ti.to(torch.int32))
+        top_lps.append(tl)
+    return (torch.cat(chosen, dim=1), torch.cat(ranks, dim=1),
+            torch.cat(top_ids, dim=1), torch.cat(top_lps, dim=1))
+
+
+@torch.no_grad()
+def draft_propose(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                  lens: torch.Tensor, *, k: int, attn_impl: str = "reference") -> torch.Tensor:
+    """Stateless draft-model proposal for speculative decoding: the
+    cache-less trunk k times, each pass extending every row by its greedy
+    next token, unembedding only each row's last position (the full (B,
+    T, V) logits would be GBs at serving batches).  No draft KV cache, so
+    the draft needs no mirror of the target's block lifecycle.  tokens:
+    (B, W + k) the last W context tokens right-padded with k scratch
+    slots; lens: (B,) valid context lengths.  Nothing is read back to the
+    host, so one CUDA graph captures the k passes.  Returns (B, k) int32
+    proposals."""
+    _check(cfg, attn_impl)
+    B, T = tokens.shape
+    rows = torch.arange(B, device=tokens.device)
+    cols = torch.arange(T, device=tokens.device)[None, :]
+    toks, cur = tokens.clone(), lens.to(torch.int32).clone()
+    outs = []
+    for _ in range(k):
+        h = _cacheless_trunk(params, cfg, toks, cur, attn_impl)
+        h_last = h[rows, (cur.long() - 1).clamp(0, T - 1)]
+        nxt = torch.argmax(_unembed(params, cfg, h_last), dim=-1).to(torch.int32)
+        toks = torch.where(cols == cur[:, None], nxt[:, None], toks)
+        cur = cur + 1
+        outs.append(nxt)
+    return torch.stack(outs, dim=1)
 
 
 # --------------------------------------------------------------------------

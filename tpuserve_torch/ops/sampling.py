@@ -12,7 +12,9 @@ plain torch integer ops: no generator object, so a captured CUDA graph
 serves any request.  ``sample_tokens`` also takes the noise whole
 (``gumbel``), so a test can feed both sides the same numbers.  In the full
 mode noise column j goes to the j-th most likely token (the argmax runs in
-sorted order), as in the JAX sampler.
+sorted order), as in the JAX sampler.  Speculative acceptance
+(:func:`spec_accept_sampled`) keys its uniform and its resample noise the
+same way, on two streams of their own.
 """
 
 from __future__ import annotations
@@ -24,6 +26,10 @@ _U32 = 0xFFFFFFFF
 # products of 32-bit values stay inside int64
 _MUL = (0x7FEB352D, 0x5BD1E995)
 _IDX_SALT = 0x9E3779B9
+_STREAM_SALT = 0x85EBCA6B
+# keyed_uniform streams of speculative acceptance: its uniform and its
+# resample noise (stream 0 is the decode sampler's)
+SPEC_U_STREAM, SPEC_G_STREAM = 1, 2
 NEG_INF = -1e30
 
 
@@ -36,19 +42,29 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def keyed_gumbel(salt: torch.Tensor, step: torch.Tensor,
-                 vocab_size: int) -> torch.Tensor:
-    """(B, V) float32 Gumbel noise on the keys' device: row ``i`` is a
-    function of ``(salt[i], step[i])`` alone (int32 or int64 tensors of
-    (B,) holding uint32 bit patterns).  Uniforms lie in [1e-7, 1), as in
-    the JAX sampler."""
+def keyed_uniform(salt: torch.Tensor, step: torch.Tensor, n: int,
+                  stream: int = 0) -> torch.Tensor:
+    """(B, n) float32 uniforms in [0, 1) on the keys' device: row ``i`` is a
+    function of ``(salt[i], step[i], stream)`` alone (int32 or int64
+    tensors of (B,) holding uint32 bit patterns).  Stream 0 is the
+    decode sampler's; other streams are independent draws of the same
+    key (speculative acceptance takes its uniform and its Gumbel noise
+    from two of them)."""
     row = _mix32(_mix32(salt.long() & _U32) ^ (step.long() & _U32))
-    idx = torch.arange(vocab_size, dtype=torch.int64, device=salt.device)
+    if stream:
+        row = _mix32(row ^ ((stream * _STREAM_SALT) & _U32))
+    idx = torch.arange(n, dtype=torch.int64, device=salt.device)
     col = _mix32((idx + _IDX_SALT) & _U32)
     h = _mix32(row[:, None] ^ col[None, :])
-    u = (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
-    return -torch.log(-torch.log(u * (1.0 - 1e-7) + 1e-7))
+    return (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
+
+def keyed_gumbel(salt: torch.Tensor, step: torch.Tensor,
+                 vocab_size: int, stream: int = 0) -> torch.Tensor:
+    """(B, V) float32 Gumbel noise of :func:`keyed_uniform`'s draws, the
+    uniforms mapped into [1e-7, 1) as in the JAX sampler."""
+    u = keyed_uniform(salt, step, vocab_size, stream)
+    return -torch.log(-torch.log(u * (1.0 - 1e-7) + 1e-7))
 
 
 
@@ -208,3 +224,70 @@ def compute_logprobs(logits: torch.Tensor, chosen: torch.Tensor, top_n: int):
     chosen_lp = torch.gather(lp, 1, chosen.long()[:, None])[:, 0]
     top_lps, top_ids = torch.topk(lp, top_n, dim=-1)
     return chosen_lp, top_ids.to(torch.int32), top_lps
+
+
+def spec_accept_sampled(logits: torch.Tensor, draft_next: torch.Tensor,
+                        chunk_lens: torch.Tensor, salt: torch.Tensor,
+                        step: torch.Tensor, temperature: torch.Tensor,
+                        top_k: torch.Tensor, top_p: torch.Tensor,
+                        min_p: torch.Tensor | None = None, noise=None):
+    """Rejection-sampling acceptance for speculative decoding under
+    temperature / top-k / top-p (/ min-p) sampling, as the JAX
+    ``spec_accept_sampled``: drafts are deterministic (n-gram lookup, a
+    greedy draft model), so draft token d is accepted with probability
+    p̃(d) and a rejection resamples from p̃ with d's mass removed; the
+    emitted marginal is exactly p̃, the truncated distribution the decode
+    sampler draws from.
+
+    logits: (B, K, V) verify logits (row j = after consuming row j);
+    draft_next: (B, K-1) int32, the draft token row j's distribution
+    decides (verify input token j + 1); positions at or past
+    ``chunk_lens - 1`` are padding, whose token must NOT lose mass in the
+    bonus resample; salt/step: (B,) each row's sampling key, position j
+    keyed (salt, step + j); temperature/top_k/top_p(/min_p): (B,), the
+    decode sampler's truncation.  ``noise``: (u (B, K), gumbel (B, K, V))
+    to use instead of the keyed draws (tests feed JAX's).  The uniform and
+    the resample noise come from two keyed streams, so the accept decision
+    and the replacement draw are independent.  ``temperature <= 0`` rows
+    reduce to exact greedy acceptance (accept = draft == argmax, pred =
+    argmax).
+
+    The positions run one at a time, so the truncation's sort and the
+    noise hold (B, V) temporaries, as the decode sampler's.  Returns
+    (accept (B, K-1) bool, pred (B, K) int32): pred[:, j] is the
+    replacement when draft j is rejected, and the bonus token at a row's
+    own chunk end."""
+    B, K, V = logits.shape
+    dev = logits.device
+    temp = torch.clamp(temperature.float(), min=1e-6)[:, None]
+    d = draft_next.long()
+    is_draft = (torch.arange(K - 1, device=dev)[None, :]
+                < (chunk_lens.long() - 1)[:, None])                  # (B, K-1)
+    greedy_row = (temperature <= 0.0)[:, None]
+    rows = torch.arange(B, device=dev)
+    accept_cols, pred_cols = [], []
+    for j in range(K):
+        lj = logits[:, j].float()
+        sj = step.long() + j
+        greedy = torch.argmax(lj, dim=-1)
+        masked = truncated_scaled_logits(lj / temp, top_k, top_p, min_p)
+        if noise is None:
+            gumbel = keyed_gumbel(salt, sj, V, SPEC_G_STREAM)
+        else:
+            gumbel = noise[1][:, j].float()
+        if j < K - 1:
+            p = torch.softmax(masked, dim=-1)
+            p_draft = p[rows, d[:, j]]
+            u = (keyed_uniform(salt, sj, 1, SPEC_U_STREAM)[:, 0] if noise is None
+                 else noise[0][:, j].float())
+            accept_cols.append(torch.where(greedy_row[:, 0], d[:, j] == greedy,
+                                           u < p_draft))
+            # the draft token's mass goes only at real draft positions
+            drop = torch.zeros((B, V), dtype=torch.bool, device=dev)
+            drop[rows, d[:, j]] = is_draft[:, j]
+            masked = torch.where(drop, NEG_INF, masked)
+        sampled = torch.argmax(masked + gumbel, dim=-1)
+        pred_cols.append(torch.where(greedy_row[:, 0], greedy, sampled))
+    accept = (torch.stack(accept_cols, dim=1) if accept_cols
+              else torch.zeros((B, 0), dtype=torch.bool, device=dev))
+    return accept, torch.stack(pred_cols, dim=1).to(torch.int32)

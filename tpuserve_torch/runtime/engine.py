@@ -14,7 +14,15 @@ Each ``step`` is one of:
 - a decode dispatch: a fused window of ``multi_step`` tokens (fewer while
   arrivals land in a busy engine: ``adaptive_multi_step``), or a single
   step when ``multi_step`` is 1 or the window's cache slots cannot be
-  reserved.  With ``pipeline_decode`` (on with a card) a dispatch stays in
+  reserved;
+- with ``speculative`` set, a speculative step for a decode batch without
+  penalties, bias, an active floor, logprobs or guided rows: k draft
+  tokens a row from n-gram lookup or a draft model
+  (``transformer.draft_propose``, the flash prefill kernel on the card),
+  verified in one pass (``transformer.decode_verify`` /
+  ``decode_verify_sampled``: the paged window kernel), emitting 1..k+1
+  tokens a row; an adaptive governor pauses it while acceptance is below
+  break-even (``runtime/spec.py``).  With ``pipeline_decode`` (on with a card) a dispatch stays in
   flight while the next is dispatched from its last tokens on the device
   (``PendingDecode`` / ``PendingWindow``), and the host reads it back only
   then, as the JAX engine pipelines its decode.
@@ -59,6 +67,12 @@ with the cycle's host phases (``runtime/hostprof.py``: schedule, block,
 dispatch, flush, detokenize), all stamped in host code around the
 replays, from host-known values; ``flight=False`` removes it.
 
+Embeddings (``embed``) and prompt scoring (``score_prompts``) run the
+cache-less trunk (``transformer.embed_forward`` / ``score_prompt``: the
+flash prefill kernel on the card) eagerly, outside the step loop, batched
+under the JAX engine's attention-score budget; a server calls them on its
+loop thread between steps (``server/runner.py``).
+
 The engine runs on ``device="cuda"`` unless the caller passes
 ``device="cpu"`` (the tests do); it never falls back to the CPU on its own.
 Options of the JAX engine that this slice does not carry raise
@@ -68,11 +82,13 @@ Options of the JAX engine that this slice does not carry raise
 from __future__ import annotations
 
 import dataclasses
+import glob
 import itertools
 import json
 import logging
 import os
 import string
+import threading
 from typing import Optional, Sequence
 
 import numpy as np
@@ -85,9 +101,11 @@ from tpuserve_torch.models.weights import load_or_init, param_nbytes
 from tpuserve_torch.ops import sampling as sampling_ops
 from tpuserve_torch.ops.ragged_paged import ragged_block, ragged_layout
 from tpuserve_torch.runtime import grammar
+from tpuserve_torch.runtime import spec as spec_mod
 from tpuserve_torch.runtime.block_manager import BlockManager
 from tpuserve_torch.runtime.graphs import (
-    DECODE_EXTRAS, MAX_LOGPROBS, DecodeExecutable, StepGraphs, pool_bytes_bound)
+    DECODE_EXTRAS, MAX_LOGPROBS, VERIFY_MODES, DecodeExecutable, StepGraphs,
+    pool_bytes_bound)
 from tpuserve_torch.runtime.guided import (
     JsonStateMachine, SchemaJsonStateMachine, compile_schema)
 from tpuserve_torch.runtime.guided_choice import ChoiceStateMachine, compile_choices
@@ -104,6 +122,7 @@ from tpuserve_torch.runtime.request import (
     FinishReason, Request, RequestOutput, RequestState, SamplingParams, check_stop)
 from tpuserve_torch.runtime.scheduler import ScheduledBatch, Scheduler, SchedulerConfig
 from tpuserve_torch.runtime.slo import ShedError, SloConfig, SloController, class_rank
+from tpuserve_torch.runtime.spec import SpecConfig
 from tpuserve_torch.utils import env_flag, next_power_of_2
 
 logger = logging.getLogger("tpuserve_torch.engine")
@@ -113,7 +132,6 @@ _UNPORTED_CONFIG = (
     ("quantization", "int8 weights (ROADMAP.md A8, model breadth)"),
     ("lora_dir", "LoRA (ROADMAP.md A8, model breadth)"),
     ("lora_modules", "multi-LoRA (ROADMAP.md A8, model breadth)"),
-    ("speculative", "speculative decoding (ROADMAP.md A7, engine slice 3)"),
 )
 # blocks a round of the tier page copies moves (PageStaging's rows)
 PAGE_STAGING_BLOCKS = 32
@@ -201,11 +219,13 @@ class EngineConfig:
     # spans and written as post-mortem bundles.  None = TPUSERVE_FLIGHT
     # (default on; 0 removes the recorder and the profiler).
     flight: Optional[bool] = None
+    # Speculative decoding (runtime/spec.py): n-gram or draft-model drafts
+    # verified in one pass; None = off
+    speculative: Optional[SpecConfig] = None
     # JAX engine options not ported yet: any value but None raises
     quantization: Optional[str] = None
     lora_dir: Optional[str] = None
     lora_modules: Optional[dict] = None
-    speculative: Optional[object] = None
 
     def resolve_attn_impl(self, device: torch.device) -> str:
         if self.attn_impl != "auto":
@@ -285,6 +305,12 @@ class EngineStats:
     brownout_level: int = 0
     # flight recorder post-mortem bundles written (server/runner.py)
     flight_postmortems: int = 0
+    # speculative decoding (runtime/spec.py): verify steps; draft tokens
+    # offered to the verifier and accepted; adaptive governor pauses
+    spec_steps: int = 0
+    spec_proposed: int = 0
+    spec_accepted: int = 0
+    spec_pauses: int = 0
 
 
 @dataclasses.dataclass
@@ -332,7 +358,11 @@ class Engine:
 
     def __init__(self, config: EngineConfig | None = None, *, params=None,
                  model_cfg: ModelConfig | None = None, mesh=None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", draft_params=None,
+                 draft_model_cfg: ModelConfig | None = None):
+        """``params`` / ``model_cfg`` (and, for draft-model speculation,
+        ``draft_params`` / ``draft_model_cfg``) stand in for the registered
+        configuration and the checkpoint or random init."""
         config = config or EngineConfig()
         self.config = config
         self.device = torch.device(device)
@@ -361,6 +391,36 @@ class Engine:
             params = load_or_init(self.model_cfg, config.checkpoint_dir,
                                   config.seed, self.device)
         self.params = params
+        # speculative decoding, as the JAX engine's: the governor's rolling
+        # (proposed, accepted) window and the decode step at which a paused
+        # spec path probes again; a draft model's weights beside the
+        # target's (before the cache is sized to what the weights left)
+        self._spec: Optional[SpecConfig] = config.speculative
+        self._spec_window = [0, 0]
+        self._spec_resume_step = 0
+        self._draft_params = None
+        self._draft_cfg: Optional[ModelConfig] = None
+        if self._spec is not None and self._spec.draft_model:
+            self._draft_cfg = draft_model_cfg or get_model_config(self._spec.draft_model)
+            if self._draft_cfg.vocab_size != self.model_cfg.vocab_size:
+                raise ValueError(
+                    f"draft model {self._spec.draft_model!r} vocab "
+                    f"{self._draft_cfg.vocab_size} != target vocab "
+                    f"{self.model_cfg.vocab_size} — draft tokens must be "
+                    "target tokens")
+            ddir = self._spec.draft_checkpoint_dir
+            if ddir and not glob.glob(os.path.join(ddir, "*.safetensors")):
+                # load_or_init would silently random-init: a garbage draft
+                # degrades to ~0 acceptance with no error
+                raise ValueError(
+                    f"draft checkpoint dir {ddir!r} has no "
+                    "*.safetensors — a typo here would silently "
+                    "serve a random-weights draft")
+            self._draft_params = (draft_params if draft_params is not None else
+                                  load_or_init(self._draft_cfg, ddir, config.seed,
+                                               self.device))
+        # embeddings and prompt scoring: one trunk batch at a time
+        self._embed_lock = threading.Lock()
         # Mixed batching: the flat-row block is the ragged kernel's grid
         # block AND the host packing's alignment (one source,
         # ragged_paged.ragged_block); the descriptor width is fixed so the
@@ -493,7 +553,8 @@ class Engine:
             self.params, self.model_cfg, self.kv_cache, device=self.device,
             attn_impl=self.attn_impl, max_blocks=self.cache_cfg.max_blocks_per_seq,
             steps=self._multi_step, max_batch=self._ragged_seqs,
-            ragged_blk=self._ragged_blk, capture=config.resolve_cuda_graphs(self.device))
+            ragged_blk=self._ragged_blk, capture=config.resolve_cuda_graphs(self.device),
+            draft_params=self._draft_params, draft_cfg=self._draft_cfg)
         self._req_counter = itertools.count()
         self._seed_counter = itertools.count()
         self._eos_ids = set(self.tokenizer.eos_token_ids)
@@ -524,13 +585,16 @@ class Engine:
         not depend on it, so these stand for every bucket); with mixed
         batching the flat-token ladder (``ragged_block`` doubling up to the
         budget's power of two); else every (batch, length) pair a batched prefill pads to
-        and every chunk length.  The scheduler's prefill admission charges
+        and every chunk length.  With ``speculative`` set, the verify step
+        of every decode bucket in both modes and, with a draft model, its
+        step at every power-of-two batch.  The scheduler's prefill admission charges
         each picked prompt at the batch's bucket, so a batch of n prompts
         at length L, padded to B = next_power_of_2(n), has n * L within
         the token budget (or n = 1)."""
         keys = [_decode_key(B, m, x, (1, 1) if "guided" in x else ())
                 for B in self._decode_ladder() for m in transformer.DECODE_MODES
                 for x in ("",) + DECODE_EXTRAS if guided or "guided" not in x]
+        keys += self._spec_keys(VERIFY_MODES)
         if sched.mixed_batching:
             T = self._ragged_blk
             while T <= next_power_of_2(sched.mixed_token_budget):
@@ -549,6 +613,22 @@ class Engine:
                 {min(chunk, max(next_power_of_2(n), lo)) for n in range(1, max_len + 1)})]
         return keys
 
+    def _spec_keys(self, verify_modes) -> list[tuple]:
+        """The speculative steps' executables (none without ``speculative``):
+        the verify step of every decode bucket in ``verify_modes``; with a
+        draft model, the draft step of every power-of-two batch up to the
+        largest bucket (``_draft_propose`` pads the batch so)."""
+        if self._spec is None:
+            return []
+        K = self._spec.num_draft_tokens + 1
+        keys = [("verify", B, K, m) for B in self._decode_ladder() for m in verify_modes]
+        if self._draft_params is not None:
+            k = self._spec.num_draft_tokens
+            top = next_power_of_2(self.config.scheduler.max_num_seqs)
+            keys += [("draft", 1 << i, self._spec.draft_window + k, k)
+                     for i in range(top.bit_length())]
+        return keys
+
     def _auto_num_blocks(self, sched: SchedulerConfig) -> int:
         """Size the cache to the memory the weights left free (the vLLM
         ``gpu_memory_utilization`` analog): ``torch.cuda.mem_get_info`` on
@@ -563,7 +643,7 @@ class Engine:
                               self.model_cfg.max_position_embeddings)
                 free -= pool_bytes_bound(self.model_cfg,
                                          self._step_keys(sched, max_len, guided=True),
-                                         self._ragged_seqs)
+                                         self._ragged_seqs, self._draft_cfg)
         else:
             free = (1 << 30) - param_nbytes(self.params)
         blocks = num_blocks_for_budget(self.model_cfg, self.cache_cfg, free)
@@ -951,6 +1031,10 @@ class Engine:
             outputs = self._run_prefill_chunk(batch)
         elif batch.kind == "mixed":
             outputs = self._run_mixed(batch)
+        elif batch.kind == "decode" and self._spec_eligible(batch.requests):
+            # sampled batches speculate too: rejection-sampling acceptance
+            # runs on the device (decode_verify_sampled)
+            outputs = self._run_decode_spec(batch)
         elif batch.kind == "decode":
             if self._multi_step > 1:
                 outputs = self._run_decode_multi(batch)
@@ -1913,6 +1997,152 @@ class Engine:
                 outputs.append(self._emit_one(r, int(toks_h[i, 0])))
         return outputs
 
+    # ---- speculative decoding (runtime/spec.py) -------------------------
+
+    def _spec_eligible(self, reqs: list[Request]) -> bool:
+        """The JAX engine's gate: speculation is on and not paused by the
+        governor (the resume step reached) or by the SLO controller's level
+        1 (a batch-class row under queue pressure), and no row has
+        penalties, a bias, an active ``min_tokens`` floor, logprobs or a
+        guided spec (none of which the verify pass applies)."""
+        return (self._spec is not None
+                and self.stats.num_decode_steps >= self._spec_resume_step
+                and not (self._slo is not None and self._slo.spec_paused_for(reqs))
+                and all(not r.params.needs_penalties and not r.params.needs_logit_bias
+                        and not self._floor_active(r) and r.params.logprobs is None
+                        and r.params.guided is None for r in reqs))
+
+    def _run_decode_spec(self, batch: ScheduledBatch) -> list[RequestOutput]:
+        """A speculative decode step, as the JAX ``_run_decode_spec``: k
+        draft tokens a row (n-gram lookup or the draft model), verified in
+        one pass of the ``("verify", B, K, mode)`` executable (greedy
+        argmax, or rejection sampling for a batch with sampled rows), read
+        back synchronously; each row emits its accepted prefix plus one
+        token.  Both in-flight dispatches are flushed first (a spec step
+        reads every row's last token on the host).  Falls back to a single
+        decode step when under ``min_batch_coverage`` of the rows have a
+        draft or the K-token window cannot be reserved."""
+        outputs = self._flush_pending() + self._flush_window()
+        reqs = [r for r in batch.requests if not r.finished]
+        if not reqs:
+            return outputs
+        self._dispatch_rids = tuple(r.request_id for r in reqs)
+        self._step_kind = "spec"
+        k = self._spec.num_draft_tokens
+        K = k + 1
+        if self._draft_params is not None:
+            drafts = self._draft_propose(reqs, k)
+        else:
+            drafts = [spec_mod.ngram_propose(
+                r.prompt_token_ids + r.output_token_ids, k, self._spec.max_ngram,
+                self._spec.min_ngram, self._spec.max_lookback) for r in reqs]
+        # the verify pass costs every row ~(k+1)x a decode step: it pays
+        # only when enough of the batch has drafts to accept
+        coverage = sum(1 for d in drafts if d) / len(drafts)
+        if (coverage < self._spec.min_batch_coverage
+                or not self._try_reserve_window(reqs, K)):
+            return outputs + self._run_decode(batch)
+        B = self.scheduler.decode_bucket(len(reqs))
+        sampled = not all(r.params.greedy for r in reqs)
+        exe = self.graphs.get("verify", B, K, "sampled" if sampled else "greedy")
+        st = exe.stage()
+        with PROF.phase("block"):
+            self.block_manager.fill_block_tables(self._dispatch_rids, st.block_tables)
+        for i, r in enumerate(reqs):
+            d = drafts[i]
+            base = r.num_tokens - 1              # the input token's position
+            st.tokens[i, 0] = r.output_token_ids[-1]
+            st.tokens[i, 1:1 + len(d)] = d
+            st.ctx_lens[i] = base
+            st.chunk_lens[i] = 1 + len(d)
+            # every token of the window sits inside the reserved table
+            st.slot_ids[i] = self._token_slots(r.request_id, base, K,
+                                               block_table=st.block_tables[i])
+        if sampled:
+            for i, r in enumerate(reqs):
+                st.salt[i] = self._salt(r)
+                st.step[i] = len(r.output_token_ids)
+                st.temperature[i] = r.params.temperature
+            st.top_k[:], st.top_p[:], st.min_p[:] = self._truncation_arrays(reqs, B)
+        if self._flight_on:
+            # K is the widest row's window; accepted counts show in the
+            # FINISHED and output events
+            self.flight.req_event_many(self._dispatch_rids, "WINDOW", steps=K, spec=True)
+        self._demote_evicted()
+        self.faults.check("decode_dispatch", self._dispatch_rids)
+        with PROF.phase("dispatch"):
+            exe.load(st)
+            exe.run()
+        with PROF.phase("flush"):
+            # the step's one wait on the card: acceptance decides emission
+            out = exe.fetch()
+        pred_h, accept_h = out[0], (out[1] if sampled else None)
+        self.stats.num_decode_steps += 1
+        self.stats.spec_steps += 1
+        self._note_step_tokens(int(st.chunk_lens[:len(reqs)].sum()), B * K)
+        step_proposed = step_accepted = 0
+        with PROF.phase("detokenize"):
+            for i, r in enumerate(reqs):
+                emitted = (spec_mod.accept_greedy(drafts[i], pred_h[i]) if accept_h is None
+                           else spec_mod.accept_sampled(drafts[i], accept_h[i], pred_h[i]))
+                step_proposed += len(drafts[i])
+                step_accepted += len(emitted) - 1
+                self.block_manager.advance(r.request_id, len(emitted))
+                for tok in emitted:
+                    o = self._emit_one(r, tok)
+                    outputs.append(o)
+                    if o.finished:
+                        break
+        self.stats.spec_proposed += step_proposed
+        self.stats.spec_accepted += step_accepted
+        self._spec_govern(step_proposed, step_accepted)
+        return outputs
+
+    def _draft_propose(self, reqs: list[Request], k: int) -> list[list[int]]:
+        """Batched stateless draft proposals: each row's window is its last
+        ``draft_window`` tokens, which the draft model extends by k greedy
+        tokens in one ``("draft", B, W + k, k)`` executable, the batch
+        padded to a power of two so repeat spec steps share it."""
+        W = self._spec.draft_window
+        B = next_power_of_2(len(reqs))
+        exe = self.graphs.get("draft", B, W + k, k)
+        st = exe.stage()
+        for i, r in enumerate(reqs):
+            ids = (r.prompt_token_ids + r.output_token_ids)[-W:]
+            st.tokens[i, :len(ids)] = ids
+            st.lens[i] = len(ids)
+        self.faults.check("decode_dispatch", self._dispatch_rids)
+        with PROF.phase("dispatch"):
+            exe.load(st)
+            exe.run()
+        with PROF.phase("flush"):
+            # designated wait: the proposals feed this step's verify batch
+            out = exe.fetch()[0]
+        return [[int(t) for t in out[i]] for i in range(len(reqs))]
+
+    def _spec_govern(self, proposed: int, accepted: int) -> None:
+        """The adaptive governor (``SpecConfig.adaptive``), as the JAX
+        engine's: accumulate a rolling acceptance window; once it holds
+        ``adaptive_window_proposed`` proposals, pause the spec path for
+        ``adaptive_pause_steps`` decode steps when acceptance is below
+        break-even."""
+        cfg = self._spec
+        if cfg is None or not cfg.adaptive:
+            return
+        self._spec_window[0] += proposed
+        self._spec_window[1] += accepted
+        if self._spec_window[0] < cfg.adaptive_window_proposed:
+            return
+        acc = self._spec_window[1] / self._spec_window[0]
+        self._spec_window = [0, 0]
+        floor = cfg.effective_min_acceptance
+        if acc < floor:
+            self._spec_resume_step = self.stats.num_decode_steps + cfg.adaptive_pause_steps
+            self.stats.spec_pauses += 1
+            logger.info("speculation paused: rolling acceptance %.3f < %.3f; "
+                        "re-probing after %d decode steps", acc, floor,
+                        cfg.adaptive_pause_steps)
+
     # ---- tiered KV cache (runtime/kv_tiers.py) ------------------------
     # card -> host DRAM -> spill: evictions demote instead of destroying
     # KV, lower-tier hits restore ahead of admission.  kv_tiers=False (or
@@ -2187,7 +2417,8 @@ class Engine:
                prefill_buckets: Optional[Sequence] = None,
                chunk_buckets: Optional[Sequence[int]] = None,
                mixed_buckets: Optional[Sequence[int]] = None,
-               sample_modes: Sequence[str] = SAMPLE_MODES) -> None:
+               sample_modes: Sequence[str] = SAMPLE_MODES,
+               embed_buckets: Sequence[tuple[int, int]] = ()) -> None:
         """Make the executables before serving, with the JAX engine's
         ``warmup`` defaults; on the card each one is a captured CUDA graph,
         largest transient first.  ``None`` derives a kind's buckets; an
@@ -2208,7 +2439,13 @@ class Engine:
         - mixed batching: ``mixed_buckets`` rounded up to the ragged
           block, by default the flat-token ladder (the block, doubling up
           to the budget's power of two); prefill and chunk steps never run
-          then, so none is warmed.
+          then, so none is warmed;
+        - speculation: the greedy verify step of every decode bucket, and
+          the sampled one when ``sample_modes`` names "temperature" or
+          "full", as the JAX warmup; with a draft model its step at every
+          power-of-two batch;
+        - ``embed_buckets``: (B, T) pairs of the embeddings trunk, run once
+          each on padding (eager: the trunks are not engine steps).
 
         With the tiers on, the page copies' staging buffer is made too (a
         round trip of block 0 onto itself), and host records for the host
@@ -2238,8 +2475,16 @@ class Engine:
         keys += [("prefill", *(b if isinstance(b, tuple) else (1, b))) for b in prefill]
         keys += [("chunk", C) for C in chunks]
         keys += [("mixed", -(-T // blk) * blk) for T in mixed_buckets or ()]
+        keys += self._spec_keys(["greedy"] + (["sampled"] if {"temperature", "full"}
+                                              & set(sample_modes) else []))
         with self.faults.suspended():
             self.graphs.warmup(keys)
+        for B, T in embed_buckets:
+            transformer.embed_forward(
+                self.params, self.model_cfg,
+                torch.zeros((B, T), dtype=torch.int32, device=self.device),
+                torch.ones((B,), dtype=torch.int32, device=self.device),
+                attn_impl=self.attn_impl)
         if self._kv_tiers is not None:
             # the tier page copies' staging, and a round's host records
             # (a round trip of block 0 onto itself), so that the first
@@ -2252,6 +2497,129 @@ class Engine:
                            // st.record_bytes)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------------
+    # Embeddings and prompt scoring: the cache-less trunk, no KV cache
+    # ------------------------------------------------------------------
+
+    MAX_EMBED_BATCH = 128
+    # The JAX engine's budget for the (B, H, T, T) float32 scores its plain
+    # attention materialises in these trunks (~1 GiB): the batch is chunked
+    # under it, and a single input too long for it alone is refused.  The
+    # flash kernel materialises no such tensor, but the port keeps the same
+    # budget, so that it batches the same inputs together and refuses the
+    # same over-long input with the same error.
+    EMBED_SCORE_BUDGET_BYTES = 1 << 30
+
+    def _embed_max_rows(self, T: int) -> int:
+        per_row = self.model_cfg.num_heads * T * T * 4
+        return max(int(self.EMBED_SCORE_BUDGET_BYTES // max(per_row, 1)), 0)
+
+    def score_prompts(self, ids_list: Sequence[Sequence[int]], top_n: int = 0) -> list:
+        """Prompt logprobs (OpenAI ``echo`` + ``logprobs``, vLLM
+        ``prompt_logprobs``): log p(t_i | t_<i) per token with its
+        1-based full-vocabulary rank and the top ``top_n`` alternatives,
+        from the cache-less scoring trunk (``transformer.score_prompt``,
+        the unembedding in slices).  Returns one entry list a prompt in
+        ``Request.logprobs``' shape; the first token's logprob and rank are
+        None (no conditional), as OpenAI reports it."""
+        top_n = min(max(int(top_n), 0), self.MAX_LOGPROBS)
+        prepared = []
+        for ids in ids_list:
+            ids = [int(t) for t in ids]
+            if not ids:
+                raise ValueError("prompts must be non-empty")
+            limit = self.model_cfg.max_position_embeddings
+            if len(ids) > limit:
+                raise ValueError(f"prompt length {len(ids)} exceeds model "
+                                 f"position range {limit}")
+            if self._embed_max_rows(max(next_power_of_2(len(ids)), 16)) < 1:
+                raise ValueError(
+                    f"prompt length {len(ids)} exceeds the scoring "
+                    "attention budget for this model; shorten the input")
+            prepared.append(ids)
+        with self._embed_lock:
+            return self._score_locked(prepared, top_n)
+
+    def _trunk_batches(self, ids_list, min_t: int):
+        """The JAX engine's greedy (B, T) batching of the cache-less
+        trunks: the longest run of inputs whose padded shape (T a power of
+        two, at least ``min_t``) fits the attention-score budget and
+        ``MAX_EMBED_BATCH``, B padded to a power of two where padding rows
+        still fit.  Yields (group, tokens (B, T), lens (B,))."""
+        i = 0
+        while i < len(ids_list):
+            T = max(next_power_of_2(len(ids_list[i])), min_t)
+            j = i + 1
+            while j < len(ids_list):
+                T2 = max(T, next_power_of_2(len(ids_list[j])), min_t)
+                if j + 1 - i > min(self._embed_max_rows(T2), self.MAX_EMBED_BATCH):
+                    break
+                T = T2
+                j += 1
+            group = ids_list[i:j]
+            B = next_power_of_2(len(group))
+            if B > self._embed_max_rows(T):     # padding rows count too
+                B = max(len(group), 1)
+            tokens = np.zeros((B, T), dtype=np.int32)
+            lens = np.ones((B,), dtype=np.int32)   # padding rows: length 1
+            for k, ids in enumerate(group):
+                tokens[k, :len(ids)] = ids
+                lens[k] = len(ids)
+            yield group, tokens, lens
+            i = j
+
+    def _score_locked(self, ids_list, top_n):
+        results = []
+        for group, tokens, lens in self._trunk_batches(ids_list, 16):
+            chosen, ranks, top_ids, top_lps = (x.cpu().numpy() for x in transformer.score_prompt(
+                self.params, self.model_cfg, self._tensor(tokens), self._tensor(lens),
+                top_n=top_n, attn_impl=self.attn_impl))
+            for k, ids in enumerate(group):
+                entries = [{"token_id": ids[0], "logprob": None, "rank": None, "top": []}]
+                for p in range(1, len(ids)):
+                    # position p-1's distribution scores token p
+                    entries.append({
+                        "token_id": ids[p], "logprob": float(chosen[k, p - 1]),
+                        "rank": int(ranks[k, p - 1]),
+                        "top": [(int(t), float(lp)) for t, lp in
+                                zip(top_ids[k, p - 1], top_lps[k, p - 1])]})
+                results.append(entries)
+        return results
+
+    def embed(self, inputs: Sequence[str] | Sequence[Sequence[int]], pooling: str = "mean"):
+        """Sentence embeddings for /v1/embeddings: tokenise, pad to
+        power-of-two (B, T) buckets (``_trunk_batches``) and run the
+        cache-less trunk (``transformer.embed_forward``) a batch at a time.
+        Returns (float32 ndarray (n, H), token counts)."""
+        if pooling not in transformer.POOLINGS:
+            raise ValueError("pooling must be 'mean' or 'last'")
+        if not inputs:
+            raise ValueError("input must be non-empty")
+        if len(inputs) > self.MAX_EMBED_BATCH:
+            raise ValueError(f"at most {self.MAX_EMBED_BATCH} inputs per request")
+        ids_list = []
+        for x in inputs:
+            ids = self.tokenizer.encode(x) if isinstance(x, str) else [int(t) for t in x]
+            if not ids:
+                raise ValueError("input texts must be non-empty")
+            limit = self.model_cfg.max_position_embeddings
+            if len(ids) > limit:
+                raise ValueError(f"input length {len(ids)} exceeds model "
+                                 f"position range {limit}")
+            if self._embed_max_rows(max(next_power_of_2(len(ids)), 8)) < 1:
+                raise ValueError(
+                    f"input length {len(ids)} exceeds the embeddings "
+                    "attention budget for this model; shorten the input")
+            ids_list.append(ids)
+        with self._embed_lock:
+            outs = []
+            for group, tokens, lens in self._trunk_batches(ids_list, 8):
+                out = transformer.embed_forward(self.params, self.model_cfg,
+                                                self._tensor(tokens), self._tensor(lens),
+                                                pooling=pooling, attn_impl=self.attn_impl)
+                outs.append(out.cpu().numpy()[:len(group)])
+            return np.concatenate(outs, axis=0), [len(x) for x in ids_list]
 
     def generate(self, prompts: Sequence[str] | Sequence[Sequence[int]],
                  params: SamplingParams | Sequence[SamplingParams] | None = None,

@@ -26,7 +26,14 @@ graph of the step over them:
   from the static buffers of its (N states, C classes) bucket
   (:meth:`StepGraphs.grammar_tables`).  The engine refuses a request
   that asks for both logprobs and guided decoding, but a batch may hold
-  a guided row beside rows with logprobs.
+  a guided row beside rows with logprobs;
+- ``("verify", B, K, mode)``: ``transformer.decode_verify`` ("greedy":
+  each row's argmax) or ``decode_verify_sampled`` ("sampled": rejection
+  sampling on the device) of B speculative windows of K rows against the
+  cache (a :class:`SpecExecutable`, whose small outputs the engine reads
+  synchronously);
+- ``("draft", B, T, k)``: ``transformer.draft_propose``, the k cache-less
+  passes of the draft model over (B, T) windows in one graph.
 
 Every KV write in them drops padding on the device
 (``attention.pad_drop``), so no step reads anything back to the host.  A
@@ -87,7 +94,9 @@ from tpuserve_torch.ops import sampling as sampling_ops
 from tpuserve_torch.ops.attention import PAD_SLOT
 
 KERNEL_MODULES = (flash_prefill, paged_decode, paged_window, ragged_paged)
-KINDS = ("prefill", "chunk", "mixed", "decode")
+KINDS = ("prefill", "chunk", "mixed", "decode", "verify", "draft")
+SPEC_KINDS = ("verify", "draft")       # SpecExecutable's kinds
+VERIFY_MODES = ("greedy", "sampled")
 # a decode executable's extras, beside none
 DECODE_EXTRAS = ("logprobs", "penalties", "logprobs+penalties", "guided",
                  "penalties+guided", "logprobs+guided", "logprobs+penalties+guided")
@@ -140,6 +149,20 @@ def layout(key, max_blocks: int, seqs: int, blk: int) -> tuple:
                 ("frequency", (B,), 0, np.float32), ("repetition", (B,), 1.0, np.float32),
                 ("floor_remaining", (B,), 0), ("use_host", (B,), 1), ("gather", (B,), 0),
                 ("col", (1,), 0)) + ((("gstate", (B,), -1),) if is_guided(key) else ())
+    if kind == "verify":
+        # padding rows: one row at position 0, its KV dropped, greedy
+        B, K, mode = shape
+        fields = (("tokens", (B, K), 0), ("slot_ids", (B, K), PAD_SLOT),
+                  ("ctx_lens", (B,), 0), ("chunk_lens", (B,), 1),
+                  ("block_tables", (B, MB), 0))
+        if mode == "sampled":
+            fields += (("salt", (B,), 0, np.uint32), ("step", (B,), 0, np.uint32),
+                       ("temperature", (B,), 0, np.float32), ("top_k", (B,), 0),
+                       ("top_p", (B,), 1.0, np.float32), ("min_p", (B,), 0, np.float32))
+        return fields
+    if kind == "draft":
+        B, T, _k = shape
+        return (("tokens", (B, T), 0), ("lens", (B,), 1))
     raise ValueError(f"unknown step kind {kind!r} (not in {KINDS})")
 
 
@@ -159,21 +182,32 @@ def keeps_logits(key) -> bool:
     decode with extras, whose logits no one reads (the engine samples and
     takes logprobs inside the step), so their memory returns to the pool
     for the captures after it."""
+    if key[0] in SPEC_KINDS:
+        return False
     return key[0] != "decode" or not decode_extras(key)
 
 
 def _rows(key) -> int:
-    """Token rows one step of ``key`` computes."""
+    """Token rows one step (for the draft, one of its passes) of ``key``
+    computes."""
     kind, *shape = key
-    return shape[0] * shape[1] if kind == "prefill" else shape[0]
+    return shape[0] * shape[1] if kind in ("prefill", "verify", "draft") else shape[0]
 
 
 def _out_rows(key, seqs: int) -> int:
     """Rows of the step's (rows, V) logits."""
-    return {"prefill": key[1], "chunk": 1, "mixed": seqs}.get(key[0], key[1])
+    if key[0] == "chunk":
+        return 1
+    if key[0] == "mixed":
+        return seqs
+    return key[1] * key[2] if key[0] == "verify" else key[1]
 
 
-def transient_bytes(cfg, key, seqs: int) -> int:
+def _width(cfg) -> int:
+    return cfg.hidden_size + cfg.q_size + 2 * cfg.kv_size + cfg.intermediate_size
+
+
+def transient_bytes(cfg, key, seqs: int, draft_cfg=None) -> int:
     """An upper estimate of the memory one step of ``key`` holds beyond its
     output, from shapes: per token row, the layer's activations with
     float32 norm, qk-norm and RoPE temporaries (three copies of the
@@ -185,32 +219,44 @@ def transient_bytes(cfg, key, seqs: int) -> int:
     are freed before the noise is drawn); with logprobs 16 more, the
     log-softmax and the top-k's buffers; with penalties 24 more, the
     penalized, biased and floored logits' temporaries; guided 16 more, the
-    gathered mask words, their bit test and the masked logits."""
+    gathered mask words, their bit test and the masked logits.  A sampled
+    verify adds, per (B, V) element of the position it samples, 120 bytes:
+    the noise's 64, the truncation's sorted logits and indices (24) and the
+    probabilities, the scattered masked logits and the drop mask (32).  A
+    draft step's rows are those of one pass of the draft model
+    (``draft_cfg``, the target's when None), whose output is each row's
+    last-position logits."""
     V = cfg.vocab_size
     if key[0] == "decode":
         extras = decode_extras(key)
         per = (64 + 24 * (key[2] == "full") + 16 * ("logprobs" in extras)
                + 24 * ("penalties" in extras) + 16 * ("guided" in extras))
         return key[1] * V * per
-    width = cfg.hidden_size + cfg.q_size + 2 * cfg.kv_size + cfg.intermediate_size
-    return _rows(key) * 3 * 4 * width + _out_rows(key, seqs) * V * 6
+    if key[0] == "draft":
+        return _rows(key) * 3 * 4 * _width(draft_cfg or cfg) + key[1] * V * 6
+    base = _rows(key) * 3 * 4 * _width(cfg) + _out_rows(key, seqs) * V * 6
+    if key[0] == "verify" and key[3] == "sampled":
+        base += key[1] * V * 120
+    return base
 
 
-def pool_bytes_bound(cfg, keys, seqs: int) -> int:
+def pool_bytes_bound(cfg, keys, seqs: int, draft_cfg=None) -> int:
     """The most device memory one engine's graphs can reserve, from
     shapes: every executable of ``keys`` that keeps its logits
     (:func:`keeps_logits`) holds its (rows, V) float32 logits; the
     largest step's transients (:func:`transient_bytes`) are reused by
     every later capture in the pool, counted twice for the allocator's
     splitting of them; and 256 MiB for the capture stream's cuBLAS
-    workspace and the allocator's rounding.  The engine leaves this much
-    free when it sizes its cache to the card."""
+    workspace and the allocator's rounding.  A verify or draft executable
+    keeps only its small outputs.  The engine leaves this much free when it
+    sizes its cache to the card."""
     keys = list(keys)
     if not keys:
         return 0
     V = cfg.vocab_size
     logits = sum(_out_rows(k, seqs) for k in keys if keeps_logits(k)) * V * 4
-    return logits + 2 * max(transient_bytes(cfg, k, seqs) for k in keys) + (256 << 20)
+    return logits + 2 * max(transient_bytes(cfg, k, seqs, draft_cfg)
+                            for k in keys) + (256 << 20)
 
 
 class Staging:
@@ -251,6 +297,23 @@ def _mixed(o, v):
         v["block_tables"], v["kv_lens"], v["q_starts"], v["q_lens"], v["meta"],
         v["blk_seq"], v["last_rows"], o.kv_cache, ragged_blk=o.ragged_blk,
         attn_impl=o.attn_impl)[0]
+
+
+def _verify(o, v):
+    args = (o.params, o.cfg, v["tokens"], v["ctx_lens"], v["chunk_lens"], v["slot_ids"],
+            v["block_tables"], o.kv_cache)
+    if "salt" not in v:
+        return (transformer.decode_verify(*args, attn_impl=o.attn_impl)[0],)
+    keys = torch.stack([v["salt"], v["step"]], dim=1)
+    accept, pred, _ = transformer.decode_verify_sampled(
+        *args, keys, v["temperature"], v["top_k"], v["top_p"], v["min_p"],
+        attn_impl=o.attn_impl)
+    return pred, accept
+
+
+def _draft(o, v, k):
+    return (transformer.draft_propose(o.draft_params, o.draft_cfg, v["tokens"], v["lens"],
+                                      k=k, attn_impl=o.attn_impl),)
 
 
 _BODIES = {"prefill": _prefill, "chunk": _chunk, "mixed": _mixed}
@@ -413,6 +476,36 @@ class DecodeExecutable(Executable):
         return host[0], (tuple(host[1:]) if len(host) > 1 else None), event
 
 
+class SpecExecutable(Executable):
+    """A verify or draft step: its outputs are a few int32 (and bool)
+    tensors, (B, K) predictions (and (B, K-1) acceptances) or (B, k) draft
+    tokens, which the engine reads back synchronously: the host decides
+    what a speculative step emits before the next dispatch."""
+
+    def __init__(self, owner: "StepGraphs", key: tuple):
+        if key[0] == "verify" and key[3] not in VERIFY_MODES:
+            raise ValueError(f"verify mode {key[3]!r} not in {VERIFY_MODES}")
+        if key[0] == "draft" and owner.draft_params is None:
+            raise ValueError("a draft step needs StepGraphs.draft_params")
+        super().__init__(owner, key)
+        self.out: tuple = ()
+
+    def step(self) -> tuple:
+        if self.key[0] == "draft":
+            return _draft(self.owner, self.views, self.key[3])
+        return _verify(self.owner, self.views)
+
+    def run(self, steps: int = 1) -> None:
+        if self.graph is None:
+            self.out = self.step()
+            return
+        super().run(steps)
+
+    def fetch(self) -> tuple:
+        """The outputs on the host as numpy arrays: waits on the card."""
+        return tuple(t.cpu().numpy() for t in self.out)
+
+
 class StepGraphs:
     """One engine's executables of every step kind, keyed as the module
     docstring says, made (and on the card captured) on first use or by
@@ -422,10 +515,13 @@ class StepGraphs:
 
     def __init__(self, params: dict, cfg, kv_cache: list, *, device: torch.device,
                  attn_impl: str, max_blocks: int, steps: int, max_batch: int,
-                 capture: bool, ragged_blk: int | None = None):
+                 capture: bool, ragged_blk: int | None = None,
+                 draft_params: dict | None = None, draft_cfg=None):
         if capture and device.type != "cuda":
             raise ValueError("CUDA graphs need a CUDA device")
         self.params, self.cfg, self.kv_cache = params, cfg, kv_cache
+        # the speculative draft model's weights and config (draft steps)
+        self.draft_params, self.draft_cfg = draft_params, draft_cfg
         self.device, self.attn_impl = device, attn_impl
         self.max_blocks, self.steps, self.max_batch = max_blocks, steps, max_batch
         self.ragged_blk = ragged_blk or ragged_paged.ragged_block(device)
@@ -500,6 +596,8 @@ class StepGraphs:
         else:
             if key[0] == "decode":
                 exe = DecodeExecutable(self, key)
+            elif key[0] in SPEC_KINDS:
+                exe = SpecExecutable(self, key)
             elif key[0] in _BODIES:
                 exe = Executable(self, key)
             else:
@@ -525,9 +623,8 @@ class StepGraphs:
         """Make every executable of ``keys``, the largest transient first,
         so later captures reuse its memory in the pool.  Without capture
         each runs once on padding rows, as a capture's first run does."""
-        for key in sorted(set(keys), key=lambda k: transient_bytes(self.cfg, k,
-                                                                  self.max_batch),
-                          reverse=True):
+        for key in sorted(set(keys), key=lambda k: transient_bytes(
+                self.cfg, k, self.max_batch, self.draft_cfg), reverse=True):
             exe = self.get(*key)
             if exe.graph is None:
                 exe.pad_run()
@@ -585,5 +682,7 @@ class StepGraphs:
         for mod in KERNEL_MODULES:
             mod.LAUNCHES -= after[_name(mod)] - before[_name(mod)]
         exe.graph, exe.logits = graph, (logits if keeps_logits(exe.key) else None)
+        if isinstance(exe, SpecExecutable):
+            exe.out = logits
         exe.capture_s = time.perf_counter() - t0
         self.capture_s += exe.capture_s

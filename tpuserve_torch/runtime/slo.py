@@ -30,9 +30,8 @@ layer is on by default; ``EngineConfig.slo_classes=False`` or
 ``TPUSERVE_SLO_CLASSES=0`` leaves the controller out and every consumer
 runs classless FIFO.
 
-Level 1's consumer is speculative decoding, which the port does not carry
-yet (ROADMAP.md A7): ``spec_paused_for`` is ported and tested, and nothing
-calls it.  ``flight`` is the engine's flight recorder (``runtime/flight.py``,
+Level 1's consumer is speculative decoding: the engine's spec gate asks
+``spec_paused_for`` before a speculative step.  ``flight`` is the engine's flight recorder (``runtime/flight.py``,
 None with it off): each level transition's log line quotes its client SLI
 percentiles.
 """
@@ -251,7 +250,7 @@ class SloController:
 
     def spec_paused_for(self, reqs) -> bool:
         """Level 1+: dispatches carrying batch-class rows run without
-        speculation (its consumer comes with ROADMAP.md A7)."""
+        speculation (``Engine._spec_eligible``)."""
         return (self.level >= 1 and self._queue_pressure_live()
                 and any(class_rank(r.params.slo_class) >= BATCH
                         for r in reqs))

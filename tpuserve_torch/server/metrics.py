@@ -5,7 +5,8 @@ queries read the port unchanged.
 
 The card's machine has no ``prometheus_client``, so the port renders the
 text exposition format itself (``_Family``).  Of the ``tpuserve_*``
-families, guided decoding's, the tiered KV cache's, the SLO controller's
+families, guided decoding's, speculative decoding's (drafts proposed and
+accepted, governor pauses), the tiered KV cache's, the SLO controller's
 (sheds, class preemptions, the brownout level, the per-class queue-delay
 histogram and the client TTFT / ITL / end-to-end twins), crash-only
 recovery's (salvaged, poisoned, watchdog trips, engine restarts) and the
@@ -178,6 +179,19 @@ class ServerMetrics:
             "tpuserve_guided_fsm_windows",
             "Fused multi-step windows that carried grammar-FSM masks; zero under "
             "guided load means constraints are pinning decode to per-step dispatches")
+        # speculative decoding's counters, as the JAX server's
+        self.spec_proposed = counter(
+            "tpuserve_spec_draft_tokens_proposed",
+            "Draft tokens offered to the speculative verifier (vLLM "
+            "spec_decode_num_draft_tokens analog)")
+        self.spec_accepted = counter(
+            "tpuserve_spec_draft_tokens_accepted",
+            "Draft tokens accepted by the verifier; divide by proposed "
+            "for the live acceptance rate")
+        self.spec_pauses = counter(
+            "tpuserve_spec_adaptive_pauses",
+            "Times the adaptive governor paused speculation for "
+            "below-break-even acceptance (runtime/spec.py)")
         # the tiered KV cache (runtime/kv_tiers.py), as the JAX server's:
         # residency by tier ("hbm": freed-but-hashed blocks in the card's
         # cached pool; "host": pages in host DRAM under the byte budget;

@@ -8,7 +8,7 @@ cache-affinity fields: KV blocks by tier and the prefix digest,
 ``/debug/engine``, ``/debug/engine/dump`` and ``/debug/requests/{id}``
 (``runtime/flight.py``; 404 with the recorder off); ``POST
 /v1/completions`` and ``/v1/chat/completions``, streamed (SSE) or not,
-and ``/tokenize`` / ``/detokenize``.  Each API request is one span
+``/v1/embeddings`` and ``/tokenize`` / ``/detokenize``.  Each API request is one span
 (``server/tracing.py``: OTLP when an exporter is configured), its parent
 the incoming ``traceparent``, its engine timeline the child spans.
 
@@ -19,12 +19,12 @@ penalties, ``logit_bias``, ``min_tokens``, ``logprobs``/``top_logprobs``
 (``response_format`` json_object / json_schema, ``guided_regex``,
 ``guided_choice``; a bad schema, pattern or choice list is a 400 with the
 JAX server's message) and tool calls (``tools`` / ``tool_choice`` on the
-chat route, full and streamed: ``server/tool_calls.py``).  Options whose
-engine parts are not ported yet are answered with a 400 that names the
-ROADMAP.md item bringing them, checked before the request is submitted, so
-a streaming request gets the status line and not a broken event stream:
-prompt scoring (``prompt_logprobs``, ``echo`` with ``logprobs``) and
-``/v1/embeddings`` (A7).
+chat route, full and streamed: ``server/tool_calls.py``), and the prompt's
+own logprobs: prompt scoring (``max_tokens=0`` with ``echo`` and
+``logprobs``), vLLM's ``prompt_logprobs`` and ``echo`` with ``logprobs``,
+full and streamed.  ``/v1/embeddings`` takes a string, a list of strings,
+token ids or lists of them, ``encoding_format`` float or base64 and
+``dimensions`` (truncated and re-normalised).
 
 SLO classes (``slo_class`` in the body or the ``X-SLO-Class`` header) reach
 the engine's controller (``runtime/slo.py``): a request the brownout
@@ -33,11 +33,13 @@ answered 429 with ``Retry-After`` (type ``overloaded``), streamed or not.
 
 Handler threads make no CUDA call: they tokenize, queue and write JSON.
 Every step, graph capture and device copy runs on the runner's loop thread
-(``server/runner.py``).
+(``server/runner.py``); embeddings and prompt scoring run there too, between
+two steps (``AsyncEngineRunner.call``).
 """
 
 from __future__ import annotations
 
+import base64
 import dataclasses
 import json
 import logging
@@ -50,6 +52,8 @@ import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 from urllib.parse import unquote
+
+import numpy as np
 
 from tpuserve_torch.models.tokenizer import default_chat_template
 from tpuserve_torch.runtime.request import SamplingParams
@@ -84,6 +88,8 @@ class ServerConfig:
     # tool-call parser ("hermes", "mistral", "llama3_json"); None infers it
     # from the model family (server/tool_calls.py)
     tool_call_parser: Optional[str] = None
+    # (B, T) embeddings-trunk buckets run at startup (--warmup-embed)
+    warmup_embed: tuple = ()
 
 
 def _num(body: dict, key: str, default, cast):
@@ -233,17 +239,6 @@ def _sampling_from_request(body: dict, cap: int) -> SamplingParams:
         slo_class=slo_class or "standard", truncate_prompt_tokens=tpt)
 
 
-def _reject_unported_request(body: dict, params: SamplingParams, chat: bool) -> None:
-    """NotImplementedError (a 400 naming its ROADMAP.md item) for a request
-    that needs a part this port does not carry yet; called before submit."""
-    if body.get("prompt_logprobs") is not None:
-        raise NotImplementedError("not ported yet: prompt_logprobs (score_prompt: "
-                                  "ROADMAP.md A7)")
-    if not chat and body.get("echo") and params.logprobs is not None:
-        raise NotImplementedError("not ported yet: echo with logprobs, the prompt's "
-                                  "logprobs (score_prompt: ROADMAP.md A7)")
-
-
 class OpenAIServer:
     """HTTP front end over an AsyncEngineRunner."""
 
@@ -279,7 +274,8 @@ class OpenAIServer:
         returns the bound port."""
         self.runner.start()
         if warmup:
-            self.engine.warmup()
+            # embed buckets opt-in, as the JAX server's
+            self.engine.warmup(embed_buckets=self.config.warmup_embed)
         server = self
 
         class Handler(_Handler):
@@ -589,8 +585,7 @@ class _Handler(BaseHTTPRequestHandler):
             self._handle_tokenize(self.path == "/tokenize")
             return
         if self.path == "/v1/embeddings":
-            self._error(400, "not ported yet: /v1/embeddings (embed_forward: "
-                             "ROADMAP.md A7)")
+            self._handle_embeddings()
             return
         chat = self.path == "/v1/chat/completions"
         if self.path not in ("/v1/completions", "/v1/chat/completions"):
@@ -614,16 +609,16 @@ class _Handler(BaseHTTPRequestHandler):
                     raise ValueError(f"X-SLO-Class must be one of {'/'.join(SLO_CLASSES)}, "
                                      f"got {cls!r}")
                 params = dataclasses.replace(params, slo_class=cls)
-            if params.max_tokens == 0:
-                if (chat or stream or not body.get("echo") or params.logprobs is None
-                        or n != 1 or body.get("prompt_logprobs") is not None):
-                    raise ValueError("max_tokens=0 is prompt scoring: requires completions "
-                                     "with echo=true and logprobs, non-streaming, n=1 (and "
-                                     "not combined with prompt_logprobs — it would be "
-                                     "redundant)")
-                raise NotImplementedError("not ported yet: prompt scoring (score_prompt: "
-                                          "ROADMAP.md A7)")
-            _reject_unported_request(body, params, chat)
+            if body.get("prompt_logprobs") is not None and stream:
+                raise ValueError("prompt_logprobs is not supported with stream=true; use "
+                                 "echo+logprobs for streamed prompt logprobs")
+            if params.max_tokens == 0 and (
+                    chat or stream or not body.get("echo") or params.logprobs is None
+                    or n != 1 or body.get("prompt_logprobs") is not None):
+                raise ValueError("max_tokens=0 is prompt scoring: requires completions "
+                                 "with echo=true and logprobs, non-streaming, n=1 (and "
+                                 "not combined with prompt_logprobs — it would be "
+                                 "redundant)")
         except (ValueError, NotImplementedError, json.JSONDecodeError) as e:
             self._error(400, str(e))
             return
@@ -632,6 +627,14 @@ class _Handler(BaseHTTPRequestHandler):
         ctx.kv_digest.note(affinity_key(body))
         kwargs = ({"prompt_token_ids": prompt} if isinstance(prompt, list)
                   else {"prompt": prompt})
+        if params.max_tokens == 0:
+            # OpenAI prompt scoring: the prompt's own logprobs, no generation
+            try:
+                self._score_only_response(params, kwargs)
+            except Exception as e:                    # scoring faults need a status too
+                logger.exception("prompt scoring failed")
+                self._fail(e)
+            return
         try:
             # one span a request, its parent the incoming W3C traceparent
             with get_tracer().request_span(
@@ -678,6 +681,116 @@ class _Handler(BaseHTTPRequestHandler):
                 self._json(200, {"prompt": eng.tokenizer.decode(tokens)})
         except (ValueError, json.JSONDecodeError) as e:
             self._error(400, str(e))
+
+    def _handle_embeddings(self):
+        """OpenAI /v1/embeddings, as the JAX server's: input str | [str] |
+        [ids] | [[ids]]; ``encoding_format`` float (default) or base64;
+        ``dimensions`` truncates and re-normalises.  Pooled from the
+        cache-less trunk's final hidden states (``Engine.embed``), run on
+        the loop thread."""
+        ctx = self.ctx
+        eng = ctx.engine
+        try:
+            body = self._read_body()
+            raw = body.get("input")
+            if isinstance(raw, str):
+                inputs = [raw]
+            elif isinstance(raw, list) and raw and all(
+                    isinstance(t, int) and not isinstance(t, bool) for t in raw):
+                inputs = [raw]                       # one token-id prompt
+            elif isinstance(raw, list) and raw:
+                inputs = raw
+            else:
+                raise ValueError("'input' must be a string, list of strings, or "
+                                 "list(s) of token ids")
+            vocab = eng.model_cfg.vocab_size
+            for x in inputs:
+                if isinstance(x, list) and not all(
+                        isinstance(t, int) and not isinstance(t, bool) and 0 <= t < vocab
+                        for t in x):
+                    raise ValueError(f"token ids must be ints in [0, {vocab})")
+                elif not isinstance(x, (str, list)):
+                    raise ValueError("'input' items must be strings or token-id lists")
+            fmt = body.get("encoding_format", "float")
+            if fmt not in ("float", "base64"):
+                raise ValueError("encoding_format must be 'float' or 'base64'")
+            dims = body.get("dimensions")
+            if dims is not None and (not isinstance(dims, int) or isinstance(dims, bool)
+                                     or dims < 1):
+                raise ValueError("'dimensions' must be a positive integer")
+            vecs, counts = ctx.runner.call(lambda: eng.embed(inputs))
+            if dims is not None:
+                if dims > vecs.shape[1]:
+                    raise ValueError(f"'dimensions' {dims} exceeds model embedding width "
+                                     f"{vecs.shape[1]}")
+                vecs = vecs[:, :dims]
+                vecs = vecs / np.maximum(np.linalg.norm(vecs, axis=-1, keepdims=True), 1e-12)
+            data = []
+            for i, v in enumerate(vecs):
+                emb = (base64.b64encode(v.astype("<f4").tobytes()).decode() if fmt == "base64"
+                       else [float(x) for x in v])
+                data.append({"object": "embedding", "index": i, "embedding": emb})
+            total = sum(counts)
+            self._json(200, {"object": "list", "data": data, "model": ctx.model_name,
+                             "usage": {"prompt_tokens": total, "total_tokens": total}})
+        except (ValueError, json.JSONDecodeError) as e:
+            self._error(400, str(e))
+        except Exception as e:
+            # an engine-side failure: a JSON 500, not a dropped connection
+            logger.exception("embeddings failed")
+            self._error(500, str(e), "server_error")
+
+    def _prompt_ids(self, kwargs, params) -> list:
+        """The prompt's token ids as the engine serves them: truncated to
+        ``truncate_prompt_tokens``, so scoring sees the same context."""
+        ids = (list(kwargs["prompt_token_ids"]) if "prompt_token_ids" in kwargs
+               else list(self.ctx.engine.tokenizer.encode(kwargs["prompt"])))
+        if params.truncate_prompt_tokens:
+            ids = ids[-params.truncate_prompt_tokens:]
+        return ids
+
+    def _score_prompt(self, ids: list, top_n: int) -> list:
+        """``Engine.score_prompts`` of one prompt, on the loop thread."""
+        eng = self.ctx.engine
+        return self.ctx.runner.call(lambda: eng.score_prompts([ids], top_n=top_n))[0]
+
+    @staticmethod
+    def _vllm_prompt_logprobs(pent, plp: int, tok) -> list:
+        """vLLM's prompt_logprobs shape from scoring entries: one element a
+        prompt token, None first (no conditional), then {token_id:
+        {logprob, rank, decoded_token}} over the top ``plp`` alternatives
+        and the chosen token, with full-vocabulary ranks."""
+        out = [None]
+        for e in pent[1:]:
+            el = {}
+            for i, (tid, lp) in enumerate(e["top"][:plp]):
+                el[str(tid)] = {"logprob": lp, "rank": i + 1, "decoded_token": tok(tid)}
+            el[str(e["token_id"])] = {"logprob": e["logprob"], "rank": e["rank"],
+                                      "decoded_token": tok(e["token_id"])}
+            out.append(el)
+        return out
+
+    def _score_only_response(self, params, kwargs):
+        """OpenAI prompt scoring (completions, ``max_tokens=0``, ``echo``,
+        ``logprobs``): the prompt's own logprobs, no generation."""
+        ctx = self.ctx
+        ids = self._prompt_ids(kwargs, params)
+        try:
+            entries = self._score_prompt(ids, params.logprobs)
+        except ValueError as e:
+            self._error(400, str(e))
+            return
+        text = kwargs.get("prompt")
+        if text is None or params.truncate_prompt_tokens:
+            # truncation: echo what actually conditioned the scoring
+            text = ctx.engine.tokenizer.decode(ids)
+        choice = {"index": 0, "text": text, "finish_reason": "length",
+                  "logprobs": self._completions_logprobs(entries)}
+        self._json(200, {
+            "id": f"cmpl-{uuid.uuid4().hex[:24]}", "object": "text_completion",
+            "created": int(time.time()), "model": ctx.model_name, "choices": [choice],
+            "usage": {"prompt_tokens": len(ids), "completion_tokens": 0,
+                      "total_tokens": len(ids)}})
 
     # ---- response shapes ------------------------------------------------
 
@@ -732,9 +845,7 @@ class _Handler(BaseHTTPRequestHandler):
             return None
         tok = self.ctx.engine.tokenizer
         if params.truncate_prompt_tokens:
-            ids = (list(kwargs["prompt_token_ids"]) if "prompt_token_ids" in kwargs
-                   else tok.encode(kwargs["prompt"]))
-            return tok.decode(ids[-params.truncate_prompt_tokens:])
+            return tok.decode(self._prompt_ids(kwargs, params))
         if "prompt" in kwargs:
             return kwargs["prompt"]
         return tok.decode(kwargs["prompt_token_ids"])
@@ -764,6 +875,26 @@ class _Handler(BaseHTTPRequestHandler):
         cands = []
         prompt_tokens = completion_tokens = 0
         echo_text = self._echo_text(body, chat, kwargs, params)
+        # one scoring pass feeds both prompt-logprob shapes: vLLM's
+        # prompt_logprobs field and the OpenAI echo + logprobs arrays
+        prompt_lp_field = prompt_entries = None
+        plp = body.get("prompt_logprobs")
+        want_echo_entries = not chat and echo_text is not None and params.logprobs is not None
+        if plp is not None or want_echo_entries:
+            try:
+                pent = self._score_prompt(self._prompt_ids(kwargs, params),
+                                          max(int(plp or 0), params.logprobs or 0))
+            except Exception as e:
+                # the submitted generations are aborted too
+                if not isinstance(e, ValueError):
+                    logger.exception("prompt scoring failed")
+                fail(e)
+                return
+            if want_echo_entries:
+                prompt_entries = [dict(e, top=e["top"][:params.logprobs]) for e in pent]
+            if plp is not None:
+                prompt_lp_field = self._vllm_prompt_logprobs(
+                    pent, int(plp), ctx.engine.tokenizer.id_to_token)
         for rid, q in submits:
             text_parts, n_tokens, finish_reason = [], 0, "stop"
             while True:
@@ -799,6 +930,8 @@ class _Handler(BaseHTTPRequestHandler):
         for idx, (text, entries, finish_reason) in enumerate(cands):
             if internal_logprobs:
                 entries = []
+            if prompt_entries is not None:
+                entries = prompt_entries + entries
             if chat:
                 message = {"role": "assistant", "content": text}
                 if toolctx is not None:
@@ -815,6 +948,8 @@ class _Handler(BaseHTTPRequestHandler):
                 choice = {"index": idx, "text": text, "finish_reason": finish_reason}
                 if entries:
                     choice["logprobs"] = self._completions_logprobs(entries)
+            if prompt_lp_field is not None:
+                choice["prompt_logprobs"] = prompt_lp_field
             choices.append(choice)
         ctx.emit_engine_spans([rid for rid, _ in submits])
         self._json(200, {
@@ -884,6 +1019,13 @@ class _Handler(BaseHTTPRequestHandler):
                 buf.clear()
                 self.wfile.flush()
 
+        def end_stream():
+            flush_chunks()
+            done = b"data: [DONE]\n\n"
+            self.wfile.write(hex(len(done))[2:].encode() + b"\r\n" + done + b"\r\n")
+            self.wfile.write(b"0\r\n\r\n")
+            self.wfile.flush()
+
         # n > 1: the choices' queues merge into one, tagged with the choice
         # index; the first items read above re-enter ahead of the rest
         if n == 1:
@@ -916,8 +1058,23 @@ class _Handler(BaseHTTPRequestHandler):
                     send_chunk(chunk)
             echo_text = self._echo_text(body, chat, kwargs, params)
             if echo_text is not None:
+                # with logprobs the echo chunk carries the prompt's arrays
+                # (first entry null), aligned with the echoed tokens
+                prompt_lp = None
+                if params.logprobs is not None:
+                    try:
+                        prompt_lp = self._completions_logprobs(self._score_prompt(
+                            self._prompt_ids(kwargs, params), params.logprobs))
+                    except Exception as e:      # headers are out: an error chunk
+                        logger.exception("prompt scoring failed")
+                        abort_all()
+                        send_chunk({"error": {"message": str(e)}})
+                        end_stream()
+                        return
                 for i in range(n):
                     choice = {"index": i, "text": echo_text, "finish_reason": None}
+                    if prompt_lp is not None:
+                        choice["logprobs"] = prompt_lp
                     if ret_ids:
                         choice["token_ids"] = []
                     chunk = {"id": oid, "object": obj, "created": int(time.time()),
@@ -1017,11 +1174,7 @@ class _Handler(BaseHTTPRequestHandler):
                             "usage": {"prompt_tokens": prompt_toks,
                                       "completion_tokens": completion_toks,
                                       "total_tokens": prompt_toks + completion_toks}})
-            flush_chunks()
-            done = b"data: [DONE]\n\n"
-            self.wfile.write(hex(len(done))[2:].encode() + b"\r\n" + done + b"\r\n")
-            self.wfile.write(b"0\r\n\r\n")
-            self.wfile.flush()
+            end_stream()
         except (BrokenPipeError, ConnectionResetError):
             abort_all()                 # the client went away mid-stream
         except Exception:
@@ -1048,10 +1201,6 @@ _UNPORTED_FLAGS = (
     ("--lora", dict(default=None), "A8, model breadth"),
     ("--lora-modules", dict(default=None, nargs="+"), "A8, model breadth"),
     ("--quantization", dict(default=None, choices=["int8"]), "A8, model breadth"),
-    ("--speculative-k", dict(type=int, default=0), "A7, speculation"),
-    ("--speculative-draft-model", dict(default=None), "A7, speculation"),
-    ("--speculative-draft-dir", dict(default=None), "A7, speculation"),
-    ("--warmup-embed", dict(default=None), "A7, embeddings"),
     ("--model-catalog", dict(default=None), "A9, the model pool"),
     ("--swap-policy", dict(default="swap", choices=["swap", "reject"]), "A9, the model pool"),
     ("--max-resident-models", dict(type=int, default=1), "A9, the model pool"),
@@ -1112,6 +1261,18 @@ def build_parser():
                     choices=["hermes", "mistral", "llama3_json"],
                     help="tool-call output format (default: inferred from the model family)")
     ap.add_argument("--no-warmup", action="store_true")
+    ap.add_argument("--warmup-embed", default=None,
+                    help="comma-separated BxT embed buckets to run at startup "
+                         "(e.g. '8x128,1x512')")
+    ap.add_argument("--speculative-k", type=int, default=0,
+                    help="speculative decoding with k draft tokens (0 disables); "
+                         "proposals come from n-gram prompt lookup, or a draft model "
+                         "with --speculative-draft-model")
+    ap.add_argument("--speculative-draft-model", default=None,
+                    help="registered model name proposing the draft tokens (stateless "
+                         "truncated-window drafts); needs the target's vocab")
+    ap.add_argument("--speculative-draft-dir", default=None,
+                    help="checkpoint dir for the draft model (default: random init)")
     ap.add_argument("--drain-timeout", type=float, default=25.0,
                     help="graceful-drain budget on SIGTERM, seconds")
     ap.add_argument("--no-slo-classes", action="store_true",
@@ -1137,6 +1298,7 @@ def engine_config(args):
     """The EngineConfig of parsed CLI ``args``, as the JAX server's
     ``main`` builds it."""
     from tpuserve_torch.runtime import CacheConfig, EngineConfig, SchedulerConfig
+    from tpuserve_torch.runtime.spec import SpecConfig
 
     return EngineConfig(
         model=args.model, checkpoint_dir=args.checkpoint_dir,
@@ -1154,7 +1316,11 @@ def engine_config(args):
         kv_tiers=False if args.no_kv_tiers else None,
         kv_host_bytes=args.kv_host_bytes, kv_spill_dir=args.kv_spill_dir,
         slo_classes=False if args.no_slo_classes else None,
-        faults=args.faults, step_watchdog_s=args.step_watchdog_s)
+        faults=args.faults, step_watchdog_s=args.step_watchdog_s,
+        speculative=(SpecConfig(num_draft_tokens=args.speculative_k,
+                                draft_model=args.speculative_draft_model,
+                                draft_checkpoint_dir=args.speculative_draft_dir)
+                     if args.speculative_k > 0 else None))
 
 
 def main(argv=None):
@@ -1167,6 +1333,20 @@ def main(argv=None):
     for flag, kw, item in _UNPORTED_FLAGS:
         if getattr(args, flag[2:].replace("-", "_")) != kw.get("default", False):
             ap.error(f"{flag} is not ported yet (ROADMAP.md {item})")
+    if args.speculative_k <= 0 and args.speculative_draft_model:
+        ap.error("--speculative-draft-model needs --speculative-k > 0")
+    if args.speculative_draft_dir and not args.speculative_draft_model:
+        ap.error("--speculative-draft-dir needs --speculative-draft-model "
+                 "(the dir would be silently ignored)")
+    warmup_embed = ()
+    if args.warmup_embed:
+        try:
+            warmup_embed = tuple(
+                (int(b.lower().split("x")[0]), int(b.lower().split("x")[1]))
+                for b in args.warmup_embed.split(","))
+        except (ValueError, IndexError):
+            ap.error("--warmup-embed must be comma-separated BxT pairs, "
+                     "e.g. '8x128,1x512'")
     logging.basicConfig(level=logging.INFO)
     chat_template = None
     if args.chat_template:
@@ -1179,7 +1359,8 @@ def main(argv=None):
         sys.exit(f"tpuserve_torch.server: {e}")
     server = OpenAIServer(engine, ServerConfig(host=args.host, port=args.port,
                                                chat_template=chat_template,
-                                               tool_call_parser=args.tool_call_parser))
+                                               tool_call_parser=args.tool_call_parser,
+                                               warmup_embed=warmup_embed))
     port = server.start(warmup=not args.no_warmup)
     print(f"tpuserve_torch listening on {args.host}:{port}", flush=True)
     # SIGTERM drains (readyz 503, new work 503, in-flight work finishes)

@@ -6,7 +6,10 @@ graph captures, the pinned staging copies and the events a pipelined
 dispatch waits on) runs on the loop thread.  HTTP handler threads talk to
 it only through the intake queue and per-request output queues, and make
 no CUDA call, so a graph the loop captures on first use (in the global
-capture mode) never meets another thread's CUDA work.
+capture mode) never meets another thread's CUDA work.  Work that is not a
+request (embeddings and prompt scoring, ``Engine.embed`` and
+``Engine.score_prompts``) goes through :meth:`AsyncEngineRunner.call`: the
+loop runs it between two steps and hands back its result or its exception.
 
 Crash-only recovery, as the JAX runner's: a step that raises is salvaged
 (``Engine.salvage_requeue`` re-queues every live request through the
@@ -76,6 +79,15 @@ class _Submit:
 @dataclasses.dataclass
 class _Abort:
     request_id: str
+
+
+@dataclasses.dataclass
+class _Call:
+    """A function the loop runs between steps (``AsyncEngineRunner.call``)."""
+    fn: object
+    done: threading.Event
+    result: object = None
+    error: Optional[BaseException] = None
 
 
 @dataclasses.dataclass
@@ -199,6 +211,21 @@ class AsyncEngineRunner:
         self._intake.put(_Abort(request_id))
         self._wake.set()
 
+    def call(self, fn, timeout: float = 600.0):
+        """Run ``fn()`` on the loop thread between two engine steps and
+        return its result, or raise its exception here.  The engine's
+        eager work outside the step loop (embeddings, prompt scoring)
+        comes this way, so no handler thread makes a CUDA call while the
+        loop may be capturing a graph."""
+        msg = _Call(fn=fn, done=threading.Event())
+        self._intake.put(msg)
+        self._wake.set()
+        if not msg.done.wait(timeout):
+            raise TimeoutError("engine loop did not run the call in time")
+        if msg.error is not None:
+            raise msg.error
+        return msg.result
+
     def generate_sync(self, prompt=None, prompt_token_ids=None, params=None,
                       timeout: float = 600.0):
         """Blocking convenience: returns (list[RequestOutput], request_id)."""
@@ -224,6 +251,13 @@ class AsyncEngineRunner:
                 msg = self._intake.get_nowait()
             except queue.Empty:
                 return
+            if isinstance(msg, _Call):
+                try:
+                    msg.result = msg.fn()
+                except Exception as e:       # the caller's to handle
+                    msg.error = e
+                msg.done.set()
+                continue
             if isinstance(msg, _Abort):
                 if self.engine.abort_request(msg.request_id):
                     q = self._out_queues.pop(msg.request_id, None)
@@ -606,7 +640,10 @@ class AsyncEngineRunner:
                               (m.requests_poisoned, stats.requests_poisoned),
                               (m.watchdog_trips, stats.watchdog_trips),
                               (m.engine_restarts, stats.engine_restarts),
-                              (m.flight_postmortems, stats.flight_postmortems)):
+                              (m.flight_postmortems, stats.flight_postmortems),
+                              (m.spec_proposed, stats.spec_proposed),
+                              (m.spec_accepted, stats.spec_accepted),
+                              (m.spec_pauses, stats.spec_pauses)):
             _advance_counter(metric, value)
         m.brownout_level.set(stats.brownout_level)
         ctl = getattr(self.engine, "_slo", None)
