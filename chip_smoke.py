@@ -2687,12 +2687,12 @@ def http(url: str, body: dict | None = None, timeout: float = 600):
 def sse(url: str, body: dict, timeout: float = 600) -> dict:
     """One streamed request, read event by event: status, chunks, whether
     it ended in ``[DONE]``, and the host clock at the send, the first
-    chunk carrying tokens and the last."""
+    chunk carrying tokens, the last, and each one (``t_tokens``)."""
     import http.client
     from urllib.parse import urlparse
     u = urlparse(url)
     conn = http.client.HTTPConnection(u.hostname, u.port, timeout=timeout)
-    out = {"chunks": [], "done": False, "t_first": None, "t_last": None}
+    out = {"chunks": [], "done": False, "t_first": None, "t_last": None, "t_tokens": []}
     try:
         out["t_send"] = time.perf_counter()
         conn.request("POST", u.path, body=json.dumps(dict(body, stream=True)),
@@ -2715,6 +2715,7 @@ def sse(url: str, body: dict, timeout: float = 600) -> dict:
                    for ch in chunk["choices"]):
                 out["t_first"] = out["t_first"] or now
                 out["t_last"] = now
+                out["t_tokens"].append(now)
             out["chunks"].append(chunk)
     finally:
         conn.close()
@@ -4168,15 +4169,18 @@ def spec_engine(params, cfg, spec=None, identity=False, **kw):
     """A default engine (captured graphs, 32-token pipelined windows) on
     the main weights (``cfg`` None: the registered bf16 config) with
     ``spec``; ``identity``: the draft model is the target itself."""
-    from tpuserve_torch.models.config import get_model_config
+    import torch
     from tpuserve_torch.runtime import CacheConfig, Engine, EngineConfig
     dtype = cfg.dtype if cfg is not None else "bfloat16"
-    extra = {}
+    eng = Engine(EngineConfig(seed=SEED, cache=CacheConfig(dtype=dtype), speculative=spec,
+                              **kw), params=params, model_cfg=cfg)
     if identity:
-        extra = dict(draft_params=params,
-                     draft_model_cfg=cfg or get_model_config("Qwen/Qwen3-0.6B"))
-    return Engine(EngineConfig(seed=SEED, cache=CacheConfig(dtype=dtype), speculative=spec,
-                               **kw), params=params, model_cfg=cfg, **extra)
+        # the registered draft's random weights give way to the target's
+        # own, on the engine and on the step graphs that replay the draft
+        eng._draft_cfg = eng.graphs.draft_cfg = eng.model_cfg
+        eng._draft_params = eng.graphs.draft_params = params
+        torch.cuda.empty_cache()
+    return eng
 
 
 def spec_configs() -> dict:
@@ -4341,7 +4345,11 @@ def spec_identity(params, cfg, ps) -> dict:
         torch.cuda.synchronize()
         st = eng.stats
         launches, want = read_launches(), spec_launches(eng, marks)
+        d = [a - b for a, b in zip(spec_marks(eng), marks)]
         out[name] = {"wall_s": time.perf_counter() - t, "spec_steps": st.spec_steps,
+                     "prefill_steps": d[0] - d[1] - d[3], "chunk_steps": d[1],
+                     "verify_replays": d[5],
+                     "draft_replays": d[6],
                      "proposed": st.spec_proposed, "accepted": st.spec_accepted,
                      "acceptance": st.spec_accepted / st.spec_proposed if st.spec_proposed
                      else None, "pauses": st.spec_pauses, "launches": launches,
@@ -4501,13 +4509,32 @@ def phase_spec(results) -> dict:
     rates = spec_rates(params, cfg.vocab_size)
     gc.collect()
     torch.cuda.empty_cache()
-    launches = {"paged_window": verify["launches"]["paged_window"],
-                "flash_prefill": draft["launches"]["flash_prefill"]}
+    # the kernels' launches on the main path: the bf16 identity-draft
+    # engine's run (counts zeroed just before its generate, read just
+    # after), its verify and draft replays beside them; the standalone
+    # calls' counts above gate one call each
+    run = ident16["draft"]
+    L = cfg.num_layers
+    launches = {"paged_window": run["launches"]["paged_window"],
+                "flash_prefill": run["launches"]["flash_prefill"]}
+    engine_run = {"verify_replays": run["verify_replays"],
+                  "draft_replays": run["draft_replays"],
+                  "prefill_steps": run["prefill_steps"], "chunk_steps": run["chunk_steps"],
+                  **launches,
+                  "paged_window_per_verify_replay": (
+                      (launches["paged_window"] - L * run["chunk_steps"])
+                      / run["verify_replays"]
+                      if run["verify_replays"] else None),
+                  "flash_prefill_per_draft_replay": (
+                      (launches["flash_prefill"] - L * run["prefill_steps"])
+                      / run["draft_replays"] if run["draft_replays"] else None)}
+    engine_run["ok"] = bool(run["launches_ok"] and run["verify_replays"] > 0
+                            and run["draft_replays"] > 0)
     return {"ok": all(r["ok"] for r in (verify, draft, draft32, ident32, ident16, sampled,
-                                        rates)),
+                                        rates, engine_run)),
             "verify": verify, "draft": draft, "draft_fp32": draft32, "identity_fp32": ident32,
             "identity_bf16": ident16, "sampled": sampled, "rates": rates,
-            "launches": launches}
+            "engine_run": engine_run, "launches": launches}
 
 
 EMBED_LENGTHS = MAIN_LENGTHS         # batch 8 x T 128-1,024
@@ -4662,24 +4689,15 @@ def embed_server(eng) -> dict:
     return out
 
 
-def embed_concurrent(params, cfg) -> dict:
-    """Embeddings posted while 8 streams decode, in float32 (TF32 off) on a
-    server engine that is not warmed, so its decode bucket is captured on
-    first use amid the traffic: no request fails, a decode executable was
-    captured during it, and the streams' tokens equal a twin engine's run
-    with no embedding traffic."""
+def serve_streams(eng, ps: list, emb_in=None) -> dict:
+    """``ps`` streamed through an in-process server over ``eng``, greedy,
+    EMBED_STREAM_TOKENS each, with embeddings of ``emb_in`` posted in a
+    loop until the streams end (none when None): each stream's ids (None
+    where its status was not 200), its gaps between token chunks, the
+    posts' statuses, the decode executables the run captured and the
+    runner's failed steps."""
     import threading
-    from tpuserve_torch.runtime import CacheConfig, Engine, EngineConfig, SamplingParams
     from tpuserve_torch.server import OpenAIServer, ServerConfig
-    conf = EngineConfig(seed=SEED, cache=CacheConfig(num_blocks=512, dtype="float32"))
-    rng = np.random.default_rng(SEED + 55)
-    ps = prompts(rng, [100, 150, 200, 250, 300, 350, 400, 128], cfg.vocab_size)
-    emb_in = prompts(rng, [256] * 8, cfg.vocab_size)
-    twin = Engine(conf, params=params, model_cfg=cfg)
-    want = [r.output_token_ids for r in twin.generate(
-        ps, SamplingParams(max_tokens=EMBED_STREAM_TOKENS, temperature=0.0, ignore_eos=True))]
-    del twin
-    eng = Engine(conf, params=params, model_cfg=cfg)
     srv = OpenAIServer(eng, ServerConfig(host="127.0.0.1", port=0))
     url = f"http://127.0.0.1:{srv.start()}"
     decode_before = sum(1 for k in eng.graphs.executables if k[0] == "decode")
@@ -4695,28 +4713,61 @@ def embed_concurrent(params, cfg) -> dict:
             posts.append(http(url + "/v1/embeddings", {"input": emb_in})[0])
     try:
         poster = threading.Thread(target=embed_loop)
-        poster.start()
-        threads = [threading.Thread(target=stream, args=(i,)) for i in range(EMBED_STREAMS)]
+        if emb_in is not None:
+            poster.start()
+        threads = [threading.Thread(target=stream, args=(i,)) for i in range(len(ps))]
         for th in threads:
             th.start()
         for th in threads:
             th.join()
         stop.set()
-        poster.join()
+        if emb_in is not None:
+            poster.join()
     finally:
         srv.shutdown()
-    got = [stream_ids(streams[i]) if streams[i].get("status") == 200 else None
-           for i in range(EMBED_STREAMS)]
-    decode_made = sum(1 for k in eng.graphs.executables if k[0] == "decode") - decode_before
-    out = {"embed_posts": len(posts), "embed_statuses": sorted(set(posts)),
-           "stream_statuses": [streams[i].get("status") for i in range(EMBED_STREAMS)],
-           "equal_to_twin": got == want,
-           "first_diff": [first_diff(g, w) if g is not None else 0 for g, w in zip(got, want)],
-           "decode_executables_captured": decode_made, "capture_s": eng.graphs.capture_s,
-           "steps_failed": srv.runner.steps_failed}
-    out["ok"] = bool(posts and set(posts) == {200} and got == want and decode_made > 0
-                     and srv.runner.steps_failed == 0)
-    del eng, srv
+    res = [streams[i] for i in range(len(ps))]
+    return {"ids": [stream_ids(r) if r.get("status") == 200 else None for r in res],
+            "statuses": [r.get("status") for r in res],
+            "gaps": [float(g) for r in res for g in np.diff(r["t_tokens"])],
+            "posts": posts, "steps_failed": srv.runner.steps_failed,
+            "decode_made": sum(1 for k in eng.graphs.executables
+                               if k[0] == "decode") - decode_before}
+
+
+def embed_concurrent(params, cfg) -> dict:
+    """Embeddings posted while 8 streams decode, in float32 (TF32 off) on a
+    server engine that is not warmed, so its decode bucket is captured on
+    first use amid the traffic: no request fails, a decode executable was
+    captured during it, and the streams' tokens equal a twin engine's
+    streams with no embedding traffic.  The embeddings run on the loop
+    thread between steps, so they stall every stream: the largest, the
+    90th percentile and the median gap between token chunks with and
+    without the traffic, and one embedding call's seconds, are readings."""
+    from tpuserve_torch.runtime import CacheConfig, Engine, EngineConfig
+    conf = EngineConfig(seed=SEED, cache=CacheConfig(num_blocks=512, dtype="float32"))
+    rng = np.random.default_rng(SEED + 55)
+    ps = prompts(rng, [100, 150, 200, 250, 300, 350, 400, 128], cfg.vocab_size)
+    emb_in = prompts(rng, [256] * 8, cfg.vocab_size)
+    twin = serve_streams(Engine(conf, params=params, model_cfg=cfg), ps)
+    eng = Engine(conf, params=params, model_cfg=cfg)
+    run = serve_streams(eng, ps, emb_in)
+    embed_s = timed_host(lambda: eng.embed(emb_in))
+    gaps = {name: {"max_gap_s": max(r["gaps"]),
+                   "p90_gap_s": float(np.quantile(r["gaps"], 0.9)),
+                   "median_gap_s": float(np.median(r["gaps"])), "gaps": len(r["gaps"])}
+            for name, r in (("alone", twin), ("with_embeddings", run)) if r["gaps"]}
+    out = {"embed_posts": len(run["posts"]), "embed_statuses": sorted(set(run["posts"])),
+           "stream_statuses": run["statuses"], "twin_statuses": twin["statuses"],
+           "equal_to_twin": run["ids"] == twin["ids"],
+           "first_diff": [first_diff(g, w) if g is not None and w is not None else 0
+                          for g, w in zip(run["ids"], twin["ids"])],
+           "decode_executables_captured": run["decode_made"], "capture_s": eng.graphs.capture_s,
+           "steps_failed": run["steps_failed"], "token_gaps": gaps,
+           "one_embed_call_s": embed_s}
+    out["ok"] = bool(run["posts"] and set(run["posts"]) == {200}
+                     and None not in twin["ids"] and run["ids"] == twin["ids"]
+                     and run["decode_made"] > 0 and run["steps_failed"] == 0)
+    del eng
     return out
 
 

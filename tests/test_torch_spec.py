@@ -360,8 +360,17 @@ def _port(model, spec_cfg, identity=False, sched=SCHED, **kw):
     kw = dict(dict(enable_prefix_caching=False, pipeline_decode=False), **kw)
     conf = EngineConfig(model="tiny-qwen3", cache=CacheConfig(**CACHE),
                         scheduler=SchedulerConfig(**sched), speculative=spec_cfg, **kw)
-    extra = dict(draft_params=params, draft_model_cfg=cfg) if identity else {}
-    return Engine(conf, params=params, model_cfg=cfg, device="cpu", **extra)
+    eng = Engine(conf, params=params, model_cfg=cfg, device="cpu")
+    if identity:
+        _identity_draft(eng, params, cfg)
+    return eng
+
+
+def _identity_draft(eng, params, cfg):
+    """The target as its own draft, set after construction as the JAX
+    engine's tests do (and on the step graphs, which hold the draft)."""
+    eng._draft_cfg, eng._draft_params = cfg, params
+    eng.graphs.draft_cfg, eng.graphs.draft_params = cfg, params
 
 
 def _jax(model, spec_cfg, identity=False, sched=SCHED, **kw):

@@ -358,11 +358,7 @@ class Engine:
 
     def __init__(self, config: EngineConfig | None = None, *, params=None,
                  model_cfg: ModelConfig | None = None, mesh=None,
-                 device: str | torch.device = "cuda", draft_params=None,
-                 draft_model_cfg: ModelConfig | None = None):
-        """``params`` / ``model_cfg`` (and, for draft-model speculation,
-        ``draft_params`` / ``draft_model_cfg``) stand in for the registered
-        configuration and the checkpoint or random init."""
+                 device: str | torch.device = "cuda"):
         config = config or EngineConfig()
         self.config = config
         self.device = torch.device(device)
@@ -401,7 +397,7 @@ class Engine:
         self._draft_params = None
         self._draft_cfg: Optional[ModelConfig] = None
         if self._spec is not None and self._spec.draft_model:
-            self._draft_cfg = draft_model_cfg or get_model_config(self._spec.draft_model)
+            self._draft_cfg = get_model_config(self._spec.draft_model)
             if self._draft_cfg.vocab_size != self.model_cfg.vocab_size:
                 raise ValueError(
                     f"draft model {self._spec.draft_model!r} vocab "
@@ -416,9 +412,8 @@ class Engine:
                     f"draft checkpoint dir {ddir!r} has no "
                     "*.safetensors — a typo here would silently "
                     "serve a random-weights draft")
-            self._draft_params = (draft_params if draft_params is not None else
-                                  load_or_init(self._draft_cfg, ddir, config.seed,
-                                               self.device))
+            self._draft_params = load_or_init(self._draft_cfg, ddir, config.seed,
+                                              self.device)
         # embeddings and prompt scoring: one trunk batch at a time
         self._embed_lock = threading.Lock()
         # Mixed batching: the flat-row block is the ragged kernel's grid
@@ -2445,7 +2440,9 @@ class Engine:
           "full", as the JAX warmup; with a draft model its step at every
           power-of-two batch;
         - ``embed_buckets``: (B, T) pairs of the embeddings trunk, run once
-          each on padding (eager: the trunks are not engine steps).
+          each on padding.  The trunks are eager, not engine steps, so this
+          compiles and captures nothing: it only initialises the libraries
+          a first trunk call would (the JAX engine compiles them here).
 
         With the tiers on, the page copies' staging buffer is made too (a
         round trip of block 0 onto itself), and host records for the host

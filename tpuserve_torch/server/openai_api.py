@@ -1263,7 +1263,8 @@ def build_parser():
     ap.add_argument("--no-warmup", action="store_true")
     ap.add_argument("--warmup-embed", default=None,
                     help="comma-separated BxT embed buckets to run at startup "
-                         "(e.g. '8x128,1x512')")
+                         "(e.g. '8x128,1x512'); the trunks are eager, so this only "
+                         "initialises the libraries a first embedding call would")
     ap.add_argument("--speculative-k", type=int, default=0,
                     help="speculative decoding with k draft tokens (0 disables); "
                          "proposals come from n-gram prompt lookup, or a draft model "
