@@ -21,7 +21,11 @@ non-zero:
              cached tokens; ragged paged: the mixed phase's 512-row stream
              of 8 decode rows and a 480-row chunk, then each half alone),
              at further shapes (the speculative verify window, 8 x 5 rows
-             over 1,024 cached tokens; the draft's 8 x 68 prefill), and in sliding-window/softcap and NaN-slot
+             over 1,024 cached tokens; the draft's 8 x 68 prefill;
+             Phi-3-mini's prefill at head_dim 96, padded to 128 in the
+             tile; decode at Qwen3-30B-A3B's group of 8 and at Gemma-2-2B's
+             D=256 past a 4,096 window; D=96 in every kernel, float32,
+             bf16 and int8), and in sliding-window/softcap and NaN-slot
              cases, with times: the kernel, the plain version, the least
              time the card could take (``bound_ms``) and, where one PyTorch
              call computes the same function, that call as a yardstick only
@@ -30,7 +34,28 @@ non-zero:
              flash, window and ragged headlines also carry a
              planted fault (a K/V tile's V zeroed) that the comparison must
              reject.
-3. identity  Qwen3-0.6B at full width, 2 layers, float32, no TF32: engines
+3. families  every other family the repo registers, at full width and
+             depth, weights made on the card from the seed: Qwen3-30B-A3B
+             (128 experts, top-8, bf16): its prefill and decode steps
+             captured (the pool under ``pool_bytes_bound``), 8 prompts of
+             128-1,024 tokens x 64, launches against the steps, prefill
+             ms and decode tok/s beside their bounds (every expert read
+             each step: dense dispatch), the first step's logits against
+             the plain attention (top-1 >= 0.75 free-running; within
+             LOGIT_DIFF_MAX with each layer's experts pinned to the plain
+             run's), layer 0's dense MoE against a routed-only float32
+             loop (1e-3 relative); Mistral-7B in float32 (TF32 off): a
+             6,000-token prompt in chunks and 256 tokens with the window
+             release off, on, and on under n-gram speculation (the same
+             tokens; released blocks = (tokens at the last release -
+             4,096) // 32); Gemma-2-2B (6,000 tokens), Gemma-3-4B
+             (2,048), OPT-1.3B and Phi-3-mini (head_dim 96; 8 prompts of
+             128-1,024, 64 tokens) in float32: kernel and plain engines
+             token-identical, nothing released; then each in bf16: the
+             first step's logits and (windowed ones) the chunks' logits
+             against the plain attention.  Before every engine phase:
+             Qwen3-30B-A3B needs ~61 GB of the card.
+4. identity  Qwen3-0.6B at full width, 2 layers, float32, no TF32: engines
              on the CUDA kernels and on the plain attention, decoding
              synchronously, give the same greedy tokens on the main path
              (and so does the default engine, with captured decode graphs
@@ -39,7 +64,7 @@ non-zero:
              prompt, also against an engine with chunking off) and on the
              mixed path (8 streams decoding while 8 prompts of 200-1,500
              tokens arrive, also against the phase-split engine).
-4. main      the main path: a default engine (Qwen3-0.6B, 28 layers, bf16,
+5. main      the main path: a default engine (Qwen3-0.6B, 28 layers, bf16,
              random weights from the seed; every step a replayed CUDA
              graph, one a step kind and padded shape, decode windows
              pipelined) is warmed by ``Engine.warmup`` (its defaults),
@@ -56,7 +81,7 @@ non-zero:
              0.75).  Then an engine that runs every step eagerly and
              decodes synchronously serves the same requests: the same
              tokens; both engines' TTFT, step times and decode tok/s.
-5. graphs    the decode executables at full width, bf16, on 8 prefilled
+6. graphs    the decode executables at full width, bf16, on 8 prefilled
              sequences of the main path's lengths: one decode step replayed
              from its graph against the same step run eagerly (logits
              bit-equal, or within the main phase's logits gate with the
@@ -71,7 +96,7 @@ non-zero:
              captured on first use; launch counts still its steps'), and
              with pipelined single steps (``multi_step=1``), against the
              default engine's (identical).
-6. sampler   the full sampler on the main path's two engines (the default
+7. sampler   the full sampler on the main path's two engines (the default
              one, every decode dispatch a replayed graph; the eager one),
              prefix caching off for the phase: the main path's 8 prompts,
              64 tokens, in each sampling variant (greedy, temperature 0.8,
@@ -90,7 +115,7 @@ non-zero:
              executables and their capture seconds, and the KV blocks the
              cache sizing gives at the CLI's defaults with and without the
              sampler's decode executables (full mode and extras) bound.
-7. guided    guided decoding on the main path's two engines, prefix
+8. guided    guided decoding on the main path's two engines, prefix
              caching off: the 8 prompts, up to 64 tokens, in each spec
              family (json_object; a json_schema of a string, a boolean and
              an enum; one with an integer field, whose digit prefixes pass
@@ -110,7 +135,7 @@ non-zero:
              decode tok/s of each family and of 129-token guided streams
              beside greedy ones, and one profiled guided window beside a
              greedy one.
-8. chunked   the chunked path, full depth, bf16: 4 short streams, a
+9. chunked   the chunked path, full depth, bf16: 4 short streams, a
              6,000-token prompt served in chunks, then a prompt sharing its
              first 4,096 tokens, served from the prefix cache; each
              kernel's launches must be the layers times its steps (batched
@@ -119,12 +144,12 @@ non-zero:
              must agree with the plain path's.  The default engine, then
              the eager engine: the same tokens, both engines' TTFTs, step
              times and decode tok/s.
-9. mixed     the mixed path, full depth, bf16, ``mixed_batching=True``: 8
+10. mixed    the mixed path, full depth, bf16, ``mixed_batching=True``: 8
              streams decoding, then 8 prompts of 512-1,500 tokens; each
              kernel's launches must be the layers times its steps, the
              ragged kernel's the layers times the mixed steps.  The default
              engine, then the eager engine, as in the chunked phase.
-10. server   the top of the main path, full depth, bf16: the main phase's
+11. server   the top of the main path, full depth, bf16: the main phase's
              seed-0 weights written as an HF checkpoint (two bf16 shards,
              an index, no lm_head) and loaded back with
              ``load_hf_checkpoint``, bit-equal, with its GB/s; then
@@ -150,7 +175,7 @@ non-zero:
              as a subprocess: one streamed completion
              equal to (a)'s, then SIGTERM, which must end it with code 0
              within its drain timeout.
-11. tiers    the tiered KV cache at full depth, bf16, the main weights,
+12. tiers    the tiered KV cache at full depth, bf16, the main weights,
              greedy, ``TPUSERVE_STRICT_BLOCKS=1`` (the block and tier
              accounting checked every engine cycle): two requests over a
              3,072-token prefix (96 blocks) on a 384-block engine, its
@@ -172,7 +197,7 @@ non-zero:
              engine after the same churn), each demote's stall and GB/s,
              the restore's host time, the copies alone (GB/s each way),
              blocks demoted, spilled, dropped and restored, host bytes.
-12. slo      SLO classes and the brownout ladder, full width and depth,
+13. slo      SLO classes and the brownout ladder, full width and depth,
              greedy, ``TPUSERVE_STRICT_BLOCKS=1``: (a) a 256-token batch
              stream on a max_num_seqs=1 engine, an interactive request
              arriving once it holds 40 tokens: the interactive one finishes
@@ -193,7 +218,7 @@ non-zero:
              counter = the engine's; the kernels' launches = the layers
              times the steps; no block held.  Readings: TTFT p50/p99 and
              429s per class, preemptions, seconds at each level.
-13. salvage  crash-only recovery on the CLI's engine (``--step-watchdog-s
+14. salvage  crash-only recovery on the CLI's engine (``--step-watchdog-s
              2``; captured graphs, pipelined 32-token windows; prefix
              caching off so runs repeat), full width and depth, greedy,
              ``TPUSERVE_STRICT_BLOCKS=1``, in float32 and in bf16: (a) the
@@ -221,7 +246,7 @@ non-zero:
              directory of each dtype's own: one ``flight-poison-*.json``
              naming the poison request, a ``flight-watchdog_trip-*.json``,
              and ``tpuserve_flight_postmortems_total`` equal to the files.
-14. flight   the flight recorder and the host-phase profiler, on by
+15. flight   the flight recorder and the host-phase profiler, on by
              default in every engine above: (a) the main path's 8
              prompts, 64 greedy tokens, on two default engines (prefix
              caching off), the recorder on and ``flight=False``,
@@ -243,7 +268,7 @@ non-zero:
              chunk route), ``/debug/engine`` (phased steps, SLIs,
              ``cold_start_s``), ``/healthz``, ``/debug/engine/dump``
              (schema 2, ring markers), launches against the steps.
-15. spec     speculative decoding at full width and depth: (a) a verify
+16. spec     speculative decoding at full width and depth: (a) a verify
              window (B=8, K=5, contexts 128-2,048, 1-5 valid rows) after a
              kernel prefill, through the paged window kernel and through
              the plain attention on a copy of the same cache: the valid
@@ -270,7 +295,7 @@ non-zero:
              1,536-token prompts): acceptance, spec steps, governor pauses,
              the spec executables' capture seconds, and the pool's bytes
              against ``pool_bytes_bound`` of every executable made (gated).
-16. embed    the cache-less trunks at full width and depth: (a)
+17. embed    the cache-less trunks at full width and depth: (a)
              ``Engine.embed`` (mean and last pooling) and
              ``Engine.score_prompts`` of 8 inputs of 128-1,024 tokens on a
              kernel engine and a plain-attention engine: cosines at least
@@ -285,7 +310,7 @@ non-zero:
              (its decode bucket captured on first use amid the traffic):
              every request 200, no failed step, the streams' tokens equal
              a twin engine's without the traffic.
-17. profile  where the time goes, under torch.profiler, after every
+18. profile  where the time goes, under torch.profiler, after every
              counted run (a profiler run slows the launches that follow
              it): one prefill and one decode window of the main path, one
              steady pipelined window alone (the paged decode kernel must
@@ -316,7 +341,7 @@ import time
 
 import numpy as np
 
-PHASES = ("build", "kernels", "identity", "main", "graphs", "sampler", "guided", "chunked",
+PHASES = ("build", "kernels", "families", "identity", "main", "graphs", "sampler", "guided", "chunked",
           "mixed", "server", "tiers", "slo", "salvage", "flight", "spec", "embed", "profile")
 # Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA's data
 # sheet): bf16 tensor cores, float32 CUDA cores, HBM.
@@ -832,6 +857,9 @@ def phase_kernels() -> dict:
     lens_d = sorted(rng.integers(1, 2049, 7).tolist()) + [2048]
     # the mixed phase's decode rows: 256-token prompts some way into decode
     dec = rng.integers(257, 400, 8).tolist()
+    # decode rows past Gemma-2-2B's 4,096 window, up to the families
+    # phase's 6,000-token context
+    lens_g2 = sorted(rng.integers(4097, 6001, 7).tolist()) + [6000]
     # the first case of each kernel is its headline in the report
     cases = {
         "flash_prefill": [
@@ -845,6 +873,9 @@ def phase_kernels() -> dict:
                        softcap=30.0, timed=False),
             # the spec phase's draft pass: 8 windows of 1-64 tokens + 4
             flash_case("bfloat16", 8, 68, 16, 8, 128, [64, 64, 40, 64, 17, 64, 33, 1]),
+            # Phi-3-mini's prefill: head_dim 96, padded to 128 in the tile
+            flash_case("bfloat16", 8, 1024, 32, 32, 96, MAIN_LENGTHS, plant=True),
+            flash_case("float32", 2, 300, 32, 32, 96, [300, 129], window=100, timed=False),
         ],
         "paged_decode": [
             paged_case("bfloat16", 8, 16, 8, 128, 32, 64, lens_d),
@@ -862,6 +893,15 @@ def phase_kernels() -> dict:
                        window=100, softcap=30.0, timed=False),
             paged_case("float32", 3, 8, 1, 256, 16, 8, [128, 77, 1],
                        timed=False),
+            # Qwen3-30B-A3B's decode (group 8), Gemma-2-2B's past its window
+            paged_case("bfloat16", 8, 32, 4, 128, 32, 64, lens_d),
+            paged_case("bfloat16", 8, 8, 4, 256, 32, 190, lens_g2, window=4096,
+                       softcap=50.0),
+            # Phi-3-mini: head_dim 96
+            paged_case("bfloat16", 8, 32, 32, 96, 32, 64, lens_d, timed=False),
+            paged_case("bfloat16", 4, 8, 2, 96, 16, 16, [256, 200, 17, 0], int8=True,
+                       window=100, timed=False),
+            paged_case("float32", 4, 32, 32, 96, 16, 16, [256, 200, 17, 0], timed=False),
         ],
         "paged_window": [
             # the 6,000-token prompt's last chunk: 1,904 rows over 4,096 cached
@@ -880,6 +920,12 @@ def phase_kernels() -> dict:
                         timed=False),
             # the speculative verify window: 8 sequences of 5 rows over 1,024
             window_case("bfloat16", 8, 5, 16, 8, 128, 32, [1024] * 8, [5] * 8),
+            # head_dim 96 (Phi-3-mini's chunks; int8 copies split unevenly)
+            window_case("bfloat16", 2, 256, 32, 32, 96, 32, [300, 0], [256, 100],
+                        timed=False),
+            window_case("bfloat16", 2, 256, 8, 2, 96, 32, [300, 0], [256, 100], int8=True,
+                        window=128, timed=False),
+            window_case("float32", 2, 64, 32, 32, 96, 32, [300, 0], [64, 33], timed=False),
         ],
         "ragged_paged": [
             # the mixed phase's stream: 8 decode rows and a 480-row chunk
@@ -899,6 +945,10 @@ def phase_kernels() -> dict:
             ragged_case("bfloat16", [], [(300, 300), (150, 1000)], 32, timed=False),
             ragged_case("bfloat16", dec[:3], [(70, 90), (9, 9)], 8, timed=False),
             ragged_case("bfloat16", dec[:4], [(200, 260)], 128, timed=False),
+            ragged_case("bfloat16", dec[:4], [(200, 500)], 32, Hq=32, Hkv=32, D=96,
+                        timed=False),
+            ragged_case("float32", dec[:4], [(100, 300)], 32, Hq=32, Hkv=32, D=96,
+                        timed=False),
         ],
     }
     for name, rs in cases.items():
@@ -2170,25 +2220,26 @@ def serve_chunked(eng, short, long, hit) -> dict:
             "graph_replays": dict(eng.graphs.replays), "step_kinds": step_summary(steps)}
 
 
-def chunk_logits(params, cfg, first) -> dict:
-    """The last-row logits of three 2,048-token chunks (ctx 0, 2,048 and
-    4,096) of four 6,000-token prompts, ``first`` among them, on the kernel
-    and on the plain attention: max |diff| and top-1 agreement."""
+def chunk_logits(params, cfg, first, total: int = 6000) -> dict:
+    """The last-row logits of each 2,048-token chunk (ctx 0, 2,048, 4,096
+    at the default ``total``) of four ``total``-token prompts, ``first``
+    among them, on the kernel and on the plain attention: max |diff| and
+    top-1 agreement."""
     import torch
     from tpuserve_torch.models import transformer
     from tpuserve_torch.ops.attention import PAD_SLOT
     from tpuserve_torch.runtime.kv_cache import CacheConfig, create_kv_cache
     rng = np.random.default_rng(SEED + 7)
-    ps = [first] + prompts(rng, [6000] * 3, cfg.vocab_size)
-    B, C, pages = len(ps), 2048, 192
+    ps = [first] + prompts(rng, [total] * 3, cfg.vocab_size)
+    B, C, pages = len(ps), 2048, -(-total // 32)
     bt = torch.arange(B * pages, dtype=torch.int32, device="cuda").reshape(B, pages)
     logits = {}
     for impl in ("cuda", "reference"):
-        cache = create_kv_cache(cfg, CacheConfig(num_blocks=B * pages,
-                                                 max_blocks_per_seq=pages), "cuda")
+        cache = create_kv_cache(cfg, CacheConfig(num_blocks=B * pages, max_blocks_per_seq=pages,
+                                                 dtype=cfg.dtype), "cuda")
         rows = []
-        for start in (0, 2048, 4096):
-            n = min(C, 6000 - start)
+        for start in range(0, total, C):
+            n = min(C, total - start)
             tokens = torch.zeros(B, C, dtype=torch.int32, device="cuda")
             tokens[:, :n] = torch.tensor([p[start:start + n] for p in ps], dtype=torch.int32)
             pos = torch.arange(start, start + n, device="cuda")
@@ -2203,7 +2254,8 @@ def chunk_logits(params, cfg, first) -> dict:
     diff = (logits["cuda"] - logits["reference"]).abs().max().item()
     top1 = (logits["cuda"].argmax(-1) == logits["reference"].argmax(-1)).float().mean().item()
     finite = bool(torch.isfinite(logits["cuda"]).all())
-    return {"ok": finite and diff <= LOGIT_DIFF_MAX and top1 >= 0.75, "rows": B * 3,
+    return {"ok": finite and diff <= LOGIT_DIFF_MAX and top1 >= 0.75,
+            "rows": logits["cuda"].shape[0],
             "max_logit_diff": diff, "logit_diff_max_allowed": LOGIT_DIFF_MAX,
             "max_abs_logit": logits["reference"].abs().max().item(), "top1_agreement": top1}
 
@@ -4795,6 +4847,378 @@ def phase_embed(results) -> dict:
 
 
 # --------------------------------------------------------------------------
+# families phase: every model family the repo registers, at full width
+
+# the phase's caches: 200 pages of 32 keys hold a 6,000-token prompt and
+# 256 generated tokens (6,400 tokens a sequence)
+FAMILY_CACHE = dict(block_size=32, max_blocks_per_seq=200)
+FAMILY_BLOCKS = 256
+MOE_MODEL, MOE_BLOCKS, MOE_TOKENS = "Qwen/Qwen3-30B-A3B", 640, 64
+# the dense form against the routed-only one, float32: max |diff| over
+# max |routed|
+MOE_ROUTED_RTOL = 1e-3
+WINDOW_MODEL, WINDOW_PROMPT, WINDOW_TOKENS, WINDOW_SPAN = (
+    "mistralai/Mistral-7B-Instruct-v0.1", 6000, 256, 500)
+# (model, long prompt, greedy tokens): mixed-layer windowed families
+MIXED_WINDOW_FAMILIES = (("google/gemma-2-2b", 6000, 32),
+                         ("google/gemma-3-4b-text", 2048, 32))
+SHORT_FAMILIES = ("facebook/opt-1.3b", "microsoft/Phi-3-mini-4k-instruct")
+FAMILY_TOKENS = 64
+
+
+def family_free() -> None:
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def family_cfg(name: str, dtype: str):
+    from tpuserve_torch.models.config import get_model_config
+    return dataclasses.replace(get_model_config(name), dtype=dtype)
+
+
+def family_params(cfg):
+    """Full-width, full-depth random weights made on the card from the seed
+    (``init_params_device``: init_params' tree, shapes and scales), with
+    their bytes and seconds."""
+    from tpuserve_torch.models.weights import init_params_device, param_nbytes
+    box = []
+    init_s = timed_host(lambda: box.append(init_params_device(cfg, SEED, "cuda")))
+    return box[0], {"weights_gb": param_nbytes(box[0]) / 1e9, "init_s": init_s}
+
+
+def family_engine(cfg, params, plain: bool = False, blocks: int = FAMILY_BLOCKS, **kw):
+    """The default engine (captured graphs, pipelined windows) or, with
+    ``plain``, the plain attention's eager engine, on one parameter tree."""
+    from tpuserve_torch.runtime import CacheConfig, Engine, EngineConfig
+    if plain:
+        kw = dict(kw, attn_impl="reference", cuda_graphs=False)
+    cache = CacheConfig(num_blocks=blocks, dtype=cfg.dtype, **FAMILY_CACHE)
+    return Engine(EngineConfig(model=cfg.name, seed=SEED, cache=cache, **kw), params=params,
+                  model_cfg=cfg)
+
+
+def family_serve(eng, ps, tokens: int) -> dict:
+    """``ps`` greedy, ``tokens`` each, through ``add_request``/``step``, the
+    kernels' launches counted from 0 over the run and held against its
+    steps; the tokens, decode tok/s, the first step's ms, released blocks
+    and, per request, its token count after the last step it ran in."""
+    from tpuserve_torch.runtime import SamplingParams
+    sp = SamplingParams(max_tokens=tokens, temperature=0.0, ignore_eos=True)
+    reset_launches()
+    rids = [eng.add_request(prompt_token_ids=p, params=sp) for p in ps]
+    last = {}
+
+    def on_step(e, steps):
+        for r in e.scheduler.running:
+            last[r.request_id] = r.num_tokens
+    steps = drive(eng, on_step)
+    launches = read_launches()
+    want = expected_launches(eng.model_cfg.num_layers, steps)
+    reqs = [eng.requests[r] for r in rids]
+    dec = [s for s in steps if s["kind"] == "decode"]
+    dec_tokens = sum(sum(s["decode_tokens"].values()) for s in dec)
+    dec_s = sum(s["ms"] for s in dec) / 1e3
+    return {"tokens": [r.output_token_ids for r in reqs],
+            "finished": all(r.finished and len(r.output_token_ids) == tokens for r in reqs),
+            "launches": launches, "launches_ok": launches == want,
+            "first_step_ms": steps[0]["ms"], "decode_tokens": dec_tokens, "decode_s": dec_s,
+            "decode_tok_per_s": dec_tokens / dec_s if dec_s else None,
+            "chunk_steps": eng.stats.num_chunk_steps, "spec_steps": eng.stats.spec_steps,
+            "released_blocks": eng.stats.released_blocks,
+            "last_tokens": [last.get(r) for r in rids], "steps": step_summary(steps)}
+
+
+def prefill_last_logits(params, cfg, ps, impl: str):
+    """The last-row logits of one batched prefill of ``ps`` on a scratch
+    cache, on the kernels (``impl`` "cuda") or the plain attention."""
+    import torch
+    from tpuserve_torch.models import transformer
+    from tpuserve_torch.ops.attention import PAD_SLOT
+    from tpuserve_torch.runtime.kv_cache import CacheConfig, create_kv_cache
+    B, T = len(ps), max(len(p) for p in ps)
+    tokens = torch.zeros(B, T, dtype=torch.int32, device="cuda")
+    slots = torch.full((B, T), PAD_SLOT, dtype=torch.int32, device="cuda")
+    for i, p in enumerate(ps):
+        tokens[i, :len(p)] = torch.tensor(p, dtype=torch.int32)
+        slots[i, :len(p)] = torch.arange(i * T, i * T + len(p), dtype=torch.int32)
+    plens = torch.tensor([len(p) for p in ps], dtype=torch.int32, device="cuda")
+    cache = create_kv_cache(cfg, CacheConfig(num_blocks=-(-B * T // 32), dtype=cfg.dtype),
+                            "cuda")
+    return transformer.prefill(params, cfg, tokens, plens, slots, cache, attn_impl=impl)[0]
+
+
+def family_prefill_logits(params, cfg, ps) -> dict:
+    """The first step's last-row logits, kernels against the plain
+    attention: one batched prefill of ``ps`` on a scratch cache each."""
+    import torch
+    logits = {impl: prefill_last_logits(params, cfg, ps, impl) for impl in ("cuda", "reference")}
+    diff = (logits["cuda"] - logits["reference"]).abs().max().item()
+    top1 = (logits["cuda"].argmax(-1) == logits["reference"].argmax(-1)).float().mean().item()
+    finite = bool(torch.isfinite(logits["cuda"]).all())
+    return {"ok": finite and diff <= LOGIT_DIFF_MAX and top1 >= 0.75, "rows": len(ps),
+            "max_logit_diff": diff, "max_abs_logit": logits["reference"].abs().max().item(),
+            "top1_agreement": top1}
+
+
+def family_bf16_gates(name: str, long_len: int = 0) -> dict:
+    """bf16 weights of ``name``: the first step's logits (8 prompts of the
+    main lengths, within its positions), and, for a windowed family, the
+    chunk logits of 6,000- (or ``long_len``-) token prompts past its
+    window, kernels against the plain attention."""
+    cfg = family_cfg(name, "bfloat16")
+    params, made = family_params(cfg)
+    ps = prompts(np.random.default_rng(SEED + 63), MAIN_LENGTHS, cfg.vocab_size)
+    out = {"weights": made, "prefill_logits": family_prefill_logits(params, cfg, ps)}
+    if long_len:
+        first = prompts(np.random.default_rng(SEED + 64), [long_len], cfg.vocab_size)[0]
+        out["chunk_logits"] = chunk_logits(params, cfg, first, total=long_len)
+    out["ok"] = all(v["ok"] for k, v in out.items() if k.endswith("logits"))
+    del params
+    family_free()
+    return out
+
+
+def moe_prefill_logits(params, cfg, ps) -> dict:
+    """The MoE model's first step, kernels against the plain attention.
+    A router picks each token's experts from bf16 logits, where a change
+    in the last bit moves a token to another expert, and a moved token's
+    output differs by a whole expert's: so the free-running logits are a
+    reading (with their top-1 agreement gated), and the logit gate holds
+    the kernels' run with every layer's expert choice pinned to the plain
+    run's (``transformer._top_k`` recorded, then replayed), which leaves
+    only the attention's rounding.  The real rows whose expert set moved
+    in the free run are counted."""
+    import torch
+    from tpuserve_torch.models import transformer
+    free = family_prefill_logits(params, cfg, ps)
+    top_k, picks = transformer._top_k, []
+    B, T = len(ps), max(len(p) for p in ps)
+    real = torch.tensor([[t < len(p) for t in range(T)] for p in ps], device="cuda").flatten()
+    moved = [0]
+
+    def record(x, k):
+        out = top_k(x, k)
+        picks.append(out[1])
+        return out
+
+    def replay(x, k):
+        vals, idx = top_k(x, k)
+        pinned = picks[len(moved) - 1]
+        moved.append(0)
+        moved[0] += int(((idx.sort(-1).values != pinned.sort(-1).values).any(-1) & real)
+                        .sum())
+        return vals, pinned
+    try:
+        transformer._top_k = record
+        ref = prefill_last_logits(params, cfg, ps, "reference")
+        transformer._top_k = replay
+        kern = prefill_last_logits(params, cfg, ps, "cuda")
+    finally:
+        transformer._top_k = top_k
+    diff = (kern - ref).abs().max().item()
+    return {"ok": bool(torch.isfinite(kern).all()) and free["top1_agreement"] >= 0.75
+            and diff <= LOGIT_DIFF_MAX, "rows": B,
+            "free_running": free, "pinned_routing_max_logit_diff": diff,
+            "pinned_routing_top1_agreement": (kern.argmax(-1) == ref.argmax(-1))
+            .float().mean().item(),
+            "expert_sets_moved": moved[0], "expert_sets": int(real.sum()) * len(picks)}
+
+
+def moe_routed_check(params, cfg) -> dict:
+    """Layer 0's MoE MLP, dense dispatch (every expert on every token, the
+    unchosen at weight 0), against a routed-only loop that runs each token
+    through its chosen experts alone, both in float32 (TF32 off) on 64
+    random rows: max |diff| over max |routed| within MOE_ROUTED_RTOL.  The
+    bf16 dense form's share is a reading."""
+    import torch
+    from tpuserve_torch.models import transformer
+    lp = params["layers"][0]
+    lp32 = {"router": {"kernel": lp["router"]["kernel"].float()},
+            "experts": {k: {"kernel": v["kernel"].float()} for k, v in lp["experts"].items()}}
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 65)
+    x = torch.randn(64, cfg.hidden_size, generator=g, device="cuda")
+    with torch.no_grad():
+        dense = transformer._moe_mlp(x, lp32, cfg32)
+        dense_bf16 = transformer._moe_mlp(x.to(torch.bfloat16), lp, cfg).float()
+        scores = torch.softmax(x @ lp32["router"]["kernel"], dim=-1)
+        topv, topi = torch.topk(scores, cfg.num_experts_per_tok, dim=-1)
+        if cfg.norm_topk_prob:
+            topv = topv / topv.sum(dim=-1, keepdim=True)
+        routed = torch.zeros_like(x)
+        w = lp32["experts"]
+        for e in topi.unique().tolist():
+            t, j = (topi == e).nonzero(as_tuple=True)
+            h = (transformer._act(x[t] @ w["gate_proj"]["kernel"][e], cfg.act)
+                 * (x[t] @ w["up_proj"]["kernel"][e]))
+            routed.index_add_(0, t, (h @ w["down_proj"]["kernel"][e]) * topv[t, j, None])
+    scale = routed.abs().max().item()
+    rel = (dense - routed).abs().max().item() / scale
+    del lp32
+    return {"ok": bool(torch.isfinite(dense).all()) and rel <= MOE_ROUTED_RTOL,
+            "rows": 64, "experts_chosen": int(topi.unique().numel()),
+            "max_rel_diff": rel, "rtol": MOE_ROUTED_RTOL,
+            "bf16_max_rel_diff": (dense_bf16 - routed).abs().max().item() / scale}
+
+
+def moe_bounds(cfg, params, lens, tokens: int) -> dict:
+    """The least time the card could take for the MoE model's prefill of
+    ``lens`` (padded to a (B, max) batch, every row through every expert:
+    dense dispatch) and for one decode token step of B streams (every
+    weight but the embedding table read once, and the streams' K/V at the
+    middle of their decode), from shapes and the data-sheet peaks."""
+    from tpuserve_torch.models.weights import param_nbytes
+    H, E, I, L = cfg.hidden_size, cfg.num_experts, cfg.expert_intermediate_size, cfg.num_layers
+    B, T = len(lens), max(lens)
+    per_row = L * (2 * H * (cfg.q_size + 2 * cfg.kv_size) + 2 * cfg.q_size * H
+                   + 2 * H * E + E * 3 * 2 * H * I)
+    pairs = sum(n * (n + 1) // 2 for n in lens)
+    flops = B * T * per_row + L * 4 * cfg.num_heads * cfg.head_dim * pairs \
+        + 2 * B * H * cfg.vocab_size
+    w_bytes = param_nbytes(params) - param_nbytes(params["embed"])
+    kv_token = 2 * L * cfg.num_kv_heads * cfg.head_dim * 2
+    kv_bytes = sum(n + tokens // 2 for n in lens) * kv_token
+    prefill_ms, prefill_by = bound(flops, w_bytes, "bfloat16")
+    step_ms, step_by = bound(B * per_row, w_bytes + kv_bytes, "bfloat16")
+    return {"prefill_tflop": flops / 1e12, "prefill_bound_ms": prefill_ms,
+            "prefill_bound_by": prefill_by, "decode_step_bound_ms": step_ms,
+            "decode_step_bound_by": step_by, "decode_bound_tok_per_s": B / step_ms * 1e3,
+            "decode_step_gb": (w_bytes + kv_bytes) / 1e9}
+
+
+def family_moe() -> dict:
+    """Qwen3-30B-A3B (48 layers, 128 experts, top-8), bf16, full width and
+    depth: the default engine with its prefill (8, 1,024) and decode (8,
+    greedy) steps captured, the graph pool under ``pool_bytes_bound``;
+    8 prompts of the main lengths, 64 greedy tokens each, launches against
+    the steps; prefill ms and decode tok/s beside their bounds; the first
+    step's logits against the plain attention; the dense MoE against the
+    routed one."""
+    from tpuserve_torch.runtime.graphs import pool_bytes_bound
+    cfg = family_cfg(MOE_MODEL, "bfloat16")
+    params, made = family_params(cfg)
+    eng = family_engine(cfg, params, blocks=MOE_BLOCKS)
+    keys = [("prefill", 8, max(MAIN_LENGTHS)), ("decode", 8, "greedy")]
+    capture_s = timed_host(lambda: eng.graphs.warmup(keys))
+    ps = prompts(np.random.default_rng(SEED + 66), MAIN_LENGTHS, cfg.vocab_size)
+    run = family_serve(eng, ps, MOE_TOKENS)
+    made_keys = list(eng.graphs.executables)
+    pool = {"pool_bytes": eng.graphs.pool_bytes(),
+            "pool_bytes_bound": pool_bytes_bound(cfg, made_keys, eng._ragged_seqs),
+            "executables": ["/".join(map(str, k)) for k in made_keys], "capture_s": capture_s}
+    run.pop("tokens")
+    del eng
+    family_free()
+    logits = moe_prefill_logits(params, cfg, ps)
+    routed = moe_routed_check(params, cfg)
+    bounds = moe_bounds(cfg, params, MAIN_LENGTHS, MOE_TOKENS)
+    del params
+    family_free()
+    ok = (run["finished"] and run["launches_ok"] and logits["ok"] and routed["ok"]
+          and pool["pool_bytes"] <= pool["pool_bytes_bound"])
+    return {"ok": ok, "model": cfg.name, "dtype": cfg.dtype, "weights": made,
+            "cache_blocks": MOE_BLOCKS, **pool, "run": run, "prefill_ms": run["first_step_ms"],
+            "decode_tok_per_s": run["decode_tok_per_s"], "bounds": bounds,
+            "prefill_logits": logits, "moe_routed": routed, "launches": run["launches"]}
+
+
+def family_window() -> dict:
+    """Mistral-7B (every layer a 4,096 window), float32 with TF32 off: a
+    6,000-token prompt (a 500-token span twelve times, so n-gram drafts
+    find matches) in chunks, 256 greedy tokens, on the default engine with
+    the rolling-buffer release off, on, and on with n-gram speculation
+    (k=4): the same tokens; released blocks = (tokens after the last step
+    the request ran in - 4,096) // 32.  Then bf16, kernels against the
+    plain attention."""
+    from tpuserve_torch.runtime.spec import SpecConfig
+    cfg = family_cfg(WINDOW_MODEL, "float32")
+    params, made = family_params(cfg)
+    span = prompts(np.random.default_rng(SEED + 67), [WINDOW_SPAN], cfg.vocab_size)[0]
+    long = (span * (-(-WINDOW_PROMPT // WINDOW_SPAN)))[:WINDOW_PROMPT]
+    runs = {}
+    for name, kw in (("release_off", dict(window_release=False)), ("release_on", {}),
+                     ("ngram_release_on", dict(speculative=SpecConfig(num_draft_tokens=4)))):
+        eng = family_engine(cfg, params, **kw)
+        runs[name] = family_serve(eng, [long], WINDOW_TOKENS)
+        del eng
+        family_free()
+    del params
+    family_free()
+    W, page = cfg.sliding_window, FAMILY_CACHE["block_size"]
+    for r in runs.values():
+        r["released_expected"] = (r["last_tokens"][0] - W) // page
+    toks = runs["release_off"].pop("tokens")
+    same = {k: runs[k].pop("tokens") == toks for k in ("release_on", "ngram_release_on")}
+    on, spec = runs["release_on"], runs["ngram_release_on"]
+    bf16 = family_bf16_gates(WINDOW_MODEL, WINDOW_PROMPT)
+    ok = (all(r["finished"] for r in runs.values()) and all(same.values())
+          and runs["release_off"]["launches_ok"] and on["launches_ok"]
+          and runs["release_off"]["released_blocks"] == 0
+          and on["released_blocks"] == on["released_expected"] > 0
+          and spec["released_blocks"] == spec["released_expected"] > 0
+          and spec["spec_steps"] > 0 and on["chunk_steps"] >= 3 and bf16["ok"])
+    return {"ok": ok, "model": cfg.name, "weights_float32": made, "runs": runs,
+            "same_tokens": same, "bf16": bf16, "launches": on["launches"]}
+
+
+def family_exact(name: str, ps, tokens: int, bf16_long: int = 0) -> dict:
+    """One family in float32 (TF32 off): the default engine and the plain
+    attention's engine give the same greedy tokens; neither releases a
+    block unless every layer is windowed.  Then its bf16 logit gates."""
+    cfg = family_cfg(name, "float32")
+    params, made = family_params(cfg)
+    kern = family_serve(family_engine(cfg, params), ps, tokens)
+    family_free()
+    plain = family_serve(family_engine(cfg, params, plain=True), ps, tokens)
+    del params
+    family_free()
+    same = kern.pop("tokens") == plain.pop("tokens")
+    for k in ("launches", "launches_ok"):       # the plain engine launches no kernel
+        plain.pop(k)
+    bf16 = family_bf16_gates(name, bf16_long)
+    release_ok = cfg.uniform_window or kern["released_blocks"] == plain["released_blocks"] == 0
+    ok = (kern["finished"] and plain["finished"] and same and kern["launches_ok"]
+          and release_ok and bf16["ok"])
+    return {"ok": ok, "model": cfg.name, "head_dim": cfg.head_dim, "layers": cfg.num_layers,
+            "weights_float32": made, "kernels": kern, "plain": plain, "same_tokens": same,
+            "bf16": bf16, "launches": kern["launches"]}
+
+
+def phase_families() -> dict:
+    """Every model family the repo registers beside Qwen3, at full width
+    and depth on the kernels: Qwen3-30B-A3B (MoE), Mistral-7B (the
+    rolling-buffer release), Gemma-2-2B and Gemma-3-4B (softcaps,
+    alternating and 5:1 windows past their windows, Gemma norms, 256K
+    vocabularies), OPT-1.3B (layernorm, learned positions) and
+    Phi-3-mini (head_dim 96).  Each model's weights are made on the card;
+    the launches of the serving runs are summed for the kernel report."""
+    import torch
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        out["moe"] = family_moe()
+        out["window"] = family_window()
+        for name, long_len, tokens in MIXED_WINDOW_FAMILIES:
+            V = family_cfg(name, "float32").vocab_size
+            long = prompts(np.random.default_rng(SEED + 68), [long_len], V)[0]
+            out[name] = family_exact(name, [long], tokens, bf16_long=long_len)
+        for name in SHORT_FAMILIES:
+            V = family_cfg(name, "float32").vocab_size
+            ps = prompts(np.random.default_rng(SEED + 69), MAIN_LENGTHS, V)
+            out[name] = family_exact(name, ps, FAMILY_TOKENS)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        family_free()
+    launches = {k: sum(v["launches"][k] for v in out.values()) for k in KERNELS}
+    ok = (all(v["ok"] for v in out.values())
+          and all(launches[k] > 0 for k in ("flash_prefill", "paged_decode", "paged_window")))
+    return {"ok": ok, **out, "launches": launches}
+
+
+# --------------------------------------------------------------------------
 
 KERNELS = {
     "flash_prefill": dict(source="tpuserve_torch/csrc/flash_prefill.cu",
@@ -4828,7 +5252,8 @@ def read_launches() -> dict:
 # phases that count them too
 LAUNCH_PHASE = {"flash_prefill": "main", "paged_decode": "main",
                 "paged_window": "chunked", "ragged_paged": "mixed"}
-PATH_PHASES = {"flash_prefill": ("spec", "embed"), "paged_window": ("spec",)}
+PATH_PHASES = {"flash_prefill": ("families", "spec", "embed"),
+               "paged_decode": ("families",), "paged_window": ("families", "spec")}
 
 
 def main() -> int:
@@ -4853,6 +5278,8 @@ def main() -> int:
             res = phase_build(_build)
         elif phase == "kernels":
             res = phase_kernels()
+        elif phase == "families":
+            res = phase_families()
         elif phase == "identity":
             res = phase_identity()
         elif phase == "main":

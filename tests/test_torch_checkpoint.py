@@ -205,12 +205,17 @@ def test_parser_dtypes_and_duplicate_names(tmp_path):
 
 
 def test_moe_checkpoint_raises_the_a8_error(tmp_path):
+    """Qwen3-MoE checkpoints load (tests/test_torch_moe.py); an MoE
+    checkpoint with MLA attention (DeepSeek-V3) still raises naming A8."""
     torch.manual_seed(0)
-    transformers.Qwen3MoeForCausalLM(transformers.Qwen3MoeConfig(
-        **COMMON, num_key_value_heads=2, head_dim=16, num_experts=4,
-        num_experts_per_tok=2, moe_intermediate_size=32, tie_word_embeddings=True,
+    transformers.DeepseekV3ForCausalLM(transformers.DeepseekV3Config(
+        **COMMON, num_key_value_heads=4, n_routed_experts=4, num_experts_per_tok=2,
+        moe_intermediate_size=32, n_group=1, topk_group=1, kv_lora_rank=32,
+        q_lora_rank=24, qk_rope_head_dim=16, qk_nope_head_dim=32, v_head_dim=32,
+        first_k_dense_replace=1, tie_word_embeddings=True,
     )).save_pretrained(tmp_path, safe_serialization=True)
     cfg = config_from_hf_json("moe", json.loads((tmp_path / "config.json").read_text()))
+    assert cfg.num_experts and cfg.is_mla
     with pytest.raises(NotImplementedError, match="A8"):
         load_hf_checkpoint(cfg, str(tmp_path), "cpu")
 

@@ -51,6 +51,8 @@ FLASH_CASES = [
     dict(B=3, T=64, Hq=4, Hkv=4, D=64),
     dict(B=1, T=130, Hq=4, Hkv=1, D=256),
     dict(B=2, T=300, Hq=8, Hkv=4, D=64, window=50, softcap=30.0),
+    dict(B=2, T=150, Hq=32, Hkv=32, D=96),                # Phi-3: 96 padded to 128
+    dict(B=2, T=100, Hq=8, Hkv=2, D=96, window=40),
 ]
 
 
@@ -84,6 +86,8 @@ PAGED_CASES = [
     dict(B=5, Hq=4, Hkv=2, D=128, page=8, nb=64, mp=8, int8=True),
     dict(B=4, Hq=8, Hkv=2, D=64, page=4, nb=64, mp=8, window=7, softcap=20.0),
     dict(B=4, Hq=4, Hkv=2, D=128, page=4, nb=64, mp=8, int8=True, window=9),
+    dict(B=4, Hq=32, Hkv=32, D=96, page=16, nb=48, mp=8),  # Phi-3: 96 padded to 128
+    dict(B=3, Hq=8, Hkv=2, D=96, page=8, nb=64, mp=8, int8=True, window=11),
 ]
 
 
@@ -123,7 +127,7 @@ def test_paged_decode_kernel_matches_plain(card, c, dtype):
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
-    q = torch.zeros(1, 8, 4, 96, device=card)            # head_dim 96
+    q = torch.zeros(1, 8, 4, 80, device=card)            # head_dim 80: no kernel takes it
     lens = torch.ones(1, dtype=torch.int32, device=card)
     with pytest.raises(ValueError, match="head_dim"):
         flash_prefill.flash_prefill_attention(q, q, q, lens, 1.0)
@@ -135,6 +139,54 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     bt = torch.zeros(1, 2, dtype=torch.int32, device=card)
     with pytest.raises(ValueError, match="cache dtype"):
         paged_decode.paged_decode_attention(q, cache, cache, bt, lens, 1.0)
+    q80, c80 = torch.zeros(1, 4, 80, device=card), torch.zeros(4, 4, 2, 80, device=card)
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_decode.paged_decode_attention(q80, c80, c80, bt, lens, 1.0)
+
+
+def _nan_tailed(x, card):
+    """``x`` on the card at the head of a buffer whose next 32 values are
+    NaN: where a 96-wide last row would continue to 128 columns."""
+    buf = torch.full((x.numel() + 32,), float("nan"), dtype=x.dtype, device=card)
+    buf[:x.numel()] = x.flatten().to(card)
+    return buf[:x.numel()].view(x.shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_dim_96_reads_no_column_past_96(card, dtype):
+    """A planted fault: every tensor's last row is followed by NaN where
+    its columns 96-127 would lie at a 128-wide stride, and the sequences
+    attend that last row.  The kernels pad to 128 only in shared memory
+    (zero columns, never copied into, never written): the outputs match
+    the plain versions and hold no NaN."""
+    rng = np.random.default_rng(96)
+    B, T, H, D, page = 2, 64, 8, 96, 16
+    q, k, v = (_nan_tailed(torch.from_numpy(rng.standard_normal((B, T, H, D), np.float32))
+                           .to(dtype), card) for _ in range(3))
+    lens = torch.full((B,), T, dtype=torch.int32, device=card)
+    out = flash_prefill.flash_prefill_attention(q, k, v, lens, D ** -0.5)
+    ref = attention.prefill_attention(q, k, v, lens, D ** -0.5)
+    assert not out.isnan().any()
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    nb = B * T // page                     # every block used; the last one last
+    kc, vc = (_nan_tailed(torch.from_numpy(rng.standard_normal((nb, page, H, D), np.float32))
+                          .to(dtype), card) for _ in range(2))
+    bt = torch.arange(nb, dtype=torch.int32, device=card).view(B, T // page)
+    qd = _nan_tailed(torch.from_numpy(rng.standard_normal((B, H, D), np.float32)).to(dtype),
+                     card)
+    out = paged_decode.paged_decode_attention(qd, kc, vc, bt, lens, D ** -0.5)
+    ref = attention.paged_decode_attention(qd, kc, vc, bt, lens, D ** -0.5)
+    assert not out.isnan().any()
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    C = 16
+    qw = _nan_tailed(torch.from_numpy(rng.standard_normal((B, C, H, D), np.float32)).to(dtype),
+                     card)
+    ctx = torch.full((B,), T - C, dtype=torch.int32, device=card)
+    n = torch.full((B,), C, dtype=torch.int32, device=card)
+    out = paged_window.paged_window_attention(qw, kc, vc, bt, ctx, n, D ** -0.5)
+    ref = attention.chunked_prefill_attention(qw, kc, vc, bt, ctx, n, D ** -0.5)
+    assert not out.isnan().any()
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
 
 
 def _cache(rng, nb, page, Hkv, D, dtype, int8, card):
@@ -170,6 +222,8 @@ WINDOW_CASES = [
     dict(B=2, C=32, Hq=8, Hkv=2, D=64, page=4, mp=32, ctx=[90, 2], n=[32, 20], window=24,
          softcap=30.0),
     dict(B=1, C=96, Hq=6, Hkv=2, D=64, page=16, mp=16, ctx=[40], n=[90], window=50),
+    dict(B=2, C=48, Hq=32, Hkv=32, D=96, page=16, mp=8, ctx=[40, 0], n=[48, 30]),
+    dict(B=2, C=40, Hq=8, Hkv=2, D=96, page=16, mp=8, ctx=[20, 5], n=[40, 17], int8=True),
 ]
 
 
@@ -241,6 +295,8 @@ RAGGED_CASES = [
     dict(n_dec=6, chunks=[(70, 100)], blk=16, window=40, softcap=30.0),
     dict(n_dec=4, chunks=[(20, 60)], blk=8, Hq=8, Hkv=8, D=64),
     dict(n_dec=4, chunks=[(20, 60)], blk=32, Hq=8, Hkv=1, D=256),
+    dict(n_dec=4, chunks=[(30, 70)], blk=16, Hq=32, Hkv=32, D=96),
+    dict(n_dec=3, chunks=[(40, 90)], blk=32, Hq=8, Hkv=2, D=96, int8=True),
 ]
 
 
@@ -380,7 +436,8 @@ def test_paged_window_tile_edges(card, c):
 # (G, D, window, softcap) over prompt lengths 1, 63, 64, 65 and T, NaN
 # past each prompt
 TILE_FLASH_CASES = [(1, 64, None, None), (2, 128, None, None), (4, 256, None, None),
-                    (8, 128, None, None), (2, 64, 40, 30.0), (2, 256, 70, None)]
+                    (8, 128, None, None), (2, 64, 40, 30.0), (2, 256, 70, None),
+                    (1, 96, None, None), (4, 96, 40, 30.0)]
 
 
 @pytest.mark.parametrize("G,D,window,softcap", TILE_FLASH_CASES)

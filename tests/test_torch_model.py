@@ -72,7 +72,7 @@ def test_init_params_equals_jax_init_bitwise(name):
 
 def test_unported_families_raise():
     with pytest.raises(NotImplementedError, match="A8"):
-        weights.init_params(get_model_config("tiny-moe"), device="cpu")
+        weights.init_params(get_model_config("tiny-deepseek"), device="cpu")
 
 
 class _Pair:

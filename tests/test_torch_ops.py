@@ -135,6 +135,8 @@ PREFILL_CASES = [
     dict(B=1, T=128, Hq=8, Hkv=8, D=64),
     dict(B=2, T=48, Hq=4, Hkv=4, D=32),
     dict(B=2, T=40, Hq=4, Hkv=2, D=16, window=8, softcap=30.0),
+    dict(B=2, T=40, Hq=8, Hkv=8, D=96),                    # Phi-3's head_dim
+    dict(B=2, T=36, Hq=4, Hkv=2, D=96, window=8),
 ]
 
 
@@ -186,6 +188,8 @@ PAGED_CASES = [
     dict(B=5, Hq=4, Hkv=2, D=128, page=8, nb=64, mp=8, int8=True),
     dict(B=3, Hq=4, Hkv=2, D=32, page=4, nb=32, mp=8, window=10),
     dict(B=3, Hq=4, Hkv=2, D=32, page=4, nb=32, mp=8, softcap=20.0),
+    dict(B=3, Hq=8, Hkv=8, D=96, page=8, nb=32, mp=4),      # Phi-3's head_dim
+    dict(B=3, Hq=4, Hkv=2, D=96, page=4, nb=32, mp=8, int8=True, window=9),
     dict(B=4, Hq=4, Hkv=2, D=32, page=4, nb=64, mp=8, int8=True, window=7,
          softcap=20.0),
 ]

@@ -71,6 +71,9 @@ WINDOW_CASES = [
     dict(B=2, C=8, Hq=4, Hkv=2, D=128, page=4, nb=128, mp=24, ctx=[60, 0], window=6, blk_q=4),
     dict(B=2, C=8, Hq=4, Hkv=2, D=128, page=4, nb=128, mp=24, ctx=[60, 0], window=20, blk_q=4),
     dict(B=2, C=16, Hq=4, Hkv=2, D=32, page=4, nb=32, mp=12, ctx=[20, 3], softcap=20.0, blk_q=8),
+    dict(B=2, C=16, Hq=8, Hkv=8, D=96, page=8, nb=32, mp=8, ctx=[21, 0], blk_q=8),   # Phi-3
+    dict(B=2, C=8, Hq=4, Hkv=2, D=96, page=4, nb=64, mp=16, ctx=[30, 2], window=9, int8=True,
+         blk_q=4),
 ]
 
 
@@ -262,6 +265,7 @@ RAGGED_CASES = [
     dict(n_dec=3, chunks=[(6, 11)], blk=8, D=128, page=8, int8=True),
     dict(n_dec=4, chunks=[(7, 25)], blk=8, mp=12, max_kv=40, window=5),
     dict(n_dec=4, chunks=[(7, 25)], blk=8, mp=12, max_kv=40, window=16, softcap=20.0),
+    dict(n_dec=3, chunks=[(6, 11)], blk=8, D=96, page=8),               # Phi-3's head_dim
 ]
 
 

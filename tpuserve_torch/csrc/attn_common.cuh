@@ -11,6 +11,12 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
+// The head dims the kernels take are 64, 96, 128 and 256.  Shared-memory
+// tiles and lane layouts run at the padded width (96 -> 128, as the Pallas
+// kernels pad their lanes to 128), with the columns past D held at zero;
+// global rows keep their own stride D, and only D columns are written.
+__host__ __device__ constexpr int padded_dim(int d) { return d <= 64 ? 64 : d <= 128 ? 128 : 256; }
+
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_float(int8_t x) { return static_cast<float>(x); }

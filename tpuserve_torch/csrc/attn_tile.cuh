@@ -55,7 +55,9 @@
 // +64 KB); D=128, one warpgroup (ragged): 16 + 64 KB, two blocks an SM.
 // Registers: a thread holds O (D / 2 floats), S (kBk / 2) and P (kBk / 4
 // words): ~255 at D=128 with 128 keys (no spills, one block an SM), so
-// D=256 takes one warpgroup and 64 keys.
+// D=256 takes one warpgroup and 64 keys.  D=96 (Phi-3) runs D=128's tile:
+// Q and the K/V operands hold 128 columns, 96-127 zero in shared memory
+// (zeroed once; the copies fill only 0-95), and only 96 are written.
 #pragma once
 
 #include "attn_common.cuh"
@@ -109,29 +111,31 @@ constexpr int kStages = 2;       // K/V ring depth
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
-__host__ __device__ constexpr int warpgroups() { return D > 128 ? 1 : 2; }
+__host__ __device__ constexpr int warpgroups() { return padded_dim(D) > 128 ? 1 : 2; }
 
 // Keys per K/V tile: 128 (S = m64n128k16) where two warpgroups share bf16
 // K/V at D <= 128; 64 where registers (D=256) or shared memory (int8
 // staging, ragged_paged.cu's two blocks an SM) are short.
 template <typename KVT, int D, int NWG>
 __host__ __device__ constexpr int tile_keys() {
-  return NWG == 2 && D <= 128 && sizeof(KVT) == 2 ? 128 : 64;
+  return NWG == 2 && padded_dim(D) <= 128 && sizeof(KVT) == 2 ? 128 : 64;
 }
 
-// Byte offsets into the (1 KB aligned) shared memory.  Every bf16 operand
+// Byte offsets into the (1 KB aligned) shared memory, at the padded width
+// DP (D = 96 is held as 128 columns, 96-127 zero).  Every bf16 operand
 // is stored as column blocks of 64 elements (128-byte rows), each block
 // 128-byte swizzled: the 16-byte chunk c of row r sits at chunk c ^ (r % 8).
 template <typename KVT, int D, int NWG>
 struct Smem {
   static constexpr bool kInt8 = sizeof(KVT) == 1;
+  static constexpr int DP = padded_dim(D);
   static constexpr int kBk = tile_keys<KVT, D, NWG>();
   static constexpr int kRows = 64 * NWG;
-  static constexpr int kTile = kBk * D * 2;                 // one bf16 K or V tile
+  static constexpr int kTile = kBk * DP * 2;                // one bf16 K or V tile
   static constexpr int q = 0;
-  static constexpr int kv = q + kRows * D * 2;              // [stage][K, V]
-  static constexpr int raw = kv + kStages * 2 * kTile;      // int8: [stage][K, V] kBk x D
-  static constexpr int scl = raw + (kInt8 ? kStages * 2 * kBk * D : 0);   // int8: f32 scales
+  static constexpr int kv = q + kRows * DP * 2;             // [stage][K, V]
+  static constexpr int raw = kv + kStages * 2 * kTile;      // int8: [stage][K, V] kBk x DP
+  static constexpr int scl = raw + (kInt8 ? kStages * 2 * kBk * DP : 0);  // int8: f32 scales
   static constexpr int bar = scl + (kInt8 ? kStages * 2 * kBk * 4 : 0);  // [stage] mbarrier
   static constexpr int bytes = bar + kStages * 8 + 1024;
   static_assert(bytes <= 232448, "fits a block's shared memory");
@@ -344,14 +348,16 @@ template <typename KVT, int D, int NWG, class Src>
 __device__ void attn_tile(const WindowArgs& a, const Tile& t, const Src& src,
                           unsigned char* smem_raw) {
   using L = Smem<KVT, D, NWG>;
+  constexpr int DP = L::DP;                   // the products' width: D padded
   constexpr int kThreads = NWG * 128;
   constexpr int kRows = L::kRows;
-  constexpr int kON = D == 64 ? 64 : 128;     // N of one P.V product
-  constexpr int kOH = D / kON;                // P.V products per 16 keys
+  constexpr int kON = DP == 64 ? 64 : 128;    // N of one P.V product
+  constexpr int kOH = DP / kON;               // P.V products per 16 keys
   constexpr int kChunks = D * sizeof(KVT) / 16;          // 16-byte copies per K/V row
   constexpr int kBk = L::kBk;
-  constexpr int kCopies = kBk * kChunks / kThreads;      // per thread per K or V tile
-  static_assert(kCopies * kThreads == kBk * kChunks, "copies split evenly");
+  constexpr int kAll = kBk * kChunks;                    // copies of a K or V tile
+  constexpr int kCopies = (kAll + kThreads - 1) / kThreads;   // per thread (the last may idle)
+  static_assert(D % 16 == 0, "K/V rows are whole 16-byte copies");
 
   const int G = a.Hq / a.Hkv;
   const int nq = min(kRows / G, t.n_valid);  // valid positions in the tile
@@ -395,15 +401,19 @@ __device__ void attn_tile(const WindowArgs& a, const Tile& t, const Src& src,
 #pragma unroll
     for (int u = 0; u < kCopies; ++u) {
       const int idx = tid + u * kThreads;
-      const int r = idx / kChunks, c = idx % kChunks;
+      // past the tile's copies (D = 96, int8): every lane still takes part
+      // in the row lookup's shuffles, but issues no copy
+      const bool mine = kCopies * kThreads == kAll || idx < kAll;
+      const int r = mine ? idx / kChunks : 0, c = idx % kChunks;
       const int key = k0 + r;
       const bool ok = key >= kv_start && key < kv_end;
       const size_t row = rows.row(key);
+      if (!mine) continue;
       const size_t off = ok ? row * D + c * (16 / sizeof(KVT)) : 0;
       if constexpr (L::kInt8) {
-        const uint32_t dst = base + L::raw + 2 * s * kBk * D + r * D + c * 16;
+        const uint32_t dst = base + L::raw + 2 * s * kBk * DP + r * DP + c * 16;
         cp_async16(dst, kc + off, ok);
-        cp_async16(dst + kBk * D, vc + off, ok);
+        cp_async16(dst + kBk * DP, vc + off, ok);
         if (c == 0) {
           const uint32_t sd = base + L::scl + (2 * s * kBk + r) * 4;
           cp_async4(sd, a.k_scale + (ok ? row : 0), ok);
@@ -423,16 +433,26 @@ __device__ void attn_tile(const WindowArgs& a, const Tile& t, const Src& src,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  // the first K/V tiles load while Q is stored (rows of positions >= nq as 0)
+  // the first K/V tiles load while Q is stored (rows of positions >= nq,
+  // and columns past D, as 0)
   for (int j = 0; j < kStages && j < n_tiles; ++j) fetch(j);
-  for (int idx = tid; idx < kRows * (D / 8); idx += kThreads) {
-    const int r = idx / (D / 8), c = idx % (D / 8);
+  for (int idx = tid; idx < kRows * (DP / 8); idx += kThreads) {
+    const int r = idx / (DP / 8), c = idx % (DP / 8);
     const int i = r / G;
     uint4 val = make_uint4(0, 0, 0, 0);
-    if (i < nq)
+    if (i < nq && c < D / 8)
       val = *reinterpret_cast<const uint4*>(
           q + (static_cast<size_t>(i) * a.Hq + t.kvh * G + r % G) * D + c * 8);
     *reinterpret_cast<uint4*>(smem + L::q + swz(r, c, kRows)) = val;
+  }
+  if constexpr (DP != D) {
+    // the K/V operands' columns past D: zero once, never copied into
+    for (int idx = tid; idx < 2 * kStages * kBk * ((DP - D) / 8); idx += kThreads) {
+      const int buf = idx / (kBk * ((DP - D) / 8));
+      const int r = idx / ((DP - D) / 8) % kBk, c = D / 8 + idx % ((DP - D) / 8);
+      *reinterpret_cast<uint4*>(smem + L::kv + buf * L::kTile + swz(r, c, kBk)) =
+          make_uint4(0, 0, 0, 0);
+    }
   }
   fence_async_smem();
   __syncthreads();
@@ -461,8 +481,8 @@ __device__ void attn_tile(const WindowArgs& a, const Tile& t, const Src& src,
         const int kv = idx / (kBk * (D / 16));
         const int r = idx / (D / 16) % kBk, c = idx % (D / 16);
         const int buf = 2 * s + kv;
-        const uint4 raw = *reinterpret_cast<const uint4*>(smem + L::raw + buf * kBk * D + r * D +
-                                                          c * 16);
+        const uint4 raw = *reinterpret_cast<const uint4*>(smem + L::raw + buf * kBk * DP +
+                                                          r * DP + c * 16);
         const float sc = reinterpret_cast<const float*>(smem + L::scl)[buf * kBk + r];
         const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
         uint4 lo, hi;
@@ -491,7 +511,7 @@ __device__ void attn_tile(const WindowArgs& a, const Tile& t, const Src& src,
       float sc[kBk / 2];
       wg_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < DP / 16; ++kk) {
         // K-major: 16 values are 32 bytes along a swizzled row, 4 per column block
         const uint32_t off = (kk % 4) * 32;
         const uint64_t dq = desc(q_desc_base + (kk / 4) * kRows * 128 + off, 16, 1024);
@@ -607,8 +627,9 @@ __device__ void attn_tile(const WindowArgs& a, const Tile& t, const Src& src,
     for (int h = 0; h < kOH; ++h)
 #pragma unroll
       for (int c = 0; c < kON / 8; ++c)
-        *reinterpret_cast<uint32_t*>(dst + h * kON + c * 8) =
-            pack_bf16(o[h][4 * c + 2 * half] * inv, o[h][4 * c + 2 * half + 1] * inv);
+        if (h * kON + c * 8 < D)      // columns past D (padding) are not written
+          *reinterpret_cast<uint32_t*>(dst + h * kON + c * 8) =
+              pack_bf16(o[h][4 * c + 2 * half] * inv, o[h][4 * c + 2 * half + 1] * inv);
   }
 }
 

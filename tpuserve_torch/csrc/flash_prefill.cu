@@ -280,6 +280,7 @@ extern "C" int flash_prefill(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64: return by_dtype<64>(a, dtype, s);
+    case 96: return by_dtype<96>(a, dtype, s);
     case 128: return by_dtype<128>(a, dtype, s);
     case 256: return by_dtype<256>(a, dtype, s);
     default: return cudaErrorInvalidValue;

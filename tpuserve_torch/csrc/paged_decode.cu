@@ -82,6 +82,7 @@ cudaError_t by_shape(const Args& a, int D, cudaStream_t stream) {
   const bool small = G <= 2;
   switch (D) {
     case 64: return small ? launch<QT, KVT, 64, 2>(a, stream) : launch<QT, KVT, 64, 8>(a, stream);
+    case 96: return small ? launch<QT, KVT, 96, 2>(a, stream) : launch<QT, KVT, 96, 8>(a, stream);
     case 128: return small ? launch<QT, KVT, 128, 2>(a, stream) : launch<QT, KVT, 128, 8>(a, stream);
     case 256: return small ? launch<QT, KVT, 256, 2>(a, stream) : launch<QT, KVT, 256, 8>(a, stream);
     default: return cudaErrorInvalidValue;
@@ -120,12 +121,15 @@ extern "C" int paged_decode(const void* q, const void* k_cache, const void* v_ca
 extern "C" int paged_decode_smem_bytes(int kv_dtype, int D, int part_pages) {
   switch (kv_dtype * 1000 + D) {
     case 64: return DecSmem<float, 64>::bytes(part_pages);
+    case 96: return DecSmem<float, 96>::bytes(part_pages);
     case 128: return DecSmem<float, 128>::bytes(part_pages);
     case 256: return DecSmem<float, 256>::bytes(part_pages);
     case 1064: return DecSmem<__nv_bfloat16, 64>::bytes(part_pages);
+    case 1096: return DecSmem<__nv_bfloat16, 96>::bytes(part_pages);
     case 1128: return DecSmem<__nv_bfloat16, 128>::bytes(part_pages);
     case 1256: return DecSmem<__nv_bfloat16, 256>::bytes(part_pages);
     case 2064: return DecSmem<int8_t, 64>::bytes(part_pages);
+    case 2096: return DecSmem<int8_t, 96>::bytes(part_pages);
     case 2128: return DecSmem<int8_t, 128>::bytes(part_pages);
     case 2256: return DecSmem<int8_t, 256>::bytes(part_pages);
     default: return -1;

@@ -19,7 +19,9 @@
 //   requested at once and a stage is refilled as soon as every warp is done
 //   with it, so up to 48 KB a block, and 192 KB an SM, are in flight.
 // - The math runs on the CUDA cores (about one FLOP a byte at G = 2): a
-//   lane group of D / 8 lanes holds 8 elements of a row, scores a batch of
+//   lane group of DP / 8 lanes holds 8 elements of a row (DP =
+//   padded_dim(D): at D = 96 the stage rows and q hold 128 columns, 96-127
+//   zero, so a row is 16 lanes as at 128), scores a batch of
 //   rows (shuffles over the group), then updates a float32 online softmax
 //   (running max m, sum l, accumulator acc) once for the batch; int8 rows
 //   are scaled and rounded to q's type, as the plain version does.
@@ -82,12 +84,13 @@ __host__ __device__ __forceinline__ void decode_splits(int rows, int Hkv, int ma
   splits = (mp + part_pages - 1) / part_pages;
 }
 
-// Byte offsets into the block's dynamic shared memory.
+// Byte offsets into the block's dynamic shared memory.  Stage rows are
+// padded_dim(D) wide (D = 96: 128, columns 96-127 zero).
 template <typename KVT, int D>
 struct DecSmem {
   static constexpr bool kInt8 = sizeof(KVT) == 1;
   static constexpr int kTile = 8192;                              // one K or V stage
-  static constexpr int kBk = kTile / (D * static_cast<int>(sizeof(KVT)));  // keys a stage
+  static constexpr int kBk = kTile / (padded_dim(D) * static_cast<int>(sizeof(KVT)));  // keys a stage
   static constexpr int kv = 0;                                    // [stage][K, V]
   static constexpr int scl = kv + kDecStages * 2 * kTile;         // int8: [stage][K, V] kBk f32
   static constexpr int bar = scl + (kInt8 ? kDecStages * 2 * kBk * 4 : 0);  // [stage] mbarrier
@@ -122,9 +125,10 @@ __device__ __forceinline__ void split_decode(const DecodeArgs& a, const SplitK& 
                                              int kvh, int split, int seq_len,
                                              unsigned char* smem) {
   using L = DecSmem<KVT, D>;
+  constexpr int DP = padded_dim(D);                     // a stage row's width
   constexpr int kBk = L::kBk;
   constexpr int kEpl = 8;                               // elements of a row a lane holds
-  constexpr int kLpr = D / kEpl;                        // lanes a row: 8, 16 or 32
+  constexpr int kLpr = DP / kEpl;                       // lanes a row: 8, 16 or 32
   constexpr int kRpw = 32 / kLpr;                       // rows a warp takes at once
   constexpr int kVec = sizeof(KVT) == 4 ? 4 : 8;        // elements a shared-memory load
   constexpr int kVpl = kEpl / kVec;                     // loads a lane a row
@@ -132,12 +136,12 @@ __device__ __forceinline__ void split_decode(const DecodeArgs& a, const SplitK& 
   constexpr int kSteps = kBk / kRows;                   // ... a stage
   constexpr int kBatch0 = MAXG > 2 ? 2 : 4;             // rows scored before a softmax update
   constexpr int kBatch = kBatch0 < kSteps ? kBatch0 : kSteps;
-  constexpr int kRowBytes = D * static_cast<int>(sizeof(KVT));
-  constexpr int kChunks = kRowBytes / 16;               // 16-byte copies a row
+  constexpr int kRowBytes = DP * static_cast<int>(sizeof(KVT));   // a stage row
+  constexpr int kChunks = D * static_cast<int>(sizeof(KVT)) / 16;  // 16-byte copies a row
   constexpr int kCopies = kBk * kChunks / kDecThreads;  // a thread's copies of a K or V stage
   static_assert(kSteps * kRows == kBk && kSteps % kBatch == 0, "rows split evenly");
   static_assert(kCopies * kDecThreads == kBk * kChunks, "copies split evenly");
-  static_assert((kDecWarps * MAXG * (D + 2) + 1) * 4 <= L::scl, "the warps merge in the ring");
+  static_assert((kDecWarps * MAXG * (DP + 2) + 1) * 4 <= L::scl, "the warps merge in the ring");
 
   const int G = a.Hq / a.Hkv;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -166,6 +170,13 @@ __device__ __forceinline__ void split_decode(const DecodeArgs& a, const SplitK& 
   const uint32_t base = at::smem_u32(smem);
   for (int p = lo / a.page_size + tid; p <= (hi - 1) / a.page_size; p += kDecThreads)
     sbt[p - p0] = bt[p];
+  if constexpr (DP != D) {
+    // the stage rows' columns past D: zero once, never copied into
+    constexpr int kPad = (DP - D) * static_cast<int>(sizeof(KVT)) / 16;
+    for (int idx = tid; idx < kDecStages * 2 * kBk * kPad; idx += kDecThreads)
+      *reinterpret_cast<uint4*>(smem + L::kv + idx / kPad * kRowBytes + kChunks * 16 +
+                                idx % kPad * 16) = make_uint4(0, 0, 0, 0);
+  }
   if (tid == 0) {
     for (int s = 0; s < kDecStages; ++s) at::mbar_init(base + L::bar + 8 * s, kDecThreads);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -215,7 +226,8 @@ __device__ __forceinline__ void split_decode(const DecodeArgs& a, const SplitK& 
 #pragma unroll
       for (int i = 0; i < kVec; ++i) {
         acc[g][v * kVec + i] = 0.f;
-        qr[g][v * kVec + i] = g < G ? to_float(q[g * D + (v * kLpr + li) * kVec + i]) : 0.f;
+        const int d = (v * kLpr + li) * kVec + i;
+        qr[g][v * kVec + i] = g < G && d < D ? to_float(q[g * D + d]) : 0.f;
       }
   }
 
@@ -321,8 +333,8 @@ __device__ __forceinline__ void split_decode(const DecodeArgs& a, const SplitK& 
     }
   }
   // then the warps, through the (now idle) ring
-  float* sm_acc = reinterpret_cast<float*>(smem);       // [warp][MAXG][D]
-  float* sm_m = sm_acc + kDecWarps * MAXG * D;          // [warp][MAXG]
+  float* sm_acc = reinterpret_cast<float*>(smem);       // [warp][MAXG][DP]
+  float* sm_m = sm_acc + kDecWarps * MAXG * DP;         // [warp][MAXG]
   float* sm_l = sm_m + kDecWarps * MAXG;
   int* sm_last = reinterpret_cast<int*>(sm_l + kDecWarps * MAXG);
   if (sub == 0) {
@@ -333,7 +345,7 @@ __device__ __forceinline__ void split_decode(const DecodeArgs& a, const SplitK& 
       for (int v = 0; v < kVpl; ++v)
 #pragma unroll
         for (int i = 0; i < kVec; ++i)
-          sm_acc[(warp * MAXG + g) * D + (v * kLpr + li) * kVec + i] = acc[g][v * kVec + i];
+          sm_acc[(warp * MAXG + g) * DP + (v * kLpr + li) * kVec + i] = acc[g][v * kVec + i];
       if (li == 0) {
         sm_m[warp * MAXG + g] = m[g];
         sm_l[warp * MAXG + g] = l[g];
@@ -356,7 +368,7 @@ __device__ __forceinline__ void split_decode(const DecodeArgs& a, const SplitK& 
     for (int w = 0; w < kDecWarps; ++w) {
       const float sw = expf(sm_m[w * MAXG + g] - mu);
       ll += sm_l[w * MAXG + g] * sw;
-      o += sm_acc[(w * MAXG + g) * D + idx % D] * sw;
+      o += sm_acc[(w * MAXG + g) * DP + idx % D] * sw;
     }
     if (direct) {
       out[idx] = from_float<QT>(ll > 0.f ? o / ll : 0.f);

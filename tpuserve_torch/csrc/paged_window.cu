@@ -142,6 +142,7 @@ extern "C" int paged_window(const void* q, const void* k_cache, const void* v_ca
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64: return by_dtype<64>(a, B, q_dtype, kv_dtype, s);
+    case 96: return by_dtype<96>(a, B, q_dtype, kv_dtype, s);
     case 128: return by_dtype<128>(a, B, q_dtype, kv_dtype, s);
     case 256: return by_dtype<256>(a, B, q_dtype, kv_dtype, s);
     default: return cudaErrorInvalidValue;

@@ -163,6 +163,9 @@ cudaError_t by_shape(const Args& a, int T, int D, int dec_blocks, cudaStream_t s
     case 64:
       return small ? launch<QT, KVT, 64, 2>(a, T, dec_blocks, stream)
                    : launch<QT, KVT, 64, 8>(a, T, dec_blocks, stream);
+    case 96:
+      return small ? launch<QT, KVT, 96, 2>(a, T, dec_blocks, stream)
+                   : launch<QT, KVT, 96, 8>(a, T, dec_blocks, stream);
     case 128:
       return small ? launch<QT, KVT, 128, 2>(a, T, dec_blocks, stream)
                    : launch<QT, KVT, 128, 8>(a, T, dec_blocks, stream);
@@ -210,15 +213,19 @@ extern "C" int ragged_paged(const void* q, const void* k_cache, const void* v_ca
 extern "C" int ragged_paged_smem_bytes(int q_dtype, int kv_dtype, int D, int max_pages) {
   switch (q_dtype * 10000 + kv_dtype * 1000 + D) {
     case 64: return smem_bytes<float, float, 64>(max_pages);
+    case 96: return smem_bytes<float, float, 96>(max_pages);
     case 128: return smem_bytes<float, float, 128>(max_pages);
     case 256: return smem_bytes<float, float, 256>(max_pages);
     case 2064: return smem_bytes<float, int8_t, 64>(max_pages);
+    case 2096: return smem_bytes<float, int8_t, 96>(max_pages);
     case 2128: return smem_bytes<float, int8_t, 128>(max_pages);
     case 2256: return smem_bytes<float, int8_t, 256>(max_pages);
     case 11064: return smem_bytes<__nv_bfloat16, __nv_bfloat16, 64>(max_pages);
+    case 11096: return smem_bytes<__nv_bfloat16, __nv_bfloat16, 96>(max_pages);
     case 11128: return smem_bytes<__nv_bfloat16, __nv_bfloat16, 128>(max_pages);
     case 11256: return smem_bytes<__nv_bfloat16, __nv_bfloat16, 256>(max_pages);
     case 12064: return smem_bytes<__nv_bfloat16, int8_t, 64>(max_pages);
+    case 12096: return smem_bytes<__nv_bfloat16, int8_t, 96>(max_pages);
     case 12128: return smem_bytes<__nv_bfloat16, int8_t, 128>(max_pages);
     case 12256: return smem_bytes<__nv_bfloat16, int8_t, 256>(max_pages);
     default: return -1;

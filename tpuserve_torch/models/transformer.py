@@ -1,10 +1,10 @@
-"""Decoder-only transformer for the dense Qwen3/Qwen2/Llama/Phi-3/OPT/Gemma
-family — the port of the serving entries of ``tpuserve/models/transformer.py``
-(``prefill``, ``prefill_chunk``, ``decode_step``, ``decode_multi``,
-``forward_ragged``), speculative decoding's verify pass
-(``decode_verify``, ``decode_verify_sampled``) and its stateless draft
-(``draft_propose``), and the cache-less trunks behind embeddings and
-prompt scoring (``embed_forward``, ``score_prompt``).
+"""Decoder-only transformer for the Qwen3/Qwen2/Llama/Mistral/Phi-3/OPT/
+Gemma families and Qwen3-MoE — the port of the serving entries of
+``tpuserve/models/transformer.py`` (``prefill``, ``prefill_chunk``,
+``decode_step``, ``decode_multi``, ``forward_ragged``), speculative
+decoding's verify pass (``decode_verify``, ``decode_verify_sampled``) and
+its stateless draft (``draft_propose``), and the cache-less trunks behind
+embeddings and prompt scoring (``embed_forward``, ``score_prompt``).
 
 Parameters are the plain tree of ``models/weights.py``.  The functions run
 eagerly on the tensors' device.  Unlike the JAX functions, which return a
@@ -85,10 +85,98 @@ def _act(x: torch.Tensor, name: str) -> torch.Tensor:
 
 
 def _mlp(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
+    # branch on the PARAMS, as the JAX package: DeepSeek keeps its first
+    # moe_first_k_dense layers dense inside an MoE model
+    if "experts" in p:
+        return _moe_mlp(x, p, cfg)
     if cfg.mlp_style == "gated":
         gate = _act(_linear(x, p["gate_proj"]), cfg.act)
         return _linear(gate * _linear(x, p["up_proj"]), p["down_proj"])
     return _linear(_act(_linear(x, p["fc1"]), cfg.act), p["fc2"])
+
+
+# An MoE layer runs its experts in groups whose gate, up and activation
+# tensors hold at most this many values each (rows x experts x width):
+# the transients stay bounded at any batch, and each step's shapes static.
+MOE_GROUP_VALUES = 1 << 24
+
+
+def moe_group(cfg: ModelConfig, rows: int) -> int:
+    """Experts one group of an MoE layer runs together for ``rows`` token
+    rows: the largest divisor of ``num_experts`` within
+    ``MOE_GROUP_VALUES`` (at least 1)."""
+    E, width = cfg.num_experts, cfg.expert_intermediate_size
+    return next((g for g in range(E, 0, -1)
+                 if E % g == 0 and rows * g * width <= MOE_GROUP_VALUES), 1)
+
+
+def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k largest along the last axis, in ``jax.lax.top_k``'s order:
+    descending, ties to the lower index (a stable sort; ``torch.topk``
+    promises no order among ties, and bf16 router logits tie often)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _moe_mlp(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Mixture-of-experts MLP, the JAX package's ``_moe_mlp``: a softmax
+    (Qwen3-MoE) or sigmoid (DeepSeek-V3) router scores the experts; the
+    selection adds the float32 correction bias and may keep only the best
+    ``moe_topk_group`` of ``moe_n_group`` groups (V3: a group's top-2 sum,
+    V2: its max; the others masked to 0.0, not -inf); the top-k experts'
+    unbiased scores, renormalised (``norm_topk_prob``) and scaled
+    (``moe_routed_scaling``), weight their gated-MLP outputs; shared
+    experts add an always-on MLP.
+
+    Dispatch is dense, as in the JAX package: every expert runs on every
+    token, the unchosen ones with weight 0.  The combine weight is folded
+    in before the down projection (sum_e c_e (h_e W_e) = sum_e (c_e h_e)
+    W_e), so a group of g experts is three products, the last one (T, g I)
+    by (g I, H) into a float32 sum, and no (T, E, H) tensor exists; groups
+    of ``moe_group`` experts bound the (g, T, I) transients."""
+    shape = x.shape
+    xt = x.reshape(-1, shape[-1])                              # (T, H)
+    T = xt.shape[0]
+    router = _linear(xt, p["router"]).float()                  # (T, E)
+    sigmoid = cfg.moe_scoring == "sigmoid"
+    scores = torch.sigmoid(router) if sigmoid else torch.softmax(router, dim=-1)
+    choice = scores
+    if "router_bias" in p:
+        choice = choice + p["router_bias"]["bias"].float()[None, :]
+    if cfg.moe_n_group > 1:
+        E, G = scores.shape[-1], cfg.moe_n_group
+        grouped = choice.reshape(T, G, E // G)
+        if sigmoid:
+            group_scores = _top_k(grouped, 2)[0].sum(dim=-1)
+        else:
+            group_scores = grouped.max(dim=-1).values
+        _, gidx = _top_k(group_scores, cfg.moe_topk_group)
+        gmask = torch.zeros_like(group_scores).scatter_(1, gidx, 1.0)      # (T, G)
+        choice = torch.where(gmask[..., None] > 0, grouped, 0.0).reshape(T, E)
+    _, topi = _top_k(choice, cfg.num_experts_per_tok)          # (T, k)
+    topv = scores.gather(-1, topi)                             # unbiased
+    if cfg.norm_topk_prob:
+        # HF adds 1e-20 on the sigmoid path (sums are not 1 there)
+        topv = topv / (topv.sum(dim=-1, keepdim=True) + (1e-20 if sigmoid else 0.0))
+    if cfg.moe_routed_scaling != 1.0:
+        topv = topv * cfg.moe_routed_scaling
+    combine = torch.zeros_like(scores).scatter_(1, topi, topv).to(xt.dtype)   # (T, E)
+
+    ek = p["experts"]
+    E, width = cfg.num_experts, cfg.expert_intermediate_size
+    g = moe_group(cfg, T)
+    y = torch.zeros((T, shape[-1]), dtype=torch.float32, device=xt.device)
+    for e0 in range(0, E, g):
+        gate = torch.matmul(xt, ek["gate_proj"]["kernel"][e0:e0 + g])        # (g, T, I)
+        up = torch.matmul(xt, ek["up_proj"]["kernel"][e0:e0 + g])
+        act = _act(gate, cfg.act) * up * combine[:, e0:e0 + g].T[:, :, None]
+        down = ek["down_proj"]["kernel"][e0:e0 + g].reshape(g * width, -1)   # (g I, H)
+        y += act.transpose(0, 1).reshape(T, g * width) @ down
+    y = y.to(xt.dtype)
+    if "shared" in p:
+        # DeepSeek's shared experts: a plain gated MLP beside the routed ones
+        y = y + _mlp(xt, p["shared"], cfg)
+    return y.reshape(shape)
 
 
 def _attn_residual(out: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tensor:
@@ -156,9 +244,9 @@ def _unembed(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 def _check(cfg: ModelConfig, attn_impl: str) -> None:
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
-    if cfg.is_mla or cfg.num_experts:
+    if cfg.is_mla:
         raise NotImplementedError(
-            f"{cfg.name}: MoE and MLA families are not ported yet "
+            f"{cfg.name}: the MLA family is not ported yet "
             "(ROADMAP.md A8, model breadth)")
 
 

@@ -10,7 +10,11 @@ leaf for leaf.  Two ways to fill it:
 - :func:`init_params` reproduces ``tpuserve.models.weights.init_params``
   draw for draw (same ``np.random.default_rng(seed)``, same order, same
   float32-then-cast rounding), so a run on the card gets the JAX engine's
-  exact random weights without importing JAX.
+  exact random weights without importing JAX; :func:`init_params_device`
+  draws the same tree on the card (other numbers), for models whose host
+  draws would take minutes.  MoE layers carry the JAX layout: ``router``,
+  an optional float32 ``router_bias``, ``experts`` stacked (E, n_in,
+  n_out) and DeepSeek's ``shared`` experts.
 
 - :func:`load_hf_checkpoint` reads a local HuggingFace safetensors
   directory (one file or index-sharded) with the port's own parser
@@ -46,45 +50,69 @@ def param_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.is_mla or cfg.num_experts:
+    if cfg.is_mla:
         raise NotImplementedError(
-            f"{cfg.name}: MoE and MLA families are not ported yet "
+            f"{cfg.name}: the MLA family is not ported yet "
             "(ROADMAP.md A8, model breadth)")
 
 
 def params_from_numpy(tree, cfg: ModelConfig, device) -> dict:
     """The JAX package's parameter tree, as numpy arrays, on ``device`` in
-    the model's dtype."""
+    the model's dtype (an MoE ``router_bias`` stays float32, as there)."""
     _check_family(cfg)
     dtype = param_dtype(cfg)
 
-    def conv(x):
+    def conv(x, leaf_dtype=dtype):
         if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
+            return {k: conv(v, torch.float32 if k == "router_bias" else leaf_dtype)
+                    for k, v in x.items()}
         if isinstance(x, (list, tuple)):
-            return [conv(v) for v in x]
+            return [conv(v, leaf_dtype) for v in x]
         arr = np.array(x)                      # a writable host copy
         if arr.dtype.name == "bfloat16":       # ml_dtypes: go through float32
             arr = arr.astype(np.float32)
-        return torch.from_numpy(arr).to(dtype).to(device)
+        return torch.from_numpy(arr).to(leaf_dtype).to(device)
     return conv(tree)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     """Random-normal parameters, equal to the JAX package's
-    ``init_params(cfg, seed)`` value for value (dense and norm leaves of the
-    dense families; MoE and MLA raise)."""
+    ``init_params(cfg, seed)`` value for value (dense, norm and MoE leaves;
+    MLA raises)."""
     _check_family(cfg)
     rng = np.random.default_rng(seed)
     dtype = param_dtype(cfg)
 
-    def put(arr) -> torch.Tensor:
-        # cast on the host, where the rounding is the one the test pins
-        return torch.from_numpy(arr).to(dtype).to(device)
+    def normal(shape, scale):
+        # draw and scale in numpy, cast on the host: the rounding the
+        # test pins (float32 draws, the JAX init's arithmetic)
+        return torch.from_numpy(scale(rng.standard_normal(shape, dtype=np.float32))).to(
+            dtype).to(device)
+    return _init_tree(cfg, normal, dtype, device)
 
+
+def init_params_device(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
+    """Random-normal parameters with :func:`init_params`' tree, shapes,
+    dtypes and scales, drawn on ``device`` by a seeded ``torch.Generator``:
+    seconds for tens of billions of values where host draws take minutes,
+    but not the JAX init's numbers."""
+    _check_family(cfg)
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dtype = param_dtype(cfg)
+
+    def normal(shape, scale):
+        x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+        return scale(x).to(dtype)
+    return _init_tree(cfg, normal, dtype, device)
+
+
+def _init_tree(cfg: ModelConfig, normal, dtype, device) -> dict:
+    """The JAX init's tree, in its draw order: ``normal(shape, scale)``
+    draws a float32 standard normal of ``shape``, applies ``scale`` and
+    returns it in the model's dtype on ``device``."""
     def dense(n_in, n_out, bias):
-        p = {"kernel": put(rng.standard_normal((n_in, n_out), dtype=np.float32)
-                           / np.sqrt(n_in))}
+        p = {"kernel": normal((n_in, n_out), lambda x: x / np.sqrt(n_in))}
         if bias:
             p["bias"] = torch.zeros((n_out,), dtype=dtype, device=device)
         return p
@@ -100,7 +128,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
 
     h, d = cfg.hidden_size, cfg.head_dim
     layers = []
-    for _ in range(cfg.num_layers):
+    for li in range(cfg.num_layers):
         lp = {
             "attn_norm": norm(h),
             "q_proj": dense(h, cfg.q_size, cfg.attention_bias),
@@ -118,7 +146,25 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
         if cfg.sandwich_norms:
             lp["post_attn_norm"] = norm(h)
             lp["post_mlp_norm"] = norm(h)
-        if cfg.mlp_style == "gated":
+        if cfg.num_experts and not cfg.moe_layer_is_dense(li):
+            ei, E = cfg.expert_intermediate_size, cfg.num_experts
+
+            def experts(n_in, n_out):
+                # stacked (E, n_in, n_out), the JAX layout
+                return {"kernel": normal((E, n_in, n_out), lambda x: x / np.sqrt(n_in))}
+            lp["router"] = dense(h, E, False)
+            if cfg.moe_router_bias:
+                # e_score_correction_bias: selection-only, stays float32
+                lp["router_bias"] = {"bias": torch.zeros((E,), dtype=torch.float32,
+                                                         device=device)}
+            lp["experts"] = {"gate_proj": experts(h, ei), "up_proj": experts(h, ei),
+                             "down_proj": experts(ei, h)}
+            if cfg.moe_shared_experts:
+                si = ei * cfg.moe_shared_experts
+                lp["shared"] = {"gate_proj": dense(h, si, False),
+                                "up_proj": dense(h, si, False),
+                                "down_proj": dense(si, h, False)}
+        elif cfg.mlp_style == "gated":
             lp["gate_proj"] = dense(h, cfg.intermediate_size, cfg.mlp_bias)
             lp["up_proj"] = dense(h, cfg.intermediate_size, cfg.mlp_bias)
             lp["down_proj"] = dense(cfg.intermediate_size, h, cfg.mlp_bias)
@@ -128,15 +174,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
         layers.append(lp)
 
     params = {
-        "embed": {"weight": put(rng.standard_normal((cfg.vocab_size, h),
-                                                    dtype=np.float32) * 0.02)},
+        "embed": {"weight": normal((cfg.vocab_size, h), lambda x: x * 0.02)},
         "layers": layers,
         "final_norm": norm(h),
     }
     if cfg.pos == "learned":
-        params["pos_embed"] = {"weight": put(rng.standard_normal(
-            (cfg.max_position_embeddings + cfg.learned_pos_offset, h),
-            dtype=np.float32) * 0.02)}
+        params["pos_embed"] = {"weight": normal(
+            (cfg.max_position_embeddings + cfg.learned_pos_offset, h), lambda x: x * 0.02)}
     if not cfg.tie_word_embeddings:
         params["lm_head"] = dense(h, cfg.vocab_size, False)
     return params
@@ -318,13 +362,16 @@ def _load_llama_family(cfg: ModelConfig, raw: SafetensorsDir, dtype, device) -> 
         if cfg.qk_norm:
             lp["q_norm"] = norm_scale(pre + "self_attn.q_norm.weight")
             lp["k_norm"] = norm_scale(pre + "self_attn.k_norm.weight")
-        if pre + "mlp.gate_up_proj.weight" in raw:              # Phi-3 fused mlp
+        if cfg.num_experts and not cfg.moe_layer_is_dense(i):   # Qwen3 / DeepSeek MoE
+            lp.update(_load_moe_layer(cfg, raw, pre, dtype, device))
+        elif pre + "mlp.gate_up_proj.weight" in raw:            # Phi-3 fused mlp
             lp["gate_proj"], lp["up_proj"] = split(
                 pre + "mlp.gate_up_proj.weight", [cfg.intermediate_size] * 2)
+            lp["down_proj"] = dense(pre + "mlp.down_proj.weight")
         else:
             lp["gate_proj"] = dense(pre + "mlp.gate_proj.weight")
             lp["up_proj"] = dense(pre + "mlp.up_proj.weight")
-        lp["down_proj"] = dense(pre + "mlp.down_proj.weight")
+            lp["down_proj"] = dense(pre + "mlp.down_proj.weight")
         layers.append(lp)
     params = {"embed": {"weight": _put(raw["model.embed_tokens.weight"], dtype, device)},
               "layers": layers,
@@ -332,6 +379,29 @@ def _load_llama_family(cfg: ModelConfig, raw: SafetensorsDir, dtype, device) -> 
     if not cfg.tie_word_embeddings:
         params["lm_head"] = dense("lm_head.weight")
     return params
+
+
+def _load_moe_layer(cfg: ModelConfig, raw: SafetensorsDir, pre: str, dtype, device) -> dict:
+    """One MoE layer's router (and float32 selection bias), its experts
+    stacked (E, n_in, n_out) on the device one expert at a time (no host
+    copy of a whole stack), and its shared experts."""
+    E, h, ei = cfg.num_experts, cfg.hidden_size, cfg.expert_intermediate_size
+    lp = {"router": {"kernel": _put(raw[pre + "mlp.gate.weight"], dtype, device, t=True)}}
+    if cfg.moe_router_bias:
+        lp["router_bias"] = {"bias": _put(raw[pre + "mlp.gate.e_score_correction_bias"],
+                                          torch.float32, device)}
+    experts = {}
+    for proj, shape in (("gate_proj", (h, ei)), ("up_proj", (h, ei)), ("down_proj", (ei, h))):
+        w = torch.empty((E, *shape), dtype=dtype, device=device)
+        for e in range(E):
+            w[e] = _put(raw[pre + f"mlp.experts.{e}.{proj}.weight"], dtype, device, t=True)
+        experts[proj] = {"kernel": w}
+    lp["experts"] = experts
+    if cfg.moe_shared_experts:
+        lp["shared"] = {proj: {"kernel": _put(raw[pre + f"mlp.shared_experts.{proj}.weight"],
+                                              dtype, device, t=True)}
+                        for proj in ("gate_proj", "up_proj", "down_proj")}
+    return lp
 
 
 def _load_opt(cfg: ModelConfig, raw: SafetensorsDir, dtype, device) -> dict:

@@ -15,7 +15,7 @@ import torch
 from tpuserve_torch.ops import _build, attention
 
 LAUNCHES = 0
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 96, 128, 256)    # 96 runs padded to 128 in the tile
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -29,7 +29,7 @@ import torch
 from tpuserve_torch.ops import _build, attention
 
 LAUNCHES = 0
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 96, 128, 256)    # 96 runs padded to 128 in the tile
 MAX_GROUP = 8
 # decode_splits aims at WAVES blocks an SM, with partitions of at least
 # MIN_KEYS keys (the kernels' kDecWaves and kDecMinKeys).

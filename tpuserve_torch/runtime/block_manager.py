@@ -4,9 +4,9 @@ Python implementation of the block-table bookkeeping that vLLM does inside
 the container the reference deploys (the reference delegates the whole
 engine: kubernetes-single-node.yaml:14, llm-d-deploy.yaml:140-193).
 The port's own copy of the JAX package's Python block manager, with the
-tiered KV cache's eviction log and restores, and without what the port
-does not run yet: the C++ drop-in replacement (ROADMAP.md, "native block
-manager") and the sliding-window rolling buffer.
+tiered KV cache's eviction log and restores and the sliding-window
+rolling buffer, and without what the port does not run yet: the C++
+drop-in replacement (ROADMAP.md, "native block manager").
 
 Design: physical blocks of ``block_size`` token slots; per-sequence block
 tables map logical block index -> physical block id.  Full prompt blocks are
@@ -25,10 +25,17 @@ from typing import Optional
 from tpuserve_torch.utils import cdiv, next_power_of_2
 
 
+# Sentinel in a sequence's block table for a leading block returned to the
+# pool by the sliding-window rolling buffer (release_out_of_window): the
+# logical index keeps its place so tail slot arithmetic is unchanged.
+RELEASED = -1
+
+
 @dataclasses.dataclass
 class SeqAlloc:
     blocks: list[int]
     num_tokens: int                  # tokens written so far
+    released_upto: int = 0           # logical blocks returned to the pool
 
 
 class BlockManager:
@@ -297,9 +304,24 @@ class BlockManager:
             raise ValueError("advance beyond reserved capacity")
         alloc.num_tokens += n
 
+    def slot_for_token(self, seq_id: str, token_idx: int) -> int:
+        alloc = self._seqs[seq_id]
+        if token_idx < 0:
+            raise IndexError("token index out of range")
+        b = alloc.blocks[token_idx // self.block_size]
+        if b == RELEASED:
+            raise IndexError(
+                f"token {token_idx} of {seq_id} is in a window-released "
+                "block — writes must stay at or after the window start")
+        return b * self.block_size + token_idx % self.block_size
+
     def block_table(self, seq_id: str) -> list[int]:
-        """Physical block ids by logical index."""
-        return list(self._seqs[seq_id].blocks)
+        """Physical block ids by logical index.  Window-released entries
+        are reported as block 0: the attention kernels never read (CUDA)
+        or un-mask (plain versions) positions before the window, so any
+        valid id is safe, and a valid id keeps gathers in bounds."""
+        return [0 if b == RELEASED else b
+                for b in self._seqs[seq_id].blocks]
 
     def _release_block(self, b: int, cache_blocks: bool = True) -> None:
         rc = self._refcount.get(b, 1) - 1
@@ -315,6 +337,32 @@ class BlockManager:
         else:
             self._free.append(b)
 
+    def release_out_of_window(self, seq_id: str,
+                              first_needed_token: int) -> int:
+        """Sliding-window rolling buffer: return the blocks holding only
+        positions before ``first_needed_token`` to the pool (the window
+        will never attend them again), keeping the logical table length so
+        tail slot arithmetic is unchanged.  Cache capacity for a windowed
+        model thus scales with the WINDOW, not the context.  Returns the
+        number of blocks released."""
+        alloc = self._seqs[seq_id]
+        # never release the newest written position's block (or beyond):
+        # the next append / spec-verify rewrite targets it, and a write
+        # into a released block would corrupt whoever owns it now
+        first_needed_token = min(first_needed_token,
+                                 max(alloc.num_tokens - 1, 0))
+        first_block = min(first_needed_token // self.block_size,
+                          len(alloc.blocks))
+        released = 0
+        for i in range(alloc.released_upto, first_block):
+            b = alloc.blocks[i]
+            if b != RELEASED:
+                self._release_block(b)
+                alloc.blocks[i] = RELEASED
+                released += 1
+        alloc.released_upto = max(alloc.released_upto, first_block)
+        return released
+
     def free(self, seq_id: str, cache_blocks: bool = True) -> None:
         """Release a sequence's blocks.  ``cache_blocks=False`` drops their
         prefix-cache hashes instead of parking them in the cached pool — for
@@ -325,6 +373,8 @@ class BlockManager:
         if alloc is None:
             return
         for b in alloc.blocks:
+            if b == RELEASED:               # already back in the pool
+                continue
             self._release_block(b, cache_blocks)
 
     def num_seqs(self) -> int:
@@ -428,7 +478,8 @@ class BlockManager:
         owned: dict[int, int] = {}
         for sid, alloc in self._seqs.items():
             for b in alloc.blocks:
-                owned[b] = owned.get(b, 0) + 1
+                if b != RELEASED:
+                    owned[b] = owned.get(b, 0) + 1
         free_set = set(self._free)
         cached_set = set(self._cached)
         if len(free_set) != len(self._free):

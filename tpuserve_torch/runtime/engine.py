@@ -152,6 +152,10 @@ class EngineConfig:
     attn_impl: str = "auto"                   # "auto" | "reference" | "cuda"
     enable_prefix_caching: bool = True
     seed: int = 0
+    # Sliding-window rolling buffer (Engine._release_window_blocks), on as
+    # in the JAX engine: a uniformly windowed model's cache grows with the
+    # window, not the context.
+    window_release: bool = True
     # Tokens per fused decode window (transformer.decode_multi).  None =
     # auto: 32 on the card (the JAX engine's accelerator value, not yet
     # measured on this card), 1 on the CPU where tests expect per-token
@@ -311,6 +315,7 @@ class EngineStats:
     spec_proposed: int = 0
     spec_accepted: int = 0
     spec_pauses: int = 0
+    released_blocks: int = 0         # rolling-buffer KV blocks recycled
 
 
 @dataclasses.dataclass
@@ -1038,7 +1043,32 @@ class Engine:
         else:
             raise RuntimeError(f"unexpected batch kind {batch.kind!r}")
         self.stats.last_step_time = self.clock.monotonic() - t0
+        self._release_window_blocks()
         return pre + outputs
+
+    def _release_window_blocks(self) -> None:
+        """Sliding-window rolling buffer, after every dispatch (a spec
+        step's too): blocks whose every position fell behind the attention
+        window go back to the pool, so a windowed model's cache footprint
+        scales with the WINDOW, not the context.  Safe against work in
+        flight on the card: one stream runs the dispatches in order, so a
+        reuse of a released block comes after the steps that attended it."""
+        W = self.model_cfg.sliding_window
+        if not W or not self.config.window_release:
+            return
+        if not self.model_cfg.uniform_window:
+            # mixed-layer models (Gemma-2's alternation, Gemma-3's 5:1)
+            # keep full-attention layers that need every position's KV
+            return
+        bm = self.block_manager
+        for r in self.scheduler.running:
+            self.stats.released_blocks += bm.release_out_of_window(
+                r.request_id, max(0, r.num_tokens - W))
+        for r in self.scheduler.waiting:
+            # mid-chunk long prompts free their tail-window backlog too
+            if r.num_prefilled > 0:
+                self.stats.released_blocks += bm.release_out_of_window(
+                    r.request_id, max(0, r.num_prefilled - W))
 
     def _tensor(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(arr).to(self.device)
@@ -1088,6 +1118,11 @@ class Engine:
         """Flat cache slots of token indices [start, start + n); pass
         ``block_table`` when the caller already fetched it."""
         bs = self.cache_cfg.block_size
+        if n:
+            # a window-released entry reads as block 0, someone else's: the
+            # manager raises for a write there (released blocks lead the
+            # table, so the first token's block decides)
+            self.block_manager.slot_for_token(request_id, start)
         if block_table is None:
             block_table = self.block_manager.block_table(request_id)
         bt = np.asarray(block_table, np.int64)

@@ -203,20 +203,34 @@ def _out_rows(key, seqs: int) -> int:
     return key[1] * key[2] if key[0] == "verify" else key[1]
 
 
-def _width(cfg) -> int:
-    return cfg.hidden_size + cfg.q_size + 2 * cfg.kv_size + cfg.intermediate_size
+def _width(cfg, rows: int) -> int:
+    """Values a token row holds in a layer: the hidden, q/k/v and MLP
+    widths.  An MoE layer's MLP is one expert group at ``rows`` rows
+    (``transformer.moe_group``): its gate, up, activation and folded copy
+    (twice the group's width covers them at four bytes a value, since
+    they are in the model's dtype) and the router's float32 scores, sort,
+    selection and combine (four times the expert count); a model with
+    dense layers among its MoE ones counts the wider of the two."""
+    mlp = cfg.intermediate_size
+    if cfg.num_experts:
+        moe = (2 * transformer.moe_group(cfg, rows) * cfg.expert_intermediate_size
+               + 4 * cfg.num_experts)
+        mlp = max(moe, mlp if cfg.moe_first_k_dense else 0)
+    return cfg.hidden_size + cfg.q_size + 2 * cfg.kv_size + mlp
 
 
 def transient_bytes(cfg, key, seqs: int, draft_cfg=None) -> int:
     """An upper estimate of the memory one step of ``key`` holds beyond its
     output, from shapes: per token row, the layer's activations with
     float32 norm, qk-norm and RoPE temporaries (three copies of the
-    hidden, q/k/v and MLP widths, four bytes each); per output row, the
-    unembedding's bf16 and float32 logits.  For decode, per (B, V)
-    element: 64 bytes, eight int64 tensors of the keyed noise; in the full
-    mode 24 more, the sorted logits and their int64 indices held through
-    the noise (the sort itself, its keep mask and its softmax and cumsum
-    are freed before the noise is drawn); with logprobs 16 more, the
+    hidden, q/k/v and MLP widths, four bytes each; :func:`_width`, an MoE
+    layer's expert group and router included), a decode step's rows too;
+    per output row, the unembedding's bf16 and float32 logits.  For
+    decode, per (B, V) element: 64 bytes, eight int64 tensors of the
+    keyed noise; in the full mode 24 more, the sorted logits and their
+    int64 indices held through the noise (the sort itself, its keep mask
+    and its softmax and cumsum are freed before the noise is drawn); with
+    logprobs 16 more, the
     log-softmax and the top-k's buffers; with penalties 24 more, the
     penalized, biased and floored logits' temporaries; guided 16 more, the
     gathered mask words, their bit test and the masked logits.  A sampled
@@ -231,10 +245,11 @@ def transient_bytes(cfg, key, seqs: int, draft_cfg=None) -> int:
         extras = decode_extras(key)
         per = (64 + 24 * (key[2] == "full") + 16 * ("logprobs" in extras)
                + 24 * ("penalties" in extras) + 16 * ("guided" in extras))
-        return key[1] * V * per
+        return key[1] * V * per + key[1] * 3 * 4 * _width(cfg, key[1])
     if key[0] == "draft":
-        return _rows(key) * 3 * 4 * _width(draft_cfg or cfg) + key[1] * V * 6
-    base = _rows(key) * 3 * 4 * _width(cfg) + _out_rows(key, seqs) * V * 6
+        dc = draft_cfg or cfg
+        return _rows(key) * 3 * 4 * _width(dc, _rows(key)) + key[1] * V * 6
+    base = _rows(key) * 3 * 4 * _width(cfg, _rows(key)) + _out_rows(key, seqs) * V * 6
     if key[0] == "verify" and key[3] == "sampled":
         base += key[1] * V * 120
     return base

@@ -192,6 +192,10 @@ class ServerMetrics:
             "tpuserve_spec_adaptive_pauses",
             "Times the adaptive governor paused speculation for "
             "below-break-even acceptance (runtime/spec.py)")
+        self.released_blocks = counter(
+            "tpuserve_window_released_blocks",
+            "KV blocks recycled by the sliding-window rolling buffer "
+            "(runtime/block_manager.py release_out_of_window)")
         # the tiered KV cache (runtime/kv_tiers.py), as the JAX server's:
         # residency by tier ("hbm": freed-but-hashed blocks in the card's
         # cached pool; "host": pages in host DRAM under the byte budget;

@@ -643,7 +643,8 @@ class AsyncEngineRunner:
                               (m.flight_postmortems, stats.flight_postmortems),
                               (m.spec_proposed, stats.spec_proposed),
                               (m.spec_accepted, stats.spec_accepted),
-                              (m.spec_pauses, stats.spec_pauses)):
+                              (m.spec_pauses, stats.spec_pauses),
+                              (m.released_blocks, stats.released_blocks)):
             _advance_counter(metric, value)
         m.brownout_level.set(stats.brownout_level)
         ctl = getattr(self.engine, "_slo", None)
