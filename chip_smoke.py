@@ -55,7 +55,45 @@ non-zero:
              first step's logits and (windowed ones) the chunks' logits
              against the plain attention.  Before every engine phase:
              Qwen3-30B-A3B needs ~61 GB of the card.
-4. identity  Qwen3-0.6B at full width, 2 layers, float32, no TF32: engines
+4. breadth   the rest of the model breadth, weights made on the card: (a)
+             DeepSeek-V2-Lite (MLA: a one-head 576-wide latent cache;
+             64 experts top-6, 2 shared) in bf16 at full width and depth
+             on the default engine, which downgrades its attention to the
+             plain one (MLA's only path, as in the JAX engine): 8 prompts
+             of 128-1,024 x 64, the eager engine's tokens; a chunked
+             4,096-token prompt and its prefix hit; the absorbed decode
+             step against the naive form (a prefill over the prompt and
+             that token), each MoE layer's experts pinned to the naive
+             run's, on two seeds, within eight bf16 steps at the logits'
+             largest magnitude (``bf16_logit_gate``), free top-1 >= 0.75;
+             no kernel launched; decode tok/s and prefill ms beside their
+             bounds,
+             weight GB, blocks, the pool against its bound.  Then in
+             float32 (TF32 off) cut to 4 layers: graph and eager engines'
+             tokens equal, absorbed against naive within 1e-3 (the check
+             that catches a fault in the absorbed form; a step without
+             its rope part is read beside, as in bf16), an int8 latent
+             cache serving and its step within twice LOGIT_DIFF_MAX of a
+             float32 cache's (a bf16 cache's beside), the same step with
+             its scales swapped or its slices cut at 448 read above that
+             gate, with one shared scale read beside.  (b)
+             Qwen3-30B-A3B with int8 weights, made and quantized a layer
+             at a time: its bytes at most 0.52 of bf16's,
+             prefill logits against the dequantized weights (pinned
+             experts) within LOGIT_DIFF_MAX, an engine sized to the card,
+             8 x 64 tokens, launches against the steps, the pool under its
+             bound, decode tok/s beside the dequantizing bound, blocks
+             against what the same memory gives bf16.  (c) LoRA on
+             Qwen3-0.6B, two PEFT adapters the script writes (rank 16,
+             seven projections, one rsLoRA): in float32, merged ``a`` =
+             the stack's ``a`` rows; a batch of base, ``a`` and ``b`` rows
+             and a 6,000-token ``a`` prompt = each row alone, phase-split
+             and mixed; bf16 decode tok/s with the stack against none;
+             ``python -m tpuserve_torch.server --lora-modules`` with 8
+             streams of mixed ``model`` fields, each echoed, ``/v1/models``
+             and an adapter's embeddings refused.  The int8 and LoRA runs'
+             launches go to the kernel report.
+5. identity  Qwen3-0.6B at full width, 2 layers, float32, no TF32: engines
              on the CUDA kernels and on the plain attention, decoding
              synchronously, give the same greedy tokens on the main path
              (and so does the default engine, with captured decode graphs
@@ -64,7 +102,7 @@ non-zero:
              prompt, also against an engine with chunking off) and on the
              mixed path (8 streams decoding while 8 prompts of 200-1,500
              tokens arrive, also against the phase-split engine).
-5. main      the main path: a default engine (Qwen3-0.6B, 28 layers, bf16,
+6. main      the main path: a default engine (Qwen3-0.6B, 28 layers, bf16,
              random weights from the seed; every step a replayed CUDA
              graph, one a step kind and padded shape, decode windows
              pipelined) is warmed by ``Engine.warmup`` (its defaults),
@@ -81,7 +119,7 @@ non-zero:
              0.75).  Then an engine that runs every step eagerly and
              decodes synchronously serves the same requests: the same
              tokens; both engines' TTFT, step times and decode tok/s.
-6. graphs    the decode executables at full width, bf16, on 8 prefilled
+7. graphs    the decode executables at full width, bf16, on 8 prefilled
              sequences of the main path's lengths: one decode step replayed
              from its graph against the same step run eagerly (logits
              bit-equal, or within the main phase's logits gate with the
@@ -96,7 +134,7 @@ non-zero:
              captured on first use; launch counts still its steps'), and
              with pipelined single steps (``multi_step=1``), against the
              default engine's (identical).
-7. sampler   the full sampler on the main path's two engines (the default
+8. sampler   the full sampler on the main path's two engines (the default
              one, every decode dispatch a replayed graph; the eager one),
              prefix caching off for the phase: the main path's 8 prompts,
              64 tokens, in each sampling variant (greedy, temperature 0.8,
@@ -115,7 +153,7 @@ non-zero:
              executables and their capture seconds, and the KV blocks the
              cache sizing gives at the CLI's defaults with and without the
              sampler's decode executables (full mode and extras) bound.
-8. guided    guided decoding on the main path's two engines, prefix
+9. guided    guided decoding on the main path's two engines, prefix
              caching off: the 8 prompts, up to 64 tokens, in each spec
              family (json_object; a json_schema of a string, a boolean and
              an enum; one with an integer field, whose digit prefixes pass
@@ -135,7 +173,7 @@ non-zero:
              decode tok/s of each family and of 129-token guided streams
              beside greedy ones, and one profiled guided window beside a
              greedy one.
-9. chunked   the chunked path, full depth, bf16: 4 short streams, a
+10. chunked   the chunked path, full depth, bf16: 4 short streams, a
              6,000-token prompt served in chunks, then a prompt sharing its
              first 4,096 tokens, served from the prefix cache; each
              kernel's launches must be the layers times its steps (batched
@@ -144,12 +182,12 @@ non-zero:
              must agree with the plain path's.  The default engine, then
              the eager engine: the same tokens, both engines' TTFTs, step
              times and decode tok/s.
-10. mixed    the mixed path, full depth, bf16, ``mixed_batching=True``: 8
+11. mixed    the mixed path, full depth, bf16, ``mixed_batching=True``: 8
              streams decoding, then 8 prompts of 512-1,500 tokens; each
              kernel's launches must be the layers times its steps, the
              ragged kernel's the layers times the mixed steps.  The default
              engine, then the eager engine, as in the chunked phase.
-11. server   the top of the main path, full depth, bf16: the main phase's
+12. server   the top of the main path, full depth, bf16: the main phase's
              seed-0 weights written as an HF checkpoint (two bf16 shards,
              an index, no lm_head) and loaded back with
              ``load_hf_checkpoint``, bit-equal, with its GB/s; then
@@ -175,7 +213,7 @@ non-zero:
              as a subprocess: one streamed completion
              equal to (a)'s, then SIGTERM, which must end it with code 0
              within its drain timeout.
-12. tiers    the tiered KV cache at full depth, bf16, the main weights,
+13. tiers    the tiered KV cache at full depth, bf16, the main weights,
              greedy, ``TPUSERVE_STRICT_BLOCKS=1`` (the block and tier
              accounting checked every engine cycle): two requests over a
              3,072-token prefix (96 blocks) on a 384-block engine, its
@@ -197,7 +235,7 @@ non-zero:
              engine after the same churn), each demote's stall and GB/s,
              the restore's host time, the copies alone (GB/s each way),
              blocks demoted, spilled, dropped and restored, host bytes.
-13. slo      SLO classes and the brownout ladder, full width and depth,
+14. slo      SLO classes and the brownout ladder, full width and depth,
              greedy, ``TPUSERVE_STRICT_BLOCKS=1``: (a) a 256-token batch
              stream on a max_num_seqs=1 engine, an interactive request
              arriving once it holds 40 tokens: the interactive one finishes
@@ -218,7 +256,7 @@ non-zero:
              counter = the engine's; the kernels' launches = the layers
              times the steps; no block held.  Readings: TTFT p50/p99 and
              429s per class, preemptions, seconds at each level.
-14. salvage  crash-only recovery on the CLI's engine (``--step-watchdog-s
+15. salvage  crash-only recovery on the CLI's engine (``--step-watchdog-s
              2``; captured graphs, pipelined 32-token windows; prefix
              caching off so runs repeat), full width and depth, greedy,
              ``TPUSERVE_STRICT_BLOCKS=1``, in float32 and in bf16: (a) the
@@ -246,7 +284,7 @@ non-zero:
              directory of each dtype's own: one ``flight-poison-*.json``
              naming the poison request, a ``flight-watchdog_trip-*.json``,
              and ``tpuserve_flight_postmortems_total`` equal to the files.
-15. flight   the flight recorder and the host-phase profiler, on by
+16. flight   the flight recorder and the host-phase profiler, on by
              default in every engine above: (a) the main path's 8
              prompts, 64 greedy tokens, on two default engines (prefix
              caching off), the recorder on and ``flight=False``,
@@ -268,7 +306,7 @@ non-zero:
              chunk route), ``/debug/engine`` (phased steps, SLIs,
              ``cold_start_s``), ``/healthz``, ``/debug/engine/dump``
              (schema 2, ring markers), launches against the steps.
-16. spec     speculative decoding at full width and depth: (a) a verify
+17. spec     speculative decoding at full width and depth: (a) a verify
              window (B=8, K=5, contexts 128-2,048, 1-5 valid rows) after a
              kernel prefill, through the paged window kernel and through
              the plain attention on a copy of the same cache: the valid
@@ -295,7 +333,7 @@ non-zero:
              1,536-token prompts): acceptance, spec steps, governor pauses,
              the spec executables' capture seconds, and the pool's bytes
              against ``pool_bytes_bound`` of every executable made (gated).
-17. embed    the cache-less trunks at full width and depth: (a)
+18. embed    the cache-less trunks at full width and depth: (a)
              ``Engine.embed`` (mean and last pooling) and
              ``Engine.score_prompts`` of 8 inputs of 128-1,024 tokens on a
              kernel engine and a plain-attention engine: cosines at least
@@ -310,7 +348,7 @@ non-zero:
              (its decode bucket captured on first use amid the traffic):
              every request 200, no failed step, the streams' tokens equal
              a twin engine's without the traffic.
-18. profile  where the time goes, under torch.profiler, after every
+19. profile  where the time goes, under torch.profiler, after every
              counted run (a profiler run slows the launches that follow
              it): one prefill and one decode window of the main path, one
              steady pipelined window alone (the paged decode kernel must
@@ -335,13 +373,14 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
 
 import numpy as np
 
-PHASES = ("build", "kernels", "families", "identity", "main", "graphs", "sampler", "guided", "chunked",
+PHASES = ("build", "kernels", "families", "breadth", "identity", "main", "graphs", "sampler", "guided", "chunked",
           "mixed", "server", "tiers", "slo", "salvage", "flight", "spec", "embed", "profile")
 # Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA's data
 # sheet): bf16 tensor cores, float32 CUDA cores, HBM.
@@ -4878,23 +4917,25 @@ def family_cfg(name: str, dtype: str):
     return dataclasses.replace(get_model_config(name), dtype=dtype)
 
 
-def family_params(cfg):
-    """Full-width, full-depth random weights made on the card from the seed
+def family_params(cfg, seed: int = SEED):
+    """Full-width, full-depth random weights made on the card from ``seed``
     (``init_params_device``: init_params' tree, shapes and scales), with
     their bytes and seconds."""
     from tpuserve_torch.models.weights import init_params_device, param_nbytes
     box = []
-    init_s = timed_host(lambda: box.append(init_params_device(cfg, SEED, "cuda")))
+    init_s = timed_host(lambda: box.append(init_params_device(cfg, seed, "cuda")))
     return box[0], {"weights_gb": param_nbytes(box[0]) / 1e9, "init_s": init_s}
 
 
-def family_engine(cfg, params, plain: bool = False, blocks: int = FAMILY_BLOCKS, **kw):
+def family_engine(cfg, params, plain: bool = False, blocks: int = FAMILY_BLOCKS,
+                  cache: dict = FAMILY_CACHE, **kw):
     """The default engine (captured graphs, pipelined windows) or, with
-    ``plain``, the plain attention's eager engine, on one parameter tree."""
+    ``plain``, the plain attention's eager engine, on one parameter tree;
+    ``cache``: the CacheConfig fields (the model's dtype unless given)."""
     from tpuserve_torch.runtime import CacheConfig, Engine, EngineConfig
     if plain:
         kw = dict(kw, attn_impl="reference", cuda_graphs=False)
-    cache = CacheConfig(num_blocks=blocks, dtype=cfg.dtype, **FAMILY_CACHE)
+    cache = CacheConfig(num_blocks=blocks, **dict({"dtype": cfg.dtype}, **cache))
     return Engine(EngineConfig(model=cfg.name, seed=SEED, cache=cache, **kw), params=params,
                   model_cfg=cfg)
 
@@ -4980,6 +5021,59 @@ def family_bf16_gates(name: str, long_len: int = 0) -> dict:
     return out
 
 
+class Routing:
+    """Each MoE layer's expert choice (``transformer._top_k``'s indices)
+    recorded over one run, then replayed in later runs, each replayed pass's
+    rows mapped onto the recorded rows: a run whose inputs differ from the
+    recorded one's by rounding then sends every token where it went, and
+    its logits differ by the rounding alone (a bf16 router flips an expert
+    on a last-bit change, which moves a row by a whole expert's output).
+    ``moved`` counts the replayed rows whose own choice differed."""
+
+    def __init__(self):
+        self.picks, self.moved, self.rows = [], 0, 0
+
+    def record(self, run):
+        from tpuserve_torch.models import transformer
+        top_k = transformer._top_k
+
+        def rec(x, k):
+            out = top_k(x, k)
+            self.picks.append(out[1])
+            return out
+        transformer._top_k = rec
+        try:
+            return run()
+        finally:
+            transformer._top_k = top_k
+
+    def replay(self, run, *row_maps, real=None):
+        """``run`` with the recorded choices; ``row_maps``: one a replayed
+        pass over the recorded picks (None: the same rows), each the
+        recorded row of every row the pass routes; ``real``: the rows
+        ``moved`` counts (all when None)."""
+        from tpuserve_torch.models import transformer
+        top_k, n, calls = transformer._top_k, len(self.picks), [0]
+
+        def rep(x, k):
+            _, idx = top_k(x, k)
+            c = calls[0]
+            calls[0] += 1
+            rows = row_maps[c // n]
+            pinned = self.picks[c % n] if rows is None else self.picks[c % n][rows]
+            moved = (idx.sort(-1).values != pinned.sort(-1).values).any(-1)
+            if real is not None:
+                moved = moved & real
+            self.moved += int(moved.sum())
+            self.rows += idx.shape[0] if real is None else int(real.sum())
+            return x.gather(-1, pinned), pinned
+        transformer._top_k = rep
+        try:
+            return run()
+        finally:
+            transformer._top_k = top_k
+
+
 def moe_prefill_logits(params, cfg, ps) -> dict:
     """The MoE model's first step, kernels against the plain attention.
     A router picks each token's experts from bf16 logits, where a change
@@ -4987,43 +5081,22 @@ def moe_prefill_logits(params, cfg, ps) -> dict:
     output differs by a whole expert's: so the free-running logits are a
     reading (with their top-1 agreement gated), and the logit gate holds
     the kernels' run with every layer's expert choice pinned to the plain
-    run's (``transformer._top_k`` recorded, then replayed), which leaves
-    only the attention's rounding.  The real rows whose expert set moved
-    in the free run are counted."""
+    run's (``Routing``), which leaves only the attention's rounding.  The
+    real rows whose expert set moved in the free run are counted."""
     import torch
-    from tpuserve_torch.models import transformer
     free = family_prefill_logits(params, cfg, ps)
-    top_k, picks = transformer._top_k, []
     B, T = len(ps), max(len(p) for p in ps)
     real = torch.tensor([[t < len(p) for t in range(T)] for p in ps], device="cuda").flatten()
-    moved = [0]
-
-    def record(x, k):
-        out = top_k(x, k)
-        picks.append(out[1])
-        return out
-
-    def replay(x, k):
-        vals, idx = top_k(x, k)
-        pinned = picks[len(moved) - 1]
-        moved.append(0)
-        moved[0] += int(((idx.sort(-1).values != pinned.sort(-1).values).any(-1) & real)
-                        .sum())
-        return vals, pinned
-    try:
-        transformer._top_k = record
-        ref = prefill_last_logits(params, cfg, ps, "reference")
-        transformer._top_k = replay
-        kern = prefill_last_logits(params, cfg, ps, "cuda")
-    finally:
-        transformer._top_k = top_k
+    route = Routing()
+    ref = route.record(lambda: prefill_last_logits(params, cfg, ps, "reference"))
+    kern = route.replay(lambda: prefill_last_logits(params, cfg, ps, "cuda"), None, real=real)
     diff = (kern - ref).abs().max().item()
     return {"ok": bool(torch.isfinite(kern).all()) and free["top1_agreement"] >= 0.75
             and diff <= LOGIT_DIFF_MAX, "rows": B,
             "free_running": free, "pinned_routing_max_logit_diff": diff,
             "pinned_routing_top1_agreement": (kern.argmax(-1) == ref.argmax(-1))
             .float().mean().item(),
-            "expert_sets_moved": moved[0], "expert_sets": int(real.sum()) * len(picks)}
+            "expert_sets_moved": route.moved, "expert_sets": route.rows}
 
 
 def moe_routed_check(params, cfg) -> dict:
@@ -5219,6 +5292,806 @@ def phase_families() -> dict:
 
 
 # --------------------------------------------------------------------------
+# breadth phase: MLA (DeepSeek-V2-Lite), int8 weights, LoRA and multi-LoRA
+
+MLA_MODEL = "deepseek-ai/DeepSeek-V2-Lite"
+# 5,120 tokens a sequence: the 4,096-token prompt, its prefix hit, their tokens
+MLA_CACHE = dict(block_size=32, max_blocks_per_seq=160)
+MLA_BLOCKS, MLA_TOKENS = 512, 64
+MLA_LONG, MLA_HIT_KEEP, MLA_HIT_NEW, MLA_LONG_TOKENS = 4096, 4000, 200, 16
+MLA_FP32_LAYERS = 4               # the dense first layer and 3 MoE layers
+MLA_FP32_TOKENS = 32
+MLA_FP32_GATE = 1e-3
+# an int8 latent cache's decode step against the float32 cache's, float32
+# model: one absmax scale over the 512-wide latent slice puts its half step
+# at ~1/254 of the slice's largest value, ~4x a bf16 value's rounding (a
+# bf16 cache: 0.035 on the CPU at 3 layers, int8 0.129), so twice the bf16
+# logit gate.  On an H100 80GB HBM3 the sound cache reads 0.1409 and the
+# planted faults that this gate must catch 2.14 (slices cut at 448) and
+# 3.74 (scales swapped); one shared scale reads 0.1312, beside the sound
+# one, so only the CPU test's hot rope channel catches that fault
+INT8_CACHE_LOGIT_MAX = 2 * LOGIT_DIFF_MAX
+MLA_CAUGHT_FAULTS = ("swapped_scales", "split_448")
+# int8 Qwen3-30B-A3B's weight bytes against the families phase's bf16 ones
+INT8_WEIGHT_SHARE = 0.52
+LORA_MODEL, LORA_RANK, LORA_TOKENS, LORA_LONG = "Qwen/Qwen3-0.6B", 16, 32, 6000
+LORA_SCALE = 0.02                 # the adapters' factors' standard deviation
+LORA_BLOCKS, LORA_RATE_TOKENS, LORA_STREAM_TOKENS = 1024, 64, 32
+LORA_SHORT = [128, 384, 640, 1024]
+LORA_MODULES = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
+                "self_attn.o_proj", "mlp.gate_proj", "mlp.up_proj", "mlp.down_proj")
+
+
+def call(fn):
+    return fn()
+
+
+def mla_step(params, cfg, ps, nxt, cache_dtype: str, run_prefill=call, run_step=call):
+    """One prefill over each prompt of ``ps`` followed by its token ``nxt``
+    (the naive form: K and V decompressed) into a fresh cache of
+    ``cache_dtype`` that keeps the prompt's latents and drops the token's
+    (its slot is padding), then the absorbed decode step of that token over
+    that cache (latent space, the pages read as K and V).  Every latent the
+    step reads comes from the run that computed the naive logits, so the
+    two differ by the token's own path alone.  ``run_prefill`` /
+    ``run_step`` call their argument (``Routing.record`` / ``replay``
+    there).  Returns (the prefill's last-row logits, the step's), (B, V)
+    each."""
+    import torch
+    from tpuserve_torch.models import transformer
+    from tpuserve_torch.ops.attention import PAD_SLOT
+    from tpuserve_torch.runtime.kv_cache import CacheConfig, create_kv_cache
+    B, T, page = len(ps), max(len(p) for p in ps) + 1, 32
+    mb = T // page + 2
+    cache = create_kv_cache(cfg, CacheConfig(block_size=page, num_blocks=B * mb,
+                                             max_blocks_per_seq=mb, dtype=cache_dtype), "cuda")
+    tokens = torch.zeros(B, T, dtype=torch.int32, device="cuda")
+    slots = torch.full((B, T), PAD_SLOT, dtype=torch.int32, device="cuda")
+    for i, (p, t) in enumerate(zip(ps, nxt.tolist())):
+        tokens[i, :len(p) + 1] = torch.tensor(p + [t], dtype=torch.int32)
+        slots[i, :len(p)] = torch.arange(len(p), dtype=torch.int32) + i * mb * page
+    lens = torch.tensor([len(p) for p in ps], dtype=torch.int32, device="cuda")
+    naive = run_prefill(lambda: transformer.prefill(params, cfg, tokens, lens + 1, slots,
+                                                    cache)[0])
+    bt = torch.arange(B * mb, dtype=torch.int32, device="cuda").view(B, mb)
+    slot = lens + torch.arange(B, dtype=torch.int32, device="cuda") * mb * page
+    step = run_step(lambda: transformer.decode_step(params, cfg, nxt.to(torch.int32), lens,
+                                                    slot, bt, lens + 1, cache)[0])
+    return naive, step
+
+
+def mla_absorbed_vs_naive(params, cfg, ps, gate: float | None) -> dict:
+    """The absorbed decode step against the naive form on the token each
+    prompt's prefill picks (``mla_step``): free-running (top-1 agreement
+    gated at 0.75, the difference a reading), and with every MoE layer's
+    experts pinned to the naive run's choice for the token's row (the
+    logits within ``gate``, or None: ``bf16_logit_gate`` of the naive
+    logits).  The pinned step with a fault planted, its rope part dropped
+    from the absorbed query, is read beside."""
+    import torch
+    from tpuserve_torch.models import transformer
+    nxt = prefill_last_logits(params, cfg, ps, "reference").argmax(-1)
+    route = Routing()
+    naive, free = mla_step(params, cfg, ps, nxt, cfg.dtype, run_prefill=route.record)
+    T = max(len(p) for p in ps) + 1
+    rows = (torch.arange(len(ps), device=nxt.device) * T
+            + torch.tensor([len(p) for p in ps], device=nxt.device))
+    _, pinned = mla_step(params, cfg, ps, nxt, cfg.dtype,
+                         run_step=lambda fn: route.replay(fn, rows))
+    real = transformer._mla_absorb_q
+    transformer._mla_absorb_q = lambda q_nope, q_rope, lp, c: real(
+        q_nope, torch.zeros_like(q_rope), lp, c)
+    try:
+        _, bad = mla_step(params, cfg, ps, nxt, cfg.dtype,
+                          run_step=lambda fn: route.replay(fn, rows))
+    finally:
+        transformer._mla_absorb_q = real
+    max_abs = naive.abs().max().item()
+    gate = bf16_logit_gate(max_abs) if gate is None else gate
+    diff = (pinned - naive).abs().max().item()
+    top1 = (free.argmax(-1) == naive.argmax(-1)).float().mean().item()
+    finite = bool(torch.isfinite(free).all() and torch.isfinite(pinned).all())
+    return {"ok": finite and diff <= gate and top1 >= 0.75, "rows": len(ps), "gate": gate,
+            "pinned_routing_max_logit_diff": diff,
+            "pinned_routing_top1_agreement": (pinned.argmax(-1) == naive.argmax(-1))
+            .float().mean().item(),
+            "free_running_max_logit_diff": (free - naive).abs().max().item(),
+            "free_running_top1_agreement": top1,
+            "rope_dropped_fault_max_logit_diff": (bad - naive).abs().max().item(),
+            "max_abs_logit": max_abs,
+            "routed_rows_moved": route.moved, "routed_rows": route.rows}
+
+
+def planted_mla_write(fault: str):
+    """``write_mla_entry`` with one fault planted in its int8 branch, to show
+    what the int8 latent-cache gate catches at the phase's own shape:
+    ``shared_scale`` one absmax scale over the whole 576-wide vector (as if
+    the two slices shared it), ``swapped_scales`` each slice's scale stored
+    in the other's place, ``split_448`` the slices cut 64 channels early
+    (the pages then dequantize with the scales of the wrong slice)."""
+    import torch
+    from tpuserve_torch.ops import attention as attn_ops
+    real = attn_ops.write_mla_entry
+
+    def write(entry, latent, slots, latent_split=None, drop=None):
+        if "ks" not in entry:
+            return real(entry, latent, slots, latent_split, drop)
+        if fault == "split_448":
+            return real(entry, latent, slots, latent_split - 64, drop)
+        lat = latent[..., None, :]
+        if drop is None:
+            drop = attn_ops.pad_drop(slots, entry["k"].shape[0] * entry["k"].shape[1])
+        if fault == "shared_scale":
+            q, s = attn_ops.quantize_kv(lat)
+            scales = torch.cat([s, s], dim=-1)
+        else:
+            q1, s1 = attn_ops.quantize_kv(lat[..., :latent_split])
+            q2, s2 = attn_ops.quantize_kv(lat[..., latent_split:])
+            q, scales = torch.cat([q1, q2], dim=-1), torch.cat([s2, s1], dim=-1)
+        attn_ops.write_kv_cache(entry["k"], q, slots, drop)
+        attn_ops.write_kv_scales(entry["ks"], scales, slots, drop)
+        return entry
+    return real, write
+
+
+MLA_PLANTED_FAULTS = ("shared_scale", "swapped_scales", "split_448")
+
+
+def mla_int8_cache_logits(params, cfg, ps) -> dict:
+    """The absorbed decode step (``mla_step``) over an int8 latent cache
+    (two scales a token), a bf16 one and one in the model's float32, each
+    layer's experts pinned to the float32 run's: the int8 step within
+    INT8_CACHE_LOGIT_MAX of the float32 cache's, the exact one (the int8
+    pages dequantize into float32; a bf16 cache's P.V runs in bf16, so its
+    own rounding is reported beside, as is int8 against it), its top-1
+    agreement at least 0.75.  The same int8 step with each fault of
+    ``planted_mla_write``: those of MLA_CAUGHT_FAULTS read above the gate,
+    the shared scale is a reading."""
+    import torch
+    from tpuserve_torch.ops import attention as attn_ops
+    nxt = prefill_last_logits(params, cfg, ps, "reference").argmax(-1)
+    route = Routing()
+    out = {"float32": mla_step(params, cfg, ps, nxt, "float32", run_step=route.record)[1]}
+    for dt in ("bfloat16", "int8"):
+        out[dt] = mla_step(params, cfg, ps, nxt, dt,
+                           run_step=lambda fn: route.replay(fn, None))[1]
+    planted = {}
+    for fault in MLA_PLANTED_FAULTS:
+        real, write = planted_mla_write(fault)
+        attn_ops.write_mla_entry = write
+        try:
+            bad = mla_step(params, cfg, ps, nxt, "int8",
+                           run_step=lambda fn: route.replay(fn, None))[1]
+        finally:
+            attn_ops.write_mla_entry = real
+        planted[fault] = (bad - out["float32"]).abs().max().item()
+
+    def d(a, b):
+        return (out[a] - out[b]).abs().max().item()
+    diff = d("int8", "float32")
+    top1 = (out["int8"].argmax(-1) == out["float32"].argmax(-1)).float().mean().item()
+    caught = all(planted[f] > INT8_CACHE_LOGIT_MAX for f in MLA_CAUGHT_FAULTS)
+    return {"ok": bool(torch.isfinite(out["int8"]).all()) and diff <= INT8_CACHE_LOGIT_MAX
+            and top1 >= 0.75 and caught,
+            "int8_vs_float32_max_logit_diff": diff, "gate": INT8_CACHE_LOGIT_MAX,
+            "planted_faults_vs_float32_max_logit_diff": planted,
+            "bf16_vs_float32_max_logit_diff": d("bfloat16", "float32"),
+            "int8_vs_bf16_max_logit_diff": d("int8", "bfloat16"),
+            "int8_top1_agreement": top1,
+            "max_abs_logit": out["float32"].abs().max().item(), "routed_rows_moved": route.moved}
+
+
+def mla_serve_long(eng, V: int) -> dict:
+    """A 4,096-token prompt (its chunks), then one sharing its first 4,000
+    tokens and 200 new ones (the prefix hit: one chunk over the uncached
+    suffix), 16 greedy tokens each."""
+    from tpuserve_torch.runtime import SamplingParams
+    rng = np.random.default_rng(SEED + 71)
+    long = prompts(rng, [MLA_LONG], V)[0]
+    hit = long[:MLA_HIT_KEEP] + prompts(rng, [MLA_HIT_NEW], V)[0]
+    sp = SamplingParams(max_tokens=MLA_LONG_TOKENS, temperature=0.0, ignore_eos=True)
+    reset_launches()
+    out = {}
+    for name, p in (("long", long), ("hit", hit)):
+        rid = eng.add_request(prompt_token_ids=p, params=sp)
+        steps = drive(eng)
+        req = eng.requests.pop(rid)
+        chunks = [s for s in steps if s["kind"] == "chunk"]
+        out[name] = {"prompt": len(p), "chunk_steps": len(chunks),
+                     "chunk_rows": sum(s["computed"] for s in chunks),
+                     "finished": req.finished and len(req.output_token_ids) == MLA_LONG_TOKENS,
+                     "ttft_ms": ttft_ms(req)}
+    out["launches"] = read_launches()
+    out["ok"] = (out["long"]["finished"] and out["hit"]["finished"]
+                 and out["long"]["chunk_steps"] >= 2
+                 and 0 < out["hit"]["chunk_rows"] < out["hit"]["prompt"])
+    return out
+
+
+def mla_bounds(cfg, params, lens, tokens: int) -> dict:
+    """The least time the card could take for DeepSeek-V2-Lite's prefill of
+    ``lens`` (padded to a (B, max) batch: the naive form, every expert on
+    every row, dense dispatch) and for one decode token step of B streams
+    (the absorbed form: every weight but the embedding table read once,
+    and the streams' latent pages at the middle of their decode), from
+    shapes and the data-sheet peaks."""
+    from tpuserve_torch.models.weights import param_nbytes
+    H, L, Hd, V = cfg.num_heads, cfg.num_layers, cfg.hidden_size, cfg.vocab_size
+    r, nope, vd, lat = (cfg.mla_kv_lora_rank, cfg.mla_qk_nope_head_dim, cfg.mla_v_head_dim,
+                        cfg.mla_latent_dim)
+    E, I = cfg.num_experts, cfg.expert_intermediate_size
+    dense, moe = cfg.moe_first_k_dense, L - cfg.moe_first_k_dense
+    proj = 2 * Hd * cfg.q_size + 2 * Hd * lat + 2 * H * vd * Hd
+    mlp = (moe * (2 * Hd * E + E * 6 * Hd * I + 6 * Hd * I * cfg.moe_shared_experts)
+           + dense * 6 * Hd * cfg.intermediate_size)
+    B, T = len(lens), max(lens)
+    pre_row = L * (proj + 2 * r * H * (nope + vd)) + mlp
+    pairs = sum(n * (n + 1) // 2 for n in lens)
+    flops = B * T * pre_row + L * pairs * 2 * H * (cfg.head_dim + vd) + 2 * B * Hd * V
+    ctx = sum(n + tokens // 2 for n in lens)
+    dec_flops = B * (L * (proj + 2 * H * r * (nope + vd)) + mlp) + L * ctx * 4 * H * lat \
+        + 2 * B * Hd * V
+    w_bytes = param_nbytes(params) - param_nbytes(params["embed"])
+    kv_bytes = ctx * L * lat * 2
+    prefill_ms, prefill_by = bound(flops, w_bytes, "bfloat16")
+    step_ms, step_by = bound(dec_flops, w_bytes + kv_bytes, "bfloat16")
+    return {"prefill_tflop": flops / 1e12, "prefill_bound_ms": prefill_ms,
+            "prefill_bound_by": prefill_by, "decode_step_bound_ms": step_ms,
+            "decode_step_bound_by": step_by, "decode_bound_tok_per_s": B / step_ms * 1e3,
+            "decode_step_gb": (w_bytes + kv_bytes) / 1e9, "kv_bytes_per_token": L * lat * 2}
+
+
+def bf16_logit_gate(max_abs_logit: float) -> float:
+    """LOGIT_DIFF_MAX's rule at a model's own logit scale: eight bf16 steps
+    (twice four) at the largest |logit| (0.125 where |logits| reach 2-4,
+    Qwen3-0.6B's; 0.25 at 4-8, DeepSeek-V2-Lite's ~5, whose absorbed step
+    reads 0.1211 and 0.125 on two seeds, four steps of 0.03125)."""
+    return 8 * 2.0 ** (math.floor(math.log2(max_abs_logit)) - 7)
+
+
+def zero_launches(launches: dict) -> bool:
+    return all(v == 0 for v in launches.values())
+
+
+def breadth_mla_bf16() -> dict:
+    """DeepSeek-V2-Lite (27 layers, MLA with a 576-wide one-head latent
+    cache, 64 experts top-6 with 2 shared, the first layer dense), bf16,
+    full width and depth: the default engine (graphs, pipelined; the
+    engine downgrades its attention to the plain one, MLA's only path)
+    serves 8 prompts of the main lengths x 64 greedy tokens, the same
+    tokens as the eager engine's; a chunked 4,096-token prompt and its
+    prefix hit; the absorbed decode step against the naive form, on these
+    weights and prompts and on a second seed's; no kernel launched by any
+    of it.  In bf16 the absorbed step's gate bounds rounding over 27 layers
+    (``bf16_logit_gate``: 0.25 at |logits| ~5); the check that catches a
+    fault in the absorbed form is the float32 one of ``breadth_mla_fp32``
+    (1e-3)."""
+    from tpuserve_torch.runtime import Engine, EngineConfig
+    cfg = family_cfg(MLA_MODEL, "bfloat16")
+    params, made = family_params(cfg)
+    V = cfg.vocab_size
+    ps = prompts(np.random.default_rng(SEED + 70), MAIN_LENGTHS, V)
+    eng = family_engine(cfg, params, blocks=MLA_BLOCKS, cache=MLA_CACHE)
+    keys = [("prefill", 8, max(MAIN_LENGTHS)), ("decode", 8, "greedy")]
+    capture_s = timed_host(lambda: eng.graphs.warmup(keys))
+    run = family_serve(eng, ps, MLA_TOKENS)
+    long = mla_serve_long(eng, V)
+    made_keys = list(eng.graphs.executables)
+    pool = {"pool_bytes": eng.graphs.pool_bytes(), "pool_bytes_bound":
+            eng.graphs.pool_bound(made_keys),
+            "executables": ["/".join(map(str, k)) for k in made_keys], "capture_s": capture_s}
+    attn = {"requested": eng.config.attn_impl, "chosen": eng.attn_impl}
+    del eng
+    family_free()
+    eager = family_serve(family_engine(cfg, params, plain=True, blocks=MLA_BLOCKS,
+                                       cache=MLA_CACHE), ps, MLA_TOKENS)
+    family_free()
+    same = run.pop("tokens") == eager.pop("tokens")
+    reset_launches()
+    logits = mla_absorbed_vs_naive(params, cfg, ps, None)
+    bounds = mla_bounds(cfg, params, MAIN_LENGTHS, MLA_TOKENS)
+    del params
+    family_free()
+    params, _ = family_params(cfg, SEED + 1)
+    second = mla_absorbed_vs_naive(params, cfg, prompts(np.random.default_rng(SEED + 74),
+                                                        MAIN_LENGTHS, V), None)
+    direct = read_launches()
+    del params
+    family_free()
+    launches = {k: run["launches"][k] + eager["launches"][k] + long["launches"][k] + direct[k]
+                for k in KERNELS}
+    ok = (run["finished"] and eager["finished"] and same and long["ok"] and logits["ok"]
+          and second["ok"] and zero_launches(launches) and attn["chosen"] == "reference"
+          and pool["pool_bytes"] <= pool["pool_bytes_bound"])
+    for r in (run, eager):
+        r.pop("launches_ok")                     # held against the kernel count: 0 here
+    return {"ok": ok, "model": cfg.name, "dtype": cfg.dtype, "layers": cfg.num_layers,
+            "attn_impl": attn, "weights": made, "cache_blocks": MLA_BLOCKS,
+            "kv_bytes_per_token": bounds["kv_bytes_per_token"], **pool, "run": run,
+            "eager": eager, "same_tokens_as_eager": same, "long": long,
+            "prefill_ms": run["first_step_ms"], "decode_tok_per_s": run["decode_tok_per_s"],
+            "bounds": bounds, "absorbed_vs_naive": logits,
+            "absorbed_vs_naive_second_seed": second, "launches": launches}
+
+
+def breadth_mla_fp32() -> dict:
+    """DeepSeek-V2-Lite at full width in float32 (TF32 off), cut to its
+    dense first layer and 3 MoE layers (the 62.8 GB of full depth leave no
+    room): an engine asked for ``attn_impl="cuda"`` (downgraded) with
+    graphs and the eager one give the same greedy tokens; the absorbed
+    decode step against the naive form within 1e-3 (the trap for a fault
+    in the absorbed form); an int8-cache engine
+    serves, its decode step within INT8_CACHE_LOGIT_MAX of a float32
+    cache's (``mla_int8_cache_logits``)."""
+    cfg = dataclasses.replace(family_cfg(MLA_MODEL, "float32"), num_layers=MLA_FP32_LAYERS)
+    params, made = family_params(cfg)
+    ps = prompts(np.random.default_rng(SEED + 72), MAIN_LENGTHS, cfg.vocab_size)
+    eng = family_engine(cfg, params, blocks=MLA_BLOCKS, cache=MLA_CACHE, attn_impl="cuda")
+    chosen = eng.attn_impl
+    graph = family_serve(eng, ps, MLA_FP32_TOKENS)
+    del eng
+    eager = family_serve(family_engine(cfg, params, plain=True, blocks=MLA_BLOCKS,
+                                       cache=MLA_CACHE), ps, MLA_FP32_TOKENS)
+    family_free()
+    same = graph.pop("tokens") == eager.pop("tokens")
+    int8_eng = family_engine(cfg, params, blocks=MLA_BLOCKS,
+                             cache=dict(MLA_CACHE, dtype="int8"))
+    int8_run = family_serve(int8_eng, ps, MLA_FP32_TOKENS)
+    int8_run.pop("tokens")
+    del int8_eng
+    family_free()
+    reset_launches()
+    logits = mla_absorbed_vs_naive(params, cfg, ps, MLA_FP32_GATE)
+    int8_logits = mla_int8_cache_logits(params, cfg, ps)
+    direct = read_launches()
+    del params
+    family_free()
+    launches = {k: graph["launches"][k] + eager["launches"][k] + int8_run["launches"][k]
+                + direct[k] for k in KERNELS}
+    for r in (graph, eager, int8_run):
+        r.pop("launches_ok")
+    ok = (graph["finished"] and eager["finished"] and same and int8_run["finished"]
+          and logits["ok"] and int8_logits["ok"] and chosen == "reference"
+          and zero_launches(launches))
+    return {"ok": ok, "model": cfg.name, "dtype": "float32", "layers": cfg.num_layers,
+            "attn_impl": {"requested": "cuda", "chosen": chosen}, "weights": made,
+            "graph": graph, "eager": eager, "same_tokens": same, "int8_cache": int8_run,
+            "absorbed_vs_naive": logits, "int8_cache_logits": int8_logits,
+            "launches": launches}
+
+
+def dequantized(p: dict, dtype) -> dict:
+    """An int8 linear (or stacked experts) in ``dtype``, its scale applied;
+    any other leaf dict as it is."""
+    if "scale" not in p or "kernel" not in p:
+        return p
+    s = p["scale"][:, None, :] if p["kernel"].dim() == 3 else p["scale"][None, :]
+    out = {"kernel": p["kernel"].to(dtype) * s.to(dtype)}
+    if "bias" in p:
+        out["bias"] = p["bias"]
+    return out
+
+
+class DequantizedLayers:
+    """An int8 tree's layers dequantized into ``dtype`` one at a time as a
+    forward walks them (only the layer in use exists in the model's
+    dtype): the plain reference of an int8 model too large to hold twice."""
+
+    def __init__(self, layers, dtype):
+        self.layers, self.dtype = layers, dtype
+
+    def __len__(self):
+        return len(self.layers)
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self)))
+
+    def __getitem__(self, i):
+        return {name: ({k: dequantized(v, self.dtype) for k, v in p.items()}
+                       if name in ("experts", "shared") else dequantized(p, self.dtype))
+                for name, p in self.layers[i].items()}
+
+
+def int8_dequantized(params, dtype):
+    """The int8 tree's plain reference: the layers lazily dequantized, the
+    embedding and lm_head dequantized (a vocabulary each)."""
+    emb = params["embed"]
+    out = {"layers": DequantizedLayers(params["layers"], dtype),
+           "embed": {"weight": emb["weight"].to(dtype) * emb["scale"][:, None].to(dtype)},
+           "final_norm": params["final_norm"]}
+    if "lm_head" in params:
+        out["lm_head"] = dequantized(params["lm_head"], dtype)
+    return out
+
+
+def model_dtype_bytes(tree, itemsize: int = 2) -> int:
+    """The bytes an int8 tree's model would hold in a ``itemsize``-byte
+    dtype: every value but the quantization scales at that size (float32
+    leaves, the router bias, at four)."""
+    import torch
+    if isinstance(tree, dict):
+        quantized = "kernel" in tree or "weight" in tree
+        return sum(model_dtype_bytes(v, itemsize) for k, v in tree.items()
+                   if not (quantized and k == "scale"))
+    if isinstance(tree, list):
+        return sum(model_dtype_bytes(v, itemsize) for v in tree)
+    return tree.numel() * (4 if tree.dtype == torch.float32 else itemsize)
+
+
+def int8_bounds(cfg, params, lens, tokens: int) -> dict:
+    """The least time the card could take for one decode token step of the
+    int8 MoE model at B streams: reading each int8 weight once (what a fused
+    int8 product would move), and what the port moves, each int8 weight
+    read, written as a bf16 copy and that copy read (1 + 2 + 2 bytes) before
+    its product; with the streams' K/V at the middle of their decode."""
+    import torch
+    from tpuserve_torch.models.weights import param_nbytes
+    w_bytes = param_nbytes(params) - param_nbytes(params["embed"])
+
+    def int8_values(t):
+        if isinstance(t, dict):
+            return sum(int8_values(v) for v in t.values())
+        if isinstance(t, list):
+            return sum(int8_values(v) for v in t)
+        return t.numel() if t.dtype == torch.int8 else 0
+    values = int8_values({"layers": params["layers"], "lm_head": params.get("lm_head", {})})
+    L, B = cfg.num_layers, len(lens)
+    kv = sum(n + tokens // 2 for n in lens) * 2 * L * cfg.num_kv_heads * cfg.head_dim * 2
+    fused_ms, _ = bound(0, w_bytes + kv, "bfloat16")
+    impl_ms, _ = bound(0, w_bytes + 4 * values + kv, "bfloat16")
+    return {"int8_weight_values": values, "fused_step_bound_ms": fused_ms,
+            "fused_bound_tok_per_s": B / fused_ms * 1e3, "dequant_step_gb":
+            (w_bytes + 4 * values + kv) / 1e9, "dequant_step_bound_ms": impl_ms,
+            "dequant_bound_tok_per_s": B / impl_ms * 1e3}
+
+
+def breadth_int8(results) -> dict:
+    """Qwen3-30B-A3B with int8 weights and bf16 activations: the tree made
+    on the card and quantized one layer at a time (the peak allocation a
+    reading beside the bf16 model's bytes), its bytes within
+    INT8_WEIGHT_SHARE of the families phase's bf16 ones; the prefill logits
+    against the dequantized bf16 weights (lazily, a layer at a time), experts
+    pinned; an engine sized to the card (``num_blocks=0``), its prefill and
+    decode steps captured, the pool under its bound, 8 prompts x 64 tokens,
+    launches against the steps; decode tok/s beside the int8 bounds; the KV
+    blocks it sized beside what the same free memory would give bf16
+    weights."""
+    import torch
+    from tpuserve_torch.models.weights import (init_params_device, param_nbytes,
+                                               quantize_layer_int8, quantize_params_int8)
+    from tpuserve_torch.runtime import CacheConfig, Engine, EngineConfig
+    from tpuserve_torch.runtime.graphs import Sizing, pool_bytes_bound
+    from tpuserve_torch.runtime.kv_cache import num_blocks_for_budget
+    cfg = family_cfg(MOE_MODEL, "bfloat16")
+    torch.cuda.reset_peak_memory_stats()
+    box = []
+    init_s = timed_host(lambda: box.append(quantize_params_int8(init_params_device(
+        cfg, SEED, "cuda", layer_fn=quantize_layer_int8))))
+    params = box.pop()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    bf16_gb = model_dtype_bytes(params) / 1e9
+    w_gb = param_nbytes(params) / 1e9
+    families = results.get("families", {}).get("moe", {})
+    made = {"weights_gb": w_gb, "init_s": init_s, "peak_alloc_gb": peak_gb,
+            "bf16_weights_gb": bf16_gb, "share": w_gb / bf16_gb,
+            "families_bf16_weights_gb": families.get("weights", {}).get("weights_gb")}
+    ps = prompts(np.random.default_rng(SEED + 73), MAIN_LENGTHS, cfg.vocab_size)
+    route = Routing()
+    ref = route.record(lambda: prefill_last_logits(int8_dequantized(params, torch.bfloat16),
+                                                   cfg, ps, "cuda"))
+    q = route.replay(lambda: prefill_last_logits(params, cfg, ps, "cuda"), None)
+    free = prefill_last_logits(params, cfg, ps, "cuda")
+    diff = (q - ref).abs().max().item()
+    logits = {"ok": bool(torch.isfinite(q).all()) and diff <= LOGIT_DIFF_MAX
+              and (free.argmax(-1) == ref.argmax(-1)).float().mean().item() >= 0.75,
+              "pinned_routing_max_logit_diff": diff, "max_abs_logit": ref.abs().max().item(),
+              "free_running_max_logit_diff": (free - ref).abs().max().item(),
+              "free_running_top1_agreement": (free.argmax(-1) == ref.argmax(-1))
+              .float().mean().item(), "routed_rows_moved": route.moved}
+    del ref, q, free
+    family_free()
+    free0 = torch.cuda.mem_get_info()[0]
+    eng = Engine(EngineConfig(model=cfg.name, seed=SEED, quantization="int8",
+                              cache=CacheConfig(num_blocks=0, dtype=cfg.dtype, **FAMILY_CACHE)),
+                 params=params, model_cfg=cfg, device="cuda")
+    sched = eng.config.scheduler
+    max_len = min(eng.cache_cfg.max_model_len, cfg.max_position_embeddings)
+    all_keys = eng._step_keys(sched, max_len, guided=True)
+    addressable = sched.max_num_seqs * (eng.cache_cfg.max_blocks_per_seq + 1)
+    sz = eng.graphs.sizing
+    bf16_free = (free0 - int((bf16_gb - w_gb) * 1e9)
+                 - pool_bytes_bound(cfg, all_keys, eng._ragged_seqs, None,
+                                    Sizing(ctx=sz.ctx, blk=sz.blk)))
+    int8_free = free0 - pool_bytes_bound(cfg, all_keys, eng._ragged_seqs, None, sz)
+    blocks = {"engine_sized": eng.cache_cfg.num_blocks, "addressable_cap": addressable,
+              "int8_uncapped": num_blocks_for_budget(cfg, eng.cache_cfg, int8_free),
+              "bf16_uncapped_derived": num_blocks_for_budget(cfg, eng.cache_cfg, bf16_free)}
+    keys = [("prefill", 8, max(MAIN_LENGTHS)), ("decode", 8, "greedy")]
+    capture_s = timed_host(lambda: eng.graphs.warmup(keys))
+    run = family_serve(eng, ps, MOE_TOKENS)
+    run.pop("tokens")
+    made_keys = list(eng.graphs.executables)
+    pool = {"pool_bytes": eng.graphs.pool_bytes(),
+            "pool_bytes_bound": eng.graphs.pool_bound(made_keys), "capture_s": capture_s}
+    bounds = int8_bounds(cfg, params, MAIN_LENGTHS, MOE_TOKENS)
+    del eng, params
+    family_free()
+    ok = (made["share"] <= INT8_WEIGHT_SHARE and logits["ok"] and run["finished"]
+          and run["launches_ok"] and pool["pool_bytes"] <= pool["pool_bytes_bound"])
+    return {"ok": ok, "model": cfg.name, "weights": made, "prefill_logits": logits,
+            "kv_blocks": blocks, **pool, "run": run, "prefill_ms": run["first_step_ms"],
+            "decode_tok_per_s": run["decode_tok_per_s"],
+            "bf16_decode_tok_per_s": families.get("decode_tok_per_s"),
+            "bounds": bounds, "launches": run["launches"]}
+
+
+def write_safetensors(path, tensors: dict) -> None:
+    """float32 numpy ``tensors`` as one safetensors file (the format the
+    port reads without the ``safetensors`` package)."""
+    import struct
+    header, off = {}, 0
+    for name, a in tensors.items():
+        header[name] = {"dtype": "F32", "shape": list(a.shape),
+                        "data_offsets": [off, off + a.nbytes]}
+        off += a.nbytes
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)) + head)
+        for a in tensors.values():
+            f.write(np.ascontiguousarray(a, np.float32).tobytes())
+
+
+def write_adapter(out_dir, cfg, seed: int, alpha: float, rslora: bool) -> str:
+    """A synthetic PEFT adapter of rank LORA_RANK on all seven projections of
+    every layer, its factors drawn from ``seed`` (standard deviation
+    LORA_SCALE, a delta of about a tenth of a base projection's output):
+    ``adapter_config.json`` and ``adapter_model.safetensors``."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    h, r = cfg.hidden_size, LORA_RANK
+    width = {"self_attn.q_proj": (h, cfg.q_size), "self_attn.k_proj": (h, cfg.kv_size),
+             "self_attn.v_proj": (h, cfg.kv_size), "self_attn.o_proj": (cfg.q_size, h),
+             "mlp.gate_proj": (h, cfg.intermediate_size),
+             "mlp.up_proj": (h, cfg.intermediate_size),
+             "mlp.down_proj": (cfg.intermediate_size, h)}
+    tensors = {}
+    for li in range(cfg.num_layers):
+        for m in LORA_MODULES:
+            i, o = width[m]
+            pre = f"base_model.model.model.layers.{li}.{m}"
+            tensors[f"{pre}.lora_A.weight"] = LORA_SCALE * rng.standard_normal(
+                (r, i), dtype=np.float32)
+            tensors[f"{pre}.lora_B.weight"] = LORA_SCALE * rng.standard_normal(
+                (o, r), dtype=np.float32)
+    write_safetensors(out_dir / "adapter_model.safetensors", tensors)
+    (out_dir / "adapter_config.json").write_text(json.dumps(
+        {"r": r, "lora_alpha": alpha, "use_rslora": rslora, "peft_type": "LORA",
+         "target_modules": [m.rsplit(".", 1)[1] for m in LORA_MODULES]}))
+    return str(out_dir)
+
+
+def clone_tree(t):
+    if isinstance(t, dict):
+        return {k: clone_tree(v) for k, v in t.items()}
+    if isinstance(t, list):
+        return [clone_tree(v) for v in t]
+    return t.clone()
+
+
+def lora_engine(cfg, params, **kw):
+    """A default engine (graphs, pipelined) on its own copy of ``params``
+    (a merge or a stack changes the tree it is given), prefix caching off
+    so a repeated prompt recomputes."""
+    from tpuserve_torch.runtime import CacheConfig, Engine, EngineConfig, SchedulerConfig
+    sched = SchedulerConfig(**kw.pop("sched", {}))
+    cache = CacheConfig(num_blocks=LORA_BLOCKS, dtype=cfg.dtype, **FAMILY_CACHE)
+    return Engine(EngineConfig(model=cfg.name, seed=SEED, cache=cache, scheduler=sched,
+                               enable_prefix_caching=False, **kw),
+                  params=clone_tree(params), model_cfg=cfg, device="cuda")
+
+
+def adapter_serve(eng, reqs, tokens: int) -> dict:
+    """``reqs`` ((prompt, adapter or None) each) greedy, ``tokens`` each, the
+    kernels' launches counted from 0 and held against the steps."""
+    from tpuserve_torch.runtime import SamplingParams
+    sp = SamplingParams(max_tokens=tokens, temperature=0.0, ignore_eos=True)
+    reset_launches()
+    rids = [eng.add_request(prompt_token_ids=p, params=sp, **({"adapter": a} if a else {}))
+            for p, a in reqs]
+    steps = drive(eng)
+    launches = read_launches()
+    done = [eng.requests.pop(r) for r in rids]
+    dec = [s for s in steps if s["kind"] == "decode"]
+    dec_tokens = sum(sum(s["decode_tokens"].values()) for s in dec)
+    dec_s = sum(s["ms"] for s in dec) / 1e3
+    return {"tokens": [r.output_token_ids for r in done],
+            "finished": all(r.finished and len(r.output_token_ids) == tokens for r in done),
+            "launches": launches,
+            "launches_ok": launches == expected_launches(eng.model_cfg.num_layers, steps),
+            "decode_tok_per_s": dec_tokens / dec_s if dec_s else None,
+            "chunk_steps": sum(s["kind"] == "chunk" for s in steps),
+            "mixed_steps": sum(s["kind"] == "mixed" for s in steps)}
+
+
+def breadth_lora_fp32(adapters: dict) -> dict:
+    """Qwen3-0.6B in float32 (TF32 off), the two adapters: the engine with
+    ``a`` merged at load gives the stack engine's tokens on rows selecting
+    ``a``; one batch of base, ``a`` and ``b`` rows and a 6,000-token ``a``
+    prompt (chunked) gives each row's tokens run alone, on the phase-split
+    stack engine and on the mixed one (``mixed_batching=True``), whose
+    rows are held to the phase-split engine's alone runs."""
+    cfg = family_cfg(LORA_MODEL, "float32")
+    params, made = family_params(cfg)
+    rng = np.random.default_rng(SEED + 74)
+    short = prompts(rng, LORA_SHORT, cfg.vocab_size)
+    long = prompts(rng, [LORA_LONG], cfg.vocab_size)[0]
+    runs, launches = {}, {k: 0 for k in KERNELS}
+
+    def serve(name, eng, reqs):
+        res = adapter_serve(eng, reqs, LORA_TOKENS)
+        runs[name] = {k: v for k, v in res.items() if k != "tokens"}
+        for k in KERNELS:
+            launches[k] += res["launches"][k]
+        return res["tokens"]
+    merged = serve("merged_a", lora_engine(cfg, params, lora_dir=adapters["a"]),
+                   [(p, None) for p in short])
+    family_free()
+    stack = lora_engine(cfg, params, lora_modules=adapters)
+    stacked_a = serve("stack_a", stack, [(p, "a") for p in short])
+    batch = [(short[0], None), (short[1], "a"), (short[2], "b"), (short[3], "a"),
+             (long, "a")]
+    together = serve("stack_batch", stack, batch)
+    alone = [serve(f"stack_alone_{i}", stack, [req])[0] for i, req in enumerate(batch)]
+    del stack
+    family_free()
+    mixed = serve("mixed_batch", lora_engine(cfg, params, lora_modules=adapters,
+                                             sched=dict(mixed_batching=True)), batch)
+    del params
+    family_free()
+    gates = {"merged_equals_stack": merged == stacked_a, "batch_equals_alone": together == alone,
+             "mixed_equals_alone": mixed == alone,
+             "finished": all(r["finished"] for r in runs.values()),
+             "launches_against_steps": all(r["launches_ok"] for r in runs.values()),
+             "long_prompt_chunked": runs["stack_batch"]["chunk_steps"] > 0,
+             "mixed_steps": runs["mixed_batch"]["mixed_steps"] > 0}
+    return {"ok": all(gates.values()), **gates, "weights": made, "runs": runs,
+            "launches": launches}
+
+
+def breadth_lora_rates(adapters: dict) -> dict:
+    """Decode tok/s of bf16 Qwen3-0.6B on the default engine, 8 prompts of
+    the main lengths x 64 tokens: no stack against the two-adapter stack
+    with the rows alternating ``a`` and ``b`` (their prefill and decode
+    steps captured first)."""
+    cfg = family_cfg(LORA_MODEL, "bfloat16")
+    params, _ = family_params(cfg)
+    ps = prompts(np.random.default_rng(SEED + 75), MAIN_LENGTHS, cfg.vocab_size)
+    keys = [("prefill", 8, max(MAIN_LENGTHS)), ("decode", 8, "greedy")]
+    out, launches = {}, {k: 0 for k in KERNELS}
+    for name, kw, names in (("none", {}, [None] * 8),
+                            ("stack", {"lora_modules": adapters}, ["a", "b"] * 4)):
+        eng = lora_engine(cfg, params, **kw)
+        capture_s = timed_host(lambda: eng.graphs.warmup(keys))
+        res = adapter_serve(eng, list(zip(ps, names)), LORA_RATE_TOKENS)
+        res.pop("tokens")
+        out[name] = dict(res, capture_s=capture_s, pool_bytes=eng.graphs.pool_bytes(),
+                         pool_bytes_bound=eng.graphs.pool_bound(list(eng.graphs.executables)))
+        for k in KERNELS:
+            launches[k] += res["launches"][k]
+        del eng
+        family_free()
+    del params
+    family_free()
+    ok = all(r["finished"] and r["launches_ok"] and r["pool_bytes"] <= r["pool_bytes_bound"]
+             for r in out.values())
+    return {"ok": ok, **out, "stack_over_none": out["stack"]["decode_tok_per_s"]
+            / out["none"]["decode_tok_per_s"], "launches": launches}
+
+
+def breadth_lora_server(root, adapters: dict) -> dict:
+    """``python -m tpuserve_torch.server --lora-modules a=DIR b=DIR`` (bf16
+    Qwen3-0.6B from the seed, graphs captured on first use): 8 concurrent
+    streams whose ``model`` fields alternate the base, ``a`` and ``b``,
+    each complete and echoing the model it asked for; ``/v1/models``
+    listing both adapters with the base as parent; an embeddings request
+    naming an adapter refused with 400; then SIGTERM, which must end it
+    with code 0 within its drain timeout."""
+    import queue as queue_mod
+    import signal
+    import threading
+    drain_timeout = 25.0
+    cmd = [sys.executable, "-m", "tpuserve_torch.server", "--model", LORA_MODEL,
+           "--host", "127.0.0.1", "--port", "0", "--no-warmup", "--max-num-seqs", "8",
+           "--num-blocks", str(LORA_BLOCKS), "--drain-timeout", str(drain_timeout),
+           "--device", "cuda", "--lora-modules"] + [f"{k}={v}" for k, v in adapters.items()]
+    log = root / "build" / "breadth_lora_server.log"
+    out = {"ok": False, "log": str(log.relative_to(root))}
+    models = [LORA_MODEL, "a", "b"] * 3
+    ps = prompts(np.random.default_rng(SEED + 76), MAIN_LENGTHS,
+                 family_cfg(LORA_MODEL, "bfloat16").vocab_size)
+    with open(log, "w") as err:
+        proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE, stderr=err, text=True)
+        try:
+            lines: "queue_mod.Queue[str]" = queue_mod.Queue()
+            threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
+                             daemon=True).start()
+            line = lines.get(timeout=300)
+            if " listening on " not in line:
+                out["stdout"] = line
+                return out
+            url = "http://127.0.0.1:" + line.strip().rsplit(":", 1)[1]
+            _, listed = http(url + "/v1/models")
+            res = [None] * len(ps)
+
+            def one(i):
+                res[i] = sse(url + "/v1/completions", {
+                    "model": models[i], "prompt": ps[i], "max_tokens": LORA_STREAM_TOKENS,
+                    "temperature": 0, "ignore_eos": True, "return_token_ids": True})
+            threads = [threading.Thread(target=one, args=(i,)) for i in range(len(ps))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            emb_status, emb = http(url + "/v1/embeddings", {"model": "a", "input": "x"})
+            streams = [{"model": models[i], "status": r.get("status"), "done": r["done"],
+                        "tokens": len(stream_ids(r)),
+                        "echoed": sorted({c["model"] for c in r["chunks"]})}
+                       for i, r in enumerate(res)]
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=drain_timeout)
+            listing = [(m["id"], m.get("parent")) for m in listed["data"]]
+            out.update(
+                streams=streams, models=listing, embeddings_status=emb_status,
+                embeddings_error=(emb or {}).get("error", {}).get("message"), rc=rc,
+                ok=(rc == 0 and emb_status == 400
+                    and listing == [(LORA_MODEL, None), ("a", LORA_MODEL), ("b", LORA_MODEL)]
+                    and all(s["status"] == 200 and s["done"]
+                            and s["tokens"] == LORA_STREAM_TOKENS and s["echoed"] == [s["model"]]
+                            for s in streams)))
+        except (queue_mod.Empty, subprocess.TimeoutExpired) as e:
+            out["error"] = repr(e)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def phase_breadth(results) -> dict:
+    """The rest of the model breadth, at full width on the card: MLA with
+    DeepSeek-V2-Lite (bf16 at full depth; float32 at 4 layers), which the
+    engine serves on the plain attention, so no kernel launches; int8
+    Qwen3-30B-A3B on the flash prefill and paged decode kernels; LoRA
+    (merged and stacked) on Qwen3-0.6B on all four kernels.  The kernels'
+    launches of the int8 and LoRA runs are summed for the kernel report."""
+    import torch
+    from pathlib import Path
+    root = Path(__file__).resolve().parent
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        out["mla"] = breadth_mla_bf16()
+        out["mla_fp32"] = breadth_mla_fp32()
+        out["int8"] = breadth_int8(results)
+        cfg = family_cfg(LORA_MODEL, "float32")
+        adir = root / "build" / "breadth_adapters"
+        adapters = {"a": write_adapter(adir / "a", cfg, SEED + 80, alpha=32.0, rslora=False),
+                    "b": write_adapter(adir / "b", cfg, SEED + 81, alpha=16.0, rslora=True)}
+        out["lora"] = breadth_lora_fp32(adapters)
+        out["lora_rates"] = breadth_lora_rates(adapters)
+        out["lora_server"] = breadth_lora_server(root, adapters)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        family_free()
+    counted = ("int8", "lora", "lora_rates")
+    launches = {k: sum(out[p]["launches"][k] for p in counted) for k in KERNELS}
+    ok = all(v["ok"] for v in out.values()) and all(v > 0 for v in launches.values())
+    return {"ok": ok, **out, "launches": launches}
+
+
+# --------------------------------------------------------------------------
 
 KERNELS = {
     "flash_prefill": dict(source="tpuserve_torch/csrc/flash_prefill.cu",
@@ -5252,8 +6125,10 @@ def read_launches() -> dict:
 # phases that count them too
 LAUNCH_PHASE = {"flash_prefill": "main", "paged_decode": "main",
                 "paged_window": "chunked", "ragged_paged": "mixed"}
-PATH_PHASES = {"flash_prefill": ("families", "spec", "embed"),
-               "paged_decode": ("families",), "paged_window": ("families", "spec")}
+PATH_PHASES = {"flash_prefill": ("families", "breadth", "spec", "embed"),
+               "paged_decode": ("families", "breadth"),
+               "paged_window": ("families", "breadth", "spec"),
+               "ragged_paged": ("breadth",)}
 
 
 def main() -> int:
@@ -5280,6 +6155,8 @@ def main() -> int:
             res = phase_kernels()
         elif phase == "families":
             res = phase_families()
+        elif phase == "breadth":
+            res = phase_breadth(results)
         elif phase == "identity":
             res = phase_identity()
         elif phase == "main":

@@ -205,8 +205,9 @@ def test_parser_dtypes_and_duplicate_names(tmp_path):
 
 
 def test_moe_checkpoint_raises_the_a8_error(tmp_path):
-    """Qwen3-MoE checkpoints load (tests/test_torch_moe.py); an MoE
-    checkpoint with MLA attention (DeepSeek-V3) still raises naming A8."""
+    """An MoE checkpoint with MLA attention (DeepSeek-V3) loads since MLA
+    is ported: its logits are transformers' (tests/test_torch_mla.py also
+    holds it and DeepSeek-V2 against the JAX loader)."""
     torch.manual_seed(0)
     transformers.DeepseekV3ForCausalLM(transformers.DeepseekV3Config(
         **COMMON, num_key_value_heads=4, n_routed_experts=4, num_experts_per_tok=2,
@@ -216,8 +217,19 @@ def test_moe_checkpoint_raises_the_a8_error(tmp_path):
     )).save_pretrained(tmp_path, safe_serialization=True)
     cfg = config_from_hf_json("moe", json.loads((tmp_path / "config.json").read_text()))
     assert cfg.num_experts and cfg.is_mla
-    with pytest.raises(NotImplementedError, match="A8"):
-        load_hf_checkpoint(cfg, str(tmp_path), "cpu")
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    params = load_hf_checkpoint(cfg, str(tmp_path), "cpu")
+    model = transformers.DeepseekV3ForCausalLM.from_pretrained(tmp_path).to(torch.float32).eval()
+    tokens = np.random.default_rng(7).integers(2, cfg.vocab_size, (2, 12)).astype(np.int32)
+    slots = np.arange(24, dtype=np.int32).reshape(2, 12)
+    cache = create_kv_cache(cfg, CacheConfig(block_size=4, num_blocks=8, max_blocks_per_seq=4,
+                                             dtype="float32"), "cpu")
+    ours, _ = transformer.prefill(params, cfg, torch.from_numpy(tokens),
+                                  torch.full((2,), 12, dtype=torch.int32),
+                                  torch.from_numpy(slots), cache)
+    with torch.no_grad():
+        ref = model(torch.from_numpy(tokens).long()).logits[:, -1].numpy()
+    np.testing.assert_allclose(ours.numpy(), ref, atol=3e-4, rtol=3e-4)
 
 
 def test_load_or_init_random_inits_without_safetensors(tmp_path):

@@ -179,10 +179,19 @@ def test_block_manager_drains_to_zero(model):
     assert not eng.has_work() and not eng.scheduler.running
 
 
-@pytest.mark.parametrize("kw", [dict(quantization="int8"), dict(lora_dir="/x"),
-                                dict(lora_modules={"a": "/x"})])
+@pytest.mark.parametrize("kw", [dict(quantization="fp4"),
+                                dict(lora_modules={"a": "/x"}, speculative="spec"),
+                                dict(lora_dir="/nonexistent-adapter-dir")])
 def test_unported_engine_options_raise(model, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The A8 options are ported (tests/test_torch_int8.py and
+    test_torch_lora.py hold them against the JAX engine); what the JAX
+    engine refuses, the port refuses: an unknown quantization, multi-LoRA
+    beside speculative decoding, an adapter directory that is not there."""
+    from tpuserve_torch.runtime.spec import SpecConfig
+    if kw.get("speculative") == "spec":
+        kw = dict(kw, speculative=SpecConfig(num_draft_tokens=2))
+    with pytest.raises((ValueError, FileNotFoundError),
+                       match="quantization|speculative|adapter_config"):
         _port(model, **kw)
 
 

@@ -71,8 +71,16 @@ def test_init_params_equals_jax_init_bitwise(name):
 
 
 def test_unported_families_raise():
-    with pytest.raises(NotImplementedError, match="A8"):
-        weights.init_params(get_model_config("tiny-deepseek"), device="cpu")
+    """MLA is ported: tiny-deepseek's init (its latent, rope and q-lora
+    projections beside the DeepSeek MoE) equals the JAX init bit for bit
+    (tests/test_torch_mla.py holds the model against the JAX package)."""
+    cfg = get_model_config("tiny-deepseek")
+    ours = dict(_leaves(weights.init_params(cfg, seed=3, device="cpu")))
+    theirs = dict(_leaves(weights.params_from_numpy(
+        _numpy_tree(jax_weights.init_params(cfg, seed=3)), cfg, "cpu")))
+    assert ours.keys() == theirs.keys() and "/layers/0/kv_b_proj/kernel" in ours
+    for k in ours:
+        assert ours[k].dtype == theirs[k].dtype and torch.equal(ours[k], theirs[k]), k
 
 
 class _Pair:

@@ -189,12 +189,23 @@ def test_chunked_nan_seeded_cache_matches_pallas(window):
 
 
 def test_chunked_mla_scale_slices_raise():
-    q = torch.zeros(1, 2, 2, 16)
-    cache = torch.zeros(4, 4, 1, 16)
-    one = torch.ones(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="A8"):
-        attention.chunked_prefill_attention(q, cache, cache, one[:, None], one, one,
-                                            0.25, scale_slices=(8, 8))
+    """Per-slice int8 scales (MLA's latent and rope slices) are ported: a
+    one-head int8 latent cache read as K and V equals the JAX op's."""
+    rng = np.random.default_rng(0)
+    q = rng.standard_normal((2, 3, 2, 16)).astype(np.float32)
+    cache = rng.integers(-127, 128, (4, 4, 1, 16)).astype(np.int8)
+    scales = rng.uniform(0.01, 0.1, (4, 4, 2)).astype(np.float32)
+    bt = np.array([[0, 1], [2, 3]], np.int32)
+    ctx, chunk = np.array([2, 0], np.int32), np.array([3, 2], np.int32)
+    args = (q, cache, cache, bt, ctx, chunk)
+    out = attention.chunked_prefill_attention(*map(_t, args), 0.25, k_scale=_t(scales),
+                                              v_scale=_t(scales), scale_slices=(8, 8))
+    ref = jax_attn.chunked_prefill_attention(*map(jnp.asarray, args), 0.25,
+                                             k_scale=jnp.asarray(scales),
+                                             v_scale=jnp.asarray(scales), scale_slices=(8, 8))
+    for b in range(2):
+        np.testing.assert_allclose(out.numpy()[b, :chunk[b]], np.asarray(ref)[b, :chunk[b]],
+                                   atol=1e-5, rtol=1e-5)
 
 
 # ---- ragged mixed layout ---------------------------------------------------

@@ -1,12 +1,19 @@
 """Decoder-only transformer for the Qwen3/Qwen2/Llama/Mistral/Phi-3/OPT/
-Gemma families and Qwen3-MoE — the port of the serving entries of
+Gemma families, Qwen3-MoE and DeepSeek's multi-head latent attention (MLA)
+— the port of the serving entries of
 ``tpuserve/models/transformer.py`` (``prefill``, ``prefill_chunk``,
 ``decode_step``, ``decode_multi``, ``forward_ragged``), speculative
 decoding's verify pass (``decode_verify``, ``decode_verify_sampled``) and
 its stateless draft (``draft_propose``), and the cache-less trunks behind
 embeddings and prompt scoring (``embed_forward``, ``score_prompt``).
 
-Parameters are the plain tree of ``models/weights.py``.  The functions run
+Parameters are the plain tree of ``models/weights.py``, in the model's
+dtype or with int8 weights (``weights.quantize_params_int8``: an int8
+``kernel`` with a float32 per-output-channel ``scale``, stacked experts
+with (E, out) scales, the embedding with a scale a vocabulary row), and
+with a multi-LoRA stack (``weights.load_lora_stack``: a ``lora`` entry of
+stacked factors beside a targeted kernel) selected per row by ``ad`` (B,
+n) one-hot adapter weights, all-zero for the base model.  The functions run
 eagerly on the tensors' device.  Unlike the JAX functions, which return a
 new cache, they update ``kv_cache`` in place (no second copy of the cache
 is ever made) and return it for symmetry.
@@ -18,6 +25,10 @@ which launch the CUDA kernels on CUDA tensors and use the same plain
 versions on CPU tensors.  The verify pass runs the paged window kernel and
 the cache-less trunks the flash prefill kernel; the JAX engine keeps all
 of them on its plain attention, which the "reference" path reproduces.
+MLA runs the plain attention on every path whatever ``attn_impl`` says,
+by an explicit branch, as the JAX package runs it: its latent cache has
+one head 576 wide and its values are narrower than its keys, shapes no
+kernel takes.
 """
 
 from __future__ import annotations
@@ -28,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from tpuserve_torch.models.config import ModelConfig
+from tpuserve_torch.models.weights import param_dtype
 from tpuserve_torch.ops import attention as attn_ops
 from tpuserve_torch.ops import rope as rope_ops
 from tpuserve_torch.ops import sampling as sampling_ops
@@ -67,12 +79,43 @@ def _norm(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
     return layernorm(x, p["scale"], p["bias"], cfg.norm_eps)
 
 
-def _linear(x: torch.Tensor, p: dict) -> torch.Tensor:
-    y = x @ p["kernel"]
+def _linear(x: torch.Tensor, p: dict, ad: torch.Tensor | None = None) -> torch.Tensor:
+    if "scale" in p:
+        # int8 weight-only: the per-output-channel scale applies after the
+        # product, in x's dtype, as the JAX ``_linear``
+        y = (x @ p["kernel"].to(x.dtype)) * p["scale"].to(x.dtype)
+    else:
+        y = x @ p["kernel"]
+    if ad is not None and "lora" in p:
+        y = y + _lora_delta(x, p["lora"], ad)
     if "bias" in p:
         y = y + p["bias"].to(y.dtype)
     return y
 
+
+def _lora_delta(x: torch.Tensor, la: dict, ad: torch.Tensor) -> torch.Tensor:
+    """Per-row multi-LoRA contribution (``weights.load_lora_stack``'s
+    layout), the JAX ``_lora_delta``: ``ad`` (B, n) one-hot adapter weights
+    a row (all-zero: the base model) fold the stacked A (n, H, r) and B (n,
+    r, W) into per-row (H, r) / (r, W) factors, then the rank-r bottleneck
+    applies.  Dense over the adapters: mixed-adapter batches run in one
+    step with no gather.  x: (B, H) or (B, T, H)."""
+    A = la["A"].to(x.dtype)
+    Bm = la["B"].to(x.dtype)
+    adx = ad.to(x.dtype)
+    Ar = torch.einsum("bn,nhr->bhr", adx, A)
+    Br = torch.einsum("bn,nrw->brw", adx, Bm)
+    if x.dim() == 2:
+        return torch.einsum("bh,bhr,brw->bw", x, Ar, Br)
+    return torch.einsum("bth,bhr,brw->btw", x, Ar, Br)
+
+
+def adapter_rows(adapter: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """(rows, n) one-hot adapter weights from (rows,) int32 adapter
+    indices, -1 (all-zero) for the base model, made on the device (the
+    step executables stage indices, not the float one-hot)."""
+    idx = torch.arange(n, device=adapter.device)
+    return (adapter.long()[:, None] == idx[None, :]).to(dtype)
 
 def _act(x: torch.Tensor, name: str) -> torch.Tensor:
     if name == "silu":
@@ -84,15 +127,16 @@ def _act(x: torch.Tensor, name: str) -> torch.Tensor:
     raise ValueError(f"unknown activation {name}")
 
 
-def _mlp(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
+def _mlp(x: torch.Tensor, p: dict, cfg: ModelConfig,
+         ad: torch.Tensor | None = None) -> torch.Tensor:
     # branch on the PARAMS, as the JAX package: DeepSeek keeps its first
     # moe_first_k_dense layers dense inside an MoE model
     if "experts" in p:
         return _moe_mlp(x, p, cfg)
     if cfg.mlp_style == "gated":
-        gate = _act(_linear(x, p["gate_proj"]), cfg.act)
-        return _linear(gate * _linear(x, p["up_proj"]), p["down_proj"])
-    return _linear(_act(_linear(x, p["fc1"]), cfg.act), p["fc2"])
+        gate = _act(_linear(x, p["gate_proj"], ad), cfg.act)
+        return _linear(gate * _linear(x, p["up_proj"], ad), p["down_proj"], ad)
+    return _linear(_act(_linear(x, p["fc1"], ad), cfg.act), p["fc2"], ad)
 
 
 # An MoE layer runs its experts in groups whose gate, up and activation
@@ -108,6 +152,17 @@ def moe_group(cfg: ModelConfig, rows: int) -> int:
     E, width = cfg.num_experts, cfg.expert_intermediate_size
     return next((g for g in range(E, 0, -1)
                  if E % g == 0 and rows * g * width <= MOE_GROUP_VALUES), 1)
+
+
+def _expert_kernels(ep: dict, e0: int, g: int, dtype: torch.dtype) -> torch.Tensor:
+    """Experts ``e0 .. e0 + g`` of a stacked (E, n_in, n_out) projection in
+    ``dtype``: int8 kernels (``weights.quantize_params_int8``) dequantized
+    by their (E, n_out) scales, one group's copy at a time."""
+    w = ep["kernel"][e0:e0 + g]
+    if "scale" not in ep:
+        return w
+    # one kernel: int8 values times the scale promote to ``dtype``
+    return w * ep["scale"][e0:e0 + g, None, :].to(dtype)
 
 
 def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -133,7 +188,10 @@ def _moe_mlp(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
     in before the down projection (sum_e c_e (h_e W_e) = sum_e (c_e h_e)
     W_e), so a group of g experts is three products, the last one (T, g I)
     by (g I, H) into a float32 sum, and no (T, E, H) tensor exists; groups
-    of ``moe_group`` experts bound the (g, T, I) transients."""
+    of ``moe_group`` experts bound the (g, T, I) transients.  int8 experts
+    are dequantized a group at a time (:func:`_expert_kernels`), so the
+    scale applies before the products, where the JAX package scales their
+    outputs: the same values to rounding."""
     shape = x.shape
     xt = x.reshape(-1, shape[-1])                              # (T, H)
     T = xt.shape[0]
@@ -167,10 +225,10 @@ def _moe_mlp(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
     g = moe_group(cfg, T)
     y = torch.zeros((T, shape[-1]), dtype=torch.float32, device=xt.device)
     for e0 in range(0, E, g):
-        gate = torch.matmul(xt, ek["gate_proj"]["kernel"][e0:e0 + g])        # (g, T, I)
-        up = torch.matmul(xt, ek["up_proj"]["kernel"][e0:e0 + g])
+        gate = torch.matmul(xt, _expert_kernels(ek["gate_proj"], e0, g, xt.dtype))  # (g, T, I)
+        up = torch.matmul(xt, _expert_kernels(ek["up_proj"], e0, g, xt.dtype))
         act = _act(gate, cfg.act) * up * combine[:, e0:e0 + g].T[:, :, None]
-        down = ek["down_proj"]["kernel"][e0:e0 + g].reshape(g * width, -1)   # (g I, H)
+        down = _expert_kernels(ek["down_proj"], e0, g, xt.dtype).reshape(g * width, -1)
         y += act.transpose(0, 1).reshape(T, g * width) @ down
     y = y.to(xt.dtype)
     if "shared" in p:
@@ -179,28 +237,30 @@ def _moe_mlp(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
     return y.reshape(shape)
 
 
-def _attn_residual(out: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tensor:
-    att = _linear(out, lp["o_proj"])
+def _attn_residual(out: torch.Tensor, lp: dict, cfg: ModelConfig,
+                   ad: torch.Tensor | None = None) -> torch.Tensor:
+    att = _linear(out, lp["o_proj"], ad)
     if cfg.sandwich_norms:
         att = _norm(att, lp["post_attn_norm"], cfg)
     return att
 
 
-def _mlp_residual(h: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tensor:
-    m = _mlp(_norm(h, lp["mlp_norm"], cfg), lp, cfg)
+def _mlp_residual(h: torch.Tensor, lp: dict, cfg: ModelConfig,
+                  ad: torch.Tensor | None = None) -> torch.Tensor:
+    m = _mlp(_norm(h, lp["mlp_norm"], cfg), lp, cfg, ad)
     if cfg.sandwich_norms:
         m = _norm(m, lp["post_mlp_norm"], cfg)
     return m
 
 
 def _qkv(h: torch.Tensor, lp: dict, cfg: ModelConfig, positions: torch.Tensor,
-         layer_idx: int):
+         layer_idx: int, ad: torch.Tensor | None = None):
     """h: (..., H) -> q (..., Hq, D), k/v (..., Hkv, D) with qk-norm and
     RoPE (per-layer theta and linear scaling, as ``cfg.layer_rope``)."""
     lead = h.shape[:-1]
-    q = _linear(h, lp["q_proj"]).reshape(*lead, cfg.num_heads, cfg.head_dim)
-    k = _linear(h, lp["k_proj"]).reshape(*lead, cfg.num_kv_heads, cfg.head_dim)
-    v = _linear(h, lp["v_proj"]).reshape(*lead, cfg.num_kv_heads, cfg.head_dim)
+    q = _linear(h, lp["q_proj"], ad).reshape(*lead, cfg.num_heads, cfg.head_dim)
+    k = _linear(h, lp["k_proj"], ad).reshape(*lead, cfg.num_kv_heads, cfg.head_dim)
+    v = _linear(h, lp["v_proj"], ad).reshape(*lead, cfg.num_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = rmsnorm(q, lp["q_norm"]["scale"], cfg.norm_eps, cfg.norm_weight_offset)
         k = rmsnorm(k, lp["k_norm"]["scale"], cfg.norm_eps, cfg.norm_weight_offset)
@@ -217,9 +277,102 @@ def _qkv(h: torch.Tensor, lp: dict, cfg: ModelConfig, positions: torch.Tensor,
     return q, k, v
 
 
+# --------------------------------------------------------------------------
+# Multi-head latent attention (DeepSeek MLA), the JAX package's functions
+# --------------------------------------------------------------------------
+#
+# The cache holds ONE vector a token: the rmsnorm'd kv_lora_rank latent and
+# a single shared roped key (cfg.mla_latent_dim wide, one head).  Prefill and
+# the cache-less trunks decompress per-head K/V (the naive form); chunks,
+# the verify pass, decode and mixed steps run the ABSORBED form: W_UK folds
+# into the query and W_UV into the output, so attention runs in latent space
+# and the paged op reads the latent pages as both K and V.
+
+def _mla_proj(hn: torch.Tensor, lp: dict, cfg: ModelConfig, positions: torch.Tensor,
+              ad: torch.Tensor | None = None):
+    """q_nope (..., H, nope), roped q_rope (..., H, rope), and the
+    cache-ready latent (..., latent_dim) = rmsnorm(c_kv) ⊕ roped key."""
+    if "q_a_proj" in lp:
+        cq = rmsnorm(_linear(hn, lp["q_a_proj"], ad), lp["q_a_norm"]["scale"],
+                     cfg.norm_eps, cfg.norm_weight_offset)
+        q = _linear(cq, lp["q_b_proj"], ad)
+    else:
+        q = _linear(hn, lp["q_proj"], ad)
+    q = q.reshape(*hn.shape[:-1], cfg.num_heads, cfg.head_dim)
+    nope = cfg.mla_qk_nope_head_dim
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    ckv = _linear(hn, lp["kv_a_proj"], ad)
+    c = rmsnorm(ckv[..., :cfg.mla_kv_lora_rank], lp["kv_a_norm"]["scale"],
+                cfg.norm_eps, cfg.norm_weight_offset)
+    k_rope = ckv[..., cfg.mla_kv_lora_rank:]
+    cos, sin = rope_ops.rope_freqs(positions, cfg.mla_qk_rope_head_dim, cfg.rope_theta,
+                                   yarn_scaling=cfg.rope_yarn)
+    q_rope = rope_ops.apply_rope(q_rope, cos, sin)
+    k_rope = rope_ops.apply_rope(k_rope[..., None, :], cos, sin)[..., 0, :]
+    return q_nope, q_rope, torch.cat([c, k_rope], dim=-1)
+
+
+def _mla_kv_b(lp: dict, cfg: ModelConfig, dtype: torch.dtype) -> tuple:
+    """kv_b_proj split into W_UK (kv_lora, H, nope) and W_UV (kv_lora, H, v),
+    dequantized when the kernel is int8."""
+    p = lp["kv_b_proj"]
+    w = (p["kernel"] * p["scale"][None].to(dtype) if "scale" in p
+         else p["kernel"].to(dtype))
+    w = w.reshape(cfg.mla_kv_lora_rank, cfg.num_heads,
+                  cfg.mla_qk_nope_head_dim + cfg.mla_v_head_dim)
+    return w[..., :cfg.mla_qk_nope_head_dim], w[..., cfg.mla_qk_nope_head_dim:]
+
+
+def _mla_decompress(latent: torch.Tensor, lp: dict, cfg: ModelConfig, dtype: torch.dtype):
+    """Per-head K (..., H, head_dim) and V (..., H, v_dim) from latents
+    (..., T, latent_dim): the naive form of the full-sequence paths."""
+    w_uk, w_uv = _mla_kv_b(lp, cfg, dtype)
+    c = latent[..., :cfg.mla_kv_lora_rank]
+    k_nope = torch.einsum("...tc,chn->...thn", c, w_uk)
+    v = torch.einsum("...tc,chv->...thv", c, w_uv)
+    k_rope = latent[..., None, cfg.mla_kv_lora_rank:].expand(
+        *k_nope.shape[:-1], cfg.mla_qk_rope_head_dim)
+    return torch.cat([k_nope, k_rope], dim=-1), v
+
+
+def _mla_naive_qkv(hn: torch.Tensor, lp: dict, cfg: ModelConfig, positions: torch.Tensor,
+                   ad: torch.Tensor | None = None):
+    """The :func:`_qkv` of the cache-less MLA paths: the full q and the
+    decompressed per-head k, v (v ``mla_v_head_dim`` wide)."""
+    q_nope, q_rope, latent = _mla_proj(hn, lp, cfg, positions, ad)
+    k, v = _mla_decompress(latent, lp, cfg, q_nope.dtype)
+    return torch.cat([q_nope, q_rope], dim=-1), k, v
+
+
+def _mla_absorb_q(q_nope: torch.Tensor, q_rope: torch.Tensor, lp: dict,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """W_UK folded into the query (q_lat . c == q_nope . k_nope); the roped
+    dims ride alongside."""
+    w_uk, _ = _mla_kv_b(lp, cfg, q_nope.dtype)
+    q_lat = torch.einsum("...hn,chn->...hc", q_nope, w_uk)
+    return torch.cat([q_lat, q_rope], dim=-1)
+
+
+def _mla_unabsorb(out_lat: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Latent-space attention output -> per-head values through W_UV; only
+    the first kv_lora_rank columns are the value contraction, the rope
+    tail is dropped."""
+    _, w_uv = _mla_kv_b(lp, cfg, out_lat.dtype)
+    return torch.einsum("...hc,chv->...hv", out_lat[..., :cfg.mla_kv_lora_rank], w_uv)
+
+
+def _mla_slices(cfg: ModelConfig) -> tuple[int, int]:
+    """The latent cache's int8 scale slices: the latent, then the rope."""
+    return (cfg.mla_kv_lora_rank, cfg.mla_qk_rope_head_dim)
+
+
 def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
            positions: torch.Tensor) -> torch.Tensor:
-    h = params["embed"]["weight"][tokens.long()]
+    ids = tokens.long()
+    h = params["embed"]["weight"][ids]
+    if "scale" in params["embed"]:        # int8: a scale a vocabulary row
+        dtype = param_dtype(cfg)
+        h = h.to(dtype) * params["embed"]["scale"][ids][..., None].to(dtype)
     if cfg.embed_scale_by_sqrt_dim:
         h = h * torch.tensor(cfg.hidden_size ** 0.5, dtype=h.dtype)
     if cfg.pos == "learned":
@@ -231,7 +384,12 @@ def _unembed(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     if cfg.final_layernorm:
         h = _norm(h, params["final_norm"], cfg)
     if cfg.tie_word_embeddings:
-        logits = h @ params["embed"]["weight"].T
+        ew = params["embed"]
+        if "scale" in ew:                 # tied int8: a scale a logit column
+            # a float32 scale: the product promotes to float32, as in JAX
+            logits = (h @ ew["weight"].T.to(h.dtype)) * ew["scale"][None, :]
+        else:
+            logits = h @ ew["weight"].T
     else:
         logits = _linear(h, params["lm_head"])
     logits = logits.float()
@@ -244,10 +402,6 @@ def _unembed(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 def _check(cfg: ModelConfig, attn_impl: str) -> None:
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
-    if cfg.is_mla:
-        raise NotImplementedError(
-            f"{cfg.name}: the MLA family is not ported yet "
-            "(ROADMAP.md A8, model breadth)")
 
 
 def _num_slots(kv_cache: list) -> int:
@@ -261,11 +415,11 @@ def _num_slots(kv_cache: list) -> int:
 @torch.no_grad()
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             prompt_lens: torch.Tensor, slot_ids: torch.Tensor, kv_cache: list,
-            *, attn_impl: str = "reference"):
+            ad: torch.Tensor | None = None, *, attn_impl: str = "reference"):
     """tokens: (B, T) right-padded prompts; prompt_lens: (B,) int32;
     slot_ids: (B, T) flat cache slots (``PAD_SLOT`` for padding); kv_cache:
-    per-layer entries.  Returns (last-token logits (B, V) float32,
-    kv_cache)."""
+    per-layer entries; ad: (B, n) adapter weights with a LoRA stack.
+    Returns (last-token logits (B, V) float32, kv_cache)."""
     _check(cfg, attn_impl)
     B, T = tokens.shape
     positions = torch.arange(T, device=tokens.device)[None, :].expand(B, T)
@@ -275,7 +429,19 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     for li, lp in enumerate(params["layers"]):
         sw = cfg.layer_window(li)
         hn = _norm(h, lp["attn_norm"], cfg)
-        q, k, v = _qkv(hn, lp, cfg, positions, li)
+        if cfg.is_mla:
+            # cache the latent; attend naively (decompressed) over the fresh
+            # prompt K/V on the plain attention
+            q_nope, q_rope, latent = _mla_proj(hn, lp, cfg, positions, ad)
+            attn_ops.write_mla_entry(kv_cache[li], latent, slot_ids,
+                                     latent_split=cfg.mla_kv_lora_rank, drop=drop)
+            k, v = _mla_decompress(latent, lp, cfg, q_nope.dtype)
+            out = attn_ops.prefill_attention(torch.cat([q_nope, q_rope], dim=-1), k, v,
+                                             prompt_lens, scale)
+            h = h + _attn_residual(out.reshape(B, T, cfg.attn_out_size), lp, cfg, ad)
+            h = h + _mlp_residual(h, lp, cfg, ad)
+            continue
+        q, k, v = _qkv(hn, lp, cfg, positions, li, ad)
         # prefill attends over the FRESH k/v (full precision even when the
         # cache stores int8 — only cache reads see quantization)
         attn_ops.write_kv_entry(kv_cache[li], k, v, slot_ids, drop=drop)
@@ -287,8 +453,8 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             out = attn_ops.prefill_attention(
                 q, k, v, prompt_lens, scale, sliding_window=sw,
                 logit_softcap=cfg.attn_logit_softcapping)
-        h = h + _attn_residual(out.reshape(B, T, cfg.q_size), lp, cfg)
-        h = h + _mlp_residual(h, lp, cfg)
+        h = h + _attn_residual(out.reshape(B, T, cfg.q_size), lp, cfg, ad)
+        h = h + _mlp_residual(h, lp, cfg, ad)
     last = torch.clamp(prompt_lens.long() - 1, min=0)
     h_last = h[torch.arange(B, device=h.device), last]
     return _unembed(params, cfg, h_last), kv_cache
@@ -301,7 +467,8 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 def _chunk_trunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                  ctx_lens: torch.Tensor, chunk_lens: torch.Tensor,
                  slot_ids: torch.Tensor, block_tables: torch.Tensor,
-                 kv_cache: list, attn_impl: str) -> torch.Tensor:
+                 kv_cache: list, attn_impl: str,
+                 ad: torch.Tensor | None = None) -> torch.Tensor:
     """Layer loop for cache-relative windows: write the window's KV, then
     attend the cached context plus causally within the window.  Returns
     the final hidden states (B, C, H)."""
@@ -314,14 +481,26 @@ def _chunk_trunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
               else attn_ops.chunked_prefill_attention)
     for li, lp in enumerate(params["layers"]):
         hn = _norm(h, lp["attn_norm"], cfg)
-        q, k, v = _qkv(hn, lp, cfg, positions, li)
-        entry = attn_ops.write_kv_entry(kv_cache[li], k, v, slot_ids, drop=drop)
-        out = attend(q.contiguous(), entry["k"], entry["v"], block_tables,
-                     ctx_lens, chunk_lens, scale, k_scale=entry.get("ks"),
-                     v_scale=entry.get("vs"), sliding_window=cfg.layer_window(li),
-                     logit_softcap=cfg.attn_logit_softcapping)
-        h = h + _attn_residual(out.reshape(B, C, cfg.q_size), lp, cfg)
-        h = h + _mlp_residual(h, lp, cfg)
+        if cfg.is_mla:
+            # write the latent; attend ABSORBED against the latent pages
+            # (k == v == latent) on the plain attention
+            q_nope, q_rope, latent = _mla_proj(hn, lp, cfg, positions, ad)
+            entry = attn_ops.write_mla_entry(kv_cache[li], latent, slot_ids,
+                                             latent_split=cfg.mla_kv_lora_rank, drop=drop)
+            out = attn_ops.chunked_prefill_attention(
+                _mla_absorb_q(q_nope, q_rope, lp, cfg), entry["k"], entry["k"],
+                block_tables, ctx_lens, chunk_lens, scale, k_scale=entry.get("ks"),
+                v_scale=entry.get("ks"), scale_slices=_mla_slices(cfg))
+            out = _mla_unabsorb(out, lp, cfg)
+        else:
+            q, k, v = _qkv(hn, lp, cfg, positions, li, ad)
+            entry = attn_ops.write_kv_entry(kv_cache[li], k, v, slot_ids, drop=drop)
+            out = attend(q.contiguous(), entry["k"], entry["v"], block_tables,
+                         ctx_lens, chunk_lens, scale, k_scale=entry.get("ks"),
+                         v_scale=entry.get("vs"), sliding_window=cfg.layer_window(li),
+                         logit_softcap=cfg.attn_logit_softcapping)
+        h = h + _attn_residual(out.reshape(B, C, cfg.attn_out_size), lp, cfg, ad)
+        h = h + _mlp_residual(h, lp, cfg, ad)
     return h
 
 
@@ -329,17 +508,18 @@ def _chunk_trunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 def prefill_chunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                   ctx_lens: torch.Tensor, chunk_lens: torch.Tensor,
                   slot_ids: torch.Tensor, block_tables: torch.Tensor,
-                  kv_cache: list, *, attn_impl: str = "reference"):
+                  kv_cache: list, ad: torch.Tensor | None = None, *,
+                  attn_impl: str = "reference"):
     """One chunk of each prompt against the paged cache.  tokens: (B, C)
     right-padded chunk tokens; ctx_lens: (B,) int32 tokens already cached
     before the chunk; chunk_lens: (B,) int32 valid chunk tokens; slot_ids:
     (B, C) flat slots (``PAD_SLOT`` on padding); block_tables: (B,
-    max_blocks) int32.  Returns (logits (B, V) float32 at each sequence's
-    last valid chunk row — meaningful on a prompt's last chunk — and
-    kv_cache)."""
+    max_blocks) int32; ad: (B, n) adapter weights with a LoRA stack.
+    Returns (logits (B, V) float32 at each sequence's last valid chunk row
+    — meaningful on a prompt's last chunk — and kv_cache)."""
     _check(cfg, attn_impl)
     h = _chunk_trunk(params, cfg, tokens, ctx_lens, chunk_lens, slot_ids,
-                     block_tables, kv_cache, attn_impl)
+                     block_tables, kv_cache, attn_impl, ad)
     last = torch.clamp(chunk_lens.long() - 1, min=0)
     h_last = h[torch.arange(h.shape[0], device=h.device), last]
     return _unembed(params, cfg, h_last), kv_cache
@@ -425,15 +605,18 @@ def _cacheless_trunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     for li, lp in enumerate(params["layers"]):
         sw = cfg.layer_window(li)
         hn = _norm(h, lp["attn_norm"], cfg)
-        q, k, v = _qkv(hn, lp, cfg, positions, li)
-        if attn_impl == "cuda":
+        if cfg.is_mla:
+            q, k, v = _mla_naive_qkv(hn, lp, cfg, positions)
+        else:
+            q, k, v = _qkv(hn, lp, cfg, positions, li)
+        if attn_impl == "cuda" and not cfg.is_mla:
             out = flash_prefill_attention(
                 q.contiguous(), k.contiguous(), v.contiguous(), lens, scale,
                 sliding_window=sw, logit_softcap=cfg.attn_logit_softcapping)
         else:
             out = attn_ops.prefill_attention(q, k, v, lens, scale, sliding_window=sw,
                                              logit_softcap=cfg.attn_logit_softcapping)
-        h = h + _attn_residual(out.reshape(B, T, cfg.q_size), lp, cfg)
+        h = h + _attn_residual(out.reshape(B, T, cfg.attn_out_size), lp, cfg)
         h = h + _mlp_residual(h, lp, cfg)
     return h
 
@@ -552,7 +735,8 @@ def window_slot(block_tables: torch.Tensor, pos: torch.Tensor,
 def _decode_body(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                  positions: torch.Tensor, slot_ids: torch.Tensor,
                  block_tables: torch.Tensor, seq_lens: torch.Tensor,
-                 kv_cache: list, attn_impl: str) -> torch.Tensor:
+                 kv_cache: list, attn_impl: str,
+                 ad: torch.Tensor | None = None) -> torch.Tensor:
     """Single-token decode trunk: write each row's KV, then attend (so
     ``seq_lens`` includes the token).  Every row is written, padding rows
     dropped on the device (``attention.pad_drop``), so the trunk reads
@@ -566,14 +750,26 @@ def _decode_body(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
               else attn_ops.paged_decode_attention)
     for li, lp in enumerate(params["layers"]):
         hn = _norm(h, lp["attn_norm"], cfg)
-        q, k, v = _qkv(hn, lp, cfg, positions, li)             # (B, H*, D)
-        entry = attn_ops.write_kv_entry(kv_cache[li], k, v, slot_ids, drop=drop)
-        out = attend(q.contiguous(), entry["k"], entry["v"], block_tables,
-                     seq_lens, scale, k_scale=entry.get("ks"),
-                     v_scale=entry.get("vs"), sliding_window=cfg.layer_window(li),
-                     logit_softcap=cfg.attn_logit_softcapping)
-        h = h + _attn_residual(out.reshape(B, cfg.q_size), lp, cfg)
-        h = h + _mlp_residual(h, lp, cfg)
+        if cfg.is_mla:
+            # absorbed attention straight against the latent pages, on the
+            # plain attention: a cached token costs mla_latent_dim values
+            q_nope, q_rope, latent = _mla_proj(hn, lp, cfg, positions, ad)
+            entry = attn_ops.write_mla_entry(kv_cache[li], latent, slot_ids,
+                                             latent_split=cfg.mla_kv_lora_rank, drop=drop)
+            out = attn_ops.paged_decode_attention(
+                _mla_absorb_q(q_nope, q_rope, lp, cfg), entry["k"], entry["k"],
+                block_tables, seq_lens, scale, k_scale=entry.get("ks"),
+                v_scale=entry.get("ks"), scale_slices=_mla_slices(cfg))
+            out = _mla_unabsorb(out, lp, cfg)
+        else:
+            q, k, v = _qkv(hn, lp, cfg, positions, li, ad)     # (B, H*, D)
+            entry = attn_ops.write_kv_entry(kv_cache[li], k, v, slot_ids, drop=drop)
+            out = attend(q.contiguous(), entry["k"], entry["v"], block_tables,
+                         seq_lens, scale, k_scale=entry.get("ks"),
+                         v_scale=entry.get("vs"), sliding_window=cfg.layer_window(li),
+                         logit_softcap=cfg.attn_logit_softcapping)
+        h = h + _attn_residual(out.reshape(B, cfg.attn_out_size), lp, cfg, ad)
+        h = h + _mlp_residual(h, lp, cfg, ad)
     return _unembed(params, cfg, h)
 
 
@@ -581,12 +777,14 @@ def _decode_body(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                 positions: torch.Tensor, slot_ids: torch.Tensor,
                 block_tables: torch.Tensor, seq_lens: torch.Tensor,
-                kv_cache: list, *, attn_impl: str = "reference"):
+                kv_cache: list, ad: torch.Tensor | None = None, *,
+                attn_impl: str = "reference"):
     """One decode step.  tokens/positions/slot_ids/seq_lens: (B,) int32;
-    block_tables: (B, max_blocks) int32.  Returns (logits (B, V), kv_cache)."""
+    block_tables: (B, max_blocks) int32; ad: (B, n) adapter weights with a
+    LoRA stack.  Returns (logits (B, V), kv_cache)."""
     _check(cfg, attn_impl)
     logits = _decode_body(params, cfg, tokens, positions, slot_ids,
-                          block_tables, seq_lens, kv_cache, attn_impl)
+                          block_tables, seq_lens, kv_cache, attn_impl, ad)
     return logits, kv_cache
 
 
@@ -623,7 +821,8 @@ class DecodeState:
     rows, advanced in place by each sampled token; gmasks (N, ceil(V/32))
     int32 the grammar's packed allow bits a state, gclass (V,) int32 token
     -> class and gnext (N, C) int32 the class transitions
-    (``runtime/grammar/fsm.py``)."""
+    (``runtime/grammar/fsm.py``).  With a LoRA stack, ``ad`` (B, n) each
+    row's adapter weights (None without)."""
     tokens: torch.Tensor
     positions: torch.Tensor
     seq_lens: torch.Tensor
@@ -651,6 +850,7 @@ class DecodeState:
     gmasks: torch.Tensor | None = None
     gclass: torch.Tensor | None = None
     gnext: torch.Tensor | None = None
+    ad: torch.Tensor | None = None
 
 
 def window_extras(logits: torch.Tensor, s: torch.Tensor, state: DecodeState) -> torch.Tensor:
@@ -730,7 +930,8 @@ def decode_state_step(params: dict, cfg: ModelConfig, state: DecodeState,
     slot = window_slot(state.block_tables, state.positions, active,
                        kv_cache[0]["k"].shape[1])
     logits = _decode_body(params, cfg, state.tokens, state.positions, slot,
-                          state.block_tables, state.seq_lens, kv_cache, attn_impl)
+                          state.block_tables, state.seq_lens, kv_cache, attn_impl,
+                          state.ad)
     logits = window_extras(logits, state.col, state)
     if state.gstate is not None:
         logits = window_guided_mask(logits, state.gstate, state.gmasks)
@@ -773,6 +974,7 @@ def decode_multi(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                  gmasks: torch.Tensor | None = None,
                  gclass: torch.Tensor | None = None,
                  gnext: torch.Tensor | None = None,
+                 ad: torch.Tensor | None = None,
                  attn_impl: str = "reference"):
     """``steps`` fused decode+sample iterations: :func:`decode_state_step`
     run ``steps`` times over a state made from the arguments (the JAX
@@ -796,7 +998,8 @@ def decode_multi(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     FSM state (-1 unguided) with the grammar's ``gmasks`` (N, ceil(V/32))
     packed allow bits (int32 or uint32), ``gclass`` (V,) and ``gnext`` (N,
     C) int32; each iteration masks by the current state, then advances it
-    by the sampled token.  Cache slots for the whole window must be
+    by the sampled token.  ``ad``: (B, n) adapter weights with a LoRA
+    stack.  Cache slots for the whole window must be
     reserved.  Returns (tokens (B, steps) int32, kv_cache[, (chosen (B,
     steps), ids (B, steps, N), lps (B, steps, N))][, gstate (B,)]), the
     logprobs laid out as the JAX ``window_unpack_lp``, the final FSM
@@ -822,7 +1025,7 @@ def decode_multi(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         out=torch.zeros((B, steps), dtype=torch.int32, device=dev),
         col=torch.zeros((1,), dtype=torch.int32, device=dev),
         top_k=torch.zeros(B, dtype=torch.int32, device=dev) if top_k is None else i32(top_k),
-        top_p=f32(top_p, 1.0), min_p=f32(min_p, 0.0))
+        top_p=f32(top_p, 1.0), min_p=f32(min_p, 0.0), ad=ad)
     if counts is not None:
         zeros = lambda t: (torch.zeros((B, V), dtype=torch.float32, device=dev)  # noqa: E731
                            if t is None else t.to(device=dev, dtype=torch.float32).clone())
@@ -859,8 +1062,8 @@ def forward_ragged(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                    kv_lens: torch.Tensor, q_starts: torch.Tensor,
                    q_lens: torch.Tensor, meta: torch.Tensor,
                    blk_seq: torch.Tensor, last_rows: torch.Tensor,
-                   kv_cache: list, *, ragged_blk: int = 8,
-                   attn_impl: str = "reference"):
+                   kv_cache: list, ad: torch.Tensor | None = None, *,
+                   ragged_blk: int = 8, attn_impl: str = "reference"):
     """One mixed step over a flat stream of decode rows and prefill-chunk
     rows (the layout of ``ops/ragged_paged.py``).
 
@@ -871,8 +1074,9 @@ def forward_ragged(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     (T // ragged_blk,) describe the block layout; last_rows: (B,) the flat
     row of each sequence's last token, where its logits are taken.  Each
     row's KV is written first, then the row attends its own sequence's
-    keys at positions <= its own.  Returns (logits (B, V) float32,
-    kv_cache)."""
+    keys at positions <= its own.  ad: (T, n) each row's adapter weights
+    with a LoRA stack (padding rows all-zero).  Returns (logits (B, V)
+    float32, kv_cache)."""
     _check(cfg, attn_impl)
     T = tokens.shape[0]
     drop = attn_ops.pad_drop(slot_ids, _num_slots(kv_cache))
@@ -881,7 +1085,22 @@ def forward_ragged(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     row_lens = positions + 1
     for li, lp in enumerate(params["layers"]):
         hn = _norm(h, lp["attn_norm"], cfg)
-        q, k, v = _qkv(hn, lp, cfg, positions, li)             # (T, H*, D)
+        if cfg.is_mla:
+            # absorbed attention against the latent pages, as the chunk and
+            # decode trunks, on the plain attention
+            q_nope, q_rope, latent = _mla_proj(hn, lp, cfg, positions, ad)
+            entry = attn_ops.write_mla_entry(kv_cache[li], latent, slot_ids,
+                                             latent_split=cfg.mla_kv_lora_rank, drop=drop)
+            out = attn_ops.ragged_reference_attention(
+                _mla_absorb_q(q_nope, q_rope, lp, cfg), entry["k"], entry["k"],
+                block_tables, row_seq, row_lens, blk_seq, meta, ragged_blk, scale,
+                k_scale=entry.get("ks"), v_scale=entry.get("ks"),
+                scale_slices=_mla_slices(cfg))
+            out = _mla_unabsorb(out, lp, cfg)
+            h = h + _attn_residual(out.reshape(T, cfg.attn_out_size), lp, cfg, ad)
+            h = h + _mlp_residual(h, lp, cfg, ad)
+            continue
+        q, k, v = _qkv(hn, lp, cfg, positions, li, ad)         # (T, H*, D)
         entry = attn_ops.write_kv_entry(kv_cache[li], k, v, slot_ids, drop=drop)
         kw = dict(k_scale=entry.get("ks"), v_scale=entry.get("vs"),
                   sliding_window=cfg.layer_window(li),
@@ -894,6 +1113,6 @@ def forward_ragged(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             out = attn_ops.ragged_reference_attention(
                 q, entry["k"], entry["v"], block_tables, row_seq, row_lens,
                 blk_seq, meta, ragged_blk, scale, **kw)
-        h = h + _attn_residual(out.reshape(T, cfg.q_size), lp, cfg)
-        h = h + _mlp_residual(h, lp, cfg)
+        h = h + _attn_residual(out.reshape(T, cfg.q_size), lp, cfg, ad)
+        h = h + _mlp_residual(h, lp, cfg, ad)
     return _unembed(params, cfg, h[last_rows.long()]), kv_cache

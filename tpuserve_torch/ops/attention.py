@@ -51,10 +51,11 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       logit_softcap: float | None = None) -> torch.Tensor:
     """Causal self-attention over right-padded prompts.
 
-    q: (B, T, Hq, D); k, v: (B, T, Hkv, D); prompt_lens: (B,) valid lengths.
-    ``sliding_window``: row p attends keys in (p - W, p].  Returns
-    (B, T, Hq, D) in q.dtype; scores and softmax in float32.  Rows at or
-    past ``prompt_lens`` are unspecified.
+    q: (B, T, Hq, D); k: (B, T, Hkv, D); v: (B, T, Hkv, Dv), its width
+    contracted on its own (MLA's values are narrower than its keys);
+    prompt_lens: (B,) valid lengths.  ``sliding_window``: row p attends
+    keys in (p - W, p].  Returns (B, T, Hq, Dv) in q.dtype; scores and
+    softmax in float32.  Rows at or past ``prompt_lens`` are unspecified.
     """
     B, T, Hq, D = q.shape
     n_rep = Hq // k.shape[2]
@@ -97,65 +98,67 @@ def paged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                            k_scale: torch.Tensor | None = None,
                            v_scale: torch.Tensor | None = None,
                            sliding_window: int | None = None,
-                           logit_softcap: float | None = None) -> torch.Tensor:
+                           logit_softcap: float | None = None,
+                           scale_slices: tuple[int, ...] | None = None) -> torch.Tensor:
     """Single-token decode attention against a paged KV cache.
 
     q: (B, Hq, D); k_cache/v_cache: (num_blocks, block_size, Hkv, D);
     block_tables: (B, max_blocks) physical block ids; seq_lens: (B,) tokens
     in cache per sequence, including the one being decoded.
     ``k_scale``/``v_scale``: (num_blocks, block_size, Hkv) float32 scales
-    when the cache stores int8 (dequantized into q.dtype).
+    when the cache stores int8 (dequantized into q.dtype), or with
+    ``scale_slices`` (int8 MLA) (num_blocks, block_size, len(scale_slices))
+    scales of channel slices of those widths.
     ``sliding_window``: attend only the last W cached positions.
     Returns (B, Hq, D) in q.dtype.
     """
     B, Hq, D = q.shape
-    _, block_size, Hkv, _ = k_cache.shape
-    S = block_tables.shape[1] * block_size
-    bt = block_tables.long()
-    k = k_cache[bt].reshape(B, S, Hkv, D)
-    v = v_cache[bt].reshape(B, S, Hkv, D)
-    if k_scale is not None:
-        k = dequantize_kv(k, k_scale[bt].reshape(B, S, Hkv), q.dtype)
-        v = dequantize_kv(v, v_scale[bt].reshape(B, S, Hkv), q.dtype)
+    Hkv = k_cache.shape[2]
+    k, v = _gather_pages(k_cache, v_cache, block_tables, k_scale, v_scale, q.dtype,
+                         scale_slices)
+    S = k.shape[1]
     pos = torch.arange(S, device=q.device)[None, :]
     lens = seq_lens.to(q.device)[:, None]
     valid = pos < lens                                              # (B, S)
     if sliding_window is not None:
         valid = valid & (pos >= lens - sliding_window)
     v = torch.where(valid[:, :, None, None], v, torch.zeros_like(v))
-    n_rep = Hq // Hkv
-    k = repeat_kv(k, n_rep)
-    v = repeat_kv(v, n_rep)
-    scores = torch.einsum("bhd,bkhd->bhk", q.float(), k.float()) * scale
+    # grouped-query layout: each kv head's pages serve its G query heads
+    # without a repeated copy (MLA's one latent head serves all of them)
+    G = Hq // Hkv
+    qg = q.float().reshape(B, Hkv, G, D)
+    scores = torch.einsum("bhgd,bkhd->bhgk", qg, k.float()).reshape(B, Hq, S) * scale
     scores = _softcap(scores, logit_softcap)
     scores = torch.where(valid[:, None, :], scores,
                          torch.full_like(scores, NEG_INF))
-    probs = torch.softmax(scores, dim=-1)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype).reshape(B, Hkv, G, S)
     # a seq_len == 0 row has every V row zeroed, so it returns zeros
-    out = torch.einsum("bhk,bkhd->bhd", probs.to(v.dtype), v)
+    out = torch.einsum("bhgk,bkhd->bhgd", probs, v).reshape(B, Hq, D)
     return out.to(q.dtype)
 
 
-def _gather_pages(k_cache, v_cache, block_tables, k_scale, v_scale, dtype):
+def _gather_pages(k_cache, v_cache, block_tables, k_scale, v_scale, dtype,
+                  scale_slices=None):
     """Gather each row of ``block_tables``' pages: (N, S, Hkv, D) K and V,
-    int8 pages dequantized into ``dtype``."""
+    int8 pages dequantized into ``dtype``: by one scale a (token, kv head),
+    or with ``scale_slices`` by one scale a channel slice of those widths
+    (int8 MLA's latent and rope slices, :func:`expand_slice_scales`).  One
+    helper for every plain paged op, as the JAX ``_dequant_gathered``."""
     N = block_tables.shape[0]
     _, bs, Hkv, D = k_cache.shape
     S = block_tables.shape[1] * bs
     bt = block_tables.long()
     k = k_cache[bt].reshape(N, S, Hkv, D)
     v = v_cache[bt].reshape(N, S, Hkv, D)
-    if k_scale is not None:
-        k = dequantize_kv(k, k_scale[bt].reshape(N, S, Hkv), dtype)
-        v = dequantize_kv(v, v_scale[bt].reshape(N, S, Hkv), dtype)
-    return k, v
-
-
-def _no_slices(scale_slices) -> None:
+    if k_scale is None:
+        return k, v
     if scale_slices is not None:
-        raise NotImplementedError(
-            "per-slice int8 scales (MLA) are not ported yet (ROADMAP.md A8, "
-            "model breadth)")
+        n = len(scale_slices)
+        ksc = expand_slice_scales(k_scale[bt].reshape(N, S, n), scale_slices)
+        vsc = expand_slice_scales(v_scale[bt].reshape(N, S, n), scale_slices)
+        return (k.float() * ksc).to(dtype), (v.float() * vsc).to(dtype)
+    return (dequantize_kv(k, k_scale[bt].reshape(N, S, Hkv), dtype),
+            dequantize_kv(v, v_scale[bt].reshape(N, S, Hkv), dtype))
 
 
 def chunked_prefill_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -178,11 +181,11 @@ def chunked_prefill_attention(q: torch.Tensor, k_cache: torch.Tensor,
     (B, max_blocks); ctx_lens/chunk_lens: (B,).  Returns (B, C, Hq, D);
     rows past ``chunk_lens`` return zeros.
     """
-    _no_slices(scale_slices)
     B, C, Hq, D = q.shape
     Hkv = k_cache.shape[2]
     G = Hq // Hkv
-    k, v = _gather_pages(k_cache, v_cache, block_tables, k_scale, v_scale, q.dtype)
+    k, v = _gather_pages(k_cache, v_cache, block_tables, k_scale, v_scale, q.dtype,
+                         scale_slices)
     S = k.shape[1]
     ctx = ctx_lens.to(q.device).long()[:, None, None]            # (B, 1, 1)
     n = chunk_lens.to(q.device).long()[:, None, None]
@@ -236,7 +239,6 @@ def ragged_attention(q: torch.Tensor, k_cache: torch.Tensor,
     ``seg_size`` segments with an online softmax.  For a decode row this
     is :func:`paged_decode_attention`'s math, for a chunk row
     :func:`chunked_prefill_attention`'s.  Returns (T, Hq, D)."""
-    _no_slices(scale_slices)
     T, Hq, D = q.shape
     _, bs, Hkv, _ = k_cache.shape
     G = Hq // Hkv
@@ -249,7 +251,7 @@ def ragged_attention(q: torch.Tensor, k_cache: torch.Tensor,
     l = torch.zeros(T, Hq, dtype=torch.float32, device=q.device)
     for c0 in range(0, mb, pg):
         k, v = _gather_pages(k_cache, v_cache, row_block_tables[:, c0:c0 + pg],
-                             k_scale, v_scale, q.dtype)
+                             k_scale, v_scale, q.dtype, scale_slices)
         R = k.shape[1]
         j = c0 * bs + torch.arange(R, device=q.device)[None, :]   # (1, R)
         mask = j < lens
@@ -285,12 +287,11 @@ def ragged_blocked_attention(q: torch.Tensor, k_cache: torch.Tensor,
     each block's sequence's table row).  Same per-row semantics as
     :func:`ragged_attention`; rows of blocks with no single sequence are
     unspecified.  Returns (T, Hq, D)."""
-    _no_slices(scale_slices)
     T, Hq, D = q.shape
     Hkv = k_cache.shape[2]
     G = Hq // Hkv
     nblk = T // blk
-    k, v = _gather_pages(k_cache, v_cache, blk_bt, k_scale, v_scale, q.dtype)
+    k, v = _gather_pages(k_cache, v_cache, blk_bt, k_scale, v_scale, q.dtype, scale_slices)
     S = k.shape[1]
     lens = row_lens.to(q.device).long().reshape(nblk, blk)
     j = torch.arange(S, device=q.device)
@@ -319,7 +320,8 @@ def ragged_reference_attention(q: torch.Tensor, k_cache: torch.Tensor,
                                k_scale: torch.Tensor | None = None,
                                v_scale: torch.Tensor | None = None,
                                sliding_window: int | None = None,
-                               logit_softcap: float | None = None) -> torch.Tensor:
+                               logit_softcap: float | None = None,
+                               scale_slices: tuple[int, ...] | None = None) -> torch.Tensor:
     """One mixed layer's plain ragged attention, as the JAX package's
     ``_ragged_reference_attn``: prefill blocks take the block-gather path,
     and the first ``meta[0]`` rows (decode rows, row r = sequence r) are
@@ -327,7 +329,7 @@ def ragged_reference_attention(q: torch.Tensor, k_cache: torch.Tensor,
     math.  row_seq/row_lens: (T,) each row's sequence and position + 1."""
     T = q.shape[0]
     kw = dict(k_scale=k_scale, v_scale=v_scale, sliding_window=sliding_window,
-              logit_softcap=logit_softcap)
+              logit_softcap=logit_softcap, scale_slices=scale_slices)
     out = ragged_blocked_attention(
         q, k_cache, v_cache, block_tables[blk_seq.clamp(min=0).long()],
         row_lens, blk, scale, **kw)
@@ -466,3 +468,44 @@ def write_kv_entry(entry: dict, k: torch.Tensor, v: torch.Tensor,
         write_kv_cache(entry["k"], k, slots, drop)
         write_kv_cache(entry["v"], v, slots, drop)
     return entry
+
+
+def write_mla_entry(entry: dict, latent: torch.Tensor, slots: torch.Tensor,
+                    latent_split: int | None = None,
+                    drop: PadDrop | None = None) -> dict:
+    """Write MLA latent vectors into a k-only cache entry, in place, and
+    return the entry: MLA (DeepSeek) caches ONE (latent ⊕ roped-key) vector
+    a token as a single kv head and no "v" pages; its decode and chunk
+    paths read the "k" pages as both K and V.  latent: (..., D) with no
+    head axis.
+
+    An int8 entry ("ks") quantizes on write with TWO absmax scales a
+    token, one for the rmsnorm'd latent slice (``:latent_split``) and one
+    for the roped-key slice (``latent_split:``): their ranges are
+    unrelated, so one shared scale would let a large rope channel crush
+    the latent's precision.  The (num_blocks, block_size, 2) scales expand
+    back to channels through ``scale_slices`` (:func:`expand_slice_scales`).
+    ``drop`` as :func:`write_kv_cache`."""
+    lat = latent[..., None, :]                     # the one-head axis
+    if drop is None:
+        drop = pad_drop(slots, entry["k"].shape[0] * entry["k"].shape[1])
+    if "ks" in entry:
+        if latent_split is None:
+            raise ValueError("int8 MLA cache requires latent_split (the "
+                             "kv_lora_rank) for per-slice scales")
+        q1, s1 = quantize_kv(lat[..., :latent_split])
+        q2, s2 = quantize_kv(lat[..., latent_split:])
+        write_kv_cache(entry["k"], torch.cat([q1, q2], dim=-1), slots, drop)
+        write_kv_scales(entry["ks"], torch.cat([s1, s2], dim=-1), slots, drop)
+    else:
+        write_kv_cache(entry["k"], lat, slots, drop)
+    return entry
+
+
+def expand_slice_scales(scales: torch.Tensor,
+                        scale_slices: tuple[int, ...]) -> torch.Tensor:
+    """(..., n_slices) per-slice scales -> (..., 1, D) channel scales,
+    D = sum(scale_slices), broadcastable against (..., Hkv=1, D) pages."""
+    per_chan = torch.cat([scales[..., i:i + 1].expand(*scales.shape[:-1], w)
+                          for i, w in enumerate(scale_slices)], dim=-1)
+    return per_chan[..., None, :]

@@ -73,6 +73,15 @@ flash prefill kernel on the card) eagerly, outside the step loop, batched
 under the JAX engine's attention-score budget; a server calls them on its
 loop thread between steps (``server/runner.py``).
 
+Model breadth, as the JAX engine's: an MLA model (DeepSeek) runs its
+latent cache on the plain attention (``attn_impl`` "cuda" is downgraded to
+"reference", logged, before anything launches); ``quantization="int8"``
+quantizes the weights a layer at a time as they are made or loaded;
+``lora_dir`` merges one PEFT adapter into the weights before that;
+``lora_modules`` stacks several, selected per request (``add_request(...,
+adapter=name)``), after quantization, with prefix caching (and so the
+tiers) off, since cached KV is adapter-specific.
+
 The engine runs on ``device="cuda"`` unless the caller passes
 ``device="cpu"`` (the tests do); it never falls back to the CPU on its own.
 Options of the JAX engine that this slice does not carry raise
@@ -97,7 +106,9 @@ import torch
 from tpuserve_torch.models import transformer
 from tpuserve_torch.models.config import ModelConfig, get_model_config
 from tpuserve_torch.models.tokenizer import IncrementalDetokenizer, load_tokenizer
-from tpuserve_torch.models.weights import load_or_init, param_nbytes
+from tpuserve_torch.models.weights import (
+    apply_lora, is_quantized, load_lora_stack, load_or_init, param_nbytes,
+    quantize_layer_int8, quantize_params_int8)
 from tpuserve_torch.ops import sampling as sampling_ops
 from tpuserve_torch.ops.ragged_paged import ragged_block, ragged_layout
 from tpuserve_torch.runtime import grammar
@@ -105,7 +116,7 @@ from tpuserve_torch.runtime import spec as spec_mod
 from tpuserve_torch.runtime.block_manager import BlockManager
 from tpuserve_torch.runtime.graphs import (
     DECODE_EXTRAS, MAX_LOGPROBS, VERIFY_MODES, DecodeExecutable, StepGraphs,
-    pool_bytes_bound)
+    pool_bytes_bound, sizing_of)
 from tpuserve_torch.runtime.guided import (
     JsonStateMachine, SchemaJsonStateMachine, compile_schema)
 from tpuserve_torch.runtime.guided_choice import ChoiceStateMachine, compile_choices
@@ -127,12 +138,6 @@ from tpuserve_torch.utils import env_flag, next_power_of_2
 
 logger = logging.getLogger("tpuserve_torch.engine")
 
-# the engine's own options that select a path this slice does not port
-_UNPORTED_CONFIG = (
-    ("quantization", "int8 weights (ROADMAP.md A8, model breadth)"),
-    ("lora_dir", "LoRA (ROADMAP.md A8, model breadth)"),
-    ("lora_modules", "multi-LoRA (ROADMAP.md A8, model breadth)"),
-)
 # blocks a round of the tier page copies moves (PageStaging's rows)
 PAGE_STAGING_BLOCKS = 32
 # host-tier records warmup pins ahead (up to the tier's budget); past it
@@ -226,9 +231,12 @@ class EngineConfig:
     # Speculative decoding (runtime/spec.py): n-gram or draft-model drafts
     # verified in one pass; None = off
     speculative: Optional[SpecConfig] = None
-    # JAX engine options not ported yet: any value but None raises
+    # weight-only quantization: None or "int8" (weights.quantize_params_int8)
     quantization: Optional[str] = None
+    # a PEFT LoRA adapter directory merged into the weights at load
     lora_dir: Optional[str] = None
+    # multi-LoRA: adapter name -> PEFT directory, stacked and selected per
+    # request by add_request(adapter=name)
     lora_modules: Optional[dict] = None
 
     def resolve_attn_impl(self, device: torch.device) -> str:
@@ -375,22 +383,61 @@ class Engine:
         if mesh is not None:
             raise NotImplementedError(
                 "tp/pp meshes are not ported yet (ROADMAP.md A10, multi-GPU)")
-        for field, item in _UNPORTED_CONFIG:
-            if getattr(config, field) is not None:
-                raise NotImplementedError(f"EngineConfig.{field}: {item}")
+        if config.quantization not in (None, "int8"):
+            # refused before the (possibly many-GB) weights are made
+            raise ValueError(f"unknown quantization {config.quantization!r};"
+                             " supported: int8")
+        if config.lora_modules and config.speculative:
+            raise ValueError("multi-LoRA cannot combine with speculative "
+                             "decoding (the verify trunk doesn't thread "
+                             "adapter weights)")
         self.clock = config.clock or MONOTONIC
         self.model_cfg = model_cfg or get_model_config(config.model)
         self.attn_impl = config.resolve_attn_impl(self.device)
         if self.attn_impl not in transformer.ATTN_IMPLS:
             raise ValueError(f"attn_impl {self.attn_impl!r} not in "
                              f"{transformer.ATTN_IMPLS} (or 'auto')")
+        if self.model_cfg.is_mla and self.attn_impl == "cuda":
+            # MLA attends in latent space against a one-head latent cache
+            # 576 wide, values narrower than keys: no kernel takes that.
+            # The JAX engine keeps MLA off its Pallas kernels the same way
+            logger.info("MLA model: attn_impl=cuda not supported yet; "
+                        "using the reference attention path")
+            self.attn_impl = "reference"
         # a checkpoint's own tokenizer files first, as the JAX engine
         self.tokenizer = load_tokenizer(config.checkpoint_dir or config.model,
                                         vocab_size=self.model_cfg.vocab_size)
         logger.info("tokenizer: %s", type(self.tokenizer).__name__)
-        if params is None:
-            params = load_or_init(self.model_cfg, config.checkpoint_dir,
-                                  config.seed, self.device)
+        int8 = config.quantization == "int8"
+        own = params is None
+        if own:
+            # int8 without a merge: each layer is quantized as it is made
+            # or loaded, so the model never exists whole in its dtype
+            params = load_or_init(self.model_cfg, config.checkpoint_dir, config.seed,
+                                  self.device,
+                                  quantize_layer_int8 if int8 and not config.lora_dir else None)
+        if config.lora_dir:
+            # before quantization: the merge targets the model-dtype kernels
+            params = apply_lora(params, self.model_cfg, config.lora_dir)
+            logger.info("merged LoRA adapter from %s", config.lora_dir)
+        if int8 and not is_quantized(params):
+            if own and config.lora_dir:
+                # the engine's own merged tree, a layer at a time in place:
+                # one merged float layer beside the int8 ones at most
+                layers = params["layers"]
+                for i in range(len(layers)):
+                    layers[i] = quantize_layer_int8(layers[i])
+            params = quantize_params_int8(params)
+        self._lora_names: Optional[list] = None
+        self._lora_index: dict = {}
+        if config.lora_modules:
+            # after quantization on purpose: the stacked deltas add after the
+            # dequantizing product, so int8 base weights and model-dtype
+            # adapters compose (unlike the merge)
+            self._lora_names = load_lora_stack(params, self.model_cfg, config.lora_modules)
+            self._lora_index = {n: i for i, n in enumerate(self._lora_names)}
+            logger.info("loaded %d LoRA adapter(s): %s", len(self._lora_names),
+                        self._lora_names)
         self.params = params
         # speculative decoding, as the JAX engine's: the governor's rolling
         # (proposed, accepted) window and the decode step at which a paused
@@ -450,9 +497,16 @@ class Engine:
                         self.cache_cfg.num_blocks, self.cache_cfg.block_size)
         self.kv_cache = create_kv_cache(self.model_cfg, self.cache_cfg,
                                         self.device)
+        prefix_caching = config.enable_prefix_caching
+        if prefix_caching and config.lora_modules:
+            # cached KV is adapter-specific: a prefix hit across adapters (or
+            # from the base model) would serve KV made under other weights
+            logger.info("multi-LoRA: prefix caching disabled (cached KV "
+                        "is adapter-specific)")
+            prefix_caching = False
         self.block_manager = BlockManager(
             self.cache_cfg.num_blocks, self.cache_cfg.block_size,
-            enable_prefix_caching=config.enable_prefix_caching)
+            enable_prefix_caching=prefix_caching)
         # Tiered KV cache (runtime/kv_tiers.py): demote evicted prefix
         # blocks to host DRAM / a spill directory instead of losing the KV;
         # restore them ahead of admission
@@ -462,7 +516,7 @@ class Engine:
         tiers_on = config.kv_tiers
         if tiers_on is None:
             tiers_on = env_flag("TPUSERVE_KV_TIERS")
-        if tiers_on and config.enable_prefix_caching:
+        if tiers_on and prefix_caching:
             host_bytes = config.kv_host_bytes or int(
                 os.environ.get("TPUSERVE_KV_HOST_BYTES", 0) or (1 << 30))
             spill = config.kv_spill_dir or os.environ.get("TPUSERVE_KV_SPILL_DIR") or None
@@ -554,7 +608,8 @@ class Engine:
             attn_impl=self.attn_impl, max_blocks=self.cache_cfg.max_blocks_per_seq,
             steps=self._multi_step, max_batch=self._ragged_seqs,
             ragged_blk=self._ragged_blk, capture=config.resolve_cuda_graphs(self.device),
-            draft_params=self._draft_params, draft_cfg=self._draft_cfg)
+            draft_params=self._draft_params, draft_cfg=self._draft_cfg,
+            n_adapters=len(self._lora_names or ()))
         self._req_counter = itertools.count()
         self._seed_counter = itertools.count()
         self._eos_ids = set(self.tokenizer.eos_token_ids)
@@ -643,7 +698,9 @@ class Engine:
                               self.model_cfg.max_position_embeddings)
                 free -= pool_bytes_bound(self.model_cfg,
                                          self._step_keys(sched, max_len, guided=True),
-                                         self._ragged_seqs, self._draft_cfg)
+                                         self._ragged_seqs, self._draft_cfg,
+                                         sizing_of(self.params, self.cache_cfg.max_model_len,
+                                                   self._ragged_blk))
         else:
             free = (1 << 30) - param_nbytes(self.params)
         blocks = num_blocks_for_budget(self.model_cfg, self.cache_cfg, free)
@@ -659,10 +716,13 @@ class Engine:
                     prompt_token_ids: Optional[Sequence[int]] = None,
                     params: Optional[SamplingParams] = None,
                     request_id: Optional[str] = None,
-                    deadline: Optional[float] = None) -> str:
+                    deadline: Optional[float] = None,
+                    adapter: Optional[str] = None) -> str:
         """Queue a request.  ``deadline`` (the engine clock's seconds): a
         request still queued past it is aborted before any prefill is spent
-        on it (``_expire_queued_deadlines``)."""
+        on it (``_expire_queued_deadlines``).  ``adapter``: the name of a
+        loaded ``lora_modules`` adapter to serve it with (None: the base
+        model)."""
         params = params or SamplingParams()
         # the id first, so that intake events (SHED, BROWNOUT_CLAMPED) are
         # recorded under the id the caller looks up
@@ -692,6 +752,15 @@ class Engine:
                 self.flight.req_event(request_id, "BROWNOUT_CLAMPED", max_tokens=cap,
                                       level=self._slo.level)
         caller_ids = prompt_token_ids is not None
+        adapter_idx = None
+        if adapter is not None:
+            if not self._lora_names:
+                raise ValueError(f"adapter {adapter!r} requested but no "
+                                 "lora_modules are loaded")
+            adapter_idx = self._lora_index.get(adapter)
+            if adapter_idx is None:
+                raise ValueError(f"unknown adapter {adapter!r}; loaded: "
+                                 f"{self._lora_names}")
         if prompt_token_ids is None:
             if prompt is None:
                 raise ValueError("need prompt or prompt_token_ids")
@@ -731,7 +800,7 @@ class Engine:
             fsm = self._fsm_for(params)
         req = Request(request_id=request_id, prompt_token_ids=prompt_token_ids,
                       params=params, prompt=prompt, deadline=deadline,
-                      arrival_time=self.clock.monotonic())
+                      arrival_time=self.clock.monotonic(), adapter_idx=adapter_idx)
         try:
             self.scheduler.add(req)
         except MemoryError:
@@ -1073,6 +1142,16 @@ class Engine:
     def _tensor(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(arr).to(self.device)
 
+    def _stage_adapters(self, st, reqs: list[Request], rows=None) -> None:
+        """Each request's adapter index into ``st.adapter`` (a LoRA stack
+        only; -1, the staging's fill, is the base model and padding):
+        request i at row i, or at ``rows[i]`` (a row or a slice)."""
+        if not self._lora_names:
+            return
+        for i, r in enumerate(reqs):
+            if r.adapter_idx is not None:
+                st.adapter[i if rows is None else rows[i]] = r.adapter_idx
+
     def _run_prefill(self, batch: ScheduledBatch) -> list[RequestOutput]:
         reqs = batch.requests
         self._dispatch_rids = tuple(r.request_id for r in reqs)
@@ -1093,6 +1172,7 @@ class Engine:
             if self._flight_on:
                 self.flight.req_event(req.request_id, "PREFILL", tokens=len(ids),
                                       replay=bool(req.output_token_ids))
+        self._stage_adapters(st, reqs)
         self._demote_evicted()
         self.faults.check("prefill_dispatch", self._dispatch_rids)
         with PROF.phase("dispatch"):
@@ -1178,6 +1258,7 @@ class Engine:
         st.slot_ids[0, :n] = self._token_slots(req.request_id, done, n, block_table=bt)
         st.block_tables[0, :len(bt)] = bt
         st.ctx_lens[0], st.chunk_lens[0] = done, n
+        self._stage_adapters(st, [req])
         self._demote_evicted()
         self.faults.check("prefill_dispatch", self._dispatch_rids)
         with PROF.phase("dispatch"):
@@ -1275,6 +1356,11 @@ class Engine:
             st.last_rows[si] = start + take - 1
             st.block_tables[si, :len(bt)] = bt
         st.meta[:], st.blk_seq[:] = meta, blk_seq
+        # each valid row its sequence's adapter; padding rows stay -1 (the
+        # base model), not sequence 0's through row_seq
+        self._stage_adapters(st, decode_reqs)
+        self._stage_adapters(st, [c[0] for c in comp + cont],
+                             [slice(s, s + c[3]) for c, s in zip(comp + cont, starts)])
         self._demote_evicted()
         self.faults.check("mixed_dispatch", self._dispatch_rids)
         with PROF.phase("dispatch"):
@@ -1779,6 +1865,7 @@ class Engine:
                 # a chained row's state comes from the card (load)
                 st.gstate[i] = ent[1] if window else i
         st.top_k[:], st.top_p[:], st.min_p[:] = self._truncation_arrays(reqs, B)
+        self._stage_adapters(st, reqs)
         if pen:
             out_tokens, mask, st.presence[:], st.frequency[:], st.repetition[:] = \
                 self._penalty_arrays(reqs, B)

@@ -35,6 +35,14 @@ graph of the step over them:
 - ``("draft", B, T, k)``: ``transformer.draft_propose``, the k cache-less
   passes of the draft model over (B, T) windows in one graph.
 
+With a multi-LoRA stack (``n_adapters`` > 0) the prefill, chunk, mixed
+and decode executables stage one more int32 field, ``adapter``: each
+row's adapter index (-1 for the base model and for padding), from which
+the step makes its one-hot ``ad`` on the device; without a stack they
+are made without it, as the JAX transformer compiles without the LoRA
+contraction.  Keys do not change: the stack's size is fixed for an
+engine.
+
 Every KV write in them drops padding on the device
 (``attention.pad_drop``), so no step reads anything back to the host.  A
 dispatch fills the buffers with one host-to-device copy from pinned
@@ -80,6 +88,7 @@ same object runs the step eagerly on the same buffers.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import gc
 import math
 import time
@@ -89,6 +98,7 @@ import numpy as np
 import torch
 
 from tpuserve_torch.models import transformer
+from tpuserve_torch.models.weights import is_quantized
 from tpuserve_torch.ops import flash_prefill, paged_decode, paged_window, ragged_paged
 from tpuserve_torch.ops import sampling as sampling_ops
 from tpuserve_torch.ops.attention import PAD_SLOT
@@ -114,11 +124,21 @@ def _launch_counts() -> dict:
     return {_name(m): m.LAUNCHES for m in KERNEL_MODULES}
 
 
-def layout(key, max_blocks: int, seqs: int, blk: int) -> tuple:
+def layout(key, max_blocks: int, seqs: int, blk: int, adapters: int = 0) -> tuple:
     """The packed inputs of ``key``'s step: (name, shape, padding value[,
     host dtype]) a field, in buffer order.  The padding values make a step
     that computes nothing and writes nothing; ``seqs`` is the mixed
-    descriptors' width and ``blk`` the ragged block."""
+    descriptors' width and ``blk`` the ragged block; with ``adapters`` (a
+    LoRA stack's size) the prefill, chunk, mixed and decode steps take
+    each row's adapter index (-1: none)."""
+    fields = _layout(key, max_blocks, seqs, blk)
+    if adapters and key[0] in ("prefill", "chunk", "mixed", "decode"):
+        rows = 1 if key[0] == "chunk" else key[1]
+        fields += (("adapter", (rows,), -1),)
+    return fields
+
+
+def _layout(key, max_blocks: int, seqs: int, blk: int) -> tuple:
     kind, *shape = key
     MB = max_blocks
     if kind == "prefill":
@@ -219,7 +239,98 @@ def _width(cfg, rows: int) -> int:
     return cfg.hidden_size + cfg.q_size + 2 * cfg.kv_size + mlp
 
 
-def transient_bytes(cfg, key, seqs: int, draft_cfg=None) -> int:
+@dataclasses.dataclass(frozen=True)
+class Sizing:
+    """What a step's transients depend on beyond its key and model: ``ctx``
+    the tokens one sequence's block table spans (MLA's plain attention
+    gathers them all), ``blk`` the mixed layout's block, ``int8`` weights
+    dequantized at each product, ``lora_rank`` the widest stacked adapter
+    rank (0: no stack)."""
+    ctx: int = 0
+    blk: int = 8
+    int8: bool = False
+    lora_rank: int = 0
+
+
+def sizing_of(params: dict, ctx: int, blk: int) -> Sizing:
+    """The :class:`Sizing` of an engine's weights: int8 when the embedding
+    carries a scale, the widest ``lora`` stack's rank."""
+    rank = 0
+    for lp in params["layers"]:
+        for p in lp.values():
+            if isinstance(p, dict) and "lora" in p:
+                rank = max(rank, p["lora"]["A"].shape[-1])
+    return Sizing(ctx=ctx, blk=blk, int8=is_quantized(params), lora_rank=rank)
+
+
+def _mla_bytes(cfg, key, seqs: int, sz: Sizing) -> int:
+    """MLA's plain attention (no kernel takes its shapes).  The naive
+    prefill and draft paths: the decompressed per-head K and V with their
+    float32 copies, and three (B, H, T, T) float32 score tensors (scores,
+    their mask and softmax).  The absorbed paths: every gathered sequence's
+    ``ctx`` latent pages, gathered as K and as V, with dequantized and
+    float32 copies (16 bytes a value), and their float32 scores (three
+    copies over the whole context for decode and mixed rows, four over a
+    512-key segment for chunk and verify rows)."""
+    kind, *shape = key
+    H, lat = cfg.num_heads, cfg.mla_latent_dim
+    if kind in ("prefill", "draft"):
+        B, T = shape[0], shape[1]
+        return (B * T * H * (2 * cfg.head_dim + cfg.mla_v_head_dim) * 8
+                + 3 * B * H * T * T * 4)
+    S = max(sz.ctx, 1)
+    if kind == "decode":
+        gathered, score_rows = shape[0], shape[0] * 3 * S
+    elif kind == "mixed":
+        T = shape[0]
+        gathered, score_rows = min(seqs, T) + T // sz.blk, (min(seqs, T) + T) * 3 * S
+    else:                                   # chunk (1, C) and verify (B, K)
+        rows = shape[0] if kind == "chunk" else shape[0] * shape[1]
+        gathered = 1 if kind == "chunk" else shape[0]
+        score_rows = rows * 4 * min(512, S)
+    return gathered * S * lat * 16 + score_rows * H * 4
+
+
+def _weight_copy_bytes(cfg, rows: int, sz: Sizing) -> int:
+    """The model-dtype copy an int8 product dequantizes: the largest dense
+    kernel (the vocabulary-wide embedding or lm_head among them) or one
+    expert group's projection (``transformer.moe_group``)."""
+    if not sz.int8:
+        return 0
+    H = cfg.hidden_size
+    widest = max(cfg.vocab_size, cfg.intermediate_size, cfg.q_size, cfg.kv_size)
+    if cfg.num_experts:
+        widest = max(widest, transformer.moe_group(cfg, rows) * cfg.expert_intermediate_size)
+    itemsize = 4 if cfg.dtype == "float32" else 2
+    return H * widest * itemsize
+
+
+def _lora_bytes(cfg, key, sz: Sizing) -> int:
+    """A LoRA stack's per-row factors (``transformer._lora_delta``): (in +
+    out) x rank values a batch row of the widest targeted linear, with its
+    temporaries (eight bytes a value)."""
+    if not sz.lora_rank or key[0] not in ("prefill", "chunk", "mixed", "decode"):
+        return 0
+    rows = 1 if key[0] == "chunk" else key[1]
+    width = cfg.hidden_size + max(cfg.intermediate_size, cfg.q_size, cfg.hidden_size)
+    return rows * width * sz.lora_rank * 8
+
+
+def transient_bytes(cfg, key, seqs: int, draft_cfg=None, sizing: Sizing | None = None) -> int:
+    """:func:`_step_bytes` of ``key``, plus what the engine's weights and
+    attention add to it (``sizing``): MLA's plain attention, an int8
+    product's dequantized copy, a LoRA stack's per-row factors."""
+    sz = sizing or Sizing()
+    total = _step_bytes(cfg, key, seqs, draft_cfg)
+    mc = (draft_cfg or cfg) if key[0] == "draft" else cfg
+    if mc.is_mla:
+        total += _mla_bytes(mc, key, seqs, sz)
+    if key[0] != "draft":
+        total += _weight_copy_bytes(cfg, _rows(key), sz) + _lora_bytes(cfg, key, sz)
+    return total
+
+
+def _step_bytes(cfg, key, seqs: int, draft_cfg=None) -> int:
     """An upper estimate of the memory one step of ``key`` holds beyond its
     output, from shapes: per token row, the layer's activations with
     float32 norm, qk-norm and RoPE temporaries (three copies of the
@@ -255,7 +366,8 @@ def transient_bytes(cfg, key, seqs: int, draft_cfg=None) -> int:
     return base
 
 
-def pool_bytes_bound(cfg, keys, seqs: int, draft_cfg=None) -> int:
+def pool_bytes_bound(cfg, keys, seqs: int, draft_cfg=None,
+                     sizing: Sizing | None = None) -> int:
     """The most device memory one engine's graphs can reserve, from
     shapes: every executable of ``keys`` that keeps its logits
     (:func:`keeps_logits`) holds its (rows, V) float32 logits; the
@@ -263,14 +375,14 @@ def pool_bytes_bound(cfg, keys, seqs: int, draft_cfg=None) -> int:
     every later capture in the pool, counted twice for the allocator's
     splitting of them; and 256 MiB for the capture stream's cuBLAS
     workspace and the allocator's rounding.  A verify or draft executable
-    keeps only its small outputs.  The engine leaves this much free when it
-    sizes its cache to the card."""
+    keeps only its small outputs.  ``sizing`` as :func:`transient_bytes`.
+    The engine leaves this much free when it sizes its cache to the card."""
     keys = list(keys)
     if not keys:
         return 0
     V = cfg.vocab_size
     logits = sum(_out_rows(k, seqs) for k in keys if keeps_logits(k)) * V * 4
-    return logits + 2 * max(transient_bytes(cfg, k, seqs, draft_cfg)
+    return logits + 2 * max(transient_bytes(cfg, k, seqs, draft_cfg, sizing)
                             for k in keys) + (256 << 20)
 
 
@@ -295,22 +407,30 @@ class Staging:
             off += size
 
 
+def _ad(o, v):
+    """The step's one-hot adapter weights from its ``adapter`` field, made
+    on the device; None without a LoRA stack."""
+    if "adapter" not in v:
+        return None
+    return transformer.adapter_rows(v["adapter"], o.n_adapters, torch.float32)
+
+
 def _prefill(o, v):
     return transformer.prefill(o.params, o.cfg, v["tokens"], v["prompt_lens"], v["slot_ids"],
-                               o.kv_cache, attn_impl=o.attn_impl)[0]
+                               o.kv_cache, _ad(o, v), attn_impl=o.attn_impl)[0]
 
 
 def _chunk(o, v):
     return transformer.prefill_chunk(o.params, o.cfg, v["tokens"], v["ctx_lens"],
                                      v["chunk_lens"], v["slot_ids"], v["block_tables"],
-                                     o.kv_cache, attn_impl=o.attn_impl)[0]
+                                     o.kv_cache, _ad(o, v), attn_impl=o.attn_impl)[0]
 
 
 def _mixed(o, v):
     return transformer.forward_ragged(
         o.params, o.cfg, v["tokens"], v["positions"], v["slot_ids"], v["row_seq"],
         v["block_tables"], v["kv_lens"], v["q_starts"], v["q_lens"], v["meta"],
-        v["blk_seq"], v["last_rows"], o.kv_cache, ragged_blk=o.ragged_blk,
+        v["blk_seq"], v["last_rows"], o.kv_cache, _ad(o, v), ragged_blk=o.ragged_blk,
         attn_impl=o.attn_impl)[0]
 
 
@@ -345,7 +465,8 @@ class Executable:
         # then destroy these graphs inside a later capture and invalidate it
         self.owner = weakref.proxy(owner)
         self.key = key
-        self.fields = layout(key, owner.max_blocks, owner.max_batch, owner.ragged_blk)
+        self.fields = layout(key, owner.max_blocks, owner.max_batch, owner.ragged_blk,
+                             owner.n_adapters)
         self.buf = torch.zeros(sum(math.prod(f[1]) for f in self.fields), dtype=torch.int32,
                                device=owner.device)
         self.views, off = {}, 0
@@ -426,6 +547,7 @@ class DecodeExecutable(Executable):
 
     def step(self) -> torch.Tensor:
         o = self.owner
+        self.state.ad = _ad(o, self.views)
         return transformer.decode_state_step(o.params, o.cfg, self.state, o.kv_cache,
                                              mode=self.mode, attn_impl=o.attn_impl)
 
@@ -526,20 +648,24 @@ class StepGraphs:
     docstring says, made (and on the card captured) on first use or by
     :meth:`warmup`.  ``steps``: the widest decode dispatch (the engine's
     ``multi_step``); ``max_batch``: the largest decode bucket and the
-    mixed descriptors' width; ``ragged_blk``: the mixed layout's block."""
+    mixed descriptors' width; ``ragged_blk``: the mixed layout's block;
+    ``n_adapters``: the size of the weights' LoRA stack (0: none)."""
 
     def __init__(self, params: dict, cfg, kv_cache: list, *, device: torch.device,
                  attn_impl: str, max_blocks: int, steps: int, max_batch: int,
                  capture: bool, ragged_blk: int | None = None,
-                 draft_params: dict | None = None, draft_cfg=None):
+                 draft_params: dict | None = None, draft_cfg=None, n_adapters: int = 0):
         if capture and device.type != "cuda":
             raise ValueError("CUDA graphs need a CUDA device")
         self.params, self.cfg, self.kv_cache = params, cfg, kv_cache
+        self.n_adapters = n_adapters
         # the speculative draft model's weights and config (draft steps)
         self.draft_params, self.draft_cfg = draft_params, draft_cfg
         self.device, self.attn_impl = device, attn_impl
         self.max_blocks, self.steps, self.max_batch = max_blocks, steps, max_batch
         self.ragged_blk = ragged_blk or ragged_paged.ragged_block(device)
+        page = kv_cache[0]["k"].shape[1] if kv_cache else 0
+        self.sizing = sizing_of(params, max_blocks * page, self.ragged_blk)
         self.capture = capture
         self.executables: dict = {}
         self.pool = torch.cuda.graph_pool_handle() if capture else None
@@ -626,6 +752,11 @@ class StepGraphs:
             self.executables[key] = exe
         return exe
 
+    def pool_bound(self, keys) -> int:
+        """:func:`pool_bytes_bound` of ``keys`` for these graphs' model,
+        weights and cache."""
+        return pool_bytes_bound(self.cfg, keys, self.max_batch, self.draft_cfg, self.sizing)
+
     def pool_bytes(self) -> int:
         """Device memory the graphs' shared pool holds: the sizes of its
         allocator segments."""
@@ -639,7 +770,7 @@ class StepGraphs:
         so later captures reuse its memory in the pool.  Without capture
         each runs once on padding rows, as a capture's first run does."""
         for key in sorted(set(keys), key=lambda k: transient_bytes(
-                self.cfg, k, self.max_batch, self.draft_cfg), reverse=True):
+                self.cfg, k, self.max_batch, self.draft_cfg, self.sizing), reverse=True):
             exe = self.get(*key)
             if exe.graph is None:
                 exe.pad_run()

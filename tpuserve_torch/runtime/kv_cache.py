@@ -3,7 +3,11 @@ port of ``tpuserve/runtime/kv_cache.py``.
 
 Layout per layer: ``{"k", "v"}`` each ``(num_blocks, block_size,
 num_kv_heads, head_dim)``, plus ``{"ks", "vs"}`` float32 scales
-``(num_blocks, block_size, num_kv_heads)`` when the cache stores int8.
+``(num_blocks, block_size, num_kv_heads)`` when the cache stores int8.  An
+MLA model (DeepSeek) keeps one array, ``{"k"}`` ``(num_blocks,
+block_size, 1, mla_latent_dim)``: a token's rmsnorm'd latent and its
+shared roped key, read as both K and V; under int8 its ``"ks"`` holds two
+scales a token, ``(num_blocks, block_size, 2)``, one for each slice.
 
 ``gather_block_pages`` / ``scatter_block_pages`` move whole physical
 blocks between the card and the host for the tier store
@@ -43,11 +47,15 @@ class CacheConfig:
 
 def bytes_per_block(model_cfg: ModelConfig, cache_cfg: CacheConfig) -> int:
     itemsize = torch.empty((), dtype=CACHE_DTYPES[cache_cfg.dtype]).element_size()
-    per_vector = model_cfg.head_dim * itemsize
+    per_vector = model_cfg.cache_head_dim * itemsize
     if cache_cfg.quantized:
-        per_vector += 4                 # one float32 scale per (token, head)
-    return (2 * model_cfg.num_layers * cache_cfg.block_size
-            * model_cfg.num_kv_heads * per_vector)
+        # one float32 scale per (token, head); MLA carries two a token
+        # (latent and rope slices)
+        per_vector += 8 if model_cfg.is_mla else 4
+    # MLA stores ONE latent array, no V pages
+    kv_arrays = 1 if model_cfg.is_mla else 2
+    return (kv_arrays * model_cfg.num_layers * cache_cfg.block_size
+            * model_cfg.cache_kv_heads * per_vector)
 
 
 def num_blocks_for_budget(model_cfg: ModelConfig, cache_cfg: CacheConfig,
@@ -63,12 +71,20 @@ def num_blocks_for_budget(model_cfg: ModelConfig, cache_cfg: CacheConfig,
 
 def create_kv_cache(model_cfg: ModelConfig, cache_cfg: CacheConfig,
                     device) -> list[dict]:
-    """Zero-initialised per-layer ``[{"k", "v"[, "ks", "vs"]}]`` cache."""
+    """Zero-initialised per-layer ``[{"k", "v"[, "ks", "vs"]}]`` cache
+    (``[{"k"[, "ks"]}]`` for MLA)."""
     shape = (cache_cfg.num_blocks, cache_cfg.block_size,
-             model_cfg.num_kv_heads, model_cfg.head_dim)
+             model_cfg.cache_kv_heads, model_cfg.cache_head_dim)
     dtype = CACHE_DTYPES[cache_cfg.dtype]
     cache = []
     for _ in range(model_cfg.num_layers):
+        if model_cfg.is_mla:
+            entry = {"k": torch.zeros(shape, dtype=dtype, device=device)}
+            if cache_cfg.quantized:
+                entry["ks"] = torch.zeros((*shape[:2], 2), dtype=torch.float32,
+                                          device=device)
+            cache.append(entry)
+            continue
         entry = {"k": torch.zeros(shape, dtype=dtype, device=device),
                  "v": torch.zeros(shape, dtype=dtype, device=device)}
         if cache_cfg.quantized:

@@ -116,8 +116,9 @@ class TieredPageStore:
 
     ``pages`` values are ``list[dict[str, Tensor]]``: one dict per model
     layer, the keys of the card's cache entries ("k"/"v" plus "ks"/"vs"
-    scales under int8), each a block's ``(block_size, kv_heads,
-    head_dim)`` page (a ``(block_size, kv_heads)`` scale page).
+    scales under int8; an MLA model's "k" and, under int8, its two-slice
+    "ks"), each a block's ``(block_size, kv_heads, head_dim)`` page (a
+    ``(block_size, kv_heads)`` or ``(block_size, 2)`` scale page).
     """
 
     def __init__(self, host_bytes: int, spill_dir: str | None = None,

@@ -26,6 +26,12 @@ full and streamed.  ``/v1/embeddings`` takes a string, a list of strings,
 token ids or lists of them, ``encoding_format`` float or base64 and
 ``dimensions`` (truncated and re-normalised).
 
+Multi-LoRA (``--lora-modules NAME=DIR``), as the JAX server: ``/v1/models``
+lists each adapter with the base model as its ``parent``; a completion or
+chat request whose ``model`` names an adapter is served by it and the
+response's ``model`` echoes it; embeddings, ``prompt_logprobs`` and prompt
+scoring refuse an adapter with a 400 (their trunks are the base model's).
+
 SLO classes (``slo_class`` in the body or the ``X-SLO-Class`` header) reach
 the engine's controller (``runtime/slo.py``): a request the brownout
 ladder sheds, or one evicted from a full queue for a stricter arrival, is
@@ -248,6 +254,8 @@ class OpenAIServer:
                  metrics: ServerMetrics | None = None):
         self.config = config or ServerConfig()
         self.model_name = self.config.served_model_name or engine.config.model
+        # multi-LoRA adapter names (the engine's stack), served as models
+        self.lora_names = list(getattr(engine, "_lora_names", None) or [])
         self.metrics = metrics or ServerMetrics(self.model_name)
         self.runner = AsyncEngineRunner(engine, self.metrics)
         self.engine = engine
@@ -513,17 +521,26 @@ class _Handler(BaseHTTPRequestHandler):
         ctx = self.ctx
         eng = ctx.engine
         if self.path == "/v1/models":
+            now = int(time.time())
+            # loaded LoRA adapters are selectable models, their parent the
+            # base (vLLM's --lora-modules listing)
             self._json(200, {"object": "list", "data": [{
-                "id": ctx.model_name, "object": "model", "created": int(time.time()),
+                "id": ctx.model_name, "object": "model", "created": now,
                 "owned_by": "tpuserve", "max_model_len": eng.max_seq_len,
                 "quantization": eng.config.quantization,
-                "kv_cache_dtype": eng.cache_cfg.dtype}]})
+                "kv_cache_dtype": eng.cache_cfg.dtype}] + [
+                {"id": name, "object": "model", "created": now, "owned_by": "tpuserve",
+                 "parent": ctx.model_name} for name in ctx.lora_names]})
         elif self.path.startswith("/v1/models/"):
             # ids may contain '/', e.g. Qwen/Qwen3-0.6B: match the raw suffix
             wanted = unquote(self.path[len("/v1/models/"):])
             if wanted == ctx.model_name:
                 self._json(200, {"id": wanted, "object": "model",
                                  "created": int(time.time()), "owned_by": "tpuserve"})
+            elif wanted in ctx.lora_names:
+                self._json(200, {"id": wanted, "object": "model",
+                                 "created": int(time.time()), "owned_by": "tpuserve",
+                                 "parent": ctx.model_name})
             else:
                 self._error(404, f"model {wanted!r} not found")
         elif self.path == "/metrics":
@@ -627,6 +644,23 @@ class _Handler(BaseHTTPRequestHandler):
         ctx.kv_digest.note(affinity_key(body))
         kwargs = ({"prompt_token_ids": prompt} if isinstance(prompt, list)
                   else {"prompt": prompt})
+        # multi-LoRA routing (vLLM semantics): "model" naming a loaded
+        # adapter selects it; the base name (or any other alias) serves base
+        adapter = body.get("model")
+        if (isinstance(adapter, str) and adapter != ctx.model_name
+                and adapter in ctx.lora_names):
+            kwargs["adapter"] = adapter
+            # the scoring trunk has no adapter threading: base-model prompt
+            # logprobs beside adapter completions would be wrong
+            if body.get("prompt_logprobs") is not None:
+                self._error(400, "prompt_logprobs is served by the base model; drop "
+                                 f"it or use model={ctx.model_name!r}")
+                return
+            if not chat and body.get("echo") and params.logprobs is not None:
+                self._error(400, "echo+logprobs (prompt scoring) is served by the "
+                                 "base model; drop echo or use "
+                                 f"model={ctx.model_name!r}")
+                return
         if params.max_tokens == 0:
             # OpenAI prompt scoring: the prompt's own logprobs, no generation
             try:
@@ -692,6 +726,13 @@ class _Handler(BaseHTTPRequestHandler):
         eng = ctx.engine
         try:
             body = self._read_body()
+            if body.get("model") in ctx.lora_names:
+                # /v1/models lists adapters, but the embed trunk has no
+                # adapter threading: a base-model 200 would be wrong vectors
+                raise ValueError(
+                    f"model {body.get('model')!r} is a LoRA adapter; "
+                    "embeddings are served by the base model only — "
+                    f"use model={ctx.model_name!r}")
             raw = body.get("input")
             if isinstance(raw, str):
                 inputs = [raw]
@@ -955,14 +996,16 @@ class _Handler(BaseHTTPRequestHandler):
         self._json(200, {
             "id": f"cmpl-{uuid.uuid4().hex[:24]}",
             "object": "chat.completion" if chat else "text_completion",
-            "created": int(time.time()), "model": ctx.model_name, "choices": choices,
+            "created": int(time.time()), "model": kwargs.get("adapter", ctx.model_name),
+            "choices": choices,
             "usage": {"prompt_tokens": prompt_tokens,
                       "completion_tokens": completion_tokens,
                       "total_tokens": prompt_tokens + completion_tokens}})
 
     def _stream_response(self, body, params, chat, kwargs, n=1, toolctx=None):
         ctx = self.ctx
-        served = ctx.model_name
+        # multi-LoRA: the adapter the request selected, as the JAX server
+        served = kwargs.get("adapter", ctx.model_name)
         # vLLM extension: each chunk's token ids, so clients count tokens
         # exactly (a fused decode window emits several chunks at once)
         ret_ids = bool(body.get("return_token_ids"))
@@ -1198,9 +1241,6 @@ _UNPORTED_FLAGS = (
     ("--role", dict(default=None, choices=["prefill", "decode"]), "A10, multi-GPU"),
     ("--decode-url", dict(default=None), "A10, multi-GPU"),
     ("--multihost", dict(action="store_true"), "A10, multi-GPU"),
-    ("--lora", dict(default=None), "A8, model breadth"),
-    ("--lora-modules", dict(default=None, nargs="+"), "A8, model breadth"),
-    ("--quantization", dict(default=None, choices=["int8"]), "A8, model breadth"),
     ("--model-catalog", dict(default=None), "A9, the model pool"),
     ("--swap-policy", dict(default="swap", choices=["swap", "reject"]), "A9, the model pool"),
     ("--max-resident-models", dict(type=int, default=1), "A9, the model pool"),
@@ -1242,6 +1282,16 @@ def build_parser():
     ap.add_argument("--min-multi-step", type=int, default=4)
     ap.add_argument("--kv-cache-dtype", default="bfloat16",
                     choices=["bfloat16", "float32", "int8"])
+    ap.add_argument("--lora", default=None, metavar="DIR",
+                    help="PEFT LoRA adapter directory merged into the weights at load "
+                         "(one adapter an engine, no cost a step)")
+    ap.add_argument("--lora-modules", default=None, nargs="+", metavar="NAME=DIR",
+                    help="multi-LoRA serving (vLLM flag): adapters loaded as a stack; a "
+                         "request selects one by sending its NAME as the 'model' field, "
+                         "mixed-adapter batches run in one step; composes with "
+                         "--quantization int8")
+    ap.add_argument("--quantization", default=None, choices=["int8"],
+                    help="weight-only int8 quantization (half the weights' memory)")
     ap.add_argument("--no-kv-tiers", action="store_true",
                     help="disable the tiered KV cache (HBM -> host-DRAM -> spill prefix "
                          "offload; runtime/kv_tiers.py): evicted prefix blocks are "
@@ -1303,6 +1353,8 @@ def engine_config(args):
 
     return EngineConfig(
         model=args.model, checkpoint_dir=args.checkpoint_dir,
+        lora_dir=args.lora, lora_modules=lora_modules_of(args),
+        quantization=args.quantization,
         cache=CacheConfig(block_size=args.block_size, num_blocks=args.num_blocks,
                           max_blocks_per_seq=args.max_blocks_per_seq,
                           dtype=args.kv_cache_dtype),
@@ -1322,6 +1374,25 @@ def engine_config(args):
                                 draft_model=args.speculative_draft_model,
                                 draft_checkpoint_dir=args.speculative_draft_dir)
                      if args.speculative_k > 0 else None))
+
+
+def lora_modules_of(args) -> Optional[dict]:
+    """``--lora-modules NAME=DIR ...`` as the engine's name -> directory
+    map (None without the flag); a malformed entry, an adapter named as the
+    base model or a name given twice raises ``ValueError``."""
+    if not args.lora_modules:
+        return None
+    modules = {}
+    for spec_str in args.lora_modules:
+        name, sep, path = spec_str.partition("=")
+        if not sep or not name or not path:
+            raise ValueError(f"--lora-modules entries must be NAME=DIR, got {spec_str!r}")
+        if name == args.model:
+            raise ValueError(f"adapter name {name!r} collides with the base model name")
+        if name in modules:
+            raise ValueError(f"duplicate adapter name {name!r} in --lora-modules")
+        modules[name] = path
+    return modules
 
 
 def main(argv=None):
@@ -1353,7 +1424,10 @@ def main(argv=None):
     if args.chat_template:
         with open(args.chat_template) as f:
             chat_template = f.read()
-    ecfg = engine_config(args)
+    try:
+        ecfg = engine_config(args)
+    except ValueError as e:
+        ap.error(str(e))
     try:
         engine = Engine(ecfg, device=args.device)
     except RuntimeError as e:                    # no card, and no --device cpu

@@ -74,6 +74,7 @@ class _Submit:
     # engine aborts the request queue-side and the client gets a
     # TimeoutError through the output queue
     deadline: Optional[float] = None
+    adapter: Optional[str] = None     # multi-LoRA adapter name
 
 
 @dataclasses.dataclass
@@ -191,15 +192,17 @@ class AsyncEngineRunner:
                params: Optional[SamplingParams] = None,
                request_id: Optional[str] = None,
                deadline: Optional[float] = None,
+               adapter: Optional[str] = None,
                ) -> tuple[str, "queue.Queue[RequestOutput | Exception | None]"]:
         """Enqueue a request; returns (request_id, output queue).  The queue
         yields RequestOutput items, then None when finished; an Exception
-        item signals a rejected or failed request."""
+        item signals a rejected or failed request.  ``adapter``: a loaded
+        multi-LoRA adapter's name."""
         sub = _Submit(prompt=prompt,
                       prompt_token_ids=list(prompt_token_ids) if prompt_token_ids else None,
                       params=params or SamplingParams(),
                       out_queue=queue.Queue(), rid_event=threading.Event(),
-                      request_id=request_id, deadline=deadline)
+                      request_id=request_id, deadline=deadline, adapter=adapter)
         self._intake.put(sub)
         self._wake.set()
         sub.rid_event.wait(timeout=60)
@@ -227,10 +230,10 @@ class AsyncEngineRunner:
         return msg.result
 
     def generate_sync(self, prompt=None, prompt_token_ids=None, params=None,
-                      timeout: float = 600.0):
+                      timeout: float = 600.0, adapter: Optional[str] = None):
         """Blocking convenience: returns (list[RequestOutput], request_id)."""
         rid, q = self.submit(prompt=prompt, prompt_token_ids=prompt_token_ids,
-                             params=params)
+                             params=params, adapter=adapter)
         outs = []
         deadline = time.monotonic() + timeout
         while True:
@@ -268,10 +271,11 @@ class AsyncEngineRunner:
                         q.put(None)
                 continue
             try:
+                kw = {"adapter": msg.adapter} if msg.adapter else {}
                 rid = self.engine.add_request(
                     prompt=msg.prompt, prompt_token_ids=msg.prompt_token_ids,
                     params=msg.params, request_id=msg.request_id,
-                    deadline=msg.deadline)
+                    deadline=msg.deadline, **kw)
             except Exception as e:           # invalid or shed: report, don't die
                 msg.assigned_id = msg.request_id or "rejected"
                 msg.rid_event.set()
