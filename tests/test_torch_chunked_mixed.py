@@ -158,7 +158,7 @@ def test_prefix_cache_compute_skip_matches_jax(model):
     assert eng.block_manager.num_seqs() == 0
 
 
-def test_preemption_mid_stream_replays_through_chunks_like_jax(model):
+def test_preemption_mid_stream_replays_through_chunks_like_jax(model, monkeypatch):
     """A cache too small for every stream preempts; the victims re-prefill
     prompt + generated tokens through the chunk route (hitting their own
     freed blocks), and every stream equals the JAX engine's."""
@@ -168,6 +168,8 @@ def test_preemption_mid_stream_replays_through_chunks_like_jax(model):
     sp = dict(max_tokens=16, temperature=0.0, ignore_eos=True)
     jeng = _jax(model, cache=cache, **kw)
     ref = jeng.generate(prompts, jax_rt.SamplingParams(**sp))
+    # the Python block manager: the integrity check reads its sequence table
+    monkeypatch.setenv("TPUSERVE_BLOCK_MANAGER", "python")
     eng = _port(model, cache=cache, **kw)
     ours = eng.generate(prompts, SamplingParams(**sp))
     assert eng.stats.preemptions > 0
@@ -201,7 +203,7 @@ def test_mid_chunk_request_resumes_from_any_queue_position(model):
 
 
 @pytest.mark.parametrize("mixed", [False, True])
-def test_abort_mid_chunk_publishes_no_unwritten_prefix(model, mixed):
+def test_abort_mid_chunk_publishes_no_unwritten_prefix(model, mixed, monkeypatch):
     """Aborting a request between chunks frees its blocks without parking
     the never-written ones in the prefix cache: the same prefix then gives
     the tokens of a fresh engine, and the block manager drains to zero."""
@@ -211,6 +213,8 @@ def test_abort_mid_chunk_publishes_no_unwritten_prefix(model, mixed):
     prompt = list(range(1, 25))
     p = SamplingParams(max_tokens=4, temperature=0.0, ignore_eos=True)
     fresh = _port(model, **kw).generate([prompt], p)[0].output_token_ids
+    # the Python block manager: the integrity check reads its sequence table
+    monkeypatch.setenv("TPUSERVE_BLOCK_MANAGER", "python")
     eng = _port(model, **kw)
     free0 = eng.block_manager.num_free_blocks
     rid = eng.add_request(prompt_token_ids=prompt, params=p)

@@ -138,13 +138,15 @@ def test_prefix_cache_reuse(model):
     assert eng.block_manager.num_seqs() == 0
 
 
-def test_preemption_replays_token_identically(model):
+def test_preemption_replays_token_identically(model, monkeypatch):
     """A cache too small for every stream forces decode-OOM preemption and
     a re-prefill of prompt + generated tokens; greedy streams are
     unchanged."""
     params = SamplingParams(max_tokens=24, temperature=0.0, ignore_eos=True)
     roomy = _port(model).generate(PROMPTS, params)
     small = dict(CACHE, num_blocks=24)
+    # the Python block manager: the integrity check reads its sequence table
+    monkeypatch.setenv("TPUSERVE_BLOCK_MANAGER", "python")
     eng = _port(model, cache=small)
     tight = eng.generate(PROMPTS, params)
     assert eng.stats.preemptions > 0
@@ -152,7 +154,8 @@ def test_preemption_replays_token_identically(model):
     eng.block_manager.check_integrity(expected_seq_ids=())
 
 
-def test_abort(model):
+def test_abort(model, monkeypatch):
+    monkeypatch.setenv("TPUSERVE_BLOCK_MANAGER", "python")    # check_integrity below
     eng = _port(model)
     params = SamplingParams(max_tokens=20, temperature=0.0, ignore_eos=True)
     keep = eng.add_request(prompt="keep going", params=params)
@@ -171,7 +174,8 @@ def test_abort(model):
     assert not eng.abort_request("no-such-request")
 
 
-def test_block_manager_drains_to_zero(model):
+def test_block_manager_drains_to_zero(model, monkeypatch):
+    monkeypatch.setenv("TPUSERVE_BLOCK_MANAGER", "python")    # check_integrity below
     eng = _port(model, multi_step=4)
     eng.generate(PROMPTS * 2, SamplingParams(max_tokens=9, temperature=0.0))
     assert eng.block_manager.num_seqs() == 0

@@ -12,8 +12,9 @@ the same detail keys, the same FINISHED causes, and the step records the
 same (kind, rows, actual tokens, padded tokens) in order.  Timestamps and
 phase ms are host readings of each run and are not compared.
 
-The server twin (the port's server and the JAX server, this one under
-``TPUSERVE_DEVPROF=0``, the port having no device profiler) answers
+The server twin (the port's server and the JAX server, both under
+``TPUSERVE_DEVPROF=0`` and without the burn-rate evaluator: the device
+profiler's sections are compared in tests/test_torch_devprof.py) answers
 ``/debug/engine``, ``/debug/engine/dump``, ``/debug/requests/{id}`` (a
 known and an unknown id) and ``/healthz`` with the same status codes and
 key sets, with the recorder on and off.  A poison request through each
@@ -77,7 +78,8 @@ def _torch_threads():
 def _env(monkeypatch):
     for var in ("TPUSERVE_FLIGHT", "TPUSERVE_FLIGHT_DIR", "TPUSERVE_FAULTS"):
         monkeypatch.delenv(var, raising=False)
-    # the JAX engine's device profiler, which the port has not yet
+    # both packages' device profilers off (tests/test_torch_devprof.py
+    # compares them)
     monkeypatch.setenv("TPUSERVE_DEVPROF", "0")
 
 
@@ -400,7 +402,7 @@ def _request(url, payload=None):
 
 def _servers(model, **kw):
     port = OpenAIServer(_engine("port", model, multi_step=1, **kw),
-                        ServerConfig(host="127.0.0.1", port=0))
+                        ServerConfig(host="127.0.0.1", port=0, slo_burn=False))
     jsrv = JaxServer(_engine("jax", model, multi_step=1, **kw),
                      JaxServerConfig(host="127.0.0.1", port=0, tpu_metrics=False,
                                      slo_burn=False))

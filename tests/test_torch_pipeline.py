@@ -160,7 +160,7 @@ def test_pipelined_stops_match_sync_and_jax(model, multi_step):
 
 
 @pytest.mark.parametrize("multi_step", [1, 4])
-def test_abort_of_a_row_in_flight_matches_jax(model, multi_step):
+def test_abort_of_a_row_in_flight_matches_jax(model, multi_step, monkeypatch):
     """A request aborted while its decode dispatch is in flight emits
     nothing more: its tokens drop at the flush, the other rows stream on,
     and the cache drains."""
@@ -177,6 +177,10 @@ def test_abort_of_a_row_in_flight_matches_jax(model, multi_step):
         if n == 2:
             assert eng.abort_request(rids[1])
 
+    # the Python block manager: its sequence table is what the integrity
+    # check below reads (the C++ one has none; test_torch_native.py holds
+    # the two equal)
+    monkeypatch.setenv("TPUSERVE_BLOCK_MANAGER", "python")
     eng = _port(model, multi_step=multi_step, pipeline_decode=True)
     ours = _drain(eng, SamplingParams, prompts, plist, abort_second)
     ref = _drain(_jax(model, multi_step=multi_step), jax_rt.SamplingParams, prompts,
@@ -189,7 +193,7 @@ def test_abort_of_a_row_in_flight_matches_jax(model, multi_step):
 
 
 @pytest.mark.parametrize("multi_step", [1, 4])
-def test_pipelined_preemption_matches_jax_and_roomy_cache(model, multi_step):
+def test_pipelined_preemption_matches_jax_and_roomy_cache(model, multi_step, monkeypatch):
     """A cache too small for every stream: windows fall back to single
     steps, which flush the in-flight dispatch before they preempt; every
     stream equals the roomy cache's and the JAX engine's."""
@@ -198,6 +202,8 @@ def test_pipelined_preemption_matches_jax_and_roomy_cache(model, multi_step):
     plist = [sp] * len(prompts)
     small = dict(CACHE, num_blocks=30)
     roomy = _drain(_port(model, multi_step=multi_step), SamplingParams, prompts, plist)
+    # the Python block manager: the integrity check reads its sequence table
+    monkeypatch.setenv("TPUSERVE_BLOCK_MANAGER", "python")
     eng = _port(model, cache=small, multi_step=multi_step, pipeline_decode=True)
     tight = _drain(eng, SamplingParams, prompts, plist)
     ref = _drain(_jax(model, cache=small, multi_step=multi_step), jax_rt.SamplingParams,
@@ -208,7 +214,8 @@ def test_pipelined_preemption_matches_jax_and_roomy_cache(model, multi_step):
 
 
 @pytest.mark.parametrize("multi_step", [1, 4])
-def test_has_work_while_only_a_dispatch_is_in_flight(model, multi_step):
+def test_has_work_while_only_a_dispatch_is_in_flight(model, multi_step, monkeypatch):
+    monkeypatch.setenv("TPUSERVE_BLOCK_MANAGER", "python")    # check_integrity below
     eng = _port(model, multi_step=multi_step, pipeline_decode=True)
     rid = eng.add_request(prompt_token_ids=[5, 6, 7],
                           params=SamplingParams(max_tokens=1 + multi_step,
@@ -226,7 +233,8 @@ def test_has_work_while_only_a_dispatch_is_in_flight(model, multi_step):
     eng.block_manager.check_integrity(expected_seq_ids=())
 
 
-def test_pipelined_engine_drains_to_zero(model):
+def test_pipelined_engine_drains_to_zero(model, monkeypatch):
+    monkeypatch.setenv("TPUSERVE_BLOCK_MANAGER", "python")    # check_integrity below
     eng = _port(model, multi_step=4, pipeline_decode=True)
     eng.generate(_prompts() * 2, SamplingParams(max_tokens=9, temperature=0.0))
     assert eng.block_manager.num_seqs() == 0

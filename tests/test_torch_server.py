@@ -598,10 +598,11 @@ def test_a_failing_step_fails_its_requests_and_the_server_goes_on(weights):
 
 
 def test_cli_rejects_unported_flags_naming_their_item(capsys):
-    # A8's flags (--quantization, --lora, --lora-modules) are ported
-    # (tests/test_torch_lora.py serves them); A9's and A10's still exit
+    # A8's flags (--quantization, --lora, --lora-modules) and A9's
+    # (tests/test_torch_obs.py, tests/test_torch_modelpool.py serve them)
+    # are ported; A10's still exit
     for argv, item in ((["--tp", "2"], "A10"), (["--pp", "2"], "A10"),
-                       (["--model-catalog", "x"], "A9"), (["--tenant-config", "x"], "A9")):
+                       (["--disagg"], "A10"), (["--multihost"], "A10")):
         with pytest.raises(SystemExit) as ei:
             main(argv)
         assert ei.value.code == 2
@@ -609,10 +610,12 @@ def test_cli_rejects_unported_flags_naming_their_item(capsys):
     # a ported flag is taken: with it the CLI gets as far as the engine
     # (which, without a card, exits naming device='cpu')
     if not torch.cuda.is_available():
-        with pytest.raises(SystemExit) as ei:
-            main(["--model", "tiny-qwen3", "--tool-call-parser", "hermes", "--no-kv-tiers"])
-        assert "device='cpu'" in str(ei.value.code)
-        assert "ROADMAP.md" not in capsys.readouterr().err
+        for argv in (["--tool-call-parser", "hermes", "--no-kv-tiers"],
+                     ["--model-catalog", "tiny-llama", "--tenant-config", "{}"]):
+            with pytest.raises(SystemExit) as ei:
+                main(["--model", "tiny-qwen3"] + argv)
+            assert "device='cpu'" in str(ei.value.code)
+            assert "ROADMAP.md" not in capsys.readouterr().err
 
 
 def test_cli_without_a_card_exits_with_the_engines_error():

@@ -215,6 +215,21 @@ def _init_tree(cfg: ModelConfig, normal, dtype, device, layer_fn=None) -> dict:
     return params
 
 
+def map_leaves(fn, params):
+    """``params`` with ``fn`` applied to each leaf (the tree's shape kept)."""
+    if isinstance(params, dict):
+        return {k: map_leaves(fn, v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(map_leaves(fn, v) for v in params)
+    return None if params is None else fn(params)
+
+
+def to_device(params, device):
+    """A host tree on ``device``, leaf by leaf (asynchronous from pinned
+    memory)."""
+    return map_leaves(lambda a: a.to(device, non_blocking=True), params)
+
+
 def param_nbytes(params) -> int:
     """Total bytes of a parameter tree's tensors."""
     if isinstance(params, dict):

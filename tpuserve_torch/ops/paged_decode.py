@@ -114,6 +114,11 @@ def workspace(device: torch.device, stream: int, n_floats: int, n_counters: int)
     return part, counters
 
 
+def release_workspace(device: torch.device, stream: int) -> None:
+    """Drop the scratch kept for ``stream`` (its owner's graphs are gone)."""
+    _WORKSPACES.pop((device.index, stream), None)
+
+
 def paged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                            v_cache: torch.Tensor, block_tables: torch.Tensor,
                            seq_lens: torch.Tensor, scale: float,

@@ -5,8 +5,9 @@ the container the reference deploys (the reference delegates the whole
 engine: kubernetes-single-node.yaml:14, llm-d-deploy.yaml:140-193).
 The port's own copy of the JAX package's Python block manager, with the
 tiered KV cache's eviction log and restores and the sliding-window
-rolling buffer, and without what the port does not run yet: the C++
-drop-in replacement (ROADMAP.md, "native block manager").
+rolling buffer.  ``tpuserve_torch.native`` holds its C++ drop-in
+(``NativeBlockManager``), which ``create_block_manager`` picks when g++
+can build it.
 
 Design: physical blocks of ``block_size`` token slots; per-sequence block
 tables map logical block index -> physical block id.  Full prompt blocks are
@@ -558,3 +559,31 @@ class BlockManager:
                 "KV block integrity violated (TPUSERVE_STRICT_BLOCKS): "
                 + "; ".join(problems))
 
+
+
+def create_block_manager(num_blocks: int, block_size: int,
+                         enable_prefix_caching: bool = True, impl: str = "auto"):
+    """The C++ block manager (``tpuserve_torch.native``) when its extension
+    builds, else this module's Python one, by the JAX factory's rules.
+
+    ``impl``: "auto" | "native" | "python"; ``TPUSERVE_BLOCK_MANAGER``
+    overrides it.  ``TPUSERVE_STRICT_BLOCKS`` (the per-cycle integrity
+    check) steers "auto" to Python, since the C++ manager exposes no
+    sequence table to check; an explicit "native" still wins and runs
+    unchecked.  "native" without a toolchain raises ``RuntimeError``.
+    """
+    import os
+    impl = os.environ.get("TPUSERVE_BLOCK_MANAGER", impl)
+    if impl not in ("auto", "native", "python"):
+        raise ValueError(f"block manager impl {impl!r} not in auto/native/python")
+    if impl == "auto" and os.environ.get("TPUSERVE_STRICT_BLOCKS"):
+        impl = "python"
+    if impl != "python":
+        from tpuserve_torch.native import NativeBlockManager, native_available
+        if native_available():
+            return NativeBlockManager(num_blocks, block_size,
+                                      enable_prefix_caching=enable_prefix_caching)
+        if impl == "native":
+            raise RuntimeError("native block manager requested but its extension "
+                               "could not be built (no g++?)")
+    return BlockManager(num_blocks, block_size, enable_prefix_caching=enable_prefix_caching)

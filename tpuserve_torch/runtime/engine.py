@@ -82,6 +82,17 @@ quantizes the weights a layer at a time as they are made or loaded;
 adapter=name)``), after quantization, with prefix caching (and so the
 tiers) off, since cached KV is adapter-specific.
 
+The KV block manager is the C++ one of ``tpuserve_torch.native`` when g++
+builds it (``create_block_manager``; ``TPUSERVE_BLOCK_MANAGER=python``
+picks the Python one, and so does ``TPUSERVE_STRICT_BLOCKS``, whose
+per-cycle integrity check reads the Python one's sequence table).
+The device profiler (``runtime/devprof.py``, on by default as in the JAX
+engine; ``devprof=False`` or ``TPUSERVE_DEVPROF=0`` removes it) brackets
+each dispatch with CUDA events, read at the existing flushes, registers
+each executable's making in its ladder and keeps the HBM watermark.
+``swap_model`` replaces the served model in place for the model pool
+(``modelpool/``), releasing the outgoing graphs and cache first.
+
 The engine runs on ``device="cuda"`` unless the caller passes
 ``device="cpu"`` (the tests do); it never falls back to the CPU on its own.
 Options of the JAX engine that this slice does not carry raise
@@ -107,13 +118,13 @@ from tpuserve_torch.models import transformer
 from tpuserve_torch.models.config import ModelConfig, get_model_config
 from tpuserve_torch.models.tokenizer import IncrementalDetokenizer, load_tokenizer
 from tpuserve_torch.models.weights import (
-    apply_lora, is_quantized, load_lora_stack, load_or_init, param_nbytes,
-    quantize_layer_int8, quantize_params_int8)
+    apply_lora, is_quantized, load_lora_stack, load_or_init, param_nbytes, quantize_layer_int8,
+    quantize_params_int8, to_device)
 from tpuserve_torch.ops import sampling as sampling_ops
 from tpuserve_torch.ops.ragged_paged import ragged_block, ragged_layout
 from tpuserve_torch.runtime import grammar
 from tpuserve_torch.runtime import spec as spec_mod
-from tpuserve_torch.runtime.block_manager import BlockManager
+from tpuserve_torch.runtime.block_manager import create_block_manager
 from tpuserve_torch.runtime.graphs import (
     DECODE_EXTRAS, MAX_LOGPROBS, VERIFY_MODES, DecodeExecutable, StepGraphs,
     pool_bytes_bound, sizing_of)
@@ -122,6 +133,7 @@ from tpuserve_torch.runtime.guided import (
 from tpuserve_torch.runtime.guided_choice import ChoiceStateMachine, compile_choices
 from tpuserve_torch.runtime.guided_regex import RegexStateMachine, compile_regex
 from tpuserve_torch.runtime.clock import MONOTONIC
+from tpuserve_torch.runtime.devprof import DeviceProfiler, dispatch_kind
 from tpuserve_torch.runtime.faults import FaultInjector
 from tpuserve_torch.runtime.flight import FlightRecorder
 from tpuserve_torch.runtime.hostprof import PROF
@@ -238,6 +250,12 @@ class EngineConfig:
     # multi-LoRA: adapter name -> PEFT directory, stacked and selected per
     # request by add_request(adapter=name)
     lora_modules: Optional[dict] = None
+    # Device telemetry (runtime/devprof.py), as the JAX engine's: device
+    # time from CUDA events read at the engine's existing syncs, the
+    # executable ladder with each key's capture wall, and the HBM
+    # watermark.  None = TPUSERVE_DEVPROF (default on); False removes it
+    # with serving unchanged.
+    devprof: Optional[bool] = None
 
     def resolve_attn_impl(self, device: torch.device) -> str:
         if self.attn_impl != "auto":
@@ -324,6 +342,12 @@ class EngineStats:
     spec_accepted: int = 0
     spec_pauses: int = 0
     released_blocks: int = 0         # rolling-buffer KV blocks recycled
+    # model pool hot-swaps (Engine.swap_model): total, by source tier, and
+    # recent (tier, seconds) the server's runner drains
+    model_swaps: int = 0
+    model_swaps_by_outcome: dict = dataclasses.field(default_factory=dict)
+    swap_latencies: list = dataclasses.field(default_factory=list)
+    latency_windows: int = 0         # fused windows shrunk for arrivals
 
 
 @dataclasses.dataclass
@@ -383,6 +407,9 @@ class Engine:
         if mesh is not None:
             raise NotImplementedError(
                 "tp/pp meshes are not ported yet (ROADMAP.md A10, multi-GPU)")
+        # the card's bytes outside the caching allocator before this
+        # engine made anything: the HBM watermark counts what it adds
+        self._outside_base = self._outside_allocator_bytes()
         if config.quantization not in (None, "int8"):
             # refused before the (possibly many-GB) weights are made
             raise ValueError(f"unknown quantization {config.quantization!r};"
@@ -504,7 +531,7 @@ class Engine:
             logger.info("multi-LoRA: prefix caching disabled (cached KV "
                         "is adapter-specific)")
             prefix_caching = False
-        self.block_manager = BlockManager(
+        self.block_manager = create_block_manager(
             self.cache_cfg.num_blocks, self.cache_cfg.block_size,
             enable_prefix_caching=prefix_caching)
         # Tiered KV cache (runtime/kv_tiers.py): demote evicted prefix
@@ -569,6 +596,12 @@ class Engine:
         self.scheduler.flight = self.flight if self._flight_on else None
         if self._slo is not None:
             self._slo.flight = self.flight if self._flight_on else None
+        # device telemetry (runtime/devprof.py): CUDA events around each
+        # dispatch, read at the existing syncs; the executable ladder; the
+        # HBM watermark.  Off, every bracket is a shared no-op
+        self.devprof = DeviceProfiler(enabled=config.devprof,
+                                      cuda=self.device.type == "cuda")
+        self.flight.devprof = self.devprof if self.devprof.enabled else None
         if self._flight_on:
             # every step record carries its host phases (two perf_counter
             # reads a phase); a firing fault rule lands in the timelines
@@ -610,6 +643,9 @@ class Engine:
             ragged_blk=self._ragged_blk, capture=config.resolve_cuda_graphs(self.device),
             draft_params=self._draft_params, draft_cfg=self._draft_cfg,
             n_adapters=len(self._lora_names or ()))
+        if self.devprof.enabled:
+            # each executable made (on the card: captured) is a ladder entry
+            self.graphs.on_make = self.devprof.note_executable
         self._req_counter = itertools.count()
         self._seed_counter = itertools.count()
         self._eos_ids = set(self.tokenizer.eos_token_ids)
@@ -621,6 +657,138 @@ class Engine:
             self.cache_cfg.max_model_len,
             self.model_cfg.max_position_embeddings,
             (self.cache_cfg.num_blocks - 1) * self.cache_cfg.block_size)
+        # the HBM watermark, once the weights and the cache exist; other
+        # models' weights kept on the card count in it (the model pool)
+        self._coresident_bytes = 0
+        self.note_hbm()
+
+    def swap_model(self, config: EngineConfig, *, params=None,
+                   source_tier: str = "cold") -> tuple:
+        """Replace the served model in place: the model pool's hot-swap
+        (``modelpool/pool.py`` drives it), as the JAX engine's.
+
+        The engine must be drained (``has_work()`` False: the runner swaps
+        only at its idle boundary) and single-card (no mesh).  The
+        outgoing model's captured graphs, their memory pool, its KV cache
+        and staging are released first, so two ladders of graph pools
+        never sit on the card together; the engine is then rebuilt for
+        ``config`` around ``params`` (tier-restored weights, on the host or
+        the card: host ones move to the card only once the outgoing state
+        is released, so they do not land in its cached blocks; None loads
+        or draws them: a cold swap), and the incoming graphs are captured
+        on first use.  The flight recorder, the device profiler,
+        the stats and the clock carry across.  Returns ``(old model name,
+        old params)``: the caller demotes the outgoing weights."""
+        if self.has_work():
+            raise RuntimeError("swap_model needs a drained engine (has_work() is True)")
+        if self.config.resolve_cuda_graphs(self.device) and self.graphs.capturing_since:
+            raise RuntimeError("swap_model during a graph capture")
+        t0 = self.clock.monotonic()
+        old_model, old_params = self.config.model, self.params
+        flight, devprof, stats = self.flight, self.devprof, self.stats
+        coresident = self._coresident_bytes
+        # finished records a handler has not claimed yet, and the id
+        # counters, so no new request reuses an id still held
+        requests, counters = self.requests, (self._req_counter, self._seed_counter)
+        # release the outgoing model's device state before the incoming
+        # one allocates: graphs (and their pool), cache, staging, draft
+        self.params = None
+        self.graphs.release()
+        self.graphs = self.kv_cache = self._page_staging = None
+        self._draft_params = None
+        self._pending = self._pending_window = None
+        self._fsm_device.clear()
+        import gc
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
+        if params is not None:
+            params = to_device(params, self.device)
+        self.__init__(dataclasses.replace(config, clock=self.clock), params=params,
+                      device=self.device)
+        # the replica-lifetime objects the rebuild replaced
+        self.flight = flight
+        self._flight_on = flight.enabled
+        self.scheduler.flight = flight if self._flight_on else None
+        if self._slo is not None:
+            self._slo.flight = flight if self._flight_on else None
+        if self._flight_on:
+            self.faults.on_fire = flight.fault_hook
+        self.devprof = devprof
+        flight.devprof = devprof if devprof.enabled else None
+        self.graphs.on_make = devprof.note_executable if devprof.enabled else None
+        self.stats = stats
+        self.requests.update(requests)
+        self._req_counter, self._seed_counter = counters
+        flight.note_engine_facts(
+            model=config.model, max_num_seqs=self.scheduler.cfg.max_num_seqs,
+            num_blocks=self.cache_cfg.num_blocks, block_size=self.cache_cfg.block_size,
+            max_model_len=self.cache_cfg.max_model_len,
+            mixed_batching=self.scheduler.cfg.mixed_batching, multi_step=self._multi_step,
+            slo_classes=self._slo is not None)
+        self.note_hbm(coresident)
+        dt = self.clock.monotonic() - t0
+        stats.model_swaps += 1
+        stats.model_swaps_by_outcome[source_tier] = (
+            stats.model_swaps_by_outcome.get(source_tier, 0) + 1)
+        stats.swap_latencies.append((source_tier, dt))
+        del stats.swap_latencies[:-256]
+        if self._flight_on:
+            flight.req_event(f"swap:{old_model}->{config.model}", "SWAP",
+                             source_tier=source_tier, seconds=round(dt, 4))
+        logger.info("model swap %s -> %s (%s, %.2fs)", old_model, config.model,
+                    source_tier, dt)
+        return old_model, old_params
+
+    def _device_hbm_limit(self) -> int:
+        """The card's memory in bytes (``TPUSERVE_HBM_BYTES`` overrides);
+        the 1 GiB budget the cache is sized to on the CPU."""
+        env = os.environ.get("TPUSERVE_HBM_BYTES")
+        if env:
+            return int(env)
+        if self.device.type == "cuda":
+            return int(torch.cuda.mem_get_info(self.device)[1])
+        return 1 << 30
+
+    def _outside_allocator_bytes(self) -> int:
+        """The card's used bytes outside the caching allocator's segments
+        (the CUDA context, graph executables, library handles); 0 on the
+        CPU."""
+        if self.device.type != "cuda":
+            return 0
+        free, total = torch.cuda.mem_get_info(self.device)
+        return total - free - torch.cuda.memory_reserved(self.device)
+
+    def note_hbm(self, coresident_bytes: Optional[int] = None) -> None:
+        """Refresh the device profiler's HBM watermark: the weights (the
+        draft's and, when given, ``coresident_bytes`` of other models kept
+        on the card), the KV cache's reservation, and as ``other`` what
+        the graphs and the tiers' page staging hold in the allocator
+        (``StepGraphs.device_bytes``) plus what the card gained outside
+        the allocator since the engine was made (the graphs' executables);
+        0 on the CPU.  Weights and KV are counted on their own, not as a
+        remainder of the card's used bytes.  Loop thread only: CUDA
+        calls."""
+        if coresident_bytes is not None:
+            self._coresident_bytes = coresident_bytes
+        if not self.devprof.enabled:
+            return
+        weights = (param_nbytes(self.params) + self._coresident_bytes
+                   + (param_nbytes(self._draft_params) if self._draft_params is not None
+                      else 0))
+        kv = sum(t.numel() * t.element_size() for layer in self.kv_cache for t in layer.values())
+        other = 0
+        if self.device.type == "cuda":
+            other = (self.graphs.device_bytes()
+                     + (self._page_staging.buf.numel() if self._page_staging is not None else 0)
+                     + max(0, self._outside_allocator_bytes() - self._outside_base))
+        n = self.cache_cfg.num_blocks
+        self.devprof.set_hbm(weights=weights, kv_reserved=kv, limit=self._device_hbm_limit(),
+                             num_blocks=n, block_bytes=kv // n if n else 0, other=other)
+        # activations scale with tokens x hidden: three float32 buffers of
+        # the hidden width a token, a rough estimate
+        self.devprof.set_model_hints(act_bytes_per_token=int(self.model_cfg.hidden_size) * 4 * 3)
 
     def _decode_ladder(self) -> list[int]:
         """Every padded batch a decode dispatch can take
@@ -1066,17 +1234,20 @@ class Engine:
         return outputs
 
     def _check_block_integrity(self) -> None:
+        chk = getattr(self.block_manager, "check_integrity", None)
+        if chk is None:              # the C++ manager: no introspection
+            return
         holders = {r.request_id for r in self.scheduler.running}
         holders |= {r.request_id for r in self.scheduler.waiting if r.num_prefilled > 0}
         tier_hashes = (list(self._kv_tiers.hashes())
                        if self._kv_tiers is not None else None)
-        self.block_manager.check_integrity(expected_seq_ids=holders,
-                                           tier_hashes=tier_hashes)
+        chk(expected_seq_ids=holders, tier_hashes=tier_hashes)
 
     def _step_inner(self) -> list[RequestOutput]:
         self._dispatch_rids = ()
         self._step_kind = "idle"
         PROF.bump_cycle()
+        self.devprof.bump_cycle()
         # before scheduling: deadline-expired queued requests leave, and a
         # stricter-class waiting head may preempt running batch rows
         self._expire_queued_deadlines()
@@ -1175,7 +1346,7 @@ class Engine:
         self._stage_adapters(st, reqs)
         self._demote_evicted()
         self.faults.check("prefill_dispatch", self._dispatch_rids)
-        with PROF.phase("dispatch"):
+        with PROF.phase("dispatch"), self.devprof.dispatch("prefill", exe.key):
             exe.load(st)
             exe.run()
         self.scheduler.mark_running(reqs)
@@ -1261,7 +1432,7 @@ class Engine:
         self._stage_adapters(st, [req])
         self._demote_evicted()
         self.faults.check("prefill_dispatch", self._dispatch_rids)
-        with PROF.phase("dispatch"):
+        with PROF.phase("dispatch"), self.devprof.dispatch("prefill_chunk", exe.key):
             exe.load(st)
             exe.run()
         req.num_prefilled = done + n
@@ -1363,7 +1534,7 @@ class Engine:
                              [slice(s, s + c[3]) for c, s in zip(comp + cont, starts)])
         self._demote_evicted()
         self.faults.check("mixed_dispatch", self._dispatch_rids)
-        with PROF.phase("dispatch"):
+        with PROF.phase("dispatch"), self.devprof.dispatch("mixed", exe.key):
             exe.load(st)
             exe.run()
         self.stats.num_mixed_steps += 1
@@ -1408,7 +1579,27 @@ class Engine:
         of the logits sampled from (before temperature) are recorded for
         the rows that asked; substitution-path rows get their token
         checked and, where illegal, replaced on the host."""
+        with self.devprof.dispatch("sample"):
+            toks, logits = self._sample_on_device(logits, reqs, B)
         n = len(reqs)
+        with PROF.phase("flush"), self.devprof.sync("sample"):
+            # the synchronous sampler's one wait on the card
+            toks_np = toks.cpu().numpy()[:n].copy()
+        if any(r.params.logprobs is not None for r in reqs):
+            top_n = min(max(r.params.logprobs or 0 for r in reqs) or 1, self.MAX_LOGPROBS)
+            chosen, ids, lps = (x.cpu().numpy() for x in
+                                sampling_ops.compute_logprobs(logits, toks, top_n))
+            for i, r in enumerate(reqs):
+                if r.params.logprobs is not None:
+                    self._append_logprob_entry(r, int(toks_np[i]), chosen[i], ids[i], lps[i])
+        if any(r.request_id in self._guided for r in reqs):
+            self._apply_guided(logits, toks_np, reqs)
+        return toks_np
+
+    def _sample_on_device(self, logits: torch.Tensor, reqs: list[Request], B: int) -> tuple:
+        """``_sample``'s device part: the (B,) sampled tokens on the card and
+        the logits they were sampled from (after penalties, bias, floor
+        and mask)."""
         V = logits.shape[1]
         t = self._tensor
         if any(r.params.needs_penalties for r in reqs):
@@ -1439,19 +1630,7 @@ class Engine:
                 logits, t(temperature), mode=mode,
                 gumbel=lambda: sampling_ops.keyed_gumbel(t(salt), t(step), V),
                 top_k=t(top_k), top_p=t(top_p), min_p=t(min_p))
-        with PROF.phase("flush"):
-            # the synchronous sampler's one wait on the card
-            toks_np = toks.cpu().numpy()[:n].copy()
-        if any(r.params.logprobs is not None for r in reqs):
-            top_n = min(max(r.params.logprobs or 0 for r in reqs) or 1, self.MAX_LOGPROBS)
-            chosen, ids, lps = (x.cpu().numpy() for x in
-                                sampling_ops.compute_logprobs(logits, toks, top_n))
-            for i, r in enumerate(reqs):
-                if r.params.logprobs is not None:
-                    self._append_logprob_entry(r, int(toks_np[i]), chosen[i], ids[i], lps[i])
-        if any(r.request_id in self._guided for r in reqs):
-            self._apply_guided(logits, toks_np, reqs)
-        return toks_np
+        return toks, logits
 
     # ---- guided decoding ------------------------------------------------
 
@@ -1522,13 +1701,16 @@ class Engine:
         grammar-FSM memo and the executable ladder (``runtime/graphs.py``:
         a miss makes an executable, on the card a captured graph), in the
         JAX engine's shape; /debug/engine reports them."""
-        g = self.graphs
+        g, dp = self.graphs, self.devprof
+        # the making of each executable (its capture on the card), as the
+        # device profiler's ladder timed it, else the captures alone
+        made_s = dp.compile_s if dp.enabled else g.capture_s
         return {
             "fsm": {"hits": self._fsm_stats["hits"], "misses": self._fsm_stats["misses"],
                     "disk_hits": self._fsm_stats["disk_hits"], "size": len(self._fsm_cache)},
             "ladder": {"hits": g.hits, "misses": len(g.executables),
                        "size": len(g.executables),
-                       "compile_ms": round(g.capture_s * 1000.0, 3), "tracked": True},
+                       "compile_ms": round(made_s * 1000.0, 3), "tracked": True},
         }
 
     def _memoise_fsm(self, key: tuple, fsm) -> None:
@@ -1593,7 +1775,8 @@ class Engine:
         step's input token comes from the host."""
         k = min(self.GUIDED_TOP_K, logits.shape[-1])
         # ties in index order, as the JAX top_k
-        ids_h = torch.sort(-logits.float(), dim=-1, stable=True)[1][:, :k].cpu().numpy()
+        with self.devprof.sync("guided"):
+            ids_h = torch.sort(-logits.float(), dim=-1, stable=True)[1][:, :k].cpu().numpy()
         for i, r in enumerate(reqs):
             st = self._guided.get(r.request_id)
             if st is not None:
@@ -1875,7 +2058,8 @@ class Engine:
                                                  st.block_tables)
         self._demote_evicted()
         self.faults.check("decode_dispatch", self._dispatch_rids)
-        with PROF.phase("dispatch"):
+        with PROF.phase("dispatch"), self.devprof.dispatch(
+                "decode_multi" if window else "decode", exe.key):
             exe.load(st, chain=(pending.exe, pending.steps) if chain_idx else None)
             if pen:
                 exe.load_extras(np.where(mask, out_tokens, V),
@@ -2042,6 +2226,10 @@ class Engine:
         exe, toks, lps, event, _ = self._dispatch(reqs, S, p.steps if p is not None else 0,
                                                   chain, p, window=True)
         self.stats.num_decode_windows += 1
+        if S < self._multi_step:
+            # counted at the dispatch, not in _window_steps(): a batch that
+            # falls back to single steps above shrank no window
+            self.stats.latency_windows += 1
         if exe.state.gstate is not None:
             self.stats.guided_fsm_windows += 1
         window = PendingWindow(reqs=list(reqs), exe=exe, toks=toks, event=event, steps=S,
@@ -2069,7 +2257,7 @@ class Engine:
         # a fault site of its own (the wait for the card's output): the
         # window is detached already, so a fault drops it for salvage
         self.faults.check("window_flush", tuple(r.request_id for r in p.reqs))
-        with PROF.phase("flush"):
+        with PROF.phase("flush"), self.devprof.sync("window"):
             toks_h, lp_h = _read(p)
         # commit the written KV before emitting (a finish frees blocks);
         # rows that finished in flight were freed already
@@ -2101,7 +2289,7 @@ class Engine:
         p, self._pending = self._pending, None
         if p is None:
             return []
-        with PROF.phase("flush"):
+        with PROF.phase("flush"), self.devprof.sync("decode"):
             toks_h, lp_h = _read(p)
         outputs = []
         with PROF.phase("detokenize"):
@@ -2187,10 +2375,10 @@ class Engine:
             self.flight.req_event_many(self._dispatch_rids, "WINDOW", steps=K, spec=True)
         self._demote_evicted()
         self.faults.check("decode_dispatch", self._dispatch_rids)
-        with PROF.phase("dispatch"):
+        with PROF.phase("dispatch"), self.devprof.dispatch(dispatch_kind(exe.key), exe.key):
             exe.load(st)
             exe.run()
-        with PROF.phase("flush"):
+        with PROF.phase("flush"), self.devprof.sync("verify"):
             # the step's one wait on the card: acceptance decides emission
             out = exe.fetch()
         pred_h, accept_h = out[0], (out[1] if sampled else None)
@@ -2229,10 +2417,10 @@ class Engine:
             st.tokens[i, :len(ids)] = ids
             st.lens[i] = len(ids)
         self.faults.check("decode_dispatch", self._dispatch_rids)
-        with PROF.phase("dispatch"):
+        with PROF.phase("dispatch"), self.devprof.dispatch("draft", exe.key):
             exe.load(st)
             exe.run()
-        with PROF.phase("flush"):
+        with PROF.phase("flush"), self.devprof.sync("draft"):
             # designated wait: the proposals feed this step's verify batch
             out = exe.fetch()[0]
         return [[int(t) for t in out[i]] for i in range(len(reqs))]
@@ -2616,6 +2804,8 @@ class Engine:
                            // st.record_bytes)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        # the graph pools and staging now exist: the watermark counts them
+        self.note_hbm()
 
     # ------------------------------------------------------------------
     # Embeddings and prompt scoring: the cache-less trunk, no KV cache

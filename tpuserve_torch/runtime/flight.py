@@ -18,10 +18,12 @@ On by default, as in the JAX engine, it keeps:
   ``tpuserve_flight_postmortems_total``.
 
 Bundles have the JAX recorder's schema (``FLIGHT_SCHEMA_VERSION``) and
-keys, so the JAX package's replay extractor reads them; the port has no
-device profiler yet (ROADMAP.md A9), so a bundle is that of a JAX engine
-run with ``TPUSERVE_DEVPROF=0`` (no ``devprof`` section, no ``dev`` field
-in a step record).
+keys, so the JAX package's replay extractor reads them.  With the engine's
+device profiler on (``runtime/devprof.py``), a step record carries its
+``dev`` deltas (device ms from CUDA events, dispatch ms, captures) and
+``/debug/engine`` and every bundle a ``devprof`` section (the ladder, the
+HBM watermark, the profiler traces taken); with it off they are absent,
+as in the JAX recorder.
 
 Threading contract: every mutating call runs on the engine loop thread.
 Serving threads take snapshots only: ring entries are immutable tuples, a
@@ -121,6 +123,9 @@ class FlightRecorder:
         self._sli: dict = {}
         self.postmortems = 0
         self.last_postmortem: Optional[str] = None
+        # the owning engine's device profiler (runtime/devprof.py) when it
+        # is on; None keeps every record as a profiler-less engine's
+        self.devprof = None
 
     # ---- writes (engine loop thread) ---------------------------------
 
@@ -162,8 +167,9 @@ class FlightRecorder:
                 if d > 0:
                     phases[k] = round(d * 1000, 4)
             self._prof_last = cur
+        dev = self.devprof.step_delta() if self.devprof is not None else None
         self._steps.append((self._clock.monotonic(), kind, rows, actual, padded,
-                            round(dur_s * 1000, 4), phases or None))
+                            round(dur_s * 1000, 4), phases or None, dev))
 
     def note_engine_facts(self, **facts) -> None:
         """Engine configuration facts stamped into every bundle (recorded
@@ -217,11 +223,13 @@ class FlightRecorder:
 
     def steps_snapshot(self, limit: int = 128) -> list[dict]:
         out = []
-        for t, kind, rows, actual, padded, ms, phases in self._steps.snapshot()[-limit:]:
+        for t, kind, rows, actual, padded, ms, phases, dev in self._steps.snapshot()[-limit:]:
             rec = {"t": t, "kind": kind, "rows": rows, "actual_tokens": actual,
                    "padded_tokens": padded, "ms": ms}
             if phases:
                 rec["phase_ms"] = phases
+            if dev:
+                rec["dev"] = dev
             out.append(rec)
         return out
 
@@ -240,7 +248,7 @@ class FlightRecorder:
         return out
 
     def engine_snapshot(self, steps: int = 128) -> dict:
-        return {
+        out = {
             "enabled": self.enabled,
             "events_recorded": self._events.idx,
             "steps_recorded": self._steps.idx,
@@ -251,6 +259,9 @@ class FlightRecorder:
             "postmortems": self.postmortems,
             "last_postmortem": self.last_postmortem,
         }
+        if self.devprof is not None:
+            out["devprof"] = self.devprof.snapshot()
+        return out
 
     def wall_of(self, t_mono: float) -> float:
         """A recorded monotonic timestamp on the wall clock (span export
@@ -283,6 +294,10 @@ class FlightRecorder:
             "sli": self.sli_summary(),
             "control": dict(self._control),
         }
+        if self.devprof is not None:
+            # the ladder, the HBM watermark and the profiler traces taken
+            # (written beside the bundles, under the same directory)
+            bundle["devprof"] = self.devprof.snapshot()
         bundle["rings"] = {
             "events": {"cursor": ev_cursor, "capacity": self._events._n,
                        "dropped": max(0, ev_cursor - self._events._n),

@@ -676,6 +676,9 @@ class StepGraphs:
         # None: the runner's watchdog discounts a step's capture time
         self.capturing_since: float | None = None
         self.replays = collections.Counter()      # by step kind
+        # called with (key, seconds) when an executable is made (on the
+        # card: its capture wall), the device profiler's ladder hook
+        self.on_make = None
         self.hits = 0                # get() calls that found their executable
         self._sampling_buffers = None
         # (N, C) grammar bucket -> [masks, tok_class, class_next, loaded tag]
@@ -735,6 +738,7 @@ class StepGraphs:
         if exe is not None:
             self.hits += 1
         else:
+            t0 = time.perf_counter()
             if key[0] == "decode":
                 exe = DecodeExecutable(self, key)
             elif key[0] in SPEC_KINDS:
@@ -750,7 +754,21 @@ class StepGraphs:
                 finally:
                     self.capturing_since = None   # ... the stamp goes
             self.executables[key] = exe
+            if self.on_make is not None:
+                self.on_make(key, time.perf_counter() - t0)
         return exe
+
+    def release(self) -> None:
+        """Drop every executable (on the card: the captured graphs, whose
+        pool goes with the last of them) and the capture stream's split-K
+        scratch, before the owner's engine is rebuilt around another
+        model."""
+        self.executables.clear()
+        self._sampling_buffers = None
+        self._grammar.clear()
+        if self.stream is not None and self.workspace is not None:
+            paged_decode.release_workspace(*self._workspace_key())
+        self.workspace = None
 
     def pool_bound(self, keys) -> int:
         """:func:`pool_bytes_bound` of ``keys`` for these graphs' model,
@@ -764,6 +782,15 @@ class StepGraphs:
             return 0
         return sum(seg["total_size"]
                    for seg in torch.cuda.memory_snapshot(mempool_id=self.pool))
+
+    def device_bytes(self) -> int:
+        """Device memory these graphs hold beyond the weights and the
+        cache, as the allocator reports it: the pool's segments, the
+        shared sampling and grammar buffers, the split-K scratch."""
+        held = [t for t in (self._sampling_buffers or ())]
+        held += [t for tabs in self._grammar.values() for t in tabs if torch.is_tensor(t)]
+        held += list(self.workspace or ())
+        return self.pool_bytes() + sum(t.numel() * t.element_size() for t in held)
 
     def warmup(self, keys) -> None:
         """Make every executable of ``keys``, the largest transient first,

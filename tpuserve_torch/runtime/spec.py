@@ -11,8 +11,9 @@ whole draft window in ONE verify pass (``transformer.decode_verify``, or
 matching prefix plus one bonus token, so a step emits 1..k+1 tokens for
 one weight pass.
 
-The proposer is the pure-Python scanner; the JAX package prefers its C++
-twin when built, and the port's native binding waits for ROADMAP.md A4.
+The proposer is the C++ scanner of ``tpuserve_torch.native`` when g++
+built it (it runs on the host between dispatches, once a sequence a spec
+step), else the pure-Python one, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -63,13 +64,10 @@ class SpecConfig:
     adaptive_pause_steps: int = 4096
 
 
-def ngram_propose(ids: list[int], k: int, max_ngram: int = 3,
-                  min_ngram: int = 1, max_lookback: int = 1024) -> list[int]:
-    """Propose up to ``k`` draft tokens from the sequence's own history:
-    the tokens that followed the most recent earlier occurrence of the
-    trailing n-gram within the last ``max_lookback`` tokens, longest n
-    first (the JAX ``_ngram_propose_py``, which its native scanner
-    matches)."""
+def _ngram_propose_py(ids: list[int], k: int, max_ngram: int = 3,
+                      min_ngram: int = 1, max_lookback: int = 1024) -> list[int]:
+    """The pure-Python scanner (the JAX ``_ngram_propose_py``, which the
+    C++ one matches)."""
     if len(ids) > max_lookback:
         ids = ids[-max_lookback:]
     L = len(ids)
@@ -85,6 +83,29 @@ def ngram_propose(ids: list[int], k: int, max_ngram: int = 3,
                 if cont:
                     return cont
     return []
+
+
+def _resolve_propose():
+    """The C++ scanner when the extension builds, else the Python one."""
+    from tpuserve_torch import native
+    if native.native_available():
+        return native.ngram_propose
+    return _ngram_propose_py
+
+
+_propose_impl = None
+
+
+def ngram_propose(ids: list[int], k: int, max_ngram: int = 3,
+                  min_ngram: int = 1, max_lookback: int = 1024) -> list[int]:
+    """Propose up to ``k`` draft tokens from the sequence's own history:
+    the tokens that followed the most recent earlier occurrence of the
+    trailing n-gram within the last ``max_lookback`` tokens, longest n
+    first."""
+    global _propose_impl
+    if _propose_impl is None:
+        _propose_impl = _resolve_propose()
+    return _propose_impl(ids, k, max_ngram, min_ngram, max_lookback)
 
 
 def accept_greedy(draft: list[int], pred) -> list[int]:

@@ -32,10 +32,30 @@ chat request whose ``model`` names an adapter is served by it and the
 response's ``model`` echoes it; embeddings, ``prompt_logprobs`` and prompt
 scoring refuse an adapter with a 400 (their trunks are the base model's).
 
-SLO classes (``slo_class`` in the body or the ``X-SLO-Class`` header) reach
-the engine's controller (``runtime/slo.py``): a request the brownout
-ladder sheds, or one evicted from a full queue for a stricter arrival, is
-answered 429 with ``Retry-After`` (type ``overloaded``), streamed or not.
+SLO classes (``slo_class`` in the body, the ``X-SLO-Class`` header, or the
+tenant's default) reach the engine's controller (``runtime/slo.py``): a
+request the brownout ladder sheds, or one evicted from a full queue for a
+stricter arrival, is answered 429 with ``Retry-After`` (type
+``overloaded``), streamed or not.
+
+The JAX server's services around one card, as its own:
+- tenants (``server/tenants.py``, ``--tenant-config``): an API key or a
+  LoRA adapter is a tenant; a request is charged its estimated tokens at
+  intake (429 ``rate_limit_exceeded`` with ``Retry-After`` when its token
+  bucket is short) and settled with what was served; an
+  ``X-TPUServe-Canary`` probe is neither charged nor in any SLI;
+- in-process SLO burn rates (``obs/``, ``--slo-objectives``,
+  ``--no-slo-burn``): the runner's evaluator, ``tpuserve_slo_*`` on
+  ``/metrics`` and ``slo`` on ``/debug/engine``;
+- ``/debug/profile?seconds=S`` (GET or POST): a ``torch.profiler`` trace
+  (``server/tracing.py``), 409 while another runs;
+- the card's gauges from NVML (``server/gpu_metrics.py``,
+  ``ServerConfig.tpu_metrics``);
+- the model pool (``modelpool/``, ``--model-catalog``): a request whose
+  ``model`` names another registered model parks until the engine swaps to
+  it at an idle boundary (``--swap-policy swap``) or gets a 503 with
+  ``Retry-After`` (``reject``); ``/v1/models`` lists the catalog with each
+  model's tier, ``/debug/engine`` the pool's ``modelpool`` state.
 
 Handler threads make no CUDA call: they tokenize, queue and write JSON.
 Every step, graph capture and device copy runs on the runner's loop thread
@@ -50,6 +70,7 @@ import dataclasses
 import json
 import logging
 import math
+import os
 import queue
 import sys
 import threading
@@ -68,8 +89,10 @@ from tpuserve_torch.server.kv_digest import (
     AFFINITY_PREFIX_CHARS, PrefixDigestTracker, affinity_key)
 from tpuserve_torch.server.metrics import ServerMetrics
 from tpuserve_torch.server.runner import AsyncEngineRunner
+from tpuserve_torch.server.tenants import TenantRegistry, estimate_cost
 from tpuserve_torch.server.tool_calls import ToolContext, normalize_messages
 from tpuserve_torch.server.tracing import emit_timeline_spans, extract_context, get_tracer
+from tpuserve_torch.utils import env_flag
 
 logger = logging.getLogger("tpuserve_torch.server")
 
@@ -96,6 +119,29 @@ class ServerConfig:
     tool_call_parser: Optional[str] = None
     # (B, T) embeddings-trunk buckets run at startup (--warmup-embed)
     warmup_embed: tuple = ()
+    # the card's own gauges on /metrics (server/gpu_metrics.py, NVML under
+    # the DCGM exporter's names); the JAX field's name, kept
+    tpu_metrics: bool = True
+    # per-tenant metering and rate limits (server/tenants.py): inline JSON
+    # or a file path; None = TPUSERVE_TENANTS (unset: metering only, all
+    # under tenant "default")
+    tenant_config: Optional[str] = None
+    # the in-process SLO burn-rate evaluator (obs/); TPUSERVE_SLO_BURN=0
+    # also removes it
+    slo_burn: bool = True
+    # objectives override (obs/objectives.py): inline JSON or a file path;
+    # None = TPUSERVE_SLO_OBJECTIVES, else the defaults.  Validated here
+    slo_objectives: Optional[str] = None
+    # the model pool (modelpool/): a catalog (JSON object of name ->
+    # checkpoint dir, or a comma-separated name list); None =
+    # TPUSERVE_MODEL_CATALOG; none means no pool
+    model_catalog: Optional[str] = None
+    swap_policy: str = "swap"              # "swap" | "reject"
+    max_resident_models: int = 1           # weight sets on the card at once
+    weight_host_bytes: int = 0             # 0 = TPUSERVE_WEIGHT_HOST_BYTES or 2 GiB
+    weight_spill_dir: Optional[str] = None  # None = TPUSERVE_WEIGHT_SPILL_DIR
+    # Retry-After seconds of swap_policy="reject" 503s
+    swap_retry_after_s: int = 5
 
 
 def _num(body: dict, key: str, default, cast):
@@ -261,6 +307,43 @@ class OpenAIServer:
         self.engine = engine
         # affinity keys of the prompts served, advertised on /healthz
         self.kv_digest = PrefixDigestTracker()
+        # tenants: an empty registry still meters everything as "default"
+        # and resolves LoRA adapters as tenants
+        self.tenants = TenantRegistry.load(self.config.tenant_config) or TenantRegistry()
+        # the burn-rate evaluator, validated at boot: bad objectives fail
+        # the server, not the alert
+        if self.config.slo_burn and env_flag("TPUSERVE_SLO_BURN"):
+            from tpuserve_torch.obs import BurnRateEvaluator, load_objectives
+            self.runner.slo_eval = BurnRateEvaluator(
+                load_objectives(self.config.slo_objectives), clock=self.runner._clock)
+        # the model pool: no catalog (or TPUSERVE_MODELPOOL=0) makes none,
+        # and every consumer checks for None
+        self.pool = None
+        from tpuserve_torch.modelpool import (ModelPool, ModelPoolConfig, parse_catalog,
+                                              pool_enabled)
+        catalog = parse_catalog(self.config.model_catalog
+                                or os.environ.get("TPUSERVE_MODEL_CATALOG"))
+        if catalog and pool_enabled():
+            if not hasattr(engine, "config"):
+                raise ValueError("--model-catalog needs a plain single engine")
+            self.pool = ModelPool(engine.config, ModelPoolConfig(
+                catalog=catalog, max_resident=self.config.max_resident_models,
+                swap_policy=self.config.swap_policy,
+                host_bytes=self.config.weight_host_bytes,
+                spill_dir=self.config.weight_spill_dir,
+                retry_after_s=self.config.swap_retry_after_s))
+            self.runner.pool = self.pool
+            logger.info("model pool: catalog=%s max_resident=%d policy=%s",
+                        self.pool.models(), self.config.max_resident_models,
+                        self.config.swap_policy)
+        self.gpu_exporter = None
+        if self.config.tpu_metrics:
+            from tpuserve_torch.server.gpu_metrics import GpuMetricsExporter
+            try:
+                self.gpu_exporter = GpuMetricsExporter(self.metrics)
+                self.runner.on_step_time = self.gpu_exporter.record_busy
+            except OSError as e:
+                logger.info("card metrics off: NVML unavailable (%s)", e)
         self.ready = threading.Event()
         self.draining = False          # drain(): reject new work, finish old
         # live POST handlers: drain() waits for delivery, not only for the
@@ -281,6 +364,8 @@ class OpenAIServer:
         thread, before any request can arrive) and open the listener;
         returns the bound port."""
         self.runner.start()
+        if self.gpu_exporter is not None:
+            self.gpu_exporter.start()
         if warmup:
             # embed buckets opt-in, as the JAX server's
             self.engine.warmup(embed_buckets=self.config.warmup_embed)
@@ -330,6 +415,8 @@ class OpenAIServer:
             self._httpd.shutdown()
             self._httpd.server_close()
         self.runner.shutdown()
+        if self.gpu_exporter is not None:
+            self.gpu_exporter.stop()
 
     def healthz_payload(self) -> dict:
         """Liveness plus the cache-affinity advertisement, the JAX
@@ -352,6 +439,10 @@ class OpenAIServer:
             # the prefix length the keys were hashed with: a gateway probes
             # membership with this server's value
             out["kv_digest_chars"] = AFFINITY_PREFIX_CHARS
+            if self.pool is not None:
+                # the catalog with each model's tier (the gateway's routing)
+                out["models"] = self.pool.catalog_status()
+                out["model_current"] = self.pool.current
         except Exception:
             logger.exception("healthz telemetry")
         return out
@@ -438,10 +529,19 @@ class OpenAIServer:
         caches; ``{"enabled": False}`` with the recorder off."""
         flights = self.runner._flights()
         if not flights:
-            return {"enabled": False}
+            out = {"enabled": False}
+            if self.pool is not None:
+                out["modelpool"] = self.pool.status()
+            return out
         out = flights[0].engine_snapshot()
         out["cold_start_s"] = self.runner.cold_start_s
+        ev = self.runner.slo_eval
+        if ev is not None:
+            # the loop thread's last published state
+            out["slo"] = dict(ev.last_state)
         out["compile_caches"] = self.engine.compile_cache_stats()
+        if self.pool is not None:
+            out["modelpool"] = self.pool.status()
         return out
 
     def emit_engine_spans(self, rids) -> None:
@@ -524,13 +624,19 @@ class _Handler(BaseHTTPRequestHandler):
             now = int(time.time())
             # loaded LoRA adapters are selectable models, their parent the
             # base (vLLM's --lora-modules listing)
-            self._json(200, {"object": "list", "data": [{
-                "id": ctx.model_name, "object": "model", "created": now,
-                "owned_by": "tpuserve", "max_model_len": eng.max_seq_len,
-                "quantization": eng.config.quantization,
-                "kv_cache_dtype": eng.cache_cfg.dtype}] + [
-                {"id": name, "object": "model", "created": now, "owned_by": "tpuserve",
-                 "parent": ctx.model_name} for name in ctx.lora_names]})
+            data = [{"id": ctx.model_name, "object": "model", "created": now,
+                     "owned_by": "tpuserve", "max_model_len": eng.max_seq_len,
+                     "quantization": eng.config.quantization,
+                     "kv_cache_dtype": eng.cache_cfg.dtype}]
+            data += [{"id": name, "object": "model", "created": now, "owned_by": "tpuserve",
+                      "parent": ctx.model_name} for name in ctx.lora_names]
+            if ctx.pool is not None:
+                # the catalog, each with its tier (serving, resident, host,
+                # spill, cold)
+                data += [{"id": name, "object": "model", "created": now,
+                          "owned_by": "tpuserve", "tier": ctx.pool.tier_of(name)}
+                         for name in ctx.pool.models() if name != ctx.model_name]
+            self._json(200, {"object": "list", "data": data})
         elif self.path.startswith("/v1/models/"):
             # ids may contain '/', e.g. Qwen/Qwen3-0.6B: match the raw suffix
             wanted = unquote(self.path[len("/v1/models/"):])
@@ -541,6 +647,10 @@ class _Handler(BaseHTTPRequestHandler):
                 self._json(200, {"id": wanted, "object": "model",
                                  "created": int(time.time()), "owned_by": "tpuserve",
                                  "parent": ctx.model_name})
+            elif ctx.pool is not None and ctx.pool.is_registered(wanted):
+                self._json(200, {"id": wanted, "object": "model",
+                                 "created": int(time.time()), "owned_by": "tpuserve",
+                                 "tier": ctx.pool.tier_of(wanted)})
             else:
                 self._error(404, f"model {wanted!r} not found")
         elif self.path == "/metrics":
@@ -580,13 +690,42 @@ class _Handler(BaseHTTPRequestHandler):
             else:
                 self._error(404, f"no recorded events for {rid!r} (the ring holds the "
                                  "most recent TPUSERVE_FLIGHT_EVENTS events)")
+        elif self.path.startswith("/debug/profile"):
+            self._handle_profile()
         else:
             self._error(404, f"no route {self.path}")
+
+    def _handle_profile(self) -> None:
+        """A ``torch.profiler`` trace of ``seconds`` (default 2) of live
+        serving: this handler waits, the engine keeps stepping, and the
+        profiler starts and stops on the loop thread.  One capture at a
+        time a process (409 otherwise); the trace lands under
+        ``TPUSERVE_FLIGHT_DIR`` when set and is recorded on the engine's
+        device profiler, so bundles name it."""
+        from urllib.parse import parse_qs, urlparse
+        from tpuserve_torch.server.tracing import CaptureBusy, capture_profile_locked
+        ctx = self.ctx
+        try:
+            q = parse_qs(urlparse(self.path).query)
+            seconds = float(q.get("seconds", ["2"])[0])
+            self._json(200, capture_profile_locked(
+                seconds, reason="manual", profilers=[getattr(ctx.engine, "devprof", None)],
+                call=ctx.runner.call))
+        except CaptureBusy as e:
+            self._error(409, str(e), "server_error")
+        except ValueError as e:
+            self._error(400, str(e))
+        except Exception as e:
+            logger.exception("profile capture failed")
+            self._error(500, f"profile capture failed: {e}", "server_error")
 
     def do_POST(self):
         # enter BEFORE the draining check, or a thread descheduled between
         # the two could submit into an engine loop drain() already stopped
         self.ctx._handler_enter()
+        # tenant accounting of this request (a keep-alive connection reuses
+        # the handler)
+        self._tenant = self._charged = None
         try:
             if self.ctx.draining:
                 self._error(503, "server is draining; retry another replica",
@@ -595,9 +734,27 @@ class _Handler(BaseHTTPRequestHandler):
                 return
             self._do_post_inner()
         finally:
+            # a request that failed before serving refunds its whole charge
+            # (settling is once only: served paths settled already)
+            self._settle_tenant(0)
             self.ctx._handler_exit()
 
+    def _settle_tenant(self, actual: int) -> None:
+        """Settle the tenant's rate-limit charge against the tokens served
+        and meter them; the first call of a request wins."""
+        charged, tenant = self._charged, self._tenant
+        if tenant is None or charged is None:
+            return
+        self._charged = None
+        self.ctx.tenants.settle(tenant, charged, actual)
+        if actual:
+            self.ctx.metrics.tenant_tokens.labels(model_name=self.ctx.model_name,
+                                                  tenant=tenant).inc(actual)
+
     def _do_post_inner(self):
+        if self.path.startswith("/debug/profile"):
+            self._handle_profile()
+            return
         if self.path in ("/tokenize", "/detokenize"):
             self._handle_tokenize(self.path == "/tokenize")
             return
@@ -620,12 +777,24 @@ class _Handler(BaseHTTPRequestHandler):
             if "stream_options" in body and not isinstance(body.get("stream_options"),
                                                            dict):
                 raise ValueError("'stream_options' must be an object")
-            if body.get("slo_class") is None and self.headers.get("X-SLO-Class"):
-                cls = self.headers["X-SLO-Class"]
-                if cls not in SLO_CLASSES:
-                    raise ValueError(f"X-SLO-Class must be one of {'/'.join(SLO_CLASSES)}, "
-                                     f"got {cls!r}")
-                params = dataclasses.replace(params, slo_class=cls)
+            # a synthetic canary probe (obs/canary.py) is served like any
+            # request of its class but never charged to a tenant, noted in
+            # the affinity digest or counted in an SLI
+            from tpuserve_torch.obs.canary import is_canary_header
+            canary = is_canary_header(self.headers.get("X-TPUServe-Canary"))
+            if canary:
+                params = dataclasses.replace(params, canary=True)
+            tenant = None if canary else ctx.tenants.resolve(
+                self.headers.get("Authorization"), body.get("model"), tuple(ctx.lora_names))
+            self._tenant = tenant
+            if body.get("slo_class") is None:
+                # body field > X-SLO-Class header > tenant default > standard
+                cls = self.headers.get("X-SLO-Class") or ctx.tenants.slo_class_for(tenant)
+                if cls is not None:
+                    if cls not in SLO_CLASSES:
+                        raise ValueError(f"X-SLO-Class must be one of "
+                                         f"{'/'.join(SLO_CLASSES)}, got {cls!r}")
+                    params = dataclasses.replace(params, slo_class=cls)
             if body.get("prompt_logprobs") is not None and stream:
                 raise ValueError("prompt_logprobs is not supported with stream=true; use "
                                  "echo+logprobs for streamed prompt logprobs")
@@ -639,9 +808,20 @@ class _Handler(BaseHTTPRequestHandler):
         except (ValueError, NotImplementedError, json.JSONDecodeError) as e:
             self._error(400, str(e))
             return
+        cost = estimate_cost(body)
+        retry = None if canary else ctx.tenants.charge(tenant, cost)
+        if retry is not None:
+            ctx.metrics.tenant_rate_limited.labels(model_name=ctx.model_name,
+                                                   tenant=tenant).inc()
+            self._error(429, f"tenant {tenant!r} token rate limit exceeded; retry in "
+                             f"{retry:.1f}s", "rate_limit_exceeded",
+                        headers={"Retry-After": str(int(retry) + 1)})
+            return
+        self._charged = None if canary else cost
         # the affinity key is noted only once every validation passed: a
         # 400 caches no KV and must not steer a gateway here
-        ctx.kv_digest.note(affinity_key(body))
+        if not canary:
+            ctx.kv_digest.note(affinity_key(body))
         kwargs = ({"prompt_token_ids": prompt} if isinstance(prompt, list)
                   else {"prompt": prompt})
         # multi-LoRA routing (vLLM semantics): "model" naming a loaded
@@ -661,6 +841,29 @@ class _Handler(BaseHTTPRequestHandler):
                                  "base model; drop echo or use "
                                  f"model={ctx.model_name!r}")
                 return
+        elif ctx.pool is not None and isinstance(adapter, str):
+            # the catalog: another registered model parks for a swap
+            # ("swap") or gets a retryable 503 ("reject"); an unregistered
+            # name serves whatever is current, as without a pool.  Demand is
+            # noted either way (it starts a spill -> host prefetch)
+            verdict = ctx.pool.route(adapter)
+            if verdict in ("swap", "reject"):
+                ctx.pool.note_demand(adapter)
+            if verdict == "swap":
+                kwargs["model"] = adapter
+            elif verdict == "reject":
+                ctx.pool.rejects += 1
+                self._error(503, f"model {adapter!r} is registered but not resident on "
+                                 "this replica; retry (routing prefers a warm replica)",
+                            "server_error",
+                            headers={"Retry-After": str(ctx.pool.cfg.retry_after_s)})
+                return
+        if "model" in kwargs and (params.max_tokens == 0 or body.get("echo")
+                                  or body.get("prompt_logprobs") is not None):
+            # scoring runs on the engine as it is: it cannot park for a swap
+            self._error(400, "prompt scoring is served by the model now resident; retry "
+                             f"once it is serving {kwargs['model']!r}")
+            return
         if params.max_tokens == 0:
             # OpenAI prompt scoring: the prompt's own logprobs, no generation
             try:
@@ -835,6 +1038,13 @@ class _Handler(BaseHTTPRequestHandler):
 
     # ---- response shapes ------------------------------------------------
 
+    def _served(self, kwargs) -> str:
+        """The model name a response carries: the adapter or catalog model
+        the request selected, else the one serving now."""
+        ctx = self.ctx
+        return (kwargs.get("model") or kwargs.get("adapter")
+                or (ctx.pool.current if ctx.pool is not None else ctx.model_name))
+
     @staticmethod
     def _choice_params(params, i: int, n: int):
         """Choice i of a seeded n > 1 request samples with seed + i;
@@ -993,10 +1203,11 @@ class _Handler(BaseHTTPRequestHandler):
                 choice["prompt_logprobs"] = prompt_lp_field
             choices.append(choice)
         ctx.emit_engine_spans([rid for rid, _ in submits])
+        self._settle_tenant(prompt_tokens + completion_tokens)
         self._json(200, {
             "id": f"cmpl-{uuid.uuid4().hex[:24]}",
             "object": "chat.completion" if chat else "text_completion",
-            "created": int(time.time()), "model": kwargs.get("adapter", ctx.model_name),
+            "created": int(time.time()), "model": self._served(kwargs),
             "choices": choices,
             "usage": {"prompt_tokens": prompt_tokens,
                       "completion_tokens": completion_tokens,
@@ -1004,8 +1215,8 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _stream_response(self, body, params, chat, kwargs, n=1, toolctx=None):
         ctx = self.ctx
-        # multi-LoRA: the adapter the request selected, as the JAX server
-        served = kwargs.get("adapter", ctx.model_name)
+        # the adapter or catalog model the request selected
+        served = self._served(kwargs)
         # vLLM extension: each chunk's token ids, so clients count tokens
         # exactly (a fused decode window emits several chunks at once)
         ret_ids = bool(body.get("return_token_ids"))
@@ -1217,6 +1428,7 @@ class _Handler(BaseHTTPRequestHandler):
                             "usage": {"prompt_tokens": prompt_toks,
                                       "completion_tokens": completion_toks,
                                       "total_tokens": prompt_toks + completion_toks}})
+            self._settle_tenant(prompt_toks + completion_toks)
             end_stream()
         except (BrokenPipeError, ConnectionResetError):
             abort_all()                 # the client went away mid-stream
@@ -1224,6 +1436,9 @@ class _Handler(BaseHTTPRequestHandler):
             logger.exception("streaming failed")
             abort_all()
         finally:
+            # tokens already written were served: a client that drops the
+            # socket before [DONE] is still charged for them
+            self._settle_tenant(prompt_toks + completion_toks)
             # still inside the request span: the engine's child spans
             # attach under it, on the client-gone paths too
             ctx.emit_engine_spans([rid for rid, _ in submits])
@@ -1241,13 +1456,6 @@ _UNPORTED_FLAGS = (
     ("--role", dict(default=None, choices=["prefill", "decode"]), "A10, multi-GPU"),
     ("--decode-url", dict(default=None), "A10, multi-GPU"),
     ("--multihost", dict(action="store_true"), "A10, multi-GPU"),
-    ("--model-catalog", dict(default=None), "A9, the model pool"),
-    ("--swap-policy", dict(default="swap", choices=["swap", "reject"]), "A9, the model pool"),
-    ("--max-resident-models", dict(type=int, default=1), "A9, the model pool"),
-    ("--weight-host-bytes", dict(type=int, default=0), "A9, the model pool"),
-    ("--weight-spill-dir", dict(default=None), "A9, the model pool"),
-    ("--tenant-config", dict(default=None), "A9, tenants"),
-    ("--slo-objectives", dict(default=None), "A9, SLO burn rates"),
 )
 
 
@@ -1337,9 +1545,38 @@ def build_parser():
                     help="hang watchdog: a step blocking longer than this is declared "
                          "stuck and its requests salvaged as if it had raised (0 "
                          "disables; scaled up for the first steps)")
-    # parts the port lacks: switching them off is what the port does already
-    for flag in ("--no-slo-burn", "--no-devprof"):
-        ap.add_argument(flag, action="store_true", help="accepted; no effect in the port")
+    ap.add_argument("--tenant-config", default=None, metavar="JSON|PATH",
+                    help="per-tenant token metering and rate limits (server/tenants.py); "
+                         "inline JSON or a file path (default: TPUSERVE_TENANTS)")
+    ap.add_argument("--no-slo-burn", action="store_true",
+                    help="disable the in-process SLO burn-rate evaluator (obs/; "
+                         "TPUSERVE_SLO_BURN=0 is the env twin)")
+    ap.add_argument("--no-devprof", action="store_true",
+                    help="disable device telemetry (runtime/devprof.py): no CUDA-event "
+                         "device time, executable ladder or HBM watermark "
+                         "(TPUSERVE_DEVPROF=0 is the env twin); serving is unchanged")
+    ap.add_argument("--slo-objectives", default=None, metavar="JSON|PATH",
+                    help="SLO objectives override (obs/objectives.py); inline JSON list or "
+                         "a file path (default: TPUSERVE_SLO_OBJECTIVES, else the "
+                         "defaults); validated at boot")
+    ap.add_argument("--model-catalog", default=None, metavar="JSON|LIST",
+                    help="model-pool catalog (modelpool/): a JSON object of name -> "
+                         "checkpoint dir, or comma-separated names; a request naming a "
+                         "registered model swaps the engine to it at the next idle "
+                         "boundary (default: TPUSERVE_MODEL_CATALOG; TPUSERVE_MODELPOOL=0 "
+                         "disables the pool)")
+    ap.add_argument("--swap-policy", default="swap", choices=["swap", "reject"],
+                    help="requests for a registered model not serving: 'swap' parks them "
+                         "for a swap, 'reject' answers 503 with Retry-After")
+    ap.add_argument("--max-resident-models", type=int, default=1,
+                    help="how many models' weights stay on the card at once")
+    ap.add_argument("--weight-host-bytes", type=int, default=0,
+                    help="pinned host weight tier budget for demoted models "
+                         "(0 = TPUSERVE_WEIGHT_HOST_BYTES or 2 GiB)")
+    ap.add_argument("--weight-spill-dir", default=None, metavar="DIR",
+                    help="spill directory of the third weight tier (default: "
+                         "TPUSERVE_WEIGHT_SPILL_DIR; unset = host overflow means a cold "
+                         "load next time)")
     for flag, kw, _item in _UNPORTED_FLAGS:
         ap.add_argument(flag, help="not ported yet", **kw)
     return ap
@@ -1370,10 +1607,24 @@ def engine_config(args):
         kv_host_bytes=args.kv_host_bytes, kv_spill_dir=args.kv_spill_dir,
         slo_classes=False if args.no_slo_classes else None,
         faults=args.faults, step_watchdog_s=args.step_watchdog_s,
+        devprof=False if args.no_devprof else None,
         speculative=(SpecConfig(num_draft_tokens=args.speculative_k,
                                 draft_model=args.speculative_draft_model,
                                 draft_checkpoint_dir=args.speculative_draft_dir)
                      if args.speculative_k > 0 else None))
+
+
+def server_config(args, chat_template: Optional[str] = None,
+                  warmup_embed: tuple = ()) -> ServerConfig:
+    """The ServerConfig of parsed CLI ``args``, as the JAX server's
+    ``main`` builds it."""
+    return ServerConfig(
+        host=args.host, port=args.port, chat_template=chat_template,
+        tool_call_parser=args.tool_call_parser, warmup_embed=warmup_embed,
+        tenant_config=args.tenant_config, slo_burn=not args.no_slo_burn,
+        slo_objectives=args.slo_objectives, model_catalog=args.model_catalog,
+        swap_policy=args.swap_policy, max_resident_models=args.max_resident_models,
+        weight_host_bytes=args.weight_host_bytes, weight_spill_dir=args.weight_spill_dir)
 
 
 def lora_modules_of(args) -> Optional[dict]:
@@ -1432,10 +1683,7 @@ def main(argv=None):
         engine = Engine(ecfg, device=args.device)
     except RuntimeError as e:                    # no card, and no --device cpu
         sys.exit(f"tpuserve_torch.server: {e}")
-    server = OpenAIServer(engine, ServerConfig(host=args.host, port=args.port,
-                                               chat_template=chat_template,
-                                               tool_call_parser=args.tool_call_parser,
-                                               warmup_embed=warmup_embed))
+    server = OpenAIServer(engine, server_config(args, chat_template, warmup_embed))
     port = server.start(warmup=not args.no_warmup)
     print(f"tpuserve_torch listening on {args.host}:{port}", flush=True)
     # SIGTERM drains (readyz 503, new work 503, in-flight work finishes)

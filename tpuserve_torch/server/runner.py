@@ -29,7 +29,18 @@ every client TTFT, inter-token gap and end-to-end time is also a sample of
 the recorder's per-class SLI reservoirs.  ``cold_start_s`` is the first
 token any request received, in seconds since this module was imported.
 
-Not ported: SLO burn-rate evaluation and the model pool (ROADMAP.md A9).
+SLO burn rates (``obs/burnrate.py``), as the JAX runner's: with
+``slo_eval`` set, every client SLI and every request outcome feeds the
+evaluator on this thread (canary probes excluded), evaluated at most once
+an engine-clock second; a fast-window alert that fires takes a short
+``torch.profiler`` trace (``server/tracing.py``) on a daemon thread, whose
+start and stop come back to this thread through :meth:`call`.
+
+The model pool (``modelpool/``): with ``pool`` set, a request naming
+another registered model parks until the engine is idle, then the pool
+swaps the served model (``Engine.swap_model``) and the parked requests
+re-enter intake.  ``on_step_time`` (the NVML exporter's duty cycle) gets
+each step's wall seconds.
 """
 
 from __future__ import annotations
@@ -44,6 +55,7 @@ from typing import Optional, Sequence
 
 from tpuserve_torch.runtime.clock import MONOTONIC
 from tpuserve_torch.runtime.request import RequestOutput, RequestState, SamplingParams
+from tpuserve_torch.runtime.slo import ShedError
 
 logger = logging.getLogger("tpuserve_torch.server")
 
@@ -75,6 +87,9 @@ class _Submit:
     # TimeoutError through the output queue
     deadline: Optional[float] = None
     adapter: Optional[str] = None     # multi-LoRA adapter name
+    # model-pool routing: a registered model other than the one serving
+    # parks the submit until the pool swaps to it
+    model: Optional[str] = None
 
 
 @dataclasses.dataclass
@@ -158,6 +173,22 @@ class AsyncEngineRunner:
         # boot -> the first token served, seconds (None until then);
         # /healthz and /debug/engine report it
         self.cold_start_s: Optional[float] = None
+        # each step's wall seconds (gpu_metrics.GpuMetricsExporter's duty
+        # cycle), when set
+        self.on_step_time = None
+        # the in-process burn-rate evaluator (obs/burnrate.py), set by the
+        # server; fed and evaluated on this thread only
+        self.slo_eval = None
+        self._slo_eval_last: Optional[float] = None
+        # the fast-burn auto-capture's cooldown stamp (real seconds)
+        self._auto_capture_last: Optional[float] = None
+        # the model pool (modelpool/pool.py), set by the server; submits
+        # for another registered model park here until the swap
+        self.pool = None
+        self._parked: list[_Submit] = []
+        # (serving model, its parameter bytes): the weight-tier gauge's
+        # card share, walked once a model
+        self._pool_hbm_cache: Optional[tuple] = None
 
     # ---- lifecycle -----------------------------------------------------
 
@@ -175,7 +206,7 @@ class AsyncEngineRunner:
         """No engine work and no undelivered outputs: safe to stop.  Polled
         by the server's graceful drain."""
         return (not self.engine.has_work() and not self._out_queues
-                and self._intake.empty())
+                and self._intake.empty() and not self._parked)
 
     def shutdown(self) -> None:
         self._stop.set()
@@ -193,16 +224,19 @@ class AsyncEngineRunner:
                request_id: Optional[str] = None,
                deadline: Optional[float] = None,
                adapter: Optional[str] = None,
+               model: Optional[str] = None,
                ) -> tuple[str, "queue.Queue[RequestOutput | Exception | None]"]:
         """Enqueue a request; returns (request_id, output queue).  The queue
         yields RequestOutput items, then None when finished; an Exception
         item signals a rejected or failed request.  ``adapter``: a loaded
-        multi-LoRA adapter's name."""
+        multi-LoRA adapter's name; ``model``: a model of the pool's
+        catalog (another than the one serving parks until the swap)."""
         sub = _Submit(prompt=prompt,
                       prompt_token_ids=list(prompt_token_ids) if prompt_token_ids else None,
                       params=params or SamplingParams(),
                       out_queue=queue.Queue(), rid_event=threading.Event(),
-                      request_id=request_id, deadline=deadline, adapter=adapter)
+                      request_id=request_id, deadline=deadline, adapter=adapter,
+                      model=model)
         self._intake.put(sub)
         self._wake.set()
         sub.rid_event.wait(timeout=60)
@@ -270,6 +304,21 @@ class AsyncEngineRunner:
                     if q is not None:
                         q.put(None)
                 continue
+            if msg.model and self.pool is not None and msg.model != self.pool.current:
+                # a registered model other than the one serving parks until
+                # the pool swaps at the next idle boundary; its demand
+                # starts a spill -> host prefetch while the engine drains
+                if self.pool.is_registered(msg.model):
+                    self.pool.note_demand(msg.model)
+                    self.pool.request_swap(msg.model)
+                    self._parked.append(msg)
+                    continue
+                msg.assigned_id = msg.request_id or "rejected"
+                msg.rid_event.set()
+                msg.out_queue.put(ValueError(
+                    f"model {msg.model!r} is not in this replica's catalog"))
+                msg.out_queue.put(None)
+                continue
             try:
                 kw = {"adapter": msg.adapter} if msg.adapter else {}
                 rid = self.engine.add_request(
@@ -277,6 +326,11 @@ class AsyncEngineRunner:
                     params=msg.params, request_id=msg.request_id,
                     deadline=msg.deadline, **kw)
             except Exception as e:           # invalid or shed: report, don't die
+                if (self.slo_eval is not None and isinstance(e, (MemoryError, ShedError))
+                        and not msg.params.canary):
+                    # a shed or backpressure is unavailability the client
+                    # saw; an invalid request is not
+                    self.slo_eval.observe_outcome(msg.params.slo_class, False)
                 msg.assigned_id = msg.request_id or "rejected"
                 msg.rid_event.set()
                 msg.out_queue.put(e)
@@ -293,54 +347,72 @@ class AsyncEngineRunner:
                     self.metrics.prompt_tokens.inc(req.num_prompt_tokens)
             msg.rid_event.set()
 
-    def _slo_class_of(self, rid: str) -> str:
+    def _sli_ident(self, rid: str) -> tuple:
+        """(SLO class, canary) of a live request: canary probes
+        (``obs/canary.py``) stay out of every production SLI and of the
+        burn-rate stream."""
         req = self.engine.requests.get(rid)
-        return req.params.slo_class if req is not None else "standard"
+        if req is None:
+            return "standard", False
+        return req.params.slo_class, req.params.canary
 
     def _route_outputs(self, outputs: list[RequestOutput]) -> None:
         now = self._clock.monotonic()
         m = self.metrics
+        ev = self.slo_eval
         flights = self._flights()
         for out in outputs:
             if self.cold_start_s is None and out.new_token_ids:
                 self.cold_start_s = round(time.monotonic() - _BOOT_MONOTONIC, 6)
                 logger.info("cold start: first token %.3fs after boot", self.cold_start_s)
             q = self._out_queues.get(out.request_id)
-            cls = label = None
-            if m or flights:
-                cls = self._slo_class_of(out.request_id)
-                if m:
-                    m.generation_tokens.inc(len(out.new_token_ids))
-                last = self._last_token_time.get(out.request_id)
-                label = dict(model_name=m.model_name, slo_class=cls) if m else None
-                if last is not None:
-                    if out.num_output_tokens == 1:
-                        ttft = now - self._req_started.get(out.request_id, now)
-                        if m:
-                            m.ttft.observe(ttft)
-                            m.ttft_class.labels(**label).observe(ttft)
-                        for fl in flights:
-                            fl.note_sli(cls, "ttft", ttft)
-                    elif not out.from_prefill:
-                        # a from_prefill emission past the first token is a
-                        # re-prefill after a preemption or salvage: its gap
-                        # is queue and recompute time, not inter-token latency
-                        if m:
-                            m.itl.observe(now - last)
-                            m.itl_class.labels(**label).observe(now - last)
-                        for fl in flights:
-                            fl.note_sli(cls, "itl", now - last)
-                self._last_token_time[out.request_id] = now
+            cls, canary = self._sli_ident(out.request_id)
+            label = dict(model_name=m.model_name, slo_class=cls) if m else None
+            if m:
+                m.generation_tokens.inc(len(out.new_token_ids))
+            last = self._last_token_time.get(out.request_id)
+            if last is not None and not canary:
+                if out.num_output_tokens == 1:
+                    ttft = now - self._req_started.get(out.request_id, now)
+                    if m:
+                        m.ttft.observe(ttft)
+                        m.ttft_class.labels(**label).observe(ttft)
+                    for fl in flights:
+                        fl.note_sli(cls, "ttft", ttft)
+                    if ev is not None:
+                        ev.observe(cls, "ttft", ttft)
+                elif not out.from_prefill:
+                    # a from_prefill emission past the first token is a
+                    # re-prefill after a preemption or salvage: its gap is
+                    # queue and recompute time, not inter-token latency
+                    if m:
+                        m.itl.observe(now - last)
+                        m.itl_class.labels(**label).observe(now - last)
+                    for fl in flights:
+                        fl.note_sli(cls, "itl", now - last)
+                    if ev is not None:
+                        ev.observe(cls, "itl", now - last)
+            self._last_token_time[out.request_id] = now
             if q is not None:
                 q.put(out)
             if out.finished:
                 started = self._req_started.pop(out.request_id, now)
-                if m:
-                    reason = out.finish_reason.value if out.finish_reason else "stop"
-                    m.observe_finish(reason, now - started)
-                    m.e2e_class.labels(**label).observe(now - started)
-                for fl in flights:
-                    fl.note_sli(cls, "e2e", now - started)
+                reason = out.finish_reason.value if out.finish_reason else "stop"
+                if canary:
+                    # a served probe proves the path: its own family only
+                    if m:
+                        m.canary_requests.inc()
+                        m.request_success.labels(model_name=m.model_name,
+                                                 finished_reason=reason).inc()
+                else:
+                    if m:
+                        m.observe_finish(reason, now - started)
+                        m.e2e_class.labels(**label).observe(now - started)
+                    for fl in flights:
+                        fl.note_sli(cls, "e2e", now - started)
+                    if ev is not None:
+                        ev.observe(cls, "e2e", now - started)
+                        ev.observe_outcome(cls, reason in ("stop", "length"))
                 self._last_token_time.pop(out.request_id, None)
                 # the request record stays in engine.requests: the caller
                 # that submitted claims (pops) it for usage
@@ -382,6 +454,17 @@ class AsyncEngineRunner:
         """Fail ONE stream with a per-request error: a typed ``exc``
         (ShedError -> 429, TimeoutError -> 504) or a RuntimeError carrying
         ``message``.  ``poisoned`` counts it as isolated by salvage."""
+        # read before the abort drops the request record
+        cls, canary = self._sli_ident(rid)
+        if self.slo_eval is not None and not canary:
+            # every engine-decided terminal error is a bad event of the
+            # availability objective
+            self.slo_eval.observe_outcome(cls, False)
+        if self.metrics and not canary and not poisoned and not isinstance(exc, ShedError):
+            # shed and poison have their own counters; this family counts
+            # the rest (deadline 504s, salvage errors), the bad events the
+            # availability objective's PromQL twin reads
+            self.metrics.requests_failed.inc()
         try:
             self.engine.abort_request(rid)
         except Exception:
@@ -614,11 +697,123 @@ class AsyncEngineRunner:
         eng.scheduler.set_admission_filter(None)
         return True
 
+    # ---- SLO burn rates, auto-capture, the model pool ------------------
+
+    def _evaluate_slo(self) -> None:
+        """Advance the burn-rate evaluator (at most once an engine-clock
+        second: the window math scans buckets) and export its state: the
+        transitions, each objective's burn rate and the firing count."""
+        ev = self.slo_eval
+        if ev is None:
+            return
+        from tpuserve_torch.obs.burnrate import EVAL_INTERVAL_S
+        now = self._clock.monotonic()
+        if self._slo_eval_last is not None and now - self._slo_eval_last < EVAL_INTERVAL_S:
+            return
+        self._slo_eval_last = now
+        transitions = ev.evaluate()
+        for tr in transitions:
+            logger.warning("SLO burn-rate alert %s: %s/%s (burn %.1fx long / %.1fx short)",
+                           tr["state"].upper(), tr["objective"], tr["window"],
+                           tr["burn_long"], tr["burn_short"])
+        self._maybe_auto_capture(transitions)
+        m = self.metrics
+        if not m:
+            return
+        for tr in transitions:
+            m.slo_transitions.labels(model_name=m.model_name, objective=tr["objective"],
+                                     window=tr["window"], state=tr["state"]).inc()
+        state = ev.last_state
+        for key, (burn_long, _short) in state.get("burn", {}).items():
+            name, _, window = key.rpartition("/")
+            m.slo_burn_rate.labels(model_name=m.model_name, objective=name,
+                                   window=window).set(burn_long)
+        m.slo_alerts_firing.set(len(state.get("firing", ())))
+
+    # fast-burn auto-capture: a short trace (the incident is now) and a long
+    # cooldown, so a flapping page cannot fill the flight directory
+    AUTO_CAPTURE_SECONDS = 3.0
+    AUTO_CAPTURE_COOLDOWN_S = 600.0
+
+    def _maybe_auto_capture(self, transitions: list) -> None:
+        """When a fast-window burn-rate alert fires, take a short
+        ``torch.profiler`` trace on a daemon thread while the loop keeps
+        serving (the trace is of the degraded serving); its start and stop
+        run on this thread through :meth:`call`.  Skipped with the device
+        profiler off, inside the cooldown, or while another capture runs."""
+        fired = [tr for tr in transitions
+                 if tr.get("state") == "firing" and tr.get("window") == "fast"]
+        dp = getattr(self.engine, "devprof", None)
+        if not fired or dp is None or not dp.enabled:
+            return
+        now = time.monotonic()
+        if (self._auto_capture_last is not None
+                and now - self._auto_capture_last < self.AUTO_CAPTURE_COOLDOWN_S):
+            return
+        self._auto_capture_last = now
+        reason = f"slo-{fired[0]['objective']}"
+
+        def run():
+            from tpuserve_torch.server.tracing import CaptureBusy, capture_profile_locked
+            try:
+                out = capture_profile_locked(self.AUTO_CAPTURE_SECONDS, reason=reason,
+                                             profilers=[dp], call=self.call)
+                logger.warning("fast-burn auto-capture -> %s", out["trace_dir"])
+            except CaptureBusy:
+                logger.info("fast-burn auto-capture skipped: a capture is in progress")
+            except Exception:
+                logger.exception("fast-burn auto-capture failed")
+
+        threading.Thread(target=run, daemon=True, name="tpuserve-torch-auto-capture").start()
+
+    def _maybe_swap_pool(self) -> None:
+        """The model pool's hot-swap at the idle boundary (loop thread):
+        parked submits past their deadline get the typed 504; with the
+        engine idle the pool swaps, and the submits for the new model
+        re-enter intake."""
+        pool = self.pool
+        if pool is None:
+            return
+        if self._parked:
+            still = []
+            now = self._clock.monotonic()
+            for msg in self._parked:
+                if msg.deadline is not None and now > msg.deadline:
+                    msg.assigned_id = msg.request_id or "rejected"
+                    msg.rid_event.set()
+                    msg.out_queue.put(TimeoutError(
+                        "admission deadline expired while parked for a model swap "
+                        f"to {msg.model!r}"))
+                    msg.out_queue.put(None)
+                else:
+                    still.append(msg)
+            self._parked = still
+        if pool.pending is None:
+            if not self._parked:
+                return
+            # several models may park at once: aim at the oldest still parked
+            pool.request_swap(self._parked[0].model)
+        if self.engine.has_work():
+            return
+        outcome = pool.maybe_swap(self.engine)
+        if outcome is None:
+            return
+        logger.info("model swap -> %s (source tier: %s)", pool.current, outcome)
+        still = []
+        for msg in self._parked:
+            if msg.model == pool.current:
+                self._intake.put(msg)
+            else:
+                still.append(msg)
+        self._parked = still
+        self._wake.set()
+
     # ---- gauges ---------------------------------------------------------
 
     def _update_gauges(self) -> None:
         """The vllm_* and tpuserve_* gauges and counters from host state
         only (queue lengths, free blocks, engine stats): no CUDA call."""
+        self._evaluate_slo()
         m = self.metrics
         if not m:
             return
@@ -629,8 +824,15 @@ class AsyncEngineRunner:
         m.active_requests.set(running + waiting)
         bm = self.engine.block_manager
         m.kv_usage.set((bm.num_blocks - bm.num_free_blocks) / max(bm.num_blocks, 1))
+        _advance_counter(m.prefix_hits, bm.prefix_hits)
+        _advance_counter(m.prefix_queries, bm.prefix_queries)
         stats = self.engine.stats
         for metric, value in ((m.preemptions, stats.preemptions),
+                              (m.window_overrun, stats.window_overrun_tokens),
+                              (m.latency_windows, stats.latency_windows),
+                              (m.padded_tokens_total, stats.padded_tokens_total),
+                              (m.actual_tokens_total, stats.actual_tokens_total),
+                              (m.mixed_steps, stats.num_mixed_steps),
                               (m.guided_fallbacks, stats.guided_fallbacks),
                               (m.guided_fsm_requests, stats.guided_fsm_requests),
                               (m.guided_fsm_windows, stats.guided_fsm_windows),
@@ -650,6 +852,8 @@ class AsyncEngineRunner:
                               (m.spec_pauses, stats.spec_pauses),
                               (m.released_blocks, stats.released_blocks)):
             _advance_counter(metric, value)
+        m.step_padded_tokens.set(stats.step_padded_tokens)
+        m.step_actual_tokens.set(stats.step_actual_tokens)
         m.brownout_level.set(stats.brownout_level)
         ctl = getattr(self.engine, "_slo", None)
         if ctl is not None:
@@ -662,21 +866,61 @@ class AsyncEngineRunner:
         stats.restore_latencies.clear()
         for tier, n in self.engine.kv_tier_blocks().items():
             m.kv_tier_blocks.labels(model_name=m.model_name, tier=tier).set(n)
+        label = {"model_name": m.model_name}
+        dp = getattr(self.engine, "devprof", None)
+        if dp is not None and dp.enabled:
+            # device telemetry: the engine keeps cumulative totals
+            hbm = dp.hbm_snapshot()
+            for kind, field in (("weights", "weights_bytes"), ("kv", "kv_reserved_bytes"),
+                                ("other", "other_bytes")):
+                m.hbm_bytes.labels(kind=kind, **label).set(hbm.get(field, 0))
+            m.hbm_headroom.set(hbm.get("headroom_bytes", 0))
+            for kind, secs in list(dp.sync_s.items()):
+                _advance_counter(m.device_seconds.labels(kind=kind, **label), secs)
+            _advance_counter(m.exec_compiles, dp.compiles)
+            _advance_counter(m.exec_compile_seconds, dp.compile_s)
+            m.execs_retained.set(len(dp.ladder))
+            _advance_counter(m.profile_captures, dp.captures_total)
+        pool = self.pool
+        if pool is not None:
+            # swap totals and latencies ride the engine's stats (carried
+            # across swaps); residency comes from the pool's store
+            for outcome, n in list(stats.model_swaps_by_outcome.items()):
+                _advance_counter(m.model_swaps.labels(outcome=outcome, **label), n)
+            for _tier, dt in stats.swap_latencies:
+                m.model_swap_seconds.observe(dt)
+            stats.swap_latencies.clear()
+            cached = self._pool_hbm_cache
+            if cached is None or cached[0] != pool.current:
+                from tpuserve_torch.models.weights import param_nbytes
+                cached = self._pool_hbm_cache = (pool.current,
+                                                 param_nbytes(self.engine.params))
+            tiers = pool.tiers.bytes_by_tier()
+            m.weight_tier_bytes.labels(tier="hbm", **label).set(
+                cached[1] + pool.resident_nbytes())
+            m.weight_tier_bytes.labels(tier="host", **label).set(tiers.get("host", 0))
+            m.weight_tier_bytes.labels(tier="spill", **label).set(tiers.get("spill", 0))
+            m.models_resident.set(sum(1 for e in pool.catalog_status()
+                                      if e["tier"] in ("serving", "resident")))
 
     def _loop(self) -> None:
         logger.info("engine loop started")
         while not self._stop.is_set():
             self._drain_intake()
             if not self.engine.has_work():
+                self._maybe_swap_pool()
                 self._update_gauges()
                 self._wake.wait(timeout=0.05)
                 self._wake.clear()
                 continue
             self._step_seq += 1
             seq = self._step_seq
-            self._step_started = (seq, time.monotonic(), self._capture_s())
+            step_start = time.monotonic()
+            self._step_started = (seq, step_start, self._capture_s())
             try:
                 outputs = self.engine.step()
+                if self.on_step_time is not None:
+                    self.on_step_time(time.monotonic() - step_start)
             except Exception as e:
                 self._step_started = None
                 logger.exception("engine step failed")

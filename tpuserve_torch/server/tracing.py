@@ -7,9 +7,15 @@ imported only inside ``try``: when it is not installed, or no
 ``OTEL_EXPORTER_OTLP_ENDPOINT`` is set, every call is a no-op with the
 same API.
 
-The JAX module's device-trace capture (``capture_profile`` and its lock,
-behind ``/debug/profile``) waits for the port's device profiler
-(ROADMAP.md A9).
+Device traces (``/debug/profile`` and the fast-burn SLO auto-capture):
+``capture_profile`` runs ``torch.profiler`` (CPU and, with a card, CUDA
+activities) for ``seconds`` and writes a Chrome trace; one capture at a
+time a process (``capture_profile_locked``, ``CaptureBusy``), under
+``TPUSERVE_FLIGHT_DIR`` when set, beside the post-mortem bundles.  The
+profiler starts and stops on the engine loop thread (``call``: the server
+passes ``AsyncEngineRunner.call``), between two steps, so turning CUPTI on
+or off never meets a graph capture the loop may be running; the wait and
+the export run on the caller's thread.
 """
 
 from __future__ import annotations
@@ -18,6 +24,9 @@ import contextlib
 import logging
 import os
 import sys
+import tempfile
+import threading
+import time
 
 logger = logging.getLogger("tpuserve_torch.tracing")
 
@@ -147,3 +156,76 @@ def emit_timeline_spans(tracer: RequestTracer, timeline, wall_of) -> None:
                 span.end(end_time=max(start_ns, int(wall_of(end_t) * 1e9)))
     except Exception:
         logger.debug("timeline span export failed", exc_info=True)
+
+
+def capture_profile(seconds: float, out_dir: str | None = None, call=None) -> dict:
+    """A ``torch.profiler`` trace of ``seconds`` of serving: returns
+    ``{"trace_dir", "trace", "seconds"}``, the trace a Chrome trace JSON in
+    ``trace_dir``.  ``call(fn)`` runs ``fn`` on the engine loop thread
+    (None: here)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    seconds = min(max(float(seconds), 0.1), 60.0)
+    out_dir = out_dir or tempfile.mkdtemp(prefix="tpuserve-profile-")
+    call = call or (lambda fn: fn())
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    box = []
+
+    def start():
+        # made and started on the loop thread, stopped there too
+        box.append(profile(activities=activities))
+        box[0].start()
+    call(start)
+    prof = box[0]
+    try:
+        time.sleep(seconds)
+    finally:
+        call(prof.stop)
+    path = os.path.join(out_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    return {"trace_dir": out_dir, "trace": path, "seconds": seconds}
+
+
+class CaptureBusy(RuntimeError):
+    """A profiler capture is already running in this process (one at a
+    time: ``/debug/profile`` answers 409, an auto-capture skips)."""
+
+
+# one trace at a time a process: manual captures racing each other and the
+# SLO auto-capture thread racing either
+_capture_lock = threading.Lock()
+
+
+def profile_out_dir(reason: str) -> str | None:
+    """A fresh directory under ``TPUSERVE_FLIGHT_DIR`` (beside the
+    post-mortem bundles that name it), or None without one (a temporary
+    directory then)."""
+    import uuid
+    d = os.environ.get("TPUSERVE_FLIGHT_DIR")
+    if not d:
+        return None
+    path = os.path.join(d, f"profile-{reason}-{os.getpid()}-{uuid.uuid4().hex[:8]}")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def capture_profile_locked(seconds: float, *, reason: str = "manual", profilers=(),
+                           call=None) -> dict:
+    """:func:`capture_profile` one at a time (``CaptureBusy`` otherwise),
+    written under the flight directory when set, and recorded on each
+    enabled ``DeviceProfiler`` of ``profilers`` (bundles and
+    ``tpuserve_profile_captures`` see it)."""
+    if not _capture_lock.acquire(blocking=False):
+        raise CaptureBusy("a profiler capture is already in progress")
+    try:
+        out = capture_profile(seconds, out_dir=profile_out_dir(reason), call=call)
+    finally:
+        _capture_lock.release()
+    out["reason"] = reason
+    for dp in profilers:
+        if dp is not None and getattr(dp, "enabled", False):
+            dp.note_capture(out["trace_dir"], reason, out["seconds"])
+    return out
