@@ -34,8 +34,10 @@ non-zero:
              flash, window and ragged headlines also carry a
              planted fault (a K/V tile's V zeroed) that the comparison must
              reject.
-3. families  every other family the repo registers, at full width and
-             depth, weights made on the card from the seed: Qwen3-30B-A3B
+3. families  every other family the repo registers, at full width (at
+             full depth but for ``FAMILY_LAYERS``: Mistral-7B, Gemma-2-2B,
+             OPT-1.3B and Phi-3-mini at 8 layers, Gemma-3-4B at 12),
+             weights made on the card from the seed: Qwen3-30B-A3B
              (128 experts, top-8, bf16): its prefill and decode steps
              captured (the pool under ``pool_bytes_bound``), 8 prompts of
              128-1,024 tokens x 64, launches against the steps, prefill
@@ -57,8 +59,8 @@ non-zero:
              Qwen3-30B-A3B needs ~61 GB of the card.
 4. breadth   the rest of the model breadth, weights made on the card: (a)
              DeepSeek-V2-Lite (MLA: a one-head 576-wide latent cache;
-             64 experts top-6, 2 shared) in bf16 at full width and depth
-             on the default engine, which downgrades its attention to the
+             64 experts top-6, 2 shared) in bf16 at full width, 8 of its
+             27 layers (``FAMILY_LAYERS``), on the default engine, which downgrades its attention to the
              plain one (MLA's only path, as in the JAX engine): 8 prompts
              of 128-1,024 x 64, the eager engine's tokens; a chunked
              4,096-token prompt and its prefix hit; the absorbed decode
@@ -136,7 +138,8 @@ non-zero:
              default engine's (identical).
 8. sampler   the full sampler on the main path's two engines (the default
              one, every decode dispatch a replayed graph; the eager one),
-             prefix caching off for the phase: the main path's 8 prompts,
+             made on the first ``FEATURE_LAYERS`` (4) layers of the main
+             weights at full width, prefix caching off for the phase: the main path's 8 prompts,
              64 tokens, in each sampling variant (greedy, temperature 0.8,
              full with top_p 0.9 and top_k 50, repetition_penalty 1.2,
              logprobs 5, top_k 1, min_p 1.0, logit_bias {eos: +100} with
@@ -153,8 +156,8 @@ non-zero:
              executables and their capture seconds, and the KV blocks the
              cache sizing gives at the CLI's defaults with and without the
              sampler's decode executables (full mode and extras) bound.
-9. guided    guided decoding on the main path's two engines, prefix
-             caching off: the 8 prompts, up to 64 tokens, in each spec
+9. guided    guided decoding on the sampler's two engines (4 layers of
+             the main weights), prefix caching off: the 8 prompts, up to 64 tokens, in each spec
              family (json_object; a json_schema of a string, a boolean and
              an enum; one with an integer field, whose digit prefixes pass
              the FSM compile's state budget, so it runs the substitution
@@ -258,7 +261,8 @@ non-zero:
              429s per class, preemptions, seconds at each level.
 15. salvage  crash-only recovery on the CLI's engine (``--step-watchdog-s
              2``; captured graphs, pipelined 32-token windows; prefix
-             caching off so runs repeat), full width and depth, greedy,
+             caching off so runs repeat), full width, FEATURE_LAYERS (4)
+             layers of the main weights, greedy,
              ``TPUSERVE_STRICT_BLOCKS=1``, in float32 and in bf16: (a) the
              main path's 8 prompts, 128 tokens, and a request whose id holds
              "poison" through the runner under
@@ -306,18 +310,20 @@ non-zero:
              chunk route), ``/debug/engine`` (phased steps, SLIs,
              ``cold_start_s``), ``/healthz``, ``/debug/engine/dump``
              (schema 2, ring markers), launches against the steps.
-17. spec     speculative decoding at full width and depth: (a) a verify
+17. spec     speculative decoding at full width on the first
+             ``FEATURE_LAYERS`` (4) layers of the main weights (float32:
+             the seed drawn at that depth): (a) a verify
              window (B=8, K=5, contexts 128-2,048, 1-5 valid rows) after a
              kernel prefill, through the paged window kernel and through
              the plain attention on a copy of the same cache: the valid
-             rows' logits within LOGIT_DIFF_MAX, 28 launches, argmax
+             rows' logits within LOGIT_DIFF_MAX, one launch a layer, argmax
              agreement a reading; (b) ``draft_propose`` (k=4 over (8, 68)
              windows) on the flash kernel against the plain attention, in
              bf16 and in float32 (TF32 off): each pass's logits within the
              logit gate (1e-3 in float32), the proposals equal wherever
              the plain top-2 gap (and every earlier pass's) exceeds twice
-             it (in float32 some such positions required), 4 x 28
-             launches; (c) three default engines, plain, n-gram (k=4) and
+             it (in float32 some such positions required), 4 launches a
+             layer; (c) three default engines, plain, n-gram (k=4) and
              an identity draft (the target as its draft, adaptive off),
              on 8 prompts of 64-192 tokens, 48 greedy tokens: in float32
              (TF32 off) token-identical with the draft's acceptance 100%,
@@ -333,14 +339,16 @@ non-zero:
              1,536-token prompts): acceptance, spec steps, governor pauses,
              the spec executables' capture seconds, and the pool's bytes
              against ``pool_bytes_bound`` of every executable made (gated).
-18. embed    the cache-less trunks at full width and depth: (a)
+18. embed    the cache-less trunks at full width on the first
+             ``FEATURE_LAYERS`` (4) layers of the main weights (float32:
+             the seed drawn at that depth): (a)
              ``Engine.embed`` (mean and last pooling) and
              ``Engine.score_prompts`` of 8 inputs of 128-1,024 tokens on a
              kernel engine and a plain-attention engine: cosines at least
              0.999, chosen logprobs within LOGIT_DIFF_MAX, each rank inside
              the band the plain log-softmax allows when every logprob may
              move by that much (one rank where the gaps allow only one),
-             28 flash launches a trunk batch;
+             one flash launch a layer a trunk batch;
              (b) ``/v1/embeddings`` (base64), prompt scoring and a streamed
              echo with logprobs through an in-process server: equal to the
              engine's own calls; (c) in float32, embeddings posted in a
@@ -384,7 +392,34 @@ non-zero:
              files (the 8B, flushed first): the same greedy tokens after
              each swap back, the card's used memory after the round trip
              within 1 GiB of before; each swap's seconds, tier and bytes.
-20. profile  where the time goes, under torch.profiler, after every
+20. fleet    the fleet layer over the port's servers and engines, Qwen3-0.6B
+             at full width and depth on the main weights (drawn once): (a)
+             two ``OpenAIServer`` replicas in process (1,024 blocks each)
+             behind the port's ``Gateway`` (``health_interval_s`` 0.5, a
+             backends file): 16 streamed greedy completions of 64 tokens
+             from 4 prefix groups (a 1,024-token prefix, two keyed to each
+             replica by rendezvous hashing, plus 64-256-token suffixes),
+             each group's first request alone, then the other 12, 8 at a
+             time: every request on the replica rendezvous predicts (8 at
+             a time under a load slack of 8 cannot divert one), the
+             replicas' ``tpuserve_prefix_cache_hits`` up by at least 12,
+             every stream well formed, the kernels' launches equal to the
+             layers times both engines' dispatches; then replica 2 leaves
+             the backends file while 8 streams run on it (all 8 finish),
+             the next 8 requests land on replica 1 only, and replica 2,
+             listed again, is admitted by a passing probe; ``/gateway/status``
+             at each step.  (b) replica 1's ``/debug/engine/dump`` as a
+             workload (``workload_from_bundle``), replayed twice on the
+             card (``replay``, the bundle's engine facts): equal token and
+             SLI digests, outcome counts equal to the source's; then
+             ``backtest`` with the default objectives twice: identical
+             alert timelines.  (c) ``pool_replay`` of ``make_storm_workload``
+             (60 requests of 512 tokens, 32 generated, classes 2:1:1) with
+             the autoscale policy, at most 3 replicas, 32-token pages,
+             twice: equal decision digests, the first scale-out before the
+             first L3 entry and the first shed.  The wall speedups of (b)
+             and (c) are readings.
+21. profile  where the time goes, under torch.profiler, after every
              counted run (a profiler run slows the launches that follow
              it): one prefill and one decode window of the main path, one
              steady pipelined window alone (the paged decode kernel must
@@ -420,7 +455,7 @@ import numpy as np
 
 PHASES = ("build", "kernels", "families", "breadth", "identity", "main", "graphs", "sampler", "guided", "chunked",
           "mixed", "server", "tiers", "slo", "salvage", "flight", "spec", "embed", "services",
-          "profile")
+          "fleet", "profile")
 # Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA's data
 # sheet): bf16 tensor cores, float32 CUDA cores, HBM.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -439,6 +474,20 @@ MAIN_LENGTHS = [128, 256, 384, 512, 640, 768, 896, 1024]
 LOGIT_DIFF_MAX = 0.125
 # GPU clock cycles the card spins before each cold-timed call (~0.5 ms)
 COLD_SPIN_CYCLES = 1_000_000
+# The feature phases (sampler, guided, spec, embed) run the main weights'
+# first FEATURE_LAYERS layers at full width: their gates hold two engines'
+# tokens against each other and logits at the logits' own scale, which no
+# depth enters, and at 28 layers their eager and profiled runs took 293 s
+# of the script's limit.  The main path itself (main, graphs, chunked,
+# mixed, server, ...) and the fleet keep all 28.
+FEATURE_LAYERS = 4
+
+
+def cut_depth(params, cfg, layers: int):
+    """The first ``layers`` layers of a weight tree (the same tensors, no
+    copy) and its config at that depth; every width stays."""
+    return ({**params, "layers": params["layers"][:layers]},
+            dataclasses.replace(cfg, num_layers=layers))
 
 
 def emit(obj: dict) -> None:
@@ -1448,8 +1497,8 @@ def fresh_logprobs(params, cfg, ids: list, n_out: int):
 
 def phase_sampler(results) -> dict:
     """The full sampler on the main path's engines (the default one, every
-    dispatch a replayed graph, pipelined; the eager, synchronous one), full
-    width and depth, bf16, the main path's 8 prompts (prefix caching off
+    dispatch a replayed graph, pipelined; the eager, synchronous one) on
+    ``feature_model`` (full width, FEATURE_LAYERS layers), bf16, the main path's 8 prompts (prefix caching off
     for the phase, so every variant prefills them fresh), 64 tokens.  Each
     variant of ``SAMPLER_VARIANTS`` on the default engine, launches
     counted, then on the eager engine.  Gates: each variant's tokens equal
@@ -1470,7 +1519,7 @@ def phase_sampler(results) -> dict:
     from tpuserve_torch.runtime import SchedulerConfig
     from tpuserve_torch.runtime.graphs import keeps_logits, pool_bytes_bound
     from tpuserve_torch.runtime.kv_cache import CacheConfig, num_blocks_for_budget
-    main = results["main"]
+    main = feature_engines(results)
     eng, eager = main["engine"], main["eager_engine"]
     cfg, L = eng.model_cfg, eng.model_cfg.num_layers
     ps = prompts(np.random.default_rng(SEED + 3), MAIN_LENGTHS, cfg.vocab_size)
@@ -1698,8 +1747,9 @@ def guided_check(eng, reqs, plist, fsm_served: bool = True) -> dict:
 def phase_guided(results) -> dict:
     """Guided decoding on the main path's engines (the default one, every
     decode dispatch a replayed graph, pipelined; the eager, synchronous
-    one), full width and depth, bf16, the main path's 8 prompts (prefix
-    caching off for the phase), up to 64 tokens.  Each spec family of
+    one) on ``feature_model`` (full width, FEATURE_LAYERS layers), bf16,
+    the main path's 8 prompts (prefix caching off for the phase), up to 64
+    tokens.  Each spec family of
     ``GUIDED_FAMILIES`` greedy and at temperature 0.8 (json_schema_int
     runs the substitution path: its integer field does not compile), a
     batch of 4 guided and 4 unguided rows, a batch of two grammars (single
@@ -1718,7 +1768,7 @@ def phase_guided(results) -> dict:
     import torch
     from tpuserve_torch.runtime import Engine, EngineConfig, SamplingParams, grammar
     from tpuserve_torch.runtime.graphs import is_guided, pool_bytes_bound
-    main = results["main"]
+    main = feature_engines(results)
     eng, eager = main["engine"], main["eager_engine"]
     cfg, L, V = eng.model_cfg, eng.model_cfg.num_layers, eng.model_cfg.vocab_size
     ps = prompts(np.random.default_rng(SEED + 3), MAIN_LENGTHS, V)
@@ -1803,7 +1853,7 @@ def phase_guided(results) -> dict:
         # the FSM families' greedy streams on single steps
         t0 = time.perf_counter()
         single = Engine(EngineConfig(seed=SEED, multi_step=1, enable_prefix_caching=False),
-                        params=eng.params)
+                        params=eng.params, model_cfg=cfg)
         same_single = {}
         for name in fsm_greedy:
             reqs, _ = serve_steps(single, ps, runs[name])
@@ -3220,9 +3270,9 @@ SALVAGE_TOKENS, SALVAGE_POISON_LENGTH = 128, 256
 SALVAGE_BLOCKS = 512
 
 
-def fp32_main():
-    """The main weights' seed drawn in float32 at full width and depth,
-    with TF32 off: the dtype in which a re-prefill reproduces decode's
+def fp32_main(layers: int = 0):
+    """The main weights' seed drawn in float32 at full width and depth
+    (``layers``: at that depth), with TF32 off: the dtype in which a re-prefill reproduces decode's
     tokens on the card (bf16 prefill and decode round differently, so a
     re-prefilled bf16 stream drifts from its uninterrupted twin after some
     tokens).  (params, config)."""
@@ -3231,8 +3281,37 @@ def fp32_main():
     from tpuserve_torch.models.weights import init_params
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_model_config("Qwen/Qwen3-0.6B"), dtype="float32")
+    cfg = dataclasses.replace(get_model_config("Qwen/Qwen3-0.6B"), dtype="float32",
+                              num_layers=layers or get_model_config("Qwen/Qwen3-0.6B").num_layers)
     return init_params(cfg, SEED, "cuda"), cfg
+
+
+def feature_model(results):
+    """The main weights cut to FEATURE_LAYERS layers and their config."""
+    return cut_depth(results["main"]["params"], results["main"]["engine"].model_cfg,
+                     FEATURE_LAYERS)
+
+
+def feature_engines(results) -> dict:
+    """The main path's two engines on ``feature_model``, made once, as the
+    main phase makes its own: the default engine (graphs, pipelined) with
+    ``Engine.warmup``'s executables and then every one its scheduler can
+    make, captured; the eager, synchronous one, warmed."""
+    if "feature" not in results:
+        import torch
+        from tpuserve_torch.runtime import Engine, EngineConfig
+        params, cfg = feature_model(results)
+        t = time.perf_counter()
+        eng = Engine(EngineConfig(seed=SEED), params=params, model_cfg=cfg)
+        eng.warmup()
+        eng.graphs.warmup(eng._step_keys(eng.scheduler.cfg, eng.max_seq_len))
+        eager = Engine(EngineConfig(seed=SEED, cuda_graphs=False, pipeline_decode=False),
+                       params=params, model_cfg=cfg)
+        eager.warmup()
+        torch.cuda.synchronize()
+        results["feature"] = {"engine": eng, "eager_engine": eager, "params": params,
+                              "made_s": time.perf_counter() - t}
+    return results["feature"]
 
 
 def first_diff(a: list, b: list):
@@ -3522,7 +3601,7 @@ def salvage_engine(params, cfg):
     from tpuserve_torch.server.openai_api import build_parser, engine_config
     ecfg = engine_config(build_parser().parse_args(
         ["--num-blocks", str(SALVAGE_BLOCKS), "--step-watchdog-s", "2",
-         "--kv-cache-dtype", cfg.dtype if cfg is not None else "bfloat16"]))
+         "--kv-cache-dtype", cfg.dtype]))
     ecfg = dataclasses.replace(ecfg, seed=SEED, enable_prefix_caching=False)
     eng = Engine(ecfg, params=params, model_cfg=cfg)
     eng.warmup(sample_modes=("greedy", "penalties"),
@@ -3848,7 +3927,8 @@ def salvage_hang(eng, exact: bool, ps, metrics=None) -> dict:
 
 
 def phase_salvage(results) -> dict:
-    """Crash-only salvage at full width and depth, greedy, on the CLI's
+    """Crash-only salvage at full width on ``feature_model``'s depth
+    (FEATURE_LAYERS layers of the main weights), greedy, on the CLI's
     engine (``--step-watchdog-s 2``; pipelined 32-token windows, captured
     graphs; prefix caching off so runs repeat), under
     ``TPUSERVE_STRICT_BLOCKS=1``: (a) poison, (b) a fault with a window in
@@ -3866,8 +3946,8 @@ def phase_salvage(results) -> dict:
     import tempfile
     import torch
     from tpuserve_torch.server.metrics import ServerMetrics
-    params = results["main"]["params"]
-    V = results["main"]["engine"].model_cfg.vocab_size
+    params, bf16_cfg = feature_model(results)
+    V = bf16_cfg.vocab_size
     rng = np.random.default_rng(SEED + 3)
     ps = prompts(rng, MAIN_LENGTHS, V)
     poison = prompts(np.random.default_rng(SEED + 22), [SALVAGE_POISON_LENGTH], V)[0]
@@ -3879,9 +3959,9 @@ def phase_salvage(results) -> dict:
             gc.collect()
             torch.cuda.empty_cache()
             if name == "fp32":
-                p, cfg = fp32_main()
+                p, cfg = fp32_main(FEATURE_LAYERS)
             else:
-                p, cfg = params, None
+                p, cfg = params, bf16_cfg
             flight_dir = tempfile.mkdtemp(prefix=f"flight-{name}-")
             os.environ["TPUSERVE_FLIGHT_DIR"] = flight_dir    # read by the recorder
             t = time.perf_counter()
@@ -4463,7 +4543,7 @@ def spec_prompts(V: int) -> list:
 def spec_identity(params, cfg, ps) -> dict:
     """The main path's greedy streams on three default engines, plain,
     n-gram (k=4) and identity-draft speculation (the target as its own
-    draft, ``adaptive=False``): in float32 (``cfg`` given, TF32 off) the
+    draft, ``adaptive=False``): in float32 (TF32 off) the
     three token-identical and the draft's acceptance 100%; in bf16 each
     one's first divergence from the plain stream.  Launches against the
     steps on each engine."""
@@ -4494,7 +4574,7 @@ def spec_identity(params, cfg, ps) -> dict:
         out[name]["ok"] = launches == want and eng.block_manager.num_seqs() == 0
         del eng
         torch.cuda.empty_cache()
-    exact = cfg is not None
+    exact = cfg is not None and cfg.dtype == "float32"
     d = out["draft"]
     out["equal"] = streams["ngram"] == streams["plain"] == streams["draft"]
     out["ok"] = bool(all(v["ok"] for v in out.values() if isinstance(v, dict))
@@ -4529,13 +4609,13 @@ def spec_marginal() -> dict:
             "max_freq_err": freq_err, "ok": acc_err < 0.03 and freq_err < 0.03}
 
 
-def spec_sampled(params, ps) -> dict:
+def spec_sampled(params, cfg, ps) -> dict:
     """Sampled speculation (temperature 0.7, top_p 0.9, seeded) with the
     identity draft in bf16, prefix caching off: two runs give the same
     tokens; the sampled verify executables ran."""
     from tpuserve_torch.runtime import SamplingParams
     spec, _ = spec_configs()["draft"]
-    eng = spec_engine(params, None, spec, identity=True, enable_prefix_caching=False)
+    eng = spec_engine(params, cfg, spec, identity=True, enable_prefix_caching=False)
     plist = [SamplingParams(max_tokens=SPEC_TOKENS, temperature=0.7, top_p=0.9, seed=100 + i,
                             ignore_eos=True) for i in range(len(ps))]
     runs = [[r.output_token_ids for r in eng.generate(ps, plist)] for _ in range(2)]
@@ -4552,7 +4632,7 @@ def spec_sampled(params, ps) -> dict:
     return out
 
 
-def spec_rates(params, V: int) -> dict:
+def spec_rates(params, cfg) -> dict:
     """Decode tok/s with and without n-gram speculation on the default
     engine, 8 streams of 256 greedy tokens: an extractive workload (each
     prompt a 512-token span repeated three times) and a free one (random
@@ -4564,6 +4644,7 @@ def spec_rates(params, V: int) -> dict:
     import torch
     from tpuserve_torch.runtime import SamplingParams
     from tpuserve_torch.runtime.graphs import VERIFY_MODES, pool_bytes_bound
+    V = cfg.vocab_size
     rng = np.random.default_rng(SEED + 47)
     work = {"extractive": [(lambda s: s * 3)(rng.integers(0, V, 512).tolist())
                            for _ in range(8)],
@@ -4572,7 +4653,7 @@ def spec_rates(params, V: int) -> dict:
     out = {}
     for name, (spec, _) in (("plain", spec_configs()["plain"]),
                             ("ngram", spec_configs()["ngram"])):
-        eng = spec_engine(params, None, spec, enable_prefix_caching=False)
+        eng = spec_engine(params, cfg, spec, enable_prefix_caching=False)
         t0 = time.perf_counter()
         eng.graphs.warmup(eng._spec_keys(VERIFY_MODES))
         res = {"spec_capture_s": time.perf_counter() - t0}
@@ -4618,7 +4699,8 @@ def spec_rates(params, V: int) -> dict:
 
 
 def phase_spec(results) -> dict:
-    """Speculative decoding at full width and depth: the verify window on
+    """Speculative decoding at full width on ``feature_model``
+    (FEATURE_LAYERS layers of the main weights): the verify window on
     the paged window kernel (``spec_verify``), the draft on the flash
     kernel (``spec_draft``), the three engines' streams in float32 and
     bf16 (``spec_identity``), sampled speculation and the acceptance's
@@ -4626,22 +4708,21 @@ def phase_spec(results) -> dict:
     without it (``spec_rates``)."""
     import gc
     import torch
-    params = results["main"]["params"]
-    cfg = results["main"]["engine"].model_cfg
+    params, cfg = feature_model(results)
     verify = spec_verify(params, cfg)
     draft = spec_draft(params, cfg, LOGIT_DIFF_MAX)
     ps = spec_prompts(cfg.vocab_size)
     gc.collect()
     torch.cuda.empty_cache()
-    fp32_params, fp32_cfg = fp32_main()
+    fp32_params, fp32_cfg = fp32_main(FEATURE_LAYERS)
     draft32 = spec_draft(fp32_params, fp32_cfg, FP32_LOGIT_GATE)
     ident32 = spec_identity(fp32_params, fp32_cfg, ps)
     del fp32_params
     gc.collect()
     torch.cuda.empty_cache()
-    ident16 = spec_identity(params, None, ps)
-    sampled = spec_sampled(params, ps)
-    rates = spec_rates(params, cfg.vocab_size)
+    ident16 = spec_identity(params, cfg, ps)
+    sampled = spec_sampled(params, cfg, ps)
+    rates = spec_rates(params, cfg)
     gc.collect()
     torch.cuda.empty_cache()
     # the kernels' launches on the main path: the bf16 identity-draft
@@ -4907,19 +4988,19 @@ def embed_concurrent(params, cfg) -> dict:
 
 
 def phase_embed(results) -> dict:
-    """The cache-less trunks at full width and depth: the kernel path
+    """The cache-less trunks at full width on ``feature_model``
+    (FEATURE_LAYERS layers of the main weights): the kernel path
     against the plain path (``embed_paths``), the HTTP surfaces
     (``embed_server``) and embeddings amid decoding streams and a
     first-use capture (``embed_concurrent``)."""
     import gc
     import torch
-    params = results["main"]["params"]
-    cfg = results["main"]["engine"].model_cfg
+    params, cfg = feature_model(results)
     paths = embed_paths(params, cfg)
     server = embed_server(paths.pop("engine"))
     gc.collect()
     torch.cuda.empty_cache()
-    fp32_params, fp32_cfg = fp32_main()
+    fp32_params, fp32_cfg = fp32_main(FEATURE_LAYERS)
     conc = embed_concurrent(fp32_params, fp32_cfg)
     del fp32_params
     gc.collect()
@@ -4956,13 +5037,29 @@ def family_free() -> None:
     torch.cuda.empty_cache()
 
 
+# The depth the families and breadth phases run these models at, cut to
+# keep the script inside its limit (every width, head and expert count,
+# window, prompt and dtype stays; a 5:1 model keeps two global layers);
+# the rest run at full depth.  Qwen3-30B-A3B keeps its 48 layers: the int8
+# run's weight share is gated against its bf16 bytes at that depth.
+FAMILY_LAYERS = {"mistralai/Mistral-7B-Instruct-v0.1": 8, "google/gemma-2-2b": 8,
+                 "google/gemma-3-4b-text": 12, "facebook/opt-1.3b": 8,
+                 "microsoft/Phi-3-mini-4k-instruct": 8, "deepseek-ai/DeepSeek-V2-Lite": 8}
+
+
 def family_cfg(name: str, dtype: str):
     from tpuserve_torch.models.config import get_model_config
-    return dataclasses.replace(get_model_config(name), dtype=dtype)
+    cfg = dataclasses.replace(get_model_config(name), dtype=dtype)
+    layers = FAMILY_LAYERS.get(name)
+    if layers is None:
+        return cfg
+    return dataclasses.replace(
+        cfg, num_layers=layers,
+        window_layers=cfg.window_layers[:layers] if cfg.window_layers else cfg.window_layers)
 
 
 def family_params(cfg, seed: int = SEED):
-    """Full-width, full-depth random weights made on the card from ``seed``
+    """Full-width random weights at ``cfg``'s depth made on the card from ``seed``
     (``init_params_device``: init_params' tree, shapes and scales), with
     their bytes and seconds."""
     from tpuserve_torch.models.weights import init_params_device, param_nbytes
@@ -5598,15 +5695,15 @@ def zero_launches(launches: dict) -> bool:
 
 
 def breadth_mla_bf16() -> dict:
-    """DeepSeek-V2-Lite (27 layers, MLA with a 576-wide one-head latent
-    cache, 64 experts top-6 with 2 shared, the first layer dense), bf16,
-    full width and depth: the default engine (graphs, pipelined; the
+    """DeepSeek-V2-Lite (MLA with a 576-wide one-head latent cache, 64
+    experts top-6 with 2 shared, the first layer dense), bf16, full width,
+    8 of its 27 layers (``FAMILY_LAYERS``): the default engine (graphs, pipelined; the
     engine downgrades its attention to the plain one, MLA's only path)
     serves 8 prompts of the main lengths x 64 greedy tokens, the same
     tokens as the eager engine's; a chunked 4,096-token prompt and its
     prefix hit; the absorbed decode step against the naive form, on these
     weights and prompts and on a second seed's; no kernel launched by any
-    of it.  In bf16 the absorbed step's gate bounds rounding over 27 layers
+    of it.  In bf16 the absorbed step's gate bounds rounding over the layers
     (``bf16_logit_gate``: 0.25 at |logits| ~5); the check that catches a
     fault in the absorbed form is the float32 one of ``breadth_mla_fp32``
     (1e-3)."""
@@ -6104,7 +6201,7 @@ def breadth_lora_server(root, adapters: dict) -> dict:
 
 def phase_breadth(results) -> dict:
     """The rest of the model breadth, at full width on the card: MLA with
-    DeepSeek-V2-Lite (bf16 at full depth; float32 at 4 layers), which the
+    DeepSeek-V2-Lite (bf16 at 8 layers; float32 at 4), which the
     engine serves on the plain attention, so no kernel launches; int8
     Qwen3-30B-A3B on the flash prefill and paged decode kernels; LoRA
     (merged and stacked) on Qwen3-0.6B on all four kernels.  The kernels'
@@ -6569,7 +6666,7 @@ def services_pool(srv, url) -> dict:
 
 
 def phase_services(results) -> dict:
-    """See the module docstring, phase 20."""
+    """See the module docstring, phase 19."""
     import gc
     import tempfile
     from pathlib import Path
@@ -6626,6 +6723,312 @@ def phase_services(results) -> dict:
     return out
 
 
+FLEET_BLOCKS = 1024               # each replica's KV blocks
+FLEET_PREFIX = 1024               # a prefix group's shared prompt tokens
+FLEET_GROUPS = 4
+FLEET_PER_GROUP = 4
+FLEET_CONCURRENCY = 8
+FLEET_MOVE = 8                    # streams on the replica removed from the file
+FLEET_READMIT_S = 10.0            # the removed replica's readmission deadline
+FLEET_STORM = dict(n=60, ramp_s=3.0, span_s=6.0, prompt_tokens=512, max_tokens=32)
+FLEET_POOL = dict(step_time_s=0.05, control_interval_s=0.25, cold_start_s=1.0,
+                  initial_replicas=1, max_num_seqs=2, max_waiting=12, block_size=32)
+FLEET_POLICY = dict(min_replicas=1, max_replicas=3, scale_out_cooldown_s=2.0,
+                    scale_in_cooldown_s=20.0, idle_in_s=10.0)
+# a fleet stream's body, but for its prompt
+FLEET_BODY = {"max_tokens": SERVER_TOKENS, "temperature": 0, "ignore_eos": True,
+              "return_token_ids": True, "stream_options": {"include_usage": True}}
+
+
+def fleet_replica(params):
+    """One port replica in process: ``OpenAIServer`` over an engine on the
+    main weights (drawn once, shared), 1,024 blocks, the default scheduler,
+    every executable it can make captured before it serves (as a bench
+    warms its buckets): a capture is process-wide on the card, so two
+    engines stepping in one process must not capture while the other
+    runs."""
+    from tpuserve_torch.runtime import CacheConfig, Engine, EngineConfig
+    from tpuserve_torch.server import OpenAIServer, ServerConfig
+    eng = Engine(EngineConfig(seed=SEED, cache=CacheConfig(num_blocks=FLEET_BLOCKS)),
+                 params=params)
+    eng.warmup()
+    eng.graphs.warmup(eng._step_keys(eng.scheduler.cfg, eng.max_seq_len))
+    srv = OpenAIServer(eng, ServerConfig(host="127.0.0.1", port=0))
+    return srv, f"http://127.0.0.1:{srv.start()}"
+
+
+def fleet_keyed(gw, rng, V: int, n: int, target: str, length: int) -> list:
+    """``n`` fresh prompts of ``length`` tokens whose rendezvous target among
+    the gateway's backends is ``target``."""
+    from tpuserve_torch.server.kv_digest import affinity_key
+    out = []
+    while len(out) < n:
+        p = rng.integers(0, V, length).tolist()
+        if gw._rendezvous_target(affinity_key({"prompt": p}), gw.backends).url == target:
+            out.append(p)
+    return out
+
+
+def fleet_landed(srvs) -> dict:
+    """prompt length -> the replica index whose flight recorder queued it."""
+    out = {}
+    for i, srv in enumerate(srvs):
+        fl = srv.engine.flight
+        for rid in fl.recent_request_ids(limit=4096):
+            tl = fl.request_timeline(rid)
+            if tl and tl[0]["event"] == "QUEUED":
+                out.setdefault(tl[0]["detail"]["prompt_tokens"], set()).add(i)
+    return out
+
+
+def fleet_metric(url: str, name: str) -> float:
+    _, text = http(url + "/metrics")
+    return metric_sum(text, name)
+
+
+def fleet_streams(gw_url: str, det_url: str, ps: list, conc: int) -> list:
+    """``ps`` as streams through the gateway, ``conc`` at a time; each
+    result with ``ok`` (``stream_ok`` against a replica's detokenizer)."""
+    res = []
+    for i in range(0, len(ps), conc):
+        wave = ps[i:i + conc]
+        got = concurrent([lambda p=p: sse(gw_url + "/v1/completions",
+                                          dict(FLEET_BODY, prompt=p)) for p in wave])
+        for r, p in zip(got, wave):
+            r["ok"] = stream_ok(r, det_url, len(p))
+        res += got
+    return res
+
+
+def fleet_status(gw_url: str) -> list:
+    _, st = http(gw_url + "/gateway/status")
+    return [[b["url"].rsplit(":", 1)[1], b["healthy"], b["outstanding"]]
+            for b in st["backends"]]
+
+
+def fleet_gateway(srvs, urls, gw, gw_url, bf, V: int) -> dict:
+    """(a) 4 prefix groups, 2 keyed to each replica, through the gateway:
+    every request on its rendezvous target, the prefix hits on /metrics,
+    the streams, the launches against both engines' steps; then the
+    backends file without replica 2 while 8 streams run on it, the next 8
+    requests, and replica 2 back after a passing probe."""
+    import threading
+    rng = np.random.default_rng(SEED + 40)
+    out = {"status": {"start": fleet_status(gw_url)}}
+    # the groups: a 1,024-token prefix each, two keyed to each replica
+    heads = fleet_keyed(gw, rng, V, 2, urls[0], FLEET_PREFIX) + \
+        fleet_keyed(gw, rng, V, 2, urls[1], FLEET_PREFIX)
+    suffix = rng.permutation(np.arange(64, 257))[:FLEET_GROUPS * FLEET_PER_GROUP]
+    groups = [[heads[g] + rng.integers(0, V, int(suffix[g * FLEET_PER_GROUP + k])).tolist()
+               for k in range(FLEET_PER_GROUP)] for g in range(FLEET_GROUPS)]
+    want = {len(p): g // 2 for g in range(FLEET_GROUPS) for p in groups[g]}
+    hits0 = [fleet_metric(u, "tpuserve_prefix_cache_hits_total") for u in urls]
+    marks = [stat_marks(s.engine) for s in srvs]
+    reset_launches()
+    t = time.perf_counter()
+    # each group's first request alone (they fill the cache), then the
+    # other 12, 8 at a time: the 12 must hit
+    res = fleet_streams(gw_url, urls[0], [g[0] for g in groups], FLEET_GROUPS)
+    res += fleet_streams(gw_url, urls[0], [p for g in groups for p in g[1:]],
+                         FLEET_CONCURRENCY)
+    out["serve_s"] = time.perf_counter() - t
+    launches = read_launches()
+    expect = {k: 0 for k in launches}
+    for s, m in zip(srvs, marks):
+        for k, v in launches_since(s.engine, m).items():
+            expect[k] += v
+    landed = fleet_landed(srvs)
+    out["misrouted"] = sum(1 for n, r in want.items() if landed.get(n) != {r})
+    out["per_replica"] = [sum(1 for r in want.values() if r == i) for i in range(2)]
+    out["prefix_hits"] = sum(fleet_metric(u, "tpuserve_prefix_cache_hits_total") for u in urls) \
+        - sum(hits0)
+    out["streams_ok"] = sum(r["ok"] for r in res)
+    out["launches"], out["launches_expected"] = launches, expect
+    out["rates"] = stream_rates(res) if all(r["ok"] for r in res) else None
+    out["status"]["served"] = fleet_status(gw_url)
+    # replica 2 leaves the backends file while 8 streams run on it
+    moving = fleet_keyed(gw, rng, V, FLEET_MOVE, urls[1], 512)
+    got: dict = {}
+    threads = [threading.Thread(target=lambda i=i, p=p: got.__setitem__(
+        i, sse(gw_url + "/v1/completions", dict(FLEET_BODY, prompt=p))))
+        for i, p in enumerate(moving)]
+    for th in threads:
+        th.start()
+    b2 = next(b for b in gw.backends if b.url == urls[1])
+    deadline = time.perf_counter() + 60
+    while b2.outstanding < FLEET_MOVE and time.perf_counter() < deadline:
+        time.sleep(0.002)
+    routed = b2.outstanding
+    with open(bf, "w") as f:
+        json.dump([urls[0]], f)
+    reloaded = gw.reload_backends()
+    out["in_flight_at_removal"] = sum(1 for i in range(FLEET_MOVE) if i not in got)
+    out["status"]["removed"] = fleet_status(gw_url)
+    # the next requests, any keys, told apart by their lengths
+    nxt = [rng.integers(0, V, 520 + i).tolist() for i in range(FLEET_MOVE)]
+    after = fleet_streams(gw_url, urls[0], nxt, FLEET_CONCURRENCY)
+    for th in threads:
+        th.join(timeout=600)
+    landed = fleet_landed(srvs)
+    moved_ok = [i in got and stream_ok(got[i], urls[0], len(p)) for i, p in enumerate(moving)]
+    out["removal"] = {
+        "routed_to_removed": routed, "reloaded": reloaded,
+        "dropped": FLEET_MOVE - sum(moved_ok),
+        "after_ok": sum(r["ok"] for r in after),
+        "after_served": [sum(1 for p in nxt if i in landed.get(len(p), ())) for i in range(2)]}
+    # replica 2 back: listed, then admitted by a passing probe
+    with open(bf, "w") as f:
+        json.dump(urls, f)
+    t = time.perf_counter()
+    gw.reload_backends()
+    back = next(b for b in gw.backends if b.url == urls[1])
+    listed_unhealthy = not back.healthy
+    out["status"]["listed"] = fleet_status(gw_url)
+    while not back.healthy and time.perf_counter() - t < FLEET_READMIT_S:
+        time.sleep(0.05)
+    out["readmit"] = {"listed_unhealthy": listed_unhealthy, "healthy": back.healthy,
+                      "s": time.perf_counter() - t, "probe_failures": back.probe_failures}
+    out["status"]["readmitted"] = fleet_status(gw_url)
+    out["ok"] = (out["misrouted"] == 0 and out["per_replica"] == [8, 8]
+                 and out["prefix_hits"] >= FLEET_GROUPS * (FLEET_PER_GROUP - 1)
+                 and out["streams_ok"] == len(res)
+                 and launches == expect and launches["flash_prefill"] > 0
+                 and launches["paged_decode"] > 0 and launches["paged_window"] > 0
+                 and routed == FLEET_MOVE and reloaded
+                 and out["in_flight_at_removal"] == FLEET_MOVE
+                 and out["removal"]["dropped"] == 0
+                 and out["removal"]["after_ok"] == FLEET_MOVE
+                 and out["removal"]["after_served"] == [FLEET_MOVE, 0]
+                 and listed_unhealthy and back.healthy)
+    return out
+
+
+def fleet_replay(params, bundle) -> dict:
+    """(b) Replica 1's bundle as a workload, replayed twice on the card at
+    full width, then backtested twice with the default objectives."""
+    from tpuserve_torch.obs import backtest
+    from tpuserve_torch.replay import ReplayOptions, diff_report, replay, workload_from_bundle
+    wl = workload_from_bundle(bundle, seed=SEED)
+    opts = ReplayOptions(model="Qwen/Qwen3-0.6B", device="cuda", params=params,
+                         include_token_streams=False)
+    reset_launches()
+    runs = [replay(wl, opts) for _ in range(2)]
+    launches = read_launches()
+    diff = diff_report(runs[0], wl)
+    t = time.perf_counter()
+    bts = [backtest(wl, replay_opts=opts) for _ in range(2)]
+    bt_s = time.perf_counter() - t
+    keep = ("virtual_s", "wall_s", "speedup", "step_time_s", "aborted", "token_digest",
+            "sli_digest")
+    out = {"workload": wl.summary(), "source_engine": wl.meta.get("source_engine"),
+           "runs": [{k: r[k] for k in keep} | {"counters": r["counters"]} for r in runs],
+           "source_outcomes": diff["source_outcomes"],
+           "replay_outcomes": diff["replay_outcomes"], "launches": launches,
+           "backtest": [{"firing_digest": b["firing_digest"], "alerts_fired": b["alerts_fired"],
+                         "transitions": len(b["transitions"]),
+                         "token_digest": b["replay"]["token_digest"]} for b in bts],
+           "backtest_s": bt_s}
+    out["ok"] = (not any(r["aborted"] for r in runs)
+                 and runs[0]["token_digest"] == runs[1]["token_digest"]
+                 and runs[0]["sli_digest"] == runs[1]["sli_digest"]
+                 and diff["replay_outcomes"] == diff["source_outcomes"]
+                 and sum(diff["source_outcomes"].values()) == len(wl.requests)
+                 and json.dumps(bts[0]["transitions"], sort_keys=True)
+                 == json.dumps(bts[1]["transitions"], sort_keys=True)
+                 and bts[0]["firing_digest"] == bts[1]["firing_digest"]
+                 and bts[0]["replay"]["token_digest"] == runs[0]["token_digest"]
+                 and launches["flash_prefill"] > 0 and launches["paged_decode"] > 0)
+    return out
+
+
+def fleet_pool(params) -> dict:
+    """(c) The storm through the simulated pool, autoscaled up to 3 replicas
+    on the card, twice."""
+    from tpuserve_torch.autoscale import (PolicyConfig, PoolReplayOptions, make_storm_workload,
+                                          pool_replay)
+    wl = make_storm_workload(**FLEET_STORM)
+    opts = PoolReplayOptions(model="Qwen/Qwen3-0.6B", device="cuda", params=params,
+                             **FLEET_POOL)
+    reset_launches()
+    runs = [pool_replay(wl, opts, PolicyConfig(**FLEET_POLICY)) for _ in range(2)]
+    launches = read_launches()
+    r = runs[0]
+    keep = ("decision_digest", "token_digest", "first_scale_out_t", "first_shed_t",
+            "first_l3_t", "replicas_peak", "cold_starts_observed_s", "virtual_s", "wall_s",
+            "speedup", "counters", "aborted")
+    out = {"workload": wl.summary(), "runs": [{k: x[k] for k in keep} for x in runs],
+           "decisions": [[d["t"], d["action"], d["target"]] for d in r["decisions"]],
+           "launches": launches}
+    first = r["first_scale_out_t"]
+    out["ok"] = (not any(x["aborted"] for x in runs)
+                 and runs[0]["decision_digest"] == runs[1]["decision_digest"]
+                 and runs[0]["token_digest"] == runs[1]["token_digest"]
+                 and 1 < r["replicas_peak"] <= FLEET_POLICY["max_replicas"]
+                 and first is not None
+                 and all(first < s for s in (r["first_shed_t"], r["first_l3_t"])
+                         if s is not None)
+                 and launches["flash_prefill"] > 0 and launches["paged_decode"] > 0)
+    return out
+
+
+def phase_fleet(results) -> dict:
+    """See the module docstring, phase 20."""
+    import gc
+    import tempfile
+    from pathlib import Path
+    import torch
+    from tpuserve_torch.server.gateway import Gateway, GatewayConfig
+    root = Path(__file__).resolve().parent
+    params = results["main"]["params"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"free_gb_at_start": torch.cuda.mem_get_info()[0] / 1e9}
+    work = Path(tempfile.mkdtemp(prefix="fleet-", dir=str(root / "build")))
+    bf = str(work / "backends.json")
+    t = time.perf_counter()
+    srvs, urls = [], []
+    gw = None
+    try:
+        for _ in range(2):
+            srv, url = fleet_replica(params)
+            srvs.append(srv)
+            urls.append(url)
+        with open(bf, "w") as f:
+            json.dump(urls, f)
+        gw = Gateway([], GatewayConfig(host="127.0.0.1", port=0, health_interval_s=0.5,
+                                       backends_file=bf))
+        gw_url = f"http://127.0.0.1:{gw.start()}"
+        gw.probe_backends_once()
+        out["start_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        V = srvs[0].engine.model_cfg.vocab_size
+        out["gateway"] = fleet_gateway(srvs, urls, gw, gw_url, bf, V)
+        out["gateway_s"] = time.perf_counter() - t
+        out["launches"] = out["gateway"]["launches"]
+        _, bundle = http(urls[0] + "/debug/engine/dump")
+    finally:
+        if gw is not None:
+            gw.shutdown()
+        for srv in srvs:
+            srv.shutdown()
+        shutil.rmtree(work, ignore_errors=True)
+    del srvs
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out["replay"] = fleet_replay(params, bundle)
+    out["replay_s"] = time.perf_counter() - t
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out["pool"] = fleet_pool(params)
+    out["pool_s"] = time.perf_counter() - t
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["ok"] = all(out[k]["ok"] for k in ("gateway", "replay", "pool"))
+    return out
+
+
 def kernel_modules() -> dict:
     from tpuserve_torch.ops import flash_prefill, paged_decode, paged_window, ragged_paged
     return {"flash_prefill": flash_prefill, "paged_decode": paged_decode,
@@ -6646,9 +7049,9 @@ def read_launches() -> dict:
 # phases that count them too
 LAUNCH_PHASE = {"flash_prefill": "main", "paged_decode": "main",
                 "paged_window": "chunked", "ragged_paged": "mixed"}
-PATH_PHASES = {"flash_prefill": ("families", "breadth", "spec", "embed", "services"),
-               "paged_decode": ("families", "breadth", "services"),
-               "paged_window": ("families", "breadth", "spec", "services"),
+PATH_PHASES = {"flash_prefill": ("families", "breadth", "spec", "embed", "services", "fleet"),
+               "paged_decode": ("families", "breadth", "services", "fleet"),
+               "paged_window": ("families", "breadth", "spec", "services", "fleet"),
                "ragged_paged": ("breadth",)}
 
 
@@ -6708,6 +7111,8 @@ def main() -> int:
             res = phase_embed(results)
         elif phase == "services":
             res = phase_services(results)
+        elif phase == "fleet":
+            res = phase_fleet(results)
         elif phase == "profile":
             res = phase_profile(results)
         else:

@@ -137,6 +137,38 @@ def test_spec_and_download_modules_load_no_jax_and_no_hub():
         assert "huggingface_hub" not in {m.split(".")[0] for m in mods}
 
 
+def test_fleet_modules_load_no_jax():
+    """The fleet layer (replay, the autoscaler, the gateway, the alert
+    backtest) is the port's own copy: importing every module of it, and
+    running the lazy imports inside its functions (the gateway's tenants,
+    digest, HTTP server, canary and tracer; the harness's engine; the
+    pool's report), loads no jax and no tpuserve module."""
+    res = _run("import sys, tpuserve_torch.replay, tpuserve_torch.autoscale, "
+               "tpuserve_torch.autoscale.__main__, tpuserve_torch.server.gateway, "
+               "tpuserve_torch.obs.backtest\n"
+               "from tpuserve_torch.server.gateway import Gateway, GatewayConfig\n"
+               "gw = Gateway(['http://127.0.0.1:9'], GatewayConfig(host='127.0.0.1', port=0,\n"
+               "    health_interval_s=3600, tenant_config='{\"tenants\": {}}'))\n"
+               "gw.pick_backend(b'{\"prompt\": \"x\"}'); gw.start(); gw.shutdown()\n"
+               "from tpuserve_torch.replay import Workload, WorkloadRequest, ReplayOptions, replay\n"
+               "wl = Workload([WorkloadRequest('r', 0.0, 4, 2)])\n"
+               "replay(wl, ReplayOptions(device='cpu', include_token_streams=False))\n"
+               "from tpuserve_torch.autoscale import (PoolReplayOptions, PolicyConfig,\n"
+               "    make_storm_workload, pool_replay)\n"
+               "pool_replay(make_storm_workload(n=2, ramp_s=0.1, span_s=0.2, max_tokens=2),\n"
+               "    PoolReplayOptions(device='cpu'), PolicyConfig(max_replicas=1))\n"
+               "from tpuserve_torch.server.metrics import AutoscalerMetrics\n"
+               "bad = [m for m in sys.modules if m.split('.')[0] in "
+               "('jax', 'jaxlib', 'tpuserve', 'prometheus_client')]\n"
+               "assert not bad, bad\n"
+               "print('clean')")
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("clean")
+    for rel in ("replay/harness.py", "replay/extract.py", "autoscale/pool.py",
+                "autoscale/reconciler.py", "server/gateway.py", "obs/backtest.py"):
+        assert ROOT / "tpuserve_torch" / rel in PORT_FILES
+
+
 def test_engine_without_device_raises_when_there_is_no_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")

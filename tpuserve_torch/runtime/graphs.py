@@ -92,6 +92,7 @@ import dataclasses
 import gc
 import math
 import time
+import threading
 import weakref
 
 import numpy as np
@@ -104,6 +105,9 @@ from tpuserve_torch.ops import sampling as sampling_ops
 from tpuserve_torch.ops.attention import PAD_SLOT
 
 KERNEL_MODULES = (flash_prefill, paged_decode, paged_window, ragged_paged)
+# replays add to the wrappers' counts from every engine's loop thread (two
+# servers in one process step at once): one lock keeps each sum whole
+_COUNTS_LOCK = threading.Lock()
 KINDS = ("prefill", "chunk", "mixed", "decode", "verify", "draft")
 SPEC_KINDS = ("verify", "draft")       # SpecExecutable's kinds
 VERIFY_MODES = ("greedy", "sampled")
@@ -502,8 +506,9 @@ class Executable:
             return
         for _ in range(steps):
             self.graph.replay()
-        for mod in KERNEL_MODULES:
-            mod.LAUNCHES += self.launches[_name(mod)] * steps
+        with _COUNTS_LOCK:
+            for mod in KERNEL_MODULES:
+                mod.LAUNCHES += self.launches[_name(mod)] * steps
         self.owner.replays[self.key[0]] += steps
 
 

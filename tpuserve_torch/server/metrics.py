@@ -13,7 +13,8 @@ poisoned, watchdog trips, engine restarts), the flight recorder's,
 tenants', the burn-rate evaluator's, the device profiler's (device
 seconds from CUDA events, graph captures, the HBM watermark, profile
 captures) and the model pool's.  ``CanaryMetrics`` is the synthetic
-prober's own registry (``obs/canary.py``).
+prober's own registry (``obs/canary.py``), ``AutoscalerMetrics`` the
+autoscaler's (``autoscale/``).
 """
 
 from __future__ import annotations
@@ -521,3 +522,35 @@ class CanaryMetrics(_Registry):
             "1 while any SLO class has >= the configured consecutive "
             "probe failures (0 otherwise) — the scale-out/eject "
             "signal the autoscaler polls off /gateway/status", "gauge", ()).labels()
+
+
+class AutoscalerMetrics(_Registry):
+    """The autoscaler control plane's own registry (``autoscale/``):
+    served from the scaler Deployment's ``/metrics``, fed by the
+    reconciler (and by the simulated pool harness, which exercises the
+    same feed paths)."""
+
+    def __init__(self):
+        super().__init__()
+        self.replicas = self.family(
+            "tpuserve_autoscaler_replicas",
+            "Replica count the autoscaler is currently holding the "
+            "pool at (pool= the scaled Deployment).  Diverges from the "
+            "Deployment's observed replicas only while a scale action "
+            "is in flight", "gauge", ("pool",))
+        self.decisions = self.family(
+            "tpuserve_autoscaler_decisions",
+            "Non-hold policy decisions applied (action= scale_out | "
+            "scale_in).  scale_out fires on brownout-level / "
+            "queue-delay-EWMA / TTFT-p95 breaches BEFORE the ladder "
+            "sheds; scale_in only after the pool sat idle + drained "
+            "for the configured window", "counter", ("action",))
+        self.cold_start = self.family(
+            "tpuserve_cold_start_seconds",
+            "Cold-pod-to-first-token: wall seconds from server process "
+            "boot to the replica's first served token (scraped once "
+            "per replica off /debug/engine cold_start_s) — the number "
+            "the persistent XLA compile cache, orbax PVC weights, and "
+            "KV spill tier's warm prefixes exist to keep small, and "
+            "the one that makes scale-from-zero a real operating "
+            "point", "histogram", (), _COLD_START_BUCKETS).labels()
