@@ -95,6 +95,28 @@ non-zero:
              streams of mixed ``model`` fields, each echoed, ``/v1/models``
              and an adapter's embeddings refused.  The int8 and LoRA runs'
              launches go to the kernel report.
+4a. tp      tensor and expert parallel ranks in lockstep
+             (``tpuserve_torch/parallel/``), weights drawn on the card from
+             the seed at full width: Qwen2-72B-Instruct at tp 4 (16 q and 2
+             kv heads a rank) and Qwen3-30B-A3B at ep 4 (32 of 128 experts
+             a rank), each in float32 (TF32 off) cut to 2 layers and in
+             bf16 cut to 8.  First each kernel against its plain version
+             and timed at a tp 4 rank's shapes.  Then a one-card reference
+             in a process of its own (freed before the ranks start), then
+             four ranks on the one card over gloo (NCCL refuses two ranks on
+             a device), spawned through the launcher ``--tp`` uses, eager
+             (gloo cannot be captured): rank 0 serves 4 prompts of 128-512
+             x 16 greedy and one sampled request, a prefix hit (one chunk),
+             and the 4 prompts on a mixed-batching engine; the followers
+             mirror every step.  Gates: float32 greedy tokens equal to the
+             reference's, bf16 first-step logits within ``bf16_logit_gate``
+             with top-1 >= 0.75, every follower's window tokens equal rank
+             0's, every rank's launches equal layers x its runs of each
+             step kind (all four kernels on every rank of the dense grid),
+             every rank exiting 0; the all-reduce ms a layer.  With two or
+             more cards, the same on NCCL with captured graphs at tp /
+             ep = min(4, cards), with decode tok/s beside the reference's;
+             on one card the line says ``"nccl": "not run: 1 card"``.
 5. identity  Qwen3-0.6B at full width, 2 layers, float32, no TF32: engines
              on the CUDA kernels and on the plain attention, decoding
              synchronously, give the same greedy tokens on the main path
@@ -385,7 +407,8 @@ non-zero:
              and frame buffer used against ``nvidia-smi``; two tenants at
              once, the 429s to the one whose token rate is below its
              traffic; the kernels' launches over (b).  (c) the model pool,
-             catalog {Qwen3-0.6B, Llama-3.1-8B-Instruct}, one resident, a
+             catalog {Qwen3-0.6B, Llama-3.1-8B-Instruct at full width cut
+             to 8 of its 32 layers}, one resident, a
              2 GiB host tier and a spill directory under ``build/``:
              requests alternating by ``model`` through swaps from cold (the
              8B's checkpoint, through the loader), the host tier (the 0.6B) and the spill
@@ -394,7 +417,9 @@ non-zero:
              within 1 GiB of before; each swap's seconds, tier and bytes.
 20. fleet    the fleet layer over the port's servers and engines, Qwen3-0.6B
              at full width and depth on the main weights (drawn once): (a)
-             two ``OpenAIServer`` replicas in process (1,024 blocks each)
+             two ``OpenAIServer`` replicas in process (1,024 blocks each),
+             nothing captured before they serve (each captures on first
+             use while the other serves: the graphs' capture lock, F7)
              behind the port's ``Gateway`` (``health_interval_s`` 0.5, a
              backends file): 16 streamed greedy completions of 64 tokens
              from 4 prefix groups (a 1,024-token prefix, two keyed to each
@@ -419,6 +444,29 @@ non-zero:
              twice: equal decision digests, the first scale-out before the
              first L3 entry and the first shed.  The wall speedups of (b)
              and (c) are readings.
+20a. disagg prefill/decode disaggregation on the main weights: (a) in
+             process, ``DisaggregatedEngine`` (both engines on the card,
+             one weight tree) against the colocated engine: the main
+             path's 8 prompts of 128-1,024 x 64 tokens and one request
+             finishing at its prefill, in bf16 at full depth (the same
+             tokens; the pair's launches against its engines' runs; the
+             handoff's host ms and MB a request) and in float32 (TF32 off)
+             cut to 4 layers (the same tokens); Mistral-7B (a 4,096
+             window) in float32 cut to 4 layers, a 6,000-token prompt x 32
+             (the same tokens, the decode side releasing blocks, the
+             prefill side none); a guided_choice request whose first token
+             opens a canonical-suffix plan (a choice in the choices, the
+             plan handed over and released).  (b) two in-process servers
+             as ``--role decode`` and ``--role prefill --decode-url``
+             build them, float32 at 4 layers, nothing captured before
+             they serve (F7): 8 concurrent streams through the prefill
+             server equal to the colocated engine's tokens; the pool-full
+             fallback: a decode pool of 48 blocks (1,504 tokens a
+             sequence) holding a 640-token stream, slowed by a delay
+             fault so that it holds them, answers a 1,000-token prompt's
+             migration 503 (it fits a sequence, not the free blocks)
+             twice, once a retry, and the prompt is decoded on the
+             prefill pod, equal too; ``/internal/abort`` of an unknown id.
 21. profile  where the time goes, under torch.profiler, after every
              counted run (a profiler run slows the launches that follow
              it): one prefill and one decode window of the main path, one
@@ -453,9 +501,9 @@ import time
 
 import numpy as np
 
-PHASES = ("build", "kernels", "families", "breadth", "identity", "main", "graphs", "sampler", "guided", "chunked",
-          "mixed", "server", "tiers", "slo", "salvage", "flight", "spec", "embed", "services",
-          "fleet", "profile")
+PHASES = ("build", "kernels", "families", "breadth", "tp", "identity", "main", "graphs", "sampler",
+          "guided", "chunked", "mixed", "server", "tiers", "slo", "salvage", "flight", "spec",
+          "embed", "services", "fleet", "disagg", "profile")
 # Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA's data
 # sheet): bf16 tensor cores, float32 CUDA cores, HBM.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -937,16 +985,29 @@ def phase_build(_build) -> dict:
     headline's pages a partition, the engine's 64 pages a row for ragged)."""
     import re
     import shutil
+    import tempfile
     import torch
     from tpuserve_torch.ops.paged_decode import decode_splits, num_sms
     build_s = _build.build()
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     hgmma, usage = {}, {}
+    # every library's two dumps at once, each into a file of its own
+    dumps = {}
     for name in KERNELS:
-        lib = str(_build._lib_path(name))
-        sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True).stdout
-        hgmma[name] = sass.count("HGMMA")
-        res = subprocess.run([tool, "-res-usage", lib], capture_output=True, text=True).stdout
+        for flag in ("-sass", "-res-usage"):
+            out = tempfile.TemporaryFile(mode="w+")
+            dumps[name, flag] = (subprocess.Popen(
+                [tool, flag, str(_build._lib_path(name))], stdout=out), out)
+
+    def dump(name: str, flag: str) -> str:
+        proc, out = dumps[name, flag]
+        proc.wait()
+        out.seek(0)
+        with out:
+            return out.read()
+    for name in KERNELS:
+        hgmma[name] = dump(name, "-sass").count("HGMMA")
+        res = dump(name, "-res-usage")
         for fn, reg, stack, shared in re.findall(
                 r"Function (\S+):\s*REG:(\d+) STACK:(\d+)(?: SHARED:(\d+))?", res):
             if "bf16" in fn or "ragged" in fn or "decode" in fn:
@@ -6254,8 +6315,13 @@ SERVICES_ROUNDS = 3               # devprof on/off, interleaved
 SERVICES_AB_TOKENS = 256          # a run's streams: mostly 8-row windows
 SERVICES_SWAP_LENGTHS = [128, 384, 640]
 SERVICES_SWAP_TOKENS = 32
-SERVICES_POOL = ("Qwen/Qwen3-0.6B", "meta-llama/Llama-3.1-8B-Instruct")
-SERVICES_HOST_BYTES = 2 << 30     # holds the 0.6B (1.2 GB), not the 8B (16 GB)
+# Llama-3.1-8B-Instruct at full width cut to SERVICES_8B_LAYERS of its 32
+# layers (registered under this name at the phase's start): its checkpoint
+# write and its cold and spill swaps took 73 s of the script's limit at
+# full depth, and every swap path and gate is the same at 8
+SERVICES_8B, SERVICES_8B_LAYERS = "meta-llama/Llama-3.1-8B-Instruct-8L", 8
+SERVICES_POOL = ("Qwen/Qwen3-0.6B", SERVICES_8B)
+SERVICES_HOST_BYTES = 2 << 30     # holds the 0.6B (1.2 GB), not the cut 8B (5.6 GB)
 SERVICES_SWAP_MARGIN = 1 << 30    # card memory after the round trip, within
 # the tenants: "slow" refills below one 8 x 1,024 + 64 request's estimate
 SERVICES_TENANTS = {"tenants": {
@@ -6679,6 +6745,10 @@ def phase_services(results) -> dict:
     t = time.perf_counter()
     out["managers"] = services_managers(results)
     out["managers_s"] = time.perf_counter() - t
+    from tpuserve_torch.models.config import get_model_config, register_model_config
+    register_model_config(dataclasses.replace(
+        get_model_config("meta-llama/Llama-3.1-8B-Instruct"), name=SERVICES_8B,
+        num_layers=SERVICES_8B_LAYERS))
     ckpts, out["checkpoints"] = services_checkpoints(root)
     flight_dir = tempfile.mkdtemp(prefix="services-flight-", dir=str(root / "build"))
     srv, url, start_s, base_used = services_server(root, flight_dir, ckpts)
@@ -6743,16 +6813,12 @@ FLEET_BODY = {"max_tokens": SERVER_TOKENS, "temperature": 0, "ignore_eos": True,
 def fleet_replica(params):
     """One port replica in process: ``OpenAIServer`` over an engine on the
     main weights (drawn once, shared), 1,024 blocks, the default scheduler,
-    every executable it can make captured before it serves (as a bench
-    warms its buckets): a capture is process-wide on the card, so two
-    engines stepping in one process must not capture while the other
-    runs."""
+    nothing captured before it serves: each replica captures on first use
+    while the other serves (the graphs' process-wide capture lock, F7)."""
     from tpuserve_torch.runtime import CacheConfig, Engine, EngineConfig
     from tpuserve_torch.server import OpenAIServer, ServerConfig
     eng = Engine(EngineConfig(seed=SEED, cache=CacheConfig(num_blocks=FLEET_BLOCKS)),
                  params=params)
-    eng.warmup()
-    eng.graphs.warmup(eng._step_keys(eng.scheduler.cfg, eng.max_seq_len))
     srv = OpenAIServer(eng, ServerConfig(host="127.0.0.1", port=0))
     return srv, f"http://127.0.0.1:{srv.start()}"
 
@@ -7005,6 +7071,14 @@ def phase_fleet(results) -> dict:
         out["gateway"] = fleet_gateway(srvs, urls, gw, gw_url, bf, V)
         out["gateway_s"] = time.perf_counter() - t
         out["launches"] = out["gateway"]["launches"]
+        # each replica's seconds capturing on first use, under the
+        # process-wide capture lock (F7)
+        out["capture_s"] = [srv.engine.graphs.capture_s for srv in srvs]
+        out["captures"] = [len(srv.engine.graphs.executables) for srv in srvs]
+        # each replica's replays made while the other captured: captures
+        # hold the capture lock only
+        out["replays_beside_capture"] = [srv.engine.graphs.replays_beside_capture
+                                         for srv in srvs]
         _, bundle = http(urls[0] + "/debug/engine/dump")
     finally:
         if gw is not None:
@@ -7029,6 +7103,634 @@ def phase_fleet(results) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase tp: tensor and expert parallel ranks in lockstep (parallel/)
+# --------------------------------------------------------------------------
+
+# (label, model, dtype, layers, tp, ep): full width, depth cut; each rank's
+# weights drawn on the card from the seed
+TP_RUNS = (("dense_fp32", "Qwen/Qwen2-72B-Instruct", "float32", 2, 4, 1),
+           ("dense_bf16", "Qwen/Qwen2-72B-Instruct", "bfloat16", 8, 4, 1),
+           ("moe_fp32", "Qwen/Qwen3-30B-A3B", "float32", 2, 1, 4),
+           ("moe_bf16", "Qwen/Qwen3-30B-A3B", "bfloat16", 8, 1, 4))
+TP_LENGTHS = [128, 256, 384, 512]
+TP_TOKENS = 16
+TP_HIT = 64                 # new tokens after the cached 512-token prompt: one chunk
+TP_RATE_TOKENS = 64         # decode tok/s: 4 streams of 64 tokens (graphs only)
+TP_CACHE = dict(block_size=32, num_blocks=256, max_blocks_per_seq=32)
+TP_MULTI_STEP = 8
+TP_WORKER = "--tp-worker"
+TP_TIMEOUT_S = 300
+TP_ALL_REDUCE_ITERS = 20
+# the step kind whose runs launch each kernel, once a layer
+KERNEL_KIND = {"flash_prefill": "prefill", "paged_decode": "decode",
+               "paged_window": "chunk", "ragged_paged": "mixed"}
+
+
+def tp_params(cfg, mesh):
+    """The cut model's weights drawn on the card (``init_params_device``);
+    under a mesh each rank draws each layer whole and keeps its slice, the
+    ranks one after another, so the whole embedding and lm_head are on the
+    card for one rank at a time."""
+    import torch
+    from tpuserve_torch.models.weights import init_params_device
+    if mesh is None:
+        return init_params_device(cfg, SEED, "cuda")
+    import torch.distributed as dist
+    from tpuserve_torch.parallel.sharding import RankSlicer
+    sl = RankSlicer(mesh)
+    params = None
+    for r in range(mesh.world):
+        if r == mesh.rank:
+            params = sl.tree(init_params_device(cfg, SEED, mesh.device, layer_fn=sl.layer),
+                             skip_layers=True)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return params
+
+
+def tp_engine(cfg, params, mesh, mixed: bool):
+    from tpuserve_torch.runtime import CacheConfig, Engine, EngineConfig, SchedulerConfig
+    return Engine(EngineConfig(model=cfg.name, seed=SEED,
+                               cache=CacheConfig(dtype=cfg.dtype, **TP_CACHE),
+                               multi_step=TP_MULTI_STEP,
+                               scheduler=SchedulerConfig(max_num_seqs=8, mixed_batching=mixed,
+                                                         mixed_token_budget=512)),
+                  params=params, model_cfg=cfg, mesh=mesh, device="cuda")
+
+
+def tp_serve(eng, cfg, mixed: bool, logits_path: str) -> dict:
+    """Rank 0's (or the one-card reference's) work: the 4 prompts greedy
+    and one sampled (seeded) request, their prefill's logits saved, then a
+    prefix hit (one chunk); on the mixed engine the 4 prompts in mixed
+    steps."""
+    import torch
+    from tpuserve_torch.runtime import SamplingParams
+    rng = np.random.default_rng(SEED)
+    ps = prompts(rng, TP_LENGTHS, cfg.vocab_size)
+    greedy = SamplingParams(max_tokens=TP_TOKENS, temperature=0.0, ignore_eos=True)
+    if mixed:
+        reqs = eng.generate(ps, greedy)
+        return {"tokens": [r.output_token_ids for r in reqs],
+                "mixed_steps": eng.stats.num_mixed_steps}
+    sampled = SamplingParams(max_tokens=TP_TOKENS, temperature=0.8, top_p=0.95, seed=3,
+                             ignore_eos=True)
+    reqs = eng.generate(ps + [ps[1]], [greedy] * len(ps) + [sampled])
+    pre = next(e for k, e in eng.graphs.executables.items() if k[0] == "prefill")
+    torch.save(pre.logits[:len(ps) + 1].float().cpu(), logits_path)
+    hit = eng.generate([ps[-1] + rng.integers(0, cfg.vocab_size, TP_HIT).tolist()], greedy)
+    return {"tokens": [r.output_token_ids for r in reqs + hit],
+            "chunk_steps": eng.stats.num_chunk_steps}
+
+
+def tp_rate(eng, cfg) -> float:
+    """Decode tok/s of 4 streams of TP_RATE_TOKENS: the wall of a run
+    with the tokens less that of the same prompts' prefill alone."""
+    import torch
+    from tpuserve_torch.runtime import SamplingParams
+    ps = prompts(np.random.default_rng(SEED + 1), TP_LENGTHS, cfg.vocab_size)
+    walls = []
+    for n in (1, TP_RATE_TOKENS + 1, 1, TP_RATE_TOKENS + 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.generate(ps, SamplingParams(max_tokens=n, temperature=0.0, ignore_eos=True))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    # the second pair: every executable captured by the first
+    return len(ps) * TP_RATE_TOKENS / (walls[3] - walls[2])
+
+
+def tp_all_reduce_ms(mesh, cfg) -> float:
+    """Ms of one of the step's all-reduces at a decode batch's rows: the tp
+    sum of a (4, hidden) model-dtype tensor (two a layer), or the ep sum of
+    the MoE layer's float32 (4, hidden) partial (one a layer)."""
+    import torch
+    import torch.distributed as dist
+    tp = mesh.cfg.tp > 1
+    x = torch.ones((len(TP_LENGTHS), cfg.hidden_size), device=mesh.device,
+                   dtype=getattr(torch, cfg.dtype) if tp else torch.float32)
+    op = mesh.comm.tp_sum if tp else mesh.comm.ep_sum
+    op(x)
+    torch.cuda.synchronize()
+    dist.barrier()
+    t = time.perf_counter()
+    for _ in range(TP_ALL_REDUCE_ITERS):
+        op(x)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3 / TP_ALL_REDUCE_ITERS
+
+
+def tp_run(run, spec: dict, rank: int) -> dict:
+    """One TP_RUNS entry on this process: the one-card reference (no mesh)
+    or a rank of the spec's grid; each engine (phase-split, then mixed)
+    served by rank 0 and followed by the others, launches counted."""
+    import gc
+    import torch
+    from tpuserve_torch.models.config import get_model_config
+    from tpuserve_torch.parallel.mesh import MeshConfig, make_mesh
+    from tpuserve_torch.parallel.multihost import follower_loop
+    label, model, dtype, layers, tp, ep = run
+    cfg = dataclasses.replace(get_model_config(model), dtype=dtype, num_layers=layers)
+    mesh, (tp, ep) = None, (1, 1) if spec["world"] == 1 else (tp, ep)
+    if spec["world"] > 1:
+        tp, ep = (min(tp, spec["world"]), 1) if tp > 1 else (1, min(ep, spec["world"]))
+        mesh = make_mesh(MeshConfig(tp=tp, ep=ep), device_type="cuda",
+                         devices=(["cuda:0"] * spec["world"] if spec["backend"] == "gloo"
+                                  else None), timeout_s=TP_TIMEOUT_S)
+    t = time.perf_counter()
+    params = tp_params(cfg, mesh)
+    out = {"init_s": time.perf_counter() - t, "tp": tp, "ep": ep, "engines": {}}
+    lead = mesh is None or mesh.is_coordinator
+    for mixed in (False, True):
+        eng = tp_engine(cfg, params, mesh, mixed)
+        reset_launches()
+        t = time.perf_counter()
+        if lead:
+            if mesh is not None:
+                eng._lockstep.record = True
+            res = tp_serve(eng, cfg, mixed, f"{spec['out']}.{label}.rank{rank}.pt")
+            if not mixed and spec["rate"] and dtype == "bfloat16":
+                res["decode_tok_s"] = tp_rate(eng, cfg)
+            # every window rank 0 ran, the rate's too: the followers ran them all
+            res["recorded"] = ([t_.tolist() for t_ in eng._lockstep.tokens]
+                               if mesh is not None else [])
+            eng.stop_followers()
+        else:
+            res = {"recorded": [t_.tolist() for t_ in follower_loop(eng, record=True)]}
+        torch.cuda.synchronize()
+        res["seconds"] = time.perf_counter() - t
+        res["launches"] = read_launches()
+        res["expected"] = {k: layers * eng.graphs.replays[kind]
+                           for k, kind in KERNEL_KIND.items()}
+        res["graphs"] = eng.graphs.capture
+        res["local"] = {"heads": eng.model_cfg.num_heads, "kv_heads": eng.model_cfg.num_kv_heads,
+                        "experts": eng.model_cfg.num_experts,
+                        "cache": list(eng.kv_cache[0]["k"].shape)}
+        out["engines"]["mixed" if mixed else "split"] = res
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    if mesh is not None:
+        out["all_reduce_ms"] = tp_all_reduce_ms(mesh, cfg)
+        out["all_reduces_a_layer"] = 2 if mesh.cfg.tp > 1 else 1
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_worker(spec_path: str) -> int:
+    """A spawned process of phase tp (``chip_smoke.py --tp-worker SPEC``):
+    every TP_RUNS entry, on one card without a mesh (world 1) or as a rank
+    of the spec's grid over its backend; writes its results."""
+    import torch
+    spec = json.loads(open(spec_path).read())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = int(os.environ.get("RANK", 0))
+    if spec["world"] > 1:
+        from tpuserve_torch.parallel.mesh import multihost_initialize
+        multihost_initialize("cuda", backend=spec["backend"],
+                             init_method=os.environ["TPUSERVE_INIT_METHOD"],
+                             timeout_s=TP_TIMEOUT_S)
+    out = {label: tp_run(run, spec, rank) for run in TP_RUNS for label in [run[0]]}
+    with open(f"{spec['out']}.rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    if spec["world"] > 1:
+        import torch.distributed as dist
+        dist.barrier()
+        dist.destroy_process_group()
+    return 0
+
+
+def tp_spawn(work, label: str, world: int, backend, rate: bool) -> tuple:
+    """Run ``tp_worker`` in ``world`` processes through the launcher
+    ``--tp`` uses (``multihost.spawn_ranks``: torchrun's variables, a
+    file store, logs to files), killing every rank at TP_TIMEOUT_S.
+    Returns (each rank's results or None, return codes, log tails)."""
+    from tpuserve_torch.parallel import multihost
+    spec = {"world": world, "backend": backend, "rate": rate, "out": str(work / label)}
+    path = work / f"{label}.json"
+    path.write_text(json.dumps(spec))
+    procs = multihost.spawn_ranks([None, os.path.abspath(__file__), TP_WORKER, str(path)],
+                                  world, str(work / f"{label}-logs"),
+                                  f"file://{work / (label + '-store')}", ranks=range(world))
+    rcs = multihost.stop_ranks(procs, TP_TIMEOUT_S)
+    res, tails = [], {}
+    for r in range(world):
+        f = work / f"{label}.rank{r}.json"
+        res.append(json.loads(f.read_text()) if f.exists() else None)
+        if rcs[r] != 0:
+            tails[r] = (work / f"{label}-logs" / f"rank{r}.log").read_text()[-3000:]
+    return res, rcs, tails
+
+
+def tp_gates(work, ref, ranks, rcs, label: str) -> dict:
+    """Each run's checks against the one-card reference: float32 tokens
+    equal (the greedy and sampled streams, the prefix hit, the mixed
+    steps), bf16 first-step logits within ``bf16_logit_gate`` with top-1
+    >= 0.75, the followers' recorded window tokens equal rank 0's, every
+    rank's launches equal layers x its runs of each step kind (all four
+    kernels on the dense grid), every rank exiting 0."""
+    import torch
+    out = {"ranks": len(ranks), "rcs": rcs}
+    oks = [all(rc == 0 for rc in rcs.values()) and all(r is not None for r in ranks)]
+    if not oks[0]:
+        out["ok"] = False
+        return out
+    lead = ranks[0]
+    for run in TP_RUNS:
+        name, dtype = run[0], run[2]
+        r0, rf = lead[name], ref[name]
+        row = {"tp": r0["tp"], "ep": r0["ep"], "init_s": r0["init_s"],
+               "all_reduce_ms": r0["all_reduce_ms"],
+               "all_reduce_ms_a_layer": r0["all_reduce_ms"] * r0["all_reduces_a_layer"],
+               "local": r0["engines"]["split"]["local"]}
+        for kind in ("split", "mixed"):
+            a, b = r0["engines"][kind], rf["engines"][kind]
+            same = [x == y for x, y in zip(a["tokens"], b["tokens"])]
+            row[f"{kind}_tokens_equal"] = f"{sum(same)}/{len(same)}"
+            # the split engine's streams: 4 greedy, the sampled one, the hit
+            row[f"{kind}_first_diff"] = [first_diff(x, y) for x, y in zip(a["tokens"],
+                                                                          b["tokens"])]
+            row[f"{kind}_s"] = a["seconds"]
+            row[f"{kind}_ref_s"] = b["seconds"]
+            if dtype == "float32":
+                greedy = [s for i, s in enumerate(same) if kind == "mixed" or i != len(TP_LENGTHS)]
+                oks.append(all(greedy))
+            row[f"{kind}_followers_equal"] = all(
+                r[name]["engines"][kind]["recorded"] == a["recorded"] for r in ranks[1:])
+            oks.append(row[f"{kind}_followers_equal"]
+                       and (kind == "mixed" or bool(a["recorded"])))
+            launches = [r[name]["engines"][kind]["launches"] for r in ranks]
+            expected = [r[name]["engines"][kind]["expected"] for r in ranks]
+            row[f"{kind}_launches"] = launches
+            oks.append(launches == expected)
+        row["chunk_steps"] = r0["engines"]["split"]["chunk_steps"]
+        row["mixed_steps"] = r0["engines"]["mixed"]["mixed_steps"]
+        oks.append(row["chunk_steps"] > 0 and row["mixed_steps"] > 0)
+        if r0["tp"] > 1:
+            # the dense grid: every rank launched all four kernels
+            oks.append(all(sum(r[name]["engines"][k]["launches"][n] for k in ("split", "mixed"))
+                           > 0 for r in ranks for n in KERNEL_KIND))
+        if dtype == "bfloat16":
+            got = torch.load(f"{work / label}.{name}.rank0.pt")
+            want = torch.load(f"{work / 'ref'}.{name}.rank0.pt")
+            gate = bf16_logit_gate(want.abs().max().item())
+            row["logits_max_abs_diff"] = (got - want).abs().max().item()
+            row["logits_gate"] = gate
+            row["top1"] = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+            oks.append(row["logits_max_abs_diff"] <= gate and row["top1"] >= 0.75)
+            if "decode_tok_s" in r0["engines"]["split"]:
+                row["decode_tok_s"] = r0["engines"]["split"]["decode_tok_s"]
+            row["ref_decode_tok_s"] = rf["engines"]["split"].get("decode_tok_s")
+        out[name] = row
+    out["launches"] = {n: sum(r[run[0]]["engines"][k]["launches"][n] for r in ranks
+                              for run in TP_RUNS for k in ("split", "mixed"))
+                       for n in KERNEL_KIND}
+    out["ok"] = all(oks)
+    return out
+
+
+def tp_local_kernels() -> dict:
+    """Each kernel held against its plain version and timed at a tp 4
+    rank's shapes of Qwen2-72B (16 q heads, 2 kv heads: G 8) and of this
+    phase's work: the 4-prompt prefill, a 4-row decode step over 512-1,024
+    keys, the prefix hit's 64-row chunk over 512 cached keys, a mixed step
+    of 4 decode rows and a 256-row chunk."""
+    import torch
+    Hq, Hkv, D = 64 // 4, 8 // 4, 128
+    from tpuserve_torch.ops.ragged_paged import ragged_block
+    blk = ragged_block(torch.device("cuda"))
+    cases = {
+        "flash_prefill": flash_case("bfloat16", 4, 512, Hq, Hkv, D, TP_LENGTHS),
+        "paged_decode": paged_case("bfloat16", 4, Hq, Hkv, D, 32, 32,
+                                   [n + TP_TOKENS for n in TP_LENGTHS]),
+        "paged_window": window_case("bfloat16", 1, TP_HIT, Hq, Hkv, D, 32, [512], [TP_HIT]),
+        "ragged_paged": ragged_case("bfloat16", [n + 8 for n in TP_LENGTHS], [(256, 256)],
+                                    blk, Hq=Hq, Hkv=Hkv, D=D),
+    }
+    keep = ("case", "ok", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return {n: {k: c.get(k) for k in keep} for n, c in cases.items()}
+
+
+def phase_tp(results) -> dict:
+    """See the module docstring, phase tp."""
+    import gc
+    import tempfile
+    from pathlib import Path
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = Path(__file__).resolve().parent
+    work = Path(tempfile.mkdtemp(prefix="tp-", dir=str(root / "build")))
+    out = {"free_gb_at_start": torch.cuda.mem_get_info()[0] / 1e9}
+    t = time.perf_counter()
+    out["local_kernels"] = tp_local_kernels()
+    out["local_kernels_s"] = time.perf_counter() - t
+    oks = [all(c["ok"] for c in out["local_kernels"].values())]
+    t = time.perf_counter()
+    ref, rcs, tails = tp_spawn(work, "ref", 1, None, rate=True)
+    out["ref_s"] = time.perf_counter() - t
+    if rcs[0] != 0 or ref[0] is None:
+        out.update(ok=False, ref_rc=rcs[0], ref_log=tails.get(0))
+        return out
+    ref = ref[0]
+    t = time.perf_counter()
+    ranks, rcs, tails = tp_spawn(work, "gloo", 4, "gloo", rate=False)
+    out["gloo"] = tp_gates(work, ref, ranks, rcs, "gloo")
+    out["gloo"]["seconds"] = time.perf_counter() - t
+    if tails:
+        out["gloo"]["logs"] = tails
+    oks.append(out["gloo"]["ok"])
+    out["launches"] = out["gloo"]["launches"]
+    count = torch.cuda.device_count()
+    if count >= 2:
+        t = time.perf_counter()
+        ranks, rcs, tails = tp_spawn(work, "nccl", min(4, count), "nccl", rate=True)
+        out["nccl"] = tp_gates(work, ref, ranks, rcs, "nccl")
+        out["nccl"]["seconds"] = time.perf_counter() - t
+        if tails:
+            out["nccl"]["logs"] = tails
+        oks.append(out["nccl"]["ok"])
+    else:
+        out["nccl"] = f"not run: {count} card"
+    shutil.rmtree(work, ignore_errors=True)
+    out["ok"] = all(oks)
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase disagg: prefill/decode disaggregation, in process and across servers
+# --------------------------------------------------------------------------
+
+DISAGG_TOKENS = 64
+DISAGG_BLOCKS = 512                  # each engine's KV blocks (16,384 tokens)
+DISAGG_FP32_LAYERS = 4               # the float32 identity runs' depth
+DISAGG_WINDOW_LAYERS = 4             # Mistral-7B's, float32
+DISAGG_WINDOW_PROMPT = 6000          # past Mistral-7B's 4,096 window
+DISAGG_WINDOW_TOKENS = 32
+DISAGG_CHOICES = ["ünïcödé", "Ωmega"]   # its first token opens a canonical-suffix plan
+# the pool-full fallback: a decode pool of 48 blocks (1,504 tokens a
+# sequence) holding a 640-token stream has 28 free blocks, and a
+# 1,000-token prompt needs 33; the stream's decode dispatches are delayed so
+# that it holds them while the prompt migrates twice
+DISAGG_FULL_BLOCKS = 48
+DISAGG_FULL_PROMPT = 1000
+DISAGG_FILL_PROMPT = 640
+DISAGG_FILL_TOKENS = 512
+DISAGG_FILL_FAULT = "decode_dispatch:delay:1.0:delay_s=0.25"
+
+
+def disagg_pair(cfg, params, **kw):
+    from tpuserve_torch.parallel.disagg import DisaggregatedEngine
+    from tpuserve_torch.runtime import CacheConfig, EngineConfig
+    ecfg = EngineConfig(model=cfg.name, seed=SEED, **kw,
+                        cache=CacheConfig(num_blocks=DISAGG_BLOCKS, dtype=cfg.dtype,
+                                          max_blocks_per_seq=200))
+    return DisaggregatedEngine(ecfg, ecfg, params=params, model_cfg=cfg, device="cuda")
+
+
+def disagg_colocated(cfg, params, **kw):
+    from tpuserve_torch.runtime import CacheConfig, Engine, EngineConfig
+    return Engine(EngineConfig(model=cfg.name, seed=SEED, **kw,
+                               cache=CacheConfig(num_blocks=DISAGG_BLOCKS, dtype=cfg.dtype,
+                                                 max_blocks_per_seq=200)),
+                  params=params, model_cfg=cfg)
+
+
+def disagg_in_process(cfg, params, ps, count: bool) -> dict:
+    """The pair against the colocated engine on one tree: ``ps`` greedy,
+    DISAGG_TOKENS each, plus one request that finishes at its prefill;
+    with ``count`` the pair's launches against its engines' runs."""
+    import torch
+    from tpuserve_torch.runtime import SamplingParams
+    greedy = SamplingParams(max_tokens=DISAGG_TOKENS, temperature=0.0, ignore_eos=True)
+    one = SamplingParams(max_tokens=1, temperature=0.0, ignore_eos=True)
+    params_list = [greedy] * len(ps) + [one]
+    reqs = ps + [ps[0]]
+    ref = disagg_colocated(cfg, params).generate(reqs, params_list)
+    family_free()
+    pair = disagg_pair(cfg, params)
+    reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = pair.generate(reqs, params_list)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = read_launches()
+    same = [a.output_token_ids == b.output_token_ids for a, b in zip(out, ref)]
+    st = pair.stats
+    res = {"layers": cfg.num_layers, "dtype": cfg.dtype, "tokens_equal": f"{sum(same)}/{len(same)}",
+           "kv_transfers": st.kv_transfers, "handoff_ms_a_request":
+           1e3 * st.transfer_time_s / max(1, st.kv_transfers),
+           "kv_mb_a_request": st.kv_bytes_transferred / max(1, st.kv_transfers) / 1e6,
+           "wall_s": wall, "finished_at_prefill": len(out[-1].output_token_ids) == 1,
+           "drained": pair.prefill.block_manager.num_seqs() == 0
+           and pair.decode.block_manager.num_seqs() == 0}
+    res["ok"] = (all(same) and st.kv_transfers == len(ps) and res["finished_at_prefill"]
+                 and res["drained"])
+    if count:
+        L = cfg.num_layers
+        runs = {k: pair.prefill.graphs.replays[k] + pair.decode.graphs.replays[k]
+                for k in KERNEL_KIND.values()}
+        res["launches"] = launches
+        res["graph_replays"] = runs
+        res["ok"] = res["ok"] and launches == {n: L * runs[k] for n, k in KERNEL_KIND.items()}
+    del pair
+    family_free()
+    return res
+
+
+def disagg_window() -> dict:
+    """Mistral-7B (every layer a 4,096 window), float32 with TF32 off, cut
+    to DISAGG_WINDOW_LAYERS: a 6,000-token prompt through the pair (the
+    prefill side keeps every block; the decode side releases) against the
+    colocated engine."""
+    from tpuserve_torch.runtime import SamplingParams
+    cfg = dataclasses.replace(family_cfg(WINDOW_MODEL, "float32"),
+                              num_layers=DISAGG_WINDOW_LAYERS)
+    params, _made = family_params(cfg)
+    long = prompts(np.random.default_rng(SEED + 71), [DISAGG_WINDOW_PROMPT], cfg.vocab_size)
+    p = SamplingParams(max_tokens=DISAGG_WINDOW_TOKENS, temperature=0.0, ignore_eos=True)
+    ref = disagg_colocated(cfg, params).generate(long, p)[0]
+    family_free()
+    pair = disagg_pair(cfg, params)
+    out = pair.generate(long, p)[0]
+    res = {"model": cfg.name, "layers": cfg.num_layers,
+           "tokens_equal": out.output_token_ids == ref.output_token_ids,
+           "prefill_window_release": pair.prefill.config.window_release,
+           "decode_released_blocks": pair.decode.stats.released_blocks}
+    res["ok"] = (res["tokens_equal"] and not res["prefill_window_release"]
+                 and res["decode_released_blocks"] > 0)
+    del pair, params
+    family_free()
+    return res
+
+
+def disagg_guided(cfg, params) -> dict:
+    """A guided_choice request whose first token opens a committed
+    canonical-suffix plan (a non-ASCII choice: the byte tokenizer's first
+    token is a partial rune) keeps its plan across the handoff."""
+    from tpuserve_torch.runtime import SamplingParams
+    pair = disagg_pair(cfg, params)
+    (r,) = pair.generate([[5, 6, 7]], [SamplingParams(
+        max_tokens=40, temperature=0.0, guided="choice",
+        guided_schema=json.dumps(DISAGG_CHOICES))])
+    res = {"text": r.output_text, "plans": pair.prefill.stats.guided_plans,
+           "plans_left": len(pair.prefill._guided_plan) + len(pair.decode._guided_plan)}
+    res["ok"] = r.output_text in DISAGG_CHOICES and res["plans"] >= 1 and not res["plans_left"]
+    del pair
+    family_free()
+    return res
+
+
+def disagg_servers(cfg, params, ps) -> dict:
+    """Two in-process servers, as ``--role prefill --decode-url`` and
+    ``--role decode`` build them, on one tree, with nothing captured before
+    they serve: both capture on first use while the other serves (F7).
+    ``ps`` as concurrent streams through the prefill server: each equal to
+    the colocated engine's tokens; then a prompt a full decode pool
+    refuses (503) on both attempts: decoded on the prefill pod, equal too;
+    and ``/internal/abort`` of an id the pool never saw."""
+    import threading
+    from tpuserve_torch.parallel.disagg_net import PrefillHandoffEngine
+    from tpuserve_torch.runtime import CacheConfig, Engine, EngineConfig, SamplingParams
+    from tpuserve_torch.server import OpenAIServer, ServerConfig
+    cache = CacheConfig(num_blocks=DISAGG_BLOCKS, dtype=cfg.dtype, max_blocks_per_seq=200)
+    ecfg = EngineConfig(model=cfg.name, seed=SEED, cache=cache)
+    greedy = SamplingParams(max_tokens=DISAGG_TOKENS, temperature=0.0, ignore_eos=True)
+    rng = np.random.default_rng(SEED + 73)
+    full_prompt = rng.integers(0, cfg.vocab_size, DISAGG_FULL_PROMPT).tolist()
+    ref = [r.output_token_ids for r in
+           disagg_colocated(cfg, params).generate(ps + [full_prompt], greedy)]
+    family_free()
+    dec = OpenAIServer(Engine(ecfg, params=params, model_cfg=cfg),
+                       ServerConfig(host="127.0.0.1", port=0, allow_kv_migration=True))
+    d_url = f"http://127.0.0.1:{dec.start()}"
+    tiny = OpenAIServer(Engine(dataclasses.replace(ecfg, faults=DISAGG_FILL_FAULT,
+                                                   cache=dataclasses.replace(
+        cache, num_blocks=DISAGG_FULL_BLOCKS)), params=params, model_cfg=cfg),
+        ServerConfig(host="127.0.0.1", port=0, allow_kv_migration=True))
+    t_url = f"http://127.0.0.1:{tiny.start()}"
+    pre = OpenAIServer(PrefillHandoffEngine(ecfg, d_url, params=params, model_cfg=cfg),
+                       ServerConfig(host="127.0.0.1", port=0))
+    p_url = f"http://127.0.0.1:{pre.start()}"
+    res = {}
+    try:
+        t = time.perf_counter()
+        body = {"max_tokens": DISAGG_TOKENS, "temperature": 0, "ignore_eos": True,
+                "return_token_ids": True}
+        got = concurrent([lambda p=p: sse(p_url + "/v1/completions", dict(body, prompt=p))
+                          for p in ps])
+        res["streams_s"] = time.perf_counter() - t
+        toks = [stream_ids(r) for r in got]
+        res["streams_equal"] = f"{sum(a == b for a, b in zip(toks, ref))}/{len(ps)}"
+        res["ttft_ms"] = [1e3 * (r["t_first"] - r["t_send"]) for r in got if r["t_first"]]
+        res["captures"] = {"prefill": len(pre.engine.prefill.graphs.executables),
+                           "decode": len(dec.engine.graphs.executables)}
+        res["capture_s"] = {"prefill": pre.engine.prefill.graphs.capture_s,
+                            "decode": dec.engine.graphs.capture_s}
+        res["replays_beside_capture"] = {
+            "prefill": pre.engine.prefill.graphs.replays_beside_capture,
+            "decode": dec.engine.graphs.replays_beside_capture}
+        # the pool-full fallback: a stream holds the tiny pool's blocks, the
+        # pool 503s both attempts, the prefill pod decodes
+        fb = PrefillHandoffEngine(ecfg, t_url, params=params, model_cfg=cfg)
+        fb.MIGRATE_RETRIES, fb.MIGRATE_RETRY_DELAY_S = 2, 0.5
+        started, stop = threading.Event(), threading.Event()
+        fill = {}
+        filler = threading.Thread(target=disagg_hold_stream, args=(
+            t_url, dict(body, prompt=rng.integers(0, cfg.vocab_size, DISAGG_FILL_PROMPT).tolist(),
+                        max_tokens=DISAGG_FILL_TOKENS), started, stop, fill))
+        filler.start()
+        try:
+            res["filler_started"] = started.wait(120)
+            # an id of its own: the filler is the pool's "req-0", as fb's
+            # first request would be
+            rid = fb.add_request(request_id="pool-full", prompt_token_ids=full_prompt,
+                                 params=greedy)
+            while fb.has_work():
+                if not fb.step():
+                    time.sleep(0.005)
+            r = fb.requests.pop(rid)
+            res["filler_held"] = not fill.get("done", True)
+        finally:
+            stop.set()
+            filler.join(60)
+        res["pool_full_503s"] = fb.refused
+        res["fallback_equal"] = r.output_token_ids == ref[-1]
+        res["fallback_local"] = fb.prefill.stats.num_decode_steps > 0
+        del fb
+        status, ab = http(d_url + "/internal/abort", {"request_id": "never-seen"})
+        res["abort"] = [status, ab]
+        res["decode_drained"] = dec.engine.block_manager.num_seqs() == 0
+    finally:
+        for srv in (pre, dec, tiny):
+            srv.shutdown()
+    res["ok"] = (res["streams_equal"] == f"{len(ps)}/{len(ps)}" and res["fallback_equal"]
+                 and res["fallback_local"] and res["pool_full_503s"] == 2
+                 and res["filler_started"] and res["filler_held"] and res["abort"] == [200, {
+                     "request_id": "never-seen", "aborted": False}] and res["decode_drained"])
+    return res
+
+
+def disagg_hold_stream(url: str, body: dict, started, stop, out: dict) -> None:
+    """One stream through ``url``'s /v1/completions, held open until
+    ``stop``: ``started`` once its first token arrives; ``out["done"]``
+    whether it ended by itself first.  Closing it aborts the request."""
+    import http.client
+    from urllib.parse import urlparse
+    u = urlparse(url)
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=600)
+    out["done"] = False
+    try:
+        conn.request("POST", "/v1/completions", body=json.dumps(dict(body, stream=True)),
+                     headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        for line in r:
+            if line.startswith(b"data: [DONE]"):
+                out["done"] = True
+                break
+            if line.startswith(b"data: {"):
+                started.set()
+                if stop.is_set():
+                    break
+    finally:
+        conn.close()
+
+
+def phase_disagg(results) -> dict:
+    """See the module docstring, phase disagg."""
+    family_free()
+    params, cfg = results["main"]["params"], results["main"]["engine"].model_cfg
+    rng = np.random.default_rng(SEED + 70)
+    ps = prompts(rng, MAIN_LENGTHS, cfg.vocab_size)
+    out = {}
+    t = time.perf_counter()
+    out["bf16"] = disagg_in_process(cfg, params, ps, count=True)
+    out["bf16_s"] = time.perf_counter() - t
+    out["launches"] = out["bf16"]["launches"]
+    t = time.perf_counter()
+    fparams, fcfg = fp32_main(DISAGG_FP32_LAYERS)
+    out["fp32"] = disagg_in_process(fcfg, fparams, ps, count=False)
+    out["fp32_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["window"] = disagg_window()
+    out["window_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["guided"] = disagg_guided(cfg, params)
+    out["guided_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["servers"] = disagg_servers(fcfg, fparams, ps)
+    out["servers_s"] = time.perf_counter() - t
+    del fparams
+    family_free()
+    out["ok"] = all(out[k]["ok"] for k in ("bf16", "fp32", "window", "guided", "servers"))
+    return out
+
+
 def kernel_modules() -> dict:
     from tpuserve_torch.ops import flash_prefill, paged_decode, paged_window, ragged_paged
     return {"flash_prefill": flash_prefill, "paged_decode": paged_decode,
@@ -7049,13 +7751,17 @@ def read_launches() -> dict:
 # phases that count them too
 LAUNCH_PHASE = {"flash_prefill": "main", "paged_decode": "main",
                 "paged_window": "chunked", "ragged_paged": "mixed"}
-PATH_PHASES = {"flash_prefill": ("families", "breadth", "spec", "embed", "services", "fleet"),
-               "paged_decode": ("families", "breadth", "services", "fleet"),
-               "paged_window": ("families", "breadth", "spec", "services", "fleet"),
-               "ragged_paged": ("breadth",)}
+PATH_PHASES = {"flash_prefill": ("families", "breadth", "tp", "spec", "embed", "services",
+                                 "fleet", "disagg"),
+               "paged_decode": ("families", "breadth", "tp", "services", "fleet", "disagg"),
+               "paged_window": ("families", "breadth", "tp", "spec", "services", "fleet",
+                                "disagg"),
+               "ragged_paged": ("breadth", "tp", "disagg")}
 
 
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == TP_WORKER:
+        return tp_worker(sys.argv[2])            # a process of phase tp
     if len(sys.argv) > 1:
         print(__doc__, file=sys.stderr)
         return 2
@@ -7081,6 +7787,8 @@ def main() -> int:
             res = phase_families()
         elif phase == "breadth":
             res = phase_breadth(results)
+        elif phase == "tp":
+            res = phase_tp(results)
         elif phase == "identity":
             res = phase_identity()
         elif phase == "main":
@@ -7113,6 +7821,8 @@ def main() -> int:
             res = phase_services(results)
         elif phase == "fleet":
             res = phase_fleet(results)
+        elif phase == "disagg":
+            res = phase_disagg(results)
         elif phase == "profile":
             res = phase_profile(results)
         else:

@@ -121,6 +121,12 @@ class ModelConfig:
     # once at load (models/weights.py _mla_deinterleave), so the forward
     # always runs the NeoX split-half rope — zero runtime cost.
     mla_rope_interleave: bool = True
+    # A rank of a tensor / expert parallel grid (parallel/sharding.py
+    # ``rank_config``): its collectives (``parallel.mesh.RankComm``), None
+    # on one device.  The rank's config counts its own heads, MLP columns
+    # and experts; it takes no part in equality or hashing.
+    comm: Optional[object] = dataclasses.field(default=None, compare=False, hash=False,
+                                               repr=False)
 
     def layer_window(self, layer_idx: int) -> Optional[int]:
         """Effective sliding window for one layer — ONE implementation for

@@ -25,6 +25,13 @@ which launch the CUDA kernels on CUDA tensors and use the same plain
 versions on CPU tensors.  The verify pass runs the paged window kernel and
 the cache-less trunks the flash prefill kernel; the JAX engine keeps all
 of them on its plain attention, which the "reference" path reproduces.
+Under tensor and expert parallelism (``parallel/``) ``cfg`` is a rank's
+(``sharding.rank_config``): its own heads, MLP columns and experts, and
+``cfg.comm``, whose sums stand where GSPMD inserted collectives in the JAX
+package: after the row-parallel o_proj and down_proj / fc2, in the
+vocabulary-parallel embedding, gathering the vocabulary-parallel logits,
+and over the MoE experts' partial sums.  The kernels run on the rank's
+local heads as they are (``sharding.tp_partitionable``).
 MLA runs the plain attention on every path whatever ``attn_impl`` says,
 by an explicit branch, as the JAX package runs it: its latent cache has
 one head 576 wide and its values are narrower than its keys, shapes no
@@ -93,6 +100,22 @@ def _linear(x: torch.Tensor, p: dict, ad: torch.Tensor | None = None) -> torch.T
     return y
 
 
+def _row_linear(x: torch.Tensor, p: dict, cfg: ModelConfig,
+                ad: torch.Tensor | None = None) -> torch.Tensor:
+    """A row-parallel projection (o_proj, down_proj, fc2).  Under tensor
+    parallelism a rank holds a block of the kernel's input rows
+    (``parallel/sharding.py``), so its product is a partial sum: summed over
+    the rank's tp group (the all-reduce GSPMD inserts after the row-sharded
+    product), then the replicated bias adds once."""
+    comm = cfg.comm
+    if comm is None or comm.tp == 1:
+        return _linear(x, p, ad)
+    y = comm.tp_sum(_linear(x, {k: v for k, v in p.items() if k != "bias"}, ad))
+    if "bias" in p:
+        y = y + p["bias"].to(y.dtype)
+    return y
+
+
 def _lora_delta(x: torch.Tensor, la: dict, ad: torch.Tensor) -> torch.Tensor:
     """Per-row multi-LoRA contribution (``weights.load_lora_stack``'s
     layout), the JAX ``_lora_delta``: ``ad`` (B, n) one-hot adapter weights
@@ -135,8 +158,8 @@ def _mlp(x: torch.Tensor, p: dict, cfg: ModelConfig,
         return _moe_mlp(x, p, cfg)
     if cfg.mlp_style == "gated":
         gate = _act(_linear(x, p["gate_proj"], ad), cfg.act)
-        return _linear(gate * _linear(x, p["up_proj"], ad), p["down_proj"], ad)
-    return _linear(_act(_linear(x, p["fc1"], ad), cfg.act), p["fc2"], ad)
+        return _row_linear(gate * _linear(x, p["up_proj"], ad), p["down_proj"], cfg, ad)
+    return _row_linear(_act(_linear(x, p["fc1"], ad), cfg.act), p["fc2"], cfg, ad)
 
 
 # An MoE layer runs its experts in groups whose gate, up and activation
@@ -191,7 +214,12 @@ def _moe_mlp(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
     of ``moe_group`` experts bound the (g, T, I) transients.  int8 experts
     are dequantized a group at a time (:func:`_expert_kernels`), so the
     scale applies before the products, where the JAX package scales their
-    outputs: the same values to rounding."""
+    outputs: the same values to rounding.
+
+    Under expert parallelism a rank holds ``cfg.num_experts`` (E / ep) of
+    the stacked experts, those from ``ep_rank * E / ep``; the router still
+    scores all E, and the rank's partial sum is summed over its ep group
+    (the JAX package's one psum) before the shared experts add."""
     shape = x.shape
     xt = x.reshape(-1, shape[-1])                              # (T, H)
     T = xt.shape[0]
@@ -222,14 +250,19 @@ def _moe_mlp(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
 
     ek = p["experts"]
     E, width = cfg.num_experts, cfg.expert_intermediate_size
+    # under expert parallelism these are the rank's E / ep experts, the
+    # ep_rank-th block of the router's columns
+    off = cfg.comm.ep_rank * E if cfg.comm is not None else 0
     g = moe_group(cfg, T)
     y = torch.zeros((T, shape[-1]), dtype=torch.float32, device=xt.device)
     for e0 in range(0, E, g):
         gate = torch.matmul(xt, _expert_kernels(ek["gate_proj"], e0, g, xt.dtype))  # (g, T, I)
         up = torch.matmul(xt, _expert_kernels(ek["up_proj"], e0, g, xt.dtype))
-        act = _act(gate, cfg.act) * up * combine[:, e0:e0 + g].T[:, :, None]
+        act = _act(gate, cfg.act) * up * combine[:, off + e0:off + e0 + g].T[:, :, None]
         down = _expert_kernels(ek["down_proj"], e0, g, xt.dtype).reshape(g * width, -1)
         y += act.transpose(0, 1).reshape(T, g * width) @ down
+    if cfg.comm is not None:
+        y = cfg.comm.ep_sum(y)       # the JAX package's one psum over ep
     y = y.to(xt.dtype)
     if "shared" in p:
         # DeepSeek's shared experts: a plain gated MLP beside the routed ones
@@ -239,7 +272,7 @@ def _moe_mlp(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
 
 def _attn_residual(out: torch.Tensor, lp: dict, cfg: ModelConfig,
                    ad: torch.Tensor | None = None) -> torch.Tensor:
-    att = _linear(out, lp["o_proj"], ad)
+    att = _row_linear(out, lp["o_proj"], cfg, ad)
     if cfg.sandwich_norms:
         att = _norm(att, lp["post_attn_norm"], cfg)
     return att
@@ -369,10 +402,22 @@ def _mla_slices(cfg: ModelConfig) -> tuple[int, int]:
 def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
            positions: torch.Tensor) -> torch.Tensor:
     ids = tokens.long()
+    comm = cfg.comm
+    vocab_parallel = comm is not None and comm.tp > 1
+    if vocab_parallel:
+        # a rank holds the tp_rank-th block of the vocabulary's rows: it
+        # looks up the ids it holds, zeros elsewhere, and the tp sum fills
+        # every row (one non-zero term: exact)
+        rows = params["embed"]["weight"].shape[0]
+        local = ids - comm.tp_rank * rows
+        held = (local >= 0) & (local < rows)
+        ids = torch.where(held, local, 0)
     h = params["embed"]["weight"][ids]
     if "scale" in params["embed"]:        # int8: a scale a vocabulary row
         dtype = param_dtype(cfg)
         h = h.to(dtype) * params["embed"]["scale"][ids][..., None].to(dtype)
+    if vocab_parallel:
+        h = comm.tp_sum(h * held[..., None].to(h.dtype))
     if cfg.embed_scale_by_sqrt_dim:
         h = h * torch.tensor(cfg.hidden_size ** 0.5, dtype=h.dtype)
     if cfg.pos == "learned":
@@ -393,6 +438,15 @@ def _unembed(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     else:
         logits = _linear(h, params["lm_head"])
     logits = logits.float()
+    comm = cfg.comm
+    if comm is not None and comm.tp > 1:
+        # vocabulary-parallel: this rank's block of columns, gathered to
+        # every rank as a sum into a zero-filled full-vocabulary buffer (the
+        # logits' all-gather with the one collective gloo's CUDA tensors take)
+        part = logits.shape[-1]
+        full = logits.new_zeros((*logits.shape[:-1], part * comm.tp))
+        full[..., comm.tp_rank * part:(comm.tp_rank + 1) * part] = logits
+        logits = comm.tp_sum(full)
     if cfg.final_logit_softcapping:
         cap = cfg.final_logit_softcapping
         logits = cap * torch.tanh(logits / cap)

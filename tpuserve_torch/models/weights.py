@@ -345,7 +345,7 @@ def read_safetensors(ckpt_dir: str) -> SafetensorsDir:
 
 
 def load_hf_checkpoint(cfg: ModelConfig, ckpt_dir: str, device="cuda",
-                       layer_fn=None) -> dict:
+                       layer_fn=None, shard=None) -> dict:
     """An HF checkpoint directory as the transformer's parameter tree, the
     JAX loader's names and layouts (``tpuserve/models/weights.py``):
     linear kernels ``(out, in)`` -> ``(in, out)``, Phi-3's fused
@@ -355,18 +355,26 @@ def load_hf_checkpoint(cfg: ModelConfig, ckpt_dir: str, device="cuda",
     interleaved rope channels permuted once (:func:`_mla_deinterleave`).
     Each leaf is copied to ``device`` in the model's dtype before the next
     is read, so the host never holds the model twice; ``layer_fn`` maps
-    each layer once loaded (as :func:`init_params`)."""
+    each layer once loaded (as :func:`init_params`).  ``shard``: a rank's
+    slicer (``parallel.sharding.RankSlicer``), which cuts each leaf to the
+    rank's block before it is read from the mapped file (and loads only the
+    rank's experts), so no rank reads the whole model."""
     dtype = param_dtype(cfg)
     device = torch.device(device)
     with read_safetensors(ckpt_dir) as raw:
         if cfg.pos == "learned":
-            return _load_opt(cfg, raw, dtype, device, layer_fn)
-        return _load_llama_family(cfg, raw, dtype, device, layer_fn)
+            return _load_opt(cfg, raw, dtype, device, layer_fn, shard)
+        return _load_llama_family(cfg, raw, dtype, device, layer_fn, shard)
 
 
-def _put(w: torch.Tensor, dtype, device, t: bool = False) -> torch.Tensor:
+def _put(w: torch.Tensor, dtype, device, t: bool = False, path: str | None = None,
+         shard=None) -> torch.Tensor:
     """One leaf on the device in ``dtype`` (transposed from HF's (out, in)
-    to (in, out) when ``t``), never a view of the mapped file."""
+    to (in, out) when ``t``), never a view of the mapped file; with
+    ``shard``, only the rank's block of the leaf at ``path`` is read."""
+    if shard is not None and path is not None:
+        w = shard(path, w.T if t else w)
+        return w.to(device=device, dtype=dtype, copy=True).contiguous()
     w = w.to(device=device, dtype=dtype, copy=True)
     return w.T.contiguous() if t else w
 
@@ -394,26 +402,32 @@ def _mla_deinterleave(p: dict, cfg: ModelConfig, heads: int, head_width: int) ->
 
 
 def _load_llama_family(cfg: ModelConfig, raw: SafetensorsDir, dtype, device,
-                       layer_fn=None) -> dict:
-    def dense(name, bias_name=None):
-        p = {"kernel": _put(raw[name], dtype, device, t=True)}
+                       layer_fn=None, shard=None) -> dict:
+    def dense(name, bias_name=None, key=None):
+        # ``key``: the leaf's place in the tree (``layers.<key>`` or a
+        # top-level name), which picks its slice under ``shard``
+        path = key if key is None or "." in key else f"layers.{key}"
+        p = {"kernel": _put(raw[name], dtype, device, t=True,
+                            path=path and path + ".kernel", shard=shard)}
         if bias_name and bias_name in raw:
-            p["bias"] = _put(raw[bias_name], dtype, device)
+            p["bias"] = _put(raw[bias_name], dtype, device, path=path and path + ".bias",
+                             shard=shard)
         return p
 
     def norm_scale(name):
         return {"scale": _put(raw[name], dtype, device)}
 
-    def split(name, sizes):
+    def split(name, sizes, keys):
         # a fused (out, in) projection: its row blocks, each as (in, out)
-        return [{"kernel": _put(w, dtype, device, t=True)}
-                for w in torch.split(raw[name], sizes, dim=0)]
+        return [{"kernel": _put(w, dtype, device, t=True, path=f"layers.{k}.kernel",
+                                shard=shard)}
+                for w, k in zip(torch.split(raw[name], sizes, dim=0), keys)]
 
     layers = []
     for i in range(cfg.num_layers):
         pre = f"model.layers.{i}."
         lp = {"attn_norm": norm_scale(pre + "input_layernorm.weight"),
-              "o_proj": dense(pre + "self_attn.o_proj.weight")}
+              "o_proj": dense(pre + "self_attn.o_proj.weight", key="o_proj")}
         if cfg.sandwich_norms:
             # Gemma2: post_attention_layernorm wraps the attention output;
             # the MLP pre-norm is pre_feedforward_layernorm
@@ -428,71 +442,85 @@ def _load_llama_family(cfg: ModelConfig, raw: SafetensorsDir, dtype, device,
                       pre + "self_attn.kv_a_proj_with_mqa.bias"),
                 cfg, heads=1, head_width=cfg.mla_latent_dim)
             lp["kv_a_norm"] = norm_scale(pre + "self_attn.kv_a_layernorm.weight")
-            lp["kv_b_proj"] = dense(pre + "self_attn.kv_b_proj.weight")
+            lp["kv_b_proj"] = dense(pre + "self_attn.kv_b_proj.weight", key="kv_b_proj")
             if cfg.mla_q_lora_rank:
                 lp["q_a_proj"] = dense(pre + "self_attn.q_a_proj.weight",
                                        pre + "self_attn.q_a_proj.bias")
                 lp["q_a_norm"] = norm_scale(pre + "self_attn.q_a_layernorm.weight")
                 lp["q_b_proj"] = _mla_deinterleave(
-                    dense(pre + "self_attn.q_b_proj.weight"), cfg,
-                    heads=cfg.num_heads, head_width=cfg.head_dim)
+                    dense(pre + "self_attn.q_b_proj.weight", key="q_b_proj"), cfg,
+                    heads=cfg.num_heads // _tp(shard), head_width=cfg.head_dim)
             else:
                 lp["q_proj"] = _mla_deinterleave(
-                    dense(pre + "self_attn.q_proj.weight"), cfg,
-                    heads=cfg.num_heads, head_width=cfg.head_dim)
+                    dense(pre + "self_attn.q_proj.weight", key="q_proj"), cfg,
+                    heads=cfg.num_heads // _tp(shard), head_width=cfg.head_dim)
         elif pre + "self_attn.qkv_proj.weight" in raw:          # Phi-3 fused qkv
             lp["q_proj"], lp["k_proj"], lp["v_proj"] = split(
-                pre + "self_attn.qkv_proj.weight", [cfg.q_size, cfg.kv_size, cfg.kv_size])
+                pre + "self_attn.qkv_proj.weight", [cfg.q_size, cfg.kv_size, cfg.kv_size],
+                ("q_proj", "k_proj", "v_proj"))
         else:
             for proj in ("q", "k", "v"):
                 lp[f"{proj}_proj"] = dense(pre + f"self_attn.{proj}_proj.weight",
-                                           pre + f"self_attn.{proj}_proj.bias")
+                                           pre + f"self_attn.{proj}_proj.bias",
+                                           key=f"{proj}_proj")
         if cfg.qk_norm:
             lp["q_norm"] = norm_scale(pre + "self_attn.q_norm.weight")
             lp["k_norm"] = norm_scale(pre + "self_attn.k_norm.weight")
         if cfg.num_experts and not cfg.moe_layer_is_dense(i):   # Qwen3 / DeepSeek MoE
-            lp.update(_load_moe_layer(cfg, raw, pre, dtype, device))
+            lp.update(_load_moe_layer(cfg, raw, pre, dtype, device, shard))
         elif pre + "mlp.gate_up_proj.weight" in raw:            # Phi-3 fused mlp
             lp["gate_proj"], lp["up_proj"] = split(
-                pre + "mlp.gate_up_proj.weight", [cfg.intermediate_size] * 2)
-            lp["down_proj"] = dense(pre + "mlp.down_proj.weight")
+                pre + "mlp.gate_up_proj.weight", [cfg.intermediate_size] * 2,
+                ("gate_proj", "up_proj"))
+            lp["down_proj"] = dense(pre + "mlp.down_proj.weight", key="down_proj")
         else:
-            lp["gate_proj"] = dense(pre + "mlp.gate_proj.weight")
-            lp["up_proj"] = dense(pre + "mlp.up_proj.weight")
-            lp["down_proj"] = dense(pre + "mlp.down_proj.weight")
+            for proj in ("gate_proj", "up_proj", "down_proj"):
+                lp[proj] = dense(pre + f"mlp.{proj}.weight", key=proj)
         layers.append(layer_fn(lp) if layer_fn else lp)
-    params = {"embed": {"weight": _put(raw["model.embed_tokens.weight"], dtype, device)},
+    params = {"embed": {"weight": _put(raw["model.embed_tokens.weight"], dtype, device,
+                                       path="embed.weight", shard=shard)},
               "layers": layers,
               "final_norm": norm_scale("model.norm.weight")}
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = dense("lm_head.weight")
+        params["lm_head"] = dense("lm_head.weight", key="lm_head.")
     return params
 
 
-def _load_moe_layer(cfg: ModelConfig, raw: SafetensorsDir, pre: str, dtype, device) -> dict:
+def _tp(shard) -> int:
+    """The tp degree of a rank's slicer (1 without one)."""
+    return 1 if shard is None else shard.tp
+
+
+def _load_moe_layer(cfg: ModelConfig, raw: SafetensorsDir, pre: str, dtype, device,
+                    shard=None) -> dict:
     """One MoE layer's router (and float32 selection bias), its experts
     stacked (E, n_in, n_out) on the device one expert at a time (no host
-    copy of a whole stack), and its shared experts."""
+    copy of a whole stack; under ``shard`` the rank's E / ep only), and its
+    shared experts."""
     E, h, ei = cfg.num_experts, cfg.hidden_size, cfg.expert_intermediate_size
+    held = range(E) if shard is None else shard.experts(E)
     lp = {"router": {"kernel": _put(raw[pre + "mlp.gate.weight"], dtype, device, t=True)}}
     if cfg.moe_router_bias:
         lp["router_bias"] = {"bias": _put(raw[pre + "mlp.gate.e_score_correction_bias"],
                                           torch.float32, device)}
     experts = {}
     for proj, shape in (("gate_proj", (h, ei)), ("up_proj", (h, ei)), ("down_proj", (ei, h))):
-        w = torch.empty((E, *shape), dtype=dtype, device=device)
-        for e in range(E):
-            w[e] = _put(raw[pre + f"mlp.experts.{e}.{proj}.weight"], dtype, device, t=True)
+        w = torch.empty((len(held), *shape), dtype=dtype, device=device)
+        for i, e in enumerate(held):
+            w[i] = _put(raw[pre + f"mlp.experts.{e}.{proj}.weight"], dtype, device, t=True)
         experts[proj] = {"kernel": w}
     lp["experts"] = experts
     if cfg.moe_shared_experts:
         lp["shared"] = {proj: {"kernel": _put(raw[pre + f"mlp.shared_experts.{proj}.weight"],
-                                              dtype, device, t=True)}
+                                              dtype, device, t=True,
+                                              path=f"layers.shared.{proj}.kernel",
+                                              shard=shard)}
                         for proj in ("gate_proj", "up_proj", "down_proj")}
     return lp
 
 
-def _load_opt(cfg: ModelConfig, raw: SafetensorsDir, dtype, device, layer_fn=None) -> dict:
+def _load_opt(cfg: ModelConfig, raw: SafetensorsDir, dtype, device, layer_fn=None,
+              shard=None) -> dict:
     def get(name):
         # OPT checkpoints may or may not carry the "model." prefix
         for cand in (name, "model." + name):
@@ -500,10 +528,13 @@ def _load_opt(cfg: ModelConfig, raw: SafetensorsDir, dtype, device, layer_fn=Non
                 return raw[cand]
         raise KeyError(name)
 
-    def dense(name):
-        p = {"kernel": _put(get(name + ".weight"), dtype, device, t=True)}
+    def dense(name, key):
+        path = f"layers.{key}"
+        p = {"kernel": _put(get(name + ".weight"), dtype, device, t=True,
+                            path=path + ".kernel", shard=shard)}
         try:
-            p["bias"] = _put(get(name + ".bias"), dtype, device)
+            p["bias"] = _put(get(name + ".bias"), dtype, device, path=path + ".bias",
+                             shard=shard)
         except KeyError:
             pass
         return p
@@ -517,16 +548,17 @@ def _load_opt(cfg: ModelConfig, raw: SafetensorsDir, dtype, device, layer_fn=Non
         pre = f"decoder.layers.{i}."
         lp = {
             "attn_norm": norm(pre + "self_attn_layer_norm"),
-            "q_proj": dense(pre + "self_attn.q_proj"),
-            "k_proj": dense(pre + "self_attn.k_proj"),
-            "v_proj": dense(pre + "self_attn.v_proj"),
-            "o_proj": dense(pre + "self_attn.out_proj"),
+            "q_proj": dense(pre + "self_attn.q_proj", "q_proj"),
+            "k_proj": dense(pre + "self_attn.k_proj", "k_proj"),
+            "v_proj": dense(pre + "self_attn.v_proj", "v_proj"),
+            "o_proj": dense(pre + "self_attn.out_proj", "o_proj"),
             "mlp_norm": norm(pre + "final_layer_norm"),
-            "fc1": dense(pre + "fc1"),
-            "fc2": dense(pre + "fc2"),
+            "fc1": dense(pre + "fc1", "fc1"),
+            "fc2": dense(pre + "fc2", "fc2"),
         }
         layers.append(layer_fn(lp) if layer_fn else lp)
-    return {"embed": {"weight": _put(get("decoder.embed_tokens.weight"), dtype, device)},
+    return {"embed": {"weight": _put(get("decoder.embed_tokens.weight"), dtype, device,
+                                     path="embed.weight", shard=shard)},
             "pos_embed": {"weight": _put(get("decoder.embed_positions.weight"),
                                          dtype, device)},
             "layers": layers,
@@ -534,16 +566,31 @@ def _load_opt(cfg: ModelConfig, raw: SafetensorsDir, dtype, device, layer_fn=Non
 
 
 def load_or_init(cfg: ModelConfig, ckpt_dir: str | None, seed: int = 0,
-                 device="cuda", layer_fn=None) -> dict:
+                 device="cuda", layer_fn=None, shard=None) -> dict:
     """The checkpoint in ``ckpt_dir`` when it holds ``*.safetensors``, else
     random init from ``seed`` (the JAX package's rule), which is logged;
-    ``layer_fn`` as :func:`init_params`."""
+    ``layer_fn`` as :func:`init_params`.  ``shard`` (a rank's
+    ``parallel.sharding.RankSlicer``): the loader reads only the rank's
+    slices; the init draws each layer whole, in the JAX order, and keeps
+    the rank's slice before the next layer (after ``layer_fn``, so int8
+    scales are the whole kernel's, as the JAX engine quantizes, then
+    shards)."""
     if ckpt_dir and glob.glob(os.path.join(ckpt_dir, "*.safetensors")):
         logger.info("loading checkpoint %s", ckpt_dir)
-        return load_hf_checkpoint(cfg, ckpt_dir, device, layer_fn)
+        if shard is not None and layer_fn is not None:
+            # a row-parallel int8 scale is over the kernel's every row: load
+            # each layer whole, quantize, then keep the rank's slice
+            return load_hf_checkpoint(cfg, ckpt_dir, device,
+                                      lambda lp: shard.layer(layer_fn(lp)),
+                                      shard=shard.top_level())
+        return load_hf_checkpoint(cfg, ckpt_dir, device, layer_fn, shard)
     logger.info("no *.safetensors in %s: random init of %s from seed %d",
                 ckpt_dir, cfg.name, seed)
-    return init_params(cfg, seed, device, layer_fn)
+    if shard is None:
+        return init_params(cfg, seed, device, layer_fn)
+    return shard.tree(init_params(
+        cfg, seed, device, lambda lp: shard.layer(layer_fn(lp) if layer_fn else lp)),
+        skip_layers=True)
 
 
 # --------------------------------------------------------------------------

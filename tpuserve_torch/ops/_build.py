@@ -14,11 +14,14 @@ this machine may have no ``nvcc``.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -29,6 +32,35 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# Each wrapper adds to its ``LAUNCHES`` under this lock, and so do graph
+# replays (``runtime/graphs.py``): several engines' threads launch at once.
+LAUNCH_LOCK = threading.RLock()
+# a thread recording a graph counts its launches here instead (``tally``)
+_TALLY = threading.local()
+
+
+@contextlib.contextmanager
+def tally():
+    """Count this thread's kernel launches apart while the block runs, in
+    the Counter it yields, by kernel name: a graph's padding run and its
+    capture serve no request, and only the capture's own thread launches
+    into it, so the other threads' launches go on to ``LAUNCHES``."""
+    prev = getattr(_TALLY, "counts", None)
+    _TALLY.counts = collections.Counter()
+    try:
+        yield _TALLY.counts
+    finally:
+        _TALLY.counts = prev
+
+
+def tallied(name: str) -> bool:
+    """Whether this thread counts apart (``tally``); if so, one launch of
+    kernel ``name`` is added to its tally."""
+    counts = getattr(_TALLY, "counts", None)
+    if counts is None:
+        return False
+    counts[name] += 1
+    return True
 
 
 def _nvcc() -> str:

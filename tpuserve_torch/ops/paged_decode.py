@@ -164,7 +164,9 @@ def paged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"paged_decode launch failed: cudaError {rc}")
     global LAUNCHES
-    LAUNCHES += 1
+    if not _build.tallied("paged_decode"):
+        with _build.LAUNCH_LOCK:
+            LAUNCHES += 1
     return out
 
 

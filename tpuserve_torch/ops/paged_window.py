@@ -60,7 +60,9 @@ def paged_window_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"paged_window launch failed: cudaError {rc}")
     global LAUNCHES
-    LAUNCHES += 1
+    if not _build.tallied("paged_window"):
+        with _build.LAUNCH_LOCK:
+            LAUNCHES += 1
     return out
 
 

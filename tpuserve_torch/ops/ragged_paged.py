@@ -127,7 +127,9 @@ def ragged_paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"ragged_paged launch failed: cudaError {rc}")
     global LAUNCHES
-    LAUNCHES += 1
+    if not _build.tallied("ragged_paged"):
+        with _build.LAUNCH_LOCK:
+            LAUNCHES += 1
     return out
 
 

@@ -1,0 +1,295 @@
+"""Lockstep ranks: the port of ``tpuserve/parallel/multihost.py``.
+
+Every rank of a tensor / expert parallel grid (``parallel/mesh.py``) must
+run the same step with the same shapes, or its collectives deadlock.  Only
+rank 0 (the coordinator) runs the server, the scheduler, the block manager
+and the sampler's host state; it sends a step descriptor to the follower
+ranks before it runs each step, and every rank then runs the same step on
+its own slice of the weights and cache, its collectives included.
+
+The JAX header carries one op a step kind (prefill, decode, chunk, sample,
+decode window) with fixed-shape arrays.  The port's descriptor is generic:
+every device step of the port is an ``Executable`` of ``runtime/graphs.py``
+with static input buffers, so the descriptor is the executable's key and
+the one packed int32 tensor of its inputs (the staging a dispatch copies
+into the buffers), plus a decode step's penalties arrays.  The followers
+copy that into their own executable's buffers and replay its graph (NCCL)
+or run it eagerly (gloo).  Ops:
+
+- ``OP_MAKE`` key: make (on the card: capture) the executable, which on a
+  captured rank runs once on padding rows first, collectives included;
+- ``OP_WARMUP`` keys: ``StepGraphs.warmup`` of the keys, in its one order;
+- ``OP_RUN`` key, steps, staging[, extras]: load and run ``steps`` steps
+  (0: one eager step whose logits the coordinator reads);
+- ``OP_NOOP``: the coordinator's heartbeat after a quarter of the mesh's
+  collective timeout idle, so a follower's wait stays inside it;
+- ``OP_STOP``: the followers return.
+
+Descriptors ride a gloo group over every rank (``RankMesh.ctrl_group``), on
+the host, whatever the collectives' backend.  Sampling needs no op: the
+logits are gathered to every rank inside the step, so the coordinator
+samples alone, and a decode window samples inside the step on every rank
+with the same keyed noise (``ops/sampling.py`` ``keyed_gumbel``), so every
+rank holds the same tokens (``Lockstep.record`` / ``follower_loop(record=
+True)`` keep them for the tests to compare).  The engine routes every
+executable through its ``_exec_*`` hooks, which call this module
+(``tests/test_torch_multihost.py`` holds that by AST).
+
+Not mirrored, so the engine refuses or turns off under a mesh (ROADMAP.md
+A10): speculation, guided decoding, the KV tiers' page copies, the
+cache-less trunks (embeddings, scoring) and multi-LoRA; pipelined decode is
+off, as under the JAX lockstep (a descriptor is built from the host's
+tokens).  Under several nodes (``--multihost``) the JAX intake refusal of
+``SamplingParams.multihost_unsupported`` stays.
+
+:func:`spawn_ranks` starts follower processes on one node (the server's
+``--tp N`` and ``chip_smoke.py``'s phase ``tp``): one a card, logs to files
+(a pipe nobody drains can block a rank), a ``file://`` store, and every
+rank stopped when one fails.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import logging
+import os
+import subprocess
+import sys
+import threading
+import time
+import types
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+logger = logging.getLogger("tpuserve_torch.multihost")
+
+OP_STOP, OP_MAKE, OP_RUN, OP_WARMUP, OP_NOOP = 0, 1, 2, 3, 4
+OP_NAMES = {OP_STOP: "stop", OP_MAKE: "make", OP_RUN: "run", OP_WARMUP: "warmup",
+            OP_NOOP: "noop"}
+HEADER = 4                       # int64: op, body words, steps, sequence number
+
+
+def _encode(meta: dict, arrays: Sequence[np.ndarray]) -> tuple[dict, torch.Tensor]:
+    """One int32 body: the JSON of ``meta`` (with each array's dtype and
+    shape), padded to a word, then each array's bytes, padded to a word."""
+    meta = dict(meta, arrays=[[a.dtype.str, list(a.shape)] for a in arrays])
+    text = json.dumps(meta).encode()
+    parts = [np.asarray([len(text)], np.int32),
+             np.frombuffer(text + b"\0" * (-len(text) % 4), np.int32)]
+    for a in arrays:
+        raw = np.ascontiguousarray(a).view(np.uint8).ravel()
+        parts.append(np.frombuffer(raw.tobytes() + b"\0" * (-raw.size % 4), np.int32))
+    return meta, torch.from_numpy(np.concatenate(parts))
+
+
+def _decode(body: np.ndarray) -> tuple[dict, list]:
+    n = int(body[0])
+    words = 1 + (n + 3) // 4
+    meta = json.loads(body[1:words].view(np.uint8)[:n].tobytes())
+    raw = body[words:].view(np.uint8)
+    arrays, off = [], 0
+    for dtype, shape in meta["arrays"]:
+        dt = np.dtype(dtype)
+        size = int(np.prod(shape)) * dt.itemsize
+        arrays.append(raw[off:off + size].view(dt).reshape(shape).copy())
+        off += size + (-size % 4)
+    return meta, arrays
+
+
+class Lockstep:
+    """The coordinator's side: sends each step's descriptor to the follower
+    ranks (the engine's ``_exec_*`` hooks call it), a heartbeat while idle,
+    and the stop.  ``record``: keep each decode run's (B, steps) tokens
+    (``tokens``), for comparison with the followers'."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.group = mesh.ctrl_group
+        # a quarter of the collectives' timeout: a follower's wait for the
+        # next descriptor never reaches it
+        self.heartbeat_s = mesh.timeout_s / 4
+        self.record = False
+        self.tokens: list = []
+        self.sent = collections.Counter()      # descriptors by op name
+        self._lock = threading.Lock()
+        self._seq = 0
+        self._last = time.monotonic()
+        self._stopped = False
+        self._hb_stop = threading.Event()
+        self._hb = threading.Thread(target=self._heartbeat, name="lockstep-heartbeat",
+                                    daemon=True)
+        self._hb.start()
+
+    def _send(self, op: int, meta: Optional[dict] = None, arrays=(), steps: int = 0) -> None:
+        import torch.distributed as dist
+        body = _encode(meta, arrays)[1] if meta is not None else None
+        with self._lock:
+            if self._stopped:
+                raise RuntimeError("the lockstep has stopped: its followers are gone")
+            hdr = torch.tensor([op, 0 if body is None else body.numel(), steps, self._seq],
+                               dtype=torch.int64)
+            self._seq += 1
+            dist.broadcast(hdr, 0, group=self.group)
+            if body is not None:
+                dist.broadcast(body, 0, group=self.group)
+            self._last = time.monotonic()
+            self.sent[OP_NAMES[op]] += 1
+
+    def _heartbeat(self) -> None:
+        while not self._hb_stop.wait(self.heartbeat_s / 4):
+            if time.monotonic() - self._last < self.heartbeat_s:
+                continue
+            try:
+                self._send(OP_NOOP)
+            except Exception:       # a follower is gone: the next step raises
+                logger.exception("lockstep heartbeat failed")
+                return
+
+    def make(self, key: tuple) -> None:
+        self._send(OP_MAKE, {"key": list(key)})
+
+    def warmup(self, keys) -> None:
+        self._send(OP_WARMUP, {"keys": [list(k) for k in keys]})
+
+    def run(self, key: tuple, staging, steps: int, extras=None) -> None:
+        """``staging``: the dispatch's ``graphs.Staging``; ``extras``: a
+        decode step's ``load_extras`` arrays; ``steps`` 0: one eager step."""
+        arrays = [staging.tensor.numpy()] + [np.asarray(a) for a in extras or ()]
+        self._send(OP_RUN, {"key": list(key)}, arrays, steps)
+
+    def after_run(self, exe, steps: int) -> None:
+        if self.record and exe.key[0] == "decode":
+            self.tokens.append(exe.state.out[:, :steps].cpu().numpy())
+
+    def stop(self) -> None:
+        """Send the stop (once); the followers return from their loop."""
+        self._hb_stop.set()
+        if self._stopped:
+            return
+        try:
+            self._send(OP_STOP)
+        finally:
+            self._stopped = True
+
+
+def follower_loop(engine, record: bool = False) -> list:
+    """Run on ranks 1..N-1: mirror the coordinator's steps until the stop.
+
+    ``engine`` must be built as the coordinator's (the same config, model,
+    seed and mesh), so its weights, cache and executables match slice for
+    slice; it never schedules.  Returns each decode run's (B, steps) tokens
+    with ``record`` (else [])."""
+    import torch.distributed as dist
+    mesh = engine.mesh
+    if mesh is None or mesh.world == 1:
+        logger.info("follower_loop: one rank, nothing to follow")
+        return []
+    graphs, tokens = engine.graphs, []
+    logger.info("follower %d/%d entering the lockstep loop", mesh.rank, mesh.world)
+    while True:
+        hdr = torch.zeros(HEADER, dtype=torch.int64)
+        dist.broadcast(hdr, 0, group=mesh.ctrl_group)
+        op, n, steps, _seq = (int(x) for x in hdr)
+        meta, arrays = {}, []
+        if n:
+            body = torch.empty(n, dtype=torch.int32)
+            dist.broadcast(body, 0, group=mesh.ctrl_group)
+            meta, arrays = _decode(body.numpy())
+        if op == OP_STOP:
+            logger.info("follower %d: stop", mesh.rank)
+            return tokens
+        if op == OP_NOOP:
+            continue
+        if op == OP_MAKE:
+            graphs.get(*meta["key"])
+        elif op == OP_WARMUP:
+            graphs.warmup([tuple(k) for k in meta["keys"]])
+        elif op == OP_RUN:
+            exe = graphs.get(*meta["key"])
+            exe.load(types.SimpleNamespace(tensor=torch.from_numpy(arrays[0])))
+            if len(arrays) > 1:
+                exe.load_extras(*arrays[1:])
+            if steps == 0:
+                exe.step()
+            else:
+                exe.run(steps)
+                if record and exe.key[0] == "decode":
+                    tokens.append(exe.state.out[:, :steps].cpu().numpy())
+        else:
+            raise RuntimeError(f"follower {mesh.rank}: unknown lockstep op {op}")
+
+
+# --------------------------------------------------------------------------
+# Launching ranks on one node
+# --------------------------------------------------------------------------
+
+def rank_env(rank: int, world: int, init_method: str, extra: Optional[dict] = None) -> dict:
+    """The environment of rank ``rank`` of a one-node grid: torchrun's
+    variables, the store (``TPUSERVE_INIT_METHOD``), and loopback
+    interfaces for gloo and NCCL, whose defaults may find no route on a
+    machine without a network."""
+    env = dict(os.environ)
+    env.update({"RANK": str(rank), "WORLD_SIZE": str(world), "LOCAL_RANK": str(rank),
+                "LOCAL_WORLD_SIZE": str(world), "TPUSERVE_INIT_METHOD": init_method})
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    env.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    env.update(extra or {})
+    return env
+
+
+def spawn_ranks(cmd: Sequence[str], world: int, log_dir: str, init_method: str,
+                ranks: Optional[Sequence[int]] = None,
+                extra_env: Optional[dict] = None) -> dict:
+    """Start ``cmd`` (argv, ``sys.executable`` first when None is given as
+    its head) once for each of ``ranks`` (default 1..world-1: the caller is
+    rank 0), each with :func:`rank_env` and its output in
+    ``log_dir/rank<r>.log``.  Returns rank -> ``Popen``."""
+    os.makedirs(log_dir, exist_ok=True)
+    cmd = [sys.executable if c is None else c for c in cmd]
+    procs = {}
+    for r in (range(1, world) if ranks is None else ranks):
+        log = open(os.path.join(log_dir, f"rank{r}.log"), "w")
+        try:
+            procs[r] = subprocess.Popen(cmd, env=rank_env(r, world, init_method, extra_env),
+                                        stdout=log, stderr=subprocess.STDOUT,
+                                        stdin=subprocess.DEVNULL)
+        finally:
+            log.close()          # the child holds its own descriptor
+    return procs
+
+
+def watch_ranks(procs: dict, on_failure, interval_s: float = 0.5) -> threading.Event:
+    """A thread that calls ``on_failure(rank, returncode)`` once when any
+    process of ``procs`` exits non-zero before the returned event is set
+    (set it before stopping the ranks on purpose)."""
+    done = threading.Event()
+
+    def loop():
+        while not done.wait(interval_s):
+            for r, p in procs.items():
+                rc = p.poll()
+                if rc not in (None, 0):
+                    done.set()
+                    on_failure(r, rc)
+                    return
+    threading.Thread(target=loop, name="rank-watch", daemon=True).start()
+    return done
+
+
+def stop_ranks(procs: dict, timeout_s: float = 30.0) -> dict:
+    """Wait up to ``timeout_s`` for every process, then kill the rest.
+    Returns rank -> return code (a killed one's negative signal)."""
+    deadline = time.monotonic() + timeout_s
+    for p in procs.values():
+        try:
+            p.wait(timeout=max(0.1, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            pass
+    for p in procs.values():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    return {r: p.returncode for r, p in procs.items()}

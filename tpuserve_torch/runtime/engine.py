@@ -93,6 +93,24 @@ each executable's making in its ladder and keeps the HBM watermark.
 ``swap_model`` replaces the served model in place for the model pool
 (``modelpool/``), releasing the outgoing graphs and cache first.
 
+Under a mesh (``parallel/mesh.py`` ``RankMesh``: one process a card) the
+engine is one rank of a tensor / expert parallel grid: it holds its slice
+of the weights (``parallel/sharding.py``) and a cache of its kv heads, and
+its transformer sums over the ranks where GSPMD inserted collectives in the
+JAX package.  Rank 0 schedules and mirrors every executable it makes or
+runs to the follower ranks through its ``_exec_*`` hooks
+(``parallel/multihost.py``), which run ``follower_loop`` on engines built
+the same way.  The JAX engine's refusals under a mesh stay (multi-LoRA,
+``swap_model``, a pp axis, ``multihost_unsupported`` across nodes); this
+slice also refuses speculation, guided decoding, embeddings and scoring
+(ROADMAP.md A10), turns the KV tiers off and decodes unpipelined, as the
+JAX lockstep does.  ``params`` given under a mesh are the rank's slice
+(``sharding.shard_params`` of the whole tree, an int8 tree quantized whole
+first); an engine that loads or draws its own keeps each layer's slice as
+it is made.  ``adopt_prefilled`` takes a sequence prefilled by
+another engine (``parallel/disagg.py``) or pod (``disagg_net.py``), and
+``hbm_share`` splits a card between engines.
+
 The engine runs on ``device="cuda"`` unless the caller passes
 ``device="cpu"`` (the tests do); it never falls back to the CPU on its own.
 Options of the JAX engine that this slice does not carry raise
@@ -122,6 +140,9 @@ from tpuserve_torch.models.weights import (
     quantize_params_int8, to_device)
 from tpuserve_torch.ops import sampling as sampling_ops
 from tpuserve_torch.ops.ragged_paged import ragged_block, ragged_layout
+from tpuserve_torch.parallel.mesh import RankMesh
+from tpuserve_torch.parallel.multihost import Lockstep
+from tpuserve_torch.parallel.sharding import RankSlicer, rank_config, shard_params
 from tpuserve_torch.runtime import grammar
 from tpuserve_torch.runtime import spec as spec_mod
 from tpuserve_torch.runtime.block_manager import create_block_manager
@@ -256,6 +277,10 @@ class EngineConfig:
     # watermark.  None = TPUSERVE_DEVPROF (default on); False removes it
     # with serving unchanged.
     devprof: Optional[bool] = None
+    # The share of the card's memory this engine may hold (weights, cache
+    # and graphs), as the JAX engine's: engines sharing a card (the
+    # colocated disaggregated pair, parallel/disagg.py) split it.
+    hbm_share: float = 1.0
 
     def resolve_attn_impl(self, device: torch.device) -> str:
         if self.attn_impl != "auto":
@@ -272,11 +297,17 @@ class EngineConfig:
             return self.pipeline_decode
         return device.type == "cuda"
 
-    def resolve_cuda_graphs(self, device: torch.device) -> bool:
+    def resolve_cuda_graphs(self, device: torch.device, mesh=None) -> bool:
+        """On with a card, unless the ranks' collectives run on gloo, which
+        a CUDA graph cannot capture."""
+        gloo = mesh is not None and mesh.backend == "gloo"
         if self.cuda_graphs is None:
-            return device.type == "cuda"
+            return device.type == "cuda" and not gloo
         if self.cuda_graphs and device.type != "cuda":
             raise ValueError("cuda_graphs=True needs device='cuda'")
+        if self.cuda_graphs and gloo:
+            raise ValueError("cuda_graphs=True needs the nccl backend: gloo's "
+                             "collectives cannot be captured")
         return self.cuda_graphs
 
 
@@ -384,6 +415,22 @@ def _read(p) -> tuple:
     return p.toks.numpy(), (None if p.lp is None else tuple(t.numpy() for t in p.lp))
 
 
+def _check_mesh_config(config: EngineConfig, mesh) -> None:
+    """The JAX engine's refusals under a mesh, and what this slice does not
+    bring under one (ROADMAP.md A10)."""
+    if mesh.shape.get("pp", 1) > 1:
+        raise NotImplementedError("pipeline parallelism (pp) is not ported yet "
+                                  "(ROADMAP.md A10, parallel/pipeline.py)")
+    if config.lora_modules:
+        raise ValueError("multi-LoRA with a tp/ep mesh is not supported (the "
+                         "stacked factors have no shardings); use merge-at-load "
+                         "lora_dir under TP")
+    if config.speculative:
+        raise NotImplementedError("speculative decoding under a mesh (ROADMAP.md A10)")
+    if config.kv_tiers:
+        raise NotImplementedError("the tiered KV cache under a mesh (ROADMAP.md A10)")
+
+
 def _decode_key(B: int, mode: str, extras: str = "", bucket: tuple = ()) -> tuple:
     """A decode executable's key; ``bucket``: a guided one's grammar
     (states, classes) bucket."""
@@ -391,7 +438,8 @@ def _decode_key(B: int, mode: str, extras: str = "", bucket: tuple = ()) -> tupl
 
 
 class Engine:
-    """Single-device serving engine (one model)."""
+    """Serving engine of one model on one device, or one rank of a tensor /
+    expert parallel grid (``mesh``, ``parallel/mesh.py``)."""
 
     def __init__(self, config: EngineConfig | None = None, *, params=None,
                  model_cfg: ModelConfig | None = None, mesh=None,
@@ -399,14 +447,28 @@ class Engine:
         config = config or EngineConfig()
         self.config = config
         self.device = torch.device(device)
+        if mesh is not None and not isinstance(mesh, RankMesh):
+            # the JAX engine's single-process mesh (GSPMD over several
+            # devices) has no PyTorch counterpart: a port mesh is one
+            # process a card (parallel/mesh.py)
+            raise NotImplementedError(
+                "a mesh here is a parallel.mesh.RankMesh, one process a card; "
+                "a single-process multi-device mesh is not ported (ROADMAP.md A10)")
+        if mesh is not None:
+            # one process a card: the rank's device (the CPU for gloo ranks
+            # on the CPU), never another type than asked for
+            if mesh.device.type != self.device.type:
+                raise ValueError(f"the mesh's device {mesh.device} is not a "
+                                 f"{self.device.type} device")
+            self.device = mesh.device
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {self.device}")
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available; pass "
                                "device='cpu' to run the engine on the CPU")
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError(
-                "tp/pp meshes are not ported yet (ROADMAP.md A10, multi-GPU)")
+            _check_mesh_config(config, mesh)
         # the card's bytes outside the caching allocator before this
         # engine made anything: the HBM watermark counts what it adds
         self._outside_base = self._outside_allocator_bytes()
@@ -420,6 +482,14 @@ class Engine:
                              "adapter weights)")
         self.clock = config.clock or MONOTONIC
         self.model_cfg = model_cfg or get_model_config(config.model)
+        # under a mesh the weights are made from the model's whole config
+        # and sliced, and everything else runs the rank's (its heads,
+        # columns, experts and collectives)
+        whole_cfg = self.model_cfg
+        slicer = None
+        if mesh is not None:
+            slicer = RankSlicer(mesh)
+            self.model_cfg = rank_config(self.model_cfg, mesh)
         self.attn_impl = config.resolve_attn_impl(self.device)
         if self.attn_impl not in transformer.ATTN_IMPLS:
             raise ValueError(f"attn_impl {self.attn_impl!r} not in "
@@ -439,13 +509,16 @@ class Engine:
         own = params is None
         if own:
             # int8 without a merge: each layer is quantized as it is made
-            # or loaded, so the model never exists whole in its dtype
-            params = load_or_init(self.model_cfg, config.checkpoint_dir, config.seed,
+            # or loaded, so the model never exists whole in its dtype;
+            # under a mesh each rank keeps its slice of each layer (a merge
+            # needs the whole tree first: it is sliced after)
+            params = load_or_init(whole_cfg, config.checkpoint_dir, config.seed,
                                   self.device,
-                                  quantize_layer_int8 if int8 and not config.lora_dir else None)
+                                  quantize_layer_int8 if int8 and not config.lora_dir else None,
+                                  shard=None if config.lora_dir else slicer)
         if config.lora_dir:
             # before quantization: the merge targets the model-dtype kernels
-            params = apply_lora(params, self.model_cfg, config.lora_dir)
+            params = apply_lora(params, whole_cfg, config.lora_dir)
             logger.info("merged LoRA adapter from %s", config.lora_dir)
         if int8 and not is_quantized(params):
             if own and config.lora_dir:
@@ -455,6 +528,8 @@ class Engine:
                 for i in range(len(layers)):
                     layers[i] = quantize_layer_int8(layers[i])
             params = quantize_params_int8(params)
+        if own and config.lora_dir and mesh is not None:
+            params = shard_params(params, whole_cfg, mesh)
         self._lora_names: Optional[list] = None
         self._lora_index: dict = {}
         if config.lora_modules:
@@ -542,7 +617,11 @@ class Engine:
         self._page_staging: Optional[PageStaging] = None
         tiers_on = config.kv_tiers
         if tiers_on is None:
-            tiers_on = env_flag("TPUSERVE_KV_TIERS")
+            tiers_on = env_flag("TPUSERVE_KV_TIERS") and mesh is None
+            if mesh is not None:
+                # the tiers' page copies run outside the step executables,
+                # which are all the lockstep mirrors
+                logger.info("KV tiers are off under a mesh (ROADMAP.md A10)")
         if tiers_on and prefix_caching:
             host_bytes = config.kv_host_bytes or int(
                 os.environ.get("TPUSERVE_KV_HOST_BYTES", 0) or (1 << 30))
@@ -633,19 +712,30 @@ class Engine:
         self._adaptive_window = (config.adaptive_multi_step
                                  and self._multi_step > self._min_multi_step)
         self._last_busy_arrival = float("-inf")
-        self._pipeline_decode = config.resolve_pipeline_decode(self.device)
+        # off under a mesh, as under the JAX engine's multihost lockstep: a
+        # dispatch's descriptor is built from the host's tokens, so windows
+        # cannot run ahead of the host
+        self._pipeline_decode = (config.resolve_pipeline_decode(self.device)
+                                 and mesh is None)
         self._pending: Optional[PendingDecode] = None
         self._pending_window: Optional[PendingWindow] = None
         self.graphs = StepGraphs(
             self.params, self.model_cfg, self.kv_cache, device=self.device,
             attn_impl=self.attn_impl, max_blocks=self.cache_cfg.max_blocks_per_seq,
             steps=self._multi_step, max_batch=self._ragged_seqs,
-            ragged_blk=self._ragged_blk, capture=config.resolve_cuda_graphs(self.device),
+            ragged_blk=self._ragged_blk,
+            capture=config.resolve_cuda_graphs(self.device, mesh),
             draft_params=self._draft_params, draft_cfg=self._draft_cfg,
             n_adapters=len(self._lora_names or ()))
         if self.devprof.enabled:
             # each executable made (on the card: captured) is a ladder entry
             self.graphs.on_make = self.devprof.note_executable
+        # under a mesh rank 0 leads the lockstep: it mirrors every step to
+        # the follower ranks (parallel/multihost.py), which run
+        # ``follower_loop`` on engines built the same way
+        self._lockstep: Optional[Lockstep] = (
+            Lockstep(mesh) if mesh is not None and mesh.world > 1 and mesh.is_coordinator
+            else None)
         self._req_counter = itertools.count()
         self._seed_counter = itertools.count()
         self._eos_ids = set(self.tokenizer.eos_token_ids)
@@ -681,7 +771,10 @@ class Engine:
         old params)``: the caller demotes the outgoing weights."""
         if self.has_work():
             raise RuntimeError("swap_model needs a drained engine (has_work() is True)")
-        if self.config.resolve_cuda_graphs(self.device) and self.graphs.capturing_since:
+        if self.mesh is not None:
+            raise ValueError("model hot-swap is single-card, meshless only "
+                             "(weights aren't re-sharded)")
+        if self.graphs.capture and self.graphs.capturing_since:
             raise RuntimeError("swap_model during a graph capture")
         t0 = self.clock.monotonic()
         old_model, old_params = self.config.model, self.params
@@ -742,14 +835,17 @@ class Engine:
         return old_model, old_params
 
     def _device_hbm_limit(self) -> int:
-        """The card's memory in bytes (``TPUSERVE_HBM_BYTES`` overrides);
-        the 1 GiB budget the cache is sized to on the CPU."""
+        """This engine's share (``hbm_share``) of the card's memory in bytes
+        (``TPUSERVE_HBM_BYTES`` overrides the card's size); of the 1 GiB
+        budget the cache is sized to on the CPU."""
         env = os.environ.get("TPUSERVE_HBM_BYTES")
         if env:
-            return int(env)
-        if self.device.type == "cuda":
-            return int(torch.cuda.mem_get_info(self.device)[1])
-        return 1 << 30
+            limit = int(env)
+        elif self.device.type == "cuda":
+            limit = int(torch.cuda.mem_get_info(self.device)[1])
+        else:
+            limit = 1 << 30
+        return int(limit * self.config.hbm_share)
 
     def _outside_allocator_bytes(self) -> int:
         """The card's used bytes outside the caching allocator's segments
@@ -859,9 +955,13 @@ class Engine:
         dispatch can reserve (``graphs.pool_bytes_bound``: the cache is
         made before them, since they write into it); a 1 GiB budget less
         the weights on the CPU."""
+        own = param_nbytes(self.params) + (param_nbytes(self._draft_params)
+                                           if self._draft_params is not None else 0)
         if self.device.type == "cuda":
             free, _total = torch.cuda.mem_get_info(self.device)
-            if self.config.resolve_cuda_graphs(self.device):
+            # an engine sharing the card holds at most its share of it
+            free = min(free, self._device_hbm_limit() - own)
+            if self.config.resolve_cuda_graphs(self.device, self.mesh):
                 max_len = min(self.cache_cfg.max_model_len,
                               self.model_cfg.max_position_embeddings)
                 free -= pool_bytes_bound(self.model_cfg,
@@ -870,7 +970,7 @@ class Engine:
                                          sizing_of(self.params, self.cache_cfg.max_model_len,
                                                    self._ragged_blk))
         else:
-            free = (1 << 30) - param_nbytes(self.params)
+            free = int((1 << 30) * self.config.hbm_share) - param_nbytes(self.params)
         blocks = num_blocks_for_budget(self.model_cfg, self.cache_cfg, free)
         # past what the scheduler can ever address, memory is waste
         addressable = sched.max_num_seqs * (self.cache_cfg.max_blocks_per_seq + 1)
@@ -946,6 +1046,15 @@ class Engine:
             prompt_token_ids = prompt_token_ids[-params.truncate_prompt_tokens:]
         if not prompt_token_ids:
             raise ValueError("empty prompt")
+        if self.mesh is not None and self.mesh.multihost and params.multihost_unsupported():
+            # several nodes: the JAX engine's intake refusal, kept (the API
+            # edge 400s these first)
+            raise ValueError(
+                f"{', '.join(params.multihost_unsupported())} not "
+                "supported in multi-host serving mode")
+        if self.mesh is not None and params.guided is not None:
+            raise ValueError("guided decoding is not served under a mesh yet "
+                             "(ROADMAP.md A10)")
         if len(prompt_token_ids) >= self.max_seq_len:
             raise ValueError(
                 f"prompt length {len(prompt_token_ids)} exceeds max sequence "
@@ -990,15 +1099,7 @@ class Engine:
         self.flight.req_event(request_id, "QUEUED", slo_class=params.slo_class,
                               prompt_tokens=len(prompt_token_ids),
                               max_tokens=params.max_tokens)
-        if not params.greedy:
-            # the salt of the request's sampling keys (salt, step): its
-            # stream depends on its seed alone, not on the batches, batch
-            # positions or windows it lands in.  Unseeded requests take the
-            # engine seed and a counter (the JAX engine hashes the request
-            # id, which Python salts anew in each process).
-            seed = (params.seed if params.seed is not None
-                    else self.config.seed * 1_000_003 + next(self._seed_counter))
-            self._salts[request_id] = seed & 0xFFFFFFFF
+        self._assign_salt(request_id, params)
         if self._adaptive_window and (self.scheduler.running
                                       or self._pending_window is not None):
             # an arrival into a BUSY engine predicts more: the next windows
@@ -1006,6 +1107,111 @@ class Engine:
             # once the scheduler accepted the request: a flood rejected by
             # a full queue must not pin the streams at min_multi_step.
             self._last_busy_arrival = self.clock.monotonic()
+        self.stats.prompt_tokens += len(prompt_token_ids)
+        return request_id
+
+    def stop_followers(self) -> None:
+        """Under a mesh, rank 0's stop to the follower ranks (once): they
+        return from ``follower_loop``.  A no-op elsewhere."""
+        if self._lockstep is not None:
+            self._lockstep.stop()
+
+    def _assign_salt(self, request_id: str, params: SamplingParams) -> None:
+        """The salt of a sampled request's keys (salt, step): its stream
+        depends on its seed alone, not on the batches, batch positions or
+        windows it lands in.  Unseeded requests take the engine seed and a
+        counter (the JAX engine hashes the request id, which Python salts
+        anew in each process)."""
+        if not params.greedy:
+            seed = (params.seed if params.seed is not None
+                    else self.config.seed * 1_000_003 + next(self._seed_counter))
+            self._salts[request_id] = seed & 0xFFFFFFFF
+
+    def adopt_prefilled(self, request_id: str, prompt_token_ids: Sequence[int],
+                        first_token: int, params: SamplingParams, seq_kv: list,
+                        guided_plan: Optional[Sequence[int]] = None) -> str:
+        """Adopt a sequence prefilled by another engine or pod
+        (``parallel/disagg.py``, ``disagg_net.py``), as the JAX engine's:
+        allocate blocks, scatter the transferred KV pages into this cache
+        (``disagg.insert_seq_kv``: the format check, then an in-place
+        indexed copy), and drop the request straight into the running
+        decode batch, with no recompute.
+
+        ``seq_kv``: per-layer ``{key: pages}`` as ``disagg.extract_seq_kv``
+        makes them (a power-of-two padded block count), tensors or numpy
+        arrays.  The first token's text was emitted by the prefill side; it
+        seeds the detokenizer here and is not emitted again.  A guided
+        request takes the token-level FSM advanced by the first token, or,
+        when the prefill side left the FSM for a committed canonical-suffix
+        plan (``guided_plan``), the character acceptor fed the first
+        token's text with that plan.  Raises ``MemoryError`` when the pool
+        lacks blocks or a sequence slot (the server's 503)."""
+        from tpuserve_torch.parallel.disagg import insert_seq_kv
+        prompt_token_ids = [int(t) for t in prompt_token_ids]
+        if self.mesh is not None:
+            raise NotImplementedError("KV adoption under a mesh (ROADMAP.md A10)")
+        if request_id in self.requests:
+            raise ValueError(f"request {request_id} already exists")
+        if len(prompt_token_ids) >= self.max_seq_len:
+            raise ValueError(f"prompt length {len(prompt_token_ids)} exceeds max "
+                             f"sequence length {self.max_seq_len}")
+        need = self.block_manager.blocks_needed(len(prompt_token_ids)) + 1
+        if (need > self.block_manager.num_free_blocks
+                or self.scheduler.num_running >= self.config.scheduler.max_num_seqs):
+            raise MemoryError("decode pool at capacity")
+        req = Request(request_id=request_id, prompt_token_ids=prompt_token_ids,
+                      params=params, arrival_time=self.clock.monotonic())
+        alloc = self.block_manager.allocate(request_id, prompt_token_ids)
+        try:
+            # between the allocate and the registration below a raise would
+            # leak the blocks: nothing else could find them
+            self._drop_superseded_tier_entries(prompt_token_ids)
+            # the allocate may have evicted cached blocks that the scatter
+            # overwrites: demote them first
+            self._demote_evicted()
+            insert_seq_kv(self.kv_cache, seq_kv, alloc.blocks)
+            req.output_token_ids.append(int(first_token))
+            req.state = RequestState.RUNNING
+            req.first_token_time = self.clock.monotonic()
+            detok = IncrementalDetokenizer(self.tokenizer)
+            first_text = detok.add(int(first_token))
+            self._detok[request_id] = detok
+            if params.guided is not None:
+                fsm = self._fsm_for(params)
+                if fsm is not None and not guided_plan:
+                    ns = fsm.advance(fsm.start, int(first_token))
+                    if ns >= 0:
+                        self._guided_fsm[request_id] = [fsm, ns]
+                        self.stats.guided_fsm_requests += 1
+                if request_id not in self._guided_fsm:
+                    st = self._make_guided(params)
+                    try:
+                        st.feed(first_text)
+                        self._guided[request_id] = st
+                        if guided_plan:
+                            # keep emitting the plan the first token opened,
+                            # or the partial rune in the context never
+                            # completes
+                            self._guided_plan[request_id] = [int(t) for t in guided_plan]
+                    except ValueError:
+                        pass                # already off-grammar: unconstrained
+        except Exception:
+            # the pages never fully landed: the blocks are suspect, kept
+            # out of the prefix pool
+            self.block_manager.free(request_id, cache_blocks=False)
+            for d in (self._detok, self._guided, self._guided_fsm, self._guided_plan):
+                d.pop(request_id, None)
+            raise
+        self._assign_salt(request_id, params)
+        self.requests[request_id] = req
+        self.flight.req_event(request_id, "QUEUED", migrated=True,
+                              prompt_tokens=len(prompt_token_ids))
+        self.flight.req_event(request_id, "ADMITTED", migrated=True)
+        if self._adaptive_window and (self.scheduler.running
+                                      or self._pending_window is not None):
+            # a migration into a busy pool is an arrival
+            self._last_busy_arrival = self.clock.monotonic()
+        self.scheduler.running.append(req)
         self.stats.prompt_tokens += len(prompt_token_ids)
         return request_id
 
@@ -1329,7 +1535,7 @@ class Engine:
         self._step_kind = "prefill"
         L = batch.padded_len
         B = next_power_of_2(len(reqs))
-        exe = self.graphs.get("prefill", B, L)
+        exe = self._exec_get("prefill", B, L)
         st = exe.stage()
         for i, req in enumerate(reqs):
             ids = self._prefill_tokens(req)
@@ -1347,8 +1553,7 @@ class Engine:
         self._demote_evicted()
         self.faults.check("prefill_dispatch", self._dispatch_rids)
         with PROF.phase("dispatch"), self.devprof.dispatch("prefill", exe.key):
-            exe.load(st)
-            exe.run()
+            self._exec_run(exe, st)
         self.scheduler.mark_running(reqs)
         self.stats.num_prefill_steps += 1
         self._note_step_tokens(int(st.prompt_lens[:len(reqs)].sum()), B * L)
@@ -1422,7 +1627,7 @@ class Engine:
         if self._flight_on:
             self.flight.req_event(req.request_id, "PREFILL_CHUNK", done=done, tokens=n,
                                   total=len(ids))
-        exe = self.graphs.get("chunk", C)
+        exe = self._exec_get("chunk", C)
         st = exe.stage()
         st.tokens[0, :n] = ids[done:done + n]
         bt = self.block_manager.block_table(req.request_id)
@@ -1433,8 +1638,7 @@ class Engine:
         self._demote_evicted()
         self.faults.check("prefill_dispatch", self._dispatch_rids)
         with PROF.phase("dispatch"), self.devprof.dispatch("prefill_chunk", exe.key):
-            exe.load(st)
-            exe.run()
+            self._exec_run(exe, st)
         req.num_prefilled = done + n
         self.stats.num_prefill_steps += 1
         self.stats.num_chunk_steps += 1
@@ -1498,7 +1702,7 @@ class Engine:
         starts, T, meta, blk_seq = ragged_layout(
             n_dec, [c[3] for c in comp + cont], blk)
         B = self._ragged_seqs
-        exe = self.graphs.get("mixed", T)
+        exe = self._exec_get("mixed", T)
         st = exe.stage()
         dec = np.arange(n_dec)
         for i, r in enumerate(decode_reqs):
@@ -1535,8 +1739,7 @@ class Engine:
         self._demote_evicted()
         self.faults.check("mixed_dispatch", self._dispatch_rids)
         with PROF.phase("dispatch"), self.devprof.dispatch("mixed", exe.key):
-            exe.load(st)
-            exe.run()
+            self._exec_run(exe, st)
         self.stats.num_mixed_steps += 1
         if decode_reqs:
             self.stats.num_decode_steps += 1
@@ -1565,6 +1768,73 @@ class Engine:
     def _salt(self, req: Request) -> int:
         return self._salts.get(req.request_id, 0)
 
+    # ---- device work ----------------------------------------------------
+    # Every executable the engine makes or runs, and every cache-less trunk,
+    # goes through these hooks: under a mesh, rank 0 mirrors each one to the
+    # follower ranks before it runs it (parallel/multihost.py), so every
+    # rank enters the same step and its collectives.  The JAX engine's AST
+    # guard has its counterpart in tests/test_torch_multihost.py: no other
+    # method of the engine runs one.
+
+    def _exec_get(self, *key):
+        """The executable of ``key``, made (on the card: captured) on first
+        use on every rank."""
+        if self._lockstep is not None and key not in self.graphs.executables:
+            self._lockstep.make(key)
+        return self.graphs.get(*key)
+
+    def _exec_run(self, exe, st, steps: int = 1, *, chain=None, extras=None, grammar=None,
+                  eager: bool = False):
+        """Load the staging ``st`` into ``exe``'s buffers (a decode
+        executable: with ``chain``, ``DecodeExecutable.load``), build the
+        penalties' buffers from ``extras`` (``load_extras``' five arrays),
+        load a grammar's tables (``grammar``: ``StepGraphs.load_grammar``'s
+        arguments), then run ``steps`` steps; with ``eager`` run one step
+        eagerly and return its logits."""
+        if self._lockstep is not None:
+            self._lockstep.run(exe.key, st, 0 if eager else steps, extras)
+        if isinstance(exe, DecodeExecutable):
+            exe.load(st, chain=chain)
+        else:
+            exe.load(st)
+        if extras is not None:
+            exe.load_extras(*extras)
+        if grammar is not None:
+            self.graphs.load_grammar(*grammar)
+        if eager:
+            return exe.step()
+        exe.run(steps)
+        if self._lockstep is not None:
+            self._lockstep.after_run(exe, steps)
+        return None
+
+    def _exec_warmup(self, keys) -> None:
+        """Make every executable of ``keys`` (``StepGraphs.warmup``) on
+        every rank, in one order."""
+        if self._lockstep is not None:
+            self._lockstep.warmup(keys)
+        self.graphs.warmup(keys)
+
+    def _exec_embed(self, tokens: np.ndarray, lens: np.ndarray, pooling: str) -> np.ndarray:
+        """One batch of the embeddings trunk, on the host."""
+        self._refuse_trunks()
+        return transformer.embed_forward(
+            self.params, self.model_cfg, self._tensor(tokens), self._tensor(lens),
+            pooling=pooling, attn_impl=self.attn_impl).cpu().numpy()
+
+    def _exec_score(self, tokens: np.ndarray, lens: np.ndarray, top_n: int) -> tuple:
+        """One batch of the scoring trunk: (chosen, ranks, top ids, top
+        logprobs) on the host."""
+        self._refuse_trunks()
+        return tuple(x.cpu().numpy() for x in transformer.score_prompt(
+            self.params, self.model_cfg, self._tensor(tokens), self._tensor(lens),
+            top_n=top_n, attn_impl=self.attn_impl))
+
+    def _refuse_trunks(self) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError("embeddings and prompt scoring under a mesh "
+                                      "(ROADMAP.md A10)")
+
     # ---- sampling -----------------------------------------------------
 
     MAX_LOGPROBS = MAX_LOGPROBS
@@ -1580,7 +1850,7 @@ class Engine:
         the rows that asked; substitution-path rows get their token
         checked and, where illegal, replaced on the host."""
         with self.devprof.dispatch("sample"):
-            toks, logits = self._sample_on_device(logits, reqs, B)
+            toks, logits = self._exec_sample(logits, reqs, B)
         n = len(reqs)
         with PROF.phase("flush"), self.devprof.sync("sample"):
             # the synchronous sampler's one wait on the card
@@ -1596,10 +1866,13 @@ class Engine:
             self._apply_guided(logits, toks_np, reqs)
         return toks_np
 
-    def _sample_on_device(self, logits: torch.Tensor, reqs: list[Request], B: int) -> tuple:
+    def _exec_sample(self, logits: torch.Tensor, reqs: list[Request], B: int) -> tuple:
         """``_sample``'s device part: the (B,) sampled tokens on the card and
         the logits they were sampled from (after penalties, bias, floor
-        and mask)."""
+        and mask).  Under a mesh it runs on rank 0 alone: every rank holds
+        the step's whole gathered logits, so no collective is left to mirror
+        (the JAX lockstep mirrors its sampler, a jit over mesh-global
+        logits)."""
         V = logits.shape[1]
         t = self._tensor
         if any(r.params.needs_penalties for r in reqs):
@@ -2026,7 +2299,7 @@ class Engine:
             bucket = (tables[0].shape[0], tables[2].shape[1])
         elif fsms:
             bucket = (B, 1)
-        exe = self.graphs.get(*_decode_key(B, self._sample_mode(reqs), extras, bucket))
+        exe = self._exec_get(*_decode_key(B, self._sample_mode(reqs), extras, bucket))
         st = exe.stage()
         for i, r in enumerate(reqs):
             pi = chain_idx.get(r.request_id)
@@ -2060,22 +2333,18 @@ class Engine:
         self.faults.check("decode_dispatch", self._dispatch_rids)
         with PROF.phase("dispatch"), self.devprof.dispatch(
                 "decode_multi" if window else "decode", exe.key):
-            exe.load(st, chain=(pending.exe, pending.steps) if chain_idx else None)
-            if pen:
-                exe.load_extras(np.where(mask, out_tokens, V),
-                                *self._logit_bias_arrays(reqs, B, V), f_ids, f_vals)
+            grammar = None
             if tables:
-                self.graphs.load_grammar(bucket, fsms[0][0], *tables)
+                grammar = (bucket, fsms[0][0], *tables)
             elif fsms:
-                self.graphs.load_grammar(bucket, None,
-                                         self._tensor(self._fsm_rows(reqs, B)[0]))
-            logits = None
-            if need_logits:
-                # the iteration run eagerly on the buffers, captured or
-                # not: its (B, V) logits, extras and mask applied
-                logits = exe.step()
-            else:
-                exe.run(steps)
+                grammar = (bucket, None, self._tensor(self._fsm_rows(reqs, B)[0]))
+            # with need_logits the iteration runs eagerly on the buffers,
+            # captured or not: its (B, V) logits, extras and mask applied
+            logits = self._exec_run(
+                exe, st, steps, chain=(pending.exe, pending.steps) if chain_idx else None,
+                extras=(np.where(mask, out_tokens, V), *self._logit_bias_arrays(reqs, B, V),
+                        f_ids, f_vals) if pen else None,
+                grammar=grammar, eager=need_logits)
             toks, lps, event = exe.fetch(steps)
         self.stats.num_decode_steps += steps
         self._note_step_tokens(len(reqs) * steps, B * steps)
@@ -2349,7 +2618,7 @@ class Engine:
             return outputs + self._run_decode(batch)
         B = self.scheduler.decode_bucket(len(reqs))
         sampled = not all(r.params.greedy for r in reqs)
-        exe = self.graphs.get("verify", B, K, "sampled" if sampled else "greedy")
+        exe = self._exec_get("verify", B, K, "sampled" if sampled else "greedy")
         st = exe.stage()
         with PROF.phase("block"):
             self.block_manager.fill_block_tables(self._dispatch_rids, st.block_tables)
@@ -2376,8 +2645,7 @@ class Engine:
         self._demote_evicted()
         self.faults.check("decode_dispatch", self._dispatch_rids)
         with PROF.phase("dispatch"), self.devprof.dispatch(dispatch_kind(exe.key), exe.key):
-            exe.load(st)
-            exe.run()
+            self._exec_run(exe, st)
         with PROF.phase("flush"), self.devprof.sync("verify"):
             # the step's one wait on the card: acceptance decides emission
             out = exe.fetch()
@@ -2410,7 +2678,7 @@ class Engine:
         padded to a power of two so repeat spec steps share it."""
         W = self._spec.draft_window
         B = next_power_of_2(len(reqs))
-        exe = self.graphs.get("draft", B, W + k, k)
+        exe = self._exec_get("draft", B, W + k, k)
         st = exe.stage()
         for i, r in enumerate(reqs):
             ids = (r.prompt_token_ids + r.output_token_ids)[-W:]
@@ -2418,8 +2686,7 @@ class Engine:
             st.lens[i] = len(ids)
         self.faults.check("decode_dispatch", self._dispatch_rids)
         with PROF.phase("dispatch"), self.devprof.dispatch("draft", exe.key):
-            exe.load(st)
-            exe.run()
+            self._exec_run(exe, st)
         with PROF.phase("flush"), self.devprof.sync("draft"):
             # designated wait: the proposals feed this step's verify batch
             out = exe.fetch()[0]
@@ -2785,13 +3052,9 @@ class Engine:
         keys += self._spec_keys(["greedy"] + (["sampled"] if {"temperature", "full"}
                                               & set(sample_modes) else []))
         with self.faults.suspended():
-            self.graphs.warmup(keys)
+            self._exec_warmup(keys)
         for B, T in embed_buckets:
-            transformer.embed_forward(
-                self.params, self.model_cfg,
-                torch.zeros((B, T), dtype=torch.int32, device=self.device),
-                torch.ones((B,), dtype=torch.int32, device=self.device),
-                attn_impl=self.attn_impl)
+            self._exec_embed(np.zeros((B, T), np.int32), np.ones((B,), np.int32), "mean")
         if self._kv_tiers is not None:
             # the tier page copies' staging, and a round's host records
             # (a round trip of block 0 onto itself), so that the first
@@ -2881,9 +3144,7 @@ class Engine:
     def _score_locked(self, ids_list, top_n):
         results = []
         for group, tokens, lens in self._trunk_batches(ids_list, 16):
-            chosen, ranks, top_ids, top_lps = (x.cpu().numpy() for x in transformer.score_prompt(
-                self.params, self.model_cfg, self._tensor(tokens), self._tensor(lens),
-                top_n=top_n, attn_impl=self.attn_impl))
+            chosen, ranks, top_ids, top_lps = self._exec_score(tokens, lens, top_n)
             for k, ids in enumerate(group):
                 entries = [{"token_id": ids[0], "logprob": None, "rank": None, "top": []}]
                 for p in range(1, len(ids)):
@@ -2924,10 +3185,7 @@ class Engine:
         with self._embed_lock:
             outs = []
             for group, tokens, lens in self._trunk_batches(ids_list, 8):
-                out = transformer.embed_forward(self.params, self.model_cfg,
-                                                self._tensor(tokens), self._tensor(lens),
-                                                pooling=pooling, attn_impl=self.attn_impl)
-                outs.append(out.cpu().numpy()[:len(group)])
+                outs.append(self._exec_embed(tokens, lens, pooling)[:len(group)])
             return np.concatenate(outs, axis=0), [len(x) for x in ids_list]
 
     def generate(self, prompts: Sequence[str] | Sequence[Sequence[int]],

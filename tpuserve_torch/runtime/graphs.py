@@ -78,8 +78,20 @@ the first capture, for the largest need of every decode and mixed bucket,
 and held here as long as the graphs) all exist first.  A replay never
 calls the kernel wrappers, so each executable records the launches its
 capture made and adds them to the wrappers' ``LAUNCHES`` counts on every
-replay; the padding run and the capture count nothing.  A capture that
+replay; the padding run and the capture count nothing (the capturing
+thread counts its launches apart, ``ops/_build.tally``).  A capture that
 fails raises: the engine never runs a bucket eagerly in its place.
+
+Every engine of a process captures under one lock, in the "thread_local"
+capture error mode: two servers in one process (the fleet's replicas, a
+prefill and a decode pod) each capture on first use while the other's
+loop thread replays, reads back, allocates and launches on its own
+stream; the lock covers captures only.  Without it a capture begun while
+another engine's thread worked failed ("operation not permitted when
+stream is capturing") and left the allocator recording into its pool, so
+the next capture there raised "already recording" (F7).
+``StepGraphs.replays_beside_capture`` counts an engine's replays made
+while another thread captured.
 
 On the CPU, and on the card with ``capture=False``, there is no graph: the
 same object runs the step eagerly on the same buffers.
@@ -100,14 +112,24 @@ import torch
 
 from tpuserve_torch.models import transformer
 from tpuserve_torch.models.weights import is_quantized
-from tpuserve_torch.ops import flash_prefill, paged_decode, paged_window, ragged_paged
+from tpuserve_torch.ops import _build, flash_prefill, paged_decode, paged_window, ragged_paged
 from tpuserve_torch.ops import sampling as sampling_ops
 from tpuserve_torch.ops.attention import PAD_SLOT
 
 KERNEL_MODULES = (flash_prefill, paged_decode, paged_window, ragged_paged)
 # replays add to the wrappers' counts from every engine's loop thread (two
-# servers in one process step at once): one lock keeps each sum whole
-_COUNTS_LOCK = threading.Lock()
+# servers in one process step at once), and the wrappers count their own
+# launches under it: one lock keeps each sum whole
+_COUNTS_LOCK = _build.LAUNCH_LOCK
+# One capture at a time in the process (F7).  Every engine's graphs share
+# the caching allocator, and a capture begun while another records, or one
+# that fails, leaves the allocator recording into its pool: the next capture
+# there raises "beginAllocateToPool: already recording".  Each capture runs
+# in the "thread_local" error mode, so the other engines' loop threads may
+# replay, read back and allocate on their own streams meanwhile.
+_CAPTURE_LOCK = threading.RLock()
+# the thread that holds it, while it captures
+_capturing: "int | None" = None
 KINDS = ("prefill", "chunk", "mixed", "decode", "verify", "draft")
 SPEC_KINDS = ("verify", "draft")       # SpecExecutable's kinds
 VERIFY_MODES = ("greedy", "sampled")
@@ -121,11 +143,6 @@ MAX_LOGPROBS = 20
 
 def _name(mod) -> str:
     return mod.__name__.rsplit(".", 1)[-1]
-
-
-def _launch_counts() -> dict:
-    """Each kernel wrapper's ``LAUNCHES``, by kernel name."""
-    return {_name(m): m.LAUNCHES for m in KERNEL_MODULES}
 
 
 def layout(key, max_blocks: int, seqs: int, blk: int, adapters: int = 0) -> tuple:
@@ -500,16 +517,18 @@ class Executable:
 
     def run(self, steps: int = 1) -> None:
         """``steps`` steps: graph replays on the card, else eager."""
+        self.owner.replays[self.key[0]] += steps
         if self.graph is None:
             for _ in range(steps):
                 self.logits = self.step()
             return
+        if _capturing not in (None, threading.get_ident()):
+            self.owner.replays_beside_capture += steps
         for _ in range(steps):
             self.graph.replay()
         with _COUNTS_LOCK:
             for mod in KERNEL_MODULES:
                 mod.LAUNCHES += self.launches[_name(mod)] * steps
-        self.owner.replays[self.key[0]] += steps
 
 
 class DecodeExecutable(Executable):
@@ -639,6 +658,7 @@ class SpecExecutable(Executable):
 
     def run(self, steps: int = 1) -> None:
         if self.graph is None:
+            self.owner.replays[self.key[0]] += steps
             self.out = self.step()
             return
         super().run(steps)
@@ -680,7 +700,10 @@ class StepGraphs:
         # time.monotonic() at the start of the capture running now, else
         # None: the runner's watchdog discounts a step's capture time
         self.capturing_since: float | None = None
-        self.replays = collections.Counter()      # by step kind
+        # steps run by kind: graph replays on the card, eager runs otherwise
+        self.replays = collections.Counter()
+        # graph replays made while another thread captured (F7)
+        self.replays_beside_capture = 0
         # called with (key, seconds) when an executable is made (on the
         # card: its capture wall), the device profiler's ladder hook
         self.on_make = None
@@ -801,11 +824,17 @@ class StepGraphs:
         """Make every executable of ``keys``, the largest transient first,
         so later captures reuse its memory in the pool.  Without capture
         each runs once on padding rows, as a capture's first run does."""
-        for key in sorted(set(keys), key=lambda k: transient_bytes(
-                self.cfg, k, self.max_batch, self.draft_cfg, self.sizing), reverse=True):
+        for key in self.warmup_order(keys):
             exe = self.get(*key)
             if exe.graph is None:
                 exe.pad_run()
+
+    def warmup_order(self, keys) -> list:
+        """``keys`` without repeats, the largest transient first, ties by
+        the key's text: one order in every process (lockstep ranks make
+        their executables in step)."""
+        return sorted(set(keys), key=lambda k: (-transient_bytes(
+            self.cfg, k, self.max_batch, self.draft_cfg, self.sizing), repr(k)))
 
     def _workspace_key(self):
         k = self.kv_cache[0]["k"]
@@ -828,19 +857,30 @@ class StepGraphs:
             self.max_batch * Hkv)
 
     def _capture(self, exe: Executable) -> None:
+        global _capturing
         t0 = time.perf_counter()
+        with _CAPTURE_LOCK:
+            outer, _capturing = _capturing, threading.get_ident()
+            try:
+                self._capture_locked(exe)
+            finally:
+                _capturing = outer
+        exe.capture_s = time.perf_counter() - t0
+        self.capture_s += exe.capture_s
+
+    def _capture_locked(self, exe: Executable) -> None:
         if self.attn_impl == "cuda":
             self._make_workspace()
-        before = _launch_counts()
         main = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(main)
-        with torch.cuda.stream(self.stream):
+        # the padding run and the capture serve no request: their launches
+        # are counted apart, and the capture's become the replays' count
+        with _build.tally(), torch.cuda.stream(self.stream):
             exe.pad_run()
         main.wait_stream(self.stream)
         if self.workspace is not None and paged_decode.workspace(
                 *self._workspace_key(), 0, 0)[0] is not self.workspace[0]:
             raise RuntimeError(f"{exe.key}: the split-K workspace grew past its size")
-        mid = _launch_counts()
         graph = torch.cuda.CUDAGraph()
         # no garbage collection inside the capture: a finalizer that frees
         # CUDA objects (another engine's graphs, pinned memory) there would
@@ -848,19 +888,14 @@ class StepGraphs:
         collect = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+            with _build.tally() as made, torch.cuda.graph(
+                    graph, pool=self.pool, stream=self.stream,
+                    capture_error_mode="thread_local"):
                 logits = exe.step()
         finally:
             if collect:
                 gc.enable()
-        after = _launch_counts()
-        # the capture recorded these launches; the replays make them.  The
-        # padding run and the capture serve no request: they count nothing
-        exe.launches = {name: after[name] - mid[name] for name in after}
-        for mod in KERNEL_MODULES:
-            mod.LAUNCHES -= after[_name(mod)] - before[_name(mod)]
+        exe.launches = {_name(mod): made[_name(mod)] for mod in KERNEL_MODULES}
         exe.graph, exe.logits = graph, (logits if keeps_logits(exe.key) else None)
         if isinstance(exe, SpecExecutable):
             exe.out = logits
-        exe.capture_s = time.perf_counter() - t0
-        self.capture_s += exe.capture_s

@@ -142,6 +142,10 @@ class ServerConfig:
     weight_spill_dir: Optional[str] = None  # None = TPUSERVE_WEIGHT_SPILL_DIR
     # Retry-After seconds of swap_policy="reject" 503s
     swap_retry_after_s: int = 5
+    # accept KV migrations from prefill pods on POST /internal/migrate and
+    # their aborts on /internal/abort (parallel/disagg_net.py); off unless
+    # the pod is a decode pool (--role decode)
+    allow_kv_migration: bool = False
 
 
 def _num(body: dict, key: str, default, cast):
@@ -739,6 +743,82 @@ class _Handler(BaseHTTPRequestHandler):
             self._settle_tenant(0)
             self.ctx._handler_exit()
 
+    # ---- cross-pod disaggregation (the decode pool's side) ---------------
+
+    MAX_MIGRATION_BYTES = 1 << 30      # KV pages for one long sequence
+
+    def _handle_migrate(self):
+        """Adopt a sequence prefilled by a prefill pod and stream its
+        remaining tokens back as JSON lines over a close-delimited response
+        (``parallel/disagg_net.py`` is the peer), as the JAX server."""
+        ctx = self.ctx
+        if not ctx.config.allow_kv_migration:
+            self._error(403, "this pod is not a decode pool (start with --role decode)")
+            return
+        try:
+            length = int(self.headers.get("Content-Length") or 0)
+            if not 0 < length <= self.MAX_MIGRATION_BYTES:
+                self.close_connection = True
+                raise ValueError(f"bad migration payload size {length}")
+            from tpuserve_torch.parallel.disagg_net import deserialize_migration
+            meta, seq_kv = deserialize_migration(self.rfile.read(length))
+        except ValueError as e:
+            self._error(400, str(e))
+            return
+        try:
+            rid, q = ctx.runner.submit_prefilled(meta, seq_kv)
+        except MemoryError as e:
+            self._error(503, str(e), "server_error")   # the pool is full: back off
+            return
+        except Exception as e:
+            self._error(400, str(e))
+            return
+        self.send_response(200)
+        self.send_header("Content-Type", "application/x-ndjson")
+        self.send_header("Connection", "close")
+        self.end_headers()
+        self.close_connection = True
+        deadline = time.monotonic() + ctx.config.request_timeout_s
+        try:
+            while True:
+                try:
+                    item = q.get(timeout=max(deadline - time.monotonic(), 0.001))
+                except queue.Empty:
+                    ctx.runner.abort(rid)
+                    break
+                if item is None or isinstance(item, Exception):
+                    break
+                line = json.dumps({
+                    "new_token_ids": item.new_token_ids, "new_text": item.new_text,
+                    "finished": item.finished,
+                    "finish_reason": item.finish_reason.value if item.finish_reason else None,
+                }) + "\n"
+                self.wfile.write(line.encode())
+                self.wfile.flush()
+        except (BrokenPipeError, ConnectionResetError):
+            # the prefill pod went away (its client aborted): stop generating
+            ctx.runner.abort(rid)
+        finally:
+            ctx.engine.requests.pop(rid, None)
+
+    def _handle_internal_abort(self):
+        """Drop an adopted request: a prefill pod's cleanup after an
+        ambiguous migration (its 200 lost in flight), before it decodes the
+        request itself, so that no request is decoded on both pods."""
+        ctx = self.ctx
+        if not ctx.config.allow_kv_migration:
+            self._error(403, "this pod is not a decode pool (start with --role decode)")
+            return
+        try:
+            rid = self._read_body()["request_id"]
+        except (ValueError, KeyError, json.JSONDecodeError) as e:
+            self._error(400, f"bad abort request: {e}")
+            return
+        aborted = rid in ctx.engine.requests
+        ctx.runner.abort(rid)
+        ctx.engine.requests.pop(rid, None)
+        self._json(200, {"request_id": rid, "aborted": bool(aborted)})
+
     def _settle_tenant(self, actual: int) -> None:
         """Settle the tenant's rate-limit charge against the tokens served
         and meter them; the first call of a request wins."""
@@ -752,6 +832,12 @@ class _Handler(BaseHTTPRequestHandler):
                                                   tenant=tenant).inc(actual)
 
     def _do_post_inner(self):
+        if self.path == "/internal/migrate":
+            self._handle_migrate()
+            return
+        if self.path == "/internal/abort":
+            self._handle_internal_abort()
+            return
         if self.path.startswith("/debug/profile"):
             self._handle_profile()
             return
@@ -1450,12 +1536,7 @@ class _Handler(BaseHTTPRequestHandler):
 # argparse keywords, ROADMAP.md item); any value but the default exits
 # naming the item
 _UNPORTED_FLAGS = (
-    ("--tp", dict(type=int, default=0), "A10, multi-GPU"),
-    ("--pp", dict(type=int, default=0), "A10, multi-GPU"),
-    ("--disagg", dict(action="store_true"), "A10, multi-GPU"),
-    ("--role", dict(default=None, choices=["prefill", "decode"]), "A10, multi-GPU"),
-    ("--decode-url", dict(default=None), "A10, multi-GPU"),
-    ("--multihost", dict(action="store_true"), "A10, multi-GPU"),
+    ("--pp", dict(type=int, default=0), "A10, multi-GPU: parallel/pipeline.py"),
 )
 
 
@@ -1577,6 +1658,24 @@ def build_parser():
                     help="spill directory of the third weight tier (default: "
                          "TPUSERVE_WEIGHT_SPILL_DIR; unset = host overflow means a cold "
                          "load next time)")
+    ap.add_argument("--tp", type=int, default=0,
+                    help="tensor parallel ranks (0 or 1: none): one process a card, in "
+                         "lockstep over torch.distributed (NCCL on the card, gloo with "
+                         "--device cpu); this command starts the N-1 follower ranks "
+                         "itself and rank 0 serves HTTP")
+    ap.add_argument("--multihost", action="store_true",
+                    help="join torch.distributed from torchrun's environment (RANK, "
+                         "WORLD_SIZE, MASTER_ADDR, MASTER_PORT, LOCAL_RANK): rank 0 "
+                         "serves, the others follow its steps; tp = --tp or the world")
+    ap.add_argument("--disagg", action="store_true",
+                    help="disaggregated prefill/decode engines in process, a KV page "
+                         "copy between their caches on the card (parallel/disagg.py)")
+    ap.add_argument("--role", default=None, choices=["prefill", "decode"],
+                    help="cross-pod disaggregation (parallel/disagg_net.py): 'prefill' "
+                         "prefills locally and migrates KV to the decode pool at "
+                         "--decode-url; 'decode' accepts migrations on /internal/migrate")
+    ap.add_argument("--decode-url", default=None,
+                    help="decode-pool base URL (required with --role prefill)")
     for flag, kw, _item in _UNPORTED_FLAGS:
         ap.add_argument(flag, help="not ported yet", **kw)
     return ap
@@ -1624,7 +1723,8 @@ def server_config(args, chat_template: Optional[str] = None,
         tenant_config=args.tenant_config, slo_burn=not args.no_slo_burn,
         slo_objectives=args.slo_objectives, model_catalog=args.model_catalog,
         swap_policy=args.swap_policy, max_resident_models=args.max_resident_models,
-        weight_host_bytes=args.weight_host_bytes, weight_spill_dir=args.weight_spill_dir)
+        weight_host_bytes=args.weight_host_bytes, weight_spill_dir=args.weight_spill_dir,
+        allow_kv_migration=args.role == "decode")
 
 
 def lora_modules_of(args) -> Optional[dict]:
@@ -1646,16 +1746,76 @@ def lora_modules_of(args) -> Optional[dict]:
     return modules
 
 
+def _check_topology(ap, args) -> None:
+    """The JAX server's checks of ``--tp``, ``--multihost``, ``--disagg``,
+    ``--role`` and ``--decode-url``, and what the port does not combine."""
+    if args.role and (args.disagg or args.multihost):
+        ap.error("--role prefill/decode is its own topology; drop --disagg/--multihost")
+    if args.role == "prefill" and not args.decode_url:
+        ap.error("--role prefill requires --decode-url")
+    if (args.disagg or args.role) and args.tp > 1:
+        ap.error("--disagg and --role on a --tp mesh are not ported yet "
+                 "(ROADMAP.md A10)")
+    if args.disagg and args.multihost:
+        ap.error("--disagg under --multihost is not ported yet (ROADMAP.md A10)")
+
+
+def _join_ranks(args, argv: list):
+    """Under ``--tp N`` or ``--multihost``: join the process group and make
+    this rank's mesh.  A ``--tp`` command without ``RANK`` in its
+    environment is rank 0 of one node: it starts ranks 1..N-1 (this command
+    again, with torchrun's variables and a ``file://`` store under a
+    temporary directory, logs beside it).  Returns (mesh, follower
+    processes, their directory)."""
+    import tempfile
+
+    from tpuserve_torch.parallel import multihost
+    from tpuserve_torch.parallel.mesh import MeshConfig, make_mesh, multihost_initialize
+    procs, run_dir = {}, None
+    if args.multihost:
+        multihost_initialize(args.device,
+                             init_method=os.environ.get("TPUSERVE_INIT_METHOD", "env://"))
+    else:
+        if "RANK" not in os.environ:
+            run_dir = tempfile.mkdtemp(prefix="tpuserve-tp-")
+            init = f"file://{os.path.join(run_dir, 'store')}"
+            procs = multihost.spawn_ranks([None, "-m", "tpuserve_torch.server", *argv],
+                                          args.tp, run_dir, init)
+            logger.info("started %d follower rank(s); logs under %s", len(procs), run_dir)
+            rank, world = 0, args.tp
+        else:
+            init = os.environ["TPUSERVE_INIT_METHOD"]
+            rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+        multihost_initialize(args.device, init_method=init, rank=rank, world_size=world)
+    import torch.distributed as dist
+    mesh = make_mesh(MeshConfig(tp=args.tp or dist.get_world_size()),
+                     device_type=args.device, multihost=args.multihost)
+    return mesh, procs, run_dir
+
+
+def _build_engine(args, ecfg, mesh):
+    from tpuserve_torch.runtime import Engine
+    if args.role == "prefill":
+        from tpuserve_torch.parallel.disagg_net import PrefillHandoffEngine
+        return PrefillHandoffEngine(ecfg, args.decode_url, device=args.device)
+    if args.disagg:
+        from tpuserve_torch.parallel.disagg import DisaggregatedEngine
+        return DisaggregatedEngine(ecfg, ecfg, device=args.device)
+    return Engine(ecfg, mesh=mesh, device=args.device)
+
+
 def main(argv=None):
     """``python -m tpuserve_torch.server``: build the engine, warm it,
-    serve until SIGTERM, then drain."""
-    from tpuserve_torch.runtime import Engine
-
+    serve until SIGTERM, then drain.  Under ``--tp`` / ``--multihost`` rank
+    0 does that and the other ranks follow its steps
+    (``parallel/multihost.py``) until it stops them."""
     ap = build_parser()
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = ap.parse_args(argv)
     for flag, kw, item in _UNPORTED_FLAGS:
         if getattr(args, flag[2:].replace("-", "_")) != kw.get("default", False):
             ap.error(f"{flag} is not ported yet (ROADMAP.md {item})")
+    _check_topology(ap, args)
     if args.speculative_k <= 0 and args.speculative_draft_model:
         ap.error("--speculative-draft-model needs --speculative-k > 0")
     if args.speculative_draft_dir and not args.speculative_draft_model:
@@ -1679,20 +1839,66 @@ def main(argv=None):
         ecfg = engine_config(args)
     except ValueError as e:
         ap.error(str(e))
-    try:
-        engine = Engine(ecfg, device=args.device)
-    except RuntimeError as e:                    # no card, and no --device cpu
-        sys.exit(f"tpuserve_torch.server: {e}")
-    server = OpenAIServer(engine, server_config(args, chat_template, warmup_embed))
-    port = server.start(warmup=not args.no_warmup)
-    print(f"tpuserve_torch listening on {args.host}:{port}", flush=True)
-    # SIGTERM drains (readyz 503, new work 503, in-flight work finishes)
+    if args.device == "cuda":
+        import torch
+        if not torch.cuda.is_available():       # no card, and no --device cpu
+            sys.exit("tpuserve_torch.server: no CUDA device is available; pass "
+                     "device='cpu' to run the engine on the CPU")
+    mesh, procs, run_dir = (_join_ranks(args, argv) if args.tp > 1 or args.multihost
+                            else (None, {}, None))
+    engine = _build_engine(args, ecfg, mesh)
+    if mesh is not None and not mesh.is_coordinator:
+        # a follower never serves: it mirrors rank 0's steps until the stop
+        # (rank 0 stops it when it drains: a SIGTERM or Ctrl-C sent to the
+        # whole process group must not end it first)
+        import signal
+        from tpuserve_torch.parallel.multihost import follower_loop
+        signal.signal(signal.SIGTERM, signal.SIG_IGN)
+        signal.signal(signal.SIGINT, signal.SIG_IGN)
+        follower_loop(engine)
+        import torch.distributed as dist
+        dist.destroy_process_group()
+        return
     import signal
     stop = threading.Event()
-    signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    failed = []
+    watch = None
+    if procs:
+        from tpuserve_torch.parallel.multihost import watch_ranks
+
+        def on_failure(rank, rc):
+            # a follower died: rank 0 stops with an error, never waits in a
+            # collective for it (a stuck loop thread gets a bounded grace)
+            logger.error("follower rank %d exited with %s; logs under %s", rank, rc, run_dir)
+            failed.append((rank, rc))
+            stop.set()
+            threading.Timer(30.0, lambda: os._exit(1)).start()
+        watch = watch_ranks(procs, on_failure)
     try:
-        stop.wait()
-        logger.info("SIGTERM: draining")
-    except KeyboardInterrupt:
-        pass
-    server.drain(timeout_s=args.drain_timeout)
+        server = OpenAIServer(engine, server_config(args, chat_template, warmup_embed))
+        port = server.start(warmup=not args.no_warmup)
+        print(f"tpuserve_torch listening on {args.host}:{port}", flush=True)
+        # SIGTERM drains (readyz 503, new work 503, in-flight work finishes)
+        signal.signal(signal.SIGTERM, lambda *_: stop.set())
+        try:
+            stop.wait()
+            logger.info("SIGTERM: draining")
+        except KeyboardInterrupt:
+            pass
+        if not failed:
+            server.drain(timeout_s=args.drain_timeout)
+    finally:
+        if mesh is not None:
+            if watch is not None:
+                watch.set()
+            if not failed:
+                engine.stop_followers()
+            from tpuserve_torch.parallel.multihost import stop_ranks
+            rcs = stop_ranks(procs)
+            if any(rcs.values()):
+                failed.append(rcs)
+    if failed:
+        sys.exit(f"tpuserve_torch.server: a follower rank failed: {failed}")
+    if mesh is not None:
+        import torch.distributed as dist
+        dist.destroy_process_group()

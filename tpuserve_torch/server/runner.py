@@ -98,6 +98,18 @@ class _Abort:
 
 
 @dataclasses.dataclass
+class _InjectPrefilled:
+    """Cross-pod disaggregation: a sequence prefilled on another pod, to be
+    adopted into this engine's decode batch (``parallel/disagg_net.py``)."""
+    meta: dict
+    seq_kv: list
+    out_queue: "queue.Queue[RequestOutput | Exception | None]"
+    rid_event: threading.Event
+    assigned_id: Optional[str] = None
+    error: Optional[Exception] = None
+
+
+@dataclasses.dataclass
 class _Call:
     """A function the loop runs between steps (``AsyncEngineRunner.call``)."""
     fn: object
@@ -248,6 +260,22 @@ class AsyncEngineRunner:
         self._intake.put(_Abort(request_id))
         self._wake.set()
 
+    def submit_prefilled(self, meta: dict, seq_kv: list
+                         ) -> tuple[str, "queue.Queue[RequestOutput | Exception | None]"]:
+        """Adopt a migrated (already prefilled) sequence on the loop thread
+        (``Engine.adopt_prefilled``); raises the loop's error here
+        (``MemoryError``: the pool is full, which the server answers 503)."""
+        msg = _InjectPrefilled(meta=meta, seq_kv=seq_kv, out_queue=queue.Queue(),
+                               rid_event=threading.Event())
+        self._intake.put(msg)
+        self._wake.set()
+        msg.rid_event.wait(timeout=60)
+        if msg.error is not None:
+            raise msg.error
+        if msg.assigned_id is None:
+            raise TimeoutError("engine loop did not accept the migration")
+        return msg.assigned_id, msg.out_queue
+
     def call(self, fn, timeout: float = 600.0):
         """Run ``fn()`` on the loop thread between two engine steps and
         return its result, or raise its exception here.  The engine's
@@ -282,6 +310,23 @@ class AsyncEngineRunner:
 
     # ---- engine loop ----------------------------------------------------
 
+    def _adopt(self, msg: _InjectPrefilled) -> None:
+        from tpuserve_torch.parallel.disagg_net import adopt_meta
+        try:
+            rid = adopt_meta(self.engine, msg.meta, msg.seq_kv)
+        except Exception as e:           # refused: the handler answers for it
+            msg.error = e
+            msg.rid_event.set()
+            return
+        msg.assigned_id = rid
+        self._out_queues[rid] = msg.out_queue
+        self._req_started[rid] = self._clock.monotonic()
+        self._last_token_time[rid] = self._req_started[rid]
+        if self.metrics:
+            self.metrics.request_total.inc()
+            self.metrics.prompt_tokens.inc(len(msg.meta["prompt_token_ids"]))
+        msg.rid_event.set()
+
     def _drain_intake(self) -> None:
         while True:
             try:
@@ -294,6 +339,9 @@ class AsyncEngineRunner:
                 except Exception as e:       # the caller's to handle
                     msg.error = e
                 msg.done.set()
+                continue
+            if isinstance(msg, _InjectPrefilled):
+                self._adopt(msg)
                 continue
             if isinstance(msg, _Abort):
                 if self.engine.abort_request(msg.request_id):
