@@ -100,7 +100,7 @@ non-zero:
              the seed at full width: Qwen2-72B-Instruct at tp 4 (16 q and 2
              kv heads a rank) and Qwen3-30B-A3B at ep 4 (32 of 128 experts
              a rank), each in float32 (TF32 off) cut to 2 layers and in
-             bf16 cut to 8.  First each kernel against its plain version
+             bf16 cut to 4.  First each kernel against its plain version
              and timed at a tp 4 rank's shapes.  Then a one-card reference
              in a process of its own (freed before the ranks start), then
              four ranks on the one card over gloo (NCCL refuses two ranks on
@@ -117,6 +117,50 @@ non-zero:
              more cards, the same on NCCL with captured graphs at tp /
              ep = min(4, cards), with decode tok/s beside the reference's;
              on one card the line says ``"nccl": "not run: 1 card"``.
+4b. pp      pipeline stages (``tpuserve_torch/parallel/pipeline.py``),
+             Qwen2-72B-Instruct at full width, float32 (TF32 off) cut to 4
+             layers and bf16 cut to 8, each stage's layers (and stage 0's
+             head) drawn on the card from the seed.  A one-card reference in
+             a process of its own, then four stages on the one card over
+             gloo (activations staged through host memory), spawned through
+             the launcher ``--pp`` uses, eager: rank 0 serves phase tp's 4
+             prompts of 128-512 x 16 greedy, one sampled request and a
+             prefix hit (prefilled batched: no chunk route under pp, nor on
+             the reference), two prompts a prefill step (the JAX pipeline
+             engine's prompt-score budget, kept); the stages follow.
+             Gates: float32 greedy tokens equal to the reference's, bf16
+             first-step logits within ``bf16_logit_gate``
+             with top-1 >= 0.75, every stage's windows equal rank 0's, every
+             stage's flash-prefill and paged-decode launches equal its
+             layers x the microbatches it ran (both > 0), the head on stage
+             0 alone, every rank exiting 0.  With two or more cards, the same
+             on NCCL at pp = min(4, cards) with captured graphs (a replay
+             adds its capture's launches and microbatches), 8 layers (the
+             one-card reference holds no more), decode tok/s beside the
+             reference's (with graphs and eager, read only then); on one
+             card the line says ``"nccl": "not run: 1 card"``.
+4c. ring     context parallelism (``parallel/ring_attention.py``) at
+             Qwen2-72B-Instruct's attention shape, bf16: one 16,384-token
+             prompt, 64 q / 8 kv heads of 128, over four gloo ranks on the
+             card (4,096 rows a rank; K/V and the all-to-alls staged through
+             host memory): ring attention and Ulysses (the flash kernel on
+             each rank's 16 heads over the whole prompt) against the flash
+             kernel on one rank over the whole prompt, within the bf16
+             kernel gate; ms of each beside the one-rank call (with its
+             bound and SDPA's time); the flash kernel launched once a rank
+             a call by Ulysses, nothing by the ring.
+4d. train    the fine-tuning step (``parallel/train.py``), Qwen3-0.6B at full
+             width: (a) bf16 steps at 28 layers, a first one on one
+             16-token row at learning rate 0 (its ms apart), then remat on
+             and off, each from the seed's weights (learning rate 3e-4:
+             every bf16 weight below 0.0625 moves): finite weights, the loss
+             falls, the two steps' losses agree (``TRAIN_BF16_REMAT_GATE``),
+             peak bytes past the weights, step ms; (b) a float32 step at 2
+             layers (TF32 off) against the port's CPU step: the losses, and
+             leaf by leaf the update and both moments relative to the
+             leaf's norm, within ``TRAIN_LIMITS``; (c) dp 2 x tp 2 gloo
+             ranks on the card at 2 float32 layers: each rank's slices
+             against the one-rank step's, within the same limits.
 5. identity  Qwen3-0.6B at full width, 2 layers, float32, no TF32: engines
              on the CUDA kernels and on the plain attention, decoding
              synchronously, give the same greedy tokens on the main path
@@ -501,7 +545,8 @@ import time
 
 import numpy as np
 
-PHASES = ("build", "kernels", "families", "breadth", "tp", "identity", "main", "graphs", "sampler",
+PHASES = ("build", "kernels", "families", "breadth", "tp", "pp", "ring", "train", "identity",
+          "main", "graphs", "sampler",
           "guided", "chunked", "mixed", "server", "tiers", "slo", "salvage", "flight", "spec",
           "embed", "services", "fleet", "disagg", "profile")
 # Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA's data
@@ -7110,9 +7155,9 @@ def phase_fleet(results) -> dict:
 # (label, model, dtype, layers, tp, ep): full width, depth cut; each rank's
 # weights drawn on the card from the seed
 TP_RUNS = (("dense_fp32", "Qwen/Qwen2-72B-Instruct", "float32", 2, 4, 1),
-           ("dense_bf16", "Qwen/Qwen2-72B-Instruct", "bfloat16", 8, 4, 1),
+           ("dense_bf16", "Qwen/Qwen2-72B-Instruct", "bfloat16", 4, 4, 1),
            ("moe_fp32", "Qwen/Qwen3-30B-A3B", "float32", 2, 1, 4),
-           ("moe_bf16", "Qwen/Qwen3-30B-A3B", "bfloat16", 8, 1, 4))
+           ("moe_bf16", "Qwen/Qwen3-30B-A3B", "bfloat16", 4, 1, 4))
 TP_LENGTHS = [128, 256, 384, 512]
 TP_TOKENS = 16
 TP_HIT = 64                 # new tokens after the cached 512-token prompt: one chunk
@@ -7138,7 +7183,7 @@ def tp_params(cfg, mesh):
         return init_params_device(cfg, SEED, "cuda")
     import torch.distributed as dist
     from tpuserve_torch.parallel.sharding import RankSlicer
-    sl = RankSlicer(mesh)
+    sl = RankSlicer(mesh, num_layers=cfg.num_layers)
     params = None
     for r in range(mesh.world):
         if r == mesh.rank:
@@ -7281,9 +7326,10 @@ def tp_run(run, spec: dict, rank: int) -> dict:
 
 
 def tp_worker(spec_path: str) -> int:
-    """A spawned process of phase tp (``chip_smoke.py --tp-worker SPEC``):
-    every TP_RUNS entry, on one card without a mesh (world 1) or as a rank
-    of the spec's grid over its backend; writes its results."""
+    """A spawned process of phases tp, pp, ring and train (``chip_smoke.py
+    --tp-worker SPEC``, the spec's ``mode``): every TP_RUNS (PP_RUNS) entry,
+    on one card without a mesh (world 1) or as a rank of the spec's grid
+    over its backend, or a ring or train rank; writes its results."""
     import torch
     spec = json.loads(open(spec_path).read())
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -7294,7 +7340,14 @@ def tp_worker(spec_path: str) -> int:
         multihost_initialize("cuda", backend=spec["backend"],
                              init_method=os.environ["TPUSERVE_INIT_METHOD"],
                              timeout_s=TP_TIMEOUT_S)
-    out = {label: tp_run(run, spec, rank) for run in TP_RUNS for label in [run[0]]}
+    mode = spec.get("mode", "tp")
+    if mode == "ring":
+        out = ring_rank(spec, rank)
+    elif mode == "train":
+        out = train_rank(spec, rank)
+    else:
+        runs, fn = (PP_RUNS, pp_run) if mode == "pp" else (TP_RUNS, tp_run)
+        out = {run[0]: fn(run, spec, rank) for run in runs}
     with open(f"{spec['out']}.rank{rank}.json", "w") as f:
         json.dump(out, f)
     if spec["world"] > 1:
@@ -7304,13 +7357,14 @@ def tp_worker(spec_path: str) -> int:
     return 0
 
 
-def tp_spawn(work, label: str, world: int, backend, rate: bool) -> tuple:
+def tp_spawn(work, label: str, world: int, backend, rate: bool, mode: str = "tp") -> tuple:
     """Run ``tp_worker`` in ``world`` processes through the launcher
     ``--tp`` uses (``multihost.spawn_ranks``: torchrun's variables, a
     file store, logs to files), killing every rank at TP_TIMEOUT_S.
     Returns (each rank's results or None, return codes, log tails)."""
     from tpuserve_torch.parallel import multihost
-    spec = {"world": world, "backend": backend, "rate": rate, "out": str(work / label)}
+    spec = {"world": world, "backend": backend, "rate": rate, "out": str(work / label),
+            "mode": mode}
     path = work / f"{label}.json"
     path.write_text(json.dumps(spec))
     procs = multihost.spawn_ranks([None, os.path.abspath(__file__), TP_WORKER, str(path)],
@@ -7457,6 +7511,508 @@ def phase_tp(results) -> dict:
     else:
         out["nccl"] = f"not run: {count} card"
     shutil.rmtree(work, ignore_errors=True)
+    out["ok"] = all(oks)
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase pp: pipeline stages (parallel/pipeline.py)
+# --------------------------------------------------------------------------
+
+# (label, model, dtype, layers): full width, depth cut; each stage's layers
+# drawn on the card from the seed (stage 0 also keeps the head)
+PP_RUNS = (("dense_fp32", "Qwen/Qwen2-72B-Instruct", "float32", 4),
+           ("dense_bf16", "Qwen/Qwen2-72B-Instruct", "bfloat16", 8))
+PP_STAGES = 4
+# the step kind whose microbatches launch each kernel, once a stage's layer
+PP_KERNEL_KIND = {"flash_prefill": "prefill", "paged_decode": "decode"}
+# prefill tokens a step: the JAX pipeline engine's intake budget (1 GiB of
+# float32 scores at a prompt's bucket, kept) admits 64-head prompts of up
+# to 1,024 tokens two rows at a time; the reference closes the chunk route
+# too, so its prefix hits prefill batched as the stages' do
+PP_PREFILL_TOKENS = 2048
+
+
+def pp_engine(cfg, params, mesh, **kw):
+    from tpuserve_torch.runtime import CacheConfig, Engine, EngineConfig, SchedulerConfig
+    return Engine(EngineConfig(model=cfg.name, seed=SEED, **kw,
+                               cache=CacheConfig(dtype=cfg.dtype, **TP_CACHE),
+                               multi_step=TP_MULTI_STEP,
+                               scheduler=SchedulerConfig(max_num_seqs=8,
+                                                         max_prefill_tokens=PP_PREFILL_TOKENS,
+                                                         allow_chunked_prefill=False)),
+                  params=params, model_cfg=cfg, mesh=mesh, device="cuda")
+
+
+def pp_run(run, spec: dict, rank: int) -> dict:
+    """One PP_RUNS entry on this process: the one-card reference (no mesh)
+    or a stage of a pp grid over the spec's backend; the engine served by
+    rank 0 (tp_serve's requests: the prefix hit prefills batched, as every
+    prompt under pp) and followed by the others, launches counted against
+    the microbatches each stage ran."""
+    import gc
+    import torch
+    from tpuserve_torch.models.config import get_model_config
+    from tpuserve_torch.models.weights import param_nbytes
+    from tpuserve_torch.parallel.mesh import MeshConfig, make_mesh
+    from tpuserve_torch.parallel.multihost import follower_loop
+    label, model, dtype, layers = run
+    cfg = dataclasses.replace(get_model_config(model), dtype=dtype, num_layers=layers)
+    mesh = None
+    if spec["world"] > 1:
+        mesh = make_mesh(MeshConfig(pp=spec["world"]), device_type="cuda",
+                         devices=(["cuda:0"] * spec["world"] if spec["backend"] == "gloo"
+                                  else None), timeout_s=TP_TIMEOUT_S)
+    t = time.perf_counter()
+    params = tp_params(cfg, mesh)
+    out = {"init_s": time.perf_counter() - t, "pp": spec["world"]}
+    eng = pp_engine(cfg, params, mesh)
+    stage = mesh.stage if mesh is not None else None
+    counts0 = stage.counts.copy() if stage is not None else None
+    reset_launches()
+    t = time.perf_counter()
+    if mesh is None or mesh.is_coordinator:
+        if mesh is not None:
+            eng._lockstep.record = True
+        res = tp_serve(eng, cfg, False, f"{spec['out']}.{label}.rank{rank}.pt")
+        if spec["rate"] and dtype == "bfloat16":
+            res["decode_tok_s"] = tp_rate(eng, cfg)
+            if mesh is None:
+                # the stages run eagerly: one card eager beside its graphs
+                res["decode_tok_s_eager"] = tp_rate(
+                    pp_engine(cfg, params, None, cuda_graphs=False), cfg)
+        res["windows"] = ([list(w.shape) for w in eng._lockstep.tokens]
+                          if mesh is not None else [])
+        if mesh is not None:
+            eng.stop_followers()
+    else:
+        res = {"windows": [list(w.shape) for w in follower_loop(eng, record=True)]}
+    torch.cuda.synchronize()
+    res["seconds"] = time.perf_counter() - t
+    res["launches"] = read_launches()
+    if stage is None:
+        res["expected"] = {k: layers * eng.graphs.replays[kind] for k, kind in KERNEL_KIND.items()}
+    else:
+        ran = stage.counts - counts0
+        res["microbatches"] = {k: ran[k] for k in PP_KERNEL_KIND.values()}
+        res["transfers"] = ran["sent"]
+        res["expected"] = {k: (layers // spec["world"]) * ran[PP_KERNEL_KIND[k]]
+                           if k in PP_KERNEL_KIND else 0 for k in KERNEL_KIND}
+    res["graphs"] = eng.graphs.capture
+    res["layers_here"] = len(eng.kv_cache)
+    res["head_here"] = "embed" in eng.params
+    res["weight_gb"] = param_nbytes(eng.params) / 1e9
+    out["engine"] = res
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pp_gates(work, ref, ranks, rcs, label: str) -> dict:
+    """Each run's checks against the one-card reference: float32 greedy
+    tokens equal (4 prompts and the prefix hit), bf16 first-step logits
+    within ``bf16_logit_gate`` with top-1 >= 0.75, every stage's windows
+    equal rank 0's, every stage's flash-prefill and paged-decode launches
+    equal its layers x the microbatches it ran (and > 0), the head on stage
+    0 alone, every rank exiting 0."""
+    import torch
+    out = {"ranks": len(ranks), "rcs": rcs}
+    oks = [all(rc == 0 for rc in rcs.values()) and all(r is not None for r in ranks)]
+    if not oks[0]:
+        out["ok"] = False
+        return out
+    for run in PP_RUNS:
+        name, dtype = run[0], run[2]
+        a, b = ranks[0][name]["engine"], ref[name]["engine"]
+        same = [x == y for x, y in zip(a["tokens"], b["tokens"])]
+        row = {"init_s": ranks[0][name]["init_s"], "seconds": a["seconds"],
+               "ref_seconds": b["seconds"], "tokens_equal": f"{sum(same)}/{len(same)}",
+               "first_diff": [first_diff(x, y) for x, y in zip(a["tokens"], b["tokens"])],
+               "microbatches": [r[name]["engine"]["microbatches"] for r in ranks],
+               "transfers": [r[name]["engine"]["transfers"] for r in ranks],
+               "weight_gb": [r[name]["engine"]["weight_gb"] for r in ranks],
+               "graphs": a["graphs"]}
+        if dtype == "float32":
+            oks.append(all(s for i, s in enumerate(same) if i != len(TP_LENGTHS)))
+        row["windows_equal"] = all(r[name]["engine"]["windows"] == a["windows"]
+                                   for r in ranks[1:]) and bool(a["windows"])
+        oks.append(row["windows_equal"])
+        launches = [r[name]["engine"]["launches"] for r in ranks]
+        expected = [r[name]["engine"]["expected"] for r in ranks]
+        row["launches"] = launches
+        oks.append(launches == expected and all(
+            x[k] > 0 for x in launches for k in PP_KERNEL_KIND))
+        oks.append([r[name]["engine"]["head_here"] for r in ranks]
+                   == [True] + [False] * (len(ranks) - 1))
+        if dtype == "bfloat16":
+            got = torch.load(f"{work / label}.{name}.rank0.pt")
+            want = torch.load(f"{work / 'ref'}.{name}.rank0.pt")
+            gate = bf16_logit_gate(want.abs().max().item())
+            row["logits_max_abs_diff"] = (got - want).abs().max().item()
+            row["logits_gate"] = gate
+            row["top1"] = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+            oks.append(row["logits_max_abs_diff"] <= gate and row["top1"] >= 0.75)
+            row["decode_tok_s"] = a.get("decode_tok_s")
+            row["ref_decode_tok_s"] = b.get("decode_tok_s")
+            row["ref_eager_decode_tok_s"] = b.get("decode_tok_s_eager")
+        out[name] = row
+    out["launches"] = {n: sum(r[run[0]]["engine"]["launches"][n] for r in ranks for run in PP_RUNS)
+                       for n in KERNEL_KIND}
+    out["ok"] = all(oks)
+    return out
+
+
+def phase_pp(results) -> dict:
+    """See the module docstring, phase pp."""
+    import gc
+    import tempfile
+    from pathlib import Path
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = Path(__file__).resolve().parent
+    work = Path(tempfile.mkdtemp(prefix="pp-", dir=str(root / "build")))
+    out = {}
+    t = time.perf_counter()
+    count = torch.cuda.device_count()
+    # the reference's decode rates are the NCCL stages' yardstick
+    ref, rcs, tails = tp_spawn(work, "ref", 1, None, rate=count >= 2, mode="pp")
+    out["ref_s"] = time.perf_counter() - t
+    if rcs[0] != 0 or ref[0] is None:
+        out.update(ok=False, ref_rc=rcs[0], ref_log=tails.get(0))
+        return out
+    ref = ref[0]
+    oks = []
+    t = time.perf_counter()
+    ranks, rcs, tails = tp_spawn(work, "gloo", PP_STAGES, "gloo", rate=False, mode="pp")
+    out["gloo"] = pp_gates(work, ref, ranks, rcs, "gloo")
+    out["gloo"]["seconds"] = time.perf_counter() - t
+    if tails:
+        out["gloo"]["logs"] = tails
+    oks.append(out["gloo"]["ok"])
+    out["launches"] = out["gloo"]["launches"]
+    if count >= 2:
+        t = time.perf_counter()
+        ranks, rcs, tails = tp_spawn(work, "nccl", min(PP_STAGES, count), "nccl", rate=True,
+                                     mode="pp")
+        out["nccl"] = pp_gates(work, ref, ranks, rcs, "nccl")
+        out["nccl"]["seconds"] = time.perf_counter() - t
+        if tails:
+            out["nccl"]["logs"] = tails
+        oks.append(out["nccl"]["ok"])
+    else:
+        out["nccl"] = f"not run: {count} card"
+    shutil.rmtree(work, ignore_errors=True)
+    out["ok"] = all(oks)
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase ring: ring and Ulysses context parallelism (parallel/ring_attention.py)
+# --------------------------------------------------------------------------
+
+# Qwen2-72B-Instruct's attention: 64 q / 8 kv heads of 128, one 16,384-token
+# prompt over four ranks (4,096 rows a rank)
+RING_SHAPE = dict(B=1, T=16384, Hq=64, Hkv=8, D=128)
+RING_SP = 4
+RING_ITERS = 3
+
+
+def ring_inputs(device) -> tuple:
+    """The whole bf16 q, k, v and the lengths, drawn on the card from the
+    seed (every rank draws the same, then keeps its shard)."""
+    import torch
+    s = RING_SHAPE
+    g = torch.Generator(device=device).manual_seed(SEED)
+    q, k, v = (torch.randn((s["B"], s["T"], h, s["D"]), generator=g, device=device,
+                           dtype=torch.float32).to(torch.bfloat16)
+               for h in (s["Hq"], s["Hkv"], s["Hkv"]))
+    return q, k, v, torch.full((s["B"],), s["T"], dtype=torch.int32, device=device)
+
+
+def ring_rank(spec: dict, rank: int) -> dict:
+    """One sp rank on the card (gloo): ring and Ulysses on its shard, once
+    to build and warm, then counted and timed; each output saved."""
+    import torch
+    import torch.distributed as dist
+    from tpuserve_torch.parallel.ring_attention import (make_sp_group, ring_prefill_attention,
+                                                        seq_shard, ulysses_prefill_attention)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    group = make_sp_group()
+    q, k, v, lens = ring_inputs(dev)
+    shard = [seq_shard(x, group).contiguous() for x in (q, k, v)]
+    del q, k, v
+    scale = RING_SHAPE["D"] ** -0.5
+    out = {}
+    for name, fn in (("ring", ring_prefill_attention), ("ulysses", ulysses_prefill_attention)):
+        fn(*shard, lens, scale, group)
+        torch.cuda.synchronize()
+        reset_launches()
+        walls = []
+        for _ in range(RING_ITERS):
+            dist.barrier(group)
+            t = time.perf_counter()
+            res = fn(*shard, lens, scale, group)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+        out[name] = {"ms": sorted(walls)[len(walls) // 2], "launches": read_launches()}
+        torch.save(res.cpu(), f"{spec['out']}.{name}.rank{rank}.pt")
+    return out
+
+
+def phase_ring(results) -> dict:
+    """See the module docstring, phase ring."""
+    import tempfile
+    from pathlib import Path
+    import torch
+    from tpuserve_torch.ops.flash_prefill import flash_prefill_attention
+    root = Path(__file__).resolve().parent
+    work = Path(tempfile.mkdtemp(prefix="ring-", dir=str(root / "build")))
+    t = time.perf_counter()
+    ranks, rcs, tails = tp_spawn(work, "sp", RING_SP, "gloo", rate=False, mode="ring")
+    out = {"spawn_s": time.perf_counter() - t, "rcs": rcs, "shape": RING_SHAPE, "sp": RING_SP}
+    if tails or any(r is None for r in ranks):
+        out.update(ok=False, logs=tails)
+        return out
+    # the one-rank flash kernel over the whole prompt: the reference (its
+    # launches compare, they are not the path's)
+    q, k, v, lens = ring_inputs(torch.device("cuda"))
+    scale = RING_SHAPE["D"] ** -0.5
+    ref = flash_prefill_attention(q, k, v, lens, scale)
+    out["one_rank_ms"] = cuda_ms(lambda: flash_prefill_attention(q, k, v, lens, scale), iters=3)
+    # the one-rank call's bound and library time (SDPA, dense causal; the
+    # plain version's 64 x 16,384^2 float32 scores would take 68.7 GB)
+    s_ = RING_SHAPE
+    pairs = s_["B"] * s_["T"] * (s_["T"] + 1) // 2
+    out["one_rank_bound_ms"], out["one_rank_bound_by"] = bound(
+        4 * s_["Hq"] * s_["D"] * pairs, nbytes(q, k, v, ref), "bfloat16")
+    rep = s_["Hq"] // s_["Hkv"]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k.repeat_interleave(rep, dim=2),
+                                               v.repeat_interleave(rep, dim=2)))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out["one_rank_library_ms"] = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True, scale=scale),
+                                         iters=3)
+    del qt, kt, vt
+    tol = tolerance(ref, "bfloat16")
+    oks = []
+    for name in ("ring", "ulysses"):
+        got = torch.cat([torch.load(f"{work / 'sp'}.{name}.rank{r}.pt") for r in range(RING_SP)],
+                        dim=1).to(ref.device)
+        err, ok = compare(got, ref, tol)
+        out[name] = {"max_abs_err": err, "ok": ok, "dtype": str(got.dtype),
+                     "ms_by_rank": [r[name]["ms"] for r in ranks],
+                     "ms": max(r[name]["ms"] for r in ranks)}
+        oks.append(ok and got.dtype == torch.bfloat16)
+    out["tolerance"] = tol
+    out["launches"] = {n: sum(r["ulysses"]["launches"][n] + r["ring"]["launches"][n]
+                              for r in ranks) for n in KERNEL_KIND}
+    # Ulysses runs the flash kernel once a rank a call; the ring step is
+    # plain torch
+    oks.append(out["launches"]["flash_prefill"] == RING_SP * RING_ITERS
+               and sum(out["launches"].values()) == RING_SP * RING_ITERS)
+    del q, k, v, ref
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    out["ok"] = all(oks)
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase train: the fine-tuning step (parallel/train.py)
+# --------------------------------------------------------------------------
+
+TRAIN_MODEL = "Qwen/Qwen3-0.6B"
+# bf16: a step of 3e-4 moves every weight below 0.0625 in magnitude (half
+# a bf16 ulp there is 1.2e-4); each step starts from the seed's weights
+TRAIN_BF16 = dict(B=4, T=512, lr=3e-4)
+TRAIN_BF16_REMAT_GATE = 1e-2    # |loss1 with remat - without|: the same sums
+TRAIN_FP32 = dict(layers=2, B=4, T=64)      # the JAX TrainConfig's learning rate
+TRAIN_DP, TRAIN_TP = 2, 2
+# the float32 steps' limits against the one-rank step: the losses, and
+# leaf by leaf the update (p1 - p0) and both moments as ||a - b|| / ||b||
+# (Adam's first step moves each weight by about the learning rate whatever
+# its gradient, so the weights alone do not show a gradient that is missing
+# or partial; that gives a leaf an error of order 1).  About ten times
+# the worst readings of this phase, card against CPU and dp 2 x tp 2 ranks
+# against the card (PERF.md)
+TRAIN_LIMITS = {"loss": 1e-5, "update": 2e-3, "mu": 5e-5, "nu": 5e-5}
+
+
+def train_batch(cfg, B: int, T: int, device) -> tuple:
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    tokens = torch.randint(1, cfg.vocab_size, (B, T), generator=g, dtype=torch.int64)
+    return tokens.to(device), torch.ones((B, T), dtype=torch.bool, device=device)
+
+
+def train_once(params, cfg, tokens, mask, tcfg) -> dict:
+    """loss0, the step, loss1, the step's ms; the tree and the moments."""
+    import torch
+    from tpuserve_torch.parallel import train
+    opt, state = train.init_train_state(params, tcfg)
+    with torch.no_grad():
+        loss0 = float(train.causal_lm_loss(params, cfg, tokens, mask))
+    sync = torch.cuda.synchronize if tokens.is_cuda else (lambda: None)
+    sync()
+    t = time.perf_counter()
+    params, state, loss = train.train_step(params, state, cfg, tcfg, opt, tokens, mask)
+    sync()
+    ms = (time.perf_counter() - t) * 1e3
+    with torch.no_grad():
+        loss1 = float(train.causal_lm_loss(params, cfg, tokens, mask))
+    return {"loss0": loss0, "loss": float(loss), "loss1": loss1, "ms": ms, "params": params,
+            "mu": state["mu"], "nu": state["nu"]}
+
+
+def train_fp32_cfg():
+    from tpuserve_torch.models.config import get_model_config
+    return dataclasses.replace(get_model_config(TRAIN_MODEL), dtype="float32",
+                               num_layers=TRAIN_FP32["layers"])
+
+
+def train_rank(spec: dict, rank: int) -> dict:
+    """One rank of the dp x tp grid (gloo, one card): the float32 step on
+    its tp slice of the seed's weights and its dp rows; its slices saved."""
+    import torch
+    from tpuserve_torch.models.weights import init_params_device
+    from tpuserve_torch.parallel import train
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    comm = train.make_train_comm(TRAIN_DP, TRAIN_TP)
+    cfg = train_fp32_cfg()
+    params = train.shard_train_params(init_params_device(cfg, SEED, dev), comm)
+    tokens, mask = train_batch(cfg, TRAIN_FP32["B"], TRAIN_FP32["T"], dev)
+    rows = TRAIN_FP32["B"] // TRAIN_DP
+    sl = slice(comm.dp_rank * rows, (comm.dp_rank + 1) * rows)
+    res = train_once(params, train.train_config(cfg, comm), tokens[sl], mask[sl],
+                     train.TrainConfig())
+    torch.save({k: res[k] for k in ("params", "mu", "nu", "loss0", "loss", "loss1")},
+               f"{spec['out']}.rank{rank}.pt")
+    return {"tp_rank": comm.tp_rank, "dp_rank": comm.dp_rank,
+            **{k: res[k] for k in ("loss0", "loss", "loss1", "ms")}}
+
+
+def tree_diff(ours, theirs, base, tp: int = 1, tp_rank: int = 0) -> dict:
+    """Two trees against each other, ``theirs`` and ``base`` cut to the tp
+    rank's slice first: "max_abs", the largest |a - b|; "rel", the largest
+    leaf-by-leaf ||a - b|| / ||b||, of the leaves themselves or, with
+    ``base`` (the weights both steps started from), of the updates
+    ``a - base`` and ``b - base``.  In float64 on the card."""
+    import types
+    import torch
+    from tpuserve_torch.parallel import train
+    from tpuserve_torch.parallel.sharding import slice_leaf, spec_for
+    grid = types.SimpleNamespace(cfg=types.SimpleNamespace(tp=tp, ep=1), tp_rank=tp_rank,
+                                 ep_rank=0)
+    cut = (lambda path, t: slice_leaf(t, spec_for(path), grid)) if tp > 1 else (
+        lambda path, t: t)
+    bases = [None] * len(train._leaves(ours)) if base is None else train._leaves(base)
+    worst, rel = 0.0, 0.0
+    for (path, a), (_, b), base_leaf in zip(train._leaves(ours), train._leaves(theirs), bases,
+                                            strict=True):
+        a = a.to("cuda", torch.float64)
+        b = cut(path, b).to("cuda", torch.float64)
+        worst = max(worst, (a - b).abs().max().item())
+        if base_leaf is not None:
+            p0 = cut(path, base_leaf[1]).to("cuda", torch.float64)
+            a, b = a - p0, b - p0
+        rel = max(rel, ((a - b).norm() / b.norm().clamp(min=1e-30)).item())
+    return {"max_abs": worst, "rel": rel}
+
+
+def train_gate(ours, theirs, base, tp: int = 1, tp_rank: int = 0) -> dict:
+    """The losses' largest difference and :func:`tree_diff` of the weights
+    (their update from ``base``) and both moments, against ``TRAIN_LIMITS``."""
+    row = {"loss_diff": max(abs(ours[k] - theirs[k]) for k in ("loss0", "loss", "loss1")),
+           "update": tree_diff(ours["params"], theirs["params"], base, tp, tp_rank),
+           "mu": tree_diff(ours["mu"], theirs["mu"], None, tp, tp_rank),
+           "nu": tree_diff(ours["nu"], theirs["nu"], None, tp, tp_rank)}
+    row["ok"] = row["loss_diff"] <= TRAIN_LIMITS["loss"] and all(
+        row[k]["rel"] <= TRAIN_LIMITS[k] for k in ("update", "mu", "nu"))
+    return row
+
+
+def phase_train(results) -> dict:
+    """See the module docstring, phase train."""
+    import gc
+    import tempfile
+    from pathlib import Path
+    import torch
+    from tpuserve_torch.models.config import get_model_config
+    from tpuserve_torch.models.weights import init_params_device, map_leaves
+    from tpuserve_torch.parallel import train
+    out, oks = {}, []
+    # (a) bf16 at full depth, remat on and off, each step from the seed's
+    # weights: finite, the loss falls; peak bytes
+    cfg = dataclasses.replace(get_model_config(TRAIN_MODEL), dtype="bfloat16")
+    params = init_params_device(cfg, SEED, "cuda")
+    # the first step pays the first use of every kernel and of autograd:
+    # taken on one short row at learning rate 0 (the weights stay the
+    # seed's), its ms apart
+    first = train_once(params, cfg, *train_batch(cfg, 1, 16, "cuda"),
+                       train.TrainConfig(learning_rate=0.0))
+    out["bf16_first_step_ms"] = first["ms"]
+    del first
+    tokens, mask = train_batch(cfg, TRAIN_BF16["B"], TRAIN_BF16["T"], "cuda")
+    for remat in (True, False):
+        step_params = map_leaves(torch.clone, params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        res = train_once(step_params, cfg, tokens, mask,
+                         train.TrainConfig(learning_rate=TRAIN_BF16["lr"], remat=remat))
+        row = {k: res[k] for k in ("loss0", "loss", "loss1", "ms")}
+        row["peak_gb_over_weights"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        row["finite"] = all(bool(torch.isfinite(t).all())
+                            for _, t in train._leaves(step_params))
+        out["bf16_remat" if remat else "bf16_plain"] = row
+        oks.append(row["finite"] and math.isfinite(row["loss"]) and row["loss1"] < row["loss0"])
+        del res, step_params
+    out["bf16_remat_vs_plain"] = abs(out["bf16_remat"]["loss1"] - out["bf16_plain"]["loss1"])
+    oks.append(out["bf16_remat_vs_plain"] <= TRAIN_BF16_REMAT_GATE)
+    out["bf16_layers"] = cfg.num_layers
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b) float32 at 2 layers, TF32 off: the card's step against the CPU's
+    cfg = train_fp32_cfg()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        whole = init_params_device(cfg, SEED, "cuda")
+        tokens, mask = train_batch(cfg, TRAIN_FP32["B"], TRAIN_FP32["T"], "cuda")
+        card = train_once(map_leaves(torch.clone, whole), cfg, tokens, mask, train.TrainConfig())
+        cpu = train_once(map_leaves(lambda t: t.cpu(), whole), cfg, tokens.cpu(), mask.cpu(),
+                         train.TrainConfig())
+        row = {"card_ms": card["ms"], "cpu_ms": cpu["ms"], **train_gate(card, cpu, whole)}
+        out["fp32_card_vs_cpu"] = row
+        oks.append(row["ok"] and card["loss1"] < card["loss0"])
+        # (c) dp 2 x tp 2 gloo ranks on the card: each rank's slices equal
+        # the one-rank step's
+        work = Path(tempfile.mkdtemp(prefix="train-", dir=str(Path(__file__).resolve().parent
+                                                               / "build")))
+        t = time.perf_counter()
+        ranks, rcs, tails = tp_spawn(work, "grid", TRAIN_DP * TRAIN_TP, "gloo", rate=False,
+                                     mode="train")
+        row = {"seconds": time.perf_counter() - t, "rcs": rcs}
+        if tails or any(r is None for r in ranks):
+            row.update(ok=False, logs=tails)
+        else:
+            row["ms"] = [r["ms"] for r in ranks]
+            row["by_rank"] = [train_gate(torch.load(f"{work / 'grid'}.rank{r}.pt"), card, whole,
+                                         TRAIN_TP, res["tp_rank"])
+                              for r, res in enumerate(ranks)]
+            row["ok"] = all(g["ok"] for g in row["by_rank"])
+        out["dp2_tp2"] = row
+        oks.append(row["ok"])
+        shutil.rmtree(work, ignore_errors=True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    out["launches"] = {n: 0 for n in KERNEL_KIND}       # the plain attention: no kernel
+    gc.collect()
+    torch.cuda.empty_cache()
     out["ok"] = all(oks)
     return out
 
@@ -7751,9 +8307,10 @@ def read_launches() -> dict:
 # phases that count them too
 LAUNCH_PHASE = {"flash_prefill": "main", "paged_decode": "main",
                 "paged_window": "chunked", "ragged_paged": "mixed"}
-PATH_PHASES = {"flash_prefill": ("families", "breadth", "tp", "spec", "embed", "services",
-                                 "fleet", "disagg"),
-               "paged_decode": ("families", "breadth", "tp", "services", "fleet", "disagg"),
+PATH_PHASES = {"flash_prefill": ("families", "breadth", "tp", "pp", "ring", "spec", "embed",
+                                 "services", "fleet", "disagg"),
+               "paged_decode": ("families", "breadth", "tp", "pp", "services", "fleet",
+                                "disagg"),
                "paged_window": ("families", "breadth", "tp", "spec", "services", "fleet",
                                 "disagg"),
                "ragged_paged": ("breadth", "tp", "disagg")}
@@ -7789,6 +8346,12 @@ def main() -> int:
             res = phase_breadth(results)
         elif phase == "tp":
             res = phase_tp(results)
+        elif phase == "pp":
+            res = phase_pp(results)
+        elif phase == "ring":
+            res = phase_ring(results)
+        elif phase == "train":
+            res = phase_train(results)
         elif phase == "identity":
             res = phase_identity()
         elif phase == "main":

@@ -169,6 +169,44 @@ def test_fleet_modules_load_no_jax():
         assert ROOT / "tpuserve_torch" / rel in PORT_FILES
 
 
+def test_pipeline_ring_and_train_modules_load_no_jax(tmp_path):
+    """The rest of A10 (the pipeline stages, ring and Ulysses attention,
+    the fine-tuning step) is the port's own: importing the modules and
+    running their lazy paths in a one-rank gloo group (a stage, the sp
+    group, both attentions, a train step with its collectives) loads no jax
+    and no tpuserve module."""
+    res = _run("import sys, dataclasses, torch, torch.distributed as dist\n"
+               "from tpuserve_torch.parallel import pipeline, ring_attention, train\n"
+               f"dist.init_process_group('gloo', init_method='file://{tmp_path}/s', rank=0,"
+               " world_size=1)\n"
+               "from tpuserve_torch.models.config import get_model_config\n"
+               "from tpuserve_torch.models.weights import init_params\n"
+               "cfg = dataclasses.replace(get_model_config('tiny-qwen3'), dtype='float32')\n"
+               "st = pipeline.PipeStage(2, 1, torch.device('cpu'), 'gloo')\n"
+               "assert pipeline.stage_config(cfg, st).num_layers == cfg.num_layers // 2\n"
+               "g = ring_attention.make_sp_group()\n"
+               "q = ring_attention.seq_shard(torch.randn(1, 8, 4, 16), g)\n"
+               "lens = torch.tensor([8], dtype=torch.int32)\n"
+               "a = ring_attention.ring_prefill_attention(q, q, q, lens, 0.25, g)\n"
+               "b = ring_attention.ulysses_prefill_attention(q, q, q, lens, 0.25, g)\n"
+               "assert torch.allclose(a, b, atol=1e-5)\n"
+               "comm = train.make_train_comm(1, 1)\n"
+               "p = init_params(cfg, 0, 'cpu')\n"
+               "tcfg = train.TrainConfig()\n"
+               "opt, state = train.init_train_state(p, tcfg)\n"
+               "tok = torch.randint(1, 100, (2, 8))\n"
+               "train.train_step(p, state, train.train_config(cfg, comm), tcfg, opt, tok,"
+               " torch.ones(2, 8, dtype=torch.bool))\n"
+               "dist.destroy_process_group()\n"
+               "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tpuserve')]\n"
+               "assert not bad, bad\n"
+               "print('clean')")
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("clean")
+    for rel in ("parallel/pipeline.py", "parallel/ring_attention.py", "parallel/train.py"):
+        assert ROOT / "tpuserve_torch" / rel in PORT_FILES
+
+
 def test_engine_without_device_raises_when_there_is_no_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")

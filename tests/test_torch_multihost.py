@@ -396,9 +396,10 @@ def test_cli_a_follower_failure_stops_rank_0(tmp_path):
 
 
 def test_cli_topology_checks(capsys):
-    """The JAX server's argument checks, and --pp still refused naming A10."""
+    """The JAX server's argument checks, --pp's among them."""
     from tpuserve_torch.server.openai_api import main
-    for argv, msg in ((["--pp", "2"], "ROADMAP.md A10"),
+    for argv, msg in ((["--pp", "2", "--tp", "2"], "mutually exclusive"),
+                      (["--pp", "2", "--multihost"], "drop --disagg/--role/--multihost"),
                       (["--role", "prefill"], "requires --decode-url"),
                       (["--role", "decode", "--disagg"], "its own topology"),
                       (["--disagg", "--tp", "2"], "A10")):

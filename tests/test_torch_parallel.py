@@ -176,8 +176,17 @@ def test_mesh_shapes_and_the_too_large_refusal(tmp_path):
             make_mesh(MeshConfig(tp=1), device_type="cuda", devices=[])
         with pytest.raises(ValueError, match="ranks"):
             make_mesh(MeshConfig(tp=2), device_type="cpu")
-        with pytest.raises(NotImplementedError, match="A10"):
+        # a pp grid builds (one stage here: the grid's rank count is checked
+        # against the group's, as tp's); a pp grid beside tp or ep, or across
+        # nodes, is refused as the JAX pipeline engine refuses it
+        with pytest.raises(ValueError, match="ranks"):
             make_mesh(MeshConfig(pp=2), device_type="cpu")
+        with pytest.raises(ValueError, match="pure"):
+            make_mesh(MeshConfig(pp=2, tp=2), device_type="cpu")
+        with pytest.raises(ValueError, match="one node"):
+            make_mesh(MeshConfig(pp=2), device_type="cpu", multihost=True)
+        mesh = make_mesh(MeshConfig(pp=1), device_type="cpu")
+        assert mesh.stage is None and mesh.shape["pp"] == 1
     _with_group(tmp_path, body)
     assert MeshConfig(tp=4, ep=2).num_devices == 8
 
@@ -485,6 +494,47 @@ def test_loader_reads_each_ranks_slices(hf_checkpoints, monkeypatch, family, tp,
         want_q = _flat(sharding.shard_params(quant, cfg, mesh))
         for k in want_q:
             assert torch.equal(ours_q[k], want_q[k]), (rank, k)
+
+
+@pytest.mark.parametrize("family,pp", [("qwen3", 2), ("phi3", 2), ("opt", 2)])
+def test_loader_reads_only_each_stages_layers(hf_checkpoints, monkeypatch, family, pp):
+    """A pipeline stage's loader gives exactly the stage's part of the
+    whole tree (float32 and int8) and reads no tensor of another stage's
+    layers, nor, off stage 0, the embedding, final norm or head."""
+    path, cfg = hf_checkpoints[family]
+    whole = weights.load_hf_checkpoint(cfg, path, "cpu")
+    quant = weights.quantize_params_int8(whole)
+    read = []
+    real = weights.SafetensorsDir.__getitem__
+
+    def spy(self, name):
+        read.append(name)
+        return real(self, name)
+    monkeypatch.setattr(weights.SafetensorsDir, "__getitem__", spy)
+    k = cfg.num_layers // pp
+    for stage in range(pp):
+        mesh = RankMesh(cfg=MeshConfig(pp=pp), rank=stage, world=pp,
+                        device=torch.device("cpu"), backend="gloo", comm=None,
+                        ctrl_group=None)
+        sl = sharding.RankSlicer(mesh, num_layers=cfg.num_layers)
+        read.clear()
+        ours = _flat(weights.load_or_init(cfg, path, shard=sl, device="cpu"))
+        want = _flat(sharding.shard_params(whole, cfg, mesh))
+        assert ours.keys() == want.keys()
+        for key in want:
+            assert torch.equal(ours[key], want[key]), (stage, key)
+        layers_read = {int(n.split("layers.")[1].split(".")[0]) for n in read
+                       if "layers." in n}
+        assert layers_read == set(range(stage * k, (stage + 1) * k)), (stage, layers_read)
+        top_read = [n for n in read if "layers." not in n]
+        assert bool(top_read) == (stage == 0), (stage, top_read)
+        q = weights.load_or_init(cfg, path, shard=sl, device="cpu",
+                                 layer_fn=weights.quantize_layer_int8)
+        ours_q = _flat(weights.quantize_params_int8(q))
+        want_q = _flat(sharding.shard_params(quant, cfg, mesh))
+        assert ours_q.keys() == want_q.keys()
+        for key in want_q:
+            assert torch.equal(ours_q[key], want_q[key]), (stage, key)
 
 
 @pytest.mark.parametrize("name,tp,ep", [("tiny-qwen3", 2, 1), ("tiny-moe", 2, 2),

@@ -600,21 +600,26 @@ def test_a_failing_step_fails_its_requests_and_the_server_goes_on(weights):
 def test_cli_rejects_unported_flags_naming_their_item(capsys):
     # A8's flags (--quantization, --lora, --lora-modules), A9's
     # (tests/test_torch_obs.py, tests/test_torch_modelpool.py serve them)
-    # and A10's first part (--tp, --multihost, --disagg, --role:
-    # tests/test_torch_multihost.py, test_torch_disagg_net.py) are ported;
-    # --pp still exits
-    for argv, item in ((["--pp", "2"], "A10"),):
+    # and A10's (--tp, --pp, --multihost, --disagg, --role:
+    # tests/test_torch_multihost.py, test_torch_pp.py,
+    # test_torch_disagg_net.py) are ported; --pp exits only where the JAX
+    # CLI refuses it
+    for argv, says in ((["--pp", "2", "--tp", "2"], "--pp and --tp are mutually exclusive"),
+                       (["--pp", "2", "--disagg"], "drop --disagg/--role/--multihost"),
+                       (["--pp", "2", "--role", "decode"], "drop --disagg/--role/--multihost"),
+                       (["--pp", "2", "--multihost"], "drop --disagg/--role/--multihost")):
         with pytest.raises(SystemExit) as ei:
             main(argv)
         assert ei.value.code == 2
-        assert f"ROADMAP.md {item}" in capsys.readouterr().err
+        err = capsys.readouterr().err
+        assert says in err and "ROADMAP.md" not in err, argv
     # A10's ported flags parse, card or none, and the JAX server's
     # topology checks refuse what they refuse there
     from tpuserve_torch.server.openai_api import build_parser
     args = build_parser().parse_args(["--tp", "2", "--multihost", "--disagg", "--role",
-                                      "decode", "--decode-url", "http://d:1"])
-    assert (args.tp, args.multihost, args.disagg, args.role, args.decode_url) == (
-        2, True, True, "decode", "http://d:1")
+                                      "decode", "--decode-url", "http://d:1", "--pp", "4"])
+    assert (args.tp, args.multihost, args.disagg, args.role, args.decode_url, args.pp) == (
+        2, True, True, "decode", "http://d:1", 4)
     for argv, says in ((["--role", "decode", "--disagg"], "--role prefill/decode is its own"),
                        (["--role", "prefill", "--multihost"], "--role prefill/decode is its own"),
                        (["--role", "prefill"], "--role prefill requires --decode-url"),
@@ -630,7 +635,7 @@ def test_cli_rejects_unported_flags_naming_their_item(capsys):
     if not torch.cuda.is_available():
         for argv in (["--tool-call-parser", "hermes", "--no-kv-tiers"],
                      ["--model-catalog", "tiny-llama", "--tenant-config", "{}"],
-                     ["--tp", "2"], ["--disagg"], ["--multihost"]):
+                     ["--tp", "2"], ["--pp", "2"], ["--disagg"], ["--multihost"]):
             with pytest.raises(SystemExit) as ei:
                 main(["--model", "tiny-qwen3"] + argv)
             assert "device='cpu'" in str(ei.value.code)

@@ -127,6 +127,12 @@ class ModelConfig:
     # and experts; it takes no part in equality or hashing.
     comm: Optional[object] = dataclasses.field(default=None, compare=False, hash=False,
                                                repr=False)
+    # A stage of a pipeline (parallel/pipeline.py ``stage_config``): its
+    # point-to-point transport and microbatch trunk, None outside one.  The
+    # stage's config counts its own layers; like ``comm`` it takes no part
+    # in equality or hashing.
+    stage: Optional[object] = dataclasses.field(default=None, compare=False, hash=False,
+                                                repr=False)
 
     def layer_window(self, layer_idx: int) -> Optional[int]:
         """Effective sliding window for one layer — ONE implementation for

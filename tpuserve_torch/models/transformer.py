@@ -116,6 +116,14 @@ def _row_linear(x: torch.Tensor, p: dict, cfg: ModelConfig,
     return y
 
 
+def _tp_in(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The replicated input of a column-parallel product under tensor
+    parallelism: as it is (``RankComm``); under training's autograd
+    (``parallel/train.py``) its gradient is summed over the tp group."""
+    comm = cfg.comm
+    return x if comm is None or comm.tp == 1 else comm.tp_enter(x)
+
+
 def _lora_delta(x: torch.Tensor, la: dict, ad: torch.Tensor) -> torch.Tensor:
     """Per-row multi-LoRA contribution (``weights.load_lora_stack``'s
     layout), the JAX ``_lora_delta``: ``ad`` (B, n) one-hot adapter weights
@@ -156,6 +164,7 @@ def _mlp(x: torch.Tensor, p: dict, cfg: ModelConfig,
     # moe_first_k_dense layers dense inside an MoE model
     if "experts" in p:
         return _moe_mlp(x, p, cfg)
+    x = _tp_in(x, cfg)
     if cfg.mlp_style == "gated":
         gate = _act(_linear(x, p["gate_proj"], ad), cfg.act)
         return _row_linear(gate * _linear(x, p["up_proj"], ad), p["down_proj"], cfg, ad)
@@ -291,6 +300,7 @@ def _qkv(h: torch.Tensor, lp: dict, cfg: ModelConfig, positions: torch.Tensor,
     """h: (..., H) -> q (..., Hq, D), k/v (..., Hkv, D) with qk-norm and
     RoPE (per-layer theta and linear scaling, as ``cfg.layer_rope``)."""
     lead = h.shape[:-1]
+    h = _tp_in(h, cfg)
     q = _linear(h, lp["q_proj"], ad).reshape(*lead, cfg.num_heads, cfg.head_dim)
     k = _linear(h, lp["k_proj"], ad).reshape(*lead, cfg.num_kv_heads, cfg.head_dim)
     v = _linear(h, lp["v_proj"], ad).reshape(*lead, cfg.num_kv_heads, cfg.head_dim)
@@ -428,6 +438,7 @@ def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 def _unembed(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     if cfg.final_layernorm:
         h = _norm(h, params["final_norm"], cfg)
+    h = _tp_in(h, cfg)              # vocabulary-parallel: columns of the logits
     if cfg.tie_word_embeddings:
         ew = params["embed"]
         if "scale" in ew:                 # tied int8: a scale a logit column
@@ -469,16 +480,48 @@ def _num_slots(kv_cache: list) -> int:
 @torch.no_grad()
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             prompt_lens: torch.Tensor, slot_ids: torch.Tensor, kv_cache: list,
-            ad: torch.Tensor | None = None, *, attn_impl: str = "reference"):
+            ad: torch.Tensor | None = None, *, attn_impl: str = "reference",
+            microbatches: int = 0):
     """tokens: (B, T) right-padded prompts; prompt_lens: (B,) int32;
     slot_ids: (B, T) flat cache slots (``PAD_SLOT`` for padding); kv_cache:
-    per-layer entries; ad: (B, n) adapter weights with a LoRA stack.
+    per-layer entries; ad: (B, n) adapter weights with a LoRA stack;
+    microbatches: a pipeline stage's count (0: auto).
     Returns (last-token logits (B, V) float32, kv_cache)."""
     _check(cfg, attn_impl)
     B, T = tokens.shape
     positions = torch.arange(T, device=tokens.device)[None, :].expand(B, T)
-    drop = attn_ops.pad_drop(slot_ids, _num_slots(kv_cache))
-    h = _embed(params, cfg, tokens, positions)
+    n_slots = _num_slots(kv_cache)
+
+    def layers(h, r):
+        return _prefill_layers(params, cfg, h, positions[r], prompt_lens[r], slot_ids[r],
+                               attn_ops.pad_drop(slot_ids[r], n_slots), kv_cache,
+                               attn_impl, None if ad is None else ad[r])
+
+    def last_rows(h, r):
+        last = torch.clamp(prompt_lens[r].long() - 1, min=0)
+        return h[torch.arange(h.shape[0], device=h.device), last]
+
+    if cfg.stage is None:
+        rows = slice(None)
+        h_last = last_rows(layers(_embed(params, cfg, tokens, positions), rows), rows)
+    else:
+        H = cfg.hidden_size
+        h_last = cfg.stage.trunk(
+            "prefill", B, (T, H), (H,), param_dtype(cfg),
+            lambda r: _embed(params, cfg, tokens[r], positions[r]), layers, last_rows,
+            microbatches)
+        if h_last is None:          # a later stage: stage 0 unembeds
+            return None, kv_cache
+    return _unembed(params, cfg, h_last), kv_cache
+
+
+def _prefill_layers(params: dict, cfg: ModelConfig, h: torch.Tensor,
+                    positions: torch.Tensor, prompt_lens: torch.Tensor,
+                    slot_ids: torch.Tensor, drop, kv_cache: list, attn_impl: str,
+                    ad: torch.Tensor | None) -> torch.Tensor:
+    """:func:`prefill`'s layer loop over (B, T, H) hidden rows: write each
+    layer's KV, attend causally over the fresh prompt K/V."""
+    B, T = h.shape[:2]
     scale = cfg.attn_scale
     for li, lp in enumerate(params["layers"]):
         sw = cfg.layer_window(li)
@@ -509,9 +552,7 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                 logit_softcap=cfg.attn_logit_softcapping)
         h = h + _attn_residual(out.reshape(B, T, cfg.q_size), lp, cfg, ad)
         h = h + _mlp_residual(h, lp, cfg, ad)
-    last = torch.clamp(prompt_lens.long() - 1, min=0)
-    h_last = h[torch.arange(B, device=h.device), last]
-    return _unembed(params, cfg, h_last), kv_cache
+    return h
 
 
 # --------------------------------------------------------------------------
@@ -645,33 +686,49 @@ def decode_verify_sampled(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 # Cache-less trunks: embeddings, prompt scoring, draft proposals
 # --------------------------------------------------------------------------
 
+def _trunk_layer(h: torch.Tensor, lp: dict, cfg: ModelConfig, positions: torch.Tensor,
+                 lens: torch.Tensor, li: int, attn_impl: str) -> torch.Tensor:
+    """One layer of the cache-less trunk: (B, T, H) -> (B, T, H)."""
+    B, T = h.shape[:2]
+    hn = _norm(h, lp["attn_norm"], cfg)
+    if cfg.is_mla:
+        q, k, v = _mla_naive_qkv(hn, lp, cfg, positions)
+    else:
+        q, k, v = _qkv(hn, lp, cfg, positions, li)
+    sw = cfg.layer_window(li)
+    if attn_impl == "cuda" and not cfg.is_mla:
+        out = flash_prefill_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(), lens, cfg.attn_scale,
+            sliding_window=sw, logit_softcap=cfg.attn_logit_softcapping)
+    else:
+        out = attn_ops.prefill_attention(q, k, v, lens, cfg.attn_scale, sliding_window=sw,
+                                         logit_softcap=cfg.attn_logit_softcapping)
+    h = h + _attn_residual(out.reshape(B, T, cfg.attn_out_size), lp, cfg)
+    return h + _mlp_residual(h, lp, cfg)
+
+
 def _cacheless_trunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                     lens: torch.Tensor, attn_impl: str) -> torch.Tensor:
+                     lens: torch.Tensor, attn_impl: str, *, remat: bool = False) -> torch.Tensor:
     """The layer loop over right-padded (B, T) sequences with causal
     attention among their own tokens and no KV cache (the flash prefill
     kernel with ``attn_impl="cuda"``); ``lens``: (B,) int32 valid lengths.
-    Returns the final hidden states (B, T, H), before the final norm."""
+    Returns the final hidden states (B, T, H), before the final norm.
+    ``remat``: under autograd each layer's activations are recomputed in
+    the backward pass (``torch.utils.checkpoint``), as ``jax.checkpoint``
+    rematerialises."""
     B, T = tokens.shape
     positions = torch.arange(T, device=tokens.device)[None, :].expand(B, T)
     lens = lens.to(torch.int32)
     h = _embed(params, cfg, tokens, positions)
-    scale = cfg.attn_scale
+    remat = remat and torch.is_grad_enabled()
+    if remat:
+        from torch.utils.checkpoint import checkpoint
     for li, lp in enumerate(params["layers"]):
-        sw = cfg.layer_window(li)
-        hn = _norm(h, lp["attn_norm"], cfg)
-        if cfg.is_mla:
-            q, k, v = _mla_naive_qkv(hn, lp, cfg, positions)
+        if remat:
+            h = checkpoint(_trunk_layer, h, lp, cfg, positions, lens, li, attn_impl,
+                           use_reentrant=False)
         else:
-            q, k, v = _qkv(hn, lp, cfg, positions, li)
-        if attn_impl == "cuda" and not cfg.is_mla:
-            out = flash_prefill_attention(
-                q.contiguous(), k.contiguous(), v.contiguous(), lens, scale,
-                sliding_window=sw, logit_softcap=cfg.attn_logit_softcapping)
-        else:
-            out = attn_ops.prefill_attention(q, k, v, lens, scale, sliding_window=sw,
-                                             logit_softcap=cfg.attn_logit_softcapping)
-        h = h + _attn_residual(out.reshape(B, T, cfg.attn_out_size), lp, cfg)
-        h = h + _mlp_residual(h, lp, cfg)
+            h = _trunk_layer(h, lp, cfg, positions, lens, li, attn_impl)
     return h
 
 
@@ -790,15 +847,39 @@ def _decode_body(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                  positions: torch.Tensor, slot_ids: torch.Tensor,
                  block_tables: torch.Tensor, seq_lens: torch.Tensor,
                  kv_cache: list, attn_impl: str,
-                 ad: torch.Tensor | None = None) -> torch.Tensor:
+                 ad: torch.Tensor | None = None, microbatches: int = 0) -> torch.Tensor:
     """Single-token decode trunk: write each row's KV, then attend (so
     ``seq_lens`` includes the token).  Every row is written, padding rows
     dropped on the device (``attention.pad_drop``), so the trunk reads
     nothing back to the host and a CUDA graph can capture it.  Returns
     logits (B, V) float32."""
     B = tokens.shape[0]
-    drop = attn_ops.pad_drop(slot_ids, _num_slots(kv_cache))
-    h = _embed(params, cfg, tokens, positions)                 # (B, H)
+    n_slots = _num_slots(kv_cache)
+
+    def layers(h, r):
+        return _decode_layers(params, cfg, h, positions[r], slot_ids[r], block_tables[r],
+                              seq_lens[r], attn_ops.pad_drop(slot_ids[r], n_slots),
+                              kv_cache, attn_impl, None if ad is None else ad[r])
+
+    if cfg.stage is None:
+        h = layers(_embed(params, cfg, tokens, positions), slice(None))     # (B, H)
+    else:
+        H = cfg.hidden_size
+        h = cfg.stage.trunk("decode", B, (H,), (H,), param_dtype(cfg),
+                            lambda r: _embed(params, cfg, tokens[r], positions[r]), layers,
+                            microbatches=microbatches)
+        if h is None:               # a later stage: stage 0 unembeds
+            return None
+    return _unembed(params, cfg, h)
+
+
+def _decode_layers(params: dict, cfg: ModelConfig, h: torch.Tensor,
+                   positions: torch.Tensor, slot_ids: torch.Tensor,
+                   block_tables: torch.Tensor, seq_lens: torch.Tensor, drop,
+                   kv_cache: list, attn_impl: str,
+                   ad: torch.Tensor | None) -> torch.Tensor:
+    """:func:`_decode_body`'s layer loop over (B, H) hidden rows."""
+    B = h.shape[0]
     scale = cfg.attn_scale
     attend = (paged_decode_attention if attn_impl == "cuda"
               else attn_ops.paged_decode_attention)
@@ -824,7 +905,7 @@ def _decode_body(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                          logit_softcap=cfg.attn_logit_softcapping)
         h = h + _attn_residual(out.reshape(B, cfg.attn_out_size), lp, cfg, ad)
         h = h + _mlp_residual(h, lp, cfg, ad)
-    return _unembed(params, cfg, h)
+    return h
 
 
 @torch.no_grad()
@@ -832,13 +913,14 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                 positions: torch.Tensor, slot_ids: torch.Tensor,
                 block_tables: torch.Tensor, seq_lens: torch.Tensor,
                 kv_cache: list, ad: torch.Tensor | None = None, *,
-                attn_impl: str = "reference"):
+                attn_impl: str = "reference", microbatches: int = 0):
     """One decode step.  tokens/positions/slot_ids/seq_lens: (B,) int32;
     block_tables: (B, max_blocks) int32; ad: (B, n) adapter weights with a
-    LoRA stack.  Returns (logits (B, V), kv_cache)."""
+    LoRA stack; microbatches as :func:`prefill`.  Returns (logits (B, V),
+    kv_cache)."""
     _check(cfg, attn_impl)
     logits = _decode_body(params, cfg, tokens, positions, slot_ids,
-                          block_tables, seq_lens, kv_cache, attn_impl, ad)
+                          block_tables, seq_lens, kv_cache, attn_impl, ad, microbatches)
     return logits, kv_cache
 
 
@@ -965,7 +1047,7 @@ def window_sample(logits: torch.Tensor, state: DecodeState, mode: str) -> torch.
 @torch.no_grad()
 def decode_state_step(params: dict, cfg: ModelConfig, state: DecodeState,
                       kv_cache: list, *, mode: str = "greedy",
-                      attn_impl: str = "reference") -> torch.Tensor:
+                      attn_impl: str = "reference", microbatches: int = 0) -> torch.Tensor:
     """One fused decode + sample iteration over ``state``, in place, in
     the JAX order: write the token's KV at the slot ``window_slot`` gives
     its position and attend; apply the extras (penalties from the count
@@ -985,7 +1067,12 @@ def decode_state_step(params: dict, cfg: ModelConfig, state: DecodeState,
                        kv_cache[0]["k"].shape[1])
     logits = _decode_body(params, cfg, state.tokens, state.positions, slot,
                           state.block_tables, state.seq_lens, kv_cache, attn_impl,
-                          state.ad)
+                          state.ad, microbatches)
+    if logits is None:
+        # a later pipeline stage: stage 0 samples; the positions advance alike
+        for t in (state.positions, state.seq_lens, state.step, state.col):
+            t.add_(1)
+        return None
     logits = window_extras(logits, state.col, state)
     if state.gstate is not None:
         logits = window_guided_mask(logits, state.gstate, state.gmasks)
@@ -1029,7 +1116,7 @@ def decode_multi(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                  gclass: torch.Tensor | None = None,
                  gnext: torch.Tensor | None = None,
                  ad: torch.Tensor | None = None,
-                 attn_impl: str = "reference"):
+                 attn_impl: str = "reference", microbatches: int = 0):
     """``steps`` fused decode+sample iterations: :func:`decode_state_step`
     run ``steps`` times over a state made from the arguments (the JAX
     ``lax.scan``; the engine's captured graphs replay the same step).  Each
@@ -1096,7 +1183,8 @@ def decode_multi(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         state.gstate = i32(gstate)
         state.gmasks, state.gclass, state.gnext = i32(gmasks), i32(gclass), i32(gnext)
     for _ in range(steps):
-        decode_state_step(params, cfg, state, kv_cache, mode=mode, attn_impl=attn_impl)
+        decode_state_step(params, cfg, state, kv_cache, mode=mode, attn_impl=attn_impl,
+                          microbatches=microbatches)
     res = (state.out, kv_cache)
     if logprobs_n:
         res += ((state.lp_chosen, state.lp_ids, state.lp_vals),)
@@ -1170,3 +1258,20 @@ def forward_ragged(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         h = h + _attn_residual(out.reshape(T, cfg.q_size), lp, cfg, ad)
         h = h + _mlp_residual(h, lp, cfg, ad)
     return _unembed(params, cfg, h[last_rows.long()]), kv_cache
+
+
+# --------------------------------------------------------------------------
+# Plain forward (no cache), with autograd: fine-tuning's trunk
+# --------------------------------------------------------------------------
+
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+            seq_lens: torch.Tensor | None = None, *, remat: bool = False) -> torch.Tensor:
+    """Causal LM forward over (B, T) tokens -> (B, T, V) float32 logits, the
+    JAX ``forward``: the cache-less trunk on the plain attention,
+    differentiable (the fine-tuning step, ``parallel/train.py``), each
+    layer rematerialised with ``remat``."""
+    if seq_lens is None:
+        seq_lens = torch.full(tokens.shape[:1], tokens.shape[1], dtype=torch.int32,
+                              device=tokens.device)
+    return _unembed(params, cfg, _cacheless_trunk(params, cfg, tokens, seq_lens,
+                                                  "reference", remat=remat))

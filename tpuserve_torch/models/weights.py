@@ -345,7 +345,7 @@ def read_safetensors(ckpt_dir: str) -> SafetensorsDir:
 
 
 def load_hf_checkpoint(cfg: ModelConfig, ckpt_dir: str, device="cuda",
-                       layer_fn=None, shard=None) -> dict:
+                       layer_fn=None, shard=None, layers=None, head: bool = True) -> dict:
     """An HF checkpoint directory as the transformer's parameter tree, the
     JAX loader's names and layouts (``tpuserve/models/weights.py``):
     linear kernels ``(out, in)`` -> ``(in, out)``, Phi-3's fused
@@ -358,13 +358,17 @@ def load_hf_checkpoint(cfg: ModelConfig, ckpt_dir: str, device="cuda",
     each layer once loaded (as :func:`init_params`).  ``shard``: a rank's
     slicer (``parallel.sharding.RankSlicer``), which cuts each leaf to the
     rank's block before it is read from the mapped file (and loads only the
-    rank's experts), so no rank reads the whole model."""
+    rank's experts), so no rank reads the whole model.  ``layers``: the
+    layer indices to read (a pipeline stage's; all when None); ``head``:
+    whether to read the top-level leaves (embeddings, final norm, head) —
+    without them the tree is ``{"layers": [...]}``."""
     dtype = param_dtype(cfg)
     device = torch.device(device)
+    layers = range(cfg.num_layers) if layers is None else layers
     with read_safetensors(ckpt_dir) as raw:
         if cfg.pos == "learned":
-            return _load_opt(cfg, raw, dtype, device, layer_fn, shard)
-        return _load_llama_family(cfg, raw, dtype, device, layer_fn, shard)
+            return _load_opt(cfg, raw, dtype, device, layer_fn, shard, layers, head)
+        return _load_llama_family(cfg, raw, dtype, device, layer_fn, shard, layers, head)
 
 
 def _put(w: torch.Tensor, dtype, device, t: bool = False, path: str | None = None,
@@ -402,7 +406,7 @@ def _mla_deinterleave(p: dict, cfg: ModelConfig, heads: int, head_width: int) ->
 
 
 def _load_llama_family(cfg: ModelConfig, raw: SafetensorsDir, dtype, device,
-                       layer_fn=None, shard=None) -> dict:
+                       layer_fn=None, shard=None, held=None, head: bool = True) -> dict:
     def dense(name, bias_name=None, key=None):
         # ``key``: the leaf's place in the tree (``layers.<key>`` or a
         # top-level name), which picks its slice under ``shard``
@@ -424,7 +428,7 @@ def _load_llama_family(cfg: ModelConfig, raw: SafetensorsDir, dtype, device,
                 for w, k in zip(torch.split(raw[name], sizes, dim=0), keys)]
 
     layers = []
-    for i in range(cfg.num_layers):
+    for i in held:
         pre = f"model.layers.{i}."
         lp = {"attn_norm": norm_scale(pre + "input_layernorm.weight"),
               "o_proj": dense(pre + "self_attn.o_proj.weight", key="o_proj")}
@@ -477,6 +481,8 @@ def _load_llama_family(cfg: ModelConfig, raw: SafetensorsDir, dtype, device,
             for proj in ("gate_proj", "up_proj", "down_proj"):
                 lp[proj] = dense(pre + f"mlp.{proj}.weight", key=proj)
         layers.append(layer_fn(lp) if layer_fn else lp)
+    if not head:
+        return {"layers": layers}
     params = {"embed": {"weight": _put(raw["model.embed_tokens.weight"], dtype, device,
                                        path="embed.weight", shard=shard)},
               "layers": layers,
@@ -520,7 +526,7 @@ def _load_moe_layer(cfg: ModelConfig, raw: SafetensorsDir, pre: str, dtype, devi
 
 
 def _load_opt(cfg: ModelConfig, raw: SafetensorsDir, dtype, device, layer_fn=None,
-              shard=None) -> dict:
+              shard=None, held=None, head: bool = True) -> dict:
     def get(name):
         # OPT checkpoints may or may not carry the "model." prefix
         for cand in (name, "model." + name):
@@ -544,7 +550,7 @@ def _load_opt(cfg: ModelConfig, raw: SafetensorsDir, dtype, device, layer_fn=Non
                 "bias": _put(get(name + ".bias"), dtype, device)}
 
     layers = []
-    for i in range(cfg.num_layers):
+    for i in held:
         pre = f"decoder.layers.{i}."
         lp = {
             "attn_norm": norm(pre + "self_attn_layer_norm"),
@@ -557,6 +563,8 @@ def _load_opt(cfg: ModelConfig, raw: SafetensorsDir, dtype, device, layer_fn=Non
             "fc2": dense(pre + "fc2", "fc2"),
         }
         layers.append(layer_fn(lp) if layer_fn else lp)
+    if not head:
+        return {"layers": layers}
     return {"embed": {"weight": _put(get("decoder.embed_tokens.weight"), dtype, device,
                                      path="embed.weight", shard=shard)},
             "pos_embed": {"weight": _put(get("decoder.embed_positions.weight"),
@@ -574,9 +582,13 @@ def load_or_init(cfg: ModelConfig, ckpt_dir: str | None, seed: int = 0,
     slices; the init draws each layer whole, in the JAX order, and keeps
     the rank's slice before the next layer (after ``layer_fn``, so int8
     scales are the whole kernel's, as the JAX engine quantizes, then
-    shards)."""
+    shards).  A pipeline stage's slicer keeps its stage's layers and, on
+    stage 0, the head; from a checkpoint the stage reads only those."""
     if ckpt_dir and glob.glob(os.path.join(ckpt_dir, "*.safetensors")):
         logger.info("loading checkpoint %s", ckpt_dir)
+        if shard is not None and shard.pp > 1:
+            return load_hf_checkpoint(cfg, ckpt_dir, device, layer_fn, layers=shard.held,
+                                      head=shard.holds_head)
         if shard is not None and layer_fn is not None:
             # a row-parallel int8 scale is over the kernel's every row: load
             # each layer whole, quantize, then keep the rank's slice
@@ -655,10 +667,10 @@ def quantize_params_int8(params: dict) -> dict:
     quantized (``layer_fn=quantize_layer_int8`` at load) pass through.
     Returns a new tree and leaves ``params`` as it was."""
     new = {"layers": [quantize_layer_int8(lp) for lp in params["layers"]]}
-    embed = params["embed"]
-    if embed["weight"].dtype == torch.int8:
+    embed = params.get("embed")         # a later pipeline stage has none
+    if embed is not None and embed["weight"].dtype == torch.int8:
         new["embed"] = embed
-    else:
+    elif embed is not None:
         eq, escale = _quantize_channelwise(embed["weight"], (0,))
         new["embed"] = {"weight": eq, "scale": escale}
     if "lm_head" in params:
@@ -670,8 +682,13 @@ def quantize_params_int8(params: dict) -> dict:
 
 
 def is_quantized(params: dict) -> bool:
-    """Whether ``params`` is an int8 tree (its embedding carries a scale)."""
-    return "scale" in params["embed"]
+    """Whether ``params`` is an int8 tree (its embedding carries a scale;
+    a later pipeline stage's, which has none, its first layer's q kernel
+    is int8)."""
+    if "embed" in params:
+        return "scale" in params["embed"]
+    lp = params["layers"][0]
+    return lp.get("q_proj", {}).get("kernel", torch.empty(0)).dtype == torch.int8
 
 
 # --------------------------------------------------------------------------

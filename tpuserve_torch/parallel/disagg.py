@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from tpuserve_torch.models.weights import to_device
+from tpuserve_torch.parallel.mesh import RankMesh
 from tpuserve_torch.runtime.engine import Engine, EngineConfig
 from tpuserve_torch.runtime.request import Request, RequestOutput, SamplingParams
 from tpuserve_torch.utils import next_power_of_2
@@ -120,9 +121,14 @@ class DisaggregatedEngine:
             raise ValueError("multi-LoRA (lora_modules) is not supported "
                              "on disaggregated topologies; use "
                              "merge-at-load lora_dir")
+        if isinstance(mesh, RankMesh) and mesh.cfg.pp > 1:
+            # the JAX refusal: the pages move as per-layer lists, a stage
+            # holds a slice of the layers
+            raise ValueError("disaggregation is not supported on pipeline (pp) meshes; "
+                             "use tp or plain engines")
         if mesh is not None:
-            # the JAX refusal is of pp meshes; the port's lockstep mirrors
-            # one engine's steps, so a pair on a mesh waits for A10's next part
+            # the port's lockstep mirrors one engine's steps, so a pair on a
+            # tp / ep mesh waits for A10's next part
             raise NotImplementedError("disaggregation on a mesh (ROADMAP.md A10)")
         if decode_device is None:
             # colocated: both engines on one card; split the auto-sizing

@@ -14,8 +14,11 @@ the port serves ``ep`` x ``tp`` grids.  Each rank learns its coordinates,
 its ``tp`` group (the ranks of its ``ep`` row) and its ``ep`` group (its
 ``tp`` column), and a gloo group over every rank that carries the lockstep
 descriptors (``parallel/multihost.py``) whatever the backend of the
-collectives.  ``dp`` is replicas (one server each, behind the gateway) and
-``pp`` waits for ``parallel/pipeline.py`` (ROADMAP.md A10, next part).
+collectives.  ``dp`` is replicas (one server each, behind the gateway).
+A ``pp`` grid is pure (no ``tp`` or ``ep`` beside it, as the JAX pipeline
+engine asks) and on one node: rank ``s`` is stage ``s`` of the pipeline,
+and its :class:`RankMesh` carries the stage's transport
+(``parallel/pipeline.py`` ``PipeStage``) instead of collectives.
 
 The backend is the caller's choice, never a silent switch: NCCL on
 ``cuda``, gloo on ``cpu``, and gloo on ``cuda`` only when asked (several
@@ -110,6 +113,11 @@ class RankComm:
     def tp_sum(self, x: torch.Tensor) -> torch.Tensor:
         return x if self.tp == 1 else self._sum(x, self.tp_group, "tp")
 
+    def tp_enter(self, x: torch.Tensor) -> torch.Tensor:
+        """A column-parallel product's replicated input: as it is (serving
+        runs no backward pass; ``parallel/train.py`` sums its gradient)."""
+        return x
+
     def ep_sum(self, x: torch.Tensor) -> torch.Tensor:
         return x if self.ep == 1 else self._sum(x, self.ep_group, "ep")
 
@@ -128,6 +136,7 @@ class RankMesh:
     ctrl_group: object          # gloo, every rank: the lockstep descriptors
     multihost: bool = False     # joined from torchrun's environment (several nodes)
     timeout_s: float = DEFAULT_TIMEOUT_S    # its groups' collective timeout
+    stage: Optional[object] = None          # a pp grid's pipeline.PipeStage
 
     @property
     def shape(self) -> dict:
@@ -171,9 +180,12 @@ def make_mesh(cfg: MeshConfig | None = None, *, device_type: str = "cuda",
     rank, world = dist.get_rank(), dist.get_world_size()
     if cfg is None:
         cfg = MeshConfig(tp=world)
-    if cfg.pp > 1:
-        raise NotImplementedError("pipeline parallelism (pp) is not ported yet "
-                                  "(ROADMAP.md A10, parallel/pipeline.py)")
+    if cfg.pp > 1 and (cfg.tp > 1 or cfg.ep > 1 or cfg.dp > 1):
+        raise ValueError(f"the pipeline needs a pure ('pp',) mesh, got {cfg} "
+                         "(tp-within-stage composition is future work: use tp OR pp)")
+    if cfg.pp > 1 and multihost:
+        raise ValueError("the pipeline runs on one node; multi-host serving uses the "
+                         "lockstep tp path")
     if cfg.dp > 1:
         raise ValueError("data parallelism is one replica a server: run dp "
                          "servers behind the gateway (server/gateway.py)")
@@ -191,8 +203,15 @@ def make_mesh(cfg: MeshConfig | None = None, *, device_type: str = "cuda",
     backend = dist.get_backend()
     if backend == "nccl" and device.type == "cuda":
         torch.cuda.set_device(device)
-    e, t = divmod(rank, cfg.tp)
     timeout = datetime.timedelta(seconds=timeout_s)
+    if cfg.pp > 1:
+        from tpuserve_torch.parallel.pipeline import PipeStage
+        ctrl = dist.new_group(list(range(world)), backend="gloo", timeout=timeout)
+        return RankMesh(cfg=cfg, rank=rank, world=world, device=device, backend=backend,
+                        comm=RankComm(1, 0, None, 1, 0, None), ctrl_group=ctrl,
+                        timeout_s=timeout_s,
+                        stage=PipeStage(cfg.pp, rank, device, backend))
+    e, t = divmod(rank, cfg.tp)
     tp_group = ep_group = None
     # every rank creates every group, rows then columns
     for row in range(cfg.ep):

@@ -25,6 +25,11 @@ or run it eagerly (gloo).  Ops:
   collective timeout idle, so a follower's wait stays inside it;
 - ``OP_STOP``: the followers return.
 
+Pipeline stages (``parallel/pipeline.py``) follow the same way: each
+runs the executable on its own layers and passes the activations on, and
+only rank 0, which holds the head, samples; a later stage's windows carry
+no tokens (its ``out`` stays zeros).
+
 Descriptors ride a gloo group over every rank (``RankMesh.ctrl_group``), on
 the host, whatever the collectives' backend.  Sampling needs no op: the
 logits are gathered to every rank inside the step, so the coordinator

@@ -25,7 +25,9 @@ jax-version shim with no counterpart here.
 
 Attention needs no collective under tp: a rank holds ``Hq / tp`` query and
 ``Hkv / tp`` kv heads, and the transformer calls the four kernels on them
-as they are.  ``tpuserve/ops/pallas_tp.py`` wraps each Pallas kernel in a
+as they are.  Under a ``pp`` grid a rank keeps its stage's layers whole,
+and stage 0 the embedding, norms and head (``parallel/pipeline.py``).
+``tpuserve/ops/pallas_tp.py`` wraps each Pallas kernel in a
 ``shard_map`` over those local heads; its counterpart here is
 :func:`tp_partitionable` and :func:`check_partitionable`'s refusal, with
 no wrapper: the rank's config already gives the kernels its local shapes.
@@ -37,6 +39,7 @@ import dataclasses
 
 from tpuserve_torch.models.config import ModelConfig
 from tpuserve_torch.parallel.mesh import AXIS_EP, AXIS_TP, RankMesh
+from tpuserve_torch.parallel.pipeline import stage_config, stage_layers, stage_params
 
 _COLUMN = ("q_proj", "k_proj", "v_proj", "gate_proj", "up_proj", "fc1",
            # MLA per-head up-projections: outputs are heads x width, so they
@@ -121,9 +124,12 @@ def shard_tree(tree, mesh: RankMesh, prefix: str = ""):
 
 def shard_params(params: dict, cfg: ModelConfig, mesh: RankMesh) -> dict:
     """This rank's slice of every leaf of ``params`` (the JAX
-    ``shard_params`` places the whole tree; a rank keeps its block).  A
-    dimension that does not split evenly raises; whether the slices make a
-    servable rank (whole kv heads) is :func:`rank_config`'s check."""
+    ``shard_params`` places the whole tree; a rank keeps its block), or
+    under pp its stage's part.  A dimension that does not split evenly
+    raises; whether the slices make a servable rank (whole kv heads) is
+    :func:`rank_config`'s check."""
+    if mesh.cfg.pp > 1:
+        return stage_params(params, cfg, mesh.cfg.pp, mesh.rank)
     return shard_tree(params, mesh)
 
 
@@ -133,12 +139,22 @@ class RankSlicer:
     tensor)`` -> the rank's block (a view), ``experts(E)`` the stacked
     experts it holds, ``layer`` / ``tree`` a made layer or the top-level
     leaves cut.  ``top_only``: slice only the leaves outside ``layers``
-    (layers then come whole to a ``layer_fn`` that cuts them itself)."""
+    (layers then come whole to a ``layer_fn`` that cuts them itself).
+    Under pp, ``layer`` keeps the layers of the rank's stage (counting the
+    layers it is given, in order; the others give None) and ``tree`` drops
+    the rest, and the head off every stage but the first."""
 
-    def __init__(self, mesh: RankMesh, top_only: bool = False):
+    def __init__(self, mesh: RankMesh, top_only: bool = False, num_layers: int = 0):
         self.mesh, self.top_only = mesh, top_only
         # the tp degree of a layer leaf as this slicer reads it
         self.tp = 1 if top_only else mesh.cfg.tp
+        self.pp = mesh.cfg.pp
+        # the stage's layer indices under pp (None without), and whether
+        # it holds the embedding, final norm and head (stage 0)
+        self.held = (stage_layers(num_layers, self.pp, mesh.rank) if self.pp > 1
+                     else None)
+        self.holds_head = self.pp == 1 or mesh.rank == 0
+        self._seen = 0
 
     def __call__(self, path: str, x):
         if self.top_only and path.startswith("layers."):
@@ -151,10 +167,16 @@ class RankSlicer:
             return range(E)
         return range(i * (E // n), (i + 1) * (E // n))
 
-    def layer(self, lp: dict) -> dict:
+    def layer(self, lp: dict):
+        if self.held is not None:
+            self._seen += 1
+            return lp if self._seen - 1 in self.held else None
         return shard_tree(lp, self.mesh, "layers")
 
     def tree(self, params: dict, skip_layers: bool = False) -> dict:
+        if self.held is not None:
+            layers = [lp for lp in params["layers"] if lp is not None]
+            return {**params, "layers": layers} if self.holds_head else {"layers": layers}
         return {k: (v if skip_layers and k == "layers" else shard_tree(v, self.mesh, k))
                 for k, v in params.items()}
 
@@ -185,7 +207,9 @@ def check_partitionable(cfg: ModelConfig, mesh: RankMesh) -> None:
 def rank_config(cfg: ModelConfig, mesh: RankMesh) -> ModelConfig:
     """The config a rank's transformer runs: its own q and kv heads, MLP
     columns and experts, the full vocabulary (its logits are gathered), and
-    ``comm``, its collectives."""
+    ``comm``, its collectives; under pp its stage's layers and ``stage``."""
+    if mesh.cfg.pp > 1:
+        return stage_config(cfg, mesh.stage)
     check_partitionable(cfg, mesh)
     tp, ep = mesh.cfg.tp, mesh.cfg.ep
     return dataclasses.replace(

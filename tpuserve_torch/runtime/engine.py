@@ -97,12 +97,17 @@ Under a mesh (``parallel/mesh.py`` ``RankMesh``: one process a card) the
 engine is one rank of a tensor / expert parallel grid: it holds its slice
 of the weights (``parallel/sharding.py``) and a cache of its kv heads, and
 its transformer sums over the ranks where GSPMD inserted collectives in the
-JAX package.  Rank 0 schedules and mirrors every executable it makes or
-runs to the follower ranks through its ``_exec_*`` hooks
-(``parallel/multihost.py``), which run ``follower_loop`` on engines built
-the same way.  The JAX engine's refusals under a mesh stay (multi-LoRA,
-``swap_model``, a pp axis, ``multihost_unsupported`` across nodes); this
-slice also refuses speculation, guided decoding, embeddings and scoring
+JAX package.  On a pure ``pp`` grid it is one pipeline stage
+(``parallel/pipeline.py``): its layers' weights and cache pages (stage 0
+also the head), every step run through the stages, with the JAX
+pipeline engine's gates (no chunked prefill or mixed steps, its
+prompt-score budget at intake, no speculation, MLA, MoE, per-layer
+windows, embeddings, scoring or adoption).  Rank 0 schedules and mirrors
+every executable it makes or runs to the follower ranks through its
+``_exec_*`` hooks (``parallel/multihost.py``), which run ``follower_loop``
+on engines built the same way.  The JAX engine's refusals under a mesh
+stay (multi-LoRA, ``swap_model``, ``multihost_unsupported`` across nodes);
+this slice also refuses speculation, guided decoding, embeddings and scoring
 (ROADMAP.md A10), turns the KV tiers off and decodes unpipelined, as the
 JAX lockstep does.  ``params`` given under a mesh are the rank's slice
 (``sharding.shard_params`` of the whole tree, an int8 tree quantized whole
@@ -416,13 +421,16 @@ def _read(p) -> tuple:
 
 
 def _check_mesh_config(config: EngineConfig, mesh) -> None:
-    """The JAX engine's refusals under a mesh, and what this slice does not
-    bring under one (ROADMAP.md A10)."""
-    if mesh.shape.get("pp", 1) > 1:
-        raise NotImplementedError("pipeline parallelism (pp) is not ported yet "
-                                  "(ROADMAP.md A10, parallel/pipeline.py)")
+    """The JAX engine's refusals under a mesh (the pipeline engine's first,
+    with its messages; ``make_mesh`` refuses a pp grid beside tp or ep, or
+    across nodes), and what this slice does not bring under one (ROADMAP.md
+    A10)."""
+    if mesh.shape.get("pp", 1) > 1 and config.speculative:
+        raise ValueError("speculative decoding is not supported on the pipeline "
+                         "engine (the verify window would serialise through every "
+                         "stage)")
     if config.lora_modules:
-        raise ValueError("multi-LoRA with a tp/ep mesh is not supported (the "
+        raise ValueError("multi-LoRA with a tp/ep/pp mesh is not supported (the "
                          "stacked factors have no shardings); use merge-at-load "
                          "lora_dir under TP")
     if config.speculative:
@@ -487,8 +495,16 @@ class Engine:
         # columns, experts and collectives)
         whole_cfg = self.model_cfg
         slicer = None
+        # pipeline stages (parallel/pipeline.py): one a rank, pp > 1
+        self._pp = mesh.shape.get("pp", 1) if mesh is not None else 1
+        if self._pp > 1 and (whole_cfg.is_mla or whole_cfg.moe_first_k_dense):
+            raise ValueError(
+                "pipeline parallelism is not supported for DeepSeek models yet: the "
+                "staged trunk runs uniform layers over {'k','v'} pages, which MLA's "
+                "latent cache and first_k_dense_replace's mixed layers both break — "
+                "use tp instead")
         if mesh is not None:
-            slicer = RankSlicer(mesh)
+            slicer = RankSlicer(mesh, num_layers=whole_cfg.num_layers)
             self.model_cfg = rank_config(self.model_cfg, mesh)
         self.attn_impl = config.resolve_attn_impl(self.device)
         if self.attn_impl not in transformer.ATTN_IMPLS:
@@ -590,11 +606,27 @@ class Engine:
                     blk, floor)
                 sched_cfg = dataclasses.replace(sched_cfg,
                                                 mixed_token_budget=floor)
+        if self._pp > 1:
+            # the stages have no ragged or chunk trunk: phase-split
+            # scheduling, and every prefill batched (the flag closes all
+            # three chunk routes), as the JAX pipeline engine
+            if sched_cfg.mixed_batching:
+                logger.warning("mixed ragged batching is not served by the pipeline "
+                               "engine; falling back to phase-split scheduling")
+            sched_cfg = dataclasses.replace(sched_cfg, mixed_batching=False,
+                                            allow_chunked_prefill=False)
         self._multi_step = config.resolve_multi_step(self.device)
         self.cache_cfg = config.cache
         if self.cache_cfg.num_blocks == 0:
-            self.cache_cfg = dataclasses.replace(
-                self.cache_cfg, num_blocks=self._auto_num_blocks(sched_cfg))
+            blocks = self._auto_num_blocks(sched_cfg)
+            if self._pp > 1:
+                # every stage pages the same block ids: the fewest any stage
+                # can hold (stage 0 also holds the head)
+                import torch.distributed as dist
+                t = torch.tensor([blocks], dtype=torch.int64)
+                dist.all_reduce(t, op=dist.ReduceOp.MIN, group=mesh.ctrl_group)
+                blocks = int(t)
+            self.cache_cfg = dataclasses.replace(self.cache_cfg, num_blocks=blocks)
             logger.info("auto-sized KV cache: %d blocks of %d tokens",
                         self.cache_cfg.num_blocks, self.cache_cfg.block_size)
         self.kv_cache = create_kv_cache(self.model_cfg, self.cache_cfg,
@@ -1061,6 +1093,8 @@ class Engine:
                 f"length {self.max_seq_len} (min of cache capacity "
                 f"{self.cache_cfg.max_model_len} and model position range "
                 f"{self.model_cfg.max_position_embeddings})")
+        if self._pp > 1:
+            self._pp_prompt_budget(len(prompt_token_ids), params.max_tokens)
         acceptor = fsm = None
         if params.guided is not None:
             if params.guided not in ("json", "json_schema", "regex", "choice"):
@@ -1148,6 +1182,10 @@ class Engine:
         lacks blocks or a sequence slot (the server's 503)."""
         from tpuserve_torch.parallel.disagg import insert_seq_kv
         prompt_token_ids = [int(t) for t in prompt_token_ids]
+        if self._pp > 1:
+            raise ValueError("KV adoption (disaggregation) is not supported on the "
+                             "pipeline engine — the transferred per-layer pages don't "
+                             "match a stage's cache")
         if self.mesh is not None:
             raise NotImplementedError("KV adoption under a mesh (ROADMAP.md A10)")
         if request_id in self.requests:
@@ -3082,6 +3120,35 @@ class Engine:
     # budget, so that it batches the same inputs together and refuses the
     # same over-long input with the same error.
     EMBED_SCORE_BUDGET_BYTES = 1 << 30
+    # the pipeline engine's intake guard (add_request): the most float32
+    # attention-score bytes one batched prefill could make on the plain
+    # attention, kept so that the same requests are refused as in the JAX
+    # package (the stages' flash kernel makes no score tensor)
+    PP_PREFILL_SCORE_BUDGET_BYTES = 1 << 30
+
+    def _pp_prompt_budget(self, prompt_len: int, max_tokens) -> None:
+        """The JAX pipeline engine's intake guard: chunked prefill is closed
+        under pp, so budget the largest re-prefill this request can grow
+        to (prompt + max_tokens at its bucket, after a preemption) times
+        the rows the scheduler could batch at that bucket."""
+        worst = min(prompt_len + (max_tokens or 0), self.max_seq_len)
+        L = next_power_of_2(worst)
+        scfg = self.scheduler.cfg
+        rows = min(scfg.max_prefill_seqs, max(1, scfg.max_prefill_tokens // L))
+        score = rows * self.model_cfg.num_heads * L * L * 4
+        if score > self.PP_PREFILL_SCORE_BUDGET_BYTES:
+            raise ValueError(
+                f"prompt length {prompt_len} + max_tokens {max_tokens} exceeds the "
+                "pipeline engine's prompt budget: chunked prefill is unavailable "
+                f"under pp and a (re-)prefill at bucket {L} would need "
+                f"{score / 2**30:.1f} GiB of attention scores (budget "
+                f"{self.PP_PREFILL_SCORE_BUDGET_BYTES / 2**30:.0f} GiB); lower "
+                "max_tokens or use tp instead of pp")
+
+    def _refuse_pp(self, what: str) -> None:
+        if self._pp > 1:
+            raise ValueError(f"{what} not supported on the pipeline engine; route to a "
+                             "non-pp replica")
 
     def _embed_max_rows(self, T: int) -> int:
         per_row = self.model_cfg.num_heads * T * T * 4
@@ -3095,6 +3162,7 @@ class Engine:
         the unembedding in slices).  Returns one entry list a prompt in
         ``Request.logprobs``' shape; the first token's logprob and rank are
         None (no conditional), as OpenAI reports it."""
+        self._refuse_pp("prompt scoring")
         top_n = min(max(int(top_n), 0), self.MAX_LOGPROBS)
         prepared = []
         for ids in ids_list:
@@ -3162,6 +3230,7 @@ class Engine:
         power-of-two (B, T) buckets (``_trunk_batches``) and run the
         cache-less trunk (``transformer.embed_forward``) a batch at a time.
         Returns (float32 ndarray (n, H), token counts)."""
+        self._refuse_pp("embeddings")
         if pooling not in transformer.POOLINGS:
             raise ValueError("pooling must be 'mean' or 'last'")
         if not inputs:

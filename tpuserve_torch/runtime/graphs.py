@@ -100,6 +100,7 @@ same object runs the step eagerly on the same buffers.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import gc
 import math
@@ -499,6 +500,7 @@ class Executable:
         self.graph = None
         self.logits = None           # the last run's (rows, V) float32 logits
         self.launches: dict = {}     # kernel launches one replay makes
+        self.stage_counts = None     # a pipeline stage's counts one replay makes
         self.capture_s = 0.0         # wall seconds its capture took
 
     def step(self) -> torch.Tensor:
@@ -526,6 +528,9 @@ class Executable:
             self.owner.replays_beside_capture += steps
         for _ in range(steps):
             self.graph.replay()
+        if self.stage_counts:
+            self.owner.cfg.stage.counts.update(
+                {k: v * steps for k, v in self.stage_counts.items()})
         with _COUNTS_LOCK:
             for mod in KERNEL_MODULES:
                 mod.LAUNCHES += self.launches[_name(mod)] * steps
@@ -874,8 +879,11 @@ class StepGraphs:
         main = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(main)
         # the padding run and the capture serve no request: their launches
-        # are counted apart, and the capture's become the replays' count
-        with _build.tally(), torch.cuda.stream(self.stream):
+        # (and a pipeline stage's microbatches and transfers) are counted
+        # apart, and the capture's become the replays' count
+        stage = self.cfg.stage
+        apart = stage.tally if stage is not None else contextlib.nullcontext
+        with _build.tally(), apart(), torch.cuda.stream(self.stream):
             exe.pad_run()
         main.wait_stream(self.stream)
         if self.workspace is not None and paged_decode.workspace(
@@ -888,7 +896,7 @@ class StepGraphs:
         collect = gc.isenabled()
         gc.disable()
         try:
-            with _build.tally() as made, torch.cuda.graph(
+            with _build.tally() as made, apart() as moved, torch.cuda.graph(
                     graph, pool=self.pool, stream=self.stream,
                     capture_error_mode="thread_local"):
                 logits = exe.step()
@@ -896,6 +904,7 @@ class StepGraphs:
             if collect:
                 gc.enable()
         exe.launches = {_name(mod): made[_name(mod)] for mod in KERNEL_MODULES}
+        exe.stage_counts = moved
         exe.graph, exe.logits = graph, (logits if keeps_logits(exe.key) else None)
         if isinstance(exe, SpecExecutable):
             exe.out = logits

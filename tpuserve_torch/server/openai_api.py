@@ -1532,14 +1532,6 @@ class _Handler(BaseHTTPRequestHandler):
                 ctx.engine.requests.pop(rid, None)
 
 
-# flags of the JAX server's CLI whose parts are not ported: (flag, its
-# argparse keywords, ROADMAP.md item); any value but the default exits
-# naming the item
-_UNPORTED_FLAGS = (
-    ("--pp", dict(type=int, default=0), "A10, multi-GPU: parallel/pipeline.py"),
-)
-
-
 def build_parser():
     """The JAX server's CLI (``tpuserve/server/openai_api.py`` ``main``),
     plus ``--device``."""
@@ -1663,6 +1655,11 @@ def build_parser():
                          "lockstep over torch.distributed (NCCL on the card, gloo with "
                          "--device cpu); this command starts the N-1 follower ranks "
                          "itself and rank 0 serves HTTP")
+    ap.add_argument("--pp", type=int, default=0,
+                    help="pipeline stages (0 or 1: none): one process a card, stage s "
+                         "holding layers s*L/N..(s+1)*L/N and their KV pages "
+                         "(parallel/pipeline.py); this command starts the N-1 later "
+                         "stages itself and rank 0 (stage 0, the head) serves HTTP")
     ap.add_argument("--multihost", action="store_true",
                     help="join torch.distributed from torchrun's environment (RANK, "
                          "WORLD_SIZE, MASTER_ADDR, MASTER_PORT, LOCAL_RANK): rank 0 "
@@ -1676,8 +1673,6 @@ def build_parser():
                          "--decode-url; 'decode' accepts migrations on /internal/migrate")
     ap.add_argument("--decode-url", default=None,
                     help="decode-pool base URL (required with --role prefill)")
-    for flag, kw, _item in _UNPORTED_FLAGS:
-        ap.add_argument(flag, help="not ported yet", **kw)
     return ap
 
 
@@ -1747,8 +1742,15 @@ def lora_modules_of(args) -> Optional[dict]:
 
 
 def _check_topology(ap, args) -> None:
-    """The JAX server's checks of ``--tp``, ``--multihost``, ``--disagg``,
-    ``--role`` and ``--decode-url``, and what the port does not combine."""
+    """The JAX server's checks of ``--tp``, ``--pp``, ``--multihost``,
+    ``--disagg``, ``--role`` and ``--decode-url``, and what the port does
+    not combine."""
+    if args.pp > 1 and args.tp > 1:
+        ap.error("--pp and --tp are mutually exclusive (tp-within-stage composition "
+                 "is future work)")
+    if args.pp > 1 and (args.disagg or args.role or args.multihost):
+        ap.error("--pp is a single-node colocated topology; drop "
+                 "--disagg/--role/--multihost")
     if args.role and (args.disagg or args.multihost):
         ap.error("--role prefill/decode is its own topology; drop --disagg/--multihost")
     if args.role == "prefill" and not args.decode_url:
@@ -1761,9 +1763,10 @@ def _check_topology(ap, args) -> None:
 
 
 def _join_ranks(args, argv: list):
-    """Under ``--tp N`` or ``--multihost``: join the process group and make
-    this rank's mesh.  A ``--tp`` command without ``RANK`` in its
-    environment is rank 0 of one node: it starts ranks 1..N-1 (this command
+    """Under ``--tp N``, ``--pp N`` or ``--multihost``: join the process
+    group and make this rank's mesh.  A ``--tp`` or ``--pp`` command without
+    ``RANK`` in its environment is rank 0 of one node: it starts ranks
+    1..N-1 (this command
     again, with torchrun's variables and a ``file://`` store under a
     temporary directory, logs beside it).  Returns (mesh, follower
     processes, their directory)."""
@@ -1776,20 +1779,22 @@ def _join_ranks(args, argv: list):
         multihost_initialize(args.device,
                              init_method=os.environ.get("TPUSERVE_INIT_METHOD", "env://"))
     else:
+        ranks = max(args.tp, args.pp)
         if "RANK" not in os.environ:
             run_dir = tempfile.mkdtemp(prefix="tpuserve-tp-")
             init = f"file://{os.path.join(run_dir, 'store')}"
             procs = multihost.spawn_ranks([None, "-m", "tpuserve_torch.server", *argv],
-                                          args.tp, run_dir, init)
+                                          ranks, run_dir, init)
             logger.info("started %d follower rank(s); logs under %s", len(procs), run_dir)
-            rank, world = 0, args.tp
+            rank, world = 0, ranks
         else:
             init = os.environ["TPUSERVE_INIT_METHOD"]
             rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
         multihost_initialize(args.device, init_method=init, rank=rank, world_size=world)
     import torch.distributed as dist
-    mesh = make_mesh(MeshConfig(tp=args.tp or dist.get_world_size()),
-                     device_type=args.device, multihost=args.multihost)
+    grid = (MeshConfig(pp=args.pp) if args.pp > 1
+            else MeshConfig(tp=args.tp or dist.get_world_size()))
+    mesh = make_mesh(grid, device_type=args.device, multihost=args.multihost)
     return mesh, procs, run_dir
 
 
@@ -1806,15 +1811,12 @@ def _build_engine(args, ecfg, mesh):
 
 def main(argv=None):
     """``python -m tpuserve_torch.server``: build the engine, warm it,
-    serve until SIGTERM, then drain.  Under ``--tp`` / ``--multihost`` rank
-    0 does that and the other ranks follow its steps
+    serve until SIGTERM, then drain.  Under ``--tp`` / ``--pp`` /
+    ``--multihost`` rank 0 does that and the other ranks follow its steps
     (``parallel/multihost.py``) until it stops them."""
     ap = build_parser()
     argv = list(sys.argv[1:] if argv is None else argv)
     args = ap.parse_args(argv)
-    for flag, kw, item in _UNPORTED_FLAGS:
-        if getattr(args, flag[2:].replace("-", "_")) != kw.get("default", False):
-            ap.error(f"{flag} is not ported yet (ROADMAP.md {item})")
     _check_topology(ap, args)
     if args.speculative_k <= 0 and args.speculative_draft_model:
         ap.error("--speculative-draft-model needs --speculative-k > 0")
@@ -1844,7 +1846,8 @@ def main(argv=None):
         if not torch.cuda.is_available():       # no card, and no --device cpu
             sys.exit("tpuserve_torch.server: no CUDA device is available; pass "
                      "device='cpu' to run the engine on the CPU")
-    mesh, procs, run_dir = (_join_ranks(args, argv) if args.tp > 1 or args.multihost
+    mesh, procs, run_dir = (_join_ranks(args, argv)
+                            if args.tp > 1 or args.pp > 1 or args.multihost
                             else (None, {}, None))
     engine = _build_engine(args, ecfg, mesh)
     if mesh is not None and not mesh.is_coordinator:
