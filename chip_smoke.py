@@ -36,7 +36,8 @@ non-zero:
              reject.
 3. families  every other family the repo registers, at full width (at
              full depth but for ``FAMILY_LAYERS``: Mistral-7B, Gemma-2-2B,
-             OPT-1.3B and Phi-3-mini at 8 layers, Gemma-3-4B at 12),
+             OPT-1.3B and Phi-3-mini at 8 layers, Gemma-3-4B at 12,
+             Qwen3-30B-A3B at 24 of 48),
              weights made on the card from the seed: Qwen3-30B-A3B
              (128 experts, top-8, bf16): its prefill and decode steps
              captured (the pool under ``pool_bytes_bound``), 8 prompts of
@@ -56,7 +57,7 @@ non-zero:
              token-identical, nothing released; then each in bf16: the
              first step's logits and (windowed ones) the chunks' logits
              against the plain attention.  Before every engine phase:
-             Qwen3-30B-A3B needs ~61 GB of the card.
+             Qwen3-30B-A3B needs ~31 GB of the card at 24 layers.
 4. breadth   the rest of the model breadth, weights made on the card: (a)
              DeepSeek-V2-Lite (MLA: a one-head 576-wide latent cache;
              64 experts top-6, 2 shared) in bf16 at full width, 8 of its
@@ -102,7 +103,8 @@ non-zero:
              a rank), each in float32 (TF32 off) cut to 2 layers and in
              bf16 cut to 4.  First each kernel against its plain version
              and timed at a tp 4 rank's shapes.  Then a one-card reference
-             in a process of its own (freed before the ranks start), then
+             in this process (``reference_run``; freed before the ranks
+             start), then
              four ranks on the one card over gloo (NCCL refuses two ranks on
              a device), spawned through the launcher ``--tp`` uses, eager
              (gloo cannot be captured): rank 0 serves 4 prompts of 128-512
@@ -121,7 +123,7 @@ non-zero:
              Qwen2-72B-Instruct at full width, float32 (TF32 off) cut to 4
              layers and bf16 cut to 8, each stage's layers (and stage 0's
              head) drawn on the card from the seed.  A one-card reference in
-             a process of its own, then four stages on the one card over
+             this process, then four stages on the one card over
              gloo (activations staged through host memory), spawned through
              the launcher ``--pp`` uses, eager: rank 0 serves phase tp's 4
              prompts of 128-512 x 16 greedy, one sampled request and a
@@ -278,10 +280,28 @@ non-zero:
              guided_choice request, each full and streamed, a document of
              its spec, and /metrics' three guided counters; (d) the kernels'
              launches, reset before (a), against the engine's steps.
-             Then ``python -m tpuserve_torch.server`` on the checkpoint
-             as a subprocess: one streamed completion
-             equal to (a)'s, then SIGTERM, which must end it with code 0
-             within its drain timeout.
+             The CLI on the checkpoint, as a subprocess, is phase
+             provision's: the rendered deploy command.
+12b. provision  the port's provisioner (``tpuserve_torch/provision``): (a)
+             every preset's manifests, on gke and on local, as dicts
+             through the port's validator; (b) the ``qwen3-0.6b-h100``
+             engine container as rendered for gke (command, literal env,
+             probes, one ``nvidia.com/gpu``, grace period); (c) that
+             command as a subprocess on the server phase's checkpoint
+             (full width and depth, bf16), only ``--checkpoint-dir``,
+             ``--port`` and the ``/models`` root changed,
+             ``CUDA_VISIBLE_DEVICES`` the one card; (d) the rendered
+             gateway command in front of it; (e) ``/readyz`` within the
+             rendered liveness budget, the provisioner's smoke tests
+             ("Who are you?", 32 tokens) through the gateway inside a
+             ``/debug/profile`` capture whose trace names B1's and B2's
+             kernels, every family the provisioner's queries, alert rules
+             and dashboard read from the engine on its ``/metrics``, one
+             streamed greedy completion of the server phase's first
+             prompt equal to the in-process server's, and both processes
+             out with code 0 on SIGTERM (sent together), the engine within
+             its drain timeout, the gateway within its grace period.  Logs
+             in ``build/provision_*.log``.
 13. tiers    the tiered KV cache at full depth, bf16, the main weights,
              greedy, ``TPUSERVE_STRICT_BLOCKS=1`` (the block and tier
              accounting checked every engine cycle): two requests over a
@@ -547,8 +567,8 @@ import numpy as np
 
 PHASES = ("build", "kernels", "families", "breadth", "tp", "pp", "ring", "train", "identity",
           "main", "graphs", "sampler",
-          "guided", "chunked", "mixed", "server", "tiers", "slo", "salvage", "flight", "spec",
-          "embed", "services", "fleet", "disagg", "profile")
+          "guided", "chunked", "mixed", "server", "provision", "tiers", "slo", "salvage",
+          "flight", "spec", "embed", "services", "fleet", "disagg", "profile")
 # Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA's data
 # sheet): bf16 tensor cores, float32 CUDA cores, HBM.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -3086,8 +3106,8 @@ def phase_server(results) -> dict:
     /v1/models, /metrics, then a response_format json_schema and a
     guided_choice request, each full and streamed (the same text, a
     document of its spec), and /metrics' three guided counters; (d) the
-    three kernels' launches against the steps.  Then ``python -m tpuserve_torch.server`` as a subprocess: one
-    streamed completion equal to (a)'s, and a drain on SIGTERM."""
+    three kernels' launches against the steps.  The first prompt and its
+    tokens go on to phase provision, whose deploy command serves it."""
     import gc
     import threading
     from pathlib import Path
@@ -3295,10 +3315,7 @@ def phase_server(results) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # the CLI, as a user starts it
-    cli = cli_serve(root, ckpt, model, one[0])
-    cli_ok = cli.pop("ok") and cli["tokens"] == http_tokens[0]
-    ok = bit_equal and a_ok and same_one and b_ok and c_ok and d_ok and cli_ok
+    ok = bit_equal and a_ok and same_one and b_ok and c_ok and d_ok
     return {"ok": ok, **out, "model": model, "layers": L, "cache": SERVER_CACHE,
             "one_at_a_time": {"prompt_lens": SERVER_ONE_LENGTHS, "well_formed": a_ok,
                               "same_as_twin": same_one},
@@ -3308,56 +3325,306 @@ def phase_server(results) -> dict:
             "sampler_options": sampler_ok, "guided": guided,
             "metrics_generation_tokens": gen,
             "served_tokens": served_tokens, "launches": launches, "launches_expected": want,
-            **steps, "cli": {**cli, "same_as_in_process": cli_ok}}
+            **steps,
+            # the CLI as a deploy starts it serves this prompt in phase provision
+            "cli_reference": {"prompt": one[0], "tokens": http_tokens[0]}}
 
 
-def cli_serve(root, ckpt, model: str, prompt) -> dict:
-    """``python -m tpuserve_torch.server`` on the checkpoint, with the
-    in-process server's cache flags: its bound port from its output, then
-    /readyz, one streamed greedy completion of ``prompt``, and SIGTERM,
-    after which it must exit 0 within its drain timeout."""
-    import queue as queue_mod
+# --------------------------------------------------------------------------
+# provision phase
+
+PROVISION_PRESET = "qwen3-0.6b-h100"
+PROVISION_PROFILE_S = 2.0          # the /debug/profile capture around the smoke
+PROVISION_KERNELS = ("flash_prefill", "paged_decode")
+PROVISION_TRACE = {"flash_prefill": "flash_prefill_bf16", "paged_decode": "paged_decode_kernel"}
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rendered_container(obj: dict) -> tuple:
+    """(container, pod spec) of a rendered Deployment."""
+    pod = obj["spec"]["template"]["spec"]
+    return pod["containers"][0], pod
+
+
+def provision_command(command: list, models_root: str, **flags) -> list:
+    """A rendered command to run here: ``python`` as this interpreter, each
+    flag of ``flags`` (``--checkpoint-dir``, ``--port``, ``--backend``) set
+    to its value, and every ``/models`` path under ``models_root``."""
+    assert command[0] == "python", command
+    cmd = [sys.executable] + list(command[1:])
+    for flag, value in flags.items():
+        flag = "--" + flag.replace("_", "-")
+        i = cmd.index(flag)
+        cmd[i + 1] = str(value)
+    return [models_root + a[len("/models"):] if a.startswith("/models") else a for a in cmd]
+
+
+def wait_ready(url: str, proc, budget_s: float, t0: float) -> dict:
+    """Poll ``/healthz`` and ``/readyz`` until ready, the process exits, or
+    twice the budget passes: the seconds from ``t0`` at which each first
+    answered 200."""
+    import urllib.error
+    out = {"healthz_s": None, "readyz_s": None}
+    while time.perf_counter() - t0 < 2 * budget_s and proc.poll() is None:
+        for key, path in (("healthz_s", "/healthz"), ("readyz_s", "/readyz")):
+            if out[key] is None:
+                try:
+                    if http(url + path, timeout=5)[0] == 200:
+                        out[key] = time.perf_counter() - t0
+                except (urllib.error.URLError, OSError):
+                    pass
+        if out["readyz_s"] is not None:
+            break
+        time.sleep(0.25)
+    return out
+
+
+def wait_backend_healthy(gw_url: str, limit_s: float, t0: float) -> float | None:
+    """Seconds from ``t0`` until the gateway holds every backend healthy."""
+    while time.perf_counter() - t0 < limit_s:
+        status, body = http(gw_url + "/gateway/status")
+        if status == 200 and all(b["healthy"] for b in body["backends"]):
+            return time.perf_counter() - t0
+        time.sleep(0.25)
+    return None
+
+
+def stop_process(proc, grace_s: float) -> dict:
+    """SIGTERM, then the exit code and seconds to exit (killed past the
+    grace period)."""
     import signal
+    t = time.perf_counter()
+    proc.send_signal(signal.SIGTERM)
+    try:
+        rc = proc.wait(timeout=grace_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = None
+    return {"rc": rc, "exit_s": time.perf_counter() - t, "grace_s": grace_s}
+
+
+def provision_manifests() -> dict:
+    """(a) Every preset's manifests as dicts, on gke and on local, through
+    the port's validator: the object count; a failure raises."""
+    from tpuserve_torch.provision import config as pconfig, e2e, validate
+    counts = {}
+    for name in pconfig.PRESETS:
+        for provider in ("gke", "local"):
+            cfg = pconfig.load_config(preset=name, provider=provider, project="chip-smoke")
+            counts[f"{name}/{provider}"] = validate.validate_all(e2e.all_manifests(cfg))
+    return {"objects": sum(counts.values()), "configs": len(counts), "by_config": counts}
+
+
+def engine_read_families() -> dict:
+    """The families the port's VERIFY_QUERIES, alert rules and dashboard
+    read from the engine's ``/metrics``."""
+    from urllib.parse import unquote
+    from tpuserve_torch.provision import alerts, dashboard, observability
+    verify = [unquote(p.split("query=", 1)[1]) for _, p, _ in observability.VERIFY_QUERIES
+              if "query=" in p]
+    rules = [r["expr"] for g in alerts.prometheus_rule()["spec"]["groups"] for r in g["rules"]]
+    return {"verify": alerts.engine_families(verify), "alerts": alerts.engine_families(rules),
+            "dashboard": alerts.engine_families(dashboard.exprs()),
+            "exported": {m.family: m.exported for m in alerts.registry()}}
+
+
+def phase_provision(results) -> dict:
+    """The provisioner's path on the card: (a) every preset's manifests
+    through the port's validator; (b) the engine container of
+    ``qwen3-0.6b-h100`` on gke as rendered (command, literal env, probes,
+    its one ``nvidia.com/gpu``, the grace period); (c) that command run as a
+    subprocess on the server phase's seed-0 Qwen3-0.6B checkpoint (full
+    width and depth, bf16), only ``--checkpoint-dir``, ``--port`` and the
+    ``/models`` root changed, ``CUDA_VISIBLE_DEVICES`` the card the limit
+    asks for; (d) the rendered gateway command in front of it; (e) ready
+    within the rendered liveness budget, the port's
+    ``smoke.run_local_smoke_tests`` through the gateway inside a
+    ``/debug/profile`` capture whose trace names B1's and B2's kernels,
+    every family the port's queries, alerts and dashboard read from the
+    engine on its ``/metrics``, and both processes out with 0 on SIGTERM
+    within their grace periods."""
+    import tempfile
     import threading
-    drain_timeout = 25.0
-    cmd = [sys.executable, "-m", "tpuserve_torch.server", "--model", model,
-           "--checkpoint-dir", str(ckpt), "--host", "127.0.0.1", "--port", "0",
-           "--drain-timeout", str(drain_timeout)]
-    for flag, key in (("--block-size", "block_size"), ("--num-blocks", "num_blocks"),
-                      ("--max-blocks-per-seq", "max_blocks_per_seq")):
-        cmd += [flag, str(SERVER_CACHE[key])]
-    log = root / "build" / "server_cli.log"
-    out = {"ok": False, "log": str(log.relative_to(root))}
-    t0 = time.perf_counter()
-    with open(log, "w") as err:
-        proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE, stderr=err, text=True)
+    from pathlib import Path
+    from tpuserve_torch.provision import config as pconfig, manifests, smoke
+    from tpuserve_torch.provision.validate import GPU_RESOURCE
+
+    root = Path(__file__).resolve().parent
+    ckpt = root / "build" / "server_ckpt"
+    out = {"ok": False, "preset": PROVISION_PRESET}
+
+    # (b) the rendered engine and gateway containers
+    cfg = pconfig.load_config(preset=PROVISION_PRESET, project="chip-smoke")
+    objs = {(o["kind"], o["metadata"]["name"]): o for o in manifests.serving_manifests(cfg)}
+    eng_c, eng_pod = rendered_container(objs[("Deployment", "tpuserve-engine")])
+    gw_c, gw_pod = rendered_container(objs[("Deployment", "tpuserve-gateway")])
+    gpus = int(eng_c["resources"]["limits"][GPU_RESOURCE])
+    live = eng_c["livenessProbe"]
+    budget = live["initialDelaySeconds"] + live["periodSeconds"] * live.get("failureThreshold", 3)
+    # K8s runs the preStop hook inside the grace period, before SIGTERM
+    pre_stop = float(eng_c["lifecycle"]["preStop"]["exec"]["command"][1])
+    eng_grace = eng_pod["terminationGracePeriodSeconds"] - pre_stop
+    gw_grace = gw_pod.get("terminationGracePeriodSeconds", 30)
+    model = cfg.model
+    out["rendered"] = {"engine_command": eng_c["command"], "gateway_command": gw_c["command"],
+                       "env": {e["name"]: e["value"] for e in eng_c["env"] if "value" in e},
+                       "gpus": gpus, "liveness_budget_s": budget,
+                       "engine_grace_s": eng_grace, "gateway_grace_s": gw_grace}
+    if gpus != 1:
+        out["error"] = f"the engine asks for {gpus} cards, not 1"
+        return out
+
+    # (c) the engine command on the card, (d) the gateway command before it
+    models_root = tempfile.mkdtemp(prefix="provision_models_", dir=root / "build")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES=",".join(map(str, range(gpus))),
+               **out["rendered"]["env"])
+    env = {k: (models_root + v[len("/models"):] if v.startswith("/models") else v)
+           for k, v in env.items()}
+    eng_port, gw_port = free_port(), free_port()
+    eng_cmd = provision_command(eng_c["command"], models_root,
+                                checkpoint_dir=ckpt, port=eng_port)
+    eng_url = f"http://127.0.0.1:{eng_port}"
+    gw_cmd = provision_command(gw_c["command"], models_root, port=gw_port, backend=eng_url)
+    gw_url = f"http://127.0.0.1:{gw_port}"
+    out["run"] = {"engine_command": eng_cmd, "gateway_command": gw_cmd,
+                  "cuda_visible_devices": env["CUDA_VISIBLE_DEVICES"]}
+    logs = {name: open(root / "build" / f"provision_{name}.log", "w")
+            for name in ("engine", "gateway")}
+    procs = {}
+    try:
+        t_start = time.perf_counter()
+        procs["engine"] = subprocess.Popen(eng_cmd, cwd=root, env=env, stdout=logs["engine"],
+                                           stderr=subprocess.STDOUT)
+        # (a) while the engine boots
+        t0 = time.perf_counter()
+        out["manifests"] = provision_manifests()
+        out["manifests"]["seconds"] = time.perf_counter() - t0
+        ready = wait_ready(eng_url, procs["engine"], budget, t_start)
+        out["start"] = {**ready, "liveness_budget_s": budget,
+                        "within_budget": ready["readyz_s"] is not None
+                        and ready["readyz_s"] <= budget}
+        if ready["readyz_s"] is None:
+            out["error"] = "the engine never answered /readyz"
+            return out
+        # the process's first capture initialises the profiler, which holds
+        # the engine for seconds: done while the gateway starts (its imports
+        # take as long), before any traffic; should its health probes have
+        # caught the hold, the smoke waits for the engine's readmission
+        t_gw = time.perf_counter()
+        procs["gateway"] = subprocess.Popen(gw_cmd, cwd=root, env=env, stdout=logs["gateway"],
+                                            stderr=subprocess.STDOUT)
+        first = http(eng_url + "/debug/profile?seconds=0.1", {}, method="POST")[0]
+        out["profiler_init"] = {"status": first, "seconds": time.perf_counter() - t_gw}
+        gw_ready = wait_ready(gw_url, procs["gateway"], 30.0, t_gw)
+        out["gateway_start_s"] = gw_ready["healthz_s"]
+        if gw_ready["healthz_s"] is None:
+            out["error"] = "the gateway never answered /healthz"
+            return out
+        out["backend_healthy_s"] = wait_backend_healthy(gw_url, 30.0, t_gw)
+
+        # (e) the smoke tests through the gateway inside a profile capture,
+        # before the gateway's canary sends its first round (an interval
+        # after it starts): the window holds the smoke's requests alone
+        _, before = http(eng_url + "/metrics")
+        got = {}
+
+        def capture():
+            got["capture"] = http(eng_url + f"/debug/profile?seconds={PROVISION_PROFILE_S}",
+                                  {}, method="POST")
+        t_cap = time.perf_counter()
+        th = threading.Thread(target=capture)
+        th.start()
+        time.sleep(0.5)           # the capture starts on the loop thread first
+        t_smoke = time.perf_counter()
         try:
-            lines: "queue_mod.Queue[str]" = queue_mod.Queue()
-            threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
-                             daemon=True).start()
-            line = lines.get(timeout=300)
-            if " listening on " not in line:
-                out["stdout"] = line
-                return out
-            url = "http://127.0.0.1:" + line.strip().rsplit(":", 1)[1]
-            out["listening_s"] = time.perf_counter() - t0
-            ready = http(url + "/readyz")[0]
-            res = sse(url + "/v1/completions", {
-                "model": model, "prompt": prompt, "max_tokens": SERVER_TOKENS,
-                "temperature": 0, "ignore_eos": True, "return_token_ids": True})
-            out["tokens"] = stream_ids(res)
-            t_term = time.perf_counter()
-            proc.send_signal(signal.SIGTERM)
-            rc = proc.wait(timeout=drain_timeout)
-            out.update(readyz=ready, stream_status=res.get("status"), rc=rc,
-                       drain_s=time.perf_counter() - t_term,
-                       ok=ready == 200 and res.get("done") and rc == 0)
-        except (queue_mod.Empty, subprocess.TimeoutExpired) as e:
-            out["error"] = repr(e)
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+            res = smoke.run_local_smoke_tests(gw_url, model)
+            smoke_ok, smoke_err = True, None
+        except smoke.SmokeTestFailure as e:
+            res, smoke_ok, smoke_err = {}, False, str(e)
+        smoke_s = time.perf_counter() - t_smoke
+        smoke_end = time.perf_counter() - t_cap
+        _, during = http(eng_url + "/metrics")
+        th.join()
+        status, cap = got["capture"]
+        events = {}
+        if status == 200:
+            named = trace_kernels(cap["trace"])
+            events = {k: named[PROVISION_TRACE[k]] for k in PROVISION_KERNELS}
+        completion = json.loads(res["completion"]) if smoke_ok else {}
+        canary_in_window = (metric_sum(during, "tpuserve_canary_requests_total")
+                            - metric_sum(before, "tpuserve_canary_requests_total"))
+        out["smoke"] = {"ok": smoke_ok, "error": smoke_err, "seconds": smoke_s,
+                        # done inside the window (its start lagging the request
+                        # by at most half a second; the trace's events of the
+                        # prefill and every decode step say it did), with no
+                        # canary request in it
+                        "within_capture": smoke_end < PROVISION_PROFILE_S - 0.5,
+                        "canary_requests_in_window": canary_in_window,
+                        "models_names_model": smoke_ok and model in res["models"],
+                        "completion_tokens": completion.get("usage", {}).get(
+                            "completion_tokens"),
+                        "text_chars": len(completion["choices"][0]["text"]) if smoke_ok else None}
+        out["profile"] = {"status": status, "trace_kernel_events": events}
+        out["launches"] = events
+
+        # the engine's /metrics against what the queries, alerts and dashboard read
+        _, metrics = http(eng_url + "/metrics")
+        reads = engine_read_families()
+        exported = reads.pop("exported")
+        missing = {k: sorted(f for f in fams if f"# TYPE {exported[f]} " not in metrics)
+                   for k, fams in reads.items()}
+        out["metrics"] = {"families_read": {k: len(v) for k, v in reads.items()},
+                          "missing": missing,
+                          "smoke_requests": metric_sum(during, "vllm_request_total")
+                          - metric_sum(before, "vllm_request_total")}
+        # the CLI's greedy stream of the server phase's first prompt against
+        # the in-process server's (the same engine config and checkpoint)
+        ref = results["server"]["cli_reference"]
+        res = sse(eng_url + "/v1/completions", {
+            "model": model, "prompt": ref["prompt"], "max_tokens": len(ref["tokens"]),
+            "temperature": 0, "ignore_eos": True, "return_token_ids": True})
+        out["cli_stream"] = {"status": res.get("status"), "done": bool(res.get("done")),
+                             "same_as_in_process": stream_ids(res) == ref["tokens"]}
+        # SIGTERM to both at once, as a rollout sends it; the engine drains
+        # within its --drain-timeout, inside the rendered grace period
+        drain = float(eng_c["command"][eng_c["command"].index("--drain-timeout") + 1])
+        stops = {}
+        ths = [threading.Thread(target=lambda n=n, g=g: stops.__setitem__(
+            n, stop_process(procs[n], g))) for n, g in (("gateway", gw_grace),
+                                                        ("engine", min(eng_grace, drain)))]
+        for th_ in ths:
+            th_.start()
+        for th_ in ths:
+            th_.join()
+        procs.clear()
+        out["stop"] = stops
+    finally:
+        for proc in procs.values():
+            proc.kill()
+            proc.wait()
+        for f in logs.values():
+            f.close()
+        shutil.rmtree(models_root, ignore_errors=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    out["card"] = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else None
+    out["ok"] = (out["manifests"]["objects"] > 0 and out["start"]["within_budget"]
+                 and out["backend_healthy_s"] is not None
+                 and out["smoke"]["ok"] and out["smoke"]["models_names_model"]
+                 and out["smoke"]["within_capture"]
+                 and out["smoke"]["canary_requests_in_window"] == 0
+                 and all(events.get(k, 0) > 0 for k in PROVISION_KERNELS)
+                 and not any(out["metrics"]["missing"].values())
+                 and out["cli_stream"]["done"] and out["cli_stream"]["same_as_in_process"]
+                 and all(s["rc"] == 0 and s["exit_s"] <= s["grace_s"]
+                         for s in out["stop"].values()))
     return out
 
 
@@ -5146,11 +5413,13 @@ def family_free() -> None:
 # The depth the families and breadth phases run these models at, cut to
 # keep the script inside its limit (every width, head and expert count,
 # window, prompt and dtype stays; a 5:1 model keeps two global layers);
-# the rest run at full depth.  Qwen3-30B-A3B keeps its 48 layers: the int8
-# run's weight share is gated against its bf16 bytes at that depth.
+# the rest run at full depth.  Qwen3-30B-A3B runs 24 of its 48 layers in
+# both phases: the int8 run's weight share is gated against the families
+# phase's bf16 bytes at the same depth (0.5015 at 24 layers, as at 48).
 FAMILY_LAYERS = {"mistralai/Mistral-7B-Instruct-v0.1": 8, "google/gemma-2-2b": 8,
                  "google/gemma-3-4b-text": 12, "facebook/opt-1.3b": 8,
-                 "microsoft/Phi-3-mini-4k-instruct": 8, "deepseek-ai/DeepSeek-V2-Lite": 8}
+                 "microsoft/Phi-3-mini-4k-instruct": 8, "deepseek-ai/DeepSeek-V2-Lite": 8,
+                 "Qwen/Qwen3-30B-A3B": 24}
 
 
 def family_cfg(name: str, dtype: str):
@@ -5409,8 +5678,8 @@ def moe_bounds(cfg, params, lens, tokens: int) -> dict:
 
 
 def family_moe() -> dict:
-    """Qwen3-30B-A3B (48 layers, 128 experts, top-8), bf16, full width and
-    depth: the default engine with its prefill (8, 1,024) and decode (8,
+    """Qwen3-30B-A3B (128 experts, top-8), bf16, full width, 24 of its 48
+    layers (``FAMILY_LAYERS``): the default engine with its prefill (8, 1,024) and decode (8,
     greedy) steps captured, the graph pool under ``pool_bytes_bound``;
     8 prompts of the main lengths, 64 greedy tokens each, launches against
     the steps; prefill ms and decode tok/s beside their bounds; the first
@@ -7357,6 +7626,23 @@ def tp_worker(spec_path: str) -> int:
     return 0
 
 
+def reference_run(work, rate: bool, mode: str = "tp") -> dict:
+    """``tp_worker``'s one-card reference (world 1, no mesh) in this
+    process, as a spawned rank would run it (TF32 off, restored after;
+    its results through JSON, as the ranks' come), its memory freed before
+    the ranks start; a process of its own would add its start-up."""
+    import torch
+    spec = {"world": 1, "backend": None, "rate": rate, "out": str(work / "ref"), "mode": mode}
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        runs, fn = (PP_RUNS, pp_run) if mode == "pp" else (TP_RUNS, tp_run)
+        out = {run[0]: fn(run, spec, 0) for run in runs}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    return json.loads(json.dumps(out))
+
+
 def tp_spawn(work, label: str, world: int, backend, rate: bool, mode: str = "tp") -> tuple:
     """Run ``tp_worker`` in ``world`` processes through the launcher
     ``--tp`` uses (``multihost.spawn_ranks``: torchrun's variables, a
@@ -7485,12 +7771,8 @@ def phase_tp(results) -> dict:
     out["local_kernels_s"] = time.perf_counter() - t
     oks = [all(c["ok"] for c in out["local_kernels"].values())]
     t = time.perf_counter()
-    ref, rcs, tails = tp_spawn(work, "ref", 1, None, rate=True)
+    ref = reference_run(work, rate=True)
     out["ref_s"] = time.perf_counter() - t
-    if rcs[0] != 0 or ref[0] is None:
-        out.update(ok=False, ref_rc=rcs[0], ref_log=tails.get(0))
-        return out
-    ref = ref[0]
     t = time.perf_counter()
     ranks, rcs, tails = tp_spawn(work, "gloo", 4, "gloo", rate=False)
     out["gloo"] = tp_gates(work, ref, ranks, rcs, "gloo")
@@ -7677,12 +7959,8 @@ def phase_pp(results) -> dict:
     t = time.perf_counter()
     count = torch.cuda.device_count()
     # the reference's decode rates are the NCCL stages' yardstick
-    ref, rcs, tails = tp_spawn(work, "ref", 1, None, rate=count >= 2, mode="pp")
+    ref = reference_run(work, rate=count >= 2, mode="pp")
     out["ref_s"] = time.perf_counter() - t
-    if rcs[0] != 0 or ref[0] is None:
-        out.update(ok=False, ref_rc=rcs[0], ref_log=tails.get(0))
-        return out
-    ref = ref[0]
     oks = []
     t = time.perf_counter()
     ranks, rcs, tails = tp_spawn(work, "gloo", PP_STAGES, "gloo", rate=False, mode="pp")
@@ -8308,9 +8586,9 @@ def read_launches() -> dict:
 LAUNCH_PHASE = {"flash_prefill": "main", "paged_decode": "main",
                 "paged_window": "chunked", "ragged_paged": "mixed"}
 PATH_PHASES = {"flash_prefill": ("families", "breadth", "tp", "pp", "ring", "spec", "embed",
-                                 "services", "fleet", "disagg"),
+                                 "services", "fleet", "disagg", "provision"),
                "paged_decode": ("families", "breadth", "tp", "pp", "services", "fleet",
-                                "disagg"),
+                                "disagg", "provision"),
                "paged_window": ("families", "breadth", "tp", "spec", "services", "fleet",
                                 "disagg"),
                "ragged_paged": ("breadth", "tp", "disagg")}
@@ -8368,6 +8646,8 @@ def main() -> int:
             res = phase_mixed(results["main"]["params"])
         elif phase == "server":
             res = phase_server(results)
+        elif phase == "provision":
+            res = phase_provision(results)
         elif phase == "tiers":
             res = phase_tiers(results)
         elif phase == "slo":
@@ -8393,7 +8673,8 @@ def main() -> int:
         res["seconds"] = time.perf_counter() - t
         results[phase] = res
         emit({"phase": phase, **{k: v for k, v in res.items() if k not in (
-            "headline", "params", "engine", "eager_engine", "streams", "sampled_stream")}})
+            "headline", "params", "engine", "eager_engine", "streams", "sampled_stream",
+            "cli_reference")}})
         if not res["ok"]:
             print(f"chip_smoke: phase {phase} failed", file=sys.stderr)
             return 1

@@ -245,3 +245,30 @@ def test_chip_smoke_refuses_without_the_package(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+def test_provisioner_loads_no_jax_no_tools_and_no_torch():
+    """The provisioner deploys from a host without a card: importing every
+    module of it, and its CLI's ``--help``, loads no jax, no tpuserve or
+    tools module, no torch and no PyYAML (only rendering YAML text needs
+    it)."""
+    mods = ", ".join(f"tpuserve_torch.provision.{p.stem}"
+                     for p in sorted((ROOT / "tpuserve_torch" / "provision").glob("*.py"))
+                     if p.stem not in ("__init__", "__main__"))
+    check = ("bad = [m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'jaxlib', 'tpuserve', 'tools', 'torch', 'yaml')]\n"
+             "assert not bad, bad\n")
+    res = _run(f"import sys, tpuserve_torch.provision, {mods}\n" + check + "print('clean')")
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "clean"
+    res = _run("import runpy, sys\n"
+               "sys.argv = ['tpuserve_torch.provision', '--help']\n"
+               "try:\n"
+               "    runpy.run_module('tpuserve_torch.provision', run_name='__main__')\n"
+               "except SystemExit as e:\n"
+               "    assert e.code == 0, e.code\n" + check + "print('clean')")
+    assert res.returncode == 0, res.stderr
+    assert "gpu-provisioner" in res.stdout and res.stdout.strip().endswith("clean")
+    for p in (ROOT / "tpuserve_torch" / "provision").glob("*.py"):
+        assert p in PORT_FILES
+        assert "tools" not in {m.split(".")[0] for m in _imported_modules(p)}

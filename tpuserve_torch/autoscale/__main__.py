@@ -63,7 +63,7 @@ def _serve_metrics(reconciler: Reconciler, metrics, host: str,
     return httpd.server_address[1]
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser("tpuserve_torch.autoscale")
     ap.add_argument("--namespace", required=True)
     ap.add_argument("--deployment", default="tpuserve-engine")
@@ -90,7 +90,11 @@ def main(argv=None):
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=9090,
                     help="the scaler's own /metrics + /healthz port")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
 
     policy = AutoscalePolicy(PolicyConfig(

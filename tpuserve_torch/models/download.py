@@ -46,11 +46,15 @@ def download_model(model: str, out_dir: str,
     return target
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description="Download HF model weights")
     ap.add_argument("--model", required=True)
     ap.add_argument("--out", default="/models")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     download_model(args.model, args.out)
 

@@ -917,7 +917,7 @@ class _GatewayHandler(BaseHTTPRequestHandler):
         self._relay("POST")
 
 
-def main(argv=None):
+def build_parser():
     import argparse
     ap = argparse.ArgumentParser("tpuserve_torch.gateway")
     ap.add_argument("--backend", action="append", default=None,
@@ -943,6 +943,14 @@ def main(argv=None):
                          "canary.py); black-box tpuserve_canary_* "
                          "SLIs on /metrics, breach state on "
                          "/gateway/status.  0 = off")
+    return ap
+
+
+def main(argv=None):
+    """``python -m tpuserve_torch.server.gateway``: serve until SIGTERM (a
+    pod's termination) or Ctrl-C, then stop and exit 0."""
+    import signal
+    ap = build_parser()
     args = ap.parse_args(argv)
     if not args.backend and not (args.backends_file or args.backends_url):
         ap.error("need --backend, --backends-file, or --backends-url")
@@ -953,12 +961,15 @@ def main(argv=None):
                                backends_file=args.backends_file,
                                backends_url=args.backends_url,
                                canary_interval_s=args.canary_interval))
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *_: stop.set())
     port = gw.start()
     print(f"gateway listening on :{port}", flush=True)
     try:
-        threading.Event().wait()
+        stop.wait()
     except KeyboardInterrupt:
-        gw.shutdown()
+        pass
+    gw.shutdown()
 
 
 if __name__ == "__main__":
