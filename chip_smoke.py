@@ -101,7 +101,7 @@ non-zero:
              the seed at full width: Qwen2-72B-Instruct at tp 4 (16 q and 2
              kv heads a rank) and Qwen3-30B-A3B at ep 4 (32 of 128 experts
              a rank), each in float32 (TF32 off) cut to 2 layers and in
-             bf16 cut to 4.  First each kernel against its plain version
+             bf16 cut to 4 (Qwen2-72B) and 2 (Qwen3-30B-A3B).  First each kernel against its plain version
              and timed at a tp 4 rank's shapes.  Then a one-card reference
              in this process (``reference_run``; freed before the ranks
              start), then
@@ -119,9 +119,29 @@ non-zero:
              more cards, the same on NCCL with captured graphs at tp /
              ep = min(4, cards), with decode tok/s beside the reference's;
              on one card the line says ``"nccl": "not run: 1 card"``.
+             The same spawn then runs ``features`` (``features_run``):
+             Qwen3-0.6B at full width (16 / 8 heads, 4 / 2 a rank at tp 4),
+             ``FEATURE_LAYERS`` (4) layers, float32, seed-0 weights, three
+             engines on the grid and on the one-card reference: guided
+             decoding (a JSON schema and a choice list in windows of 8),
+             embeddings (mean and last) and prompt scoring, then the KV
+             tiers (a 512-token prefix demoted half to host DRAM, half to
+             the spill directory by one 1,496-token prompt, then a hit);
+             n-gram speculation; a two-layer float32 draft model.  Gates:
+             the tier hit's tokens equal the reference's with pages hit
+             from host and spill, each rank's restored pages bit-equal to
+             its own before the demote and within 1e-4 (relative to the
+             pages' scale) of its heads of the reference's, every rank's
+             store holding the reference's hashes; guided outputs legal,
+             tokens equal, each grammar's tables sent once; embedding
+             cosines >= 0.9999, score logprobs within 1e-4; both
+             speculations' tokens equal plain decode; followers' windows
+             equal rank 0's; each rank's launches equal layers x its runs
+             of each step kind (B1: prefills, trunk batches, draft passes;
+             B2: decode steps; B3: chunks and verify passes).
 4b. pp      pipeline stages (``tpuserve_torch/parallel/pipeline.py``),
              Qwen2-72B-Instruct at full width, float32 (TF32 off) cut to 4
-             layers and bf16 cut to 8, each stage's layers (and stage 0's
+             layers and bf16 cut to 4, each stage's layers (and stage 0's
              head) drawn on the card from the seed.  A one-card reference in
              this process, then four stages on the one card over
              gloo (activations staged through host memory), spawned through
@@ -137,9 +157,9 @@ non-zero:
              layers x the microbatches it ran (both > 0), the head on stage
              0 alone, every rank exiting 0.  With two or more cards, the same
              on NCCL at pp = min(4, cards) with captured graphs (a replay
-             adds its capture's launches and microbatches), 8 layers (the
-             one-card reference holds no more), decode tok/s beside the
-             reference's (with graphs and eager, read only then); on one
+             adds its capture's launches and microbatches), decode tok/s
+             beside the reference's (with graphs and eager, read only
+             then); on one
              card the line says ``"nccl": "not run: 1 card"``.
 4c. ring     context parallelism (``parallel/ring_attention.py``) at
              Qwen2-72B-Instruct's attention shape, bf16: one 16,384-token
@@ -472,7 +492,7 @@ non-zero:
              once, the 429s to the one whose token rate is below its
              traffic; the kernels' launches over (b).  (c) the model pool,
              catalog {Qwen3-0.6B, Llama-3.1-8B-Instruct at full width cut
-             to 8 of its 32 layers}, one resident, a
+             to 4 of its 32 layers}, one resident, a
              2 GiB host tier and a spill directory under ``build/``:
              requests alternating by ``model`` through swaps from cold (the
              8B's checkpoint, through the loader), the host tier (the 0.6B) and the spill
@@ -5415,7 +5435,9 @@ def family_free() -> None:
 # window, prompt and dtype stays; a 5:1 model keeps two global layers);
 # the rest run at full depth.  Qwen3-30B-A3B runs 24 of its 48 layers in
 # both phases: the int8 run's weight share is gated against the families
-# phase's bf16 bytes at the same depth (0.5015 at 24 layers, as at 48).
+# phase's bf16 bytes at the same depth (0.5015 at 24 layers, as at 48); at
+# 12 its free-running bf16 logits agree on 0.5 of the top-1 tokens, under
+# the 0.75 gate (router ties move more of a shallow model's expert sets).
 FAMILY_LAYERS = {"mistralai/Mistral-7B-Instruct-v0.1": 8, "google/gemma-2-2b": 8,
                  "google/gemma-3-4b-text": 12, "facebook/opt-1.3b": 8,
                  "microsoft/Phi-3-mini-4k-instruct": 8, "deepseek-ai/DeepSeek-V2-Lite": 8,
@@ -6632,10 +6654,10 @@ SERVICES_SWAP_TOKENS = 32
 # Llama-3.1-8B-Instruct at full width cut to SERVICES_8B_LAYERS of its 32
 # layers (registered under this name at the phase's start): its checkpoint
 # write and its cold and spill swaps took 73 s of the script's limit at
-# full depth, and every swap path and gate is the same at 8
-SERVICES_8B, SERVICES_8B_LAYERS = "meta-llama/Llama-3.1-8B-Instruct-8L", 8
+# full depth, and every swap path and gate is the same at 4
+SERVICES_8B, SERVICES_8B_LAYERS = "meta-llama/Llama-3.1-8B-Instruct-4L", 4
 SERVICES_POOL = ("Qwen/Qwen3-0.6B", SERVICES_8B)
-SERVICES_HOST_BYTES = 2 << 30     # holds the 0.6B (1.2 GB), not the cut 8B (5.6 GB)
+SERVICES_HOST_BYTES = 2 << 30     # holds the 0.6B (1.2 GB), not the cut 8B (3.8 GB)
 SERVICES_SWAP_MARGIN = 1 << 30    # card memory after the round trip, within
 # the tenants: "slow" refills below one 8 x 1,024 + 64 request's estimate
 SERVICES_TENANTS = {"tenants": {
@@ -7424,9 +7446,11 @@ def phase_fleet(results) -> dict:
 # (label, model, dtype, layers, tp, ep): full width, depth cut; each rank's
 # weights drawn on the card from the seed
 TP_RUNS = (("dense_fp32", "Qwen/Qwen2-72B-Instruct", "float32", 2, 4, 1),
+           # at 2 layers its first-step logits agree on 0.8 of the top-1
+           # tokens (4 of 5 rows), too near the 0.75 gate; 1.0 at 4
            ("dense_bf16", "Qwen/Qwen2-72B-Instruct", "bfloat16", 4, 4, 1),
            ("moe_fp32", "Qwen/Qwen3-30B-A3B", "float32", 2, 1, 4),
-           ("moe_bf16", "Qwen/Qwen3-30B-A3B", "bfloat16", 4, 1, 4))
+           ("moe_bf16", "Qwen/Qwen3-30B-A3B", "bfloat16", 2, 1, 4))
 TP_LENGTHS = [128, 256, 384, 512]
 TP_TOKENS = 16
 TP_HIT = 64                 # new tokens after the cached 512-token prompt: one chunk
@@ -7594,6 +7618,214 @@ def tp_run(run, spec: dict, rank: int) -> dict:
     return out
 
 
+# phase tp's features run: what the mesh serves beside the plain streams
+# (tiers, guided decoding, embeddings and scoring, speculation), Qwen3-0.6B
+# at full width (16 / 8 heads: 4 / 2 a rank at tp 4), FEATURE_LAYERS layers,
+# float32 (TF32 off), seed-0 weights drawn on the card
+FEATURE_MODEL = "Qwen/Qwen3-0.6B"
+# a two-layer float32 draft of the target's widths (its own seed-0 draw),
+# registered in every process that builds a spec engine
+FEATURE_DRAFT = "Qwen/Qwen3-0.6B-draft2"
+FEATURE_CACHE = dict(block_size=32, num_blocks=48, max_blocks_per_seq=48, dtype="float32")
+# 8 whole float32 pages of 1 MiB in host DRAM: the 16-block prefix, demoted
+# last, lands half in host DRAM and half in the spill directory
+FEATURE_HOST_BYTES = 8 << 20
+FEATURE_SHARED = 512            # tokens: 16 blocks
+FEATURE_CHURN = [1496]          # 47 of the 48 blocks: evicts every cached one
+FEATURE_TEXTS = [48, 128, 256]  # embedding / scoring inputs
+FEATURE_SPEC_TOKENS = 12
+FEATURE_GUIDED = ("json_schema", "choice")
+
+
+def register_feature_draft() -> None:
+    from tpuserve_torch.models.config import get_model_config, register_model_config
+    register_model_config(dataclasses.replace(get_model_config(FEATURE_MODEL),
+                                              name=FEATURE_DRAFT, num_layers=2,
+                                              dtype="float32"))
+
+
+def features_serve(eng, kind: str, work: dict) -> dict:
+    """Rank 0's (or the one-card reference's) work on one features engine:
+    ``kind`` "main" (the guided requests, the trunks, then the tiers: a
+    shared prefix, churn, a hit) or a spec engine's repetitive prompts."""
+    from tpuserve_torch.runtime import SamplingParams
+    V = eng.model_cfg.vocab_size
+    rng = np.random.default_rng(SEED + 7)
+    greedy = dict(temperature=0.0, ignore_eos=True)
+    if kind != "main":
+        reqs = eng.generate(work["repetitive"], SamplingParams(max_tokens=FEATURE_SPEC_TOKENS,
+                                                               **greedy))
+        s = eng.stats
+        return {"tokens": [r.output_token_ids for r in reqs],
+                "spec": [s.spec_steps, s.spec_proposed, s.spec_accepted]}
+    out = {"guided": []}
+    for name in FEATURE_GUIDED:
+        mode, spec = GUIDED_FAMILIES[name]
+        reqs = eng.generate(prompts(rng, [16, 24], V), SamplingParams(
+            max_tokens=32, temperature=0.0, guided=mode, guided_schema=spec))
+        out["guided"].append([[r.output_token_ids, r.output_text, r.finish_reason.value]
+                              for r in reqs])
+    out["guided_windows"] = eng.stats.guided_fsm_windows
+    texts = prompts(rng, FEATURE_TEXTS, V)
+    out["embed"] = {p: eng.embed(texts, pooling=p)[0].tolist() for p in ("mean", "last")}
+    out["score"] = [[e["logprob"] for e in entries[1:]]
+                    for entries in eng.score_prompts(texts, top_n=2)]
+    shared = prompts(rng, [FEATURE_SHARED], V)[0]
+    first = eng.generate([shared + [7]], SamplingParams(max_tokens=8, **greedy))
+    eng.generate(prompts(rng, FEATURE_CHURN, V), SamplingParams(max_tokens=4, **greedy))
+    where: dict = {}
+    for h in eng.block_manager.prefix_chain(shared + [0]):
+        w = eng._kv_tiers.where(h) or "none"
+        where[w] = where.get(w, 0) + 1
+    rid = eng.add_request(prompt_token_ids=shared + rng.integers(0, V, 64).tolist(),
+                          params=SamplingParams(max_tokens=8, **greedy))
+    while eng.has_work():
+        eng.step()
+    hit = eng.requests.pop(rid)
+    out["tier"] = {"first": first[0].output_token_ids, "hit": hit.output_token_ids,
+                   "hit_ttft_ms": ttft_ms(hit), "chain_where": where,
+                   "demoted": eng.stats.kv_demoted_blocks,
+                   "restored": eng.stats.kv_restored_blocks}
+    return out
+
+
+def watch_tier_copies(eng) -> dict:
+    """Every rank's own record of its tier copies: each demoted block's
+    pages as they were (gathered before the demote files them) and each
+    restore's blocks with their hashes."""
+    from tpuserve_torch.runtime.kv_cache import gather_block_pages
+    seen = {"snapshot": {}, "restored": [], "span": []}
+    demote, restore, scatter = eng._exec_demote, eng._exec_restore, eng._exec_scatter
+
+    def on_demote(blocks, hashes):
+        for h, p in zip(hashes, gather_block_pages(eng.kv_cache, blocks, eng._staging())):
+            seen["snapshot"][h] = p
+        return demote(blocks, hashes)
+
+    def on_restore(span):
+        seen["span"] = list(span)
+        return restore(span)
+
+    def on_scatter(blocks, pages):
+        seen["restored"] += list(zip(blocks, seen["span"]))
+        return scatter(blocks, pages)
+    eng._exec_demote, eng._exec_restore, eng._exec_scatter = on_demote, on_restore, on_scatter
+    return seen
+
+
+def restored_pages(eng, seen: dict, path: str) -> dict:
+    """This rank's tier state after the hit: its store's hashes, and the
+    restored blocks' pages read back from its cache, bit-equal to their own
+    snapshots and saved (blocks, layers, k / v, tokens, heads, dim) for the
+    comparison with the one-card reference's."""
+    import torch
+    from tpuserve_torch.runtime.kv_cache import gather_block_pages
+    eng._kv_tiers.flush()
+    store = sorted(str(h) for h in eng._kv_tiers.hashes())
+    blocks = [b for b, _ in seen["restored"]]
+    if not blocks:
+        return {"store": store, "restored_blocks": 0, "pages_bit_equal": False}
+    pages = gather_block_pages(eng.kv_cache, blocks, eng._staging())
+    snap = [seen["snapshot"].get(h) for _, h in seen["restored"]]
+    ok = all(s_ is not None for s_ in snap) and pages_equal(pages, snap)
+    torch.save(torch.stack([torch.stack([torch.stack([layer["k"], layer["v"]])
+                                         for layer in p]) for p in pages]), path)
+    return {"store": store, "restored_blocks": len(blocks), "pages_bit_equal": ok}
+
+
+def features_run(spec: dict, rank: int) -> dict:
+    """Phase tp's features run on this process: the one-card reference (no
+    mesh) or a rank of a tp 4 grid; three engines (tiers, guided and the
+    trunks; n-gram speculation; a draft model), each served by rank 0 and
+    followed by the others, launches counted against this rank's runs."""
+    import gc
+    import torch
+    from tpuserve_torch.models.config import get_model_config
+    from tpuserve_torch.parallel.mesh import MeshConfig, make_mesh
+    from tpuserve_torch.parallel.multihost import follower_loop
+    from tpuserve_torch.runtime import CacheConfig, Engine, EngineConfig, SchedulerConfig
+    from tpuserve_torch.runtime.spec import SpecConfig
+    register_feature_draft()
+    cfg = dataclasses.replace(get_model_config(FEATURE_MODEL), dtype="float32",
+                              num_layers=FEATURE_LAYERS)
+    mesh = None
+    if spec["world"] > 1:
+        mesh = make_mesh(MeshConfig(tp=min(4, spec["world"])), device_type="cuda",
+                         devices=(["cuda:0"] * spec["world"] if spec["backend"] == "gloo"
+                                  else None), timeout_s=TP_TIMEOUT_S)
+    t0 = time.perf_counter()
+    params = tp_params(cfg, mesh)
+    lead = mesh is None or mesh.is_coordinator
+    rng = np.random.default_rng(SEED + 8)
+    work = {"repetitive": [(rng.integers(0, cfg.vocab_size, 16).tolist() * 6)[:n]
+                           for n in (80, 96)]}
+    engines = {
+        "main": dict(kv_tiers=True, kv_host_bytes=FEATURE_HOST_BYTES,
+                     kv_spill_dir=f"{spec['out']}.spill"),
+        "ngram": dict(speculative=SpecConfig(num_draft_tokens=4), enable_prefix_caching=False),
+        "draft": dict(speculative=SpecConfig(num_draft_tokens=3, draft_model=FEATURE_DRAFT,
+                                             adaptive=False), enable_prefix_caching=False)}
+    out = {"init_s": time.perf_counter() - t0, "tp": 1 if mesh is None else mesh.cfg.tp,
+           "engines": {}}
+    for kind, kw in engines.items():
+        t = time.perf_counter()
+        # the one-card reference runs eagerly (float32 with TF32 off: the
+        # captured graphs' tokens), so it captures nothing
+        eng = Engine(EngineConfig(model=cfg.name, seed=SEED, multi_step=TP_MULTI_STEP,
+                                  cache=CacheConfig(**FEATURE_CACHE),
+                                  scheduler=SchedulerConfig(max_num_seqs=8),
+                                  cuda_graphs=False if mesh is None else None, **kw),
+                     params=params, model_cfg=cfg, mesh=mesh, device="cuda")
+        trunks = [0]
+        for name in ("_exec_embed", "_exec_score"):
+            def counted(*a, _orig=getattr(eng, name)):
+                trunks[0] += 1
+                return _orig(*a)
+            setattr(eng, name, counted)
+        seen = watch_tier_copies(eng) if kind == "main" else None
+        reset_launches()
+        pages = f"{spec['out']}.features.rank{rank}.pt"
+        if lead:
+            if mesh is not None:
+                eng._lockstep.record = True
+            res = features_serve(eng, kind, work)
+            if seen is not None:
+                res.update(restored_pages(eng, seen, pages))
+            if mesh is None and kind == "main":
+                # the plain decode the spec engines must reproduce
+                res["plain"] = features_serve(eng, "plain", work)["tokens"]
+            res["recorded"] = ([t_.tolist() for t_ in eng._lockstep.tokens]
+                               if mesh is not None else [])
+            res["sent"] = dict(eng._lockstep.sent) if mesh is not None else {}
+            eng.stop_followers()
+        else:
+            res = {"recorded": [t_.tolist() for t_ in follower_loop(eng, record=True)]}
+            if seen is not None:
+                res.update(restored_pages(eng, seen, pages))
+        torch.cuda.synchronize()
+        res["seconds"] = time.perf_counter() - t
+        res["launches"] = read_launches()
+        L, r = cfg.num_layers, eng.graphs.replays
+        dl = eng._draft_cfg.num_layers if eng._draft_cfg is not None else 0
+        k = eng._spec.num_draft_tokens if eng._spec is not None else 0
+        res["expected"] = {
+            "flash_prefill": L * (r["prefill"] + trunks[0]) + dl * k * r["draft"],
+            "paged_decode": L * r["decode"], "paged_window": L * (r["chunk"] + r["verify"]),
+            "ragged_paged": L * r["mixed"]}
+        res["runs"] = {kk: r[kk] for kk in ("prefill", "decode", "chunk", "verify", "draft")}
+        res["trunks"] = trunks[0]
+        if eng._draft_cfg is not None:
+            res["draft_heads"] = [eng._draft_cfg.num_heads, eng._draft_cfg.num_kv_heads]
+        out["engines"][kind] = res
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def tp_worker(spec_path: str) -> int:
     """A spawned process of phases tp, pp, ring and train (``chip_smoke.py
     --tp-worker SPEC``, the spec's ``mode``): every TP_RUNS (PP_RUNS) entry,
@@ -7617,6 +7849,8 @@ def tp_worker(spec_path: str) -> int:
     else:
         runs, fn = (PP_RUNS, pp_run) if mode == "pp" else (TP_RUNS, tp_run)
         out = {run[0]: fn(run, spec, rank) for run in runs}
+        if mode == "tp":
+            out["features"] = features_run(spec, rank)
     with open(f"{spec['out']}.rank{rank}.json", "w") as f:
         json.dump(out, f)
     if spec["world"] > 1:
@@ -7638,6 +7872,8 @@ def reference_run(work, rate: bool, mode: str = "tp") -> dict:
     try:
         runs, fn = (PP_RUNS, pp_run) if mode == "pp" else (TP_RUNS, tp_run)
         out = {run[0]: fn(run, spec, 0) for run in runs}
+        if mode == "tp":
+            out["features"] = features_run(spec, 0)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
     return json.loads(json.dumps(out))
@@ -7726,10 +7962,108 @@ def tp_gates(work, ref, ranks, rcs, label: str) -> dict:
                 row["decode_tok_s"] = r0["engines"]["split"]["decode_tok_s"]
             row["ref_decode_tok_s"] = rf["engines"]["split"].get("decode_tok_s")
         out[name] = row
+    out["features"] = features_gates(work, ref, ranks, label)
+    oks.append(out["features"]["ok"])
     out["launches"] = {n: sum(r[run[0]]["engines"][k]["launches"][n] for r in ranks
                               for run in TP_RUNS for k in ("split", "mixed"))
-                       for n in KERNEL_KIND}
+                       + out["features"]["launches"][n] for n in KERNEL_KIND}
     out["ok"] = all(oks)
+    return out
+
+
+FEATURE_COSINE_MIN = 0.9999
+FEATURE_LOGPROB_ATOL = 1e-4
+# a rank's restored float32 pages against its heads of the one-card
+# reference's: the ranks' sums run in another order than one card's
+FEATURE_PAGE_RTOL = 1e-4
+
+
+def features_gates(work, ref, ranks, label: str) -> dict:
+    """The features run's checks against the one-card reference: tier-hit
+    tokens equal with pages hit from host and from spill, each rank's
+    restored pages bit-equal to its own before the demote and within
+    FEATURE_PAGE_RTOL of its heads of the reference's, every rank's store
+    holding the same hashes; guided outputs legal with equal tokens and each
+    grammar's tables sent once; embedding cosines >= FEATURE_COSINE_MIN and
+    score logprobs within FEATURE_LOGPROB_ATOL; n-gram and draft-model
+    speculation tokens equal plain decode; followers' recorded tokens
+    (windows, verify passes, drafts) equal rank 0's; each rank's launches
+    equal its layers x its runs of each step kind.  ``failed`` names the
+    checks that did not hold."""
+    import torch
+    rf = ref["features"]["engines"]
+    lead = ranks[0]["features"]["engines"]
+    m, mr = lead["main"], rf["main"]
+    checks, out = {}, {"tp": ranks[0]["features"]["tp"], "init_s": ranks[0]["features"]["init_s"]}
+    tier, tr = m["tier"], mr["tier"]
+    out["tier"] = {"hit_ttft_ms": tier["hit_ttft_ms"], "ref_hit_ttft_ms": tr["hit_ttft_ms"],
+                   "chain_where": tier["chain_where"], "restored": tier["restored"],
+                   "demoted": tier["demoted"], "ref_demoted": tr["demoted"]}
+    checks["tier_tokens"] = tier["first"] == tr["first"] and tier["hit"] == tr["hit"]
+    checks["tier_host_and_spill"] = (tier["chain_where"].get("host", 0) > 0
+                                     and tier["chain_where"].get("spill", 0) > 0)
+    checks["tier_counts"] = (tier["restored"] == tr["restored"] > 0
+                             and tier["demoted"] == tr["demoted"])
+    want = torch.load(f"{work / 'ref'}.features.rank0.pt")
+    kv = want.shape[4] // len(ranks)
+    rows = []
+    for i, r in enumerate(ranks):
+        e = r["features"]["engines"]["main"]
+        got = torch.load(f"{work / label}.features.rank{i}.pt")
+        mine = want[..., i * kv:(i + 1) * kv, :]
+        diff = (got - mine).abs().max().item() if got.shape == mine.shape else float("inf")
+        rows.append({"restored_blocks": e["restored_blocks"], "bit_equal": e["pages_bit_equal"],
+                     "max_abs_diff_vs_one_card": diff, "store_same": e["store"] == mr["store"]})
+        checks[f"rank{i}_restored"] = e["restored_blocks"] == mr["restored_blocks"] > 0
+        checks[f"rank{i}_pages_bit_equal"] = e["pages_bit_equal"]
+        checks[f"rank{i}_pages_vs_one_card"] = (
+            diff <= FEATURE_PAGE_RTOL * max(1.0, want.abs().max().item()))
+        checks[f"rank{i}_store"] = e["store"] == mr["store"]
+    out["tier"]["ranks"] = rows
+    out["guided"] = []
+    for name, got_rows, ref_rows in zip(FEATURE_GUIDED, m["guided"], mr["guided"]):
+        mode, spec = GUIDED_FAMILIES[name]
+        checks[f"guided_{name}_valid"] = all(guided_valid(mode, spec, text, reason == "stop")
+                                             for _t, text, reason in got_rows)
+        checks[f"guided_{name}_tokens"] = [g[0] for g in got_rows] == [g[0] for g in ref_rows]
+        out["guided"].append({"name": name, "stopped": sum(g[2] == "stop" for g in got_rows)})
+    out["grammar_sent"] = m["sent"].get("grammar", 0)
+    checks["grammar_sent_once"] = out["grammar_sent"] == len(FEATURE_GUIDED)
+    checks["guided_windows"] = m["guided_windows"] > 0
+    cos = {p: float(cosines(np.asarray(m["embed"][p]), np.asarray(mr["embed"][p])).min())
+           for p in ("mean", "last")}
+    score = max(float(np.max(np.abs(np.asarray(a) - np.asarray(b))))
+                for a, b in zip(m["score"], mr["score"]))
+    out["trunks"] = {"min_cosine": cos, "score_max_abs_diff": score,
+                     "sent": m["sent"].get("trunk", 0)}
+    checks["embed_cosine"] = min(cos.values()) >= FEATURE_COSINE_MIN
+    checks["score_logprobs"] = score <= FEATURE_LOGPROB_ATOL
+    for kind in ("ngram", "draft"):
+        a, b = lead[kind], rf[kind]
+        out[kind] = {"spec": a["spec"], "ref_spec": b["spec"]}
+        checks[f"{kind}_tokens_plain"] = a["tokens"] == mr["plain"] == b["tokens"]
+        checks[f"{kind}_proposed"] = a["spec"][1] > 0
+    out["draft"]["heads"] = [r["features"]["engines"]["draft"]["draft_heads"] for r in ranks]
+    for kind in ("main", "ngram", "draft"):
+        launches = [r["features"]["engines"][kind]["launches"] for r in ranks]
+        expected = [r["features"]["engines"][kind]["expected"] for r in ranks]
+        out[f"{kind}_launches"] = launches
+        out[f"{kind}_runs"] = ranks[0]["features"]["engines"][kind]["runs"]
+        out[f"{kind}_s"] = lead[kind]["seconds"]
+        out[f"{kind}_ref_s"] = rf[kind]["seconds"]
+        checks[f"{kind}_launches"] = launches == expected
+        checks[f"{kind}_followers"] = bool(lead[kind]["recorded"]) and all(
+            r["features"]["engines"][kind]["recorded"] == lead[kind]["recorded"]
+            for r in ranks[1:])
+    # B1 (prefills, trunks, drafts), B2 (decode) and B3 (the hit's chunk,
+    # verify) ran on every rank
+    out["launches"] = {n: sum(r["features"]["engines"][k]["launches"][n] for r in ranks
+                              for k in ("main", "ngram", "draft")) for n in KERNEL_KIND}
+    checks["three_kernels_every_rank"] = all(
+        sum(r["features"]["engines"][k]["launches"][n] for k in ("main", "ngram", "draft")) > 0
+        for r in ranks for n in ("flash_prefill", "paged_decode", "paged_window"))
+    out["failed"] = [k for k, v in checks.items() if not v]
+    out["ok"] = not out["failed"]
     return out
 
 
@@ -7780,7 +8114,7 @@ def phase_tp(results) -> dict:
     if tails:
         out["gloo"]["logs"] = tails
     oks.append(out["gloo"]["ok"])
-    out["launches"] = out["gloo"]["launches"]
+    out["launches"] = out["gloo"].get("launches", {})
     count = torch.cuda.device_count()
     if count >= 2:
         t = time.perf_counter()
@@ -7804,7 +8138,7 @@ def phase_tp(results) -> dict:
 # (label, model, dtype, layers): full width, depth cut; each stage's layers
 # drawn on the card from the seed (stage 0 also keeps the head)
 PP_RUNS = (("dense_fp32", "Qwen/Qwen2-72B-Instruct", "float32", 4),
-           ("dense_bf16", "Qwen/Qwen2-72B-Instruct", "bfloat16", 8))
+           ("dense_bf16", "Qwen/Qwen2-72B-Instruct", "bfloat16", 4))
 PP_STAGES = 4
 # the step kind whose microbatches launch each kernel, once a stage's layer
 PP_KERNEL_KIND = {"flash_prefill": "prefill", "paged_decode": "decode"}
@@ -7969,7 +8303,7 @@ def phase_pp(results) -> dict:
     if tails:
         out["gloo"]["logs"] = tails
     oks.append(out["gloo"]["ok"])
-    out["launches"] = out["gloo"]["launches"]
+    out["launches"] = out["gloo"].get("launches", {})
     if count >= 2:
         t = time.perf_counter()
         ranks, rcs, tails = tp_spawn(work, "nccl", min(PP_STAGES, count), "nccl", rate=True,

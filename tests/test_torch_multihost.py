@@ -11,8 +11,9 @@ window's tokens, which must equal rank 0's.  In this process the same
 scenarios run on the port's one-device engine and on the JAX engine on a
 mesh of the 8 virtual CPU devices: tokens equal, float32 logits within
 atol 1e-4.  Then ``python -m tpuserve_torch.server --tp 2 --device cpu``
-serves a completion and every rank exits cleanly, and a follower's death
-stops rank 0 with an error.  The file is also the ranks' program
+serves a completion (and, with ``--speculative-k`` and the tiers on, a
+``response_format`` completion and embeddings) and every rank exits
+cleanly, and a follower's death stops rank 0 with an error.  The file is also the ranks' program
 (``python tests/test_torch_multihost.py SPEC.json``), which imports no JAX.
 """
 
@@ -302,12 +303,28 @@ def test_lockstep_mirrors_every_hook_and_op():
     loop handles every op the coordinator sends."""
     hooks = {m.name: ast.unparse(m) for m in _engine_class().body
              if isinstance(m, ast.FunctionDef) and m.name.startswith("_exec_")}
-    assert "self._lockstep.make" in hooks["_exec_get"]
-    assert "self._lockstep.run" in hooks["_exec_run"]
-    assert "self._lockstep.warmup" in hooks["_exec_warmup"]
+    for hook, call in (("_exec_get", "make"), ("_exec_run", "run"),
+                       ("_exec_warmup", "warmup"), ("_exec_embed", "trunk"),
+                       ("_exec_score", "trunk"), ("_exec_demote", "demote"),
+                       ("_exec_restore", "restore"), ("_exec_scatter", "scatter"),
+                       ("_exec_drop", "drop")):
+        assert f"self._lockstep.{call}" in hooks[hook], hook
     src = inspect.getsource(multihost)
-    for op in ("OP_MAKE", "OP_RUN", "OP_WARMUP", "OP_NOOP", "OP_STOP"):
+    for op in ("OP_MAKE", "OP_RUN", "OP_WARMUP", "OP_NOOP", "OP_STOP", "OP_DEMOTE",
+               "OP_RESTORE", "OP_SCATTER", "OP_DROP", "OP_TRUNK"):
         assert src.count(op) >= 3, f"{op} not used by both protocol sides"
+    # the tier page copies run only in their hooks (warmup's round trip of
+    # block 0 onto itself makes the staging on rank 0 alone)
+    copies = {}
+    for meth in _engine_class().body:
+        if (isinstance(meth, ast.FunctionDef) and not meth.name.startswith("_exec_")
+                and meth.name != "warmup"):
+            found = [n.func.id for n in ast.walk(meth) if isinstance(n, ast.Call)
+                     and isinstance(n.func, ast.Name)
+                     and n.func.id in ("gather_block_pages", "scatter_block_pages")]
+            if found:
+                copies[meth.name] = found
+    assert not copies, copies
 
 
 def test_descriptor_codec_round_trips():
@@ -370,6 +387,46 @@ def test_cli_tp2_serves_and_every_rank_exits(tmp_path):
                                      headers={"Content-Type": "application/json"})
         out = json.loads(urllib.request.urlopen(req, timeout=120).read())
         assert out["usage"]["completion_tokens"] == 8
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=90) == 0, (tmp_path / "rank0.log").read_text()[-3000:]
+        assert not any(Path(f"/proc/{pid}").exists() for pid in followers)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _post(port: int, path: str, body: dict) -> dict:
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    return json.loads(urllib.request.urlopen(req, timeout=120).read())
+
+
+def test_cli_tp2_serves_guided_embeddings_and_speculation(tmp_path):
+    """``--tp 2 --speculative-k 2`` with the tiers on by default: a
+    ``response_format`` completion, a repetitive prompt through the spec
+    path and ``/v1/embeddings`` over HTTP; SIGTERM, and every rank exits 0."""
+    argv = [a for a in SERVER if a != "--no-kv-tiers"] + ["--speculative-k", "2"]
+    proc, port = start_server(tmp_path, argv)
+    try:
+        followers = children(proc.pid)
+        assert len(followers) == 1
+        out = _post(port, "/v1/completions", {
+            "prompt": [5, 6, 7], "max_tokens": 24, "temperature": 0,
+            "response_format": {"type": "json_object"}})
+        assert out["usage"]["completion_tokens"] > 0
+        assert out["choices"][0]["text"].lstrip().startswith("{")
+        out = _post(port, "/v1/completions", {
+            "prompt": [1, 2, 3, 4] * 5, "max_tokens": 8, "temperature": 0, "ignore_eos": True})
+        assert out["usage"]["completion_tokens"] == 8
+        metrics = urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                         timeout=30).read().decode()
+        proposed = [float(line.split()[-1]) for line in metrics.splitlines()
+                    if line.startswith("tpuserve_spec_draft_tokens_proposed")]
+        assert proposed and proposed[0] > 0
+        emb = _post(port, "/v1/embeddings", {"input": ["hello world", "hi"]})
+        vecs = [d["embedding"] for d in emb["data"]]
+        assert len(vecs) == 2 and all(abs(np.linalg.norm(v) - 1) < 1e-3 for v in vecs)
         proc.send_signal(signal.SIGTERM)
         assert proc.wait(timeout=90) == 0, (tmp_path / "rank0.log").read_text()[-3000:]
         assert not any(Path(f"/proc/{pid}").exists() for pid in followers)

@@ -200,9 +200,9 @@ def test_backend_is_explicit():
 
 
 def test_engine_refusals_under_a_mesh(tmp_path):
-    """The JAX engine's refusals (multi-LoRA, hot-swap) and what this slice
-    does not bring under a mesh (speculation, tiers, guided decoding,
-    embeddings), each naming A10 where it is the port's; graphs on gloo."""
+    """The JAX engine's refusals (multi-LoRA, hot-swap, and across nodes its
+    multi-process ones); what a one-node mesh now serves (speculation, the
+    tiers, guided decoding, embeddings, scoring); graphs on gloo."""
     from tpuserve_torch.runtime import CacheConfig, Engine, EngineConfig, SamplingParams
     from tpuserve_torch.runtime.spec import SpecConfig
     cfg = dataclasses.replace(get_model_config("tiny-qwen3"), dtype="float32")
@@ -214,32 +214,57 @@ def test_engine_refusals_under_a_mesh(tmp_path):
         with pytest.raises(ValueError, match="multi-LoRA"):
             Engine(dataclasses.replace(base, lora_modules={"a": "/x"}), model_cfg=cfg,
                    mesh=mesh, device="cpu")
-        with pytest.raises(NotImplementedError, match="A10"):
-            Engine(dataclasses.replace(base, speculative=SpecConfig()), model_cfg=cfg,
-                   mesh=mesh, device="cpu")
-        with pytest.raises(NotImplementedError, match="A10"):
-            Engine(dataclasses.replace(base, kv_tiers=True), model_cfg=cfg, mesh=mesh,
-                   device="cpu")
+        spec = Engine(dataclasses.replace(base, speculative=SpecConfig(), kv_tiers=True),
+                      model_cfg=cfg, mesh=mesh, device="cpu")
+        assert spec._spec is not None and spec._kv_tiers is not None
         with pytest.raises(ValueError, match="cuda_graphs=True needs device"):
             Engine(dataclasses.replace(base, cuda_graphs=True), model_cfg=cfg, mesh=mesh,
                    device="cpu")
         eng = Engine(base, model_cfg=cfg, mesh=mesh, device="cpu")
-        assert eng._kv_tiers is None and not eng._pipeline_decode
-        with pytest.raises(ValueError, match="A10"):
-            eng.add_request(prompt_token_ids=[1, 2], params=SamplingParams(
-                guided="choice", guided_schema='["a", "b"]'))
-        with pytest.raises(NotImplementedError, match="A10"):
-            eng.embed([[1, 2, 3]])
+        # the tiers follow the one-card default; decode stays unpipelined
+        assert eng._kv_tiers is not None and not eng._pipeline_decode
+        out = eng.generate([[1, 2]], SamplingParams(
+            max_tokens=8, temperature=0.0, guided="choice", guided_schema='["a", "b"]'))
+        assert out[0].output_text in ("a", "b")
+        vecs, counts = eng.embed([[1, 2, 3]])
+        assert vecs.shape == (1, cfg.hidden_size) and counts == [3]
+        assert len(eng.score_prompts([[1, 2, 3]])[0]) == 3
         with pytest.raises(ValueError, match="hot-swap"):
             eng.swap_model(base)
         # several nodes: the JAX intake refusal of what the lockstep does not
-        # mirror there
+        # mirror there, its embeddings and scoring refusals, the tiers off
         mesh.multihost = True
         with pytest.raises(ValueError, match="multi-host"):
             eng.add_request(prompt_token_ids=[1, 2], params=SamplingParams(logprobs=2))
+        with pytest.raises(ValueError, match="multi-host"):
+            eng.add_request(prompt_token_ids=[1, 2], params=SamplingParams(
+                guided="choice", guided_schema='["a", "b"]'))
+        with pytest.raises(ValueError, match="multi-host"):
+            eng.embed([[1, 2, 3]])
+        with pytest.raises(ValueError, match="multi-host"):
+            eng.score_prompts([[1, 2, 3]])
+        assert Engine(dataclasses.replace(base, kv_tiers=True), model_cfg=cfg, mesh=mesh,
+                      device="cpu")._kv_tiers is None
         cfg_gloo = dataclasses.replace(base)
         assert not cfg_gloo.resolve_cuda_graphs(torch.device("cpu"), mesh)
     _with_group(tmp_path, body)
+
+
+def test_draft_rank_config_splits_or_refuses_as_a_targets():
+    """A speculative draft under a mesh: its heads split over tp as a
+    target's (refused where they do not), and a dense draft beside an MoE
+    target on an ep grid keeps its MLP whole (its leaves split over tp
+    alone)."""
+    cfg = get_model_config("tiny-qwen3")                  # 4 heads, 2 kv heads
+    got = sharding.draft_rank_config(cfg, rank_mesh(2, 1, 1))
+    assert (got.num_heads, got.num_kv_heads, got.intermediate_size) == (2, 1, 64)
+    with pytest.raises(ValueError, match="kv heads do not split"):
+        sharding.draft_rank_config(cfg, rank_mesh(4, 1, 0))
+    with pytest.raises(ValueError, match="experts do not split"):
+        sharding.rank_config(cfg, rank_mesh(1, 2, 0))
+    got = sharding.draft_rank_config(cfg, rank_mesh(2, 2, 3))
+    assert (got.num_heads, got.num_kv_heads, got.intermediate_size) == (2, 1, 64)
+    assert got.num_experts == 0 and got.comm.ep == 2
 
 
 def test_hbm_share_halves_an_auto_sized_cache():

@@ -1138,3 +1138,45 @@ def test_local_mode_rendered_commands_serve_the_smoke_tests(tmp_path):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+
+
+def test_rendered_tp2_spec_tiers_engine_starts_and_serves(tmp_path):
+    """The combination the config always accepted and the server used to
+    refuse: ``tensor_parallel=2`` with ``speculative_k`` and the KV tiers
+    (their spill directory on the PVC).  The rendered engine command, as
+    the local-mode case runs it, starts both ranks, serves a completion
+    and exits 0 on SIGTERM."""
+    cfg = load_config(preset="cpu-smoke", tensor_parallel=2, speculative_k=2, kv_tiers=True,
+                      **_nodes(2))
+    eng_c = _find(manifests.serving_manifests(cfg), "Deployment", "tpuserve-engine")[
+        "spec"]["template"]["spec"]["containers"][0]
+    cmd = eng_c["command"]
+    assert cmd[cmd.index("--tp") + 1] == "2" and cmd[cmd.index("--speculative-k") + 1] == "2"
+    assert "--no-kv-tiers" not in cmd and "--kv-spill-dir" in cmd
+    models, port = str(tmp_path / "models"), _free_port()
+    cmd = [sys.executable] + cmd[1:]
+    cmd[cmd.index("--port") + 1] = str(port)
+    cmd = [models + a[len("/models"):] if a.startswith("/models") else a for a in cmd] + [
+        "--no-warmup", "--block-size", "4", "--num-blocks", "64", "--max-blocks-per-seq", "16"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT), TMPDIR=str(tmp_path), OMP_NUM_THREADS="1",
+               **{e["name"]: e["value"].replace("/models", models)
+                  for e in eng_c["env"] if "value" in e})
+    env.pop("RANK", None)
+    proc = subprocess.Popen(cmd, cwd=tmp_path, env=env, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.DEVNULL)
+    try:
+        _wait_http(f"http://127.0.0.1:{port}/readyz", proc, time.monotonic() + 120)
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/v1/completions", data=json.dumps({
+                "prompt": [1, 2, 3, 4] * 5, "max_tokens": 8, "temperature": 0,
+                "ignore_eos": True}).encode(), headers={"Content-Type": "application/json"})
+        out = json.loads(urllib.request.urlopen(req, timeout=120).read())
+        assert out["usage"]["completion_tokens"] == 8
+        # each rank files its pages under its own spill subdirectory
+        assert os.path.isdir(os.path.join(models, ".kv-spill", "rank1"))
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()

@@ -504,13 +504,22 @@ def test_unreleasable_hang_fails_clients_not_strands_them(model):
     assert sum(len(o.new_token_ids) for o in outs) == GREEDY["max_tokens"]
 
 
+# the threshold and the stalls below, in units of 0.4 s: at 5 the stall
+# outside a capture leaves the real dispatch 1 s before the second stage
+# (twice the threshold), and every later step 2 s before a second trip, so
+# a loaded host's slow step cannot add a restart or a trip
+WATCHDOG_CASE_SCALE = 5.0
+
+
 @pytest.mark.parametrize("capturing,stall_s,trips", [(True, 1.5, 0), (False, 0.6, 1)])
 def test_watchdog_discounts_a_first_use_capture(model, reference, capturing, stall_s, trips):
     """Past the warmup steps, a bucket's first use captures its graph
     inside a step: that time counts at 1/WATCHDOG_WARMUP_SCALE, so a
     capture of almost four thresholds trips nothing, where a stall of one
-    and a half outside a capture trips once (and fails no one)."""
-    eng = _port(model, step_watchdog_s=0.4)
+    and a half outside a capture trips once (and fails no one).  The
+    threshold and the stall are scaled together (``WATCHDOG_CASE_SCALE``)."""
+    stall_s *= WATCHDOG_CASE_SCALE
+    eng = _port(model, step_watchdog_s=0.4 * WATCHDOG_CASE_SCALE)
     runner = _runner(eng)
     runner.generate_sync(prompt_token_ids=[1, 2, 3], params=port_rt.SamplingParams(**GREEDY))
     runner.WATCHDOG_WARMUP_STEPS = 0

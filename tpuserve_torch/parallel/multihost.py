@@ -25,6 +25,32 @@ or run it eagerly (gloo).  Ops:
   collective timeout idle, so a follower's wait stays inside it;
 - ``OP_STOP``: the followers return.
 
+A guided window's grammar tables ride the ``OP_RUN`` that first reads
+them (``grammar``: the bucket and the masks, token classes and
+transitions), so a grammar crosses the group once, when rank 0's
+``StepGraphs.load_grammar`` actually loads it; the followers load them
+untagged before the replay.  The host-side FSM mirror, the character
+acceptors and the synchronous sampler stay on rank 0.  The KV tiers'
+page copies and the cache-less trunks have ops of their own, each sent
+where rank 0 does that work:
+
+- ``OP_DEMOTE`` blocks, hashes: each rank gathers its own slice of those
+  pages into its own ``TieredPageStore`` (``runtime/kv_tiers.py``; spill
+  files in a subdirectory a rank), before the next step overwrites them;
+- ``OP_RESTORE`` hashes: each rank takes its pages of the span out of its
+  store, and every rank then agrees on the shortest intact prefix (a MIN
+  over the group, sent and reduced under one lock, so no heartbeat falls
+  between); past it each rank drops the span's hashes, and rank 0 aborts
+  those blocks;
+- ``OP_SCATTER`` blocks: each rank writes the agreed pages in place;
+- ``OP_DROP`` hashes: superseded store entries leave every rank's store;
+- ``OP_TRUNK`` kind, tokens, lengths: a batch of the cache-less trunk
+  (embeddings or prompt scoring), run on every rank's slice with its tp
+  sums; only rank 0 reads the result.
+
+Rank 0's block manager makes every tier decision; the stores only follow,
+so every rank holds the same hashes in the same tier (budgets in blocks).
+
 Pipeline stages (``parallel/pipeline.py``) follow the same way: each
 runs the executable on its own layers and passes the activations on, and
 only rank 0, which holds the head, samples; a later stage's windows carry
@@ -37,15 +63,17 @@ samples alone, and a decode window samples inside the step on every rank
 with the same keyed noise (``ops/sampling.py`` ``keyed_gumbel``), so every
 rank holds the same tokens (``Lockstep.record`` / ``follower_loop(record=
 True)`` keep them for the tests to compare).  The engine routes every
-executable through its ``_exec_*`` hooks, which call this module
-(``tests/test_torch_multihost.py`` holds that by AST).
+executable, page copy and trunk through its ``_exec_*`` hooks, which call
+this module (``tests/test_torch_multihost.py`` holds that by AST).
 
-Not mirrored, so the engine refuses or turns off under a mesh (ROADMAP.md
-A10): speculation, guided decoding, the KV tiers' page copies, the
-cache-less trunks (embeddings, scoring) and multi-LoRA; pipelined decode is
-off, as under the JAX lockstep (a descriptor is built from the host's
-tokens).  Under several nodes (``--multihost``) the JAX intake refusal of
-``SamplingParams.multihost_unsupported`` stays.
+Not mirrored, so the engine refuses it under a mesh (ROADMAP.md A10):
+``adopt_prefilled`` (disaggregation on a mesh); pipelined decode is off,
+as under the JAX lockstep (a descriptor is built from the host's tokens).
+Multi-LoRA and ``swap_model`` are refused as the JAX engine refuses them.
+Under several nodes (``--multihost``) the JAX engine's multi-process
+refusals stay: the intake refusal of
+``SamplingParams.multihost_unsupported``, embeddings and scoring, and the
+tiers off.
 
 :func:`spawn_ranks` starts follower processes on one node (the server's
 ``--tp N`` and ``chip_smoke.py``'s phase ``tp``): one a card, logs to files
@@ -72,8 +100,10 @@ import torch
 logger = logging.getLogger("tpuserve_torch.multihost")
 
 OP_STOP, OP_MAKE, OP_RUN, OP_WARMUP, OP_NOOP = 0, 1, 2, 3, 4
+OP_DEMOTE, OP_RESTORE, OP_SCATTER, OP_DROP, OP_TRUNK = 5, 6, 7, 8, 9
 OP_NAMES = {OP_STOP: "stop", OP_MAKE: "make", OP_RUN: "run", OP_WARMUP: "warmup",
-            OP_NOOP: "noop"}
+            OP_NOOP: "noop", OP_DEMOTE: "demote", OP_RESTORE: "restore",
+            OP_SCATTER: "scatter", OP_DROP: "drop", OP_TRUNK: "trunk"}
 HEADER = 4                       # int64: op, body words, steps, sequence number
 
 
@@ -107,8 +137,9 @@ def _decode(body: np.ndarray) -> tuple[dict, list]:
 class Lockstep:
     """The coordinator's side: sends each step's descriptor to the follower
     ranks (the engine's ``_exec_*`` hooks call it), a heartbeat while idle,
-    and the stop.  ``record``: keep each decode run's (B, steps) tokens
-    (``tokens``), for comparison with the followers'."""
+    and the stop.  ``record``: keep each decode run's (B, steps) tokens and
+    each verify's and draft's outputs (``tokens``), for comparison with the
+    followers'."""
 
     def __init__(self, mesh):
         self.mesh = mesh
@@ -129,19 +160,22 @@ class Lockstep:
         self._hb.start()
 
     def _send(self, op: int, meta: Optional[dict] = None, arrays=(), steps: int = 0) -> None:
+        with self._lock:
+            self._send_locked(op, meta, arrays, steps)
+
+    def _send_locked(self, op: int, meta: Optional[dict], arrays, steps: int) -> None:
         import torch.distributed as dist
         body = _encode(meta, arrays)[1] if meta is not None else None
-        with self._lock:
-            if self._stopped:
-                raise RuntimeError("the lockstep has stopped: its followers are gone")
-            hdr = torch.tensor([op, 0 if body is None else body.numel(), steps, self._seq],
-                               dtype=torch.int64)
-            self._seq += 1
-            dist.broadcast(hdr, 0, group=self.group)
-            if body is not None:
-                dist.broadcast(body, 0, group=self.group)
-            self._last = time.monotonic()
-            self.sent[OP_NAMES[op]] += 1
+        if self._stopped:
+            raise RuntimeError("the lockstep has stopped: its followers are gone")
+        hdr = torch.tensor([op, 0 if body is None else body.numel(), steps, self._seq],
+                           dtype=torch.int64)
+        self._seq += 1
+        dist.broadcast(hdr, 0, group=self.group)
+        if body is not None:
+            dist.broadcast(body, 0, group=self.group)
+        self._last = time.monotonic()
+        self.sent[OP_NAMES[op]] += 1
 
     def _heartbeat(self) -> None:
         while not self._hb_stop.wait(self.heartbeat_s / 4):
@@ -159,15 +193,49 @@ class Lockstep:
     def warmup(self, keys) -> None:
         self._send(OP_WARMUP, {"keys": [list(k) for k in keys]})
 
-    def run(self, key: tuple, staging, steps: int, extras=None) -> None:
+    def run(self, key: tuple, staging, steps: int, extras=None, grammar=None) -> None:
         """``staging``: the dispatch's ``graphs.Staging``; ``extras``: a
-        decode step's ``load_extras`` arrays; ``steps`` 0: one eager step."""
+        decode step's ``load_extras`` arrays; ``grammar``: (bucket, masks,
+        tok_class, class_next) when rank 0 loads a grammar's tables for
+        this run (tok_class and class_next None for per-row tables);
+        ``steps`` 0: one eager step."""
         arrays = [staging.tensor.numpy()] + [np.asarray(a) for a in extras or ()]
-        self._send(OP_RUN, {"key": list(key)}, arrays, steps)
+        meta = {"key": list(key), "extras": len(extras or ())}
+        if grammar is not None:
+            bucket, *tables = grammar
+            meta["grammar"] = [list(bucket), [t is not None for t in tables]]
+            arrays += [t.cpu().numpy() for t in tables if t is not None]
+            # a window's grammar, or a single step's per-row masks
+            self.sent["grammar" if tables[1] is not None else "grammar_rows"] += 1
+        self._send(OP_RUN, meta, arrays, steps)
+
+    def demote(self, blocks: list, hashes: list) -> None:
+        self._send(OP_DEMOTE, {"blocks": list(blocks), "hashes": list(hashes)})
+
+    def restore(self, hashes: list, intact: int) -> int:
+        """Send the span and agree on it: the least ``intact`` over every
+        rank (each rank's count of the span's pages it took whole), sent
+        and reduced under the lock so that no heartbeat falls between."""
+        with self._lock:
+            self._send_locked(OP_RESTORE, {"hashes": list(hashes)}, (), 0)
+            return agree_min(self.group, intact)
+
+    def scatter(self, blocks: list) -> None:
+        self._send(OP_SCATTER, {"blocks": list(blocks)})
+
+    def drop(self, hashes: list) -> None:
+        self._send(OP_DROP, {"hashes": list(hashes)})
+
+    def trunk(self, kind: str, tokens: np.ndarray, lens: np.ndarray, **meta) -> None:
+        """One batch of the cache-less trunk (``kind`` "embed" or
+        "score"; ``meta``: its pooling or top_n)."""
+        self._send(OP_TRUNK, dict(meta, kind=kind), [np.asarray(tokens), np.asarray(lens)])
 
     def after_run(self, exe, steps: int) -> None:
-        if self.record and exe.key[0] == "decode":
-            self.tokens.append(exe.state.out[:, :steps].cpu().numpy())
+        if self.record:
+            rec = _record_of(exe, steps)
+            if rec is not None:
+                self.tokens.append(rec)
 
     def stop(self) -> None:
         """Send the stop (once); the followers return from their loop."""
@@ -180,19 +248,39 @@ class Lockstep:
             self._stopped = True
 
 
+def _record_of(exe, steps: int):
+    """What a run leaves for ``record``: a decode run's (B, steps) tokens, a
+    verify pass's predictions or a draft's proposals; None for the rest."""
+    if exe.key[0] == "decode":
+        return exe.state.out[:, :steps].cpu().numpy()
+    if exe.key[0] in ("verify", "draft"):
+        return exe.out[0].cpu().numpy()
+    return None
+
+
+def agree_min(group, value: int) -> int:
+    """The least ``value`` over every rank of ``group`` (the tier restore's
+    agreed span)."""
+    import torch.distributed as dist
+    t = torch.tensor([int(value)], dtype=torch.int64)
+    dist.all_reduce(t, op=dist.ReduceOp.MIN, group=group)
+    return int(t)
+
+
 def follower_loop(engine, record: bool = False) -> list:
     """Run on ranks 1..N-1: mirror the coordinator's steps until the stop.
 
     ``engine`` must be built as the coordinator's (the same config, model,
     seed and mesh), so its weights, cache and executables match slice for
-    slice; it never schedules.  Returns each decode run's (B, steps) tokens
-    with ``record`` (else [])."""
+    slice; it never schedules.  Returns what each run left for ``record``
+    (``_record_of``; else [])."""
     import torch.distributed as dist
     mesh = engine.mesh
     if mesh is None or mesh.world == 1:
         logger.info("follower_loop: one rank, nothing to follow")
         return []
     graphs, tokens = engine.graphs, []
+    restored: list = []          # the pages OP_RESTORE took, until OP_SCATTER
     logger.info("follower %d/%d entering the lockstep loop", mesh.rank, mesh.world)
     while True:
         hdr = torch.zeros(HEADER, dtype=torch.int64)
@@ -215,14 +303,36 @@ def follower_loop(engine, record: bool = False) -> list:
         elif op == OP_RUN:
             exe = graphs.get(*meta["key"])
             exe.load(types.SimpleNamespace(tensor=torch.from_numpy(arrays[0])))
-            if len(arrays) > 1:
-                exe.load_extras(*arrays[1:])
+            n_extras = meta["extras"]
+            if n_extras:
+                exe.load_extras(*arrays[1:1 + n_extras])
+            if "grammar" in meta:
+                bucket, present = meta["grammar"]
+                tables = iter(arrays[1 + n_extras:])
+                graphs.load_grammar(tuple(bucket), None, *(
+                    torch.from_numpy(next(tables)).to(engine.device) if p else None
+                    for p in present))
             if steps == 0:
                 exe.step()
             else:
                 exe.run(steps)
-                if record and exe.key[0] == "decode":
-                    tokens.append(exe.state.out[:, :steps].cpu().numpy())
+                rec = _record_of(exe, steps) if record else None
+                if rec is not None:
+                    tokens.append(rec)
+        elif op == OP_DEMOTE:
+            engine._exec_demote(meta["blocks"], meta["hashes"])
+        elif op == OP_RESTORE:
+            restored = engine._exec_restore(meta["hashes"])
+        elif op == OP_SCATTER:
+            engine._exec_scatter(meta["blocks"], restored[:len(meta["blocks"])])
+            restored = []
+        elif op == OP_DROP:
+            engine._exec_drop(meta["hashes"])
+        elif op == OP_TRUNK:
+            if meta["kind"] == "embed":
+                engine._exec_embed(arrays[0], arrays[1], meta["pooling"])
+            else:
+                engine._exec_score(arrays[0], arrays[1], meta["top_n"])
         else:
             raise RuntimeError(f"follower {mesh.rank}: unknown lockstep op {op}")
 

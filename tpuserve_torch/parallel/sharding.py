@@ -223,6 +223,21 @@ def rank_config(cfg: ModelConfig, mesh: RankMesh) -> ModelConfig:
         comm=mesh.comm)
 
 
+def draft_rank_config(cfg: ModelConfig, mesh: RankMesh) -> ModelConfig:
+    """A speculative draft's rank config: as a target's (a draft whose heads
+    do not split over tp is refused as a target's are), but a dense draft
+    beside an MoE target on an ep grid keeps its MLP whole, as the dense
+    layers of a model on that grid do (its leaves split over tp alone)."""
+    if mesh.cfg.ep > 1 and not cfg.num_experts:
+        tp = mesh.cfg.tp
+        check_partitionable(cfg, dataclasses.replace(mesh, cfg=dataclasses.replace(
+            mesh.cfg, ep=1)))
+        return dataclasses.replace(
+            cfg, num_heads=cfg.num_heads // tp, num_kv_heads=cfg.num_kv_heads // tp,
+            intermediate_size=cfg.intermediate_size // tp, comm=mesh.comm)
+    return rank_config(cfg, mesh)
+
+
 def cache_kv_heads(cfg: ModelConfig, mesh: RankMesh) -> int:
     """KV heads a rank's cache holds: ``Hkv / tp``; MLA's single latent
     head is replicated."""

@@ -102,14 +102,21 @@ JAX package.  On a pure ``pp`` grid it is one pipeline stage
 also the head), every step run through the stages, with the JAX
 pipeline engine's gates (no chunked prefill or mixed steps, its
 prompt-score budget at intake, no speculation, MLA, MoE, per-layer
-windows, embeddings, scoring or adoption).  Rank 0 schedules and mirrors
-every executable it makes or runs to the follower ranks through its
-``_exec_*`` hooks (``parallel/multihost.py``), which run ``follower_loop``
-on engines built the same way.  The JAX engine's refusals under a mesh
-stay (multi-LoRA, ``swap_model``, ``multihost_unsupported`` across nodes);
-this slice also refuses speculation, guided decoding, embeddings and scoring
-(ROADMAP.md A10), turns the KV tiers off and decodes unpipelined, as the
-JAX lockstep does.  ``params`` given under a mesh are the rank's slice
+windows, embeddings, scoring, tiers or adoption).  Rank 0 schedules and
+mirrors every executable it makes or runs, every tier page copy and every
+trunk batch to the follower ranks through its ``_exec_*`` hooks
+(``parallel/multihost.py``), which run ``follower_loop`` on engines built
+the same way.  On a tp / ep grid the engine serves what it serves on one
+card: the KV tiers (a store a rank, holding its slice of each page, its
+budget in blocks, the restored span agreed over the ranks), guided
+decoding (a grammar's tables sent once, with the run that first reads
+them), embeddings and scoring (every rank runs the trunk on its slice) and
+speculation (each rank holds its slice of a draft model).  The JAX
+engine's refusals under a mesh stay: multi-LoRA, ``swap_model``, and
+across nodes (``--multihost``) ``multihost_unsupported`` at intake,
+embeddings, scoring and the tiers.  ``adopt_prefilled`` is refused under
+a mesh (ROADMAP.md A10), and decode runs unpipelined, as the JAX lockstep
+does.  ``params`` given under a mesh are the rank's slice
 (``sharding.shard_params`` of the whole tree, an int8 tree quantized whole
 first); an engine that loads or draws its own keeps each layer's slice as
 it is made.  ``adopt_prefilled`` takes a sequence prefilled by
@@ -146,8 +153,9 @@ from tpuserve_torch.models.weights import (
 from tpuserve_torch.ops import sampling as sampling_ops
 from tpuserve_torch.ops.ragged_paged import ragged_block, ragged_layout
 from tpuserve_torch.parallel.mesh import RankMesh
-from tpuserve_torch.parallel.multihost import Lockstep
-from tpuserve_torch.parallel.sharding import RankSlicer, rank_config, shard_params
+from tpuserve_torch.parallel.multihost import Lockstep, agree_min
+from tpuserve_torch.parallel.sharding import (
+    RankSlicer, draft_rank_config, rank_config, shard_params)
 from tpuserve_torch.runtime import grammar
 from tpuserve_torch.runtime import spec as spec_mod
 from tpuserve_torch.runtime.block_manager import create_block_manager
@@ -164,8 +172,8 @@ from tpuserve_torch.runtime.faults import FaultInjector
 from tpuserve_torch.runtime.flight import FlightRecorder
 from tpuserve_torch.runtime.hostprof import PROF
 from tpuserve_torch.runtime.kv_cache import (
-    CacheConfig, PageStaging, create_kv_cache, gather_block_pages, num_blocks_for_budget,
-    scatter_block_pages)
+    CacheConfig, PageStaging, bytes_per_block, create_kv_cache, gather_block_pages,
+    num_blocks_for_budget, scatter_block_pages)
 from tpuserve_torch.runtime.kv_tiers import TieredPageStore
 from tpuserve_torch.runtime.request import (
     FinishReason, Request, RequestOutput, RequestState, SamplingParams, check_stop)
@@ -234,7 +242,8 @@ class EngineConfig:
     # budget) and from there to a spill directory instead of lost; a later
     # prompt whose prefix resolves in a lower tier is restored ahead of
     # admission and prefills only the uncached suffix.  None = on whenever
-    # prefix caching is on, unless TPUSERVE_KV_TIERS is 0.
+    # prefix caching is on, unless TPUSERVE_KV_TIERS is 0 (off, as in the
+    # JAX engine, under pp and across nodes).
     kv_tiers: Optional[bool] = None
     # host-DRAM tier byte budget; 0 = TPUSERVE_KV_HOST_BYTES or 1 GiB
     kv_host_bytes: int = 0
@@ -423,8 +432,7 @@ def _read(p) -> tuple:
 def _check_mesh_config(config: EngineConfig, mesh) -> None:
     """The JAX engine's refusals under a mesh (the pipeline engine's first,
     with its messages; ``make_mesh`` refuses a pp grid beside tp or ep, or
-    across nodes), and what this slice does not bring under one (ROADMAP.md
-    A10)."""
+    across nodes)."""
     if mesh.shape.get("pp", 1) > 1 and config.speculative:
         raise ValueError("speculative decoding is not supported on the pipeline "
                          "engine (the verify window would serialise through every "
@@ -433,10 +441,6 @@ def _check_mesh_config(config: EngineConfig, mesh) -> None:
         raise ValueError("multi-LoRA with a tp/ep/pp mesh is not supported (the "
                          "stacked factors have no shardings); use merge-at-load "
                          "lora_dir under TP")
-    if config.speculative:
-        raise NotImplementedError("speculative decoding under a mesh (ROADMAP.md A10)")
-    if config.kv_tiers:
-        raise NotImplementedError("the tiered KV cache under a mesh (ROADMAP.md A10)")
 
 
 def _decode_key(B: int, mode: str, extras: str = "", bucket: tuple = ()) -> tuple:
@@ -582,8 +586,15 @@ class Engine:
                     f"draft checkpoint dir {ddir!r} has no "
                     "*.safetensors — a typo here would silently "
                     "serve a random-weights draft")
-            self._draft_params = load_or_init(self._draft_cfg, ddir, config.seed,
-                                              self.device)
+            whole_draft = self._draft_cfg
+            if mesh is not None:
+                # a rank holds its slice of the draft as of the target, and
+                # the draft's trunk sums over the ranks as the target's
+                self._draft_cfg = draft_rank_config(whole_draft, mesh)
+            self._draft_params = load_or_init(
+                whole_draft, ddir, config.seed, self.device,
+                shard=None if mesh is None else RankSlicer(
+                    mesh, num_layers=whole_draft.num_layers))
         # embeddings and prompt scoring: one trunk batch at a time
         self._embed_lock = threading.Lock()
         # Mixed batching: the flat-row block is the ragged kernel's grid
@@ -649,16 +660,29 @@ class Engine:
         self._page_staging: Optional[PageStaging] = None
         tiers_on = config.kv_tiers
         if tiers_on is None:
-            tiers_on = env_flag("TPUSERVE_KV_TIERS") and mesh is None
-            if mesh is not None:
-                # the tiers' page copies run outside the step executables,
-                # which are all the lockstep mirrors
-                logger.info("KV tiers are off under a mesh (ROADMAP.md A10)")
+            tiers_on = env_flag("TPUSERVE_KV_TIERS")
+        if tiers_on and mesh is not None and (self._pp > 1 or mesh.multihost):
+            # as the JAX engine: off under pp (a stage's pages are its
+            # layers') and across nodes (several processes)
+            logger.info("KV tiers are off under %s", "pp" if self._pp > 1 else
+                        "several nodes")
+            tiers_on = False
         if tiers_on and prefix_caching:
             host_bytes = config.kv_host_bytes or int(
                 os.environ.get("TPUSERVE_KV_HOST_BYTES", 0) or (1 << 30))
             spill = config.kv_spill_dir or os.environ.get("TPUSERVE_KV_SPILL_DIR") or None
+            if mesh is not None:
+                # each rank files its own slice of a page: the budget in
+                # blocks of one card's whole pages, so every rank's store
+                # holds the same hashes in the same tier as one card's
+                # would; spill files a subdirectory a rank
+                host_bytes = (host_bytes // bytes_per_block(whole_cfg, self.cache_cfg)
+                              * bytes_per_block(self.model_cfg, self.cache_cfg))
+                if spill:
+                    spill = os.path.join(spill, f"rank{mesh.rank}")
             self._kv_tiers = TieredPageStore(host_bytes, spill_dir=spill)
+            if mesh is not None and mesh.world > 1:
+                self._agree_spill_entries()
             self.block_manager.record_evictions = True
         # debug strict mode: block and tier accounting checked every cycle
         self._strict_blocks = bool(os.environ.get("TPUSERVE_STRICT_BLOCKS"))
@@ -1084,9 +1108,6 @@ class Engine:
             raise ValueError(
                 f"{', '.join(params.multihost_unsupported())} not "
                 "supported in multi-host serving mode")
-        if self.mesh is not None and params.guided is not None:
-            raise ValueError("guided decoding is not served under a mesh yet "
-                             "(ROADMAP.md A10)")
         if len(prompt_token_ids) >= self.max_seq_len:
             raise ValueError(
                 f"prompt length {len(prompt_token_ids)} exceeds max sequence "
@@ -1828,9 +1849,13 @@ class Engine:
         penalties' buffers from ``extras`` (``load_extras``' five arrays),
         load a grammar's tables (``grammar``: ``StepGraphs.load_grammar``'s
         arguments), then run ``steps`` steps; with ``eager`` run one step
-        eagerly and return its logits."""
+        eagerly and return its logits.  The followers get a grammar's
+        tables only when they load here (a new grammar in the bucket)."""
         if self._lockstep is not None:
-            self._lockstep.run(exe.key, st, 0 if eager else steps, extras)
+            tables = None
+            if grammar is not None and not self.graphs.grammar_loaded(*grammar[:2]):
+                tables = (grammar[0], *(tuple(grammar[2:]) + (None, None))[:3])
+            self._lockstep.run(exe.key, st, 0 if eager else steps, extras, tables)
         if isinstance(exe, DecodeExecutable):
             exe.load(st, chain=chain)
         else:
@@ -1854,8 +1879,10 @@ class Engine:
         self.graphs.warmup(keys)
 
     def _exec_embed(self, tokens: np.ndarray, lens: np.ndarray, pooling: str) -> np.ndarray:
-        """One batch of the embeddings trunk, on the host."""
-        self._refuse_trunks()
+        """One batch of the embeddings trunk, on the host (every rank runs
+        it on its slice; rank 0 reads it)."""
+        if self._lockstep is not None:
+            self._lockstep.trunk("embed", tokens, lens, pooling=pooling)
         return transformer.embed_forward(
             self.params, self.model_cfg, self._tensor(tokens), self._tensor(lens),
             pooling=pooling, attn_impl=self.attn_impl).cpu().numpy()
@@ -1863,15 +1890,70 @@ class Engine:
     def _exec_score(self, tokens: np.ndarray, lens: np.ndarray, top_n: int) -> tuple:
         """One batch of the scoring trunk: (chosen, ranks, top ids, top
         logprobs) on the host."""
-        self._refuse_trunks()
+        if self._lockstep is not None:
+            self._lockstep.trunk("score", tokens, lens, top_n=top_n)
         return tuple(x.cpu().numpy() for x in transformer.score_prompt(
             self.params, self.model_cfg, self._tensor(tokens), self._tensor(lens),
             top_n=top_n, attn_impl=self.attn_impl))
 
-    def _refuse_trunks(self) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError("embeddings and prompt scoring under a mesh "
-                                      "(ROADMAP.md A10)")
+    # The tiered KV cache's page copies (runtime/kv_tiers.py): rank 0's block
+    # manager decides, and each rank files its own slice of the pages.
+
+    def _exec_demote(self, blocks: list, hashes: list) -> None:
+        """Gather ``blocks``' pages into the tier store under ``hashes``."""
+        if self._lockstep is not None:
+            self._lockstep.demote(blocks, hashes)
+        pages = gather_block_pages(self.kv_cache, blocks, self._staging())
+        for h, p in zip(hashes, pages):
+            self._kv_tiers.put(h, p)
+
+    def _exec_restore(self, span: list) -> list:
+        """Take ``span``'s pages out of the tier store up to the first it
+        cannot read (an unreadable spill entry mid-chain: only the intact
+        prefix is restored).  Under a mesh every rank takes its own, they
+        agree on the shortest intact prefix, and each drops the span's
+        hashes past it, so that every store keeps the same hashes."""
+        store = self._kv_tiers
+        pages = []
+        for h in span:
+            p = store.take(h)
+            if p is None:
+                break
+            pages.append(p)
+        if self.mesh is not None and self.mesh.world > 1:
+            n = (self._lockstep.restore(span, len(pages)) if self._lockstep is not None
+                 else agree_min(self.mesh.ctrl_group, len(pages)))
+            for h in span[n:]:
+                store.drop(h)
+            pages = pages[:n]
+        return pages
+
+    def _exec_scatter(self, blocks: list, pages: list) -> None:
+        """Write restored pages into ``blocks`` in place."""
+        if self._lockstep is not None:
+            self._lockstep.scatter(blocks)
+        scatter_block_pages(self.kv_cache, blocks, pages, self._staging())
+
+    def _exec_drop(self, hashes: list) -> None:
+        """Drop superseded tier store entries."""
+        if self._lockstep is not None:
+            self._lockstep.drop(hashes)
+        for h in hashes:
+            self._kv_tiers.drop(h)
+
+    def _agree_spill_entries(self) -> None:
+        """At start under a mesh: keep only the spill entries every rank's
+        store adopted from an earlier run, so that every rank holds the
+        same hashes (a file one rank lacks is dropped on all)."""
+        import torch.distributed as dist
+        store = self._kv_tiers
+        mine = list(store.hashes())
+        every = [None] * self.mesh.world
+        dist.all_gather_object(every, mine, group=self.mesh.ctrl_group)
+        common = set(mine).intersection(*map(set, every))
+        for h in mine:
+            if h not in common:
+                store.drop(h)
 
     # ---- sampling -----------------------------------------------------
 
@@ -2793,9 +2875,7 @@ class Engine:
         ev = [(b, h) for b, h in bm.take_evictions() if not bm.prefix_resolvable(h)]
         if not ev:
             return
-        pages = gather_block_pages(self.kv_cache, [b for b, _ in ev], self._staging())
-        for (_b, h), p in zip(ev, pages):
-            store.put(h, p)
+        self._exec_demote([b for b, _ in ev], [h for _, h in ev])
         self.stats.kv_demoted_blocks += len(ev)
         self.stats.kv_spilled_blocks = store.spilled_blocks
         self.stats.kv_tier_dropped_blocks = store.dropped_blocks
@@ -2813,8 +2893,9 @@ class Engine:
         store = self._kv_tiers
         if store is None or len(store) == 0:
             return
-        for h in self.block_manager.prefix_chain(list(ids) + [0]):
-            store.drop(h)
+        hashes = [h for h in self.block_manager.prefix_chain(list(ids) + [0]) if store.has(h)]
+        if hashes:
+            self._exec_drop(hashes)
 
     def _begin_tier_restores(self) -> None:
         """Restore lower-tier prefix hits of the requests at the head of
@@ -2851,12 +2932,7 @@ class Engine:
             blocks = bm.begin_restore(span)
             if blocks is None:
                 continue
-            pages = []
-            for h in span:
-                p = store.take(h)
-                if p is None:       # unreadable spill entry mid-chain:
-                    break           # restore only the intact prefix
-                pages.append(p)
+            pages = self._exec_restore(span)
             if len(pages) < len(span):
                 bm.abort_restore(blocks[len(pages):])
                 blocks, span = blocks[:len(pages)], span[:len(pages)]
@@ -2866,7 +2942,7 @@ class Engine:
             # claiming restore blocks can itself evict cold cached blocks:
             # demote THEM before the scatter overwrites their pages
             self._demote_evicted()
-            scatter_block_pages(self.kv_cache, blocks, pages, self._staging())
+            self._exec_scatter(blocks, pages)
             req.state = RequestState.RESTORING
             self.flight.req_event(req.request_id, "RESTORING", blocks=len(blocks))
             self._restores[req.request_id] = (span, blocks, self.clock.monotonic())
@@ -3162,6 +3238,8 @@ class Engine:
         the unembedding in slices).  Returns one entry list a prompt in
         ``Request.logprobs``' shape; the first token's logprob and rank are
         None (no conditional), as OpenAI reports it."""
+        if self.mesh is not None and self.mesh.multihost:
+            raise ValueError("prompt scoring not supported by this multi-host deployment")
         self._refuse_pp("prompt scoring")
         top_n = min(max(int(top_n), 0), self.MAX_LOGPROBS)
         prepared = []
@@ -3230,6 +3308,9 @@ class Engine:
         power-of-two (B, T) buckets (``_trunk_batches``) and run the
         cache-less trunk (``transformer.embed_forward``) a batch at a time.
         Returns (float32 ndarray (n, H), token counts)."""
+        if self.mesh is not None and self.mesh.multihost:
+            raise ValueError("embeddings not supported by this multi-host deployment; "
+                             "route to a single-host replica")
         self._refuse_pp("embeddings")
         if pooling not in transformer.POOLINGS:
             raise ValueError("pooling must be 'mean' or 'last'")

@@ -766,6 +766,11 @@ class StepGraphs:
         ent[3] = tag
         return True
 
+    def grammar_loaded(self, bucket: tuple, tag) -> bool:
+        """Whether ``bucket``'s buffers hold ``tag``'s tables already (so
+        ``load_grammar`` would skip them)."""
+        return tag is not None and self._grammar[bucket][3] is tag
+
     def get(self, *key) -> Executable:
         exe = self.executables.get(key)
         if exe is not None:
