@@ -139,6 +139,24 @@ non-zero:
              equal rank 0's; each rank's launches equal layers x its runs
              of each step kind (B1: prefills, trunk batches, draft passes;
              B2: decode steps; B3: chunks and verify passes).
+             Then ``disagg`` (``disagg_mesh_run``): KV adoption and
+             extraction on the grid, the same model, layers and dtype,
+             fixed small caches, 4 prompts of 64-256 x 8 greedy: (a) the
+             in-process pair on the ranks (``DisaggregatedEngine`` with
+             the mesh: each handoff copies a rank's heads on its card);
+             (b) the decode role: rank 0 adopts the reference's
+             migrations read back through the wire codec; (c) the prefill
+             role: rank 0 joins its ranks' pages of its own prefills and
+             serializes them, and a one-card engine in this process adopts
+             them.  Gates: (a) tokens equal the one-card pair's and the
+             colocated engine's, ``kv_transfers`` the reference's; (b)
+             tokens equal colocated, each rank's adopted pages bit-equal to
+             its heads of the wire's; (c) pages within 1e-4 (relative to
+             their scale) of the reference's, the one-card adoption's
+             tokens equal colocated; every follower's windows equal rank
+             0's; each rank's B1 / B2 launches equal layers x its runs.
+             The handoff, adoption and extraction ms a request, ranks
+             against one card.
 4b. pp      pipeline stages (``tpuserve_torch/parallel/pipeline.py``),
              Qwen2-72B-Instruct at full width, float32 (TF32 off) cut to 4
              layers and bf16 cut to 4, each stage's layers (and stage 0's
@@ -7826,6 +7844,200 @@ def features_run(spec: dict, rank: int) -> dict:
     return out
 
 
+# phase tp's disagg run: KV adoption and extraction on the grid (the pair,
+# the decode role, the prefill role), the features run's model, layers and
+# dtype, fixed small caches (a pair on four gloo ranks of one card is eight
+# engines on it)
+DISAGG_MESH_LENGTHS = [64, 128, 192, 256]
+DISAGG_MESH_TOKENS = 8
+DISAGG_MESH_CACHE = dict(block_size=32, num_blocks=48, max_blocks_per_seq=16,
+                         dtype="float32")
+
+
+def disagg_mesh_engine(cfg, params, mesh, pair: bool = False):
+    """One engine (or, with ``pair``, an in-process pair) of the disagg
+    run; the one-card reference eager, as the features run's."""
+    from tpuserve_torch.parallel.disagg import DisaggregatedEngine
+    from tpuserve_torch.runtime import CacheConfig, Engine, EngineConfig, SchedulerConfig
+    ecfg = EngineConfig(model=cfg.name, seed=SEED, multi_step=TP_MULTI_STEP,
+                        cache=CacheConfig(**DISAGG_MESH_CACHE),
+                        scheduler=SchedulerConfig(max_num_seqs=8),
+                        cuda_graphs=False if mesh is None else None)
+    if pair:
+        return DisaggregatedEngine(ecfg, ecfg, params=params, model_cfg=cfg, mesh=mesh,
+                                   device="cuda")
+    return Engine(ecfg, params=params, model_cfg=cfg, mesh=mesh, device="cuda")
+
+
+def disagg_mesh_prefilled(eng, ps, params, path: str) -> dict:
+    """A prefill pod's work on ``eng``: one prefill step of ``ps``, then each
+    sequence's one-card pages (``_exec_extract``: under a mesh joined from
+    the ranks' heads), timed, and its migration written through the wire
+    codec to ``path.<i>.kv``; the requests aborted after."""
+    import torch
+    from tpuserve_torch.parallel.disagg_net import sampling_to_dict, serialize_migration
+    rids = [eng.add_request(prompt_token_ids=p, params=params, request_id=f"m{i}")
+            for i, p in enumerate(ps)]
+    eng.step()
+    ms, firsts = [], []
+    for i, rid in enumerate(rids):
+        req = eng.requests[rid]
+        if len(req.output_token_ids) != 1:
+            raise RuntimeError(f"{rid}: {len(req.output_token_ids)} tokens after its prefill")
+        blocks = eng.block_manager.block_table(rid)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        seq_kv = eng._exec_extract(blocks)
+        ms.append((time.perf_counter() - t) * 1e3)
+        firsts.append(req.output_token_ids[-1])
+        meta = {"request_id": rid, "prompt_token_ids": list(req.prompt_token_ids),
+                "first_token": firsts[-1], "num_valid_blocks": len(blocks),
+                "params": sampling_to_dict(params)}
+        with open(f"{path}.{i}.kv", "wb") as f:
+            f.write(serialize_migration(meta, seq_kv))
+    for rid in rids:
+        eng.abort_request(rid)
+    return {"extract_ms": ms, "first_tokens": firsts}
+
+
+def read_migrations(path: str, n: int) -> list:
+    from tpuserve_torch.parallel.disagg_net import deserialize_migration
+    out = []
+    for i in range(n):
+        with open(f"{path}.{i}.kv", "rb") as f:
+            out.append(deserialize_migration(f.read()))
+    return out
+
+
+def disagg_mesh_adopt(eng, migrations) -> dict:
+    """A decode pod's work on ``eng``: adopt each migration (``adopt_meta``,
+    timed), then decode them to the end."""
+    import torch
+    from tpuserve_torch.parallel.disagg_net import adopt_meta
+    ms, rids = [], []
+    for meta, seq_kv in migrations:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rids.append(adopt_meta(eng, meta, seq_kv))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    while eng.has_work():
+        eng.step()
+    return {"tokens": [eng.requests.pop(r).output_token_ids for r in rids], "adopt_ms": ms}
+
+
+def watch_adoptions_against(eng, migrations, parts: int, index: int) -> list:
+    """Each adoption on this rank: whether its cache holds, right after the
+    write, its heads of the wire's pages bit for bit (``cut_pages``)."""
+    from tpuserve_torch.parallel.disagg import extract_seq_kv
+    from tpuserve_torch.parallel.sharding import cut_pages
+    seen, orig = [], eng._exec_adopt
+
+    def adopt(blocks, seq_kv):
+        orig(blocks, seq_kv)
+        want = cut_pages(migrations[len(seen)][1], parts, index)
+        got = extract_seq_kv(eng.kv_cache, blocks)
+        seen.append(all(torch_equal_bits(g[k].cpu(), w[k].contiguous())
+                        for g, w in zip(got, want) for k in w))
+    eng._exec_adopt = adopt
+    return seen
+
+
+def disagg_mesh_run(spec: dict, rank: int) -> dict:
+    """Phase tp's disagg run on this process: the one-card reference (no
+    mesh: the colocated engine, the pair, a prefill whose migrations it
+    writes for the ranks, a decode engine adopting them) or a rank of a
+    tp 4 grid: (a) the pair, (b) the decode role adopting the reference's
+    migrations, (c) the prefill role writing its own; launches counted on
+    this rank against its runs."""
+    import gc
+    import torch
+    from tpuserve_torch.models.config import get_model_config
+    from tpuserve_torch.parallel.mesh import MeshConfig, make_mesh
+    from tpuserve_torch.parallel.multihost import follower_loop
+    from tpuserve_torch.runtime import SamplingParams
+    cfg = dataclasses.replace(get_model_config(FEATURE_MODEL), dtype="float32",
+                              num_layers=FEATURE_LAYERS)
+    mesh = None
+    if spec["world"] > 1:
+        mesh = make_mesh(MeshConfig(tp=min(4, spec["world"])), device_type="cuda",
+                         devices=(["cuda:0"] * spec["world"] if spec["backend"] == "gloo"
+                                  else None), timeout_s=TP_TIMEOUT_S)
+    t0 = time.perf_counter()
+    params = tp_params(cfg, mesh)
+    lead = mesh is None or mesh.is_coordinator
+    ps = prompts(np.random.default_rng(SEED + 9), DISAGG_MESH_LENGTHS, cfg.vocab_size)
+    greedy = SamplingParams(max_tokens=DISAGG_MESH_TOKENS, temperature=0.0, ignore_eos=True)
+    ref_path = os.path.join(os.path.dirname(spec["out"]), "ref.disagg.mig")
+    out = {"init_s": time.perf_counter() - t0, "tp": 1 if mesh is None else mesh.cfg.tp,
+           "runs": {}}
+    L = cfg.num_layers
+
+    def counted(kind: str, engines: list, body) -> None:
+        reset_launches()
+        t = time.perf_counter()
+        res = body()
+        torch.cuda.synchronize()
+        res["seconds"] = time.perf_counter() - t
+        res["launches"] = read_launches()
+        runs = {k: sum(e.graphs.replays[k] for e in engines) for k in KERNEL_KIND.values()}
+        res["runs"] = runs
+        res["expected"] = {n: L * runs[k] for n, k in KERNEL_KIND.items()}
+        out["runs"][kind] = res
+
+    def serve_pair(pair) -> dict:
+        reqs = pair.generate(ps, greedy)
+        st = pair.stats
+        return {"tokens": [r.output_token_ids for r in reqs], "kv_transfers": st.kv_transfers,
+                "handoff_ms": 1e3 * st.transfer_time_s / max(1, st.kv_transfers)}
+
+    if mesh is None:
+        eng = disagg_mesh_engine(cfg, params, None)
+        counted("colocated", [eng], lambda: {
+            "tokens": [r.output_token_ids for r in eng.generate(ps, greedy)]})
+        del eng
+        pair = disagg_mesh_engine(cfg, params, None, pair=True)
+        counted("pair", [pair.prefill, pair.decode], lambda: serve_pair(pair))
+        del pair
+        eng = disagg_mesh_engine(cfg, params, None)
+        counted("prefill", [eng], lambda: disagg_mesh_prefilled(eng, ps, greedy, ref_path))
+        del eng
+        eng = disagg_mesh_engine(cfg, params, None)
+        counted("decode", [eng], lambda: disagg_mesh_adopt(
+            eng, read_migrations(ref_path, len(ps))))
+        del eng
+    else:
+        def lockstep(eng, engines, kind, serve):
+            def body():
+                if lead:
+                    eng._lockstep.record = True
+                    res = serve()
+                    res["recorded"] = [t_.tolist() for t_ in eng._lockstep.tokens]
+                    res["sent"] = dict(eng._lockstep.sent)
+                    eng.stop_followers()
+                    return res
+                return {"recorded": [t_.tolist() for t_ in follower_loop(eng, record=True)]}
+            counted(kind, engines, body)
+
+        pair = disagg_mesh_engine(cfg, params, mesh, pair=True)
+        lockstep(pair, [pair.prefill, pair.decode], "pair", lambda: serve_pair(pair))
+        del pair
+        eng = disagg_mesh_engine(cfg, params, mesh)
+        wire = read_migrations(ref_path, len(ps))
+        seen = watch_adoptions_against(eng, wire, eng._page_parts, mesh.tp_rank)
+        lockstep(eng, [eng], "decode", lambda: disagg_mesh_adopt(eng, wire))
+        out["runs"]["decode"]["pages_bit_equal"] = seen
+        del eng
+        eng = disagg_mesh_engine(cfg, params, mesh)
+        lockstep(eng, [eng], "prefill", lambda: disagg_mesh_prefilled(
+            eng, ps, greedy, f"{spec['out']}.disagg.mig"))
+        del eng
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def tp_worker(spec_path: str) -> int:
     """A spawned process of phases tp, pp, ring and train (``chip_smoke.py
     --tp-worker SPEC``, the spec's ``mode``): every TP_RUNS (PP_RUNS) entry,
@@ -7851,6 +8063,7 @@ def tp_worker(spec_path: str) -> int:
         out = {run[0]: fn(run, spec, rank) for run in runs}
         if mode == "tp":
             out["features"] = features_run(spec, rank)
+            out["disagg"] = disagg_mesh_run(spec, rank)
     with open(f"{spec['out']}.rank{rank}.json", "w") as f:
         json.dump(out, f)
     if spec["world"] > 1:
@@ -7874,6 +8087,7 @@ def reference_run(work, rate: bool, mode: str = "tp") -> dict:
         out = {run[0]: fn(run, spec, 0) for run in runs}
         if mode == "tp":
             out["features"] = features_run(spec, 0)
+            out["disagg"] = disagg_mesh_run(spec, 0)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
     return json.loads(json.dumps(out))
@@ -7964,9 +8178,12 @@ def tp_gates(work, ref, ranks, rcs, label: str) -> dict:
         out[name] = row
     out["features"] = features_gates(work, ref, ranks, label)
     oks.append(out["features"]["ok"])
+    out["disagg"] = disagg_mesh_gates(work, ref, ranks, label)
+    oks.append(out["disagg"]["ok"])
     out["launches"] = {n: sum(r[run[0]]["engines"][k]["launches"][n] for r in ranks
                               for run in TP_RUNS for k in ("split", "mixed"))
-                       + out["features"]["launches"][n] for n in KERNEL_KIND}
+                       + out["features"]["launches"][n] + out["disagg"]["launches"][n]
+                       for n in KERNEL_KIND}
     out["ok"] = all(oks)
     return out
 
@@ -8062,6 +8279,99 @@ def features_gates(work, ref, ranks, label: str) -> dict:
     checks["three_kernels_every_rank"] = all(
         sum(r["features"]["engines"][k]["launches"][n] for k in ("main", "ngram", "draft")) > 0
         for r in ranks for n in ("flash_prefill", "paged_decode", "paged_window"))
+    out["failed"] = [k for k, v in checks.items() if not v]
+    out["ok"] = not out["failed"]
+    return out
+
+
+def disagg_mesh_one_card(path: str, n: int) -> dict:
+    """The prefill role's check in this process: a one-card engine (eager,
+    TF32 off) adopts rank 0's migrations and decodes them."""
+    import torch
+    from tpuserve_torch.models.config import get_model_config
+    cfg = dataclasses.replace(get_model_config(FEATURE_MODEL), dtype="float32",
+                              num_layers=FEATURE_LAYERS)
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        eng = disagg_mesh_engine(cfg, tp_params(cfg, None), None)
+        res = disagg_mesh_adopt(eng, read_migrations(path, n))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    del eng
+    family_free()
+    return res
+
+
+def disagg_mesh_gates(work, ref, ranks, label: str) -> dict:
+    """The disagg run's checks against the one-card reference: (a) the
+    pair's tokens equal the one-card pair's and the colocated engine's,
+    ``kv_transfers`` the reference's; (b) the decode role's tokens equal
+    colocated, every rank's adopted pages bit-equal to its heads of the
+    wire's; (c) the prefill role's joined pages within FEATURE_PAGE_RTOL
+    (relative to their scale) of the reference's, its first tokens the
+    reference's, a one-card engine adopting them decoding the colocated
+    tokens; one op a request each (handoff, adopt, extract); every
+    follower's windows equal rank 0's; each rank's launches equal layers x
+    its runs, B1 and B2 on every rank.  ``failed`` names the checks that
+    did not hold."""
+    import torch
+    rf = ref["disagg"]["runs"]
+    lead = ranks[0]["disagg"]["runs"]
+    n = len(DISAGG_MESH_LENGTHS)
+    colocated = rf["colocated"]["tokens"]
+    checks, out = {}, {"tp": ranks[0]["disagg"]["tp"], "init_s": ranks[0]["disagg"]["init_s"]}
+    checks["pair_tokens"] = lead["pair"]["tokens"] == rf["pair"]["tokens"] == colocated
+    checks["pair_transfers"] = lead["pair"]["kv_transfers"] == rf["pair"]["kv_transfers"] == n
+    checks["pair_handoffs_sent"] = lead["pair"]["sent"].get("handoff") == n
+    checks["decode_tokens"] = (lead["decode"]["tokens"] == rf["decode"]["tokens"]
+                               == colocated)
+    checks["decode_adopts_sent"] = lead["decode"]["sent"].get("adopt") == n
+    for i, r in enumerate(ranks):
+        seen = r["disagg"]["runs"]["decode"]["pages_bit_equal"]
+        checks[f"rank{i}_adopted_pages_bit_equal"] = len(seen) == n and all(seen)
+    checks["prefill_extracts_sent"] = lead["prefill"]["sent"].get("extract") == n
+    checks["prefill_first_tokens"] = (lead["prefill"]["first_tokens"]
+                                      == rf["prefill"]["first_tokens"])
+    ours = read_migrations(f"{work / label}.disagg.mig", n)
+    theirs = read_migrations(f"{work / 'ref'}.disagg.mig", n)
+    diff, scale = 0.0, 0.0
+    for (_m, a), (_r, b) in zip(ours, theirs):
+        for la, lb in zip(a, b):
+            for key in lb:
+                same = la[key].shape == lb[key].shape
+                diff = max(diff, (la[key] - lb[key]).abs().max().item() if same
+                           else float("inf"))
+                scale = max(scale, lb[key].abs().max().item())
+    out["prefill_pages_max_abs_diff"] = diff
+    checks["prefill_pages"] = diff <= FEATURE_PAGE_RTOL * max(1.0, scale)
+    one = disagg_mesh_one_card(f"{work / label}.disagg.mig", n)
+    checks["prefill_one_card_tokens"] = one["tokens"] == colocated
+    for kind in ("pair", "decode", "prefill"):
+        launches = [r["disagg"]["runs"][kind]["launches"] for r in ranks]
+        expected = [r["disagg"]["runs"][kind]["expected"] for r in ranks]
+        out[f"{kind}_launches"] = launches
+        out[f"{kind}_runs"] = lead[kind]["runs"]
+        out[f"{kind}_s"] = lead[kind]["seconds"]
+        out[f"{kind}_ref_s"] = rf[kind]["seconds"]
+        checks[f"{kind}_launches"] = launches == expected
+        if kind != "prefill":
+            checks[f"{kind}_followers"] = bool(lead[kind]["recorded"]) and all(
+                r["disagg"]["runs"][kind]["recorded"] == lead[kind]["recorded"]
+                for r in ranks[1:])
+    checks["b1_b2_every_rank"] = all(
+        r["disagg"]["runs"]["pair"]["launches"][k] > 0
+        and r["disagg"]["runs"][other]["launches"][k] > 0
+        for r in ranks for k, other in (("flash_prefill", "prefill"),
+                                        ("paged_decode", "decode")))
+    out["handoff_ms_a_request"] = {"ranks": lead["pair"]["handoff_ms"],
+                                   "one_card": rf["pair"]["handoff_ms"]}
+    out["adopt_ms_a_request"] = {"ranks": lead["decode"]["adopt_ms"],
+                                 "one_card": rf["decode"]["adopt_ms"]}
+    out["extract_ms_a_request"] = {"ranks": lead["prefill"]["extract_ms"],
+                                   "one_card": rf["prefill"]["extract_ms"]}
+    out["launches"] = {k: sum(r["disagg"]["runs"][kind]["launches"][k] for r in ranks
+                              for kind in ("pair", "decode", "prefill")) for k in KERNEL_KIND}
     out["failed"] = [k for k, v in checks.items() if not v]
     out["ok"] = not out["failed"]
     return out

@@ -248,12 +248,33 @@ def test_disagg_guided_choice_plan_follows_migration():
     assert not disagg.prefill._guided_plan and not disagg.decode._guided_plan
 
 
-def test_disagg_refusals():
+def test_disagg_refusals(tmp_path):
+    """The JAX pair's refusals (multi-LoRA, a pp mesh); a tp mesh is served
+    (here one rank's: the many-rank pair is tests/test_torch_mesh_disagg.py)."""
+    import torch.distributed as dist
+    from tpuserve_torch.parallel.mesh import (MeshConfig, RankComm, RankMesh, make_mesh,
+                                              multihost_initialize)
     with pytest.raises(ValueError, match="multi-LoRA"):
         DisaggregatedEngine(_cfg(lora_modules={"a": "/x"}), _cfg(), model_cfg=_mc(),
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        DisaggregatedEngine(_cfg(), _cfg(), mesh=object(), model_cfg=_mc(), device="cpu")
+    pp = RankMesh(cfg=MeshConfig(pp=2), rank=0, world=2, device=torch.device("cpu"),
+                  backend="gloo", comm=RankComm(1, 0, None, 1, 0, None), ctrl_group=None)
+    with pytest.raises(ValueError, match="pipeline"):
+        DisaggregatedEngine(_cfg(), _cfg(), mesh=pp, model_cfg=_mc(), device="cpu")
+    assert not dist.is_initialized()
+    multihost_initialize("cpu", init_method=f"file://{tmp_path}/store", rank=0,
+                         world_size=1)
+    try:
+        mesh = make_mesh(MeshConfig(tp=1), device_type="cpu")
+        pair = DisaggregatedEngine(_cfg(), _cfg(), mesh=mesh, model_cfg=_mc(), device="cpu")
+        assert pair.prefill.mesh is mesh and pair.decode.mesh is mesh
+        prompts = [[5, 6, 7], list(range(10, 30))]
+        sp = SamplingParams(max_tokens=6, temperature=0.0, ignore_eos=True)
+        assert [r.output_token_ids for r in pair.generate(prompts, sp)] == [
+            r.output_token_ids for r in _pair().generate(prompts, sp)]
+        assert pair.stats.kv_transfers == 2
+    finally:
+        dist.destroy_process_group()
 
 
 def test_adopt_prefilled_demotes_before_it_writes():
@@ -282,3 +303,32 @@ def test_adopt_prefilled_demotes_before_it_writes():
     while dst.has_work():
         dst.step()
     assert dst.requests["m"].output_token_ids == src.generate([ids], p)[0].output_token_ids
+
+
+def test_pair_migration_demotes_before_it_copies():
+    """The pair's page copy comes after the decode pool's tiers act, as an
+    adoption's: a cached prefix block the migration's allocate evicts is
+    demoted with its own pages, not the migrated ones written over it."""
+    small = EngineConfig(model="tiny-qwen3",
+                         cache=CacheConfig(block_size=4, num_blocks=4, max_blocks_per_seq=4,
+                                           dtype="float32"),
+                         scheduler=SchedulerConfig(**SCHED))
+    pair = _pair(decode=small)
+    dst = pair.decode
+    p = SamplingParams(max_tokens=2, temperature=0.0, ignore_eos=True)
+    first = [3, 4, 5, 6, 7, 8, 9, 10, 11]
+    pair.generate([first], p)                               # cached prefix blocks
+    assert dst._kv_tiers is not None
+    blocks, n = dst.block_manager.lookup_prefix(first, count_stats=False)
+    hashes = dst.block_manager.prefix_chain(first)[:len(blocks)]
+    assert n > 0 and len(hashes) == len(blocks)
+    before = {h: dst.kv_cache[0]["k"][b].clone() for h, b in zip(hashes, blocks)}
+    pair.add_request(prompt_token_ids=[20 + i for i in range(9)], params=p)
+    pair.prefill.step()
+    pair._ready = list(pair.prefill.scheduler.running)
+    pair.prefill.scheduler.running.clear()
+    pair._try_migrations()                                   # evicts the prefix
+    demoted = [h for h in hashes if dst._kv_tiers.has(h)]
+    assert demoted and dst.stats.kv_demoted_blocks == len(demoted)
+    for h in demoted:
+        assert torch.equal(dst._kv_tiers.take(h)[0]["k"], before[h]), h

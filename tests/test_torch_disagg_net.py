@@ -305,6 +305,109 @@ def test_cross_pod_server_to_server(decode_server):
 
 
 # ---------------------------------------------------------------------------
+# A decode pod of 2 lockstep ranks: python -m tpuserve_torch.server --tp 2
+# --role decode (tiny-mistral, registered in float32: both pods draw the same
+# seed-0 weights by name)
+# ---------------------------------------------------------------------------
+
+TP_MODEL = "tiny-mistral"
+TP_MC = get_model_config(TP_MODEL)
+
+
+def _start_tp2_decode_pod(tmp_path):
+    """The CLI at ``--tp 2 --role decode`` (it spawns its follower rank);
+    (process, url)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parent.parent
+    log = tmp_path / "rank0.log"
+    env = dict(os.environ, PYTHONPATH=str(root), TMPDIR=str(tmp_path), OMP_NUM_THREADS="1")
+    env.pop("RANK", None)
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "tpuserve_torch.server", "--tp", "2", "--role", "decode",
+             "--device", "cpu", "--model", TP_MODEL, "--port", "0", "--host", "127.0.0.1",
+             "--block-size", "4", "--num-blocks", "64", "--max-blocks-per-seq", "16",
+             "--max-num-seqs", "4", "--kv-cache-dtype", "float32", "--no-warmup",
+             # the long request's decode dispatches slowed, so that its abort
+             # lands mid-stream
+             "--faults", "decode_dispatch:delay:1.0:delay_s=0.2:match=long"],
+            stdout=f, stderr=subprocess.STDOUT, env=env, stdin=subprocess.DEVNULL)
+    deadline = time.monotonic() + 120
+    while time.monotonic() < deadline and proc.poll() is None:
+        text = log.read_text()
+        if "listening on" in text:
+            port = int(text.split("listening on ")[1].split()[0].rsplit(":", 1)[1])
+            return proc, f"http://127.0.0.1:{port}"
+        time.sleep(0.2)
+    proc.kill()
+    proc.wait()
+    raise AssertionError(log.read_text()[-3000:])
+
+
+def _post_json(url: str, body: dict) -> dict:
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    return json.loads(urllib.request.urlopen(req, timeout=60).read())
+
+
+def test_cross_pod_to_a_tp2_decode_pod(tmp_path):
+    """A one-device prefill pod hands off over ``/internal/migrate`` to a
+    decode pod of 2 ranks: the streams equal colocated; an adopted request
+    aborted mid-stream on ``/internal/abort`` answers as on one card
+    (aborted, then unknown), and its stream ends; SIGTERM drains and every
+    rank exits 0."""
+    import signal
+    proc, url = _start_tp2_decode_pod(tmp_path)
+    try:
+        handoff = disagg_net.PrefillHandoffEngine(
+            EngineConfig(model=TP_MODEL, cache=CacheConfig(**CACHE),
+                         scheduler=SchedulerConfig(**SCHED)), url, model_cfg=TP_MC,
+            device="cpu")
+        prompts = [[5, 6, 7], [11, 12, 13, 14, 15], list(range(2, 30))]
+        params = SamplingParams(max_tokens=8, temperature=0.0, ignore_eos=True)
+        reqs = handoff.generate(prompts, params)
+        colocated = Engine(EngineConfig(model=TP_MODEL, cache=CacheConfig(**CACHE),
+                                        scheduler=SchedulerConfig(**SCHED)),
+                           model_cfg=TP_MC, device="cpu").generate(prompts, params)
+        assert [r.output_token_ids for r in reqs] == [r.output_token_ids for r in colocated]
+        assert handoff.refused == 0 and handoff.prefill.block_manager.num_seqs() == 0
+        # a long request adopted, then aborted while it streams
+        eng = handoff.prefill
+        rid = eng.add_request(prompt_token_ids=[9, 8, 7], request_id="long",
+                              params=SamplingParams(max_tokens=56, temperature=0.0,
+                                                    ignore_eos=True))
+        eng.step()
+        req = eng.requests[rid]
+        meta = {"request_id": rid, "prompt_token_ids": [9, 8, 7],
+                "first_token": req.output_token_ids[-1], "num_valid_blocks": 1,
+                "params": disagg_net.sampling_to_dict(req.params)}
+        blob = disagg_net.serialize_migration(
+            meta, eng._exec_extract(eng.block_manager.block_table(rid)))
+        stream = urllib.request.urlopen(urllib.request.Request(
+            f"{url}/internal/migrate", data=blob,
+            headers={"Content-Type": "application/x-tpuserve-kv"}), timeout=60)
+        first = json.loads(stream.readline())
+        assert first["new_token_ids"] and not first["finished"]
+        assert _post_json(f"{url}/internal/abort", {"request_id": rid}) == {
+            "request_id": rid, "aborted": True}
+        rest = [json.loads(line) for line in stream if line.strip()]
+        stream.close()
+        got = len(first["new_token_ids"]) + sum(len(m["new_token_ids"]) for m in rest)
+        assert got < 55
+        assert _post_json(f"{url}/internal/abort", {"request_id": rid}) == {
+            "request_id": rid, "aborted": False}
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=90) == 0, (tmp_path / "rank0.log").read_text()[-3000:]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+# ---------------------------------------------------------------------------
 # Mixed pairs: the two packages' pods hand off to each other
 # ---------------------------------------------------------------------------
 

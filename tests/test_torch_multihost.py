@@ -307,21 +307,24 @@ def test_lockstep_mirrors_every_hook_and_op():
                        ("_exec_warmup", "warmup"), ("_exec_embed", "trunk"),
                        ("_exec_score", "trunk"), ("_exec_demote", "demote"),
                        ("_exec_restore", "restore"), ("_exec_scatter", "scatter"),
-                       ("_exec_drop", "drop")):
+                       ("_exec_drop", "drop"), ("_exec_adopt", "adopt"),
+                       ("_exec_extract", "extract"), ("_exec_handoff", "handoff")):
         assert f"self._lockstep.{call}" in hooks[hook], hook
     src = inspect.getsource(multihost)
     for op in ("OP_MAKE", "OP_RUN", "OP_WARMUP", "OP_NOOP", "OP_STOP", "OP_DEMOTE",
-               "OP_RESTORE", "OP_SCATTER", "OP_DROP", "OP_TRUNK"):
+               "OP_RESTORE", "OP_SCATTER", "OP_DROP", "OP_TRUNK", "OP_ADOPT", "OP_EXTRACT",
+               "OP_HANDOFF"):
         assert src.count(op) >= 3, f"{op} not used by both protocol sides"
-    # the tier page copies run only in their hooks (warmup's round trip of
-    # block 0 onto itself makes the staging on rank 0 alone)
+    # the tier and migration page copies run only in their hooks (warmup's
+    # round trip of block 0 onto itself makes the staging on rank 0 alone)
     copies = {}
     for meth in _engine_class().body:
         if (isinstance(meth, ast.FunctionDef) and not meth.name.startswith("_exec_")
                 and meth.name != "warmup"):
             found = [n.func.id for n in ast.walk(meth) if isinstance(n, ast.Call)
                      and isinstance(n.func, ast.Name)
-                     and n.func.id in ("gather_block_pages", "scatter_block_pages")]
+                     and n.func.id in ("gather_block_pages", "scatter_block_pages",
+                                       "extract_seq_kv", "insert_seq_kv")]
             if found:
                 copies[meth.name] = found
     assert not copies, copies
@@ -459,11 +462,21 @@ def test_cli_topology_checks(capsys):
                       (["--pp", "2", "--multihost"], "drop --disagg/--role/--multihost"),
                       (["--role", "prefill"], "requires --decode-url"),
                       (["--role", "decode", "--disagg"], "its own topology"),
-                      (["--disagg", "--tp", "2"], "A10")):
+                      (["--role", "decode", "--multihost"], "its own topology"),
+                      (["--disagg", "--multihost"], "cannot mirror an in-process")):
         with pytest.raises(SystemExit) as ei:
             main(argv)
         assert ei.value.code == 2
-        assert msg in capsys.readouterr().err
+        err = capsys.readouterr().err
+        assert msg in err and "A10" not in err
+    # disaggregation on a --tp mesh parses and passes the topology checks
+    from tpuserve_torch.server.openai_api import _check_topology, build_parser
+    for argv in (["--disagg", "--tp", "2"], ["--role", "decode", "--tp", "2"],
+                 ["--role", "prefill", "--decode-url", "http://d:1", "--tp", "2"]):
+        ap = build_parser()
+        args = ap.parse_args(argv)
+        _check_topology(ap, args)
+        assert args.tp == 2 and (args.disagg or args.role)
 
 
 if __name__ == "__main__":

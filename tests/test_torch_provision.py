@@ -816,9 +816,35 @@ def test_config_rejects_incoherent_parallelism():
         DeployConfig(tensor_parallel=1, pipeline_parallel=4).validate()
     with pytest.raises(ValueError, match="collides"):
         DeployConfig(tensor_parallel=1, model="m", lora_modules={"m": "/x"}).validate()
-    # the port's server refuses --disagg with --tp
-    with pytest.raises(ValueError, match="--disagg/--role with --tp"):
-        DeployConfig(tensor_parallel=2, **_nodes(2), disaggregated=True).validate()
+    # the port's server serves --disagg and --role with --tp, as the JAX
+    # server does on its tp mesh: such configs are coherent
+    DeployConfig(tensor_parallel=2, **_nodes(2), disaggregated=True).validate()
+    DeployConfig(tensor_parallel=2, **_nodes(2), disaggregated=True,
+                 disagg_cross_pod=True).validate()
+
+
+@pytest.mark.parametrize("cross_pod", [False, True])
+def test_disaggregated_config_at_tp2_renders_a_command_the_server_parses(cross_pod):
+    """``tensor_parallel=2`` on a disaggregated config renders ``--tp 2``
+    beside ``--disagg`` (or each pool's ``--role``), and the port's server
+    takes that command (its parser and topology checks)."""
+    from tpuserve_torch.server import openai_api
+    cfg = DeployConfig(tensor_parallel=2, **_nodes(2), disaggregated=True,
+                       disagg_cross_pod=cross_pod)
+    cfg.validate()
+    cmds = [c["command"] for o in manifests.serving_manifests(cfg)
+            for c in (((o.get("spec") or {}).get("template") or {}).get("spec") or {}).get(
+                "containers", [])
+            if c.get("command", [])[:3] == ["python", "-m", "tpuserve_torch.server"]]
+    assert len(cmds) == (2 if cross_pod else 1)
+    for cmd in cmds:
+        args = cmd[3:]
+        assert args[args.index("--tp") + 1] == "2"
+        assert ("--role" in args) == cross_pod and ("--disagg" in args) != cross_pod
+        ap = openai_api.build_parser()
+        ns = ap.parse_args(args)
+        openai_api._check_topology(ap, ns)
+        assert ns.tp == 2 and (ns.disagg or ns.role in ("prefill", "decode"))
 
 
 # --- every manifest against the strict schemas ----------------------------

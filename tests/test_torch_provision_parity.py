@@ -427,9 +427,10 @@ def test_every_rendered_command_parses_with_the_port_parsers(variant):
 
 
 def test_a_refused_topology_fails_the_parse():
-    """The check above has teeth: the port refuses --disagg with --tp."""
+    """The check above has teeth: the port refuses --disagg with --pp, as
+    the JAX server does."""
     with pytest.raises(SystemExit):
-        _parse_engine(["--tp", "2", "--disagg"])
+        _parse_engine(["--pp", "2", "--disagg"])
 
 
 # --------------------------------------------------------------------------

@@ -12,6 +12,14 @@ cache and one in-place indexed copy into blocks the decode pool allocated
 hold), on the card, with no host round trip; an int8 cache moves its scale
 pages with its values.  Engines in one process capture their graphs one at
 a time (``runtime/graphs.py``), while the other replays.
+
+On a tp / ep mesh (``parallel/mesh.py``: one process a card) every rank
+builds the same pair on its card, rank 0 schedules both engines, and one
+lockstep carries both engines' descriptors, each tagged with its engine
+(``parallel/multihost.py``); a migration is ``Engine._exec_handoff``: each
+rank copies its own heads from its prefill cache into its decode cache,
+with nothing crossing ranks.  A pipeline (pp) mesh is refused, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import numpy as np
 import torch
 
 from tpuserve_torch.models.weights import to_device
+from tpuserve_torch.parallel import multihost
 from tpuserve_torch.parallel.mesh import RankMesh
 from tpuserve_torch.runtime.engine import Engine, EngineConfig
 from tpuserve_torch.runtime.request import Request, RequestOutput, SamplingParams
@@ -51,29 +60,58 @@ def _as_tensor(a) -> torch.Tensor:
     return a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
 
 
+def check_kv_format(cache: list[dict], seq_kv: list[dict]) -> None:
+    """Raise ``ValueError`` on a cache format mismatch between pools: an
+    int8 prefill pool handing pages to a bf16 decode pool (or the reverse)
+    would otherwise write raw codes as values and drop the scales."""
+    if not (seq_kv and cache):
+        return
+    src_keys, dst_keys = set(seq_kv[0]), set(cache[0])
+    if src_keys != dst_keys:
+        raise ValueError(
+            f"KV cache format mismatch between pools: transferred pages "
+            f"carry {sorted(src_keys)} but this pool stores "
+            f"{sorted(dst_keys)} — both pools must use the same "
+            "--kv-cache-dtype")
+    src_dt = _as_tensor(seq_kv[0]["k"]).dtype
+    dst_dt = cache[0]["k"].dtype
+    if (src_dt == torch.int8) != (dst_dt == torch.int8):
+        raise ValueError(
+            f"KV cache dtype mismatch between pools: transferred pages "
+            f"are {src_dt}, this pool stores {dst_dt} — both pools "
+            "must use the same --kv-cache-dtype")
+
+
+def check_seq_kv(cache: list[dict], seq_kv: list[dict], blocks: Sequence[int],
+                 parts: int = 1) -> None:
+    """Raise ``ValueError`` unless ``seq_kv`` are whole pages this cache can
+    take into ``blocks``: its format (:func:`check_kv_format`), its layers,
+    and each array's shape, the padded block count and one card's geometry
+    (a cache that holds 1 of ``parts`` head slices, ``sharding.cut_pages``,
+    takes ``parts`` times its heads)."""
+    check_kv_format(cache, seq_kv)
+    if len(seq_kv) != len(cache):
+        raise ValueError(f"{len(seq_kv)} layers of transferred pages for "
+                         f"{len(cache)} in this pool")
+    n = len(_pad_blocks(blocks))
+    for layer, moved in zip(cache, seq_kv):
+        for key, dst in layer.items():
+            want = [n, *dst.shape[1:]]
+            if parts > 1:
+                want[2] *= parts
+            got = list(_as_tensor(moved[key]).shape)
+            if got != want:
+                raise ValueError(f"transferred {key!r} pages of shape {got} for "
+                                 f"{want} (padded blocks, page, heads, width)")
+
+
 def insert_seq_kv(cache: list[dict], seq_kv: list[dict], blocks: Sequence[int],
                   device=None) -> list[dict]:
     """Write transferred pages into the cache's allocated ``blocks``, in
     place; ``device``: the cache's device when the pages come from another
     (the copy to it rides the peer link).  Raises ``ValueError`` on a cache
-    format mismatch between pools: an int8 prefill pool handing pages to a
-    bf16 decode pool (or the reverse) would otherwise write raw codes as
-    values and drop the scales."""
-    if seq_kv and cache:
-        src_keys, dst_keys = set(seq_kv[0]), set(cache[0])
-        if src_keys != dst_keys:
-            raise ValueError(
-                f"KV cache format mismatch between pools: transferred pages "
-                f"carry {sorted(src_keys)} but this pool stores "
-                f"{sorted(dst_keys)} — both pools must use the same "
-                "--kv-cache-dtype")
-        src_dt = _as_tensor(seq_kv[0]["k"]).dtype
-        dst_dt = cache[0]["k"].dtype
-        if (src_dt == torch.int8) != (dst_dt == torch.int8):
-            raise ValueError(
-                f"KV cache dtype mismatch between pools: transferred pages "
-                f"are {src_dt}, this pool stores {dst_dt} — both pools "
-                "must use the same --kv-cache-dtype")
+    format mismatch between pools (:func:`check_kv_format`)."""
+    check_kv_format(cache, seq_kv)
     dev = cache[0]["k"].device if cache else device
     idx = torch.tensor(_pad_blocks(blocks), dtype=torch.long, device=dev)
     for layer, moved in zip(cache, seq_kv):
@@ -126,10 +164,9 @@ class DisaggregatedEngine:
             # holds a slice of the layers
             raise ValueError("disaggregation is not supported on pipeline (pp) meshes; "
                              "use tp or plain engines")
-        if mesh is not None:
-            # the port's lockstep mirrors one engine's steps, so a pair on a
-            # tp / ep mesh waits for A10's next part
-            raise NotImplementedError("disaggregation on a mesh (ROADMAP.md A10)")
+        if mesh is not None and decode_device is not None:
+            raise ValueError("a pair on a mesh shares each rank's card: "
+                             "decode_device is not taken there")
         if decode_device is None:
             # colocated: both engines on one card; split the auto-sizing
             # budget, or each would claim all of it
@@ -143,17 +180,21 @@ class DisaggregatedEngine:
         # block_table() pages, and released entries would transfer block
         # 0's unrelated KV into the decode pool's prefix cache.
         prefill_config = dataclasses.replace(prefill_config, window_release=False)
-        self.prefill = Engine(prefill_config, params=params, model_cfg=model_cfg,
-                              device=device)
-        # one tree on one card; a merge-at-load adapter is merged by each
-        # engine into its own copy
-        shared = params
-        if shared is None and decode_device is None and not decode_config.lora_dir:
-            shared = self.prefill.params
-        elif shared is not None and decode_device is not None:
-            shared = to_device(shared, decode_device)
-        self.decode = Engine(decode_config, params=shared, model_cfg=model_cfg,
-                             device=device if decode_device is None else decode_device)
+        # under a mesh both engines lead (rank 0) or follow (the others)
+        # one lockstep, their descriptors tagged
+        with multihost.making(mesh):
+            self.prefill = Engine(prefill_config, params=params, model_cfg=model_cfg,
+                                  mesh=mesh, device=device, lockstep_tag="prefill")
+            # one tree on one card (under a mesh: the rank's slice); a
+            # merge-at-load adapter is merged by each engine into its own copy
+            shared = params
+            if shared is None and decode_device is None and not decode_config.lora_dir:
+                shared = self.prefill.params
+            elif shared is not None and decode_device is not None:
+                shared = to_device(shared, decode_device)
+            self.decode = Engine(decode_config, params=shared, model_cfg=model_cfg,
+                                 mesh=mesh, lockstep_tag="decode",
+                                 device=device if decode_device is None else decode_device)
         self.decode_device = decode_device
         self.stats = DisaggStats(engine=self.decode.stats)
         # prefilled requests whose KV still lives in the prefill cache,
@@ -166,6 +207,17 @@ class DisaggregatedEngine:
         if name in ("prefill", "decode"):
             raise AttributeError(name)
         return getattr(self.decode, name)
+
+    @property
+    def lockstep_engines(self) -> dict:
+        """The pair's engines by lockstep tag (``multihost.follower_loop``
+        follows both on a follower rank)."""
+        return {"prefill": self.prefill, "decode": self.decode}
+
+    def stop_followers(self) -> None:
+        """Under a mesh, rank 0's stop to the follower ranks (once, for both
+        engines: they share the lockstep)."""
+        self.decode.stop_followers()
 
     def add_request(self, prompt: str | None = None,
                     prompt_token_ids: Optional[Sequence[int]] = None,
@@ -210,10 +262,14 @@ class DisaggregatedEngine:
         src_blocks = self.prefill.block_manager.block_table(rid)
         dst = self.decode
         t0 = time.monotonic()
-        seq_kv = extract_seq_kv(self.prefill.kv_cache, src_blocks)
         dst_alloc = dst.block_manager.allocate(rid, req.prompt_token_ids)
         try:
-            insert_seq_kv(dst.kv_cache, seq_kv, dst_alloc.blocks, device=self.decode_device)
+            # as an adoption: the allocate may have evicted cached blocks
+            # that the copy overwrites, so the tiers act on them first
+            dst._drop_superseded_tier_entries(req.prompt_token_ids)
+            dst._demote_evicted()
+            seq_kv = dst._exec_handoff(self.prefill, src_blocks, dst_alloc.blocks,
+                                       device=self.decode_device)
         except Exception:
             # the pages never landed: without this the decode pool leaks the
             # allocation (the request is not registered decode-side yet)
@@ -221,9 +277,10 @@ class DisaggregatedEngine:
             raise
         self.stats.transfer_time_s += time.monotonic() - t0
         self.stats.kv_transfers += 1
+        # one card's pages: under a mesh the tp ranks moved a slice each
         self.stats.kv_bytes_transferred += sum(
             t.numel() * t.element_size() for layer in seq_kv for t in layer.values()
-        ) * len(src_blocks) // max(1, seq_kv[0]["k"].shape[0])
+        ) * len(src_blocks) * dst._page_parts // max(1, seq_kv[0]["k"].shape[0])
         # adopt the request into the decode engine mid-flight
         dst.requests[rid] = req
         dst._detok[rid] = self.prefill._detok.pop(rid)

@@ -10,6 +10,12 @@ the port of ``tpuserve/parallel/disagg_net.py``.
   ``Engine.adopt_prefilled`` writes the transferred pages into its own
   cache and drops the request into the running decode batch.
 
+Either pod may be a tp / ep mesh of lockstep ranks (``--tp N``): a prefill
+pod's rank 0 joins its ranks' heads into one card's pages before they go on
+the wire (``Engine._exec_extract``), and a decode pod's rank 0 sends each
+rank its heads of them (``Engine._exec_adopt``), so the wire always carries
+one card's pages, whatever either side's grid.
+
 The wire format is the JAX package's, byte for byte (``MAGIC``, a
 little-endian header length, the JSON header of the request's meta and
 each layer's arrays, then the arrays, bf16 as its 16-bit patterns), so a
@@ -157,10 +163,6 @@ class PrefillHandoffEngine:
     def __init__(self, engine_config, decode_url: str, mesh=None, *, params=None,
                  model_cfg=None, device="cuda"):
         from tpuserve_torch.runtime.engine import Engine
-        if mesh is not None:
-            # the lockstep mirrors the engine's steps, not the page
-            # extraction: a prefill pool on a mesh waits for A10's next part
-            raise NotImplementedError("a prefill pool on a mesh (ROADMAP.md A10)")
         if engine_config.lora_modules:
             raise ValueError("multi-LoRA is not supported on disaggregated "
                              "topologies (adapter identity doesn't "
@@ -169,7 +171,7 @@ class PrefillHandoffEngine:
         # block_table() pages (parallel/disagg.py)
         engine_config = dataclasses.replace(engine_config, window_release=False)
         self.prefill = Engine(engine_config, params=params, model_cfg=model_cfg,
-                              device=device)
+                              mesh=mesh, device=device)
         self.decode_url = decode_url.rstrip("/")
         self._relayed: "queue.Queue[RequestOutput]" = queue.Queue()
         self._active_relays: dict[str, threading.Event] = {}
@@ -189,6 +191,11 @@ class PrefillHandoffEngine:
     @property
     def requests(self):
         return self.prefill.requests
+
+    @property
+    def lockstep_engines(self) -> dict:
+        """The engine a follower rank follows (``multihost.follower_loop``)."""
+        return {None: self.prefill}
 
     def add_request(self, **kw) -> str:
         return self.prefill.add_request(**kw)
@@ -265,13 +272,12 @@ class PrefillHandoffEngine:
                 self.prefill.scheduler.running.append(req)
 
     def _start_migration(self, req) -> None:
-        from tpuserve_torch.parallel.disagg import extract_seq_kv
         rid = req.request_id
         blocks = self.prefill.block_manager.block_table(rid)
-        # host staging for the wire; blocks stay allocated (and the
+        # one card's pages on the host for the wire (under a mesh joined
+        # from the ranks' heads); blocks stay allocated (and the
         # detokenizer seeded) until the decode pod adopts
-        seq_kv = [{k: t.cpu() for k, t in layer.items()}
-                  for layer in extract_seq_kv(self.prefill.kv_cache, blocks)]
+        seq_kv = self.prefill._exec_extract(blocks)
         meta = {
             "request_id": rid,
             "prompt_token_ids": list(req.prompt_token_ids),

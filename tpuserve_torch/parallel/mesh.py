@@ -137,6 +137,9 @@ class RankMesh:
     multihost: bool = False     # joined from torchrun's environment (several nodes)
     timeout_s: float = DEFAULT_TIMEOUT_S    # its groups' collective timeout
     stage: Optional[object] = None          # a pp grid's pipeline.PipeStage
+    # rank 0's lockstep channel, shared by every engine it leads on this
+    # mesh (parallel/multihost.py)
+    lockstep: Optional[object] = dataclasses.field(default=None, repr=False, compare=False)
 
     @property
     def shape(self) -> dict:

@@ -50,6 +50,28 @@ where rank 0 does that work:
 
 Rank 0's block manager makes every tier decision; the stores only follow,
 so every rank holds the same hashes in the same tier (budgets in blocks).
+A KV migration (disaggregation, ``parallel/disagg.py`` and
+``disagg_net.py``) moves one card's whole pages on rank 0 and each rank's
+heads of them (``sharding.cut_pages`` / ``join_pages``) on the others:
+
+- ``OP_ADOPT`` blocks: rank 0 cuts the whole pages it was given (from the
+  wire) to each rank's heads and scatters the slices over the control
+  group, under one lock with the descriptor; each rank writes its slice in
+  place into the blocks rank 0's block manager allocated.  Rank 0 checked
+  the migration first (format, shapes, room, id): a refused one sends
+  nothing, and a follower that fails anyway is fatal (``watch_ranks``);
+- ``OP_EXTRACT`` blocks: each rank gathers its slice of those pages to the
+  host, rank 0 gathers them over the control group (sent and gathered
+  under one lock, so no heartbeat falls between) and joins them;
+- ``OP_HANDOFF`` src, src blocks, dst blocks: the in-process pair's
+  migration, each rank copying its slice from its prefill engine's cache
+  into its decode engine's on its own card, nothing crossing ranks.
+
+Every descriptor but the heartbeat and the stop names its engine
+(``meta["eng"]``) where two share a rank (the pair: "prefill", "decode");
+a single engine's carry no tag.  The engines of rank 0 share one channel
+(one lock, one sequence number, one heartbeat), and ``follower_loop``
+runs each descriptor on the engine of its tag.
 
 Pipeline stages (``parallel/pipeline.py``) follow the same way: each
 runs the executable on its own layers and passes the activations on, and
@@ -66,14 +88,14 @@ True)`` keep them for the tests to compare).  The engine routes every
 executable, page copy and trunk through its ``_exec_*`` hooks, which call
 this module (``tests/test_torch_multihost.py`` holds that by AST).
 
-Not mirrored, so the engine refuses it under a mesh (ROADMAP.md A10):
-``adopt_prefilled`` (disaggregation on a mesh); pipelined decode is off,
-as under the JAX lockstep (a descriptor is built from the host's tokens).
-Multi-LoRA and ``swap_model`` are refused as the JAX engine refuses them.
-Under several nodes (``--multihost``) the JAX engine's multi-process
-refusals stay: the intake refusal of
-``SamplingParams.multihost_unsupported``, embeddings and scoring, and the
-tiers off.
+Pipelined decode is off under a mesh, as under the JAX lockstep (a
+descriptor is built from the host's tokens).  Multi-LoRA and
+``swap_model`` are refused as the JAX engine refuses them.  Under several
+nodes (``--multihost``) the JAX engine's multi-process refusals stay: the
+intake refusal of ``SamplingParams.multihost_unsupported``, embeddings and
+scoring, the tiers off, and no disaggregation (its coordinator cannot
+mirror a pair across processes; the server refuses ``--disagg`` and
+``--role`` there).
 
 :func:`spawn_ranks` starts follower processes on one node (the server's
 ``--tp N`` and ``chip_smoke.py``'s phase ``tp``): one a card, logs to files
@@ -84,6 +106,7 @@ rank stopped when one fails.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import logging
 import os
@@ -101,9 +124,11 @@ logger = logging.getLogger("tpuserve_torch.multihost")
 
 OP_STOP, OP_MAKE, OP_RUN, OP_WARMUP, OP_NOOP = 0, 1, 2, 3, 4
 OP_DEMOTE, OP_RESTORE, OP_SCATTER, OP_DROP, OP_TRUNK = 5, 6, 7, 8, 9
+OP_ADOPT, OP_EXTRACT, OP_HANDOFF = 10, 11, 12
 OP_NAMES = {OP_STOP: "stop", OP_MAKE: "make", OP_RUN: "run", OP_WARMUP: "warmup",
             OP_NOOP: "noop", OP_DEMOTE: "demote", OP_RESTORE: "restore",
-            OP_SCATTER: "scatter", OP_DROP: "drop", OP_TRUNK: "trunk"}
+            OP_SCATTER: "scatter", OP_DROP: "drop", OP_TRUNK: "trunk",
+            OP_ADOPT: "adopt", OP_EXTRACT: "extract", OP_HANDOFF: "handoff"}
 HEADER = 4                       # int64: op, body words, steps, sequence number
 
 
@@ -134,39 +159,38 @@ def _decode(body: np.ndarray) -> tuple[dict, list]:
     return meta, arrays
 
 
-class Lockstep:
-    """The coordinator's side: sends each step's descriptor to the follower
-    ranks (the engine's ``_exec_*`` hooks call it), a heartbeat while idle,
-    and the stop.  ``record``: keep each decode run's (B, steps) tokens and
-    each verify's and draft's outputs (``tokens``), for comparison with the
-    followers'."""
+class _Channel:
+    """What every engine of rank 0 on one mesh shares (an in-process
+    pair's two engines): the control group, the lock each descriptor is
+    sent under (with the collective that follows it, where one does), one
+    sequence number, one heartbeat, the descriptors sent by op name
+    (``sent``) and what ``record`` kept (``tokens``)."""
 
     def __init__(self, mesh):
-        self.mesh = mesh
         self.group = mesh.ctrl_group
         # a quarter of the collectives' timeout: a follower's wait for the
         # next descriptor never reaches it
         self.heartbeat_s = mesh.timeout_s / 4
         self.record = False
         self.tokens: list = []
-        self.sent = collections.Counter()      # descriptors by op name
-        self._lock = threading.Lock()
+        self.sent = collections.Counter()
+        self.lock = threading.Lock()
+        self.stopped = False
         self._seq = 0
         self._last = time.monotonic()
-        self._stopped = False
         self._hb_stop = threading.Event()
         self._hb = threading.Thread(target=self._heartbeat, name="lockstep-heartbeat",
                                     daemon=True)
         self._hb.start()
 
-    def _send(self, op: int, meta: Optional[dict] = None, arrays=(), steps: int = 0) -> None:
-        with self._lock:
-            self._send_locked(op, meta, arrays, steps)
+    def send(self, op: int, meta: Optional[dict] = None, arrays=(), steps: int = 0) -> None:
+        with self.lock:
+            self.send_locked(op, meta, arrays, steps)
 
-    def _send_locked(self, op: int, meta: Optional[dict], arrays, steps: int) -> None:
+    def send_locked(self, op: int, meta: Optional[dict], arrays, steps: int) -> None:
         import torch.distributed as dist
         body = _encode(meta, arrays)[1] if meta is not None else None
-        if self._stopped:
+        if self.stopped:
             raise RuntimeError("the lockstep has stopped: its followers are gone")
         hdr = torch.tensor([op, 0 if body is None else body.numel(), steps, self._seq],
                            dtype=torch.int64)
@@ -182,10 +206,87 @@ class Lockstep:
             if time.monotonic() - self._last < self.heartbeat_s:
                 continue
             try:
-                self._send(OP_NOOP)
+                self.send(OP_NOOP)
             except Exception:       # a follower is gone: the next step raises
                 logger.exception("lockstep heartbeat failed")
                 return
+
+    def stop(self) -> None:
+        self._hb_stop.set()
+        if self.stopped:
+            return
+        try:
+            self.send(OP_STOP)
+        finally:
+            self.stopped = True
+
+
+def _channel_of(mesh) -> _Channel:
+    """Rank 0's channel on ``mesh``: the one its engines share until the
+    stop, then a new one for the engines built after it."""
+    if mesh.lockstep is None or mesh.lockstep.stopped:
+        mesh.lockstep = _Channel(mesh)
+    return mesh.lockstep
+
+
+@contextlib.contextmanager
+def making(mesh):
+    """Rank 0 makes several engines on ``mesh`` (an in-process pair) under
+    this: the channel the first one opens sends no heartbeat until the last
+    is made, since making an engine runs collectives on the control group
+    (the spill entries' agreement) that a heartbeat would fall between.  A
+    no-op elsewhere."""
+    if mesh is None or mesh.world == 1 or not mesh.is_coordinator:
+        yield
+        return
+    ch = _channel_of(mesh)
+    with ch.lock:
+        yield
+        ch._last = time.monotonic()
+
+
+class Lockstep:
+    """The coordinator's side for one engine: sends each step's descriptor
+    to the follower ranks (the engine's ``_exec_*`` hooks call it), tagged
+    ``tag`` (``meta["eng"]``) where several engines share the rank (None: a
+    single engine, whose descriptors carry no tag), over the mesh's one
+    channel (:class:`_Channel`: one lock, sequence and heartbeat for every
+    engine of the rank), and the stop.  ``record``: keep each decode run's
+    (B, steps) tokens and each verify's and draft's outputs (``tokens``),
+    for comparison with the followers'."""
+
+    def __init__(self, mesh, tag: Optional[str] = None):
+        self.mesh = mesh
+        self.tag = tag
+        self.group = mesh.ctrl_group
+        self.channel = _channel_of(mesh)
+
+    @property
+    def heartbeat_s(self) -> float:
+        return self.channel.heartbeat_s
+
+    @property
+    def sent(self) -> collections.Counter:
+        """Descriptors by op name, over every engine of the channel."""
+        return self.channel.sent
+
+    @property
+    def tokens(self) -> list:
+        return self.channel.tokens
+
+    @property
+    def record(self) -> bool:
+        return self.channel.record
+
+    @record.setter
+    def record(self, on: bool) -> None:
+        self.channel.record = on
+
+    def _meta(self, meta: dict) -> dict:
+        return meta if self.tag is None else dict(meta, eng=self.tag)
+
+    def _send(self, op: int, meta: dict, arrays=(), steps: int = 0) -> None:
+        self.channel.send(op, self._meta(meta), arrays, steps)
 
     def make(self, key: tuple) -> None:
         self._send(OP_MAKE, {"key": list(key)})
@@ -216,8 +317,8 @@ class Lockstep:
         """Send the span and agree on it: the least ``intact`` over every
         rank (each rank's count of the span's pages it took whole), sent
         and reduced under the lock so that no heartbeat falls between."""
-        with self._lock:
-            self._send_locked(OP_RESTORE, {"hashes": list(hashes)}, (), 0)
+        with self.channel.lock:
+            self.channel.send_locked(OP_RESTORE, self._meta({"hashes": list(hashes)}), (), 0)
             return agree_min(self.group, intact)
 
     def scatter(self, blocks: list) -> None:
@@ -231,6 +332,42 @@ class Lockstep:
         "score"; ``meta``: its pooling or top_n)."""
         self._send(OP_TRUNK, dict(meta, kind=kind), [np.asarray(tokens), np.asarray(lens)])
 
+    def adopt(self, blocks: list, seq_kv: list, cache: list, parts: int) -> list:
+        """A migration's whole host pages into ``blocks`` on every rank:
+        each rank's head slice (``sharding.cut_pages`` of ``parts``: rank r
+        takes slice r mod tp, the whole where the cache is replicated),
+        packed in its cache's dtypes, scattered over the control group
+        under the lock with the descriptor.  Returns rank 0's slice."""
+        import torch.distributed as dist
+        from tpuserve_torch.parallel.sharding import cut_pages
+        slices = [cut_pages(seq_kv, parts, i) for i in range(parts)]
+        packed = [pack_pages(s, cache) for s in slices]
+        mine = torch.empty_like(packed[0])
+        with self.channel.lock:
+            self.channel.send_locked(OP_ADOPT, self._meta(
+                {"blocks": list(blocks), "n": int(seq_kv[0]["k"].shape[0])}), (), 0)
+            dist.scatter(mine, [packed[r % parts] for r in range(self.mesh.world)], src=0,
+                         group=self.group)
+        return slices[0]
+
+    def extract(self, blocks: list, mine: torch.Tensor) -> list:
+        """Every rank's packed slice of ``blocks``' pages (``pack_pages``;
+        ``mine`` rank 0's), gathered over the control group under the lock
+        with the descriptor, by rank."""
+        import torch.distributed as dist
+        bufs = [torch.empty_like(mine) for _ in range(self.mesh.world)]
+        with self.channel.lock:
+            self.channel.send_locked(OP_EXTRACT, self._meta({"blocks": list(blocks)}), (), 0)
+            dist.gather(mine, bufs, dst=0, group=self.group)
+        return bufs
+
+    def handoff(self, src_tag: Optional[str], src_blocks: list, dst_blocks: list) -> None:
+        """An in-process pair's migration: every rank copies its slice of
+        ``src_blocks`` from engine ``src_tag``'s cache into this engine's
+        ``dst_blocks``."""
+        self._send(OP_HANDOFF, {"src": src_tag, "src_blocks": list(src_blocks),
+                                "dst_blocks": list(dst_blocks)})
+
     def after_run(self, exe, steps: int) -> None:
         if self.record:
             rec = _record_of(exe, steps)
@@ -239,13 +376,37 @@ class Lockstep:
 
     def stop(self) -> None:
         """Send the stop (once); the followers return from their loop."""
-        self._hb_stop.set()
-        if self._stopped:
-            return
-        try:
-            self._send(OP_STOP)
-        finally:
-            self._stopped = True
+        self.channel.stop()
+
+
+def pack_pages(seq_kv: list, cache: list) -> torch.Tensor:
+    """Per-layer pages as one flat uint8 host tensor, each array in
+    ``cache``'s key order and dtype (a bf16 page as its bytes)."""
+    parts = [torch.as_tensor(moved[key]).to(device="cpu", dtype=dst.dtype)
+             .contiguous().flatten().view(torch.uint8)
+             for layer, moved in zip(cache, seq_kv) for key, dst in layer.items()]
+    return torch.cat(parts)
+
+
+def pack_size(cache: list, n: int) -> int:
+    """Bytes :func:`pack_pages` makes of ``n`` blocks of ``cache``."""
+    return n * sum(dst[0].numel() * dst.element_size()
+                   for layer in cache for dst in layer.values())
+
+
+def unpack_pages(buf: torch.Tensor, cache: list, n: int) -> list:
+    """The inverse of :func:`pack_pages`: ``n`` blocks' pages in the shapes
+    and dtypes of ``cache``'s (views into ``buf``)."""
+    out, off = [], 0
+    for layer in cache:
+        pages = {}
+        for key, dst in layer.items():
+            shape = (n, *dst.shape[1:])
+            size = int(np.prod(shape)) * dst.element_size()
+            pages[key] = buf[off:off + size].view(dst.dtype).view(shape)
+            off += size
+        out.append(pages)
+    return out
 
 
 def _record_of(exe, steps: int):
@@ -272,15 +433,18 @@ def follower_loop(engine, record: bool = False) -> list:
 
     ``engine`` must be built as the coordinator's (the same config, model,
     seed and mesh), so its weights, cache and executables match slice for
-    slice; it never schedules.  Returns what each run left for ``record``
-    (``_record_of``; else [])."""
+    slice; it never schedules.  A topology of several engines on the rank
+    (an in-process pair, ``parallel/disagg.py``) gives them by tag in its
+    ``lockstep_engines``; each descriptor runs on the engine of its tag.
+    Returns what each run left for ``record`` (``_record_of``; else [])."""
     import torch.distributed as dist
-    mesh = engine.mesh
+    engines = getattr(engine, "lockstep_engines", None) or {None: engine}
+    mesh = next(iter(engines.values())).mesh
     if mesh is None or mesh.world == 1:
         logger.info("follower_loop: one rank, nothing to follow")
         return []
-    graphs, tokens = engine.graphs, []
-    restored: list = []          # the pages OP_RESTORE took, until OP_SCATTER
+    tokens = []
+    restored: dict = {}          # the pages OP_RESTORE took, by tag, until OP_SCATTER
     logger.info("follower %d/%d entering the lockstep loop", mesh.rank, mesh.world)
     while True:
         hdr = torch.zeros(HEADER, dtype=torch.int64)
@@ -296,6 +460,9 @@ def follower_loop(engine, record: bool = False) -> list:
             return tokens
         if op == OP_NOOP:
             continue
+        tag = meta.get("eng")
+        eng = engines[tag]
+        graphs = eng.graphs
         if op == OP_MAKE:
             graphs.get(*meta["key"])
         elif op == OP_WARMUP:
@@ -310,7 +477,7 @@ def follower_loop(engine, record: bool = False) -> list:
                 bucket, present = meta["grammar"]
                 tables = iter(arrays[1 + n_extras:])
                 graphs.load_grammar(tuple(bucket), None, *(
-                    torch.from_numpy(next(tables)).to(engine.device) if p else None
+                    torch.from_numpy(next(tables)).to(eng.device) if p else None
                     for p in present))
             if steps == 0:
                 exe.step()
@@ -320,19 +487,27 @@ def follower_loop(engine, record: bool = False) -> list:
                 if rec is not None:
                     tokens.append(rec)
         elif op == OP_DEMOTE:
-            engine._exec_demote(meta["blocks"], meta["hashes"])
+            eng._exec_demote(meta["blocks"], meta["hashes"])
         elif op == OP_RESTORE:
-            restored = engine._exec_restore(meta["hashes"])
+            restored[tag] = eng._exec_restore(meta["hashes"])
         elif op == OP_SCATTER:
-            engine._exec_scatter(meta["blocks"], restored[:len(meta["blocks"])])
-            restored = []
+            eng._exec_scatter(meta["blocks"], restored.pop(tag, [])[:len(meta["blocks"])])
         elif op == OP_DROP:
-            engine._exec_drop(meta["hashes"])
+            eng._exec_drop(meta["hashes"])
         elif op == OP_TRUNK:
             if meta["kind"] == "embed":
-                engine._exec_embed(arrays[0], arrays[1], meta["pooling"])
+                eng._exec_embed(arrays[0], arrays[1], meta["pooling"])
             else:
-                engine._exec_score(arrays[0], arrays[1], meta["top_n"])
+                eng._exec_score(arrays[0], arrays[1], meta["top_n"])
+        elif op == OP_ADOPT:
+            buf = torch.empty(pack_size(eng.kv_cache, meta["n"]), dtype=torch.uint8)
+            dist.scatter(buf, None, src=0, group=mesh.ctrl_group)
+            eng._exec_adopt(meta["blocks"], unpack_pages(buf, eng.kv_cache, meta["n"]))
+        elif op == OP_EXTRACT:
+            mine = pack_pages(eng._exec_extract(meta["blocks"]), eng.kv_cache)
+            dist.gather(mine, None, dst=0, group=mesh.ctrl_group)
+        elif op == OP_HANDOFF:
+            eng._exec_handoff(engines[meta["src"]], meta["src_blocks"], meta["dst_blocks"])
         else:
             raise RuntimeError(f"follower {mesh.rank}: unknown lockstep op {op}")
 

@@ -20,7 +20,9 @@ package's, keyed on the same paths (:func:`spec_for`):
   a-projections, which make the shared latent): replicated.
 
 The KV cache holds ``Hkv / tp`` heads a rank; MLA's one latent head is
-replicated (:func:`cache_kv_heads`).  ``tpuserve/parallel/compat.py`` is a
+replicated (:func:`cache_kv_heads`).  A KV migration's whole pages are cut
+to a rank's heads and joined back in the order the k / v columns split
+(:func:`cut_pages`, :func:`join_pages`; :func:`page_parts` slices).  ``tpuserve/parallel/compat.py`` is a
 jax-version shim with no counterpart here.
 
 Attention needs no collective under tp: a rank holds ``Hq / tp`` query and
@@ -36,6 +38,8 @@ no wrapper: the rank's config already gives the kernels its local shapes.
 from __future__ import annotations
 
 import dataclasses
+
+import torch
 
 from tpuserve_torch.models.config import ModelConfig
 from tpuserve_torch.parallel.mesh import AXIS_EP, AXIS_TP, RankMesh
@@ -242,3 +246,42 @@ def cache_kv_heads(cfg: ModelConfig, mesh: RankMesh) -> int:
     """KV heads a rank's cache holds: ``Hkv / tp``; MLA's single latent
     head is replicated."""
     return 1 if cfg.is_mla else cfg.num_kv_heads // mesh.cfg.tp
+
+
+def page_parts(cfg: ModelConfig, mesh) -> int:
+    """Into how many head slices the ranks' KV pages cut one card's: ``tp``,
+    or 1 where every rank's cache holds them whole (no mesh, pure ep, MLA's
+    latent: :func:`cache_kv_heads`)."""
+    if mesh is None or cfg.is_mla:
+        return 1
+    return mesh.cfg.tp
+
+
+def cut_pages(seq_kv: list, parts: int, index: int) -> list:
+    """Slice ``index`` of ``parts`` of whole pages (per layer ``{key: (blocks,
+    page, Hkv, width)}``, an int8 cache's ``(blocks, page, Hkv)`` scale pages
+    too): each array's heads narrowed to the ones tp rank ``index`` holds,
+    in the order :func:`slice_leaf` gives ``k_proj`` / ``v_proj`` their
+    columns (rank t the t-th block of heads).  One part is the identity."""
+    if parts == 1:
+        return seq_kv
+    out = []
+    for layer in seq_kv:
+        cut = {}
+        for key, x in layer.items():
+            heads = x.shape[2]
+            if heads % parts:
+                raise ValueError(f"{heads} kv heads of {key!r} pages do not split "
+                                 f"over tp={parts}")
+            cut[key] = x.narrow(2, index * (heads // parts), heads // parts)
+        out.append(cut)
+    return out
+
+
+def join_pages(slices: list) -> list:
+    """Whole pages from the tp ranks' slices, in rank order (the inverse of
+    :func:`cut_pages`); one slice (a replicated cache) is the whole."""
+    if len(slices) == 1:
+        return slices[0]
+    return [{key: torch.cat([s[i][key] for s in slices], dim=2) for key in layer}
+            for i, layer in enumerate(slices[0])]

@@ -226,11 +226,6 @@ class DeployConfig:
                 f"pipeline_parallel={self.pipeline_parallel} exceeds the "
                 f"{self.gpus_per_node} GPUs of one {self.machine_type} node "
                 "(pipeline stages are single-host)")
-        if (self.disaggregated or self.disagg_cross_pod) \
-                and self.tensor_parallel > 1:
-            # the port's server refuses --disagg / --role on a --tp mesh
-            raise ValueError("disaggregated topologies run tp 1 replicas "
-                             "(the server rejects --disagg/--role with --tp)")
         if self.lora_modules is not None:
             if not isinstance(self.lora_modules, dict) or not all(
                     isinstance(k, str) and isinstance(v, str) and k and v
@@ -392,8 +387,9 @@ PRESETS: dict[str, dict] = {
         "tensor_parallel": 1, "quantization": "int8",
         "kv_cache_dtype": "int8",
     },
-    # in-process disaggregation on one card: the server refuses --disagg
-    # with --tp, so both engines share the replica's one card
+    # in-process disaggregation on one card: Llama-3-8B fits one H100, so
+    # both engines share the replica's one card (tensor_parallel > 1 would
+    # render --tp N --disagg, the pair on N lockstep ranks)
     "llama3-8b-disagg-h100": {
         "model": "meta-llama/Meta-Llama-3-8B-Instruct", **_H100_1,
         "tensor_parallel": 1, "disaggregated": True,

@@ -106,17 +106,20 @@ windows, embeddings, scoring, tiers or adoption).  Rank 0 schedules and
 mirrors every executable it makes or runs, every tier page copy and every
 trunk batch to the follower ranks through its ``_exec_*`` hooks
 (``parallel/multihost.py``), which run ``follower_loop`` on engines built
-the same way.  On a tp / ep grid the engine serves what it serves on one
+the same way (``lockstep_tag`` names an engine's descriptors where two
+share a rank: the in-process pair).  On a tp / ep grid the engine serves what it serves on one
 card: the KV tiers (a store a rank, holding its slice of each page, its
 budget in blocks, the restored span agreed over the ranks), guided
 decoding (a grammar's tables sent once, with the run that first reads
 them), embeddings and scoring (every rank runs the trunk on its slice) and
-speculation (each rank holds its slice of a draft model).  The JAX
+speculation (each rank holds its slice of a draft model), and KV adoption
+and extraction (``adopt_prefilled`` and the pair's and a prefill pod's
+page copies: rank 0 alone checks a migration and holds one card's whole
+pages, each rank writes or reads its own heads of them).  The JAX
 engine's refusals under a mesh stay: multi-LoRA, ``swap_model``, and
 across nodes (``--multihost``) ``multihost_unsupported`` at intake,
-embeddings, scoring and the tiers.  ``adopt_prefilled`` is refused under
-a mesh (ROADMAP.md A10), and decode runs unpipelined, as the JAX lockstep
-does.  ``params`` given under a mesh are the rank's slice
+embeddings, scoring and the tiers.  Decode runs unpipelined under a mesh,
+as the JAX lockstep does.  ``params`` given under a mesh are the rank's slice
 (``sharding.shard_params`` of the whole tree, an int8 tree quantized whole
 first); an engine that loads or draws its own keeps each layer's slice as
 it is made.  ``adopt_prefilled`` takes a sequence prefilled by
@@ -153,9 +156,9 @@ from tpuserve_torch.models.weights import (
 from tpuserve_torch.ops import sampling as sampling_ops
 from tpuserve_torch.ops.ragged_paged import ragged_block, ragged_layout
 from tpuserve_torch.parallel.mesh import RankMesh
-from tpuserve_torch.parallel.multihost import Lockstep, agree_min
+from tpuserve_torch.parallel.multihost import Lockstep, agree_min, pack_pages, unpack_pages
 from tpuserve_torch.parallel.sharding import (
-    RankSlicer, draft_rank_config, rank_config, shard_params)
+    RankSlicer, draft_rank_config, join_pages, page_parts, rank_config, shard_params)
 from tpuserve_torch.runtime import grammar
 from tpuserve_torch.runtime import spec as spec_mod
 from tpuserve_torch.runtime.block_manager import create_block_manager
@@ -455,7 +458,7 @@ class Engine:
 
     def __init__(self, config: EngineConfig | None = None, *, params=None,
                  model_cfg: ModelConfig | None = None, mesh=None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", lockstep_tag: Optional[str] = None):
         config = config or EngineConfig()
         self.config = config
         self.device = torch.device(device)
@@ -789,9 +792,13 @@ class Engine:
         # under a mesh rank 0 leads the lockstep: it mirrors every step to
         # the follower ranks (parallel/multihost.py), which run
         # ``follower_loop`` on engines built the same way
+        # (``lockstep_tag`` names this engine's descriptors where several
+        # engines share the rank: an in-process pair)
         self._lockstep: Optional[Lockstep] = (
-            Lockstep(mesh) if mesh is not None and mesh.world > 1 and mesh.is_coordinator
-            else None)
+            Lockstep(mesh, lockstep_tag)
+            if mesh is not None and mesh.world > 1 and mesh.is_coordinator else None)
+        # a migration's whole pages are this many of the rank's head slices
+        self._page_parts = page_parts(whole_cfg, mesh)
         self._req_counter = itertools.count()
         self._seed_counter = itertools.count()
         self._eos_ids = set(self.tokenizer.eos_token_ids)
@@ -1200,15 +1207,22 @@ class Engine:
         when the prefill side left the FSM for a committed canonical-suffix
         plan (``guided_plan``), the character acceptor fed the first
         token's text with that plan.  Raises ``MemoryError`` when the pool
-        lacks blocks or a sequence slot (the server's 503)."""
-        from tpuserve_torch.parallel.disagg import insert_seq_kv
+        lacks blocks or a sequence slot (the server's 503), ``ValueError``
+        on pages this cache cannot take (``disagg.check_seq_kv``: their
+        format, layers and shapes).
+
+        Under a tp / ep mesh rank 0 alone decides: every check above runs on
+        it before any op goes out, so a refused migration raises there with
+        one card's error and the followers go on serving.  Then, as on one
+        card, the superseded tier entries drop and the evicted blocks demote
+        (``OP_DROP``, ``OP_DEMOTE``), and each rank writes its heads of the
+        whole pages (``_exec_adopt``)."""
+        from tpuserve_torch.parallel.disagg import check_seq_kv
         prompt_token_ids = [int(t) for t in prompt_token_ids]
         if self._pp > 1:
             raise ValueError("KV adoption (disaggregation) is not supported on the "
                              "pipeline engine — the transferred per-layer pages don't "
                              "match a stage's cache")
-        if self.mesh is not None:
-            raise NotImplementedError("KV adoption under a mesh (ROADMAP.md A10)")
         if request_id in self.requests:
             raise ValueError(f"request {request_id} already exists")
         if len(prompt_token_ids) >= self.max_seq_len:
@@ -1223,12 +1237,14 @@ class Engine:
         alloc = self.block_manager.allocate(request_id, prompt_token_ids)
         try:
             # between the allocate and the registration below a raise would
-            # leak the blocks: nothing else could find them
+            # leak the blocks: nothing else could find them.  The pages are
+            # checked against one card's geometry before any op goes out
+            check_seq_kv(self.kv_cache, seq_kv, alloc.blocks, self._page_parts)
             self._drop_superseded_tier_entries(prompt_token_ids)
             # the allocate may have evicted cached blocks that the scatter
             # overwrites: demote them first
             self._demote_evicted()
-            insert_seq_kv(self.kv_cache, seq_kv, alloc.blocks)
+            self._exec_adopt(alloc.blocks, seq_kv)
             req.output_token_ids.append(int(first_token))
             req.state = RequestState.RUNNING
             req.first_token_time = self.clock.monotonic()
@@ -1940,6 +1956,52 @@ class Engine:
             self._lockstep.drop(hashes)
         for h in hashes:
             self._kv_tiers.drop(h)
+
+    # A migration's page copies (parallel/disagg.py, disagg_net.py): rank 0
+    # holds or wants one card's whole pages, and each rank writes or reads
+    # its own heads of them (sharding.cut_pages, join_pages).
+
+    def _exec_adopt(self, blocks: list, seq_kv: list) -> None:
+        """Write a migration's pages into ``blocks`` in place.  Under a mesh
+        rank 0 is given one card's whole pages and sends each rank its
+        heads (``OP_ADOPT``); a follower is given the slice it received."""
+        from tpuserve_torch.parallel.disagg import insert_seq_kv
+        if self._lockstep is not None:
+            whole = [{k: torch.as_tensor(v).cpu() for k, v in layer.items()}
+                     for layer in seq_kv]
+            seq_kv = self._lockstep.adopt(blocks, whole, self.kv_cache, self._page_parts)
+        insert_seq_kv(self.kv_cache, seq_kv, blocks)
+
+    def _exec_extract(self, blocks: list) -> list:
+        """``blocks``' pages on the host (``disagg.extract_seq_kv``: a
+        power-of-two padded count).  Under a mesh every rank gathers its
+        heads and rank 0 joins them into one card's pages (``OP_EXTRACT``);
+        a follower returns its own."""
+        from tpuserve_torch.parallel.disagg import extract_seq_kv
+        mine = [{k: t.cpu() for k, t in layer.items()}
+                for layer in extract_seq_kv(self.kv_cache, blocks)]
+        if self._lockstep is None or self._page_parts == 1:
+            return mine
+        n = mine[0]["k"].shape[0]
+        bufs = self._lockstep.extract(blocks, pack_pages(mine, self.kv_cache))
+        return join_pages([unpack_pages(b, self.kv_cache, n)
+                           for b in bufs[:self._page_parts]])
+
+    def _exec_handoff(self, src: "Engine", src_blocks: list, dst_blocks: list,
+                      device=None) -> list:
+        """Copy a sequence's pages from ``src``'s cache (the in-process
+        pair's prefill engine) into this cache's ``dst_blocks`` on the card
+        (``device``: this cache's, when ``src`` is on another).  Under a
+        mesh every rank copies its own heads (``OP_HANDOFF``), after rank 0
+        checked the pools' formats.  Returns the pages moved."""
+        from tpuserve_torch.parallel.disagg import (check_kv_format, extract_seq_kv,
+                                                    insert_seq_kv)
+        if self._lockstep is not None:
+            check_kv_format(self.kv_cache, src.kv_cache)
+            self._lockstep.handoff(src._lockstep.tag, src_blocks, dst_blocks)
+        seq_kv = extract_seq_kv(src.kv_cache, src_blocks)
+        insert_seq_kv(self.kv_cache, seq_kv, dst_blocks, device=device)
+        return seq_kv
 
     def _agree_spill_entries(self) -> None:
         """At start under a mesh: keep only the spill entries every rank's

@@ -1743,8 +1743,8 @@ def lora_modules_of(args) -> Optional[dict]:
 
 def _check_topology(ap, args) -> None:
     """The JAX server's checks of ``--tp``, ``--pp``, ``--multihost``,
-    ``--disagg``, ``--role`` and ``--decode-url``, and what the port does
-    not combine."""
+    ``--disagg``, ``--role`` and ``--decode-url``; ``--disagg`` and
+    ``--role`` run on a ``--tp`` mesh (one node), not across processes."""
     if args.pp > 1 and args.tp > 1:
         ap.error("--pp and --tp are mutually exclusive (tp-within-stage composition "
                  "is future work)")
@@ -1755,11 +1755,12 @@ def _check_topology(ap, args) -> None:
         ap.error("--role prefill/decode is its own topology; drop --disagg/--multihost")
     if args.role == "prefill" and not args.decode_url:
         ap.error("--role prefill requires --decode-url")
-    if (args.disagg or args.role) and args.tp > 1:
-        ap.error("--disagg and --role on a --tp mesh are not ported yet "
-                 "(ROADMAP.md A10)")
     if args.disagg and args.multihost:
-        ap.error("--disagg under --multihost is not ported yet (ROADMAP.md A10)")
+        # the JAX server cannot serve it either: its multi-process
+        # coordinator reads the engine's mesh, which its pair lacks
+        ap.error("--disagg under --multihost is not served: the multi-process "
+                 "coordinator cannot mirror an in-process prefill/decode pair across "
+                 "processes; use --disagg with --tp on one node")
 
 
 def _join_ranks(args, argv: list):
@@ -1802,10 +1803,10 @@ def _build_engine(args, ecfg, mesh):
     from tpuserve_torch.runtime import Engine
     if args.role == "prefill":
         from tpuserve_torch.parallel.disagg_net import PrefillHandoffEngine
-        return PrefillHandoffEngine(ecfg, args.decode_url, device=args.device)
+        return PrefillHandoffEngine(ecfg, args.decode_url, mesh=mesh, device=args.device)
     if args.disagg:
         from tpuserve_torch.parallel.disagg import DisaggregatedEngine
-        return DisaggregatedEngine(ecfg, ecfg, device=args.device)
+        return DisaggregatedEngine(ecfg, ecfg, mesh=mesh, device=args.device)
     return Engine(ecfg, mesh=mesh, device=args.device)
 
 
